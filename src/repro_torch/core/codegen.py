@@ -776,13 +776,13 @@ class CudaKernel:
         return f"{self.program_name}/{self.buffering}/{self.dtype}"
 
 
-def _runner(p: Program, plan: _StreamPlan, buffering: str, dtype: str,
-            source: str, lib_name: str, smem_bytes: int):
-    tdtype = _TORCH_DTYPES[dtype]
+def _runner(k: CudaKernel, p: Program, plan: _StreamPlan):
+    """``k``'s call (kernel on the card, plain version on the CPU) and its
+    plain version on any device."""
+    tdtype = _TORCH_DTYPES[k.dtype]
     sink = plan.sink
     rout = sink.nest.trips[0]
     cout = p.arrays[sink.out].shape[1]
-    key = f"{p.name}/{buffering}/{dtype}"
     bound: list = []    # [library, entry point] once loaded
 
     def inputs(arrays, device):
@@ -798,21 +798,21 @@ def _runner(p: Program, plan: _StreamPlan, buffering: str, dtype: str,
         dev, xs = inputs(arrays, device)
         if dev.type == "cpu":
             return streamed_plain(p, plan, dict(zip(plan.inputs, xs)))
-        if smem_bytes > _cuda.MAX_SMEM_BYTES:
+        if k.smem_bytes > _cuda.MAX_SMEM_BYTES:
             raise RuntimeError(
-                f"{p.name}: the windows need {smem_bytes} bytes of shared "
+                f"{p.name}: the windows need {k.smem_bytes} bytes of shared "
                 f"memory, more than the {_cuda.MAX_SMEM_BYTES} a block has")
         if not bound:
-            lib = _cuda.load(lib_name, source)
-            bound[:] = [lib, _cuda.entry(lib, f"launch_{buffering}",
+            lib = _cuda.load(k.lib_name, k.source)
+            bound[:] = [lib, _cuda.entry(lib, f"launch_{k.buffering}",
                                          [ctypes.c_void_p] * (len(xs) + 2))]
         lib, launch = bound
         out = torch.empty((rout, cout), dtype=tdtype, device=dev)
         with torch.cuda.device(dev):
             rc = launch(*[x.data_ptr() for x in xs], out.data_ptr(),
                         _cuda.current_stream(dev))
-        _cuda.check(lib, rc, f"{p.name} streamed/{buffering}")
-        LAUNCHES[key] += 1
+        _cuda.check(lib, rc, f"{p.name} streamed/{k.buffering}")
+        LAUNCHES[k.launch_key] += 1
         return {sink.out: out}
 
     def plain(arrays, device=None):
@@ -866,8 +866,7 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
                    vmem_window_elems=meta["vmem_window_elems"],
                    soft_reasons=soft, dtype=dtype,
                    inputs=tuple(plan.inputs), smem_bytes=meta["smem_bytes"])
-    k.fn, k.plain = _runner(p, plan, buffering, dtype, src, k.lib_name,
-                            k.smem_bytes)
+    k.fn, k.plain = _runner(k, p, plan)
     return k
 
 

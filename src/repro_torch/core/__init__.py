@@ -12,9 +12,10 @@ from . import faults
 from .errors import (CacheFault, CompileError, Diagnostic,
                      NestContractViolation, ScheduleInfeasible,
                      SolverTruncated, StaticValidationError,
-                     UnlowerableProgram, WorkerFault)
+                     UnlowerableProgram, UntraceableFunction, WorkerFault)
 from .analysis import Verdict, lint, validate_static
 from .codegen import CudaKernel, emit_cuda, lower_program
+from .frontend import TracedProgram, scan, trace
 from .deps import DepAnalysis, DepEdge
 from .scheduler import Schedule, schedule, feasible, emit_hir
 from .transforms import (ArrayPartition, FuseProducerConsumer, LoopTile,
@@ -51,8 +52,9 @@ __all__ = [
     "hls", "CompileSpec", "CompileResult", "Target", "Objective",
     "Constraint", "constraint", "minimize", "SearchConfig", "DesignPoint",
     "faults", "CompileError", "ScheduleInfeasible", "SolverTruncated",
-    "WorkerFault", "CacheFault", "UnlowerableProgram",
+    "WorkerFault", "CacheFault", "UnlowerableProgram", "UntraceableFunction",
     "NestContractViolation", "Diagnostic", "StaticValidationError",
     "Verdict", "lint", "validate_static",
     "CudaKernel", "emit_cuda", "lower_program",
+    "trace", "TracedProgram", "scan",
 ]

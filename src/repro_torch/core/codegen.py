@@ -24,10 +24,21 @@ contract, which the port keeps).
   Both entry points live in one emitted ``.cu`` per program and dtype and
   share the tile body, so the two bufferings agree bit for bit.
 
-* **whole-array** ("Mode B") — the reference's generic fallback for the
-  programs the streamed contract rejects only *softly*.  It has no CUDA
-  lowering yet: ``lower_program`` raises ``NotImplementedError`` naming
-  the soft reasons (ROADMAP.md queues the Mode B kernel).
+* **whole-array** ("Mode B") — the generic fallback for the programs the
+  streamed contract rejects only *softly* (multi-store nests, strided or
+  transposed stores, reads of unwritten regions, several sinks,
+  reduction-carrying nests).  Every array is a whole buffer in device
+  memory; each nest is one ``__global__`` over its domain, one thread per
+  point, launched in program order on one stream (stream order is the
+  barrier between nests).  A stored array starts as a copy of its input,
+  so uncovered elements keep their initial values, exactly like
+  ``sim.sequential_exec``; the copy is skipped where one store covers the
+  whole array.  Partial, strided and transposed accesses are plain index
+  arithmetic.  Canonical accumulations (``two_mm``) fold the reduction iv
+  per thread in program order, which matches the sequential rounding bit
+  for bit.  Two stores of one nest to one array run in one thread where
+  the lowering proves their elements disjoint, else one launch per store
+  in op order (the later store wins on overlap, as in the reference).
 
 Programs outside both contracts (multi-chain tasks, imperfect nests, loose
 top-level ops, non-canonical reductions — the shape vocabulary is
@@ -42,9 +53,10 @@ construction; only the emitter is new.  The kernel is emitted as *source
 text* (``CudaKernel.source``, the debuggable artifact) and built with
 ``nvcc`` at its first launch.  Arithmetic uses the round-to-nearest
 intrinsics (``__fmul_rn``...), so nothing is contracted into an FMA and the
-kernel repeats the plain version's rounding exactly.  Beside it,
-``run_plain`` walks the same plan tile by tile in PyTorch; a kernel runs it
-only for tensors that lie on the CPU.
+kernel repeats the plain version's rounding exactly.  Beside each kernel
+sits its plain version (``streamed_plain`` walks the same tile plan,
+``whole_plain`` the same nests, vectorized over each domain, in PyTorch);
+a kernel runs it only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -658,7 +670,8 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
             "halo": dict(plan.halo), "outputs": (sink.out,),
             "vmem_window_elems": {s.out: s.win_sz * s.nest.trips[1]
                                   for s in plan.stages if s is not sink},
-            "smem_bytes": smem_elems * (4 if dtype == "float32" else 8)}
+            "smem_bytes": smem_elems * (4 if dtype == "float32" else 8),
+            "nest_launches": 1}
     return "\n".join(lines) + "\n", meta
 
 
@@ -728,6 +741,344 @@ def streamed_plain(p: Program, plan: _StreamPlan,
 
 
 # ---------------------------------------------------------------------------
+# Mode B: the whole-array plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _WholePlan:
+    nests: list[_Nest]
+    stored: list[str]           # every stored array, first-store order
+    writer: dict[str, int]      # stored array -> index of its (one) nest
+    copied: list[str]           # stored arrays no single store covers
+    inputs: list[str]           # arrays the kernel reads, program order
+    groups: list[list]          # per nest: its stores, grouped per launch
+
+
+def _covers(p: Program, nest: _Nest, acc: _Access) -> bool:
+    """The store writes every element of its array (the reference's
+    ``full`` case: unit steps, zero offsets, extents equal to the shape)."""
+    trip = dict(zip(nest.ivs, nest.trips))
+    return (all(c == 1 and k == 0 for _, c, k in acc.dims)
+            and tuple(trip[ivn] for ivn, _, _ in acc.dims)
+            == p.arrays[acc.array].shape)
+
+
+def _disjoint(a: _Access, b: _Access) -> bool:
+    """Two stores of one nest provably write disjoint elements: some dim
+    steps both by the same coefficient from offsets that differ modulo it
+    (``dus``: rows ``2i`` and ``2i + 1``)."""
+    return any(ca == cb and (ka - kb) % ca != 0
+               for (_, ca, ka), (_, cb, kb) in zip(a.dims, b.dims))
+
+
+def _plan_whole(p: Program, nests: list[_Nest]) -> _WholePlan:
+    stored: list[str] = []
+    writer: dict[str, int] = {}
+    full: set = set()
+    groups = []
+    for ni, nest in enumerate(nests):
+        for _, acc in nest.stores:
+            if acc.array not in writer:
+                stored.append(acc.array)
+                writer[acc.array] = ni
+            if _covers(p, nest, acc):
+                full.add(acc.array)
+        sts = [acc for _, acc in nest.stores]
+        overlap = any(x.array == y.array and not _disjoint(x, y)
+                      for i, x in enumerate(sts) for y in sts[i + 1:])
+        # stores that may overlap run one launch each, in op order, so the
+        # later store wins as it does in the reference
+        groups.append([[s] for s in nest.stores] if overlap
+                      else [list(nest.stores)])
+    copied = [a for a in stored if a not in full]
+    read = set(copied)
+    for ni, nest in enumerate(nests):
+        for _, acc in nest.loads:
+            if writer.get(acc.array, ni) >= ni:
+                read.add(acc.array)   # the input's value (incl. the carry)
+    return _WholePlan(nests=nests, stored=stored, writer=writer,
+                      copied=copied, inputs=[a for a in p.arrays if a in read],
+                      groups=groups)
+
+
+def _load_src(plan: _WholePlan, ni: int, array: str) -> str:
+    """Where nest ``ni`` reads ``array``: the output buffer once its writer
+    nest has run, else the input (a stored array's value before its writer
+    runs, and a reduction's carry start, are its input's)."""
+    return "o" if plan.writer.get(array, ni) < ni else "x"
+
+
+def _c_index(acc: _Access, shape: tuple, var: dict) -> str:
+    terms = [_affine(var[ivn], c, k) if ivn is not None else str(k)
+             for ivn, c, k in acc.dims]
+    if len(terms) == 1:
+        return terms[0]
+    return f"(size_t)({terms[0]}) * {shape[1]} + ({terms[1]})"
+
+
+_WHOLE_THREADS = 256
+
+
+def _emit_whole_cuda(p: Program, plan: _WholePlan,
+                     dtype: str) -> tuple[str, dict]:
+    fi = 0 if dtype == "float32" else 1
+    lines = [
+        "// Generated by repro_torch.core.codegen — do not edit.",
+        f"// program '{p.name}': whole-array (Mode B), {dtype}.",
+        "// Replaces the Pallas kernel that repro.core.codegen._emit_whole "
+        "emits.",
+        "// Bound: device memory for the elementwise nests (each array read "
+        "once and",
+        "// written once), arithmetic for a reduction nest.  Design: one "
+        "__global__ per",
+        "// nest (per store where two stores of a nest may overlap), one "
+        "thread per point",
+        "// of its domain, launched in program order on one stream; every "
+        "array lives",
+        "// in device memory, the L2 keeps a producer's output near its "
+        "consumer.",
+        "// A reduction folds its innermost iv per thread in program order.  "
+        "The _rn",
+        "// intrinsics round every op once, as the plain version does, so "
+        "the two agree",
+        "// bit for bit.",
+        "#include <cuda_runtime.h>",
+        "",
+        f"typedef {_CTYPES[dtype]} real;",
+        "",
+    ]
+    launches = []   # (kernel, domain points, parameters, written ones)
+    for ni, nest in enumerate(plan.nests):
+        var = {ivn: f"iv_{_ident(ivn)}" for ivn in nest.ivs}
+        outer = nest.ivs[:-1] if nest.red_iv is not None else nest.ivs
+        trips = nest.trips[:len(outer)]
+        npts = math.prod(trips)
+        for gi, group in enumerate(plan.groups[ni]):
+            kname = f"nest{ni}_{_ident(nest.loop.ivname)}"
+            if len(plan.groups[ni]) > 1:
+                kname += f"_store{gi}"
+            mine = {op.uid for op, _ in group}
+            ptrs: list[str] = []        # kernel parameters, in order
+            written: set = set()
+
+            def ptr(kind: str, array: str, store: bool = False) -> str:
+                name = f"{kind}_{_ident(array)}"
+                if name not in ptrs:
+                    ptrs.append(name)
+                if store:
+                    written.add(name)
+                return name
+
+            body = []   # the point's ivs from its flat index, then the ops
+            for k, ivn in enumerate(outer):
+                rest = math.prod(trips[k + 1:])
+                idx = "pt" if rest == 1 else f"pt / {rest}"
+                if k > 0:
+                    idx = f"({idx}) % {trips[k]}"
+                body.append(f"const int {var[ivn]} = (int)({idx});")
+            names: dict[str, str] = {}
+            inner = []
+            red = nest.red_iv is not None
+            for op in nest.ops:
+                if isinstance(op, ConstOp):
+                    names[op.result] = _lit(op.value, dtype)
+                elif isinstance(op, LoadOp):
+                    if red and op.uid in nest.red_loads:
+                        names[op.result] = "acc"
+                        continue
+                    acc = next(a for o, a in nest.loads if o is op)
+                    src = ptr(_load_src(plan, ni, acc.array), acc.array)
+                    names[op.result] = _vname(op.result)
+                    inner.append(
+                        f"const real {names[op.result]} = {src}["
+                        + _c_index(acc, p.arrays[acc.array].shape, var)
+                        + "];")
+                elif isinstance(op, ArithOp):
+                    names[op.result] = _vname(op.result)
+                    inner.append(f"const real {names[op.result]} = "
+                                 + _ARITH_FMT[op.fn][fi].format(
+                                     *(names[a] for a in op.args)) + ";")
+                elif isinstance(op, StoreOp):
+                    if red:
+                        inner.append(f"acc = {names[op.value]};")
+                    elif op.uid in mine:
+                        acc = next(a for o, a in nest.stores if o is op)
+                        inner.append(
+                            f"{ptr('o', acc.array, store=True)}["
+                            + _c_index(acc, p.arrays[acc.array].shape, var)
+                            + f"] = {names[op.value]};")
+            if red:
+                _, sacc = nest.stores[0]
+                at = _c_index(sacc, p.arrays[sacc.array].shape, var)
+                rv = var[nest.red_iv]
+                body.append(f"real acc = {ptr('x', sacc.array)}[{at}];"
+                            "  // the carry starts at the input's value")
+                body.append(f"for (int {rv} = 0; {rv} < {nest.trips[-1]}; "
+                            f"++{rv}) {{")
+                body += ["    " + x for x in inner]
+                body.append("}")
+                body.append(f"{ptr('o', sacc.array, store=True)}[{at}] = "
+                            "acc;")
+            else:
+                body += inner
+            params = [("real* " if n in written else "const real* ")
+                      + f"__restrict__ {n}" for n in ptrs]
+            what = (f"reduction over '{nest.red_iv}' ({nest.trips[-1]} "
+                    "steps), " if red else "")
+            lines.append(f"// nest {nest.loop.ivname}: {what}domain "
+                         f"{tuple(trips)}")
+            lines.append(f"__global__ void __launch_bounds__({_WHOLE_THREADS})"
+                         f" {kname}(" + ", ".join(params) + ") {")
+            lines.append("    for (long long pt = (long long)blockIdx.x * "
+                         "blockDim.x + threadIdx.x;")
+            lines.append(f"         pt < {npts}LL; pt += (long long)gridDim.x"
+                         " * blockDim.x) {")
+            lines += ["        " + b for b in body]
+            lines += ["    }", "}", ""]
+            launches.append((kname, npts, ptrs, written))
+
+    esz = 4 if dtype == "float32" else 8
+    cargs = ([f"const void* x_{_ident(a)}" for a in plan.inputs]
+             + [f"void* o_{_ident(a)}" for a in plan.stored]
+             + ["void* stream"])
+    lines += [
+        'extern "C" int launch_whole(' + ", ".join(cargs) + ") {",
+        "    cudaStream_t s = (cudaStream_t)stream;",
+        "    cudaError_t err;",
+    ]
+    for a in plan.copied:
+        nbytes = math.prod(p.arrays[a].shape) * esz
+        lines += [
+            f"    // '{a}': no store covers it; uncovered elements keep the "
+            "input's values",
+            f"    err = cudaMemcpyAsync(o_{_ident(a)}, x_{_ident(a)}, "
+            f"{nbytes}, cudaMemcpyDeviceToDevice, s);",
+            "    if (err != cudaSuccess) return (int)err;",
+        ]
+    for kname, npts, ptrs, written in launches:
+        blocks = max(1, min(-(-npts // _WHOLE_THREADS), 2 ** 31 - 1))
+        casts = [("(real*)" if n in written else "(const real*)") + n
+                 for n in ptrs]
+        lines += [
+            f"    {kname}<<<{blocks}, {_WHOLE_THREADS}, 0, s>>>("
+            + ", ".join(casts) + ");",
+            "    err = cudaGetLastError();",
+            "    if (err != cudaSuccess) return (int)err;",
+        ]
+    lines += [
+        "    return 0;",
+        "}",
+        "",
+        'extern "C" const char* repro_error_string(int e) {',
+        "    return cudaGetErrorString((cudaError_t)e);",
+        "}",
+    ]
+    meta = {"mode": "whole", "grid": (), "block_rows": None, "halo": {},
+            "outputs": tuple(plan.stored), "vmem_window_elems": {},
+            "smem_bytes": 0, "nest_launches": len(launches)}
+    return "\n".join(lines) + "\n", meta
+
+
+def _domain_view(src: torch.Tensor, acc: _Access, ivs: list[str],
+                 trips: list[int], fixed: dict) -> torch.Tensor:
+    """``src`` read at ``acc`` over the domain of ``ivs``: strided slices per
+    array dim, axes permuted into iv order, size 1 where an iv is absent;
+    ``fixed`` pins ivs (the reduction iv) to one value."""
+    ivpos = {ivn: k for k, ivn in enumerate(ivs)}
+    sel, axes = [], []
+    for ivn, c, k in acc.dims:
+        if ivn is None:
+            sel.append(k)
+        elif ivn in fixed:
+            sel.append(c * fixed[ivn] + k)
+        else:
+            n = trips[ivpos[ivn]]
+            sel.append(slice(k, k + c * (n - 1) + 1, c))
+            axes.append(ivpos[ivn])
+    t = src[tuple(sel)]
+    t = t.permute(sorted(range(len(axes)), key=axes.__getitem__))
+    return t.reshape([trips[k] if k in axes else 1
+                      for k in range(len(ivs))])
+
+
+def _store_view(val: torch.Tensor, acc: _Access, ivs: list[str],
+                trips: list[int]) -> tuple:
+    """(destination slices, value) of a store: the value broadcast over the
+    domain and permuted into the array's dim order."""
+    ivpos = {ivn: k for k, ivn in enumerate(ivs)}
+    sel = tuple(slice(k, k + c * (trips[ivpos[ivn]] - 1) + 1, c)
+                for ivn, c, k in acc.dims)
+    v = val.expand(trips).permute([ivpos[ivn] for ivn, _, _ in acc.dims])
+    return sel, v
+
+
+def whole_plain(p: Program, nests: list[_Nest],
+                arrays: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """K3's plain version: the nests in program order, each vectorized over
+    its domain with one PyTorch op per IR op (strided slices for loads and
+    stores, a Python loop over a reduction iv).  It reads and writes the
+    same buffers as the kernel, so it agrees with it bit for bit on the card
+    and with ``sim.sequential_exec`` in float64.  ``arrays`` holds the
+    arrays the kernel reads (``CudaKernel.inputs``)."""
+    plan = _plan_whole(p, nests)
+    some = arrays[plan.inputs[0]] if plan.inputs else None
+    dtype = some.dtype if some is not None else torch.float64
+    dev = some.device if some is not None else torch.device("cpu")
+    out = {a: (arrays[a].clone() if a in plan.copied
+               else torch.empty(p.arrays[a].shape, dtype=dtype, device=dev))
+           for a in plan.stored}
+    consts: dict[float, torch.Tensor] = {}
+
+    def const(v: float) -> torch.Tensor:
+        if v not in consts:
+            consts[v] = torch.tensor(v, dtype=dtype, device=dev)
+        return consts[v]
+
+    for ni, nest in enumerate(nests):
+        red = nest.red_iv is not None
+        outer = nest.ivs[:-1] if red else nest.ivs
+        trips = nest.trips[:len(outer)]
+
+        def evaluate(fixed, carry=None):
+            names: dict[str, torch.Tensor] = {}
+            stores = []
+            for op in nest.ops:
+                if isinstance(op, ConstOp):
+                    names[op.result] = const(op.value)
+                elif isinstance(op, LoadOp):
+                    if red and op.uid in nest.red_loads:
+                        names[op.result] = carry
+                        continue
+                    acc = next(a for o, a in nest.loads if o is op)
+                    src = (out if _load_src(plan, ni, acc.array) == "o"
+                           else arrays)[acc.array]
+                    names[op.result] = _domain_view(src, acc, outer, trips,
+                                                    fixed)
+                elif isinstance(op, ArithOp):
+                    names[op.result] = _TORCH_FNS[op.fn](
+                        *(names[a] for a in op.args))
+                elif isinstance(op, StoreOp):
+                    acc = next(a for o, a in nest.stores if o is op)
+                    stores.append((acc, names[op.value]))
+            return stores
+
+        if red:
+            (_, sacc), = nest.stores
+            acc = _domain_view(arrays[sacc.array], sacc, outer, trips, {})
+            for k in range(nest.trips[-1]):
+                (_, val), = evaluate({nest.red_iv: k}, acc)
+                acc = val.expand(trips)
+            stores = [(sacc, acc)]
+        else:
+            stores = evaluate({})
+        for acc, val in stores:          # op order: the later store wins
+            sel, v = _store_view(val, acc, outer, trips)
+            out[acc.array][sel] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -745,8 +1096,8 @@ class CudaKernel:
     """
 
     program_name: str
-    mode: str                       # "streamed"
-    buffering: str                  # "double" | "single"
+    mode: str                       # "streamed" | "whole"
+    buffering: str                  # "double" | "single" | "whole"
     source: str
     fn: Callable
     outputs: tuple
@@ -761,6 +1112,7 @@ class CudaKernel:
     dtype: str = "float32"
     inputs: tuple = ()              # the arrays the kernel reads
     smem_bytes: int = 0
+    nest_launches: int = 1          # CUDA launches per call
     plain: Optional[Callable] = field(default=None, repr=False)
 
     def __call__(self, arrays, device=None):
@@ -768,7 +1120,7 @@ class CudaKernel:
 
     @property
     def lib_name(self) -> str:
-        return f"streamed_{_ident(self.program_name)}_{self.dtype}"
+        return f"{self.mode}_{_ident(self.program_name)}_{self.dtype}"
 
     @property
     def launch_key(self) -> str:
@@ -776,48 +1128,49 @@ class CudaKernel:
         return f"{self.program_name}/{self.buffering}/{self.dtype}"
 
 
-def _runner(k: CudaKernel, p: Program, plan: _StreamPlan):
+def _runner(k: CudaKernel, p: Program, out_shapes: dict, plain_fn: Callable):
     """``k``'s call (kernel on the card, plain version on the CPU) and its
-    plain version on any device."""
+    plain version on any device.  ``plain_fn(xs)`` maps the input tensors
+    by name to the outputs; the kernel's C entry ``launch_<buffering>``
+    takes the inputs' pointers, then the outputs', then the stream."""
     tdtype = _TORCH_DTYPES[k.dtype]
-    sink = plan.sink
-    rout = sink.nest.trips[0]
-    cout = p.arrays[sink.out].shape[1]
     bound: list = []    # [library, entry point] once loaded
 
     def inputs(arrays, device):
-        missing = [a for a in plan.inputs if a not in arrays]
+        missing = [a for a in k.inputs if a not in arrays]
         if missing:
             raise KeyError(f"{p.name}: missing input arrays {missing}")
-        dev = _cuda.resolve_device([arrays[a] for a in plan.inputs], device)
-        return dev, [_cuda.as_input(arrays[a], tdtype, dev,
-                                    p.arrays[a].shape, f"{p.name}:{a}")
-                     for a in plan.inputs]
+        dev = _cuda.resolve_device([arrays[a] for a in k.inputs], device)
+        return dev, {a: _cuda.as_input(arrays[a], tdtype, dev,
+                                       p.arrays[a].shape, f"{p.name}:{a}")
+                     for a in k.inputs}
 
     def run(arrays, device=None):
         dev, xs = inputs(arrays, device)
         if dev.type == "cpu":
-            return streamed_plain(p, plan, dict(zip(plan.inputs, xs)))
+            return plain_fn(xs)
         if k.smem_bytes > _cuda.MAX_SMEM_BYTES:
             raise RuntimeError(
                 f"{p.name}: the windows need {k.smem_bytes} bytes of shared "
                 f"memory, more than the {_cuda.MAX_SMEM_BYTES} a block has")
         if not bound:
             lib = _cuda.load(k.lib_name, k.source)
+            nargs = len(xs) + len(out_shapes) + 1
             bound[:] = [lib, _cuda.entry(lib, f"launch_{k.buffering}",
-                                         [ctypes.c_void_p] * (len(xs) + 2))]
+                                         [ctypes.c_void_p] * nargs)]
         lib, launch = bound
-        out = torch.empty((rout, cout), dtype=tdtype, device=dev)
+        outs = {a: torch.empty(shape, dtype=tdtype, device=dev)
+                for a, shape in out_shapes.items()}
         with torch.cuda.device(dev):
-            rc = launch(*[x.data_ptr() for x in xs], out.data_ptr(),
+            rc = launch(*[x.data_ptr() for x in xs.values()],
+                        *[o.data_ptr() for o in outs.values()],
                         _cuda.current_stream(dev))
-        _cuda.check(lib, rc, f"{p.name} streamed/{k.buffering}")
+        _cuda.check(lib, rc, f"{p.name} {k.mode}/{k.buffering}")
         LAUNCHES[k.launch_key] += 1
-        return {sink.out: out}
+        return outs
 
     def plain(arrays, device=None):
-        dev, xs = inputs(arrays, device)
-        return streamed_plain(p, plan, dict(zip(plan.inputs, xs)))
+        return plain_fn(inputs(arrays, device)[1])
 
     return run, plain
 
@@ -825,10 +1178,10 @@ def _runner(k: CudaKernel, p: Program, plan: _StreamPlan):
 def lower_program(p: Program, *, block_rows: Optional[int] = None,
                   buffering: str = "double",
                   dtype: str = "float32") -> CudaKernel:
-    """Lower ``p`` to a streamed CUDA kernel; raises
-    :class:`UnlowerableProgram` when the program is outside both lowering
-    contracts and ``NotImplementedError`` when it needs the whole-array
-    lowering, which has no CUDA kernel yet."""
+    """Lower ``p`` to a CUDA kernel (streamed if the chain contract holds,
+    whole-array otherwise, where ``buffering`` does not apply and reads
+    ``"whole"``); raises :class:`UnlowerableProgram` when the program is
+    outside both contracts."""
     if buffering not in ("double", "single"):
         raise ValueError("buffering must be 'double' or 'single', "
                          f"got {buffering!r}")
@@ -853,20 +1206,32 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
         raise UnlowerableProgram(p.name, [NestContractViolation(
             "empty", "codegen", "program has no loop nests")])
     plan, soft = _plan_streamed(p, nests, block_rows or DEFAULT_BLOCK_ROWS)
-    if plan is None:
-        raise NotImplementedError(
-            f"program '{p.name}' needs the whole-array lowering (Mode B), "
-            "which has no CUDA kernel yet (queued in ROADMAP.md); streamed "
-            "mode refused it: " + "; ".join(soft))
-    src, meta = _emit_streamed(p, plan, dtype)
+    if plan is not None:
+        src, meta = _emit_streamed(p, plan, dtype)
+        inputs = plan.inputs
+        out_shapes = {plan.sink.out: (plan.sink.nest.trips[0],
+                                      p.arrays[plan.sink.out].shape[1])}
+
+        def plain_fn(xs):
+            return streamed_plain(p, plan, xs)
+    else:
+        wplan = _plan_whole(p, nests)
+        src, meta = _emit_whole_cuda(p, wplan, dtype)
+        buffering = "whole"
+        inputs = wplan.inputs
+        out_shapes = {a: p.arrays[a].shape for a in wplan.stored}
+
+        def plain_fn(xs):
+            return whole_plain(p, nests, xs)
     k = CudaKernel(program_name=p.name, mode=meta["mode"],
                    buffering=buffering, source=src, fn=None,
                    outputs=meta["outputs"], grid=meta["grid"],
                    block_rows=meta["block_rows"], halo=meta["halo"],
                    vmem_window_elems=meta["vmem_window_elems"],
-                   soft_reasons=soft, dtype=dtype,
-                   inputs=tuple(plan.inputs), smem_bytes=meta["smem_bytes"])
-    k.fn, k.plain = _runner(k, p, plan)
+                   soft_reasons=soft, dtype=dtype, inputs=tuple(inputs),
+                   smem_bytes=meta["smem_bytes"],
+                   nest_launches=meta["nest_launches"])
+    k.fn, k.plain = _runner(k, p, out_shapes, plain_fn)
     return k
 
 

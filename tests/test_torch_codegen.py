@@ -25,7 +25,6 @@ from repro_torch.kernels import stencil_pipeline as sp
 
 _STREAMED = sorted([*programs.CHAIN_BENCHMARKS, "unsharp", "harris",
                     "fig1_conv_chain"])
-_WHOLE = ["dus", "optical_flow", "two_mm"]
 
 
 def _mk(pkg, name, n=8):
@@ -56,7 +55,7 @@ def _exact(kernel, name, n=8, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# corpus coverage: every streamed program matches; Mode B is refused
+# corpus coverage: every streamed program matches (Mode B: test_torch_whole)
 # ---------------------------------------------------------------------------
 
 
@@ -83,15 +82,6 @@ def test_plan_metadata_equals_reference(name, block_rows):
     assert got.vmem_window_elems == want.vmem_window_elems
     assert got.soft_reasons == want.soft_reasons
     assert got.outputs == want.outputs
-
-
-@pytest.mark.parametrize("name", _WHOLE)
-def test_whole_array_programs_raise_not_implemented(name):
-    n = 6 if name in ("optical_flow", "two_mm") else 8
-    assert ref_codegen.lower_program(_mk(ref_programs, name, n)).mode == \
-        "whole"
-    with pytest.raises(NotImplementedError, match="Mode B"):
-        codegen.lower_program(_mk(programs, name, n), dtype="float64")
 
 
 def test_fig3_conv1d_unlowerable():

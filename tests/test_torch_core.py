@@ -82,7 +82,9 @@ def _positional(s) -> tuple:
 
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.kernels.stencil_pipeline\n"
+            "repro_torch.kernels.stencil_pipeline, "
+            "repro_torch.core.frontend, repro_torch.core.pipeline_ilp, "
+            "repro_torch.core.overlap\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

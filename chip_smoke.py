@@ -132,26 +132,6 @@ def kernel_bytes(p, k) -> int:
                      for a in (*k.inputs, *k.outputs))
 
 
-def fitting_block_rows(p, block_rows: int) -> int:
-    """The largest block size up to the design point's whose K2 windows fit
-    in one block's shared memory at this size."""
-    from repro_torch import _cuda
-    from repro_torch.core import codegen
-    br = block_rows
-    while br > 1 and codegen.lower_program(
-            p, block_rows=br).smem_bytes > _cuda.MAX_SMEM_BYTES:
-        br //= 2
-    return br
-
-
-def restricted_spec(hls) -> dict:
-    """The stencil sweep's search (``kernels/stencil_pipeline.py``)."""
-    return dict(objectives=(hls.minimize("latency"), hls.minimize("bram")),
-                search=hls.SearchConfig(moves=("fuse", "tile"),
-                                        unroll_factors=(), tile_sizes=(2, 4),
-                                        max_candidates=8))
-
-
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -193,7 +173,7 @@ def main() -> int:
               f" halo {streamed[name][1].halo}")
     for name, mk in programs.BENCHMARKS.items():
         n = BENCH_COMPILE_N[name]
-        spec = restricted_spec(hls) if name in RESTRICTED else {}
+        spec = sp.restricted_spec(hls) if name in RESTRICTED else {}
         tc = time.perf_counter()
         r = hls.compile(mk(n, storage="bram"), **spec)
         k = r.emit_cuda()
@@ -201,15 +181,16 @@ def main() -> int:
         big = mk(CHAIN_N, storage="bram")
         how = "restricted search" if spec else "default search"
         if k.mode == "streamed":
-            point_br = k.block_rows or codegen.DEFAULT_BLOCK_ROWS
-            br = fitting_block_rows(big, point_br)
-            streamed[name] = (big, codegen.lower_program(big, block_rows=br),
-                              codegen.lower_program(big, block_rows=br,
-                                                    buffering="single"),
-                              br, "benchmarks")
+            # the point's block size; the lowering shrinks it where the
+            # windows would not fit shared memory at this width
+            kd, ks = (codegen.lower_program(big, block_rows=k.block_rows,
+                                            buffering=b)
+                      for b in ("double", "single"))
+            streamed[name] = (big, kd, ks, kd.block_rows, "benchmarks")
             print(f"compile: {name} n={n} ({how}, {secs:.1f} s) best "
-                  f"'{r.best.desc}' -> streamed, block_rows {point_br}; "
-                  f"{br} fits shared memory at n={CHAIN_N}")
+                  f"'{r.best.desc}' -> streamed, block_rows {k.block_rows}; "
+                  f"at n={CHAIN_N}: {kd.block_rows} "
+                  f"({'; '.join(kd.soft_reasons) or 'fits'})")
         else:
             kb = codegen.lower_program(big)
             whole[name] = (big, kb, "benchmarks")

@@ -32,9 +32,9 @@ contract, which the port keeps).
   point, launched in program order on one stream (stream order is the
   barrier between nests).  A stored array starts as a copy of its input,
   so uncovered elements keep their initial values, exactly like
-  ``sim.sequential_exec``; the copy is skipped where one store covers the
-  whole array.  Partial, strided and transposed accesses are plain index
-  arithmetic.  Canonical accumulations (``two_mm``) fold the reduction iv
+  ``sim.sequential_exec``; the copy is skipped where the nest's stores
+  cover the whole array between them.  Partial, strided and transposed
+  accesses are plain index arithmetic.  Canonical accumulations (``two_mm``) fold the reduction iv
   per thread in program order, which matches the sequential rounding bit
   for bit.  Two stores of one nest to one array run in one thread where
   the lowering proves their elements disjoint, else one launch per store
@@ -49,11 +49,12 @@ codes) in ``diagnostics``.
 
 The nest extraction and the streamed planner are the reference's,
 unchanged, so windows, halos, padding and violation codes equal it by
-construction; only the emitter is new.  The kernel is emitted as *source
-text* (``CudaKernel.source``, the debuggable artifact) and built with
-``nvcc`` at its first launch.  Arithmetic uses the round-to-nearest
-intrinsics (``__fmul_rn``...), so nothing is contracted into an FMA and the
-kernel repeats the plain version's rounding exactly.  Beside each kernel
+construction; only the emitter is new, and a streamed block size that
+shrinks where its windows would not fit one block's shared memory.  The
+kernel is emitted as *source text* (``CudaKernel.source``, the debuggable
+artifact) and built with ``nvcc`` at its first launch.  Arithmetic uses
+the round-to-nearest intrinsics (``__fmul_rn``...), so nothing is
+contracted into an FMA and the kernel repeats the plain version's rounding exactly.  Beside each kernel
 sits its plain version (``streamed_plain`` walks the same tile plan,
 ``whole_plain`` the same nests, vectorized over each domain, in PyTorch);
 a kernel runs it only for tensors that lie on the CPU.
@@ -750,18 +751,26 @@ class _WholePlan:
     nests: list[_Nest]
     stored: list[str]           # every stored array, first-store order
     writer: dict[str, int]      # stored array -> index of its (one) nest
-    copied: list[str]           # stored arrays no single store covers
+    copied: list[str]           # stored arrays their stores do not cover
     inputs: list[str]           # arrays the kernel reads, program order
     groups: list[list]          # per nest: its stores, grouped per launch
 
 
-def _covers(p: Program, nest: _Nest, acc: _Access) -> bool:
-    """The store writes every element of its array (the reference's
-    ``full`` case: unit steps, zero offsets, extents equal to the shape)."""
+def _covers(p: Program, nest: _Nest, accs: list[_Access]) -> bool:
+    """The stores ``accs`` of one nest to one array write every element of
+    it together.  A store uses each outer iv in exactly one dim (the
+    extractor's ``store-shape`` rule), so it writes the product of its
+    dims' index progressions; stores that differ in at most one dim write
+    the shared dims' product times the union of the differing dim's
+    (``dus``: rows ``2i`` and ``2i + 1`` of ``uy``).  Stores differing in
+    more dims count as not covering."""
     trip = dict(zip(nest.ivs, nest.trips))
-    return (all(c == 1 and k == 0 for _, c, k in acc.dims)
-            and tuple(trip[ivn] for ivn, _, _ in acc.dims)
-            == p.arrays[acc.array].shape)
+    shape = p.arrays[accs[0].array].shape
+    dims = [{acc.dims[d] for acc in accs} for d in range(len(shape))]
+    if sum(len(ds) > 1 for ds in dims) > 1:
+        return False
+    return all({k + c * t for ivn, c, k in ds for t in range(trip[ivn])}
+               == set(range(extent)) for ds, extent in zip(dims, shape))
 
 
 def _disjoint(a: _Access, b: _Access) -> bool:
@@ -778,13 +787,14 @@ def _plan_whole(p: Program, nests: list[_Nest]) -> _WholePlan:
     full: set = set()
     groups = []
     for ni, nest in enumerate(nests):
-        for _, acc in nest.stores:
+        sts = [acc for _, acc in nest.stores]
+        for acc in sts:
             if acc.array not in writer:
                 stored.append(acc.array)
                 writer[acc.array] = ni
-            if _covers(p, nest, acc):
-                full.add(acc.array)
-        sts = [acc for _, acc in nest.stores]
+        for a in {acc.array for acc in sts}:
+            if _covers(p, nest, [acc for acc in sts if acc.array == a]):
+                full.add(a)
         overlap = any(x.array == y.array and not _disjoint(x, y)
                       for i, x in enumerate(sts) for y in sts[i + 1:])
         # stores that may overlap run one launch each, in op order, so the
@@ -950,8 +960,8 @@ def _emit_whole_cuda(p: Program, plan: _WholePlan,
     for a in plan.copied:
         nbytes = math.prod(p.arrays[a].shape) * esz
         lines += [
-            f"    // '{a}': no store covers it; uncovered elements keep the "
-            "input's values",
+            f"    // '{a}': its stores do not cover it; uncovered elements "
+            "keep the input's values",
             f"    err = cudaMemcpyAsync(o_{_ident(a)}, x_{_ident(a)}, "
             f"{nbytes}, cudaMemcpyDeviceToDevice, s);",
             "    if (err != cudaSuccess) return (int)err;",
@@ -1013,15 +1023,15 @@ def _store_view(val: torch.Tensor, acc: _Access, ivs: list[str],
     return sel, v
 
 
-def whole_plain(p: Program, nests: list[_Nest],
+def whole_plain(p: Program, plan: _WholePlan,
                 arrays: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """K3's plain version: the nests in program order, each vectorized over
     its domain with one PyTorch op per IR op (strided slices for loads and
     stores, a Python loop over a reduction iv).  It reads and writes the
     same buffers as the kernel, so it agrees with it bit for bit on the card
     and with ``sim.sequential_exec`` in float64.  ``arrays`` holds the
-    arrays the kernel reads (``CudaKernel.inputs``)."""
-    plan = _plan_whole(p, nests)
+    arrays the kernel reads (``CudaKernel.inputs``); ``plan`` is the one the
+    kernel was emitted from."""
     some = arrays[plan.inputs[0]] if plan.inputs else None
     dtype = some.dtype if some is not None else torch.float64
     dev = some.device if some is not None else torch.device("cpu")
@@ -1035,7 +1045,7 @@ def whole_plain(p: Program, nests: list[_Nest],
             consts[v] = torch.tensor(v, dtype=dtype, device=dev)
         return consts[v]
 
-    for ni, nest in enumerate(nests):
+    for ni, nest in enumerate(plan.nests):
         red = nest.red_iv is not None
         outer = nest.ivs[:-1] if red else nest.ivs
         trips = nest.trips[:len(outer)]
@@ -1175,13 +1185,38 @@ def _runner(k: CudaKernel, p: Program, out_shapes: dict, plain_fn: Callable):
     return run, plain
 
 
+def _fit_shared_memory(p: Program, nests: list[_Nest], plan: _StreamPlan,
+                       soft: list[str], dtype: str) -> _StreamPlan:
+    """``plan`` at the largest block size up to its own whose windows fit
+    one block's shared memory; a smaller block size is recorded in
+    ``soft``.  A plan that does not fit even at one row is kept as it is,
+    and its launch refuses."""
+    esz = 4 if dtype == "float32" else 8
+
+    def need(pl: _StreamPlan) -> int:
+        return _smem_layout(pl)[1] * esz
+
+    fitted = plan
+    while need(fitted) > _cuda.MAX_SMEM_BYTES and fitted.block_rows > 1:
+        fitted, _ = _plan_streamed(p, nests, fitted.block_rows - 1)
+    if fitted is plan or need(fitted) > _cuda.MAX_SMEM_BYTES:
+        return plan
+    soft.append(f"block_rows {plan.block_rows} -> {fitted.block_rows}: the "
+                f"windows need {need(plan)} bytes of shared memory at "
+                f"{plan.block_rows} rows, more than the "
+                f"{_cuda.MAX_SMEM_BYTES} a block has")
+    return fitted
+
+
 def lower_program(p: Program, *, block_rows: Optional[int] = None,
                   buffering: str = "double",
                   dtype: str = "float32") -> CudaKernel:
     """Lower ``p`` to a CUDA kernel (streamed if the chain contract holds,
     whole-array otherwise, where ``buffering`` does not apply and reads
     ``"whole"``); raises :class:`UnlowerableProgram` when the program is
-    outside both contracts."""
+    outside both contracts.  A streamed kernel takes the largest block size
+    up to ``block_rows`` whose windows fit one block's shared memory, and
+    says so in ``soft_reasons`` when that is smaller."""
     if buffering not in ("double", "single"):
         raise ValueError("buffering must be 'double' or 'single', "
                          f"got {buffering!r}")
@@ -1207,6 +1242,7 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
             "empty", "codegen", "program has no loop nests")])
     plan, soft = _plan_streamed(p, nests, block_rows or DEFAULT_BLOCK_ROWS)
     if plan is not None:
+        plan = _fit_shared_memory(p, nests, plan, soft, dtype)
         src, meta = _emit_streamed(p, plan, dtype)
         inputs = plan.inputs
         out_shapes = {plan.sink.out: (plan.sink.nest.trips[0],
@@ -1222,7 +1258,7 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
         out_shapes = {a: p.arrays[a].shape for a in wplan.stored}
 
         def plain_fn(xs):
-            return whole_plain(p, nests, xs)
+            return whole_plain(p, wplan, xs)
     k = CudaKernel(program_name=p.name, mode=meta["mode"],
                    buffering=buffering, source=src, fn=None,
                    outputs=meta["outputs"], grid=meta["grid"],

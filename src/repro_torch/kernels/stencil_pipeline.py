@@ -204,6 +204,17 @@ def ilp_halo_rows(taps: int = 3) -> int:
 _CONFIG_SOURCE: dict[tuple[int, int], str] = {}
 
 
+def restricted_spec(hls) -> dict:
+    """``hls.compile`` keywords of the sweep's restricted search: fusion and
+    tiling only, at most 8 candidates, a latency x BRAM frontier.  ``hls``
+    is the compiler module the spec is built for (its ``minimize`` and
+    ``SearchConfig``), so one policy serves every caller."""
+    return dict(objectives=(hls.minimize("latency"), hls.minimize("bram")),
+                search=hls.SearchConfig(moves=("fuse", "tile"),
+                                        unroll_factors=(), tile_sizes=(2, 4),
+                                        max_candidates=8))
+
+
 def _stencil_dse_sweep(taps: int, n: int) -> tuple[int, int]:
     """Run the hls.compile Pareto sweep, lower the knee point with
     ``emit_cuda``, and read (block_rows, halo) off the generated kernel;
@@ -216,11 +227,7 @@ def _stencil_dse_sweep(taps: int, n: int) -> tuple[int, int]:
     # sizes; the partition move is excluded — full partitioning is a knob
     # the kernel's shared-memory line buffer cannot express
     p = blur_chain(n, storage="bram", taps=taps)
-    r = hls.compile(
-        p,
-        objectives=(hls.minimize("latency"), hls.minimize("bram")),
-        search=hls.SearchConfig(moves=("fuse", "tile"), unroll_factors=(),
-                                tile_sizes=(2, 4), max_candidates=8))
+    r = hls.compile(p, **restricted_spec(hls))
 
     def row_shift(c):
         for entry in getattr(c.program, "_fusion_log", []):

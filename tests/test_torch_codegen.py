@@ -182,9 +182,19 @@ def test_card_requested_without_card_raises(monkeypatch):
 
 
 def test_windows_beyond_shared_memory_are_reported():
-    """harris at 4096 needs more shared memory than a block has; the
-    wrapper refuses to launch it rather than fall back."""
+    """harris at 4096 needs more shared memory at its default block size
+    than a block has: the lowering takes the largest block size whose
+    windows fit and says so.  A chain too wide to fit at one row keeps its
+    plan, and its launch refuses rather than fall back."""
     k = codegen.lower_program(programs.harris(4096))
-    assert k.smem_bytes > _cuda.MAX_SMEM_BYTES
+    assert k.smem_bytes <= _cuda.MAX_SMEM_BYTES
+    assert k.block_rows < codegen.DEFAULT_BLOCK_ROWS
+    assert len(k.soft_reasons) == 1 and k.soft_reasons[0].startswith(
+        f"block_rows {codegen.DEFAULT_BLOCK_ROWS} -> {k.block_rows}:")
+    assert codegen.lower_program(programs.harris(4096), block_rows=k.block_rows
+                                 ).soft_reasons == []
     assert codegen.lower_program(programs.blur_chain(4096),
                                  block_rows=4).smem_bytes == 6 * 4096 * 4
+    wide = codegen.lower_program(programs.blur_chain(20000), block_rows=4)
+    assert wide.block_rows == 4 and wide.soft_reasons == []
+    assert wide.smem_bytes > _cuda.MAX_SMEM_BYTES

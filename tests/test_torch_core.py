@@ -23,6 +23,7 @@ from repro.core import programs as ref_programs
 from repro_torch.core import analysis, cache, hls, programs, sim
 from repro_torch.core.autotune import compile_program
 from repro_torch.core.dataflow import RESOURCE_KEYS
+from repro_torch.kernels.stencil_pipeline import restricted_spec
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CHAINS = sorted(programs.CHAIN_BENCHMARKS)
@@ -48,19 +49,13 @@ def _port_fault_free():
     faults.reset()
 
 
-def _restricted(h):
-    """The stencil sweep's search (kernels/stencil_pipeline.py)."""
-    return dict(objectives=(h.minimize("latency"), h.minimize("bram")),
-                search=h.SearchConfig(moves=("fuse", "tile"),
-                                      unroll_factors=(), tile_sizes=(2, 4),
-                                      max_candidates=8))
-
-
 @functools.lru_cache(maxsize=None)
 def _compiled(name: str, side: str, default_spec: bool = False):
     h, progs = (ref_hls, ref_programs) if side == "ref" else (hls, programs)
     p = progs.CHAIN_BENCHMARKS[name](8, storage="bram")
-    return h.compile(p) if default_spec else h.compile(p, **_restricted(h))
+    if default_spec:
+        return h.compile(p)
+    return h.compile(p, **restricted_spec(h))   # the stencil sweep's
 
 
 def _point(c) -> tuple:

@@ -20,6 +20,7 @@ from repro_torch.core import cache, codegen, frontend, hls, sim
 from repro_torch.core.dataflow import RESOURCE_KEYS
 from repro_torch.core.errors import UntraceableFunction
 from repro_torch.core.ir import nest_shape
+from repro_torch.kernels.stencil_pipeline import restricted_spec
 
 BUNDLED = ("wkv6_program", "conv_block_program", "attention_program")
 
@@ -40,13 +41,6 @@ def traced():
 
 def _point(c) -> tuple:
     return (c.desc, c.latency, tuple(c.res[k] for k in RESOURCE_KEYS))
-
-
-def _restricted(h):
-    return dict(objectives=(h.minimize("latency"), h.minimize("bram")),
-                search=h.SearchConfig(moves=("fuse", "tile"),
-                                      unroll_factors=(), tile_sizes=(2, 4),
-                                      max_candidates=6))
 
 
 # ---------------------------------------------------------------------------
@@ -76,8 +70,8 @@ def test_program_text_equals_reference(name, traced):
 @pytest.mark.parametrize("name", BUNDLED)
 def test_frontier_equals_reference(name, traced):
     ref, port = traced[name]
-    want = ref_hls.compile(ref.program, **_restricted(ref_hls))
-    got = hls.compile(port.program, **_restricted(hls))
+    want = ref_hls.compile(ref.program, **restricted_spec(ref_hls))
+    got = hls.compile(port.program, **restricted_spec(hls))
     assert [_point(c) for c in got.frontier] == \
         [_point(c) for c in want.frontier]
     assert _point(got.best) == _point(want.best)

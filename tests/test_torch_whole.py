@@ -80,11 +80,12 @@ def test_whole_plain_matches_sequential_exec(name, scale):
 
 
 def test_whole_kernel_reads_only_what_it_needs():
-    """Fully covered outputs need no input; a reduction's carry starts at
-    its input; partially covered outputs start as a copy of theirs."""
+    """Fully covered outputs need no input, also where two stores cover an
+    array between them (dus' row and column pairs); a reduction's carry
+    starts at its input."""
     dus = codegen.lower_program(programs.dus(8))
-    assert dus.inputs == ("img", "uy", "out")
-    assert dus.source.count("cudaMemcpyAsync(") == 2   # uy, out
+    assert dus.inputs == ("img",)
+    assert "cudaMemcpyAsync(" not in dus.source
     mm = codegen.lower_program(programs.two_mm(6))
     assert mm.inputs == ("A", "B", "C", "tmp", "D")
     assert "cudaMemcpyAsync(" not in mm.source
@@ -154,6 +155,48 @@ def test_two_overlapping_stores_follow_the_reference_op_order():
     seq = ref_sim.sequential_exec(p_ref, inputs)["y"]
     assert not np.array_equal(seq, y)          # the two orders differ here
     _check_oracle(k, p_ref, seed=4, want={"y": y})
+
+
+def _stores(B, name, yshape, trips, where):
+    """One nest over ``trips`` storing ``x[i, j] + k`` into ``y`` at
+    ``where[k](i, j)`` for each k: the stores that may or may not cover
+    ``y`` between them."""
+    b = B(name)
+    b.array("x", trips, is_arg=True, ports=("r", "r"))
+    b.array("y", yshape, is_arg=True, ports=("w",))
+    with b.loop("i", 0, trips[0]) as i:
+        with b.loop("j", 0, trips[1]) as j:
+            a = b.load("x", i, j)
+            for k, at in enumerate(where):
+                b.store("y", b.add(a, b.const(float(k))), *at(i, j))
+    return b.build()
+
+
+COVER_CASES = {   # name -> (y shape, domain, store indices, covered)
+    "transposed": ((6, 4), (4, 6), [lambda i, j: (j, i)], True),
+    "half_rows": ((8, 4), (4, 4), [lambda i, j: (i, j)], False),
+    "row_pair": ((8, 4), (4, 4), [lambda i, j: (i * 2, j),
+                                  lambda i, j: (i * 2 + 1, j)], True),
+    "col_pair_short": ((4, 9), (4, 4), [lambda i, j: (i, j * 2),
+                                        lambda i, j: (i, j * 2 + 1)], False),
+    "checkerboard": ((8, 8), (4, 4), [lambda i, j: (i * 2, j * 2),
+                                      lambda i, j: (i * 2 + 1, j * 2 + 1)],
+                     False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COVER_CASES))
+def test_initial_values_are_copied_only_where_the_stores_leave_gaps(case):
+    """An output starts as a copy of its input exactly where the nest's
+    stores leave elements unwritten; either way the result is the
+    sequential one."""
+    yshape, trips, where, covered = COVER_CASES[case]
+    k = codegen.lower_program(_stores(ProgramBuilder, case, yshape, trips,
+                                      where), dtype="float64")
+    assert k.mode == "whole" and k.outputs == ("y",)
+    assert ("y" in k.inputs) == ("cudaMemcpyAsync(" in k.source) \
+        == (not covered)
+    _check_oracle(k, _stores(RefBuilder, case, yshape, trips, where))
 
 
 def test_transposed_strided_and_constant_accesses():

@@ -79,7 +79,14 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels.stencil_pipeline, "
             "repro_torch.core.frontend, repro_torch.core.pipeline_ilp, "
-            "repro_torch.core.overlap\n"
+            "repro_torch.core.overlap, repro_torch.config, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.wkv6, repro_torch.models.layers, "
+            "repro_torch.models.lm, repro_torch.models.api, "
+            "repro_torch.runtime.serving, repro_torch.launch.serve\n"
+            "from repro_torch.config import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

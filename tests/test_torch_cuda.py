@@ -174,3 +174,109 @@ def test_traced_conv_block_equals_stencil_kernel(cuda_device):
     assert torch.equal(got, sp.stencil_pipeline(xs["img"], xs["wx"],
                                                 xs["wy"], block_rows=2,
                                                 halo=2))
+
+
+# ---------------------------------------------------------------------------
+# K4 (flash attention) and K5 (WKV6), and the model path through them
+# ---------------------------------------------------------------------------
+
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(shape, seed, device, dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,S,hd,bq,bk", [
+    (1, 2, 128, 64, 64, 64), (2, 1, 256, 128, 64, 64),
+    (1, 2, 192, 64, 64, 32),      # block_q > block_k, causal bound (R2)
+    (1, 2, 128, 16, 16, 64),      # block_q < block_k
+    (1, 1, 100, 32, 64, 48),      # ragged last tiles
+    (1, 2, 64, 256, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
+                                             dtype, causal):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (_randn((B, H, S, hd), s, cuda_device, dtype) for s in range(3))
+    key = str(dtype).removeprefix("torch.")
+    n0 = fa.LAUNCHES[key]
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[key] == n0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                    block_q=min(bq, S), block_k=min(bk, S))
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,S,hd", [(1, 2, 128, 64), (2, 1, 256, 32),
+                                      (1, 1, 64, 16), (2, 2, 16, 128),
+                                      (4, 40, 1, 64)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_kernel_equals_plain(cuda_device, B, H, S, hd, with_state):
+    from repro_torch.kernels import wkv6 as wk
+    r, k, v = (_randn((B, H, S, hd), s, cuda_device) for s in range(3))
+    w = torch.sigmoid(_randn((B, H, S, hd), 3, cuda_device)) * 0.5 + 0.45
+    u = _randn((H, hd), 4, cuda_device) * 0.1
+    s0 = _randn((B, H, hd, hd), 5, cuda_device) if with_state else None
+    n0 = sum(wk.LAUNCHES.values())
+    out, s = wk.wkv6_state(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert sum(wk.LAUNCHES.values()) == n0 + 1
+    want, want_s = wk.wkv6_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+def test_wkv6_kernel_strong_decay_is_finite(cuda_device):
+    from repro_torch.kernels import wkv6 as wk
+    r, k, v = (_randn((1, 2, 128, 64), s, cuda_device) for s in range(3))
+    w = torch.full_like(r, 0.1)
+    u = _randn((2, 64), 4, cuda_device) * 0.1
+    out, s = wk.wkv6_state(r, k, v, w, u)
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+    want, want_s = wk.wkv6_plain(r, k, v, w, u)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_3b"])
+def test_reduced_model_on_the_card_equals_cpu_and_decode(cuda_device, arch):
+    """The model path through K4/K5 on the card: f32 logits equal the CPU
+    run's (plain versions) on the same weights, and the last decode step's
+    logits equal the prefill's last token."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32",
+                              attn_impl="chunked", attn_chunk=16)
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_params(cfg, gen, "cpu")
+    cpu = lm.LM(cfg, params)
+    card = lm.LM(cfg, params).to(cuda_device)
+    B, S = 2, 32
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
+    n0 = sum(fa.LAUNCHES.values()) + sum(wk.LAUNCHES.values())
+    with torch.inference_mode():
+        full = card({"tokens": tokens})
+        torch.cuda.synchronize()
+        assert sum(fa.LAUNCHES.values()) + sum(wk.LAUNCHES.values()) \
+            == n0 + cfg.n_layers
+        torch.testing.assert_close(full.cpu(), cpu({"tokens": tokens}),
+                                   rtol=2e-4, atol=2e-4)
+        cache = card.init_cache(B, S)
+        for t in range(S):
+            logits, cache = card.decode_step(
+                cache, {"token": tokens[:, t:t + 1],
+                        "pos": np.full((B,), t, np.int32)})
+    torch.testing.assert_close(logits[:, 0], full[:, -1], rtol=2e-3,
+                               atol=2e-3)

@@ -29,9 +29,11 @@ read just after:
    attention) runs ``lm.forward`` on 4096 tokens; every layer's attention
    runs the flash-attention kernel (K4).
 
-Then K4 and K5 are held against their plain versions at those shapes, and
-both models, at full width and depth 2 in f32, against themselves: the
-prefill's last-token logits against the last of the decode steps'.
+Then K4 and K5 are held against their plain versions at those shapes (K4
+on N(0, 1) inputs and on a peaky draw whose outputs are O(1), each limit
+shown to reject a result with one kv tile dropped), and both models, at
+full width and depth 2 in f32, against themselves: the prefill's
+last-token logits against the last of the decode steps'.
 
 Every kernel is built from the sources in the checkout (one nvcc per
 source, all at once, into ``build/``).
@@ -82,6 +84,12 @@ K5_REPLACES = "src/repro/kernels/wkv6.py:21"
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 PREFILL_S = 4096                 # llama3-8b prefill tokens (B=1)
 EQUIV_S = 1024                   # prefill == decode check, depth 2, f32
+# K4's limits against its plain version: both round the same fp32 sums
+# once, so bf16 outputs differ by at most an ulp (2^-8 relative)
+K4_TOL = {"bfloat16": dict(rtol=1e-2, atol=4e-3),
+          "float32": dict(rtol=2e-5, atol=2e-5)}
+K4_PEAK_Q = 4.0                  # q's scale in the peaky draw: scores' std 4
+K4_DROPPED_TILE = 32             # the kv tile the limits must not miss
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 PROFILE_STEPS = 5                # decode steps under the profiler
 SERVE = dict(batch=4, prompt=32, gen=16, slots=4, requests=8, max_new=16)
@@ -153,357 +161,430 @@ def kernel_bytes(p, k) -> int:
                      for a in (*k.inputs, *k.outputs))
 
 
-def model_path_functions(dev):
-    """The serve and prefill paths, the K4/K5 checks and their entries, on
-    device ``dev``."""
+def zero_model_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
+    fa.LAUNCHES.clear()
+    wk.LAUNCHES.clear()
+
+
+def model_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
+    return {**{f"k4/{k}": v for k, v in fa.LAUNCHES.items()},
+            **{f"k5/{k}": v for k, v in wk.LAUNCHES.items()}}
+
+
+def device_kernels(fn) -> tuple[list, float]:
+    """(device activities [(name, us)], host wall ms) of ``fn()`` under
+    torch.profiler; an empty list when the profiler sees no device."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if getattr(e, "device_type", None) == cuda], wall
+
+
+def serve_path(dev) -> dict:
+    """The serve path: ``serve.main`` and a ``ContinuousBatcher`` on
+    rwkv6-3b; K5 at every decode step of every layer."""
     import numpy as np
     import torch
 
     from repro_torch.config import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import wkv6 as wk
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.runtime.serving import ContinuousBatcher, Request
 
-    def zero():
-        fa.LAUNCHES.clear()
-        wk.LAUNCHES.clear()
-
-    def counts():
-        return {**{f"k4/{k}": v for k, v in fa.LAUNCHES.items()},
-                **{f"k5/{k}": v for k, v in wk.LAUNCHES.items()}}
-
-    def device_kernels(fn) -> tuple[list, float]:
-        """(device activities [(name, us)], host wall ms) of ``fn()`` under
-        torch.profiler; an empty list when the profiler sees no device."""
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
+    cfg = get_config("rwkv6_3b")
+    zero_model_counts()
+    t0 = time.perf_counter()
+    gen = serve.main(["--arch", "rwkv6_3b", "--device", dev.type, "--batch",
+                      str(SERVE["batch"]), "--prompt-len",
+                      str(SERVE["prompt"]), "--gen", str(SERVE["gen"])])
+    main_s = time.perf_counter() - t0
+    if gen.shape != (SERVE["batch"], SERVE["gen"]) or \
+            not ((gen >= 0) & (gen < cfg.vocab)).all():
+        fail(f"serve.main returned ids of shape {gen.shape} outside "
+             f"[0, {cfg.vocab})")
+    main_steps = SERVE["prompt"] + SERVE["gen"]
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        rng = np.random.default_rng(1)
+        lens = rng.integers(8, 33, SERVE["requests"])
+        reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n),
+                        max_new=SERVE["max_new"])
+                for i, n in enumerate(lens)]
+        max_len = int(lens.max()) + SERVE["max_new"] + 1
+        b = ContinuousBatcher(
+            lambda c, t, p: model.decode_step(c, {"token": t, "pos": p}),
+            lambda n: model.init_cache(n, max_len), n_slots=SERVE["slots"],
+            eos=1, max_len=max_len, device=dev)
+        for r in reqs:
+            b.submit(r)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        cuda = torch.autograd.DeviceType.CUDA
-        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if getattr(e, "device_type", None) == cuda], wall
-
-    def serve_path() -> dict:
-        cfg = get_config("rwkv6_3b")
-        zero()
         t0 = time.perf_counter()
-        gen = serve.main(["--arch", "rwkv6_3b", "--device", dev.type, "--batch",
-                          str(SERVE["batch"]), "--prompt-len",
-                          str(SERVE["prompt"]), "--gen", str(SERVE["gen"])])
-        main_s = time.perf_counter() - t0
-        if gen.shape != (SERVE["batch"], SERVE["gen"]) or \
-                not ((gen >= 0) & (gen < cfg.vocab)).all():
-            fail(f"serve.main returned ids of shape {gen.shape} outside "
-                 f"[0, {cfg.vocab})")
-        main_steps = SERVE["prompt"] + SERVE["gen"]
-        with torch.inference_mode():
-            model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                               dev)
-            rng = np.random.default_rng(1)
-            lens = rng.integers(8, 33, SERVE["requests"])
-            reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n),
-                            max_new=SERVE["max_new"])
-                    for i, n in enumerate(lens)]
-            max_len = int(lens.max()) + SERVE["max_new"] + 1
-            b = ContinuousBatcher(
-                lambda c, t, p: model.decode_step(c, {"token": t, "pos": p}),
-                lambda n: model.init_cache(n, max_len), n_slots=SERVE["slots"],
-                eos=1, max_len=max_len, device=dev)
-            for r in reqs:
-                b.submit(r)
+        b.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    n = model_counts()
+    print("serve path launches: " + json.dumps(n, sort_keys=True))
+    if len(b.completed) != len(reqs) or not all(r.done for r in reqs):
+        fail(f"batcher completed {len(b.completed)} of {len(reqs)} "
+             "requests")
+    steps = main_steps + b.steps
+    want = {"k5/step": cfg.n_layers * steps}
+    if n != want:
+        fail(f"serve path launches {n}, expected {want} ({cfg.n_layers} "
+             f"layers x {steps} decode steps)")
+    new = sum(len(r.output) for r in reqs)
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters()
+                  if name != "embed")
+    weights += SERVE["slots"] * cfg.d_model * model.embed.element_size()
+    step_ms = secs / b.steps * 1e3
+    print(f"serve: serve.main batch {SERVE['batch']} prompt "
+          f"{SERVE['prompt']} gen {SERVE['gen']} in {main_s:.2f} s; "
+          f"batcher {len(b.completed)}/{len(reqs)} requests completed "
+          f"(prompts {lens.min()}-{lens.max()}, max_new "
+          f"{SERVE['max_new']}) in {b.steps} steps, {secs:.3f} s: "
+          f"{new / secs:.1f} tokens/s, {step_ms:.3f} ms per decode step "
+          f"(weight-read bound {weights / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"for {weights} B per step)")
+    print(f"check: K5 launched {n['k5/step']} times = {cfg.n_layers} "
+          f"layers x {steps} decode steps; every request completed")
+    # where a decode step's time goes: device activities under the
+    # profiler (after the counts were read)
+    nb = SERVE["slots"]
+    with torch.inference_mode():
+        cache = model.init_cache(nb, PROFILE_STEPS)
+        tok = torch.ones((nb, 1), dtype=torch.int32, device=dev)
+
+        def steps_fn():
+            c = cache
+            for t in range(PROFILE_STEPS):
+                pos = torch.full((nb,), t, dtype=torch.int32, device=dev)
+                c = model.decode_step(c, {"token": tok, "pos": pos})[1]
+        steps_fn()
+        acts, wall = device_kernels(steps_fn)
+    busy = sum(us for _, us in acts) / 1e3 / PROFILE_STEPS
+    k5 = [us for name, us in acts if "wkv6" in name]
+    if acts:
+        print(f"serve: per decode step (batch {nb}, profiled over "
+              f"{PROFILE_STEPS} steps): {len(acts) / PROFILE_STEPS:.0f} "
+              f"device activities, {len(k5) / PROFILE_STEPS:.0f} of them "
+              f"WKV6 kernels ({sum(k5) / 1e3 / PROFILE_STEPS:.3f} ms); "
+              f"device busy {busy:.3f} ms of the batcher's {step_ms:.3f} "
+              f"ms step: idle share {1 - busy / step_ms:.3f} (profiled "
+              f"wall {wall / PROFILE_STEPS:.3f} ms per step)")
+    else:
+        print("serve: the profiler saw no device activity: per-step "
+              "device time not measured")
+    return {"launches": n["k5/step"], "steps": steps,
+            "batcher_steps": b.steps, "tokens_per_s": new / secs,
+            "ms_per_step": step_ms, "weight_bytes": weights,
+            "device_busy_ms": busy if acts else None}
+
+
+def prefill_path(dev) -> dict:
+    """The prefill path: llama3-8b's ``lm.forward`` on 4096 tokens; K4 in
+    every layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), attn_impl="chunked")
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        tokens = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab, (1, PREFILL_S)), dtype=torch.int32, device=dev)
+        zero_model_counts()
+        logits = lm.forward(cfg, model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        n = model_counts()
+        print("prefill path launches: " + json.dumps(n, sort_keys=True))
+        if n != {"k4/bfloat16": cfg.n_layers}:
+            fail(f"prefill launches {n}, expected {cfg.n_layers} K4 "
+                 "bf16 launches per forward")
+        if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            fail(f"prefill logits of shape {tuple(logits.shape)} are not "
+                 "finite")
+        reps = []
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            b.run()
+            lm.forward(cfg, model, {"tokens": tokens})
             torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        n = counts()
-        print("serve path launches: " + json.dumps(n, sort_keys=True))
-        if len(b.completed) != len(reqs) or not all(r.done for r in reqs):
-            fail(f"batcher completed {len(b.completed)} of {len(reqs)} "
-                 "requests")
-        steps = main_steps + b.steps
-        want = {"k5/step": cfg.n_layers * steps}
-        if n != want:
-            fail(f"serve path launches {n}, expected {want} ({cfg.n_layers} "
-                 f"layers x {steps} decode steps)")
-        new = sum(len(r.output) for r in reqs)
-        weights = sum(p.numel() * p.element_size()
-                      for name, p in model.named_parameters()
-                      if name != "embed")
-        weights += SERVE["slots"] * cfg.d_model * model.embed.element_size()
-        step_ms = secs / b.steps * 1e3
-        print(f"serve: serve.main batch {SERVE['batch']} prompt "
-              f"{SERVE['prompt']} gen {SERVE['gen']} in {main_s:.2f} s; "
-              f"batcher {len(b.completed)}/{len(reqs)} requests completed "
-              f"(prompts {lens.min()}-{lens.max()}, max_new "
-              f"{SERVE['max_new']}) in {b.steps} steps, {secs:.3f} s: "
-              f"{new / secs:.1f} tokens/s, {step_ms:.3f} ms per decode step "
-              f"(weight-read bound {weights / HBM_BYTES_PER_S * 1e3:.3f} ms "
-              f"for {weights} B per step)")
-        print(f"check: K5 launched {n['k5/step']} times = {cfg.n_layers} "
-              f"layers x {steps} decode steps; every request completed")
-        # where a decode step's time goes: device activities under the
-        # profiler (after the counts were read)
-        nb = SERVE["slots"]
+            reps.append((time.perf_counter() - t0) * 1e3)
+        acts, wall = device_kernels(
+            lambda: lm.forward(cfg, model, {"tokens": tokens}))
+    fwd_ms = statistics.median(reps)
+    print(f"prefill: llama3-8b forward on 1x{PREFILL_S} tokens "
+          f"{fwd_ms:.1f} ms (median of 3); logits finite; "
+          f"{n['k4/bfloat16']} K4 launches per forward")
+    if acts:
+        busy = sum(us for _, us in acts) / 1e3
+        k4 = sum(us for name, us in acts if "fa_kernel" in name) / 1e3
+        print(f"prefill: profiled forward: {len(acts)} device "
+              f"activities, device busy {busy:.1f} ms of {wall:.1f} ms "
+              f"wall; K4 {k4:.1f} ms ({k4 / busy:.3f} of busy), the "
+              f"rest {busy - k4:.1f} ms")
+    else:
+        print("prefill: the profiler saw no device activity: device "
+              "time by kernel not measured")
+    return {"launches": n["k4/bfloat16"], "forward_ms": fwd_ms}
+
+
+def equivalence(dev) -> dict:
+    """prefill == decode, last token, full width, depth 2, f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+
+    zero_model_counts()
+    for arch in ("llama3_8b", "rwkv6_3b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32", attn_impl="chunked")
         with torch.inference_mode():
-            cache = model.init_cache(nb, PROFILE_STEPS)
-            tok = torch.ones((nb, 1), dtype=torch.int32, device=dev)
+            model = lm.LM.init(
+                cfg, torch.Generator(device=dev).manual_seed(3), dev)
+            tokens = torch.as_tensor(np.random.default_rng(4).integers(
+                0, cfg.vocab, (1, EQUIV_S)), dtype=torch.int32,
+                device=dev)
+            full = lm.forward(cfg, model, {"tokens": tokens})
+            cache = model.init_cache(1, EQUIV_S)
+            pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+            for t in range(EQUIV_S):
+                logits, cache = model.decode_step(
+                    cache, {"token": tokens[:, t:t + 1], "pos": pos + t})
+        try:
+            torch.testing.assert_close(logits[:, 0], full[:, -1],
+                                       rtol=2e-3, atol=2e-3)
+        except AssertionError as e:
+            fail(f"{arch}: prefill and decode disagree on the last "
+                 f"token: {e}")
+        err = (logits[:, 0] - full[:, -1]).abs().max().item()
+        print(f"check: {arch} full width, depth 2, f32: prefill == "
+              f"decode on the last of {EQUIV_S} tokens (max |diff| "
+              f"{err:.3g}, rtol/atol 2e-3)")
+        del model, full, cache
+        torch.cuda.empty_cache()
+    n = model_counts()
+    print("equivalence launches: " + json.dumps(n, sort_keys=True))
+    return n
 
-            def steps_fn():
-                c = cache
-                for t in range(PROFILE_STEPS):
-                    pos = torch.full((nb,), t, dtype=torch.int32, device=dev)
-                    c = model.decode_step(c, {"token": tok, "pos": pos})[1]
-            steps_fn()
-            acts, wall = device_kernels(steps_fn)
-        busy = sum(us for _, us in acts) / 1e3 / PROFILE_STEPS
-        k5 = [us for name, us in acts if "wkv6" in name]
-        if acts:
-            print(f"serve: per decode step (batch {nb}, profiled over "
-                  f"{PROFILE_STEPS} steps): {len(acts) / PROFILE_STEPS:.0f} "
-                  f"device activities, {len(k5) / PROFILE_STEPS:.0f} of them "
-                  f"WKV6 kernels ({sum(k5) / 1e3 / PROFILE_STEPS:.3f} ms); "
-                  f"device busy {busy:.3f} ms of the batcher's {step_ms:.3f} "
-                  f"ms step: idle share {1 - busy / step_ms:.3f} (profiled "
-                  f"wall {wall / PROFILE_STEPS:.3f} ms per step)")
-        else:
-            print("serve: the profiler saw no device activity: per-step "
-                  "device time not measured")
-        return {"launches": n["k5/step"], "steps": steps,
-                "batcher_steps": b.steps, "tokens_per_s": new / secs,
-                "ms_per_step": step_ms, "weight_bytes": weights,
-                "device_busy_ms": busy if acts else None}
 
-    def prefill_path() -> dict:
-        cfg = dataclasses.replace(get_config("llama3_8b"), attn_impl="chunked")
-        with torch.inference_mode():
-            model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                               dev)
-            tokens = torch.as_tensor(np.random.default_rng(2).integers(
-                0, cfg.vocab, (1, PREFILL_S)), dtype=torch.int32, device=dev)
-            zero()
-            logits = lm.forward(cfg, model, {"tokens": tokens})
-            torch.cuda.synchronize()
-            n = counts()
-            print("prefill path launches: " + json.dumps(n, sort_keys=True))
-            if n != {"k4/bfloat16": cfg.n_layers}:
-                fail(f"prefill launches {n}, expected {cfg.n_layers} K4 "
-                     "bf16 launches per forward")
-            if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab) or \
-                    not torch.isfinite(logits).all():
-                fail(f"prefill logits of shape {tuple(logits.shape)} are not "
-                     "finite")
-            reps = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                lm.forward(cfg, model, {"tokens": tokens})
-                torch.cuda.synchronize()
-                reps.append((time.perf_counter() - t0) * 1e3)
-            acts, wall = device_kernels(
-                lambda: lm.forward(cfg, model, {"tokens": tokens}))
-        fwd_ms = statistics.median(reps)
-        print(f"prefill: llama3-8b forward on 1x{PREFILL_S} tokens "
-              f"{fwd_ms:.1f} ms (median of 3); logits finite; "
-              f"{n['k4/bfloat16']} K4 launches per forward")
-        if acts:
-            busy = sum(us for _, us in acts) / 1e3
-            k4 = sum(us for name, us in acts if "fa_kernel" in name) / 1e3
-            print(f"prefill: profiled forward: {len(acts)} device "
-                  f"activities, device busy {busy:.1f} ms of {wall:.1f} ms "
-                  f"wall; K4 {k4:.1f} ms ({k4 / busy:.3f} of busy), the "
-                  f"rest {busy - k4:.1f} ms")
-        else:
-            print("prefill: the profiler saw no device activity: device "
-                  "time by kernel not measured")
-        return {"launches": n["k4/bfloat16"], "forward_ms": fwd_ms}
+def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
+    """K4 against its plain version at the prefill's shape, timed."""
+    import torch
 
-    def equivalence() -> dict:
-        """prefill == decode, last token, full width, depth 2, f32."""
-        zero()
-        for arch in ("llama3_8b", "rwkv6_3b"):
-            cfg = dataclasses.replace(get_config(arch), n_layers=2,
-                                      dtype="float32", attn_impl="chunked")
-            with torch.inference_mode():
-                model = lm.LM.init(
-                    cfg, torch.Generator(device=dev).manual_seed(3), dev)
-                tokens = torch.as_tensor(np.random.default_rng(4).integers(
-                    0, cfg.vocab, (1, EQUIV_S)), dtype=torch.int32,
-                    device=dev)
-                full = lm.forward(cfg, model, {"tokens": tokens})
-                cache = model.init_cache(1, EQUIV_S)
-                pos = torch.zeros((1,), dtype=torch.int32, device=dev)
-                for t in range(EQUIV_S):
-                    logits, cache = model.decode_step(
-                        cache, {"token": tokens[:, t:t + 1], "pos": pos + t})
-            try:
-                torch.testing.assert_close(logits[:, 0], full[:, -1],
-                                           rtol=2e-3, atol=2e-3)
-            except AssertionError as e:
-                fail(f"{arch}: prefill and decode disagree on the last "
-                     f"token: {e}")
-            err = (logits[:, 0] - full[:, -1]).abs().max().item()
-            print(f"check: {arch} full width, depth 2, f32: prefill == "
-                  f"decode on the last of {EQUIV_S} tokens (max |diff| "
-                  f"{err:.3g}, rtol/atol 2e-3)")
-            del model, full, cache
-            torch.cuda.empty_cache()
-        n = counts()
-        print("equivalence launches: " + json.dumps(n, sort_keys=True))
-        return n
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
 
-    def k4_entries(prefill_launches: int, equiv: dict) -> list:
-        cfg = get_config("llama3_8b")
-        shape = (1, cfg.n_heads, PREFILL_S, cfg.hd)
-        out = []
-        g = torch.Generator(device=dev).manual_seed(5)
-        base = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
-            q, k, v = (x.to(dtype) for x in base)
+    cfg = get_config("llama3_8b")
+    shape = (1, cfg.n_heads, PREFILL_S, cfg.hd)
+    out = []
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+    # "randn": N(0, 1) scores, outputs ~0.03 (averages over many keys);
+    # "peaky": q scaled by K4_PEAK_Q, a few keys dominate each row and the
+    # outputs are O(1), so a key the kernel loses moves them by O(1)
+    draws = {"randn": base,
+             "peaky": [base[0] * K4_PEAK_Q, base[1], base[2]]}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).removeprefix("torch.")
+        tol = K4_TOL[dt]
+        for draw, xs in draws.items():
+            q, k, v = (x.to(dtype) for x in xs)
             cases = [(True, 64, 64), (False, 64, 64)]
             if dtype == torch.bfloat16:
-                cases.append((True, 64, 32))         # block_q > block_k (R2)
+                cases.append((True, 64, 32))     # block_q > block_k (R2)
             for causal, bq, bk in cases:
-                got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
-                                         block_k=bk)
+                got = fa.flash_attention(q, k, v, causal=causal,
+                                         block_q=bq, block_k=bk)
                 want = fa.flash_attention_plain(q, k, v, causal=causal,
                                                 block_q=bq, block_k=bk)
                 err = (got.float() - want.float()).abs().max().item()
                 try:
                     torch.testing.assert_close(got.float(), want.float(),
-                                               rtol=tol, atol=tol)
+                                               **tol)
                 except AssertionError as e:
-                    fail(f"K4 {dtype} causal={causal} ({bq}, {bk}) differs "
-                         f"from its plain version: {e}")
-                print(f"check: K4 {str(dtype)[6:]} {shape} causal={causal} "
-                      f"blocks ({bq}, {bk}) == plain within {tol} (max "
-                      f"|diff| {err:.3g})")
-            if dtype == torch.float32:
-                # the f32 kernel ran on the equivalence phase's shape
-                S = EQUIV_S
-                q, k, v = (x[:, :, :S].contiguous() for x in (q, k, v))
-                launches = equiv.get("k4/float32", 0)
-            else:
-                S = PREFILL_S
-                launches = prefill_launches
-            if launches < 1:
-                fail(f"K4 {dtype} was not launched on its path")
-            got = fa.flash_attention(q, k, v, causal=True)
-            want = fa.flash_attention_plain(q, k, v, causal=True, block_q=64,
-                                            block_k=64)
-            err = (got.float() - want.float()).abs().max().item()
-            esz = q.element_size()
-            nbytes = 4 * q.numel() * esz
-            flops = 4 * cfg.hd * (S * (S + 1) // 2) * cfg.n_heads
-            peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-                else FP32_FLOP_PER_S
-            tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-            b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
-            ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v,
-                                                             causal=True), 10)
-            plain_ms = time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, block_q=64, block_k=64), 3)[0]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 10)[0]
-            lib_err = (sdpa(q, k, v, is_causal=True).float()
-                       - want.float()).abs().max().item()
-            out.append({
-                "name": f"flash_attention[{str(dtype)[6:]}]", "route": "cuda",
-                "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": K4_REPLACES, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "library": "torch.nn.functional.scaled_dot_product_attention"
-                           f" (timed only; max |sdpa - plain| {lib_err:.3g})",
-                "host_ms": host_ms, "bytes": nbytes, "flops": flops,
-                "shape": [1, cfg.n_heads, S, cfg.hd], "causal": True,
-                "blocks": [64, 64],
-                "path": "prefill" if dtype == torch.bfloat16
-                else "equivalence"})
-            print(f"time: K4 {str(dtype)[6:]} causal (1, {cfg.n_heads}, {S}, "
-                  f"{cfg.hd}): {ms:.4f} ms on the card (bound {b_ms:.4f} ms by"
-                  f" {b_by}; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms)")
-        return out
-
-    def k5_entries(serve_launches: int, equiv: dict) -> list:
-        cfg = get_config("rwkv6_3b")
-        H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-        g = torch.Generator(device=dev).manual_seed(6)
-
-        def inputs(B, S, w=None):
-            r, k, v = (torch.randn((B, H, S, hd), generator=g, device=dev)
-                       for _ in range(3))
-            ww = torch.sigmoid(torch.randn((B, H, S, hd), generator=g,
-                                           device=dev)) * 0.5 + 0.45 \
-                if w is None else torch.full((B, H, S, hd), w, device=dev)
-            u = torch.randn((H, hd), generator=g, device=dev) * 0.1
-            return r, k, v, ww, u
-
-        out = []
-        cases = [("sequence", inputs(1, K5_SEQ), None,
-                  equiv.get("k5/sequence", 0), "equivalence"),
-                 ("step", inputs(SERVE["batch"], 1),
-                  torch.randn((SERVE["batch"], H, hd, hd), generator=g,
-                              device=dev), serve_launches, "serve")]
-        for form, xs, s0, launches, path in cases:
-            got, got_s = wk.wkv6_state(*xs, s0)
-            want, want_s = wk.wkv6_plain(*xs, s0)
-            err = max((got - want).abs().max().item(),
-                      (got_s - want_s).abs().max().item())
+                    fail(f"K4 {dt} {draw} causal={causal} ({bq}, {bk}) "
+                         f"differs from its plain version: {e}")
+                print(f"check: K4 {dt} {draw} {shape} causal={causal} "
+                      f"blocks ({bq}, {bk}) == plain within rtol "
+                      f"{tol['rtol']}, atol {tol['atol']} (max |diff| "
+                      f"{err:.3g}, max |plain| "
+                      f"{want.float().abs().max().item():.3g})")
+                if not causal:
+                    full = want
+            # the limit must reject a non-causal result that lost one kv
+            # tile
+            t = K4_DROPPED_TILE
+            keep = torch.cat([torch.arange(t * 64), torch.arange(
+                (t + 1) * 64, PREFILL_S)]).to(dev)
+            dropped = fa.flash_attention_plain(
+                q, k[:, :, keep], v[:, :, keep], causal=False, block_q=64,
+                block_k=64)
+            lost = (dropped.float() - full.float()).abs().max().item()
             try:
-                torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-                torch.testing.assert_close(got_s, want_s, rtol=2e-4,
-                                           atol=2e-4)
-            except AssertionError as e:
-                fail(f"K5 {form} differs from its plain version: {e}")
-            B, S = xs[0].shape[0], xs[0].shape[2]
-            print(f"check: K5 {form} ({B}, {H}, {S}, {hd})"
-                  f"{' from a random state' if s0 is not None else ''} == "
-                  f"plain within 2e-4, output and final state (max |diff| "
-                  f"{err:.3g})")
-            if launches < 1:
-                fail(f"K5 {form} was not launched on its path")
-            nbytes = 4 * (5 * xs[0].numel() + xs[4].numel()
-                          + (2 if s0 is not None else 1) * B * H * hd * hd)
-            # r.S (2) and w*S + k^T v (3) per state entry and token; the
-            # bonus term is O(hd)
-            flops = 5 * B * H * S * hd * hd
-            b_ms, b_by = bound(nbytes, flops)
-            ms, host_ms = time_ms(lambda: wk.wkv6_state(*xs, s0), 25)
-            plain_ms = time_ms(lambda: wk.wkv6_plain(*xs, s0), 3)[0]
-            out.append({
-                "name": f"wkv6[{form}]", "route": "cuda",
-                "source": "src/repro_torch/csrc/wkv6.cu",
-                "replaces": K5_REPLACES, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "library": "no PyTorch call computes it",
-                "host_ms": host_ms, "bytes": nbytes, "flops": flops,
-                "shape": [B, H, S, hd], "path": path})
-            print(f"time: K5 {form} ({B}, {H}, {S}, {hd}): {ms:.4f} ms on the"
-                  f" card, {host_ms:.4f} ms host per call (bound {b_ms:.4f} "
-                  f"ms by {b_by}; plain {plain_ms:.3f} ms)")
-        xs = inputs(1, K5_SEQ, w=0.1)
-        got, got_s = wk.wkv6_state(*xs)
-        if not (torch.isfinite(got).all() and torch.isfinite(got_s).all()):
-            fail("K5 at w = 0.1 is not finite")
-        want, want_s = wk.wkv6_plain(*xs)
+                torch.testing.assert_close(dropped.float(), full.float(),
+                                           **tol)
+            except AssertionError:
+                print(f"check: K4 {dt} {draw}: that limit rejects the "
+                      f"non-causal result with kv tile {t} of "
+                      f"{PREFILL_S // 64} dropped (max |diff| {lost:.3g})")
+            else:
+                fail(f"K4 {dt} {draw}: rtol {tol['rtol']}, atol "
+                     f"{tol['atol']} accepts a result with kv tile {t} "
+                     f"dropped (max |diff| {lost:.3g})")
+        q, k, v = (x.to(dtype) for x in base)
+        if dtype == torch.float32:
+            # the f32 kernel ran on the equivalence phase's shape
+            S = EQUIV_S
+            q, k, v = (x[:, :, :S].contiguous() for x in (q, k, v))
+            launches = equiv.get("k4/float32", 0)
+        else:
+            S = PREFILL_S
+            launches = prefill_launches
+        if launches < 1:
+            fail(f"K4 {dt} was not launched on its path")
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True, block_q=64,
+                                        block_k=64)
+        err = (got.float() - want.float()).abs().max().item()
+        try:
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+        except AssertionError as e:
+            fail(f"K4 {dt} causal at S={S} differs from its plain version: "
+                 f"{e}")
+        esz = q.element_size()
+        nbytes = 4 * q.numel() * esz
+        flops = 4 * cfg.hd * (S * (S + 1) // 2) * cfg.n_heads
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOP_PER_S
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+        ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v,
+                                                         causal=True), 10)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, block_q=64, block_k=64), 3)[0]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 10)[0]
+        lib_err = (sdpa(q, k, v, is_causal=True).float()
+                   - want.float()).abs().max().item()
+        out.append({
+            "name": f"flash_attention[{dt}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": K4_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention"
+                       f" (timed only; max |sdpa - plain| {lib_err:.3g})",
+            "host_ms": host_ms, "bytes": nbytes, "flops": flops,
+            "shape": [1, cfg.n_heads, S, cfg.hd], "causal": True,
+            "blocks": [64, 64], "tolerance": tol,
+            "path": "prefill" if dtype == torch.bfloat16
+            else "equivalence"})
+        print(f"time: K4 {dt} causal (1, {cfg.n_heads}, {S}, "
+              f"{cfg.hd}): {ms:.4f} ms on the card (bound {b_ms:.4f} ms by"
+              f" {b_by}; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms)")
+    return out
+
+
+def k5_entries(dev, serve_launches: int, equiv: dict) -> list:
+    """K5 against its plain version at rwkv6-3b's shapes, timed."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import wkv6 as wk
+
+    cfg = get_config("rwkv6_3b")
+    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def inputs(B, S, w=None):
+        r, k, v = (torch.randn((B, H, S, hd), generator=g, device=dev)
+                   for _ in range(3))
+        ww = torch.sigmoid(torch.randn((B, H, S, hd), generator=g,
+                                       device=dev)) * 0.5 + 0.45 \
+            if w is None else torch.full((B, H, S, hd), w, device=dev)
+        u = torch.randn((H, hd), generator=g, device=dev) * 0.1
+        return r, k, v, ww, u
+
+    out = []
+    cases = [("sequence", inputs(1, K5_SEQ), None,
+              equiv.get("k5/sequence", 0), "equivalence"),
+             ("step", inputs(SERVE["batch"], 1),
+              torch.randn((SERVE["batch"], H, hd, hd), generator=g,
+                          device=dev), serve_launches, "serve")]
+    for form, xs, s0, launches, path in cases:
+        got, got_s = wk.wkv6_state(*xs, s0)
+        want, want_s = wk.wkv6_plain(*xs, s0)
+        err = max((got - want).abs().max().item(),
+                  (got_s - want_s).abs().max().item())
         try:
             torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-            torch.testing.assert_close(got_s, want_s, rtol=2e-4, atol=2e-4)
+            torch.testing.assert_close(got_s, want_s, rtol=2e-4,
+                                       atol=2e-4)
         except AssertionError as e:
-            fail(f"K5 at w = 0.1 differs from its plain version: {e}")
-        print(f"check: K5 (1, {H}, {K5_SEQ}, {hd}) at w = 0.1: output and state "
-              "finite and == plain within 2e-4")
-        return out
+            fail(f"K5 {form} differs from its plain version: {e}")
+        B, S = xs[0].shape[0], xs[0].shape[2]
+        print(f"check: K5 {form} ({B}, {H}, {S}, {hd})"
+              f"{' from a random state' if s0 is not None else ''} == "
+              f"plain within 2e-4, output and final state (max |diff| "
+              f"{err:.3g})")
+        if launches < 1:
+            fail(f"K5 {form} was not launched on its path")
+        nbytes = 4 * (5 * xs[0].numel() + xs[4].numel()
+                      + (2 if s0 is not None else 1) * B * H * hd * hd)
+        # r.S (2) and w*S + k^T v (3) per state entry and token; the
+        # bonus term is O(hd)
+        flops = 5 * B * H * S * hd * hd
+        b_ms, b_by = bound(nbytes, flops)
+        ms, host_ms = time_ms(lambda: wk.wkv6_state(*xs, s0), 25)
+        plain_ms = time_ms(lambda: wk.wkv6_plain(*xs, s0), 3)[0]
+        out.append({
+            "name": f"wkv6[{form}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": K5_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "no PyTorch call computes it",
+            "host_ms": host_ms, "bytes": nbytes, "flops": flops,
+            "shape": [B, H, S, hd], "path": path})
+        print(f"time: K5 {form} ({B}, {H}, {S}, {hd}): {ms:.4f} ms on the"
+              f" card, {host_ms:.4f} ms host per call (bound {b_ms:.4f} "
+              f"ms by {b_by}; plain {plain_ms:.3f} ms)")
+    xs = inputs(1, K5_SEQ, w=0.1)
+    got, got_s = wk.wkv6_state(*xs)
+    if not (torch.isfinite(got).all() and torch.isfinite(got_s).all()):
+        fail("K5 at w = 0.1 is not finite")
+    want, want_s = wk.wkv6_plain(*xs)
+    try:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(got_s, want_s, rtol=2e-4, atol=2e-4)
+    except AssertionError as e:
+        fail(f"K5 at w = 0.1 differs from its plain version: {e}")
+    print(f"check: K5 (1, {H}, {K5_SEQ}, {hd}) at w = 0.1: output and state "
+          "finite and == plain within 2e-4")
+    return out
 
-    return serve_path, prefill_path, equivalence, k4_entries, k5_entries
 
 
 def main() -> int:
@@ -848,15 +929,13 @@ def main() -> int:
                  f"all {len(ks[0].outputs)} outputs"))
 
     # ---- the model paths: serve (K5), prefill (K4), their checks ----------
-    serve_path, prefill_path, equivalence, k4_entries, k5_entries = \
-        model_path_functions(dev)
-    served = serve_path()
+    served = serve_path(dev)
     torch.cuda.empty_cache()
-    prefilled = prefill_path()
+    prefilled = prefill_path(dev)
     torch.cuda.empty_cache()
-    equiv = equivalence()
-    entries += k4_entries(prefilled["launches"], equiv)
-    entries += k5_entries(served["launches"], equiv)
+    equiv = equivalence(dev)
+    entries += k4_entries(dev, prefilled["launches"], equiv)
+    entries += k5_entries(dev, served["launches"], equiv)
 
     print(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -138,14 +138,20 @@ def _is_arange(positions) -> bool:
 
 
 def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
-    """Full-sequence attention (train / prefill). x: (B, S, D).
+    """Full-sequence attention (train / prefill). x: (B, S, D); positions:
+    (B, S), or None for ``arange(S)`` in every row (what ``lm.embed_inputs``
+    gives).
 
     With ``cfg.attn_impl == "chunked"`` and ``causal`` the scores go through
-    flash attention (K4), which masks by token index: ``positions`` must be
-    each row's ``arange(S)`` (what ``lm.embed_inputs`` gives), and the
-    reference's kv-chunk precondition ``S % min(attn_chunk, S) == 0`` holds
-    here too."""
+    flash attention (K4), which masks by token index: positions given as a
+    tensor must then be each row's ``arange(S)`` (checked, at the cost of
+    one device sync), and the reference's kv-chunk precondition
+    ``S % min(attn_chunk, S) == 0`` holds here too."""
     H, K = cfg.n_heads, cfg.n_kv_heads
+    arange = positions is None
+    if arange:
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q = _heads_in(h, p["wq"])
     k = _heads_in(h, p["wk"])
@@ -159,7 +165,7 @@ def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
         if T % C:
             raise ValueError(f"chunked attention: {T} tokens are not a "
                              f"multiple of attn_chunk {C}")
-        if not _is_arange(positions):
+        if not (arange or _is_arange(positions)):
             raise ValueError("chunked attention masks by token index: "
                              "positions must be arange(S) in every row")
         o = flash_attention(*(t.transpose(1, 2).contiguous()

@@ -199,7 +199,8 @@ def _apply_layer(cfg, spec, p, x, positions):
 
 
 def backbone(cfg: ArchConfig, model: LM, x, positions):
-    """Apply every layer in order + final norm.  x: (B,S,D)."""
+    """Apply every layer in order + final norm.  x: (B,S,D); positions:
+    (B,S), or None for ``arange(S)`` in every row."""
     for spec, p in zip(layer_specs(cfg), model.blocks):
         x = _apply_layer(cfg, spec, p, x, positions)
     return L.rms_norm(x, model.final_norm, cfg.norm_eps)
@@ -212,12 +213,11 @@ def logits_from_hidden(cfg: ArchConfig, model: LM, h):
 
 
 def embed_inputs(cfg: ArchConfig, model: LM, batch):
-    """Token ids -> (x, positions)."""
+    """Token ids -> (x, positions).  The positions are ``arange(S)`` in
+    every row, given as None: the layers build them, and the chunked
+    attention then needs no check that they are an arange."""
     tokens = _on(batch["tokens"], model.device)
-    x = model.embed[tokens]
-    B, S = tokens.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    return x, positions
+    return model.embed[tokens], None
 
 
 def forward(cfg: ArchConfig, model: LM, batch):

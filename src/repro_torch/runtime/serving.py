@@ -5,14 +5,19 @@ finish before admitting new ones: it runs a fixed number of *slots*, each
 holding one in-flight sequence, and every decode step advances all active
 slots at once.  Finished sequences free their slot, which the admission
 queue refills on the next step -- the KV/state cache rows are reused
-in place (position counters reset per slot).
+in place: admission resets the slot's rows to a fresh cache's and its
+position counter to 0.
 
 The decode step is a statically scheduled circuit; admission is the only
 dynamic decision, and it happens on the host between steps.  Each step
 sends the slots' tokens and positions to the model's device and brings the
 argmax of the logits back to the host: one round trip per step.
 
-The logic is the JAX package's (``repro.runtime.serving``), unchanged.
+The logic is the JAX package's (``repro.runtime.serving``) but for the
+reset of a reused slot's cache rows.  The JAX batcher leaves them as the
+previous request left them: harmless for attention, whose mask hides rows
+past ``pos``, but a recurrent layer's state (RWKV's WKV state and token
+shifts) would carry the previous request into the next.
 """
 from __future__ import annotations
 
@@ -21,6 +26,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+
+def _reset_row(cache, fresh, i: int) -> None:
+    """Copy the one-slot cache ``fresh`` into slot ``i`` of ``cache``."""
+    if isinstance(cache, torch.Tensor):
+        cache[i].copy_(fresh[0])
+    elif isinstance(cache, dict):
+        for k in cache:
+            _reset_row(cache[k], fresh[k], i)
+    else:
+        for c, f in zip(cache, fresh):
+            _reset_row(c, f, i)
 
 
 @dataclass
@@ -46,7 +63,9 @@ class ContinuousBatcher:
     """Slot-based continuous batching over a one-token decode step.
 
     decode_fn(cache, tokens (B,1), pos (B,)) -> (logits (B,1,V), cache),
-    with tokens and pos int32 tensors on ``device`` (the model's).
+    with tokens and pos int32 tensors on ``device`` (the model's);
+    init_cache(n) -> a cache of n slots: nested dicts and lists of tensors,
+    each with the slot on axis 0.
     Prompts are streamed through the same decode path one token per step
     (prefill-as-decode); production systems swap in the batched prefill
     kernel, the slot logic is identical."""
@@ -56,6 +75,7 @@ class ContinuousBatcher:
                  device="cuda"):
         self.decode_fn = decode_fn
         self.cache = init_cache(n_slots)
+        self._fresh = init_cache(1)  # what admission resets a slot's rows to
         self.n_slots = n_slots
         self.eos = eos
         self.max_len = max_len
@@ -70,9 +90,11 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     def _admit(self):
-        for s in self.slots:
+        for i, s in enumerate(self.slots):
             if s.req is None and self.queue:
                 req = self.queue.pop(0)
+                with torch.inference_mode():
+                    _reset_row(self.cache, self._fresh, i)
                 s.req = req
                 s.pos = 0
                 s.remaining = req.max_new
@@ -118,7 +140,7 @@ class ContinuousBatcher:
                     or s.pos >= self.max_len - 1):
                 s.req.done = True
                 self.completed.append(s.req)
-                s.req = None  # slot freed; cache row reused in place
+                s.req = None  # slot freed; its rows reset on admission
         self.steps += 1
         return len(act)
 

@@ -180,7 +180,10 @@ def test_traced_conv_block_equals_stencil_kernel(cuda_device):
 # K4 (flash attention) and K5 (WKV6), and the model path through them
 # ---------------------------------------------------------------------------
 
-FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the kernel and its plain version round the same fp32 sums once: bf16
+# outputs differ by at most an ulp (2^-8 relative)
+FA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=1e-2, atol=4e-3)}
 
 
 def _randn(shape, seed, device, dtype=torch.float32):
@@ -208,8 +211,7 @@ def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
     assert fa.LAUNCHES[key] == n0 + 1
     want = fa.flash_attention_plain(q, k, v, causal=causal,
                                     block_q=min(bq, S), block_k=min(bk, S))
-    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
-                               atol=FA_TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
 
 
 @pytest.mark.requires_cuda

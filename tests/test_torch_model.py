@@ -154,6 +154,33 @@ def test_chunked_attention_keeps_the_reference_preconditions():
         TL.attn_forward(tcfg, p, x, pos + 1)
 
 
+@pytest.mark.parametrize("impl", ["dense", "chunked"])
+def test_attn_forward_takes_none_for_arange_positions(impl):
+    tcfg = _tcfg("llama3_8b", attn_impl=impl, attn_chunk=8)
+    p = _t(_np(JL.init_attn(_cfg("llama3_8b"), jax.random.key(1))))
+    x = torch.from_numpy(_rand((B, S, tcfg.d_model), 2))
+    want = TL.attn_forward(tcfg, p, x, torch.arange(S).expand(B, S))
+    torch.testing.assert_close(TL.attn_forward(tcfg, p, x, None), want,
+                               rtol=0, atol=0)
+
+
+def test_prefill_compares_no_positions(monkeypatch):
+    """``lm.forward`` hands the layers their arange positions as None, so
+    the chunked attention makes no device comparison (on the card, a sync
+    per layer)."""
+    tcfg = _tcfg("llama3_8b", attn_impl="chunked", attn_chunk=8)
+    model = torch_lm.LM.init(tcfg, torch.Generator().manual_seed(0), "cpu")
+
+    def compared(positions):
+        raise AssertionError("the positions were compared with an arange")
+    monkeypatch.setattr(TL, "_is_arange", compared)
+    tokens = np.random.default_rng(1).integers(0, tcfg.vocab, (B, S))
+    with torch.inference_mode():
+        logits = torch_lm.forward(tcfg, model, {"tokens": tokens})
+    assert logits.shape == (B, S, tcfg.vocab)
+    assert torch.isfinite(logits).all()
+
+
 def test_attn_decode_parity():
     cfg, tcfg = _cfg("llama3_8b"), _tcfg("llama3_8b")
     p = _np(JL.init_attn(cfg, jax.random.key(3)))

@@ -27,13 +27,15 @@ read just after:
    decode step.
 5. *prefill*: llama3-8b at its full configuration (bf16, chunked
    attention) runs ``lm.forward`` on 4096 tokens; every layer's attention
-   runs the flash-attention kernel (K4).
+   runs the tensor-core flash-attention kernel (K4, ``wgmma``), on views
+   of the layer's activations with k and v at their 8 kv heads.
 
 Then K4 and K5 are held against their plain versions at those shapes (K4
 on N(0, 1) inputs and on a peaky draw whose outputs are O(1), each limit
 shown to reject a result with one kv tile dropped), and both models, at
 full width and depth 2 in f32, against themselves: the prefill's
-last-token logits against the last of the decode steps'.
+last-token logits against the last of the decode steps' (K4 in f32 runs
+the CUDA-core kernel there).
 
 Every kernel is built from the sources in the checkout (one nvcc per
 source, all at once, into ``build/``).
@@ -53,6 +55,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -159,6 +162,26 @@ def kernel_bytes(p, k) -> int:
     esz = 4 if k.dtype == "float32" else 8
     return esz * sum(math.prod(p.arrays[a].shape)
                      for a in (*k.inputs, *k.outputs))
+
+
+def ptxas_summary(log: str) -> list:
+    """Per kernel of an nvcc -Xptxas -v log: its template arguments (where
+    it has them), registers and bytes spilled."""
+    out, name, spill = [], "", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"I((?:Li\d+E|\w)+?)EEv", ln)
+            grp = m.group(1) if m else ""
+            typ = ["f32"] if grp.startswith("f") else \
+                ["bf16"] if "bfloat16" in grp else []
+            name = ",".join(typ + re.findall(r"Li(\d+)", grp))
+        elif "spill stores" in ln:
+            spill = ln.split(",")[1].strip().split(" ")[0]
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"<{name}> {regs} registers, {spill} B spilled"
+                       if name else f"{regs} registers, {spill} B spilled")
+    return out
 
 
 def zero_model_counts() -> None:
@@ -302,22 +325,45 @@ def prefill_path(dev) -> dict:
     import torch
 
     from repro_torch.config import get_config
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
 
     cfg = dataclasses.replace(get_config("llama3_8b"), attn_impl="chunked")
+    # what each layer hands K4, and whether it repeats kv heads
+    seen, repeats = [], []
+    k4, repeat_kv = layers.flash_attention, layers._repeat_kv
+
+    def k4_spy(q, k, v, **kw):
+        seen.append((k.shape[1], all(t.transpose(1, 2).is_contiguous()
+                                     for t in (q, k, v))))
+        return k4(q, k, v, **kw)
+
+    def repeat_spy(*a):
+        repeats.append(1)
+        return repeat_kv(*a)
     with torch.inference_mode():
         model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
         tokens = torch.as_tensor(np.random.default_rng(2).integers(
             0, cfg.vocab, (1, PREFILL_S)), dtype=torch.int32, device=dev)
-        zero_model_counts()
-        logits = lm.forward(cfg, model, {"tokens": tokens})
-        torch.cuda.synchronize()
-        n = model_counts()
+        layers.flash_attention, layers._repeat_kv = k4_spy, repeat_spy
+        try:
+            zero_model_counts()
+            logits = lm.forward(cfg, model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            n = model_counts()
+        finally:
+            layers.flash_attention, layers._repeat_kv = k4, repeat_kv
         print("prefill path launches: " + json.dumps(n, sort_keys=True))
-        if n != {"k4/bfloat16": cfg.n_layers}:
-            fail(f"prefill launches {n}, expected {cfg.n_layers} K4 "
-                 "bf16 launches per forward")
+        if n != {"k4/wgmma/bfloat16": cfg.n_layers}:
+            fail(f"prefill launches {n}, expected {cfg.n_layers} "
+                 "tensor-core K4 launches per forward")
+        if repeats or seen != [(cfg.n_kv_heads, True)] * cfg.n_layers:
+            fail(f"prefill: K4 got (kv heads, views) {set(seen)} and "
+                 f"_repeat_kv ran {len(repeats)} times; expected k, v at "
+                 f"{cfg.n_kv_heads} heads as views, no repeat")
+        print(f"check: prefill: every layer handed K4 k and v at "
+              f"{cfg.n_kv_heads} kv heads as views of its (B, S, heads, hd) "
+              "activations; _repeat_kv ran 0 times")
         if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab) or \
                 not torch.isfinite(logits).all():
             fail(f"prefill logits of shape {tuple(logits.shape)} are not "
@@ -334,10 +380,10 @@ def prefill_path(dev) -> dict:
     fwd_ms = statistics.median(reps)
     print(f"prefill: llama3-8b forward on 1x{PREFILL_S} tokens "
           f"{fwd_ms:.1f} ms (median of 3); logits finite; "
-          f"{n['k4/bfloat16']} K4 launches per forward")
+          f"{n['k4/wgmma/bfloat16']} K4 launches per forward")
     if acts:
         busy = sum(us for _, us in acts) / 1e3
-        k4 = sum(us for name, us in acts if "fa_kernel" in name) / 1e3
+        k4 = sum(us for name, us in acts if "fa_wgmma_kernel" in name) / 1e3
         print(f"prefill: profiled forward: {len(acts)} device "
               f"activities, device busy {busy:.1f} ms of {wall:.1f} ms "
               f"wall; K4 {k4:.1f} ms ({k4 / busy:.3f} of busy), the "
@@ -345,7 +391,7 @@ def prefill_path(dev) -> dict:
     else:
         print("prefill: the profiler saw no device activity: device "
               "time by kernel not measured")
-    return {"launches": n["k4/bfloat16"], "forward_ms": fwd_ms}
+    return {"launches": n["k4/wgmma/bfloat16"], "forward_ms": fwd_ms}
 
 
 def equivalence(dev) -> dict:
@@ -390,17 +436,22 @@ def equivalence(dev) -> dict:
 
 
 def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
-    """K4 against its plain version at the prefill's shape, timed."""
+    """K4 against its plain version at the paths' shapes, timed: the
+    tensor-core kernel (bf16) at the prefill's GQA shape, on views of
+    (B, S, heads, hd) tensors as the layer hands them over; the CUDA-core
+    kernel (f32) at the equivalence path's."""
     import torch
 
     from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as fa
 
     cfg = get_config("llama3_8b")
-    shape = (1, cfg.n_heads, PREFILL_S, cfg.hd)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
     g = torch.Generator(device=dev).manual_seed(5)
-    base = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+    base = [torch.randn((1, PREFILL_S, h, hd), generator=g,
+                        device=dev).transpose(1, 2) for h in (H, Hkv, Hkv)]
     # "randn": N(0, 1) scores, outputs ~0.03 (averages over many keys);
     # "peaky": q scaled by K4_PEAK_Q, a few keys dominate each row and the
     # outputs are O(1), so a key the kernel loses moves them by O(1)
@@ -409,11 +460,21 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).removeprefix("torch.")
         tol = K4_TOL[dt]
+        kind = fa.route(dtype, hd)
+        if dtype == torch.bfloat16:
+            blocks = fa.WGMMA_BLOCKS[hd][0]
+            # every pair the kernel takes, block_q > block_k among them (R2)
+            cases = [(True, *blocks), (False, *blocks)] + \
+                [(True, *b) for b in fa.WGMMA_BLOCKS[hd][1:]]
+        else:
+            blocks = (fa.MAX_BLOCK, fa.MAX_BLOCK)
+            cases = [(True, *blocks), (False, *blocks)]
         for draw, xs in draws.items():
             q, k, v = (x.to(dtype) for x in xs)
-            cases = [(True, 64, 64), (False, 64, 64)]
-            if dtype == torch.bfloat16:
-                cases.append((True, 64, 32))     # block_q > block_k (R2)
+            if dtype == torch.float32:
+                # the CUDA-core kernel reads H kv heads, contiguous
+                q, k, v = (x.repeat_interleave(H // x.shape[1], dim=1)
+                           .contiguous() for x in (q, k, v))
             for causal, bq, bk in cases:
                 got = fa.flash_attention(q, k, v, causal=causal,
                                          block_q=bq, block_k=bk)
@@ -426,21 +487,21 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
                 except AssertionError as e:
                     fail(f"K4 {dt} {draw} causal={causal} ({bq}, {bk}) "
                          f"differs from its plain version: {e}")
-                print(f"check: K4 {dt} {draw} {shape} causal={causal} "
-                      f"blocks ({bq}, {bk}) == plain within rtol "
-                      f"{tol['rtol']}, atol {tol['atol']} (max |diff| "
-                      f"{err:.3g}, max |plain| "
+                print(f"check: K4 {kind} {dt} {draw} q {tuple(q.shape)} kv "
+                      f"{tuple(k.shape)} causal={causal} blocks ({bq}, {bk})"
+                      f" == plain within rtol {tol['rtol']}, atol "
+                      f"{tol['atol']} (max |diff| {err:.3g}, max |plain| "
                       f"{want.float().abs().max().item():.3g})")
                 if not causal:
                     full = want
             # the limit must reject a non-causal result that lost one kv
-            # tile
+            # tile (64 keys: the block_k of the kernels' smallest tiles)
             t = K4_DROPPED_TILE
             keep = torch.cat([torch.arange(t * 64), torch.arange(
                 (t + 1) * 64, PREFILL_S)]).to(dev)
             dropped = fa.flash_attention_plain(
-                q, k[:, :, keep], v[:, :, keep], causal=False, block_q=64,
-                block_k=64)
+                q, k[:, :, keep], v[:, :, keep], causal=False,
+                block_q=blocks[0], block_k=blocks[1])
             lost = (dropped.float() - full.float()).abs().max().item()
             try:
                 torch.testing.assert_close(dropped.float(), full.float(),
@@ -457,16 +518,21 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
         if dtype == torch.float32:
             # the f32 kernel ran on the equivalence phase's shape
             S = EQUIV_S
-            q, k, v = (x[:, :, :S].contiguous() for x in (q, k, v))
-            launches = equiv.get("k4/float32", 0)
+            q, k, v = (x[:, :, :S].repeat_interleave(H // x.shape[1], dim=1)
+                       .contiguous() for x in (q, k, v))
+            launches = equiv.get("k4/cuda_cores/float32", 0)
+            gqa = {}
+            source = "src/repro_torch/csrc/flash_attention.cu"
         else:
             S = PREFILL_S
             launches = prefill_launches
+            gqa = {"enable_gqa": True}
+            source = "src/repro_torch/csrc/flash_attention_wgmma.cu"
         if launches < 1:
-            fail(f"K4 {dt} was not launched on its path")
+            fail(f"K4 {kind} {dt} was not launched on its path")
         got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True, block_q=64,
-                                        block_k=64)
+        want = fa.flash_attention_plain(q, k, v, causal=True,
+                                        block_q=blocks[0], block_k=blocks[1])
         err = (got.float() - want.float()).abs().max().item()
         try:
             torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -474,8 +540,9 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
             fail(f"K4 {dt} causal at S={S} differs from its plain version: "
                  f"{e}")
         esz = q.element_size()
-        nbytes = 4 * q.numel() * esz
-        flops = 4 * cfg.hd * (S * (S + 1) // 2) * cfg.n_heads
+        # q and the output at H heads, k and v at theirs, each once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+        flops = 4 * hd * (S * (S + 1) // 2) * H
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
             else FP32_FLOP_PER_S
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
@@ -483,27 +550,39 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
         ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v,
                                                          causal=True), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, block_q=64, block_k=64), 3)[0]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 10)[0]
-        lib_err = (sdpa(q, k, v, is_causal=True).float()
+            q, k, v, causal=True, block_q=blocks[0], block_k=blocks[1]),
+            3)[0]
+        by_blocks = {}
+        if dtype == torch.bfloat16:
+            # every pair the kernel takes, timed: the default is the faster
+            for bq, bk in fa.WGMMA_BLOCKS[hd]:
+                by_blocks[f"{bq}x{bk}"] = time_ms(
+                    lambda: fa.flash_attention(q, k, v, causal=True,
+                                               block_q=bq, block_k=bk),
+                    10)[0]
+            print("time: K4 wgmma bfloat16 by blocks: " + ", ".join(
+                f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, **gqa), 10)[0]
+        lib_err = (sdpa(q, k, v, is_causal=True, **gqa).float()
                    - want.float()).abs().max().item()
         out.append({
-            "name": f"flash_attention[{dt}]", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": K4_REPLACES, "launches": launches,
+            "name": f"flash_attention_{kind}[{dt}]", "route": "cuda",
+            "source": source, "replaces": K4_REPLACES, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention"
-                       f" (timed only; max |sdpa - plain| {lib_err:.3g})",
+                       f"({'enable_gqa=True, ' if gqa else ''}timed only; "
+                       f"max |sdpa - plain| {lib_err:.3g})",
             "host_ms": host_ms, "bytes": nbytes, "flops": flops,
-            "shape": [1, cfg.n_heads, S, cfg.hd], "causal": True,
-            "blocks": [64, 64], "tolerance": tol,
+            "shape": [1, H, S, hd], "kv_shape": list(k.shape),
+            "layout": "views of (B, S, heads, hd)" if gqa else "contiguous",
+            "causal": True, "blocks": list(blocks), "tolerance": tol,
+            "ms_by_blocks": by_blocks,
             "path": "prefill" if dtype == torch.bfloat16
             else "equivalence"})
-        print(f"time: K4 {dt} causal (1, {cfg.n_heads}, {S}, "
-              f"{cfg.hd}): {ms:.4f} ms on the card (bound {b_ms:.4f} ms by"
-              f" {b_by}; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms)")
+        print(f"time: K4 {kind} {dt} causal q (1, {H}, {S}, {hd}) kv "
+              f"{tuple(k.shape)}: {ms:.4f} ms on the card (bound {b_ms:.4f} "
+              f"ms by {b_by}; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms)")
     return out
 
 
@@ -680,8 +759,7 @@ def main() -> int:
                                else ("double",))]
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
-    sources = {sp.LIB_NAME: sp.kernel_source(),
-               fa.LIB_NAME: fa.kernel_source(),
+    sources = {sp.LIB_NAME: sp.kernel_source(), **fa.kernel_sources(),
                wk.LIB_NAME: wk.kernel_source()}
     for k in ([s[1] for s in streamed.values()]
               + [w[1] for w in whole.values()]
@@ -692,9 +770,7 @@ def main() -> int:
     print(f"build: {len(sources)} sources, one nvcc each in parallel, "
           f"{time.perf_counter() - t0:.1f} s (compile {compile_s:.1f} s)")
     for name, (secs, log) in sorted(_cuda.BUILD_LOG.items()):
-        regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-                if "registers" in ln]
-        print(f"  {name}: {secs:.1f} s; " + " | ".join(regs))
+        print(f"  {name}: {secs:.1f} s; " + " | ".join(ptxas_summary(log)))
 
     # ---- the paths: counts from 0, launch, counts read ---------------------
     rng = np.random.default_rng(0)

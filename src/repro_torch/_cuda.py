@@ -154,9 +154,10 @@ def resolve_device(values: Iterable, device: Optional[str]) -> torch.device:
 
 
 def as_input(x, dtype: torch.dtype, device: torch.device, shape: tuple,
-             what: str) -> torch.Tensor:
+             what: str, contiguous: bool = True) -> torch.Tensor:
     """A kernel input: numpy arrays are copied over in ``dtype``; tensors
-    must already have the kernel's dtype, device, shape and layout."""
+    must already have the kernel's dtype, device, shape and (unless
+    ``contiguous`` is False, for a kernel that takes strides) layout."""
     if isinstance(x, np.ndarray):
         t = torch.as_tensor(x).to(device=device, dtype=dtype)
     elif isinstance(x, torch.Tensor):
@@ -165,7 +166,7 @@ def as_input(x, dtype: torch.dtype, device: torch.device, shape: tuple,
             raise ValueError(f"{what}: on {t.device}, kernel runs on {device}")
         if t.dtype != dtype:
             raise ValueError(f"{what}: dtype {t.dtype}, kernel takes {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: not contiguous")
     else:
         raise TypeError(f"{what}: expected a numpy array or a tensor, "

@@ -1,24 +1,38 @@
-"""Flash attention (forward) as a CUDA kernel for Hopper (K4).
+"""Flash attention (forward) as CUDA kernels for Hopper (K4).
 
 The TPU kernel (``repro.kernels.flash_attention``) walks a (B*H, S/block_q)
-grid and streams kv blocks through VMEM with online softmax.  The card's
-kernel, ``csrc/flash_attention.cu``, keeps that schedule: one block of 8
-warps per (b*h, q block), K and V tiles staged through shared memory, the
-running max, denominator and fp32 accumulator in registers, on the CUDA
-cores.  Its causal loop ends at the kv block that holds the q block's last
-row, ``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
+grid and streams kv blocks through VMEM with online softmax.  The card has
+two kernels for it, chosen by dtype and head dim alone:
+
+* bf16 at hd 64, 128 and 256: ``csrc/flash_attention_wgmma.cu``.  A block
+  owns 128 q rows (two consumer warpgroups of 64); its products run on the
+  tensor cores (``wgmma``), K and V tiles arrive by TMA through a ring of
+  shared-memory stages, and the tensor maps carry each tensor's strides, so
+  k and v may have fewer heads than q (grouped-query attention) and every
+  input may be a strided view, such as the ``.transpose(1, 2)`` of a
+  layer's (B, S, H, hd) activations.  Its (block_q, block_k) pairs are
+  ``WGMMA_BLOCKS[hd]``; the first is the default.
+* float32, and bf16 at hd 16 and 32: ``csrc/flash_attention.cu``, one block
+  of 8 warps per (b*h, q block of at most 64 rows) on the CUDA cores.  It
+  reads contiguous (B, H, S, hd) tensors with as many kv heads as q heads,
+  so the wrapper makes that copy for it where its inputs differ.
+
+Both stop a causal q block at the kv block that holds its last row,
+``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
 ``(qi*block_q)//block_k + 1`` drops blocks when ``block_q > block_k``.
 
-``flash_attention_plain`` beside it walks the same block schedule in
-PyTorch (all q blocks at once, kv blocks in order, the same causal bound),
-so the CPU tests hold the tiling math, unequal blocks included, against the
-oracle; the wrapper runs it only for tensors on the CPU.
+``flash_attention_plain`` beside them walks the same block schedule in
+PyTorch (all q blocks at once, kv blocks in order, the same causal bound,
+kv heads shared by their groups of q heads), so the CPU tests hold the
+tiling math, unequal blocks included, against the oracle; the wrapper runs
+it only for tensors on the CPU.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -27,14 +41,29 @@ from .. import _cuda
 
 SOURCE = _cuda.CSRC_DIR / "flash_attention.cu"
 LIB_NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
-MAX_BLOCK = 64                       # most q rows / kv keys of one CUDA block
+WGMMA_SOURCE = _cuda.CSRC_DIR / "flash_attention_wgmma.cu"
+WGMMA_LIB_NAME = "flash_attention_wgmma"
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+MAX_BLOCK = 64                       # CUDA-core kernel: most q rows / kv keys
+# tensor-core kernel: the (block_q, block_k) pairs it is built for, the
+# default first (the faster on the card: at 128 keys ptxas spills P's
+# registers); at hd 256 two stages of 128 keys would not fit beside Q
+WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
+                128: ((128, 64), (128, 128)),
+                256: ((128, 64),)}
 NEG_INF = -1e30
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
-# launches per input dtype ("float32" / "bfloat16"), counted at the launch
+# launches per kernel and input dtype ("wgmma/bfloat16",
+# "cuda_cores/float32", "cuda_cores/bfloat16"), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel runs a call: ``"wgmma"`` or ``"cuda_cores"``."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_BLOCKS \
+        else "cuda_cores"
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,11 +72,29 @@ def kernel_source() -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def wgmma_kernel_source() -> str:
+    return WGMMA_SOURCE.read_text()
+
+
+def kernel_sources() -> dict[str, str]:
+    """Both kernels' ``name -> source``, for ``_cuda.build_many``."""
+    return {LIB_NAME: kernel_source(), WGMMA_LIB_NAME: wgmma_kernel_source()}
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher(dtype: torch.dtype):
     lib = _cuda.load(LIB_NAME, kernel_source())
     return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 4
                             + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                     ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_launcher():
+    lib = _cuda.load(WGMMA_LIB_NAME, wgmma_kernel_source())
+    return lib, _cuda.entry(lib, "flash_attention_wgmma_bf16",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
 def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
@@ -63,33 +110,36 @@ def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
 
 def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
                           block_k: int):
-    """The plain PyTorch version: the kernel's block schedule with online
+    """The plain PyTorch version: the kernels' block schedule with online
     softmax in fp32, every q block at once, kv blocks in order; a q block
-    takes a kv block's update only while it is within its causal bound."""
+    takes a kv block's update only while it is within its causal bound.
+    k and v may have fewer heads than q; q head h reads kv head
+    h // (H / Hkv)."""
     B, H, S, hd = q.shape
-    Sk = k.shape[2]
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
     nq, nk = -(-S // block_q), -(-Sk // block_k)
     dev = q.device
     qf = torch.zeros((B, H, nq * block_q, hd), dtype=torch.float32,
                      device=dev)
     qf[:, :, :S] = q.float() * hd ** -0.5
-    qf = qf.view(B, H, nq, block_q, hd)
-    kf = torch.zeros((B, H, nk * block_k, hd), dtype=torch.float32,
+    qf = qf.view(B, Hkv, G, nq, block_q, hd)
+    kf = torch.zeros((B, Hkv, nk * block_k, hd), dtype=torch.float32,
                      device=dev)
     vf = torch.zeros_like(kf)
     kf[:, :, :Sk], vf[:, :, :Sk] = k.float(), v.float()
     qpos = torch.arange(nq * block_q, device=dev).view(nq, block_q, 1)
     walks = torch.tensor(kv_blocks(S, Sk, block_q, block_k, causal),
                          device=dev)
-    acc = torch.zeros((B, H, nq, block_q, hd), dtype=torch.float32,
+    acc = torch.zeros((B, Hkv, G, nq, block_q, hd), dtype=torch.float32,
                       device=dev)
-    m = torch.full((B, H, nq, block_q), NEG_INF, dtype=torch.float32,
+    m = torch.full((B, Hkv, G, nq, block_q), NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros_like(m)
     for j in range(nk):
         kb = kf[:, :, j * block_k:(j + 1) * block_k]
         vb = vf[:, :, j * block_k:(j + 1) * block_k]
-        s = torch.einsum("bhnqd,bhkd->bhnqk", qf, kb)
+        s = torch.einsum("bgrnqd,bgkd->bgrnqk", qf, kb)
         kpos = j * block_k + torch.arange(block_k, device=dev)
         ok = kpos < Sk
         if causal:
@@ -99,7 +149,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
         p = torch.exp(s - m1[..., None])
         alpha = torch.exp(m - m1)
         l1 = l * alpha + p.sum(dim=-1)
-        acc1 = acc * alpha[..., None] + torch.einsum("bhnqk,bhkd->bhnqd", p, vb)
+        acc1 = acc * alpha[..., None] + torch.einsum("bgrnqk,bgkd->bgrnqd",
+                                                     p, vb)
         on = (j < walks).view(nq, 1)
         acc = torch.where(on[..., None], acc1, acc)
         m, l = torch.where(on, m1, m), torch.where(on, l1, l)
@@ -107,45 +158,106 @@ def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
     return out.reshape(B, H, nq * block_q, hd)[:, :, :S].to(q.dtype)
 
 
+def _tma_strides(t: torch.Tensor, what: str) -> list[int]:
+    """(batch, head, row) element strides of a (B, H, S, hd) input of the
+    tensor-core kernel, which TMA reads through its strides: the last dim
+    must be unit-stride and the tensor and every stride 16-byte aligned.
+    A dim of size 1 is never stepped, so its stride is replaced by a valid
+    one."""
+    esz = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"{what}: last dim has stride {t.stride(-1)}; the "
+                         "kernel reads it unit-stride")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: data is not 16-byte aligned")
+    out = []
+    for d in range(3):
+        st = t.stride(d) if t.shape[d] > 1 else math.prod(t.shape[d + 1:])
+        if (st * esz) % 16:
+            raise ValueError(f"{what}: stride {t.stride(d)} of dim {d} is "
+                             "not a multiple of 16 bytes")
+        out.append(st)
+    return out
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
-                    block_q: int = MAX_BLOCK, block_k: int = MAX_BLOCK,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
                     device: Optional[str] = None):
-    """q: (B, H, S, hd); k, v: (B, H, Sk, hd), all float32 or all bfloat16.
-    Returns (B, H, S, hd) in q's dtype.  ``block_q``/``block_k`` are cut to
-    S/Sk as in the TPU wrapper and must then be at most 64: the TPU's
-    default is 128 (the MXU's width), but a CUDA block here holds at most
-    64 q rows and 64 keys (hd=256 then fills 213 KB of shared memory).  A
-    ragged last block is masked.  ``device`` defaults to where the
-    tensors lie (the card for numpy input): the kernel runs on the card,
-    the plain version on the CPU."""
+    """q: (B, H, S, hd); k, v: (B, Hkv, Sk, hd) with Hkv dividing H (q head
+    h reads kv head h // (H / Hkv)), all float32 or all bfloat16.  Returns
+    (B, H, S, hd) in q's dtype.
+
+    bf16 at hd 64/128/256 runs the tensor-core kernel: inputs may be any
+    views whose last dim is unit-stride and whose strides are 16-byte
+    aligned, the output takes q's layout, and (block_q, block_k) must be
+    one of ``WGMMA_BLOCKS[hd]`` (default: the first).  Otherwise the
+    CUDA-core kernel runs: ``block_q``/``block_k`` (default 64) are cut to
+    S/Sk as in the TPU wrapper and must then be at most 64 (hd=256 then
+    fills 213 KB of shared memory).  A ragged last block is masked.
+    ``device`` defaults to where the tensors lie (the card for numpy
+    input): the kernels run on the card, the plain version on the CPU."""
     dev = _cuda.resolve_device([q, k, v], device)
-    if getattr(q, "ndim", 0) != 4 or getattr(k, "ndim", 0) != 4:
+    if any(getattr(x, "ndim", 0) != 4 for x in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be (B, H, S, hd)")
     B, H, S, hd = q.shape
-    Sk = k.shape[2]
+    Hkv, Sk = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not supported; the "
-                         f"kernel takes hd in {HEAD_DIMS}")
+                         f"kernels take hd in {HEAD_DIMS}")
+    if H % Hkv:
+        raise ValueError(f"flash_attention: {Hkv} kv heads do not divide "
+                         f"{H} q heads")
     dtype = q.dtype if isinstance(q, torch.Tensor) else torch.float32
     if dtype not in _ENTRY:
-        raise ValueError(f"flash_attention: dtype {dtype}, kernel takes "
+        raise ValueError(f"flash_attention: dtype {dtype}, kernels take "
                          "float32 or bfloat16")
-    q = _cuda.as_input(q, dtype, dev, (B, H, S, hd), "q")
-    k = _cuda.as_input(k, dtype, dev, (B, H, Sk, hd), "k")
-    v = _cuda.as_input(v, dtype, dev, (B, H, Sk, hd), "v")
-    block_q, block_k = min(block_q, S), min(block_k, Sk)
-    if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
-        raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) "
-                         f"must lie in 1..{MAX_BLOCK}")
+    q = _cuda.as_input(q, dtype, dev, (B, H, S, hd), "q", contiguous=False)
+    k = _cuda.as_input(k, dtype, dev, (B, Hkv, Sk, hd), "k",
+                       contiguous=False)
+    v = _cuda.as_input(v, dtype, dev, (B, Hkv, Sk, hd), "v",
+                       contiguous=False)
+    kind = route(dtype, hd)
+    if kind == "wgmma":
+        pairs = WGMMA_BLOCKS[hd]
+        block_q = pairs[0][0] if block_q is None else block_q
+        block_k = pairs[0][1] if block_k is None else block_k
+        if (block_q, block_k) not in pairs:
+            raise ValueError(f"flash_attention: blocks ({block_q}, "
+                             f"{block_k}); the tensor-core kernel takes "
+                             f"{list(pairs)} at bf16 hd={hd}")
+        strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
+                                                   (v, "v"))]
+    else:
+        block_q = min(MAX_BLOCK if block_q is None else block_q, S)
+        block_k = min(MAX_BLOCK if block_k is None else block_k, Sk)
+        if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
+            raise ValueError(f"flash_attention: blocks ({block_q}, {block_k})"
+                             f" must lie in 1..{MAX_BLOCK}")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
                                      block_k=block_k)
-    lib, launch = _launcher(dtype)
-    out = torch.empty((B, H, S, hd), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B * H, S, Sk, hd, block_q, block_k, int(causal),
-                    hd ** -0.5, _cuda.current_stream(dev))
+    if kind == "wgmma":
+        lib, launch = _wgmma_launcher()
+        out = torch.empty_like(q)
+        strides.append(_tma_strides(out, "out"))
+        st = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, H, Hkv, S, Sk, hd, block_k,
+                        int(causal), hd ** -0.5, ctypes.addressof(st),
+                        _cuda.current_stream(dev))
+    else:
+        # the CUDA-core kernel reads contiguous tensors with H kv heads
+        q = q.contiguous()
+        k, v = (t.repeat_interleave(H // Hkv, dim=1) if Hkv != H
+                else t.contiguous() for t in (k, v))
+        lib, launch = _launcher(dtype)
+        out = torch.empty((B, H, S, hd), dtype=dtype, device=dev)
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B * H, S, Sk, hd, block_q, block_k,
+                        int(causal), hd ** -0.5, _cuda.current_stream(dev))
     _cuda.check(lib, rc, "flash_attention")
-    LAUNCHES[str(dtype).removeprefix("torch.")] += 1
+    LAUNCHES[f"{kind}/{str(dtype).removeprefix('torch.')}"] += 1
     return out

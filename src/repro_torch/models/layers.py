@@ -9,7 +9,8 @@ carried weights.  Two of them reach the port's CUDA kernels where the
 reference runs the same math in plain JAX:
 
 * ``attn_forward`` with ``cfg.attn_impl == "chunked"`` and ``causal``
-  computes ``_sdpa_chunked``'s function with flash attention (K4);
+  computes ``_sdpa_chunked``'s function with flash attention (K4), which
+  reads q, k, v in the layer's layout and k, v with their kv heads;
 * ``rwkv_time_mix``, and so ``rwkv_forward`` and ``rwkv_decode``, computes
   ``_wkv_chunk``'s recurrence with the WKV6 kernel (K5), which also returns
   the carried state.
@@ -158,9 +159,8 @@ def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
     v = _heads_in(h, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kr, vr = _repeat_kv(k, H // K), _repeat_kv(v, H // K)
     if cfg.attn_impl == "chunked" and causal:
-        T = kr.shape[1]
+        T = k.shape[1]
         C = min(cfg.attn_chunk, T)
         if T % C:
             raise ValueError(f"chunked attention: {T} tokens are not a "
@@ -168,8 +168,11 @@ def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
         if not (arange or _is_arange(positions)):
             raise ValueError("chunked attention masks by token index: "
                              "positions must be arange(S) in every row")
-        o = flash_attention(*(t.transpose(1, 2).contiguous()
-                              for t in (q, kr, vr)), causal=True)
+        # K4 reads the (B, S, heads, hd) activations through their strides
+        # and k, v with their K heads: no copy around the call, and its
+        # output, laid out as q is, transposes back to (B, S, H, hd) as is
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True)
         o = o.transpose(1, 2)
     else:
         if causal:
@@ -177,7 +180,8 @@ def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
         else:
             B, S = x.shape[:2]
             mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
-        o = _sdpa(cfg, q, kr, vr, mask, x.dtype)
+        o = _sdpa(cfg, q, _repeat_kv(k, H // K), _repeat_kv(v, H // K), mask,
+                  x.dtype)
     return x + _heads_out(o, p["wo"])
 
 

@@ -63,8 +63,14 @@ def test_flash_attention_plain_matches_jax_oracle(B, H, S, hd, bq, bk, dtype,
                                                   causal):
     q, k, v = _qkv(B, H, S, hd)
     td = getattr(torch, dtype)
-    got = ops.flash_attention(*(torch.from_numpy(x).to(td) for x in (q, k, v)),
-                              causal=causal, block_q=bq, block_k=bk)
+    xs = [torch.from_numpy(x).to(td) for x in (q, k, v)]
+    if fa.route(td, hd) == "wgmma":
+        # the tensor-core kernel's blocks are 128 q rows: the plain version
+        # walks these blocks itself (the wrapper's are held below)
+        got = fa.flash_attention_plain(*xs, causal=causal, block_q=bq,
+                                       block_k=bk)
+    else:
+        got = ops.flash_attention(*xs, causal=causal, block_q=bq, block_k=bk)
     assert got.dtype == td and tuple(got.shape) == (B, H, S, hd)
     np.testing.assert_allclose(got.float().numpy(),
                                _oracle(q, k, v, causal, dtype),
@@ -157,3 +163,144 @@ def test_wrapper_runs_on_the_card_or_raises():
     got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), device="cpu")
     assert got.device.type == "cpu"
     assert sum(fa.LAUNCHES.values()) == n0           # the plain version ran
+
+
+# ---------------------------------------------------------------------------
+# grouped-query attention, strided views, the kernels' blocks
+# ---------------------------------------------------------------------------
+
+
+def _gqa(B, H, Hkv, S, hd, seed, Sk=None):
+    """q (B, H, S, hd) and k, v (B, Hkv, Sk, hd), numpy f32."""
+    rng = np.random.default_rng(seed)
+    Sk = S if Sk is None else Sk
+    return (rng.standard_normal((B, H, S, hd)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Sk, hd)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Sk, hd)).astype(np.float32))
+
+
+def _repeated(k, H):
+    """kv heads repeated for their groups of q heads, as the reference's
+    _repeat_kv does: q head h reads kv head h // (H / Hkv)."""
+    return np.repeat(k, H // k.shape[1], axis=1)
+
+
+@pytest.mark.parametrize("Hkv", [1, 2, 8])          # 1, H/4, H
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk", [(128, 128), (128, 64), (64, 32)])
+def test_plain_gqa_matches_oracle_on_repeated_kv(Hkv, causal, bq, bk):
+    H = 8
+    q, k, v = _gqa(1, H, Hkv, 200, 32, seed=10 + Hkv)
+    got = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, block_q=bq, block_k=bk)
+    want = _oracle(q, _repeated(k, H), _repeated(v, H), causal, "float32")
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd,Hkv", [(64, 2), (128, 1), (256, 4), (32, 2),
+                                    (16, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_takes_strided_views_and_kv_heads(hd, Hkv, dtype):
+    """The layer's (B, S, heads, hd) activations, transposed to (B, heads,
+    S, hd) views, with k and v at Hkv heads: the wrapper takes them as they
+    are (the tensor-core route reads them through their strides)."""
+    B, S, H = 2, 136, 4
+    rng = np.random.default_rng(hd + Hkv)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    td = getattr(torch, dtype)
+    views = [torch.from_numpy(x).to(td).transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = fa.flash_attention(*views, causal=True)
+    assert tuple(got.shape) == (B, H, S, hd) and got.dtype == td
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in (q, k, v))
+    want = _oracle(q, _repeated(k, H), _repeated(v, H), True, dtype)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_route_blocks_match_oracle(hd, causal):
+    """bf16 at hd 64/128/256 takes the tensor-core kernel's blocks: the
+    default, 128 q rows by 64 keys (block_q > block_k, so the causal bound
+    of R2 is on the main path), and (128, 128) where it is built, each held
+    against the oracle on a ragged length."""
+    q, k, v = _gqa(1, 4, 2, 200, hd, seed=hd)
+    xs = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    want = _oracle(q, _repeated(k, 4), _repeated(v, 4), causal, "bfloat16")
+    assert fa.route(torch.bfloat16, hd) == "wgmma"
+    assert fa.route(torch.float32, hd) == "cuda_cores"
+    for blocks in [{}, *({"block_q": bq, "block_k": bk}
+                         for bq, bk in fa.WGMMA_BLOCKS[hd])]:
+        got = fa.flash_attention(*xs, causal=causal, **blocks)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                                   atol=2e-2, err_msg=str(blocks))
+    assert fa.WGMMA_BLOCKS[hd][0] == (128, 64)
+
+
+def test_tensor_core_route_rejects_what_it_cannot_run():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _gqa(1, 4, 2, 128, 64, seed=1))
+    with pytest.raises(ValueError, match="blocks"):
+        fa.flash_attention(q, k, v, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="blocks"):
+        fa.flash_attention(q, k, v, block_q=128, block_k=32)
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_attention(q, k[:, :1].expand(1, 3, 128, 64), v[:, :1]
+                           .expand(1, 3, 128, 64))
+    with pytest.raises(ValueError, match="unit-stride"):
+        fa.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                           v)
+    with pytest.raises(ValueError, match="16 bytes"):
+        wide = torch.zeros((1, 2, 128, 68), dtype=torch.bfloat16)
+        fa.flash_attention(q, wide[..., :64], v)
+    # float32 keeps the CUDA-core kernel's blocks (at most 64)
+    with pytest.raises(ValueError, match="blocks"):
+        fa.flash_attention(q.float(), k.float(), v.float(), block_q=128)
+
+
+@pytest.mark.parametrize("hd,dtype", [(64, "bfloat16"), (16, "float32")])
+def test_attn_forward_gqa_matches_jax_chunked_attention(hd, dtype,
+                                                        monkeypatch):
+    """The port's attn_forward at reduced llama3-8b (6 heads, 2 kv heads)
+    on carried weights against the JAX layer's _sdpa_chunked path: at hd 64
+    in bf16 (the tensor-core route, k and v unrepeated) and at the reduced
+    config's hd 16 in f32 (the CUDA-core route)."""
+    import jax
+    from repro_torch.config import get_config as torch_config
+    from repro_torch.models import layers as torch_layers
+    cfg = dataclasses.replace(get_config("llama3_8b", reduced=True),
+                              dtype=dtype, head_dim=hd, attn_impl="chunked",
+                              attn_chunk=32)
+    tcfg = dataclasses.replace(torch_config("llama3_8b", reduced=True),
+                               dtype=dtype, head_dim=hd, attn_impl="chunked",
+                               attn_chunk=32)
+    assert (cfg.n_heads, cfg.n_kv_heads) == (6, 2)
+    B, S = 2, 64
+    p = jax.tree.map(np.asarray, jax_layers.init_attn(cfg, jax.random.key(1)))
+    x = np.random.default_rng(2).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = jax_layers.attn_forward(cfg, p, jnp.asarray(x).astype(jd),
+                                   jnp.asarray(pos), True)
+    td = getattr(torch, dtype)
+    tp = {n: torch.from_numpy(np.array(w, np.float32)).to(td)
+          for n, w in p.items()}
+    seen = []
+    real = torch_layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((k.shape[1], all(t.transpose(1, 2).is_contiguous()
+                                     for t in (q, k, v))))
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(torch_layers, "flash_attention", spy)
+    got = torch_layers.attn_forward(tcfg, tp, torch.from_numpy(x).to(td), None)
+    # K4 got k and v with their 2 kv heads, as views of the layer's
+    # (B, S, heads, hd) activations: no repeat, no copy
+    assert seen == [(cfg.n_kv_heads, True)]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=TOL[dtype], atol=TOL[dtype])

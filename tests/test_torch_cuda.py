@@ -191,20 +191,26 @@ def _randn(shape, seed, device, dtype=torch.float32):
     return torch.from_numpy(x).to(device, dtype)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,H,S,hd,bq,bk", [
+# the CUDA-core kernel's cases: float32 at every head dim, bf16 at hd 16
+# and 32 (bf16 at hd 64-256 takes the tensor-core kernel, below)
+_FA_SHAPES = [
     (1, 2, 128, 64, 64, 64), (2, 1, 256, 128, 64, 64),
     (1, 2, 192, 64, 64, 32),      # block_q > block_k, causal bound (R2)
     (1, 2, 128, 16, 16, 64),      # block_q < block_k
     (1, 1, 100, 32, 64, 48),      # ragged last tiles
-    (1, 2, 64, 256, 64, 64)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    (1, 2, 64, 256, 64, 64)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,S,hd,bq,bk,dtype", [
+    (*c, dt) for dt in (torch.float32, torch.bfloat16) for c in _FA_SHAPES
+    if dt == torch.float32 or c[3] <= 32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
                                              dtype, causal):
     from repro_torch.kernels import flash_attention as fa
     q, k, v = (_randn((B, H, S, hd), s, cuda_device, dtype) for s in range(3))
-    key = str(dtype).removeprefix("torch.")
+    key = f"cuda_cores/{str(dtype).removeprefix('torch.')}"
     n0 = fa.LAUNCHES[key]
     got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
@@ -212,6 +218,41 @@ def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
     want = fa.flash_attention_plain(q, k, v, causal=causal,
                                     block_q=min(bq, S), block_k=min(bk, S))
     torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd,bq,bk", [(64, 128, 128), (64, 128, 64),
+                                      (128, 128, 128), (128, 128, 64),
+                                      (256, 128, 64)])
+@pytest.mark.parametrize("B,H,Hkv,S,Sk", [
+    (1, 2, 2, 256, 256),          # group 1
+    (2, 8, 2, 200, 200),          # group 4, ragged last q and kv tiles
+    (1, 4, 1, 136, 328)])         # group 4, Sk != S
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd, bq, bk, B,
+                                                   H, Hkv, S, Sk, strided,
+                                                   causal):
+    """The tensor-core kernel (bf16) against its plain version: GQA groups 1
+    and 4, ragged lengths, both block pairs (block_q > block_k included),
+    and (strided) transposed views of (B, S, heads, hd) tensors."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def make(heads, n, seed):
+        if strided:
+            return _randn((B, n, heads, hd), seed, cuda_device,
+                          torch.bfloat16).transpose(1, 2)
+        return _randn((B, heads, n, hd), seed, cuda_device, torch.bfloat16)
+    q, k, v = make(H, S, 0), make(Hkv, Sk, 1), make(Hkv, Sk, 2)
+    n0 = fa.LAUNCHES["wgmma/bfloat16"]
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["wgmma/bfloat16"] == n0 + 1
+    assert got.stride() == q.stride()         # the output takes q's layout
+    want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                    block_k=bk)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FA_TOL[torch.bfloat16])
 
 
 @pytest.mark.requires_cuda

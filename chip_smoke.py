@@ -30,6 +30,11 @@ read just after:
    runs the tensor-core flash-attention kernel (K4, ``wgmma``), on views
    of the layer's activations with k and v at their 8 kv heads.
 
+K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
+through shared memory, the traced conv block and ``optical_flow`` in 2
+launches a call (``K3_LAUNCHES``; the earlier design launched one per
+nest, ``K3_LAUNCHES_BEFORE``), which the profiler counts on the card.
+
 Then K4 and K5 are held against their plain versions at those shapes (K4
 on N(0, 1) inputs and on a peaky draw whose outputs are O(1), each limit
 shown to reject a result with one kv tile dropped), and both models, at
@@ -68,6 +73,9 @@ os.environ["REPRO_HLS_CACHE"] = "0"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+# fp32 instructions a second: an FMA counts twice in the rate above, a
+# separately rounded mul or add (K3's __fmul_rn, __fadd_rn) once
+FP32_ISSUE_PER_S = FP32_FLOP_PER_S / 2
 FRAME = (2160, 3840)             # 4K UHD: K1's image
 CHAIN_N = 4096                   # programs at image size
 CHECK_N = 16                     # float64 checks against sequential_exec
@@ -79,6 +87,12 @@ BENCH_COMPILE_N = {"unsharp": 8, "harris": 8, "dus": 8, "optical_flow": 6,
                    "two_mm": 6}
 RESTRICTED = ("harris", "optical_flow")
 CHECK_SIZE = {"two_mm": 8}
+# K3's CUDA launches per call: the earlier design's one per nest, and this
+# one's (runs of elementwise nests over one domain share a launch)
+K3_LAUNCHES_BEFORE = {"dus": 4, "optical_flow": 9, "two_mm": 2,
+                      "traced_conv": 11}
+K3_LAUNCHES = {"dus": 4, "optical_flow": 2, "two_mm": 2, "traced_conv": 2}
+K3_TILED = {"two_mm": ("pi", "ci")}   # reduction nests in the tiled form
 K1_REPLACES = "src/repro/kernels/stencil_pipeline.py:42"
 K2_REPLACES = "src/repro/core/codegen.py:475"
 K3_REPLACES = "src/repro/core/codegen.py:637"
@@ -166,7 +180,7 @@ def kernel_bytes(p, k) -> int:
 
 def ptxas_summary(log: str) -> list:
     """Per kernel of an nvcc -Xptxas -v log: its template arguments (where
-    it has them), registers and bytes spilled."""
+    it has them, else its name), registers and bytes spilled."""
     out, name, spill = [], "", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -175,6 +189,9 @@ def ptxas_summary(log: str) -> list:
             typ = ["f32"] if grp.startswith("f") else \
                 ["bf16"] if "bfloat16" in grp else []
             name = ",".join(typ + re.findall(r"Li(\d+)", grp))
+            plain = re.search(r"'_Z(\d+)(\w+)'", ln)
+            if not m and plain:
+                name = plain.group(2)[:int(plain.group(1))]
         elif "spill stores" in ln:
             spill = ln.split(",")[1].strip().split(" ")[0]
         elif "Used" in ln and "registers" in ln:
@@ -743,6 +760,13 @@ def main() -> int:
           f"s) best '{r.best.desc}' -> whole; traced at {CONV_HW}x{CONV_HW}: "
           f"{len(traced.program.body)} nests, {len(traced.program.arrays)} "
           "arrays")
+    for name, (p, k, _) in whole.items():
+        if k.tiled_reductions != K3_TILED.get(name, ()):
+            fail(f"K3 {name}: tiled reductions {k.tiled_reductions}, "
+                 f"expected {K3_TILED.get(name, ())}")
+        if k.nest_launches != K3_LAUNCHES[name]:
+            fail(f"K3 {name}: {k.nest_launches} launches per call "
+                 f"{k.launch_nests}, expected {K3_LAUNCHES[name]}")
     checks = {name: mk(CHECK_N, storage="bram")
               for name, mk in {**programs.CHAIN_BENCHMARKS,
                                **programs.BENCHMARKS}.items()}
@@ -934,6 +958,23 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, stage_flops(p))
         slow = name == "two_mm"
         ms, host_ms = time_ms(lambda: k(x), 3 if slow else 10, warmup=1)
+        # the device's own count of this call's kernels, and their times
+        acts, _ = device_kernels(lambda: k(x))
+        kern = [(n_, us) for n_, us in acts
+                if not re.search("memcpy|memset", n_, re.I)]
+        if acts and len(kern) != k.nest_launches:
+            fail(f"K3 {name}: the profiler saw {len(kern)} kernels in one "
+                 f"call, the design launches {k.nest_launches}")
+        ptxas = ptxas_summary(_cuda.BUILD_LOG.get(k.lib_name, (0, ""))[1])
+        ceil_ms = stage_flops(p) / FP32_ISSUE_PER_S * 1e3
+        print(f"launches: K3 {name}: {K3_LAUNCHES_BEFORE[name]} per call "
+              f"before, {k.nest_launches} now ("
+              + (f"{len(kern)} seen by the profiler" if acts else
+                 "the profiler saw no device: not measured")
+              + f"), nests per launch {list(k.launch_nests)}; tiled "
+              f"{list(k.tiled_reductions)}; ptxas " + " | ".join(ptxas)
+              + "; device us per kernel "
+              + ", ".join(f"{n_.split('(')[0]} {us:.1f}" for n_, us in kern))
         plain_ms = time_ms(lambda: k.plain(x), 1 if slow else 3,
                            warmup=0 if slow else 1)[0]
         lib_ms, lib_note = None, "no PyTorch call computes it"
@@ -964,12 +1005,20 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "library": lib_note,
             "host_ms": host_ms, "bytes": nbytes, "nests": k.nest_launches,
+            "launches_per_call": len(kern) if acts else k.nest_launches,
+            "launches_per_call_before": K3_LAUNCHES_BEFORE[name],
+            "launch_nests": [list(g) for g in k.launch_nests],
+            "tiled_reductions": list(k.tiled_reductions), "ptxas": ptxas,
+            "kernel_us": [[n_.split("(")[0], us] for n_, us in kern],
+            "rounding_ceiling_ms": ceil_ms if name == "two_mm" else None,
             "nans": nans, "outputs": list(k.outputs),
             "shape": list(p.arrays[k.outputs[-1]].shape)})
+        ceil = (f"; {ceil_ms:.4f} ms with every op rounded on its own, no "
+                "FMA" if name == "two_mm" else "")
         print(f"check: K3 {name} == plain bitwise (NaN-aware, {nans} NaN) "
               f"on {len(k.outputs)} outputs; {ms:.4f} ms on the card in "
-              f"{k.nest_launches} nest launches (bound {b_ms:.4f} ms by "
-              f"{b_by}; plain {plain_ms:.4f} ms; library "
+              f"{k.nest_launches} launches (bound {b_ms:.4f} ms by "
+              f"{b_by}{ceil}; plain {plain_ms:.4f} ms; library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"{lib_note})")
     # the traced conv block is K1's function: same image, same weights

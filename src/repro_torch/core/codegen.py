@@ -28,17 +28,24 @@ contract, which the port keeps).
   streamed contract rejects only *softly* (multi-store nests, strided or
   transposed stores, reads of unwritten regions, several sinks,
   reduction-carrying nests).  Every array is a whole buffer in device
-  memory; each nest is one ``__global__`` over its domain, one thread per
-  point, launched in program order on one stream (stream order is the
-  barrier between nests).  A stored array starts as a copy of its input,
-  so uncovered elements keep their initial values, exactly like
-  ``sim.sequential_exec``; the copy is skipped where the nest's stores
-  cover the whole array between them.  Partial, strided and transposed
-  accesses are plain index arithmetic.  Canonical accumulations (``two_mm``) fold the reduction iv
-  per thread in program order, which matches the sequential rounding bit
-  for bit.  Two stores of one nest to one array run in one thread where
-  the lowering proves their elements disjoint, else one launch per store
-  in op order (the later store wins on overlap, as in the reference).
+  memory; launches run in program order on one stream (stream order is
+  the barrier between them).  A program-order run of elementwise nests
+  over one domain shares a ``__global__``, one thread per point, where
+  every read of an array the run writes is at the point where the same
+  thread wrote it: the value is forwarded in a register, and every
+  stored array is still written (``CudaKernel.launch_nests``).  A stored
+  array starts as a copy of its input, so uncovered elements keep their
+  initial values, exactly like ``sim.sequential_exec``; the copy is
+  skipped where the nest's stores cover the whole array between them.
+  Partial, strided and transposed accesses are plain index arithmetic.
+  Canonical accumulations fold the reduction iv in program order, which
+  matches the sequential rounding bit for bit: with two outer ivs
+  (``two_mm``) tiled, a block per output tile and k chunks staged in
+  shared memory by double-buffered ``cp.async``
+  (``CudaKernel.tiled_reductions``), else per thread.  Two stores of one
+  nest to one array run in one thread where the lowering proves their
+  elements disjoint, else one launch per store in op order (the later
+  store wins on overlap, as in the reference).
 
 Programs outside both contracts (multi-chain tasks, imperfect nests, loose
 top-level ops, non-canonical reductions — the shape vocabulary is
@@ -54,15 +61,18 @@ shrinks where its windows would not fit one block's shared memory.  The
 kernel is emitted as *source text* (``CudaKernel.source``, the debuggable
 artifact) and built with ``nvcc`` at its first launch.  Arithmetic uses
 the round-to-nearest intrinsics (``__fmul_rn``...), so nothing is
-contracted into an FMA and the kernel repeats the plain version's rounding exactly.  Beside each kernel
-sits its plain version (``streamed_plain`` walks the same tile plan,
-``whole_plain`` the same nests, vectorized over each domain, in PyTorch);
-a kernel runs it only for tensors that lie on the CPU.
+contracted into an FMA and the kernel repeats the plain version's
+rounding exactly.  Beside each kernel sits its plain version
+(``streamed_plain`` walks the same tile plan, ``whole_plain`` the same
+launches, chunks and tails, vectorized over each domain, in PyTorch); a
+kernel runs it only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 import math
 import re
 from dataclasses import dataclass, field
@@ -672,7 +682,9 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
             "vmem_window_elems": {s.out: s.win_sz * s.nest.trips[1]
                                   for s in plan.stages if s is not sink},
             "smem_bytes": smem_elems * (4 if dtype == "float32" else 8),
-            "nest_launches": 1}
+            "nest_launches": 1,
+            "launch_nests": (tuple(s.nest.loop.ivname for s in plan.stages),),
+            "tiled_reductions": ()}
     return "\n".join(lines) + "\n", meta
 
 
@@ -746,6 +758,42 @@ def streamed_plain(p: Program, plan: _StreamPlan,
 # ---------------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class _Tile:
+    """A reduction nest's tiled form: a block owns a ``bm`` x ``bn`` tile of
+    the output domain and each of its threads a ``tm`` x ``tn`` micro-tile;
+    the block walks the reduction iv in chunks of ``bk``."""
+
+    bm: int
+    bn: int
+    bk: int
+    tm: int
+    tn: int
+
+
+# 16 x 16 threads either way; a float64 accumulator takes two registers
+_TILES = {"float32": _Tile(128, 128, 16, 8, 8),
+          "float64": _Tile(64, 64, 16, 4, 4)}
+# k chunks: 16 halves the barriers per k step (faster on the H100,
+# PERF.md), 8 fits twice the staged loads
+_CHUNKS = (16, 8)
+# a staged row's padding: keeps rows 16-byte aligned and a warp's
+# transposing copies on distinct banks
+_TILE_PAD = {"float32": 4, "float64": 2}
+_STATIC_SMEM = 48 * 1024
+
+
+@dataclass
+class _Launch:
+    """One ``__global__`` of a whole-array kernel: the nests it runs
+    (indices into the plan's nests, program order), the uids of the stores
+    it writes, and the tiled form of a reduction nest where it has one."""
+
+    nests: list
+    stores: set
+    tile: Optional[_Tile] = None
+
+
 @dataclass
 class _WholePlan:
     nests: list[_Nest]
@@ -753,7 +801,7 @@ class _WholePlan:
     writer: dict[str, int]      # stored array -> index of its (one) nest
     copied: list[str]           # stored arrays their stores do not cover
     inputs: list[str]           # arrays the kernel reads, program order
-    groups: list[list]          # per nest: its stores, grouped per launch
+    launches: list[_Launch]     # in program order
 
 
 def _covers(p: Program, nest: _Nest, accs: list[_Access]) -> bool:
@@ -781,11 +829,82 @@ def _disjoint(a: _Access, b: _Access) -> bool:
                for (_, ca, ka), (_, cb, kb) in zip(a.dims, b.dims))
 
 
-def _plan_whole(p: Program, nests: list[_Nest]) -> _WholePlan:
+def _at(nest: _Nest, acc: _Access) -> tuple:
+    """The element ``acc`` addresses, with the nest's ivs renamed by
+    position: nests that share a launch share each point of its domain, so
+    two accesses of theirs meet on one element where these agree."""
+    return (acc.array, *((None if ivn is None else nest.ivs.index(ivn), c, k)
+                         for ivn, c, k in acc.dims))
+
+
+def _joins(nests: list[_Nest], group: list[int], ni: int) -> bool:
+    """Nest ``ni`` (elementwise, its stores disjoint) may run in the launch
+    of the nests ``group``: the same domain, every read of an array the
+    group writes at the point where the same thread wrote it (so the value
+    is forwarded in a register), and no array it writes read by the group
+    at another point."""
+    nest = nests[ni]
+    if nest.trips != nests[group[0]].trips:
+        return False
+    written: dict[str, set] = collections.defaultdict(set)
+    for g in group:
+        for _, acc in nests[g].stores:
+            written[acc.array].add(_at(nests[g], acc))
+    if any(acc.array in written and _at(nest, acc) not in written[acc.array]
+           for _, acc in nest.loads):
+        return False
+    mine: dict[str, set] = collections.defaultdict(set)
+    for _, acc in nest.stores:
+        mine[acc.array].add(_at(nest, acc))
+    return not any(acc.array in mine and _at(nests[g], acc)
+                   not in mine[acc.array]
+                   for g in group for _, acc in nests[g].loads)
+
+
+def _staged(nest: _Nest) -> dict:
+    """A reduction nest's loads that depend on its reduction iv ``k``,
+    once per element they address: ``(array, dims) -> kind``.  A tiled
+    block stages each per k chunk: ``"i"`` (k and the first outer iv, as
+    ``[k][i]``), ``"j"`` (k and the second, as ``[k][j]``) or ``"k"`` (k
+    alone).  Rank <= 2 and one iv per dim leave no other kind."""
+    i, j, k = nest.ivs
+    out: dict = {}
+    for op, acc in nest.loads:
+        used = {d[0] for d in acc.dims}
+        if op.uid in nest.red_loads or k not in used:
+            continue
+        out.setdefault((acc.array, tuple(acc.dims)),
+                       "i" if i in used else "j" if j in used else "k")
+    return out
+
+
+def _stage_elems(t: _Tile, kind: str, dtype: str) -> int:
+    """One buffer of a staged load, in elements (padded rows)."""
+    return t.bk * (1 if kind == "k"
+                   else (t.bm if kind == "i" else t.bn) + _TILE_PAD[dtype])
+
+
+def _tiling(nest: _Nest, dtype: str) -> Optional[_Tile]:
+    """The tiled form of a reduction nest with two outer ivs, at the
+    longest k chunk whose staged loads, double-buffered, fit a block's
+    static shared memory; None keeps the per-point fold."""
+    if nest.red_iv is None or len(nest.ivs) != 3:
+        return None
+    esz = 4 if dtype == "float32" else 8
+    for bk in _CHUNKS:
+        t = dataclasses.replace(_TILES[dtype], bk=bk)
+        if sum(2 * _stage_elems(t, kind, dtype) * esz
+               for kind in _staged(nest).values()) <= _STATIC_SMEM:
+            return t
+    return None
+
+
+def _plan_whole(p: Program, nests: list[_Nest], dtype: str) -> _WholePlan:
     stored: list[str] = []
     writer: dict[str, int] = {}
     full: set = set()
-    groups = []
+    launches: list[_Launch] = []
+    group: Optional[_Launch] = None     # the open group of elementwise nests
     for ni, nest in enumerate(nests):
         sts = [acc for _, acc in nest.stores]
         for acc in sts:
@@ -797,10 +916,22 @@ def _plan_whole(p: Program, nests: list[_Nest]) -> _WholePlan:
                 full.add(a)
         overlap = any(x.array == y.array and not _disjoint(x, y)
                       for i, x in enumerate(sts) for y in sts[i + 1:])
-        # stores that may overlap run one launch each, in op order, so the
-        # later store wins as it does in the reference
-        groups.append([[s] for s in nest.stores] if overlap
-                      else [list(nest.stores)])
+        uids = {op.uid for op, _ in nest.stores}
+        if (nest.red_iv is None and not overlap and group is not None
+                and _joins(nests, group.nests, ni)):
+            group.nests.append(ni)
+            group.stores |= uids
+            continue
+        group = None
+        if nest.red_iv is not None:
+            launches.append(_Launch([ni], uids, _tiling(nest, dtype)))
+        elif overlap:
+            # stores that may overlap run one launch each, in op order, so
+            # the later store wins as it does in the reference
+            launches += [_Launch([ni], {op.uid}) for op, _ in nest.stores]
+        else:
+            group = _Launch([ni], uids)
+            launches.append(group)
     copied = [a for a in stored if a not in full]
     read = set(copied)
     for ni, nest in enumerate(nests):
@@ -809,7 +940,7 @@ def _plan_whole(p: Program, nests: list[_Nest]) -> _WholePlan:
                 read.add(acc.array)   # the input's value (incl. the carry)
     return _WholePlan(nests=nests, stored=stored, writer=writer,
                       copied=copied, inputs=[a for a in p.arrays if a in read],
-                      groups=groups)
+                      launches=launches)
 
 
 def _load_src(plan: _WholePlan, ni: int, array: str) -> str:
@@ -829,10 +960,403 @@ def _c_index(acc: _Access, shape: tuple, var: dict) -> str:
 
 _WHOLE_THREADS = 256
 
+_CP_ASYNC = """\
+// cp.async: a copy from device to shared memory that runs beside the
+// arithmetic; nbytes below the copy's size fills the rest with zeros (0
+// reads nothing)
+__device__ __forceinline__ void cp_async_elem(real* dst, const real* src,
+                                              int nbytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], ESZ, %2;\\n"
+                 :: "r"(s), "l"(src), "r"(nbytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_16(real* dst, const real* src,
+                                            int nbytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"
+                 :: "r"(s), "l"(src), "r"(nbytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\\n" :: "n"(N) : "memory");
+}
+"""
+
+
+class _Params:
+    """A kernel's pointer parameters, in first-use order, and which of them
+    it writes."""
+
+    def __init__(self):
+        self.names: list[str] = []
+        self.written: set = set()
+
+    def __call__(self, kind: str, array: str, store: bool = False) -> str:
+        name = f"{kind}_{_ident(array)}"
+        if name not in self.names:
+            self.names.append(name)
+        if store:
+            self.written.add(name)
+        return name
+
+    def decl(self) -> str:
+        return ", ".join(("real* " if n in self.written else "const real* ")
+                         + f"__restrict__ {n}" for n in self.names)
+
+
+def _decode_point(ivs: list[str], trips: list[int], var: dict) -> list[str]:
+    """The ivs of flat point ``pt`` of a domain, row-major."""
+    out = []
+    for k, ivn in enumerate(ivs):
+        rest = math.prod(trips[k + 1:])
+        idx = "pt" if rest == 1 else f"pt / {rest}"
+        if k > 0:
+            idx = f"({idx}) % {trips[k]}"
+        out.append(f"const int {var[ivn]} = (int)({idx});")
+    return out
+
+
+
+
+def _point_ops(nest: _Nest, dtype: str, pre: str, load: Callable,
+               store: Callable) -> list[str]:
+    """The nest's ops as C statements for one point, arithmetic values named
+    with the prefix ``pre``.  ``load(op, acc)`` gives a load's value as
+    ``(expression, declarations)``, ``store(op, acc, value)`` a store's
+    statements."""
+    fi = 0 if dtype == "float32" else 1
+    accs = {o.uid: a for o, a in nest.loads + nest.stores}
+    names: dict[str, str] = {}
+    out = []
+    for op in nest.ops:
+        if isinstance(op, ConstOp):
+            names[op.result] = _lit(op.value, dtype)
+        elif isinstance(op, LoadOp):
+            names[op.result], decl = load(op, accs[op.uid])
+            out += decl
+        elif isinstance(op, ArithOp):
+            names[op.result] = pre + _vname(op.result)
+            out.append(f"const real {names[op.result]} = "
+                       + _ARITH_FMT[op.fn][fi].format(
+                           *(names[a] for a in op.args)) + ";")
+        elif isinstance(op, StoreOp):
+            out += store(op, accs[op.uid], names[op.value])
+    return out
+
+
+def _group_body(p: Program, plan: _WholePlan, launch: _Launch, dtype: str,
+                ptr: _Params) -> list[str]:
+    """One point of a launch's elementwise nests, in program order.  A read
+    of an array that an earlier nest of the launch wrote (at this point: the
+    grouping rule) takes the stored value from its register."""
+    trips = plan.nests[launch.nests[0]].trips
+    fwd: dict[tuple, str] = {}    # _at of a store -> the value it stored
+    body = []
+    for ni in launch.nests:
+        nest = plan.nests[ni]
+        pre = f"n{ni}_"
+        var = {ivn: f"{pre}iv_{_ident(ivn)}" for ivn in nest.ivs}
+
+        def load(op, acc, nest=nest, ni=ni, var=var, pre=pre):
+            at = _at(nest, acc)
+            if at in fwd:
+                return fwd[at], []
+            name = pre + _vname(op.result)
+            src = ptr(_load_src(plan, ni, acc.array), acc.array)
+            return name, [f"const real {name} = {src}["
+                          + _c_index(acc, p.arrays[acc.array].shape, var)
+                          + "];"]
+
+        def store(op, acc, value, nest=nest, var=var):
+            if op.uid not in launch.stores:
+                return []
+            fwd[_at(nest, acc)] = value
+            return [f"{ptr('o', acc.array, store=True)}["
+                    + _c_index(acc, p.arrays[acc.array].shape, var)
+                    + f"] = {value};"]
+
+        if len(launch.nests) > 1:
+            body.append(f"// nest {nest.loop.ivname}")
+        body += _decode_point(nest.ivs, trips, var)
+        body += _point_ops(nest, dtype, pre, load, store)
+    return body
+
+
+def _reduction_body(p: Program, plan: _WholePlan, ni: int, dtype: str,
+                    ptr: _Params) -> list[str]:
+    """One point of a reduction nest's per-point form: the thread folds the
+    reduction iv from the input's value, in program order."""
+    nest = plan.nests[ni]
+    var = {ivn: f"iv_{_ident(ivn)}" for ivn in nest.ivs}
+
+    def load(op, acc):
+        if op.uid in nest.red_loads:
+            return "acc", []
+        name = _vname(op.result)
+        src = ptr(_load_src(plan, ni, acc.array), acc.array)
+        return name, [f"const real {name} = {src}["
+                      + _c_index(acc, p.arrays[acc.array].shape, var) + "];"]
+
+    inner = _point_ops(nest, dtype, "", load,
+                       lambda op, acc, value: [f"acc = {value};"])
+    (_, sacc), = nest.stores
+    at = _c_index(sacc, p.arrays[sacc.array].shape, var)
+    rv = var[nest.red_iv]
+    return _decode_point(nest.ivs[:-1], nest.trips[:-1], var) + [
+        f"real acc = {ptr('x', sacc.array)}[{at}];"
+        "  // the carry starts at the input's value",
+        f"for (int {rv} = 0; {rv} < {nest.trips[-1]}; ++{rv}) {{",
+        *("    " + x for x in inner),
+        "}",
+        f"{ptr('o', sacc.array, store=True)}[{at}] = acc;"]
+
+
+def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
+                  dtype: str, kname: str,
+                  ptr: _Params) -> tuple[list[str], int, int]:
+    """A reduction nest's tiled ``__global__``: (its text, blocks, bytes of
+    shared memory).  Block b owns output tile (b / tiles across, b % tiles
+    across); thread (ty, tx) of 16 x 16 owns rows ``ty * V + {0..V-1}`` of
+    each half of the tile's rows, likewise columns (V = tm / 2: one 128-bit
+    shared load per half).  k walks in chunks of ``t.bk``: each
+    k-dependent load's chunk is copied to shared memory with cp.async, the
+    next chunk's copy in flight while this one's arithmetic runs; loads
+    that do not depend on k are read once into registers.  Every point
+    folds k in program order with the nest's own ops; points past the
+    domain's edge compute on zero-filled copies and are not stored, and
+    the last chunk runs only over the k that exist."""
+    nest = plan.nests[ni]
+    i, j, k = nest.ivs
+    M, N, K = nest.trips
+    esz = 4 if dtype == "float32" else 8
+    ve = 16 // esz                      # elements per 16-byte copy
+    V = t.tm // 2
+    vt = "float4" if dtype == "float32" else "double2"
+    pad = _TILE_PAD[dtype]
+    ntj = -(-N // t.bn)
+    nch = -(-K // t.bk)
+    nfull, tail = divmod(K, t.bk)
+    var = {ivn: f"iv_{_ident(ivn)}" for ivn in nest.ivs}
+    row = f"i0 + (r / {V}) * {t.bm // 2} + ty * {V} + r % {V}"
+    col = f"j0 + (c / {V}) * {t.bn // 2} + tx * {V} + c % {V}"
+    staged = _staged(nest)
+    sid = {key: f"s{n}" for n, key in enumerate(staged)}
+    smem = sum(2 * _stage_elems(t, kind, dtype) * esz
+               for kind in staged.values())
+
+    top, stage, a16 = [], [], []
+    for key, kind in staged.items():
+        array, dims = key
+        acc = _Access(array, list(dims))
+        s = sid[key]
+        src = ptr(_load_src(plan, ni, array), array)
+        idx = _c_index(acc, p.arrays[array].shape, var)
+        if kind == "k":
+            top.append(f"__shared__ __align__(16) real {s}[2][{t.bk}];"
+                       f"  // '{array}' at k")
+            stage += [
+                f"if (tid < {t.bk}) {{",
+                f"    const int {var[k]} = kc + tid;",
+                f"    const bool ok = {var[k]} < {K};",
+                f"    cp_async_elem(&{s}[buf][tid], ok ? &{src}[{idx}] : "
+                f"{src}, ok ? {esz} : 0);",
+                "}"]
+            continue
+        x, X, bx, x0 = ((i, M, t.bm, "i0") if kind == "i"
+                        else (j, N, t.bn, "j0"))
+        top.append(f"__shared__ __align__(16) real {s}[2][{t.bk}]"
+                   f"[{bx + pad}];  // '{array}' at k and {kind}, as [k][{kind}]")
+        # consecutive threads copy consecutive addresses of device memory
+        kfast = dims[-1][0] == k
+        kk, xx = ((f"e % {t.bk}", f"e / {t.bk}") if kfast
+                  else (f"e / {bx}", f"e % {bx}"))
+        elem = [
+            f"for (int e = tid; e < {t.bk * bx}; e += {_WHOLE_THREADS}) {{",
+            f"    const int kk = {kk}, xx = {xx};",
+            f"    const int {var[k]} = kc + kk, {var[x]} = {x0} + xx;",
+            f"    const bool ok = {var[k]} < {K} && {var[x]} < {X};",
+            f"    cp_async_elem(&{s}[buf][kk][xx], ok ? &{src}[{idx}] : "
+            f"{src}, ok ? {esz} : 0);",
+            "}"]
+        shape = p.arrays[array].shape
+        if (not kfast and dims[-1][:2] == (x, 1) and dims[-1][2] % ve == 0
+                and shape[-1] % ve == 0):
+            # a row of the chunk is contiguous in device memory: 16-byte
+            # copies where the array's pointer is 16-byte aligned
+            a16.append(f"const bool a16_{s} = "
+                       f"(reinterpret_cast<size_t>({src}) & 15) == 0;")
+            gx = bx // ve
+            stage += [
+                f"if (a16_{s}) {{",
+                f"    for (int e = tid; e < {t.bk * gx}; e += "
+                f"{_WHOLE_THREADS}) {{",
+                f"        const int kk = e / {gx}, xx = (e % {gx}) * {ve};",
+                f"        const int {var[k]} = kc + kk, {var[x]} = {x0} + xx;",
+                f"        const int n = {var[k]} < {K} ? "
+                f"max(0, min({ve}, {X} - {var[x]})) : 0;",
+                f"        cp_async_16(&{s}[buf][kk][xx], n > 0 ? &{src}[{idx}]"
+                f" : {src}, n * {esz});",
+                "    }",
+                "} else {",
+                *("    " + x_ for x_ in elem),
+                "}"]
+        else:
+            stage += elem
+
+    # loads that do not depend on k: once, into registers
+    hoist: dict = {}      # (array, dims) -> (name, uses i, uses j)
+    uses: dict = {}       # load uid -> its (array, dims)
+    for op, acc in nest.loads:
+        key = (acc.array, tuple(acc.dims))
+        used = {d[0] for d in acc.dims}
+        if op.uid in nest.red_loads or key in staged:
+            continue
+        uses[op.uid] = key
+        if key not in hoist:
+            hoist[key] = (f"h{len(hoist)}", i in used, j in used)
+    (_, sacc), = nest.stores
+    at = _c_index(sacc, p.arrays[sacc.array].shape, var)
+    ok_ij = f"{var[i]} < {M} && {var[j]} < {N}"
+    init_r, init_rc, init_c, decl = [], [], [], []
+    for (array, dims), (h, ui, uj) in hoist.items():
+        acc = _Access(array, list(dims))
+        src = ptr(_load_src(plan, ni, array), array)
+        val = f"{src}[{_c_index(acc, p.arrays[array].shape, var)}]"
+        if ui and uj:
+            decl.append(f"real {h}[{t.tm}][{t.tn}];")
+            init_rc.append(f"{h}[r][c] = ok ? {val} : (real)0;")
+        elif ui:
+            decl.append(f"real {h}[{t.tm}];")
+            init_r.append(f"{h}[r] = {var[i]} < {M} ? {val} : (real)0;")
+        elif uj:
+            decl.append(f"real {h}[{t.tn}];")
+            init_c.append(f"{h}[c] = {var[j]} < {N} ? {val} : (real)0;")
+        else:
+            decl.append(f"const real {h} = {val};")
+
+    def load(op, acc):
+        if op.uid in nest.red_loads:
+            return "acc[r][c]", []
+        key = (acc.array, tuple(acc.dims))
+        if key in staged:
+            f = "f_" + sid[key]
+            return {"i": f + "[r]", "j": f + "[c]", "k": f}[staged[key]], []
+        h, ui, uj = hoist[uses[op.uid]]
+        return h + ("[r]" if ui else "") + ("[c]" if uj else ""), []
+
+    point = _point_ops(nest, dtype, "", load,
+                       lambda op, acc, value: [f"acc[r][c] = {value};"])
+
+    def chunk(kn: int) -> list[str]:
+        frags = []
+        for key, kind in staged.items():
+            s, f = sid[key], "f_" + sid[key]
+            if kind == "k":
+                frags.append(f"const real {f} = {s}[buf][kk];")
+                continue
+            th, bx, n = (("ty", t.bm, t.tm) if kind == "i"
+                         else ("tx", t.bn, t.tn))
+            frags.append(f"real {f}[{n}];")
+            for h in range(2):
+                frags.append(
+                    f"{{ const {vt} q = *reinterpret_cast<const {vt}*>("
+                    f"&{s}[buf][kk][{h * bx // 2} + {th} * {V}]); "
+                    + " ".join(f"{f}[{h * V + q}] = q.{'xyzw'[q]};"
+                               for q in range(V)) + " }")
+        return [
+            "#pragma unroll",
+            f"for (int kk = 0; kk < {kn}; ++kk) {{",
+            *("    " + x_ for x_ in frags),
+            "    #pragma unroll",
+            f"    for (int r = 0; r < {t.tm}; ++r) {{",
+            "        #pragma unroll",
+            f"        for (int c = 0; c < {t.tn}; ++c) {{",
+            *("            " + x_ for x_ in point),
+            "        }",
+            "    }",
+            "}"]
+
+    if tail and nfull:
+        compute = ([f"if (ch < {nfull}) {{"] + ["    " + x_ for x_ in chunk(t.bk)]
+                   + ["} else {  // the k tail: only the k that exist"]
+                   + ["    " + x_ for x_ in chunk(tail)] + ["}"])
+    else:
+        compute = chunk(tail or t.bk)
+    body = [
+        *top,
+        "const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;",
+        f"const int i0 = (int)(blockIdx.x / {ntj}) * {t.bm}, "
+        f"j0 = (int)(blockIdx.x % {ntj}) * {t.bn};",
+        *a16,
+        "auto stage = [&](int kc, int buf) {",
+        *("    " + x_ for x_ in stage),
+        "    cp_async_commit();",
+        "};",
+        f"real acc[{t.tm}][{t.tn}];",
+        *decl,
+        "#pragma unroll",
+        f"for (int r = 0; r < {t.tm}; ++r) {{",
+        f"    const int {var[i]} = {row};",
+        *("    " + x_ for x_ in init_r),
+        "    #pragma unroll",
+        f"    for (int c = 0; c < {t.tn}; ++c) {{",
+        f"        const int {var[j]} = {col};",
+        f"        const bool ok = {ok_ij};",
+        f"        acc[r][c] = ok ? {ptr('x', sacc.array)}[{at}] : (real)0;"
+        "  // the carry starts at the input's value",
+        *("        " + x_ for x_ in init_rc),
+        "    }",
+        "}",
+    ]
+    if init_c:
+        body += ["#pragma unroll",
+                 f"for (int c = 0; c < {t.tn}; ++c) {{",
+                 f"    const int {var[j]} = {col};",
+                 *("    " + x_ for x_ in init_c),
+                 "}"]
+    if nch:
+        body += [
+            "stage(0, 0);",
+            f"for (int ch = 0; ch < {nch}; ++ch) {{",
+            "    const int buf = ch & 1;",
+            f"    if (ch + 1 < {nch}) {{",
+            f"        stage((ch + 1) * {t.bk}, buf ^ 1);",
+            "        cp_async_wait<1>();  // this chunk landed, the next "
+            "one flies",
+            "    } else {",
+            "        cp_async_wait<0>();",
+            "    }",
+            "    __syncthreads();",
+            *("    " + x_ for x_ in compute),
+            "    __syncthreads();  // the next copy overwrites this buffer",
+            "}"]
+    body += [
+        "#pragma unroll",
+        f"for (int r = 0; r < {t.tm}; ++r) {{",
+        f"    const int {var[i]} = {row};",
+        "    #pragma unroll",
+        f"    for (int c = 0; c < {t.tn}; ++c) {{",
+        f"        const int {var[j]} = {col};",
+        f"        if ({ok_ij}) {ptr('o', sacc.array, store=True)}[{at}] = "
+        "acc[r][c];",
+        "    }",
+        "}"]
+    text = [
+        f"// nest {nest.loop.ivname}: reduction over '{k}' ({K} steps), "
+        f"domain ({M}, {N}), tiled: {t.bm} x {t.bn} output tiles, "
+        f"{t.tm} x {t.tn} a thread, k in chunks of {t.bk}",
+        f"__global__ void __launch_bounds__({_WHOLE_THREADS}, 2) "
+        f"{kname}({ptr.decl()}) {{",
+        *("    " + x_ for x_ in body),
+        "}",
+        ""]
+    return text, -(-M // t.bm) * ntj, smem
+
 
 def _emit_whole_cuda(p: Program, plan: _WholePlan,
                      dtype: str) -> tuple[str, dict]:
-    fi = 0 if dtype == "float32" else 1
     lines = [
         "// Generated by repro_torch.core.codegen — do not edit.",
         f"// program '{p.name}': whole-array (Mode B), {dtype}.",
@@ -840,115 +1364,81 @@ def _emit_whole_cuda(p: Program, plan: _WholePlan,
         "emits.",
         "// Bound: device memory for the elementwise nests (each array read "
         "once and",
-        "// written once), arithmetic for a reduction nest.  Design: one "
-        "__global__ per",
-        "// nest (per store where two stores of a nest may overlap), one "
-        "thread per point",
-        "// of its domain, launched in program order on one stream; every "
-        "array lives",
-        "// in device memory, the L2 keeps a producer's output near its "
-        "consumer.",
-        "// A reduction folds its innermost iv per thread in program order.  "
-        "The _rn",
-        "// intrinsics round every op once, as the plain version does, so "
-        "the two agree",
-        "// bit for bit.",
+        "// written once), arithmetic for a reduction nest.  Design: launches "
+        "in program",
+        "// order on one stream, every array in device memory.  A run of "
+        "elementwise",
+        "// nests over one domain shares a __global__, one thread per point; "
+        "a value",
+        "// one of them stores reaches a later one that reads it at the same "
+        "point in",
+        "// a register, and every stored array is still written.  A "
+        "reduction with two",
+        "// outer ivs runs tiled: a block owns an output tile, a thread a "
+        "micro-tile,",
+        "// and the reduction iv walks in chunks that double-buffered "
+        "cp.async copies",
+        "// stage in shared memory; other reductions fold per thread.  Each "
+        "point folds",
+        "// in program order, and the _rn intrinsics round every op once "
+        "(no FMA, no",
+        "// tensor cores), as the plain version does, so the two agree bit "
+        "for bit.",
         "#include <cuda_runtime.h>",
         "",
         f"typedef {_CTYPES[dtype]} real;",
         "",
     ]
-    launches = []   # (kernel, domain points, parameters, written ones)
-    for ni, nest in enumerate(plan.nests):
-        var = {ivn: f"iv_{_ident(ivn)}" for ivn in nest.ivs}
-        outer = nest.ivs[:-1] if nest.red_iv is not None else nest.ivs
-        trips = nest.trips[:len(outer)]
-        npts = math.prod(trips)
-        for gi, group in enumerate(plan.groups[ni]):
-            kname = f"nest{ni}_{_ident(nest.loop.ivname)}"
-            if len(plan.groups[ni]) > 1:
-                kname += f"_store{gi}"
-            mine = {op.uid for op, _ in group}
-            ptrs: list[str] = []        # kernel parameters, in order
-            written: set = set()
-
-            def ptr(kind: str, array: str, store: bool = False) -> str:
-                name = f"{kind}_{_ident(array)}"
-                if name not in ptrs:
-                    ptrs.append(name)
-                if store:
-                    written.add(name)
-                return name
-
-            body = []   # the point's ivs from its flat index, then the ops
-            for k, ivn in enumerate(outer):
-                rest = math.prod(trips[k + 1:])
-                idx = "pt" if rest == 1 else f"pt / {rest}"
-                if k > 0:
-                    idx = f"({idx}) % {trips[k]}"
-                body.append(f"const int {var[ivn]} = (int)({idx});")
-            names: dict[str, str] = {}
-            inner = []
-            red = nest.red_iv is not None
-            for op in nest.ops:
-                if isinstance(op, ConstOp):
-                    names[op.result] = _lit(op.value, dtype)
-                elif isinstance(op, LoadOp):
-                    if red and op.uid in nest.red_loads:
-                        names[op.result] = "acc"
-                        continue
-                    acc = next(a for o, a in nest.loads if o is op)
-                    src = ptr(_load_src(plan, ni, acc.array), acc.array)
-                    names[op.result] = _vname(op.result)
-                    inner.append(
-                        f"const real {names[op.result]} = {src}["
-                        + _c_index(acc, p.arrays[acc.array].shape, var)
-                        + "];")
-                elif isinstance(op, ArithOp):
-                    names[op.result] = _vname(op.result)
-                    inner.append(f"const real {names[op.result]} = "
-                                 + _ARITH_FMT[op.fn][fi].format(
-                                     *(names[a] for a in op.args)) + ";")
-                elif isinstance(op, StoreOp):
-                    if red:
-                        inner.append(f"acc = {names[op.value]};")
-                    elif op.uid in mine:
-                        acc = next(a for o, a in nest.stores if o is op)
-                        inner.append(
-                            f"{ptr('o', acc.array, store=True)}["
-                            + _c_index(acc, p.arrays[acc.array].shape, var)
-                            + f"] = {names[op.value]};")
-            if red:
-                _, sacc = nest.stores[0]
-                at = _c_index(sacc, p.arrays[sacc.array].shape, var)
-                rv = var[nest.red_iv]
-                body.append(f"real acc = {ptr('x', sacc.array)}[{at}];"
-                            "  // the carry starts at the input's value")
-                body.append(f"for (int {rv} = 0; {rv} < {nest.trips[-1]}; "
-                            f"++{rv}) {{")
-                body += ["    " + x for x in inner]
-                body.append("}")
-                body.append(f"{ptr('o', sacc.array, store=True)}[{at}] = "
-                            "acc;")
-            else:
-                body += inner
-            params = [("real* " if n in written else "const real* ")
-                      + f"__restrict__ {n}" for n in ptrs]
-            what = (f"reduction over '{nest.red_iv}' ({nest.trips[-1]} "
-                    "steps), " if red else "")
-            lines.append(f"// nest {nest.loop.ivname}: {what}domain "
-                         f"{tuple(trips)}")
-            lines.append(f"__global__ void __launch_bounds__({_WHOLE_THREADS})"
-                         f" {kname}(" + ", ".join(params) + ") {")
-            lines.append("    for (long long pt = (long long)blockIdx.x * "
-                         "blockDim.x + threadIdx.x;")
-            lines.append(f"         pt < {npts}LL; pt += (long long)gridDim.x"
-                         " * blockDim.x) {")
-            lines += ["        " + b for b in body]
-            lines += ["    }", "}", ""]
-            launches.append((kname, npts, ptrs, written))
-
     esz = 4 if dtype == "float32" else 8
+    if any(launch.tile for launch in plan.launches):
+        lines += _CP_ASYNC.replace("ESZ", str(esz)).splitlines() + [""]
+    calls = []      # (kernel, blocks, parameters)
+    smem = 0
+    for launch in plan.launches:
+        ni = launch.nests[0]
+        nest = plan.nests[ni]
+        kname = f"nest{ni}_{_ident(nest.loop.ivname)}"
+        if len(launch.nests) > 1:
+            kname = f"nests{ni}to{launch.nests[-1]}_{_ident(nest.loop.ivname)}"
+        elif len(launch.stores) < len(nest.stores):
+            (uid,) = launch.stores
+            kname += "_store" + str([op.uid for op, _ in nest.stores]
+                                    .index(uid))
+        ptr = _Params()
+        if launch.tile is not None:
+            text, blocks, nbytes = _tiled_kernel(p, plan, ni, launch.tile,
+                                                 dtype, kname, ptr)
+            lines += text
+            smem = max(smem, nbytes)
+            calls.append((kname, blocks, ptr))
+            continue
+        red = nest.red_iv is not None
+        trips = nest.trips[:-1] if red else nest.trips
+        npts = math.prod(trips)
+        body = (_reduction_body(p, plan, ni, dtype, ptr) if red
+                else _group_body(p, plan, launch, dtype, ptr))
+        if red:
+            what = (f"nest {nest.loop.ivname}: reduction over "
+                    f"'{nest.red_iv}' ({nest.trips[-1]} steps), folded per "
+                    "point")
+        else:
+            what = "nest" + ("s " if len(launch.nests) > 1 else " ") + \
+                ", ".join(plan.nests[n].loop.ivname for n in launch.nests)
+        lines += [
+            f"// {what}: domain {tuple(trips)}",
+            f"__global__ void __launch_bounds__({_WHOLE_THREADS}) "
+            f"{kname}({ptr.decl()}) {{",
+            "    for (long long pt = (long long)blockIdx.x * blockDim.x + "
+            "threadIdx.x;",
+            f"         pt < {npts}LL; pt += (long long)gridDim.x * "
+            "blockDim.x) {",
+            *("        " + b for b in body),
+            "    }",
+            "}",
+            ""]
+        calls.append((kname, max(1, min(-(-npts // _WHOLE_THREADS),
+                                        2 ** 31 - 1)), ptr))
+
     cargs = ([f"const void* x_{_ident(a)}" for a in plan.inputs]
              + [f"void* o_{_ident(a)}" for a in plan.stored]
              + ["void* stream"])
@@ -966,10 +1456,9 @@ def _emit_whole_cuda(p: Program, plan: _WholePlan,
             f"{nbytes}, cudaMemcpyDeviceToDevice, s);",
             "    if (err != cudaSuccess) return (int)err;",
         ]
-    for kname, npts, ptrs, written in launches:
-        blocks = max(1, min(-(-npts // _WHOLE_THREADS), 2 ** 31 - 1))
-        casts = [("(real*)" if n in written else "(const real*)") + n
-                 for n in ptrs]
+    for kname, blocks, ptr in calls:
+        casts = [("(real*)" if n in ptr.written else "(const real*)") + n
+                 for n in ptr.names]
         lines += [
             f"    {kname}<<<{blocks}, {_WHOLE_THREADS}, 0, s>>>("
             + ", ".join(casts) + ");",
@@ -984,9 +1473,15 @@ def _emit_whole_cuda(p: Program, plan: _WholePlan,
         "    return cudaGetErrorString((cudaError_t)e);",
         "}",
     ]
+    name = [n.loop.ivname for n in plan.nests]
     meta = {"mode": "whole", "grid": (), "block_rows": None, "halo": {},
             "outputs": tuple(plan.stored), "vmem_window_elems": {},
-            "smem_bytes": 0, "nest_launches": len(launches)}
+            "smem_bytes": smem, "nest_launches": len(calls),
+            "launch_nests": tuple(tuple(name[n] for n in launch.nests)
+                                  for launch in plan.launches),
+            "tiled_reductions": tuple(name[launch.nests[0]]
+                                      for launch in plan.launches
+                                      if launch.tile is not None)}
     return "\n".join(lines) + "\n", meta
 
 
@@ -1023,15 +1518,101 @@ def _store_view(val: torch.Tensor, acc: _Access, ivs: list[str],
     return sel, v
 
 
+def _evaluate(nest: _Nest, load: Callable, const: Callable) -> list:
+    """The nest's ops over a domain, one PyTorch op per IR op; ``load(op,
+    acc)`` gives each load's value.  Returns ``(store op, access, value)``
+    per store, in op order."""
+    accs = {o.uid: a for o, a in nest.loads + nest.stores}
+    names: dict[str, torch.Tensor] = {}
+    stores = []
+    for op in nest.ops:
+        if isinstance(op, ConstOp):
+            names[op.result] = const(op.value)
+        elif isinstance(op, LoadOp):
+            names[op.result] = load(op, accs[op.uid])
+        elif isinstance(op, ArithOp):
+            names[op.result] = _TORCH_FNS[op.fn](*(names[a] for a in op.args))
+        elif isinstance(op, StoreOp):
+            stores.append((op, accs[op.uid], names[op.value]))
+    return stores
+
+
+def _pad(v: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``v`` with zeros after its end along each axis, out to ``shape``."""
+    if tuple(v.shape) == tuple(shape):
+        return v
+    z = v.new_zeros(shape)
+    z[tuple(slice(0, n) for n in v.shape)] = v
+    return z
+
+
+def _tiled_plain(nest: _Nest, t: _Tile, read: Callable, carry0: torch.Tensor,
+                 const: Callable) -> list:
+    """A tiled reduction nest as its kernel walks it: every output tile at
+    once, the domain padded to whole tiles (points past its edge compute on
+    the zeros the kernel's copies fill in, and are not stored); k in chunks
+    of ``t.bk``, each k-dependent load's chunk copied out first as the
+    kernel stages it, the last chunk only over the k that exist; each point
+    folds k in program order.  ``read(acc)`` is the array a load reads,
+    ``carry0`` the stored array's input."""
+    i, j, k = nest.ivs
+    M, N, K = nest.trips
+    Mp, Np = -(-M // t.bm) * t.bm, -(-N // t.bn) * t.bn
+    staged = _staged(nest)
+
+    def over_tiles(acc: _Access) -> torch.Tensor:
+        used = {d[0] for d in acc.dims}
+        v = _domain_view(read(acc), acc, [i, j], [M, N], {})
+        return _pad(v, (Mp if i in used else 1, Np if j in used else 1))
+
+    (sop, sacc), = nest.stores
+    carry = _pad(_domain_view(carry0, sacc, [i, j], [M, N], {}), (Mp, Np))
+    hoisted = {op.uid: over_tiles(acc) for op, acc in nest.loads
+               if op.uid not in nest.red_loads
+               and (acc.array, tuple(acc.dims)) not in staged}
+    whole_k = {}
+    for key, kind in staged.items():
+        acc = _Access(key[0], list(key[1]))
+        x, X = (i, M) if kind == "i" else (j, N)
+        whole_k[key] = (_domain_view(read(acc), acc, [k], [K], {})
+                        if kind == "k" else
+                        _domain_view(read(acc), acc, [k, x], [K, X], {}))
+    for kc in range(0, K, t.bk):
+        kn = min(t.bk, K - kc)
+        tiles = {key: _pad(v[kc:kc + kn],
+                           (t.bk,) if staged[key] == "k" else
+                           (t.bk, Mp if staged[key] == "i" else Np))
+                 for key, v in whole_k.items()}
+        for kk in range(kn):
+            def load(op, acc):
+                if op.uid in nest.red_loads:
+                    return carry
+                key = (acc.array, tuple(acc.dims))
+                if key not in tiles:
+                    return hoisted[op.uid]
+                kind = staged[key]
+                return (tiles[key][kk] if kind == "k" else
+                        tiles[key][kk].view(-1, 1) if kind == "i" else
+                        tiles[key][kk].view(1, -1))
+
+            (_, _, val), = _evaluate(nest, load, const)
+            carry = val.expand(Mp, Np)
+    return [(sop, sacc, carry[:M, :N])]
+
+
 def whole_plain(p: Program, plan: _WholePlan,
                 arrays: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """K3's plain version: the nests in program order, each vectorized over
-    its domain with one PyTorch op per IR op (strided slices for loads and
-    stores, a Python loop over a reduction iv).  It reads and writes the
-    same buffers as the kernel, so it agrees with it bit for bit on the card
-    and with ``sim.sequential_exec`` in float64.  ``arrays`` holds the
-    arrays the kernel reads (``CudaKernel.inputs``); ``plan`` is the one the
-    kernel was emitted from."""
+    """K3's plain version: the kernel's launches in order, each nest
+    vectorized over its domain with one PyTorch op per IR op (strided
+    slices for loads and stores).  A nest of a shared launch takes a value
+    an earlier nest of it stored from that nest's result, as the kernel
+    forwards it; a tiled reduction walks the kernel's chunks and tail
+    (``_tiled_plain``), a per-point one folds its reduction iv in a Python
+    loop.  It reads and writes the same buffers as the kernel, so it
+    agrees with it bit for bit on the card and with ``sim.
+    sequential_exec`` in float64.  ``arrays`` holds the arrays the kernel
+    reads (``CudaKernel.inputs``); ``plan`` is the one the kernel was
+    emitted from."""
     some = arrays[plan.inputs[0]] if plan.inputs else None
     dtype = some.dtype if some is not None else torch.float64
     dev = some.device if some is not None else torch.device("cpu")
@@ -1045,46 +1626,51 @@ def whole_plain(p: Program, plan: _WholePlan,
             consts[v] = torch.tensor(v, dtype=dtype, device=dev)
         return consts[v]
 
-    for ni, nest in enumerate(plan.nests):
-        red = nest.red_iv is not None
-        outer = nest.ivs[:-1] if red else nest.ivs
-        trips = nest.trips[:len(outer)]
+    for launch in plan.launches:
+        fwd: dict[tuple, torch.Tensor] = {}   # _at of a store -> its value
+        for ni in launch.nests:
+            nest = plan.nests[ni]
+            red = nest.red_iv is not None
+            outer = nest.ivs[:-1] if red else nest.ivs
+            trips = nest.trips[:len(outer)]
 
-        def evaluate(fixed, carry=None):
-            names: dict[str, torch.Tensor] = {}
-            stores = []
-            for op in nest.ops:
-                if isinstance(op, ConstOp):
-                    names[op.result] = const(op.value)
-                elif isinstance(op, LoadOp):
-                    if red and op.uid in nest.red_loads:
-                        names[op.result] = carry
-                        continue
-                    acc = next(a for o, a in nest.loads if o is op)
-                    src = (out if _load_src(plan, ni, acc.array) == "o"
-                           else arrays)[acc.array]
-                    names[op.result] = _domain_view(src, acc, outer, trips,
-                                                    fixed)
-                elif isinstance(op, ArithOp):
-                    names[op.result] = _TORCH_FNS[op.fn](
-                        *(names[a] for a in op.args))
-                elif isinstance(op, StoreOp):
-                    acc = next(a for o, a in nest.stores if o is op)
-                    stores.append((acc, names[op.value]))
-            return stores
+            def read(acc, ni=ni):
+                return (out if _load_src(plan, ni, acc.array) == "o"
+                        else arrays)[acc.array]
 
-        if red:
-            (_, sacc), = nest.stores
-            acc = _domain_view(arrays[sacc.array], sacc, outer, trips, {})
-            for k in range(nest.trips[-1]):
-                (_, val), = evaluate({nest.red_iv: k}, acc)
-                acc = val.expand(trips)
-            stores = [(sacc, acc)]
-        else:
-            stores = evaluate({})
-        for acc, val in stores:          # op order: the later store wins
-            sel, v = _store_view(val, acc, outer, trips)
-            out[acc.array][sel] = v
+            def point(op, acc, fixed=None, carry=None, nest=nest, outer=outer,
+                      trips=trips, read=read):
+                """A load over the domain: the carry, a value an earlier
+                nest of the launch stored here, or a view of memory."""
+                if op.uid in nest.red_loads:
+                    return carry
+                at = _at(nest, acc)
+                if at in fwd:
+                    return fwd[at]
+                return _domain_view(read(acc), acc, outer, trips, fixed or {})
+
+            if launch.tile is not None:
+                (_, sacc), = nest.stores
+                stores = _tiled_plain(nest, launch.tile, read,
+                                      arrays[sacc.array], const)
+            elif red:
+                (sop, sacc), = nest.stores
+                carry = _domain_view(arrays[sacc.array], sacc, outer, trips,
+                                     {})
+                for k in range(nest.trips[-1]):
+                    (_, _, val), = _evaluate(
+                        nest, functools.partial(
+                            point, fixed={nest.red_iv: k}, carry=carry),
+                        const)
+                    carry = val.expand(trips)
+                stores = [(sop, sacc, carry)]
+            else:
+                stores = _evaluate(nest, point, const)
+            for op, acc, val in stores:     # op order: the later store wins
+                if op.uid in launch.stores:
+                    fwd[_at(nest, acc)] = val
+                    sel, v = _store_view(val, acc, outer, trips)
+                    out[acc.array][sel] = v
     return out
 
 
@@ -1123,6 +1709,8 @@ class CudaKernel:
     inputs: tuple = ()              # the arrays the kernel reads
     smem_bytes: int = 0
     nest_launches: int = 1          # CUDA launches per call
+    launch_nests: tuple = ()        # per launch, the nests it runs
+    tiled_reductions: tuple = ()    # reduction nests in the tiled form
     plain: Optional[Callable] = field(default=None, repr=False)
 
     def __call__(self, arrays, device=None):
@@ -1251,7 +1839,7 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
         def plain_fn(xs):
             return streamed_plain(p, plan, xs)
     else:
-        wplan = _plan_whole(p, nests)
+        wplan = _plan_whole(p, nests, dtype)
         src, meta = _emit_whole_cuda(p, wplan, dtype)
         buffering = "whole"
         inputs = wplan.inputs
@@ -1266,7 +1854,9 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
                    vmem_window_elems=meta["vmem_window_elems"],
                    soft_reasons=soft, dtype=dtype, inputs=tuple(inputs),
                    smem_bytes=meta["smem_bytes"],
-                   nest_launches=meta["nest_launches"])
+                   nest_launches=meta["nest_launches"],
+                   launch_nests=meta["launch_nests"],
+                   tiled_reductions=meta["tiled_reductions"])
     k.fn, k.plain = _runner(k, p, out_shapes, plain_fn)
     return k
 

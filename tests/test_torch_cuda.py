@@ -139,6 +139,56 @@ def test_whole_float64_matches_sequential_exec(cuda_device, name):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [33, 130, 257])
+def test_two_mm_tiled_kernel_equals_plain(cuda_device, m, dtype):
+    """The tiled reductions across edge tiles and k tails, bit for bit
+    (NaN-aware), in both dtypes."""
+    p = programs.two_mm(m)
+    k = codegen.lower_program(p, dtype=dtype)
+    assert k.tiled_reductions == ("pi", "ci")
+    inputs = sim.make_inputs(p, seed=m)
+    xs = {a: torch.as_tensor(inputs[a], dtype=getattr(torch, dtype),
+                             device=cuda_device) for a in k.inputs}
+    got, plain = k(xs), k.plain(xs)
+    torch.cuda.synchronize()
+    for a in k.outputs:
+        torch.testing.assert_close(got[a], plain[a], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+K3_LAUNCHES = {"dus": 4, "optical_flow": 2, "two_mm": 2, "traced_conv": 2}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", sorted(K3_LAUNCHES))
+def test_whole_kernel_launches_per_call(cuda_device, name):
+    """One wrapper call is one count and ``nest_launches`` CUDA kernels,
+    as the profiler sees them on the card."""
+    p = _whole_programs()[name]
+    k = codegen.lower_program(p)
+    assert k.nest_launches == len(k.launch_nests) == K3_LAUNCHES[name]
+    inputs = sim.make_inputs(p, seed=0)
+    xs = {a: torch.as_tensor(inputs[a], dtype=torch.float32,
+                             device=cuda_device) for a in k.inputs}
+    k(xs)
+    torch.cuda.synchronize()
+    n0 = codegen.LAUNCHES[k.launch_key]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        k(xs)
+        torch.cuda.synchronize()
+    assert codegen.LAUNCHES[k.launch_key] == n0 + 1
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e.name for e in prof.events()
+               if getattr(e, "device_type", None) == cuda
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert len(kernels) == K3_LAUNCHES[name], kernels
+
+
+@pytest.mark.requires_cuda
 def test_whole_overlapping_stores_follow_op_order(cuda_device):
     """Two stores of one nest that overlap: one launch each, in op order,
     the later store winning, as the plain version (and the reference)."""

@@ -197,7 +197,7 @@ def test_scan_eager_is_a_loop():
 def test_conv_block_lowers_to_whole_and_matches_the_oracle(hw):
     tp = frontend.conv_block_program(*hw)
     k = codegen.lower_program(tp.program, dtype="float64")
-    assert k.mode == "whole" and k.nest_launches == 11
+    assert k.mode == "whole" and k.nest_launches == 2
     assert k.inputs == ("img", "wx", "wy")
     inputs = sim.make_inputs(tp.program, seed=3)
     want = sim.sequential_exec(tp.program, inputs)

@@ -41,7 +41,8 @@ contract, which the port keeps).
   Canonical accumulations fold the reduction iv in program order, which
   matches the sequential rounding bit for bit: with two outer ivs
   (``two_mm``) tiled, a block per output tile and k chunks staged in
-  shared memory by double-buffered ``cp.async``
+  shared memory by double-buffered ``cp.async`` (an operand whose rows run
+  along k through 16-byte loads into registers, stored transposed)
   (``CudaKernel.tiled_reductions``), else per thread.  Two stores of one
   nest to one array run in one thread where the lowering proves their
   elements disjoint, else one launch per store in op order (the later
@@ -71,7 +72,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import dataclasses
 import functools
 import math
 import re
@@ -771,12 +771,11 @@ class _Tile:
     tn: int
 
 
-# 16 x 16 threads either way; a float64 accumulator takes two registers
+# 16 x 16 threads either way; a float64 accumulator takes two registers.
+# k chunks of 16 halve the barriers per k step against 8 (faster on the
+# H100, PERF.md)
 _TILES = {"float32": _Tile(128, 128, 16, 8, 8),
           "float64": _Tile(64, 64, 16, 4, 4)}
-# k chunks: 16 halves the barriers per k step (faster on the H100,
-# PERF.md), 8 fits twice the staged loads
-_CHUNKS = (16, 8)
 # a staged row's padding: keeps rows 16-byte aligned and a warp's
 # transposing copies on distinct banks
 _TILE_PAD = {"float32": 4, "float64": 2}
@@ -885,18 +884,17 @@ def _stage_elems(t: _Tile, kind: str, dtype: str) -> int:
 
 
 def _tiling(nest: _Nest, dtype: str) -> Optional[_Tile]:
-    """The tiled form of a reduction nest with two outer ivs, at the
-    longest k chunk whose staged loads, double-buffered, fit a block's
-    static shared memory; None keeps the per-point fold."""
+    """The tiled form of a reduction nest with two outer ivs, where its
+    staged loads, double-buffered, fit a block's static shared memory; None
+    keeps the per-point fold."""
     if nest.red_iv is None or len(nest.ivs) != 3:
         return None
+    t = _TILES[dtype]
     esz = 4 if dtype == "float32" else 8
-    for bk in _CHUNKS:
-        t = dataclasses.replace(_TILES[dtype], bk=bk)
-        if sum(2 * _stage_elems(t, kind, dtype) * esz
-               for kind in _staged(nest).values()) <= _STATIC_SMEM:
-            return t
-    return None
+    if sum(2 * _stage_elems(t, kind, dtype) * esz
+           for kind in _staged(nest).values()) > _STATIC_SMEM:
+        return None
+    return t
 
 
 def _plan_whole(p: Program, nests: list[_Nest], dtype: str) -> _WholePlan:
@@ -1122,8 +1120,11 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
     each half of the tile's rows, likewise columns (V = tm / 2: one 128-bit
     shared load per half).  k walks in chunks of ``t.bk``: each
     k-dependent load's chunk is copied to shared memory with cp.async, the
-    next chunk's copy in flight while this one's arithmetic runs; loads
-    that do not depend on k are read once into registers.  Every point
+    next chunk's copy in flight while this one's arithmetic runs.  A load
+    whose rows run along k (``A[i, k]``, staged transposed) is read by
+    16-byte loads into registers before the chunk's arithmetic instead and
+    stored transposed after it.  Loads that do not depend on k are read
+    once into registers.  Every point
     folds k in program order with the nest's own ops; points past the
     domain's edge compute on zero-filled copies and are not stored, and
     the last chunk runs only over the k that exist."""
@@ -1146,7 +1147,7 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
     smem = sum(2 * _stage_elems(t, kind, dtype) * esz
                for kind in staged.values())
 
-    top, stage, a16 = [], [], []
+    top, stage, a16, fetch, put = [], [], [], [], []
     for key, kind in staged.items():
         array, dims = key
         acc = _Access(array, list(dims))
@@ -1168,8 +1169,47 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
                         else (j, N, t.bn, "j0"))
         top.append(f"__shared__ __align__(16) real {s}[2][{t.bk}]"
                    f"[{bx + pad}];  // '{array}' at k and {kind}, as [k][{kind}]")
-        # consecutive threads copy consecutive addresses of device memory
+        shape = p.arrays[array].shape
         kfast = dims[-1][0] == k
+        if (kfast and dims[-1][1] == 1 and dims[-1][2] % ve == 0
+                and shape[-1] % ve == 0):
+            # rows along k: 16-byte loads (ve k of one x a thread, rows
+            # aligned) into registers, held across the chunk's arithmetic
+            # and stored transposed after it; elementwise at the edges
+            per = t.bk // ve                # loads across a row's chunk
+            nv, rest = divmod(t.bk * bx, _WHOLE_THREADS * ve)
+            assert nv and not rest, (t, dtype)
+            reg = "r_" + s
+            a16.append(f"const bool a16_{s} = "
+                       f"(reinterpret_cast<size_t>({src}) & 15) == 0;")
+            top.append(f"{vt} {reg}[{nv}];  // '{array}': the next chunk")
+            comps = "xyzw"[:ve]
+            fetch += [
+                "#pragma unroll",
+                f"for (int v = 0; v < {nv}; ++v) {{",
+                f"    const int e = tid + {_WHOLE_THREADS} * v, "
+                f"xx = e / {per}, kq = (e % {per}) * {ve};",
+                f"    const int {var[k]} = kc + kq, {var[x]} = {x0} + xx;",
+                f"    if (a16_{s} && {var[x]} < {X} && {var[k]} + {ve} <= {K}) "
+                "{",
+                f"        {reg}[v] = *reinterpret_cast<const {vt}*>(&{src}"
+                f"[{idx}]);",
+                "    } else {",
+                *(f"        {reg}[v].{q} = {var[x]} < {X} && {var[k]} + {n} < "
+                  f"{K} ? {src}[{idx} + {n}] : (real)0;"
+                  for n, q in enumerate(comps)),
+                "    }",
+                "}"]
+            put += [
+                "#pragma unroll",
+                f"for (int v = 0; v < {nv}; ++v) {{",
+                f"    const int e = tid + {_WHOLE_THREADS} * v, "
+                f"xx = e / {per}, kq = (e % {per}) * {ve};",
+                *(f"    {s}[buf][kq + {n}][xx] = {reg}[v].{q};"
+                  for n, q in enumerate(comps)),
+                "}"]
+            continue
+        # consecutive threads copy consecutive addresses of device memory
         kk, xx = ((f"e % {t.bk}", f"e / {t.bk}") if kfast
                   else (f"e / {bx}", f"e % {bx}"))
         elem = [
@@ -1180,7 +1220,6 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
             f"    cp_async_elem(&{s}[buf][kk][xx], ok ? &{src}[{idx}] : "
             f"{src}, ok ? {esz} : 0);",
             "}"]
-        shape = p.arrays[array].shape
         if (not kfast and dims[-1][:2] == (x, 1) and dims[-1][2] % ve == 0
                 and shape[-1] % ve == 0):
             # a row of the chunk is contiguous in device memory: 16-byte
@@ -1294,6 +1333,12 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
         *("    " + x_ for x_ in stage),
         "    cp_async_commit();",
         "};",
+        *(["auto fetch = [&](int kc) {",
+           *("    " + x_ for x_ in fetch),
+           "};",
+           "auto put = [&](int buf) {",
+           *("    " + x_ for x_ in put),
+           "};"] if fetch else []),
         f"real acc[{t.tm}][{t.tn}];",
         *decl,
         "#pragma unroll",
@@ -1318,10 +1363,12 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
                  "}"]
     if nch:
         body += [
+            *(["fetch(0);", "put(0);"] if fetch else []),
             "stage(0, 0);",
             f"for (int ch = 0; ch < {nch}; ++ch) {{",
             "    const int buf = ch & 1;",
             f"    if (ch + 1 < {nch}) {{",
+            *([f"        fetch((ch + 1) * {t.bk});"] if fetch else []),
             f"        stage((ch + 1) * {t.bk}, buf ^ 1);",
             "        cp_async_wait<1>();  // this chunk landed, the next "
             "one flies",
@@ -1330,6 +1377,8 @@ def _tiled_kernel(p: Program, plan: _WholePlan, ni: int, t: _Tile,
             "    }",
             "    __syncthreads();",
             *("    " + x_ for x_ in compute),
+            *([f"    if (ch + 1 < {nch}) put(buf ^ 1);  // the next chunk, "
+               "from registers"] if fetch else []),
             "    __syncthreads();  // the next copy overwrites this buffer",
             "}"]
     body += [

@@ -140,16 +140,41 @@ def test_whole_float64_matches_sequential_exec(cuda_device, name):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("m", [33, 130, 257])
+@pytest.mark.parametrize("m", [33, 130, 132, 257])
 def test_two_mm_tiled_kernel_equals_plain(cuda_device, m, dtype):
     """The tiled reductions across edge tiles and k tails, bit for bit
-    (NaN-aware), in both dtypes."""
+    (NaN-aware), in both dtypes.  Rows of a multiple of 16 bytes (132; 130
+    in f64) read the (i, k) operand through 16-byte loads into registers,
+    the others copy it element by element."""
     p = programs.two_mm(m)
     k = codegen.lower_program(p, dtype=dtype)
     assert k.tiled_reductions == ("pi", "ci")
     inputs = sim.make_inputs(p, seed=m)
     xs = {a: torch.as_tensor(inputs[a], dtype=getattr(torch, dtype),
                              device=cuda_device) for a in k.inputs}
+    got, plain = k(xs), k.plain(xs)
+    torch.cuda.synchronize()
+    for a in k.outputs:
+        torch.testing.assert_close(got[a], plain[a], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_two_mm_tiled_kernel_reads_unaligned_inputs(cuda_device, dtype):
+    """Inputs one element past a 16-byte boundary take the element-wise
+    loads and copies in place of the 16-byte ones, bit for bit."""
+    m = 132
+    p = programs.two_mm(m)
+    k = codegen.lower_program(p, dtype=dtype)
+    inputs = sim.make_inputs(p, seed=m)
+    xs = {}
+    for a in k.inputs:
+        buf = torch.empty(m * m + 1, dtype=getattr(torch, dtype),
+                          device=cuda_device)
+        xs[a] = buf[1:].view(m, m)
+        xs[a].copy_(torch.as_tensor(inputs[a]))
+        assert xs[a].data_ptr() % 16 != 0
     got, plain = k(xs), k.plain(xs)
     torch.cuda.synchronize()
     for a in k.outputs:

@@ -243,7 +243,7 @@ def test_overlapping_stores_keep_a_launch_each_between_groups():
 
 @pytest.mark.parametrize("m", [6, 33])
 def test_two_mm_tiled_matches_sequential_exec(m):
-    """Tile edges (m < the tile) and a k tail (33 = 4 chunks of 8 + 1)."""
+    """Tile edges (m < the tile) and a k tail (33 = 2 chunks of 16 + 1)."""
     k = codegen.lower_program(programs.two_mm(m), dtype="float64")
     assert k.tiled_reductions == ("pi", "ci")
     _check_oracle(k, ref_programs.two_mm(m), seed=m)
@@ -325,15 +325,20 @@ def test_two_mm_k_tail_keeps_signed_zeros_and_infinities(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_two_mm_kernels_hold_the_tiled_form(dtype):
     """Both nests' kernels stage through a shared-memory tile with cp.async
-    and fold with the _rn intrinsics (no FMA)."""
+    and fold with the _rn intrinsics (no FMA).  The (i, k) operand, whose
+    rows run along k, comes through 16-byte loads into registers, stored
+    transposed after each chunk's arithmetic."""
     k = codegen.lower_program(programs.two_mm(64), dtype=dtype)
     kernels = k.source.split("__global__ void")[1:]
     assert len(kernels) == 2
     rn = "__fmul_rn" if dtype == "float32" else "__dmul_rn"
-    for text in kernels:
+    vt = "float4" if dtype == "float32" else "double2"
+    for text, a in zip(kernels, ("x_A", "o_tmp")):
         assert "__shared__ __align__(16) real s0[2][16]" in text
         assert "cp_async_elem(" in text and "cp_async_wait<1>()" in text
         assert rn in text and "fma" not in text
+        assert f"reinterpret_cast<const {vt}*>(&{a}[" in text
+        assert "if (ch + 1 < 4) put(buf ^ 1);" in text
     assert "cp.async.cg.shared.global" in k.source
     assert 0 < k.smem_bytes <= 48 * 1024
 
@@ -351,9 +356,8 @@ def _row_sums(B, n: int = 7, taps: int = 5):
 
 def _wide_reduction(B, taps: int, n: int = 9):
     """A reduction with two outer ivs and ``taps + 1`` staged loads, each
-    double-buffered in 8,448 bytes at k chunks of 8 (f32 or f64; twice
-    that at 16): six do not fit a block's 48 KB of static shared memory,
-    five do at chunks of 8."""
+    double-buffered in 16,896 bytes at k chunks of 16 (f32 or f64): three
+    do not fit a block's 48 KB of static shared memory, two do."""
     b = B(f"wide_reduction_{taps}")
     b.array("x", (n, n + 6), is_arg=True, ports=("r", "r"))
     b.array("y", (n, n), is_arg=True, ports=("r", "r"))
@@ -371,10 +375,10 @@ def _wide_reduction(B, taps: int, n: int = 9):
 
 @pytest.mark.parametrize("build,dtype,tiled", [
     (_row_sums, "float64", ()), (_row_sums, "float32", ()),
-    (functools.partial(_wide_reduction, taps=5), "float32", ()),
-    (functools.partial(_wide_reduction, taps=5), "float64", ()),
-    (functools.partial(_wide_reduction, taps=4), "float32", ("i",)),
-    (functools.partial(_wide_reduction, taps=4), "float64", ("i",)),
+    (functools.partial(_wide_reduction, taps=2), "float32", ()),
+    (functools.partial(_wide_reduction, taps=2), "float64", ()),
+    (functools.partial(_wide_reduction, taps=1), "float32", ("i",)),
+    (functools.partial(_wide_reduction, taps=1), "float64", ("i",)),
 ])
 def test_reductions_outside_the_tiled_form_fold_per_point(build, dtype,
                                                           tiled):
@@ -384,7 +388,7 @@ def test_reductions_outside_the_tiled_form_fold_per_point(build, dtype,
     k = codegen.lower_program(build(ProgramBuilder), dtype=dtype)
     assert k.tiled_reductions == tiled
     assert ("cp_async" in k.source) == bool(tiled)
-    assert ("k in chunks of 8" in k.source) == bool(tiled)
+    assert ("k in chunks of 16" in k.source) == bool(tiled)
     p_ref = build(RefBuilder)
     inputs = ref_sim.make_inputs(p_ref, seed=8)
     want = ref_sim.sequential_exec(p_ref, inputs)

@@ -109,6 +109,7 @@ K4_PEAK_Q = 4.0                  # q's scale in the peaky draw: scores' std 4
 K4_DROPPED_TILE = 32             # the kv tile the limits must not miss
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 PROFILE_STEPS = 5                # decode steps under the profiler
+PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
 SERVE = dict(batch=4, prompt=32, gen=16, slots=4, requests=8, max_new=16)
 CODEGEN_SRC = "src/repro_torch/core/codegen.py"
 BLUR_W = [1 / 3, 1 / 2, 1 / 3]   # blur_chain's taps
@@ -217,17 +218,26 @@ def model_counts() -> dict:
 
 def device_kernels(fn) -> tuple[list, float]:
     """(device activities [(name, us)], host wall ms) of ``fn()`` under
-    torch.profiler; an empty list when the profiler sees no device."""
+    torch.profiler; an empty list when the profiler sees no device.
+
+    The card idles ``PROFILE_MARGIN_S`` inside the profiling window before
+    ``fn()`` and after it has finished.  The profiler drops device
+    activities whose timestamps, mapped to the host's clock, fall outside
+    the window, and a kernel's record may reach it after the synchronize
+    that waited for the kernel; with no margins it once saw only one of
+    ``two_mm``'s two 5.4 ms kernels on the H100."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
     cuda = torch.autograd.DeviceType.CUDA
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if getattr(e, "device_type", None) == cuda], wall
@@ -967,7 +977,10 @@ def main() -> int:
                  "its launches were not counted")
         if len(kern) != k.nest_launches:
             fail(f"K3 {name}: the profiler saw {len(kern)} kernels in one "
-                 f"call, the design launches {k.nest_launches}")
+                 f"call, the design launches {k.nest_launches} "
+                 f"{list(k.launch_nests)}; seen: "
+                 + ", ".join(f"{n_.split('(')[0]} {us:.1f} us"
+                             for n_, us in kern))
         ptxas = ptxas_summary(_cuda.BUILD_LOG.get(k.lib_name, (0, ""))[1])
         ceil_ms = stage_flops(p) / FP32_ISSUE_PER_S * 1e3
         print(f"launches: K3 {name}: {K3_LAUNCHES_BEFORE[name]} per call "

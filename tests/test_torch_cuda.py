@@ -8,6 +8,8 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -202,8 +204,12 @@ def test_whole_kernel_launches_per_call(cuda_device, name):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        # the card idles at both ends of the window, so that no kernel's
+        # record falls outside it (as chip_smoke.device_kernels)
+        time.sleep(0.05)
         k(xs)
         torch.cuda.synchronize()
+        time.sleep(0.05)
     assert codegen.LAUNCHES[k.launch_key] == n0 + 1
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e.name for e in prof.events()

@@ -99,6 +99,7 @@ K3_REPLACES = "src/repro/core/codegen.py:637"
 K4_REPLACES = "src/repro/kernels/flash_attention.py:22"
 K5_REPLACES = "src/repro/kernels/wkv6.py:21"
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 tensor cores
 PREFILL_S = 4096                 # llama3-8b prefill tokens (B=1)
 EQUIV_S = 1024                   # prefill == decode check, depth 2, f32
 # K4's limits against its plain version: both round the same fp32 sums
@@ -189,7 +190,7 @@ def ptxas_summary(log: str) -> list:
             grp = m.group(1) if m else ""
             typ = ["f32"] if grp.startswith("f") else \
                 ["bf16"] if "bfloat16" in grp else []
-            name = ",".join(typ + re.findall(r"Li(\d+)", grp))
+            name = ",".join(typ + re.findall(r"L[ib](\d+)", grp))
             plain = re.search(r"'_Z(\d+)(\w+)'", ln)
             if not m and plain:
                 name = plain.group(2)[:int(plain.group(1))]
@@ -205,15 +206,21 @@ def ptxas_summary(log: str) -> list:
 def zero_model_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm
     fa.LAUNCHES.clear()
     wk.LAUNCHES.clear()
+    lm.GRAPH_LAUNCHES.clear()
 
 
 def model_counts() -> dict:
+    """Launches by the kernel wrappers ("k4/...", "k5/...") and by CUDA
+    graph replays ("graph/<module>/<key>")."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm
     return {**{f"k4/{k}": v for k, v in fa.LAUNCHES.items()},
-            **{f"k5/{k}": v for k, v in wk.LAUNCHES.items()}}
+            **{f"k5/{k}": v for k, v in wk.LAUNCHES.items()},
+            **{f"graph/{k}": v for k, v in lm.GRAPH_LAUNCHES.items()}}
 
 
 def device_kernels(fn) -> tuple[list, float]:
@@ -245,7 +252,10 @@ def device_kernels(fn) -> tuple[list, float]:
 
 def serve_path(dev) -> dict:
     """The serve path: ``serve.main`` and a ``ContinuousBatcher`` on
-    rwkv6-3b; K5 at every decode step of every layer."""
+    rwkv6-3b, every decode step a replay of the step's CUDA graph
+    (``lm.DecodeGraph``); K5 in every layer of every step.  Then the same
+    requests decoded eagerly must give the same ids, and the step is timed
+    eager, graph, graph, eager."""
     import numpy as np
     import torch
 
@@ -255,94 +265,143 @@ def serve_path(dev) -> dict:
     from repro_torch.runtime.serving import ContinuousBatcher, Request
 
     cfg = get_config("rwkv6_3b")
+    argv = ["--arch", "rwkv6_3b", "--device", dev.type, "--batch",
+            str(SERVE["batch"]), "--prompt-len", str(SERVE["prompt"]),
+            "--gen", str(SERVE["gen"])]
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    rng = np.random.default_rng(1)
+    lens = rng.integers(8, 33, SERVE["requests"])
+    prompts = [rng.integers(2, cfg.vocab, n) for n in lens]
+    max_len = int(lens.max()) + SERVE["max_new"] + 1
+
+    def batcher(graphed: bool):
+        """(ids by request, batcher, seconds of its run)."""
+        with torch.inference_mode():
+            b = ContinuousBatcher(
+                None, lambda n: model.init_cache(n, max_len),
+                n_slots=SERVE["slots"], eos=1, max_len=max_len, device=dev)
+            b.decode_fn = lm.DecodeGraph(cfg, model, b.cache) if graphed \
+                else (lambda c, t, p: model.decode_step(
+                    c, {"token": t, "pos": p}))
+            for i, pr in enumerate(prompts):
+                b.submit(Request(rid=i, prompt=pr, max_new=SERVE["max_new"]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        if len(b.completed) != len(prompts) or \
+                not all(r.done for r in b.completed):
+            fail(f"batcher ({'graph' if graphed else 'eager'}) completed "
+                 f"{len(b.completed)} of {len(prompts)} requests")
+        return {r.rid: r.output for r in b.completed}, b, secs
+
+    # ---- the main path: graphed serve.main and batcher, counted ----------
     zero_model_counts()
     t0 = time.perf_counter()
-    gen = serve.main(["--arch", "rwkv6_3b", "--device", dev.type, "--batch",
-                      str(SERVE["batch"]), "--prompt-len",
-                      str(SERVE["prompt"]), "--gen", str(SERVE["gen"])])
+    gen = serve.main(argv)
     main_s = time.perf_counter() - t0
+    ids, b, secs = batcher(True)
+    n = model_counts()
+    print("serve path launches: " + json.dumps(n, sort_keys=True))
     if gen.shape != (SERVE["batch"], SERVE["gen"]) or \
             not ((gen >= 0) & (gen < cfg.vocab)).all():
         fail(f"serve.main returned ids of shape {gen.shape} outside "
              f"[0, {cfg.vocab})")
-    main_steps = SERVE["prompt"] + SERVE["gen"]
-    with torch.inference_mode():
-        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                           dev)
-        rng = np.random.default_rng(1)
-        lens = rng.integers(8, 33, SERVE["requests"])
-        reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n),
-                        max_new=SERVE["max_new"])
-                for i, n in enumerate(lens)]
-        max_len = int(lens.max()) + SERVE["max_new"] + 1
-        b = ContinuousBatcher(
-            lambda c, t, p: model.decode_step(c, {"token": t, "pos": p}),
-            lambda n: model.init_cache(n, max_len), n_slots=SERVE["slots"],
-            eos=1, max_len=max_len, device=dev)
-        for r in reqs:
-            b.submit(r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        b.run()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    n = model_counts()
-    print("serve path launches: " + json.dumps(n, sort_keys=True))
-    if len(b.completed) != len(reqs) or not all(r.done for r in reqs):
-        fail(f"batcher completed {len(b.completed)} of {len(reqs)} "
-             "requests")
-    steps = main_steps + b.steps
-    want = {"k5/step": cfg.n_layers * steps}
+    warm = b.decode_fn.warmup
+    if b.decode_fn.launches_per_replay != {"wkv6/step": cfg.n_layers}:
+        fail(f"the decode graph recorded {b.decode_fn.launches_per_replay} "
+             f"at capture, expected {cfg.n_layers} K5 step launches")
+    replays = SERVE["prompt"] + SERVE["gen"] + b.steps
+    # each graph's warm-up steps run eagerly, through the wrapper
+    want = {"k5/step": cfg.n_layers * 2 * warm,
+            "graph/wkv6/step": cfg.n_layers * replays}
     if n != want:
         fail(f"serve path launches {n}, expected {want} ({cfg.n_layers} "
-             f"layers x {steps} decode steps)")
-    new = sum(len(r.output) for r in reqs)
+             f"layers x ({replays} replayed + 2 x {warm} warm-up) steps)")
+    launches = n["k5/step"] + n["graph/wkv6/step"]
+    print(f"check: K5 launched {launches} times = {cfg.n_layers} layers x "
+          f"{replays + 2 * warm} decode steps ({replays} graph replays x "
+          f"{cfg.n_layers} launches recorded at capture + {2 * warm} eager "
+          "warm-up steps); every request completed")
+
+    # ---- the eager step gives the same ids; step times in turns ----------
+    eager_gen = serve.main(argv + ["--eager"])
+    if not np.array_equal(eager_gen, gen):
+        fail(f"serve.main: the graphed ids {gen.tolist()} differ from the "
+             f"eager ids {eager_gen.tolist()}")
+    times = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        got, bm, sec = batcher(mode == "graph")
+        if got != ids:
+            fail(f"batcher ({mode}): ids differ from the graphed main "
+                 f"run's: {got} vs {ids}")
+        times[mode].append(sec / bm.steps * 1e3)
+    print(f"check: every token id of serve.main (batch {SERVE['batch']}, "
+          f"{SERVE['gen']} tokens) and of all {len(prompts)} batcher "
+          "requests is the same eager and graphed")
+    new = sum(len(v) for v in ids.values())
     weights = sum(p.numel() * p.element_size()
                   for name, p in model.named_parameters()
                   if name != "embed")
     weights += SERVE["slots"] * cfg.d_model * model.embed.element_size()
-    step_ms = secs / b.steps * 1e3
-    print(f"serve: serve.main batch {SERVE['batch']} prompt "
-          f"{SERVE['prompt']} gen {SERVE['gen']} in {main_s:.2f} s; "
-          f"batcher {len(b.completed)}/{len(reqs)} requests completed "
-          f"(prompts {lens.min()}-{lens.max()}, max_new "
-          f"{SERVE['max_new']}) in {b.steps} steps, {secs:.3f} s: "
-          f"{new / secs:.1f} tokens/s, {step_ms:.3f} ms per decode step "
-          f"(weight-read bound {weights / HBM_BYTES_PER_S * 1e3:.3f} ms "
-          f"for {weights} B per step)")
-    print(f"check: K5 launched {n['k5/step']} times = {cfg.n_layers} "
-          f"layers x {steps} decode steps; every request completed")
-    # where a decode step's time goes: device activities under the
-    # profiler (after the counts were read)
+    step_ms = statistics.median(times["graph"])
+    eager_ms = statistics.median(times["eager"])
+
+    # where a step's time goes: device activities under the profiler
     nb = SERVE["slots"]
+    busy = {}
     with torch.inference_mode():
         cache = model.init_cache(nb, PROFILE_STEPS)
         tok = torch.ones((nb, 1), dtype=torch.int32, device=dev)
-
-        def steps_fn():
-            c = cache
-            for t in range(PROFILE_STEPS):
-                pos = torch.full((nb,), t, dtype=torch.int32, device=dev)
-                c = model.decode_step(c, {"token": tok, "pos": pos})[1]
-        steps_fn()
-        acts, wall = device_kernels(steps_fn)
-    busy = sum(us for _, us in acts) / 1e3 / PROFILE_STEPS
-    k5 = [us for name, us in acts if "wkv6" in name]
-    if acts:
-        print(f"serve: per decode step (batch {nb}, profiled over "
-              f"{PROFILE_STEPS} steps): {len(acts) / PROFILE_STEPS:.0f} "
-              f"device activities, {len(k5) / PROFILE_STEPS:.0f} of them "
-              f"WKV6 kernels ({sum(k5) / 1e3 / PROFILE_STEPS:.3f} ms); "
-              f"device busy {busy:.3f} ms of the batcher's {step_ms:.3f} "
-              f"ms step: idle share {1 - busy / step_ms:.3f} (profiled "
-              f"wall {wall / PROFILE_STEPS:.3f} ms per step)")
-    else:
-        print("serve: the profiler saw no device activity: per-step "
-              "device time not measured")
-    return {"launches": n["k5/step"], "steps": steps,
-            "batcher_steps": b.steps, "tokens_per_s": new / secs,
-            "ms_per_step": step_ms, "weight_bytes": weights,
-            "device_busy_ms": busy if acts else None}
+        poss = [torch.full((nb,), t, dtype=torch.int32, device=dev)
+                for t in range(PROFILE_STEPS)]
+        graph = lm.DecodeGraph(cfg, model, cache)
+        for mode in ("graph", "eager"):
+            def steps_fn():
+                for p_ in poss:
+                    if mode == "graph":
+                        graph(cache, tok, p_)
+                    else:
+                        model.decode_step(cache, {"token": tok, "pos": p_})
+            steps_fn()
+            acts, wall = device_kernels(steps_fn)
+            if not acts:
+                fail(f"serve ({mode}): the profiler saw no device activity")
+            k5 = [us for name, us in acts if "wkv6" in name]
+            if mode == "graph" and len(k5) != cfg.n_layers * PROFILE_STEPS:
+                fail(f"serve: the profiler saw {len(k5)} WKV6 kernels in "
+                     f"{PROFILE_STEPS} graph replays, expected "
+                     f"{cfg.n_layers} a step")
+            busy[mode] = sum(us for _, us in acts) / 1e3 / PROFILE_STEPS
+            ref_ms = step_ms if mode == "graph" else eager_ms
+            print(f"serve: per {mode} decode step (batch {nb}, profiled "
+                  f"over {PROFILE_STEPS} steps): "
+                  f"{len(acts) / PROFILE_STEPS:.0f} device activities, "
+                  f"{len(k5) / PROFILE_STEPS:.0f} of them WKV6 kernels "
+                  f"({sum(k5) / 1e3 / PROFILE_STEPS:.3f} ms); device busy "
+                  f"{busy[mode]:.3f} ms of the batcher's {ref_ms:.3f} ms "
+                  f"step: idle share {1 - busy[mode] / ref_ms:.3f} "
+                  f"(profiled wall {wall / PROFILE_STEPS:.3f} ms per step)")
+    print(f"serve: serve.main batch {SERVE['batch']} prompt "
+          f"{SERVE['prompt']} gen {SERVE['gen']} in {main_s:.2f} s; "
+          f"batcher {len(ids)}/{len(prompts)} requests completed "
+          f"(prompts {lens.min()}-{lens.max()}, max_new "
+          f"{SERVE['max_new']}) in {b.steps} steps: graphed step "
+          f"{step_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times['graph'])}"
+          f"), eager step {eager_ms:.3f} ms ("
+          f"{', '.join(f'{t:.3f}' for t in times['eager'])}; timed eager, "
+          f"graph, graph, eager), {new / (step_ms * b.steps / 1e3):.1f} "
+          f"tokens/s graphed; idle share {1 - busy['graph'] / step_ms:.3f} "
+          f"graphed, {1 - busy['eager'] / eager_ms:.3f} eager "
+          f"(weight-read bound {weights / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"for {weights} B per step)")
+    return {"launches": launches, "steps": replays + 2 * warm,
+            "batcher_steps": b.steps, "ms_per_step": step_ms,
+            "eager_ms_per_step": eager_ms, "weight_bytes": weights,
+            "device_busy_ms": busy["graph"]}
 
 
 def prefill_path(dev) -> dict:
@@ -469,12 +528,16 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
     kernel (f32) at the equivalence path's."""
     import torch
 
+    from repro_torch import _cuda
     from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as fa
 
     cfg = get_config("llama3_8b")
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    ptxas = {kind: ptxas_summary(_cuda.BUILD_LOG.get(lib, (0, ""))[1])
+             for kind, lib in (("wgmma", fa.WGMMA_LIB_NAME),
+                               ("tf32x3", fa.TF32X3_LIB_NAME))}
     out = []
     g = torch.Generator(device=dev).manual_seed(5)
     base = [torch.randn((1, PREFILL_S, h, hd), generator=g,
@@ -494,14 +557,10 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
             cases = [(True, *blocks), (False, *blocks)] + \
                 [(True, *b) for b in fa.WGMMA_BLOCKS[hd][1:]]
         else:
-            blocks = (fa.MAX_BLOCK, fa.MAX_BLOCK)
+            blocks = (fa.MAX_BLOCK, fa.TF32X3_BLOCK_K)
             cases = [(True, *blocks), (False, *blocks)]
         for draw, xs in draws.items():
             q, k, v = (x.to(dtype) for x in xs)
-            if dtype == torch.float32:
-                # the CUDA-core kernel reads H kv heads, contiguous
-                q, k, v = (x.repeat_interleave(H // x.shape[1], dim=1)
-                           .contiguous() for x in (q, k, v))
             for causal, bq, bk in cases:
                 got = fa.flash_attention(q, k, v, causal=causal,
                                          block_q=bq, block_k=bk)
@@ -545,15 +604,12 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
         if dtype == torch.float32:
             # the f32 kernel ran on the equivalence phase's shape
             S = EQUIV_S
-            q, k, v = (x[:, :, :S].repeat_interleave(H // x.shape[1], dim=1)
-                       .contiguous() for x in (q, k, v))
-            launches = equiv.get("k4/cuda_cores/float32", 0)
-            gqa = {}
-            source = "src/repro_torch/csrc/flash_attention.cu"
+            q, k, v = (x[:, :, :S] for x in (q, k, v))
+            launches = equiv.get("k4/tf32x3/float32", 0)
+            source = "src/repro_torch/csrc/flash_attention_tf32x3.cu"
         else:
             S = PREFILL_S
             launches = prefill_launches
-            gqa = {"enable_gqa": True}
             source = "src/repro_torch/csrc/flash_attention_wgmma.cu"
         if launches < 1:
             fail(f"K4 {kind} {dt} was not launched on its path")
@@ -570,27 +626,43 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
         # q and the output at H heads, k and v at theirs, each once
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
         flops = 4 * hd * (S * (S + 1) // 2) * H
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-            else FP32_FLOP_PER_S
-        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        # bf16: one pass on the tensor cores; f32: the tf32x3 kernel's
+        # three TF32 passes on the tensor cores (the share's bound), and
+        # beside it the same flops once on the fp32 CUDA cores
+        tf = (flops / BF16_FLOP_PER_S if dtype == torch.bfloat16
+              else 3 * flops / TF32_FLOP_PER_S) * 1e3
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
         b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+        fp32_ms = max(tb, flops / FP32_FLOP_PER_S * 1e3)
         ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v,
                                                          causal=True), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, block_q=blocks[0], block_k=blocks[1]),
             3)[0]
+        # the kernel's block pairs, timed: the default is the faster; for
+        # f32 also P moved by shuffles and through shared memory
         by_blocks = {}
+        pairs = (fa.WGMMA_BLOCKS[hd] if dtype == torch.bfloat16
+                 else [(fa.MAX_BLOCK, bk) for bk in (64, 32)])
+        for p_smem in ((False,) if dtype == torch.bfloat16
+                       else (False, True)):
+            fa.TF32X3_P_SMEM = p_smem
+            for bq, bk in pairs:
+                by_blocks[f"{bq}x{bk}" + ("/P smem" if p_smem else "")] = \
+                    time_ms(lambda: fa.flash_attention(
+                        q, k, v, causal=True, block_q=bq, block_k=bk), 10)[0]
+        fa.TF32X3_P_SMEM = False
+        print(f"time: K4 {kind} {dt} by blocks: " + ", ".join(
+            f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
         if dtype == torch.bfloat16:
-            # every pair the kernel takes, timed: the default is the faster
-            for bq, bk in fa.WGMMA_BLOCKS[hd]:
-                by_blocks[f"{bq}x{bk}"] = time_ms(
-                    lambda: fa.flash_attention(q, k, v, causal=True,
-                                               block_q=bq, block_k=bk),
-                    10)[0]
-            print("time: K4 wgmma bfloat16 by blocks: " + ", ".join(
-                f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
-        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, **gqa), 10)[0]
-        lib_err = (sdpa(q, k, v, is_causal=True, **gqa).float()
+            lib_in, gqa = (q, k, v), {"enable_gqa": True}
+        else:
+            # sdpa's f32 kernels take kv repeated to H heads, contiguous
+            lib_in, gqa = tuple(x.repeat_interleave(H // x.shape[1], dim=1)
+                                .contiguous() for x in (q, k, v)), {}
+        lib_ms = time_ms(lambda: sdpa(*lib_in, is_causal=True, **gqa),
+                         10)[0]
+        lib_err = (sdpa(*lib_in, is_causal=True, **gqa).float()
                    - want.float()).abs().max().item()
         out.append({
             "name": f"flash_attention_{kind}[{dt}]", "route": "cuda",
@@ -598,18 +670,23 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention"
-                       f"({'enable_gqa=True, ' if gqa else ''}timed only; "
-                       f"max |sdpa - plain| {lib_err:.3g})",
+                       f"({'enable_gqa=True' if gqa else 'kv repeated'}, "
+                       f"timed only; max |sdpa - plain| {lib_err:.3g})",
+            "bound_fp32_cuda_cores_ms": fp32_ms,
             "host_ms": host_ms, "bytes": nbytes, "flops": flops,
             "shape": [1, H, S, hd], "kv_shape": list(k.shape),
-            "layout": "views of (B, S, heads, hd)" if gqa else "contiguous",
+            "layout": "views of (B, S, heads, hd)",
             "causal": True, "blocks": list(blocks), "tolerance": tol,
-            "ms_by_blocks": by_blocks,
+            "ms_by_blocks": by_blocks, "ptxas": ptxas[kind],
             "path": "prefill" if dtype == torch.bfloat16
             else "equivalence"})
         print(f"time: K4 {kind} {dt} causal q (1, {H}, {S}, {hd}) kv "
               f"{tuple(k.shape)}: {ms:.4f} ms on the card (bound {b_ms:.4f} "
-              f"ms by {b_by}; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms)")
+              f"ms by {b_by}"
+              + ("" if dtype == torch.bfloat16 else
+                 f", three TF32 passes; {fp32_ms:.4f} ms on the fp32 CUDA "
+                 "cores") + f"; plain {plain_ms:.3f} ms; sdpa "
+              f"{lib_ms:.4f} ms); ptxas " + " | ".join(ptxas[kind]))
     return out
 
 
@@ -930,10 +1007,15 @@ def main() -> int:
                 "library_ms": lib_ms, "library": lib_note,
                 "host_ms": host_ms, "bytes": nbytes,
                 "shape": list(p.arrays[sink].shape), "block_rows": br,
-                "grid": list(k.grid), "smem_bytes": k.smem_bytes})
+                "grid": list(k.grid), "col_tile": k.col_tile,
+                "launch_grid": list(k.launch_grid),
+                "smem_bytes": k.smem_bytes})
         print(f"check: K2 {name} n={CHAIN_N} double == single == plain "
-              f"bitwise; double {entries[-2]['ms']:.4f} ms, single "
-              f"{entries[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms; library "
+              f"bitwise; block_rows {kd.block_rows}, column tile "
+              f"{kd.col_tile}, {kd.launch_grid[0]} x {kd.launch_grid[1]} "
+              f"tiles, {kd.smem_bytes} B shared memory per block; double "
+              f"{entries[-2]['ms']:.4f} ms, single {entries[-1]['ms']:.4f} "
+              f"ms (bound {b_ms:.4f} ms; library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"{lib_note})")
         if name == "blur_chain":

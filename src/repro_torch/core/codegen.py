@@ -14,11 +14,16 @@ contract, which the port keeps).
   overhang ``sz - a`` IS the fusion's row shift (the shared-memory line
   buffer halo) whenever the DSE fused that edge.  Intermediates live in
   the block's dynamic shared memory — they never reach device memory.
+  On the card each row tile is cut into ``U`` column tiles as well (the
+  reference tiles rows only): column windows are derived backward the
+  same way, so a block recomputes its column overhang as it does its row
+  halo, and its windows stay small enough for several blocks to share
+  an SM (``CudaKernel.col_tile``, ``.launch_grid``, ``.smem_bytes``).
 
-  - ``buffering="double"`` launches a grid of ``T`` blocks, one tile each;
-    the card overlaps one block's loads with another's compute.
-  - ``buffering="single"`` launches one block that walks the ``T`` tiles
-    in order — one window, serialized refill/compute/store.  It is the
+  - ``buffering="double"`` launches a grid of ``T*U`` blocks, one tile
+    each; the card overlaps one block's loads with another's compute.
+  - ``buffering="single"`` launches one block that walks the tiles in
+    order — one window, serialized refill/compute/store.  It is the
     measurable baseline the gridded variant must beat.
 
   Both entry points live in one emitted ``.cu`` per program and dtype and
@@ -57,8 +62,9 @@ codes) in ``diagnostics``.
 
 The nest extraction and the streamed planner are the reference's,
 unchanged, so windows, halos, padding and violation codes equal it by
-construction; only the emitter is new, and a streamed block size that
-shrinks where its windows would not fit one block's shared memory.  The
+construction; only the emitter is new, with the column tiles, and a
+streamed block size that shrinks where its windows would not fit one
+block's shared memory even at the narrowest column tile.  The
 kernel is emitted as *source text* (``CudaKernel.source``, the debuggable
 artifact) and built with ``nvcc`` at its first launch.  Arithmetic uses
 the round-to-nearest intrinsics (``__fmul_rn``...), so nothing is
@@ -519,46 +525,145 @@ def _affine(var: str, coef: int, const: int) -> str:
     return term if const == 0 else f"{term} + {const}"
 
 
-def _smem_layout(plan: _StreamPlan) -> tuple[dict[str, int], int]:
+@dataclass
+class _ColPlan:
+    """The card's column tiling of a streamed plan (the reference tiles rows
+    only): a block owns sink rows ``[B*t, B*t+B)`` and sink columns
+    ``[cw*u, cw*u+cw)``; each stage computes the domain columns
+    ``[ca*u+cb, ca*u+cb+csz)`` of its window (``cols[out] = (ca, cb,
+    csz)``), derived backward through the chain as the planner derives
+    rows, so a producer's column overhang is recomputed per block as its
+    row halo is.  ``pad_cols`` edge-pads an input's columns for the last,
+    ragged column tile, as ``pad_rows`` does its rows."""
+
+    cw: int
+    tiles: int                                # U, column tiles
+    cols: dict[str, tuple[int, int, int]]     # stage out -> (ca, cb, csz)
+    pad_cols: dict[str, int]
+
+
+# column tiles tried, widest first; the narrowest decides whether a block
+# size fits at all
+_COL_TILES = (1024, 512, 256, 128, 64, 32)
+# shared memory per block the column tile aims under: 4 blocks of 256
+# threads share an SM's 227 KB
+_SMEM_TARGET = 56 * 1024
+
+
+def _plan_columns(p: Program, plan: _StreamPlan,
+                  cw: Optional[int]) -> _ColPlan:
+    """Column windows for sink tiles ``cw`` wide; ``cw=None``, or a
+    chain whose consumers read a producer at a constant column or at
+    incompatible column rates, takes one full-width tile (each window its
+    producer's whole domain width, the reference's layout)."""
+    sink = plan.sink
+    cout = p.arrays[sink.out].shape[1]
+    full = _ColPlan(cw=cout, tiles=1, pad_cols={},
+                    cols={s.out: (0, 0, s.nest.trips[1]) if s is not sink
+                          else (cout, 0, cout) for s in plan.stages})
+    if cw is None:
+        return full
+    cw = max(1, min(cw, cout))
+    U = -(-cout // cw)
+    cols = {sink.out: (cw, 0, cw)}
+    for s in reversed(plan.stages):
+        if s is sink:
+            continue
+        reqs = []       # (consumer's column window, col coef, col const)
+        for c in plan.stages:
+            for _, acc in c.nest.loads:
+                if acc.array == s.out:
+                    civ, cc, ck = acc.dims[1]
+                    if civ is None:
+                        return full
+                    reqs.append((cols[c.out], cc, ck))
+        rates = {cc * ca for (ca, _, _), cc, _ in reqs}
+        if len(rates) > 1:
+            return full
+        lo = min(cc * cb + ck for (_, cb, _), cc, ck in reqs) - s.c0
+        hi = max(cc * (cb + csz - 1) + ck
+                 for (_, cb, csz), cc, ck in reqs) - s.c0
+        cols[s.out] = (rates.pop(), lo, hi - lo + 1)
+    pad_cols: dict[str, int] = {}
+    produced = {s.out for s in plan.stages}
+    for s in plan.stages:
+        ca, cb, csz = cols[s.out]
+        for _, acc in s.nest.loads:
+            civ, cc, ck = acc.dims[1]
+            if acc.array in produced or civ is None:
+                continue
+            over = (cc * (ca * (U - 1) + cb + csz - 1) + ck
+                    - (p.arrays[acc.array].shape[1] - 1))
+            if over > 0:
+                pad_cols[acc.array] = max(pad_cols.get(acc.array, 0), over)
+    return _ColPlan(cw=cw, tiles=U, cols=cols, pad_cols=pad_cols)
+
+
+def _smem_layout(plan: _StreamPlan,
+                 cols: _ColPlan) -> tuple[dict[str, int], int]:
     """Element offset of each non-sink stage's window in the block's
     dynamic shared memory, and the total element count."""
     offs, total = {}, 0
     for s in plan.stages:
         if s is not plan.sink:
             offs[s.out] = total
-            total += s.win_sz * s.nest.trips[1]
+            total += s.win_sz * cols.cols[s.out][2]
     return offs, total
 
 
-def _emit_streamed(p: Program, plan: _StreamPlan,
+def _smem_need(plan: _StreamPlan, cols: _ColPlan, dtype: str) -> int:
+    return _smem_layout(plan, cols)[1] * (4 if dtype == "float32" else 8)
+
+
+def _choose_columns(p: Program, plan: _StreamPlan, dtype: str,
+                    col_tile: Optional[int]) -> _ColPlan:
+    """``col_tile`` when given; else the widest of ``_COL_TILES`` whose
+    windows fit ``_SMEM_TARGET``, or the narrowest."""
+    if col_tile is not None:
+        return _plan_columns(p, plan, col_tile)
+    for cw in _COL_TILES:
+        cols = _plan_columns(p, plan, cw)
+        if _smem_need(plan, cols, dtype) <= _SMEM_TARGET:
+            break
+    return cols
+
+
+def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
                    dtype: str) -> tuple[str, dict]:
     B, T = plan.block_rows, plan.grid
+    CW, U = cols.cw, cols.tiles
     sink = plan.sink
     cout = p.arrays[sink.out].shape[1]
     rout = sink.nest.trips[0]
     produced = {s.out: s for s in plan.stages}
     fi = 0 if dtype == "float32" else 1
-    offs, smem_elems = _smem_layout(plan)
+    offs, smem_elems = _smem_layout(plan, cols)
 
     body = [f"real* w_{_ident(a)} = smem + {o};" for a, o in offs.items()]
     for s in plan.stages:
         tag = s.nest.loop.ivname
-        csz = s.nest.trips[1]
+        ca, cb, csz = cols.cols[s.out]
         if s is sink:
             body.append(f"// stage {tag} (sink): '{s.out}' rows "
-                        f"[{B}*t, +{B}) -> device memory")
+                        f"[{B}*t, +{B}), columns [{CW}*u, +{CW}) -> device "
+                        "memory")
             body.append(f"const int nrows = min({B}, {rout} - {B} * t);")
-            body.append(f"for (int e = threadIdx.x; e < nrows * {csz}; "
+            body.append(f"const int ncols = min({CW}, {cout} - {CW} * u);")
+            body.append(f"for (int e = threadIdx.x; e < nrows * {CW}; "
                         "e += blockDim.x) {")
+            inner = [f"const int r = e / {CW}, c = e % {CW};",
+                     "if (c >= ncols) continue;"]
         else:
             body.append(f"// stage {tag}: '{s.out}' domain rows "
-                        f"[{s.win_a}*t+{s.win_b}, +{s.win_sz}) -> shared "
-                        "memory")
+                        f"[{s.win_a}*t+{s.win_b}, +{s.win_sz}), columns "
+                        f"[{ca}*u+{cb}, +{csz}) -> shared memory")
             body.append(f"for (int e = threadIdx.x; e < {s.win_sz * csz}; "
                         "e += blockDim.x) {")
-        inner = [f"const int r = e / {csz}, c = e % {csz};",
-                 f"const int i = {_affine('t', s.win_a, s.win_b)} + r;"
-                 "  // domain row"]
+            inner = [f"const int r = e / {csz}, c = e % {csz};"]
+        inner += [f"const int i = {_affine('t', s.win_a, s.win_b)} + r;"
+                  "  // domain row",
+                  f"const int j = {_affine('u', ca, cb)} + c;"
+                  "  // domain column"]
         names: dict[str, str] = {}
         for op in s.nest.ops:
             if isinstance(op, ConstOp):
@@ -567,22 +672,24 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
                 acc = next(a for o, a in s.nest.loads if o is op)
                 (_, rc, rk), (civ, cc, ck) = acc.dims
                 if acc.array in produced:
-                    # window-relative: the t terms cancel (the planner
-                    # proved rc * consumer rate == producer rate)
+                    # window-relative: the t and u terms cancel (the
+                    # planners proved coef * consumer rate == producer rate)
                     prod = produced[acc.array]
+                    _, pcb, pcsz = cols.cols[prod.out]
                     rel = rc * s.win_b + rk - prod.r0 - prod.win_b
                     row = _affine("r", rc, rel)
-                    col = (_affine("c", cc, ck - prod.c0) if civ
-                           else str(ck - prod.c0))
-                    expr = (f"w_{_ident(acc.array)}[({row}) * "
-                            f"{prod.nest.trips[1]} + {col}]")
+                    crel = (cc * cb if civ else 0) + ck - prod.c0 - pcb
+                    col = _affine("c", cc, crel) if civ else str(crel)
+                    expr = f"w_{_ident(acc.array)}[({row}) * {pcsz} + {col}]"
                 else:
                     h, w = p.arrays[acc.array].shape
                     row = _affine("i", rc, rk)
                     if acc.array in plan.pad_rows:
                         # clamping the row is the reference's edge padding
                         row = f"min({row}, {h - 1})"
-                    col = _affine("c", cc, ck) if civ else str(ck)
+                    col = _affine("j", cc, ck) if civ else str(ck)
+                    if civ and acc.array in cols.pad_cols:
+                        col = f"min({col}, {w - 1})"
                     expr = (f"x_{_ident(acc.array)}[(size_t)({row}) * {w}"
                             f" + {col}]")
                 names[op.result] = _vname(op.result)
@@ -595,7 +702,7 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
             elif isinstance(op, StoreOp):
                 val = names[op.value]
                 if s is sink:
-                    inner.append(f"o_{_ident(s.out)}[(size_t)i * {cout} + c]"
+                    inner.append(f"o_{_ident(s.out)}[(size_t)i * {cout} + j]"
                                  f" = {val};")
                 else:
                     inner.append(f"w_{_ident(s.out)}[e] = {val};")
@@ -614,26 +721,30 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
     lines = [
         "// Generated by repro_torch.core.codegen — do not edit.",
         f"// program '{p.name}': streamed (Mode A), block_rows={B}, "
-        f"grid={T}, {dtype}.",
+        f"{T} row tiles x {U} column tiles of {CW}, {dtype}.",
         "// Replaces the Pallas kernel that repro.core.codegen._emit_streamed"
         " emits.",
         "// Bound: device memory (a few flops per byte: each input read "
         "once, the sink",
-        "// written once).  Design: every producer window lives in dynamic "
-        "shared memory",
-        "// and never reaches device memory; a tile recomputes its halo rows "
-        "instead of",
-        "// reading them back.  Neighbouring threads take neighbouring "
-        "columns, so loads",
-        "// and stores coalesce.  The _rn intrinsics round every op once, as "
-        "the plain",
-        "// version does, so the two agree bit for bit.",
+        "// written once).  Design: a block owns a tile of sink rows and "
+        "columns; every",
+        "// producer window lives in dynamic shared memory and never reaches "
+        "device memory,",
+        "// and a tile recomputes its halo rows and columns instead of "
+        "reading them back.",
+        "// Column tiles keep the windows small, so several blocks share an "
+        "SM.  Neighbouring",
+        "// threads take neighbouring columns, so loads and stores coalesce.  "
+        "The _rn",
+        "// intrinsics round every op once, as the plain version does, so "
+        "the two agree bit",
+        "// for bit.",
         "#include <cuda_runtime.h>",
         "",
         f"typedef {_CTYPES[dtype]} real;",
         f"constexpr int SMEM_BYTES = {smem_elems} * (int)sizeof(real);",
         "",
-        "__device__ __forceinline__ void tile(int t, "
+        "__device__ __forceinline__ void tile(int t, int u, "
         + ", ".join(ins + [outp, "real* smem"]) + ") {",
     ]
     lines += ["    " + b for b in body]
@@ -643,7 +754,7 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
         f"__global__ void __launch_bounds__({_THREADS['double']}) "
         "streamed_double(" + ", ".join(ins + [outp]) + ") {",
         "    extern __shared__ __align__(16) unsigned char smem_raw[];",
-        "    tile(blockIdx.x, " + ", ".join(args)
+        f"    tile(blockIdx.x / {U}, blockIdx.x % {U}, " + ", ".join(args)
         + ", reinterpret_cast<real*>(smem_raw));",
         "}",
         "",
@@ -651,14 +762,17 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
         "streamed_single(" + ", ".join(ins + [outp]) + ") {",
         "    extern __shared__ __align__(16) unsigned char smem_raw[];",
         f"    for (int t = 0; t < {T}; ++t) {{",
-        "        tile(t, " + ", ".join(args)
+        f"        for (int u = 0; u < {U}; ++u) {{",
+        "            tile(t, u, " + ", ".join(args)
         + ", reinterpret_cast<real*>(smem_raw));",
-        "        __syncthreads();  // the next tile overwrites the windows",
+        "            __syncthreads();  // the next tile overwrites the "
+        "windows",
+        "        }",
         "    }",
         "}",
         "",
     ]
-    for buf, blocks in (("double", T), ("single", 1)):
+    for buf, blocks in (("double", T * U), ("single", 1)):
         lines += [
             f'extern "C" int launch_{buf}(' + ", ".join(cargs) + ") {",
             "    if (SMEM_BYTES > 48 * 1024) {",
@@ -682,6 +796,7 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
             "vmem_window_elems": {s.out: s.win_sz * s.nest.trips[1]
                                   for s in plan.stages if s is not sink},
             "smem_bytes": smem_elems * (4 if dtype == "float32" else 8),
+            "col_tile": CW, "launch_grid": (T, U),
             "nest_launches": 1,
             "launch_nests": (tuple(s.nest.loop.ivname for s in plan.stages),),
             "tiled_reductions": ()}
@@ -693,30 +808,38 @@ def _emit_streamed(p: Program, plan: _StreamPlan,
 # ---------------------------------------------------------------------------
 
 
-def streamed_plain(p: Program, plan: _StreamPlan,
+def _edge_pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if rows:
+        x = torch.cat([x, x[-1:].expand(rows, -1)])
+    if cols:
+        x = torch.cat([x, x[:, -1:].expand(-1, cols)], dim=1)
+    return x.contiguous()
+
+
+def streamed_plain(p: Program, plan: _StreamPlan, cols: _ColPlan,
                    xs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """K2's plain version: walk the grid tile by tile, compute every stage's
-    window with one PyTorch op per IR op, edge-pad the inputs, trim the
-    output.  Same windows, halo and op order as the kernel, so it agrees
-    with the kernel bit for bit on the card and with ``sim.
-    sequential_exec`` in float64."""
+    """K2's plain version: walk the row tiles in order, each with all its
+    column tiles at once (a window is held as (rows, column tiles,
+    columns)), compute every stage's window with one PyTorch op per IR op,
+    edge-pad the inputs, trim the output.  Same windows, halos and op
+    order as the kernel, so it agrees with the kernel bit for bit on the
+    card and with ``sim.sequential_exec`` in float64."""
     B, T = plan.block_rows, plan.grid
+    CW, U = cols.cw, cols.tiles
     sink = plan.sink
     cout = p.arrays[sink.out].shape[1]
     rout = sink.nest.trips[0]
     produced = {s.out: s for s in plan.stages}
     some = next(iter(xs.values()))
     dtype, dev = some.dtype, some.device
-    padded = {}
-    for a in plan.inputs:
-        x, pad = xs[a], plan.pad_rows.get(a, 0)
-        padded[a] = torch.cat([x, x[-1:].expand(pad, -1)]) if pad else x
+    padded = {a: _edge_pad(xs[a], plan.pad_rows.get(a, 0),
+                           cols.pad_cols.get(a, 0)) for a in plan.inputs}
     consts: dict[float, torch.Tensor] = {}
-    out = torch.empty((T * B, cout), dtype=dtype, device=dev)
+    out = torch.empty((T * B, U * CW), dtype=dtype, device=dev)
     for t in range(T):
         win: dict[str, torch.Tensor] = {}
         for s in plan.stages:
-            csz = s.nest.trips[1]
+            ca, cb, csz = cols.cols[s.out]
             names: dict[str, torch.Tensor] = {}
             val = None
             for op in s.nest.ops:
@@ -730,27 +853,37 @@ def streamed_plain(p: Program, plan: _StreamPlan,
                     (_, rc, rk), (civ, cc, ck) = acc.dims
                     if acc.array in produced:
                         prod = produced[acc.array]
-                        src = win[acc.array]
                         r0 = rc * s.win_b + rk - prod.r0 - prod.win_b
-                        c0 = ck - prod.c0
+                        c0 = ((cc * cb if civ else 0) + ck - prod.c0
+                              - cols.cols[prod.out][1])
+                        csel = (slice(c0, c0 + cc * (csz - 1) + 1, cc)
+                                if civ else slice(c0, c0 + 1))
+                        names[op.result] = win[acc.array][
+                            r0:r0 + rc * (s.win_sz - 1) + 1:rc, :, csel]
                     else:
                         src = padded[acc.array]
                         r0 = rc * (s.win_a * t + s.win_b) + rk
-                        c0 = ck
-                    rsel = slice(r0, r0 + rc * (s.win_sz - 1) + 1, rc)
-                    csel = (slice(c0, c0 + cc * (csz - 1) + 1, cc) if civ
-                            else slice(c0, c0 + 1))
-                    names[op.result] = src[rsel, csel]
+                        rs = src.stride(0)
+                        if civ:
+                            # (rows, column tiles, columns): column c of
+                            # tile u reads cc * (ca*u + cb + c) + ck
+                            names[op.result] = src.as_strided(
+                                (s.win_sz, U, csz), (rc * rs, cc * ca, cc),
+                                src.storage_offset() + r0 * rs + cc * cb + ck)
+                        else:
+                            names[op.result] = src[
+                                r0:r0 + rc * (s.win_sz - 1) + 1:rc,
+                                ck:ck + 1][:, None]
                 elif isinstance(op, ArithOp):
                     names[op.result] = _TORCH_FNS[op.fn](
                         *(names[a] for a in op.args))
                 elif isinstance(op, StoreOp):
                     val = names[op.value]
             if s is sink:
-                out[B * t:B * t + B] = val.expand(B, cout)
+                out[B * t:B * t + B] = val.expand(B, U, CW).reshape(B, U * CW)
             else:
-                win[s.out] = val.expand(s.win_sz, csz)
-    return {sink.out: out[:rout]}
+                win[s.out] = val.expand(s.win_sz, U, csz)
+    return {sink.out: out[:rout, :cout]}
 
 
 # ---------------------------------------------------------------------------
@@ -1756,7 +1889,9 @@ class CudaKernel:
     fusion_shifts: list = field(default_factory=list)
     dtype: str = "float32"
     inputs: tuple = ()              # the arrays the kernel reads
-    smem_bytes: int = 0
+    smem_bytes: int = 0             # dynamic shared memory per block
+    col_tile: Optional[int] = None  # streamed: sink columns per block
+    launch_grid: tuple = ()         # streamed: (row tiles, column tiles)
     nest_launches: int = 1          # CUDA launches per call
     launch_nests: tuple = ()        # per launch, the nests it runs
     tiled_reductions: tuple = ()    # reduction nests in the tiled form
@@ -1825,13 +1960,12 @@ def _runner(k: CudaKernel, p: Program, out_shapes: dict, plain_fn: Callable):
 def _fit_shared_memory(p: Program, nests: list[_Nest], plan: _StreamPlan,
                        soft: list[str], dtype: str) -> _StreamPlan:
     """``plan`` at the largest block size up to its own whose windows fit
-    one block's shared memory; a smaller block size is recorded in
-    ``soft``.  A plan that does not fit even at one row is kept as it is,
-    and its launch refuses."""
-    esz = 4 if dtype == "float32" else 8
-
+    one block's shared memory at the narrowest column tile (full width
+    where the chain cannot be tiled by columns); a smaller block size is
+    recorded in ``soft``.  A plan that does not fit even at one row is kept
+    as it is, and its launch refuses."""
     def need(pl: _StreamPlan) -> int:
-        return _smem_layout(pl)[1] * esz
+        return _smem_need(pl, _plan_columns(p, pl, _COL_TILES[-1]), dtype)
 
     fitted = plan
     while need(fitted) > _cuda.MAX_SMEM_BYTES and fitted.block_rows > 1:
@@ -1840,20 +1974,22 @@ def _fit_shared_memory(p: Program, nests: list[_Nest], plan: _StreamPlan,
         return plan
     soft.append(f"block_rows {plan.block_rows} -> {fitted.block_rows}: the "
                 f"windows need {need(plan)} bytes of shared memory at "
-                f"{plan.block_rows} rows, more than the "
-                f"{_cuda.MAX_SMEM_BYTES} a block has")
+                f"{plan.block_rows} rows and the narrowest column tile, more "
+                f"than the {_cuda.MAX_SMEM_BYTES} a block has")
     return fitted
 
 
 def lower_program(p: Program, *, block_rows: Optional[int] = None,
-                  buffering: str = "double",
-                  dtype: str = "float32") -> CudaKernel:
+                  buffering: str = "double", dtype: str = "float32",
+                  col_tile: Optional[int] = None) -> CudaKernel:
     """Lower ``p`` to a CUDA kernel (streamed if the chain contract holds,
     whole-array otherwise, where ``buffering`` does not apply and reads
     ``"whole"``); raises :class:`UnlowerableProgram` when the program is
     outside both contracts.  A streamed kernel takes the largest block size
-    up to ``block_rows`` whose windows fit one block's shared memory, and
-    says so in ``soft_reasons`` when that is smaller."""
+    up to ``block_rows`` whose windows fit one block's shared memory at the
+    narrowest column tile, and says so in ``soft_reasons`` when that is
+    smaller; its sink tiles are ``col_tile`` columns wide (default: the
+    widest whose windows fit ``_SMEM_TARGET``)."""
     if buffering not in ("double", "single"):
         raise ValueError("buffering must be 'double' or 'single', "
                          f"got {buffering!r}")
@@ -1880,13 +2016,14 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
     plan, soft = _plan_streamed(p, nests, block_rows or DEFAULT_BLOCK_ROWS)
     if plan is not None:
         plan = _fit_shared_memory(p, nests, plan, soft, dtype)
-        src, meta = _emit_streamed(p, plan, dtype)
+        cols = _choose_columns(p, plan, dtype, col_tile)
+        src, meta = _emit_streamed(p, plan, cols, dtype)
         inputs = plan.inputs
         out_shapes = {plan.sink.out: (plan.sink.nest.trips[0],
                                       p.arrays[plan.sink.out].shape[1])}
 
         def plain_fn(xs):
-            return streamed_plain(p, plan, xs)
+            return streamed_plain(p, plan, cols, xs)
     else:
         wplan = _plan_whole(p, nests, dtype)
         src, meta = _emit_whole_cuda(p, wplan, dtype)
@@ -1903,6 +2040,8 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
                    vmem_window_elems=meta["vmem_window_elems"],
                    soft_reasons=soft, dtype=dtype, inputs=tuple(inputs),
                    smem_bytes=meta["smem_bytes"],
+                   col_tile=meta.get("col_tile"),
+                   launch_grid=meta.get("launch_grid", ()),
                    nest_launches=meta["nest_launches"],
                    launch_nests=meta["launch_nests"],
                    tiled_reductions=meta["tiled_reductions"])

@@ -2,7 +2,7 @@
 
 The TPU kernel (``repro.kernels.flash_attention``) walks a (B*H, S/block_q)
 grid and streams kv blocks through VMEM with online softmax.  The card has
-two kernels for it, chosen by dtype and head dim alone:
+three kernels for it, chosen by dtype and head dim alone (``route``):
 
 * bf16 at hd 64, 128 and 256: ``csrc/flash_attention_wgmma.cu``.  A block
   owns 128 q rows (two consumer warpgroups of 64); its products run on the
@@ -12,10 +12,19 @@ two kernels for it, chosen by dtype and head dim alone:
   input may be a strided view, such as the ``.transpose(1, 2)`` of a
   layer's (B, S, H, hd) activations.  Its (block_q, block_k) pairs are
   ``WGMMA_BLOCKS[hd]``; the first is the default.
-* float32, and bf16 at hd 16 and 32: ``csrc/flash_attention.cu``, one block
-  of 8 warps per (b*h, q block of at most 64 rows) on the CUDA cores.  It
-  reads contiguous (B, H, S, hd) tensors with as many kv heads as q heads,
-  so the wrapper makes that copy for it where its inputs differ.
+* float32 at every head dim: ``csrc/flash_attention_tf32x3.cu``.  A block
+  of 4 warps owns at most 64 q rows; its products run on the tensor cores
+  (``mma.sync`` m16n8k8) in error-compensated TF32: each fp32 operand is
+  split into a TF32 hi and lo part and each product summed as lo*hi +
+  hi*lo + hi*hi, which keeps the 2e-5 limit that plain TF32 breaks.  K and
+  V tiles come by ``cp.async`` through a two-stage ring.  It takes any
+  views whose rows are unit-stride and 16-byte aligned (others are copied
+  to a contiguous layout first), k and v at their kv heads, and writes the
+  output in q's layout.
+* bf16 at hd 16 and 32: ``csrc/flash_attention.cu``, one block of 8 warps
+  per (b*h, q block of at most 64 rows) on the CUDA cores.  It reads
+  contiguous (B, H, S, hd) tensors with as many kv heads as q heads, so
+  the wrapper makes that copy for it where its inputs differ.
 
 Both stop a causal q block at the kv block that holds its last row,
 ``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
@@ -43,8 +52,14 @@ SOURCE = _cuda.CSRC_DIR / "flash_attention.cu"
 LIB_NAME = "flash_attention"
 WGMMA_SOURCE = _cuda.CSRC_DIR / "flash_attention_wgmma.cu"
 WGMMA_LIB_NAME = "flash_attention_wgmma"
+TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
+TF32X3_LIB_NAME = "flash_attention_tf32x3"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
-MAX_BLOCK = 64                       # CUDA-core kernel: most q rows / kv keys
+MAX_BLOCK = 64          # CUDA-core and tf32x3 kernels: most q rows / kv keys
+TF32X3_BLOCK_K = 64     # tf32x3 kernel: default kv keys a tile
+# tf32x3 kernel: P moves from the score layout to the A operand of P.V
+# through a per-warp strip of shared memory (else by warp shuffles)
+TF32X3_P_SMEM = False
 # tensor-core kernel: the (block_q, block_k) pairs it is built for, the
 # default first (the faster on the card: at 128 keys ptxas spills P's
 # registers); at hd 256 two stages of 128 keys would not fit beside Q
@@ -52,18 +67,19 @@ WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
                 128: ((128, 64), (128, 128)),
                 256: ((128, 64),)}
 NEG_INF = -1e30
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+DTYPES = (torch.float32, torch.bfloat16)
 
-# launches per kernel and input dtype ("wgmma/bfloat16",
-# "cuda_cores/float32", "cuda_cores/bfloat16"), counted at the launch
+# launches per kernel and input dtype ("wgmma/bfloat16", "tf32x3/float32",
+# "cuda_cores/bfloat16"), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """Which kernel runs a call: ``"wgmma"`` or ``"cuda_cores"``."""
-    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_BLOCKS \
-        else "cuda_cores"
+    """Which kernel runs a call: ``"wgmma"`` (bf16), ``"tf32x3"`` (f32)
+    or ``"cuda_cores"`` (bf16 at hd 16, 32)."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "wgmma" if hd in WGMMA_BLOCKS else "cuda_cores"
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,15 +92,21 @@ def wgmma_kernel_source() -> str:
     return WGMMA_SOURCE.read_text()
 
 
+@functools.lru_cache(maxsize=None)
+def tf32x3_kernel_source() -> str:
+    return TF32X3_SOURCE.read_text()
+
+
 def kernel_sources() -> dict[str, str]:
-    """Both kernels' ``name -> source``, for ``_cuda.build_many``."""
-    return {LIB_NAME: kernel_source(), WGMMA_LIB_NAME: wgmma_kernel_source()}
+    """Every kernel's ``name -> source``, for ``_cuda.build_many``."""
+    return {LIB_NAME: kernel_source(), WGMMA_LIB_NAME: wgmma_kernel_source(),
+            TF32X3_LIB_NAME: tf32x3_kernel_source()}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(dtype: torch.dtype):
+def _launcher():
     lib = _cuda.load(LIB_NAME, kernel_source())
-    return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 4
+    return lib, _cuda.entry(lib, "flash_attention_bf16", [ctypes.c_void_p] * 4
                             + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                     ctypes.c_void_p])
 
@@ -95,6 +117,15 @@ def _wgmma_launcher():
     return lib, _cuda.entry(lib, "flash_attention_wgmma_bf16",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                             + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32x3_launcher():
+    lib = _cuda.load(TF32X3_LIB_NAME, tf32x3_kernel_source())
+    return lib, _cuda.entry(lib, "flash_attention_tf32x3",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p])
 
 
 def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
@@ -158,26 +189,41 @@ def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
     return out.reshape(B, H, nq * block_q, hd)[:, :, :S].to(q.dtype)
 
 
-def _tma_strides(t: torch.Tensor, what: str) -> list[int]:
-    """(batch, head, row) element strides of a (B, H, S, hd) input of the
-    tensor-core kernel, which TMA reads through its strides: the last dim
-    must be unit-stride and the tensor and every stride 16-byte aligned.
-    A dim of size 1 is never stepped, so its stride is replaced by a valid
-    one."""
+def _row_strides(t: torch.Tensor) -> tuple[Optional[list[int]], str]:
+    """(batch, head, row) element strides of a (B, H, S, hd) tensor whose
+    rows a kernel reads 16 bytes at a time (TMA or ``cp.async``): the last
+    dim unit-stride, the tensor and every stride 16-byte aligned; else
+    (None, why).  A dim of size 1 is never stepped, so its stride is
+    replaced by a valid one."""
     esz = t.element_size()
     if t.stride(-1) != 1:
-        raise ValueError(f"{what}: last dim has stride {t.stride(-1)}; the "
-                         "kernel reads it unit-stride")
+        return None, (f"last dim has stride {t.stride(-1)}; the kernel reads "
+                      "it unit-stride")
     if t.data_ptr() % 16:
-        raise ValueError(f"{what}: data is not 16-byte aligned")
+        return None, "data is not 16-byte aligned"
     out = []
     for d in range(3):
         st = t.stride(d) if t.shape[d] > 1 else math.prod(t.shape[d + 1:])
         if (st * esz) % 16:
-            raise ValueError(f"{what}: stride {t.stride(d)} of dim {d} is "
-                             "not a multiple of 16 bytes")
+            return None, (f"stride {t.stride(d)} of dim {d} is not a "
+                          "multiple of 16 bytes")
         out.append(st)
-    return out
+    return out, ""
+
+
+def _tma_strides(t: torch.Tensor, what: str) -> list[int]:
+    """``_row_strides`` of an input of the bf16 tensor-core kernel, which
+    TMA reads through its strides; raises where they do not fit."""
+    strides, why = _row_strides(t)
+    if strides is None:
+        raise ValueError(f"{what}: {why}")
+    return strides
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where its rows do not fit 16-byte
+    copies (the tf32x3 kernel reads any layout that fits)."""
+    return t if _row_strides(t)[0] is not None else t.contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -191,12 +237,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     bf16 at hd 64/128/256 runs the tensor-core kernel: inputs may be any
     views whose last dim is unit-stride and whose strides are 16-byte
     aligned, the output takes q's layout, and (block_q, block_k) must be
-    one of ``WGMMA_BLOCKS[hd]`` (default: the first).  Otherwise the
-    CUDA-core kernel runs: ``block_q``/``block_k`` (default 64) are cut to
-    S/Sk as in the TPU wrapper and must then be at most 64 (hd=256 then
-    fills 213 KB of shared memory).  A ragged last block is masked.
-    ``device`` defaults to where the tensors lie (the card for numpy
-    input): the kernels run on the card, the plain version on the CPU."""
+    one of ``WGMMA_BLOCKS[hd]`` (default: the first).  float32 runs the
+    tf32x3 kernel (any views, the output in q's layout) and bf16 at hd
+    16/32 the CUDA-core kernel: ``block_q``/``block_k`` (default 64 and,
+    for f32, ``TF32X3_BLOCK_K``) are cut to S/Sk as in the TPU wrapper and
+    must then be at most 64.  A ragged last block is masked.  ``device``
+    defaults to where the tensors lie (the card for numpy input): the
+    kernels run on the card, the plain version on the CPU."""
     dev = _cuda.resolve_device([q, k, v], device)
     if any(getattr(x, "ndim", 0) != 4 for x in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be (B, H, S, hd)")
@@ -209,7 +256,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: {Hkv} kv heads do not divide "
                          f"{H} q heads")
     dtype = q.dtype if isinstance(q, torch.Tensor) else torch.float32
-    if dtype not in _ENTRY:
+    if dtype not in DTYPES:
         raise ValueError(f"flash_attention: dtype {dtype}, kernels take "
                          "float32 or bfloat16")
     q = _cuda.as_input(q, dtype, dev, (B, H, S, hd), "q", contiguous=False)
@@ -229,8 +276,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
                                                    (v, "v"))]
     else:
+        bk0 = TF32X3_BLOCK_K if kind == "tf32x3" else MAX_BLOCK
         block_q = min(MAX_BLOCK if block_q is None else block_q, S)
-        block_k = min(MAX_BLOCK if block_k is None else block_k, Sk)
+        block_k = min(bk0 if block_k is None else block_k, Sk)
         if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
             raise ValueError(f"flash_attention: blocks ({block_q}, {block_k})"
                              f" must lie in 1..{MAX_BLOCK}")
@@ -247,12 +295,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
                         out.data_ptr(), B, H, Hkv, S, Sk, hd, block_k,
                         int(causal), hd ** -0.5, ctypes.addressof(st),
                         _cuda.current_stream(dev))
+    elif kind == "tf32x3":
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+        lib, launch = _tf32x3_launcher()
+        out = torch.empty_like(q)
+        st = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                        for s in _row_strides(t)[0]))
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, H, Hkv, S, Sk, hd, block_q,
+                        block_k, int(causal), hd ** -0.5,
+                        ctypes.addressof(st), int(TF32X3_P_SMEM),
+                        _cuda.current_stream(dev))
     else:
         # the CUDA-core kernel reads contiguous tensors with H kv heads
         q = q.contiguous()
         k, v = (t.repeat_interleave(H // Hkv, dim=1) if Hkv != H
                 else t.contiguous() for t in (k, v))
-        lib, launch = _launcher(dtype)
+        lib, launch = _launcher()
         out = torch.empty((B, H, S, hd), dtype=dtype, device=dev)
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -2,9 +2,13 @@
 with the KV/state caches produced by the prefill.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
-        --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+        --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu] [--eager]
 
-The model runs on the card unless ``--device cpu`` is given.
+The model runs on the card unless ``--device cpu`` is given.  On the card
+every decode step replays one CUDA graph (``lm.DecodeGraph``), as the
+reference's decode step is one ``jax.jit`` program; ``--eager`` runs the
+step op by op instead (the graph's yardstick).  The CPU has no graphs, so
+``--device cpu`` runs eagerly.
 """
 from __future__ import annotations
 
@@ -18,18 +22,26 @@ from repro_torch.config import get_config
 from repro_torch.models import lm
 
 
-def prefill_into_cache(cfg, model, tokens, cache):
+def prefill_into_cache(cfg, model, tokens, cache, step=None):
     """Feed prompt tokens one at a time (teacher-forced) to build the cache.
     (A production server uses the batched prefill kernel; this exercises the
-    same decode_step the server runs.)  Returns (cache, last logits)."""
+    same decode step the server runs.)  ``step(cache, token, pos) ->
+    (logits, cache)`` is that step, ``lm.decode_step`` when None.  Returns
+    (cache, last logits)."""
+    step = step or _eager_step(cfg, model)
     B, S = tokens.shape
     logits = torch.zeros((B, 1, cfg.vocab), device=model.device)
     for t in range(S):
-        batch = {"token": tokens[:, t:t + 1],
-                 "pos": torch.full((B,), t, dtype=torch.int32,
-                                   device=model.device)}
-        logits, cache = lm.decode_step(cfg, model, cache, batch)
+        logits, cache = step(cache, tokens[:, t:t + 1],
+                             torch.full((B,), t, dtype=torch.int32,
+                                        device=model.device))
     return cache, logits
+
+
+def _eager_step(cfg, model):
+    def step(cache, token, pos):
+        return lm.decode_step(cfg, model, cache, {"token": token, "pos": pos})
+    return step
 
 
 def _sync(device: torch.device) -> None:
@@ -46,6 +58,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="on the card, run the decode step op by op instead "
+                         "of replaying its CUDA graph")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -64,10 +79,14 @@ def main(argv=None):
             rng.integers(2, cfg.vocab, (B, args.prompt_len)),
             dtype=torch.int32, device=dev)
 
+        step = _eager_step(cfg, model)
+        if dev.type == "cuda" and not args.eager:
+            step = lm.DecodeGraph(cfg, model, cache)
+
         _sync(dev)
         t0 = time.time()
         # prefill (token-by-token through the same decode path)
-        cache, logits = prefill_into_cache(cfg, model, prompts, cache)
+        cache, logits = prefill_into_cache(cfg, model, prompts, cache, step)
         _sync(dev)
         print(f"[serve] prefill {args.prompt_len} tokens: "
               f"{time.time() - t0:.2f}s")
@@ -79,8 +98,7 @@ def main(argv=None):
         for i in range(args.gen):
             pos = torch.full((B,), args.prompt_len + i, dtype=torch.int32,
                              device=dev)
-            logits, cache = lm.decode_step(cfg, model, cache,
-                                           {"token": tok, "pos": pos})
+            logits, cache = step(cache, tok, pos)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
             out.append(tok[:, 0].cpu().numpy())
         dt = time.time() - t0

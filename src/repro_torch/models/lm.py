@@ -10,17 +10,23 @@ both packages compute the same thing in the tests.
 Entry points (the reference's ``prefill_fn`` and ``decode_fn``):
   * forward(cfg, model, batch)             -- full-sequence logits
   * decode_step(cfg, model, cache, batch)  -- one token against the caches
+  * DecodeGraph(cfg, model, cache)         -- the decode step captured once
+    as a CUDA graph, replayed per token: the counterpart of the
+    reference's ``@jax.jit`` decode (``repro.launch.serve``)
 
 Training (``loss_fn``) waits for the training slice: K4 and K5 have no
 backward yet.
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.config import ArchConfig
+from repro_torch.kernels import flash_attention, wkv6
 from repro_torch.models import layers as L
 
 # families whose layers are not ported yet -> what they need
@@ -278,3 +284,97 @@ def decode_step(cfg: ArchConfig, model: LM, cache, batch):
         blocks.append(c)
     h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return logits_from_hidden(cfg, model, h), {"blocks": blocks}
+
+
+def decode_step_into(cfg: ArchConfig, model: LM, cache, batch):
+    """``decode_step`` that leaves every state in ``cache``'s own tensors:
+    the RWKV states the step replaces are copied back into the tensors
+    they replace.  Returns (logits, ``cache``, the same object), so a
+    caller that holds the cache's storage (a CUDA graph, a batcher) sees
+    each step's states there."""
+    logits, new = decode_step(cfg, model, cache, batch)
+    for old, cur in zip(cache["blocks"], new["blocks"]):
+        for name, t in cur.items():
+            if t is not old[name]:
+                old[name].copy_(t)
+    return logits, cache
+
+
+# the kernel wrappers' launch counters, by module
+_LAUNCH_COUNTERS = {"flash_attention": flash_attention.LAUNCHES,
+                    "wkv6": wkv6.LAUNCHES}
+# kernel launches run by graph replays, "<module>/<wrapper key>" (the
+# wrappers count only the launches they make themselves)
+GRAPH_LAUNCHES: collections.Counter = collections.Counter()
+
+
+class DecodeGraph:
+    """The decode step of one batch size over one cache, captured once as a
+    CUDA graph and replayed for every token: the counterpart of the
+    reference's ``@jax.jit`` decode step.
+
+    Its static inputs are the (B, 1) token and (B,) position buffers and
+    ``cache`` itself.  A call ``graph(cache, token, pos)`` copies token and
+    pos into the static buffers, replays the graph and returns the logits
+    (a static buffer, overwritten by the next replay) and ``cache``, the
+    same object: every state is written in place (``decode_step_into``),
+    so writes between calls, such as a batcher resetting a slot's rows,
+    reach the next replay.
+
+    Construction runs ``warmup`` eager steps on a side stream (they load
+    the kernels and fill PyTorch's caches, which capture may not do),
+    captures one step and puts the cache back as it was.  A capture that
+    fails raises.  Capture records kernel launches without running them,
+    so the wrappers' counts of the captured step are taken off again and
+    kept as ``launches_per_replay``; every replay adds them to
+    ``GRAPH_LAUNCHES``."""
+
+    def __init__(self, cfg: ArchConfig, model: LM, cache, warmup: int = 2):
+        dev = model.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs the card; the model is on "
+                             f"{dev} (call decode_step there)")
+        self.cfg, self.model, self.cache = cfg, model, cache
+        self.warmup = warmup
+        B = next(iter(cache["blocks"][0].values())).shape[0]
+        with torch.inference_mode():
+            self.token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+            saved = [{k: t.clone() for k, t in c.items()}
+                     for c in cache["blocks"]]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    self._step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            before = {m: collections.Counter(c)
+                      for m, c in _LAUNCH_COUNTERS.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.logits = self._step()
+            self.launches_per_replay = collections.Counter()
+            for m, c in _LAUNCH_COUNTERS.items():
+                for key, n in (c - before[m]).items():
+                    self.launches_per_replay[f"{m}/{key}"] = n
+                c.clear()
+                c.update(before[m])
+            for c, s in zip(cache["blocks"], saved):
+                for k, t in s.items():
+                    c[k].copy_(t)
+        self.replays = 0
+
+    def _step(self):
+        return decode_step_into(self.cfg, self.model, self.cache,
+                                {"token": self.token, "pos": self.pos})[0]
+
+    def __call__(self, cache, token, pos):
+        if cache is not self.cache:
+            raise ValueError("DecodeGraph: called with another cache than "
+                             "the one it was captured over")
+        self.token.copy_(token)
+        self.pos.copy_(pos)
+        self.graph.replay()
+        self.replays += 1
+        GRAPH_LAUNCHES.update(self.launches_per_replay)
+        return self.logits, self.cache

@@ -84,6 +84,39 @@ def test_plan_metadata_equals_reference(name, block_rows):
     assert got.outputs == want.outputs
 
 
+@pytest.mark.parametrize("name", _STREAMED)
+@pytest.mark.parametrize("col_tile", [7, 16])
+@pytest.mark.parametrize("buffering", ["double", "single"])
+def test_column_tiles_match_sequential_exec(name, col_tile, buffering):
+    """The card's column tiles (the reference tiles rows only), walked by
+    the plain version tile for tile: at n=40 the last column tile is
+    ragged for every program (conv_pool's 20-column sink reads its
+    producer at column stride 2), and the last row tile too."""
+    k = codegen.lower_program(_mk(programs, name, 40), block_rows=3,
+                              buffering=buffering, dtype="float64",
+                              col_tile=col_tile)
+    cout = k.launch_grid[1] * k.col_tile
+    sink = _mk(programs, name, 40).arrays[k.outputs[0]].shape[1]
+    assert k.col_tile == col_tile and k.launch_grid[0] == k.grid[0]
+    assert cout - col_tile < sink < cout          # a ragged last tile
+    _exact(k, name, n=40)
+
+
+def test_column_windows_follow_the_chain_backward():
+    """conv_pool's pool tile of 16 columns reads conv at 2j+v: conv's
+    window is 32 columns a tile, advancing 32 a tile; blur_chain's bx
+    window is the tile's own columns (by reads bx at j) and harris' first
+    producers carry the 3x3 sums' two-column overhang."""
+    for name, want in (("conv_pool", (32, 0, 32)), ("blur_chain", (16, 0, 16)),
+                       ("harris", (16, 0, 18))):
+        p = _mk(programs, name, 64)
+        plan, _ = codegen._plan_streamed(p, codegen._extract_nests(p)[0], 4)
+        cols = codegen._plan_columns(p, plan, 16)
+        first = plan.stages[0].out
+        assert cols.cols[first] == want, name
+        assert cols.cols[plan.sink.out] == (16, 0, 16)
+
+
 def test_fig3_conv1d_unlowerable():
     """The flipped-kernel 1-D conv reads ``w[i + j]`` — a non-separable
     (two-iv) index codegen rejects with the access named in the reason."""
@@ -182,19 +215,31 @@ def test_card_requested_without_card_raises(monkeypatch):
 
 
 def test_windows_beyond_shared_memory_are_reported():
-    """harris at 4096 needs more shared memory at its default block size
-    than a block has: the lowering takes the largest block size whose
-    windows fit and says so.  A chain too wide to fit at one row keeps its
+    """With column tiles a block's windows are a strip of the image, so
+    harris at 4096 keeps its design point's block size (the full-width
+    windows needed 425,984 bytes at 8 rows).  A block size whose windows
+    do not fit even at the narrowest column tile shrinks to the largest
+    that fits and says so.  A chain that does not fit at one row keeps its
     plan, and its launch refuses rather than fall back."""
     k = codegen.lower_program(programs.harris(4096))
-    assert k.smem_bytes <= _cuda.MAX_SMEM_BYTES
-    assert k.block_rows < codegen.DEFAULT_BLOCK_ROWS
-    assert len(k.soft_reasons) == 1 and k.soft_reasons[0].startswith(
-        f"block_rows {codegen.DEFAULT_BLOCK_ROWS} -> {k.block_rows}:")
-    assert codegen.lower_program(programs.harris(4096), block_rows=k.block_rows
-                                 ).soft_reasons == []
-    assert codegen.lower_program(programs.blur_chain(4096),
-                                 block_rows=4).smem_bytes == 6 * 4096 * 4
-    wide = codegen.lower_program(programs.blur_chain(20000), block_rows=4)
-    assert wide.block_rows == 4 and wide.soft_reasons == []
-    assert wide.smem_bytes > _cuda.MAX_SMEM_BYTES
+    assert k.block_rows == codegen.DEFAULT_BLOCK_ROWS
+    assert k.soft_reasons == []
+    assert k.smem_bytes <= codegen._SMEM_TARGET
+    assert k.launch_grid == (k.grid[0], -(-4096 // k.col_tile))
+    blur = codegen.lower_program(programs.blur_chain(4096), block_rows=4)
+    # bx's window: 6 rows of the 1024-column tile
+    assert (blur.col_tile, blur.smem_bytes) == (1024, 6 * 1024 * 4)
+    narrowest = codegen._COL_TILES[-1]
+    tall = codegen.lower_program(programs.blur_chain(4096), block_rows=2000)
+    fit = _cuda.MAX_SMEM_BYTES // (narrowest * 4) - 2   # bx: rows + 2
+    assert tall.block_rows == fit and tall.col_tile == narrowest
+    assert tall.soft_reasons == [
+        f"block_rows 2000 -> {fit}: the windows need {2002 * narrowest * 4} "
+        "bytes of shared memory at 2000 rows and the narrowest column tile, "
+        f"more than the {_cuda.MAX_SMEM_BYTES} a block has"]
+    assert tall.smem_bytes <= _cuda.MAX_SMEM_BYTES
+    # a 1900-tap row blur needs 1900 rows of bx at one output row
+    deep = codegen.lower_program(programs.blur_chain(64, taps=1900),
+                                 block_rows=1)
+    assert deep.block_rows == 1 and deep.soft_reasons == []
+    assert deep.smem_bytes > _cuda.MAX_SMEM_BYTES

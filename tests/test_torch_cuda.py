@@ -80,6 +80,54 @@ def test_streamed_float64_matches_sequential_exec(cuda_device, name):
                                    rtol=1e-12, atol=0)
 
 
+STREAMED = CHAINS + ["harris", "unsharp"]
+
+
+def _streamed(name, n):
+    return {**programs.CHAIN_BENCHMARKS, "harris": programs.harris,
+            "unsharp": programs.unsharp}[name](n, storage="bram")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", STREAMED)
+@pytest.mark.parametrize("col_tile", [32, 48])
+def test_streamed_column_tiles_equal_plain(cuda_device, name, col_tile):
+    """Column tiles on the card (ragged last row and column tiles; conv_pool
+    at column stride 2): double == single == plain, bitwise in f32."""
+    p = _streamed(name, 150)
+    inputs = sim.make_inputs(p, seed=0)
+    kd = codegen.lower_program(p, block_rows=4, col_tile=col_tile)
+    ks = codegen.lower_program(p, block_rows=4, buffering="single",
+                               col_tile=col_tile)
+    assert kd.launch_grid[1] > 1
+    xs = {a: torch.as_tensor(inputs[a], dtype=torch.float32,
+                             device=cuda_device) for a in kd.inputs}
+    n0 = codegen.LAUNCHES[kd.launch_key]
+    od, os_, plain = kd(xs), ks(xs), kd.plain(xs)
+    torch.cuda.synchronize()
+    assert codegen.LAUNCHES[kd.launch_key] == n0 + 1
+    for a in kd.outputs:
+        assert torch.equal(od[a], plain[a])
+        assert torch.equal(os_[a], plain[a])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", STREAMED)
+def test_streamed_column_tiles_float64_match_sequential_exec(cuda_device,
+                                                             name):
+    p = _streamed(name, 40)
+    inputs = sim.make_inputs(p, seed=1)
+    want = sim.sequential_exec(p, inputs)
+    for buffering in ("double", "single"):
+        k = codegen.lower_program(p, block_rows=3, buffering=buffering,
+                                  dtype="float64", col_tile=16)
+        got = k(inputs)                 # numpy input: runs on the card
+        for a in k.outputs:
+            assert got[a].is_cuda
+            np.testing.assert_allclose(got[a].cpu().numpy(), want[a],
+                                       rtol=1e-12, atol=0)
+
+
 @pytest.mark.requires_cuda
 def test_blur_chain_streamed_equals_stencil_kernel(cuda_device):
     p = programs.blur_chain(130)
@@ -291,7 +339,7 @@ def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
                                              dtype, causal):
     from repro_torch.kernels import flash_attention as fa
     q, k, v = (_randn((B, H, S, hd), s, cuda_device, dtype) for s in range(3))
-    key = f"cuda_cores/{str(dtype).removeprefix('torch.')}"
+    key = f"{fa.route(dtype, hd)}/{str(dtype).removeprefix('torch.')}"
     n0 = fa.LAUNCHES[key]
     got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
@@ -334,6 +382,38 @@ def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd, bq, bk, B,
                                     block_k=bk)
     torch.testing.assert_close(got.float(), want.float(),
                                **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("draw", ["randn", "peaky"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("p_smem", [False, True])
+def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, monkeypatch,
+                                                    hd, draw, causal, p_smem):
+    """The f32 tensor-core kernel (3xTF32) against its plain version within
+    2e-5: on N(0, 1) inputs and on a peaky draw (q x 4: a few keys dominate
+    each row and the outputs are O(1), where TF32's error would show
+    first), GQA group 2 on transposed views of (B, S, heads, hd) tensors, a
+    ragged last q and kv tile, block_q > block_k and a block_k that is not
+    a multiple of 8, P moved by shuffles and through shared memory."""
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "TF32X3_P_SMEM", p_smem)
+    B, H, Hkv, S = 2, 4, 2, 136
+    q, k, v = (_randn((B, S, h, hd), seed, cuda_device).transpose(1, 2)
+               for seed, h in ((0, H), (1, Hkv), (2, Hkv)))
+    if draw == "peaky":
+        q = q * 4.0
+    for bq, bk in [(64, 64), (64, 32), (48, 20)]:
+        n0 = fa.LAUNCHES["tf32x3/float32"]
+        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["tf32x3/float32"] == n0 + 1
+        assert got.stride() == q.stride()     # the output takes q's layout
+        want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                        block_k=bk)
+        torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
 
 
 @pytest.mark.requires_cuda
@@ -404,3 +484,90 @@ def test_reduced_model_on_the_card_equals_cpu_and_decode(cuda_device, arch):
                         "pos": np.full((B,), t, np.int32)})
     torch.testing.assert_close(logits[:, 0], full[:, -1], rtol=2e-3,
                                atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the decode step as a CUDA graph (lm.DecodeGraph)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+def test_serve_main_graph_gives_the_eager_ids(cuda_device, arch):
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    argv = ["--arch", arch, "--reduced", "--batch", "3", "--prompt-len", "6",
+            "--gen", "5"]
+    eager = serve.main(argv + ["--eager"])
+    n0 = sum(lm.GRAPH_LAUNCHES.values())
+    graph = serve.main(argv)
+    assert (graph == eager).all()
+    if arch == "rwkv6_3b":            # K5 ran in every layer of every replay
+        assert sum(lm.GRAPH_LAUNCHES.values()) - n0 > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+def test_batcher_graph_gives_the_eager_ids(cuda_device, arch):
+    """Two slots answer five requests, so slots are reused: the batcher's
+    admission reset writes into the graph's static cache between replays."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm
+    from repro_torch.runtime.serving import ContinuousBatcher, Request
+    cfg = get_config(arch, reduced=True)
+    smax = 24
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           cuda_device)
+
+    def answer(graphed):
+        b = ContinuousBatcher(None, lambda n: model.init_cache(n, smax),
+                              n_slots=2, eos=1, max_len=smax,
+                              device=cuda_device)
+        if graphed:
+            b.decode_fn = lm.DecodeGraph(cfg, model, b.cache)
+        else:
+            b.decode_fn = lambda c, t, p: model.decode_step(
+                c, {"token": t, "pos": p})
+        rng = np.random.default_rng(7)
+        for i in range(5):
+            b.submit(Request(rid=i, prompt=rng.integers(2, cfg.vocab, 6),
+                             max_new=5))
+        with torch.inference_mode():
+            b.run()
+        assert len(b.completed) == 5
+        return {r.rid: r.output for r in b.completed}, b
+
+    eager, _ = answer(False)
+    n0 = wk.LAUNCHES["step"]
+    graphed, b = answer(True)
+    assert graphed == eager
+    g = b.decode_fn
+    assert g.replays == b.steps
+    if arch == "rwkv6_3b":
+        assert g.launches_per_replay == {"wkv6/step": cfg.n_layers}
+        # only the warm-up steps launched K5 through its wrapper
+        assert wk.LAUNCHES["step"] - n0 == g.warmup * cfg.n_layers
+
+
+@pytest.mark.requires_cuda
+def test_decode_graph_capture_failure_raises(cuda_device, monkeypatch):
+    """A step that syncs with the host cannot be captured: the graph
+    raises rather than run the step some other way."""
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+    cfg = get_config("llama3_8b", reduced=True)
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           cuda_device)
+        cache = model.init_cache(2, 8)
+    step = lm.decode_step
+
+    def syncing(*a, **kw):
+        logits, c = step(*a, **kw)
+        logits.sum().item()            # a host sync: illegal under capture
+        return logits, c
+    monkeypatch.setattr(lm, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        lm.DecodeGraph(cfg, model, cache)

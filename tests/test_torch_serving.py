@@ -166,3 +166,37 @@ def test_prefill_into_cache_matches_forward():
         full = model({"tokens": tokens})
     np.testing.assert_allclose(logits[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+def test_step_writes_states_into_the_callers_cache(arch):
+    """``lm.decode_step_into`` (the step a CUDA graph captures) leaves every
+    state in the caller's own tensors, RWKV states included, which
+    ``decode_step`` replaces: a batcher over it keeps one cache whose
+    storage never moves, admission resets included, and every request gets
+    the tokens the replacing step gives it."""
+    _, _, tcfg, model = _models(arch)
+
+    def answer(step):
+        b = ContinuousBatcher(step, lambda n: model.init_cache(n, SMAX),
+                              n_slots=2, eos=1, max_len=SMAX, device="cpu")
+        cache = b.cache
+        ptrs = [t.data_ptr() for c in cache["blocks"] for t in c.values()]
+        for r in _requests(Request, tcfg.vocab, 5, 6, 5, seed=3):
+            b.submit(r)
+        with torch.inference_mode():
+            b.run()
+        assert len(b.completed) == 5
+        moved = [t.data_ptr() for c in b.cache["blocks"]
+                 for t in c.values()] != ptrs
+        return {r.rid: r.output for r in b.completed}, b.cache is cache, moved
+
+    replaced, same_replaced, _ = answer(
+        lambda c, t, p: lm.decode_step(tcfg, model, c,
+                                       {"token": t, "pos": p}))
+    in_place, same, moved = answer(
+        lambda c, t, p: lm.decode_step_into(tcfg, model, c,
+                                            {"token": t, "pos": p}))
+    assert in_place == replaced
+    assert same and not moved
+    assert not same_replaced      # decode_step returns a new cache

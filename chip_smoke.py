@@ -9,9 +9,10 @@ read just after:
 1. *chains*: ``hls.compile`` schedules each stencil chain of
    ``programs.CHAIN_BENCHMARKS`` at n=8 (the repo's practice: the ILPs are
    sized by the loop bounds); the design point's block size is lowered at
-   n=4096 to the generated streamed CUDA kernel (K2, both bufferings) and
-   launched; the hand-written fused stencil (K1) runs on a 4K UHD frame
-   with the configuration the DSE sweep reads off the generated kernel.
+   n=4096 to the generated streamed CUDA kernel (K2, both bufferings; row
+   tiles cut into column tiles on the card) and launched; the hand-written
+   fused stencil (K1) runs on a 4K UHD frame with the configuration the DSE
+   sweep reads off the generated kernel.
 2. *benchmarks*: the paper's five programs (``programs.BENCHMARKS``)
    compiled at the reference tests' sizes, the best point lowered with
    ``emit_cuda``, then the original program lowered at full width (n=4096,
@@ -23,8 +24,10 @@ read just after:
 4. *serve*: rwkv6-3b at its full configuration (bf16, random weights from a
    seeded generator) served by ``repro_torch.launch.serve.main`` (batch 4,
    prompt 32, gen 16) and by a ``ContinuousBatcher`` of 4 slots answering
-   8 requests; every layer's time mix runs the WKV6 kernel (K5) at every
-   decode step.
+   8 requests; every decode step replays the step's CUDA graph
+   (``lm.DecodeGraph``) and every layer's time mix runs the WKV6 kernel
+   (K5) in it.  The same requests decoded eagerly must give the same ids;
+   the step is timed eager, graph, graph, eager.
 5. *prefill*: llama3-8b at its full configuration (bf16, chunked
    attention) runs ``lm.forward`` on 4096 tokens; every layer's attention
    runs the tensor-core flash-attention kernel (K4, ``wgmma``), on views
@@ -40,7 +43,7 @@ on N(0, 1) inputs and on a peaky draw whose outputs are O(1), each limit
 shown to reject a result with one kv tile dropped), and both models, at
 full width and depth 2 in f32, against themselves: the prefill's
 last-token logits against the last of the decode steps' (K4 in f32 runs
-the CUDA-core kernel there).
+the 3xTF32 tensor-core kernel there).
 
 Every kernel is built from the sources in the checkout (one nvcc per
 source, all at once, into ``build/``).
@@ -639,19 +642,13 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, block_q=blocks[0], block_k=blocks[1]),
             3)[0]
-        # the kernel's block pairs, timed: the default is the faster; for
-        # f32 also P moved by shuffles and through shared memory
+        # the kernel's block pairs, timed: the default is the faster
         by_blocks = {}
         pairs = (fa.WGMMA_BLOCKS[hd] if dtype == torch.bfloat16
-                 else [(fa.MAX_BLOCK, bk) for bk in (64, 32)])
-        for p_smem in ((False,) if dtype == torch.bfloat16
-                       else (False, True)):
-            fa.TF32X3_P_SMEM = p_smem
-            for bq, bk in pairs:
-                by_blocks[f"{bq}x{bk}" + ("/P smem" if p_smem else "")] = \
-                    time_ms(lambda: fa.flash_attention(
-                        q, k, v, causal=True, block_q=bq, block_k=bk), 10)[0]
-        fa.TF32X3_P_SMEM = False
+                 else [(fa.MAX_BLOCK, bk) for bk in (64, 32, 16)])
+        for bq, bk in pairs:
+            by_blocks[f"{bq}x{bk}"] = time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, block_q=bq, block_k=bk), 10)[0]
         print(f"time: K4 {kind} {dt} by blocks: " + ", ".join(
             f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
         if dtype == torch.bfloat16:
@@ -825,6 +822,10 @@ def main() -> int:
                                             buffering=b)
                       for b in ("double", "single"))
             streamed[name] = (big, kd, ks, kd.block_rows, "benchmarks")
+            if kd.block_rows != k.block_rows:
+                fail(f"K2 {name}: the design point's block_rows "
+                     f"{k.block_rows} shrank to {kd.block_rows} at n="
+                     f"{CHAIN_N}: {kd.soft_reasons}")
             print(f"compile: {name} n={n} ({how}, {secs:.1f} s) best "
                   f"'{r.best.desc}' -> streamed, block_rows {k.block_rows}; "
                   f"at n={CHAIN_N}: {kd.block_rows} "

@@ -545,9 +545,12 @@ class _ColPlan:
 # column tiles tried, widest first; the narrowest decides whether a block
 # size fits at all
 _COL_TILES = (1024, 512, 256, 128, 64, 32)
-# shared memory per block the column tile aims under: 4 blocks of 256
-# threads share an SM's 227 KB
-_SMEM_TARGET = 56 * 1024
+# shared memory per block the column tile aims under: 8 blocks of 256
+# threads fill an SM (2048 threads) and leave 64 KB of its 256 KB to the L1
+# cache that serves the taps' re-reads.  On the H100 the widest tile under
+# it came within 3.5 % of the fastest of 64-1024 columns for every
+# streamed benchmark at n=4096 (tools/slice6_probe.py)
+_SMEM_TARGET = 24 * 1024
 
 
 def _plan_columns(p: Program, plan: _StreamPlan,

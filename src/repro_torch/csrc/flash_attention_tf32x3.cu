@@ -15,24 +15,38 @@
 // 0.017 ms of TF32 tensor-core time (495 TFLOP/s dense) per product pass.
 // Plain TF32 keeps 10 mantissa bits and misses the 2e-5 limit, so each
 // operand is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and each
-// product is lo*hi + hi*lo + hi*hi, accumulated in fp32 by the tensor cores,
-// the small terms first: three passes, 0.052 ms of tensor-core time.
+// product is lo*hi + hi*lo + hi*hi, the small terms first: three passes,
+// 0.052 ms of tensor-core time.
 //
 // Design: one block of 4 warps per (b*h, q block of block_q <= 64 rows),
 // 16 rows a warp, on mma.sync.m16n8k8 (TF32 in, fp32 accumulators; wgmma
-// reads TF32 B operands only K-major, which V is not).  The scaled q tile
-// sits in shared memory; K and V tiles of block_k <= 64 keys come by 16-byte
-// cp.async into a ring of two stages (one at hd 256), so the next tile's
-// copy runs under this tile's products.  Rows are padded (q and K by 4
-// floats, V by 8) so every fragment load hits 32 banks.  Operands are
-// split as their fragments are loaded.  S = Q K^T stays in registers; its
-// accumulator layout is not the A-operand layout of P V, so P moves by warp
-// shuffles within each quad (P_SMEM = false) or through a per-warp strip of
-// shared memory (P_SMEM = true).  Online softmax in fp32 with expf, as the
-// plain version.  A causal q block stops at the kv block that holds its
-// last row (the TPU kernel's (qi*block_q)//block_k + 1 drops blocks when
-// block_q > block_k); ragged tails and keys past block_k in a tile are
-// masked and zero-filled; q blocks launch last-first.
+// reads TF32 B operands only K-major, which V is not).
+// * Data path: a kv tile of block_k <= 64 keys is walked in chunks of 16
+//   keys, its K chunks first (S for the whole tile), then the online
+//   softmax, then its V chunks (O += P V).  Each chunk comes by 16-byte
+//   cp.async into a raw stage; the block splits each element once into a
+//   (hi, lo) pair in a second buffer, and the next chunk's copy into the raw
+//   stage runs under this chunk's products.  Shared memory does not grow
+//   with block_k (59 KB at hd 128: three blocks an SM).  The scaled q tile
+//   stays in shared memory and each warp splits its fragments as it loads
+//   them.  Split rows are padded so every fragment load hits 32 banks.
+// * Splitting: rna_tf32 as integer arithmetic on the bits (add half of the
+//   13 dropped bits, mask them): full-rate instructions, the same value as
+//   cvt.rna.tf32.f32.
+// * Accuracy: the tensor cores truncate each accumulation, which summed over
+//   a long chain breaks 2e-5.  So every 8-deep step (S: 8 dims, P V: 8 keys)
+//   runs its three products into a fresh accumulator, which is then added to
+//   the running sum in fp32, rounded to nearest; O is rescaled by the online
+//   softmax's alpha before the tile's steps are added, as acc*alpha + p@v in
+//   the plain version.
+// * P: the accumulator layout of S is not the A-operand layout of P V; P
+//   moves by warp shuffles within each quad (a per-warp strip of shared
+//   memory measured slower on the H100, tools/slice6_probe.py).
+// * Online softmax in fp32 with expf, as the plain version.  A causal q block
+//   stops at the kv block that holds its last row (the TPU kernel's
+//   (qi*block_q)//block_k + 1 drops blocks when block_q > block_k); ragged
+//   tails and keys past block_k in a tile are masked and zero-filled; q
+//   blocks launch last-first.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,7 +55,8 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int BQ = 64;                   // most q rows per block
 constexpr int BKMAX = 64;                // most keys per kv tile
 constexpr int NT = BKMAX / 8;            // n8 tiles of a score row
-constexpr int PP = BKMAX + 4;            // P strip row (P_SMEM)
+constexpr int KC = 16;                   // keys per chunk
+constexpr int NCH = BKMAX / KC;          // most chunks per tile
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {                         // element strides (batch, head, row)
@@ -50,19 +65,15 @@ struct Strides {                         // element strides (batch, head, row)
 
 template <int HD>
 struct Layout {
-    static constexpr int QP = HD + 4;    // padded q row
-    static constexpr int KP = HD + 4;    // padded K row
-    static constexpr int VP = HD + 8;    // padded V row
-    static constexpr int STAGES = HD <= 128 ? 2 : 1;
+    static constexpr int QP = HD + 4;    // padded q row, floats
+    static constexpr int SP = HD + 4;    // padded split K / V row, (hi, lo) pairs
 };
 
-template <int HD, bool P_SMEM>
-static size_t smem_bytes(int bk) {
-    using L = Layout<HD>;
-    const int bkp = (bk + 7) & ~7;
-    return sizeof(float) * ((size_t)BQ * L::QP
-                            + (size_t)L::STAGES * bkp * (L::KP + L::VP)
-                            + (P_SMEM ? NWARPS * 16 * PP : 0));
+template <int HD>
+constexpr size_t smem_bytes() {
+    return sizeof(float) * BQ * Layout<HD>::QP  // scaled q
+           + sizeof(float) * KC * HD            // raw K or V chunk
+           + sizeof(uint2) * KC * Layout<HD>::SP;  // split chunk
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -77,21 +88,20 @@ __device__ __forceinline__ void cp_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void cp_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r;
+// rna_tf32: round the 13 low mantissa bits away, to nearest, ties away from
+// zero (the bits are sign-magnitude, so adding half rounds the magnitude)
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo + (what TF32 cannot hold of lo)
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+    hi = rna_tf32(x);
+    lo = rna_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -102,18 +112,23 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a*b as lo*hi + hi*lo + hi*hi, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-    mma(d, al, bh);
-    mma(d, ah, bl);
-    mma(d, ah, bh);
+// acc += a*b: lo*hi + hi*lo + hi*hi into a fresh accumulator, the small
+// terms first, then one fp32 add per element, rounded to nearest
+__device__ __forceinline__ void mma3_add(float (&acc)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint2 (&b)[2]) {
+    const uint32_t bh[2] = {b[0].x, b[1].x}, bl[2] = {b[0].y, b[1].y};
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma(t, al, bh);
+    mma(t, ah, bl);
+    mma(t, ah, bh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
 }
 
-template <int HD, bool P_SMEM>
-__global__ void __launch_bounds__(NTHREADS)
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, HD <= 128 ? 3 : 1)
 fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  Strides st, int H, int G, int S, int Sk, int bq, int bk,
@@ -121,37 +136,50 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     using L = Layout<HD>;
     constexpr int C4 = HD / 4;           // 16-byte chunks of a row
     extern __shared__ __align__(16) float smem[];
-    const int bkp = (bk + 7) & ~7;       // keys a tile holds, padded to 8
-    const int ntu = bkp / 8;             // n8 tiles in use
+    const int ntu = (bk + 7) / 8;        // n8 tiles of a tile in use
+    const int nch = (ntu * 8 + KC - 1) / KC;        // chunks of a tile
     float* sq = smem;                    // BQ x QP, scaled q
-    float* ring = sq + BQ * L::QP;       // STAGES x {K: bkp x KP, V: bkp x VP}
-    const int stage = bkp * (L::KP + L::VP);
+    float* raw = sq + BQ * L::QP;        // KC x HD, the chunk as it lands
+    uint2* spl = reinterpret_cast<uint2*>(raw + KC * HD);  // KC x SP
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, tg = lane % 4;   // fragment row group, column
-    const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / G;
+    const int bh = blockIdx.x, b = bh / H, h = bh % H, hkv = h / G;
     const int qi = gridDim.y - 1 - blockIdx.y;      // last q block first
     const int q0 = qi * bq;
     const float* qp = q + b * st.q[0] + h * st.q[1];
-    const float* kp = k + b * st.k[0] + hk * st.k[1];
-    const float* vp = v + b * st.v[0] + hk * st.v[1];
+    const float* kp = k + b * st.k[0] + hkv * st.k[1];
+    const float* vp = v + b * st.v[0] + hkv * st.v[1];
     float* op = out + b * st.o[0] + h * st.o[1];
 
     int nkv = (Sk + bk - 1) / bk;
     if (causal) nkv = min(nkv, (min(q0 + bq, S) - 1) / bk + 1);
 
-    auto load_tile = [&](int j, int s) {
-        float* dk = ring + s * stage;
-        float* dv = dk + bkp * L::KP;
-        for (int e = tid; e < bkp * C4; e += NTHREADS) {
-            const int kt = e / C4, d = (e % C4) * 4, gk = j * bk + kt;
-            const bool ok = kt < bk && gk < Sk;
-            cp_async16(dk + kt * L::KP + d, ok ? kp + gk * st.k[2] + d : kp, ok);
-            cp_async16(dv + kt * L::VP + d, ok ? vp + gk * st.v[2] + d : vp, ok);
+    // chunk c of tile j's K (kv = 0) or V (kv = 1) into the raw stage;
+    // keys past block_k or past Sk are zero-filled
+    auto issue = [&](int j, int kv, int c) {
+        const float* src = kv ? vp : kp;
+        const long long rs = kv ? st.v[2] : st.k[2];
+        for (int e = tid; e < KC * C4; e += NTHREADS) {
+            const int kt = e / C4, d = (e % C4) * 4, key = c * KC + kt;
+            const int gk = j * bk + key;
+            const bool ok = key < bk && gk < Sk;
+            cp_async16(raw + kt * HD + d, ok ? src + gk * rs + d : src, ok);
         }
         cp_commit();
     };
-    load_tile(0, 0);
+    // wait for the raw chunk, split it into (hi, lo) pairs
+    auto land = [&]() {
+        cp_wait_all();
+        __syncthreads();                 // landed; the last chunk is consumed
+        for (int e = tid; e < KC * HD; e += NTHREADS) {
+            uint2 x;
+            split(raw[e], x.x, x.y);
+            spl[(e / HD) * L::SP + e % HD] = x;
+        }
+        __syncthreads();                 // split visible; raw stage free
+    };
+    issue(0, 0, 0);
 
     for (int e = tid; e < BQ * C4; e += NTHREADS) {
         const int r = e / C4, d = (e % C4) * 4, gr = q0 + r;
@@ -174,27 +202,22 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int dt = 0; dt < HD / 8; ++dt)
         o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    float* strip = P_SMEM ? ring + L::STAGES * stage + warp * 16 * PP : nullptr;
+    const int srcA = (lane & ~3) | (tg >> 1), srcB = srcA + 2;
+    const bool odd = tg & 1;
 
     for (int j = 0; j < nkv; ++j) {
-        const int s = L::STAGES == 2 ? j & 1 : 0;
-        if (L::STAGES == 2) {
-            if (j + 1 < nkv) load_tile(j + 1, s ^ 1);
-            else cp_commit();            // an empty group keeps the count
-            cp_wait<1>();
-        } else {
-            if (j > 0) load_tile(j, 0);
-            cp_wait<0>();
-        }
-        __syncthreads();                 // tile j (and q) visible to all
-        const float* sk = ring + s * stage;
-        const float* sv = sk + bkp * L::KP;
-        if (active) {
-            // S = Q K^T for this warp's 16 rows
-            float sc[NT][4];
+        // S = Q K^T for this warp's 16 rows, K chunk by K chunk
+        float sc[NT][4];
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-                sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+        for (int nt = 0; nt < NT; ++nt)
+            sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+            if (c >= nch) break;
+            land();
+            if (c + 1 < nch) issue(j, 0, c + 1);
+            else issue(j, 1, 0);
+            if (!active) continue;
 #pragma unroll
             for (int ks = 0; ks < HD / 8; ++ks) {
                 const float* qa = sq + r0 * L::QP + ks * 8 + tg;
@@ -204,16 +227,17 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 split(qa[4], ah[2], al[2]);
                 split(qa[8 * L::QP + 4], ah[3], al[3]);
 #pragma unroll
-                for (int nt = 0; nt < NT; ++nt) {
+                for (int n = 0; n < KC / 8; ++n) {
+                    const int nt = c * (KC / 8) + n;
                     if (nt < ntu) {
-                        const float* kb = sk + (nt * 8 + g) * L::KP + ks * 8 + tg;
-                        uint32_t bh2[2], bl2[2];
-                        split(kb[0], bh2[0], bl2[0]);
-                        split(kb[4], bh2[1], bl2[1]);
-                        mma3(sc[nt], ah, al, bh2, bl2);
+                        const uint2* kb = spl + (n * 8 + g) * L::SP + ks * 8 + tg;
+                        const uint2 bb[2] = {kb[0], kb[4]};
+                        mma3_add(sc[nt], ah, al, bb);
                     }
                 }
             }
+        }
+        if (active) {
             // mask, then online softmax over the tile (rows r0 and r0 + 8)
             const int k0 = j * bk;
             float mx[2] = {NEG_INF, NEG_INF};
@@ -262,62 +286,43 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 o[dt][2] *= alpha[1];
                 o[dt][3] *= alpha[1];
             }
-            if (P_SMEM) {
+        }
+        // O += P V, V chunk by V chunk, 8 keys a step
 #pragma unroll
-                for (int nt = 0; nt < NT; ++nt) {
-                    if (nt < ntu) {
-                        float* w = strip + g * PP + nt * 8 + 2 * tg;
-                        *reinterpret_cast<float2*>(w) = make_float2(sc[nt][0], sc[nt][1]);
-                        *reinterpret_cast<float2*>(w + 8 * PP) = make_float2(sc[nt][2], sc[nt][3]);
-                    }
-                }
-                __syncwarp();
-            }
-            // O += P V, 8 keys at a time
-            const int srcA = (lane & ~3) | (tg >> 1), srcB = srcA + 2;
-            const bool odd = tg & 1;
+        for (int c = 0; c < NCH; ++c) {
+            if (c >= nch) break;
+            land();
+            if (c + 1 < nch) issue(j, 1, c + 1);
+            else if (j + 1 < nkv) issue(j + 1, 0, 0);
+            if (!active) continue;
 #pragma unroll
-            for (int kk = 0; kk < NT; ++kk) {
+            for (int n = 0; n < KC / 8; ++n) {
+                const int kk = c * (KC / 8) + n;
                 if (kk < ntu) {
-                    float pa[4];
-                    if (P_SMEM) {
-                        const float* rd = strip + g * PP + kk * 8 + tg;
-                        pa[0] = rd[0];
-                        pa[1] = rd[8 * PP];
-                        pa[2] = rd[4];
-                        pa[3] = rd[8 * PP + 4];
-                    } else {
-                        // P[g][8kk + tg] lives in lane srcA's c0/c1 (row g)
-                        // and c2/c3 (row g + 8); column tg + 4 in srcB's
-                        const float x0 = __shfl_sync(0xffffffffu, sc[kk][0], srcA);
-                        const float x1 = __shfl_sync(0xffffffffu, sc[kk][1], srcA);
-                        const float y0 = __shfl_sync(0xffffffffu, sc[kk][2], srcA);
-                        const float y1 = __shfl_sync(0xffffffffu, sc[kk][3], srcA);
-                        const float z0 = __shfl_sync(0xffffffffu, sc[kk][0], srcB);
-                        const float z1 = __shfl_sync(0xffffffffu, sc[kk][1], srcB);
-                        const float w0 = __shfl_sync(0xffffffffu, sc[kk][2], srcB);
-                        const float w1 = __shfl_sync(0xffffffffu, sc[kk][3], srcB);
-                        pa[0] = odd ? x1 : x0;
-                        pa[1] = odd ? y1 : y0;
-                        pa[2] = odd ? z1 : z0;
-                        pa[3] = odd ? w1 : w0;
-                    }
+                    // P[g][8kk + tg] lives in lane srcA's c0/c1 (row g) and
+                    // c2/c3 (row g + 8); column tg + 4 in lane srcB's
+                    const float x0 = __shfl_sync(0xffffffffu, sc[kk][0], srcA);
+                    const float x1 = __shfl_sync(0xffffffffu, sc[kk][1], srcA);
+                    const float y0 = __shfl_sync(0xffffffffu, sc[kk][2], srcA);
+                    const float y1 = __shfl_sync(0xffffffffu, sc[kk][3], srcA);
+                    const float z0 = __shfl_sync(0xffffffffu, sc[kk][0], srcB);
+                    const float z1 = __shfl_sync(0xffffffffu, sc[kk][1], srcB);
+                    const float w0 = __shfl_sync(0xffffffffu, sc[kk][2], srcB);
+                    const float w1 = __shfl_sync(0xffffffffu, sc[kk][3], srcB);
                     uint32_t ah[4], al[4];
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) split(pa[i], ah[i], al[i]);
-                    const float* vb = sv + (kk * 8 + tg) * L::VP + g;
+                    split(odd ? x1 : x0, ah[0], al[0]);
+                    split(odd ? y1 : y0, ah[1], al[1]);
+                    split(odd ? z1 : z0, ah[2], al[2]);
+                    split(odd ? w1 : w0, ah[3], al[3]);
+                    const uint2* vb = spl + (n * 8 + tg) * L::SP + g;
 #pragma unroll
                     for (int dt = 0; dt < HD / 8; ++dt) {
-                        uint32_t bh2[2], bl2[2];
-                        split(vb[dt * 8], bh2[0], bl2[0]);
-                        split(vb[4 * L::VP + dt * 8], bh2[1], bl2[1]);
-                        mma3(o[dt], ah, al, bh2, bl2);
+                        const uint2 bb[2] = {vb[dt * 8], vb[4 * L::SP + dt * 8]};
+                        mma3_add(o[dt], ah, al, bb);
                     }
                 }
             }
-            if (P_SMEM) __syncwarp();    // the strip is rewritten next tile
         }
-        __syncthreads();                 // stage s is consumed
     }
 
     if (!active) return;
@@ -334,48 +339,31 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int HD, bool P_SMEM>
+template <int HD>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   const Strides& st, int B, int H, int Hkv, int S, int Sk,
                   int bq, int bk, int causal, float scale, void* stream) {
-    const size_t smem = smem_bytes<HD, P_SMEM>(bk);
+    constexpr size_t smem = smem_bytes<HD>();
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
-            fa_tf32x3_kernel<HD, P_SMEM>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            fa_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
     const dim3 grid(B * H, (S + bq - 1) / bq);
-    fa_tf32x3_kernel<HD, P_SMEM><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+    fa_tf32x3_kernel<HD><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, st, H,
         H / Hkv, S, Sk, bq, bk, causal, scale);
     return (int)cudaGetLastError();
 }
 
-template <bool P_SMEM>
-static int dispatch(const void* q, const void* k, const void* v, void* out,
-                    const Strides& st, int B, int H, int Hkv, int S, int Sk,
-                    int hd, int bq, int bk, int causal, float scale,
-                    void* stream) {
-    switch (hd) {
-        case 16: return launch<16, P_SMEM>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 32: return launch<32, P_SMEM>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 64: return launch<64, P_SMEM>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 128: return launch<128, P_SMEM>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 256: return launch<256, P_SMEM>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
 // strides: 12 element strides, (batch, head, row) of q, k, v, out; every
 // row unit-stride and 16-byte aligned.  scale is hd^-0.5 rounded to fp32.
-// p_smem: move P through shared memory (1) or by warp shuffles (0).
 extern "C" int flash_attention_tf32x3(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
                                       int Hkv, int S, int Sk, int hd, int bq,
                                       int bk, int causal, float scale,
-                                      const long long* strides, int p_smem,
-                                      void* stream) {
+                                      const long long* strides, void* stream) {
     if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1 || bq < 1
         || bq > BQ || bk < 1 || bk > BKMAX)
         return (int)cudaErrorInvalidValue;
@@ -386,10 +374,14 @@ extern "C" int flash_attention_tf32x3(const void* q, const void* k,
         st.v[i] = strides[6 + i];
         st.o[i] = strides[9 + i];
     }
-    return p_smem ? dispatch<true>(q, k, v, out, st, B, H, Hkv, S, Sk, hd, bq,
-                                   bk, causal, scale, stream)
-                  : dispatch<false>(q, k, v, out, st, B, H, Hkv, S, Sk, hd, bq,
-                                    bk, causal, scale, stream);
+    switch (hd) {
+        case 16: return launch<16>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
+        case 32: return launch<32>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
+        case 64: return launch<64>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
+        case 128: return launch<128>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
+        case 256: return launch<256>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" const char* repro_error_string(int e) {

@@ -56,10 +56,7 @@ TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 MAX_BLOCK = 64          # CUDA-core and tf32x3 kernels: most q rows / kv keys
-TF32X3_BLOCK_K = 64     # tf32x3 kernel: default kv keys a tile
-# tf32x3 kernel: P moves from the score layout to the A operand of P.V
-# through a per-warp strip of shared memory (else by warp shuffles)
-TF32X3_P_SMEM = False
+TF32X3_BLOCK_K = 32     # tf32x3 kernel: default kv keys a tile
 # tensor-core kernel: the (block_q, block_k) pairs it is built for, the
 # default first (the faster on the card: at 128 keys ptxas spills P's
 # registers); at hd 256 two stages of 128 keys would not fit beside Q
@@ -124,8 +121,7 @@ def _tf32x3_launcher():
     lib = _cuda.load(TF32X3_LIB_NAME, tf32x3_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_tf32x3",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_void_p])
+                            + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
 def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
@@ -305,8 +301,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B, H, Hkv, S, Sk, hd, block_q,
                         block_k, int(causal), hd ** -0.5,
-                        ctypes.addressof(st), int(TF32X3_P_SMEM),
-                        _cuda.current_stream(dev))
+                        ctypes.addressof(st), _cuda.current_stream(dev))
     else:
         # the CUDA-core kernel reads contiguous tensors with H kv heads
         q = q.contiguous()

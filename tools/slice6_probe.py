@@ -53,14 +53,10 @@ def k4(tree_src: str, parent_src: str) -> None:
             times.setdefault("parent cuda_cores", []).append(
                 cs.time_ms(fn, 10)[0])
             continue
-        for p_smem in (False, True):
-            fa.TF32X3_P_SMEM = p_smem
-            for bk in (64, 32):
-                t = cs.time_ms(lambda: fa.flash_attention(
-                    *base, causal=True, block_k=bk), 10)[0]
-                times.setdefault(f"tf32x3 bk {bk} P {'smem' if p_smem else 'shfl'}",
-                                 []).append(t)
-        fa.TF32X3_P_SMEM = False
+        for bk in (64, 32, 16):
+            t = cs.time_ms(lambda: fa.flash_attention(
+                *base, causal=True, block_k=bk), 10)[0]
+            times.setdefault(f"tf32x3 bk {bk}", []).append(t)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times["sdpa (kv repeated)"] = [cs.time_ms(
         lambda: sdpa(*rep, is_causal=True), 10)[0]]
@@ -83,6 +79,59 @@ def k4(tree_src: str, parent_src: str) -> None:
                   f"{err.max().item():.3g}, max |diff| / limit "
                   f"{(err / lim).max().item():.3g}, max |plain| "
                   f"{want.abs().max().item():.3g}")
+
+
+# the tf32x3 kernel with one cost taken out at a time (wrong results,
+# timing only): where its time goes
+K4_VARIANTS = {
+    "one product pass": ("    mma(t, al, bh);\n    mma(t, ah, bl);\n", ""),
+    "no splitting": ("    hi = rna_tf32(x);\n    lo = rna_tf32(__fsub_rn(x, __uint_as_float(hi)));",
+                     "    hi = __float_as_uint(x);\n    lo = 0u;"),
+    "no fresh accumulators": (
+        "    float t[4] = {0.f, 0.f, 0.f, 0.f};\n    mma(t, al, bh);\n"
+        "    mma(t, ah, bl);\n    mma(t, ah, bh);\n#pragma unroll\n"
+        "    for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], t[i]);",
+        "    mma(acc, al, bh);\n    mma(acc, ah, bl);\n    mma(acc, ah, bh);"),
+}
+
+
+def k4_variants(tree_src: str) -> None:
+    import ctypes
+
+    import torch
+    use(tree_src)
+    from repro_torch import _cuda
+    from repro_torch.kernels import flash_attention as fa
+    H, Hkv, S, hd = 32, 8, 1024, 128
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, S, h, hd), generator=g, device="cuda")
+               .transpose(1, 2) for h in (H, Hkv, Hkv))
+    out = torch.empty_like(q)
+    st = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                    for s in fa._row_strides(t)[0]))
+    src = fa.tf32x3_kernel_source()
+    srcs = {"as built": src}
+    for name, (old, new) in K4_VARIANTS.items():
+        if old not in src:
+            print(f"probe: K4 variant {name}: pattern not found")
+            continue
+        srcs[name] = src.replace(old, new)
+    libs = _cuda.build_many({f"tf32x3_v{i}": s_ for i, s_ in
+                             enumerate(srcs.values())})
+    for i, name in enumerate(srcs):
+        lib = ctypes.CDLL(str(libs[f"tf32x3_v{i}"]))
+        fn = _cuda.entry(lib, "flash_attention_tf32x3",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                         + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+        for bk in (32, 64):
+            def call():
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), 1, H, Hkv, S, S, hd, 64, bk, 1,
+                        hd ** -0.5, ctypes.addressof(st),
+                        torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, rc
+            print(f"probe: K4 f32 variant '{name}' bk {bk}: "
+                  f"{cs.time_ms(call, 10)[0]:.4f} ms")
 
 
 def k2(tree_src: str, parent_src: str) -> None:
@@ -176,7 +225,10 @@ def decode(tree_src: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
+    ap.add_argument("--parts", default="decode,k4,k2",
+                    help="comma-separated: decode, k4, k2, k4variants")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     import torch
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -191,9 +243,14 @@ def main() -> int:
     for name, (secs, log) in _cuda.BUILD_LOG.items():
         print(f"probe: build {name} {secs:.1f} s; "
               + " | ".join(cs.ptxas_summary(log)))
-    decode(tree_src)
-    k4(tree_src, parent_src)
-    k2(tree_src, parent_src)
+    if "decode" in parts:
+        decode(tree_src)
+    if "k4" in parts:
+        k4(tree_src, parent_src)
+    if "k2" in parts:
+        k2(tree_src, parent_src)
+    if "k4variants" in parts:
+        k4_variants(tree_src)
     return 0
 
 

@@ -57,6 +57,7 @@ constexpr int BKMAX = 64;                // most keys per kv tile
 constexpr int NT = BKMAX / 8;            // n8 tiles of a score row
 constexpr int KC = 16;                   // keys per chunk
 constexpr int NCH = BKMAX / KC;          // most chunks per tile
+constexpr int RING = 3;                  // raw chunks in flight
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {                         // element strides (batch, head, row)
@@ -72,7 +73,7 @@ struct Layout {
 template <int HD>
 constexpr size_t smem_bytes() {
     return sizeof(float) * BQ * Layout<HD>::QP  // scaled q
-           + sizeof(float) * KC * HD            // raw K or V chunk
+           + sizeof(float) * RING * KC * HD     // raw K or V chunks
            + sizeof(uint2) * KC * Layout<HD>::SP;  // split chunk
 }
 
@@ -88,8 +89,10 @@ __device__ __forceinline__ void cp_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::);
+// waits until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // rna_tf32: round the 13 low mantissa bits away, to nearest, ties away from
@@ -139,8 +142,8 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int ntu = (bk + 7) / 8;        // n8 tiles of a tile in use
     const int nch = (ntu * 8 + KC - 1) / KC;        // chunks of a tile
     float* sq = smem;                    // BQ x QP, scaled q
-    float* raw = sq + BQ * L::QP;        // KC x HD, the chunk as it lands
-    uint2* spl = reinterpret_cast<uint2*>(raw + KC * HD);  // KC x SP
+    float* raw = sq + BQ * L::QP;        // RING x KC x HD, chunks as they land
+    uint2* spl = reinterpret_cast<uint2*>(raw + RING * KC * HD);  // KC x SP
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, tg = lane % 4;   // fragment row group, column
@@ -155,31 +158,43 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     int nkv = (Sk + bk - 1) / bk;
     if (causal) nkv = min(nkv, (min(q0 + bq, S) - 1) / bk + 1);
 
-    // chunk c of tile j's K (kv = 0) or V (kv = 1) into the raw stage;
-    // keys past block_k or past Sk are zero-filled
-    auto issue = [&](int j, int kv, int c) {
-        const float* src = kv ? vp : kp;
-        const long long rs = kv ? st.v[2] : st.k[2];
-        for (int e = tid; e < KC * C4; e += NTHREADS) {
-            const int kt = e / C4, d = (e % C4) * 4, key = c * KC + kt;
-            const int gk = j * bk + key;
-            const bool ok = key < bk && gk < Sk;
-            cp_async16(raw + kt * HD + d, ok ? src + gk * rs + d : src, ok);
+    // the chunk stream: tile by tile, its K chunks then its V chunks.
+    // Chunk i goes to raw slot i % RING, RING chunks ahead of the one the
+    // block splits; keys past block_k or past Sk are zero-filled.  Every
+    // thread commits one group per chunk (empty past the end), so
+    // "RING - 1 groups in flight" means chunk i has landed.
+    const int nchunks = 2 * nch * nkv;
+    auto issue = [&](int i) {
+        if (i < nchunks) {
+            const int j = i / (2 * nch), kv = (i / nch) & 1, c = i % nch;
+            const float* src = kv ? vp : kp;
+            const long long rs = kv ? st.v[2] : st.k[2];
+            float* dst = raw + (i % RING) * KC * HD;
+            for (int e = tid; e < KC * C4; e += NTHREADS) {
+                const int kt = e / C4, d = (e % C4) * 4, key = c * KC + kt;
+                const int gk = j * bk + key;
+                const bool ok = key < bk && gk < Sk;
+                cp_async16(dst + kt * HD + d, ok ? src + gk * rs + d : src, ok);
+            }
         }
         cp_commit();
     };
-    // wait for the raw chunk, split it into (hi, lo) pairs
-    auto land = [&]() {
-        cp_wait_all();
+    // wait for chunk i, split it into (hi, lo) pairs, put chunk i + RING
+    // in flight in its slot
+    auto land = [&](int i) {
+        cp_wait<RING - 1>();
         __syncthreads();                 // landed; the last chunk is consumed
+        const float* src = raw + (i % RING) * KC * HD;
         for (int e = tid; e < KC * HD; e += NTHREADS) {
             uint2 x;
-            split(raw[e], x.x, x.y);
+            split(src[e], x.x, x.y);
             spl[(e / HD) * L::SP + e % HD] = x;
         }
-        __syncthreads();                 // split visible; raw stage free
+        __syncthreads();                 // split visible; the slot is free
+        issue(i + RING);
     };
-    issue(0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < RING; ++i) issue(i);
 
     for (int e = tid; e < BQ * C4; e += NTHREADS) {
         const int r = e / C4, d = (e % C4) * 4, gr = q0 + r;
@@ -214,9 +229,7 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
             if (c >= nch) break;
-            land();
-            if (c + 1 < nch) issue(j, 0, c + 1);
-            else issue(j, 1, 0);
+            land((2 * j) * nch + c);
             if (!active) continue;
 #pragma unroll
             for (int ks = 0; ks < HD / 8; ++ks) {
@@ -291,9 +304,7 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
             if (c >= nch) break;
-            land();
-            if (c + 1 < nch) issue(j, 1, c + 1);
-            else if (j + 1 < nkv) issue(j + 1, 0, 0);
+            land((2 * j + 1) * nch + c);
             if (!active) continue;
 #pragma unroll
             for (int n = 0; n < KC / 8; ++n) {

@@ -81,9 +81,12 @@ def k4(tree_src: str, parent_src: str) -> None:
                   f"{want.abs().max().item():.3g}")
 
 
-# the tf32x3 kernel with one cost taken out at a time (wrong results,
-# timing only): where its time goes
+# the tf32x3 kernel with one parameter changed, or one cost taken out
+# (wrong results, timing only): where its time goes
 K4_VARIANTS = {
+    "ring of 2": ("constexpr int RING = 3;", "constexpr int RING = 2;"),
+    "ring of 4": ("constexpr int RING = 3;", "constexpr int RING = 4;"),
+    "2 blocks an SM": ("HD <= 128 ? 3 : 1", "HD <= 128 ? 2 : 1"),
     "one product pass": ("    mma(t, al, bh);\n    mma(t, ah, bl);\n", ""),
     "no splitting": ("    hi = rna_tf32(x);\n    lo = rna_tf32(__fsub_rn(x, __uint_as_float(hi)));",
                      "    hi = __float_as_uint(x);\n    lo = 0u;"),

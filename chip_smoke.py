@@ -560,7 +560,7 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
             cases = [(True, *blocks), (False, *blocks)] + \
                 [(True, *b) for b in fa.WGMMA_BLOCKS[hd][1:]]
         else:
-            blocks = (fa.MAX_BLOCK, fa.TF32X3_BLOCK_K)
+            blocks = fa.TF32X3_BLOCKS
             cases = [(True, *blocks), (False, *blocks)]
         for draw, xs in draws.items():
             q, k, v = (x.to(dtype) for x in xs)
@@ -642,15 +642,16 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, block_q=blocks[0], block_k=blocks[1]),
             3)[0]
-        # the kernel's block pairs, timed: the default is the faster
         by_blocks = {}
-        pairs = (fa.WGMMA_BLOCKS[hd] if dtype == torch.bfloat16
-                 else [(fa.MAX_BLOCK, bk) for bk in (64, 32, 16)])
-        for bq, bk in pairs:
-            by_blocks[f"{bq}x{bk}"] = time_ms(lambda: fa.flash_attention(
-                q, k, v, causal=True, block_q=bq, block_k=bk), 10)[0]
-        print(f"time: K4 {kind} {dt} by blocks: " + ", ".join(
-            f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
+        if dtype == torch.bfloat16:
+            # every pair the kernel takes, timed: the default is the faster
+            for bq, bk in fa.WGMMA_BLOCKS[hd]:
+                by_blocks[f"{bq}x{bk}"] = time_ms(
+                    lambda: fa.flash_attention(q, k, v, causal=True,
+                                               block_q=bq, block_k=bk),
+                    10)[0]
+            print("time: K4 wgmma bfloat16 by blocks: " + ", ".join(
+                f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
         if dtype == torch.bfloat16:
             lib_in, gqa = (q, k, v), {"enable_gqa": True}
         else:

@@ -1,12 +1,14 @@
 // Flash attention, forward, causal or not (online softmax, fp32 statistics).
 //
 // Replaces: src/repro/kernels/flash_attention.py::_fa_kernel, the Pallas TPU
-// kernel launched by flash_attention (grid (B*H, S/block_q)), for bf16 at
-// head dims 16 and 32 (bf16 at 64-256 runs flash_attention_wgmma.cu, float32
-// flash_attention_tf32x3.cu).
+// kernel launched by flash_attention (grid (B*H, S/block_q)), at the head
+// dims the tensor-core kernels do not take: f32 at 16, 32 and 256, bf16 at
+// 16 and 32 (f32 at 64 and 128 runs flash_attention_tf32x3.cu, bf16 at 64,
+// 128 and 256 flash_attention_wgmma.cu).
 //
 // What it computes: out = softmax(q k^T * hd^-0.5 [+ causal mask]) v over
-// (B, H, S, hd) tensors, in fp32 from bf16 inputs, the output in bf16.  q is scaled in fp32 before the product, masked scores are
+// (B, H, S, hd) tensors, in fp32 from f32 or bf16 inputs, the output in the
+// input's type.  q is scaled in fp32 before the product, masked scores are
 // -1e30, and the sum is divided by (l + 1e-30), as in the TPU kernel and
 // the model's chunked attention.
 //
@@ -39,7 +41,9 @@ constexpr int MAXB = 64;                 // most q rows and kv keys per block
 constexpr int RPW = MAXB / NWARPS;       // q rows per warp
 constexpr float NEG_INF = -1e30f;
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -217,6 +221,14 @@ static int dispatch(const void* q, const void* k, const void* v, void* out,
 }
 
 // scale is hd^-0.5 as the caller rounds it to fp32
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
+                                   void* out, int BH, int S, int Sk, int hd,
+                                   int bq, int bk, int causal, float scale,
+                                   void* stream) {
+    return dispatch<float>(q, k, v, out, BH, S, Sk, hd, bq, bk, causal, scale,
+                           stream);
+}
+
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* out, int BH, int S, int Sk, int hd,
                                     int bq, int bk, int causal, float scale,

@@ -1,8 +1,10 @@
-// Flash attention, forward, float32, on Hopper's tensor cores through
-// error-compensated TF32 ("3xTF32").
+// Flash attention, forward, float32, on Hopper's tensor cores (wgmma)
+// through error-compensated TF32 ("3xTF32").
 //
 // Replaces: src/repro/kernels/flash_attention.py::_fa_kernel in float32, the
-// Pallas TPU kernel launched by flash_attention (grid (B*H, S/block_q)).
+// Pallas TPU kernel launched by flash_attention (grid (B*H, S/block_q)), at
+// head dims 64 and 128 (f32 at 16, 32 and 256 stays on the CUDA-core
+// kernel, csrc/flash_attention.cu).
 //
 // What it computes: out = softmax(q k^T * hd^-0.5 [+ causal mask]) v over
 // (B, H, S, hd) float32 tensors whose k and v may have fewer heads (q head h
@@ -18,46 +20,43 @@
 // product is lo*hi + hi*lo + hi*hi, the small terms first: three passes,
 // 0.052 ms of tensor-core time.
 //
-// Design: one block of 4 warps per (b*h, q block of block_q <= 64 rows),
-// 16 rows a warp, on mma.sync.m16n8k8 (TF32 in, fp32 accumulators; wgmma
-// reads TF32 B operands only K-major, which V is not).
-// * Data path: a kv tile of block_k <= 64 keys is walked in chunks of 16
-//   keys, its K chunks first (S for the whole tile), then the online
-//   softmax, then its V chunks (O += P V).  Each chunk comes by 16-byte
-//   cp.async into a raw stage; the block splits each element once into a
-//   (hi, lo) pair in a second buffer, and the next chunk's copy into the raw
-//   stage runs under this chunk's products.  Shared memory does not grow
-//   with block_k (59 KB at hd 128: three blocks an SM).  The scaled q tile
-//   stays in shared memory and each warp splits its fragments as it loads
-//   them.  Split rows are padded so every fragment load hits 32 banks.
-// * Splitting: rna_tf32 as integer arithmetic on the bits (add half of the
-//   13 dropped bits, mask them): full-rate instructions, the same value as
-//   cvt.rna.tf32.f32.
-// * Accuracy: the tensor cores truncate each accumulation, which summed over
-//   a long chain breaks 2e-5.  So every 8-deep step (S: 8 dims, P V: 8 keys)
-//   runs its three products into a fresh accumulator, which is then added to
-//   the running sum in fp32, rounded to nearest; O is rescaled by the online
-//   softmax's alpha before the tile's steps are added, as acc*alpha + p@v in
-//   the plain version.
-// * P: the accumulator layout of S is not the A-operand layout of P V; P
-//   moves by warp shuffles within each quad (a per-warp strip of shared
-//   memory measured slower on the H100, tools/slice6_probe.py).
-// * Online softmax in fp32 with expf, as the plain version.  A causal q block
-//   stops at the kv block that holds its last row (the TPU kernel's
-//   (qi*block_q)//block_k + 1 drops blocks when block_q > block_k); ragged
-//   tails and keys past block_k in a tile are masked and zero-filled; q
-//   blocks launch last-first.
+// Design: one warpgroup (4 warps) per (b*h, 64 q rows); kv tiles of 32 keys.
+// * The products run on wgmma (TF32 in, fp32 accumulators): S = Q K^T as
+//   m64n32k8 with Q and K read from shared memory, O += P V as m64nHDk8 with
+//   P from registers.  mma.sync, the first form of this kernel, took 0.1 ms
+//   per product pass at the shape above (tools/slice6_probe.py).
+// * wgmma reads TF32 operands K-major only: rows of Q and K run along hd,
+//   which is K; V's run along hd too, which is N, so V is stored transposed.
+//   Every operand sits in the 128-byte swizzle wgmma reads (32 floats a
+//   row), in a hi and a lo copy.
+// * K and V tiles come by 16-byte cp.async into a raw stage, the next tile's
+//   copy running under this tile's products; the warpgroup then splits each
+//   element into its hi and lo copies (V transposed on the way).  q is split
+//   once.  rna_tf32 is integer arithmetic on the bits (add half of the 13
+//   dropped bits, mask them): the same value as cvt.rna.tf32.f32.
+// * Accuracy: the tensor cores truncate each accumulation, which over long
+//   chains breaks 2e-5.  S sums its small terms in one accumulator and the
+//   hi*hi products in two (half of hd each), added in fp32 rounded to
+//   nearest; each tile's P V goes to a fresh accumulator and
+//   O = O * alpha + PV is rounded to nearest, as acc*alpha + p@v in the
+//   plain version.
+// * P: S's accumulator layout is not wgmma's A-operand layout for TF32; P
+//   moves by warp shuffles within each quad.
+// * Online softmax in fp32 with expf, as the plain version.  A causal block
+//   stops at the kv tile that holds its last row; masked tiles past a row's
+//   diagonal add exact zeros, so the kernel's 64 x 32 tiles compute the
+//   function of any (block_q, block_k) the plain version walks, up to
+//   rounding.  Ragged tails are masked and zero-filled; q blocks launch
+//   last-first.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int BQ = 64;                   // most q rows per block
-constexpr int BKMAX = 64;                // most keys per kv tile
-constexpr int NT = BKMAX / 8;            // n8 tiles of a score row
-constexpr int KC = 16;                   // keys per chunk
-constexpr int NCH = BKMAX / KC;          // most chunks per tile
-constexpr int RING = 3;                  // raw chunks in flight
+namespace {
+
+constexpr int NTHREADS = 128;            // one warpgroup
+constexpr int BQ = 64;                   // q rows per block
+constexpr int BK = 32;                   // keys per kv tile
+constexpr int ROW = 128;                 // bytes per swizzled row: 32 floats
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {                         // element strides (batch, head, row)
@@ -66,33 +65,45 @@ struct Strides {                         // element strides (batch, head, row)
 
 template <int HD>
 struct Layout {
-    static constexpr int QP = HD + 4;    // padded q row, floats
-    static constexpr int SP = HD + 4;    // padded split K / V row, (hi, lo) pairs
+    static constexpr int Q_BYTES = BQ * HD * 4;      // one copy, hi or lo
+    static constexpr int K_BYTES = BK * HD * 4;
+    static constexpr int V_BYTES = HD * BK * 4;      // transposed
+    static constexpr int RAW_BYTES = 2 * BK * HD * 4;  // K and V, row-major
+    static constexpr int QH = 0, QL = QH + Q_BYTES;
+    static constexpr int KH = QL + Q_BYTES, KL = KH + K_BYTES;
+    static constexpr int VH = KL + K_BYTES, VL = VH + V_BYTES;
+    static constexpr int RAW = VL + V_BYTES;         // two stages
+    // + 1024: the base is aligned up to the swizzle's 1024-byte period
+    static constexpr int SMEM = RAW + 2 * RAW_BYTES + 1024;
+    static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
 };
 
-template <int HD>
-constexpr size_t smem_bytes() {
-    return sizeof(float) * BQ * Layout<HD>::QP  // scaled q
-           + sizeof(float) * RING * KC * HD     // raw K or V chunks
-           + sizeof(uint2) * KC * Layout<HD>::SP;  // split chunk
+// byte offset of element (r, k) of a K-major operand of R rows in the
+// 128-byte swizzle: 32-float slabs of K, R rows of 128 bytes each, the
+// 16-byte chunks of row r permuted by r % 8
+__device__ __forceinline__ int swz(int r, int k, int R) {
+    return (k >> 5) * R * ROW + r * ROW + ((((k & 31) >> 2) ^ (r & 7)) << 4)
+           + ((k & 3) << 2);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
                                            bool valid) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     const int n = valid ? 16 : 0;        // 0 bytes read: the 16 are zeroed
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(n));
+                 :: "r"(dst), "l"(src), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void cp_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// waits until at most N committed groups of this thread are in flight
 template <int N>
 __device__ __forceinline__ void cp_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // rna_tf32: round the 13 low mantissa bits away, to nearest, ties away from
@@ -107,276 +118,323 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
     lo = rna_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+    asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
 }
 
-// acc += a*b: lo*hi + hi*lo + hi*hi into a fresh accumulator, the small
-// terms first, then one fp32 add per element, rounded to nearest
-__device__ __forceinline__ void mma3_add(float (&acc)[4],
-                                         const uint32_t (&ah)[4],
-                                         const uint32_t (&al)[4],
-                                         const uint2 (&b)[2]) {
-    const uint32_t bh[2] = {b[0].x, b[1].x}, bl[2] = {b[0].y, b[1].y};
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    mma(t, al, bh);
-    mma(t, ah, bl);
-    mma(t, ah, bh);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)(16 >> 4) << 16           // leading offset: unused
+         | (uint64_t)(1024 >> 4) << 32         // 8 rows of 128 bytes
+         | (uint64_t)1 << 62;
 }
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N> struct WgmmaSS;
+template <int N> struct WgmmaRS;
+
+template <> struct WgmmaSS<32> {
+    // D(64x32, fp32) (+)= A(64x8, smem, K-major) * B(32x8, smem, K-major)^T
+    static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(accumulate));
+    }
+};
+
+template <> struct WgmmaRS<64> {
+    // D(64x64, fp32) (+)= A(64x8, registers) * B(64x8, smem, K-major)^T
+    static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+    }
+};
+
+template <> struct WgmmaRS<128> {
+    // D(64x128, fp32) (+)= A(64x8, registers) * B(128x8, smem, K-major)^T
+    static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+    }
+};
+
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, HD <= 128 ? 3 : 1)
+__global__ void __launch_bounds__(NTHREADS, 1)
 fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 Strides st, int H, int G, int S, int Sk, int bq, int bk,
-                 int causal, float scale) {
+                 Strides st, int H, int G, int S, int Sk, int causal,
+                 float scale) {
     using L = Layout<HD>;
     constexpr int C4 = HD / 4;           // 16-byte chunks of a row
-    extern __shared__ __align__(16) float smem[];
-    const int ntu = (bk + 7) / 8;        // n8 tiles of a tile in use
-    const int nch = (ntu * 8 + KC - 1) / KC;        // chunks of a tile
-    float* sq = smem;                    // BQ x QP, scaled q
-    float* raw = sq + BQ * L::QP;        // RING x KC x HD, chunks as they land
-    uint2* spl = reinterpret_cast<uint2*>(raw + RING * KC * HD);  // KC x SP
+    constexpr int ON = HD / 2;           // output accumulators per thread
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const float* rawp = reinterpret_cast<const float*>(
+        smem_raw + (base - smem_u32(smem_raw)) + L::RAW);
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, tg = lane % 4;   // fragment row group, column
     const int bh = blockIdx.x, b = bh / H, h = bh % H, hkv = h / G;
-    const int qi = gridDim.y - 1 - blockIdx.y;      // last q block first
-    const int q0 = qi * bq;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // last q block first
     const float* qp = q + b * st.q[0] + h * st.q[1];
     const float* kp = k + b * st.k[0] + hkv * st.k[1];
     const float* vp = v + b * st.v[0] + hkv * st.v[1];
     float* op = out + b * st.o[0] + h * st.o[1];
 
-    int nkv = (Sk + bk - 1) / bk;
-    if (causal) nkv = min(nkv, (min(q0 + bq, S) - 1) / bk + 1);
+    int nkv = (Sk + BK - 1) / BK;
+    if (causal) nkv = min(nkv, (min(q0 + BQ, S) - 1) / BK + 1);
 
-    // the chunk stream: tile by tile, its K chunks then its V chunks.
-    // Chunk i goes to raw slot i % RING, RING chunks ahead of the one the
-    // block splits; keys past block_k or past Sk are zero-filled.  Every
-    // thread commits one group per chunk (empty past the end), so
-    // "RING - 1 groups in flight" means chunk i has landed.
-    const int nchunks = 2 * nch * nkv;
-    auto issue = [&](int i) {
-        if (i < nchunks) {
-            const int j = i / (2 * nch), kv = (i / nch) & 1, c = i % nch;
-            const float* src = kv ? vp : kp;
-            const long long rs = kv ? st.v[2] : st.k[2];
-            float* dst = raw + (i % RING) * KC * HD;
-            for (int e = tid; e < KC * C4; e += NTHREADS) {
-                const int kt = e / C4, d = (e % C4) * 4, key = c * KC + kt;
-                const int gk = j * bk + key;
-                const bool ok = key < bk && gk < Sk;
-                cp_async16(dst + kt * HD + d, ok ? src + gk * rs + d : src, ok);
-            }
+    // tile j's K and V rows into raw stage j % 2, keys past Sk zero-filled
+    auto issue = [&](int j) {
+        const uint32_t dst = base + L::RAW + (j & 1) * L::RAW_BYTES;
+        for (int e = tid; e < BK * C4; e += NTHREADS) {
+            const int kt = e / C4, d = (e % C4) * 4, gk = j * BK + kt;
+            const bool ok = gk < Sk;
+            cp_async16(dst + (kt * HD + d) * 4, ok ? kp + gk * st.k[2] + d : kp, ok);
+            cp_async16(dst + (BK * HD + kt * HD + d) * 4,
+                       ok ? vp + gk * st.v[2] + d : vp, ok);
         }
         cp_commit();
     };
-    // wait for chunk i, split it into (hi, lo) pairs, put chunk i + RING
-    // in flight in its slot
-    auto land = [&](int i) {
-        cp_wait<RING - 1>();
-        __syncthreads();                 // landed; the last chunk is consumed
-        const float* src = raw + (i % RING) * KC * HD;
-        for (int e = tid; e < KC * HD; e += NTHREADS) {
-            uint2 x;
-            split(src[e], x.x, x.y);
-            spl[(e / HD) * L::SP + e % HD] = x;
-        }
-        __syncthreads();                 // split visible; the slot is free
-        issue(i + RING);
-    };
-#pragma unroll
-    for (int i = 0; i < RING; ++i) issue(i);
+    issue(0);
 
+    // q, scaled in fp32, split once into its hi and lo copies
     for (int e = tid; e < BQ * C4; e += NTHREADS) {
         const int r = e / C4, d = (e % C4) * 4, gr = q0 + r;
         float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < bq && gr < S) {
-            x = *reinterpret_cast<const float4*>(qp + gr * st.q[2] + d);
-            x.x = __fmul_rn(x.x, scale);
-            x.y = __fmul_rn(x.y, scale);
-            x.z = __fmul_rn(x.z, scale);
-            x.w = __fmul_rn(x.w, scale);
+        if (gr < S) x = *reinterpret_cast<const float4*>(qp + gr * st.q[2] + d);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            uint32_t hi, lo;
+            split(__fmul_rn(xs[i], scale), hi, lo);
+            const int off = swz(r, d + i, BQ);
+            st_shared(base + L::QH + off, hi);
+            st_shared(base + L::QL + off, lo);
         }
-        *reinterpret_cast<float4*>(sq + r * L::QP + d) = x;
     }
 
-    const int r0 = warp * 16 + g;        // this thread's rows r0, r0 + 8
-    const int qg[2] = {q0 + r0, q0 + r0 + 8};
-    const bool active = warp * 16 < bq;
-    float o[HD / 8][4];
+    const int row0 = q0 + warp * 16 + g;     // this thread's rows, and + 8
+    float o[ON], pv[ON];
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-        o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    for (int i = 0; i < ON; ++i) o[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
     const int srcA = (lane & ~3) | (tg >> 1), srcB = srcA + 2;
     const bool odd = tg & 1;
 
     for (int j = 0; j < nkv; ++j) {
-        // S = Q K^T for this warp's 16 rows, K chunk by K chunk
-        float sc[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-            sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-            if (c >= nch) break;
-            land((2 * j) * nch + c);
-            if (!active) continue;
-#pragma unroll
-            for (int ks = 0; ks < HD / 8; ++ks) {
-                const float* qa = sq + r0 * L::QP + ks * 8 + tg;
-                uint32_t ah[4], al[4];
-                split(qa[0], ah[0], al[0]);
-                split(qa[8 * L::QP], ah[1], al[1]);
-                split(qa[4], ah[2], al[2]);
-                split(qa[8 * L::QP + 4], ah[3], al[3]);
-#pragma unroll
-                for (int n = 0; n < KC / 8; ++n) {
-                    const int nt = c * (KC / 8) + n;
-                    if (nt < ntu) {
-                        const uint2* kb = spl + (n * 8 + g) * L::SP + ks * 8 + tg;
-                        const uint2 bb[2] = {kb[0], kb[4]};
-                        mma3_add(sc[nt], ah, al, bb);
-                    }
-                }
-            }
+        if (j + 1 < nkv) issue(j + 1);
+        else cp_commit();                // an empty group keeps the count
+        cp_wait<1>();
+        __syncthreads();                 // tile j landed; tile j-1 consumed
+        // split K into its hi and lo copies, V transposed into its
+        const float* rk = rawp + (j & 1) * (L::RAW_BYTES / 4);
+        const float* rv = rk + BK * HD;
+        for (int e = tid; e < BK * HD; e += NTHREADS) {
+            const int kt = e / HD, d = e % HD;
+            uint32_t hi, lo;
+            split(rk[e], hi, lo);
+            const int ko = swz(kt, d, BK);
+            st_shared(base + L::KH + ko, hi);
+            st_shared(base + L::KL + ko, lo);
+            split(rv[e], hi, lo);
+            const int vo = swz(d, kt, HD);
+            st_shared(base + L::VH + vo, hi);
+            st_shared(base + L::VL + vo, lo);
         }
-        if (active) {
-            // mask, then online softmax over the tile (rows r0 and r0 + 8)
-            const int k0 = j * bk;
-            float mx[2] = {NEG_INF, NEG_INF};
+        // the generic-proxy writes above are read by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();
+
+        // S = Q K^T: small terms in one accumulator, hi*hi in two halves
+        float ss[16], sa[16], sb[16];
+        wgmma_fence();
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                if (nt < ntu) {
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int kt = nt * 8 + 2 * tg + (e & 1), kg = k0 + kt;
-                        const bool ok = kt < bk && kg < Sk
-                                        && (!causal || qg[e >> 1] >= kg);
-                        if (!ok) sc[nt][e] = NEG_INF;
-                        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
-                    }
-                }
-            }
-            float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-                const float m1 = fmaxf(m[i], mx[i]);
-                alpha[i] = expf(m[i] - m1);
-                m[i] = m1;
-            }
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                if (nt < ntu) {
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
-                        sum[e >> 1] += sc[nt][e];
-                    }
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-                sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-                l[i] = l[i] * alpha[i] + sum[i];
-            }
-#pragma unroll
-            for (int dt = 0; dt < HD / 8; ++dt) {
-                o[dt][0] *= alpha[0];
-                o[dt][1] *= alpha[0];
-                o[dt][2] *= alpha[1];
-                o[dt][3] *= alpha[1];
-            }
+        for (int ks = 0; ks < HD / 8; ++ks) {
+            const uint32_t qo = (ks / 4) * BQ * ROW + (ks % 4) * 32;
+            const uint32_t ko = (ks / 4) * BK * ROW + (ks % 4) * 32;
+            WgmmaSS<32>::run(ss, smem_desc(base + L::QL + qo),
+                             smem_desc(base + L::KH + ko), ks > 0);
+            WgmmaSS<32>::run(ss, smem_desc(base + L::QH + qo),
+                             smem_desc(base + L::KL + ko), 1);
         }
-        // O += P V, V chunk by V chunk, 8 keys a step
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-            if (c >= nch) break;
-            land((2 * j + 1) * nch + c);
-            if (!active) continue;
-#pragma unroll
-            for (int n = 0; n < KC / 8; ++n) {
-                const int kk = c * (KC / 8) + n;
-                if (kk < ntu) {
-                    // P[g][8kk + tg] lives in lane srcA's c0/c1 (row g) and
-                    // c2/c3 (row g + 8); column tg + 4 in lane srcB's
-                    const float x0 = __shfl_sync(0xffffffffu, sc[kk][0], srcA);
-                    const float x1 = __shfl_sync(0xffffffffu, sc[kk][1], srcA);
-                    const float y0 = __shfl_sync(0xffffffffu, sc[kk][2], srcA);
-                    const float y1 = __shfl_sync(0xffffffffu, sc[kk][3], srcA);
-                    const float z0 = __shfl_sync(0xffffffffu, sc[kk][0], srcB);
-                    const float z1 = __shfl_sync(0xffffffffu, sc[kk][1], srcB);
-                    const float w0 = __shfl_sync(0xffffffffu, sc[kk][2], srcB);
-                    const float w1 = __shfl_sync(0xffffffffu, sc[kk][3], srcB);
-                    uint32_t ah[4], al[4];
-                    split(odd ? x1 : x0, ah[0], al[0]);
-                    split(odd ? y1 : y0, ah[1], al[1]);
-                    split(odd ? z1 : z0, ah[2], al[2]);
-                    split(odd ? w1 : w0, ah[3], al[3]);
-                    const uint2* vb = spl + (n * 8 + tg) * L::SP + g;
-#pragma unroll
-                    for (int dt = 0; dt < HD / 8; ++dt) {
-                        const uint2 bb[2] = {vb[dt * 8], vb[4 * L::SP + dt * 8]};
-                        mma3_add(o[dt], ah, al, bb);
-                    }
-                }
-            }
+        for (int ks = 0; ks < HD / 8; ++ks) {
+            const uint32_t qo = (ks / 4) * BQ * ROW + (ks % 4) * 32;
+            const uint32_t ko = (ks / 4) * BK * ROW + (ks % 4) * 32;
+            if (ks < HD / 16)
+                WgmmaSS<32>::run(sa, smem_desc(base + L::QH + qo),
+                                 smem_desc(base + L::KH + ko), ks > 0);
+            else
+                WgmmaSS<32>::run(sb, smem_desc(base + L::QH + qo),
+                                 smem_desc(base + L::KH + ko), ks > HD / 16);
         }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(ss);
+        fence_regs(sa);
+        fence_regs(sb);
+
+        // mask, then online softmax (rows row0 and row0 + 8)
+        const int k0 = j * BK;
+        float sc[16], mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+            sc[n] = __fadd_rn(__fadd_rn(sa[n], sb[n]), ss[n]);
+            const int kg = k0 + (n >> 2) * 8 + 2 * tg + (n & 1);
+            const int qg = row0 + 8 * ((n >> 1) & 1);
+            if (kg >= Sk || (causal && qg < kg)) sc[n] = NEG_INF;
+            mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], sc[n]);
+        }
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+            const float m1 = fmaxf(m[i], mx[i]);
+            alpha[i] = expf(m[i] - m1);
+            m[i] = m1;
+        }
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+            sc[n] = expf(sc[n] - m[(n >> 1) & 1]);
+            sum[(n >> 1) & 1] += sc[n];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+            sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+            l[i] = l[i] * alpha[i] + sum[i];
+        }
+
+        // P as TF32 A fragments: k-step kk holds (g, 8kk + tg), (g + 8, .),
+        // (g, 8kk + tg + 4), (g + 8, .); P[g][8kk + c] lives in the score
+        // pair of lane 4g + c/2
+        uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const float* s4 = sc + 4 * kk;
+            const float x0 = __shfl_sync(0xffffffffu, s4[0], srcA);
+            const float x1 = __shfl_sync(0xffffffffu, s4[1], srcA);
+            const float y0 = __shfl_sync(0xffffffffu, s4[2], srcA);
+            const float y1 = __shfl_sync(0xffffffffu, s4[3], srcA);
+            const float z0 = __shfl_sync(0xffffffffu, s4[0], srcB);
+            const float z1 = __shfl_sync(0xffffffffu, s4[1], srcB);
+            const float w0 = __shfl_sync(0xffffffffu, s4[2], srcB);
+            const float w1 = __shfl_sync(0xffffffffu, s4[3], srcB);
+            split(odd ? x1 : x0, ph[kk][0], pl[kk][0]);
+            split(odd ? y1 : y0, ph[kk][1], pl[kk][1]);
+            split(odd ? z1 : z0, ph[kk][2], pl[kk][2]);
+            split(odd ? w1 : w0, ph[kk][3], pl[kk][3]);
+        }
+
+        // this tile's P V, three passes into a fresh accumulator
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            WgmmaRS<HD>::run(pv, pl[kk], smem_desc(base + L::VH + kk * 32), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            WgmmaRS<HD>::run(pv, ph[kk], smem_desc(base + L::VL + kk * 32), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+            WgmmaRS<HD>::run(pv, ph[kk], smem_desc(base + L::VH + kk * 32), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(pv);
+#pragma unroll
+        for (int n = 0; n < ON; ++n)
+            o[n] = __fadd_rn(__fmul_rn(o[n], alpha[(n >> 1) & 1]), pv[n]);
     }
 
-    if (!active) return;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        const int row = r0 + 8 * i;
-        if (row >= bq || qg[i] >= S) continue;
+        const int qg = row0 + 8 * i;
+        if (qg >= S) continue;
         const float denom = l[i] + 1e-30f;
-        float* orow = op + qg[i] * st.o[2] + 2 * tg;
+        float* orow = op + qg * st.o[2] + 2 * tg;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
-            *reinterpret_cast<float2*>(orow + dt * 8) = make_float2(
-                __fdiv_rn(o[dt][2 * i], denom), __fdiv_rn(o[dt][2 * i + 1], denom));
+        for (int jb = 0; jb < HD / 8; ++jb)
+            *reinterpret_cast<float2*>(orow + jb * 8) = make_float2(
+                __fdiv_rn(o[4 * jb + 2 * i], denom),
+                __fdiv_rn(o[4 * jb + 2 * i + 1], denom));
     }
 }
 
 template <int HD>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  const Strides& st, int B, int H, int Hkv, int S, int Sk,
-                  int bq, int bk, int causal, float scale, void* stream) {
-    constexpr size_t smem = smem_bytes<HD>();
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            fa_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 grid(B * H, (S + bq - 1) / bq);
-    fa_tf32x3_kernel<HD><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+int launch(const void* q, const void* k, const void* v, void* out,
+           const Strides& st, int B, int H, int Hkv, int S, int Sk, int causal,
+           float scale, cudaStream_t stream) {
+    constexpr int smem = Layout<HD>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * H, (S + BQ - 1) / BQ);
+    fa_tf32x3_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, st, H,
-        H / Hkv, S, Sk, bq, bk, causal, scale);
+        H / Hkv, S, Sk, causal, scale);
     return (int)cudaGetLastError();
 }
 
-// strides: 12 element strides, (batch, head, row) of q, k, v, out; every
-// row unit-stride and 16-byte aligned.  scale is hd^-0.5 rounded to fp32.
+}  // namespace
+
+// q (B, H, S, hd), k and v (B, Hkv, Sk, hd), out (B, H, S, hd), all float32,
+// hd 64 or 128; strides: 12 element strides, (batch, head, row) of q, k, v,
+// out, every row unit-stride and 16-byte aligned.  scale is hd^-0.5 rounded
+// to fp32.
 extern "C" int flash_attention_tf32x3(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
-                                      int Hkv, int S, int Sk, int hd, int bq,
-                                      int bk, int causal, float scale,
+                                      int Hkv, int S, int Sk, int hd,
+                                      int causal, float scale,
                                       const long long* strides, void* stream) {
-    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1 || bq < 1
-        || bq > BQ || bk < 1 || bk > BKMAX)
+    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1)
         return (int)cudaErrorInvalidValue;
     Strides st;
     for (int i = 0; i < 3; ++i) {
@@ -385,14 +443,10 @@ extern "C" int flash_attention_tf32x3(const void* q, const void* k,
         st.v[i] = strides[6 + i];
         st.o[i] = strides[9 + i];
     }
-    switch (hd) {
-        case 16: return launch<16>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 32: return launch<32>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 64: return launch<64>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 128: return launch<128>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        case 256: return launch<256>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    cudaStream_t s = (cudaStream_t)stream;
+    if (hd == 64) return launch<64>(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
+    if (hd == 128) return launch<128>(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_error_string(int e) {

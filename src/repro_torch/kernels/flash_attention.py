@@ -12,19 +12,21 @@ three kernels for it, chosen by dtype and head dim alone (``route``):
   input may be a strided view, such as the ``.transpose(1, 2)`` of a
   layer's (B, S, H, hd) activations.  Its (block_q, block_k) pairs are
   ``WGMMA_BLOCKS[hd]``; the first is the default.
-* float32 at every head dim: ``csrc/flash_attention_tf32x3.cu``.  A block
-  of 4 warps owns at most 64 q rows; its products run on the tensor cores
-  (``mma.sync`` m16n8k8) in error-compensated TF32: each fp32 operand is
-  split into a TF32 hi and lo part and each product summed as lo*hi +
-  hi*lo + hi*hi, which keeps the 2e-5 limit that plain TF32 breaks.  K and
-  V tiles come by ``cp.async`` through a two-stage ring.  It takes any
-  views whose rows are unit-stride and 16-byte aligned (others are copied
-  to a contiguous layout first), k and v at their kv heads, and writes the
-  output in q's layout.
-* bf16 at hd 16 and 32: ``csrc/flash_attention.cu``, one block of 8 warps
-  per (b*h, q block of at most 64 rows) on the CUDA cores.  It reads
-  contiguous (B, H, S, hd) tensors with as many kv heads as q heads, so
-  the wrapper makes that copy for it where its inputs differ.
+* float32 at hd 64 and 128: ``csrc/flash_attention_tf32x3.cu``.  A block is
+  one warpgroup of 64 q rows; its products run on the tensor cores
+  (``wgmma``) in error-compensated TF32: each fp32 operand is split into a
+  TF32 hi and lo part and each product summed as lo*hi + hi*lo + hi*hi,
+  which keeps the 2e-5 limit that plain TF32 breaks.  It walks kv tiles
+  of 32 keys whatever ``block_q``/``block_k`` are given (masked tiles add
+  exact zeros, so its result is that of any blocks up to rounding; the
+  blocks go to the plain version).  It takes any views whose rows are
+  unit-stride and 16-byte aligned (others are copied to a contiguous layout
+  first), k and v at their kv heads, and writes the output in q's layout.
+* float32 at hd 16, 32 and 256, bf16 at hd 16 and 32:
+  ``csrc/flash_attention.cu``, one block of 8 warps per (b*h, q block of at
+  most 64 rows) on the CUDA cores.  It reads contiguous (B, H, S, hd)
+  tensors with as many kv heads as q heads, so the wrapper makes that copy
+  for it where its inputs differ.
 
 Both stop a causal q block at the kv block that holds its last row,
 ``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
@@ -56,7 +58,8 @@ TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 MAX_BLOCK = 64          # CUDA-core and tf32x3 kernels: most q rows / kv keys
-TF32X3_BLOCK_K = 32     # tf32x3 kernel: default kv keys a tile
+TF32X3_HEAD_DIMS = (64, 128)
+TF32X3_BLOCKS = (64, 32)  # the tf32x3 kernel's own (q rows, kv keys) tile
 # tensor-core kernel: the (block_q, block_k) pairs it is built for, the
 # default first (the faster on the card: at 128 keys ptxas spills P's
 # registers); at hd 256 two stages of 128 keys would not fit beside Q
@@ -64,18 +67,19 @@ WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
                 128: ((128, 64), (128, 128)),
                 256: ((128, 64),)}
 NEG_INF = -1e30
-DTYPES = (torch.float32, torch.bfloat16)
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
 
 # launches per kernel and input dtype ("wgmma/bfloat16", "tf32x3/float32",
-# "cuda_cores/bfloat16"), counted at the launch
+# "cuda_cores/float32", "cuda_cores/bfloat16"), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """Which kernel runs a call: ``"wgmma"`` (bf16), ``"tf32x3"`` (f32)
-    or ``"cuda_cores"`` (bf16 at hd 16, 32)."""
+    """Which kernel runs a call: ``"wgmma"`` (bf16 at hd 64-256),
+    ``"tf32x3"`` (f32 at hd 64, 128) or ``"cuda_cores"`` (the rest)."""
     if dtype == torch.float32:
-        return "tf32x3"
+        return "tf32x3" if hd in TF32X3_HEAD_DIMS else "cuda_cores"
     return "wgmma" if hd in WGMMA_BLOCKS else "cuda_cores"
 
 
@@ -101,9 +105,9 @@ def kernel_sources() -> dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(dtype: torch.dtype):
     lib = _cuda.load(LIB_NAME, kernel_source())
-    return lib, _cuda.entry(lib, "flash_attention_bf16", [ctypes.c_void_p] * 4
+    return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 4
                             + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                     ctypes.c_void_p])
 
@@ -120,7 +124,7 @@ def _wgmma_launcher():
 def _tf32x3_launcher():
     lib = _cuda.load(TF32X3_LIB_NAME, tf32x3_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_tf32x3",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                             + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
@@ -233,11 +237,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     bf16 at hd 64/128/256 runs the tensor-core kernel: inputs may be any
     views whose last dim is unit-stride and whose strides are 16-byte
     aligned, the output takes q's layout, and (block_q, block_k) must be
-    one of ``WGMMA_BLOCKS[hd]`` (default: the first).  float32 runs the
-    tf32x3 kernel (any views, the output in q's layout) and bf16 at hd
-    16/32 the CUDA-core kernel: ``block_q``/``block_k`` (default 64 and,
-    for f32, ``TF32X3_BLOCK_K``) are cut to S/Sk as in the TPU wrapper and
-    must then be at most 64.  A ragged last block is masked.  ``device``
+    one of ``WGMMA_BLOCKS[hd]`` (default: the first).  float32 at hd
+    64/128 runs the tf32x3 kernel (any views, the output in q's layout; its
+    own 64 x 32 tiles, ``TF32X3_BLOCKS``, the default blocks), the rest the
+    CUDA-core kernel (default blocks 64): ``block_q``/``block_k`` are cut to
+    S/Sk as in the TPU wrapper and must then be at most 64.  A ragged last
+    block is masked.  ``device``
     defaults to where the tensors lie (the card for numpy input): the
     kernels run on the card, the plain version on the CPU."""
     dev = _cuda.resolve_device([q, k, v], device)
@@ -252,7 +257,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: {Hkv} kv heads do not divide "
                          f"{H} q heads")
     dtype = q.dtype if isinstance(q, torch.Tensor) else torch.float32
-    if dtype not in DTYPES:
+    if dtype not in _ENTRY:
         raise ValueError(f"flash_attention: dtype {dtype}, kernels take "
                          "float32 or bfloat16")
     q = _cuda.as_input(q, dtype, dev, (B, H, S, hd), "q", contiguous=False)
@@ -272,8 +277,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
                                                    (v, "v"))]
     else:
-        bk0 = TF32X3_BLOCK_K if kind == "tf32x3" else MAX_BLOCK
-        block_q = min(MAX_BLOCK if block_q is None else block_q, S)
+        bq0, bk0 = TF32X3_BLOCKS if kind == "tf32x3" else (MAX_BLOCK,
+                                                              MAX_BLOCK)
+        block_q = min(bq0 if block_q is None else block_q, S)
         block_k = min(bk0 if block_k is None else block_k, Sk)
         if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
             raise ValueError(f"flash_attention: blocks ({block_q}, {block_k})"
@@ -299,15 +305,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                         for s in _row_strides(t)[0]))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, H, Hkv, S, Sk, hd, block_q,
-                        block_k, int(causal), hd ** -0.5,
-                        ctypes.addressof(st), _cuda.current_stream(dev))
+                        out.data_ptr(), B, H, Hkv, S, Sk, hd, int(causal),
+                        hd ** -0.5, ctypes.addressof(st),
+                        _cuda.current_stream(dev))
     else:
         # the CUDA-core kernel reads contiguous tensors with H kv heads
         q = q.contiguous()
         k, v = (t.repeat_interleave(H // Hkv, dim=1) if Hkv != H
                 else t.contiguous() for t in (k, v))
-        lib, launch = _launcher()
+        lib, launch = _launcher(dtype)
         out = torch.empty((B, H, S, hd), dtype=dtype, device=dev)
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -231,7 +231,8 @@ def test_tensor_core_route_blocks_match_oracle(hd, causal):
     xs = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
     want = _oracle(q, _repeated(k, 4), _repeated(v, 4), causal, "bfloat16")
     assert fa.route(torch.bfloat16, hd) == "wgmma"
-    assert fa.route(torch.float32, hd) == "tf32x3"
+    assert fa.route(torch.float32, hd) == ("tf32x3" if hd <= 128
+                                           else "cuda_cores")
     for blocks in [{}, *({"block_q": bq, "block_k": bk}
                          for bq, bk in fa.WGMMA_BLOCKS[hd])]:
         got = fa.flash_attention(*xs, causal=causal, **blocks)
@@ -256,7 +257,7 @@ def test_tensor_core_route_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="16 bytes"):
         wide = torch.zeros((1, 2, 128, 68), dtype=torch.bfloat16)
         fa.flash_attention(q, wide[..., :64], v)
-    # float32 takes the tf32x3 kernel's blocks (at most 64)
+    # float32 takes blocks of at most 64
     with pytest.raises(ValueError, match="blocks"):
         fa.flash_attention(q.float(), k.float(), v.float(), block_q=128)
 

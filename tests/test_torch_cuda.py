@@ -385,17 +385,19 @@ def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd, bq, bk, B,
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("draw", ["randn", "peaky"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, hd, draw,
                                                     causal):
-    """The f32 tensor-core kernel (3xTF32) against its plain version within
-    2e-5: on N(0, 1) inputs and on a peaky draw (q x 4: a few keys dominate
-    each row and the outputs are O(1), where TF32's error would show
-    first), GQA group 2 on transposed views of (B, S, heads, hd) tensors, a
-    ragged last q and kv tile, block_q > block_k and a block_k that is not
-    a multiple of 8."""
+    """The f32 tensor-core kernel (3xTF32, wgmma) against its plain version
+    within 2e-5: on N(0, 1) inputs and on a peaky draw (q x 4: a few keys
+    dominate each row and the outputs are O(1), where TF32's error would
+    show first), GQA group 2 on transposed views of (B, S, heads, hd)
+    tensors, a ragged last q and kv tile.  The kernel walks its own 64 x 32
+    tiles; the plain version walks its default blocks, block_q > block_k
+    and a block_k that is not a multiple of 8 (the results differ only by
+    rounding)."""
     from repro_torch.kernels import flash_attention as fa
     B, H, Hkv, S = 2, 4, 2, 136
     q, k, v = (_randn((B, S, h, hd), seed, cuda_device).transpose(1, 2)

@@ -53,10 +53,8 @@ def k4(tree_src: str, parent_src: str) -> None:
             times.setdefault("parent cuda_cores", []).append(
                 cs.time_ms(fn, 10)[0])
             continue
-        for bk in (64, 32, 16):
-            t = cs.time_ms(lambda: fa.flash_attention(
-                *base, causal=True, block_k=bk), 10)[0]
-            times.setdefault(f"tf32x3 bk {bk}", []).append(t)
+        times.setdefault("tf32x3", []).append(cs.time_ms(
+            lambda: fa.flash_attention(*base, causal=True), 10)[0])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times["sdpa (kv repeated)"] = [cs.time_ms(
         lambda: sdpa(*rep, is_causal=True), 10)[0]]
@@ -71,8 +69,9 @@ def k4(tree_src: str, parent_src: str) -> None:
         for causal in (True, False):
             got = fa.flash_attention(q, base[1], base[2], causal=causal)
             want = fa.flash_attention_plain(q, base[1], base[2],
-                                            causal=causal, block_q=64,
-                                            block_k=fa.TF32X3_BLOCK_K)
+                                            causal=causal,
+                                            block_q=fa.TF32X3_BLOCKS[0],
+                                            block_k=fa.TF32X3_BLOCKS[1])
             err = (got - want).abs()
             lim = 2e-5 + 2e-5 * want.abs()
             print(f"probe: K4 f32 {draw} causal={causal}: max |diff| "

@@ -29,11 +29,12 @@
 //   which is K; V's run along hd too, which is N, so V is stored transposed.
 //   Every operand sits in the 128-byte swizzle wgmma reads (32 floats a
 //   row), in a hi and a lo copy.
-// * K and V tiles come by 16-byte cp.async into a raw stage, the next tile's
-//   copy running under this tile's products; the warpgroup then splits each
-//   element into its hi and lo copies (V transposed on the way).  q is split
-//   once.  rna_tf32 is integer arithmetic on the bits (add half of the 13
-//   dropped bits, mask them): the same value as cvt.rna.tf32.f32.
+// * K and V tiles come by 16-byte cp.async into a raw stage; the warpgroup
+//   splits each element into its hi and lo copies (V transposed on the
+//   way) in one of two buffers, the next tile's while this tile's S runs on
+//   the tensor cores, and the copy of the tile after it runs meanwhile.  q
+//   is split once.  rna_tf32 is integer arithmetic on the bits (add half of
+//   the 13 dropped bits, mask them): the same value as cvt.rna.tf32.f32.
 // * Accuracy: the tensor cores truncate each accumulation, which over long
 //   chains breaks 2e-5.  S sums its small terms in one accumulator and the
 //   hi*hi products in two (half of hd each), added in fp32 rounded to
@@ -66,15 +67,15 @@ struct Strides {                         // element strides (batch, head, row)
 template <int HD>
 struct Layout {
     static constexpr int Q_BYTES = BQ * HD * 4;      // one copy, hi or lo
-    static constexpr int K_BYTES = BK * HD * 4;
-    static constexpr int V_BYTES = HD * BK * 4;      // transposed
-    static constexpr int RAW_BYTES = 2 * BK * HD * 4;  // K and V, row-major
+    static constexpr int T_BYTES = BK * HD * 4;      // one copy of K or V^T
     static constexpr int QH = 0, QL = QH + Q_BYTES;
-    static constexpr int KH = QL + Q_BYTES, KL = KH + K_BYTES;
-    static constexpr int VH = KL + K_BYTES, VL = VH + V_BYTES;
-    static constexpr int RAW = VL + V_BYTES;         // two stages
+    // two buffers of a split tile: K hi, K lo, V^T hi, V^T lo
+    static constexpr int KV = QL + Q_BYTES, KV_BYTES = 4 * T_BYTES;
+    static constexpr int KH = 0, KL = T_BYTES, VH = 2 * T_BYTES,
+                         VL = 3 * T_BYTES;            // within a buffer
+    static constexpr int RAW = KV + 2 * KV_BYTES;    // K and V, row-major
     // + 1024: the base is aligned up to the swizzle's 1024-byte period
-    static constexpr int SMEM = RAW + 2 * RAW_BYTES + 1024;
+    static constexpr int SMEM = RAW + 2 * T_BYTES + 1024;
     static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
 };
 
@@ -118,8 +119,21 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
     lo = rna_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-    asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
+__device__ __forceinline__ void st_shared4(uint32_t addr, const uint32_t (&v)[4]) {
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};"
+                 :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                 : "memory");
+}
+
+// four consecutive K elements (one 16-byte chunk of the swizzle) into
+// their hi and lo copies
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t hi_addr,
+                                       uint32_t lo_addr) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
+    st_shared4(hi_addr, hi);
+    st_shared4(lo_addr, lo);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
@@ -230,9 +244,9 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     int nkv = (Sk + BK - 1) / BK;
     if (causal) nkv = min(nkv, (min(q0 + BQ, S) - 1) / BK + 1);
 
-    // tile j's K and V rows into raw stage j % 2, keys past Sk zero-filled
+    // tile j's K and V rows into the raw stage, keys past Sk zero-filled
     auto issue = [&](int j) {
-        const uint32_t dst = base + L::RAW + (j & 1) * L::RAW_BYTES;
+        const uint32_t dst = base + L::RAW;
         for (int e = tid; e < BK * C4; e += NTHREADS) {
             const int kt = e / C4, d = (e % C4) * 4, gk = j * BK + kt;
             const bool ok = gk < Sk;
@@ -242,23 +256,50 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         cp_commit();
     };
+    // the raw tile, landed, into buffer `buf`: K into its hi and lo
+    // copies, V transposed into its; then visible to wgmma
+    auto split_tile = [&](int buf) {
+        cp_wait<0>();
+        __syncthreads();                 // every thread's copies landed
+        const uint32_t kv = base + L::KV + buf * L::KV_BYTES;
+#pragma unroll
+        for (int i = 0; i < BK * C4 / NTHREADS; ++i) {
+            const int e = i * NTHREADS + tid;
+            const int kt = e / C4, d = (e % C4) * 4;      // 4 dims of a key
+            const float4 x4 = *reinterpret_cast<const float4*>(rawp + kt * HD + d);
+            const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+            const int off = swz(kt, d, BK);
+            split4(x, kv + L::KH + off, kv + L::KL + off);
+        }
+#pragma unroll
+        for (int i = 0; i < BK * C4 / NTHREADS; ++i) {
+            const int e = i * NTHREADS + tid;
+            const int kt = (e / HD) * 4, d = e % HD;      // 4 keys of a dim
+            const float* rv = rawp + BK * HD + kt * HD + d;
+            const float x[4] = {rv[0], rv[HD], rv[2 * HD], rv[3 * HD]};
+            const int off = swz(d, kt, HD);
+            split4(x, kv + L::VH + off, kv + L::VL + off);
+        }
+        // the generic-proxy writes above are read by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();                 // the buffer is whole; raw is free
+    };
     issue(0);
 
     // q, scaled in fp32, split once into its hi and lo copies
-    for (int e = tid; e < BQ * C4; e += NTHREADS) {
-        const int r = e / C4, d = (e % C4) * 4, gr = q0 + r;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gr < S) x = *reinterpret_cast<const float4*>(qp + gr * st.q[2] + d);
-        const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            uint32_t hi, lo;
-            split(__fmul_rn(xs[i], scale), hi, lo);
-            const int off = swz(r, d + i, BQ);
-            st_shared(base + L::QH + off, hi);
-            st_shared(base + L::QL + off, lo);
-        }
+    for (int i = 0; i < BQ * C4 / NTHREADS; ++i) {
+        const int e = i * NTHREADS + tid;
+        const int r = e / C4, d = (e % C4) * 4, gr = q0 + r;
+        float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (gr < S) x4 = *reinterpret_cast<const float4*>(qp + gr * st.q[2] + d);
+        const float x[4] = {__fmul_rn(x4.x, scale), __fmul_rn(x4.y, scale),
+                            __fmul_rn(x4.z, scale), __fmul_rn(x4.w, scale)};
+        const int off = swz(r, d, BQ);
+        split4(x, base + L::QH + off, base + L::QL + off);
     }
+    split_tile(0);
+    if (nkv > 1) issue(1);
 
     const int row0 = q0 + warp * 16 + g;     // this thread's rows, and + 8
     float o[ON], pv[ON];
@@ -269,29 +310,7 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool odd = tg & 1;
 
     for (int j = 0; j < nkv; ++j) {
-        if (j + 1 < nkv) issue(j + 1);
-        else cp_commit();                // an empty group keeps the count
-        cp_wait<1>();
-        __syncthreads();                 // tile j landed; tile j-1 consumed
-        // split K into its hi and lo copies, V transposed into its
-        const float* rk = rawp + (j & 1) * (L::RAW_BYTES / 4);
-        const float* rv = rk + BK * HD;
-        for (int e = tid; e < BK * HD; e += NTHREADS) {
-            const int kt = e / HD, d = e % HD;
-            uint32_t hi, lo;
-            split(rk[e], hi, lo);
-            const int ko = swz(kt, d, BK);
-            st_shared(base + L::KH + ko, hi);
-            st_shared(base + L::KL + ko, lo);
-            split(rv[e], hi, lo);
-            const int vo = swz(d, kt, HD);
-            st_shared(base + L::VH + vo, hi);
-            st_shared(base + L::VL + vo, lo);
-        }
-        // the generic-proxy writes above are read by wgmma (the async proxy)
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        __syncthreads();
-
+        const uint32_t kv = base + L::KV + (j & 1) * L::KV_BYTES;
         // S = Q K^T: small terms in one accumulator, hi*hi in two halves
         float ss[16], sa[16], sb[16];
         wgmma_fence();
@@ -300,9 +319,9 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const uint32_t qo = (ks / 4) * BQ * ROW + (ks % 4) * 32;
             const uint32_t ko = (ks / 4) * BK * ROW + (ks % 4) * 32;
             WgmmaSS<32>::run(ss, smem_desc(base + L::QL + qo),
-                             smem_desc(base + L::KH + ko), ks > 0);
+                             smem_desc(kv + L::KH + ko), ks > 0);
             WgmmaSS<32>::run(ss, smem_desc(base + L::QH + qo),
-                             smem_desc(base + L::KL + ko), 1);
+                             smem_desc(kv + L::KL + ko), 1);
         }
 #pragma unroll
         for (int ks = 0; ks < HD / 8; ++ks) {
@@ -310,12 +329,18 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const uint32_t ko = (ks / 4) * BK * ROW + (ks % 4) * 32;
             if (ks < HD / 16)
                 WgmmaSS<32>::run(sa, smem_desc(base + L::QH + qo),
-                                 smem_desc(base + L::KH + ko), ks > 0);
+                                 smem_desc(kv + L::KH + ko), ks > 0);
             else
                 WgmmaSS<32>::run(sb, smem_desc(base + L::QH + qo),
-                                 smem_desc(base + L::KH + ko), ks > HD / 16);
+                                 smem_desc(kv + L::KH + ko), ks > HD / 16);
         }
         wgmma_commit();
+        // the next tile is split while S runs on the tensor cores; its
+        // buffer's last reader, P V of tile j-1, has retired
+        if (j + 1 < nkv) {
+            split_tile((j + 1) & 1);
+            if (j + 2 < nkv) issue(j + 2);
+        }
         wgmma_wait_all();
         fence_regs(ss);
         fence_regs(sa);
@@ -378,13 +403,13 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-            WgmmaRS<HD>::run(pv, pl[kk], smem_desc(base + L::VH + kk * 32), kk > 0);
+            WgmmaRS<HD>::run(pv, pl[kk], smem_desc(kv + L::VH + kk * 32), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-            WgmmaRS<HD>::run(pv, ph[kk], smem_desc(base + L::VL + kk * 32), 1);
+            WgmmaRS<HD>::run(pv, ph[kk], smem_desc(kv + L::VL + kk * 32), 1);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-            WgmmaRS<HD>::run(pv, ph[kk], smem_desc(base + L::VH + kk * 32), 1);
+            WgmmaRS<HD>::run(pv, ph[kk], smem_desc(kv + L::VH + kk * 32), 1);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(pv);

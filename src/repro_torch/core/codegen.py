@@ -547,26 +547,23 @@ class _ColPlan:
 _COL_TILES = (1024, 512, 256, 128, 64, 32)
 # shared memory per block the column tile aims under: 8 blocks of 256
 # threads fill an SM (2048 threads) and leave 64 KB of its 256 KB to the L1
-# cache that serves the taps' re-reads.  On the H100 the widest tile under
+# cache that serves the taps' re-reads.  On an H100 the widest tile under
 # it came within 3.5 % of the fastest of 64-1024 columns for every
-# streamed benchmark at n=4096 (tools/slice6_probe.py)
+# streamed benchmark at n=4096 (PERF.md, K2 column tiles)
 _SMEM_TARGET = 24 * 1024
 
 
-def _plan_columns(p: Program, plan: _StreamPlan,
-                  cw: Optional[int]) -> _ColPlan:
-    """Column windows for sink tiles ``cw`` wide; ``cw=None``, or a
-    chain whose consumers read a producer at a constant column or at
-    incompatible column rates, takes one full-width tile (each window its
-    producer's whole domain width, the reference's layout)."""
+def _plan_columns(p: Program, plan: _StreamPlan, cw: int) -> _ColPlan:
+    """Column windows for sink tiles ``cw`` wide.  A chain whose consumers
+    read a producer at a constant column or at incompatible column rates
+    takes one full-width tile (each window its producer's whole domain
+    width, the reference's layout)."""
     sink = plan.sink
     cout = p.arrays[sink.out].shape[1]
     full = _ColPlan(cw=cout, tiles=1, pad_cols={},
                     cols={s.out: (0, 0, s.nest.trips[1]) if s is not sink
                           else (cout, 0, cout) for s in plan.stages})
-    if cw is None:
-        return full
-    cw = max(1, min(cw, cout))
+    cw = min(cw, cout)
     U = -(-cout // cw)
     cols = {sink.out: (cw, 0, cw)}
     for s in reversed(plan.stages):
@@ -618,12 +615,9 @@ def _smem_need(plan: _StreamPlan, cols: _ColPlan, dtype: str) -> int:
     return _smem_layout(plan, cols)[1] * (4 if dtype == "float32" else 8)
 
 
-def _choose_columns(p: Program, plan: _StreamPlan, dtype: str,
-                    col_tile: Optional[int]) -> _ColPlan:
-    """``col_tile`` when given; else the widest of ``_COL_TILES`` whose
-    windows fit ``_SMEM_TARGET``, or the narrowest."""
-    if col_tile is not None:
-        return _plan_columns(p, plan, col_tile)
+def _choose_columns(p: Program, plan: _StreamPlan, dtype: str) -> _ColPlan:
+    """The widest of ``_COL_TILES`` whose windows fit ``_SMEM_TARGET``, or
+    the narrowest."""
     for cw in _COL_TILES:
         cols = _plan_columns(p, plan, cw)
         if _smem_need(plan, cols, dtype) <= _SMEM_TARGET:
@@ -1983,16 +1977,16 @@ def _fit_shared_memory(p: Program, nests: list[_Nest], plan: _StreamPlan,
 
 
 def lower_program(p: Program, *, block_rows: Optional[int] = None,
-                  buffering: str = "double", dtype: str = "float32",
-                  col_tile: Optional[int] = None) -> CudaKernel:
+                  buffering: str = "double",
+                  dtype: str = "float32") -> CudaKernel:
     """Lower ``p`` to a CUDA kernel (streamed if the chain contract holds,
     whole-array otherwise, where ``buffering`` does not apply and reads
     ``"whole"``); raises :class:`UnlowerableProgram` when the program is
     outside both contracts.  A streamed kernel takes the largest block size
     up to ``block_rows`` whose windows fit one block's shared memory at the
     narrowest column tile, and says so in ``soft_reasons`` when that is
-    smaller; its sink tiles are ``col_tile`` columns wide (default: the
-    widest whose windows fit ``_SMEM_TARGET``)."""
+    smaller; its sink tiles are the widest of ``_COL_TILES`` whose windows
+    fit ``_SMEM_TARGET``."""
     if buffering not in ("double", "single"):
         raise ValueError("buffering must be 'double' or 'single', "
                          f"got {buffering!r}")
@@ -2019,7 +2013,7 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
     plan, soft = _plan_streamed(p, nests, block_rows or DEFAULT_BLOCK_ROWS)
     if plan is not None:
         plan = _fit_shared_memory(p, nests, plan, soft, dtype)
-        cols = _choose_columns(p, plan, dtype, col_tile)
+        cols = _choose_columns(p, plan, dtype)
         src, meta = _emit_streamed(p, plan, cols, dtype)
         inputs = plan.inputs
         out_shapes = {plan.sink.out: (plan.sink.nest.trips[0],

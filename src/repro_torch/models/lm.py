@@ -329,13 +329,14 @@ class DecodeGraph:
     kept as ``launches_per_replay``; every replay adds them to
     ``GRAPH_LAUNCHES``."""
 
-    def __init__(self, cfg: ArchConfig, model: LM, cache, warmup: int = 2):
+    warmup = 2
+
+    def __init__(self, cfg: ArchConfig, model: LM, cache):
         dev = model.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs the card; the model is on "
                              f"{dev} (call decode_step there)")
         self.cfg, self.model, self.cache = cfg, model, cache
-        self.warmup = warmup
         B = next(iter(cache["blocks"][0].values())).shape[0]
         with torch.inference_mode():
             self.token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
@@ -345,7 +346,7 @@ class DecodeGraph:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                for _ in range(warmup):
+                for _ in range(self.warmup):
                     self._step()
             torch.cuda.current_stream(dev).wait_stream(side)
             before = {m: collections.Counter(c)

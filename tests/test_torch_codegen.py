@@ -87,14 +87,15 @@ def test_plan_metadata_equals_reference(name, block_rows):
 @pytest.mark.parametrize("name", _STREAMED)
 @pytest.mark.parametrize("col_tile", [7, 16])
 @pytest.mark.parametrize("buffering", ["double", "single"])
-def test_column_tiles_match_sequential_exec(name, col_tile, buffering):
+def test_column_tiles_match_sequential_exec(name, col_tile, buffering,
+                                            monkeypatch):
     """The card's column tiles (the reference tiles rows only), walked by
     the plain version tile for tile: at n=40 the last column tile is
     ragged for every program (conv_pool's 20-column sink reads its
     producer at column stride 2), and the last row tile too."""
+    monkeypatch.setattr(codegen, "_COL_TILES", (col_tile,))
     k = codegen.lower_program(_mk(programs, name, 40), block_rows=3,
-                              buffering=buffering, dtype="float64",
-                              col_tile=col_tile)
+                              buffering=buffering, dtype="float64")
     cout = k.launch_grid[1] * k.col_tile
     sink = _mk(programs, name, 40).arrays[k.outputs[0]].shape[1]
     assert k.col_tile == col_tile and k.launch_grid[0] == k.grid[0]

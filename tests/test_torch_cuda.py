@@ -91,14 +91,15 @@ def _streamed(name, n):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("name", STREAMED)
 @pytest.mark.parametrize("col_tile", [32, 48])
-def test_streamed_column_tiles_equal_plain(cuda_device, name, col_tile):
+def test_streamed_column_tiles_equal_plain(cuda_device, monkeypatch, name,
+                                           col_tile):
     """Column tiles on the card (ragged last row and column tiles; conv_pool
     at column stride 2): double == single == plain, bitwise in f32."""
+    monkeypatch.setattr(codegen, "_COL_TILES", (col_tile,))
     p = _streamed(name, 150)
     inputs = sim.make_inputs(p, seed=0)
-    kd = codegen.lower_program(p, block_rows=4, col_tile=col_tile)
-    ks = codegen.lower_program(p, block_rows=4, buffering="single",
-                               col_tile=col_tile)
+    kd = codegen.lower_program(p, block_rows=4)
+    ks = codegen.lower_program(p, block_rows=4, buffering="single")
     assert kd.launch_grid[1] > 1
     xs = {a: torch.as_tensor(inputs[a], dtype=torch.float32,
                              device=cuda_device) for a in kd.inputs}
@@ -114,13 +115,15 @@ def test_streamed_column_tiles_equal_plain(cuda_device, name, col_tile):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("name", STREAMED)
 def test_streamed_column_tiles_float64_match_sequential_exec(cuda_device,
+                                                             monkeypatch,
                                                              name):
+    monkeypatch.setattr(codegen, "_COL_TILES", (16,))
     p = _streamed(name, 40)
     inputs = sim.make_inputs(p, seed=1)
     want = sim.sequential_exec(p, inputs)
     for buffering in ("double", "single"):
         k = codegen.lower_program(p, block_rows=3, buffering=buffering,
-                                  dtype="float64", col_tile=16)
+                                  dtype="float64")
         got = k(inputs)                 # numpy input: runs on the card
         for a in k.outputs:
             assert got[a].is_cuda

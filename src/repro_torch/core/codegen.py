@@ -635,6 +635,11 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
     produced = {s.out: s for s in plan.stages}
     fi = 0 if dtype == "float32" else 1
     offs, smem_elems = _smem_layout(plan, cols)
+    # a thread stores V neighbouring sink columns as one 16-byte store
+    # where the rows and the column tiles keep such groups aligned
+    V = 16 // (4 if dtype == "float32" else 8)
+    vec = cout % V == 0 and CW % V == 0
+    vtype = "float4" if dtype == "float32" else "double2"
 
     body = [f"real* w_{_ident(a)} = smem + {o};" for a, o in offs.items()]
     for s in plan.stages:
@@ -646,10 +651,22 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
                         "memory")
             body.append(f"const int nrows = min({B}, {rout} - {B} * t);")
             body.append(f"const int ncols = min({CW}, {cout} - {CW} * u);")
-            body.append(f"for (int e = threadIdx.x; e < nrows * {CW}; "
-                        "e += blockDim.x) {")
-            inner = [f"const int r = e / {CW}, c = e % {CW};",
-                     "if (c >= ncols) continue;"]
+            if vec:
+                body.append(f"for (int e = threadIdx.x; e < nrows * {CW // V};"
+                            " e += blockDim.x) {")
+                body += [f"    const int r = e / {CW // V}, "
+                         f"c0 = {V} * (e % {CW // V});",
+                         "    if (c0 >= ncols) continue;  // ncols: "
+                         f"a multiple of {V}",
+                         f"    real res[{V}];",
+                         "#pragma unroll",
+                         f"    for (int q = 0; q < {V}; ++q) {{"]
+                inner = ["const int c = c0 + q;"]
+            else:
+                body.append(f"for (int e = threadIdx.x; e < nrows * {CW}; "
+                            "e += blockDim.x) {")
+                inner = [f"const int r = e / {CW}, c = e % {CW};",
+                         "if (c >= ncols) continue;"]
         else:
             body.append(f"// stage {tag}: '{s.out}' domain rows "
                         f"[{s.win_a}*t+{s.win_b}, +{s.win_sz}), columns "
@@ -698,12 +715,21 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
                                  *(names[a] for a in op.args)) + ";")
             elif isinstance(op, StoreOp):
                 val = names[op.value]
-                if s is sink:
+                if s is sink and vec:
+                    inner.append(f"res[q] = {val};")
+                elif s is sink:
                     inner.append(f"o_{_ident(s.out)}[(size_t)i * {cout} + j]"
                                  f" = {val};")
                 else:
                     inner.append(f"w_{_ident(s.out)}[e] = {val};")
-        body += ["    " + x for x in inner]
+        if s is sink and vec:
+            body += ["        " + x for x in inner] + ["    }"]
+            body.append(f"    *reinterpret_cast<{vtype}*>(o_{_ident(s.out)} + "
+                        f"(size_t)({B} * t + r) * {cout} + {CW} * u + c0) = "
+                        f"make_{vtype}("
+                        + ", ".join(f"res[{q}]" for q in range(V)) + ");")
+        else:
+            body += ["    " + x for x in inner]
         body.append("}")
         if s is not sink:
             body.append("__syncthreads();")

@@ -306,28 +306,29 @@ def serve_path(dev) -> dict:
     t0 = time.perf_counter()
     gen = serve.main(argv)
     main_s = time.perf_counter() - t0
-    ids, b, secs = batcher(True)
+    ids, b, _ = batcher(True)
     n = model_counts()
     print("serve path launches: " + json.dumps(n, sort_keys=True))
     if gen.shape != (SERVE["batch"], SERVE["gen"]) or \
             not ((gen >= 0) & (gen < cfg.vocab)).all():
         fail(f"serve.main returned ids of shape {gen.shape} outside "
              f"[0, {cfg.vocab})")
-    warm = b.decode_fn.warmup
     if b.decode_fn.launches_per_replay != {"wkv6/step": cfg.n_layers}:
         fail(f"the decode graph recorded {b.decode_fn.launches_per_replay} "
              f"at capture, expected {cfg.n_layers} K5 step launches")
     replays = SERVE["prompt"] + SERVE["gen"] + b.steps
-    # each graph's warm-up steps run eagerly, through the wrapper
-    want = {"k5/step": cfg.n_layers * 2 * warm,
+    # two graphs (serve.main's, the batcher's), each warmed up by eager
+    # steps through the wrapper before its capture
+    warm = 2 * b.decode_fn.warmup
+    want = {"k5/step": cfg.n_layers * warm,
             "graph/wkv6/step": cfg.n_layers * replays}
     if n != want:
         fail(f"serve path launches {n}, expected {want} ({cfg.n_layers} "
-             f"layers x ({replays} replayed + 2 x {warm} warm-up) steps)")
+             f"layers x ({replays} replayed + {warm} warm-up) steps)")
     launches = n["k5/step"] + n["graph/wkv6/step"]
     print(f"check: K5 launched {launches} times = {cfg.n_layers} layers x "
-          f"{replays + 2 * warm} decode steps ({replays} graph replays x "
-          f"{cfg.n_layers} launches recorded at capture + {2 * warm} eager "
+          f"{replays + warm} decode steps ({replays} graph replays x "
+          f"{cfg.n_layers} launches recorded at capture + {warm} eager "
           "warm-up steps); every request completed")
 
     # ---- the eager step gives the same ids; step times in turns ----------
@@ -401,7 +402,7 @@ def serve_path(dev) -> dict:
           f"graphed, {1 - busy['eager'] / eager_ms:.3f} eager "
           f"(weight-read bound {weights / HBM_BYTES_PER_S * 1e3:.3f} ms "
           f"for {weights} B per step)")
-    return {"launches": launches, "steps": replays + 2 * warm,
+    return {"launches": launches, "steps": replays + warm,
             "batcher_steps": b.steps, "ms_per_step": step_ms,
             "eager_ms_per_step": eager_ms, "weight_bytes": weights,
             "device_busy_ms": busy["graph"]}

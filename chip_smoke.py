@@ -637,7 +637,9 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
               else 3 * flops / TF32_FLOP_PER_S) * 1e3
         tb = nbytes / HBM_BYTES_PER_S * 1e3
         b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
-        fp32_ms = max(tb, flops / FP32_FLOP_PER_S * 1e3)
+        extra = {} if dtype == torch.bfloat16 else {
+            "bound_fp32_cuda_cores_ms": max(tb, flops / FP32_FLOP_PER_S
+                                            * 1e3)}
         ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v,
                                                          causal=True), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
@@ -671,7 +673,7 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
             "library": "torch.nn.functional.scaled_dot_product_attention"
                        f"({'enable_gqa=True' if gqa else 'kv repeated'}, "
                        f"timed only; max |sdpa - plain| {lib_err:.3g})",
-            "bound_fp32_cuda_cores_ms": fp32_ms,
+            **extra,
             "host_ms": host_ms, "bytes": nbytes, "flops": flops,
             "shape": [1, H, S, hd], "kv_shape": list(k.shape),
             "layout": "views of (B, S, heads, hd)",
@@ -683,8 +685,9 @@ def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
               f"{tuple(k.shape)}: {ms:.4f} ms on the card (bound {b_ms:.4f} "
               f"ms by {b_by}"
               + ("" if dtype == torch.bfloat16 else
-                 f", three TF32 passes; {fp32_ms:.4f} ms on the fp32 CUDA "
-                 "cores") + f"; plain {plain_ms:.3f} ms; sdpa "
+                 ", three TF32 passes; "
+                 f"{extra['bound_fp32_cuda_cores_ms']:.4f} ms on the fp32 "
+                 "CUDA cores") + f"; plain {plain_ms:.3f} ms; sdpa "
               f"{lib_ms:.4f} ms); ptxas " + " | ".join(ptxas[kind]))
     return out
 

@@ -548,7 +548,7 @@ _COL_TILES = (1024, 512, 256, 128, 64, 32)
 # shared memory per block the column tile aims under: 8 blocks of 256
 # threads fill an SM (2048 threads) and leave 64 KB of its 256 KB to the L1
 # cache that serves the taps' re-reads.  On an H100 the widest tile under
-# it came within 3.5 % of the fastest of 64-1024 columns for every
+# it came within 3.6 % of the fastest of 64-1024 columns for every
 # streamed benchmark at n=4096 (PERF.md, K2 column tiles)
 _SMEM_TARGET = 24 * 1024
 

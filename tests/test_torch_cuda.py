@@ -388,32 +388,35 @@ def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd, bq, bk, B,
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("draw", ["randn", "peaky"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, hd, draw,
                                                     causal):
-    """The f32 tensor-core kernel (3xTF32, wgmma) against its plain version
-    within 2e-5: on N(0, 1) inputs and on a peaky draw (q x 4: a few keys
+    """K4 in f32 against its plain version within 2e-5 — the tensor-core
+    kernel (3xTF32, wgmma) at hd 64 and 128, the CUDA-core kernel at the
+    others: on N(0, 1) inputs and on a peaky draw (q x 4: a few keys
     dominate each row and the outputs are O(1), where TF32's error would
     show first), GQA group 2 on transposed views of (B, S, heads, hd)
-    tensors, a ragged last q and kv tile.  The kernel walks its own 64 x 32
-    tiles; the plain version walks its default blocks, block_q > block_k
-    and a block_k that is not a multiple of 8 (the results differ only by
-    rounding)."""
+    tensors, a ragged last q and kv tile.  The tensor-core kernel walks its
+    own 64 x 32 tiles; the plain version walks the blocks given, block_q >
+    block_k and a block_k that is not a multiple of 8 among them (the
+    results differ only by rounding)."""
     from repro_torch.kernels import flash_attention as fa
     B, H, Hkv, S = 2, 4, 2, 136
     q, k, v = (_randn((B, S, h, hd), seed, cuda_device).transpose(1, 2)
                for seed, h in ((0, H), (1, Hkv), (2, Hkv)))
     if draw == "peaky":
         q = q * 4.0
+    key = f"{fa.route(torch.float32, hd)}/float32"
     for bq, bk in [(64, 64), (64, 32), (48, 20)]:
-        n0 = fa.LAUNCHES["tf32x3/float32"]
+        n0 = fa.LAUNCHES[key]
         got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                  block_k=bk)
         torch.cuda.synchronize()
-        assert fa.LAUNCHES["tf32x3/float32"] == n0 + 1
-        assert got.stride() == q.stride()     # the output takes q's layout
+        assert fa.LAUNCHES[key] == n0 + 1
+        if key.startswith("tf32x3"):          # the output takes q's layout
+            assert got.stride() == q.stride()
         want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
                                         block_k=bk)
         torch.testing.assert_close(got, want, **FA_TOL[torch.float32])

@@ -3,7 +3,7 @@ them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Three paths, each run with the launch counts set to 0 just before it and
+Six paths, each run with the launch counts set to 0 just before it and
 read just after:
 
 1. *chains*: ``hls.compile`` schedules each stencil chain of
@@ -32,18 +32,23 @@ read just after:
    attention) runs ``lm.forward`` on 4096 tokens; every layer's attention
    runs the tensor-core flash-attention kernel (K4, ``wgmma``), on views
    of the layer's activations with k and v at their 8 kv heads.
+6. *reduced*: llama3-8b cut to its reduced configuration (hd 16) runs
+   ``lm.forward`` on 2 x 256 tokens in f32 and in bf16, where every
+   layer's attention runs the CUDA-core flash-attention kernel (K4 at the
+   head dims the tensor-core kernels do not take).
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
 launches a call (``K3_LAUNCHES``; the earlier design launched one per
 nest, ``K3_LAUNCHES_BEFORE``), which the profiler counts on the card.
 
-Then K4 and K5 are held against their plain versions at those shapes (K4
-on N(0, 1) inputs and on a peaky draw whose outputs are O(1), each limit
-shown to reject a result with one kv tile dropped), and both models, at
-full width and depth 2 in f32, against themselves: the prefill's
-last-token logits against the last of the decode steps' (K4 in f32 runs
-the 3xTF32 tensor-core kernel there).
+Both models, at full width and depth 2 in f32, are held against
+themselves: the prefill's last-token logits against the last of the
+decode steps' (K4 in f32 runs the 3xTF32 tensor-core kernel there), and
+so is the reduced f32 llama3-8b.  Then K4's three kernels and K5 are held
+against their plain versions at those shapes (K4 on N(0, 1) inputs and on
+a peaky draw whose outputs are O(1), each limit shown to reject a result
+with one of the kernel's kv tiles dropped).
 
 Every kernel is built from the sources in the checkout (one nvcc per
 source, all at once, into ``build/``).
@@ -111,6 +116,7 @@ K4_TOL = {"bfloat16": dict(rtol=1e-2, atol=4e-3),
           "float32": dict(rtol=2e-5, atol=2e-5)}
 K4_PEAK_Q = 4.0                  # q's scale in the peaky draw: scores' std 4
 K4_DROPPED_TILE = 32             # the kv tile the limits must not miss
+REDUCED_B, REDUCED_S = 2, 256    # the CUDA-core K4's path: reduced llama3-8b
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
@@ -525,171 +531,243 @@ def equivalence(dev) -> dict:
     return n
 
 
-def k4_entries(dev, prefill_launches: int, equiv: dict) -> list:
-    """K4 against its plain version at the paths' shapes, timed: the
-    tensor-core kernel (bf16) at the prefill's GQA shape, on views of
-    (B, S, heads, hd) tensors as the layer hands them over; the CUDA-core
-    kernel (f32) at the equivalence path's."""
+def reduced_path(dev) -> dict:
+    """The CUDA-core K4's path: reduced llama3-8b (2 layers, 6 heads, 2 kv
+    heads, hd 16) runs ``lm.forward`` on REDUCED_B x REDUCED_S tokens in f32
+    and in bf16, every layer's attention on the CUDA-core kernel; the f32
+    prefill's last-token logits against the last decode step's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("llama3_8b", reduced=True),
+                                  dtype=dtype, attn_impl="chunked")
+        if fa.route(getattr(torch, dtype), cfg.hd) != "cuda_cores":
+            fail(f"reduced llama3-8b {dtype} at hd {cfg.hd} does not take "
+                 "the CUDA-core K4")
+        with torch.inference_mode():
+            model = lm.LM.init(
+                cfg, torch.Generator(device=dev).manual_seed(6), dev)
+            tokens = torch.as_tensor(np.random.default_rng(7).integers(
+                0, cfg.vocab, (REDUCED_B, REDUCED_S)), dtype=torch.int32,
+                device=dev)
+            zero_model_counts()
+            full = lm.forward(cfg, model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            n = model_counts()
+            key = f"k4/cuda_cores/{dtype}"
+            print(f"reduced path launches ({dtype}): "
+                  + json.dumps(n, sort_keys=True))
+            if n != {key: cfg.n_layers}:
+                fail(f"reduced llama3-8b {dtype}: launches {n}, expected "
+                     f"{cfg.n_layers} CUDA-core K4 launches per forward")
+            launches[key] = n[key]
+            if tuple(full.shape) != (REDUCED_B, REDUCED_S, cfg.vocab) or \
+                    not torch.isfinite(full).all():
+                fail(f"reduced llama3-8b {dtype}: logits of shape "
+                     f"{tuple(full.shape)} are not finite")
+            print(f"check: reduced llama3-8b {dtype}: logits of shape "
+                  f"{tuple(full.shape)} finite; {n[key]} CUDA-core K4 "
+                  "launches per forward")
+            if dtype != "float32":
+                continue
+            cache = model.init_cache(REDUCED_B, REDUCED_S)
+            pos = torch.zeros((REDUCED_B,), dtype=torch.int32, device=dev)
+            for t in range(REDUCED_S):
+                logits, cache = model.decode_step(
+                    cache, {"token": tokens[:, t:t + 1], "pos": pos + t})
+        try:
+            torch.testing.assert_close(logits[:, 0], full[:, -1],
+                                       rtol=2e-3, atol=2e-3)
+        except AssertionError as e:
+            fail(f"reduced llama3-8b f32: prefill and decode disagree on "
+                 f"the last token: {e}")
+        err = (logits[:, 0] - full[:, -1]).abs().max().item()
+        print(f"check: reduced llama3-8b f32: prefill (CUDA-core K4) == "
+              f"decode on the last of {REDUCED_S} tokens (max |diff| "
+              f"{err:.3g}, rtol/atol 2e-3)")
+    return {"launches": launches,
+            "cfg": get_config("llama3_8b", reduced=True)}
+
+
+def k4_entries(dev, prefill_launches: int, equiv: dict,
+               reduced: dict) -> list:
+    """K4's three kernels against their plain versions at their paths'
+    shapes, timed: the tensor-core kernel (bf16) at the prefill's, the
+    tf32x3 kernel (f32) at the equivalence path's, the CUDA-core kernel
+    (f32 and bf16) at the reduced path's; each on views of (B, S, heads,
+    hd) tensors as the layer hands them over, k and v at their kv heads."""
+    import torch
+
+    from repro_torch.config import get_config
+
+    full, small = get_config("llama3_8b"), reduced["cfg"]
+    n = reduced["launches"]
+    # dtype, config, batch, S of the checks, S timed, launches, path
+    cases = [
+        (torch.bfloat16, full, 1, PREFILL_S, PREFILL_S, prefill_launches,
+         "prefill"),
+        (torch.float32, full, 1, PREFILL_S, EQUIV_S,
+         equiv.get("k4/tf32x3/float32", 0), "equivalence"),
+        (torch.float32, small, REDUCED_B, REDUCED_S, REDUCED_S,
+         n.get("k4/cuda_cores/float32", 0), "reduced"),
+        (torch.bfloat16, small, REDUCED_B, REDUCED_S, REDUCED_S,
+         n.get("k4/cuda_cores/bfloat16", 0), "reduced")]
+    return [k4_entry(dev, *c) for c in cases]
+
+
+def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
+             path: str) -> dict:
+    """One K4 kernel held against its plain version (both draws, causal and
+    not, its block pairs; the limit shown to reject a dropped kv tile) and
+    timed, causal, at S tokens."""
     import torch
 
     from repro_torch import _cuda
-    from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as fa
 
-    cfg = get_config("llama3_8b")
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = str(dtype).removeprefix("torch.")
+    tol = K4_TOL[dt]
+    kind = fa.route(dtype, hd)
+    lib = {"wgmma": fa.WGMMA_LIB_NAME, "tf32x3": fa.TF32X3_LIB_NAME,
+           "cuda_cores": fa.LIB_NAME}[kind]
+    source = f"src/repro_torch/csrc/{lib}.cu"
+    ptxas = ptxas_summary(_cuda.BUILD_LOG.get(lib, (0, ""))[1])
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ptxas = {kind: ptxas_summary(_cuda.BUILD_LOG.get(lib, (0, ""))[1])
-             for kind, lib in (("wgmma", fa.WGMMA_LIB_NAME),
-                               ("tf32x3", fa.TF32X3_LIB_NAME))}
-    out = []
+    if kind == "wgmma":
+        blocks = fa.WGMMA_BLOCKS[hd][0]
+        # every pair the kernel takes, block_q > block_k among them (R2)
+        cases = [(True, *blocks), (False, *blocks)] + \
+            [(True, *b) for b in fa.WGMMA_BLOCKS[hd][1:]]
+    else:
+        blocks = (fa.TF32X3_BLOCKS if kind == "tf32x3"
+                  else (fa.MAX_BLOCK, fa.MAX_BLOCK))
+        cases = [(True, *blocks), (False, *blocks)]
     g = torch.Generator(device=dev).manual_seed(5)
-    base = [torch.randn((1, PREFILL_S, h, hd), generator=g,
+    base = [torch.randn((B, S_check, h, hd), generator=g,
                         device=dev).transpose(1, 2) for h in (H, Hkv, Hkv)]
     # "randn": N(0, 1) scores, outputs ~0.03 (averages over many keys);
     # "peaky": q scaled by K4_PEAK_Q, a few keys dominate each row and the
     # outputs are O(1), so a key the kernel loses moves them by O(1)
     draws = {"randn": base,
              "peaky": [base[0] * K4_PEAK_Q, base[1], base[2]]}
-    for dtype in (torch.bfloat16, torch.float32):
-        dt = str(dtype).removeprefix("torch.")
-        tol = K4_TOL[dt]
-        kind = fa.route(dtype, hd)
-        if dtype == torch.bfloat16:
-            blocks = fa.WGMMA_BLOCKS[hd][0]
-            # every pair the kernel takes, block_q > block_k among them (R2)
-            cases = [(True, *blocks), (False, *blocks)] + \
-                [(True, *b) for b in fa.WGMMA_BLOCKS[hd][1:]]
-        else:
-            blocks = fa.TF32X3_BLOCKS
-            cases = [(True, *blocks), (False, *blocks)]
-        for draw, xs in draws.items():
-            q, k, v = (x.to(dtype) for x in xs)
-            for causal, bq, bk in cases:
-                got = fa.flash_attention(q, k, v, causal=causal,
-                                         block_q=bq, block_k=bk)
-                want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                                block_q=bq, block_k=bk)
-                err = (got.float() - want.float()).abs().max().item()
-                try:
-                    torch.testing.assert_close(got.float(), want.float(),
-                                               **tol)
-                except AssertionError as e:
-                    fail(f"K4 {dt} {draw} causal={causal} ({bq}, {bk}) "
-                         f"differs from its plain version: {e}")
-                print(f"check: K4 {kind} {dt} {draw} q {tuple(q.shape)} kv "
-                      f"{tuple(k.shape)} causal={causal} blocks ({bq}, {bk})"
-                      f" == plain within rtol {tol['rtol']}, atol "
-                      f"{tol['atol']} (max |diff| {err:.3g}, max |plain| "
-                      f"{want.float().abs().max().item():.3g})")
-                if not causal:
-                    full = want
-            # the limit must reject a non-causal result that lost one kv
-            # tile (64 keys: the block_k of the kernels' smallest tiles)
-            t = K4_DROPPED_TILE
-            keep = torch.cat([torch.arange(t * 64), torch.arange(
-                (t + 1) * 64, PREFILL_S)]).to(dev)
-            dropped = fa.flash_attention_plain(
-                q, k[:, :, keep], v[:, :, keep], causal=False,
-                block_q=blocks[0], block_k=blocks[1])
-            lost = (dropped.float() - full.float()).abs().max().item()
+    for draw, xs in draws.items():
+        q, k, v = (x.to(dtype) for x in xs)
+        for causal, bq, bk in cases:
+            got = fa.flash_attention(q, k, v, causal=causal,
+                                     block_q=bq, block_k=bk)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            block_q=bq, block_k=bk)
+            err = (got.float() - want.float()).abs().max().item()
             try:
-                torch.testing.assert_close(dropped.float(), full.float(),
-                                           **tol)
-            except AssertionError:
-                print(f"check: K4 {dt} {draw}: that limit rejects the "
-                      f"non-causal result with kv tile {t} of "
-                      f"{PREFILL_S // 64} dropped (max |diff| {lost:.3g})")
-            else:
-                fail(f"K4 {dt} {draw}: rtol {tol['rtol']}, atol "
-                     f"{tol['atol']} accepts a result with kv tile {t} "
-                     f"dropped (max |diff| {lost:.3g})")
-        q, k, v = (x.to(dtype) for x in base)
-        if dtype == torch.float32:
-            # the f32 kernel ran on the equivalence phase's shape
-            S = EQUIV_S
-            q, k, v = (x[:, :, :S] for x in (q, k, v))
-            launches = equiv.get("k4/tf32x3/float32", 0)
-            source = "src/repro_torch/csrc/flash_attention_tf32x3.cu"
-        else:
-            S = PREFILL_S
-            launches = prefill_launches
-            source = "src/repro_torch/csrc/flash_attention_wgmma.cu"
-        if launches < 1:
-            fail(f"K4 {kind} {dt} was not launched on its path")
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True,
-                                        block_q=blocks[0], block_k=blocks[1])
-        err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+            except AssertionError as e:
+                fail(f"K4 {kind} {dt} {draw} causal={causal} ({bq}, {bk}) "
+                     f"differs from its plain version: {e}")
+            print(f"check: K4 {kind} {dt} {draw} q {tuple(q.shape)} kv "
+                  f"{tuple(k.shape)} causal={causal} blocks ({bq}, {bk})"
+                  f" == plain within rtol {tol['rtol']}, atol "
+                  f"{tol['atol']} (max |diff| {err:.3g}, max |plain| "
+                  f"{want.float().abs().max().item():.3g})")
+            if not causal:
+                whole = want
+        # the limit must reject a non-causal result that lost one of the
+        # kernel's own kv tiles (block_k keys)
+        w = blocks[1]
+        t = min(K4_DROPPED_TILE, S_check // w - 2)
+        keep = torch.cat([torch.arange(t * w), torch.arange(
+            (t + 1) * w, S_check)]).to(dev)
+        dropped = fa.flash_attention_plain(
+            q, k[:, :, keep], v[:, :, keep], causal=False,
+            block_q=blocks[0], block_k=blocks[1])
+        lost = (dropped.float() - whole.float()).abs().max().item()
         try:
-            torch.testing.assert_close(got.float(), want.float(), **tol)
-        except AssertionError as e:
-            fail(f"K4 {dt} causal at S={S} differs from its plain version: "
-                 f"{e}")
-        esz = q.element_size()
-        # q and the output at H heads, k and v at theirs, each once
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
-        flops = 4 * hd * (S * (S + 1) // 2) * H
-        # bf16: one pass on the tensor cores; f32: the tf32x3 kernel's
-        # three TF32 passes on the tensor cores (the share's bound), and
-        # beside it the same flops once on the fp32 CUDA cores
-        tf = (flops / BF16_FLOP_PER_S if dtype == torch.bfloat16
-              else 3 * flops / TF32_FLOP_PER_S) * 1e3
-        tb = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
-        extra = {} if dtype == torch.bfloat16 else {
-            "bound_fp32_cuda_cores_ms": max(tb, flops / FP32_FLOP_PER_S
-                                            * 1e3)}
-        ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v,
-                                                         causal=True), 10)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, block_q=blocks[0], block_k=blocks[1]),
-            3)[0]
-        by_blocks = {}
-        if dtype == torch.bfloat16:
-            # every pair the kernel takes, timed: the default is the faster
-            for bq, bk in fa.WGMMA_BLOCKS[hd]:
-                by_blocks[f"{bq}x{bk}"] = time_ms(
-                    lambda: fa.flash_attention(q, k, v, causal=True,
-                                               block_q=bq, block_k=bk),
-                    10)[0]
-            print("time: K4 wgmma bfloat16 by blocks: " + ", ".join(
-                f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
-        if dtype == torch.bfloat16:
-            lib_in, gqa = (q, k, v), {"enable_gqa": True}
+            torch.testing.assert_close(dropped.float(), whole.float(), **tol)
+        except AssertionError:
+            print(f"check: K4 {kind} {dt} {draw}: that limit rejects the "
+                  f"non-causal result with kv tile {t} of {S_check // w} "
+                  f"({w} keys) dropped (max |diff| {lost:.3g})")
         else:
-            # sdpa's f32 kernels take kv repeated to H heads, contiguous
-            lib_in, gqa = tuple(x.repeat_interleave(H // x.shape[1], dim=1)
-                                .contiguous() for x in (q, k, v)), {}
-        lib_ms = time_ms(lambda: sdpa(*lib_in, is_causal=True, **gqa),
-                         10)[0]
-        lib_err = (sdpa(*lib_in, is_causal=True, **gqa).float()
-                   - want.float()).abs().max().item()
-        out.append({
-            "name": f"flash_attention_{kind}[{dt}]", "route": "cuda",
-            "source": source, "replaces": K4_REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library": "torch.nn.functional.scaled_dot_product_attention"
-                       f"({'enable_gqa=True' if gqa else 'kv repeated'}, "
-                       f"timed only; max |sdpa - plain| {lib_err:.3g})",
-            **extra,
-            "host_ms": host_ms, "bytes": nbytes, "flops": flops,
-            "shape": [1, H, S, hd], "kv_shape": list(k.shape),
-            "layout": "views of (B, S, heads, hd)",
-            "causal": True, "blocks": list(blocks), "tolerance": tol,
-            "ms_by_blocks": by_blocks, "ptxas": ptxas[kind],
-            "path": "prefill" if dtype == torch.bfloat16
-            else "equivalence"})
-        print(f"time: K4 {kind} {dt} causal q (1, {H}, {S}, {hd}) kv "
-              f"{tuple(k.shape)}: {ms:.4f} ms on the card (bound {b_ms:.4f} "
-              f"ms by {b_by}"
-              + ("" if dtype == torch.bfloat16 else
-                 ", three TF32 passes; "
-                 f"{extra['bound_fp32_cuda_cores_ms']:.4f} ms on the fp32 "
-                 "CUDA cores") + f"; plain {plain_ms:.3f} ms; sdpa "
-              f"{lib_ms:.4f} ms); ptxas " + " | ".join(ptxas[kind]))
-    return out
+            fail(f"K4 {kind} {dt} {draw}: rtol {tol['rtol']}, atol "
+                 f"{tol['atol']} accepts a result with kv tile {t} ({w} "
+                 f"keys) dropped (max |diff| {lost:.3g})")
+    q, k, v = (x.to(dtype)[:, :, :S] for x in base)
+    if launches < 1:
+        fail(f"K4 {kind} {dt} was not launched on its path")
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True,
+                                    block_q=min(blocks[0], S),
+                                    block_k=min(blocks[1], S))
+    err = (got.float() - want.float()).abs().max().item()
+    try:
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    except AssertionError as e:
+        fail(f"K4 {kind} {dt} causal at S={S} differs from its plain "
+             f"version: {e}")
+    esz = q.element_size()
+    # q and the output at H heads, k and v at theirs, each once
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+    flops = 4 * hd * (S * (S + 1) // 2) * H * B
+    # the bound of the units that do the products: wgmma one bf16 pass on
+    # the tensor cores; tf32x3 three TF32 passes on the tensor cores (and,
+    # printed beside it, the same flops once on the fp32 CUDA cores); the
+    # CUDA-core kernel the flops on the fp32 CUDA cores
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
+    tf = {"wgmma": flops / BF16_FLOP_PER_S * 1e3,
+          "tf32x3": 3 * flops / TF32_FLOP_PER_S * 1e3,
+          "cuda_cores": fp32_ms}[kind]
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+    ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                          10)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=True, block_q=min(blocks[0], S),
+        block_k=min(blocks[1], S)), 3)[0]
+    by_blocks = {}
+    if kind == "wgmma":
+        # every pair the kernel takes, timed: the default is the faster
+        for bq, bk in fa.WGMMA_BLOCKS[hd]:
+            by_blocks[f"{bq}x{bk}"] = time_ms(
+                lambda: fa.flash_attention(q, k, v, causal=True,
+                                           block_q=bq, block_k=bk), 10)[0]
+        print("time: K4 wgmma bfloat16 by blocks: " + ", ".join(
+            f"{b} {t:.4f} ms" for b, t in by_blocks.items()))
+    if dtype == torch.bfloat16:
+        lib_in, gqa = (q, k, v), {"enable_gqa": True}
+    else:
+        # sdpa's f32 kernels take kv repeated to H heads, contiguous
+        lib_in, gqa = tuple(x.repeat_interleave(H // x.shape[1], dim=1)
+                            .contiguous() for x in (q, k, v)), {}
+    lib_ms = time_ms(lambda: sdpa(*lib_in, is_causal=True, **gqa), 10)[0]
+    lib_err = (sdpa(*lib_in, is_causal=True, **gqa).float()
+               - want.float()).abs().max().item()
+    print(f"time: K4 {kind} {dt} causal q ({B}, {H}, {S}, {hd}) kv "
+          f"{tuple(k.shape)}: {ms:.4f} ms on the card (bound {b_ms:.4f} "
+          f"ms by {b_by}"
+          + (", three TF32 passes; "
+             f"{max(tb, fp32_ms):.4f} ms on the fp32 CUDA cores"
+             if kind == "tf32x3" else "")
+          + f"; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms); ptxas "
+          + " | ".join(ptxas))
+    return {
+        "name": f"flash_attention_{kind}[{dt}]", "route": "cuda",
+        "source": source, "replaces": K4_REPLACES, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention"
+                   f"({'enable_gqa=True' if gqa else 'kv repeated'}, "
+                   f"timed only; max |sdpa - plain| {lib_err:.3g})",
+        "host_ms": host_ms, "bytes": nbytes, "flops": flops,
+        "shape": [B, H, S, hd], "kv_shape": list(k.shape),
+        "layout": "views of (B, S, heads, hd)",
+        "causal": True, "blocks": list(blocks), "tolerance": tol,
+        "ms_by_blocks": by_blocks, "ptxas": ptxas, "path": path}
 
 
 def k5_entries(dev, serve_launches: int, equiv: dict) -> list:
@@ -1159,7 +1237,8 @@ def main() -> int:
     prefilled = prefill_path(dev)
     torch.cuda.empty_cache()
     equiv = equivalence(dev)
-    entries += k4_entries(dev, prefilled["launches"], equiv)
+    reduced = reduced_path(dev)
+    entries += k4_entries(dev, prefilled["launches"], equiv, reduced)
     entries += k5_entries(dev, served["launches"], equiv)
 
     print(f"total: {time.perf_counter() - started:.1f} s")

@@ -16,10 +16,9 @@ three kernels for it, chosen by dtype and head dim alone (``route``):
   one warpgroup of 64 q rows; its products run on the tensor cores
   (``wgmma``) in error-compensated TF32: each fp32 operand is split into a
   TF32 hi and lo part and each product summed as lo*hi + hi*lo + hi*hi,
-  which keeps the 2e-5 limit that plain TF32 breaks.  It walks kv tiles
-  of 32 keys whatever ``block_q``/``block_k`` are given (masked tiles add
-  exact zeros, so its result is that of any blocks up to rounding; the
-  blocks go to the plain version).  It takes any views whose rows are
+  which keeps the 2e-5 limit that plain TF32 breaks.  It walks its own
+  tiles, 64 q rows by 32 keys (``TF32X3_BLOCKS``), and takes no other
+  blocks.  It takes any views whose rows are
   unit-stride and 16-byte aligned (others are copied to a contiguous layout
   first), k and v at their kv heads, and writes the output in q's layout.
 * float32 at hd 16, 32 and 256, bf16 at hd 16 and 32:
@@ -57,7 +56,7 @@ WGMMA_LIB_NAME = "flash_attention_wgmma"
 TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
-MAX_BLOCK = 64          # CUDA-core and tf32x3 kernels: most q rows / kv keys
+MAX_BLOCK = 64          # CUDA-core kernel: most q rows / kv keys
 TF32X3_HEAD_DIMS = (64, 128)
 TF32X3_BLOCKS = (64, 32)  # the tf32x3 kernel's own (q rows, kv keys) tile
 # tensor-core kernel: the (block_q, block_k) pairs it is built for, the
@@ -238,11 +237,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     views whose last dim is unit-stride and whose strides are 16-byte
     aligned, the output takes q's layout, and (block_q, block_k) must be
     one of ``WGMMA_BLOCKS[hd]`` (default: the first).  float32 at hd
-    64/128 runs the tf32x3 kernel (any views, the output in q's layout; its
-    own 64 x 32 tiles, ``TF32X3_BLOCKS``, the default blocks), the rest the
-    CUDA-core kernel (default blocks 64): ``block_q``/``block_k`` are cut to
-    S/Sk as in the TPU wrapper and must then be at most 64.  A ragged last
-    block is masked.  ``device``
+    64/128 runs the tf32x3 kernel (any views, the output in q's layout) on
+    its own 64 x 32 tiles: ``block_q``/``block_k`` must be ``None`` or
+    ``TF32X3_BLOCKS``'s.  The rest run the CUDA-core kernel (default blocks
+    64), whose blocks must be at most 64.  Blocks are cut to S/Sk as in
+    the TPU wrapper, and a ragged last block is masked.  ``device``
     defaults to where the tensors lie (the card for numpy input): the
     kernels run on the card, the plain version on the CPU."""
     dev = _cuda.resolve_device([q, k, v], device)
@@ -276,11 +275,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              f"{list(pairs)} at bf16 hd={hd}")
         strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
                                                    (v, "v"))]
+    elif kind == "tf32x3":
+        if any(b not in (None, t) for b, t in zip((block_q, block_k),
+                                                  TF32X3_BLOCKS)):
+            raise ValueError(f"flash_attention: blocks ({block_q}, "
+                             f"{block_k}); the tf32x3 kernel walks its own "
+                             f"{TF32X3_BLOCKS} tiles at f32 hd={hd}")
+        block_q, block_k = min(TF32X3_BLOCKS[0], S), min(TF32X3_BLOCKS[1], Sk)
     else:
-        bq0, bk0 = TF32X3_BLOCKS if kind == "tf32x3" else (MAX_BLOCK,
-                                                              MAX_BLOCK)
-        block_q = min(bq0 if block_q is None else block_q, S)
-        block_k = min(bk0 if block_k is None else block_k, Sk)
+        block_q = min(MAX_BLOCK if block_q is None else block_q, S)
+        block_k = min(MAX_BLOCK if block_k is None else block_k, Sk)
         if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
             raise ValueError(f"flash_attention: blocks ({block_q}, {block_k})"
                              f" must lie in 1..{MAX_BLOCK}")

@@ -64,9 +64,10 @@ def test_flash_attention_plain_matches_jax_oracle(B, H, S, hd, bq, bk, dtype,
     q, k, v = _qkv(B, H, S, hd)
     td = getattr(torch, dtype)
     xs = [torch.from_numpy(x).to(td) for x in (q, k, v)]
-    if fa.route(td, hd) == "wgmma":
-        # the tensor-core kernel's blocks are 128 q rows: the plain version
-        # walks these blocks itself (the wrapper's are held below)
+    if fa.route(td, hd) != "cuda_cores":
+        # the tensor-core kernels walk their own blocks (128 q rows in bf16,
+        # 64 x 32 in f32): the plain version walks these blocks itself (the
+        # wrapper's are held below)
         got = fa.flash_attention_plain(*xs, causal=causal, block_q=bq,
                                        block_k=bk)
     else:
@@ -98,7 +99,7 @@ def test_ragged_blocks_and_cross_lengths():
     """S not a multiple of the blocks: the ragged last tiles are masked."""
     q, k, v = _qkv(1, 2, 100, 64, seed=4)
     got = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True,
-                             block_q=64, block_k=48)
+                             block_q=64, block_k=32)
     np.testing.assert_allclose(got.numpy(), _oracle(q, k, v, True, "float32"),
                                rtol=2e-5, atol=2e-5)
     q, k, v = _qkv(2, 1, 40, 32, seed=5, Sk=72)
@@ -257,9 +258,17 @@ def test_tensor_core_route_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="16 bytes"):
         wide = torch.zeros((1, 2, 128, 68), dtype=torch.bfloat16)
         fa.flash_attention(q, wide[..., :64], v)
-    # float32 takes blocks of at most 64
-    with pytest.raises(ValueError, match="blocks"):
-        fa.flash_attention(q.float(), k.float(), v.float(), block_q=128)
+    # float32 at hd 64 takes the tf32x3 kernel's own 64 x 32 tiles only
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for blocks in ({"block_q": 128}, {"block_q": 64, "block_k": 64},
+                   {"block_q": 48, "block_k": 20}, {"block_k": 16}):
+        with pytest.raises(ValueError, match="blocks"):
+            fa.flash_attention(qf, kf, vf, **blocks)
+    want = fa.flash_attention_plain(qf, kf, vf, causal=True, block_q=64,
+                                    block_k=32)
+    for blocks in ({}, {"block_q": 64}, {"block_q": 64, "block_k": 32}):
+        torch.testing.assert_close(fa.flash_attention(qf, kf, vf, **blocks),
+                                   want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hd,dtype", [(64, "bfloat16"), (16, "float32")])

@@ -323,8 +323,9 @@ def _randn(shape, seed, device, dtype=torch.float32):
     return torch.from_numpy(x).to(device, dtype)
 
 
-# the CUDA-core kernel's cases: float32 at every head dim, bf16 at hd 16
-# and 32 (bf16 at hd 64-256 takes the tensor-core kernel, below)
+# K4 on contiguous inputs: float32 at every head dim (hd 64 and 128 take
+# the tf32x3 kernel at its own tiles), bf16 at hd 16 and 32 (the CUDA-core
+# kernel; bf16 at hd 64-256 takes the tensor-core kernel, below)
 _FA_SHAPES = [
     (1, 2, 128, 64, 64, 64), (2, 1, 256, 128, 64, 64),
     (1, 2, 192, 64, 64, 32),      # block_q > block_k, causal bound (R2)
@@ -343,6 +344,8 @@ def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
     from repro_torch.kernels import flash_attention as fa
     q, k, v = (_randn((B, H, S, hd), s, cuda_device, dtype) for s in range(3))
     key = f"{fa.route(dtype, hd)}/{str(dtype).removeprefix('torch.')}"
+    if key.startswith("tf32x3"):
+        bq, bk = fa.TF32X3_BLOCKS             # the only tiles it takes
     n0 = fa.LAUNCHES[key]
     got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
@@ -398,10 +401,10 @@ def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, hd, draw,
     others: on N(0, 1) inputs and on a peaky draw (q x 4: a few keys
     dominate each row and the outputs are O(1), where TF32's error would
     show first), GQA group 2 on transposed views of (B, S, heads, hd)
-    tensors, a ragged last q and kv tile.  The tensor-core kernel walks its
-    own 64 x 32 tiles; the plain version walks the blocks given, block_q >
-    block_k and a block_k that is not a multiple of 8 among them (the
-    results differ only by rounding)."""
+    tensors, a ragged last q and kv tile.  The tensor-core kernel at its
+    own 64 x 32 tiles (the only blocks it takes), the CUDA-core kernel at
+    three block pairs, block_q > block_k and a block_k that is not a
+    multiple of 8 among them; the plain version walks the same blocks."""
     from repro_torch.kernels import flash_attention as fa
     B, H, Hkv, S = 2, 4, 2, 136
     q, k, v = (_randn((B, S, h, hd), seed, cuda_device).transpose(1, 2)
@@ -409,7 +412,9 @@ def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, hd, draw,
     if draw == "peaky":
         q = q * 4.0
     key = f"{fa.route(torch.float32, hd)}/float32"
-    for bq, bk in [(64, 64), (64, 32), (48, 20)]:
+    pairs = ([fa.TF32X3_BLOCKS] if key.startswith("tf32x3")
+             else [(64, 64), (64, 32), (48, 20)])
+    for bq, bk in pairs:
         n0 = fa.LAUNCHES[key]
         got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                  block_k=bk)

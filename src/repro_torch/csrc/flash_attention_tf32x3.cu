@@ -1,10 +1,10 @@
 // Flash attention, forward, float32, on Hopper's tensor cores (wgmma)
 // through error-compensated TF32 ("3xTF32").
 //
-// Replaces: src/repro/kernels/flash_attention.py::_fa_kernel in float32, the
-// Pallas TPU kernel launched by flash_attention (grid (B*H, S/block_q)), at
-// head dims 64 and 128 (f32 at 16, 32 and 256 stays on the CUDA-core
-// kernel, csrc/flash_attention.cu).
+// Replaces: src/repro/kernels/flash_attention.py::_fa_kernel (line 22) in
+// float32, the Pallas TPU kernel launched by flash_attention (grid (B*H,
+// S/block_q)), at head dims 64, 128 and 256 (gemma-7b's); f32 at 16 and 32
+// stays on the CUDA-core kernel, csrc/flash_attention.cu.
 //
 // What it computes: out = softmax(q k^T * hd^-0.5 [+ causal mask]) v over
 // (B, H, S, hd) float32 tensors whose k and v may have fewer heads (q head h
@@ -18,9 +18,11 @@
 // Plain TF32 keeps 10 mantissa bits and misses the 2e-5 limit, so each
 // operand is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and each
 // product is lo*hi + hi*lo + hi*hi, the small terms first: three passes,
-// 0.052 ms of tensor-core time.
+// 0.052 ms of tensor-core time.  Gemma-7b's (1, 16, 1024, 256) is the same
+// 8.6 GFLOP: 0.052 ms again.
 //
-// Design: one warpgroup (4 warps) per (b*h, 64 q rows); kv tiles of 32 keys.
+// Design (hd 64 and 128; hd 256 below): one warpgroup (4 warps) per (b*h,
+// 64 q rows); kv tiles of 32 keys.
 // * The products run on wgmma (TF32 in, fp32 accumulators): S = Q K^T as
 //   m64n32k8 with Q and K read from shared memory, O += P V as m64nHDk8 with
 //   P from registers.  On an H100 an mma.sync form of this kernel spent
@@ -49,6 +51,24 @@
 //   function of any (block_q, block_k) the plain version walks, up to
 //   rounding.  Ragged tails are masked and zero-filled; q blocks launch
 //   last-first.
+//
+// hd 256 (fa_tf32x3_hd256_kernel): Q's hi and lo copies alone take 128 KB of
+// the 227, and a 32-key tile's split K and V^T take 128 KB more, so the
+// layout of the smaller head dims (two split buffers and a raw stage,
+// about 449 KB here) cannot be kept.  Kept: Q split once, kv tiles of 16
+// keys, one split buffer each for K (32 KB) and V^T (32 KB) and one raw
+// stage each for K and V (16 KB each): 225 KB.  With a single buffer the
+// split of the next tile cannot run under this tile's products, so the two
+// operands take turns instead: V_j is split while S_j runs, K_{j+1} while
+// P_j V_j runs, each from a raw stage that cp.async filled a tile ahead.
+// V^T's rows hold the tile's 16 keys (64 bytes), in the 64-byte swizzle.
+// S is m64n16k8: the hi*hi products in eight accumulators of 32 dims (the
+// tensor cores truncate as they accumulate; chains of 4 k-steps) and the
+// small terms in two, issued in turn so that independent chains overlap.
+// O (64 x 256 in fp32) is 128 registers a thread, so P V runs 64 output
+// dims at a time (m64n64k8), each into a fresh accumulator, two in flight.
+// wgmma descriptors are built from bases the compiler may not hoist (a
+// hoisted constant for each of the S product's 192 operands spilled).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,6 +164,32 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          | (uint64_t)1 << 62;
 }
 
+// byte offset of element (r, k) of a K-major operand whose rows hold 16
+// floats (64 bytes) in the 64-byte swizzle: the 16-byte chunks of row r
+// permuted by (r / 2) % 4 (address bits 4-5 xor bits 7-8)
+__device__ __forceinline__ int swz64(int r, int k) {
+    return r * 64 + ((((k & 15) >> 2) ^ ((r >> 1) & 3)) << 4) + ((k & 3) << 2);
+}
+
+// wgmma shared-memory descriptor, 64-byte swizzle
+__device__ __forceinline__ uint64_t smem_desc64(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)(16 >> 4) << 16           // leading offset: unused
+         | (uint64_t)(512 >> 4) << 32          // 8 rows of 64 bytes
+         | (uint64_t)2 << 62;
+}
+
+// x, which the compiler must take as computed here (not hoisted, not known)
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+    asm volatile("" : "+l"(x));
+    return x;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -166,6 +212,19 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 template <int N> struct WgmmaSS;
 template <int N> struct WgmmaRS;
+
+template <> struct WgmmaSS<16> {
+    // D(64x16, fp32) (+)= A(64x8, smem, K-major) * B(16x8, smem, K-major)^T
+    static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "l"(a), "l"(b), "r"(accumulate));
+    }
+};
 
 template <> struct WgmmaSS<32> {
     // D(64x32, fp32) (+)= A(64x8, smem, K-major) * B(32x8, smem, K-major)^T
@@ -432,6 +491,300 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// P (64 x 16 keys, TF32 A fragments in hi and lo) times 64 rows of V^T (64
+// output dims; descriptors dvh, dvl of their hi and lo copies, 64-byte
+// swizzle): three passes, the small terms first, into the fresh
+// accumulator d; one wgmma group
+__device__ __forceinline__ void pv_chunk(float (&d)[32], const uint32_t (&ph)[2][4],
+                                         const uint32_t (&pl)[2][4], uint64_t dvh,
+                                         uint64_t dvl) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+        WgmmaRS<64>::run(d, pl[kk], dvh + kk * 2, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+        WgmmaRS<64>::run(d, ph[kk], dvl + kk * 2, 1);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+        WgmmaRS<64>::run(d, ph[kk], dvh + kk * 2, 1);
+    wgmma_commit();
+}
+
+// o = o * alpha + pv, each rounded to nearest (rows g and g + 8)
+__device__ __forceinline__ void pv_add(float (&o)[32], float (&pv)[32],
+                                       const float (&alpha)[2]) {
+    fence_regs(pv);
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+        o[n] = __fadd_rn(__fmul_rn(o[n], alpha[(n >> 1) & 1]), pv[n]);
+}
+
+// hd 256 (see the header): 16-key tiles, one split buffer each for K and V^T
+struct Layout256 {
+    static constexpr int HD = 256, BK = 16;
+    static constexpr int Q_BYTES = BQ * HD * 4;      // one copy, hi or lo
+    static constexpr int T_BYTES = BK * HD * 4;      // one copy of K or V^T
+    static constexpr int QH = 0, QL = Q_BYTES;
+    static constexpr int KH = 2 * Q_BYTES, KL = KH + T_BYTES;
+    static constexpr int VH = KL + T_BYTES, VL = VH + T_BYTES;
+    static constexpr int RAWK = VL + T_BYTES, RAWV = RAWK + T_BYTES;
+    static constexpr int SMEM = RAWV + T_BYTES + 1024;
+    static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
+};
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+fa_tf32x3_hd256_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       Strides st, int H, int G, int S, int Sk, int causal,
+                       float scale) {
+    using L = Layout256;
+    constexpr int HD = L::HD, BK = L::BK;
+    constexpr int C4 = HD / 4;           // 16-byte chunks of a row
+    constexpr int NCH = HD / 64;         // P V in chunks of 64 output dims
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const float* rawk = reinterpret_cast<const float*>(
+        smem_raw + (base - smem_u32(smem_raw)) + L::RAWK);
+    const float* rawv = rawk + BK * HD;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, tg = lane % 4;
+    const int bh = blockIdx.x, b = bh / H, h = bh % H, hkv = h / G;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // last q block first
+    const float* qp = q + b * st.q[0] + h * st.q[1];
+    const float* kp = k + b * st.k[0] + hkv * st.k[1];
+    const float* vp = v + b * st.v[0] + hkv * st.v[1];
+    float* op = out + b * st.o[0] + h * st.o[1];
+
+    int nkv = (Sk + BK - 1) / BK;
+    if (causal) nkv = min(nkv, (min(q0 + BQ, S) - 1) / BK + 1);
+
+    // tile j's rows of K (or V) into their raw stage, keys past Sk zeroed;
+    // one cp.async group, empty past the last tile
+    auto issue = [&](int j, const float* src, long long rs, int raw) {
+        if (j < nkv) {
+            for (int e = tid; e < BK * C4; e += NTHREADS) {
+                const int kt = e / C4, d = (e % C4) * 4, gk = j * BK + kt;
+                const bool ok = gk < Sk;
+                cp_async16(base + raw + (kt * HD + d) * 4,
+                           ok ? src + gk * rs + d : src, ok);
+            }
+        }
+        cp_commit();
+    };
+    // the landed raw K into its hi and lo copies (16 rows, 128-byte swizzle)
+    auto split_k = [&]() {
+#pragma unroll
+        for (int i = 0; i < BK * C4 / NTHREADS; ++i) {
+            const int e = i * NTHREADS + tid;
+            const int kt = e / C4, d = (e % C4) * 4;
+            const float4 x4 = *reinterpret_cast<const float4*>(rawk + kt * HD + d);
+            const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+            const int off = swz(kt, d, BK);
+            split4(x, base + L::KH + off, base + L::KL + off);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    };
+    // the landed raw V, transposed, into its hi and lo copies (256 rows of
+    // 16 keys, 64-byte swizzle)
+    auto split_v = [&]() {
+#pragma unroll
+        for (int i = 0; i < BK * C4 / NTHREADS; ++i) {
+            const int e = i * NTHREADS + tid;
+            const int kt = (e / HD) * 4, d = e % HD;       // 4 keys of a dim
+            const float* rv = rawv + kt * HD + d;
+            const float x[4] = {rv[0], rv[HD], rv[2 * HD], rv[3 * HD]};
+            const int off = swz64(d, kt);
+            split4(x, base + L::VH + off, base + L::VL + off);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    };
+
+    issue(0, kp, st.k[2], L::RAWK);
+    issue(0, vp, st.v[2], L::RAWV);
+#pragma unroll 4
+    for (int i = 0; i < BQ * C4 / NTHREADS; ++i) {
+        const int e = i * NTHREADS + tid;
+        const int r = e / C4, d = (e % C4) * 4, gr = q0 + r;
+        float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (gr < S) x4 = *reinterpret_cast<const float4*>(qp + gr * st.q[2] + d);
+        const float x[4] = {__fmul_rn(x4.x, scale), __fmul_rn(x4.y, scale),
+                            __fmul_rn(x4.z, scale), __fmul_rn(x4.w, scale)};
+        const int off = swz(r, d, BQ);
+        split4(x, base + L::QH + off, base + L::QL + off);
+    }
+    cp_wait<0>();
+    __syncthreads();
+    split_k();
+    __syncthreads();                     // K_0 whole; raw K free
+    issue(1, kp, st.k[2], L::RAWK);
+
+    const int row0 = q0 + warp * 16 + g;
+    float o[NCH][32];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int n = 0; n < 32; ++n) o[c][n] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    const int srcA = (lane & ~3) | (tg >> 1), srcB = srcA + 2;
+    const bool odd = tg & 1;
+
+    for (int j = 0; j < nkv; ++j) {
+        // S = Q K^T: the hi*hi products in eight accumulators of 32 dims
+        // each (chains of 4 k-steps: the tensor cores truncate as they
+        // accumulate, and at hd 256 the hd-128 kernel's chains of 8 left
+        // the peaky draw near the limit), the small terms in two, all
+        // issued in turn.  Descriptors are built from bases made opaque
+        // here, so the compiler does not hoist all 192 into registers.
+        float sh[8][8], sl[2][8];
+        const uint64_t dqh = opaque(smem_desc(base + L::QH));
+        const uint64_t dql = opaque(smem_desc(base + L::QL));
+        const uint64_t dkh = opaque(smem_desc(base + L::KH));
+        const uint64_t dkl = opaque(smem_desc(base + L::KL));
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+#pragma unroll
+            for (int gq = 0; gq < 8; ++gq) {
+                const int ks = gq * 4 + m;
+                const uint32_t qo = ((ks / 4) * BQ * ROW + (ks % 4) * 32) >> 4;
+                const uint32_t ko = ((ks / 4) * BK * ROW + (ks % 4) * 32) >> 4;
+                WgmmaSS<16>::run(sh[gq], dqh + qo, dkh + ko, m > 0);
+                WgmmaSS<16>::run(sl[gq / 4], dql + qo, dkh + ko,
+                                 m > 0 || gq % 4 != 0);
+                WgmmaSS<16>::run(sl[gq / 4], dqh + qo, dkl + ko, 1);
+            }
+        }
+        wgmma_commit();
+        // V_j is split while S runs; V^T's last reader, P V of tile j-1,
+        // has retired (every warp waited for it before the barrier)
+        cp_wait<1>();                    // raw V_j landed (raw K_{j+1} may not)
+        __syncthreads();
+        split_v();
+        __syncthreads();                 // V^T_j whole; raw V free
+        issue(j + 1, vp, st.v[2], L::RAWV);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < 8; ++c) fence_regs(sh[c]);
+        fence_regs(sl[0]);
+        fence_regs(sl[1]);
+
+        // mask, then online softmax (rows row0 and row0 + 8)
+        const int k0 = j * BK;
+        float sc[8], mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+            sc[n] = __fadd_rn(
+                __fadd_rn(__fadd_rn(__fadd_rn(sh[0][n], sh[1][n]),
+                                    __fadd_rn(sh[2][n], sh[3][n])),
+                          __fadd_rn(__fadd_rn(sh[4][n], sh[5][n]),
+                                    __fadd_rn(sh[6][n], sh[7][n]))),
+                __fadd_rn(sl[0][n], sl[1][n]));
+            const int kg = k0 + (n >> 2) * 8 + 2 * tg + (n & 1);
+            const int qg = row0 + 8 * ((n >> 1) & 1);
+            if (kg >= Sk || (causal && qg < kg)) sc[n] = NEG_INF;
+            mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], sc[n]);
+        }
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+            const float m1 = fmaxf(m[i], mx[i]);
+            alpha[i] = expf(m[i] - m1);
+            m[i] = m1;
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+            sc[n] = expf(sc[n] - m[(n >> 1) & 1]);
+            sum[(n >> 1) & 1] += sc[n];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+            sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+            l[i] = l[i] * alpha[i] + sum[i];
+        }
+
+        // P as TF32 A fragments, as in the kernel above (two k-steps here)
+        uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+            const float* s4 = sc + 4 * kk;
+            const float x0 = __shfl_sync(0xffffffffu, s4[0], srcA);
+            const float x1 = __shfl_sync(0xffffffffu, s4[1], srcA);
+            const float y0 = __shfl_sync(0xffffffffu, s4[2], srcA);
+            const float y1 = __shfl_sync(0xffffffffu, s4[3], srcA);
+            const float z0 = __shfl_sync(0xffffffffu, s4[0], srcB);
+            const float z1 = __shfl_sync(0xffffffffu, s4[1], srcB);
+            const float w0 = __shfl_sync(0xffffffffu, s4[2], srcB);
+            const float w1 = __shfl_sync(0xffffffffu, s4[3], srcB);
+            split(odd ? x1 : x0, ph[kk][0], pl[kk][0]);
+            split(odd ? y1 : y0, ph[kk][1], pl[kk][1]);
+            split(odd ? z1 : z0, ph[kk][2], pl[kk][2]);
+            split(odd ? w1 : w0, ph[kk][3], pl[kk][3]);
+        }
+
+        // this tile's P V, 64 output dims at a time, each three passes into
+        // a fresh accumulator; two chunks in flight
+        float pva[32], pvb[32];
+        const uint64_t dvh = opaque(smem_desc64(base + L::VH));
+        const uint64_t dvl = opaque(smem_desc64(base + L::VL));
+        // 64 rows of V^T are 4096 bytes: 256 in the descriptor's units
+        pv_chunk(pva, ph, pl, dvh, dvl);               // dims 0..63
+        pv_chunk(pvb, ph, pl, dvh + 256, dvl + 256);   // 64..127
+        // K_{j+1} is split while P V runs; S_j, K's last reader, has retired
+        if (j + 1 < nkv) {
+            cp_wait<1>();                // raw K_{j+1} landed (raw V_{j+1} may not)
+            __syncthreads();
+            split_k();
+            __syncthreads();             // K_{j+1} whole; raw K free
+        }
+        issue(j + 2, kp, st.k[2], L::RAWK);
+        wgmma_wait<1>();
+        pv_add(o[0], pva, alpha);
+        pv_chunk(pva, ph, pl, dvh + 512, dvl + 512);   // 128..191
+        wgmma_wait<1>();
+        pv_add(o[1], pvb, alpha);
+        pv_chunk(pvb, ph, pl, dvh + 768, dvl + 768);   // 192..255
+        wgmma_wait<1>();
+        pv_add(o[2], pva, alpha);
+        wgmma_wait<0>();
+        pv_add(o[3], pvb, alpha);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int qg = row0 + 8 * i;
+        if (qg >= S) continue;
+        const float denom = l[i] + 1e-30f;
+        float* orow = op + qg * st.o[2] + 2 * tg;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+            for (int jb = 0; jb < 8; ++jb)
+                *reinterpret_cast<float2*>(orow + c * 64 + jb * 8) = make_float2(
+                    __fdiv_rn(o[c][4 * jb + 2 * i], denom),
+                    __fdiv_rn(o[c][4 * jb + 2 * i + 1], denom));
+    }
+}
+
+int launch256(const void* q, const void* k, const void* v, void* out,
+              const Strides& st, int B, int H, int Hkv, int S, int Sk,
+              int causal, float scale, cudaStream_t stream) {
+    constexpr int smem = Layout256::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_tf32x3_hd256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * H, (S + BQ - 1) / BQ);
+    fa_tf32x3_hd256_kernel<<<grid, NTHREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, st, H,
+        H / Hkv, S, Sk, causal, scale);
+    return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            const Strides& st, int B, int H, int Hkv, int S, int Sk, int causal,
@@ -451,7 +804,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (B, H, S, hd), k and v (B, Hkv, Sk, hd), out (B, H, S, hd), all float32,
-// hd 64 or 128; strides: 12 element strides, (batch, head, row) of q, k, v,
+// hd 64, 128 or 256; strides: 12 element strides, (batch, head, row) of q, k, v,
 // out, every row unit-stride and 16-byte aligned.  scale is hd^-0.5 rounded
 // to fp32.
 extern "C" int flash_attention_tf32x3(const void* q, const void* k,
@@ -471,6 +824,7 @@ extern "C" int flash_attention_tf32x3(const void* q, const void* k,
     cudaStream_t s = (cudaStream_t)stream;
     if (hd == 64) return launch<64>(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
     if (hd == 128) return launch<128>(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
+    if (hd == 256) return launch256(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
     return (int)cudaErrorInvalidValue;
 }
 

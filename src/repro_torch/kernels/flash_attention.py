@@ -12,22 +12,25 @@ three kernels for it, chosen by dtype and head dim alone (``route``):
   input may be a strided view, such as the ``.transpose(1, 2)`` of a
   layer's (B, S, H, hd) activations.  Its (block_q, block_k) pairs are
   ``WGMMA_BLOCKS[hd]``; the first is the default.
-* float32 at hd 64 and 128: ``csrc/flash_attention_tf32x3.cu``.  A block is
-  one warpgroup of 64 q rows; its products run on the tensor cores
+* float32 at hd 64, 128 and 256: ``csrc/flash_attention_tf32x3.cu``.  A
+  block is one warpgroup of 64 q rows; its products run on the tensor cores
   (``wgmma``) in error-compensated TF32: each fp32 operand is split into a
   TF32 hi and lo part and each product summed as lo*hi + hi*lo + hi*hi,
   which keeps the 2e-5 limit that plain TF32 breaks.  It walks its own
-  tiles, 64 q rows by 32 keys (``TF32X3_BLOCKS``), and takes no other
-  blocks.  It takes any views whose rows are
-  unit-stride and 16-byte aligned (others are copied to a contiguous layout
-  first), k and v at their kv heads, and writes the output in q's layout.
-* float32 at hd 16, 32 and 256, bf16 at hd 16 and 32:
-  ``csrc/flash_attention.cu``, one block of 8 warps per (b*h, q block of at
-  most 64 rows) on the CUDA cores.  It reads contiguous (B, H, S, hd)
-  tensors with as many kv heads as q heads, so the wrapper makes that copy
-  for it where its inputs differ.
+  tiles, 64 q rows by 32 keys, or by 16 at hd 256 where Q's split copies
+  fill half of shared memory (``TF32X3_BLOCKS``), and takes no other
+  blocks.  It takes any views whose rows are unit-stride and 16-byte
+  aligned (others are copied to a contiguous layout first), k and v at
+  their kv heads, and writes the output in q's layout.
+* float32 and bf16 at hd 16 and 32: ``csrc/flash_attention.cu``, one block
+  of 8 warps per (b*h, q block of at most 64 rows) on the CUDA cores (16
+  rows by default, ``CUDA_CORE_BLOCKS``).  It reads the views it is given
+  through their strides (rows unit-stride), k and v at their kv heads, and
+  writes the output in q's layout: one call is one kernel.  It is built at
+  f32 hd 256 too, which ``_launch`` can run beside the tf32x3 kernel for
+  timing; ``route`` never sends a call there.
 
-Both stop a causal q block at the kv block that holds its last row,
+All stop a causal q block at the kv block that holds its last row,
 ``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
 ``(qi*block_q)//block_k + 1`` drops blocks when ``block_q > block_k``.
 
@@ -55,10 +58,14 @@ WGMMA_SOURCE = _cuda.CSRC_DIR / "flash_attention_wgmma.cu"
 WGMMA_LIB_NAME = "flash_attention_wgmma"
 TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims the kernels take
 MAX_BLOCK = 64          # CUDA-core kernel: most q rows / kv keys
-TF32X3_HEAD_DIMS = (64, 128)
-TF32X3_BLOCKS = (64, 32)  # the tf32x3 kernel's own (q rows, kv keys) tile
+# CUDA-core kernel: its default (block_q, block_k) by head dim (hd 256 only
+# through ``_launch``)
+CUDA_CORE_BLOCKS = {16: (16, 64), 32: (16, 64), 256: (64, 64)}
+TF32X3_HEAD_DIMS = (64, 128, 256)
+# the tf32x3 kernel's own (q rows, kv keys) tile by head dim
+TF32X3_BLOCKS = {64: (64, 32), 128: (64, 32), 256: (64, 16)}
 # tensor-core kernel: the (block_q, block_k) pairs it is built for, the
 # default first (the faster on the card: at 128 keys ptxas spills P's
 # registers); at hd 256 two stages of 128 keys would not fit beside Q
@@ -76,7 +83,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """Which kernel runs a call: ``"wgmma"`` (bf16 at hd 64-256),
-    ``"tf32x3"`` (f32 at hd 64, 128) or ``"cuda_cores"`` (the rest)."""
+    ``"tf32x3"`` (f32 at hd 64-256) or ``"cuda_cores"`` (hd 16, 32)."""
     if dtype == torch.float32:
         return "tf32x3" if hd in TF32X3_HEAD_DIMS else "cuda_cores"
     return "wgmma" if hd in WGMMA_BLOCKS else "cuda_cores"
@@ -107,8 +114,8 @@ def kernel_sources() -> dict[str, str]:
 def _launcher(dtype: torch.dtype):
     lib = _cuda.load(LIB_NAME, kernel_source())
     return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 4
-                            + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                    ctypes.c_void_p])
+                            + [ctypes.c_int] * 9 + [ctypes.c_float]
+                            + [ctypes.c_void_p] * 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,6 +232,12 @@ def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     return t if _row_strides(t)[0] is not None else t.contiguous()
 
 
+def _unit_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where its last dim is not unit-stride
+    (the CUDA-core kernel reads any layout whose rows are)."""
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
@@ -237,13 +250,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
     views whose last dim is unit-stride and whose strides are 16-byte
     aligned, the output takes q's layout, and (block_q, block_k) must be
     one of ``WGMMA_BLOCKS[hd]`` (default: the first).  float32 at hd
-    64/128 runs the tf32x3 kernel (any views, the output in q's layout) on
-    its own 64 x 32 tiles: ``block_q``/``block_k`` must be ``None`` or
-    ``TF32X3_BLOCKS``'s.  The rest run the CUDA-core kernel (default blocks
-    64), whose blocks must be at most 64.  Blocks are cut to S/Sk as in
-    the TPU wrapper, and a ragged last block is masked.  ``device``
-    defaults to where the tensors lie (the card for numpy input): the
-    kernels run on the card, the plain version on the CPU."""
+    64/128/256 runs the tf32x3 kernel (any views, the output in q's layout)
+    on its own tiles: ``block_q``/``block_k`` must be ``None`` or
+    ``TF32X3_BLOCKS[hd]``'s.  hd 16 and 32 run the CUDA-core kernel (any
+    views, the output in q's layout; blocks of at most 64, default
+    ``CUDA_CORE_BLOCKS[hd]``).  Blocks are cut to S/Sk as in the TPU
+    wrapper, and a ragged last block is masked.  ``device`` defaults to
+    where the tensors lie (the card for numpy input): the kernels run on
+    the card, the plain version on the CPU."""
     dev = _cuda.resolve_device([q, k, v], device)
     if any(getattr(x, "ndim", 0) != 4 for x in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be (B, H, S, hd)")
@@ -273,28 +287,41 @@ def flash_attention(q, k, v, *, causal: bool = True,
             raise ValueError(f"flash_attention: blocks ({block_q}, "
                              f"{block_k}); the tensor-core kernel takes "
                              f"{list(pairs)} at bf16 hd={hd}")
-        strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
-                                                   (v, "v"))]
+        for t, n in ((q, "q"), (k, "k"), (v, "v")):
+            _tma_strides(t, n)
     elif kind == "tf32x3":
-        if any(b not in (None, t) for b, t in zip((block_q, block_k),
-                                                  TF32X3_BLOCKS)):
+        tile = TF32X3_BLOCKS[hd]
+        if any(b not in (None, t) for b, t in zip((block_q, block_k), tile)):
             raise ValueError(f"flash_attention: blocks ({block_q}, "
                              f"{block_k}); the tf32x3 kernel walks its own "
-                             f"{TF32X3_BLOCKS} tiles at f32 hd={hd}")
-        block_q, block_k = min(TF32X3_BLOCKS[0], S), min(TF32X3_BLOCKS[1], Sk)
+                             f"{tile} tiles at f32 hd={hd}")
+        block_q, block_k = min(tile[0], S), min(tile[1], Sk)
     else:
-        block_q = min(MAX_BLOCK if block_q is None else block_q, S)
-        block_k = min(MAX_BLOCK if block_k is None else block_k, Sk)
+        dq, dk = CUDA_CORE_BLOCKS[hd]
+        block_q = min(dq if block_q is None else block_q, S)
+        block_k = min(dk if block_k is None else block_k, Sk)
         if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
             raise ValueError(f"flash_attention: blocks ({block_q}, {block_k})"
                              f" must lie in 1..{MAX_BLOCK}")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
                                      block_k=block_k)
+    return _launch(kind, q, k, v, causal, block_q, block_k)
+
+
+def _launch(kind: str, q, k, v, causal: bool, block_q: int, block_k: int):
+    """One launch of kernel ``kind`` on card tensors the wrapper has
+    checked (``flash_attention``), counted in ``LAUNCHES``.  Called with
+    another kind than ``route``'s (the CUDA-core kernel at f32 hd 256), it
+    runs that kernel on the same call, for timing one beside the other."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dev, dtype = q.device, q.dtype
     if kind == "wgmma":
         lib, launch = _wgmma_launcher()
         out = torch.empty_like(q)
-        strides.append(_tma_strides(out, "out"))
+        strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
+                                                   (v, "v"), (out, "out"))]
         st = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -313,16 +340,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                         hd ** -0.5, ctypes.addressof(st),
                         _cuda.current_stream(dev))
     else:
-        # the CUDA-core kernel reads contiguous tensors with H kv heads
-        q = q.contiguous()
-        k, v = (t.repeat_interleave(H // Hkv, dim=1) if Hkv != H
-                else t.contiguous() for t in (k, v))
+        q, k, v = (_unit_rows(t) for t in (q, k, v))
         lib, launch = _launcher(dtype)
-        out = torch.empty((B, H, S, hd), dtype=dtype, device=dev)
+        out = torch.empty_like(q)
+        st = (ctypes.c_longlong * 12)(*(t.stride(d) for t in (q, k, v, out)
+                                        for d in range(3)))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B * H, S, Sk, hd, block_q, block_k,
-                        int(causal), hd ** -0.5, _cuda.current_stream(dev))
+                        out.data_ptr(), B, H, Hkv, S, Sk, hd, block_q,
+                        block_k, int(causal), hd ** -0.5,
+                        ctypes.addressof(st), _cuda.current_stream(dev))
     _cuda.check(lib, rc, "flash_attention")
     LAUNCHES[f"{kind}/{str(dtype).removeprefix('torch.')}"] += 1
     return out

@@ -23,9 +23,9 @@ __all__ = ["flash_attention", "stencil_pipeline", "ilp_halo_rows", "wkv6",
 
 def wkv6(r, k, v, w, u, *, chunk=64, device: Optional[str] = None):
     """r, k, v, w: (B, H, S, hd); w is the per-token decay in (0, 1);
-    u: (H, hd).  Returns out (B, H, S, hd).  ``chunk`` is the TPU kernel's
-    chunk length; the port's kernel walks tokens one by one, so ``chunk``
-    does not change its result and is accepted for the signature only.
-    ``wkv6_state`` also takes an initial state and returns the final one."""
-    del chunk
-    return wkv6_state(r, k, v, w, u, device=device)[0]
+    u: (H, hd).  Returns out (B, H, S, hd).  ``chunk`` is the chunk length
+    of the sequence form (the port's schedule never divides by the decay,
+    so unlike the TPU kernel's it needs no ``S % chunk == 0`` and changes
+    the result only by rounding).  ``wkv6_state`` also takes an initial
+    state and returns the final one."""
+    return wkv6_state(r, k, v, w, u, chunk=chunk, device=device)[0]

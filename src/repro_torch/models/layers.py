@@ -279,11 +279,15 @@ def _token_shift(x, last):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
-def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128):
+def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128,
+                  s_out=None):
     """Returns (y, normalized last token (B,1,D), final WKV state).  ``s0``
-    is the (B,H,hd,hd) f32 carried state, or None for zeros.  The WKV6
-    kernel walks every token in one launch; ``chunk`` only keeps the
-    reference's precondition ``S % min(chunk, S) == 0``."""
+    is the (B,H,hd,hd) f32 carried state, or None for zeros; the final
+    state goes to ``s_out`` when given (which may be ``s0``: an in-place
+    update), else to a new tensor.  The WKV6 kernel reads r, k, v, w as
+    (B, H, S, hd) views of their (B, S, D) activations and writes its
+    output into one in x's dtype; ``chunk`` only keeps the reference's
+    precondition ``S % min(chunk, S) == 0``."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
     H = D // hd
@@ -301,14 +305,14 @@ def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128):
         raise ValueError(f"rwkv time mix: {S} tokens are not a multiple of "
                          f"chunk {chunk}")
 
-    def heads(t):                  # (B,H,S,hd) f32, one copy with the cast
-        out = torch.empty((B, H, S, hd), dtype=torch.float32, device=t.device)
-        return out.copy_(t.reshape(B, S, H, hd).transpose(1, 2))
+    def heads(t):                  # (B,S,D) -> a (B,H,S,hd) view
+        return t.reshape(B, S, H, hd).transpose(1, 2)
 
     u = p["u_bonus"].reshape(H, hd)
-    out, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0)
-    out = out.transpose(1, 2).reshape(B, S, D).to(x.dtype) * g
-    y = x + out @ p["wo"]
+    out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
+    _, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
+                          out=heads(out), s_out=s_out)
+    y = x + (out * g) @ p["wo"]
     return y, h[:, -1:], s_fin
 
 
@@ -328,9 +332,11 @@ def rwkv_forward(cfg: ArchConfig, p, x):
     return y
 
 
-def rwkv_decode(cfg: ArchConfig, p, x, cache):
+def rwkv_decode(cfg: ArchConfig, p, x, cache, in_place=False):
+    """One-token decode.  The WKV state is returned in a new tensor, or
+    (``in_place``) written over ``cache["s"]``, which is then returned."""
     y, sa, s1 = rwkv_time_mix(cfg, p, x, cache["shift_a"], cache["s"],
-                              chunk=1)
+                              chunk=1, s_out=cache["s"] if in_place else None)
     y, sf = rwkv_channel_mix(cfg, p, y, cache["shift_f"])
     return y, {"shift_a": sa, "shift_f": sf, "s": s1}
 

@@ -259,40 +259,46 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, device="cuda"):
     return {"blocks": blocks}
 
 
-def _decode_layer(cfg, spec, p, x, cache, pos):
+def _decode_layer(cfg, spec, p, x, cache, pos, in_place):
     mix, ffn = spec
     if mix == "attn":
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos)
     elif mix == "rwkv":
-        x, cache = L.rwkv_decode(cfg, p["mix"], x, cache)
+        x, cache = L.rwkv_decode(cfg, p["mix"], x, cache, in_place=in_place)
     if ffn == "mlp":
         x = L.mlp_forward(cfg, p["ffn"], x)
     return x, cache
 
 
-def decode_step(cfg: ArchConfig, model: LM, cache, batch):
-    """batch: {token: (B,1) int, pos: (B,) int}.  Returns (logits (B,1,V),
-    new cache).  Attention caches are written in place (see
-    ``layers.attn_decode``); RWKV states are replaced."""
+def _decode(cfg: ArchConfig, model: LM, cache, batch, in_place: bool):
     dev = model.device
     tok = _on(batch["token"], dev)
     pos = _on(batch["pos"], dev)
     x = model.embed[tok]
     blocks = []
     for spec, p, c in zip(layer_specs(cfg), model.blocks, cache["blocks"]):
-        x, c = _decode_layer(cfg, spec, p, x, c, pos)
+        x, c = _decode_layer(cfg, spec, p, x, c, pos, in_place)
         blocks.append(c)
     h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return logits_from_hidden(cfg, model, h), {"blocks": blocks}
 
 
+def decode_step(cfg: ArchConfig, model: LM, cache, batch):
+    """batch: {token: (B,1) int, pos: (B,) int}.  Returns (logits (B,1,V),
+    new cache).  Attention caches are written in place (see
+    ``layers.attn_decode``); RWKV states are replaced, so the caller's
+    cache keeps its own."""
+    return _decode(cfg, model, cache, batch, in_place=False)
+
+
 def decode_step_into(cfg: ArchConfig, model: LM, cache, batch):
     """``decode_step`` that leaves every state in ``cache``'s own tensors:
-    the RWKV states the step replaces are copied back into the tensors
-    they replace.  Returns (logits, ``cache``, the same object), so a
-    caller that holds the cache's storage (a CUDA graph, a batcher) sees
-    each step's states there."""
-    logits, new = decode_step(cfg, model, cache, batch)
+    the WKV kernel updates each RWKV layer's state in place, and the token
+    shifts the step replaces are copied back into the tensors they
+    replace.  Returns (logits, ``cache``, the same object), so a caller
+    that holds the cache's storage (a CUDA graph, a batcher) sees each
+    step's states there."""
+    logits, new = _decode(cfg, model, cache, batch, in_place=True)
     for old, cur in zip(cache["blocks"], new["blocks"]):
         for name, t in cur.items():
             if t is not old[name]:

@@ -232,8 +232,7 @@ def test_tensor_core_route_blocks_match_oracle(hd, causal):
     xs = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
     want = _oracle(q, _repeated(k, 4), _repeated(v, 4), causal, "bfloat16")
     assert fa.route(torch.bfloat16, hd) == "wgmma"
-    assert fa.route(torch.float32, hd) == ("tf32x3" if hd <= 128
-                                           else "cuda_cores")
+    assert fa.route(torch.float32, hd) == "tf32x3"
     for blocks in [{}, *({"block_q": bq, "block_k": bk}
                          for bq, bk in fa.WGMMA_BLOCKS[hd])]:
         got = fa.flash_attention(*xs, causal=causal, **blocks)
@@ -314,3 +313,47 @@ def test_attn_forward_gqa_matches_jax_chunked_attention(hd, dtype,
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the route table, and the layer's GQA views at every route's head dims
+# ---------------------------------------------------------------------------
+
+
+def test_route_table():
+    """Which kernel takes a call is a function of (dtype, hd) alone: f32 at
+    hd 64-256 on the tf32x3 tensor-core kernel (256 included), bf16 at hd
+    64-256 on the wgmma kernel, hd 16 and 32 on the CUDA-core kernel."""
+    want = {(torch.float32, 16): "cuda_cores", (torch.float32, 32): "cuda_cores",
+            (torch.float32, 64): "tf32x3", (torch.float32, 128): "tf32x3",
+            (torch.float32, 256): "tf32x3",
+            (torch.bfloat16, 16): "cuda_cores",
+            (torch.bfloat16, 32): "cuda_cores",
+            (torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+            (torch.bfloat16, 256): "wgmma"}
+    assert {key: fa.route(*key) for key in want} == want
+    assert fa.TF32X3_BLOCKS[256] == (64, 16)
+    assert set(fa.CUDA_CORE_BLOCKS) >= {16, 32}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 256])
+@pytest.mark.parametrize("Hkv", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wrapper_gqa_views_match_jax_oracle(hd, Hkv, dtype, causal):
+    """The wrapper on the .transpose(1, 2) views of (B, S, heads, hd)
+    tensors, 6 q heads over Hkv < 6 kv heads, a ragged length, at its
+    default blocks: the JAX oracle on kv repeated to 6 heads."""
+    B, S, H = 2, 72, 6
+    rng = np.random.default_rng(hd + 10 * Hkv)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    td = getattr(torch, dtype)
+    views = [torch.from_numpy(x).to(td).transpose(1, 2) for x in (q, k, v)]
+    got = fa.flash_attention(*views, causal=causal)
+    assert tuple(got.shape) == (B, H, S, hd) and got.dtype == td
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in (q, k, v))
+    want = _oracle(q, _repeated(k, H), _repeated(v, H), causal, dtype)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype],
+                               atol=TOL[dtype])

@@ -345,7 +345,7 @@ def test_flash_attention_kernel_equals_plain(cuda_device, B, H, S, hd, bq, bk,
     q, k, v = (_randn((B, H, S, hd), s, cuda_device, dtype) for s in range(3))
     key = f"{fa.route(dtype, hd)}/{str(dtype).removeprefix('torch.')}"
     if key.startswith("tf32x3"):
-        bq, bk = fa.TF32X3_BLOCKS             # the only tiles it takes
+        bq, bk = fa.TF32X3_BLOCKS[hd]         # the only tiles it takes
     n0 = fa.LAUNCHES[key]
     got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
@@ -412,7 +412,7 @@ def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, hd, draw,
     if draw == "peaky":
         q = q * 4.0
     key = f"{fa.route(torch.float32, hd)}/float32"
-    pairs = ([fa.TF32X3_BLOCKS] if key.startswith("tf32x3")
+    pairs = ([fa.TF32X3_BLOCKS[hd]] if key.startswith("tf32x3")
              else [(64, 64), (64, 32), (48, 20)])
     for bq, bk in pairs:
         n0 = fa.LAUNCHES[key]
@@ -441,7 +441,9 @@ def test_wkv6_kernel_equals_plain(cuda_device, B, H, S, hd, with_state):
     n0 = sum(wk.LAUNCHES.values())
     out, s = wk.wkv6_state(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    assert sum(wk.LAUNCHES.values()) == n0 + 1
+    # the step is one launch, the sequence form three
+    assert sum(wk.LAUNCHES.values()) == n0 + (
+        1 if S == 1 else wk.SEQUENCE_LAUNCHES)
     want, want_s = wk.wkv6_plain(r, k, v, w, u, s0)
     torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
@@ -458,6 +460,127 @@ def test_wkv6_kernel_strong_decay_is_finite(cuda_device):
     want, want_s = wk.wkv6_plain(r, k, v, w, u)
     torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hkv", [1, 2, 6])
+@pytest.mark.parametrize("draw", ["randn", "peaky"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_cuda_core_reads_gqa_views(cuda_device, hd, dtype, Hkv,
+                                                   draw, causal):
+    """The CUDA-core kernel on the layer's own tensors: .transpose(1, 2)
+    views of (B, S, heads, hd), 6 q heads over Hkv kv heads, a ragged
+    length, one launch a call, the output in q's layout; its default blocks
+    and three other pairs (block_q > block_k, a block_k not a multiple of
+    8), each against the plain version walking the same blocks."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, S = 2, 6, 200
+    q, k, v = (_randn((B, S, h, hd), seed, cuda_device, dtype).transpose(1, 2)
+               for seed, h in ((0, H), (1, Hkv), (2, Hkv)))
+    if draw == "peaky":
+        q = (q.float() * 4.0).to(dtype)
+    key = f"cuda_cores/{str(dtype).removeprefix('torch.')}"
+    assert fa.route(dtype, hd) == "cuda_cores"
+    for bq, bk in [fa.CUDA_CORE_BLOCKS[hd], (64, 64), (32, 48), (48, 20)]:
+        n0 = fa.LAUNCHES[key]
+        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES[key] == n0 + 1
+        assert got.stride() == q.stride()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                        block_k=bk)
+        torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S,Sk,causal", [(100, 300, False), (328, 328, True),
+                                         (64, 64, True)])
+def test_flash_attention_tf32x3_hd256_cross_lengths(cuda_device, S, Sk,
+                                                    causal):
+    """f32 at hd 256 on the tensor cores (64 x 16 tiles): kv longer than q,
+    ragged q and kv tiles, GQA group 2, against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    q = _randn((1, 4, S, 256), 0, cuda_device)
+    k, v = (_randn((1, 2, Sk, 256), s, cuda_device) for s in (1, 2))
+    n0 = fa.LAUNCHES["tf32x3/float32"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["tf32x3/float32"] == n0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=64,
+                                    block_k=16)
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S", [2, 63, 64, 65, 1024])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("w", [None, 0.1, 1e-3, 1.0])
+def test_wkv6_chunk_schedule_equals_plain(cuda_device, S, chunk, w):
+    """The sequence form (three launches, chunks of ``chunk`` tokens, a
+    ragged last chunk) against the per-token plain version from a random
+    state: finite at every decay, 1.0 included."""
+    from repro_torch.kernels import wkv6 as wk
+    B, H, hd = 1, 4, 64
+    r, k, v = (_randn((B, H, S, hd), s, cuda_device) for s in range(3))
+    ww = torch.sigmoid(_randn((B, H, S, hd), 3, cuda_device)) * 0.5 + 0.45 \
+        if w is None else torch.full((B, H, S, hd), w, device=cuda_device)
+    u = _randn((H, hd), 4, cuda_device) * 0.1
+    s0 = _randn((B, H, hd, hd), 5, cuda_device)
+    n0 = wk.LAUNCHES["sequence"]
+    out, s = wk.wkv6_state(r, k, v, ww, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["sequence"] == n0 + 3
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+    want, want_s = wk.wkv6_plain(r, k, v, ww, u, s0)
+    if w != 1.0:
+        torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
+        return
+    # nothing decays: the f32 plain version's own rounding grows with S
+    # past 2e-4, so both are held against the recurrence in f64, the kernel
+    # within 2e-4 or the plain version's own distance from it, the larger
+    exact, exact_s = wk.wkv6_plain(*(t.double() for t in (r, k, v, ww, u,
+                                                          s0)))
+    for got, plain, ref in ((out, want, exact), (s, want_s, exact_s)):
+        lim = (plain.double() - ref).abs().max().item()
+        torch.testing.assert_close(got.double(), ref, rtol=2e-4,
+                                   atol=max(2e-4, lim))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S", [1, 70])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_reads_layer_views_and_updates_in_place(cuda_device, S, dtype):
+    """r, k, v as (B, H, S, hd) views of (B, S, D) activations in their own
+    dtype, w an f32 view, the output written into a view of a (B, S, D)
+    tensor in that dtype, the state updated in place: against the plain
+    version on f32 copies (the output rounded once to the dtype)."""
+    from repro_torch.kernels import wkv6 as wk
+    B, H, hd = 4, 40, 64
+    D = H * hd
+    r, k, v = (_randn((B, S, D), s, cuda_device, dtype) for s in range(3))
+    w = torch.sigmoid(_randn((B, S, D), 3, cuda_device)) * 0.5 + 0.45
+    u = _randn((H, hd), 4, cuda_device) * 0.1
+    s0 = _randn((B, H, hd, hd), 5, cuda_device)
+
+    def heads(t):
+        return t.view(B, S, H, hd).transpose(1, 2)
+    views = [heads(t) for t in (r, k, v, w)]
+    want, want_s = wk.wkv6_plain(*(t.float() for t in views), u, s0.clone())
+    out = torch.empty((B, S, D), dtype=dtype, device=cuda_device)
+    state = s0.clone()
+    got, got_s = wk.wkv6_state(*views, u, state, out=heads(out),
+                               s_out=state)
+    torch.cuda.synchronize()
+    assert got_s is state and got.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(state, want_s, rtol=2e-4, atol=2e-4)
+    tol = dict(rtol=1e-2, atol=4e-3) if dtype == torch.bfloat16 else \
+        dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(heads(out).float(), want.to(dtype).float(),
+                               **tol)
 
 
 @pytest.mark.requires_cuda

@@ -262,6 +262,26 @@ def test_rwkv_forward_and_decode_parity():
         _close(gc[k], wc[k], msg=k)
 
 
+def test_rwkv_decode_in_place_parity():
+    """The in-place decode (the WKV state written over the cache's own
+    tensor, as the decode graph runs it) against the JAX layer."""
+    cfg, tcfg, p, H, hd = _rwkv_setup(seed=23)
+    cache = {"shift_a": _rand((B, 1, cfg.d_model), 24),
+             "shift_f": _rand((B, 1, cfg.d_model), 25),
+             "s": _rand((B, H, hd, hd), 26, 0.5)}
+    xd = _rand((B, 1, cfg.d_model), 27)
+    want, wc = JL.rwkv_decode(cfg, p, jnp.asarray(xd),
+                              {k: jnp.asarray(v) for k, v in cache.items()})
+    tc = _t(cache)
+    s = tc["s"]
+    got, gc = TL.rwkv_decode(tcfg, _t(p), torch.from_numpy(xd), tc,
+                             in_place=True)
+    assert gc["s"] is s
+    _close(got, want)
+    for k in cache:
+        _close(gc[k], wc[k], msg=k)
+
+
 def test_rms_norm_and_rope_parity():
     x = _rand((B, S, 4, 16), 20, 3.0)
     w = _rand((16,), 21)
@@ -351,3 +371,37 @@ def test_init_places_parameters_and_counts_them():
     assert n == sum(x.size for x in jax.tree.leaves(ref))
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad
                for p in model.parameters())
+
+
+@pytest.mark.parametrize("impl", ["chunked", "dense"])
+def test_gemma_family_at_head_dim_256_parity(impl):
+    """A narrow config of gemma-7b's family (GeGLU, tied embeddings) at its
+    head dim, 256: forward logits (chunked: K4 f32 on the tf32x3 route's
+    64 x 16 tiles) and decode logits and caches against the JAX model on
+    carried weights."""
+    cfg = _cfg("gemma_7b", head_dim=256, attn_impl=impl, attn_chunk=8)
+    tcfg = _tcfg("gemma_7b", head_dim=256, attn_impl=impl, attn_chunk=8)
+    assert (tcfg.act, tcfg.hd, tcfg.tie_embeddings) == ("geglu", 256, True)
+    params = jax_lm.init_params(cfg, jax.random.key(4))
+    model = torch_lm.LM.from_reference(tcfg, _np(params), device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)
+    want = jax_lm.forward(cfg, params, {"tokens": jnp.asarray(tokens)})
+    with torch.inference_mode():
+        got = torch_lm.forward(tcfg, model, {"tokens": tokens})
+    _close(got, want, msg="forward logits")
+    jc = jax_lm.init_cache(cfg, B, S)
+    tc = torch_lm.init_cache(tcfg, B, S, "cpu")
+    for t in range(S):
+        batch = {"token": tokens[:, t:t + 1],
+                 "pos": np.full((B,), t, np.int32)}
+        wl, jc = jax_lm.decode_step(cfg, params, jc,
+                                    {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+        with torch.inference_mode():
+            gl, tc = torch_lm.decode_step(tcfg, model, tc, batch)
+        _close(gl, wl, msg=f"decode logits, step {t}")
+    _close(gl[:, 0], got[:, -1], tol=2e-3, msg="decode == prefill")
+    for li, (g, w) in enumerate(zip(tc["blocks"], _jax_cache_layers(cfg, jc))):
+        for k in w:
+            _close(g[k], w[k], msg=f"layer {li} cache {k}")

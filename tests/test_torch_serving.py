@@ -200,3 +200,60 @@ def test_step_writes_states_into_the_callers_cache(arch):
     assert in_place == replaced
     assert same and not moved
     assert not same_replaced      # decode_step returns a new cache
+
+
+def _rwkv_step_inputs(B=2):
+    """Reduced rwkv6-3b in f32 on carried weights, a cache that has
+    decoded three tokens, and the next token's batch."""
+    _, _, tcfg, model = _models("rwkv6_3b")
+    rng = np.random.default_rng(6)
+    cache = model.init_cache(B, SMAX)
+    with torch.inference_mode():
+        for t in range(3):
+            _, cache = lm.decode_step(tcfg, model, cache, {
+                "token": rng.integers(2, tcfg.vocab, (B, 1)),
+                "pos": np.full((B,), t, np.int32)})
+    batch = {"token": rng.integers(2, tcfg.vocab, (B, 1)),
+             "pos": np.full((B,), 3, np.int32)}
+    return tcfg, model, cache, batch
+
+
+def test_step_into_updates_wkv_states_in_place_without_a_copy():
+    """Under ``decode_step_into`` the WKV kernel writes each RWKV layer's
+    new state over the cache's own tensor (the step hands back that very
+    tensor, so nothing is copied back), and the logits and states are
+    those of ``decode_step``."""
+    tcfg, model, cache, batch = _rwkv_step_inputs()
+    want_logits, want = lm.decode_step(tcfg, model, cache, batch)
+    states = [c["s"] for c in cache["blocks"]]
+    ptrs = [s.data_ptr() for s in states]
+    with torch.inference_mode():
+        logits, new = lm._decode(tcfg, model, cache, batch, in_place=True)
+    assert all(n["s"] is s for n, s in zip(new["blocks"], states))
+    assert [c["s"].data_ptr() for c in cache["blocks"]] == ptrs
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+    for c, w in zip(cache["blocks"], want["blocks"]):
+        torch.testing.assert_close(c["s"], w["s"], rtol=0, atol=0)
+    # decode_step_into: the shifts copied in, the states already there
+    tcfg, model, cache, batch = _rwkv_step_inputs()
+    with torch.inference_mode():
+        logits, same = lm.decode_step_into(tcfg, model, cache, batch)
+    assert same is cache
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+    for c, w in zip(cache["blocks"], want["blocks"]):
+        for name in ("shift_a", "shift_f", "s"):
+            torch.testing.assert_close(c[name], w[name], rtol=0, atol=0)
+
+
+def test_decode_step_leaves_the_callers_rwkv_cache_unchanged():
+    """``decode_step`` keeps its contract: the RWKV states and shifts it
+    returns are new tensors, and the caller's cache is as it was."""
+    tcfg, model, cache, batch = _rwkv_step_inputs()
+    before = [{k: t.clone() for k, t in c.items()} for c in cache["blocks"]]
+    with torch.inference_mode():
+        _, new = lm.decode_step(tcfg, model, cache, batch)
+    for c, b, n in zip(cache["blocks"], before, new["blocks"]):
+        for name in b:
+            assert torch.equal(c[name], b[name])
+            assert n[name] is not c[name]
+            assert not torch.equal(n[name], b[name])

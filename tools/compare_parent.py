@@ -1,0 +1,192 @@
+"""Time this tree's K4 and K5 calls beside a parent tree's, in one process on
+one card, in turns (parent, tree, tree, parent).
+
+    git archive <parent commit> src | tar -x -C build/parent
+    PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src
+
+Each tree's ``repro_torch`` is imported in turn (``sys.modules`` cleared
+between) and builds its kernels under its own root.  Per tree it measures,
+on the shapes of this repo's paths (NVIDIA card, f32 matmuls in full
+precision):
+
+* the CUDA-core flash attention (K4) at the reduced llama3-8b's
+  (2, 6, 256, 16) causal on the layer's GQA views, f32 and bf16: the
+  wrapper call (CUDA events) and, from torch.profiler, the device kernels
+  one call runs and the attention kernel's own time;
+* K4 f32 at gemma-7b's (1, 16, 1024, 256) causal on views (the parent runs
+  it on the CUDA cores, this tree on the tensor cores);
+* WKV6 (K5): the sequence form at (1, 40, 1024, 64) f32, and the step at
+  (4, 40, 1, 64) as each tree's layer calls it (the parent on f32 copies,
+  this tree on bf16 views with the state in place);
+* the graphed rwkv6-3b decode step at batch 4 (random weights): device
+  activities and busy time per step (profiler) and the replay's wall time.
+
+Prints one line per measurement and a JSON summary last.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import re
+import statistics
+import sys
+import time
+import types
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, ROOT)
+
+STEPS = 5          # decode steps under the profiler
+REPLAYS = 50       # decode steps timed
+
+
+def load(src: str) -> types.SimpleNamespace:
+    """The ``repro_torch`` modules of the tree whose package lies in ``src``."""
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(src))
+    try:
+        from repro_torch import config
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import wkv6 as wk
+        from repro_torch.models import lm
+    finally:
+        sys.path.pop(0)
+    return types.SimpleNamespace(config=config, fa=fa, wk=wk, lm=lm)
+
+
+def kernels(acts):
+    """The kernels of a profile, without copies and fills."""
+    return [(n, us) for n, us in acts
+            if not re.search("memcpy|memset", n, re.I)]
+
+
+def measure(t, dev) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # K4 on the CUDA cores at the reduced llama3-8b's shape
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(2, 256, h, 16, dtype=dt).transpose(1, 2)
+                   for h in (6, 2, 2))
+        call = lambda: t.fa.flash_attention(q, k, v, causal=True)
+        ms = cs.time_ms(call, 25)[0]
+        acts, _ = cs.device_kernels(lambda: [call() for _ in range(10)])
+        kern = kernels(acts)
+        attn = [us for n, us in kern if "fa_kernel" in n]
+        out[f"k4_cuda_cores_{dt}"] = {
+            "wrapper_ms": ms, "kernels_per_call": len(kern) / 10,
+            "kernel_ms": statistics.median(attn) / 1e3 if attn else None,
+            "all_kernels_ms_per_call": sum(us for _, us in kern) / 10 / 1e3}
+    # K4 f32 at gemma-7b's shape
+    q, k, v = (randn(1, 1024, 16, 256).transpose(1, 2) for _ in range(3))
+    call = lambda: t.fa.flash_attention(q, k, v, causal=True)
+    out["k4_f32_hd256"] = {"route": t.fa.route(torch.float32, 256),
+                           "ms": cs.time_ms(call, 10)[0]}
+    # K5: the sequence form and the step as the layer calls it
+    H, hd = 40, 64
+    r, k, v = (randn(1, H, 1024, hd) for _ in range(3))
+    w = torch.sigmoid(randn(1, H, 1024, hd)) * 0.5 + 0.45
+    u = randn(H, hd) * 0.1
+    call = lambda: t.wk.wkv6_state(r, k, v, w, u)
+    kern = kernels(cs.device_kernels(call)[0])
+    out["k5_sequence"] = {"ms": cs.time_ms(call, 25)[0],
+                          "kernels_per_call": len(kern)}
+    B, D = 4, H * hd
+    s0 = randn(B, H, hd, hd)
+    if "out" in inspect.signature(t.wk.wkv6_state).parameters:
+        rb, kb, vb = (randn(B, 1, D, dtype=torch.bfloat16) for _ in range(3))
+        wb = torch.sigmoid(randn(B, 1, D)) * 0.5 + 0.45
+        heads = lambda x: x.view(B, 1, H, hd).transpose(1, 2)
+        ob = torch.empty((B, 1, D), dtype=torch.bfloat16, device=dev)
+        call = lambda: t.wk.wkv6_state(heads(rb), heads(kb), heads(vb),
+                                       heads(wb), u, s0, out=heads(ob),
+                                       s_out=s0)
+        layout = "bf16 views, state in place"
+    else:
+        rs, ks, vs = (randn(B, H, 1, hd) for _ in range(3))
+        ws = torch.sigmoid(randn(B, H, 1, hd)) * 0.5 + 0.45
+        call = lambda: t.wk.wkv6_state(rs, ks, vs, ws, u, s0)
+        layout = "f32 contiguous, new state"
+    kern = kernels(cs.device_kernels(call)[0])
+    out["k5_step"] = {"ms": cs.time_ms(call, 25)[0], "layout": layout,
+                      "kernel_ms": kern[0][1] / 1e3 if kern else None}
+    return out
+
+
+def graph_step(t, dev, model_cache: dict) -> dict:
+    """The graphed rwkv6-3b decode step at batch 4 (weights from seed 0)."""
+    import torch
+
+    import chip_smoke as cs
+    cfg = t.config.get_config("rwkv6_3b")
+    with torch.inference_mode():
+        model = model_cache.get(id(t))
+        if model is None:
+            model = model_cache[id(t)] = t.lm.LM.init(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        cache = model.init_cache(4, STEPS + REPLAYS + 8)
+        graph = t.lm.DecodeGraph(cfg, model, cache)
+        tok = torch.ones((4, 1), dtype=torch.int32, device=dev)
+        pos = [torch.full((4,), i, dtype=torch.int32, device=dev)
+               for i in range(REPLAYS)]
+        for p in pos[:3]:
+            graph(cache, tok, p)
+        acts, _ = cs.device_kernels(
+            lambda: [graph(cache, tok, p) for p in pos[:STEPS]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in pos:
+            graph(cache, tok, p)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / REPLAYS * 1e3
+        del graph, cache
+    return {"activities_per_step": len(acts) / STEPS,
+            "busy_ms_per_step": sum(us for _, us in acts) / STEPS / 1e3,
+            "wall_ms_per_replay": ms}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True,
+                    help="the parent tree's src directory")
+    ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
+                    help="this tree's src directory")
+    args = ap.parse_args(argv)
+    import subprocess
+
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_parent: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
+    dev = torch.device("cuda")
+    trees = {"parent": load(args.parent), "tree": load(args.tree)}
+    results = {"card": card, "parent": [], "tree": []}
+    models = {}
+    for name in ("parent", "tree", "tree", "parent"):
+        t = trees[name]
+        m = measure(t, dev)
+        m["graph_step"] = graph_step(t, dev, models)
+        results[name].append(m)
+        print(f"{name}: " + json.dumps(m))
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

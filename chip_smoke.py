@@ -53,8 +53,7 @@ runs its chunk-parallel sequence form in rwkv6-3b's prefill.  So is the
 reduced f32 llama3-8b.  Then K4's three kernels and K5 are held against
 their plain versions at those shapes (K4 on N(0, 1) inputs and on a peaky
 draw whose outputs are O(1), each limit shown to reject a result with one
-of the kernel's kv tiles dropped; at f32 hd 256 the CUDA-core kernel is
-timed beside the tensor-core one; K5's step on the serve layer's views,
+of the kernel's kv tiles dropped; K5's step on the serve layer's views,
 its sequence form in three launches, at decays 0.1, 1e-3 and 1).
 
 Every kernel is built from the sources in the checkout (one nvcc per
@@ -805,7 +804,7 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
         blocks = fa.TF32X3_BLOCKS[hd]
         cases = [(True, *blocks), (False, *blocks)]
     else:
-        blocks = fa.CUDA_CORE_BLOCKS[hd]
+        blocks = fa.CUDA_CORE_BLOCKS
         cases = [(True, *blocks), (False, *blocks), (True, 64, 64)]
     g = torch.Generator(device=dev).manual_seed(5)
     base = [torch.randn((B, S_check, h, hd), generator=g,
@@ -919,21 +918,6 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
               f"other device kernel (kernels seen per call {seen}); the "
               f"kernel {extra['kernel_ms']:.4f} ms (median), the wrapper "
               f"call {ms:.4f} ms")
-    elif hd == 256:
-        # the CUDA-core kernel on the same call, for the route's choice
-        cc = lambda: fa._launch("cuda_cores", q, k, v, True, 64, 64)
-        cc_want = fa.flash_attention_plain(q, k, v, causal=True,
-                                           block_q=64, block_k=64)
-        cc_err = (cc().float() - cc_want.float()).abs().max().item()
-        if cc_err > tol["atol"] + tol["rtol"] * cc_want.abs().max().item():
-            fail(f"K4 cuda_cores f32 hd 256 differs from its plain "
-                 f"version (max |diff| {cc_err:.3g})")
-        extra["cuda_core_ms"] = time_ms(cc, 5)[0]
-        extra["cuda_core_err"] = cc_err
-        print(f"time: K4 f32 hd 256 {tuple(q.shape)} causal: tf32x3 "
-              f"{ms:.4f} ms, the CUDA-core kernel {extra['cuda_core_ms']:.4f}"
-              f" ms (max |diff| {cc_err:.3g}): the route takes the faster, "
-              f"{'tf32x3' if ms <= extra['cuda_core_ms'] else 'CUDA cores'}")
     if by_blocks:
         print(f"time: K4 {kind} {dt} by blocks: " + ", ".join(
             f"{b} {t:.4f} ms" for b, t in by_blocks.items()))

@@ -6,8 +6,7 @@
 // Pallas TPU kernel launched by flash_attention (grid (B*H, S/block_q)), at
 // the head dims the tensor-core kernels do not take: f32 and bf16 at 16 and
 // 32 (f32 at 64, 128 and 256 runs flash_attention_tf32x3.cu, bf16 at 64,
-// 128 and 256 flash_attention_wgmma.cu).  f32 at 256 is built here too, so
-// that it can be timed beside the tensor-core form.
+// 128 and 256 flash_attention_wgmma.cu).
 //
 // What it computes: out = softmax(q k^T * hd^-0.5 [+ causal mask]) v for q
 // (B, H, S, hd) and k, v (B, Hkv, Sk, hd), q head h reading kv head
@@ -35,9 +34,9 @@
 //   by default at hd 16/32) put more blocks on the card and shorten each
 //   tile's dependent chain; the last q block still walks every tile.
 // * K and V tiles of block_k <= 64 keys in fp32 shared memory, K rows padded
-//   to hd+1 floats so that lanes reading 32 different keys hit 32 banks.  At
-//   hd <= 64 the tiles are double-buffered: the next tile's loads are in
-//   flight in registers while this one is computed, one barrier a tile.
+//   to hd+1 floats so that lanes reading 32 different keys hit 32 banks,
+//   double-buffered: the next tile's loads are in flight in registers while
+//   this one is computed, one barrier a tile.
 // * P V: the probabilities pass from the score layout to the P V layout
 //   through a per-warp strip of shared memory; at hd 16 the two halves of
 //   the warp take alternate keys (one output dim each) and are summed once
@@ -78,13 +77,9 @@ __device__ __forceinline__ float warp_sum(float x) {
     return x;
 }
 
-template <int HD>
-constexpr bool kPrefetch = HD <= 64;               // double-buffered K, V
-
 template <int HD, int RPW>
 constexpr int smem_floats(int bq, int bk) {
-    return bq * HD + (kPrefetch<HD> ? 2 : 1) * bk * (2 * HD + 1)
-           + NWARPS * RPW * MAXB;
+    return bq * HD + 2 * bk * (2 * HD + 1) + NWARPS * RPW * MAXB;
 }
 
 template <typename T, int HD, int RPW>
@@ -95,15 +90,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     constexpr int KG = HD < 32 ? 32 / HD : 1;       // key groups of P V
     constexpr int DPL = HD < 32 ? 1 : HD / 32;      // output dims per lane
     constexpr int KP = HD + 1;                      // padded K row
-    constexpr int NBUF = kPrefetch<HD> ? 2 : 1;
-    // elements of K and of V a thread prefetches (hd <= 64)
-    constexpr int PFN = kPrefetch<HD> ? MAXB * HD / NTHREADS : 1;
+    constexpr int PFN = MAXB * HD / NTHREADS;       // prefetched elements
     extern __shared__ float smem[];
     float* sq = smem;                               // bq x HD, scaled q
-    float* sk = sq + bq * HD;                       // NBUF x bk x KP
-    float* sv = sk + NBUF * bk * KP;                // NBUF x bk x HD
+    float* sk = sq + bq * HD;                       // 2 x bk x KP
+    float* sv = sk + 2 * bk * KP;                   // 2 x bk x HD
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    float* sp = sv + NBUF * bk * HD + warp * RPW * MAXB;   // RPW x MAXB
+    float* sp = sv + 2 * bk * HD + warp * RPW * MAXB;      // RPW x MAXB
 
     const int bh = blockIdx.x, b = bh / H, h = bh % H, hkv = h / G;
     const int qi = gridDim.y - 1 - blockIdx.y;      // last q block first
@@ -145,10 +138,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
     };
-    if constexpr (NBUF == 2) {
-        fetch(0);
-        put(0);
-    }
+    fetch(0);
+    put(0);
 
     // this warp's rows (clamped into the tile; rows past it are not stored)
     const float* qrow[RPW];
@@ -166,18 +157,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     for (int j = 0; j < nkv; ++j) {
-        const int k0 = j * bk, buf = NBUF == 2 ? (j & 1) : 0;
+        const int k0 = j * bk, buf = j & 1;
         __syncthreads();                 // tile j is whole; the other buffer is free
-        if constexpr (NBUF == 2) {
-            if (j + 1 < nkv) fetch(j + 1);   // in flight meanwhile
-        } else {
-            for (int e = threadIdx.x; e < bk * HD; e += NTHREADS) {
-                const int kr_ = e / HD, d = e % HD, gk = k0 + kr_;
-                sk[kr_ * KP + d] = gk < Sk ? to_f32(kp[gk * st.k[2] + d]) : 0.f;
-                sv[e] = gk < Sk ? to_f32(vp[gk * st.v[2] + d]) : 0.f;
-            }
-            __syncthreads();
-        }
+        if (j + 1 < nkv) fetch(j + 1);   // in flight meanwhile
         const float* tk = sk + buf * bk * KP;
         const float* tv = sv + buf * bk * HD;
         const float* krow0 = tk + min(lane, bk - 1) * KP;
@@ -230,9 +212,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
         __syncwarp();                    // sp is rewritten by the next tile
-        if constexpr (NBUF == 2) {
-            if (j + 1 < nkv) put((j + 1) & 1);
-        }
+        if (j + 1 < nkv) put((j + 1) & 1);
     }
 
     // the key groups' partial sums (hd < 32)
@@ -302,18 +282,14 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     switch (hd) {
         case 16: return by_rows<T, 16>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
         case 32: return by_rows<T, 32>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
-        case 256:
-            if constexpr (sizeof(T) == 4)
-                return by_rows<T, 256>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
-            return (int)cudaErrorInvalidValue;
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// q (B, H, S, hd), k and v (B, Hkv, Sk, hd), out (B, H, S, hd); hd 16 or 32
-// (and 256 in f32); strides: 12 element strides, (batch, head, row) of q,
+// q (B, H, S, hd), k and v (B, Hkv, Sk, hd), out (B, H, S, hd); hd 16 or 32;
+// strides: 12 element strides, (batch, head, row) of q,
 // k, v, out, every row unit-stride.  scale is hd^-0.5 as the caller rounds
 // it to fp32.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,

@@ -26,9 +26,7 @@ three kernels for it, chosen by dtype and head dim alone (``route``):
   of 8 warps per (b*h, q block of at most 64 rows) on the CUDA cores (16
   rows by default, ``CUDA_CORE_BLOCKS``).  It reads the views it is given
   through their strides (rows unit-stride), k and v at their kv heads, and
-  writes the output in q's layout: one call is one kernel.  It is built at
-  f32 hd 256 too, which ``_launch`` can run beside the tf32x3 kernel for
-  timing; ``route`` never sends a call there.
+  writes the output in q's layout: one call is one kernel.
 
 All stop a causal q block at the kv block that holds its last row,
 ``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
@@ -58,11 +56,12 @@ WGMMA_SOURCE = _cuda.CSRC_DIR / "flash_attention_wgmma.cu"
 WGMMA_LIB_NAME = "flash_attention_wgmma"
 TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims the kernels take
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 MAX_BLOCK = 64          # CUDA-core kernel: most q rows / kv keys
-# CUDA-core kernel: its default (block_q, block_k) by head dim (hd 256 only
-# through ``_launch``)
-CUDA_CORE_BLOCKS = {16: (16, 64), 32: (16, 64), 256: (64, 64)}
+# CUDA-core kernel: its default (block_q, block_k); 16-row q blocks put
+# more blocks on the card than 64-row ones and were faster at the reduced
+# configs' shapes (PERF.md)
+CUDA_CORE_BLOCKS = (16, 64)
 TF32X3_HEAD_DIMS = (64, 128, 256)
 # the tf32x3 kernel's own (q rows, kv keys) tile by head dim
 TF32X3_BLOCKS = {64: (64, 32), 128: (64, 32), 256: (64, 16)}
@@ -254,7 +253,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     on its own tiles: ``block_q``/``block_k`` must be ``None`` or
     ``TF32X3_BLOCKS[hd]``'s.  hd 16 and 32 run the CUDA-core kernel (any
     views, the output in q's layout; blocks of at most 64, default
-    ``CUDA_CORE_BLOCKS[hd]``).  Blocks are cut to S/Sk as in the TPU
+    ``CUDA_CORE_BLOCKS``).  Blocks are cut to S/Sk as in the TPU
     wrapper, and a ragged last block is masked.  ``device`` defaults to
     where the tensors lie (the card for numpy input): the kernels run on
     the card, the plain version on the CPU."""
@@ -287,8 +286,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
             raise ValueError(f"flash_attention: blocks ({block_q}, "
                              f"{block_k}); the tensor-core kernel takes "
                              f"{list(pairs)} at bf16 hd={hd}")
-        for t, n in ((q, "q"), (k, "k"), (v, "v")):
-            _tma_strides(t, n)
+        strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
+                                                   (v, "v"))]
     elif kind == "tf32x3":
         tile = TF32X3_BLOCKS[hd]
         if any(b not in (None, t) for b, t in zip((block_q, block_k), tile)):
@@ -297,7 +296,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              f"{tile} tiles at f32 hd={hd}")
         block_q, block_k = min(tile[0], S), min(tile[1], Sk)
     else:
-        dq, dk = CUDA_CORE_BLOCKS[hd]
+        dq, dk = CUDA_CORE_BLOCKS
         block_q = min(dq if block_q is None else block_q, S)
         block_k = min(dk if block_k is None else block_k, Sk)
         if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
@@ -306,22 +305,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
                                      block_k=block_k)
-    return _launch(kind, q, k, v, causal, block_q, block_k)
-
-
-def _launch(kind: str, q, k, v, causal: bool, block_q: int, block_k: int):
-    """One launch of kernel ``kind`` on card tensors the wrapper has
-    checked (``flash_attention``), counted in ``LAUNCHES``.  Called with
-    another kind than ``route``'s (the CUDA-core kernel at f32 hd 256), it
-    runs that kernel on the same call, for timing one beside the other."""
-    B, H, S, hd = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    dev, dtype = q.device, q.dtype
     if kind == "wgmma":
         lib, launch = _wgmma_launcher()
         out = torch.empty_like(q)
-        strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
-                                                   (v, "v"), (out, "out"))]
+        strides.append(_tma_strides(out, "out"))
         st = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -483,7 +483,7 @@ def test_flash_attention_cuda_core_reads_gqa_views(cuda_device, hd, dtype, Hkv,
         q = (q.float() * 4.0).to(dtype)
     key = f"cuda_cores/{str(dtype).removeprefix('torch.')}"
     assert fa.route(dtype, hd) == "cuda_cores"
-    for bq, bk in [fa.CUDA_CORE_BLOCKS[hd], (64, 64), (32, 48), (48, 20)]:
+    for bq, bk in [fa.CUDA_CORE_BLOCKS, (64, 64), (32, 48), (48, 20)]:
         n0 = fa.LAUNCHES[key]
         got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                  block_k=bk)
@@ -604,11 +604,14 @@ def test_reduced_model_on_the_card_equals_cpu_and_decode(cuda_device, arch):
     B, S = 2, 32
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
     n0 = sum(fa.LAUNCHES.values()) + sum(wk.LAUNCHES.values())
+    # a K4 launch per attention layer, K5's sequence form's three per RWKV
+    # layer
+    per_layer = wk.SEQUENCE_LAUNCHES if cfg.family == "ssm" else 1
     with torch.inference_mode():
         full = card({"tokens": tokens})
         torch.cuda.synchronize()
         assert sum(fa.LAUNCHES.values()) + sum(wk.LAUNCHES.values()) \
-            == n0 + cfg.n_layers
+            == n0 + cfg.n_layers * per_layer
         torch.testing.assert_close(full.cpu(), cpu({"tokens": tokens}),
                                    rtol=2e-4, atol=2e-4)
         cache = card.init_cache(B, S)
@@ -696,12 +699,12 @@ def test_decode_graph_capture_failure_raises(cuda_device, monkeypatch):
         model = lm.LM.init(cfg, torch.Generator(cuda_device).manual_seed(0),
                            cuda_device)
         cache = model.init_cache(2, 8)
-    step = lm.decode_step
+    step = lm._decode                  # what decode_step_into runs
 
     def syncing(*a, **kw):
         logits, c = step(*a, **kw)
         logits.sum().item()            # a host sync: illegal under capture
         return logits, c
-    monkeypatch.setattr(lm, "decode_step", syncing)
+    monkeypatch.setattr(lm, "_decode", syncing)
     with pytest.raises(RuntimeError):
         lm.DecodeGraph(cfg, model, cache)

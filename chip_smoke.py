@@ -12,7 +12,9 @@ read just after:
    n=4096 to the generated streamed CUDA kernel (K2, both bufferings; row
    tiles cut into column tiles on the card) and launched; the hand-written
    fused stencil (K1) runs on a 4K UHD frame with the configuration the DSE
-   sweep reads off the generated kernel.
+   sweep reads off the generated kernel; it is timed warm and with a cold
+   L2 (``time_cold_ms``), and torch.profiler must see one device kernel
+   per call.
 2. *benchmarks*: the paper's five programs (``programs.BENCHMARKS``)
    compiled at the reference tests' sizes, the best point lowered with
    ``emit_cuda``, then the original program lowered at full width (n=4096,
@@ -61,8 +63,8 @@ source, all at once, into ``build/``).
 
 Lines it prints, in order: the card's name and power limit as nvidia-smi
 gives them; each path's compile lines; the build; each path's launch
-counts; one line per check; the total seconds; one JSON line
-``{"kernels": [...]}`` (per kernel: launches on its path, max abs error
+counts; K1's launch geometry per dtype; one line per check; the total
+seconds; one JSON line ``{"kernels": [...]}`` (per kernel: launches on its path, max abs error
 against the plain version, times, bound); and last
 ``{"ok": true, "device": {...}}``.  Any failed build, launch or check
 exits non-zero before the result lines.  Needs one card; exits non-zero
@@ -95,6 +97,8 @@ CHAIN_N = 4096                   # programs at image size
 CHECK_N = 16                     # float64 checks against sequential_exec
 CONV_HW = CHAIN_N + 2            # the traced conv block's image
 SPIN_CYCLES_PER_MS = 2_000_000   # above the H100's SM clock: spins long
+FLUSH_BYTES = 256 << 20          # scratch written before a cold call: 5x L2
+K1_PROFILED_CALLS = 5            # K1 calls per dtype, each profiled alone
 # compile sizes of the reference tests; harris and optical_flow take the
 # stencil sweep's restricted search (the default search costs them ~2.5 min)
 BENCH_COMPILE_N = {"unsharp": 8, "harris": 8, "dus": 8, "optical_flow": 6,
@@ -183,6 +187,45 @@ def time_ms(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
     return statistics.median(a.elapsed_time(b) for a, b in ev), host_ms
 
 
+def time_cold_ms(fn, reps: int, read_back: bool = True) -> float:
+    """Device ms per call of ``fn()`` with the L2 cold, as a caller handing
+    in a fresh image finds it: the median over ``reps`` calls, each
+    preceded, outside its CUDA event pair, by a write of a
+    ``FLUSH_BYTES`` scratch buffer (five times the H100's 50 MB L2) and a
+    read of it, so that the L2 holds only clean scratch lines and the call
+    neither finds its inputs there nor pays for writing the scratch back
+    (``read_back=False`` leaves it to pay).  A spin kernel queued first
+    keeps the card busy while the host enqueues, as in ``time_ms``."""
+    import torch
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                          device="cuda")
+
+    def flush():
+        scratch.fill_(1.0)
+        if read_back:
+            scratch.sum()
+    fn()
+    flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        flush()
+        fn()
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * min(2 * reps * host_ms + 1,
+                                                   2000)))
+    for a, b in ev:
+        flush()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -218,7 +261,8 @@ def ptxas_summary(log: str) -> list:
     out, name, spill = [], "", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"I((?:Li\d+E|\w)+?)EEv", ln)
+            m = re.search(r"I((?:Li\d+E|\w)+?)EEv", ln) \
+                or re.search(r"I(f|13__nv_bfloat16)Ev", ln)
             grp = m.group(1) if m else ""
             typ = ["f32"] if grp.startswith("f") else \
                 ["bf16"] if "bfloat16" in grp else []
@@ -307,19 +351,30 @@ def sdpa_inputs(dev, dtype, cfg, B: int, S: int) -> tuple:
 def profile_main(dev=None) -> int:
     """``chip_smoke.py --profile``: the device's own view of the kernels the
     smoke reads off torch.profiler, in a process that has run nothing else
-    (late in a long process the profiler drops records): the CUDA-core K4
-    at the reduced path's GQA views, one call a profile, f32 and bf16; one
-    call of K5's sequence form; the kernels sdpa runs at each K4 entry's
-    shape.  Prints one JSON line."""
+    (late in a long process the profiler drops records): K1 on the frame
+    at the DSE's configuration, one call a profile, f32 and bf16; the
+    CUDA-core K4 at the reduced path's GQA views, one call a profile, f32
+    and bf16; one call of K5's sequence form; the kernels sdpa runs at each
+    K4 entry's shape.  Prints one JSON line."""
     import torch
 
     from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stencil_pipeline as sp
     from repro_torch.kernels import wkv6 as wk
 
     dev = torch.device("cuda") if dev is None else dev
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"k4": {}, "sdpa": {}}
+    out = {"k1": {}, "k4": {}, "sdpa": {}}
+    w3 = torch.tensor([0.25, 0.5, 0.25], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.rand(FRAME, device=dev).to(dtype)
+        sp.stencil_pipeline(x, w3, w3, block_rows=2, halo=2)
+        out["k1"][str(dtype).removeprefix("torch.")] = [
+            [[short_name(n_), us] for n_, us in kernel_names(device_kernels(
+                lambda: sp.stencil_pipeline(x, w3, w3, block_rows=2,
+                                            halo=2))[0])]
+            for _ in range(K1_PROFILED_CALLS)]
     small = get_config("llama3_8b", reduced=True)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn((REDUCED_B, REDUCED_S, h, small.hd),
@@ -1267,8 +1322,9 @@ def main() -> int:
         print(f"  {name}: {secs:.1f} s; " + " | ".join(ptxas_summary(log)))
     t0 = time.perf_counter()
     prof = profiles()
-    print(f"profile: a child process read K4's, K5's and sdpa's device "
-          f"kernels off torch.profiler in {time.perf_counter() - t0:.1f} s")
+    print(f"profile: a child process read K1's, K4's, K5's and sdpa's "
+          f"device kernels off torch.profiler in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---- the paths: counts from 0, launch, counts read ---------------------
     rng = np.random.default_rng(0)
@@ -1328,21 +1384,48 @@ def main() -> int:
                 torch.nn.functional.conv2d(x4, wx2), wy2)
         lib_err = (library()[0, 0].float() - plain.float()).abs().max().item()
         ms, host_ms = time_ms(lambda: sp.stencil_pipeline(x, wx, wy), 25)
+        cold_ms = time_cold_ms(lambda: sp.stencil_pipeline(x, wx, wy), 25)
+        # the device's own count of K1's kernels per call, one call a
+        # profile in the profiling child (which may drop a record, never
+        # add one)
+        calls = prof["k1"][dt]
+        seen = [len(c) for c in calls]
+        if max(seen) != 1 or any("stencil_walk_kernel" not in n_
+                                 for c in calls for n_, _ in c):
+            fail(f"K1 {dt}: calls on the frame ran the device kernels "
+                 f"{calls}; the design runs the walk kernel alone, once a "
+                 "call")
+        g = sp.launch_geometry(H, W, x.dtype, *cfg)
+        ptxas = [p_ for p_ in ptxas_summary(
+            _cuda.BUILD_LOG.get(sp.LIB_NAME, (0, ""))[1])
+            if p_.startswith(f"<{'f32' if esz == 4 else 'bf16'}>")]
+        print(f"geometry: K1 {dt} {H}x{W} at {cfg}: grid {list(g.grid)} "
+              f"(strips x runs, {g.grid[0] * g.grid[1]} blocks), strip "
+              f"{g.strip} columns, run {g.run} rows, {g.threads} threads, "
+              f"{g.vec} columns a thread, {sp.RING_ROWS} rows in flight, "
+              f"{g.smem} B shared; ptxas " + " | ".join(ptxas))
         entry = {
             "name": f"stencil_pipeline[{dt}]", "route": "cuda",
             "source": "src/repro_torch/csrc/stencil_pipeline.cu",
             "replaces": K1_REPLACES, "launches": n, "max_abs_err": err,
-            "ms": ms,
+            "ms": ms, "cold_ms": cold_ms,
             "plain_ms": time_ms(
                 lambda: sp.stencil_pipeline_plain(x, wx, wy), 25)[0],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(library, 25)[0], "host_ms": host_ms,
-            "bytes": nbytes, "shape": [H, W], "config": list(cfg)}
+            "library_ms": time_ms(library, 25)[0],
+            "library_cold_ms": time_cold_ms(library, 25), "host_ms": host_ms,
+            "bytes": nbytes, "shape": [H, W], "config": list(cfg),
+            "kernels_seen_per_call": seen, "grid": list(g.grid),
+            "run": g.run, "threads": g.threads, "smem_bytes": g.smem,
+            "ptxas": ptxas}
         entries.append(entry)
-        print(f"check: K1 {dt} {H}x{W} == plain bitwise; {ms:.4f} ms on the"
-              f" card, {host_ms:.4f} ms host per call (bound {b_ms:.4f} ms, "
-              f"conv2d pair {entry['library_ms']:.4f} ms, max |conv2d - "
-              f"plain| {lib_err:.3g})")
+        print(f"check: K1 {dt} {H}x{W} == plain bitwise; one device kernel a "
+              f"call (seen per profiled call {seen}); {cold_ms:.4f} ms on the "
+              f"card with a cold L2 ({b_ms / cold_ms:.0%} of the bound "
+              f"{b_ms:.4f} ms), {ms:.4f} ms warm, {host_ms:.4f} ms host per "
+              f"call (conv2d pair {entry['library_cold_ms']:.4f} ms cold, "
+              f"{entry['library_ms']:.4f} ms warm, max |conv2d - plain| "
+              f"{lib_err:.3g})")
 
     # ---- K2 per program: kernel vs plain, double == single, timed ---------
     def k2_library(name, x):

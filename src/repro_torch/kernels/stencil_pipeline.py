@@ -4,10 +4,19 @@ hierarchy.
 
 The FPGA version overlaps the two loop nests with an ILP-derived slack: the
 consumer may start once the producer has written ``halo`` rows.  On the GPU
-the same slack *sizes the shared-memory line buffer*: each block loads a
-row tile plus ``halo`` extra rows, computes the producer stage (conv-x) for
-the whole tile in shared memory, and immediately consumes it (conv-y) — the
-intermediate array never touches device memory.  The kernel is
+the same slack *sizes the line buffer*, which the kernel holds in
+registers and walks down the image: a block owns a strip of output columns
+and a run of output rows; each thread owns 16 bytes of a row (4 columns in
+f32, 8 in bf16), takes the two columns to its right from the next lane,
+computes its producer row (conv-x) and, once ``halo`` rows are in, emits one
+consumer row (conv-y) per input row from the rows it carries — the
+intermediate array never touches device memory, and each input row of a run
+is read once.  ``block_rows`` is the number of output rows one step of the
+walk emits; a run is a whole number of steps.  ``launch_geometry`` and
+the constants above it are the one place the grid, strip, run, threads,
+rows in flight and shared memory are chosen; the kernel takes them as
+arguments or, where they must be known when it compiles, as ``#define``s
+that ``kernel_source`` puts before its text.  The kernel is
 ``csrc/stencil_pipeline.cu``; ``stencil_pipeline_plain`` beside it is the
 plain PyTorch version, which the wrapper runs only for tensors on the CPU.
 
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -35,29 +45,78 @@ from .. import _cuda
 
 SOURCE = _cuda.CSRC_DIR / "stencil_pipeline.cu"
 LIB_NAME = "stencil_pipeline"
-TW = 128   # output columns per block; must match csrc/stencil_pipeline.cu
 _ENTRY = {torch.float32: "stencil_pipeline_f32",
           torch.bfloat16: "stencil_pipeline_bf16"}
 
 # launches per image dtype ("float32" / "bfloat16"), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
+THREADS = 128        # threads per block (4 warps), fewer on narrow images
+RING_ROWS = 4        # input rows in flight per thread, in shared memory
+# blocks of THREADS an SM is guaranteed to hold: the kernel's launch bounds,
+# which leave ptxas 65,536 / (blocks x THREADS) registers a thread
+BLOCKS_PER_SM = {torch.float32: 8, torch.bfloat16: 5}
+# output rows per run: the fastest measured on the H100 at the 4K frame
+# (PERF.md, PR 18); a run re-reads 2 halo rows, mostly from L2
+RUN_ROWS = {torch.float32: 10, torch.bfloat16: 14}
+MAX_GRID_Y = 65535
+
 
 @functools.lru_cache(maxsize=None)
 def kernel_source() -> str:
-    return SOURCE.read_text()
+    """``csrc/stencil_pipeline.cu`` with the constants it takes from here."""
+    return (f"#define K1_THREADS {THREADS}\n#define K1_RING {RING_ROWS}\n"
+            f"#define K1_BLOCKS_F32 {BLOCKS_PER_SM[torch.float32]}\n"
+            f"#define K1_BLOCKS_BF16 {BLOCKS_PER_SM[torch.bfloat16]}\n"
+            + SOURCE.read_text())
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(dtype: torch.dtype):
     lib = _cuda.load(LIB_NAME, kernel_source())
     return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 4
-                            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                            + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
-def smem_bytes(block_rows: int, halo: int) -> int:
-    """Dynamic shared memory of one block: the line window and bx."""
-    return (block_rows + halo) * (2 * TW + 2) * 4
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How ``csrc/stencil_pipeline.cu`` covers one image: ``grid`` blocks
+    (strips, runs) of ``threads`` threads; a thread owns ``vec`` columns
+    (16 bytes), a block a strip of ``strip`` output columns and a run of
+    ``run`` output rows (the last strip and run may be shorter); ``smem``
+    bytes of shared memory a block (its ring of rows in flight)."""
+    grid: tuple
+    strip: int
+    run: int
+    threads: int
+    vec: int
+    smem: int
+
+
+def launch_geometry(H: int, W: int, dtype: torch.dtype, block_rows: int,
+                    halo: int) -> Geometry:
+    """The launch geometry of an (H, W) image of ``dtype`` at
+    ``(block_rows, halo)``: runs of ``RUN_ROWS`` rows rounded up to whole
+    steps of ``block_rows`` (longer where the grid's y limit needs it), one
+    lane per 16 bytes of a row.  ``halo`` beyond 2 changes nothing: the
+    3-tap conv-y reads two carried rows."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    Hout, Wout = H - 2, W - 2
+    lanes = -(-Wout // vec)
+    threads = min(THREADS, 32 * -(-lanes // 32))
+    strip = threads * vec
+    want = max(RUN_ROWS[dtype], -(-Hout // MAX_GRID_Y))
+    run = min(block_rows * -(-want // block_rows), Hout)
+    return Geometry(grid=(-(-Wout // strip), -(-Hout // run)), strip=strip,
+                    run=run, threads=threads, vec=vec,
+                    smem=smem_bytes(block_rows, halo, threads))
+
+
+def smem_bytes(block_rows: int, halo: int, threads: int = THREADS) -> int:
+    """Dynamic shared memory of one block, the same at any configuration:
+    the ring of ``RING_ROWS`` rows of 16 bytes a thread, and of 8 bytes a
+    warp for lane 31's two extra columns."""
+    return RING_ROWS * (threads * 16 + threads // 32 * 8)
 
 
 def stencil_pipeline_plain(img: torch.Tensor, wx: torch.Tensor,
@@ -128,16 +187,13 @@ def stencil_pipeline(img, wx, wy, *, block_rows=None, halo=None,
                          "beyond the tile")
     if dev.type == "cpu":
         return stencil_pipeline_plain(img, wx, wy)
-    smem = smem_bytes(block_rows, halo)
-    if smem > _cuda.MAX_SMEM_BYTES:
-        raise RuntimeError(f"block_rows {block_rows} + halo {halo} need {smem}"
-                           f" bytes of shared memory, more than the "
-                           f"{_cuda.MAX_SMEM_BYTES} a block has")
+    g = launch_geometry(H, W, img.dtype, block_rows, halo)
     lib, launch = _launcher(img.dtype)
     out = torch.empty((Hout, W - 2), dtype=img.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = launch(img.data_ptr(), wx.data_ptr(), wy.data_ptr(),
-                    out.data_ptr(), H, W, block_rows, halo,
+                    out.data_ptr(), H, W, block_rows, halo, *g.grid,
+                    g.threads, g.run, g.smem,
                     _cuda.current_stream(dev))
     _cuda.check(lib, rc, "stencil_pipeline")
     LAUNCHES[str(img.dtype).removeprefix("torch.")] += 1

@@ -50,6 +50,81 @@ def test_stencil_kernel_equals_plain(cuda_device, H, W, br, dtype):
     assert torch.equal(got, sp.stencil_pipeline_plain(img, w, w))
 
 
+def _k1_call(img, br, halo):
+    """One K1 call on the card: its result and the launches it counted."""
+    w = torch.tensor(W3, device=img.device)
+    dt = str(img.dtype).removeprefix("torch.")
+    n0 = sp.LAUNCHES[dt]
+    got = sp.stencil_pipeline(img, w, w, block_rows=br, halo=halo)
+    torch.cuda.synchronize()
+    return got, sp.LAUNCHES[dt] - n0, sp.stencil_pipeline_plain(img, w, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("halo", [2, 3])
+@pytest.mark.parametrize("br", [1, 2, 4, 8])
+@pytest.mark.parametrize("H", [10, 42])
+@pytest.mark.parametrize("W", [3, 4, 5, 130, 131, 4098])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil_walk_edge_shapes_equal_plain(cuda_device, dtype, W, H, br,
+                                              halo):
+    """The walk at one output column, a few, odd row strides, the traced
+    conv block's width, one run and ragged runs, halo > 2: bit for bit the
+    plain version, one launch a call."""
+    img = torch.from_numpy(np.random.default_rng(H * W).standard_normal(
+        (H, W)).astype(np.float32)).to(cuda_device, getattr(torch, dtype))
+    got, launches, want = _k1_call(img, br, halo)
+    assert launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("base", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil_walk_on_unaligned_views_equals_plain(cuda_device, dtype,
+                                                      base):
+    """An image that starts ``base`` elements into its storage: rows read
+    in 8-, 4- or 2-byte pieces."""
+    H, W = 26, 131
+    flat = torch.from_numpy(np.random.default_rng(base).standard_normal(
+        H * W + base).astype(np.float32)).to(cuda_device,
+                                             getattr(torch, dtype))
+    img = flat[base:].view(H, W)
+    assert img.data_ptr() % 16 != 0
+    got, launches, want = _k1_call(img, 2, 2)
+    assert launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil_walk_nan_and_inf_equal_plain(cuda_device, dtype):
+    """NaN and +-inf go through the walk as through the plain version."""
+    x = np.random.default_rng(7).standard_normal((42, 131)).astype(
+        np.float32)
+    x[1, 2] = np.nan
+    x[5, 0] = np.inf
+    x[20, 64:70] = -np.inf
+    x[41, 130] = np.nan
+    img = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    got, launches, want = _k1_call(img, 2, 2)
+    assert launches == 1
+    assert bool(got.isnan().any()) and bool(got.isinf().any())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil_walk_full_frame_equals_plain(cuda_device, dtype):
+    """The 4K UHD frame at the DSE's configuration."""
+    img = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.0, 1.0, (2160, 3840)).astype(np.float32)).to(
+            cuda_device, getattr(torch, dtype))
+    got, launches, want = _k1_call(img, *sp._stencil_codegen_config())
+    assert launches == 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("name", CHAINS)
 def test_streamed_kernel_equals_plain(cuda_device, name):

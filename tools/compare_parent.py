@@ -1,14 +1,20 @@
-"""Time this tree's K4 and K5 calls beside a parent tree's, in one process on
-one card, in turns (parent, tree, tree, parent).
+"""Time this tree's K1, K4 and K5 calls beside a parent tree's, in one
+process on one card, in turns (parent, tree, tree, parent).
 
     git archive <parent commit> src | tar -x -C build/parent
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src
+    PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
+        --only k1
 
 Each tree's ``repro_torch`` is imported in turn (``sys.modules`` cleared
 between) and builds its kernels under its own root.  Per tree it measures,
 on the shapes of this repo's paths (NVIDIA card, f32 matmuls in full
 precision):
 
+* the fused stencil (K1) on the 4K UHD frame (2160, 3840) at the DSE's
+  (block_rows, halo) = (2, 2), f32 and bf16: the call with a cold L2
+  (``chip_smoke.time_cold_ms``) and warm (``chip_smoke.time_ms``), and
+  whether it equals the plain version bit for bit;
 * the CUDA-core flash attention (K4) at the reduced llama3-8b's
   (2, 6, 256, 16) causal on the layer's GQA views, f32 and bf16: the
   wrapper call (CUDA events) and, from torch.profiler, the device kernels
@@ -21,7 +27,8 @@ precision):
 * the graphed rwkv6-3b decode step at batch 4 (random weights): device
   activities and busy time per step (profiler) and the replay's wall time.
 
-Prints one line per measurement and a JSON summary last.
+``--only k1`` measures K1 alone.  Prints one line per tree and turn and a
+JSON summary last.
 """
 from __future__ import annotations
 
@@ -52,17 +59,37 @@ def load(src: str) -> types.SimpleNamespace:
     try:
         from repro_torch import config
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import stencil_pipeline as sp
         from repro_torch.kernels import wkv6 as wk
         from repro_torch.models import lm
     finally:
         sys.path.pop(0)
-    return types.SimpleNamespace(config=config, fa=fa, wk=wk, lm=lm)
+    return types.SimpleNamespace(config=config, fa=fa, sp=sp, wk=wk, lm=lm)
 
 
 def kernels(acts):
     """The kernels of a profile, without copies and fills."""
     return [(n, us) for n, us in acts
             if not re.search("memcpy|memset", n, re.I)]
+
+
+def measure_k1(t, dev) -> dict:
+    """K1 on the frame, cold and warm, f32 and bf16."""
+    import torch
+
+    import chip_smoke as cs
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.tensor([0.25, 0.5, 0.25], device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.rand(cs.FRAME, generator=g, device=dev).to(dt)
+        call = lambda: t.sp.stencil_pipeline(x, w, w, block_rows=2, halo=2)
+        out[f"k1_{dt}"] = {
+            "cold_ms": cs.time_cold_ms(call, 25),
+            "warm_ms": cs.time_ms(call, 25)[0],
+            "equal_plain": torch.equal(call(),
+                                       t.sp.stencil_pipeline_plain(x, w, w))}
+    return out
 
 
 def measure(t, dev) -> dict:
@@ -162,6 +189,8 @@ def main(argv=None) -> int:
                     help="the parent tree's src directory")
     ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
                     help="this tree's src directory")
+    ap.add_argument("--only", choices=("k1",),
+                    help="measure only this kernel")
     args = ap.parse_args(argv)
     import subprocess
 
@@ -180,8 +209,10 @@ def main(argv=None) -> int:
     models = {}
     for name in ("parent", "tree", "tree", "parent"):
         t = trees[name]
-        m = measure(t, dev)
-        m["graph_step"] = graph_step(t, dev, models)
+        m = measure_k1(t, dev)
+        if args.only is None:
+            m.update(measure(t, dev))
+            m["graph_step"] = graph_step(t, dev, models)
         results[name].append(m)
         print(f"{name}: " + json.dumps(m))
     print(json.dumps(results))

@@ -3,7 +3,7 @@ them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Six paths, each run with the launch counts set to 0 just before it and
+Eight paths, each run with the launch counts set to 0 just before it and
 read just after:
 
 1. *chains*: ``hls.compile`` schedules each stencil chain of
@@ -41,15 +41,34 @@ read just after:
    layer's attention runs the CUDA-core flash-attention kernel (K4 at the
    head dims the tensor-core kernels do not take) on the layer's GQA
    views, one device kernel a call.
+7. *moe_serve*: DeepSeek-V2 at its published widths cut to 3 layers (the
+   dense prefix layer + 2 MoE layers; MLA in each, 160 routed experts,
+   top-6, 2 shared; bf16, random weights from a seeded generator) served
+   by a ``ContinuousBatcher`` of 4 slots answering 8 requests, every step
+   a replay of the step's CUDA graph; the same requests eagerly must give
+   the same ids; the step is timed beside its weight-read bound, and its
+   device busy time read off torch.profiler in the profiling child.  No
+   TPU kernel is on this path (the reference's MLA and MoE are einsums and
+   gathers), so the graph records no wrapper launch.  The card's MoE
+   dispatch tables (expert ids, ranks, kept pairs, source tokens) at 1024
+   tokens, with drops, must equal a host loop's from the same router
+   logits.
+8. *moe_prefill*: Kimi-K2 at its published widths cut to 2 layers (the
+   prefix + 1 MoE layer of 384 experts; bf16, chunked attention) runs
+   ``lm.forward`` on 2048 tokens; each layer's attention runs the
+   tensor-core K4 at a GQA group of 8 (64 q heads over 8 kv heads), on
+   views, k and v unrepeated.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
 launches a call (``K3_LAUNCHES``; the earlier design launched one per
 nest, ``K3_LAUNCHES_BEFORE``), which the profiler counts on the card.
 
-Three models, at full width and depth 2 in f32, are held against
+Four models, at full width and depth 2 in f32, are held against
 themselves (the *equivalence* path): the prefill's last-token logits
-against the last of the decode steps'.  K4 in f32 runs the 3xTF32
+against the last of the decode steps' (DeepSeek-V2 with its capacity
+factor raised so that the prefill drops no pair, and its MLA prefix layer
+alone too).  K4 in f32 runs the 3xTF32
 tensor-core kernel there, at hd 128 (llama3-8b) and hd 256 (gemma-7b); K5
 runs its chunk-parallel sequence form in rwkv6-3b's prefill.  So is the
 reduced f32 llama3-8b.  Then K4's three kernels and K5 are held against
@@ -72,6 +91,7 @@ without one.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -99,6 +119,7 @@ CONV_HW = CHAIN_N + 2            # the traced conv block's image
 SPIN_CYCLES_PER_MS = 2_000_000   # above the H100's SM clock: spins long
 FLUSH_BYTES = 256 << 20          # scratch written before a cold call: 5x L2
 K1_PROFILED_CALLS = 5            # K1 calls per dtype, each profiled alone
+K3_PROFILED_CALLS = 3            # K3 calls per program, each profiled alone
 # compile sizes of the reference tests; harris and optical_flow take the
 # stencil sweep's restricted search (the default search costs them ~2.5 min)
 BENCH_COMPILE_N = {"unsharp": 8, "harris": 8, "dus": 8, "optical_flow": 6,
@@ -121,6 +142,15 @@ TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 tensor cores
 PREFILL_S = 4096                 # llama3-8b prefill tokens (B=1)
 EQUIV_S = 1024                   # prefill == decode check, depth 2, f32
 EQUIV_ARCHS = ("llama3_8b", "gemma_7b", "rwkv6_3b")
+# the MoE family at full width, depth cut (every other field as published):
+# DeepSeek-V2 served (the dense prefix layer + 2 MoE layers), held prefill
+# == decode at depth 2 in f32, its dispatch tables at MOE_DISPATCH_S tokens;
+# Kimi-K2's prefill (the prefix + 1 MoE layer) through K4 at a GQA group of 8
+MOE_SERVE_LAYERS = 3
+MOE_EQUIV_LAYERS = 2
+MOE_DISPATCH_S = 1024
+MOE_PREFILL_LAYERS = 2
+MOE_PREFILL_S = 2048
 # K4's limits against its plain version: both round the same fp32 sums
 # once, so bf16 outputs differ by at most an ulp (2^-8 relative)
 K4_TOL = {"bfloat16": dict(rtol=1e-2, atol=4e-3),
@@ -136,7 +166,9 @@ K4_SDPA_SHAPES = {
     "float32/llama3_8b": ("float32", "llama3_8b", False, 1, 1024),
     "float32/gemma_7b": ("float32", "gemma_7b", False, 1, 1024),
     "float32/llama3_8b/reduced": ("float32", "llama3_8b", True, 2, 256),
-    "bfloat16/llama3_8b/reduced": ("bfloat16", "llama3_8b", True, 2, 256)}
+    "bfloat16/llama3_8b/reduced": ("bfloat16", "llama3_8b", True, 2, 256),
+    "bfloat16/kimi_k2_1t_a32b": ("bfloat16", "kimi_k2_1t_a32b", False, 1,
+                                 MOE_PREFILL_S)}
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 K5_CHUNKS = (32, 64, 128)        # the sequence form's chunk lengths timed
 PROFILE_STEPS = 5                # decode steps under the profiler
@@ -165,7 +197,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
     warm-up.  A spin kernel queued first, twice as long as it takes the host
     to enqueue every call, keeps the card busy meanwhile, so the calls run
     back to back and the events see device time, not the wrapper's host
-    overhead (reported apart as host ms: the enqueue time of one call)."""
+    overhead (reported apart as host ms: the enqueue time of one call).
+    If the spin has ended before the host enqueued the last call (the host
+    ran slower than it measured), the calls are timed again behind a spin
+    four times as long, up to 2 s."""
     import torch
     for _ in range(warmup):
         fn()
@@ -178,12 +213,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     spin_ms = min(2 * reps * host_ms + 1, 2000)
-    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * spin_ms))
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
+    while True:
+        torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * spin_ms))
+        spun = torch.cuda.Event()
+        spun.record()
+        for a, b in ev:
+            a.record()
+            fn()
+            b.record()
+        covered = not spun.query()
+        torch.cuda.synchronize()
+        if covered or spin_ms >= 2000:
+            break
+        spin_ms = min(4 * spin_ms, 2000)
     return statistics.median(a.elapsed_time(b) for a, b in ev), host_ms
 
 
@@ -351,7 +393,10 @@ def sdpa_inputs(dev, dtype, cfg, B: int, S: int) -> tuple:
 def profile_main(dev=None) -> int:
     """``chip_smoke.py --profile``: the device's own view of the kernels the
     smoke reads off torch.profiler, in a process that has run nothing else
-    (late in a long process the profiler drops records): K1 on the frame
+    (late in a long process the profiler drops records): each K3
+    program's calls at full size (``k3_profiles``); the graphed
+    decode step of the moe_serve path's DeepSeek-V2 (``moe_step_profile``);
+    K1 on the frame
     at the DSE's configuration, one call a profile, f32 and bf16; the
     CUDA-core K4 at the reduced path's GQA views, one call a profile, f32
     and bf16; one call of K5's sequence form; the kernels sdpa runs at each
@@ -365,7 +410,9 @@ def profile_main(dev=None) -> int:
 
     dev = torch.device("cuda") if dev is None else dev
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"k1": {}, "k4": {}, "sdpa": {}}
+    out = {"k1": {}, "k3": k3_profiles(dev), "k4": {}, "sdpa": {},
+           "moe_step": moe_step_profile(dev)}
+    torch.cuda.empty_cache()
     w3 = torch.tensor([0.25, 0.5, 0.25], device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.rand(FRAME, device=dev).to(dtype)
@@ -409,6 +456,32 @@ def profile_main(dev=None) -> int:
     return 0
 
 
+def k3_profiles(dev) -> dict:
+    """{program: [[[kernel, us], ...] per call]}: the device kernels of
+    ``K3_PROFILED_CALLS`` calls of each whole-array program the smoke runs
+    through K3 (``K3_LAUNCHES``), at its full size on ``sim.make_inputs``'
+    data, each call profiled alone (no copies or fills)."""
+    import torch
+
+    from repro_torch.core import codegen, frontend, programs, sim
+
+    out = {}
+    for name in K3_LAUNCHES:
+        p = (frontend.conv_block_program(CONV_HW, CONV_HW).program
+             if name == "traced_conv"
+             else programs.BENCHMARKS[name](CHAIN_N, storage="bram"))
+        k = codegen.lower_program(p)
+        x = sim.make_inputs(p, seed=0)
+        xs = {a: torch.as_tensor(x[a], dtype=torch.float32, device=dev)
+              for a in k.inputs}
+        k(xs)
+        out[name] = [[[short_name(n_), us] for n_, us in kernel_names(
+            device_kernels(lambda: k(xs))[0])]
+            for _ in range(K3_PROFILED_CALLS)]
+        del xs, x
+    return out
+
+
 def profiles() -> dict:
     """``profile_main``'s result, from a child process run to its end."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -418,6 +491,64 @@ def profiles() -> dict:
         fail(f"the profiling child exited {r.returncode}: "
              f"{r.stderr[-2000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def serve_requests(vocab: int) -> tuple:
+    """The batchers' requests: (prompts of 8-32 tokens, their lengths, the
+    cache length they need)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    lens = rng.integers(8, 33, SERVE["requests"])
+    prompts = [rng.integers(2, vocab, n) for n in lens]
+    return prompts, lens, int(lens.max()) + SERVE["max_new"] + 1
+
+
+def run_batcher(cfg, model, prompts, max_len: int, graphed: bool, dev,
+                what: str) -> tuple:
+    """(ids by request, batcher, seconds of its run): a
+    ``ContinuousBatcher`` of ``SERVE["slots"]`` slots answering
+    ``prompts`` (``SERVE["max_new"]`` tokens each), every step a replay of
+    the step's CUDA graph (``lm.DecodeGraph``) or, not ``graphed``, the
+    eager step.  Fails unless every request completes."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.runtime.serving import ContinuousBatcher, Request
+
+    with torch.inference_mode():
+        b = ContinuousBatcher(
+            None, lambda n: model.init_cache(n, max_len),
+            n_slots=SERVE["slots"], eos=1, max_len=max_len, device=dev)
+        b.decode_fn = lm.DecodeGraph(cfg, model, b.cache) if graphed \
+            else (lambda c, t, p: model.decode_step(
+                c, {"token": t, "pos": p}))
+        for i, pr in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=pr, max_new=SERVE["max_new"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if len(b.completed) != len(prompts) or \
+            not all(r.done for r in b.completed):
+        fail(f"{what} batcher ({'graph' if graphed else 'eager'}) completed "
+             f"{len(b.completed)} of {len(prompts)} requests")
+    return {r.rid: r.output for r in b.completed}, b, secs
+
+
+def step_times(cfg, model, prompts, max_len: int, ids: dict, dev,
+               what: str) -> dict:
+    """ms per batcher step, eager and graphed, timed eager, graph, graph,
+    eager; every run must give the main run's ``ids``."""
+    times = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        got, bm, sec = run_batcher(cfg, model, prompts, max_len,
+                                   mode == "graph", dev, what)
+        if got != ids:
+            fail(f"{what} batcher ({mode}): ids differ from the graphed "
+                 f"main run's: {got} vs {ids}")
+        times[mode].append(sec / bm.steps * 1e3)
+    return times
 
 
 def serve_path(dev) -> dict:
@@ -432,7 +563,6 @@ def serve_path(dev) -> dict:
     from repro_torch.config import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    from repro_torch.runtime.serving import ContinuousBatcher, Request
 
     cfg = get_config("rwkv6_3b")
     argv = ["--arch", "rwkv6_3b", "--device", dev.type, "--batch",
@@ -441,39 +571,14 @@ def serve_path(dev) -> dict:
     with torch.inference_mode():
         model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
-    rng = np.random.default_rng(1)
-    lens = rng.integers(8, 33, SERVE["requests"])
-    prompts = [rng.integers(2, cfg.vocab, n) for n in lens]
-    max_len = int(lens.max()) + SERVE["max_new"] + 1
-
-    def batcher(graphed: bool):
-        """(ids by request, batcher, seconds of its run)."""
-        with torch.inference_mode():
-            b = ContinuousBatcher(
-                None, lambda n: model.init_cache(n, max_len),
-                n_slots=SERVE["slots"], eos=1, max_len=max_len, device=dev)
-            b.decode_fn = lm.DecodeGraph(cfg, model, b.cache) if graphed \
-                else (lambda c, t, p: model.decode_step(
-                    c, {"token": t, "pos": p}))
-            for i, pr in enumerate(prompts):
-                b.submit(Request(rid=i, prompt=pr, max_new=SERVE["max_new"]))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            b.run()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        if len(b.completed) != len(prompts) or \
-                not all(r.done for r in b.completed):
-            fail(f"batcher ({'graph' if graphed else 'eager'}) completed "
-                 f"{len(b.completed)} of {len(prompts)} requests")
-        return {r.rid: r.output for r in b.completed}, b, secs
+    prompts, lens, max_len = serve_requests(cfg.vocab)
 
     # ---- the main path: graphed serve.main and batcher, counted ----------
     zero_model_counts()
     t0 = time.perf_counter()
     gen = serve.main(argv)
     main_s = time.perf_counter() - t0
-    ids, b, _ = batcher(True)
+    ids, b, _ = run_batcher(cfg, model, prompts, max_len, True, dev, "serve")
     n = model_counts()
     print("serve path launches: " + json.dumps(n, sort_keys=True))
     if gen.shape != (SERVE["batch"], SERVE["gen"]) or \
@@ -503,13 +608,7 @@ def serve_path(dev) -> dict:
     if not np.array_equal(eager_gen, gen):
         fail(f"serve.main: the graphed ids {gen.tolist()} differ from the "
              f"eager ids {eager_gen.tolist()}")
-    times = {"eager": [], "graph": []}
-    for mode in ("eager", "graph", "graph", "eager"):
-        got, bm, sec = batcher(mode == "graph")
-        if got != ids:
-            fail(f"batcher ({mode}): ids differ from the graphed main "
-                 f"run's: {got} vs {ids}")
-        times[mode].append(sec / bm.steps * 1e3)
+    times = step_times(cfg, model, prompts, max_len, ids, dev, "serve")
     print(f"check: every token id of serve.main (batch {SERVE['batch']}, "
           f"{SERVE['gen']} tokens) and of all {len(prompts)} batcher "
           "requests is the same eager and graphed")
@@ -587,33 +686,37 @@ def serve_path(dev) -> dict:
             "graph_activities": activities}
 
 
-def prefill_path(dev) -> dict:
-    """The prefill path: llama3-8b's ``lm.forward`` on 4096 tokens; K4 in
-    every layer."""
+def k4_prefill(cfg, S: int, what: str, dev) -> dict:
+    """``lm.forward`` of ``cfg`` (bf16, chunked attention; random weights
+    from seed 0 on the card) on 1 x S tokens, counted: the tensor-core K4
+    once a layer, handed q at its heads and k, v at the kv heads as views
+    of the layer's (B, S, heads, hd) activations (``_repeat_kv`` never
+    runs), the logits finite; then timed (median of 3) and profiled once.
+    Prints the path's lines under ``what``."""
     import numpy as np
     import torch
 
-    from repro_torch.config import get_config
     from repro_torch.models import layers, lm
 
-    cfg = dataclasses.replace(get_config("llama3_8b"), attn_impl="chunked")
-    # what each layer hands K4, and whether it repeats kv heads
     seen, repeats = [], []
     k4, repeat_kv = layers.flash_attention, layers._repeat_kv
 
     def k4_spy(q, k, v, **kw):
-        seen.append((k.shape[1], all(t.transpose(1, 2).is_contiguous()
-                                     for t in (q, k, v))))
+        seen.append((q.shape[1], k.shape[1],
+                     all(t.transpose(1, 2).is_contiguous()
+                         for t in (q, k, v))))
         return k4(q, k, v, **kw)
 
     def repeat_spy(*a):
         repeats.append(1)
         return repeat_kv(*a)
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
+        n_params = sum(p.numel() for p in model.parameters())
         tokens = torch.as_tensor(np.random.default_rng(2).integers(
-            0, cfg.vocab, (1, PREFILL_S)), dtype=torch.int32, device=dev)
+            0, cfg.vocab, (1, S)), dtype=torch.int32, device=dev)
         layers.flash_attention, layers._repeat_kv = k4_spy, repeat_spy
         try:
             zero_model_counts()
@@ -622,21 +725,24 @@ def prefill_path(dev) -> dict:
             n = model_counts()
         finally:
             layers.flash_attention, layers._repeat_kv = k4, repeat_kv
-        print("prefill path launches: " + json.dumps(n, sort_keys=True))
+        print(f"{what} path launches: " + json.dumps(n, sort_keys=True))
         if n != {"k4/wgmma/bfloat16": cfg.n_layers}:
-            fail(f"prefill launches {n}, expected {cfg.n_layers} "
+            fail(f"{what} launches {n}, expected {cfg.n_layers} "
                  "tensor-core K4 launches per forward")
-        if repeats or seen != [(cfg.n_kv_heads, True)] * cfg.n_layers:
-            fail(f"prefill: K4 got (kv heads, views) {set(seen)} and "
-                 f"_repeat_kv ran {len(repeats)} times; expected k, v at "
-                 f"{cfg.n_kv_heads} heads as views, no repeat")
-        print(f"check: prefill: every layer handed K4 k and v at "
-              f"{cfg.n_kv_heads} kv heads as views of its (B, S, heads, hd) "
-              "activations; _repeat_kv ran 0 times")
-        if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab) or \
+        want = [(cfg.n_heads, cfg.n_kv_heads, True)] * cfg.n_layers
+        if repeats or seen != want:
+            fail(f"{what}: K4 got (q heads, kv heads, views) {set(seen)} "
+                 f"and _repeat_kv ran {len(repeats)} times; expected "
+                 f"{want[0]}, no repeat")
+        print(f"check: {what}: every layer handed K4 q at {cfg.n_heads} "
+              f"heads and k, v at {cfg.n_kv_heads} (a GQA group of "
+              f"{cfg.n_heads // cfg.n_kv_heads}) as views of its (B, S, "
+              "heads, hd) activations; _repeat_kv ran 0 times")
+        if tuple(logits.shape) != (1, S, cfg.vocab) or \
                 not torch.isfinite(logits).all():
-            fail(f"prefill logits of shape {tuple(logits.shape)} are not "
+            fail(f"{what} logits of shape {tuple(logits.shape)} are not "
                  "finite")
+        del logits
         reps = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -647,20 +753,35 @@ def prefill_path(dev) -> dict:
         acts, wall = device_kernels(
             lambda: lm.forward(cfg, model, {"tokens": tokens}))
     fwd_ms = statistics.median(reps)
-    print(f"prefill: llama3-8b forward on 1x{PREFILL_S} tokens "
-          f"{fwd_ms:.1f} ms (median of 3); logits finite; "
-          f"{n['k4/wgmma/bfloat16']} K4 launches per forward")
+    print(f"{what}: {cfg.name} full width, {cfg.n_layers} layers, bf16 "
+          f"({n_params} parameters): forward on 1x{S} tokens {fwd_ms:.1f} "
+          f"ms (median of 3: {', '.join(f'{t:.1f}' for t in reps)}); "
+          f"logits finite; {n['k4/wgmma/bfloat16']} K4 launches per "
+          f"forward; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if acts:
         busy = sum(us for _, us in acts) / 1e3
-        k4 = sum(us for name, us in acts if "fa_wgmma_kernel" in name) / 1e3
-        print(f"prefill: profiled forward: {len(acts)} device "
-              f"activities, device busy {busy:.1f} ms of {wall:.1f} ms "
-              f"wall; K4 {k4:.1f} ms ({k4 / busy:.3f} of busy), the "
-              f"rest {busy - k4:.1f} ms")
+        k4_ms = sum(us for name, us in acts if "fa_wgmma_kernel" in name) \
+            / 1e3
+        print(f"{what}: profiled forward: {len(acts)} device activities, "
+              f"device busy {busy:.1f} ms of {wall:.1f} ms wall; K4 "
+              f"{k4_ms:.2f} ms ({k4_ms / busy:.3f} of busy), the rest "
+              f"{busy - k4_ms:.1f} ms")
     else:
-        print("prefill: the profiler saw no device activity: device "
-              "time by kernel not measured")
-    return {"launches": n["k4/wgmma/bfloat16"], "forward_ms": fwd_ms}
+        print(f"{what}: the profiler saw no device activity: device time "
+              "by kernel not measured")
+    del model
+    return {"launches": n["k4/wgmma/bfloat16"], "forward_ms": fwd_ms,
+            "cfg": cfg}
+
+
+def prefill_path(dev) -> dict:
+    """The prefill path: llama3-8b's ``lm.forward`` on 4096 tokens; K4 in
+    every layer."""
+    from repro_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config("llama3_8b"), attn_impl="chunked")
+    return k4_prefill(cfg, PREFILL_S, "prefill", dev)
 
 
 def equivalence(dev) -> dict:
@@ -782,14 +903,285 @@ def reduced_path(dev) -> dict:
             "cfg": get_config("llama3_8b", reduced=True)}
 
 
+def moe_config(arch: str, n_layers: int, **kw):
+    """``arch`` at its published configuration, cut to ``n_layers``."""
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config(arch), n_layers=n_layers, **kw)
+
+
+def moe_step_profile(dev) -> dict:
+    """The moe_serve path's graphed decode step (DeepSeek-V2, full width,
+    ``MOE_SERVE_LAYERS`` layers, ``SERVE["slots"]`` slots over a cache of
+    the batcher's length) under torch.profiler: device busy ms, activities
+    and profiled wall ms per step, over ``PROFILE_STEPS`` replays, and the
+    device ms per step of the kernels that take the most."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg = moe_config("deepseek_v2_236b", MOE_SERVE_LAYERS)
+    nb = SERVE["slots"]
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        cache = model.init_cache(nb, serve_requests(cfg.vocab)[2])
+        graph = lm.DecodeGraph(cfg, model, cache)
+        tok = torch.ones((nb, 1), dtype=torch.int32, device=dev)
+        poss = [torch.full((nb,), t, dtype=torch.int32, device=dev)
+                for t in range(PROFILE_STEPS)]
+
+        def steps():
+            for p_ in poss:
+                graph(cache, tok, p_)
+        steps()
+        acts, wall = device_kernels(steps)
+    del graph, cache, model
+    by_kernel = collections.Counter()
+    for name, us in acts:
+        by_kernel[short_name(name)[:60]] += us / 1e3 / PROFILE_STEPS
+    return {"busy_ms": sum(us for _, us in acts) / 1e3 / PROFILE_STEPS,
+            "activities": len(acts) / PROFILE_STEPS,
+            "wall_ms": wall / PROFILE_STEPS,
+            "top_ms": by_kernel.most_common(6)}
+
+
+def dispatch_oracle(logits, K: int, C: int) -> dict:
+    """The MoE's dispatch tables computed on the host by a loop: each
+    token's K experts of highest router logit (the softmax keeps their
+    order; ties to the lower id), then each (t, k) in (t, k) order takes
+    the next of its expert's C slots, or is dropped once they are taken."""
+    import numpy as np
+    G, Tg, E = logits.shape
+    gidx = np.argsort(-logits, axis=-1, kind="stable")[..., :K]
+    posc = np.zeros((G, Tg, K), np.int64)
+    src = np.zeros((G, E * C), np.int64)
+    vld = np.zeros((G, E * C), bool)
+    for g in range(G):
+        count = np.zeros(E, np.int64)
+        for t in range(Tg):
+            for k in range(K):
+                e = gidx[g, t, k]
+                posc[g, t, k] = count[e]
+                if count[e] < C:
+                    src[g, e * C + count[e]] = t
+                    vld[g, e * C + count[e]] = True
+                count[e] += 1
+    return {"gidx": gidx, "posc": posc, "keep": posc < C, "src": src,
+            "vld": vld}
+
+
+def moe_serve_path(dev, prof: dict) -> dict:
+    """The moe_serve path: DeepSeek-V2 at full width cut to
+    ``MOE_SERVE_LAYERS`` layers (MLA in each, the dense prefix layer's MLP,
+    then the capacity-routed MoE), bf16: a ``ContinuousBatcher`` of 4
+    slots answers 8 requests, every step a replay of the step's CUDA graph;
+    the same requests eagerly must give the same ids, and the step is
+    timed eager, graph, graph, eager.  No TPU kernel is on this path, so
+    the graph records no wrapper launch.  Then the card's dispatch tables
+    of the first MoE layer at ``MOE_DISPATCH_S`` tokens, with drops, are
+    held against ``dispatch_oracle``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers, lm
+
+    cfg = moe_config("deepseek_v2_236b", MOE_SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = lm.layer_specs(cfg)
+    if specs != [("mla", "mlp")] + [("mla", "moe")] * (MOE_SERVE_LAYERS - 1):
+        fail(f"moe_serve: DeepSeek-V2's layers {specs}")
+    prompts, lens, max_len = serve_requests(cfg.vocab)
+
+    # ---- the main path: the graphed batcher, counted ----------------------
+    zero_model_counts()
+    ids, b, _ = run_batcher(cfg, model, prompts, max_len, True, dev,
+                            "moe_serve")
+    n = model_counts()
+    print("moe_serve path launches: " + json.dumps(n, sort_keys=True))
+    if n or b.decode_fn.launches_per_replay:
+        fail(f"moe_serve: the path launched {n} and its graph recorded "
+             f"{b.decode_fn.launches_per_replay}; no kernel wrapper is on "
+             "it")
+    if b.decode_fn.replays != b.steps:
+        fail(f"moe_serve: {b.decode_fn.replays} graph replays for "
+             f"{b.steps} batcher steps")
+    print(f"check: moe_serve: all {len(prompts)} requests completed in "
+          f"{b.steps} steps, each a replay of the decode graph; the graph "
+          "recorded 0 kernel-wrapper launches")
+    times = step_times(cfg, model, prompts, max_len, ids, dev, "moe_serve")
+    print(f"check: moe_serve: every token id of all {len(prompts)} requests "
+          "is the same eager and graphed")
+    new = sum(len(v) for v in ids.values())
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters() if name != "embed")
+    weights += SERVE["slots"] * cfg.d_model * model.embed.element_size()
+    bound_ms = weights / HBM_BYTES_PER_S * 1e3
+    step_ms = statistics.median(times["graph"])
+    eager_ms = statistics.median(times["eager"])
+    busy = prof["moe_step"]["busy_ms"]
+    print(f"moe_serve: DeepSeek-V2 full width, {cfg.n_layers} layers, bf16 "
+          f"({sum(p.numel() for p in model.parameters())} parameters, "
+          f"built in {init_s:.1f} s): batcher {len(ids)}/{len(prompts)} "
+          f"requests (prompts {lens.min()}-{lens.max()}, max_new "
+          f"{SERVE['max_new']}) in {b.steps} steps: graphed step "
+          f"{step_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times['graph'])}"
+          f"), eager step {eager_ms:.3f} ms ("
+          f"{', '.join(f'{t:.3f}' for t in times['eager'])}; timed eager, "
+          f"graph, graph, eager), {new / (step_ms * b.steps / 1e3):.1f} "
+          f"tokens/s graphed; weight-read bound {bound_ms:.3f} ms for "
+          f"{weights} B per step (graphed step / bound "
+          f"{step_ms / bound_ms:.3f}); device busy {busy:.3f} ms of the "
+          f"graphed step over {prof['moe_step']['activities']:.0f} "
+          f"activities (profiled in a fresh child, wall "
+          f"{prof['moe_step']['wall_ms']:.3f} ms a step): idle share "
+          f"{1 - busy / step_ms:.3f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; device ms "
+          "a step by kernel: "
+          + "; ".join(f"{n_} {ms:.3f}" for n_, ms in
+                      prof["moe_step"]["top_ms"]))
+
+    # ---- the dispatch tables on the card against the host's loop ----------
+    blk = model.blocks[1]["ffn"]
+    g = torch.Generator(device=dev).manual_seed(8)
+    with torch.inference_mode():
+        x = torch.randn((1, MOE_DISPATCH_S, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        r = layers.moe_route(cfg, blk, layers.rms_norm(x, blk["norm"],
+                                                       cfg.norm_eps))
+        torch.cuda.synchronize()
+    C = r["C"]
+    want = dispatch_oracle(r["logits"].cpu().numpy(), cfg.moe.top_k, C)
+    for key in ("gidx", "posc", "keep", "src", "vld"):
+        got = (r[key] != 0 if key == "vld" else r[key]).cpu().numpy()
+        if not np.array_equal(got, want[key]):
+            bad = int((got != want[key]).sum())
+            fail(f"moe dispatch: '{key}' on the card differs from the host "
+                 f"loop's in {bad} entries")
+    dropped = int((~want["keep"]).sum())
+    if dropped == 0:
+        fail(f"moe dispatch: no pair dropped at {MOE_DISPATCH_S} tokens, C "
+             f"{C}: the check must see drops")
+    load = np.bincount(want["gidx"].ravel(), minlength=cfg.moe.n_experts)
+    print(f"check: moe dispatch: DeepSeek-V2's first MoE layer at full "
+          f"width on {MOE_DISPATCH_S} tokens (C {C} slots an expert, "
+          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}): expert ids, "
+          f"ranks, kept pairs and slot tables on the card == the host "
+          f"loop's from the same f32 router logits; {dropped} of "
+          f"{want['keep'].size} pairs dropped (expert loads "
+          f"{load.min()}-{load.max()})")
+    del model
+    return {"ms_per_step": step_ms, "eager_ms_per_step": eager_ms,
+            "bound_ms": bound_ms, "weight_bytes": weights,
+            "steps": b.steps, "idle_share": 1 - busy / step_ms,
+            "dropped": dropped}
+
+
+def moe_equivalence(dev) -> dict:
+    """prefill == decode on the last token for DeepSeek-V2 at full width,
+    depth ``MOE_EQUIV_LAYERS`` (the MLA prefix layer + 1 MoE layer), f32,
+    on ``EQUIV_S`` tokens, the capacity factor raised so that the prefill
+    drops no pair (``C >= S``; the reference's prefill and decode differ
+    wherever it drops one), which is checked; and the MLA prefix layer's
+    last-token output, prefill against decode, alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers, lm
+
+    base = moe_config("deepseek_v2_236b", MOE_EQUIV_LAYERS, dtype="float32")
+    mc = base.moe
+    cf = mc.n_experts / mc.top_k * 1.01
+    cfg = dataclasses.replace(
+        base, moe=dataclasses.replace(mc, capacity_factor=cf))
+    C = layers.moe_capacity(cfg, EQUIV_S)
+    if C < EQUIV_S:
+        fail(f"moe equivalence: capacity {C} < {EQUIV_S} tokens at factor "
+             f"{cf}")
+    kept = []
+    route = layers.moe_route
+
+    def route_spy(*a, **kw):
+        r = route(*a, **kw)
+        kept.append(r["keep"])
+        return r
+    zero_model_counts()
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(3),
+                           dev)
+        tokens = torch.as_tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab, (1, EQUIV_S)), dtype=torch.int32, device=dev)
+        layers.moe_route = route_spy
+        try:
+            full = lm.forward(cfg, model, {"tokens": tokens})
+        finally:
+            layers.moe_route = route
+        if len(kept) != 1 or not bool(kept[0].all()):
+            fail(f"moe equivalence: the prefill dropped "
+                 f"{sum(int((~k).sum()) for k in kept)} pairs")
+        cache = model.init_cache(1, EQUIV_S)
+        pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        for t in range(EQUIV_S):
+            logits, cache = model.decode_step(
+                cache, {"token": tokens[:, t:t + 1], "pos": pos + t})
+        # the MLA prefix layer alone, on the embedded tokens
+        mix = model.blocks[0]["mix"]
+        x = model.embed[tokens]
+        y_full = layers.mla_forward(cfg, mix, x, None)
+        c1 = layers.init_mla_cache(cfg, 1, EQUIV_S, torch.float32, dev)
+        for t in range(EQUIV_S):
+            y, c1 = layers.mla_decode(cfg, mix, x[:, t:t + 1], c1, pos + t)
+    torch.cuda.synchronize()
+    n = model_counts()
+    print("moe equivalence launches: " + json.dumps(n, sort_keys=True))
+    if n:
+        fail(f"moe equivalence: launches {n}; no kernel wrapper is on it")
+    errs = {}
+    for what, a, b_ in (("logits", logits[:, 0], full[:, -1]),
+                        ("mla", y[:, 0], y_full[:, -1])):
+        try:
+            torch.testing.assert_close(a, b_, rtol=2e-3, atol=2e-3)
+        except AssertionError as e:
+            fail(f"deepseek_v2_236b: prefill and decode disagree on the "
+                 f"last token ({what}): {e}")
+        errs[what] = (a - b_).abs().max().item()
+    print(f"check: deepseek_v2_236b full width, depth {cfg.n_layers}, f32, "
+          f"capacity factor {cf:.4g} (C {C} >= {EQUIV_S}; the prefill "
+          f"dropped no pair): prefill == decode on the last of {EQUIV_S} "
+          f"tokens (max |diff| {errs['logits']:.3g}), and the MLA prefix "
+          f"layer's last-token output alone (max |diff| {errs['mla']:.3g}),"
+          " rtol/atol 2e-3")
+    del model, full, cache, c1
+    torch.cuda.empty_cache()
+    return {"capacity": C, "errors": errs}
+
+
+def moe_prefill_path(dev) -> dict:
+    """The moe_prefill path: Kimi-K2 at full width cut to
+    ``MOE_PREFILL_LAYERS`` layers (GQA 64 q heads over 8 kv heads at hd
+    128, the dense prefix layer's MLP, the capacity-routed MoE of 384
+    experts), bf16, chunked attention: ``lm.forward`` on 1 x
+    ``MOE_PREFILL_S`` tokens; the tensor-core K4 in every layer, at a GQA
+    group of 8, on views of the layer's activations."""
+    cfg = moe_config("kimi_k2_1t_a32b", MOE_PREFILL_LAYERS,
+                     attn_impl="chunked")
+    return k4_prefill(cfg, MOE_PREFILL_S, "moe_prefill", dev)
+
+
 def k4_entries(dev, prefill_launches: int, equiv: dict, reduced: dict,
-               prof: dict) -> list:
+               prof: dict, moe_prefill: dict) -> list:
     """K4's three kernels against their plain versions at their paths'
-    shapes, timed: the tensor-core kernel (bf16) at the prefill's, the
-    tf32x3 kernel (f32) at the equivalence path's (llama3-8b at hd 128,
-    gemma-7b at hd 256), the CUDA-core kernel (f32 and bf16) at the reduced
-    path's; each on views of (B, S, heads, hd) tensors as the layer hands
-    them over, k and v at their kv heads."""
+    shapes, timed: the tensor-core kernel (bf16) at the prefill's (and, in
+    the same entry under "kimi_k2", at the moe_prefill path's GQA group of
+    8), the tf32x3 kernel (f32) at the equivalence path's (llama3-8b at hd
+    128, gemma-7b at hd 256), the CUDA-core kernel (f32 and bf16) at the
+    reduced path's; each on views of (B, S, heads, hd) tensors as the layer
+    hands them over, k and v at their kv heads."""
     import torch
 
     from repro_torch.config import get_config
@@ -814,7 +1206,14 @@ def k4_entries(dev, prefill_launches: int, equiv: dict, reduced: dict,
         (torch.bfloat16, small, REDUCED_B, REDUCED_S, REDUCED_S,
          n.get("k4/cuda_cores/bfloat16", 0), "reduced",
          "bfloat16/llama3_8b/reduced")]
-    return [k4_entry(dev, *c, prof) for c in cases]
+    entries = [k4_entry(dev, *c, prof) for c in cases]
+    kimi = k4_entry(dev, torch.bfloat16, moe_prefill["cfg"], 1,
+                    MOE_PREFILL_S, MOE_PREFILL_S, moe_prefill["launches"],
+                    "moe_prefill", "bfloat16/kimi_k2_1t_a32b", prof)
+    entries[0]["kimi_k2"] = {k: v for k, v in kimi.items()
+                             if k not in ("name", "route", "source",
+                                          "replaces")}
+    return entries
 
 
 def kernel_names(acts) -> list:
@@ -1322,7 +1721,8 @@ def main() -> int:
         print(f"  {name}: {secs:.1f} s; " + " | ".join(ptxas_summary(log)))
     t0 = time.perf_counter()
     prof = profiles()
-    print(f"profile: a child process read K1's, K4's, K5's and sdpa's "
+    print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's "
+          f"and the MoE step's "
           f"device kernels off torch.profiler in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1520,27 +1920,28 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, stage_flops(p))
         slow = name == "two_mm"
         ms, host_ms = time_ms(lambda: k(x), 3 if slow else 10, warmup=1)
-        # the device's own count of this call's kernels, and their times
-        acts, _ = device_kernels(lambda: k(x))
-        kern = [(n_, us) for n_, us in acts
-                if not re.search("memcpy|memset", n_, re.I)]
+        # the device's own count of a call's kernels, and their times, from
+        # the profiling child (which may drop a record, never add one)
+        calls = prof["k3"][name]
+        seen = [len(c) for c in calls]
+        kern = max(calls, key=len)
         if not kern:
-            fail(f"K3 {name}: torch.profiler saw no kernel of one call, so "
-                 "its launches were not counted")
-        if len(kern) != k.nest_launches:
-            fail(f"K3 {name}: the profiler saw {len(kern)} kernels in one "
-                 f"call, the design launches {k.nest_launches} "
+            fail(f"K3 {name}: torch.profiler saw no kernel in {len(calls)} "
+                 "calls, so its launches were not counted")
+        if max(seen) != k.nest_launches:
+            fail(f"K3 {name}: the profiler saw {seen} kernels in its "
+                 f"profiled calls, the design launches {k.nest_launches} "
                  f"{list(k.launch_nests)}; seen: "
-                 + ", ".join(f"{n_.split('(')[0]} {us:.1f} us"
-                             for n_, us in kern))
+                 + ", ".join(f"{n_} {us:.1f} us" for n_, us in kern))
         ptxas = ptxas_summary(_cuda.BUILD_LOG.get(k.lib_name, (0, ""))[1])
         ceil_ms = stage_flops(p) / FP32_ISSUE_PER_S * 1e3
         print(f"launches: K3 {name}: {K3_LAUNCHES_BEFORE[name]} per call "
-              f"before, {len(kern)} now (seen by the profiler), nests per "
+              f"before, {len(kern)} now (seen by the profiler in the "
+              f"profiling child; per profiled call {seen}), nests per "
               f"launch {list(k.launch_nests)}; tiled "
               f"{list(k.tiled_reductions)}; ptxas " + " | ".join(ptxas)
               + "; device us per kernel "
-              + ", ".join(f"{n_.split('(')[0]} {us:.1f}" for n_, us in kern))
+              + ", ".join(f"{n_} {us:.1f}" for n_, us in kern))
         plain_ms = time_ms(lambda: k.plain(x), 1 if slow else 3,
                            warmup=0 if slow else 1)[0]
         lib_ms, lib_note = None, "no PyTorch call computes it"
@@ -1571,10 +1972,10 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "library": lib_note,
             "host_ms": host_ms, "bytes": nbytes,
-            "launches_per_call": len(kern),
+            "launches_per_call": len(kern), "kernels_seen_per_call": seen,
             "launch_nests": [list(g) for g in k.launch_nests],
             "tiled_reductions": list(k.tiled_reductions), "ptxas": ptxas,
-            "kernel_us": [[n_.split("(")[0], us] for n_, us in kern],
+            "kernel_us": kern,
             "nans": nans, "outputs": list(k.outputs),
             "shape": list(p.arrays[k.outputs[-1]].shape)})
         ceil = (f"; {ceil_ms:.4f} ms with every op rounded on its own, no "
@@ -1624,7 +2025,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     equiv = equivalence(dev)
     reduced = reduced_path(dev)
-    entries += k4_entries(dev, prefilled["launches"], equiv, reduced, prof)
+    # ---- the MoE family: DeepSeek-V2 served, held; Kimi-K2's prefill ------
+    moe_serve_path(dev, prof)
+    torch.cuda.empty_cache()
+    moe_equivalence(dev)
+    moe_prefilled = moe_prefill_path(dev)
+    torch.cuda.empty_cache()
+    entries += k4_entries(dev, prefilled["launches"], equiv, reduced, prof,
+                          moe_prefilled)
     entries += k5_entries(dev, served["launches"], equiv, prof)
 
     print(f"total: {time.perf_counter() - started:.1f} s")

@@ -4,7 +4,11 @@ with the KV/state caches produced by the prefill.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu] [--eager]
 
-The model runs on the card unless ``--device cpu`` is given.  On the card
+``--arch`` names any configuration of the dense, moe or ssm family
+(``llama3_8b``, ``deepseek_v2_236b``, ``kimi_k2_1t_a32b``, ``rwkv6_3b``,
+...); the full MoE models do not fit one card, so take them ``--reduced``
+(or cut their depth, as ``chip_smoke.py`` does).  The model runs on the
+card unless ``--device cpu`` is given.  On the card
 every decode step replays one CUDA graph (``lm.DecodeGraph``), as the
 reference's decode step is one ``jax.jit`` program; ``--eager`` runs the
 step op by op instead (the graph's yardstick).  The CPU has no graphs, so

@@ -2,7 +2,8 @@
 package's draws.
 
 ``make_batch`` draws from ``np.random.default_rng(seed)`` in the order the
-reference does, so both packages build equal batches.  The reference's
+reference does, so both packages build equal batches, for every family
+(the model path, ``lm``, runs the dense, moe and ssm ones).  The reference's
 ``input_specs`` (a ``jax.ShapeDtypeStruct`` view for dry-run compiles) has
 no counterpart yet.  The modality frontends are stubs as in the reference:
 whisper gets frame embeddings (B, enc_seq, D), paligemma patch embeddings

@@ -1,12 +1,17 @@
-"""Model layers of the dense (GQA) and RWKV-6 families, as plain functions
-over a layer's parameters (a mapping of name -> tensor, such as the
-``nn.ParameterDict`` that ``lm.LM`` holds).
+"""Model layers of the dense (GQA), MoE (with DeepSeek-V2's MLA) and RWKV-6
+families, as plain functions over a layer's parameters (a mapping of name
+-> tensor, such as the ``nn.ParameterDict`` that ``lm.LM`` holds; the MoE's
+shared experts are a nested one).
 
 The functions keep the JAX package's layouts at their boundaries
-(activations (B, S, D), heads (B, S, H, hd), caches (B, Smax, K, hd)) and
+(activations (B, S, D), heads (B, S, H, hd), caches (B, Smax, K, hd), MLA's
+compressed cache (B, Smax, kv_lora + rope), expert weights (E, D, F)) and
 its numerics, so the tests hold each one against ``repro.models.layers`` on
-carried weights.  Two of them reach the port's CUDA kernels where the
-reference runs the same math in plain JAX:
+carried weights.  MLA and the MoE are plain einsums and gathers in the
+reference too, so they stay PyTorch here; the MoE's dispatch has fixed
+shapes (no host sync), so the decode step captures as a CUDA graph.  Two
+layers reach the port's CUDA kernels where the reference runs the same
+math in plain JAX:
 
 * ``attn_forward`` with ``cfg.attn_impl == "chunked"`` and ``causal``
   computes ``_sdpa_chunked``'s function with flash attention (K4), which
@@ -21,6 +26,7 @@ left out.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -35,12 +41,27 @@ def _dt(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# f32 elements ``_normal`` draws at once: a larger tensor is drawn in
+# slices of its leading axis, so its f32 draw (Kimi-K2's experts: 22.5 GB)
+# is never held beside the cast copy
+_DRAW_ELEMS = 1 << 30
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
             device) -> torch.Tensor:
     """N(0, 1) * scale drawn in f32 from ``gen`` on its own device, then
-    cast (as the reference draws in f32 and casts with ``astype``)."""
-    x = torch.randn(shape, generator=gen, device=gen.device)
-    return x.mul_(scale).to(device=device, dtype=dtype)
+    cast (as the reference draws in f32 and casts with ``astype``); above
+    ``_DRAW_ELEMS`` elements, slice by slice of the leading axis."""
+    if math.prod(shape) <= _DRAW_ELEMS:
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        return x.mul_(scale).to(device=device, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, _DRAW_ELEMS // math.prod(shape[1:]))
+    for i in range(0, shape[0], step):
+        part = out[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               device=gen.device).mul_(scale))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +239,99 @@ def init_attn_cache(cfg: ArchConfig, B, Smax, dt, device):
 
 
 # ---------------------------------------------------------------------------
-# FFN: swiglu / geglu / gelu
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ArchConfig, gen: torch.Generator, device):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    dt = _dt(cfg)
+    s = D ** -0.5
+    qd = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wdq": _normal(gen, (D, m.q_lora_rank), s, dt, device),
+        "wuq": _normal(gen, (m.q_lora_rank, H, qd), m.q_lora_rank ** -0.5,
+                       dt, device),
+        "wdkv": _normal(gen, (D, m.kv_lora_rank + m.rope_head_dim), s, dt,
+                        device),
+        "wukv": _normal(gen, (m.kv_lora_rank, H,
+                              m.nope_head_dim + m.v_head_dim),
+                        m.kv_lora_rank ** -0.5, dt, device),
+        "wo": _normal(gen, (H, m.v_head_dim, D), s, dt, device),
+        "norm": torch.ones((D,), dtype=dt, device=device),
+    }
+
+
+def _mla_qkv(cfg, p, h, positions):
+    """(q_nope, q_rope (B,S,H,.), c_kv (B,S,r), k_rope (B,S,rope_hd))."""
+    m = cfg.mla
+    q = _heads_in(h @ p["wdq"], p["wuq"])
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (h @ p["wdkv"]).split([m.kv_lora_rank, m.rope_head_dim],
+                                        dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid):
+    """c_kv: (B, T, r); k_rope: (B, T, rope_hd) shared across heads; valid:
+    a mask broadcastable to (B, H, S, T), or None for none."""
+    m = cfg.mla
+    kv = _heads_in(c_kv, p["wukv"])                       # (B, T, H, e)
+    k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    sc = torch.einsum("bshq,bthq->bhst", q_nope, k_nope)
+    sc = sc + torch.einsum("bshq,btq->bhst", q_rope, k_rope)
+    sc = sc.float() * ((m.nope_head_dim + m.rope_head_dim) ** -0.5)
+    if valid is not None:
+        sc = torch.where(valid, sc, -1e30)
+    w = torch.softmax(sc, dim=-1).to(x.dtype)
+    o = torch.einsum("bhst,bthv->bshv", w, v)
+    return x + _heads_out(o, p["wo"])
+
+
+def mla_forward(cfg: ArchConfig, p, x, positions, causal=True):
+    """Full-sequence MLA.  x: (B, S, D); positions: (B, S), or None for
+    ``arange(S)`` in every row."""
+    if positions is None:
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, h, positions)
+    valid = (positions[:, None, :, None] >= positions[:, None, None, :]) \
+        if causal else None
+    return _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid)
+
+
+def mla_decode(cfg: ArchConfig, p, x, cache, pos):
+    """One-token decode.  The cache holds the COMPRESSED latents
+    {ckv: (B, Smax, kv_lora + rope_hd)}, not 2*H*hd per token; row b is
+    written in place at ``pos[b]`` (clamped into the cache, as
+    ``dynamic_update_slice`` clamps) and the cache returned."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(cfg, p, h, pos[:, None])
+    ck = cache["ckv"]
+    B, Smax = ck.shape[:2]
+    rows = torch.arange(B, device=x.device)
+    at = pos.long().clamp(0, Smax - 1)
+    ck[rows, at] = torch.cat([c_kv_new, k_rope_new], dim=-1)[:, 0]
+    c_kv, k_rope = ck.split([cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim],
+                            dim=-1)
+    valid = (torch.arange(Smax, device=x.device)[None, :]
+             <= pos[:, None])[:, None, None, :]
+    out = _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid)
+    return out, {"ckv": ck}
+
+
+def init_mla_cache(cfg: ArchConfig, B, Smax, dt, device):
+    m = cfg.mla
+    return {"ckv": torch.zeros((B, Smax, m.kv_lora_rank + m.rope_head_dim),
+                               dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# FFN: swiglu / geglu / gelu  + MoE
 # ---------------------------------------------------------------------------
 
 
@@ -245,6 +358,108 @@ def mlp_forward(cfg: ArchConfig, p, x):
     else:  # gelu (whisper-style 2-matrix MLP)
         up = F.gelu(up, approximate="tanh")
     return x + up @ p["w_down"]
+
+
+def init_moe(cfg: ArchConfig, gen: torch.Generator, device):
+    """The router in f32, the routed experts' weights (E, D, F) / (E, F, D)
+    and, with shared experts, one MLP of width ``d_ff * n_shared``."""
+    D = cfg.d_model
+    mc = cfg.moe
+    E, Fw = mc.n_experts, mc.d_ff
+    dt = _dt(cfg)
+    p = {"norm": torch.ones((D,), dtype=dt, device=device),
+         "router": _normal(gen, (D, E), D ** -0.5, torch.float32, device),
+         "w_gate": _normal(gen, (E, D, Fw), D ** -0.5, dt, device),
+         "w_up": _normal(gen, (E, D, Fw), D ** -0.5, dt, device),
+         "w_down": _normal(gen, (E, Fw, D), Fw ** -0.5, dt, device)}
+    if mc.n_shared:
+        p["shared"] = init_mlp(cfg, gen, device, d_ff=Fw * mc.n_shared)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, Tg: int) -> int:
+    """Slots per expert and group of ``Tg`` tokens, in Python floats as the
+    reference computes it."""
+    mc = cfg.moe
+    return max(1, int(Tg * mc.top_k * mc.capacity_factor / mc.n_experts))
+
+
+def moe_route(cfg: ArchConfig, p, h) -> dict:
+    """The router and the capacity dispatch tables of ``moe_forward`` for
+    the normed activations h (G, Tg, D), one group per batch row:
+
+    * ``logits`` (G, Tg, E) f32, ``gval`` / ``gidx`` (G, Tg, K): the top-k
+      of the softmax gates, renormalised;
+    * ``posc`` (G, Tg, K): each (t, k)'s rank among the pairs routed to
+      its expert, in (t, k) order (a stable sort of the flat expert ids);
+      ``keep`` = ``posc < C``; ``slot`` = ``gidx * C + posc``;
+    * ``src`` / ``vld`` (G, E*C): the token each expert slot takes and
+      whether a pair filled it (dropped pairs went to an overflow bucket
+      ``E*C``, sliced away; its duplicate writes are unordered);
+    * ``C``, the capacity.
+
+    Fixed shapes throughout (no ``nonzero``, no boolean indexing, no
+    ``.item()``), so a CUDA graph captures it."""
+    G, Tg, _ = h.shape
+    mc = cfg.moe
+    E, K = mc.n_experts, mc.top_k
+    dev = h.device
+    logits = h.float() @ p["router"]
+    gates = torch.softmax(logits, dim=-1)
+    gval, gidx = torch.topk(gates, K, dim=-1)
+    gval = gval / (gval.sum(dim=-1, keepdim=True) + 1e-9)
+    C = moe_capacity(cfg, Tg)
+    N = Tg * K
+    eflat = gidx.reshape(G, N)
+    order = torch.argsort(eflat, dim=1, stable=True)
+    sorted_e = torch.gather(eflat, 1, order)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    ranks = torch.arange(N, device=dev)[None, :] - first
+    posc = torch.zeros_like(eflat).scatter_(1, order, ranks).reshape(G, Tg, K)
+    keep = posc < C
+    slot = gidx * C + posc
+    flat_slot = torch.where(keep, slot, E * C).reshape(G, N)
+    tok = torch.arange(Tg, device=dev).repeat_interleave(K).expand(G, N)
+    src = torch.zeros((G, E * C + 1), dtype=torch.int64, device=dev) \
+        .scatter_(1, flat_slot, tok)[:, :E * C]
+    vld = torch.zeros((G, E * C + 1), dtype=h.dtype, device=dev) \
+        .scatter_(1, flat_slot, torch.ones((G, N), dtype=h.dtype,
+                                           device=dev))[:, :E * C]
+    return {"logits": logits, "gval": gval, "gidx": gidx, "posc": posc,
+            "keep": keep, "slot": slot, "src": src, "vld": vld, "C": C}
+
+
+def moe_forward(cfg: ArchConfig, p, x):
+    """Grouped capacity-based top-k MoE with gather/scatter dispatch (one
+    group per batch row), the reference's semantics exactly: pairs past an
+    expert's capacity are dropped, the rest gathered into (E, C) slots,
+    each expert's slots of all groups go through its weights in one
+    ``bmm`` against the (E, D, F) tensors as stored, and the outputs are
+    gathered back and weighted by the kept gates.  With shared experts the
+    shared MLP carries the residual (its own norm); else ``x + out``."""
+    B, S, D = x.shape
+    mc = cfg.moe
+    E, K = mc.n_experts, mc.top_k
+    G, Tg = B, S
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    r = moe_route(cfg, p, h)
+    C = r["C"]
+    # dispatch: the slots' tokens (the empty ones times 0, as gathered)
+    xin = torch.gather(h, 1, r["src"][..., None].expand(G, E * C, D)) \
+        * r["vld"][..., None]
+    xe = xin.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    mid = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    xout = torch.bmm(mid, p["w_down"])                    # (E, G*C, D)
+    flat = xout.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    # combine: each (t, k)'s slot back, weighted by its gate if kept
+    idx = r["slot"].clamp(0, E * C - 1).reshape(G, Tg * K)
+    vals = torch.gather(flat, 1, idx[..., None].expand(G, Tg * K, D)) \
+        .reshape(G, Tg, K, D)
+    w = (r["gval"].to(x.dtype) * r["keep"].to(x.dtype))[..., None]
+    out = (vals * w).sum(dim=2)
+    if mc.n_shared:
+        return mlp_forward(cfg, p["shared"], x) + out
+    return x + out
 
 
 # ---------------------------------------------------------------------------

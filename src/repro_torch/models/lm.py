@@ -1,11 +1,13 @@
-"""Model composition for the dense and RWKV-6 families.
+"""Model composition for the dense, MoE (DeepSeek-V2's MLA among them) and
+RWKV-6 families.
 
-The reference (``repro.models.lm``) stacks the parameters of all periods on
-a leading axis and applies them with ``jax.lax.scan``; PyTorch runs
-eagerly, so ``LM`` holds one entry per layer in ``blocks`` and ``backbone``
-is a Python loop over them.  ``params_from_reference`` carries the
-reference's parameters across (numpy in, the period axis unstacked), so
-both packages compute the same thing in the tests.
+The reference (``repro.models.lm``) keeps the dense prefix layers apart,
+stacks the parameters of all periods on a leading axis and applies them
+with ``jax.lax.scan``; PyTorch runs eagerly, so ``LM`` holds one entry per
+layer in ``blocks``, the dense prefix first, and ``backbone`` is a Python
+loop over them.  ``params_from_reference`` carries the reference's
+parameters across (numpy in, the prefix first, the period axis unstacked),
+so both packages compute the same thing in the tests.
 
 Entry points (the reference's ``prefill_fn`` and ``decode_fn``):
   * forward(cfg, model, batch)             -- full-sequence logits
@@ -31,7 +33,6 @@ from repro_torch.models import layers as L
 
 # families whose layers are not ported yet -> what they need
 _NOT_PORTED = {
-    "moe": "MoE (and DeepSeek-V2's MLA) layers",
     "hybrid": "Mamba layers (the hybrid family)",
     "encdec": "the encoder and cross attention (encdec)",
     "vlm": "the image-patch prefix (vlm)",
@@ -40,12 +41,11 @@ _NOT_PORTED = {
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise for a configuration whose layers the port does not have."""
-    if cfg.family in _NOT_PORTED or cfg.mla is not None:
-        what = _NOT_PORTED.get(cfg.family, "MLA layers")
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: {what} are not ported yet (ROADMAP queue 1, 'the "
-            "remaining model families'); the port runs the dense and ssm "
-            "families")
+            f"{cfg.name}: {_NOT_PORTED[cfg.family]} are not ported yet "
+            "(ROADMAP queue 1, 'the remaining model families'); the port "
+            "runs the dense, moe and ssm families")
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +78,11 @@ def n_periods(cfg: ArchConfig) -> int:
 
 
 def layer_specs(cfg: ArchConfig) -> list[tuple[str, str]]:
-    """The (mix, ffn) spec of every layer, in order."""
-    return period_specs(cfg) * n_periods(cfg)
+    """The (mix, ffn) spec of every layer, in order: the dense prefix
+    layers (an MLP at the dense ``d_ff``), then the periods."""
+    prefix = [(cfg.layer_kind(i), "mlp")
+              for i in range(cfg.dense_prefix_layers)]
+    return prefix + period_specs(cfg) * n_periods(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +107,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     for mix, ffn in layer_specs(cfg):
         if mix == "rwkv":
             blocks.append({"mix": L.init_rwkv(cfg, generator, dev)})
-        else:
-            blocks.append({"mix": L.init_attn(cfg, generator, dev),
-                           "ffn": L.init_mlp(cfg, generator, dev)})
+            continue
+        init_mix = L.init_mla if mix == "mla" else L.init_attn
+        init_ffn = L.init_moe if ffn == "moe" else L.init_mlp
+        blocks.append({"mix": init_mix(cfg, generator, dev),
+                       "ffn": init_ffn(cfg, generator, dev)})
     params["blocks"] = blocks
     return params
 
@@ -115,8 +120,10 @@ def params_from_reference(cfg: ArchConfig, tree: dict,
                           device="cuda") -> dict:
     """The port's parameters from ``repro.models.lm.init_params``' pytree
     given as numpy arrays (``jax.tree.map(np.asarray, params)``): the
-    leading period axis of ``blocks`` is unstacked into one entry per layer
-    and every array is copied to ``device`` in its own dtype."""
+    ``prefix`` layers come first, the leading period axis of ``blocks`` is
+    unstacked into one entry per layer, nested dicts (the MoE's
+    ``shared`` MLP) stay nested, and every array is copied to ``device`` in
+    its own dtype."""
     check_family(cfg)
 
     def conv(a):
@@ -126,16 +133,19 @@ def params_from_reference(cfg: ArchConfig, tree: dict,
                 device=device, dtype=torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
+    def layer(sub, i=None):
+        """A layer's (nested) dict; ``i`` picks a period of a stack."""
+        if isinstance(sub, dict):
+            return {k: layer(a, i) for k, a in sub.items()}
+        return conv(sub if i is None else np.asarray(sub)[i])
+
     params = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head")
               if k in tree}
-    specs = period_specs(cfg)
-    blocks = []
+    blocks = [layer(tree["prefix"][j])
+              for j in range(cfg.dense_prefix_layers)]
     for i in range(n_periods(cfg)):
-        for pos in range(len(specs)):
-            stacked = tree["blocks"][f"pos{pos}"]
-            blocks.append({part: {k: conv(np.asarray(a)[i])
-                                  for k, a in sub.items()}
-                           for part, sub in stacked.items()})
+        for pos in range(cfg.period):
+            blocks.append(layer(tree["blocks"][f"pos{pos}"], i))
     params["blocks"] = blocks
     return params
 
@@ -144,11 +154,19 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _param_dict(tree: dict) -> nn.ParameterDict:
+    """A ``ParameterDict`` of frozen parameters; a nested dict (the MoE's
+    ``shared`` MLP) becomes a nested ``ParameterDict``."""
+    return nn.ParameterDict({k: _param_dict(t) if isinstance(t, dict)
+                             else _frozen(t) for k, t in tree.items()})
+
+
 class LM(nn.Module):
-    """A language model of the dense or ssm family: ``embed``,
+    """A language model of the dense, moe or ssm family: ``embed``,
     ``final_norm``, ``lm_head`` (unless tied) and ``blocks``, one
     ``ModuleDict`` of ``ParameterDict``s ("mix", and "ffn" for attention
-    layers) per layer.  Inference only: the parameters need no gradient."""
+    and MLA layers) per layer, the dense prefix first.  Inference only: the
+    parameters need no gradient."""
 
     def __init__(self, cfg: ArchConfig, params: dict):
         super().__init__()
@@ -159,9 +177,8 @@ class LM(nn.Module):
         self.lm_head = _frozen(params["lm_head"]) if "lm_head" in params \
             else None
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({part: nn.ParameterDict(
-                {k: _frozen(t) for k, t in sub.items()})
-                for part, sub in layer.items()})
+            nn.ModuleDict({part: _param_dict(sub)
+                           for part, sub in layer.items()})
             for layer in params["blocks"])
 
     @classmethod
@@ -197,9 +214,13 @@ def _apply_layer(cfg, spec, p, x, positions):
     mix, ffn = spec
     if mix == "attn":
         x = L.attn_forward(cfg, p["mix"], x, positions)
+    elif mix == "mla":
+        x = L.mla_forward(cfg, p["mix"], x, positions)
     elif mix == "rwkv":
         x = L.rwkv_forward(cfg, p["mix"], x)
-    if ffn == "mlp":
+    if ffn == "moe":
+        x = L.moe_forward(cfg, p["ffn"], x)
+    elif ffn == "mlp":
         x = L.mlp_forward(cfg, p["ffn"], x)
     return x
 
@@ -246,7 +267,8 @@ def _on(t, device: torch.device) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, B: int, Smax: int, device="cuda"):
     """{"blocks": [per-layer cache]}: attention layers hold {k, v}
-    (B, Smax, K, hd), RWKV layers {shift_a, shift_f, s}."""
+    (B, Smax, K, hd), MLA layers {ckv} (B, Smax, kv_lora + rope_hd), RWKV
+    layers {shift_a, shift_f, s}."""
     check_family(cfg)
     dt = L._dt(cfg)
     dev = torch.device(device)
@@ -254,6 +276,8 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, device="cuda"):
     for mix, _ in layer_specs(cfg):
         if mix == "attn":
             blocks.append(L.init_attn_cache(cfg, B, Smax, dt, dev))
+        elif mix == "mla":
+            blocks.append(L.init_mla_cache(cfg, B, Smax, dt, dev))
         else:
             blocks.append(L.init_rwkv_cache(cfg, B, dt, dev))
     return {"blocks": blocks}
@@ -263,9 +287,13 @@ def _decode_layer(cfg, spec, p, x, cache, pos, in_place):
     mix, ffn = spec
     if mix == "attn":
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos)
+    elif mix == "mla":
+        x, cache = L.mla_decode(cfg, p["mix"], x, cache, pos)
     elif mix == "rwkv":
         x, cache = L.rwkv_decode(cfg, p["mix"], x, cache, in_place=in_place)
-    if ffn == "mlp":
+    if ffn == "moe":
+        x = L.moe_forward(cfg, p["ffn"], x)
+    elif ffn == "mlp":
         x = L.mlp_forward(cfg, p["ffn"], x)
     return x, cache
 
@@ -285,9 +313,9 @@ def _decode(cfg: ArchConfig, model: LM, cache, batch, in_place: bool):
 
 def decode_step(cfg: ArchConfig, model: LM, cache, batch):
     """batch: {token: (B,1) int, pos: (B,) int}.  Returns (logits (B,1,V),
-    new cache).  Attention caches are written in place (see
-    ``layers.attn_decode``); RWKV states are replaced, so the caller's
-    cache keeps its own."""
+    new cache).  Attention and MLA caches are written in place (see
+    ``layers.attn_decode``, ``layers.mla_decode``); RWKV states are
+    replaced, so the caller's cache keeps its own."""
     return _decode(cfg, model, cache, batch, in_place=False)
 
 

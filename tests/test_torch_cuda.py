@@ -704,7 +704,8 @@ def test_reduced_model_on_the_card_equals_cpu_and_decode(cuda_device, arch):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b",
+                                  "deepseek_v2_236b"])
 def test_serve_main_graph_gives_the_eager_ids(cuda_device, arch):
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -719,7 +720,8 @@ def test_serve_main_graph_gives_the_eager_ids(cuda_device, arch):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b",
+                                  "deepseek_v2_236b", "kimi_k2_1t_a32b"])
 def test_batcher_graph_gives_the_eager_ids(cuda_device, arch):
     """Two slots answer five requests, so slots are reused: the batcher's
     admission reset writes into the graph's static cache between replays."""
@@ -761,6 +763,8 @@ def test_batcher_graph_gives_the_eager_ids(cuda_device, arch):
         assert g.launches_per_replay == {"wkv6/step": cfg.n_layers}
         # only the warm-up steps launched K5 through its wrapper
         assert wk.LAUNCHES["step"] - n0 == g.warmup * cfg.n_layers
+    else:                          # the decode step has no kernel wrapper
+        assert g.launches_per_replay == {}
 
 
 @pytest.mark.requires_cuda
@@ -783,3 +787,75 @@ def test_decode_graph_capture_failure_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(lm, "_decode", syncing)
     with pytest.raises(RuntimeError):
         lm.DecodeGraph(cfg, model, cache)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (MLA and the capacity-routed MoE are plain PyTorch; the
+# dispatch runs on the card's sort, scatter and gather)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "kimi_k2_1t_a32b"])
+def test_moe_model_on_the_card_equals_cpu(cuda_device, arch):
+    """f32 logits of the reduced MoE models on the card equal the CPU
+    run's on the same weights (the prefill drops pairs: the same ones),
+    and so do the decode steps'."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32",
+                              attn_impl="chunked", attn_chunk=16)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = lm.LM(cfg, params)
+    card = lm.LM(cfg, params).to(cuda_device)
+    B, S = 2, 32
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
+    with torch.inference_mode():
+        torch.testing.assert_close(card({"tokens": tokens}).cpu(),
+                                   cpu({"tokens": tokens}), rtol=2e-4,
+                                   atol=2e-4)
+        cc, gc = cpu.init_cache(B, 8), card.init_cache(B, 8)
+        for t in range(8):
+            batch = {"token": tokens[:, t:t + 1],
+                     "pos": np.full((B,), t, np.int32)}
+            want, cc = cpu.decode_step(cc, batch)
+            got, gc = card.decode_step(gc, batch)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4,
+                                       atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S", [64, 1024])
+def test_moe_route_on_the_card_equals_the_cpu_dispatch(cuda_device, S):
+    """The dispatch tables (ranks from the stable sort, kept pairs, slot
+    tables) computed on the card from its expert ids equal the CPU's from
+    the same ids, with drops (half the published capacity); the ids are
+    the top-k of the card's gates."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek_v2_236b", reduced=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p = L.init_moe(cfg, torch.Generator().manual_seed(2), "cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    h = L.rms_norm(x, p["norm"])
+    pc = {k: v.to(cuda_device) for k, v in p.items() if k != "shared"}
+    with torch.inference_mode():
+        r = L.moe_route(cfg, pc, h.to(cuda_device))
+    gidx = r["gidx"].cpu()
+    assert torch.equal(gidx, torch.topk(torch.softmax(
+        r["logits"].cpu(), -1), cfg.moe.top_k, dim=-1)[1])
+    # the CPU's tables from the card's ids: route logits that rank them so
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    fake = torch.full((2, S, E), -1e4)
+    fake.scatter_(-1, gidx, torch.arange(K, 0, -1, dtype=torch.float32)
+                  .expand(2, S, K).contiguous())
+    want = L.moe_route(cfg, {"router": torch.eye(E)}, fake)
+    assert torch.equal(want["gidx"], gidx)
+    for k in ("posc", "keep", "slot", "src", "vld"):
+        assert torch.equal(r[k].cpu(), want[k].to(r[k].dtype)), k
+    assert not bool(r["keep"].all())

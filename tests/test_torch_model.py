@@ -112,13 +112,33 @@ def test_make_batch_equal(arch, kind):
         np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]))
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "kimi_k2_1t_a32b",
-                                  "jamba_1_5_large_398b", "whisper_small",
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "whisper_small",
                                   "paligemma_3b"])
 def test_unported_families_raise(arch):
     cfg = torch_config.get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_lm.LM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "kimi_k2_1t_a32b"])
+def test_moe_families_init_and_count(arch):
+    """The MoE family initialises on the CPU: one block per layer, the
+    dense prefix first; its parameters but the norm vectors are
+    ``cfg.param_count()``, and all of them the reference's leaves."""
+    cfg = torch_config.get_config(arch, reduced=True)
+    model = torch_lm.LM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert len(model.blocks) == cfg.n_layers
+    assert "router" not in model.blocks[0]["ffn"]
+    assert all("shared" in b["ffn"] for b in model.blocks[1:])
+    named = dict(model.named_parameters())
+    assert sum(t.numel() for n, t in named.items()
+               if not n.endswith("norm")) == cfg.param_count()
+    ref = jax_lm.init_params(jax_config.get_config(arch, reduced=True),
+                             jax.random.key(0))
+    assert sum(t.numel() for t in named.values()) == \
+        sum(x.size for x in jax.tree.leaves(ref))
+    assert all((t.dtype == torch.float32) == n.endswith("router")
+               for n, t in named.items())
 
 
 # ---------------------------------------------------------------------------

@@ -64,12 +64,13 @@ def _alone(decode, init_cache, req, eos, max_len):
         pos += 1
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_3b",
+                                  "deepseek_v2_236b"])
 def test_batcher_gives_the_reference_tokens(arch):
     """Every request gets the tokens the JAX model gives it alone, slots
     reused included, with the JAX batcher's steps and occupancy.  The JAX
-    batcher's own ids agree for attention only: it does not reset a reused
-    slot's recurrent state (ROADMAP, queue 3)."""
+    batcher's own ids agree for attention (MLA included) only: it does not
+    reset a reused slot's recurrent state (ROADMAP, queue 3)."""
     cfg, params, tcfg, model = _models(arch)
 
     @jax.jit
@@ -99,7 +100,7 @@ def test_batcher_gives_the_reference_tokens(arch):
     port.run()
     assert len(port.completed) == 5
     assert {r.rid: r.output for r in port.completed} == alone
-    if arch == "llama3_8b":
+    if arch != "rwkv6_3b":
         assert alone == {r.rid: r.output for r in ref.completed}
     assert (port.steps, port.occupancy) == (ref.steps, ref.occupancy)
 
@@ -144,7 +145,8 @@ def test_slots_are_reused():
     assert b.steps < sum(len(r.prompt) + r.max_new for r in reqs)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b",
+                                  "deepseek_v2_236b", "kimi_k2_1t_a32b"])
 def test_serve_main_runs_on_the_cpu(arch, capsys):
     gen = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "8", "--gen", "4"])
@@ -168,7 +170,8 @@ def test_prefill_into_cache_matches_forward():
                                rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b"])
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b",
+                                  "deepseek_v2_236b"])
 def test_step_writes_states_into_the_callers_cache(arch):
     """``lm.decode_step_into`` (the step a CUDA graph captures) leaves every
     state in the caller's own tensors, RWKV states included, which

@@ -3,7 +3,7 @@ them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Eight paths, each run with the launch counts set to 0 just before it and
+Twelve paths, each run with the launch counts set to 0 just before it and
 read just after:
 
 1. *chains*: ``hls.compile`` schedules each stencil chain of
@@ -58,6 +58,24 @@ read just after:
    ``lm.forward`` on 2048 tokens; each layer's attention runs the
    tensor-core K4 at a GQA group of 8 (64 q heads over 8 kv heads), on
    views, k and v unrepeated.
+9. *hybrid_prefill*: Jamba-1.5-Large at its published widths cut to one
+   period of 8 layers (7 Mamba layers and the attention layer at 4; MoE of
+   16 experts, top-2, on every other layer; bf16, chunked attention; the
+   four MoE layers view one draw of expert weights, ``hybrid_model``) runs
+   ``lm.forward`` on 2048 tokens; its attention layer runs the tensor-core
+   K4 at a GQA group of 8, the Mamba layers their log-depth scans (timed).
+10. *hybrid_serve*: the same model served by a ``ContinuousBatcher`` of 4
+   slots answering 8 requests, every step a graph replay (Mamba states in
+   the graph's cache; no kernel wrapper on the step), the same requests
+   eagerly with the same ids, and a reused slot's Mamba state reset.
+11. *encdec_serve*: Whisper-small at full depth and width served by
+   ``serve.main`` (frames a static input of the graph; the step encodes
+   them again, as the reference's does) graphed and eagerly, the same ids;
+   its ``lm.forward`` on 448 decoder tokens with frames runs the
+   tensor-core K4 at hd 64 over a ragged last block of q rows.
+12. *vlm_prefill*: PaliGemma-3B at full depth and width runs ``lm.forward``
+   on 256 patch embeddings + 768 tokens: the tensor-core K4 at hd 256, 8 q
+   heads over one kv head; then ``serve.main`` decodes text, graphed.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -68,7 +86,9 @@ Four models, at full width and depth 2 in f32, are held against
 themselves (the *equivalence* path): the prefill's last-token logits
 against the last of the decode steps' (DeepSeek-V2 with its capacity
 factor raised so that the prefill drops no pair, and its MLA prefix layer
-alone too).  K4 in f32 runs the 3xTF32
+alone too); so are Jamba's Mamba layer alone (f32, 1024 tokens),
+Whisper-small (f32, every step encoding the frames again) and PaliGemma's
+chunked path against its dense one (f32).  K4 in f32 runs the 3xTF32
 tensor-core kernel there, at hd 128 (llama3-8b) and hd 256 (gemma-7b); K5
 runs its chunk-parallel sequence form in rwkv6-3b's prefill.  So is the
 reduced f32 llama3-8b.  Then K4's three kernels and K5 are held against
@@ -151,6 +171,16 @@ MOE_EQUIV_LAYERS = 2
 MOE_DISPATCH_S = 1024
 MOE_PREFILL_LAYERS = 2
 MOE_PREFILL_S = 2048
+# the last families: Jamba at its published widths cut to one period
+# (HYBRID_LAYERS; its four MoE layers view one draw of expert weights),
+# its prefill on HYBRID_PREFILL_S tokens, its Mamba layer alone in f32 on
+# HYBRID_EQUIV_S; Whisper-small's decoder on its text context
+# (WHISPER_S); PaliGemma-3B on its 256 patches + VLM_TEXT_S tokens
+HYBRID_LAYERS = 8
+HYBRID_PREFILL_S = 2048
+HYBRID_EQUIV_S = 1024
+WHISPER_S = 448
+VLM_TEXT_S = 768
 # K4's limits against its plain version: both round the same fp32 sums
 # once, so bf16 outputs differ by at most an ulp (2^-8 relative)
 K4_TOL = {"bfloat16": dict(rtol=1e-2, atol=4e-3),
@@ -168,7 +198,13 @@ K4_SDPA_SHAPES = {
     "float32/llama3_8b/reduced": ("float32", "llama3_8b", True, 2, 256),
     "bfloat16/llama3_8b/reduced": ("bfloat16", "llama3_8b", True, 2, 256),
     "bfloat16/kimi_k2_1t_a32b": ("bfloat16", "kimi_k2_1t_a32b", False, 1,
-                                 MOE_PREFILL_S)}
+                                 MOE_PREFILL_S),
+    "bfloat16/jamba_1_5_large_398b": ("bfloat16", "jamba_1_5_large_398b",
+                                      False, 1, HYBRID_PREFILL_S),
+    "bfloat16/whisper_small": ("bfloat16", "whisper_small", False, 1,
+                               WHISPER_S),
+    "bfloat16/paligemma_3b": ("bfloat16", "paligemma_3b", False, 1,
+                              256 + VLM_TEXT_S)}
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 K5_CHUNKS = (32, 64, 128)        # the sequence form's chunk lengths timed
 PROFILE_STEPS = 5                # decode steps under the profiler
@@ -180,6 +216,8 @@ PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
 PR16_GRAPH_ACTIVITIES = 2158
 GRAPH_ACTIVITIES_CUT = 5 * 32
 SERVE = dict(batch=4, prompt=32, gen=16, slots=4, requests=8, max_new=16)
+# cuBLAS / cuBLASLt GEMM kernels by name, for the prefill paths' device split
+GEMM_KERNELS = r"gemm|nvjet|xmma|cutlass"
 CODEGEN_SRC = "src/repro_torch/core/codegen.py"
 BLUR_W = [1 / 3, 1 / 2, 1 / 3]   # blur_chain's taps
 GAUSS = [[0.0625, 0.125, 0.0625], [0.125, 0.25, 0.125],
@@ -395,7 +433,8 @@ def profile_main(dev=None) -> int:
     smoke reads off torch.profiler, in a process that has run nothing else
     (late in a long process the profiler drops records): each K3
     program's calls at full size (``k3_profiles``); the graphed
-    decode step of the moe_serve path's DeepSeek-V2 (``moe_step_profile``);
+    decode step of the moe_serve path's DeepSeek-V2 (``moe_step_profile``)
+    and of the hybrid_serve path's Jamba (``graph_step_profile``);
     K1 on the frame
     at the DSE's configuration, one call a profile, f32 and bf16; the
     CUDA-core K4 at the reduced path's GQA views, one call a profile, f32
@@ -412,7 +451,9 @@ def profile_main(dev=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"k1": {}, "k3": k3_profiles(dev), "k4": {}, "sdpa": {},
            "moe_step": moe_step_profile(dev)}
-    torch.cuda.empty_cache()
+    cfg = hybrid_config()
+    out["hybrid_step"] = graph_step_profile(cfg, hybrid_model(cfg, dev)[0],
+                                            dev)
     w3 = torch.tensor([0.25, 0.5, 0.25], device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.rand(FRAME, device=dev).to(dtype)
@@ -504,12 +545,12 @@ def serve_requests(vocab: int) -> tuple:
 
 
 def run_batcher(cfg, model, prompts, max_len: int, graphed: bool, dev,
-                what: str) -> tuple:
+                what: str, n_slots: int = SERVE["slots"]) -> tuple:
     """(ids by request, batcher, seconds of its run): a
-    ``ContinuousBatcher`` of ``SERVE["slots"]`` slots answering
-    ``prompts`` (``SERVE["max_new"]`` tokens each), every step a replay of
-    the step's CUDA graph (``lm.DecodeGraph``) or, not ``graphed``, the
-    eager step.  Fails unless every request completes."""
+    ``ContinuousBatcher`` of ``n_slots`` slots answering ``prompts``
+    (``SERVE["max_new"]`` tokens each), every step a replay of the step's
+    CUDA graph (``lm.DecodeGraph``) or, not ``graphed``, the eager step.
+    Fails unless every request completes."""
     import torch
 
     from repro_torch.models import lm
@@ -518,7 +559,7 @@ def run_batcher(cfg, model, prompts, max_len: int, graphed: bool, dev,
     with torch.inference_mode():
         b = ContinuousBatcher(
             None, lambda n: model.init_cache(n, max_len),
-            n_slots=SERVE["slots"], eos=1, max_len=max_len, device=dev)
+            n_slots=n_slots, eos=1, max_len=max_len, device=dev)
         b.decode_fn = lm.DecodeGraph(cfg, model, b.cache) if graphed \
             else (lambda c, t, p: model.decode_step(
                 c, {"token": t, "pos": p}))
@@ -549,6 +590,15 @@ def step_times(cfg, model, prompts, max_len: int, ids: dict, dev,
                  f"main run's: {got} vs {ids}")
         times[mode].append(sec / bm.steps * 1e3)
     return times
+
+
+def step_weight_bytes(model, slots: int) -> int:
+    """The bytes a decode step of ``slots`` rows reads at least: every
+    parameter but the embedding (views of one tensor counted at every use)
+    and the slots' embedding rows."""
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters() if name != "embed")
+    return weights + slots * model.cfg.d_model * model.embed.element_size()
 
 
 def serve_path(dev) -> dict:
@@ -613,10 +663,7 @@ def serve_path(dev) -> dict:
           f"{SERVE['gen']} tokens) and of all {len(prompts)} batcher "
           "requests is the same eager and graphed")
     new = sum(len(v) for v in ids.values())
-    weights = sum(p.numel() * p.element_size()
-                  for name, p in model.named_parameters()
-                  if name != "embed")
-    weights += SERVE["slots"] * cfg.d_model * model.embed.element_size()
+    weights = step_weight_bytes(model, SERVE["slots"])
     step_ms = statistics.median(times["graph"])
     eager_ms = statistics.median(times["eager"])
 
@@ -686,13 +733,17 @@ def serve_path(dev) -> dict:
             "graph_activities": activities}
 
 
-def k4_prefill(cfg, S: int, what: str, dev) -> dict:
-    """``lm.forward`` of ``cfg`` (bf16, chunked attention; random weights
-    from seed 0 on the card) on 1 x S tokens, counted: the tensor-core K4
-    once a layer, handed q at its heads and k, v at the kv heads as views
-    of the layer's (B, S, heads, hd) activations (``_repeat_kv`` never
-    runs), the logits finite; then timed (median of 3) and profiled once.
-    Prints the path's lines under ``what``."""
+def k4_prefill(cfg, S: int, what: str, dev, model=None,
+               extra=None) -> dict:
+    """``lm.forward`` of ``cfg`` (bf16, chunked attention; ``model``, or
+    random weights from seed 0 on the card) on 1 x S tokens and the
+    batch's ``extra`` inputs (Whisper's frames, PaliGemma's patches),
+    counted: the tensor-core K4 once an attention layer, handed q at its
+    heads and k, v at the kv heads as views of the layer's (B, S, heads,
+    hd) activations (``_repeat_kv`` never repeats), the logits of the S
+    text tokens finite; then timed (median of 3) and profiled once, the
+    device time split into K4, the GEMMs and the rest.  Prints the path's
+    lines under ``what``."""
     import numpy as np
     import torch
 
@@ -707,37 +758,42 @@ def k4_prefill(cfg, S: int, what: str, dev) -> dict:
                          for t in (q, k, v))))
         return k4(q, k, v, **kw)
 
-    def repeat_spy(*a):
-        repeats.append(1)
-        return repeat_kv(*a)
+    def repeat_spy(t, n_rep):
+        if n_rep > 1:
+            repeats.append(n_rep)
+        return repeat_kv(t, n_rep)
+    n_attn = sum(mix == "attn" for mix, _ in lm.layer_specs(cfg))
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                           dev)
+        if model is None:
+            model = lm.LM.init(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
         n_params = sum(p.numel() for p in model.parameters())
         tokens = torch.as_tensor(np.random.default_rng(2).integers(
             0, cfg.vocab, (1, S)), dtype=torch.int32, device=dev)
+        batch = {"tokens": tokens, **(extra or {})}
         layers.flash_attention, layers._repeat_kv = k4_spy, repeat_spy
         try:
             zero_model_counts()
-            logits = lm.forward(cfg, model, {"tokens": tokens})
+            logits = lm.forward(cfg, model, batch)
             torch.cuda.synchronize()
             n = model_counts()
         finally:
             layers.flash_attention, layers._repeat_kv = k4, repeat_kv
         print(f"{what} path launches: " + json.dumps(n, sort_keys=True))
-        if n != {"k4/wgmma/bfloat16": cfg.n_layers}:
-            fail(f"{what} launches {n}, expected {cfg.n_layers} "
-                 "tensor-core K4 launches per forward")
-        want = [(cfg.n_heads, cfg.n_kv_heads, True)] * cfg.n_layers
+        if n != {"k4/wgmma/bfloat16": n_attn}:
+            fail(f"{what} launches {n}, expected {n_attn} tensor-core K4 "
+                 "launches per forward (one an attention layer)")
+        want = [(cfg.n_heads, cfg.n_kv_heads, True)] * n_attn
         if repeats or seen != want:
             fail(f"{what}: K4 got (q heads, kv heads, views) {set(seen)} "
-                 f"and _repeat_kv ran {len(repeats)} times; expected "
+                 f"and _repeat_kv repeated {len(repeats)} times; expected "
                  f"{want[0]}, no repeat")
-        print(f"check: {what}: every layer handed K4 q at {cfg.n_heads} "
-              f"heads and k, v at {cfg.n_kv_heads} (a GQA group of "
-              f"{cfg.n_heads // cfg.n_kv_heads}) as views of its (B, S, "
-              "heads, hd) activations; _repeat_kv ran 0 times")
+        print(f"check: {what}: each of the {n_attn} attention layers handed "
+              f"K4 q at {cfg.n_heads} heads and k, v at {cfg.n_kv_heads} (a "
+              f"GQA group of {cfg.n_heads // cfg.n_kv_heads}) as views of "
+              "its (B, S, heads, hd) activations; _repeat_kv repeated 0 "
+              "times")
         if tuple(logits.shape) != (1, S, cfg.vocab) or \
                 not torch.isfinite(logits).all():
             fail(f"{what} logits of shape {tuple(logits.shape)} are not "
@@ -747,32 +803,35 @@ def k4_prefill(cfg, S: int, what: str, dev) -> dict:
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lm.forward(cfg, model, {"tokens": tokens})
+            lm.forward(cfg, model, batch)
             torch.cuda.synchronize()
             reps.append((time.perf_counter() - t0) * 1e3)
-        acts, wall = device_kernels(
-            lambda: lm.forward(cfg, model, {"tokens": tokens}))
+        acts, wall = device_kernels(lambda: lm.forward(cfg, model, batch))
     fwd_ms = statistics.median(reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{what}: {cfg.name} full width, {cfg.n_layers} layers, bf16 "
           f"({n_params} parameters): forward on 1x{S} tokens {fwd_ms:.1f} "
           f"ms (median of 3: {', '.join(f'{t:.1f}' for t in reps)}); "
           f"logits finite; {n['k4/wgmma/bfloat16']} K4 launches per "
-          f"forward; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+          f"forward; peak memory {peak:.1f} GiB")
+    split = {}
     if acts:
         busy = sum(us for _, us in acts) / 1e3
         k4_ms = sum(us for name, us in acts if "fa_wgmma_kernel" in name) \
             / 1e3
+        gemm_ms = sum(us for name, us in acts if "fa_wgmma_kernel" not in
+                      name and re.search(GEMM_KERNELS, name, re.I)) / 1e3
+        split = {"busy_ms": busy, "k4_ms": k4_ms, "gemm_ms": gemm_ms,
+                 "activities": len(acts), "wall_ms": wall}
         print(f"{what}: profiled forward: {len(acts)} device activities, "
               f"device busy {busy:.1f} ms of {wall:.1f} ms wall; K4 "
-              f"{k4_ms:.2f} ms ({k4_ms / busy:.3f} of busy), the rest "
-              f"{busy - k4_ms:.1f} ms")
+              f"{k4_ms:.2f} ms ({k4_ms / busy:.3f} of busy), GEMMs "
+              f"{gemm_ms:.1f} ms, the rest {busy - k4_ms - gemm_ms:.1f} ms")
     else:
         print(f"{what}: the profiler saw no device activity: device time "
               "by kernel not measured")
-    del model
     return {"launches": n["k4/wgmma/bfloat16"], "forward_ms": fwd_ms,
-            "cfg": cfg}
+            "cfg": cfg, "peak_gib": peak, **split}
 
 
 def prefill_path(dev) -> dict:
@@ -920,10 +979,24 @@ def moe_step_profile(dev) -> dict:
     from repro_torch.models import lm
 
     cfg = moe_config("deepseek_v2_236b", MOE_SERVE_LAYERS)
-    nb = SERVE["slots"]
     with torch.inference_mode():
         model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
+    return graph_step_profile(cfg, model, dev)
+
+
+def graph_step_profile(cfg, model, dev) -> dict:
+    """The graphed decode step of ``model`` (``SERVE["slots"]`` slots over a
+    cache of the batcher's length) under torch.profiler: device busy ms,
+    activities and profiled wall ms per step, over ``PROFILE_STEPS``
+    replays, and the device ms per step of the kernels that take the
+    most.  Frees the model."""
+    import torch
+
+    from repro_torch.models import lm
+
+    nb = SERVE["slots"]
+    with torch.inference_mode():
         cache = model.init_cache(nb, serve_requests(cfg.vocab)[2])
         graph = lm.DecodeGraph(cfg, model, cache)
         tok = torch.ones((nb, 1), dtype=torch.int32, device=dev)
@@ -936,6 +1009,7 @@ def moe_step_profile(dev) -> dict:
         steps()
         acts, wall = device_kernels(steps)
     del graph, cache, model
+    torch.cuda.empty_cache()
     by_kernel = collections.Counter()
     for name, us in acts:
         by_kernel[short_name(name)[:60]] += us / 1e3 / PROFILE_STEPS
@@ -1018,9 +1092,7 @@ def moe_serve_path(dev, prof: dict) -> dict:
     print(f"check: moe_serve: every token id of all {len(prompts)} requests "
           "is the same eager and graphed")
     new = sum(len(v) for v in ids.values())
-    weights = sum(p.numel() * p.element_size()
-                  for name, p in model.named_parameters() if name != "embed")
-    weights += SERVE["slots"] * cfg.d_model * model.embed.element_size()
+    weights = step_weight_bytes(model, SERVE["slots"])
     bound_ms = weights / HBM_BYTES_PER_S * 1e3
     step_ms = statistics.median(times["graph"])
     eager_ms = statistics.median(times["eager"])
@@ -1173,15 +1245,506 @@ def moe_prefill_path(dev) -> dict:
     return k4_prefill(cfg, MOE_PREFILL_S, "moe_prefill", dev)
 
 
+def hybrid_config():
+    """Jamba-1.5-Large at its published widths cut to one period
+    (``HYBRID_LAYERS``), bf16, chunked attention."""
+    return moe_config("jamba_1_5_large_398b", HYBRID_LAYERS,
+                      attn_impl="chunked")
+
+
+def hybrid_model(cfg, dev) -> tuple:
+    """(Jamba's ``lm.LM``, its unique parameter bytes), its parameters
+    assembled here from ``layers.init_*`` (seed 0) because four MoE layers'
+    experts (3 x 16 x 8192 x 24576 bf16, 19.33 GB each) and the rest do not
+    fit one card: the first MoE layer's ``w_gate``, ``w_up`` and ``w_down``
+    are one draw that every MoE layer views; routers, norms and every
+    other weight are drawn per layer.  Each layer still reads its experts
+    from device memory (19.33 GB, ~390x the L2) at every use."""
+    import torch
+
+    from repro_torch.models import layers, lm
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = layers._dt(cfg)
+    D, V, E = cfg.d_model, cfg.vocab, cfg.moe.n_experts
+    with torch.inference_mode():
+        params = {"embed": layers._normal(g, (V, D), 0.02, dt, dev),
+                  "final_norm": torch.ones((D,), dtype=dt, device=dev),
+                  "lm_head": layers._normal(g, (D, V), D ** -0.5, dt, dev)}
+        experts, blocks = None, []
+        for mix, ffn in lm.layer_specs(cfg):
+            init_mix = layers.init_attn if mix == "attn" else \
+                layers.init_mamba
+            layer = {"mix": init_mix(cfg, g, dev)}
+            if ffn == "mlp":
+                layer["ffn"] = layers.init_mlp(cfg, g, dev)
+            elif experts is None:
+                layer["ffn"] = layers.init_moe(cfg, g, dev)
+                experts = {k: layer["ffn"][k]
+                           for k in ("w_gate", "w_up", "w_down")}
+            else:
+                layer["ffn"] = {
+                    "norm": torch.ones((D,), dtype=dt, device=dev),
+                    "router": layers._normal(g, (D, E), D ** -0.5,
+                                             torch.float32, dev),
+                    **experts}
+            blocks.append(layer)
+        params["blocks"] = blocks
+        model = lm.LM(cfg, params)
+    unique = {p.data_ptr(): p.numel() * p.element_size()
+              for p in model.parameters()}
+    return model, sum(unique.values())
+
+
+def hybrid_paths(dev, prof: dict) -> dict:
+    """The hybrid_prefill and hybrid_serve paths on one Jamba model
+    (``hybrid_model``, ~32.5 GB), then ``hybrid_equivalence``."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg = hybrid_config()
+    specs = lm.layer_specs(cfg)
+    if [m for m, _ in specs] != ["mamba"] * 4 + ["attn"] + ["mamba"] * 3 \
+            or [f for _, f in specs] != ["moe", "mlp"] * 4:
+        fail(f"hybrid: Jamba's period {specs}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, unique = hybrid_model(cfg, dev)
+    torch.cuda.synchronize()
+    print(f"hybrid: {cfg.name} full width, {cfg.n_layers} layers (one "
+          f"period: 7 Mamba + attention at 4; 4 MoE + 4 MLP), bf16, built "
+          f"in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters())} parameters as the "
+          f"layers use them, {unique} B unique (the 4 MoE layers view one "
+          "draw of expert weights)")
+    out = {"prefill": hybrid_prefill_path(dev, model),
+           "serve": hybrid_serve_path(dev, model, prof)}
+    del model
+    torch.cuda.empty_cache()
+    out["equivalence"] = hybrid_equivalence(dev)
+    return out
+
+
+def hybrid_prefill_path(dev, model) -> dict:
+    """The hybrid_prefill path: Jamba's ``lm.forward`` on 1 x
+    ``HYBRID_PREFILL_S`` tokens through ``k4_prefill`` (K4 once, in the
+    attention layer, at a GQA group of 8); then one more forward with CUDA
+    events around every call of the Mamba layers' core (the short conv,
+    the dt/B/C projections, the scan and its readout) and of the scan
+    alone: their device ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers, lm
+
+    cfg = model.cfg
+    out = k4_prefill(cfg, HYBRID_PREFILL_S, "hybrid_prefill", dev,
+                     model=model)
+    spans = {"core": [], "scan": []}
+    originals = {"core": layers._mamba_core, "scan": layers._linear_scan}
+
+    def timed(kind):
+        def run(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            r = originals[kind](*a, **kw)
+            ev[1].record()
+            spans[kind].append(ev)
+            return r
+        return run
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, HYBRID_PREFILL_S)), dtype=torch.int32, device=dev)
+    layers._mamba_core, layers._linear_scan = timed("core"), timed("scan")
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.forward(cfg, model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            fwd = (time.perf_counter() - t0) * 1e3
+    finally:
+        layers._mamba_core = originals["core"]
+        layers._linear_scan = originals["scan"]
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    n_core = len(spans["core"])
+    n_mamba = sum(mix == "mamba" for mix, _ in lm.layer_specs(cfg))
+    print(f"hybrid_prefill: the Mamba layers' core {ms['core']:.1f} ms in "
+          f"{n_core} calls ({n_mamba} layers x {n_core // n_mamba} chunks), "
+          f"of which the scan {ms['scan']:.1f} ms (CUDA events around each "
+          f"call, in a forward of {fwd:.1f} ms wall)")
+    return {**out, "mamba_core_ms": ms["core"], "scan_ms": ms["scan"],
+            "mamba_calls": n_core}
+
+
+def hybrid_serve_path(dev, model, prof: dict) -> dict:
+    """The hybrid_serve path: a ``ContinuousBatcher`` of 4 slots answers 8
+    requests on Jamba, every step a replay of the step's CUDA graph (Mamba
+    states, attention cache and MoE dispatch in it; no kernel wrapper:
+    the step's attention is plain ``_sdpa`` over the cache); the same
+    requests eagerly must give the same ids, timed eager, graph, graph,
+    eager, beside the step's weight-read bound; then one slot answering two
+    requests in turn must give the second the ids it gets alone (the
+    admission reset zeroes the slot's Mamba state under the graph)."""
+    import torch
+
+    cfg = model.cfg
+    prompts, lens, max_len = serve_requests(cfg.vocab)
+    zero_model_counts()
+    ids, b, _ = run_batcher(cfg, model, prompts, max_len, True, dev,
+                            "hybrid_serve")
+    n = model_counts()
+    print("hybrid_serve path launches: " + json.dumps(n, sort_keys=True))
+    if n or b.decode_fn.launches_per_replay:
+        fail(f"hybrid_serve: the path launched {n} and its graph recorded "
+             f"{b.decode_fn.launches_per_replay}; no kernel wrapper is on "
+             "it")
+    if b.decode_fn.replays != b.steps:
+        fail(f"hybrid_serve: {b.decode_fn.replays} graph replays for "
+             f"{b.steps} batcher steps")
+    times = step_times(cfg, model, prompts, max_len, ids, dev, "hybrid_serve")
+    print(f"check: hybrid_serve: all {len(prompts)} requests completed in "
+          f"{b.steps} steps, each a replay of the decode graph; every token "
+          "id the same eager and graphed")
+    pair = run_batcher(cfg, model, prompts[:2], max_len, True, dev,
+                       "hybrid_serve (one slot, two requests)", n_slots=1)[0]
+    alone = run_batcher(cfg, model, prompts[1:2], max_len, True, dev,
+                        "hybrid_serve (one slot, one request)", n_slots=1)[0]
+    if pair[1] != alone[0]:
+        fail(f"hybrid_serve: request 1 after request 0 in one slot gave "
+             f"{pair[1]}, alone {alone[0]}: the slot's Mamba state was not "
+             "reset")
+    print(f"check: hybrid_serve: one slot, request 1 served after request 0 "
+          f"gives the ids it gets alone ({len(alone[0])} tokens): the "
+          "reused slot's Mamba state starts at zero")
+    new = sum(len(v) for v in ids.values())
+    weights = step_weight_bytes(model, SERVE["slots"])
+    bound_ms = weights / HBM_BYTES_PER_S * 1e3
+    step_ms = statistics.median(times["graph"])
+    eager_ms = statistics.median(times["eager"])
+    st = prof["hybrid_step"]
+    print(f"hybrid_serve: Jamba full width, {cfg.n_layers} layers, bf16: "
+          f"batcher {len(ids)}/{len(prompts)} requests (prompts "
+          f"{lens.min()}-{lens.max()}, max_new {SERVE['max_new']}) in "
+          f"{b.steps} steps: graphed step {step_ms:.3f} ms ("
+          f"{', '.join(f'{t:.3f}' for t in times['graph'])}), eager step "
+          f"{eager_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times['eager'])}"
+          f"; timed eager, graph, graph, eager), "
+          f"{new / (step_ms * b.steps / 1e3):.1f} tokens/s graphed; "
+          f"weight-read bound {bound_ms:.3f} ms for {weights} B per step "
+          f"(graphed step / bound {step_ms / bound_ms:.3f}); device busy "
+          f"{st['busy_ms']:.3f} ms of the graphed step over "
+          f"{st['activities']:.0f} activities (profiled in a fresh child, "
+          f"wall {st['wall_ms']:.3f} ms a step): idle share "
+          f"{1 - st['busy_ms'] / step_ms:.3f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; device ms "
+          "a step by kernel: "
+          + "; ".join(f"{n_} {ms:.3f}" for n_, ms in st["top_ms"]))
+    return {"ms_per_step": step_ms, "eager_ms_per_step": eager_ms,
+            "bound_ms": bound_ms, "weight_bytes": weights, "steps": b.steps,
+            "idle_share": 1 - st["busy_ms"] / step_ms}
+
+
+def hybrid_equivalence(dev) -> dict:
+    """Jamba's Mamba layer alone at full width in f32 (a whole f32 period
+    does not fit): ``mamba_forward`` on ``HYBRID_EQUIV_S`` tokens (chunks of
+    256, log-depth scans) against as many chained ``mamba_decode`` steps,
+    on the last token at 2e-3."""
+    import torch
+
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(hybrid_config(), dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(3)
+    zero_model_counts()
+    with torch.inference_mode():
+        p = layers.init_mamba(cfg, g, dev)
+        x = torch.randn((1, HYBRID_EQUIV_S, cfg.d_model), generator=g,
+                        device=dev)
+        full = layers.mamba_forward(cfg, p, x)
+        cache = layers.init_mamba_cache(cfg, 1, torch.float32, dev)
+        ys = []
+        for t in range(HYBRID_EQUIV_S):
+            y, cache = layers.mamba_decode(cfg, p, x[:, t:t + 1], cache)
+            ys.append(y)
+        dec = torch.cat(ys, dim=1)
+    torch.cuda.synchronize()
+    n = model_counts()
+    if n:
+        fail(f"hybrid equivalence: launches {n}; no kernel wrapper is on it")
+    try:
+        torch.testing.assert_close(dec[:, -1], full[:, -1], rtol=2e-3,
+                                   atol=2e-3)
+    except AssertionError as e:
+        fail(f"Jamba's Mamba layer: prefill and decode disagree on the last "
+             f"token: {e}")
+    err = (dec[:, -1] - full[:, -1]).abs().max().item()
+    err_all = (dec - full).abs().max().item()
+    print(f"check: Jamba's Mamba layer full width (di {2 * cfg.d_model}, "
+          f"d_state {cfg.mamba_d_state}), f32: prefill (chunks of 256) == "
+          f"{HYBRID_EQUIV_S} chained decode steps on the last token (max "
+          f"|diff| {err:.3g}, rtol/atol 2e-3; over every token {err_all:.3g})")
+    del p, x, full, dec
+    torch.cuda.empty_cache()
+    return {"error": err, "error_all": err_all}
+
+
+def encdec_step_flops(cfg, B: int) -> int:
+    """Operations of one Whisper decode step of B rows: the encoder over B
+    x enc_seq frames (projections, scores and values, the 2-matrix MLP),
+    each decoder layer's cross-attention keys and values over them, and
+    the decoder's and the head's products for the B new tokens."""
+    D, F, T, V = cfg.d_model, cfg.d_ff, cfg.enc_seq, cfg.vocab
+    enc = cfg.n_enc_layers * (2 * B * T * (4 * D * D + 2 * D * F)
+                              + 4 * B * T * T * D)
+    cross_kv = cfg.n_layers * 2 * B * T * 2 * D * D
+    dec = cfg.n_layers * 2 * B * (6 * D * D + 2 * D * F) + 2 * B * D * V
+    return enc + cross_kv + dec
+
+
+def encdec_serve_path(dev) -> dict:
+    """The encdec_serve path: ``serve.main --arch whisper_small`` (batch 4,
+    prompt 32, gen 16; frames drawn after the prompts, as the reference
+    does) graphed and eagerly, the same ids; no kernel wrapper is on its
+    decode step.  Then the step is timed (wall, graphed and eager; device,
+    graphed) beside the encoder alone: each step encodes the 1500 frames
+    again through 12 layers, as the reference's does."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("whisper_small")
+    argv = ["--arch", "whisper_small", "--device", dev.type, "--batch",
+            str(SERVE["batch"]), "--prompt-len", str(SERVE["prompt"]),
+            "--gen", str(SERVE["gen"])]
+    zero_model_counts()
+    t0 = time.perf_counter()
+    gen = serve.main(argv)
+    main_s = time.perf_counter() - t0
+    n = model_counts()
+    print("encdec_serve path launches: " + json.dumps(n, sort_keys=True))
+    if n:
+        fail(f"encdec_serve: the path launched {n}; no kernel wrapper is on "
+             "Whisper's decode step")
+    if gen.shape != (SERVE["batch"], SERVE["gen"]) or \
+            not ((gen >= 0) & (gen < cfg.vocab)).all():
+        fail(f"encdec_serve: serve.main returned ids of shape {gen.shape} "
+             f"outside [0, {cfg.vocab})")
+    eager = serve.main(argv + ["--eager"])
+    if not np.array_equal(eager, gen):
+        fail(f"encdec_serve: the graphed ids {gen.tolist()} differ from the "
+             f"eager ids {eager.tolist()}")
+    print(f"check: encdec_serve: serve.main whisper_small (batch "
+          f"{SERVE['batch']}, prompt {SERVE['prompt']}, gen {SERVE['gen']}, "
+          "frames a static input of the graph): every token id the same "
+          "eager and graphed")
+    B = SERVE["batch"]
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        prompts, extra = serve.draw_inputs(cfg, B, SERVE["prompt"], 0, dev)
+        cache = model.init_cache(B, SERVE["prompt"] + SERVE["gen"])
+        graph = lm.DecodeGraph(cfg, model, cache, extra)
+        tok = prompts[:, :1]
+        pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+        def wall_ms(fn, reps=10):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        def graphed():
+            graph(cache, tok, pos, **extra)
+
+        def eager_step():
+            lm.decode_step(cfg, model, cache,
+                           {"token": tok, "pos": pos, **extra})
+        step_ms, eager_ms = wall_ms(graphed), wall_ms(eager_step)
+        step_dev = time_ms(graphed, 10)[0]
+        enc_dev = time_ms(lambda: lm.encode(cfg, model, extra["frames"]),
+                          10)[0]
+        weights = step_weight_bytes(model, B) \
+            + extra["frames"].numel() * extra["frames"].element_size()
+    flops = encdec_step_flops(cfg, B)
+    b_ms, b_by = max((weights / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     (flops / BF16_FLOP_PER_S * 1e3, "operations"))
+    print(f"encdec_serve: Whisper-small full depth and width (12 + 12 "
+          f"layers, bf16, {sum(p.numel() for p in model.parameters())} "
+          f"parameters): serve.main in {main_s:.2f} s; a decode step of "
+          f"batch {B} {step_ms:.3f} ms wall graphed ({step_dev:.3f} ms on the "
+          f"device), {eager_ms:.3f} ms eager; the encoder over {B} x "
+          f"{cfg.enc_seq} frames alone {enc_dev:.3f} ms on the device, "
+          f"{enc_dev / step_dev:.3f} of the graphed step; bound {b_ms:.3f} ms "
+          f"by {b_by} ({flops} operations on the bf16 tensor cores, "
+          f"{weights} B)")
+    del graph, cache, model
+    torch.cuda.empty_cache()
+    return {"ms_per_step": step_ms, "device_ms_per_step": step_dev,
+            "eager_ms_per_step": eager_ms, "encode_ms": enc_dev,
+            "bound_ms": b_ms}
+
+
+def encdec_prefill_path(dev) -> dict:
+    """Whisper-small's ``lm.forward`` on ``WHISPER_S`` decoder tokens and 1
+    x 1500 frames, chunked attention: K4 bf16 at hd 64 in each decoder
+    layer's self attention (448 = 3.5 blocks of 128 q rows: a ragged last
+    block); the encoder's and the cross attention stay plain ``_sdpa``."""
+    import torch
+
+    from repro_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config("whisper_small"),
+                              attn_impl="chunked")
+    g = torch.Generator(device=dev).manual_seed(4)
+    frames = torch.randn((1, cfg.enc_seq, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    return k4_prefill(cfg, WHISPER_S, "encdec_prefill", dev,
+                      extra={"frames": frames})
+
+
+def encdec_equivalence(dev) -> dict:
+    """Whisper-small at full depth and width in f32 (chunked: K4 f32 at hd
+    64 in the prefill): the last of ``WHISPER_S`` decode steps, each
+    encoding the frames again, against the prefill's last token at 2e-3,
+    the reference's own ``test_whisper_decode_matches_teacher_forcing``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("whisper_small"), dtype="float32",
+                              attn_impl="chunked")
+    g = torch.Generator(device=dev).manual_seed(5)
+    zero_model_counts()
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, g, dev)
+        tokens = torch.as_tensor(np.random.default_rng(6).integers(
+            0, cfg.vocab, (1, WHISPER_S)), dtype=torch.int32, device=dev)
+        frames = torch.randn((1, cfg.enc_seq, cfg.d_model), generator=g,
+                             device=dev)
+        full = lm.forward(cfg, model, {"tokens": tokens, "frames": frames})
+        cache = model.init_cache(1, WHISPER_S)
+        pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        for t in range(WHISPER_S):
+            logits, cache = model.decode_step(
+                cache, {"token": tokens[:, t:t + 1], "pos": pos + t,
+                        "frames": frames})
+    torch.cuda.synchronize()
+    n = model_counts()
+    print("encdec equivalence launches: " + json.dumps(n, sort_keys=True))
+    if n != {"k4/tf32x3/float32": cfg.n_layers}:
+        fail(f"encdec equivalence: launches {n}, expected {cfg.n_layers} "
+             "K4 f32 launches in the prefill")
+    try:
+        torch.testing.assert_close(logits[:, 0], full[:, -1], rtol=2e-3,
+                                   atol=2e-3)
+    except AssertionError as e:
+        fail(f"whisper_small: prefill and decode disagree on the last "
+             f"token: {e}")
+    err = (logits[:, 0] - full[:, -1]).abs().max().item()
+    print(f"check: whisper_small full depth and width, f32: prefill (K4 f32 "
+          f"at hd 64) == decode on the last of {WHISPER_S} tokens, the "
+          f"frames encoded at every step (max |diff| {err:.3g}, rtol/atol "
+          "2e-3)")
+    del model, full, cache
+    torch.cuda.empty_cache()
+    return {"error": err}
+
+
+def vlm_paths(dev) -> dict:
+    """The vlm_prefill path: PaliGemma-3B's ``lm.forward`` on 256 patch
+    embeddings + ``VLM_TEXT_S`` tokens (bf16, chunked: K4 bf16 at hd 256
+    over 1024 positions, 8 q heads over one kv head); its text logits in
+    f32 against the same model's dense path (plain ``_sdpa``) at 2e-3; and
+    ``serve.main --arch paligemma_3b`` graphed once (text-only decoding,
+    as in the reference)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("paligemma_3b"),
+                              attn_impl="chunked")
+    g = torch.Generator(device=dev).manual_seed(7)
+    patches = torch.randn((1, cfg.n_img_tokens, cfg.d_model), generator=g,
+                          device=dev)
+    out = k4_prefill(cfg, VLM_TEXT_S, "vlm_prefill", dev,
+                     extra={"patches": patches.to(torch.bfloat16)})
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    zero_model_counts()
+    with torch.inference_mode():
+        model = lm.LM.init(c32, g, dev)
+        tokens = torch.as_tensor(np.random.default_rng(8).integers(
+            0, cfg.vocab, (1, VLM_TEXT_S)), dtype=torch.int32, device=dev)
+        batch = {"tokens": tokens, "patches": patches}
+        chunked = lm.forward(c32, model, batch)
+        torch.cuda.synchronize()
+        n = model_counts()
+        dense = lm.forward(dataclasses.replace(c32, attn_impl="dense"),
+                           model, batch)
+    print("vlm equivalence launches: " + json.dumps(n, sort_keys=True))
+    if n != {"k4/tf32x3/float32": cfg.n_layers}:
+        fail(f"vlm equivalence: launches {n}, expected {cfg.n_layers} K4 "
+             "f32 launches in the chunked forward")
+    if tuple(chunked.shape) != (1, VLM_TEXT_S, cfg.vocab):
+        fail(f"vlm: logits of shape {tuple(chunked.shape)}, expected the "
+             f"{VLM_TEXT_S} text positions only")
+    try:
+        torch.testing.assert_close(chunked, dense, rtol=2e-3, atol=2e-3)
+    except AssertionError as e:
+        fail(f"paligemma_3b: the chunked path (K4 f32) and the dense path "
+             f"disagree on the text logits: {e}")
+    err = (chunked - dense).abs().max().item()
+    print(f"check: paligemma_3b full depth and width, f32, {cfg.n_img_tokens}"
+          f" patches + {VLM_TEXT_S} tokens: text logits of the chunked path "
+          f"(K4 f32 at hd 256, one kv head) == the dense path's (plain "
+          f"_sdpa) (max |diff| {err:.3g}, rtol/atol 2e-3)")
+    del model, chunked, dense
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", "paligemma_3b", "--device", dev.type, "--batch",
+            str(SERVE["batch"]), "--prompt-len", str(SERVE["prompt"]),
+            "--gen", str(SERVE["gen"])]
+    zero_model_counts()
+    t0 = time.perf_counter()
+    gen = serve.main(argv)
+    secs = time.perf_counter() - t0
+    n = model_counts()
+    if n or gen.shape != (SERVE["batch"], SERVE["gen"]) or \
+            not ((gen >= 0) & (gen < cfg.vocab)).all():
+        fail(f"vlm serve: serve.main launched {n} and returned ids of shape "
+             f"{gen.shape}")
+    print(f"check: vlm serve: serve.main paligemma_3b (batch "
+          f"{SERVE['batch']}, prompt {SERVE['prompt']}, gen {SERVE['gen']}) "
+          f"graphed, text only: ids in [0, {cfg.vocab}) in {secs:.2f} s")
+    return {**out, "equivalence_error": err}
+
+
 def k4_entries(dev, prefill_launches: int, equiv: dict, reduced: dict,
-               prof: dict, moe_prefill: dict) -> list:
+               prof: dict, moe_prefill: dict, family_paths: list) -> list:
     """K4's three kernels against their plain versions at their paths'
     shapes, timed: the tensor-core kernel (bf16) at the prefill's (and, in
     the same entry under "kimi_k2", at the moe_prefill path's GQA group of
     8), the tf32x3 kernel (f32) at the equivalence path's (llama3-8b at hd
     128, gemma-7b at hd 256), the CUDA-core kernel (f32 and bf16) at the
-    reduced path's; each on views of (B, S, heads, hd) tensors as the layer
-    hands them over, k and v at their kv heads."""
+    reduced path's; then the tensor-core kernel at each of
+    ``family_paths``' shapes ((path, k4_prefill's result, positions, the
+    key of K4_SDPA_SHAPES), an entry each: Jamba's group of 8, Whisper's hd 64 over a ragged last
+    block, PaliGemma's hd 256 over one kv head); each on views of (B, S,
+    heads, hd) tensors as the layer hands them over, k and v at their kv
+    heads."""
     import torch
 
     from repro_torch.config import get_config
@@ -1213,6 +1776,10 @@ def k4_entries(dev, prefill_launches: int, equiv: dict, reduced: dict,
     entries[0]["kimi_k2"] = {k: v for k, v in kimi.items()
                              if k not in ("name", "route", "source",
                                           "replaces")}
+    for path, res, S, sdpa_key in family_paths:
+        entries.append(k4_entry(dev, torch.bfloat16, res["cfg"], 1, S, S,
+                                res["launches"], path, sdpa_key, prof,
+                                tag=path))
     return entries
 
 
@@ -1228,13 +1795,15 @@ def short_name(name: str) -> str:
 
 
 def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
-             path: str, sdpa_key: str, prof: dict) -> dict:
+             path: str, sdpa_key: str, prof: dict, tag: str = "") -> dict:
     """One K4 kernel held against its plain version (both draws, causal and
     not, its block pairs; the limit shown to reject a dropped kv tile) and
     timed, causal, at S tokens, beside sdpa (the backend it picked read off
     the profiler).  The CUDA-core kernel's calls are profiled too (one
     device kernel each, its own time); at f32 hd 256 the CUDA-core kernel
-    is timed beside the tf32x3 kernel the route takes."""
+    is timed beside the tf32x3 kernel the route takes.  ``tag`` (the path)
+    goes into the entry's name where another entry has its kernel, dtype
+    and hd."""
     import torch
 
     from repro_torch import _cuda
@@ -1389,7 +1958,8 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
           + f"; plain {plain_ms:.3f} ms; sdpa {lib_ms:.4f} ms, kernels "
           + ", ".join(lib_kernels) + "); ptxas " + " | ".join(ptxas))
     return {
-        "name": f"flash_attention_{kind}[{dt}, hd {hd}]", "route": "cuda",
+        "name": f"flash_attention_{kind}[{dt}, hd {hd}"
+                + (f", {tag}]" if tag else "]"), "route": "cuda",
         "source": source, "replaces": K4_REPLACES, "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -1721,9 +2291,9 @@ def main() -> int:
         print(f"  {name}: {secs:.1f} s; " + " | ".join(ptxas_summary(log)))
     t0 = time.perf_counter()
     prof = profiles()
-    print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's "
-          f"and the MoE step's "
-          f"device kernels off torch.profiler in "
+    print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's, "
+          f"the MoE step's and Jamba's step's device kernels off "
+          f"torch.profiler in "
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- the paths: counts from 0, launch, counts read ---------------------
@@ -2031,8 +2601,21 @@ def main() -> int:
     moe_equivalence(dev)
     moe_prefilled = moe_prefill_path(dev)
     torch.cuda.empty_cache()
-    entries += k4_entries(dev, prefilled["launches"], equiv, reduced, prof,
-                          moe_prefilled)
+    # ---- the last families: Jamba, Whisper, PaliGemma ---------------------
+    hybrid = hybrid_paths(dev, prof)
+    encdec_serve_path(dev)
+    encdec = encdec_prefill_path(dev)
+    torch.cuda.empty_cache()
+    encdec_equivalence(dev)
+    vlm = vlm_paths(dev)
+    torch.cuda.empty_cache()
+    entries += k4_entries(
+        dev, prefilled["launches"], equiv, reduced, prof, moe_prefilled,
+        [("hybrid_prefill", hybrid["prefill"], HYBRID_PREFILL_S,
+          "bfloat16/jamba_1_5_large_398b"),
+         ("encdec_prefill", encdec, WHISPER_S, "bfloat16/whisper_small"),
+         ("vlm_prefill", vlm, vlm["cfg"].n_img_tokens + VLM_TEXT_S,
+          "bfloat16/paligemma_3b")])
     entries += k5_entries(dev, served["launches"], equiv, prof)
 
     print(f"total: {time.perf_counter() - started:.1f} s")

@@ -4,11 +4,14 @@ with the KV/state caches produced by the prefill.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu] [--eager]
 
-``--arch`` names any configuration of the dense, moe or ssm family
-(``llama3_8b``, ``deepseek_v2_236b``, ``kimi_k2_1t_a32b``, ``rwkv6_3b``,
-...); the full MoE models do not fit one card, so take them ``--reduced``
-(or cut their depth, as ``chip_smoke.py`` does).  The model runs on the
-card unless ``--device cpu`` is given.  On the card
+``--arch`` names any of the ten configurations (``llama3_8b``,
+``deepseek_v2_236b``, ``rwkv6_3b``, ``whisper_small``, ``paligemma_3b``,
+...); the full MoE and hybrid models do not fit one card, so take them
+``--reduced`` (or cut their depth, as ``chip_smoke.py`` does).  Whisper's
+decode steps take frame embeddings, drawn after the prompts from the same
+generator as the reference draws them; PaliGemma decodes text only, as in
+the reference.  The model runs on the card unless ``--device cpu`` is
+given.  On the card
 every decode step replays one CUDA graph (``lm.DecodeGraph``), as the
 reference's decode step is one ``jax.jit`` program; ``--eager`` runs the
 step op by op instead (the graph's yardstick).  The CPU has no graphs, so
@@ -42,10 +45,28 @@ def prefill_into_cache(cfg, model, tokens, cache, step=None):
     return cache, logits
 
 
-def _eager_step(cfg, model):
+def _eager_step(cfg, model, extra=None):
+    """The eager step; ``extra`` holds the batch's other inputs (an encdec
+    step's ``frames``)."""
     def step(cache, token, pos):
-        return lm.decode_step(cfg, model, cache, {"token": token, "pos": pos})
+        return lm.decode_step(cfg, model, cache,
+                              {"token": token, "pos": pos, **(extra or {})})
     return step
+
+
+def draw_inputs(cfg, B: int, prompt_len: int, seed: int, device):
+    """(prompts (B, prompt_len) int32, extra inputs of every step) from
+    ``np.random.default_rng(seed)`` in the reference's order: the prompts,
+    then (encdec) the frames (B, enc_seq, D) in the model's dtype."""
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab, (B, prompt_len)),
+                              dtype=torch.int32, device=device)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.enc_seq, cfg.d_model)),
+            dtype=getattr(torch, cfg.dtype), device=device)
+    return prompts, extra
 
 
 def _sync(device: torch.device) -> None:
@@ -78,14 +99,14 @@ def main(argv=None):
     with torch.inference_mode():
         model = lm.LM.init(cfg, gen, dev)
         cache = model.init_cache(B, Smax)
-        rng = np.random.default_rng(args.seed)
-        prompts = torch.as_tensor(
-            rng.integers(2, cfg.vocab, (B, args.prompt_len)),
-            dtype=torch.int32, device=dev)
+        prompts, extra = draw_inputs(cfg, B, args.prompt_len, args.seed, dev)
 
-        step = _eager_step(cfg, model)
+        step = _eager_step(cfg, model, extra)
         if dev.type == "cuda" and not args.eager:
-            step = lm.DecodeGraph(cfg, model, cache)
+            graph = lm.DecodeGraph(cfg, model, cache, extra)
+
+            def step(cache, token, pos):
+                return graph(cache, token, pos, **extra)
 
         _sync(dev)
         t0 = time.time()

@@ -3,11 +3,12 @@ package's draws.
 
 ``make_batch`` draws from ``np.random.default_rng(seed)`` in the order the
 reference does, so both packages build equal batches, for every family
-(the model path, ``lm``, runs the dense, moe and ssm ones).  The reference's
-``input_specs`` (a ``jax.ShapeDtypeStruct`` view for dry-run compiles) has
-no counterpart yet.  The modality frontends are stubs as in the reference:
-whisper gets frame embeddings (B, enc_seq, D), paligemma patch embeddings
-(B, n_img_tokens, D)."""
+(``lm`` runs all of them).  The reference's ``input_specs`` (a
+``jax.ShapeDtypeStruct`` view for dry-run compiles) has no counterpart yet:
+it comes with the multi-device slice and ``launch/dryrun.py``.  The
+modality frontends are stubs as in the reference: whisper gets frame
+embeddings (B, enc_seq, D), paligemma patch embeddings (B, n_img_tokens,
+D)."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,17 +1,19 @@
-"""Model layers of the dense (GQA), MoE (with DeepSeek-V2's MLA) and RWKV-6
-families, as plain functions over a layer's parameters (a mapping of name
--> tensor, such as the ``nn.ParameterDict`` that ``lm.LM`` holds; the MoE's
-shared experts are a nested one).
+"""Model layers of every family: dense attention (GQA / MQA), the MoE (with
+DeepSeek-V2's MLA), Mamba (Jamba's selective SSM), RWKV-6 and cross
+attention (Whisper's decoder), as plain functions over a layer's
+parameters (a mapping of name -> tensor, such as the ``nn.ParameterDict``
+that ``lm.LM`` holds; the MoE's shared experts are a nested one).
 
 The functions keep the JAX package's layouts at their boundaries
 (activations (B, S, D), heads (B, S, H, hd), caches (B, Smax, K, hd), MLA's
-compressed cache (B, Smax, kv_lora + rope), expert weights (E, D, F)) and
-its numerics, so the tests hold each one against ``repro.models.layers`` on
-carried weights.  MLA and the MoE are plain einsums and gathers in the
-reference too, so they stay PyTorch here; the MoE's dispatch has fixed
-shapes (no host sync), so the decode step captures as a CUDA graph.  Two
-layers reach the port's CUDA kernels where the reference runs the same
-math in plain JAX:
+compressed cache (B, Smax, kv_lora + rope), expert weights (E, D, F),
+Mamba's state (B, di, N) and conv tail (B, kc - 1, di)) and its numerics,
+so the tests hold each one against ``repro.models.layers`` on carried
+weights.  MLA, the MoE, Mamba's scan and cross attention are plain einsums,
+gathers and scans in the reference too, so they stay PyTorch here; every
+one has fixed shapes at decode (no host sync), so the decode step captures
+as a CUDA graph.  Two layers reach the port's CUDA kernels where the
+reference runs the same math in plain JAX:
 
 * ``attn_forward`` with ``cfg.attn_impl == "chunked"`` and ``causal``
   computes ``_sdpa_chunked``'s function with flash attention (K4), which
@@ -463,6 +465,124 @@ def moe_forward(cfg: ArchConfig, p, x):
 
 
 # ---------------------------------------------------------------------------
+# Mamba (selective SSM): chunked, each chunk a log-depth scan
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator, device):
+    """Jamba's Mamba layer; ``a_log`` and ``d_skip`` are f32 whatever the
+    layer's dtype, as in the reference."""
+    D = cfg.d_model
+    di = cfg.mamba_expand * D
+    N = cfg.mamba_d_state
+    kc = cfg.mamba_d_conv
+    dt_rank = max(1, D // 16)
+    dt = _dt(cfg)
+    a = torch.arange(1, N + 1, dtype=torch.float32, device=device)
+    return {
+        "norm": torch.ones((D,), dtype=dt, device=device),
+        "w_in": _normal(gen, (D, 2 * di), D ** -0.5, dt, device),
+        "conv_w": _normal(gen, (kc, di), kc ** -0.5, dt, device),
+        "w_bc": _normal(gen, (di, 2 * N), di ** -0.5, dt, device),
+        "w_dt": _normal(gen, (di, dt_rank), di ** -0.5, dt, device),
+        "w_dt2": _normal(gen, (dt_rank, di), dt_rank ** -0.5, dt, device),
+        "a_log": torch.log(a).expand(di, N).contiguous(),
+        "d_skip": torch.ones((di,), dtype=torch.float32, device=device),
+        "w_out": _normal(gen, (di, D), di ** -0.5, dt, device),
+    }
+
+
+def _linear_scan(a, b):
+    """h_t = a_t * h_{t-1} + b_t along dim 1 from h_{-1} = 0, for f32 decays
+    ``a`` and drives ``b`` of shape (B, S, ...): Hillis-Steele's log2(S)
+    steps, each combining every position with the one ``d`` before it by
+    the reference's associative combine.  Every factor is a decay in
+    (0, 1], so nothing overflows (the closed form through exp(-cumsum)
+    would, at dt * A down to -16 a token)."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        nb = torch.empty_like(b)
+        nb[:, :d] = b[:, :d]
+        torch.addcmul(b[:, d:], a[:, d:], b[:, :-d], out=nb[:, d:])
+        if 2 * d < S:
+            na = torch.empty_like(a)
+            na[:, :d] = a[:, :d]
+            torch.mul(a[:, d:], a[:, :-d], out=na[:, d:])
+            a = na
+        b = nb
+        d *= 2
+    return b
+
+
+def _mamba_core(cfg, p, xz, h0, conv_tail):
+    """xz: (B, S, 2*di); h0: the (B, di, N) f32 state carried in, or None
+    for zeros; conv_tail: (B, kc-1, di).  Returns (y (B, S, di) in xz's
+    dtype, the state after the last token, the new conv tail)."""
+    S = xz.shape[1]
+    kc = cfg.mamba_d_conv
+    x, z = xz.chunk(2, dim=-1)
+    # causal short conv along S (the tail carries it across calls)
+    xp = torch.cat([conv_tail, x], dim=1)
+    c = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(kc))
+    new_tail = xp[:, S:S + kc - 1]
+    c = F.silu(c)
+    Bm, Cm = (c @ p["w_bc"]).chunk(2, dim=-1)             # (B, S, N)
+    # the reference's einsum("bsd,dr,re->bse") contracts c @ w_dt first,
+    # rounding it to the layer's dtype
+    dt_ = F.softplus(((c @ p["w_dt"]) @ p["w_dt2"]).float())
+    A = -torch.exp(p["a_log"])                           # (di, N)
+    decay = torch.exp(dt_[..., None] * A)                # (B, S, di, N)
+    drive = (dt_ * c.float())[..., None] * Bm[:, :, None, :]
+    if h0 is not None:                # h_0 = decay_0 * h0 + drive_0
+        drive[:, 0] += decay[:, 0] * h0
+    h = _linear_scan(decay, drive)
+    y = torch.einsum("bsdn,bsn->bsd", h, Cm.float())
+    y = y + p["d_skip"] * c.float()
+    y = y.to(xz.dtype) * F.silu(z)
+    return y, h[:, -1], new_tail
+
+
+def mamba_forward(cfg: ArchConfig, p, x, chunk=256):
+    """Full-sequence Mamba, ``chunk`` tokens a scan, the state and conv
+    tail carried from chunk to chunk; ``S % min(chunk, S) == 0`` as in the
+    reference."""
+    B, S, D = x.shape
+    di = cfg.mamba_expand * D
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    xz = h @ p["w_in"]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"mamba: {S} tokens are not a multiple of chunk "
+                         f"{chunk}")
+    state = None
+    tail = torch.zeros((B, cfg.mamba_d_conv - 1, di), dtype=xz.dtype,
+                       device=x.device)
+    ys = []
+    for s0 in range(0, S, chunk):
+        y, state, tail = _mamba_core(cfg, p, xz[:, s0:s0 + chunk], state,
+                                     tail)
+        ys.append(y)
+    return x + torch.cat(ys, dim=1) @ p["w_out"]
+
+
+def mamba_decode(cfg: ArchConfig, p, x, cache):
+    """One-token decode; cache = {h: (B, di, N) f32, tail: (B, kc-1, di)},
+    returned as new tensors (``lm.decode_step_into`` copies them back)."""
+    xz = rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_in"]
+    y, h1, tail1 = _mamba_core(cfg, p, xz, cache["h"], cache["tail"])
+    return x + y @ p["w_out"], {"h": h1, "tail": tail1}
+
+
+def init_mamba_cache(cfg: ArchConfig, B, dt, device):
+    di = cfg.mamba_expand * cfg.d_model
+    return {"h": torch.zeros((B, di, cfg.mamba_d_state), dtype=torch.float32,
+                             device=device),
+            "tail": torch.zeros((B, cfg.mamba_d_conv - 1, di), dtype=dt,
+                                device=device)}
+
+
+# ---------------------------------------------------------------------------
 # RWKV-6 (Finch): time mix (WKV6) + channel mix
 # ---------------------------------------------------------------------------
 
@@ -564,3 +684,29 @@ def init_rwkv_cache(cfg: ArchConfig, B, dt, device):
             "shift_f": torch.zeros((B, 1, D), dtype=dt, device=device),
             "s": torch.zeros((B, H, hd, hd), dtype=torch.float32,
                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (the Whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(cfg: ArchConfig, gen: torch.Generator, device):
+    return init_attn(cfg, gen, device)
+
+
+def cross_attn_forward(cfg: ArchConfig, p, x, enc_out):
+    """x (B, S, D) attends over the encoder's output (B, T, D): no rope,
+    all T positions visible, through plain ``_sdpa`` as in the reference
+    (the port sends only chunked causal attention to K4)."""
+    B, S, _ = x.shape
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    T = enc_out.shape[1]
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = _heads_in(h, p["wq"])
+    k = _heads_in(enc_out, p["wk"])
+    v = _heads_in(enc_out, p["wv"])
+    mask = torch.ones((B, 1, S, T), dtype=torch.bool, device=x.device)
+    o = _sdpa(cfg, q, _repeat_kv(k, H // K), _repeat_kv(v, H // K), mask,
+              x.dtype)
+    return x + _heads_out(o, p["wo"])

@@ -1,18 +1,24 @@
-"""Model composition for the dense, MoE (DeepSeek-V2's MLA among them) and
-RWKV-6 families.
+"""Model composition for all ten configurations: the dense, MoE
+(DeepSeek-V2's MLA among them), RWKV-6 (``ssm``), hybrid (Jamba's Mamba
+layers with one attention layer a period), encoder-decoder (Whisper) and
+VLM (PaliGemma's image-patch prefix) families.
 
 The reference (``repro.models.lm``) keeps the dense prefix layers apart,
-stacks the parameters of all periods on a leading axis and applies them
-with ``jax.lax.scan``; PyTorch runs eagerly, so ``LM`` holds one entry per
-layer in ``blocks``, the dense prefix first, and ``backbone`` is a Python
-loop over them.  ``params_from_reference`` carries the reference's
-parameters across (numpy in, the prefix first, the period axis unstacked),
-so both packages compute the same thing in the tests.
+stacks the parameters of all periods (and of the encoder's layers) on a
+leading axis and applies them with ``jax.lax.scan``; PyTorch runs eagerly,
+so ``LM`` holds one entry per layer in ``blocks``, the dense prefix first
+(and in ``encoder``), and ``backbone`` is a Python loop over them.
+``params_from_reference`` carries the reference's parameters across (numpy
+in, the prefix first, the period and encoder axes unstacked), so both
+packages compute the same thing in the tests.
 
 Entry points (the reference's ``prefill_fn`` and ``decode_fn``):
-  * forward(cfg, model, batch)             -- full-sequence logits
-  * decode_step(cfg, model, cache, batch)  -- one token against the caches
-  * DecodeGraph(cfg, model, cache)         -- the decode step captured once
+  * forward(cfg, model, batch)             -- full-sequence logits; batch
+    holds ``tokens``, and ``frames`` (encdec) or ``patches`` (vlm)
+  * decode_step(cfg, model, cache, batch)  -- one token against the caches;
+    an encdec batch holds ``frames``, encoded again at every step as the
+    reference does
+  * DecodeGraph(cfg, model, cache, extra)  -- the decode step captured once
     as a CUDA graph, replayed per token: the counterpart of the
     reference's ``@jax.jit`` decode (``repro.launch.serve``)
 
@@ -30,23 +36,6 @@ from torch import nn
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import flash_attention, wkv6
 from repro_torch.models import layers as L
-
-# families whose layers are not ported yet -> what they need
-_NOT_PORTED = {
-    "hybrid": "Mamba layers (the hybrid family)",
-    "encdec": "the encoder and cross attention (encdec)",
-    "vlm": "the image-patch prefix (vlm)",
-}
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise for a configuration whose layers the port does not have."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {_NOT_PORTED[cfg.family]} are not ported yet "
-            "(ROADMAP queue 1, 'the remaining model families'); the port "
-            "runs the dense, moe and ssm families")
-
 
 # ---------------------------------------------------------------------------
 # per-position layer spec within a period
@@ -95,7 +84,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters drawn from ``generator`` (on its own device) and
     placed on ``device``.  The reference draws from ``jax.random``; the two
     give different numbers from one seed."""
-    check_family(cfg)
     dev = torch.device(device)
     dt = L._dt(cfg)
     D, V = cfg.d_model, cfg.vocab
@@ -103,16 +91,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
               "final_norm": torch.ones((D,), dtype=dt, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal(generator, (D, V), D ** -0.5, dt, dev)
+    init_mix = {"attn": L.init_attn, "mla": L.init_mla,
+                "mamba": L.init_mamba, "rwkv": L.init_rwkv}
     blocks = []
     for mix, ffn in layer_specs(cfg):
-        if mix == "rwkv":
-            blocks.append({"mix": L.init_rwkv(cfg, generator, dev)})
-            continue
-        init_mix = L.init_mla if mix == "mla" else L.init_attn
-        init_ffn = L.init_moe if ffn == "moe" else L.init_mlp
-        blocks.append({"mix": init_mix(cfg, generator, dev),
-                       "ffn": init_ffn(cfg, generator, dev)})
+        layer = {"mix": init_mix[mix](cfg, generator, dev)}
+        if ffn != "rwkv":
+            init_ffn = L.init_moe if ffn == "moe" else L.init_mlp
+            layer["ffn"] = init_ffn(cfg, generator, dev)
+        if cfg.family == "encdec":
+            layer["cross"] = L.init_cross_attn(cfg, generator, dev)
+        blocks.append(layer)
     params["blocks"] = blocks
+    if cfg.family == "encdec":
+        params["encoder"] = [{"mix": L.init_attn(cfg, generator, dev),
+                              "ffn": L.init_mlp(cfg, generator, dev)}
+                             for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = torch.ones((D,), dtype=dt, device=dev)
+    if cfg.family == "vlm":
+        params["img_proj"] = L._normal(generator, (D, D), D ** -0.5, dt, dev)
     return params
 
 
@@ -121,10 +118,9 @@ def params_from_reference(cfg: ArchConfig, tree: dict,
     """The port's parameters from ``repro.models.lm.init_params``' pytree
     given as numpy arrays (``jax.tree.map(np.asarray, params)``): the
     ``prefix`` layers come first, the leading period axis of ``blocks`` is
-    unstacked into one entry per layer, nested dicts (the MoE's
-    ``shared`` MLP) stay nested, and every array is copied to ``device`` in
-    its own dtype."""
-    check_family(cfg)
+    unstacked into one entry per layer, as is the ``encoder``'s leading
+    layer axis, nested dicts (the MoE's ``shared`` MLP) stay nested, and
+    every array is copied to ``device`` in its own dtype."""
 
     def conv(a):
         a = np.asarray(a)
@@ -139,7 +135,8 @@ def params_from_reference(cfg: ArchConfig, tree: dict,
             return {k: layer(a, i) for k, a in sub.items()}
         return conv(sub if i is None else np.asarray(sub)[i])
 
-    params = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head")
+    params = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head",
+                                         "enc_norm", "img_proj")
               if k in tree}
     blocks = [layer(tree["prefix"][j])
               for j in range(cfg.dense_prefix_layers)]
@@ -147,6 +144,9 @@ def params_from_reference(cfg: ArchConfig, tree: dict,
         for pos in range(cfg.period):
             blocks.append(layer(tree["blocks"][f"pos{pos}"], i))
     params["blocks"] = blocks
+    if "encoder" in tree:
+        params["encoder"] = [layer(tree["encoder"], i)
+                             for i in range(cfg.n_enc_layers)]
     return params
 
 
@@ -161,25 +161,36 @@ def _param_dict(tree: dict) -> nn.ParameterDict:
                              else _frozen(t) for k, t in tree.items()})
 
 
+def _layers(layers: list) -> nn.ModuleList:
+    """One ``ModuleDict`` of ``ParameterDict``s per layer."""
+    return nn.ModuleList(nn.ModuleDict({part: _param_dict(sub)
+                                        for part, sub in layer.items()})
+                         for layer in layers)
+
+
 class LM(nn.Module):
-    """A language model of the dense, moe or ssm family: ``embed``,
-    ``final_norm``, ``lm_head`` (unless tied) and ``blocks``, one
-    ``ModuleDict`` of ``ParameterDict``s ("mix", and "ffn" for attention
-    and MLA layers) per layer, the dense prefix first.  Inference only: the
-    parameters need no gradient."""
+    """A language model of any family: ``embed``, ``final_norm``,
+    ``lm_head`` (unless tied) and ``blocks``, one ``ModuleDict`` of
+    ``ParameterDict``s per layer ("mix"; "ffn" but for RWKV layers; "cross"
+    in an encoder-decoder), the dense prefix first; an encoder-decoder adds
+    ``encoder`` (its layers, "mix" and "ffn") and ``enc_norm``, a VLM
+    ``img_proj``.  The parameters are wrapped, not copied, so tensors
+    shared between layers stay shared.  Inference only: the parameters need
+    no gradient."""
 
     def __init__(self, cfg: ArchConfig, params: dict):
         super().__init__()
-        check_family(cfg)
         self.cfg = cfg
         self.embed = _frozen(params["embed"])
         self.final_norm = _frozen(params["final_norm"])
         self.lm_head = _frozen(params["lm_head"]) if "lm_head" in params \
             else None
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({part: _param_dict(sub)
-                           for part, sub in layer.items()})
-            for layer in params["blocks"])
+        self.blocks = _layers(params["blocks"])
+        self.encoder = _layers(params.get("encoder", []))
+        self.enc_norm = _frozen(params["enc_norm"]) \
+            if "enc_norm" in params else None
+        self.img_proj = _frozen(params["img_proj"]) \
+            if "img_proj" in params else None
 
     @classmethod
     def init(cls, cfg: ArchConfig, generator: torch.Generator,
@@ -210,14 +221,18 @@ class LM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(cfg, spec, p, x, positions):
+def _apply_layer(cfg, spec, p, x, positions, enc_out=None):
     mix, ffn = spec
     if mix == "attn":
         x = L.attn_forward(cfg, p["mix"], x, positions)
     elif mix == "mla":
         x = L.mla_forward(cfg, p["mix"], x, positions)
+    elif mix == "mamba":
+        x = L.mamba_forward(cfg, p["mix"], x)
     elif mix == "rwkv":
         x = L.rwkv_forward(cfg, p["mix"], x)
+    if enc_out is not None and "cross" in p:
+        x = L.cross_attn_forward(cfg, p["cross"], x, enc_out)
     if ffn == "moe":
         x = L.moe_forward(cfg, p["ffn"], x)
     elif ffn == "mlp":
@@ -225,12 +240,24 @@ def _apply_layer(cfg, spec, p, x, positions):
     return x
 
 
-def backbone(cfg: ArchConfig, model: LM, x, positions):
+def backbone(cfg: ArchConfig, model: LM, x, positions, enc_out=None):
     """Apply every layer in order + final norm.  x: (B,S,D); positions:
-    (B,S), or None for ``arange(S)`` in every row."""
+    (B,S), or None for ``arange(S)`` in every row; enc_out: the encoder's
+    output (encdec), or None."""
     for spec, p in zip(layer_specs(cfg), model.blocks):
-        x = _apply_layer(cfg, spec, p, x, positions)
+        x = _apply_layer(cfg, spec, p, x, positions, enc_out)
     return L.rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+def encode(cfg: ArchConfig, model: LM, frames):
+    """The Whisper encoder over (stub) frame embeddings (B, T, D), in the
+    model's dtype: non-causal attention (rope over ``arange(T)``, plain
+    ``_sdpa``) and an MLP a layer, then ``enc_norm``."""
+    x = _on(frames, model.device).to(model.embed.dtype)
+    for p in model.encoder:
+        x = L.attn_forward(cfg, p["mix"], x, None, causal=False)
+        x = L.mlp_forward(cfg, p["ffn"], x)
+    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
 def logits_from_hidden(cfg: ArchConfig, model: LM, h):
@@ -240,17 +267,31 @@ def logits_from_hidden(cfg: ArchConfig, model: LM, h):
 
 
 def embed_inputs(cfg: ArchConfig, model: LM, batch):
-    """Token ids -> (x, positions).  The positions are ``arange(S)`` in
-    every row, given as None: the layers build them, and the chunked
-    attention then needs no check that they are an arange."""
+    """Token ids (+ the modality stubs' embeddings) -> (x, positions,
+    enc_out).  The positions are ``arange`` over the sequence in every row,
+    given as None: the layers build them, and the chunked attention then
+    needs no check that they are an arange.  An encdec batch's ``frames``
+    go through the encoder (``enc_out``, else None); a vlm batch's
+    ``patches`` (B, n_img_tokens, D), projected by ``img_proj``, go before
+    the token embeddings."""
     tokens = _on(batch["tokens"], model.device)
-    return model.embed[tokens], None
+    x = model.embed[tokens]
+    enc_out = encode(cfg, model, batch["frames"]) \
+        if cfg.family == "encdec" else None
+    if cfg.family == "vlm":
+        img = _on(batch["patches"], model.device).to(x.dtype) @ model.img_proj
+        x = torch.cat([img, x], dim=1)
+    return x, None, enc_out
 
 
 def forward(cfg: ArchConfig, model: LM, batch):
-    """batch: {tokens: (B, S) int}.  Returns logits (B, S, V)."""
-    x, positions = embed_inputs(cfg, model, batch)
-    h = backbone(cfg, model, x, positions)
+    """batch: {tokens: (B, S) int}, with ``frames`` (B, T, D) for encdec
+    and ``patches`` (B, n_img_tokens, D) for vlm.  Returns logits (B, S, V)
+    over the text positions."""
+    x, positions, enc_out = embed_inputs(cfg, model, batch)
+    h = backbone(cfg, model, x, positions, enc_out)
+    if cfg.family == "vlm":          # logits over the text positions only
+        h = h[:, cfg.n_img_tokens:]
     return logits_from_hidden(cfg, model, h)
 
 
@@ -267,9 +308,9 @@ def _on(t, device: torch.device) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, B: int, Smax: int, device="cuda"):
     """{"blocks": [per-layer cache]}: attention layers hold {k, v}
-    (B, Smax, K, hd), MLA layers {ckv} (B, Smax, kv_lora + rope_hd), RWKV
-    layers {shift_a, shift_f, s}."""
-    check_family(cfg)
+    (B, Smax, K, hd), MLA layers {ckv} (B, Smax, kv_lora + rope_hd), Mamba
+    layers {h (B, di, N) f32, tail (B, kc-1, di)}, RWKV layers {shift_a,
+    shift_f, s}."""
     dt = L._dt(cfg)
     dev = torch.device(device)
     blocks = []
@@ -278,19 +319,27 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, device="cuda"):
             blocks.append(L.init_attn_cache(cfg, B, Smax, dt, dev))
         elif mix == "mla":
             blocks.append(L.init_mla_cache(cfg, B, Smax, dt, dev))
-        else:
+        elif mix == "mamba":
+            blocks.append(L.init_mamba_cache(cfg, B, dt, dev))
+        elif mix == "rwkv":
             blocks.append(L.init_rwkv_cache(cfg, B, dt, dev))
+        else:
+            raise ValueError(f"{cfg.name}: no cache for layer kind {mix!r}")
     return {"blocks": blocks}
 
 
-def _decode_layer(cfg, spec, p, x, cache, pos, in_place):
+def _decode_layer(cfg, spec, p, x, cache, pos, enc_out, in_place):
     mix, ffn = spec
     if mix == "attn":
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos)
     elif mix == "mla":
         x, cache = L.mla_decode(cfg, p["mix"], x, cache, pos)
+    elif mix == "mamba":
+        x, cache = L.mamba_decode(cfg, p["mix"], x, cache)
     elif mix == "rwkv":
         x, cache = L.rwkv_decode(cfg, p["mix"], x, cache, in_place=in_place)
+    if enc_out is not None and "cross" in p:
+        x = L.cross_attn_forward(cfg, p["cross"], x, enc_out)
     if ffn == "moe":
         x = L.moe_forward(cfg, p["ffn"], x)
     elif ffn == "mlp":
@@ -303,29 +352,33 @@ def _decode(cfg: ArchConfig, model: LM, cache, batch, in_place: bool):
     tok = _on(batch["token"], dev)
     pos = _on(batch["pos"], dev)
     x = model.embed[tok]
+    enc_out = encode(cfg, model, batch["frames"]) \
+        if cfg.family == "encdec" else None
     blocks = []
     for spec, p, c in zip(layer_specs(cfg), model.blocks, cache["blocks"]):
-        x, c = _decode_layer(cfg, spec, p, x, c, pos, in_place)
+        x, c = _decode_layer(cfg, spec, p, x, c, pos, enc_out, in_place)
         blocks.append(c)
     h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return logits_from_hidden(cfg, model, h), {"blocks": blocks}
 
 
 def decode_step(cfg: ArchConfig, model: LM, cache, batch):
-    """batch: {token: (B,1) int, pos: (B,) int}.  Returns (logits (B,1,V),
-    new cache).  Attention and MLA caches are written in place (see
-    ``layers.attn_decode``, ``layers.mla_decode``); RWKV states are
-    replaced, so the caller's cache keeps its own."""
+    """batch: {token: (B,1) int, pos: (B,) int}, with ``frames`` (B, T, D)
+    for encdec (encoded at every step, as the reference does; a vlm's
+    decode takes no patches).  Returns (logits (B,1,V), new cache).
+    Attention and MLA caches are written in place (see
+    ``layers.attn_decode``, ``layers.mla_decode``); Mamba and RWKV states
+    are replaced, so the caller's cache keeps its own."""
     return _decode(cfg, model, cache, batch, in_place=False)
 
 
 def decode_step_into(cfg: ArchConfig, model: LM, cache, batch):
     """``decode_step`` that leaves every state in ``cache``'s own tensors:
-    the WKV kernel updates each RWKV layer's state in place, and the token
-    shifts the step replaces are copied back into the tensors they
-    replace.  Returns (logits, ``cache``, the same object), so a caller
-    that holds the cache's storage (a CUDA graph, a batcher) sees each
-    step's states there."""
+    the WKV kernel updates each RWKV layer's state in place, and the
+    states the step replaces (RWKV's token shifts, Mamba's state and conv
+    tail) are copied back into the tensors they replace.  Returns (logits,
+    ``cache``, the same object), so a caller that holds the cache's
+    storage (a CUDA graph, a batcher) sees each step's states there."""
     logits, new = _decode(cfg, model, cache, batch, in_place=True)
     for old, cur in zip(cache["blocks"], new["blocks"]):
         for name, t in cur.items():
@@ -347,13 +400,16 @@ class DecodeGraph:
     CUDA graph and replayed for every token: the counterpart of the
     reference's ``@jax.jit`` decode step.
 
-    Its static inputs are the (B, 1) token and (B,) position buffers and
-    ``cache`` itself.  A call ``graph(cache, token, pos)`` copies token and
-    pos into the static buffers, replays the graph and returns the logits
-    (a static buffer, overwritten by the next replay) and ``cache``, the
-    same object: every state is written in place (``decode_step_into``),
-    so writes between calls, such as a batcher resetting a slot's rows,
-    reach the next replay.
+    Its static inputs are the (B, 1) token and (B,) position buffers, one
+    buffer for each of the batch's other keys given in ``extra`` (an
+    encdec step's ``frames``; copies of the tensors given), and ``cache``
+    itself.  A call ``graph(cache, token, pos, **extra)`` copies token,
+    pos and each extra input given into the static buffers (one not given
+    keeps its last value), replays the graph and returns the logits (a
+    static buffer, overwritten by the next replay) and ``cache``, the same
+    object: every state is written in place (``decode_step_into``), so
+    writes between calls, such as a batcher resetting a slot's rows, reach
+    the next replay.
 
     Construction runs ``warmup`` eager steps on a side stream (they load
     the kernels and fill PyTorch's caches, which capture may not do),
@@ -365,7 +421,8 @@ class DecodeGraph:
 
     warmup = 2
 
-    def __init__(self, cfg: ArchConfig, model: LM, cache):
+    def __init__(self, cfg: ArchConfig, model: LM, cache,
+                 extra: dict | None = None):
         dev = model.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs the card; the model is on "
@@ -375,6 +432,8 @@ class DecodeGraph:
         with torch.inference_mode():
             self.token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
             self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+            self.extra = {k: _on(t, dev).clone()
+                          for k, t in (extra or {}).items()}
             saved = [{k: t.clone() for k, t in c.items()}
                      for c in cache["blocks"]]
             side = torch.cuda.Stream(dev)
@@ -401,14 +460,20 @@ class DecodeGraph:
 
     def _step(self):
         return decode_step_into(self.cfg, self.model, self.cache,
-                                {"token": self.token, "pos": self.pos})[0]
+                                {"token": self.token, "pos": self.pos,
+                                 **self.extra})[0]
 
-    def __call__(self, cache, token, pos):
+    def __call__(self, cache, token, pos, **extra):
         if cache is not self.cache:
             raise ValueError("DecodeGraph: called with another cache than "
                              "the one it was captured over")
+        if extra.keys() - self.extra.keys():
+            raise ValueError(f"DecodeGraph: inputs {sorted(extra)}; it was "
+                             f"captured with {sorted(self.extra)}")
         self.token.copy_(token)
         self.pos.copy_(pos)
+        for k, t in extra.items():
+            self.extra[k].copy_(_on(t, self.extra[k].device))
         self.graph.replay()
         self.replays += 1
         GRAPH_LAUNCHES.update(self.launches_per_replay)

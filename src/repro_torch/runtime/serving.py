@@ -15,10 +15,11 @@ argmax of the logits back to the host: one round trip per step.
 
 The logic is the JAX package's (``repro.runtime.serving``) but for the
 reset of a reused slot's cache rows (every layer's: attention k and v,
-MLA's compressed latents, RWKV's states).  The JAX batcher leaves them as
-the previous request left them: harmless for attention and MLA, whose
-masks hide rows past ``pos``, but a recurrent layer's state (RWKV's WKV
-state and token shifts) would carry the previous request into the next.
+MLA's compressed latents, Mamba's state and conv tail, RWKV's states).  The
+JAX batcher leaves them as the previous request left them: harmless for
+attention and MLA, whose masks hide rows past ``pos``, but a recurrent
+layer's state (Mamba's, RWKV's WKV state and token shifts) would carry the
+previous request into the next.
 """
 from __future__ import annotations
 

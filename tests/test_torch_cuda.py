@@ -503,6 +503,37 @@ def test_flash_attention_tf32x3_kernel_equals_plain(cuda_device, hd, draw,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd,H,Hkv,S", [
+    (64, 12, 12, 448),            # Whisper's decoder: 448 = 3.5 q blocks
+    (256, 8, 1, 1024)])           # PaliGemma: MQA, one kv head
+@pytest.mark.parametrize("draw", ["randn", "peaky"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wgmma_at_the_encdec_and_vlm_shapes(cuda_device, hd,
+                                                            H, Hkv, S, draw,
+                                                            causal):
+    """The tensor-core kernel (bf16) at the shapes the Whisper and
+    PaliGemma paths hand it, on views of (B, S, heads, hd) tensors: hd 64
+    with a ragged last q block, hd 256 with one kv head for all 8 q heads;
+    N(0, 1) and peaky draws (q x 4), every block pair it takes."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (_randn((1, S, h, hd), seed, cuda_device,
+                      torch.bfloat16).transpose(1, 2)
+               for seed, h in ((0, H), (1, Hkv), (2, Hkv)))
+    if draw == "peaky":
+        q = q * 4.0
+    for bq, bk in fa.WGMMA_BLOCKS[hd]:
+        n0 = fa.LAUNCHES["wgmma/bfloat16"]
+        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["wgmma/bfloat16"] == n0 + 1
+        want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                        block_k=bk)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,H,S,hd", [(1, 2, 128, 64), (2, 1, 256, 32),
                                       (1, 1, 64, 16), (2, 2, 16, 128),
                                       (4, 40, 1, 64)])
@@ -705,7 +736,8 @@ def test_reduced_model_on_the_card_equals_cpu_and_decode(cuda_device, arch):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b",
-                                  "deepseek_v2_236b"])
+                                  "deepseek_v2_236b", "jamba_1_5_large_398b",
+                                  "whisper_small", "paligemma_3b"])
 def test_serve_main_graph_gives_the_eager_ids(cuda_device, arch):
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -721,7 +753,8 @@ def test_serve_main_graph_gives_the_eager_ids(cuda_device, arch):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("arch", ["rwkv6_3b", "llama3_8b",
-                                  "deepseek_v2_236b", "kimi_k2_1t_a32b"])
+                                  "deepseek_v2_236b", "kimi_k2_1t_a32b",
+                                  "jamba_1_5_large_398b"])
 def test_batcher_graph_gives_the_eager_ids(cuda_device, arch):
     """Two slots answer five requests, so slots are reused: the batcher's
     admission reset writes into the graph's static cache between replays."""
@@ -787,6 +820,130 @@ def test_decode_graph_capture_failure_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(lm, "_decode", syncing)
     with pytest.raises(RuntimeError):
         lm.DecodeGraph(cfg, model, cache)
+
+
+def _batcher_ids(cfg, model, n_slots, reqs, graphed, extra, smax=24):
+    """{rid: ids} of a batcher of ``n_slots`` over ``reqs`` ((rid, prompt,
+    max_new)), every step a graph replay or eager, ``extra`` the steps'
+    other inputs (Whisper's frames, one row a slot)."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.serving import ContinuousBatcher, Request
+    b = ContinuousBatcher(None, lambda n: model.init_cache(n, smax),
+                          n_slots=n_slots, eos=1, max_len=smax,
+                          device=model.device)
+    if graphed:
+        b.decode_fn = lm.DecodeGraph(cfg, model, b.cache, extra)
+    else:
+        b.decode_fn = lambda c, t, p: model.decode_step(
+            c, {"token": t, "pos": p, **extra})
+    for rid, prompt, max_new in reqs:
+        b.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+    with torch.inference_mode():
+        b.run()
+    assert len(b.completed) == len(reqs)
+    return {r.rid: r.output for r in b.completed}
+
+
+def _frames_for(cfg, n, device):
+    if cfg.family != "encdec":
+        return {}
+    x = np.random.default_rng(5).standard_normal((n, cfg.enc_seq,
+                                                  cfg.d_model))
+    return {"frames": torch.as_tensor(x, dtype=torch.bfloat16,
+                                      device=device)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "whisper_small"])
+def test_graphed_batcher_of_the_new_families_gives_the_eager_ids(cuda_device,
+                                                                  arch):
+    """Reduced Jamba (Mamba states in the graph's cache) and Whisper (its
+    frames a static input of the graph): two slots answer five requests
+    graphed and eagerly with the same ids; and one slot answering two
+    requests in turn gives the second the ids it gets alone, so a reused
+    slot's state starts from zeros under the graph too."""
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch, reduced=True)
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           cuda_device)
+    rng = np.random.default_rng(7)
+    reqs = [(i, rng.integers(2, cfg.vocab, 6), 5) for i in range(5)]
+    extra = _frames_for(cfg, 2, cuda_device)
+    assert _batcher_ids(cfg, model, 2, reqs, True, extra) == \
+        _batcher_ids(cfg, model, 2, reqs, False, extra)
+    one = {k: t[:1] for k, t in extra.items()}
+    two = _batcher_ids(cfg, model, 1, reqs[:2], True, one)
+    assert two[1] == _batcher_ids(cfg, model, 1, reqs[1:2], True, one)[1]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "whisper_small",
+                                  "paligemma_3b"])
+def test_new_families_on_the_card_equal_cpu(cuda_device, arch):
+    """f32 logits of the reduced hybrid, encdec and vlm models on the card
+    (the CUDA-core K4 at hd 16 in the chunked attention) equal the CPU
+    run's on the same weights, and so do the decode steps'."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # attn_chunk 8 divides PaliGemma's 8 patches + 32 tokens
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32",
+                              attn_impl="chunked", attn_chunk=8)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = lm.LM(cfg, params)
+    card = lm.LM(cfg, params).to(cuda_device)
+    B, S = 2, 32
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab, (B, S))
+    extra = {k: t.float().cpu() for k, t in
+             _frames_for(cfg, B, "cpu").items()}
+    batch = {"tokens": tokens, **extra}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    with torch.inference_mode():
+        torch.testing.assert_close(card(batch).cpu(), cpu(batch), rtol=2e-4,
+                                   atol=2e-4)
+        cc, gc = cpu.init_cache(B, 8), card.init_cache(B, 8)
+        for t in range(8):
+            step = {"token": tokens[:, t:t + 1],
+                    "pos": np.full((B,), t, np.int32), **extra}
+            want, cc = cpu.decode_step(cc, step)
+            got, gc = card.decode_step(gc, step)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4,
+                                       atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+def test_decode_graph_with_frames_capture_failure_raises(cuda_device,
+                                                         monkeypatch):
+    """A failed capture of an encdec step, frames among its static inputs,
+    raises too; a call with an input it was not captured with raises."""
+    from repro_torch.config import get_config
+    from repro_torch.models import lm
+    cfg = get_config("whisper_small", reduced=True)
+    with torch.inference_mode():
+        model = lm.LM.init(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           cuda_device)
+        cache = model.init_cache(2, 8)
+    extra = _frames_for(cfg, 2, cuda_device)
+    graph = lm.DecodeGraph(cfg, model, cache, extra)
+    tok = torch.ones((2, 1), dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="captured with"):
+        graph(cache, tok, pos, patches=extra["frames"])
+    step = lm._decode
+
+    def syncing(*a, **kw):
+        logits, c = step(*a, **kw)
+        logits.sum().item()            # a host sync: illegal under capture
+        return logits, c
+    monkeypatch.setattr(lm, "_decode", syncing)
+    with pytest.raises(RuntimeError):
+        lm.DecodeGraph(cfg, model, model.init_cache(2, 8), extra)
 
 
 # ---------------------------------------------------------------------------

@@ -112,12 +112,29 @@ def test_make_batch_equal(arch, kind):
         np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]))
 
 
-@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "whisper_small",
-                                  "paligemma_3b"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", torch_config.ARCH_IDS)
+def test_every_family_inits_forwards_and_decodes(arch):
+    """Every configuration, reduced, on the CPU: ``LM.init``, one forward
+    (with frames for encdec, patches for vlm) and one decode step give
+    finite logits of the right shape (text positions only for vlm)."""
     cfg = torch_config.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_lm.LM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = torch_lm.LM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (B, S))
+    batch, extra = {"tokens": tokens}, {}
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model))
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model))
+    with torch.inference_mode():
+        logits = model({**batch, **extra})
+        step, _ = model.decode_step(model.init_cache(B, S), {
+            "token": tokens[:, :1], "pos": np.zeros((B,), np.int32),
+            **extra})
+    assert tuple(logits.shape) == (B, S, cfg.vocab)
+    assert tuple(step.shape) == (B, 1, cfg.vocab)
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "kimi_k2_1t_a32b"])

@@ -3,7 +3,7 @@ them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Twelve paths, each run with the launch counts set to 0 just before it and
+Thirteen paths, each run with the launch counts set to 0 just before it and
 read just after:
 
 1. *chains*: ``hls.compile`` schedules each stencil chain of
@@ -76,6 +76,23 @@ read just after:
 12. *vlm_prefill*: PaliGemma-3B at full depth and width runs ``lm.forward``
    on 256 patch embeddings + 768 tokens: the tensor-core K4 at hd 256, 8 q
    heads over one kv head; then ``serve.main`` decodes text, graphed.
+13. *train*: (a) K4's backward kernel (``csrc/flash_attention_bwd.cu``,
+   through ``flash_attention``'s autograd Function) against autograd of the
+   plain version at llama3-8b's q (1, 32, 2048, 128) over 8 kv heads,
+   causal, in bf16 and f32, at hd 64 not causal over 448 rows, hd 256 over
+   one kv head and hd 16, each limit shown to reject the gradient of a call
+   that lost a kv tile; (b) llama3-8b at its published widths cut to 4 of
+   its 32 layers (bf16, chunked, remat "full") trained 8 steps on 2 x 2048
+   tokens by ``launch.train.train``, the loop of ``python -m
+   repro_torch.launch.train``: K4's forward twice a layer a step and its
+   backward once, counted by the wrappers and, in the profiling child, by
+   the profiler; the loss finite and falling; ms a step, tokens/s, the
+   operations bound and peak memory; (c) the same model at 2 layers in f32
+   on 1024 tokens: every gradient through K4 equals the dense path's; (d)
+   the reduced llama3-8b under ``FaultTolerantLoop`` with a failure
+   injected ends bitwise where an uninterrupted run does, and a loss with
+   grad through K5 (RWKV) or through K4 at a head dim or dtype no kernel
+   takes raises.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -120,6 +137,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -205,6 +223,31 @@ K4_SDPA_SHAPES = {
                                WHISPER_S),
     "bfloat16/paligemma_3b": ("bfloat16", "paligemma_3b", False, 1,
                               256 + VLM_TEXT_S)}
+# the train path: llama3-8b at its published widths cut to TRAIN_LAYERS of
+# 32 layers, bf16, chunked, TRAIN_STEPS steps on TRAIN_B x TRAIN_S tokens
+# (ms per step: the median after TRAIN_WARMUP); TRAIN_PROFILED steps
+# profiled in the profiling child; chunked == dense gradients at
+# TRAIN_GRAD_LAYERS layers in f32 on 1 x TRAIN_GRAD_S tokens, each within
+# TRAIN_GRAD_TOL of its largest entry; the reduced model's restart check
+TRAIN_LAYERS = 4
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PROFILED = 8, 2, 2
+TRAIN_GRAD_LAYERS, TRAIN_GRAD_S = 2, 1024
+TRAIN_GRAD_TOL = 1e-4
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 6, 2, 3
+# K4's backward at llama3-8b's shape: bf16 at the train path's batch, f32
+# at 1 (its path, the gradient check, runs 1 x TRAIN_GRAD_S)
+K4_BWD_B = {"bfloat16": TRAIN_B, "float32": 1}
+# K4's backward against autograd of the plain version: fp32 sums in
+# another order (f32); bf16 gradients rounded once from fp32, the kernel's
+# D from the bf16 output (bf16: about an ulp, 2^-8 relative)
+K4_BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
+              "float32": dict(rtol=1e-4, atol=1e-4)}
+# K4's device kernels by name: the forward kernels' and the backward's
+K4_KERNEL = re.compile(r"\bfa_(wgmma_|tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
+# what the JAX package differentiates instead (no Pallas backward)
+K4_BWD_JAX = ("src/repro/models/layers.py:80 _sdpa and :105 "
+              "_sdpa_chunked")
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 K5_CHUNKS = (32, 64, 128)        # the sequence form's chunk lengths timed
 PROFILE_STEPS = 5                # decode steps under the profiler
@@ -434,12 +477,13 @@ def profile_main(dev=None) -> int:
     (late in a long process the profiler drops records): each K3
     program's calls at full size (``k3_profiles``); the graphed
     decode step of the moe_serve path's DeepSeek-V2 (``moe_step_profile``)
-    and of the hybrid_serve path's Jamba (``graph_step_profile``);
-    K1 on the frame
+    and of the hybrid_serve path's Jamba (``graph_step_profile``); the
+    train path's step (``train_step_profile``); K1 on the frame
     at the DSE's configuration, one call a profile, f32 and bf16; the
     CUDA-core K4 at the reduced path's GQA views, one call a profile, f32
     and bf16; one call of K5's sequence form; the kernels sdpa runs at each
-    K4 entry's shape.  Prints one JSON line."""
+    K4 entry's shape, and its backward at the train path's.  Prints one
+    JSON line."""
     import torch
 
     from repro_torch.config import get_config
@@ -450,7 +494,8 @@ def profile_main(dev=None) -> int:
     dev = torch.device("cuda") if dev is None else dev
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"k1": {}, "k3": k3_profiles(dev), "k4": {}, "sdpa": {},
-           "moe_step": moe_step_profile(dev)}
+           "moe_step": moe_step_profile(dev),
+           "train_step": train_step_profile(dev)}
     cfg = hybrid_config()
     out["hybrid_step"] = graph_step_profile(cfg, hybrid_model(cfg, dev)[0],
                                             dev)
@@ -493,6 +538,21 @@ def profile_main(dev=None) -> int:
                                    kernel_names(device_kernels(
                                        lambda: sdpa(*xs, is_causal=True,
                                                     **opt))[0])})
+    # the kernels of sdpa's backward at K4's backward's timed shape
+    out["sdpa_bwd"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).removeprefix("torch.")
+        xs, opt = sdpa_inputs(dev, dtype, get_config("llama3_8b"),
+                              K4_BWD_B[dt], TRAIN_S)
+        xs = [x.detach().requires_grad_() for x in xs]
+        o = sdpa(*xs, is_causal=True, **opt)
+        g = torch.randn_like(o)
+
+        def bwd():
+            torch.autograd.grad(o, xs, g, retain_graph=True)
+        bwd()
+        out["sdpa_bwd"][dt] = sorted(
+            {short_name(n_) for n_, _ in kernel_names(device_kernels(bwd)[0])})
     print(json.dumps(out))
     return 0
 
@@ -2173,6 +2233,508 @@ def k5_entries(dev, serve_launches: int, equiv: dict, prof: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 13, train: K4's backward kernel, llama3-8b trained at full width,
+# chunked == dense gradients, restart == uninterrupted
+# ---------------------------------------------------------------------------
+
+
+def train_config(**kw):
+    """llama3-8b as published, cut to TRAIN_LAYERS of its 32 layers, with
+    chunked attention (``kw`` replaced too)."""
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config("llama3_8b"), **{
+        "n_layers": TRAIN_LAYERS, "attn_impl": "chunked", **kw})
+
+
+def train_kernel_class(name: str) -> str:
+    """Where a training step's device activity goes: K4's forward or
+    backward, a cuBLAS GEMM, the loss's (log-)softmax, or the rest (the
+    optimiser's and the layers' elementwise passes, copies)."""
+    if K4_KERNEL.search(name):
+        return "k4_bwd" if "fa_bwd" in name else "k4_fwd"
+    if re.search(GEMM_KERNELS, name):
+        return "gemm"
+    return "softmax" if re.search("softmax", name, re.I) else "rest"
+
+
+def train_step_profile(dev) -> dict:
+    """The train path's model (``train_config``, bf16) in the profiling
+    child, after a warm-up step: "k4", [[(kernel, us)] per step], K4's
+    device kernels in each of TRAIN_PROFILED steps, each profiled alone;
+    "split_ms", the device ms a step by ``train_kernel_class``; "phases_ms",
+    a step's two halves by CUDA events: the loss and its gradients, then
+    clipping, the schedule and AdamW."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import (adamw_init, adamw_update,
+                                   clip_by_global_norm, cosine_schedule)
+
+    cfg = train_config()
+    model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       dev).requires_grad_(True)
+    opt = adamw_init(model.param_list())
+    step = steps_mod.build_train_step(cfg, model)
+    ds = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in ds.batch_at(0).items()}
+    step(model, opt, batch)
+    k4, split, walls = [], collections.Counter(), []
+    for _ in range(TRAIN_PROFILED):
+        acts, wall = device_kernels(lambda: step(model, opt, batch))
+        k4.append([[short_name(n_), us] for n_, us in kernel_names(acts)
+                   if K4_KERNEL.search(n_)])
+        for n_, us in acts:
+            split[train_kernel_class(n_)] += us / 1e3 / TRAIN_PROFILED
+        walls.append(wall)
+    params = model.param_list()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    grads = torch.autograd.grad(lm.loss_fn(cfg, model, batch), params)
+    ev[1].record()
+    grads, _ = clip_by_global_norm(grads, 1.0)
+    adamw_update(params, grads, opt, cosine_schedule(opt["count"]))
+    ev[2].record()
+    torch.cuda.synchronize()
+    phases = {"loss_and_grads": ev[0].elapsed_time(ev[1]),
+              "clip_and_adamw": ev[1].elapsed_time(ev[2])}
+    del model, opt, params, grads
+    torch.cuda.empty_cache()
+    return {"k4": k4, "split_ms": dict(split), "phases_ms": phases,
+            "profiled_wall_ms": walls}
+
+
+def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
+                causal: bool, seed: int) -> dict:
+    """K4's backward kernel (through ``flash_attention``'s autograd
+    Function, forward kernel and all) against autograd of
+    ``flash_attention_plain`` on the same views of (B, S, heads, hd)
+    tensors, and the limit shown to reject the gradient of a call that lost
+    one of the backward kernel's kv tiles.  Returns the errors and the
+    inputs for timing."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = str(dtype).removeprefix("torch.")
+    tol = K4_BWD_TOL[dt]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = [torch.randn((B, S, h, hd), generator=g, device=dev).to(dtype)
+            .requires_grad_() for h in (H, Hkv, Hkv)]
+    dout = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype) \
+        .transpose(1, 2)
+    q, k, v = (t.transpose(1, 2) for t in base)
+    fa.LAUNCHES.clear()
+    out = fa.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, base, dout)
+    torch.cuda.synchronize()
+    n = dict(fa.LAUNCHES)
+    want_n = {f"{fa.route(dtype, hd)}/{dt}": 1, f"bwd/{dt}": fa.BWD_LAUNCHES}
+    if n != want_n:
+        fail(f"K4 bwd {dt} hd {hd}: launches {n}, expected {want_n}")
+    tq, tk = fa.BWD_TILES[hd]
+    bq, bk = min(tq, S), min(tk, S)
+
+    def plain_grads(keep=None):
+        ref = [t.detach().requires_grad_() for t in base]
+        kk, vv = ref[1], ref[2]
+        if keep is not None:
+            kk, vv = kk[:, keep], vv[:, keep]
+        o = fa.flash_attention_plain(ref[0].transpose(1, 2),
+                                     kk.transpose(1, 2), vv.transpose(1, 2),
+                                     causal=causal, block_q=bq, block_k=bk)
+        return torch.autograd.grad(o, ref, dout)
+
+    want = plain_grads()
+    errs, scale = {}, {}
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, want, base):
+        if a.dtype != dtype or a.shape != x.shape:
+            fail(f"K4 bwd {dt} hd {hd}: {name} is {a.dtype} "
+                 f"{tuple(a.shape)}, its input {x.dtype} {tuple(x.shape)}")
+        errs[name] = (a.float() - b.float()).abs().max().item()
+        scale[name] = b.float().abs().max().item()
+        try:
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+        except AssertionError as e:
+            fail(f"K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} "
+                 f"causal={causal}: {name} differs from autograd of the "
+                 f"plain version: {e}")
+    # the limit must reject a gradient that lost one kv tile (bk keys) of
+    # the kernel's: dq without its keys, dk and dv zero there
+    t = max(0, min(K4_DROPPED_TILE, S // bk - 2))
+    keep = torch.cat([torch.arange(t * bk), torch.arange((t + 1) * bk, S)]
+                     ).to(dev)
+    rejected = False
+    for a, b in zip(plain_grads(keep), want):
+        try:
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+        except AssertionError:
+            rejected = True
+    if not rejected:
+        fail(f"K4 bwd {dt} hd {hd}: rtol {tol['rtol']}, atol {tol['atol']}"
+             f" accepts the gradient with kv tile {t} ({bk} keys) dropped")
+    print(f"check: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} heads, "
+          f"causal={causal}, views: dq, dk, dv == autograd of the plain "
+          f"version within rtol {tol['rtol']}, atol {tol['atol']} (max "
+          f"|diff| " + ", ".join(f"{k_} {e:.3g} of {scale[k_]:.3g}"
+                                 for k_, e in errs.items())
+          + f"); the limit rejects the gradient with kv tile {t} of "
+          f"{-(-S // bk)} ({bk} keys) dropped; launches {n}")
+    return {"errs": errs, "q": q.detach(), "k": k.detach(),
+            "v": v.detach(), "out": out.detach(), "dout": dout,
+            "tol": tol}
+
+
+def k4_bwd_checks(dev) -> dict:
+    """Part (a) of the train path: K4's backward at llama3-8b's shape (q (B,
+    32, 2048, 128) over 8 kv heads, causal; bf16 at the train path's batch
+    of 2, f32 at 1, ``K4_BWD_B``), at hd 64 not causal over a ragged last
+    block (448 rows), at hd 256 over one kv head and at hd 16.  Returns the
+    llama3-8b cases by dtype, for timing."""
+    import torch
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).removeprefix("torch.")
+        out[dt] = k4_bwd_case(dev, dtype, K4_BWD_B[dt], 32, 8, TRAIN_S, 128,
+                              True, 11)
+        k4_bwd_case(dev, dtype, 1, 12, 12, WHISPER_S, 64, False, 12)
+        k4_bwd_case(dev, dtype, 1, 8, 1, 1024, 256, True, 13)
+        k4_bwd_case(dev, dtype, REDUCED_B, 6, 2, REDUCED_S, 16, True, 14)
+        torch.cuda.empty_cache()
+    return out
+
+
+def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
+    """The backward kernel's ``kernels`` entries: timed at llama3-8b's shape
+    (B, 32, 2048, 128) over 8 kv heads, causal (``K4_BWD_B``), beside its
+    plain version and scaled_dot_product_attention's backward; ``launches``
+    by dtype from the path that ran it (bf16: the full-width training run;
+    f32: the chunked == dense gradients); sdpa's backward kernels read off
+    the profiler in the profiling child.  The bound is the card's peak for
+    the inputs' type (bf16: one tensor-core pass; f32: three TF32 passes,
+    as K4's f32 forward is bounded); the same flops on the fp32 CUDA cores,
+    the units this kernel uses, are printed beside it."""
+    import torch
+
+    from repro_torch import _cuda
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ptxas = ptxas_summary(_cuda.BUILD_LOG.get(fa.BWD_LIB_NAME, (0, ""))[1])
+    entries = []
+    for dt, c in cases.items():
+        q, k, v, out, dout = c["q"], c["k"], c["v"], c["out"], c["dout"]
+        B, H, S, hd = q.shape
+        Hkv = k.shape[1]
+        if launches.get(dt, 0) < 1:
+            fail(f"K4 bwd {dt} was not launched on its path")
+        lse = fa._run(q, k, v, True, fa.route(q.dtype, hd),
+                      *(fa.WGMMA_BLOCKS[hd][0] if q.dtype == torch.bfloat16
+                        else fa.TF32X3_BLOCKS[hd]), True)[1]
+        tq, tk = fa.BWD_TILES[hd]
+        ms, host_ms = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=True), 10)
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, causal=True, block_q=tq, block_k=tk),
+            3)[0]
+        kept = S * (S + 1) // 2 * B * H
+        flops = 10 * hd * kept           # 2.5 x the forward's 4 hd a score
+        esz = q.element_size()
+        # q, out, dout, dq at H heads, k, v, dk, dv at Hkv; lse in fp32
+        nbytes = (4 * q.numel() + 4 * k.numel()) * esz + B * H * S * 4
+        op_ms = (flops / BF16_FLOP_PER_S if dt == "bfloat16"
+                 else 3 * flops / TF32_FLOP_PER_S) * 1e3
+        b_ms, b_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (op_ms, "operations"))
+        cc_ms = flops / FP32_FLOP_PER_S * 1e3
+        (lq, lk, lv), gqa = sdpa_args(*(t.detach().requires_grad_()
+                                        for t in (q, k, v)))
+        lq, lk, lv = (t.detach().requires_grad_() for t in (lq, lk, lv))
+        lo = sdpa(lq, lk, lv, is_causal=True, **gqa)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), dout, retain_graph=True), 10)[0]
+        print(f"time: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} heads, "
+              f"causal: {ms:.4f} ms on the card (bound {b_ms:.4f} ms by "
+              f"{b_by}, {'bf16' if dt == 'bfloat16' else '3xTF32'} on the "
+              f"tensor cores; {b_ms / ms:.1%}; on the fp32 CUDA cores the "
+              f"same flops {cc_ms:.4f} ms, {cc_ms / ms:.1%}); plain "
+              f"{plain_ms:.3f} ms; sdpa's backward {lib_ms:.4f} ms, kernels "
+              + ", ".join(prof["sdpa_bwd"][dt]) + "; "
+              f"launches on its path {launches[dt]}; ptxas "
+              + " | ".join(p_ for p_ in ptxas if ("bf16" in p_) ==
+                           (dt == "bfloat16")))
+        entries.append({
+            "name": f"flash_attention_bwd[{dt}, hd {hd}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": K4_REPLACES,
+            "replaces_note": "no Pallas backward: the JAX package "
+                             "differentiates its attention with jax.grad "
+                             f"({K4_BWD_JAX})",
+            "launches": launches[dt], "max_abs_err": max(c["errs"].values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "cuda_core_bound_ms": cc_ms,
+            "library": "backward of torch.nn.functional."
+                       "scaled_dot_product_attention("
+                       f"{'enable_gqa=True' if gqa else 'kv repeated'}), "
+                       "timed only",
+            "library_kernels": prof["sdpa_bwd"][dt], "host_ms": host_ms,
+            "bytes": nbytes, "flops": flops,
+            "shape": [B, H, S, hd], "kv_shape": list(k.shape),
+            "kernels_per_call": fa.BWD_LAUNCHES, "tiles": [tq, tk],
+            "tolerance": c["tol"], "check_errors": c["errs"],
+            "ptxas": ptxas, "path": "train"})
+    return entries
+
+
+def train_path(dev, prof: dict) -> dict:
+    """Part (b): llama3-8b at its published widths cut to TRAIN_LAYERS
+    layers (bf16, chunked attention, remat "full") trained TRAIN_STEPS steps
+    on TRAIN_B x TRAIN_S tokens of ``SyntheticLMData`` by
+    ``launch.train.train``, the loop ``python -m repro_torch.launch.train``
+    runs; K4's forward twice a layer a step (remat), its backward once."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = train_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_model_counts()
+    t0 = time.perf_counter()
+    res = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                      log_every=1, seed=0, device=dev)
+    secs = time.perf_counter() - t0
+    n = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print("train path launches: " + json.dumps(n, sort_keys=True))
+    per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers,
+                "k4/bwd/bfloat16": fa.BWD_LAUNCHES * cfg.n_layers}
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if n != want:
+        fail(f"train path launches {n}, expected {want} ({TRAIN_STEPS} "
+             f"steps x {per_step})")
+    tprof = prof["train_step"]
+    seen = [collections.Counter("bwd" if "fa_bwd" in n_ else "fwd"
+                                for n_, _ in s) for s in tprof["k4"]]
+    most = {"fwd": max(s["fwd"] for s in seen),
+            "bwd": max(s["bwd"] for s in seen)}
+    if most != {"fwd": per_step["k4/wgmma/bfloat16"],
+                "bwd": per_step["k4/bwd/bfloat16"]}:
+        fail(f"train path: the profiling child saw K4 kernels {seen} in its "
+             f"profiled steps, expected {per_step} a step")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or not \
+            losses[-1] < losses[0]:
+        fail(f"train path: losses {losses} are not finite and falling")
+    # the trained model on the first step's batch again (no noise from
+    # other batches: the first step's rate is 0, so losses[0] is the
+    # initial model's loss on it)
+    b0 = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLMData(
+        vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B, seed=0
+    ).batch_at(0).items()}
+    with torch.no_grad():
+        again = lm.loss_fn(cfg, res["model"], b0).item()
+    if not again < losses[0]:
+        fail(f"train path: the trained model's loss on the first step's "
+             f"batch is {again}, the initial model's {losses[0]}")
+    n_params = sum(p.numel() for p in res["model"].param_list())
+    # the embedding is a gather, no product: 6 flops a token for every
+    # other parameter (the lm head, untied in llama3, is a product)
+    gathered = 0 if cfg.tie_embeddings else res["model"].embed.numel()
+    tokens = TRAIN_B * TRAIN_S
+    ms = statistics.median(res["step_s"][TRAIN_WARMUP:]) * 1e3
+    kept = TRAIN_S * (TRAIN_S + 1) // 2 * TRAIN_B * cfg.n_heads
+    k4_flops = cfg.n_layers * (4 + 10) * cfg.hd * kept   # forward + bwd
+    flops = 6 * (n_params - gathered) * tokens + k4_flops
+    b_ms = flops / BF16_FLOP_PER_S * 1e3
+    print(f"train: llama3-8b full width, {cfg.n_layers} of 32 layers, "
+          f"{n_params:,} parameters, bf16, chunked, remat {cfg.remat}: "
+          f"{TRAIN_STEPS} steps on {TRAIN_B} x {TRAIN_S} tokens in "
+          f"{secs:.1f} s; {ms:.2f} ms a step (median after {TRAIN_WARMUP} "
+          f"warm-up; " + ", ".join(f"{s * 1e3:.1f}" for s in res["step_s"])
+          + f"), {tokens / ms * 1e3:.0f} tokens/s; operations bound "
+          f"{b_ms:.2f} ms ({flops / 1e12:.2f} TFLOP: 6 x "
+          f"{n_params - gathered:,} parameters (the {gathered:,}-entry "
+          f"embedding, a gather, left out) x tokens + K4 "
+          f"{k4_flops / 1e12:.3f}, at 989 TFLOP/s), "
+          f"{b_ms / ms:.1%} of it; peak memory {peak / 2**30:.1f} GiB; "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; on the first step's batch {losses[0]:.4f} before, "
+          f"{again:.4f} after")
+    split = tprof["split_ms"]
+    busy = sum(split.values())
+    print(f"train: where a step goes (profiling child, {TRAIN_PROFILED} "
+          f"steps): device busy {busy:.2f} ms of the profiled wall "
+          + ", ".join(f"{w:.2f}" for w in tprof["profiled_wall_ms"])
+          + " ms; " + ", ".join(f"{k} {v:.2f} ms ({v / busy:.0%})" for k, v
+                                 in sorted(split.items(), key=lambda kv:
+                                           -kv[1]))
+          + "; by CUDA events: loss and gradients "
+          f"{tprof['phases_ms']['loss_and_grads']:.2f} ms, clipping and "
+          f"AdamW {tprof['phases_ms']['clip_and_adamw']:.2f} ms")
+    print(f"check: train: every loss finite, the last ({losses[-1]:.4f}) "
+          f"below the first ({losses[0]:.4f}); on the first step's batch "
+          f"the trained model's loss {again:.4f} below the initial "
+          f"{losses[0]:.4f}; K4 launches per step "
+          f"{per_step} by the wrappers, {most} most seen by the profiler in "
+          "the profiling child's steps")
+    del res
+    torch.cuda.empty_cache()
+    return {"launches": n["k4/bwd/bfloat16"], "ms_per_step": ms,
+            "bound_ms": b_ms, "peak_bytes": peak, "losses": losses,
+            "first_batch_after": again, "split_ms": split}
+
+
+def train_grad_equivalence(dev) -> dict:
+    """Part (c): llama3-8b at full width, TRAIN_GRAD_LAYERS layers, f32, on
+    1 x TRAIN_GRAD_S tokens: the gradient of every parameter through K4
+    (the tf32x3 forward and the backward kernel) against the dense
+    ``_sdpa`` path's, each within TRAIN_GRAD_TOL of its largest entry.
+    Returns the backward's launches."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import lm
+
+    grads = {}
+    for impl in ("dense", "chunked"):
+        cfg = train_config(n_layers=TRAIN_GRAD_LAYERS, dtype="float32",
+                           attn_impl=impl)
+        model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(7),
+                           dev).requires_grad_(True)
+        batch = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_GRAD_S,
+                                batch=1, seed=8).batch_at(0)
+        zero_model_counts()
+        loss = lm.loss_fn(cfg, model, {k: torch.as_tensor(v, device=dev)
+                                       for k, v in batch.items()})
+        grads[impl] = (loss.item(), torch.autograd.grad(
+            loss, model.param_list()))
+        torch.cuda.synchronize()
+        n = model_counts()
+        want = {} if impl == "dense" else {
+            "k4/tf32x3/float32": 2 * cfg.n_layers,
+            "k4/bwd/float32": 3 * cfg.n_layers}
+        if n != want:
+            fail(f"chunked == dense gradients ({impl}): launches {n}, "
+                 f"expected {want}")
+        del model
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(grads["chunked"][1], grads["dense"][1])):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, rel)
+        if not rel <= TRAIN_GRAD_TOL:
+            fail(f"chunked == dense: gradient {i} {tuple(b.shape)} differs "
+                 f"by {rel:.3g} of its largest entry (limit "
+                 f"{TRAIN_GRAD_TOL})")
+    dl = abs(grads["chunked"][0] - grads["dense"][0])
+    print(f"check: llama3-8b full width, {TRAIN_GRAD_LAYERS} layers, f32, "
+          f"1 x {TRAIN_GRAD_S} tokens: every gradient through K4 (tf32x3 "
+          f"forward, backward kernel) == the dense path's within "
+          f"{TRAIN_GRAD_TOL} of its largest entry (worst "
+          f"{worst:.3g} over {len(grads['dense'][1])} tensors); loss "
+          f"{grads['chunked'][0]:.6f} vs {grads['dense'][0]:.6f} (|diff| "
+          f"{dl:.3g}); launches {n}")
+    del grads
+    torch.cuda.empty_cache()
+    return {"launches": n["k4/bwd/float32"]}
+
+
+def restart_check(dev, tmp: str) -> None:
+    """Part (d): the reduced llama3-8b (bf16, chunked: the CUDA-core K4 and
+    the backward kernel at hd 16) trained RESTART_STEPS steps under
+    ``FaultTolerantLoop`` with a failure injected at step RESTART_FAIL_AT
+    and a checkpoint every RESTART_EVERY steps ends with parameters and
+    moments bitwise those of an uninterrupted run; then a card-side RWKV
+    loss with grad, and K4 at a head dim or dtype no kernel takes, must
+    raise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import FaultTolerantLoop
+
+    cfg = dataclasses.replace(get_config("llama3_8b", reduced=True),
+                              attn_impl="chunked")
+    ds = SyntheticLMData(vocab=cfg.vocab, seq_len=REDUCED_S,
+                         batch=REDUCED_B, seed=9)
+    model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(9),
+                       dev).requires_grad_(True)
+    own = model.param_list()
+    step = steps_mod.build_train_step(cfg, model)
+
+    def make_state():
+        m = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(9), dev)
+        params = [p.detach() for p in m.param_list()]
+        return {"params": params, "opt": adamw_init(params)}
+
+    def step_fn(state, i):
+        with torch.no_grad():
+            for p, s in zip(own, state["params"]):
+                if p is not s:
+                    p.copy_(s)
+        step(model, state["opt"], {k: torch.as_tensor(v, device=dev)
+                                   for k, v in ds.batch_at(i).items()})
+        return {"params": own, "opt": state["opt"]}
+
+    finals, logs = {}, {}
+    for run, inject in (("restarted", {RESTART_FAIL_AT: RuntimeError(
+            "injected node loss")}), ("uninterrupted", {})):
+        loop = FaultTolerantLoop(os.path.join(tmp, run), make_state, step_fn,
+                                 ckpt_every=RESTART_EVERY, inject=inject)
+        state, logs[run] = loop.run(RESTART_STEPS)
+        finals[run] = [t.detach().clone() for t in (
+            *state["params"], *state["opt"]["m"], *state["opt"]["v"],
+            state["opt"]["count"])]
+    if logs["restarted"]["restarts"] != 1:
+        fail(f"restart check: log {logs['restarted']}, expected 1 restart")
+    same = [torch.equal(a, b) for a, b in zip(finals["restarted"],
+                                              finals["uninterrupted"])]
+    if not all(same):
+        fail(f"restart check: {same.count(False)} of {len(same)} tensors "
+             "differ from the uninterrupted run's")
+    print(f"check: reduced llama3-8b (hd 16, bf16, chunked) under "
+          f"FaultTolerantLoop, {RESTART_STEPS} steps, a checkpoint every "
+          f"{RESTART_EVERY}, failure injected at step {RESTART_FAIL_AT}: "
+          f"{logs['restarted']}; all {len(same)} parameters, moments and "
+          f"the count bitwise those of an uninterrupted run")
+    # no path detaches: RWKV (K5 has no backward) and K4 at what no kernel
+    # takes raise with grad enabled
+    rcfg = get_config("rwkv6_3b", reduced=True)
+    rwkv = lm.LM.init(rcfg, torch.Generator(device=dev).manual_seed(1),
+                      dev).requires_grad_(True)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, rcfg.vocab, (1, 32)), dtype=torch.int32, device=dev)
+    raised = []
+    try:
+        lm.loss_fn(rcfg, rwkv, {"tokens": tokens, "labels": tokens})
+    except NotImplementedError as e:
+        raised.append(f"rwkv6-3b: {e}")
+    for hd, dtype in ((48, torch.bfloat16), (64, torch.float16)):
+        q = torch.randn((1, 2, 64, hd), device=dev, dtype=dtype,
+                        requires_grad=True)
+        try:
+            fa.flash_attention(q, q, q, causal=True).sum().backward()
+        except ValueError as e:
+            raised.append(f"K4 hd {hd} {dtype}: {e}")
+    if len(raised) != 3:
+        fail(f"with grad on the card, only these raised: {raised}")
+    print("check: with grad on the card, each raises: " + "; ".join(raised))
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2292,7 +2854,8 @@ def main() -> int:
     t0 = time.perf_counter()
     prof = profiles()
     print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's, "
-          f"the MoE step's and Jamba's step's device kernels off "
+          f"the MoE step's, Jamba's step's and the train step's device "
+          f"kernels off "
           f"torch.profiler in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -2609,6 +3172,13 @@ def main() -> int:
     encdec_equivalence(dev)
     vlm = vlm_paths(dev)
     torch.cuda.empty_cache()
+    # ---- path 13, train: K4's backward, llama3-8b trained, restarts ------
+    bwd_cases = k4_bwd_checks(dev)
+    trained = train_path(dev, prof)
+    grad_eq = train_grad_equivalence(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        restart_check(dev, tmp)
+    torch.cuda.empty_cache()
     entries += k4_entries(
         dev, prefilled["launches"], equiv, reduced, prof, moe_prefilled,
         [("hybrid_prefill", hybrid["prefill"], HYBRID_PREFILL_S,
@@ -2617,6 +3187,9 @@ def main() -> int:
          ("vlm_prefill", vlm, vlm["cfg"].n_img_tokens + VLM_TEXT_S,
           "bfloat16/paligemma_3b")])
     entries += k5_entries(dev, served["launches"], equiv, prof)
+    entries += k4_bwd_entries(dev, bwd_cases, {
+        "bfloat16": trained["launches"], "float32": grad_eq["launches"]},
+        prof)
 
     print(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -85,7 +85,8 @@ constexpr int smem_floats(int bq, int bk) {
 template <typename T, int HD, int RPW>
 __global__ void __launch_bounds__(NTHREADS)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, Strides st, int H,
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ lse, Strides st, int H,
           int G, int S, int Sk, int bq, int bk, int causal, float scale) {
     constexpr int KG = HD < 32 ? 32 / HD : 1;       // key groups of P V
     constexpr int DPL = HD < 32 ? 1 : HD / 32;      // output dims per lane
@@ -232,12 +233,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < DPL; ++c)
             store(op + qg * st.o[2] + d0 + 32 * c, acc[i][c] / denom);
+        if (lse != nullptr && lane == 0) lse[(long long)bh * S + qg] = m[i] + logf(l[i]);
     }
 }
 
 template <typename T, int HD, int RPW>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const Strides& st, int B, int H, int Hkv, int S, int Sk, int bq,
+           float* lse, const Strides& st, int B, int H, int Hkv, int S, int Sk, int bq,
            int bk, int causal, float scale, cudaStream_t stream) {
     const int smem = smem_floats<HD, RPW>(bq, bk) * (int)sizeof(float);
     if (smem > 48 * 1024) {
@@ -248,24 +250,25 @@ int launch(const void* q, const void* k, const void* v, void* out,
     }
     const dim3 grid(B * H, (S + bq - 1) / bq);
     fa_kernel<T, HD, RPW><<<grid, NTHREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, st, H, H / Hkv, S, Sk,
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, st, H, H / Hkv, S, Sk,
         bq, bk, causal, scale);
     return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int by_rows(const void* q, const void* k, const void* v, void* out,
-            const Strides& st, int B, int H, int Hkv, int S, int Sk, int bq,
+            float* lse, const Strides& st, int B, int H, int Hkv, int S, int Sk, int bq,
             int bk, int causal, float scale, cudaStream_t s) {
     if (bq <= 2 * NWARPS)
-        return launch<T, HD, 2>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
+        return launch<T, HD, 2>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
     if (bq <= 4 * NWARPS)
-        return launch<T, HD, 4>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
-    return launch<T, HD, 8>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
+        return launch<T, HD, 4>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
+    return launch<T, HD, 8>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B,
              int H, int Hkv, int S, int Sk, int hd, int bq, int bk,
              int causal, float scale, const long long* strides, void* stream) {
     if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1 || bq < 1 ||
@@ -280,8 +283,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     }
     cudaStream_t s = (cudaStream_t)stream;
     switch (hd) {
-        case 16: return by_rows<T, 16>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
-        case 32: return by_rows<T, 32>(q, k, v, out, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
+        case 16: return by_rows<T, 16>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
+        case 32: return by_rows<T, 32>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, bq, bk, causal, scale, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -291,22 +294,23 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 // q (B, H, S, hd), k and v (B, Hkv, Sk, hd), out (B, H, S, hd); hd 16 or 32;
 // strides: 12 element strides, (batch, head, row) of q,
 // k, v, out, every row unit-stride.  scale is hd^-0.5 as the caller rounds
-// it to fp32.
+// it to fp32.  lse, when not null, receives each row's log-sum-exp of the
+// scaled scores, (B, H, S) fp32 contiguous (for the backward kernel).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, int B, int H, int Hkv, int S,
+                                   void* out, float* lse, int B, int H, int Hkv, int S,
                                    int Sk, int hd, int bq, int bk, int causal,
                                    float scale, const long long* strides,
                                    void* stream) {
-    return dispatch<float>(q, k, v, out, B, H, Hkv, S, Sk, hd, bq, bk, causal,
+    return dispatch<float>(q, k, v, out, lse, B, H, Hkv, S, Sk, hd, bq, bk, causal,
                            scale, strides, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, int B, int H, int Hkv, int S,
+                                    void* out, float* lse, int B, int H, int Hkv, int S,
                                     int Sk, int hd, int bq, int bk, int causal,
                                     float scale, const long long* strides,
                                     void* stream) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, H, Hkv, S, Sk, hd, bq, bk,
+    return dispatch<__nv_bfloat16>(q, k, v, out, lse, B, H, Hkv, S, Sk, hd, bq, bk,
                                    causal, scale, strides, stream);
 }
 

@@ -281,8 +281,8 @@ template <int HD>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 Strides st, int H, int G, int S, int Sk, int causal,
-                 float scale) {
+                 float* __restrict__ lse, Strides st, int H, int G, int S,
+                 int Sk, int causal, float scale) {
     using L = Layout<HD>;
     constexpr int C4 = HD / 4;           // 16-byte chunks of a row
     constexpr int ON = HD / 2;           // output accumulators per thread
@@ -481,6 +481,8 @@ fa_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
         const int qg = row0 + 8 * i;
         if (qg >= S) continue;
+        // the row's log-sum-exp of the scaled scores, for the backward
+        if (lse != nullptr && tg == 0) lse[(long long)bh * S + qg] = m[i] + logf(l[i]);
         const float denom = l[i] + 1e-30f;
         float* orow = op + qg * st.o[2] + 2 * tg;
 #pragma unroll
@@ -536,8 +538,8 @@ struct Layout256 {
 __global__ void __launch_bounds__(NTHREADS, 1)
 fa_tf32x3_hd256_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       Strides st, int H, int G, int S, int Sk, int causal,
-                       float scale) {
+                       float* __restrict__ lse, Strides st, int H, int G, int S,
+                       int Sk, int causal, float scale) {
     using L = Layout256;
     constexpr int HD = L::HD, BK = L::BK;
     constexpr int C4 = HD / 4;           // 16-byte chunks of a row
@@ -758,6 +760,8 @@ fa_tf32x3_hd256_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
         const int qg = row0 + 8 * i;
         if (qg >= S) continue;
+        // the row's log-sum-exp of the scaled scores, for the backward
+        if (lse != nullptr && tg == 0) lse[(long long)bh * S + qg] = m[i] + logf(l[i]);
         const float denom = l[i] + 1e-30f;
         float* orow = op + qg * st.o[2] + 2 * tg;
 #pragma unroll
@@ -771,7 +775,7 @@ fa_tf32x3_hd256_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 int launch256(const void* q, const void* k, const void* v, void* out,
-              const Strides& st, int B, int H, int Hkv, int S, int Sk,
+              float* lse, const Strides& st, int B, int H, int Hkv, int S, int Sk,
               int causal, float scale, cudaStream_t stream) {
     constexpr int smem = Layout256::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
@@ -780,14 +784,14 @@ int launch256(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * H, (S + BQ - 1) / BQ);
     fa_tf32x3_hd256_kernel<<<grid, NTHREADS, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, st, H,
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, st, H,
         H / Hkv, S, Sk, causal, scale);
     return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const Strides& st, int B, int H, int Hkv, int S, int Sk, int causal,
+           float* lse, const Strides& st, int B, int H, int Hkv, int S, int Sk, int causal,
            float scale, cudaStream_t stream) {
     constexpr int smem = Layout<HD>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
@@ -796,7 +800,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * H, (S + BQ - 1) / BQ);
     fa_tf32x3_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, st, H,
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, st, H,
         H / Hkv, S, Sk, causal, scale);
     return (int)cudaGetLastError();
 }
@@ -806,9 +810,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // q (B, H, S, hd), k and v (B, Hkv, Sk, hd), out (B, H, S, hd), all float32,
 // hd 64, 128 or 256; strides: 12 element strides, (batch, head, row) of q, k, v,
 // out, every row unit-stride and 16-byte aligned.  scale is hd^-0.5 rounded
-// to fp32.
+// to fp32.  lse, when not null, receives each row's log-sum-exp of the
+// scaled scores, (B, H, S) fp32 contiguous (for the backward kernel).
 extern "C" int flash_attention_tf32x3(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
+                                      const void* v, void* out, float* lse,
+                                      int B, int H,
                                       int Hkv, int S, int Sk, int hd,
                                       int causal, float scale,
                                       const long long* strides, void* stream) {
@@ -822,9 +828,9 @@ extern "C" int flash_attention_tf32x3(const void* q, const void* k,
         st.o[i] = strides[9 + i];
     }
     cudaStream_t s = (cudaStream_t)stream;
-    if (hd == 64) return launch<64>(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
-    if (hd == 128) return launch<128>(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
-    if (hd == 256) return launch256(q, k, v, out, st, B, H, Hkv, S, Sk, causal, scale, s);
+    if (hd == 64) return launch<64>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, causal, scale, s);
+    if (hd == 128) return launch<128>(q, k, v, out, lse, st, B, H, Hkv, S, Sk, causal, scale, s);
+    if (hd == 256) return launch256(q, k, v, out, lse, st, B, H, Hkv, S, Sk, causal, scale, s);
     return (int)cudaErrorInvalidValue;
 }
 

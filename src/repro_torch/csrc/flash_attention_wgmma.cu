@@ -79,6 +79,7 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int CHUNK = 64;                  // bf16 columns per 128-byte row
 constexpr int ROW_BYTES = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int ENCODE_FAILED = 10000;       // + CUresult of the tensor map
 
 template <int HD, int BK>
@@ -406,8 +407,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                const __grid_constant__ CUtensorMap omap, int H, int group,
-                int S, int Sk, int causal, float scale_log2) {
+                const __grid_constant__ CUtensorMap omap,
+                float* __restrict__ lse, int H, int group, int S, int Sk,
+                int causal, float scale_log2) {
     using L = Layout<HD, BK>;
     constexpr int ON = HD / 2;             // output accumulators per thread
     constexpr int PV_STEPS = BK / 16;      // k16 steps of O += P.V
@@ -570,6 +572,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             li += __shfl_xor_sync(0xffffffffu, li, 1);
             li += __shfl_xor_sync(0xffffffffu, li, 2);
             inv[i] = 1.f / (li + 1e-30f);
+            // the row's log-sum-exp of the scaled scores, for the backward
+            const int row = row0 + 8 * i;
+            if (lse != nullptr && quad == 0 && row < S)
+                lse[(long long)bh * S + row] = (m[i] * scale_log2 + log2f(li)) * LN2;
         }
         // O goes out through this warpgroup's rows of Q, which no product
         // reads any more, in the 128-byte swizzle the output's tensor map
@@ -651,8 +657,8 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
 
 template <int HD, int BK>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           const CUtensorMap& om, int B, int H, int group, int S, int Sk,
-           int causal, float scale_log2, cudaStream_t stream) {
+           const CUtensorMap& om, float* lse, int B, int H, int group, int S,
+           int Sk, int causal, float scale_log2, cudaStream_t stream) {
     constexpr int smem = Layout<HD, BK>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
         fa_wgmma_kernel<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -660,7 +666,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * H, (S + BQ - 1) / BQ);
     fa_wgmma_kernel<HD, BK><<<grid, NTHREADS, smem, stream>>>(
-        qm, km, vm, om, H, group, S, Sk, causal, scale_log2);
+        qm, km, vm, om, lse, H, group, S, Sk, causal, scale_log2);
     return (int)cudaGetLastError();
 }
 
@@ -670,8 +676,11 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 // each with element strides (batch, head, row) in `strides` (q, k, v, out:
 // 12 values) and a unit-stride last dim.  block_k is the kv tile (the q
 // tile is 128 rows); scale is hd^-0.5 as the caller rounds it to fp32.
+// lse, when not null, receives each row's log-sum-exp of the scaled scores,
+// (B, H, S) fp32 contiguous (for the backward kernel).
 extern "C" int flash_attention_wgmma_bf16(
-        const void* q, const void* k, const void* v, void* out, int B, int H,
+        const void* q, const void* k, const void* v, void* out, float* lse,
+        int B, int H,
         int Hkv, int S, int Sk, int hd, int block_k, int causal, float scale,
         const long long* strides, void* stream) {
     if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1)
@@ -686,15 +695,15 @@ extern "C" int flash_attention_wgmma_bf16(
     const int g = H / Hkv;
     cudaStream_t st = (cudaStream_t)stream;
     if (hd == 64 && block_k == 128)
-        return launch<64, 128>(qm, km, vm, om, B, H, g, S, Sk, causal, sl, st);
+        return launch<64, 128>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     if (hd == 64 && block_k == 64)
-        return launch<64, 64>(qm, km, vm, om, B, H, g, S, Sk, causal, sl, st);
+        return launch<64, 64>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     if (hd == 128 && block_k == 128)
-        return launch<128, 128>(qm, km, vm, om, B, H, g, S, Sk, causal, sl, st);
+        return launch<128, 128>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     if (hd == 128 && block_k == 64)
-        return launch<128, 64>(qm, km, vm, om, B, H, g, S, Sk, causal, sl, st);
+        return launch<128, 64>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     if (hd == 256 && block_k == 64)
-        return launch<256, 64>(qm, km, vm, om, B, H, g, S, Sk, causal, sl, st);
+        return launch<256, 64>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     return (int)cudaErrorInvalidValue;
 }
 

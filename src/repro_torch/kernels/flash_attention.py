@@ -32,6 +32,17 @@ All stop a causal q block at the kv block that holds its last row,
 ``((qi+1)*block_q - 1)//block_k + 1`` blocks, where the TPU kernel's
 ``(qi*block_q)//block_k + 1`` drops blocks when ``block_q > block_k``.
 
+The gradient: where grad is enabled and q, k or v requires grad,
+``flash_attention`` runs as a ``torch.autograd.Function``.  Its forward is
+the kernel above, asked also for each row's log-sum-exp (an optional output
+of all three; serving calls pass none and run as before); it saves q, k, v
+as given (views, k and v at their kv heads), the output and the
+log-sum-exp.  Its backward is ``csrc/flash_attention_bwd.cu`` (fp32 on the
+CUDA cores at every head dim, both dtypes, three kernels a call: D, then dK
+and dV summed over each GQA group, then dQ; no atomics), and
+``flash_attention_bwd_plain`` on the CPU.  The JAX package has no Pallas
+backward: it differentiates its attention with ``jax.grad``.
+
 ``flash_attention_plain`` beside them walks the same block schedule in
 PyTorch (all q blocks at once, kv blocks in order, the same causal bound,
 kv heads shared by their groups of q heads), so the CPU tests hold the
@@ -56,6 +67,8 @@ WGMMA_SOURCE = _cuda.CSRC_DIR / "flash_attention_wgmma.cu"
 WGMMA_LIB_NAME = "flash_attention_wgmma"
 TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
+BWD_SOURCE = _cuda.CSRC_DIR / "flash_attention_bwd.cu"
+BWD_LIB_NAME = "flash_attention_bwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 MAX_BLOCK = 64          # CUDA-core kernel: most q rows / kv keys
 # CUDA-core kernel: its default (block_q, block_k); 16-row q blocks put
@@ -71,12 +84,20 @@ TF32X3_BLOCKS = {64: (64, 32), 128: (64, 32), 256: (64, 16)}
 WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
                 128: ((128, 64), (128, 128)),
                 256: ((128, 64),)}
+# the backward kernel's (q rows, kv keys) tile by head dim (``Tile<HD>`` in
+# the .cu); the plain backward walks them on the CPU
+BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (32, 64),
+             256: (32, 32)}
+BWD_LAUNCHES = 3        # kernels a backward call: D, dK and dV, dQ
 NEG_INF = -1e30
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 # launches per kernel and input dtype ("wgmma/bfloat16", "tf32x3/float32",
-# "cuda_cores/float32", "cuda_cores/bfloat16"), counted at the launch
+# "cuda_cores/float32", "cuda_cores/bfloat16"; the backward's kernels as
+# "bwd/<dtype>", BWD_LAUNCHES a call), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -103,16 +124,22 @@ def tf32x3_kernel_source() -> str:
     return TF32X3_SOURCE.read_text()
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_kernel_source() -> str:
+    return BWD_SOURCE.read_text()
+
+
 def kernel_sources() -> dict[str, str]:
     """Every kernel's ``name -> source``, for ``_cuda.build_many``."""
     return {LIB_NAME: kernel_source(), WGMMA_LIB_NAME: wgmma_kernel_source(),
-            TF32X3_LIB_NAME: tf32x3_kernel_source()}
+            TF32X3_LIB_NAME: tf32x3_kernel_source(),
+            BWD_LIB_NAME: bwd_kernel_source()}
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(dtype: torch.dtype):
     lib = _cuda.load(LIB_NAME, kernel_source())
-    return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 4
+    return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 5
                             + [ctypes.c_int] * 9 + [ctypes.c_float]
                             + [ctypes.c_void_p] * 2)
 
@@ -121,7 +148,7 @@ def _launcher(dtype: torch.dtype):
 def _wgmma_launcher():
     lib = _cuda.load(WGMMA_LIB_NAME, wgmma_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_wgmma_bf16",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                             + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
@@ -129,8 +156,16 @@ def _wgmma_launcher():
 def _tf32x3_launcher():
     lib = _cuda.load(TF32X3_LIB_NAME, tf32x3_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_tf32x3",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                             + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher(dtype: torch.dtype):
+    lib = _cuda.load(BWD_LIB_NAME, bwd_kernel_source())
+    return lib, _cuda.entry(lib, _BWD_ENTRY[dtype], [ctypes.c_void_p] * 10
+                            + [ctypes.c_int] * 7 + [ctypes.c_float]
+                            + [ctypes.c_void_p] * 2)
 
 
 def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
@@ -145,12 +180,14 @@ def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
-                          block_k: int):
+                          block_k: int, return_lse: bool = False):
     """The plain PyTorch version: the kernels' block schedule with online
     softmax in fp32, every q block at once, kv blocks in order; a q block
     takes a kv block's update only while it is within its causal bound.
     k and v may have fewer heads than q; q head h reads kv head
-    h // (H / Hkv)."""
+    h // (H / Hkv).  ``return_lse`` also returns each row's log-sum-exp of
+    the scaled scores, (B, H, S) fp32, as the kernels write it for the
+    backward."""
     B, H, S, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -191,7 +228,65 @@ def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
         acc = torch.where(on[..., None], acc1, acc)
         m, l = torch.where(on, m1, m), torch.where(on, l1, l)
     out = acc / (l[..., None] + 1e-30)
-    return out.reshape(B, H, nq * block_q, hd)[:, :, :S].to(q.dtype)
+    out = out.reshape(B, H, nq * block_q, hd)[:, :, :S].to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(B, H, nq * block_q)[:, :, :S]
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
+                              block_q: int, block_k: int):
+    """The backward kernel's plain PyTorch version, on its block schedule:
+    D = rowsum(dout * out); then kv blocks in order, every q block at once,
+    each q block taking a kv block only within its causal bound: P =
+    exp(s * scale - lse) (0 where masked), dV_j = P^T dout and dK_j = scale
+    dS^T q summed over q blocks and the G q heads of each kv head, dQ +=
+    scale dS k_j, with dS = P (dout v^T - D); fp32 throughout, each
+    gradient returned in its input's dtype.  ``lse`` is (B, H, S) fp32,
+    the forward's row log-sum-exp of the scaled scores.  Returns (dq, dk,
+    dv) shaped as q, k, v."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    nq, nk = -(-S // block_q), -(-Sk // block_k)
+    dev = q.device
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32).item()
+
+    def rows(t):            # (B, H, S, ...) -> (B, Hkv, G, nq, block_q, ...)
+        pad = torch.zeros((B, H, nq * block_q) + t.shape[3:],
+                          dtype=torch.float32, device=dev)
+        pad[:, :, :S] = t.float()
+        return pad.view((B, Hkv, G, nq, block_q) + t.shape[3:])
+
+    qf, of, gf = rows(q), rows(out), rows(dout)
+    lsef = rows(lse)
+    D = (gf * of).sum(dim=-1)
+    kf = torch.zeros((B, Hkv, nk * block_k, hd), dtype=torch.float32,
+                     device=dev)
+    vf = torch.zeros_like(kf)
+    kf[:, :, :Sk], vf[:, :, :Sk] = k.float(), v.float()
+    qpos = torch.arange(nq * block_q, device=dev).view(nq, block_q, 1)
+    walks = torch.tensor(kv_blocks(S, Sk, block_q, block_k, causal),
+                         device=dev).view(nq, 1, 1)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(kf)
+    for j in range(nk):
+        cut = slice(j * block_k, (j + 1) * block_k)
+        kb, vb = kf[:, :, cut], vf[:, :, cut]
+        s = torch.einsum("bgrnqd,bgkd->bgrnqk", qf, kb)
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        ok = (kpos < Sk) & (qpos < S) & (j < walks)
+        if causal:
+            ok = ok & (qpos >= kpos)
+        p = torch.where(ok, torch.exp(s * scale - lsef[..., None]), 0.0)
+        dp = torch.einsum("bgrnqd,bgkd->bgrnqk", gf, vb)
+        ds = p * (dp - D[..., None])
+        dv[:, :, cut] = torch.einsum("bgrnqk,bgrnqd->bgkd", p, gf)
+        dk[:, :, cut] = torch.einsum("bgrnqk,bgrnqd->bgkd", ds, qf) * scale
+        dq = dq + torch.einsum("bgrnqk,bgkd->bgrnqd", ds, kb)
+    dq = (dq * scale).reshape(B, H, nq * block_q, hd)[:, :, :S]
+    return (dq.to(q.dtype), dk[:, :, :Sk].to(k.dtype),
+            dv[:, :, :Sk].to(v.dtype))
 
 
 def _row_strides(t: torch.Tensor) -> tuple[Optional[list[int]], str]:
@@ -286,8 +381,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
             raise ValueError(f"flash_attention: blocks ({block_q}, "
                              f"{block_k}); the tensor-core kernel takes "
                              f"{list(pairs)} at bf16 hd={hd}")
-        strides = [_tma_strides(t, n) for t, n in ((q, "q"), (k, "k"),
-                                                   (v, "v"))]
+        for t, n in ((q, "q"), (k, "k"), (v, "v")):
+            _tma_strides(t, n)
     elif kind == "tf32x3":
         tile = TF32X3_BLOCKS[hd]
         if any(b not in (None, t) for b, t in zip((block_q, block_k), tile)):
@@ -302,19 +397,38 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
             raise ValueError(f"flash_attention: blocks ({block_q}, {block_k})"
                              f" must lie in 1..{MAX_BLOCK}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, kind, block_q, block_k)
+    return _run(q, k, v, causal, kind, block_q, block_k, False)[0]
+
+
+def _run(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
+         with_lse: bool):
+    """The forward on checked inputs: (out, lse or None).  The plain
+    version on the CPU; else the kernel of ``kind``, which writes the rows'
+    log-sum-exp too when ``with_lse``."""
+    dev = q.device
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                     block_k=block_k)
+        res = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                    block_k=block_k, return_lse=with_lse)
+        return res if with_lse else (res, None)
+    dtype = q.dtype
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) \
+        if with_lse else None
+    lse_ptr = None if lse is None else lse.data_ptr()
     if kind == "wgmma":
         lib, launch = _wgmma_launcher()
         out = torch.empty_like(q)
-        strides.append(_tma_strides(out, "out"))
-        st = (ctypes.c_longlong * 12)(*(s for t in strides for s in t))
+        st = (ctypes.c_longlong * 12)(*(s for t, n in ((q, "q"), (k, "k"),
+                                                       (v, "v"), (out, "out"))
+                                        for s in _tma_strides(t, n)))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, H, Hkv, S, Sk, hd, block_k,
-                        int(causal), hd ** -0.5, ctypes.addressof(st),
-                        _cuda.current_stream(dev))
+                        out.data_ptr(), lse_ptr, B, H, Hkv, S, Sk, hd,
+                        block_k, int(causal), hd ** -0.5,
+                        ctypes.addressof(st), _cuda.current_stream(dev))
     elif kind == "tf32x3":
         q, k, v = (_aligned_rows(t) for t in (q, k, v))
         lib, launch = _tf32x3_launcher()
@@ -323,8 +437,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                         for s in _row_strides(t)[0]))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, H, Hkv, S, Sk, hd, int(causal),
-                        hd ** -0.5, ctypes.addressof(st),
+                        out.data_ptr(), lse_ptr, B, H, Hkv, S, Sk, hd,
+                        int(causal), hd ** -0.5, ctypes.addressof(st),
                         _cuda.current_stream(dev))
     else:
         q, k, v = (_unit_rows(t) for t in (q, k, v))
@@ -334,9 +448,70 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                         for d in range(3)))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, H, Hkv, S, Sk, hd, block_q,
-                        block_k, int(causal), hd ** -0.5,
+                        out.data_ptr(), lse_ptr, B, H, Hkv, S, Sk, hd,
+                        block_q, block_k, int(causal), hd ** -0.5,
                         ctypes.addressof(st), _cuda.current_stream(dev))
     _cuda.check(lib, rc, "flash_attention")
     LAUNCHES[f"{kind}/{str(dtype).removeprefix('torch.')}"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
+    """(dq, dk, dv) of ``flash_attention``'s output given its gradient
+    ``dout``: q, out, dout (B, H, S, hd), k, v (B, Hkv, Sk, hd), all of one
+    dtype (float32 or bfloat16; views with unit-stride rows), lse (B, H, S)
+    fp32 from the forward.  dk and dv are at the kv heads, summed over each
+    group of q heads; each gradient has its input's shape and dtype.  On
+    the card the backward kernel (``BWD_LAUNCHES`` kernels, its tiles
+    ``BWD_TILES[hd]``); on the CPU its plain version on the same tiles.  A
+    head dim or dtype the kernel is not built for raises."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dtype = q.dtype
+    if hd not in BWD_TILES or dtype not in _BWD_ENTRY:
+        raise NotImplementedError(
+            f"flash_attention backward: no kernel for hd={hd}, {dtype}; it is "
+            f"built for hd in {tuple(BWD_TILES)}, float32 and bfloat16")
+    dout = dout.to(dtype)
+    bq, bk = BWD_TILES[hd]
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, block_q=min(bq, S),
+                                         block_k=min(bk, Sk))
+    dev = q.device
+    q, k, v, out, dout = (_unit_rows(t) for t in (q, k, v, out, dout))
+    lse = lse.float().contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    lib, launch = _bwd_launcher(dtype)
+    st = (ctypes.c_longlong * 24)(*(t.stride(d) for t in (q, k, v, out, dout,
+                                                          dq, dk, dv)
+                                    for d in range(3)))
+    with torch.cuda.device(dev):
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), D.data_ptr(), B, H, Hkv, S,
+                    Sk, hd, int(causal), hd ** -0.5, ctypes.addressof(st),
+                    _cuda.current_stream(dev))
+    _cuda.check(lib, rc, "flash_attention backward")
+    LAUNCHES[f"bwd/{str(dtype).removeprefix('torch.')}"] += BWD_LAUNCHES
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """K4 with its gradient: the forward kernel (writing the rows'
+    log-sum-exp), then ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kind, block_q, block_k):
+        out, lse = _run(q, k, v, causal, kind, block_q, block_k, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None, None, None

@@ -151,7 +151,9 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
     kernel, S > 1 the chunk schedule in chunks of ``chunk`` tokens (three
     launches).  ``device`` defaults to where the tensors lie (the card for
     numpy input): the kernels run on the card, the chunk schedule's plain
-    version on the CPU."""
+    version on the CPU.  The plain version is differentiable by autograd;
+    the kernels are not yet: on the card, a call with grad enabled and an
+    input that requires grad raises ``NotImplementedError``."""
     dev = _cuda.resolve_device([x for x in (r, k, v, w, u, s0, out, s_out)
                                 if x is not None], device)
     if getattr(r, "ndim", 0) != 4:
@@ -183,6 +185,13 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
                                                  (v, "v"), (w, "w"),
                                                  (out, "out"))]
     chunk = min(chunk, S)
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in (r, k, v, w, u, s0)):
+        raise NotImplementedError(
+            "wkv6: the kernels have no backward yet (ROADMAP queue 1: K5's "
+            "backward kernel, RWKV training on the card); a loss through "
+            "wkv6_state on the card cannot be differentiated")
     if dev.type == "cpu":
         o, s = wkv6_chunked_plain(r.float(), k.float(), v.float(), w, u, s0,
                                   chunk)

@@ -498,18 +498,27 @@ def _linear_scan(a, b):
     steps, each combining every position with the one ``d`` before it by
     the reference's associative combine.  Every factor is a decay in
     (0, 1], so nothing overflows (the closed form through exp(-cumsum)
-    would, at dt * A down to -16 a token)."""
+    would, at dt * A down to -16 a token).  Under autograd (training) each
+    step is the same arithmetic out of place, as ``out=`` takes no grad."""
     S = a.shape[1]
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     d = 1
     while d < S:
-        nb = torch.empty_like(b)
-        nb[:, :d] = b[:, :d]
-        torch.addcmul(b[:, d:], a[:, d:], b[:, :-d], out=nb[:, d:])
+        if grad:
+            nb = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:],
+                                                    b[:, :-d])], dim=1)
+        else:
+            nb = torch.empty_like(b)
+            nb[:, :d] = b[:, :d]
+            torch.addcmul(b[:, d:], a[:, d:], b[:, :-d], out=nb[:, d:])
         if 2 * d < S:
-            na = torch.empty_like(a)
-            na[:, :d] = a[:, :d]
-            torch.mul(a[:, d:], a[:, :-d], out=na[:, d:])
-            a = na
+            if grad:
+                a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+            else:
+                na = torch.empty_like(a)
+                na[:, :d] = a[:, :d]
+                torch.mul(a[:, d:], a[:, :-d], out=na[:, d:])
+                a = na
         b = nb
         d *= 2
     return b

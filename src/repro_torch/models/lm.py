@@ -12,9 +12,12 @@ so ``LM`` holds one entry per layer in ``blocks``, the dense prefix first
 in, the prefix first, the period and encoder axes unstacked), so both
 packages compute the same thing in the tests.
 
-Entry points (the reference's ``prefill_fn`` and ``decode_fn``):
+Entry points (the reference's ``prefill_fn``, ``decode_fn`` and
+``loss_fn``):
   * forward(cfg, model, batch)             -- full-sequence logits; batch
     holds ``tokens``, and ``frames`` (encdec) or ``patches`` (vlm)
+  * loss_fn(cfg, model, batch)             -- the masked mean of
+    ``-log_softmax`` at ``labels``, for training
   * decode_step(cfg, model, cache, batch)  -- one token against the caches;
     an encdec batch holds ``frames``, encoded again at every step as the
     reference does
@@ -22,16 +25,25 @@ Entry points (the reference's ``prefill_fn`` and ``decode_fn``):
     as a CUDA graph, replayed per token: the counterpart of the
     reference's ``@jax.jit`` decode (``repro.launch.serve``)
 
-Training (``loss_fn``) waits for the training slice: K4 and K5 have no
-backward yet.
+Training: the parameters are created frozen, as serving wants them;
+``model.requires_grad_(True)`` makes them trainable, and ``param_list``
+gives them in the fixed order the optimiser and checkpoints use.  With
+grad enabled, ``cfg.remat`` is honoured as the reference's ``_remat``:
+"full" recomputes each layer in the backward (``torch.utils.checkpoint``,
+non-reentrant; the layer's K4 forward then runs twice a step), "dots"
+saves the layers' plain matrix products and recomputes the rest, "none"
+keeps everything.  K4 is differentiable on the card through its backward
+kernel; K5 (RWKV) is not yet, and raises there.
 """
 from __future__ import annotations
 
 import collections
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import flash_attention, wkv6
@@ -175,8 +187,8 @@ class LM(nn.Module):
     in an encoder-decoder), the dense prefix first; an encoder-decoder adds
     ``encoder`` (its layers, "mix" and "ffn") and ``enc_norm``, a VLM
     ``img_proj``.  The parameters are wrapped, not copied, so tensors
-    shared between layers stay shared.  Inference only: the parameters need
-    no gradient."""
+    shared between layers stay shared.  They need no gradient until
+    ``requires_grad_(True)`` (training); ``param_list`` orders them."""
 
     def __init__(self, cfg: ArchConfig, params: dict):
         super().__init__()
@@ -205,6 +217,11 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_list(self) -> list:
+        """Every parameter once, in registration order: the fixed order of
+        the optimiser's moments and of a checkpoint's leaves."""
+        return list(self.parameters())
 
     def forward(self, batch):
         return forward(self.cfg, self, batch)
@@ -240,12 +257,39 @@ def _apply_layer(cfg, spec, p, x, positions, enc_out=None):
     return x
 
 
+# the reference's "dots" policy (checkpoint_dots_with_no_batch_dims): the
+# plain matrix products, which ``x @ w`` becomes, are saved
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat`` when grad is enabled (the
+    reference's ``_remat``, one layer at a time): "full" recomputes the
+    layer in the backward, "dots" recomputes all but its plain matrix
+    products, "none" (or no grad) runs it as is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=(
+            functools.partial(ckpt.create_selective_checkpoint_contexts,
+                              _dots_policy)))
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
+    return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+
 def backbone(cfg: ArchConfig, model: LM, x, positions, enc_out=None):
     """Apply every layer in order + final norm.  x: (B,S,D); positions:
     (B,S), or None for ``arange(S)`` in every row; enc_out: the encoder's
-    output (encdec), or None."""
+    output (encdec), or None.  Each layer under ``_remat``."""
     for spec, p in zip(layer_specs(cfg), model.blocks):
-        x = _apply_layer(cfg, spec, p, x, positions, enc_out)
+        x = _remat(cfg, functools.partial(_apply_layer, cfg, spec), p, x,
+                   positions, enc_out)
     return L.rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -255,9 +299,13 @@ def encode(cfg: ArchConfig, model: LM, frames):
     ``_sdpa``) and an MLP a layer, then ``enc_norm``."""
     x = _on(frames, model.device).to(model.embed.dtype)
     for p in model.encoder:
-        x = L.attn_forward(cfg, p["mix"], x, None, causal=False)
-        x = L.mlp_forward(cfg, p["ffn"], x)
+        x = _remat(cfg, _encoder_layer, cfg, p, x)
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+def _encoder_layer(cfg, p, x):
+    x = L.attn_forward(cfg, p["mix"], x, None, causal=False)
+    return L.mlp_forward(cfg, p["ffn"], x)
 
 
 def logits_from_hidden(cfg: ArchConfig, model: LM, h):
@@ -293,6 +341,34 @@ def forward(cfg: ArchConfig, model: LM, batch):
     if cfg.family == "vlm":          # logits over the text positions only
         h = h[:, cfg.n_img_tokens:]
     return logits_from_hidden(cfg, model, h)
+
+
+def loss_fn(cfg: ArchConfig, model: LM, batch):
+    """The reference's training loss: the mean over ``mask`` (ones when the
+    batch has none) of ``-log_softmax(logits)`` at ``labels`` (B, S), as a
+    0-d tensor on the model's device."""
+    logits = forward(cfg, model, batch)
+    labels = _on(batch["labels"], model.device).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = _on(batch["mask"], model.device) if "mask" in batch \
+        else torch.ones_like(ll)
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def opt_state_from_reference(cfg: ArchConfig, state: dict,
+                             device="cuda") -> dict:
+    """The port's AdamW state from the reference's (``repro.optim``'s
+    ``adamw_init`` or ``adamw_update`` output, as numpy arrays): ``m`` and
+    ``v`` as lists in ``LM.param_list`` order, each moment in its own
+    dtype, ``count`` a 0-d int32 tensor."""
+    def ordered(tree):
+        return [t.detach() for t in
+                LM(cfg, params_from_reference(cfg, tree, device)).param_list()]
+
+    return {"m": ordered(state["m"]), "v": ordered(state["v"]),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,5 @@
+from .adamw import adamw_init, adamw_update, clip_by_global_norm
+from .schedule import cosine_schedule
+
+__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm",
+           "cosine_schedule"]

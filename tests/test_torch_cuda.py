@@ -1016,3 +1016,145 @@ def test_moe_route_on_the_card_equals_the_cpu_dispatch(cuda_device, S):
     for k in ("posc", "keep", "slot", "src", "vld"):
         assert torch.equal(r[k].cpu(), want[k].to(r[k].dtype)), k
     assert not bool(r["keep"].all())
+
+
+# ---------------------------------------------------------------------------
+# K4's backward kernel and training on the card
+# ---------------------------------------------------------------------------
+
+
+def _bwd_inputs(dev, dtype, B, H, Hkv, S, hd, seed):
+    """Views of (B, S, heads, hd) tensors for q, k, v, and dout."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, S, h, hd)).astype(
+        np.float32)).to(dev, dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+    return q, k, v, g
+
+
+def _forward_blocks(fa, kind, hd):
+    """The default (block_q, block_k) of K4's forward kernel ``kind``."""
+    if kind == "wgmma":
+        return fa.WGMMA_BLOCKS[hd][0]
+    return fa.TF32X3_BLOCKS[hd] if kind == "tf32x3" else fa.CUDA_CORE_BLOCKS
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,S,causal", [(2, 4, 2, 100, True),
+                                              (1, 4, 1, 77, False),
+                                              (1, 8, 8, 130, True)])
+def test_flash_attention_bwd_kernel_equals_plain(cuda_device, hd, dtype, B,
+                                                 H, Hkv, S, causal):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the same
+    forward output and log-sum-exp: every head dim, both dtypes, GQA 1/2/4,
+    strided views, ragged q and kv tiles; three launches a call."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, hd + S)
+    kind = fa.route(dt, hd)
+    bq, bk = _forward_blocks(fa, kind, hd)
+    out, lse = fa._run(q, k, v, causal, kind, bq, bk, True)
+    n0 = fa.LAUNCHES[f"bwd/{dtype}"]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[f"bwd/{dtype}"] == n0 + fa.BWD_LAUNCHES
+    tq, tk = fa.BWD_TILES[hd]
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                        block_q=min(tq, S),
+                                        block_k=min(tk, S))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b, x in zip(got, want, (q, k, v)):
+        assert a.dtype == dt and a.shape == x.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_lse_equals_plain(cuda_device, dtype):
+    """Each forward kernel's log-sum-exp output equals the plain version's,
+    and asking for it leaves the output unchanged."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    for hd in (16, 64, 128, 256):
+        q, k, v, _ = _bwd_inputs(cuda_device, dt, 1, 4, 2, 200, hd, hd)
+        kind = fa.route(dt, hd)
+        bq, bk = _forward_blocks(fa, kind, hd)
+        out, lse = fa._run(q, k, v, True, kind, bq, bk, True)
+        plain, plse = fa.flash_attention_plain(q, k, v, causal=True,
+                                               block_q=bq, block_k=bk,
+                                               return_lse=True)
+        assert torch.equal(out, fa._run(q, k, v, True, kind, bq, bk,
+                                        False)[0])
+        torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [16, 64])
+def test_chunked_gradients_equal_dense_on_the_card(cuda_device, hd):
+    """A gradient step through the reduced llama3-8b (f32; hd 16: the
+    CUDA-core K4, hd 64: tf32x3) with chunked attention (K4 forward and
+    backward kernels) equals the dense path's: the loss, and every
+    gradient within 1e-4 of its largest entry; K4's launches as remat
+    "full" runs them (the forward twice a layer)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(get_config("llama3_8b", reduced=True),
+                               dtype="float32", head_dim=hd)
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             SyntheticLMData(vocab=base.vocab, seq_len=128, batch=2,
+                             seed=1).batch_at(0).items()}
+    params = lm.init_params(base, torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    for impl in ("dense", "chunked"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        model = lm.LM(cfg, params).to(cuda_device).requires_grad_(True)
+        fa.LAUNCHES.clear()
+        loss = lm.loss_fn(cfg, model, batch)
+        res[impl] = (loss.item(), torch.autograd.grad(loss,
+                                                      model.param_list()))
+        torch.cuda.synchronize()
+        if impl == "chunked":
+            kind = fa.route(torch.float32, hd)
+            assert dict(fa.LAUNCHES) == {
+                f"{kind}/float32": 2 * cfg.n_layers,
+                "bwd/float32": fa.BWD_LAUNCHES * cfg.n_layers}
+    assert res["chunked"][0] == pytest.approx(res["dense"][0], rel=1e-5)
+    for a, b in zip(res["chunked"][1], res["dense"][1]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.requires_cuda
+def test_gradients_that_no_kernel_takes_raise(cuda_device):
+    """With grad on the card nothing detaches: an RWKV loss (K5 has no
+    backward) and K4 at a head dim or dtype no kernel takes raise; the
+    backward entry raises for a head dim it is not built for."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    cfg = get_config("rwkv6_3b", reduced=True)
+    model = lm.LM.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                       cuda_device).requires_grad_(True)
+    # inputs from numpy: the default CUDA generator may be left mid-capture
+    # by test_decode_graph_capture_failure_raises
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 16)),
+                             device=cuda_device)
+    with pytest.raises(NotImplementedError, match="backward"):
+        lm.loss_fn(cfg, model, {"tokens": tokens, "labels": tokens})
+    with torch.no_grad():
+        assert torch.isfinite(lm.loss_fn(cfg, model, {"tokens": tokens,
+                                                      "labels": tokens}))
+    for hd, dt in ((48, torch.bfloat16), (64, torch.float16)):
+        q = torch.as_tensor(rng.standard_normal((1, 2, 64, hd)),
+                            device=cuda_device, dtype=dt).requires_grad_()
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, q, q, causal=True)
+    x = torch.as_tensor(rng.standard_normal((1, 2, 64, 48)),
+                        device=cuda_device, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="hd=48"):
+        fa.flash_attention_bwd(x, x, x, x, x[..., 0], x, causal=True)

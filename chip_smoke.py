@@ -76,12 +76,15 @@ read just after:
 12. *vlm_prefill*: PaliGemma-3B at full depth and width runs ``lm.forward``
    on 256 patch embeddings + 768 tokens: the tensor-core K4 at hd 256, 8 q
    heads over one kv head; then ``serve.main`` decodes text, graphed.
-13. *train*: (a) K4's backward kernel (``csrc/flash_attention_bwd.cu``,
-   through ``flash_attention``'s autograd Function) against autograd of the
-   plain version at llama3-8b's q (1, 32, 2048, 128) over 8 kv heads,
-   causal, in bf16 and f32, at hd 64 not causal over 448 rows, hd 256 over
-   one kv head and hd 16, each limit shown to reject the gradient of a call
-   that lost a kv tile; (b) llama3-8b at its published widths cut to 4 of
+13. *train*: (a) K4's backward kernels (bf16 at hd 64-256:
+   ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores; f32 and hd
+   16: ``csrc/flash_attention_bwd.cu``; through ``flash_attention``'s
+   autograd Function) against autograd of the plain version at llama3-8b's
+   q (B, 32, 2048, 128) over 8 kv heads, causal, in bf16 (B 2) and f32 (B
+   1), at hd 64 not causal over 448 rows, hd 256 over one kv head and hd
+   16, each limit shown to reject the gradient of a call that lost a kv
+   tile of the dK/dV kernel's, and the bf16 gradient bitwise the same in
+   a second call; (b) llama3-8b at its published widths cut to 4 of
    its 32 layers (bf16, chunked, remat "full") trained 8 steps on 2 x 2048
    tokens by ``launch.train.train``, the loop of ``python -m
    repro_torch.launch.train``: K4's forward twice a layer a step and its
@@ -238,13 +241,22 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 6, 2, 3
 # K4's backward at llama3-8b's shape: bf16 at the train path's batch, f32
 # at 1 (its path, the gradient check, runs 1 x TRAIN_GRAD_S)
 K4_BWD_B = {"bfloat16": TRAIN_B, "float32": 1}
+# the bf16 backward (the tensor-core route) also held and timed at the other
+# head dims of its route, (B, H, Hkv, S, hd, causal): Whisper-small's 448
+# decoder rows, not causal, and PaliGemma-3B's 1024 rows over one kv head
+K4_BWD_MORE = {"whisper_small": (1, 12, 12, WHISPER_S, 64, False),
+               "paligemma_3b": (1, 8, 1, 1024, 256, True)}
+# backward calls profiled in the profiling child, for each kernel's time
+K4_BWD_PROFILED_CALLS = 3
 # K4's backward against autograd of the plain version: fp32 sums in
 # another order (f32); bf16 gradients rounded once from fp32, the kernel's
 # D from the bf16 output (bf16: about an ulp, 2^-8 relative)
 K4_BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
               "float32": dict(rtol=1e-4, atol=1e-4)}
-# K4's device kernels by name: the forward kernels' and the backward's
+# K4's device kernels by name: the forward kernels' and the backward's;
+# the tensor-core backward's alone
 K4_KERNEL = re.compile(r"\bfa_(wgmma_|tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
+K4_BWD_WGMMA = re.compile(r"\bfa_bwd_wgmma_\w+_kernel")
 # what the JAX package differentiates instead (no Pallas backward)
 K4_BWD_JAX = ("src/repro/models/layers.py:80 _sdpa and :105 "
               "_sdpa_chunked")
@@ -402,6 +414,24 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
+def ptxas_kernels(log: str) -> list:
+    """Per kernel of an nvcc -Xptxas -v log, by its name and template
+    arguments: registers and bytes spilled."""
+    out, name, spill = [], "", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"\d(fa_\w+?_kernel)(I(?:Li\d+E)+E)?", ln)
+            name = "?" if not m else m.group(1) + (
+                "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                if m.group(2) else "")
+        elif "spill stores" in ln:
+            spill = ln.split(",")[1].strip().split(" ")[0]
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers, {spill} B spilled")
+    return out
+
+
 def zero_model_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
@@ -553,8 +583,49 @@ def profile_main(dev=None) -> int:
         bwd()
         out["sdpa_bwd"][dt] = sorted(
             {short_name(n_) for n_, _ in kernel_names(device_kernels(bwd)[0])})
+    out["k4_bwd"] = k4_bwd_profiles(dev)
     print(json.dumps(out))
     return 0
+
+
+def k4_bwd_profiles(dev) -> dict:
+    """{"bfloat16" (the train path's llama3-8b shape) and
+    "bfloat16/<arch>" (``K4_BWD_MORE``): [[[kernel, us], ...] per call]}:
+    the device kernels of ``K4_BWD_PROFILED_CALLS`` calls of the bf16
+    backward, each profiled alone; and under "sdpa/<arch>" the kernels of
+    sdpa's backward at the ``K4_BWD_MORE`` shapes."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {"bfloat16": (K4_BWD_B["bfloat16"], 32, 8, TRAIN_S, 128, True),
+              **{f"bfloat16/{a}": s for a, s in K4_BWD_MORE.items()}}
+    for key, (B, H, Hkv, S, hd, causal) in shapes.items():
+        q, k, v, dout = (torch.randn((B, S, h, hd), device=dev)
+                         .to(torch.bfloat16).transpose(1, 2)
+                         for h in (H, Hkv, Hkv, H))
+        out_, lse = fa._run(q, k, v, causal, "wgmma",
+                            *fa.WGMMA_BLOCKS[hd][0], True)
+
+        def call():
+            fa.flash_attention_bwd(q, k, v, out_, lse, dout, causal=causal)
+        call()
+        out[key] = [[[short_name(n_), us] for n_, us in
+                     kernel_names(device_kernels(call)[0])]
+                    for _ in range(K4_BWD_PROFILED_CALLS)]
+        if key == "bfloat16":
+            continue
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = sdpa(*xs, is_causal=causal, enable_gqa=True)
+
+        def bwd():
+            torch.autograd.grad(o, xs, dout, retain_graph=True)
+        bwd()
+        out["sdpa/" + key.split("/")[1]] = sorted(
+            {short_name(n_) for n_, _ in kernel_names(device_kernels(bwd)[0])})
+    return out
 
 
 def k3_profiles(dev) -> dict:
@@ -2310,11 +2381,12 @@ def train_step_profile(dev) -> dict:
 
 def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
                 causal: bool, seed: int) -> dict:
-    """K4's backward kernel (through ``flash_attention``'s autograd
-    Function, forward kernel and all) against autograd of
-    ``flash_attention_plain`` on the same views of (B, S, heads, hd)
-    tensors, and the limit shown to reject the gradient of a call that lost
-    one of the backward kernel's kv tiles.  Returns the errors and the
+    """K4's backward (the kernels of ``bwd_route``, through
+    ``flash_attention``'s autograd Function, forward kernel and all)
+    against autograd of ``flash_attention_plain`` on the same views of (B,
+    S, heads, hd) tensors, a second backward bitwise the first, and the
+    limit shown to reject the gradient of a call that lost one of the dK/dV
+    kernel's kv tiles.  Returns the errors, the backward's launches and the
     inputs for timing."""
     import torch
 
@@ -2330,13 +2402,20 @@ def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
     q, k, v = (t.transpose(1, 2) for t in base)
     fa.LAUNCHES.clear()
     out = fa.flash_attention(q, k, v, causal=causal)
-    got = torch.autograd.grad(out, base, dout)
+    got = torch.autograd.grad(out, base, dout, retain_graph=True)
     torch.cuda.synchronize()
     n = dict(fa.LAUNCHES)
-    want_n = {f"{fa.route(dtype, hd)}/{dt}": 1, f"bwd/{dt}": fa.BWD_LAUNCHES}
+    kind = fa.bwd_route(dtype, hd)
+    want_n = {f"{fa.route(dtype, hd)}/{dt}": 1,
+              f"bwd/{dt}": fa.bwd_launches(dtype, hd, B, H, Hkv, S)}
     if n != want_n:
         fail(f"K4 bwd {dt} hd {hd}: launches {n}, expected {want_n}")
-    tq, tk = fa.BWD_TILES[hd]
+    again = torch.autograd.grad(out, base, dout)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv}: a second "
+             "backward on the same inputs differs from the first")
+    tq, tk = fa.BWD_TILES[kind][hd]
     bq, bk = min(tq, S), min(tk, S)
 
     def plain_grads(keep=None):
@@ -2378,23 +2457,25 @@ def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
         fail(f"K4 bwd {dt} hd {hd}: rtol {tol['rtol']}, atol {tol['atol']}"
              f" accepts the gradient with kv tile {t} ({bk} keys) dropped")
     print(f"check: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} heads, "
-          f"causal={causal}, views: dq, dk, dv == autograd of the plain "
-          f"version within rtol {tol['rtol']}, atol {tol['atol']} (max "
+          f"causal={causal}, views, route {kind}: dq, dk, dv == autograd of "
+          f"the plain version within rtol {tol['rtol']}, atol {tol['atol']} "
+          f"and bitwise the same in a second call (max "
           f"|diff| " + ", ".join(f"{k_} {e:.3g} of {scale[k_]:.3g}"
                                  for k_, e in errs.items())
           + f"); the limit rejects the gradient with kv tile {t} of "
           f"{-(-S // bk)} ({bk} keys) dropped; launches {n}")
     return {"errs": errs, "q": q.detach(), "k": k.detach(),
             "v": v.detach(), "out": out.detach(), "dout": dout,
-            "tol": tol}
+            "tol": tol, "causal": causal, "launches": n[f"bwd/{dt}"]}
 
 
 def k4_bwd_checks(dev) -> dict:
     """Part (a) of the train path: K4's backward at llama3-8b's shape (q (B,
     32, 2048, 128) over 8 kv heads, causal; bf16 at the train path's batch
-    of 2, f32 at 1, ``K4_BWD_B``), at hd 64 not causal over a ragged last
-    block (448 rows), at hd 256 over one kv head and at hd 16.  Returns the
-    llama3-8b cases by dtype, for timing."""
+    of 2, f32 at 1, ``K4_BWD_B``), at ``K4_BWD_MORE``'s shapes (hd 64 not
+    causal over a ragged last block of 448 rows, hd 256 over one kv head)
+    and at hd 16.  Returns, for timing, the llama3-8b cases by dtype and
+    the bf16 ``K4_BWD_MORE`` cases as "bfloat16/<arch>"."""
     import torch
 
     out = {}
@@ -2402,47 +2483,63 @@ def k4_bwd_checks(dev) -> dict:
         dt = str(dtype).removeprefix("torch.")
         out[dt] = k4_bwd_case(dev, dtype, K4_BWD_B[dt], 32, 8, TRAIN_S, 128,
                               True, 11)
-        k4_bwd_case(dev, dtype, 1, 12, 12, WHISPER_S, 64, False, 12)
-        k4_bwd_case(dev, dtype, 1, 8, 1, 1024, 256, True, 13)
+        for seed, (arch, shape) in enumerate(K4_BWD_MORE.items(), 12):
+            c = k4_bwd_case(dev, dtype, *shape, seed)
+            if dtype == torch.bfloat16:
+                out[f"{dt}/{arch}"] = c
         k4_bwd_case(dev, dtype, REDUCED_B, 6, 2, REDUCED_S, 16, True, 14)
         torch.cuda.empty_cache()
     return out
 
 
 def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
-    """The backward kernel's ``kernels`` entries: timed at llama3-8b's shape
-    (B, 32, 2048, 128) over 8 kv heads, causal (``K4_BWD_B``), beside its
-    plain version and scaled_dot_product_attention's backward; ``launches``
-    by dtype from the path that ran it (bf16: the full-width training run;
-    f32: the chunked == dense gradients); sdpa's backward kernels read off
-    the profiler in the profiling child.  The bound is the card's peak for
+    """The backward's ``kernels`` entries: timed at llama3-8b's shape (B,
+    32, 2048, 128) over 8 kv heads, causal (``K4_BWD_B``; bf16 on the
+    tensor cores, f32 on the CUDA cores) and in bf16 at ``K4_BWD_MORE``'s,
+    each beside its plain version and scaled_dot_product_attention's
+    backward; ``launches`` by dtype from the path that ran it (bf16: the
+    full-width training run; f32: the chunked == dense gradients; the
+    ``K4_BWD_MORE`` shapes: their check's call); the tensor-core route's
+    kernels each timed apart off the profiler, and sdpa's backward kernels
+    read off it, in the profiling child.  The bound is the card's peak for
     the inputs' type (bf16: one tensor-core pass; f32: three TF32 passes,
-    as K4's f32 forward is bounded); the same flops on the fp32 CUDA cores,
-    the units this kernel uses, are printed beside it."""
+    as K4's f32 forward is bounded); the same flops on the fp32 CUDA cores
+    are printed beside it."""
     import torch
 
     from repro_torch import _cuda
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ptxas = ptxas_summary(_cuda.BUILD_LOG.get(fa.BWD_LIB_NAME, (0, ""))[1])
+    ptxas = {"cuda_cores": ptxas_summary(
+        _cuda.BUILD_LOG.get(fa.BWD_LIB_NAME, (0, ""))[1]),
+        "wgmma": ptxas_kernels(
+            _cuda.BUILD_LOG.get(fa.WGMMA_BWD_LIB_NAME, (0, ""))[1])}
+    lib = fa._wgmma_bwd_launcher()[0]
+    smem = {f"{w}<{hd}>": lib.flash_attention_bwd_wgmma_smem(hd, i)
+            for hd in fa.BWD_TILES["wgmma"]
+            for i, w in enumerate(("dkdv", "dq"))}
     entries = []
-    for dt, c in cases.items():
+    for key, c in cases.items():
         q, k, v, out, dout = c["q"], c["k"], c["v"], c["out"], c["dout"]
+        causal = c["causal"]
         B, H, S, hd = q.shape
         Hkv = k.shape[1]
-        if launches.get(dt, 0) < 1:
-            fail(f"K4 bwd {dt} was not launched on its path")
-        lse = fa._run(q, k, v, True, fa.route(q.dtype, hd),
+        dt = key.split("/")[0]
+        kind = fa.bwd_route(q.dtype, hd)
+        n = launches[key] if key in launches else c["launches"]
+        if n < 1:
+            fail(f"K4 bwd {key} was not launched on its path")
+        lse = fa._run(q, k, v, causal, fa.route(q.dtype, hd),
                       *(fa.WGMMA_BLOCKS[hd][0] if q.dtype == torch.bfloat16
                         else fa.TF32X3_BLOCKS[hd]), True)[1]
-        tq, tk = fa.BWD_TILES[hd]
+        tq, tk = fa.BWD_TILES[kind][hd]
         ms, host_ms = time_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, out, lse, dout, causal=True), 10)
+            q, k, v, out, lse, dout, causal=causal), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, lse, dout, causal=True, block_q=tq, block_k=tk),
+            q, k, v, out, lse, dout, causal=causal, block_q=tq, block_k=tk),
             3)[0]
-        kept = S * (S + 1) // 2 * B * H
+        kept = (S * (S + 1) // 2 if causal else S * S) * B * H
         flops = 10 * hd * kept           # 2.5 x the forward's 4 hd a score
         esz = q.element_size()
         # q, out, dout, dq at H heads, k, v, dk, dv at Hkv; lse in fp32
@@ -2455,40 +2552,65 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
         (lq, lk, lv), gqa = sdpa_args(*(t.detach().requires_grad_()
                                         for t in (q, k, v)))
         lq, lk, lv = (t.detach().requires_grad_() for t in (lq, lk, lv))
-        lo = sdpa(lq, lk, lv, is_causal=True, **gqa)
+        lo = sdpa(lq, lk, lv, is_causal=causal, **gqa)
         lib_ms = time_ms(lambda: torch.autograd.grad(
             lo, (lq, lk, lv), dout, retain_graph=True), 10)[0]
+        lib_kernels = (prof["sdpa_bwd"][dt] if "/" not in key
+                       else prof["k4_bwd"]["sdpa/" + key.split("/")[1]])
+        # each kernel's device time, the median over the profiled calls
+        split_ms = {}
+        if kind == "wgmma":
+            calls = prof["k4_bwd"][key]
+            for name in sorted({n_ for c_ in calls for n_, _ in c_}):
+                split_ms[name] = statistics.median(
+                    sum(us for n_, us in c_ if n_ == name) for c_ in calls
+                ) / 1e3
+            if not all(K4_BWD_WGMMA.search(n_) for n_ in split_ms):
+                fail(f"K4 bwd {key}: the profiled calls ran {split_ms}, "
+                     "not the tensor-core backward's kernels alone")
+        src = ("src/repro_torch/csrc/flash_attention_bwd_wgmma.cu"
+               if kind == "wgmma"
+               else "src/repro_torch/csrc/flash_attention_bwd.cu")
+        px = [p_ for p_ in ptxas[kind] if kind == "wgmma"
+              or ("bf16" in p_) == (dt == "bfloat16")]
         print(f"time: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} heads, "
-              f"causal: {ms:.4f} ms on the card (bound {b_ms:.4f} ms by "
-              f"{b_by}, {'bf16' if dt == 'bfloat16' else '3xTF32'} on the "
-              f"tensor cores; {b_ms / ms:.1%}; on the fp32 CUDA cores the "
-              f"same flops {cc_ms:.4f} ms, {cc_ms / ms:.1%}); plain "
-              f"{plain_ms:.3f} ms; sdpa's backward {lib_ms:.4f} ms, kernels "
-              + ", ".join(prof["sdpa_bwd"][dt]) + "; "
-              f"launches on its path {launches[dt]}; ptxas "
-              + " | ".join(p_ for p_ in ptxas if ("bf16" in p_) ==
-                           (dt == "bfloat16")))
+              f"causal={causal}, route {kind}: {ms:.4f} ms on the card "
+              f"(bound {b_ms:.4f} ms by {b_by}, "
+              f"{'bf16' if dt == 'bfloat16' else '3xTF32'} on the tensor "
+              f"cores; {b_ms / ms:.1%}; on the fp32 CUDA cores the same "
+              f"flops {cc_ms:.4f} ms, {cc_ms / ms:.1%})"
+              + ("; by kernel (profiler) " + ", ".join(
+                  f"{n_} {v_:.4f} ms" for n_, v_ in split_ms.items())
+                 if split_ms else "")
+              + f"; plain {plain_ms:.3f} ms; sdpa's backward {lib_ms:.4f} "
+              f"ms, kernels " + ", ".join(lib_kernels) + "; "
+              f"launches on its path {n} ({fa.bwd_launches(q.dtype, hd, B, H, Hkv, S)} "
+              f"a call); ptxas " + " | ".join(px)
+              + (f"; dynamic shared memory {smem}" if kind == "wgmma" else ""))
         entries.append({
-            "name": f"flash_attention_bwd[{dt}, hd {hd}]", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": K4_REPLACES,
+            "name": (f"flash_attention_bwd_wgmma[{dt}, hd {hd}]"
+                     if kind == "wgmma"
+                     else f"flash_attention_bwd[{dt}, hd {hd}]"),
+            "route": "cuda", "source": src, "replaces": K4_REPLACES,
             "replaces_note": "no Pallas backward: the JAX package "
                              "differentiates its attention with jax.grad "
                              f"({K4_BWD_JAX})",
-            "launches": launches[dt], "max_abs_err": max(c["errs"].values()),
+            "launches": n, "max_abs_err": max(c["errs"].values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
-            "cuda_core_bound_ms": cc_ms,
+            "cuda_core_bound_ms": cc_ms, "kernel_ms": split_ms,
             "library": "backward of torch.nn.functional."
                        "scaled_dot_product_attention("
                        f"{'enable_gqa=True' if gqa else 'kv repeated'}), "
                        "timed only",
-            "library_kernels": prof["sdpa_bwd"][dt], "host_ms": host_ms,
-            "bytes": nbytes, "flops": flops,
+            "library_kernels": lib_kernels, "host_ms": host_ms,
+            "bytes": nbytes, "flops": flops, "causal": causal,
             "shape": [B, H, S, hd], "kv_shape": list(k.shape),
-            "kernels_per_call": fa.BWD_LAUNCHES, "tiles": [tq, tk],
+            "kernels_per_call": fa.bwd_launches(q.dtype, hd, B, H, Hkv, S),
+            "bwd_route": kind, "tiles": [tq, tk],
             "tolerance": c["tol"], "check_errors": c["errs"],
-            "ptxas": ptxas, "path": "train"})
+            "ptxas": px, "smem": smem if kind == "wgmma" else None,
+            "path": "train" if "/" not in key else "train (check)"})
     return entries
 
 
@@ -2516,8 +2638,10 @@ def train_path(dev, prof: dict) -> dict:
     n = model_counts()
     peak = torch.cuda.max_memory_allocated()
     print("train path launches: " + json.dumps(n, sort_keys=True))
+    bwd_call = fa.bwd_launches(torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
+                               cfg.n_kv_heads, TRAIN_S)
     per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers,
-                "k4/bwd/bfloat16": fa.BWD_LAUNCHES * cfg.n_layers}
+                "k4/bwd/bfloat16": bwd_call * cfg.n_layers}
     want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if n != want:
         fail(f"train path launches {n}, expected {want} ({TRAIN_STEPS} "
@@ -2531,6 +2655,13 @@ def train_path(dev, prof: dict) -> dict:
                 "bwd": per_step["k4/bwd/bfloat16"]}:
         fail(f"train path: the profiling child saw K4 kernels {seen} in its "
              f"profiled steps, expected {per_step} a step")
+    # bf16 at hd 128: the backward is the tensor-core route's alone
+    bwd_names = sorted({n_ for s in tprof["k4"] for n_, _ in s
+                        if "fa_bwd" in n_})
+    if fa.bwd_route(torch.bfloat16, cfg.hd) != "wgmma" or not all(
+            K4_BWD_WGMMA.search(n_) for n_ in bwd_names):
+        fail(f"train path: the step's backward ran {bwd_names}, not the "
+             "tensor-core backward's kernels (fa_bwd_wgmma_*) alone")
     losses = res["losses"]
     if not all(math.isfinite(x) for x in losses) or not \
             losses[-1] < losses[0]:
@@ -2586,7 +2717,8 @@ def train_path(dev, prof: dict) -> dict:
           f"the trained model's loss {again:.4f} below the initial "
           f"{losses[0]:.4f}; K4 launches per step "
           f"{per_step} by the wrappers, {most} most seen by the profiler in "
-          "the profiling child's steps")
+          f"the profiling child's steps; the backward's kernels "
+          + ", ".join(bwd_names))
     del res
     torch.cuda.empty_cache()
     return {"launches": n["k4/bwd/bfloat16"], "ms_per_step": ms,
@@ -2603,6 +2735,7 @@ def train_grad_equivalence(dev) -> dict:
     import torch
 
     from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
 
     grads = {}
@@ -2622,7 +2755,9 @@ def train_grad_equivalence(dev) -> dict:
         n = model_counts()
         want = {} if impl == "dense" else {
             "k4/tf32x3/float32": 2 * cfg.n_layers,
-            "k4/bwd/float32": 3 * cfg.n_layers}
+            "k4/bwd/float32": fa.bwd_launches(
+                torch.float32, cfg.hd, 1, cfg.n_heads, cfg.n_kv_heads,
+                TRAIN_GRAD_S) * cfg.n_layers}
         if n != want:
             fail(f"chunked == dense gradients ({impl}): launches {n}, "
                  f"expected {want}")

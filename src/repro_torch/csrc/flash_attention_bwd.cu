@@ -19,7 +19,9 @@
 //   dK_j  = scale * sum_i dS_ij q_i
 //   dQ_i  = scale * sum_j dS_ij k_j
 // with dK and dV summed over the G q heads of each kv head; all in fp32 from
-// f32 or bf16 inputs, each gradient rounded once to its input's type.
+// f32 or bf16 inputs, each gradient rounded once to its input's type.  It
+// takes f32 at every head dim and bf16 at hd 16 and 32; bf16 at hd 64, 128
+// and 256 runs flash_attention_bwd_wgmma.cu, on the tensor cores.
 //
 // Bound on Hopper: operations.  The gradient counts 2.5 times the forward's
 // 4*hd flops per kept score (S, dP, dV, dK, dQ: five products of 2*hd); at
@@ -30,7 +32,8 @@
 // CUDA cores, whose 67 TFLOP/s alone would take 1.28 ms.  It also does more
 // work: kernel (c) recomputes S and dP, 7 products of 2*hd per score.
 //
-// Design (a first, simple kernel; wgmma and TMA are later work):
+// Design (a first, simple kernel; for bf16 at hd 64-256 the tensor-core
+// kernel took over):
 // * Three kernels a call and no atomics, so the result is deterministic:
 //   (a) D, one warp per row; (b) dK and dV, one block per (b, kv head, kv
 //   tile of BK keys) that walks the G q heads of its group and, for each, the
@@ -53,6 +56,7 @@
 //   tile past the last q row gets zero gradients.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <type_traits>
 
 namespace {
 
@@ -444,17 +448,25 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
     switch (hd) {
         case 16: return run<T, 16>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
         case 32: return run<T, 32>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-        case 64: return run<T, 64>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-        case 128: return run<T, 128>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-        case 256: return run<T, 256>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-        default: return (int)cudaErrorInvalidValue;
+        default: break;
     }
+    // bf16 at hd 64-256 runs flash_attention_bwd_wgmma.cu
+    if constexpr (std::is_same<T, float>::value) {
+        switch (hd) {
+            case 64: return run<T, 64>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
+            case 128: return run<T, 128>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
+            case 256: return run<T, 256>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
+            default: break;
+        }
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, out, dout, dq (B, H, S, hd); k, v, dk, dv (B, Hkv, Sk, hd); lse and the
-// scratch D (B, H, S) fp32, contiguous; hd 16, 32, 64, 128 or 256.  strides:
+// scratch D (B, H, S) fp32, contiguous; hd 16, 32, 64, 128 or 256 (bf16:
+// 16 or 32).  strides:
 // 24 element strides, (batch, head, row) of q, k, v, out, dout, dq, dk, dv,
 // every row unit-stride.  scale is hd^-0.5 as the caller rounds it to fp32.
 // Launches three kernels on `stream`.

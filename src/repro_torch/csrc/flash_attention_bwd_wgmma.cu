@@ -1,0 +1,990 @@
+// Flash attention, backward, bf16, on Hopper's tensor cores (wgmma), with
+// every tile fed by TMA through a ring of shared-memory stages, and
+// grouped-query attention and strided layouts read natively.
+//
+// Replaces: no TPU kernel.  The JAX package differentiates its attention
+// (src/repro/models/layers.py::_sdpa and _sdpa_chunked) with jax.grad and has
+// no Pallas VJP; its Pallas forward is
+// src/repro/kernels/flash_attention.py::_fa_kernel (line 22).  This is the
+// gradient of the port's bf16 forward (flash_attention_wgmma.cu) at head dims
+// 64, 128 and 256; f32, and bf16 at hd 16 and 32, stay on
+// flash_attention_bwd.cu (the CUDA cores).
+//
+// What it computes (as flash_attention_bwd.cu): for out = softmax(q k^T *
+// scale [+ causal mask]) v over q (B, H, S, hd) and k, v (B, Hkv, Sk, hd)
+// (q head h reads kv head h / (H / Hkv)), lse the row log-sum-exp of the
+// scaled scores and dout the output's gradient:
+//   D_i   = sum_d dout_id out_id
+//   P_ij  = exp(q_i . k_j * scale - lse_i)        (0 where masked)
+//   dV_j  = sum_i P_ij dout_i
+//   dS_ij = P_ij (dout_i . v_j - D_i)
+//   dK_j  = scale * sum_i dS_ij q_i
+//   dQ_i  = scale * sum_j dS_ij k_j
+// with dK and dV summed over the G q heads of each kv head.  Products take
+// bf16 operands (q, k, v, dout as given; P and dS rounded to bf16 from fp32)
+// and sum in fp32; scores, P, dS and every accumulator are fp32, and each
+// gradient is rounded once to bf16.
+//
+// Bound on Hopper: operations.  Five products of 2*hd flops per kept score
+// (S, dP, dV, dK, dQ): at llama3-8b's training shape, q (2, 32, 2048, 128)
+// over 8 kv heads, causal, 171.9 GFLOP on 168 MB, 0.174 ms at the bf16
+// tensor cores' 989 TFLOP/s.  This design does seven (the dQ kernel
+// recomputes S and dP, so that no gradient needs atomics): 0.243 ms.
+//
+// Design, point by point against the CUDA-core kernel (flash_attention_bwd.cu):
+// * Its five products were fp32 FMAs on the CUDA cores.  Here each is a
+//   wgmma (m64nNk16, bf16 in, fp32 accumulators in registers).  In the dK/dV
+//   kernel the scores are computed transposed, S^T = K Q^T and dP^T = V
+//   dout^T (K-major operands, both from shared memory), so that P^T and dS^T
+//   come out in the accumulator layout, which is the register layout of
+//   wgmma's A operand: dV += P^T dout and dK += dS^T Q then take P^T and dS^T
+//   from registers (packed to bf16) and dout and Q MN-major from shared
+//   memory.  In the dQ kernel S = Q K^T and dP = dout V^T, and dQ += dS K
+//   takes dS from registers and K MN-major.  P and dS never leave registers.
+// * It widened tiles to fp32 and loaded them element by element between
+//   two __syncthreads().  Here they stay bf16 in the 128-byte swizzle that
+//   TMA writes and wgmma reads, and one producer thread issues every load:
+//   the dK/dV block's K and V once, then Q, dout and the rows' statistics
+//   (lse * log2 e and D, 512 bytes a 64-row tile, one bulk copy) tile by
+//   tile into a ring of stages with a "full" and an "empty" mbarrier each;
+//   the dQ block's Q and dout once, then K and V tile by tile.  setmaxnreg
+//   gives the consumers 240 registers a thread.
+// * Its dK/dV kernel held 119 KB of fp32 tiles per 64 keys.  Here a dK/dV
+//   block owns 128 keys (two consumer warpgroups of 64) at hd 64 and 128; at
+//   hd 256, where dK and dV for 64 keys would need 256 fp32 registers a
+//   thread, it owns 64 keys and its two warpgroups split the head dims of dK
+//   and dV (128 each), both computing the same S^T and dP^T (6 products of
+//   2*hd a score where 4 would do; the other choice, dV and dK in two
+//   passes over the q tiles, also recomputes S^T and loads Q and dout
+//   twice).  A dQ block owns 128 q rows (two warpgroups of 64) and walks kv
+//   tiles of 64 keys, 32 at hd 256 (two stages of 64 would not fit beside
+//   Q and dout).
+// * The dK/dV kernel's two consumer warpgroups interleave: one forms P^T
+//   and dS^T (in one pass, once S^T and dP^T have both retired) while the
+//   other's products are on the tensor cores; dV's and dK's products go out
+//   together.  Overlapping within a warpgroup as well (P^T beside dP^T's
+//   product, dK's beside the next tile's S^T) keeps 224 registers a thread
+//   live and spills more: on an H100 at llama3-8b's training shape that
+//   kernel took 0.51-0.59 ms against this form's 0.46.  The dQ kernel,
+//   with registers to spare, retires dQ's product under the next tile's S
+//   and dP.
+// * No atomics, so every gradient is bitwise the same from call to call:
+//   each dK/dV block sums its q heads in registers; where the grid would be
+//   small (few kv heads, short sequences: MQA at hd 256), the wrapper splits
+//   each group's q heads over `split` blocks, which write fp32 partials that
+//   one more kernel sums in a fixed order.  Four launches a call then, else
+//   three: D, dK/dV, dQ.
+// * Causal: a dK/dV block starts at the q tile that holds its first key; a
+//   warpgroup whose keys all lie past a tile's last row releases it without
+//   computing; only tiles that cross the diagonal are masked.  A dQ block
+//   stops at kv tile ((qi+1)*BQ - 1)//BK, the forward's bound.  Rows past S
+//   carry lse = +inf in the statistics, so their P is 0 without a mask.
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NCONS = 2;                   // consumer warpgroups
+constexpr int NTHREADS = (NCONS + 1) * 128;
+// setmaxnreg: 128 * 24 + 256 * 240 = 64,512 of the SM's 65,536 registers
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int CHUNK = 64;                  // bf16 columns per 128-byte row
+constexpr int ROW_BYTES = 128;
+constexpr int BQ = 64;                     // q rows a dK/dV step takes
+constexpr int BQ_DQ = 128;                 // q rows of a dQ block
+constexpr int STATS_BYTES = 2 * BQ * 4;    // lse * log2 e, then D, per 64 rows
+constexpr int DOT_WARPS = 8;
+constexpr int SUM_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int ENCODE_FAILED = 10000;       // + CUresult of the tensor map
+
+// tiles by head dim: keys of a dK/dV block (BKV), head dims a warpgroup's
+// dK and dV hold (HDW), keys of a dQ step (BK), and the two rings' depths
+template <int HD> struct Cfg;
+template <> struct Cfg<64> {
+    static constexpr int BKV = 128, HDW = 64, BK = 64, KV_STAGES = 3, Q_STAGES = 3;
+};
+template <> struct Cfg<128> {
+    static constexpr int BKV = 128, HDW = 128, BK = 64, KV_STAGES = 3, Q_STAGES = 3;
+};
+template <> struct Cfg<256> {
+    static constexpr int BKV = 64, HDW = 128, BK = 32, KV_STAGES = 2, Q_STAGES = 2;
+};
+
+// dK/dV block: K and V (BKV rows), then per stage Q, dout (64 rows) and the
+// statistics; every tile 1024-byte aligned (the swizzle's period)
+template <int HD>
+struct DkdvLayout {
+    static constexpr int ST = Cfg<HD>::Q_STAGES;
+    static constexpr int KV_BYTES = Cfg<HD>::BKV * HD * 2;
+    static constexpr int T_BYTES = BQ * HD * 2;
+    static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
+    static constexpr int Q_OFF = 2 * KV_BYTES;
+    static constexpr int G_OFF = Q_OFF + ST * T_BYTES;
+    static constexpr int ST_OFF = G_OFF + ST * T_BYTES;
+    static constexpr int BAR_OFF = ST_OFF + ST * STATS_BYTES;
+    static constexpr int NBARS = 1 + 2 * ST;
+    static constexpr int SMEM = BAR_OFF + NBARS * 8 + 1024;
+    static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
+};
+
+// dQ block: Q and dout (128 rows), then per stage K and V (BK rows)
+template <int HD>
+struct DqLayout {
+    static constexpr int ST = Cfg<HD>::KV_STAGES;
+    static constexpr int T_BYTES = BQ_DQ * HD * 2;
+    static constexpr int KV_BYTES = Cfg<HD>::BK * HD * 2;
+    static constexpr int Q_OFF = 0, G_OFF = T_BYTES;
+    static constexpr int K_OFF = 2 * T_BYTES;
+    static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+    static constexpr int BAR_OFF = V_OFF + ST * KV_BYTES;
+    static constexpr int NBARS = 1 + 2 * ST;
+    static constexpr int SMEM = BAR_OFF + NBARS * 8 + 1024;
+    static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
+};
+
+struct KvStrides {    // element strides (batch, head, row) of dk and dv
+    long long dk[3], dv[3];
+};
+
+struct RowStrides {   // element strides (batch, head, row)
+    long long s[3];
+};
+
+// ---- device helpers, as flash_attention_wgmma.cu has them ---------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed.  A
+// wait is microseconds; one that outlasts 2^34 cycles (about 9 s) is a
+// fault of the ring, and traps (the launch fails) rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    const long long t0 = clock64();
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (!done && clock64() - t0 > (1ll << 34)) __trap();
+    } while (!done);
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
+// memory; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+           "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16
+         | (uint64_t)((sbo & 0x3FFFF) >> 4) << 32
+         | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// waits until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<32> {
+    // D(64x32, fp32) (+)= A(64x16, smem, K-major) * B(32x16, smem, K-major)^T
+    static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+            "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(accumulate));
+    }
+};
+
+template <> struct Wgmma<64> {
+    // D(64x64, fp32) (+)= A(64x16, smem, K-major) * B(64x16, smem, K-major)^T
+    static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+            "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "l"(a), "l"(b), "r"(accumulate));
+    }
+    // D(64x64, fp32) += A(64x16, registers) * B(16x64, smem, MN-major)
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+            "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct Wgmma<128> {
+    // D(64x128, fp32) += A(64x16, registers) * B(16x128, smem, MN-major)
+    static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+            "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <> struct Wgmma<256> {
+    // D(64x256, fp32) += A(64x16, registers) * B(16x256, smem, MN-major)
+    static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %133, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+            "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+            "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+            "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+            "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+            "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+              "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+              "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+              "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+              "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+              "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+              "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+              "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+              "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+// a score tile in bf16 as wgmma A fragments: accumulator block n/4 (8
+// columns) feeds k-step n/8, whose registers hold (row0, columns 0-7),
+// (row0+8, 0-7), (row0, 8-15), (row0+8, 8-15)
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&sc)[N / 2],
+                                       uint32_t (&p)[N / 16][4]) {
+#pragma unroll
+    for (int n = 0; n < N / 2; n += 2) p[n / 8][(n % 8) / 2] = pack_bf16(sc[n], sc[n + 1]);
+}
+
+// (a) the statistics both gradient kernels read, per (b*H + h) and tile of
+// 64 q rows: lse * log2 e (+inf past S, so P is 0 there), then D =
+// rowsum(dout * out) (0 past S).  One warp per padded row, 16 bytes a lane.
+__global__ void __launch_bounds__(DOT_WARPS * 32)
+fa_bwd_wgmma_dot_kernel(const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        float* __restrict__ stats, RowStrides so,
+                        RowStrides sg, int H, int S, int NQ, int hd,
+                        long long rows) {
+    const long long row = (long long)blockIdx.x * DOT_WARPS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (row >= rows) return;
+    const int per = NQ * BQ;
+    const long long bh = row / per;
+    const int r = (int)(row % per), b = (int)(bh / H), h = (int)(bh % H);
+    float acc = 0.f;
+    if (r < S && lane * 8 < hd) {
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            o + b * so.s[0] + h * so.s[1] + r * so.s[2] + lane * 8);
+        const uint4 c = *reinterpret_cast<const uint4*>(
+            g + b * sg.s[0] + h * sg.s[1] + r * sg.s[2] + lane * 8);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(c2[i]);
+            acc = fmaf(x.x, y.x, acc);
+            acc = fmaf(x.y, y.y, acc);
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+        float* st = stats + (bh * NQ + r / BQ) * 2 * BQ + r % BQ;
+        st[0] = r < S ? lse[bh * S + r] * LOG2E : INFINITY;
+        st[BQ] = acc;
+    }
+}
+
+// (b) dK and dV of one (batch, kv head, part of the group, tile of BKV
+// keys): walks the part's q heads and, for each, the q tiles of 64 rows
+// that the causal bound lets see its keys.  part == nullptr: dk and dv in
+// bf16 through their strides; else fp32 partials (split, B*Hkv, Sk, HD),
+// dK's then dV's, for the sum kernel.
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap gmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const float* __restrict__ stats,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv,
+                         float* __restrict__ part, KvStrides st, int H,
+                         int Hkv, int group, int split, int S, int Sk, int NQ,
+                         int causal, float scale_log2, float scale) {
+    using L = DkdvLayout<HD>;
+    constexpr int BKV = Cfg<HD>::BKV, HDW = Cfg<HD>::HDW, ST = L::ST;
+    constexpr int AN = HDW / 2;            // dK and dV accumulators a thread
+    constexpr bool SPLIT_HD = HDW < HD;    // the warpgroups share their keys
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;
+    const uint8_t* gbase = smem_raw + (base - raw);
+    const uint32_t sk = base + L::K_OFF, sv = base + L::V_OFF,
+                   sq = base + L::Q_OFF, sg = base + L::G_OFF,
+                   sst = base + L::ST_OFF, bars = base + L::BAR_OFF;
+    // barriers: K and V; then per stage full, empty
+    const uint32_t kvbar = bars;
+    auto full = [&](int s) { return bars + 8 * (1 + s); };
+    auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+
+    const int sp = blockIdx.x % split, bhk = blockIdx.x / split;
+    const int b = bhk / Hkv, hk = bhk % Hkv;
+    const int k0 = blockIdx.y * BKV;       // tile 0 (the longest walk) first
+    const int heads = group / split, h0 = hk * group + sp * heads;
+    const int nq = (S + BQ - 1) / BQ;
+    const int first = causal ? min(k0 / BQ, nq) : 0;
+    const int per = nq - first, steps = heads * per;
+
+    if (threadIdx.x == 0) {
+        mbar_init(kvbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), NCONS * 128);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // warp-uniform, so that each role is one branch with its own registers
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    if (wg == NCONS) {
+        // ---- producer warpgroup: one thread issues every load ------------
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
+        if (threadIdx.x == NCONS * 128) {
+            mbar_expect_tx(kvbar, 2 * L::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < HD / CHUNK; ++c) {
+                tma_load(sk + c * BKV * ROW_BYTES, &kmap, kvbar, c * CHUNK, k0, hk, b);
+                tma_load(sv + c * BKV * ROW_BYTES, &vmap, kvbar, c * CHUNK, k0, hk, b);
+            }
+            for (int it = 0; it < steps; ++it) {
+                const int h = h0 + it / per, qt = first + it % per;
+                const int s = it % ST;
+                mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
+                mbar_expect_tx(full(s), 2 * L::T_BYTES + STATS_BYTES);
+#pragma unroll
+                for (int c = 0; c < HD / CHUNK; ++c) {
+                    tma_load(sq + s * L::T_BYTES + c * BQ * ROW_BYTES, &qmap,
+                             full(s), c * CHUNK, qt * BQ, h, b);
+                    tma_load(sg + s * L::T_BYTES + c * BQ * ROW_BYTES, &gmap,
+                             full(s), c * CHUNK, qt * BQ, h, b);
+                }
+                bulk_load(sst + s * STATS_BYTES,
+                          stats + ((long long)(b * H + h) * NQ + qt) * 2 * BQ,
+                          STATS_BYTES, full(s));
+            }
+        }
+    } else {
+        // ---- consumer warpgroup wg: 64 keys, HDW head dims of dK, dV ------
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+        const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+        const int krow = SPLIT_HD ? 0 : wg * 64;    // its rows of the K tile
+        const int hoff = SPLIT_HD ? wg * HDW : 0;    // its first head dim
+        const int kw0 = k0 + krow;
+        const int key0 = kw0 + warp * 16 + lane / 4;  // its keys key0, key0 + 8
+        // S^T = K Q^T, dP^T = V dout^T: K-major operands, 16 columns (32
+        // bytes) a k-step, the next 64-column chunk every 4 steps
+        const uint64_t kd = smem_desc(sk + krow * ROW_BYTES, 16, 1024),
+                       vd = smem_desc(sv + krow * ROW_BYTES, 16, 1024);
+        float dka[AN], dva[AN], sc[32], dp[32];
+        uint32_t pa[4][4], pd[4][4];
+#pragma unroll
+        for (int i = 0; i < AN; ++i) dka[i] = dva[i] = 0.f;
+        mbar_wait(kvbar, 0);
+        for (int it = 0; it < steps; ++it) {
+            const int q0 = (first + it % per) * BQ, s = it % ST;
+            mbar_wait(full(s), (it / ST) & 1);
+            if (causal && q0 + BQ - 1 < kw0) {
+                // every key of this warpgroup lies past every row of the tile
+                mbar_arrive(empty(s));
+                continue;
+            }
+            const uint32_t qs = sq + s * L::T_BYTES, gs = sg + s * L::T_BYTES;
+            const float* stt = reinterpret_cast<const float*>(
+                gbase + L::ST_OFF + s * STATS_BYTES);
+            const uint64_t qd = smem_desc(qs, 16, 1024), gd = smem_desc(gs, 16, 1024);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                Wgmma<64>::ss(sc, kd + (((kk / 4) * BKV * ROW_BYTES + off) >> 4),
+                              qd + (((kk / 4) * BQ * ROW_BYTES + off) >> 4), kk > 0);
+            }
+            wgmma_commit();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                Wgmma<64>::ss(dp, vd + (((kk / 4) * BKV * ROW_BYTES + off) >> 4),
+                              gd + (((kk / 4) * BQ * ROW_BYTES + off) >> 4), kk > 0);
+            }
+            wgmma_commit();
+            // both retired: P^T and dS^T in one pass.  A thread holds keys
+            // key0 (+8) against q rows q0 + 8 (n / 4) + 2 quad + (n & 1)
+            wgmma_wait<0>();
+            fence_regs(sc);
+            fence_regs(dp);
+            const bool edge = causal && q0 < kw0 + 63;
+#pragma unroll
+            for (int n = 0; n < 32; ++n) {
+                const int col = (n >> 2) * 8 + 2 * quad + (n & 1);
+                float p = ex2(fmaf(sc[n], scale_log2, -stt[col]));
+                if (edge && key0 + 8 * ((n >> 1) & 1) > q0 + col) p = 0.f;
+                sc[n] = p;
+                dp[n] = p * (dp[n] - stt[BQ + col]);
+            }
+            pack_a<64>(sc, pa);
+            pack_a<64>(dp, pd);
+            // dV += P^T dout and dK += dS^T Q: dout and Q MN-major (hd
+            // contiguous): 16 q rows (2 KB) a k-step, the next 64 head dims
+            // 64 rows further
+            const uint64_t gm = smem_desc(gs + (hoff / CHUNK) * BQ * ROW_BYTES,
+                                          BQ * ROW_BYTES, 1024),
+                           qm = smem_desc(qs + (hoff / CHUNK) * BQ * ROW_BYTES,
+                                          BQ * ROW_BYTES, 1024);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)
+                Wgmma<HDW>::rs(dva, pa[kk], gm + ((kk * 16 * ROW_BYTES) >> 4));
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)
+                Wgmma<HDW>::rs(dka, pd[kk], qm + ((kk * 16 * ROW_BYTES) >> 4));
+            wgmma_commit();
+            wgmma_wait<0>();
+            mbar_arrive(empty(s));
+        }
+        fence_regs(dka);
+        fence_regs(dva);
+
+        // a thread holds rows key0 + 8 i, head dims hoff + 8 j + 2 quad + {0, 1}
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int key = key0 + 8 * i;
+            if (key >= Sk) continue;
+            if (part != nullptr) {
+                const long long n_all = (long long)gridDim.x / split * Sk * HD;
+                float* pk = part + ((long long)sp * (gridDim.x / split) + bhk) * Sk * HD
+                          + (long long)key * HD + hoff;
+                float* pv = pk + split * n_all;
+#pragma unroll
+                for (int j = 0; j < HDW / 8; ++j) {
+                    const int n = j * 4 + 2 * i, d = j * 8 + 2 * quad;
+                    *reinterpret_cast<float2*>(pk + d) = make_float2(dka[n], dka[n + 1]);
+                    *reinterpret_cast<float2*>(pv + d) = make_float2(dva[n], dva[n + 1]);
+                }
+            } else {
+                __nv_bfloat16* pk = dk + b * st.dk[0] + hk * st.dk[1] + key * st.dk[2] + hoff;
+                __nv_bfloat16* pv = dv + b * st.dv[0] + hk * st.dv[1] + key * st.dv[2] + hoff;
+#pragma unroll
+                for (int j = 0; j < HDW / 8; ++j) {
+                    const int n = j * 4 + 2 * i, d = j * 8 + 2 * quad;
+                    *reinterpret_cast<uint32_t*>(pk + d) =
+                        pack_bf16(dka[n] * scale, dka[n + 1] * scale);
+                    *reinterpret_cast<uint32_t*>(pv + d) = pack_bf16(dva[n], dva[n + 1]);
+                }
+            }
+        }
+    }
+}
+
+// (c) with a split group: dK and dV as the partials' sum, taken in split
+// order, dK scaled; 8 head dims a thread, dK's elements then dV's
+__global__ void __launch_bounds__(SUM_THREADS)
+fa_bwd_wgmma_sum_kernel(const float* __restrict__ part,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, KvStrides st,
+                        int split, int Hkv, int Sk, int hd, long long n_all,
+                        float scale) {
+    const long long e = ((long long)blockIdx.x * SUM_THREADS + threadIdx.x) * 8;
+    if (e >= 2 * n_all) return;
+    const int which = e >= n_all;
+    const long long f = e - which * n_all;
+    const int d = (int)(f % hd);
+    const long long r = f / hd;
+    const int key = (int)(r % Sk);
+    const long long bhk = r / Sk;
+    const int b = (int)(bhk / Hkv), hk = (int)(bhk % Hkv);
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    const float* src = part + (long long)which * split * n_all + f;
+    for (int s = 0; s < split; ++s) {
+        const float4 x = *reinterpret_cast<const float4*>(src + s * n_all);
+        const float4 y = *reinterpret_cast<const float4*>(src + s * n_all + 4);
+        acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
+        acc[4] += y.x; acc[5] += y.y; acc[6] += y.z; acc[7] += y.w;
+    }
+    const float m = which ? 1.f : scale;
+    uint4 out;
+    out.x = pack_bf16(acc[0] * m, acc[1] * m);
+    out.y = pack_bf16(acc[2] * m, acc[3] * m);
+    out.z = pack_bf16(acc[4] * m, acc[5] * m);
+    out.w = pack_bf16(acc[6] * m, acc[7] * m);
+    const long long* s3 = which ? st.dv : st.dk;
+    __nv_bfloat16* dst = (which ? dv : dk) + b * s3[0] + hk * s3[1] + key * s3[2] + d;
+    *reinterpret_cast<uint4*>(dst) = out;
+}
+
+// (d) dQ of one (batch, q head, 128 q rows): walks the kv tiles up to the
+// forward's causal bound, S and dP recomputed
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fa_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap gmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const float* __restrict__ stats,
+                       __nv_bfloat16* __restrict__ dq, RowStrides sdq, int H,
+                       int group, int S, int Sk, int NQ, int causal,
+                       float scale_log2, float scale) {
+    using L = DqLayout<HD>;
+    constexpr int BK = Cfg<HD>::BK, ST = L::ST;
+    constexpr int ON = HD / 2, SN = BK / 2;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const uint32_t sq = base + L::Q_OFF, sg = base + L::G_OFF,
+                   sk = base + L::K_OFF, sv = base + L::V_OFF,
+                   bars = base + L::BAR_OFF;
+    // barriers: Q and dout; then per stage full (K and V), empty
+    const uint32_t qbar = bars;
+    auto full = [&](int s) { return bars + 8 * (1 + s); };
+    auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+
+    const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / group;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ_DQ;   // last q tile first
+    int nkv = (Sk + BK - 1) / BK;
+    if (causal) nkv = min(nkv, (min(q0 + BQ_DQ, S) - 1) / BK + 1);
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), NCONS * 128);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    if (wg == NCONS) {
+        // ---- producer warpgroup: one thread issues every TMA load --------
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
+        if (threadIdx.x == NCONS * 128) {
+            mbar_expect_tx(qbar, 2 * L::T_BYTES);
+#pragma unroll
+            for (int c = 0; c < HD / CHUNK; ++c)
+#pragma unroll
+                for (int w = 0; w < NCONS; ++w) {
+                    const uint32_t off = c * BQ_DQ * ROW_BYTES + w * BQ * ROW_BYTES;
+                    tma_load(sq + off, &qmap, qbar, c * CHUNK, q0 + w * BQ, h, b);
+                    tma_load(sg + off, &gmap, qbar, c * CHUNK, q0 + w * BQ, h, b);
+                }
+            for (int j = 0; j < nkv; ++j) {
+                const int s = j % ST;
+                mbar_wait(empty(s), ((j / ST) & 1) ^ 1);
+                mbar_expect_tx(full(s), 2 * L::KV_BYTES);
+#pragma unroll
+                for (int c = 0; c < HD / CHUNK; ++c) {
+                    tma_load(sk + s * L::KV_BYTES + c * BK * ROW_BYTES, &kmap,
+                             full(s), c * CHUNK, j * BK, hk, b);
+                    tma_load(sv + s * L::KV_BYTES + c * BK * ROW_BYTES, &vmap,
+                             full(s), c * CHUNK, j * BK, hk, b);
+                }
+            }
+        }
+    } else {
+        // ---- consumer warpgroup wg: q rows q0 + 64 wg .. + 63 ------------
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+        const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+        const int first = q0 + wg * BQ;
+        const int row0 = first + warp * 16 + lane / 4;   // rows row0, row0 + 8
+        const float* stt = stats + ((long long)bh * NQ + first / BQ) * 2 * BQ
+                         + warp * 16 + lane / 4;
+        const float lse2[2] = {stt[0], stt[8]}, dd[2] = {stt[BQ], stt[BQ + 8]};
+        // rows past S have no gradient; tiles past the last row are masked
+        const int nkw = first >= S ? 0
+                      : causal ? min(nkv, (first + BQ - 1) / BK + 1) : nkv;
+        const uint64_t qd = smem_desc(sq + wg * BQ * ROW_BYTES, 16, 1024),
+                       gd = smem_desc(sg + wg * BQ * ROW_BYTES, 16, 1024);
+        float dqa[ON], sc[SN], dp[SN];
+        uint32_t pd[BK / 16][4];
+#pragma unroll
+        for (int i = 0; i < ON; ++i) dqa[i] = 0.f;
+        mbar_wait(qbar, 0);
+        int pending = -1;           // the stage whose dQ product is in flight
+        for (int j = 0; j < nkw; ++j) {
+            const int s = j % ST, k0 = j * BK;
+            mbar_wait(full(s), (j / ST) & 1);
+            const uint32_t ks = sk + s * L::KV_BYTES, vs = sv + s * L::KV_BYTES;
+            const uint64_t kd = smem_desc(ks, 16, 1024), vd = smem_desc(vs, 16, 1024);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                Wgmma<BK>::ss(sc, qd + (((kk / 4) * BQ_DQ * ROW_BYTES + off) >> 4),
+                              kd + (((kk / 4) * BK * ROW_BYTES + off) >> 4), kk > 0);
+            }
+            wgmma_commit();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                Wgmma<BK>::ss(dp, gd + (((kk / 4) * BQ_DQ * ROW_BYTES + off) >> 4),
+                              vd + (((kk / 4) * BK * ROW_BYTES + off) >> 4), kk > 0);
+            }
+            wgmma_commit();
+            // S (and the last tile's dQ product) retired; dP in flight
+            wgmma_wait<1>();
+            fence_regs(sc);
+            if (pending >= 0) {
+                mbar_arrive(empty(pending));
+                pending = -1;
+            }
+            const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > first);
+#pragma unroll
+            for (int n = 0; n < SN; ++n) {
+                const int i = (n >> 1) & 1;
+                const int col = k0 + (n >> 2) * 8 + 2 * quad + (n & 1);
+                float p = ex2(fmaf(sc[n], scale_log2, -lse2[i]));
+                if (edge && (col >= Sk || (causal && col > row0 + 8 * i))) p = 0.f;
+                sc[n] = p;
+            }
+            wgmma_wait<0>();
+            fence_regs(dp);
+#pragma unroll
+            for (int n = 0; n < SN; ++n) sc[n] *= dp[n] - dd[(n >> 1) & 1];
+            pack_a<BK>(sc, pd);
+            // dQ += dS K: K MN-major (hd contiguous): 16 keys a k-step, the
+            // next 64 head dims BK rows further
+            const uint64_t km = smem_desc(ks, BK * ROW_BYTES, 1024);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+                Wgmma<HD>::rs(dqa, pd[kk], km + ((kk * 16 * ROW_BYTES) >> 4));
+            wgmma_commit();
+            pending = s;
+        }
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        if (pending >= 0) mbar_arrive(empty(pending));
+        for (int j = nkw; j < nkv; ++j) {
+            const int s = j % ST;
+            mbar_wait(full(s), (j / ST) & 1);
+            mbar_arrive(empty(s));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int row = row0 + 8 * i;
+            if (row >= S) continue;
+            __nv_bfloat16* p = dq + b * sdq.s[0] + h * sdq.s[1] + row * sdq.s[2];
+#pragma unroll
+            for (int j = 0; j < HD / 8; ++j) {
+                const int n = j * 4 + 2 * i;
+                *reinterpret_cast<uint32_t*>(p + j * 8 + 2 * quad) =
+                    pack_bf16(dqa[n] * scale, dqa[n + 1] * scale);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q);
+#else
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q);
+#endif
+        if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// a 4-D map over (hd, rows, heads, batch) with element strides st = (batch,
+// head, row); boxes of 64 columns by box_rows rows, 128-byte swizzle; rows
+// past the end read as zeros
+int encode(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
+           int batch, const long long* st, int box_rows) {
+    EncodeTiled fn = encode_fn();
+    if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows,
+                                (cuuint64_t)heads, (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                   (cuuint64_t)st[0] * 2};
+    const cuuint32_t box[4] = {CHUNK, (cuuint32_t)box_rows, 1, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(ptr), dims, strides, box, estr,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+struct Args {
+    const void *q, *k, *v, *o, *g;
+    const float* lse;
+    void *dq, *dk, *dv;
+    float *stats, *part;
+    int B, H, Hkv, S, Sk, causal, split;
+    float scale;
+    const long long* st;     // (batch, head, row) of q, k, v, o, g, dq, dk, dv
+};
+
+template <int HD>
+int run(const Args& a, cudaStream_t stream) {
+    using C = Cfg<HD>;
+    const int G = a.H / a.Hkv, NQ = 2 * ((a.S + BQ_DQ - 1) / BQ_DQ);
+    const float sl = a.scale * LOG2E;
+    CUtensorMap qm, gm, kvm[2], kqm[2];
+    int rc = encode(&qm, a.q, HD, a.S, a.H, a.B, a.st, BQ);
+    if (!rc) rc = encode(&gm, a.g, HD, a.S, a.H, a.B, a.st + 12, BQ);
+    if (!rc) rc = encode(&kvm[0], a.k, HD, a.Sk, a.Hkv, a.B, a.st + 3, C::BKV);
+    if (!rc) rc = encode(&kvm[1], a.v, HD, a.Sk, a.Hkv, a.B, a.st + 6, C::BKV);
+    if (!rc) rc = encode(&kqm[0], a.k, HD, a.Sk, a.Hkv, a.B, a.st + 3, C::BK);
+    if (!rc) rc = encode(&kqm[1], a.v, HD, a.Sk, a.Hkv, a.B, a.st + 6, C::BK);
+    if (rc) return rc;
+    RowStrides so, sg, sdq;
+    KvStrides skv;
+    for (int i = 0; i < 3; ++i) {
+        so.s[i] = a.st[9 + i];
+        sg.s[i] = a.st[12 + i];
+        sdq.s[i] = a.st[15 + i];
+        skv.dk[i] = a.st[18 + i];
+        skv.dv[i] = a.st[21 + i];
+    }
+    const long long rows = (long long)a.B * a.H * NQ * BQ;
+    fa_bwd_wgmma_dot_kernel<<<(unsigned)((rows + DOT_WARPS - 1) / DOT_WARPS),
+                              DOT_WARPS * 32, 0, stream>>>(
+        (const __nv_bfloat16*)a.o, (const __nv_bfloat16*)a.g, a.lse, a.stats,
+        so, sg, a.H, a.S, NQ, HD, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    constexpr int smem_kv = DkdvLayout<HD>::SMEM;
+    err = cudaFuncSetAttribute(fa_bwd_wgmma_dkdv_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 gkv(a.B * a.Hkv * a.split, (a.Sk + C::BKV - 1) / C::BKV);
+    fa_bwd_wgmma_dkdv_kernel<HD><<<gkv, NTHREADS, smem_kv, stream>>>(
+        qm, gm, kvm[0], kvm[1], a.stats, (__nv_bfloat16*)a.dk,
+        (__nv_bfloat16*)a.dv, a.split > 1 ? a.part : nullptr, skv, a.H, a.Hkv,
+        G, a.split, a.S, a.Sk, NQ, a.causal, sl, a.scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    if (a.split > 1) {
+        const long long n_all = (long long)a.B * a.Hkv * a.Sk * HD;
+        const long long threads = 2 * n_all / 8;
+        fa_bwd_wgmma_sum_kernel<<<(unsigned)((threads + SUM_THREADS - 1) / SUM_THREADS),
+                                  SUM_THREADS, 0, stream>>>(
+            a.part, (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, skv, a.split,
+            a.Hkv, a.Sk, HD, n_all, a.scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+
+    constexpr int smem_q = DqLayout<HD>::SMEM;
+    err = cudaFuncSetAttribute(fa_bwd_wgmma_dq_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 gq(a.B * a.H, (a.S + BQ_DQ - 1) / BQ_DQ);
+    fa_bwd_wgmma_dq_kernel<HD><<<gq, NTHREADS, smem_q, stream>>>(
+        qm, gm, kqm[0], kqm[1], a.stats, (__nv_bfloat16*)a.dq, sdq, a.H, G,
+        a.S, a.Sk, NQ, a.causal, sl, a.scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, out, dout, dq (B, H, S, hd); k, v, dk, dv (B, Hkv, Sk, hd), all bf16
+// with element strides (batch, head, row) in `strides` (q, k, v, out, dout,
+// dq, dk, dv: 24 values), unit-stride rows and 16-byte aligned strides; lse
+// (B, H, S) fp32 contiguous; hd 64, 128 or 256.  Scratch, fp32: stats (B*H,
+// NQ, 2, 64) with NQ = 2 * ceil(S / 128); part (2, split, B*Hkv, Sk, hd)
+// when split > 1 (split divides H / Hkv), else null.  scale is hd^-0.5 as
+// the caller rounds it to fp32.  Launches 3 kernels on `stream`, 4 when
+// split > 1.
+extern "C" int flash_attention_bwd_wgmma_bf16(
+        const void* q, const void* k, const void* v, const void* o,
+        const void* g, const float* lse, void* dq, void* dk, void* dv,
+        float* stats, float* part, int B, int H, int Hkv, int S, int Sk,
+        int hd, int causal, int split, float scale, const long long* strides,
+        void* stream) {
+    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1 || split < 1
+        || (H / Hkv) % split || (split > 1) != (part != nullptr))
+        return (int)cudaErrorInvalidValue;
+    // the tensor maps are encoded by the driver, which needs a current
+    // context; a thread whose first CUDA work this is has none yet (an
+    // autograd worker thread running this backward first), so bind the
+    // current device's primary context, as a runtime launch would
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const Args a{q, k, v, o, g, lse, dq, dk, dv, stats, part, B, H, Hkv, S,
+                 Sk, causal, split, scale, strides};
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (hd) {
+        case 64: return run<64>(a, st);
+        case 128: return run<128>(a, st);
+        case 256: return run<256>(a, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// the dynamic shared memory of the dK/dV (which 0) or dQ (1) kernel at hd
+extern "C" int flash_attention_bwd_wgmma_smem(int hd, int which) {
+    switch (hd) {
+        case 64: return which ? DqLayout<64>::SMEM : DkdvLayout<64>::SMEM;
+        case 128: return which ? DqLayout<128>::SMEM : DkdvLayout<128>::SMEM;
+        case 256: return which ? DqLayout<256>::SMEM : DkdvLayout<256>::SMEM;
+        default: return -1;
+    }
+}
+
+extern "C" const char* repro_error_string(int e) {
+    if (e >= ENCODE_FAILED)
+        return "cuTensorMapEncodeTiled refused the tensor map (CUresult = "
+               "code - 10000)";
+    return cudaGetErrorString((cudaError_t)e);
+}

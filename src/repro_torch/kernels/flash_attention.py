@@ -37,11 +37,25 @@ The gradient: where grad is enabled and q, k or v requires grad,
 the kernel above, asked also for each row's log-sum-exp (an optional output
 of all three; serving calls pass none and run as before); it saves q, k, v
 as given (views, k and v at their kv heads), the output and the
-log-sum-exp.  Its backward is ``csrc/flash_attention_bwd.cu`` (fp32 on the
-CUDA cores at every head dim, both dtypes, three kernels a call: D, then dK
-and dV summed over each GQA group, then dQ; no atomics), and
-``flash_attention_bwd_plain`` on the CPU.  The JAX package has no Pallas
-backward: it differentiates its attention with ``jax.grad``.
+log-sum-exp.  Its backward is chosen by dtype and head dim alone
+(``bwd_route``), as the forward is:
+
+* bf16 at hd 64, 128 and 256: ``csrc/flash_attention_bwd_wgmma.cu``
+  (``"wgmma"``), its products on the tensor cores, every tile fed by TMA
+  through an mbarrier ring, GQA and strided views read natively: D, then a
+  dK/dV kernel (one block per kv tile, its q heads summed in registers),
+  then a dQ kernel that recomputes S and dP.  Where that dK/dV grid would
+  be small, each group's q heads are split over ``bwd_split`` blocks whose
+  fp32 partials a fourth kernel sums in a fixed order.
+* float32 at every head dim, and bf16 at hd 16 and 32:
+  ``csrc/flash_attention_bwd.cu`` (``"cuda_cores"``, fp32 FMAs, three
+  kernels a call).
+
+Neither uses atomics: a gradient is bitwise the same from call to call.
+``bwd_launches`` is the kernels a call launches; ``BWD_TILES[route][hd]``
+the dK/dV kernel's (q rows, kv keys) tile, which
+``flash_attention_bwd_plain`` walks on the CPU.  The JAX package has no
+Pallas backward: it differentiates its attention with ``jax.grad``.
 
 ``flash_attention_plain`` beside them walks the same block schedule in
 PyTorch (all q blocks at once, kv blocks in order, the same causal bound,
@@ -69,6 +83,8 @@ TF32X3_SOURCE = _cuda.CSRC_DIR / "flash_attention_tf32x3.cu"
 TF32X3_LIB_NAME = "flash_attention_tf32x3"
 BWD_SOURCE = _cuda.CSRC_DIR / "flash_attention_bwd.cu"
 BWD_LIB_NAME = "flash_attention_bwd"
+WGMMA_BWD_SOURCE = _cuda.CSRC_DIR / "flash_attention_bwd_wgmma.cu"
+WGMMA_BWD_LIB_NAME = "flash_attention_bwd_wgmma"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 MAX_BLOCK = 64          # CUDA-core kernel: most q rows / kv keys
 # CUDA-core kernel: its default (block_q, block_k); 16-row q blocks put
@@ -84,11 +100,18 @@ TF32X3_BLOCKS = {64: (64, 32), 128: (64, 32), 256: (64, 16)}
 WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
                 128: ((128, 64), (128, 128)),
                 256: ((128, 64),)}
-# the backward kernel's (q rows, kv keys) tile by head dim (``Tile<HD>`` in
-# the .cu); the plain backward walks them on the CPU
-BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (32, 64),
-             256: (32, 32)}
-BWD_LAUNCHES = 3        # kernels a backward call: D, dK and dV, dQ
+# the backward's dK/dV kernel's (q rows, kv keys) tile by route and head
+# dim (``Cfg<HD>`` in flash_attention_bwd_wgmma.cu, ``Tile<HD>`` in
+# flash_attention_bwd.cu); the plain backward walks them on the CPU
+BWD_TILES = {"wgmma": {64: (64, 128), 128: (64, 128), 256: (64, 64)},
+             "cuda_cores": {16: (64, 64), 32: (64, 64), 64: (64, 64),
+                            128: (32, 64), 256: (32, 32)}}
+# kernels a backward call launches: D, dK and dV, dQ; the tensor-core
+# route adds one that sums the split q heads' partials (``bwd_split`` > 1)
+BWD_LAUNCHES = {"wgmma": 3, "cuda_cores": 3}
+# the H100 SXM's SMs: a tensor-core dK/dV grid of fewer blocks has each
+# group's q heads split over more blocks, as far as the SMs and G allow
+BWD_SMS = 132
 NEG_INF = -1e30
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -97,7 +120,7 @@ _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
 
 # launches per kernel and input dtype ("wgmma/bfloat16", "tf32x3/float32",
 # "cuda_cores/float32", "cuda_cores/bfloat16"; the backward's kernels as
-# "bwd/<dtype>", BWD_LAUNCHES a call), counted at the launch
+# "bwd/<dtype>", ``bwd_launches`` a call), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -107,6 +130,31 @@ def route(dtype: torch.dtype, hd: int) -> str:
     if dtype == torch.float32:
         return "tf32x3" if hd in TF32X3_HEAD_DIMS else "cuda_cores"
     return "wgmma" if hd in WGMMA_BLOCKS else "cuda_cores"
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """Which backward runs a call: ``"wgmma"`` (bf16 at hd 64-256) or
+    ``"cuda_cores"`` (float32 at every head dim, bf16 at hd 16 and 32)."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in BWD_TILES["wgmma"]
+            else "cuda_cores")
+
+
+def bwd_split(B: int, H: int, Hkv: int, Sk: int, hd: int) -> int:
+    """Blocks over which the tensor-core dK/dV kernel splits each group's
+    H / Hkv q heads: the most that divides the group and keeps its grid
+    within ``BWD_SMS`` blocks (1: no split)."""
+    G = H // Hkv
+    blocks = B * Hkv * -(-Sk // BWD_TILES["wgmma"][hd][1])
+    return max(s for s in range(1, G + 1)
+               if G % s == 0 and (s == 1 or blocks * s <= BWD_SMS))
+
+
+def bwd_launches(dtype: torch.dtype, hd: int, B: int, H: int, Hkv: int,
+                 Sk: int) -> int:
+    """Kernels one backward call launches on the card."""
+    kind = bwd_route(dtype, hd)
+    return BWD_LAUNCHES[kind] + (kind == "wgmma"
+                                 and bwd_split(B, H, Hkv, Sk, hd) > 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,11 +177,17 @@ def bwd_kernel_source() -> str:
     return BWD_SOURCE.read_text()
 
 
+@functools.lru_cache(maxsize=None)
+def wgmma_bwd_kernel_source() -> str:
+    return WGMMA_BWD_SOURCE.read_text()
+
+
 def kernel_sources() -> dict[str, str]:
     """Every kernel's ``name -> source``, for ``_cuda.build_many``."""
     return {LIB_NAME: kernel_source(), WGMMA_LIB_NAME: wgmma_kernel_source(),
             TF32X3_LIB_NAME: tf32x3_kernel_source(),
-            BWD_LIB_NAME: bwd_kernel_source()}
+            BWD_LIB_NAME: bwd_kernel_source(),
+            WGMMA_BWD_LIB_NAME: wgmma_bwd_kernel_source()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,6 +220,14 @@ def _bwd_launcher(dtype: torch.dtype):
     return lib, _cuda.entry(lib, _BWD_ENTRY[dtype], [ctypes.c_void_p] * 10
                             + [ctypes.c_int] * 7 + [ctypes.c_float]
                             + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_bwd_launcher():
+    lib = _cuda.load(WGMMA_BWD_LIB_NAME, wgmma_bwd_kernel_source())
+    return lib, _cuda.entry(lib, "flash_attention_bwd_wgmma_bf16",
+                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                            + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
 
 def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
@@ -456,45 +518,81 @@ def _run(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
     return out, lse
 
 
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where TMA cannot read it through its
+    strides (``_row_strides``; a dim of more than one entry at stride 0,
+    an expanded gradient, is copied too)."""
+    ok = _row_strides(t)[0] is not None and all(
+        t.stride(d) or t.shape[d] == 1 for d in range(3))
+    return t if ok else t.contiguous()
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
     """(dq, dk, dv) of ``flash_attention``'s output given its gradient
     ``dout``: q, out, dout (B, H, S, hd), k, v (B, Hkv, Sk, hd), all of one
-    dtype (float32 or bfloat16; views with unit-stride rows), lse (B, H, S)
-    fp32 from the forward.  dk and dv are at the kv heads, summed over each
-    group of q heads; each gradient has its input's shape and dtype.  On
-    the card the backward kernel (``BWD_LAUNCHES`` kernels, its tiles
-    ``BWD_TILES[hd]``); on the CPU its plain version on the same tiles.  A
-    head dim or dtype the kernel is not built for raises."""
+    dtype (float32 or bfloat16; views), lse (B, H, S) fp32 from the
+    forward.  dk and dv are at the kv heads, summed over each group of q
+    heads; each gradient has its input's shape and dtype.  On the card the
+    backward of ``bwd_route`` (``bwd_launches`` kernels; its dK/dV tile
+    ``BWD_TILES[route][hd]``); on the CPU its plain version on the same
+    tiles.  A head dim or dtype no backward is built for raises."""
     B, H, S, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dtype = q.dtype
-    if hd not in BWD_TILES or dtype not in _BWD_ENTRY:
+    kind = bwd_route(dtype, hd)
+    if hd not in BWD_TILES[kind] or dtype not in _BWD_ENTRY:
         raise NotImplementedError(
             f"flash_attention backward: no kernel for hd={hd}, {dtype}; it is "
-            f"built for hd in {tuple(BWD_TILES)}, float32 and bfloat16")
+            f"built for hd in {tuple(BWD_TILES['cuda_cores'])}, float32 and "
+            "bfloat16")
     dout = dout.to(dtype)
-    bq, bk = BWD_TILES[hd]
+    bq, bk = BWD_TILES[kind][hd]
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, block_q=min(bq, S),
                                          block_k=min(bk, Sk))
     dev = q.device
-    q, k, v, out, dout = (_unit_rows(t) for t in (q, k, v, out, dout))
     lse = lse.float().contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    lib, launch = _bwd_launcher(dtype)
-    st = (ctypes.c_longlong * 24)(*(t.stride(d) for t in (q, k, v, out, dout,
-                                                          dq, dk, dv)
-                                    for d in range(3)))
-    with torch.cuda.device(dev):
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), D.data_ptr(), B, H, Hkv, S,
-                    Sk, hd, int(causal), hd ** -0.5, ctypes.addressof(st),
-                    _cuda.current_stream(dev))
+    if kind == "wgmma":
+        q, k, v, out, dout = (_tma_rows(t) for t in (q, k, v, out, dout))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        split = bwd_split(B, H, Hkv, Sk, hd)
+        nq = 2 * -(-S // 128)           # the statistics' 64-row tiles a head
+        stats = torch.empty(B * H * nq * 128, dtype=torch.float32, device=dev)
+        part = torch.empty(2 * split * B * Hkv * Sk * hd, dtype=torch.float32,
+                           device=dev) if split > 1 else None
+        lib, launch = _wgmma_bwd_launcher()
+        st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
+                                                    dk, dv)
+                                        for s in _row_strides(t)[0]))
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        stats.data_ptr(),
+                        None if part is None else part.data_ptr(), B, H, Hkv,
+                        S, Sk, hd, int(causal), split, hd ** -0.5,
+                        ctypes.addressof(st), _cuda.current_stream(dev))
+        n = BWD_LAUNCHES[kind] + (split > 1)
+    else:
+        q, k, v, out, dout = (_unit_rows(t) for t in (q, k, v, out, dout))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        lib, launch = _bwd_launcher(dtype)
+        st = (ctypes.c_longlong * 24)(*(t.stride(d) for t in (q, k, v, out,
+                                                              dout, dq, dk,
+                                                              dv)
+                                        for d in range(3)))
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        D.data_ptr(), B, H, Hkv, S, Sk, hd, int(causal),
+                        hd ** -0.5, ctypes.addressof(st),
+                        _cuda.current_stream(dev))
+        n = BWD_LAUNCHES[kind]
     _cuda.check(lib, rc, "flash_attention backward")
-    LAUNCHES[f"bwd/{str(dtype).removeprefix('torch.')}"] += BWD_LAUNCHES
+    LAUNCHES[f"bwd/{str(dtype).removeprefix('torch.')}"] += n
     return dq, dk, dv
 
 

@@ -1046,9 +1046,10 @@ def _forward_blocks(fa, kind, hd):
                                               (1, 8, 8, 130, True)])
 def test_flash_attention_bwd_kernel_equals_plain(cuda_device, hd, dtype, B,
                                                  H, Hkv, S, causal):
-    """The backward kernel against ``flash_attention_bwd_plain`` on the same
-    forward output and log-sum-exp: every head dim, both dtypes, GQA 1/2/4,
-    strided views, ragged q and kv tiles; three launches a call."""
+    """The backward kernels against ``flash_attention_bwd_plain`` on the
+    same forward output and log-sum-exp: every head dim, both dtypes (each
+    on its ``bwd_route``), GQA 1/2/4, strided views, ragged q and kv tiles;
+    ``bwd_launches`` launches a call."""
     from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
     q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, hd + S)
@@ -1058,8 +1059,9 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, hd, dtype, B,
     n0 = fa.LAUNCHES[f"bwd/{dtype}"]
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES[f"bwd/{dtype}"] == n0 + fa.BWD_LAUNCHES
-    tq, tk = fa.BWD_TILES[hd]
+    assert fa.LAUNCHES[f"bwd/{dtype}"] == n0 + fa.bwd_launches(dt, hd, B, H,
+                                                                Hkv, S)
+    tq, tk = fa.BWD_TILES[fa.bwd_route(dt, hd)][hd]
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
                                         block_q=min(tq, S),
                                         block_k=min(tk, S))
@@ -1067,6 +1069,98 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, hd, dtype, B,
     for a, b, x in zip(got, want, (q, k, v)):
         assert a.dtype == dt and a.shape == x.shape
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [77, 100, 130])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_bwd_wgmma_equals_plain(cuda_device, hd, G, S,
+                                                causal):
+    """The tensor-core backward (bf16 at hd 64/128/256) against
+    ``flash_attention_bwd_plain`` on its own dK/dV tiles: GQA groups 1, 2,
+    4 and 8 (the split q heads with them), ragged S, causal and not, on
+    transposed views; a second call on the same inputs bitwise equal; its
+    launches a call as ``bwd_launches`` counts them (4 where it splits)."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = torch.bfloat16
+    assert fa.bwd_route(dt, hd) == "wgmma"
+    B, Hkv = 1, 2
+    H = G * Hkv
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, 7 * G + S)
+    out, lse = fa._run(q, k, v, causal, "wgmma", *fa.WGMMA_BLOCKS[hd][0],
+                       True)
+    fa.LAUNCHES.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    split = fa.bwd_split(B, H, Hkv, S, hd)
+    assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + (split > 1)}
+    assert fa.bwd_launches(dt, hd, B, H, Hkv, S) == 3 + (split > 1)
+    assert split == G        # the unsplit grid has 2 to 6 blocks
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    tq, tk = fa.BWD_TILES["wgmma"][hd]
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                        block_q=min(tq, S),
+                                        block_k=min(tk, S))
+    for a, b, c, x in zip(got, again, want, (q, k, v)):
+        assert a.dtype == dt and a.shape == x.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_wgmma_takes_an_expanded_gradient(cuda_device):
+    """A dout with zero strides (``out.sum()`` hands the backward one) is
+    copied where TMA cannot read it: the gradients equal the plain
+    version's."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(cuda_device, torch.bfloat16, 2, 4, 2, 100, 128, 9)
+    out, lse = fa._run(q, k, v, True, "wgmma", *fa.WGMMA_BLOCKS[128][0],
+                       True)
+    row = np.random.default_rng(9).standard_normal((1, 1, 1, 128))
+    for g in (torch.ones((1, 1, 1, 1), device=cuda_device),
+              torch.as_tensor(row, device=cuda_device)):
+        g = g.to(torch.bfloat16).expand(out.shape)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                            causal=True, block_q=64,
+                                            block_k=100)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_wgmma_in_a_fresh_thread(cuda_device):
+    """The tensor-core backward as the first CUDA work of a new thread (as
+    an autograd worker thread may run it): it binds the context that its
+    tensor maps' encoding needs, and equals the same call on this thread
+    bitwise."""
+    import threading
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, g = _bwd_inputs(cuda_device, torch.bfloat16, 1, 4, 2, 130, 64, 5)
+    out, lse = fa._run(q, k, v, True, "wgmma", *fa.WGMMA_BLOCKS[64][0], True)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    res = {}
+
+    def run():
+        try:
+            res["got"] = fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:      # raised again below, on this thread
+            res["err"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "err" in res:
+        raise res["err"]
+    for a, b in zip(res["got"], want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.requires_cuda
@@ -1122,7 +1216,9 @@ def test_chunked_gradients_equal_dense_on_the_card(cuda_device, hd):
             kind = fa.route(torch.float32, hd)
             assert dict(fa.LAUNCHES) == {
                 f"{kind}/float32": 2 * cfg.n_layers,
-                "bwd/float32": fa.BWD_LAUNCHES * cfg.n_layers}
+                "bwd/float32": fa.bwd_launches(
+                    torch.float32, hd, 2, cfg.n_heads, cfg.n_kv_heads, 128)
+                * cfg.n_layers}
     assert res["chunked"][0] == pytest.approx(res["dense"][0], rel=1e-5)
     for a, b in zip(res["chunked"][1], res["dense"][1]):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()

@@ -463,30 +463,57 @@ def _qkv(Bq, H, Hkv, Sq, hd, seed, dtype=np.float32):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("blocks", [(16, 16), (32, 16), (16, 48), (24, 40)])
+@pytest.mark.parametrize("blocks", [(16, 16, 16), (32, 16, 16), (16, 48, 16),
+                                    (24, 40, 16),
+                                    # the tensor-core route's dK/dV tiles
+                                    (*fa.BWD_TILES["wgmma"][64], 64),
+                                    (*fa.BWD_TILES["wgmma"][128], 128),
+                                    (*fa.BWD_TILES["wgmma"][256], 256)])
 def test_bwd_plain_matches_jax_vjp(blocks, G, causal):
-    """``flash_attention_bwd_plain`` on unequal and ragged blocks (S = 72)
-    against ``jax.vjp`` of the oracle (k, v repeated to the q heads, their
-    gradients summed back over each group)."""
-    H, hd = 4, 16
-    q, k, v, g = _qkv(2, H, H // G, 72, hd, seed=G)
+    """``flash_attention_bwd_plain`` on unequal and ragged blocks (block_q,
+    block_k, hd; S = 72 at hd 16, else 200: several ragged tiles of the
+    tensor-core route's) against ``jax.vjp`` of the oracle (k, v repeated
+    to the q heads, their gradients summed back over each group)."""
+    bq, bk, hd = blocks
+    H, S = 4, 72 if hd == 16 else 200
+    q, k, v, g = _qkv(2, H, H // G, S, hd, seed=G)
     out, vjp = jax.vjp(lambda q_, k_, v_: flash_attention_ref(
         q_, jnp.repeat(k_, G, axis=1), jnp.repeat(v_, G, axis=1),
         causal=causal), q, k, v)
     want = vjp(jnp.asarray(g))
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
-                                      block_q=blocks[0], block_k=blocks[1],
+                                      block_q=bq, block_k=bk,
                                       return_lse=True)
     np.testing.assert_allclose(o.numpy(), np.asarray(out), rtol=FA_TOL,
                                atol=FA_TOL)
     got = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, torch.from_numpy(g),
-                                       causal=causal, block_q=blocks[0],
-                                       block_k=blocks[1])
+                                       causal=causal, block_q=bq, block_k=bk)
     for name, a, b in zip("qkv", got, want):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=FA_TOL,
                                    atol=FA_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 256])
+def test_bwd_route_by_dtype_and_head_dim(hd, dtype):
+    """bf16 at hd 64/128/256 takes the tensor-core backward, everything else
+    the CUDA-core one; a call launches 3 kernels, 4 where the tensor-core
+    dK/dV grid splits its groups' q heads."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd >= 64 else "cuda_cores"
+    assert fa.bwd_route(dtype, hd) == want
+    if want == "wgmma":
+        # llama3-8b's training shape fills the card unsplit; PaliGemma's
+        # MQA at hd 256 (16 kv tiles of 64 keys) splits its 8 q heads
+        assert fa.bwd_split(2, 32, 8, 2048, hd) == 1
+        assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3
+        assert fa.bwd_split(1, 8, 1, 1024, hd) == 8
+        assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 4
+        assert fa.bwd_split(1, 12, 12, 448, hd) == 1
+    elif hd in fa.BWD_TILES["cuda_cores"]:
+        assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

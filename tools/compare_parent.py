@@ -5,6 +5,8 @@ process on one card, in turns (parent, tree, tree, parent).
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
         --only k1
+    PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
+        --only k4_bwd
 
 Each tree's ``repro_torch`` is imported in turn (``sys.modules`` cleared
 between) and builds its kernels under its own root.  Per tree it measures,
@@ -25,9 +27,15 @@ precision):
   (4, 40, 1, 64) as each tree's layer calls it (the parent on f32 copies,
   this tree on bf16 views with the state in place);
 * the graphed rwkv6-3b decode step at batch 4 (random weights): device
-  activities and busy time per step (profiler) and the replay's wall time.
+  activities and busy time per step (profiler) and the replay's wall time;
+* K4's backward (``flash_attention_bwd``, on the tree's own forward output
+  and log-sum-exp) at the train path's llama3-8b shape, q (2, 32, 2048,
+  128) over 8 kv heads, causal, in bf16 (the parent's CUDA-core kernel,
+  this tree's ``bwd_route``), and on the CUDA cores in f32 at (1, 32, 2048,
+  128) and in bf16 at the reduced llama3-8b's (2, 6, 256, 16): the call
+  (CUDA events) and, from torch.profiler, each device kernel's time.
 
-``--only k1`` measures K1 alone.  Prints one line per tree and turn and a
+``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone.  Prints one line per tree and turn and a
 JSON summary last.
 """
 from __future__ import annotations
@@ -151,6 +159,37 @@ def measure(t, dev) -> dict:
     return out
 
 
+def measure_k4_bwd(t, dev) -> dict:
+    """K4's backward at the train path's shape (bf16) and on the CUDA
+    cores (f32 at llama3-8b's shape, bf16 at hd 16)."""
+    import torch
+
+    import chip_smoke as cs
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for key, (dt, B, H, Hkv, S, hd) in {
+            "bf16_llama3_8b": (torch.bfloat16, 2, 32, 8, 2048, 128),
+            "f32_llama3_8b": (torch.float32, 1, 32, 8, 2048, 128),
+            "bf16_hd16": (torch.bfloat16, 2, 6, 2, 256, 16)}.items():
+        q, k, v, dout = (torch.randn((B, S, h, hd), generator=g, device=dev)
+                         .to(dt).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+        kind = t.fa.route(dt, hd)
+        blocks = (t.fa.WGMMA_BLOCKS[hd][0] if kind == "wgmma" else
+                  t.fa.TF32X3_BLOCKS[hd] if kind == "tf32x3" else
+                  t.fa.CUDA_CORE_BLOCKS)
+        o, lse = t.fa._run(q, k, v, True, kind, *blocks, True)
+        call = lambda: t.fa.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                causal=True)
+        ms = cs.time_ms(call, 10)[0]
+        acts, _ = cs.device_kernels(lambda: [call() for _ in range(3)])
+        per = {}
+        for n, us in kernels(acts):
+            name = cs.short_name(n)
+            per[name] = per.get(name, 0.0) + us / 3 / 1e3
+        out[f"k4_bwd_{key}"] = {"ms": ms, "kernel_ms": per}
+    return out
+
+
 def graph_step(t, dev, model_cache: dict) -> dict:
     """The graphed rwkv6-3b decode step at batch 4 (weights from seed 0)."""
     import torch
@@ -189,7 +228,7 @@ def main(argv=None) -> int:
                     help="the parent tree's src directory")
     ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
                     help="this tree's src directory")
-    ap.add_argument("--only", choices=("k1",),
+    ap.add_argument("--only", choices=("k1", "k4_bwd"),
                     help="measure only this kernel")
     args = ap.parse_args(argv)
     import subprocess
@@ -209,9 +248,11 @@ def main(argv=None) -> int:
     models = {}
     for name in ("parent", "tree", "tree", "parent"):
         t = trees[name]
-        m = measure_k1(t, dev)
+        m = measure_k4_bwd(t, dev) if args.only == "k4_bwd" else \
+            measure_k1(t, dev)
         if args.only is None:
             m.update(measure(t, dev))
+            m.update(measure_k4_bwd(t, dev))
             m["graph_step"] = graph_step(t, dev, models)
         results[name].append(m)
         print(f"{name}: " + json.dumps(m))

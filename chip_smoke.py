@@ -77,14 +77,16 @@ read just after:
    on 256 patch embeddings + 768 tokens: the tensor-core K4 at hd 256, 8 q
    heads over one kv head; then ``serve.main`` decodes text, graphed.
 13. *train*: (a) K4's backward kernels (bf16 at hd 64-256:
-   ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores; f32 and hd
-   16: ``csrc/flash_attention_bwd.cu``; through ``flash_attention``'s
-   autograd Function) against autograd of the plain version at llama3-8b's
-   q (B, 32, 2048, 128) over 8 kv heads, causal, in bf16 (B 2) and f32 (B
-   1), at hd 64 not causal over 448 rows, hd 256 over one kv head and hd
-   16, each limit shown to reject the gradient of a call that lost a kv
-   tile of the dK/dV kernel's, and the bf16 gradient bitwise the same in
-   a second call; (b) llama3-8b at its published widths cut to 4 of
+   ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores; f32 at hd 64
+   and 128: ``csrc/flash_attention_bwd_tf32x3.cu``, the tensor cores in
+   3xTF32; hd 16 and f32 at hd 256: ``csrc/flash_attention_bwd.cu``;
+   through ``flash_attention``'s autograd Function) against autograd of the
+   plain version at llama3-8b's q (B, 32, 2048, 128) over 8 kv heads,
+   causal, in bf16 (B 2) and f32 (B 1), at hd 64 not causal over 448 rows,
+   hd 256 over one kv head and hd 16, each limit shown to reject the
+   gradient of a call that lost a kv tile of the dK/dV kernel's, and each
+   gradient bitwise the same in a second call; each timed beside sdpa's
+   backward; (b) llama3-8b at its published widths cut to 4 of
    its 32 layers (bf16, chunked, remat "full") trained 8 steps on 2 x 2048
    tokens by ``launch.train.train``, the loop of ``python -m
    repro_torch.launch.train``: K4's forward twice a layer a step and its
@@ -241,8 +243,8 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 6, 2, 3
 # K4's backward at llama3-8b's shape: bf16 at the train path's batch, f32
 # at 1 (its path, the gradient check, runs 1 x TRAIN_GRAD_S)
 K4_BWD_B = {"bfloat16": TRAIN_B, "float32": 1}
-# the bf16 backward (the tensor-core route) also held and timed at the other
-# head dims of its route, (B, H, Hkv, S, hd, causal): Whisper-small's 448
+# the backward also held and timed, in both dtypes, at the other head dims
+# of the tensor-core routes, (B, H, Hkv, S, hd, causal): Whisper-small's 448
 # decoder rows, not causal, and PaliGemma-3B's 1024 rows over one kv head
 K4_BWD_MORE = {"whisper_small": (1, 12, 12, WHISPER_S, 64, False),
                "paligemma_3b": (1, 8, 1, 1024, 256, True)}
@@ -254,9 +256,12 @@ K4_BWD_PROFILED_CALLS = 3
 K4_BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
               "float32": dict(rtol=1e-4, atol=1e-4)}
 # K4's device kernels by name: the forward kernels' and the backward's;
-# the tensor-core backward's alone
+# each backward route's alone
 K4_KERNEL = re.compile(r"\bfa_(wgmma_|tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
 K4_BWD_WGMMA = re.compile(r"\bfa_bwd_wgmma_\w+_kernel")
+K4_BWD_KERNELS = {"wgmma": K4_BWD_WGMMA,
+                  "tf32x3": re.compile(r"\bfa_bwd_tf32x3_\w+_kernel"),
+                  "cuda_cores": re.compile(r"\bfa_bwd_(dot|dkdv|dq)_kernel")}
 # what the JAX package differentiates instead (no Pallas backward)
 K4_BWD_JAX = ("src/repro/models/layers.py:80 _sdpa and :105 "
               "_sdpa_chunked")
@@ -432,6 +437,16 @@ def ptxas_kernels(log: str) -> list:
     return out
 
 
+def build_log(name: str, source: str) -> str:
+    """The nvcc/ptxas log of library ``name``: this process's build's, or
+    the one ``_cuda.build_many`` left beside a library built before."""
+    from repro_torch import _cuda
+    if name in _cuda.BUILD_LOG:
+        return _cuda.BUILD_LOG[name][1]
+    log = _cuda.library_path(name, source).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def zero_model_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
@@ -588,26 +603,45 @@ def profile_main(dev=None) -> int:
     return 0
 
 
+def k4_bwd_shapes() -> dict:
+    """The backward's cases by key, (B, H, Hkv, S, hd, causal): "<dtype>"
+    at llama3-8b's shape (``K4_BWD_B``), "<dtype>/<arch>" at
+    ``K4_BWD_MORE``'s and "<dtype>/reduced" at the reduced llama3-8b's hd 16
+    (the CUDA-core route)."""
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        out[dt] = (K4_BWD_B[dt], 32, 8, TRAIN_S, 128, True)
+        out.update({f"{dt}/{a}": s_ for a, s_ in K4_BWD_MORE.items()})
+        out[f"{dt}/reduced"] = (REDUCED_B, 6, 2, REDUCED_S, 16, True)
+    return out
+
+
+def k4_forward_blocks(kind: str, hd: int) -> tuple:
+    """The (block_q, block_k) K4's forward kernel ``kind`` takes by
+    default."""
+    from repro_torch.kernels import flash_attention as fa
+    return (fa.WGMMA_BLOCKS[hd][0] if kind == "wgmma" else
+            fa.TF32X3_BLOCKS[hd] if kind == "tf32x3" else fa.CUDA_CORE_BLOCKS)
+
+
 def k4_bwd_profiles(dev) -> dict:
-    """{"bfloat16" (the train path's llama3-8b shape) and
-    "bfloat16/<arch>" (``K4_BWD_MORE``): [[[kernel, us], ...] per call]}:
-    the device kernels of ``K4_BWD_PROFILED_CALLS`` calls of the bf16
-    backward, each profiled alone; and under "sdpa/<arch>" the kernels of
-    sdpa's backward at the ``K4_BWD_MORE`` shapes."""
+    """{key of ``k4_bwd_shapes``: [[[kernel, us], ...] per call]}: the device
+    kernels of ``K4_BWD_PROFILED_CALLS`` calls of the backward, each
+    profiled alone; and under "sdpa/<key>" (but for llama3-8b's shapes,
+    which "sdpa_bwd" holds) the kernels of sdpa's backward there."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     out = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    shapes = {"bfloat16": (K4_BWD_B["bfloat16"], 32, 8, TRAIN_S, 128, True),
-              **{f"bfloat16/{a}": s for a, s in K4_BWD_MORE.items()}}
-    for key, (B, H, Hkv, S, hd, causal) in shapes.items():
+    for key, (B, H, Hkv, S, hd, causal) in k4_bwd_shapes().items():
+        dtype = getattr(torch, key.split("/")[0])
         q, k, v, dout = (torch.randn((B, S, h, hd), device=dev)
-                         .to(torch.bfloat16).transpose(1, 2)
-                         for h in (H, Hkv, Hkv, H))
-        out_, lse = fa._run(q, k, v, causal, "wgmma",
-                            *fa.WGMMA_BLOCKS[hd][0], True)
+                         .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+        kind = fa.route(dtype, hd)
+        out_, lse = fa._run(q, k, v, causal, kind,
+                            *k4_forward_blocks(kind, hd), True)
 
         def call():
             fa.flash_attention_bwd(q, k, v, out_, lse, dout, causal=causal)
@@ -615,15 +649,16 @@ def k4_bwd_profiles(dev) -> dict:
         out[key] = [[[short_name(n_), us] for n_, us in
                      kernel_names(device_kernels(call)[0])]
                     for _ in range(K4_BWD_PROFILED_CALLS)]
-        if key == "bfloat16":
+        if "/" not in key:
             continue
-        xs = [x.detach().requires_grad_() for x in (q, k, v)]
-        o = sdpa(*xs, is_causal=causal, enable_gqa=True)
+        (lq, lk, lv), gqa = sdpa_args(q, k, v)
+        xs = [x.detach().requires_grad_() for x in (lq, lk, lv)]
+        o = sdpa(*xs, is_causal=causal, **gqa)
 
         def bwd():
             torch.autograd.grad(o, xs, dout, retain_graph=True)
         bwd()
-        out["sdpa/" + key.split("/")[1]] = sorted(
+        out["sdpa/" + key] = sorted(
             {short_name(n_) for n_, _ in kernel_names(device_kernels(bwd)[0])})
     return out
 
@@ -2470,55 +2505,56 @@ def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
 
 
 def k4_bwd_checks(dev) -> dict:
-    """Part (a) of the train path: K4's backward at llama3-8b's shape (q (B,
-    32, 2048, 128) over 8 kv heads, causal; bf16 at the train path's batch
-    of 2, f32 at 1, ``K4_BWD_B``), at ``K4_BWD_MORE``'s shapes (hd 64 not
-    causal over a ragged last block of 448 rows, hd 256 over one kv head)
-    and at hd 16.  Returns, for timing, the llama3-8b cases by dtype and
-    the bf16 ``K4_BWD_MORE`` cases as "bfloat16/<arch>"."""
+    """Part (a) of the train path: K4's backward at each of
+    ``k4_bwd_shapes``: llama3-8b's shape (q (B, 32, 2048, 128) over 8 kv
+    heads, causal; bf16 at the train path's batch of 2, f32 at 1), hd 64 not
+    causal over a ragged last block of 448 rows, hd 256 over one kv head and
+    hd 16, in both dtypes.  Returns every case by its key, for timing."""
     import torch
 
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dt = str(dtype).removeprefix("torch.")
-        out[dt] = k4_bwd_case(dev, dtype, K4_BWD_B[dt], 32, 8, TRAIN_S, 128,
-                              True, 11)
-        for seed, (arch, shape) in enumerate(K4_BWD_MORE.items(), 12):
-            c = k4_bwd_case(dev, dtype, *shape, seed)
-            if dtype == torch.bfloat16:
-                out[f"{dt}/{arch}"] = c
-        k4_bwd_case(dev, dtype, REDUCED_B, 6, 2, REDUCED_S, 16, True, 14)
+    for key, shape in k4_bwd_shapes().items():
+        dt = key.split("/")[0]
+        seed = 11 + [k_ for k_ in k4_bwd_shapes() if
+                     k_.split("/")[0] == dt].index(key)
+        out[key] = k4_bwd_case(dev, getattr(torch, dt), *shape, seed)
         torch.cuda.empty_cache()
     return out
 
 
 def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
-    """The backward's ``kernels`` entries: timed at llama3-8b's shape (B,
-    32, 2048, 128) over 8 kv heads, causal (``K4_BWD_B``; bf16 on the
-    tensor cores, f32 on the CUDA cores) and in bf16 at ``K4_BWD_MORE``'s,
-    each beside its plain version and scaled_dot_product_attention's
-    backward; ``launches`` by dtype from the path that ran it (bf16: the
-    full-width training run; f32: the chunked == dense gradients; the
-    ``K4_BWD_MORE`` shapes: their check's call); the tensor-core route's
-    kernels each timed apart off the profiler, and sdpa's backward kernels
-    read off it, in the profiling child.  The bound is the card's peak for
-    the inputs' type (bf16: one tensor-core pass; f32: three TF32 passes,
-    as K4's f32 forward is bounded); the same flops on the fp32 CUDA cores
-    are printed beside it."""
+    """The backward's ``kernels`` entries, one a case of ``k4_bwd_checks``
+    (llama3-8b's shape, Whisper's, PaliGemma's and hd 16, in both dtypes),
+    each on its ``bwd_route`` beside its plain version and
+    scaled_dot_product_attention's backward; ``launches`` by dtype from the
+    path that ran it (bf16: the full-width training run; f32: the chunked
+    == dense gradients; the other shapes: their check's call); each kernel
+    timed apart off the profiler, and sdpa's backward kernels read off it,
+    in the profiling child.  The bound is the card's peak for the inputs'
+    type (bf16: one tensor-core pass; f32: three TF32 passes, as K4's f32
+    forward is bounded); the same flops on the fp32 CUDA cores are printed
+    beside it."""
     import torch
 
-    from repro_torch import _cuda
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ptxas = {"cuda_cores": ptxas_summary(
-        _cuda.BUILD_LOG.get(fa.BWD_LIB_NAME, (0, ""))[1]),
-        "wgmma": ptxas_kernels(
-            _cuda.BUILD_LOG.get(fa.WGMMA_BWD_LIB_NAME, (0, ""))[1])}
-    lib = fa._wgmma_bwd_launcher()[0]
-    smem = {f"{w}<{hd}>": lib.flash_attention_bwd_wgmma_smem(hd, i)
-            for hd in fa.BWD_TILES["wgmma"]
-            for i, w in enumerate(("dkdv", "dq"))}
+    libs = {"cuda_cores": (fa.BWD_LIB_NAME, fa.bwd_kernel_source()),
+            "wgmma": (fa.WGMMA_BWD_LIB_NAME, fa.wgmma_bwd_kernel_source()),
+            "tf32x3": (fa.TF32X3_BWD_LIB_NAME, fa.tf32x3_bwd_kernel_source())}
+    ptxas = {kind: (ptxas_summary if kind == "cuda_cores" else ptxas_kernels)(
+        build_log(*lib)) for kind, lib in libs.items()}
+    smem = {}
+    for kind, launcher, fn in (
+            ("wgmma", fa._wgmma_bwd_launcher, "flash_attention_bwd_wgmma_smem"),
+            ("tf32x3", fa._tf32x3_bwd_launcher,
+             "flash_attention_bwd_tf32x3_smem")):
+        query = getattr(launcher()[0], fn)
+        smem[kind] = {f"{w}<{hd}>": query(hd, i) for hd in fa.BWD_TILES[kind]
+                      for i, w in enumerate(("dkdv", "dq"))}
+    srcs = {"wgmma": "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+            "tf32x3": "src/repro_torch/csrc/flash_attention_bwd_tf32x3.cu",
+            "cuda_cores": "src/repro_torch/csrc/flash_attention_bwd.cu"}
     entries = []
     for key, c in cases.items():
         q, k, v, out, dout = c["q"], c["k"], c["v"], c["out"], c["dout"]
@@ -2530,15 +2566,15 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
         n = launches[key] if key in launches else c["launches"]
         if n < 1:
             fail(f"K4 bwd {key} was not launched on its path")
-        lse = fa._run(q, k, v, causal, fa.route(q.dtype, hd),
-                      *(fa.WGMMA_BLOCKS[hd][0] if q.dtype == torch.bfloat16
-                        else fa.TF32X3_BLOCKS[hd]), True)[1]
+        fwd = fa.route(q.dtype, hd)
+        lse = fa._run(q, k, v, causal, fwd, *k4_forward_blocks(fwd, hd),
+                      True)[1]
         tq, tk = fa.BWD_TILES[kind][hd]
         ms, host_ms = time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, dout, causal=causal), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, lse, dout, causal=causal, block_q=tq, block_k=tk),
-            3)[0]
+            q, k, v, out, lse, dout, causal=causal, block_q=min(tq, S),
+            block_k=min(tk, S)), 3)[0]
         kept = (S * (S + 1) // 2 if causal else S * S) * B * H
         flops = 10 * hd * kept           # 2.5 x the forward's 4 hd a score
         esz = q.element_size()
@@ -2556,42 +2592,38 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
         lib_ms = time_ms(lambda: torch.autograd.grad(
             lo, (lq, lk, lv), dout, retain_graph=True), 10)[0]
         lib_kernels = (prof["sdpa_bwd"][dt] if "/" not in key
-                       else prof["k4_bwd"]["sdpa/" + key.split("/")[1]])
+                       else prof["k4_bwd"]["sdpa/" + key])
         # each kernel's device time, the median over the profiled calls
+        calls = prof["k4_bwd"][key]
         split_ms = {}
-        if kind == "wgmma":
-            calls = prof["k4_bwd"][key]
-            for name in sorted({n_ for c_ in calls for n_, _ in c_}):
-                split_ms[name] = statistics.median(
-                    sum(us for n_, us in c_ if n_ == name) for c_ in calls
-                ) / 1e3
-            if not all(K4_BWD_WGMMA.search(n_) for n_ in split_ms):
-                fail(f"K4 bwd {key}: the profiled calls ran {split_ms}, "
-                     "not the tensor-core backward's kernels alone")
-        src = ("src/repro_torch/csrc/flash_attention_bwd_wgmma.cu"
-               if kind == "wgmma"
-               else "src/repro_torch/csrc/flash_attention_bwd.cu")
-        px = [p_ for p_ in ptxas[kind] if kind == "wgmma"
+        for name in sorted({n_ for c_ in calls for n_, _ in c_}):
+            split_ms[name] = statistics.median(
+                sum(us for n_, us in c_ if n_ == name) for c_ in calls) / 1e3
+        if not all(K4_BWD_KERNELS[kind].search(n_) for n_ in split_ms):
+            fail(f"K4 bwd {key}: the profiled calls ran {split_ms}, not the "
+                 f"{kind} backward's kernels alone")
+        px = [p_ for p_ in ptxas[kind] if kind != "cuda_cores"
               or ("bf16" in p_) == (dt == "bfloat16")]
         print(f"time: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} heads, "
               f"causal={causal}, route {kind}: {ms:.4f} ms on the card "
               f"(bound {b_ms:.4f} ms by {b_by}, "
               f"{'bf16' if dt == 'bfloat16' else '3xTF32'} on the tensor "
               f"cores; {b_ms / ms:.1%}; on the fp32 CUDA cores the same "
-              f"flops {cc_ms:.4f} ms, {cc_ms / ms:.1%})"
-              + ("; by kernel (profiler) " + ", ".join(
-                  f"{n_} {v_:.4f} ms" for n_, v_ in split_ms.items())
-                 if split_ms else "")
+              f"flops {cc_ms:.4f} ms, {cc_ms / ms:.1%}); by kernel "
+              f"(profiler) " + ", ".join(f"{n_} {v_:.4f} ms" for n_, v_ in
+                                         split_ms.items())
               + f"; plain {plain_ms:.3f} ms; sdpa's backward {lib_ms:.4f} "
-              f"ms, kernels " + ", ".join(lib_kernels) + "; "
+              f"ms ({lib_ms / ms:.2f}x this), kernels "
+              + ", ".join(lib_kernels) + "; "
               f"launches on its path {n} ({fa.bwd_launches(q.dtype, hd, B, H, Hkv, S)} "
               f"a call); ptxas " + " | ".join(px)
-              + (f"; dynamic shared memory {smem}" if kind == "wgmma" else ""))
+              + (f"; dynamic shared memory {smem[kind]}" if kind in smem
+                 else ""))
         entries.append({
-            "name": (f"flash_attention_bwd_wgmma[{dt}, hd {hd}]"
-                     if kind == "wgmma"
-                     else f"flash_attention_bwd[{dt}, hd {hd}]"),
-            "route": "cuda", "source": src, "replaces": K4_REPLACES,
+            "name": (f"flash_attention_bwd[{dt}, hd {hd}]" if
+                     kind == "cuda_cores" else
+                     f"flash_attention_bwd_{kind}[{dt}, hd {hd}]"),
+            "route": "cuda", "source": srcs[kind], "replaces": K4_REPLACES,
             "replaces_note": "no Pallas backward: the JAX package "
                              "differentiates its attention with jax.grad "
                              f"({K4_BWD_JAX})",
@@ -2609,7 +2641,7 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
             "kernels_per_call": fa.bwd_launches(q.dtype, hd, B, H, Hkv, S),
             "bwd_route": kind, "tiles": [tq, tk],
             "tolerance": c["tol"], "check_errors": c["errs"],
-            "ptxas": px, "smem": smem if kind == "wgmma" else None,
+            "ptxas": px, "smem": smem.get(kind),
             "path": "train" if "/" not in key else "train (check)"})
     return entries
 
@@ -2729,8 +2761,10 @@ def train_path(dev, prof: dict) -> dict:
 def train_grad_equivalence(dev) -> dict:
     """Part (c): llama3-8b at full width, TRAIN_GRAD_LAYERS layers, f32, on
     1 x TRAIN_GRAD_S tokens: the gradient of every parameter through K4
-    (the tf32x3 forward and the backward kernel) against the dense
-    ``_sdpa`` path's, each within TRAIN_GRAD_TOL of its largest entry.
+    (the tf32x3 forward and the backward of ``bwd_route``, the 3xTF32 one
+    at hd 128) against the dense ``_sdpa`` path's, each within
+    TRAIN_GRAD_TOL of its largest entry; the chunked gradient runs under
+    the profiler, and every backward kernel it sees must be its route's.
     Returns the backward's launches."""
     import torch
 
@@ -2749,8 +2783,15 @@ def train_grad_equivalence(dev) -> dict:
         zero_model_counts()
         loss = lm.loss_fn(cfg, model, {k: torch.as_tensor(v, device=dev)
                                        for k, v in batch.items()})
-        grads[impl] = (loss.item(), torch.autograd.grad(
-            loss, model.param_list()))
+        got = []
+
+        def grad():
+            got.append(torch.autograd.grad(loss, model.param_list()))
+        if impl == "chunked":
+            acts = device_kernels(grad)[0]
+        else:
+            grad()
+        grads[impl] = (loss.item(), got[0])
         torch.cuda.synchronize()
         n = model_counts()
         want = {} if impl == "dense" else {
@@ -2762,6 +2803,16 @@ def train_grad_equivalence(dev) -> dict:
             fail(f"chunked == dense gradients ({impl}): launches {n}, "
                  f"expected {want}")
         del model
+    # the profiler may drop a record, never add one: every backward kernel
+    # it saw must be the route's
+    kind = fa.bwd_route(torch.float32, cfg.hd)
+    bwd_names = sorted({short_name(n_) for n_, _ in kernel_names(acts)
+                        if "fa_bwd" in n_})
+    if not bwd_names or not all(K4_BWD_KERNELS[kind].search(n_)
+                                for n_ in bwd_names):
+        fail(f"chunked == dense: the chunked gradient's backward ran "
+             f"{bwd_names} (profiler), not the {kind} backward's kernels "
+             "alone")
     worst = 0.0
     for i, (a, b) in enumerate(zip(grads["chunked"][1], grads["dense"][1])):
         rel = ((a - b).abs().max() / b.abs().max()).item()
@@ -2773,11 +2824,12 @@ def train_grad_equivalence(dev) -> dict:
     dl = abs(grads["chunked"][0] - grads["dense"][0])
     print(f"check: llama3-8b full width, {TRAIN_GRAD_LAYERS} layers, f32, "
           f"1 x {TRAIN_GRAD_S} tokens: every gradient through K4 (tf32x3 "
-          f"forward, backward kernel) == the dense path's within "
+          f"forward, the {kind} backward) == the dense path's within "
           f"{TRAIN_GRAD_TOL} of its largest entry (worst "
           f"{worst:.3g} over {len(grads['dense'][1])} tensors); loss "
           f"{grads['chunked'][0]:.6f} vs {grads['dense'][0]:.6f} (|diff| "
-          f"{dl:.3g}); launches {n}")
+          f"{dl:.3g}); launches {n}; the backward's kernels (profiler) "
+          + ", ".join(bwd_names))
     del grads
     torch.cuda.empty_cache()
     return {"launches": n["k4/bwd/float32"]}

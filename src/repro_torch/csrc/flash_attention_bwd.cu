@@ -20,20 +20,21 @@
 //   dQ_i  = scale * sum_j dS_ij k_j
 // with dK and dV summed over the G q heads of each kv head; all in fp32 from
 // f32 or bf16 inputs, each gradient rounded once to its input's type.  It
-// takes f32 at every head dim and bf16 at hd 16 and 32; bf16 at hd 64, 128
-// and 256 runs flash_attention_bwd_wgmma.cu, on the tensor cores.
+// takes hd 16 and 32 in both dtypes and f32 at hd 256.  The tensor cores
+// take the rest: bf16 at hd 64, 128 and 256 runs
+// flash_attention_bwd_wgmma.cu, f32 at hd 64 and 128
+// flash_attention_bwd_tf32x3.cu (3xTF32).
 //
 // Bound on Hopper: operations.  The gradient counts 2.5 times the forward's
 // 4*hd flops per kept score (S, dP, dV, dK, dQ: five products of 2*hd); at
-// llama3-8b's q (1, 32, 2048, 128) over 8 kv heads, causal, that is 86 GFLOP
-// on 50 MB (bf16).  At the card's peak for the inputs' type that is 0.087 ms
-// in bf16 (989 TFLOP/s on the tensor cores) and 0.52 ms in f32 (three TF32
-// passes at 495 TFLOP/s, as the f32 forward); this kernel runs on the fp32
-// CUDA cores, whose 67 TFLOP/s alone would take 1.28 ms.  It also does more
-// work: kernel (c) recomputes S and dP, 7 products of 2*hd per score.
+// PaliGemma's q (1, 8, 1024, 256) over one kv head, causal, that is 10.7
+// GFLOP, 0.065 ms in three TF32 passes at 495 TFLOP/s; this kernel runs on
+// the fp32 CUDA cores, whose 67 TFLOP/s alone would take 0.16 ms.  It also
+// does more work: kernel (c) recomputes S and dP, 7 products of 2*hd per
+// score.
 //
-// Design (a first, simple kernel; for bf16 at hd 64-256 the tensor-core
-// kernel took over):
+// Design (a first, simple kernel; the tensor-core kernels took over the
+// other head dims):
 // * Three kernels a call and no atomics, so the result is deterministic:
 //   (a) D, one warp per row; (b) dK and dV, one block per (b, kv head, kv
 //   tile of BK keys) that walks the G q heads of its group and, for each, the
@@ -50,8 +51,8 @@
 //   accumulations with a thread's rows of dK, dV or dQ against 16-byte
 //   chunks of the head dim.  P and dS pass through shared memory ([row][key]
 //   for (b); dS as [key][row] for (c)).
-// * Tiles by head dim (Tile<HD>): 64 x 64 at hd 16-64, 32 q rows x 64 keys
-//   at 128, 32 x 32 at 256, where the four fp32 tiles take 133 KB.
+// * Tiles by head dim (Tile<HD>): 64 x 64 at hd 16 and 32, 32 x 32 at 256,
+//   where the four fp32 tiles take 133 KB.
 // * Ragged q rows and keys are masked (P = 0) and never stored; a causal kv
 //   tile past the last q row gets zero gradients.
 #include <cuda_runtime.h>
@@ -76,8 +77,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <int HD> struct Tile;
 template <> struct Tile<16> { static constexpr int BQ = 64, BK = 64; };
 template <> struct Tile<32> { static constexpr int BQ = 64, BK = 64; };
-template <> struct Tile<64> { static constexpr int BQ = 64, BK = 64; };
-template <> struct Tile<128> { static constexpr int BQ = 32, BK = 64; };
 template <> struct Tile<256> { static constexpr int BQ = 32, BK = 32; };
 
 // the accumulations' thread layout: LPR lanes share a row of the output, 4
@@ -450,23 +449,18 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
         case 32: return run<T, 32>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
         default: break;
     }
-    // bf16 at hd 64-256 runs flash_attention_bwd_wgmma.cu
-    if constexpr (std::is_same<T, float>::value) {
-        switch (hd) {
-            case 64: return run<T, 64>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-            case 128: return run<T, 128>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-            case 256: return run<T, 256>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
-            default: break;
-        }
-    }
+    // bf16 at hd 64-256 runs flash_attention_bwd_wgmma.cu, f32 at hd 64 and
+    // 128 flash_attention_bwd_tf32x3.cu
+    if constexpr (std::is_same<T, float>::value)
+        if (hd == 256)
+            return run<T, 256>(q, k, v, o, g, lse, dq, dk, dv, D, st, B, H, Hkv, S, Sk, causal, scale, s);
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, out, dout, dq (B, H, S, hd); k, v, dk, dv (B, Hkv, Sk, hd); lse and the
-// scratch D (B, H, S) fp32, contiguous; hd 16, 32, 64, 128 or 256 (bf16:
-// 16 or 32).  strides:
+// scratch D (B, H, S) fp32, contiguous; hd 16, 32 or (f32) 256.  strides:
 // 24 element strides, (batch, head, row) of q, k, v, out, dout, dq, dk, dv,
 // every row unit-stride.  scale is hd^-0.5 as the caller rounds it to fp32.
 // Launches three kernels on `stream`.

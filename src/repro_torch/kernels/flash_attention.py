@@ -47,11 +47,20 @@ log-sum-exp.  Its backward is chosen by dtype and head dim alone
   then a dQ kernel that recomputes S and dP.  Where that dK/dV grid would
   be small, each group's q heads are split over ``bwd_split`` blocks whose
   fp32 partials a fourth kernel sums in a fixed order.
-* float32 at every head dim, and bf16 at hd 16 and 32:
+* float32 at hd 64 and 128: ``csrc/flash_attention_bwd_tf32x3.cu``
+  (``"tf32x3"``), the same three kernels (and the sum where it splits)
+  with their products on the tensor cores in error-compensated TF32 as the
+  f32 forward's, each fp32 operand split into a hi and a lo part.  Its
+  operands are read K-major only, so Q, dout (dK/dV) and K (dQ) are also
+  copied transposed; the block's resident operand keeps its hi part in
+  registers.  It reads views whose rows are unit-stride and 16-byte aligned
+  (others are copied first).
+* hd 16 and 32 in both dtypes, and float32 at hd 256:
   ``csrc/flash_attention_bwd.cu`` (``"cuda_cores"``, fp32 FMAs, three
-  kernels a call).
+  kernels a call).  At hd 256 the tf32x3 form does not fit: K and V split
+  would fill shared memory alone.
 
-Neither uses atomics: a gradient is bitwise the same from call to call.
+None uses atomics: a gradient is bitwise the same from call to call.
 ``bwd_launches`` is the kernels a call launches; ``BWD_TILES[route][hd]``
 the dK/dV kernel's (q rows, kv keys) tile, which
 ``flash_attention_bwd_plain`` walks on the CPU.  The JAX package has no
@@ -85,6 +94,8 @@ BWD_SOURCE = _cuda.CSRC_DIR / "flash_attention_bwd.cu"
 BWD_LIB_NAME = "flash_attention_bwd"
 WGMMA_BWD_SOURCE = _cuda.CSRC_DIR / "flash_attention_bwd_wgmma.cu"
 WGMMA_BWD_LIB_NAME = "flash_attention_bwd_wgmma"
+TF32X3_BWD_SOURCE = _cuda.CSRC_DIR / "flash_attention_bwd_tf32x3.cu"
+TF32X3_BWD_LIB_NAME = "flash_attention_bwd_tf32x3"
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 MAX_BLOCK = 64          # CUDA-core kernel: most q rows / kv keys
 # CUDA-core kernel: its default (block_q, block_k); 16-row q blocks put
@@ -101,14 +112,17 @@ WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
                 128: ((128, 64), (128, 128)),
                 256: ((128, 64),)}
 # the backward's dK/dV kernel's (q rows, kv keys) tile by route and head
-# dim (``Cfg<HD>`` in flash_attention_bwd_wgmma.cu, ``Tile<HD>`` in
-# flash_attention_bwd.cu); the plain backward walks them on the CPU
+# dim (``Cfg<HD>`` in flash_attention_bwd_wgmma.cu and
+# flash_attention_bwd_tf32x3.cu, ``Tile<HD>`` in flash_attention_bwd.cu);
+# the plain backward walks them on the CPU.  f32 at hd 256 stays on the
+# CUDA cores: the tf32x3 form's split K and V of 64 keys alone would take
+# 256 KB of shared memory
 BWD_TILES = {"wgmma": {64: (64, 128), 128: (64, 128), 256: (64, 64)},
-             "cuda_cores": {16: (64, 64), 32: (64, 64), 64: (64, 64),
-                            128: (32, 64), 256: (32, 32)}}
+             "tf32x3": {64: (32, 64), 128: (32, 64)},
+             "cuda_cores": {16: (64, 64), 32: (64, 64), 256: (32, 32)}}
 # kernels a backward call launches: D, dK and dV, dQ; the tensor-core
-# route adds one that sums the split q heads' partials (``bwd_split`` > 1)
-BWD_LAUNCHES = {"wgmma": 3, "cuda_cores": 3}
+# routes add one that sums the split q heads' partials (``bwd_split`` > 1)
+BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 3, "cuda_cores": 3}
 # the H100 SXM's SMs: a tensor-core dK/dV grid of fewer blocks has each
 # group's q heads split over more blocks, as far as the SMs and G allow
 BWD_SMS = 132
@@ -133,18 +147,21 @@ def route(dtype: torch.dtype, hd: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """Which backward runs a call: ``"wgmma"`` (bf16 at hd 64-256) or
-    ``"cuda_cores"`` (float32 at every head dim, bf16 at hd 16 and 32)."""
-    return ("wgmma" if dtype == torch.bfloat16 and hd in BWD_TILES["wgmma"]
-            else "cuda_cores")
+    """Which backward runs a call: ``"wgmma"`` (bf16 at hd 64-256),
+    ``"tf32x3"`` (float32 at hd 64 and 128) or ``"cuda_cores"`` (hd 16 and
+    32, and float32 at hd 256)."""
+    kind = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(dtype)
+    return kind if kind is not None and hd in BWD_TILES[kind] else \
+        "cuda_cores"
 
 
-def bwd_split(B: int, H: int, Hkv: int, Sk: int, hd: int) -> int:
-    """Blocks over which the tensor-core dK/dV kernel splits each group's
-    H / Hkv q heads: the most that divides the group and keeps its grid
-    within ``BWD_SMS`` blocks (1: no split)."""
+def bwd_split(B: int, H: int, Hkv: int, Sk: int, hd: int,
+              kind: str = "wgmma") -> int:
+    """Blocks over which the dK/dV kernel of tensor-core route ``kind``
+    splits each group's H / Hkv q heads: the most that divides the group
+    and keeps its grid within ``BWD_SMS`` blocks (1: no split)."""
     G = H // Hkv
-    blocks = B * Hkv * -(-Sk // BWD_TILES["wgmma"][hd][1])
+    blocks = B * Hkv * -(-Sk // BWD_TILES[kind][hd][1])
     return max(s for s in range(1, G + 1)
                if G % s == 0 and (s == 1 or blocks * s <= BWD_SMS))
 
@@ -153,8 +170,8 @@ def bwd_launches(dtype: torch.dtype, hd: int, B: int, H: int, Hkv: int,
                  Sk: int) -> int:
     """Kernels one backward call launches on the card."""
     kind = bwd_route(dtype, hd)
-    return BWD_LAUNCHES[kind] + (kind == "wgmma"
-                                 and bwd_split(B, H, Hkv, Sk, hd) > 1)
+    return BWD_LAUNCHES[kind] + (kind != "cuda_cores"
+                                 and bwd_split(B, H, Hkv, Sk, hd, kind) > 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,12 +199,18 @@ def wgmma_bwd_kernel_source() -> str:
     return WGMMA_BWD_SOURCE.read_text()
 
 
+@functools.lru_cache(maxsize=None)
+def tf32x3_bwd_kernel_source() -> str:
+    return TF32X3_BWD_SOURCE.read_text()
+
+
 def kernel_sources() -> dict[str, str]:
     """Every kernel's ``name -> source``, for ``_cuda.build_many``."""
     return {LIB_NAME: kernel_source(), WGMMA_LIB_NAME: wgmma_kernel_source(),
             TF32X3_LIB_NAME: tf32x3_kernel_source(),
             BWD_LIB_NAME: bwd_kernel_source(),
-            WGMMA_BWD_LIB_NAME: wgmma_bwd_kernel_source()}
+            WGMMA_BWD_LIB_NAME: wgmma_bwd_kernel_source(),
+            TF32X3_BWD_LIB_NAME: tf32x3_bwd_kernel_source()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,6 +249,14 @@ def _bwd_launcher(dtype: torch.dtype):
 def _wgmma_bwd_launcher():
     lib = _cuda.load(WGMMA_BWD_LIB_NAME, wgmma_bwd_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_bwd_wgmma_bf16",
+                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                            + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32x3_bwd_launcher():
+    lib = _cuda.load(TF32X3_BWD_LIB_NAME, tf32x3_bwd_kernel_source())
+    return lib, _cuda.entry(lib, "flash_attention_bwd_tf32x3",
                             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                             + [ctypes.c_float] + [ctypes.c_void_p] * 2)
 
@@ -541,10 +572,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
     dtype = q.dtype
     kind = bwd_route(dtype, hd)
     if hd not in BWD_TILES[kind] or dtype not in _BWD_ENTRY:
+        built = sorted({h for t in BWD_TILES.values() for h in t})
         raise NotImplementedError(
-            f"flash_attention backward: no kernel for hd={hd}, {dtype}; it is "
-            f"built for hd in {tuple(BWD_TILES['cuda_cores'])}, float32 and "
-            "bfloat16")
+            f"flash_attention backward: no kernel for hd={hd}, {dtype}; the "
+            f"backward kernels are built for hd in {tuple(built)}, float32 "
+            "and bfloat16 (bwd_route)")
     dout = dout.to(dtype)
     bq, bk = BWD_TILES[kind][hd]
     if q.device.type == "cpu":
@@ -553,15 +585,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
                                          block_k=min(bk, Sk))
     dev = q.device
     lse = lse.float().contiguous()
-    if kind == "wgmma":
-        q, k, v, out, dout = (_tma_rows(t) for t in (q, k, v, out, dout))
+    if kind in ("wgmma", "tf32x3"):
+        # TMA (wgmma) reads through strides alone, cp.async (tf32x3) any
+        # 16-byte aligned rows
+        rows = _tma_rows if kind == "wgmma" else _aligned_rows
+        q, k, v, out, dout = (rows(t) for t in (q, k, v, out, dout))
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        split = bwd_split(B, H, Hkv, Sk, hd)
-        nq = 2 * -(-S // 128)           # the statistics' 64-row tiles a head
-        stats = torch.empty(B * H * nq * 128, dtype=torch.float32, device=dev)
+        split = bwd_split(B, H, Hkv, Sk, hd, kind)
+        # each head's lse and D, its rows padded to 128
+        stats = torch.empty(2 * B * H * -(-S // 128) * 128,
+                            dtype=torch.float32, device=dev)
         part = torch.empty(2 * split * B * Hkv * Sk * hd, dtype=torch.float32,
                            device=dev) if split > 1 else None
-        lib, launch = _wgmma_bwd_launcher()
+        lib, launch = (_wgmma_bwd_launcher if kind == "wgmma"
+                       else _tf32x3_bwd_launcher)()
         st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
                                                     dk, dv)
                                         for s in _row_strides(t)[0]))

@@ -1164,6 +1164,116 @@ def test_flash_attention_bwd_wgmma_in_a_fresh_thread(cuda_device):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [77, 100, 130])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bwd_tf32x3_equals_plain(cuda_device, hd, G, S,
+                                                 causal):
+    """The 3xTF32 backward (f32 at hd 64/128) against
+    ``flash_attention_bwd_plain`` on its own dK/dV tiles within K4's f32
+    backward limit (1e-4): GQA groups 1, 2, 4 and 8 (the split q heads with
+    them), ragged S, causal and not, on transposed views; a second call on
+    the same inputs bitwise equal; its launches a call as ``bwd_launches``
+    counts them (4 where it splits)."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = torch.float32
+    assert fa.bwd_route(dt, hd) == "tf32x3"
+    B, Hkv = 1, 2
+    H = G * Hkv
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, 11 * G + S)
+    out, lse = fa._run(q, k, v, causal, "tf32x3", *fa.TF32X3_BLOCKS[hd],
+                       True)
+    fa.LAUNCHES.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    split = fa.bwd_split(B, H, Hkv, S, hd, "tf32x3")
+    assert dict(fa.LAUNCHES) == {"bwd/float32": 3 + (split > 1)}
+    assert fa.bwd_launches(dt, hd, B, H, Hkv, S) == 3 + (split > 1)
+    assert split == G        # the unsplit grid has 2 to 6 blocks
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    tq, tk = fa.BWD_TILES["tf32x3"][hd]
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                        block_q=min(tq, S),
+                                        block_k=min(tk, S))
+    for a, b, c, x in zip(got, again, want, (q, k, v)):
+        assert a.dtype == dt and a.shape == x.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_tf32x3_long_chain(cuda_device):
+    """The 3xTF32 backward where dK and dV sum their longest chains: a GQA
+    group of 8 over 2048 rows, causal, unsplit (8 kv heads fill the card),
+    so a block of the first keys sums 16,384 q rows; the tensor cores
+    truncate as they accumulate, and each step's product is added rounded
+    to nearest, so the gradients stay within 1e-4 of the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = torch.float32
+    B, H, Hkv, S, hd = 1, 64, 8, 2048, 128
+    assert fa.bwd_split(B, H, Hkv, S, hd, "tf32x3") == 1
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, 2048)
+    out, lse = fa._run(q, k, v, True, "tf32x3", *fa.TF32X3_BLOCKS[hd], True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    tq, tk = fa.BWD_TILES["tf32x3"][hd]
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True,
+                                        block_q=tq, block_k=tk)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_tf32x3_takes_an_expanded_gradient(cuda_device):
+    """A dout with zero strides: rows the kernel reads through a zero stride
+    as they are, a last dim of one element copied; the gradients equal the
+    plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(cuda_device, torch.float32, 2, 4, 2, 100, 64, 9)
+    out, lse = fa._run(q, k, v, True, "tf32x3", *fa.TF32X3_BLOCKS[64], True)
+    row = np.random.default_rng(9).standard_normal((1, 1, 1, 64))
+    for g in (torch.ones((1, 1, 1, 1), device=cuda_device),
+              torch.as_tensor(row, device=cuda_device)):
+        g = g.to(torch.float32).expand(out.shape)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                            causal=True, block_q=32,
+                                            block_k=64)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_tf32x3_in_a_fresh_thread(cuda_device):
+    """The 3xTF32 backward as the first CUDA work of a new thread (as an
+    autograd worker thread may run it) equals the same call on this thread
+    bitwise."""
+    import threading
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, g = _bwd_inputs(cuda_device, torch.float32, 1, 4, 2, 130, 128, 5)
+    out, lse = fa._run(q, k, v, True, "tf32x3", *fa.TF32X3_BLOCKS[128], True)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    res = {}
+
+    def run():
+        try:
+            res["got"] = fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:      # raised again below, on this thread
+            res["err"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "err" in res:
+        raise res["err"]
+    for a, b in zip(res["got"], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_lse_equals_plain(cuda_device, dtype):
     """Each forward kernel's log-sum-exp output equals the plain version's,

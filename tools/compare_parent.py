@@ -30,10 +30,11 @@ precision):
   activities and busy time per step (profiler) and the replay's wall time;
 * K4's backward (``flash_attention_bwd``, on the tree's own forward output
   and log-sum-exp) at the train path's llama3-8b shape, q (2, 32, 2048,
-  128) over 8 kv heads, causal, in bf16 (the parent's CUDA-core kernel,
-  this tree's ``bwd_route``), and on the CUDA cores in f32 at (1, 32, 2048,
-  128) and in bf16 at the reduced llama3-8b's (2, 6, 256, 16): the call
-  (CUDA events) and, from torch.profiler, each device kernel's time.
+  128) over 8 kv heads, causal, in bf16; in f32 at (1, 32, 2048, 128), at
+  Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
+  256) over one kv head; in bf16 at the reduced llama3-8b's (2, 6, 256,
+  16); each on the tree's own ``bwd_route``: the call (CUDA events) and,
+  from torch.profiler, each device kernel's time.
 
 ``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone.  Prints one line per tree and turn and a
 JSON summary last.
@@ -160,26 +161,30 @@ def measure(t, dev) -> dict:
 
 
 def measure_k4_bwd(t, dev) -> dict:
-    """K4's backward at the train path's shape (bf16) and on the CUDA
-    cores (f32 at llama3-8b's shape, bf16 at hd 16)."""
+    """K4's backward at the train path's shape (bf16), in f32 at
+    llama3-8b's shape (1, 32, 2048, 128) over 8 kv heads, causal, at
+    Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
+    256) over one kv head, causal, and in bf16 at hd 16."""
     import torch
 
     import chip_smoke as cs
     out = {}
     g = torch.Generator(device=dev).manual_seed(0)
-    for key, (dt, B, H, Hkv, S, hd) in {
-            "bf16_llama3_8b": (torch.bfloat16, 2, 32, 8, 2048, 128),
-            "f32_llama3_8b": (torch.float32, 1, 32, 8, 2048, 128),
-            "bf16_hd16": (torch.bfloat16, 2, 6, 2, 256, 16)}.items():
+    for key, (dt, B, H, Hkv, S, hd, causal) in {
+            "bf16_llama3_8b": (torch.bfloat16, 2, 32, 8, 2048, 128, True),
+            "f32_llama3_8b": (torch.float32, 1, 32, 8, 2048, 128, True),
+            "f32_whisper_small": (torch.float32, 1, 12, 12, 448, 64, False),
+            "f32_paligemma_3b": (torch.float32, 1, 8, 1, 1024, 256, True),
+            "bf16_hd16": (torch.bfloat16, 2, 6, 2, 256, 16, True)}.items():
         q, k, v, dout = (torch.randn((B, S, h, hd), generator=g, device=dev)
                          .to(dt).transpose(1, 2) for h in (H, Hkv, Hkv, H))
         kind = t.fa.route(dt, hd)
         blocks = (t.fa.WGMMA_BLOCKS[hd][0] if kind == "wgmma" else
                   t.fa.TF32X3_BLOCKS[hd] if kind == "tf32x3" else
                   t.fa.CUDA_CORE_BLOCKS)
-        o, lse = t.fa._run(q, k, v, True, kind, *blocks, True)
+        o, lse = t.fa._run(q, k, v, causal, kind, *blocks, True)
         call = lambda: t.fa.flash_attention_bwd(q, k, v, o, lse, dout,
-                                                causal=True)
+                                                causal=causal)
         ms = cs.time_ms(call, 10)[0]
         acts, _ = cs.device_kernels(lambda: [call() for _ in range(3)])
         per = {}

@@ -77,9 +77,10 @@ read just after:
    on 256 patch embeddings + 768 tokens: the tensor-core K4 at hd 256, 8 q
    heads over one kv head; then ``serve.main`` decodes text, graphed.
 13. *train*: (a) K4's backward kernels (bf16 at hd 64-256:
-   ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores; f32 at hd 64
-   and 128: ``csrc/flash_attention_bwd_tf32x3.cu``, the tensor cores in
-   3xTF32; hd 16 and f32 at hd 256: ``csrc/flash_attention_bwd.cu``;
+   ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores; f32 at hd
+   64-256: ``csrc/flash_attention_bwd_tf32x3.cu``, the tensor cores in
+   3xTF32, hd 256 in kernels of its own; hd 16 and 32 in both dtypes:
+   ``csrc/flash_attention_bwd.cu``, one ``mma.sync`` kernel a call;
    through ``flash_attention``'s autograd Function) against autograd of the
    plain version at llama3-8b's q (B, 32, 2048, 128) over 8 kv heads,
    causal, in bf16 (B 2) and f32 (B 1), at hd 64 not causal over 448 rows,
@@ -261,7 +262,7 @@ K4_KERNEL = re.compile(r"\bfa_(wgmma_|tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
 K4_BWD_WGMMA = re.compile(r"\bfa_bwd_wgmma_\w+_kernel")
 K4_BWD_KERNELS = {"wgmma": K4_BWD_WGMMA,
                   "tf32x3": re.compile(r"\bfa_bwd_tf32x3_\w+_kernel"),
-                  "cuda_cores": re.compile(r"\bfa_bwd_(dot|dkdv|dq)_kernel")}
+                  "mma": re.compile(r"\bfa_bwd_mma_kernel")}
 # what the JAX package differentiates instead (no Pallas backward)
 K4_BWD_JAX = ("src/repro/models/layers.py:80 _sdpa and :105 "
               "_sdpa_chunked")
@@ -607,7 +608,7 @@ def k4_bwd_shapes() -> dict:
     """The backward's cases by key, (B, H, Hkv, S, hd, causal): "<dtype>"
     at llama3-8b's shape (``K4_BWD_B``), "<dtype>/<arch>" at
     ``K4_BWD_MORE``'s and "<dtype>/reduced" at the reduced llama3-8b's hd 16
-    (the CUDA-core route)."""
+    (the mma route)."""
     out = {}
     for dt in ("bfloat16", "float32"):
         out[dt] = (K4_BWD_B[dt], 32, 8, TRAIN_S, 128, True)
@@ -2539,10 +2540,10 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    libs = {"cuda_cores": (fa.BWD_LIB_NAME, fa.bwd_kernel_source()),
+    libs = {"mma": (fa.BWD_LIB_NAME, fa.bwd_kernel_source()),
             "wgmma": (fa.WGMMA_BWD_LIB_NAME, fa.wgmma_bwd_kernel_source()),
             "tf32x3": (fa.TF32X3_BWD_LIB_NAME, fa.tf32x3_bwd_kernel_source())}
-    ptxas = {kind: (ptxas_summary if kind == "cuda_cores" else ptxas_kernels)(
+    ptxas = {kind: (ptxas_summary if kind == "mma" else ptxas_kernels)(
         build_log(*lib)) for kind, lib in libs.items()}
     smem = {}
     for kind, launcher, fn in (
@@ -2554,7 +2555,7 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
                       for i, w in enumerate(("dkdv", "dq"))}
     srcs = {"wgmma": "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
             "tf32x3": "src/repro_torch/csrc/flash_attention_bwd_tf32x3.cu",
-            "cuda_cores": "src/repro_torch/csrc/flash_attention_bwd.cu"}
+            "mma": "src/repro_torch/csrc/flash_attention_bwd.cu"}
     entries = []
     for key, c in cases.items():
         q, k, v, out, dout = c["q"], c["k"], c["v"], c["out"], c["dout"]
@@ -2602,7 +2603,7 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
         if not all(K4_BWD_KERNELS[kind].search(n_) for n_ in split_ms):
             fail(f"K4 bwd {key}: the profiled calls ran {split_ms}, not the "
                  f"{kind} backward's kernels alone")
-        px = [p_ for p_ in ptxas[kind] if kind != "cuda_cores"
+        px = [p_ for p_ in ptxas[kind] if kind != "mma"
               or ("bf16" in p_) == (dt == "bfloat16")]
         print(f"time: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} heads, "
               f"causal={causal}, route {kind}: {ms:.4f} ms on the card "
@@ -2620,9 +2621,7 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
               + (f"; dynamic shared memory {smem[kind]}" if kind in smem
                  else ""))
         entries.append({
-            "name": (f"flash_attention_bwd[{dt}, hd {hd}]" if
-                     kind == "cuda_cores" else
-                     f"flash_attention_bwd_{kind}[{dt}, hd {hd}]"),
+            "name": f"flash_attention_bwd_{kind}[{dt}, hd {hd}]",
             "route": "cuda", "source": srcs[kind], "replaces": K4_REPLACES,
             "replaces_note": "no Pallas backward: the JAX package "
                              "differentiates its attention with jax.grad "
@@ -2837,7 +2836,7 @@ def train_grad_equivalence(dev) -> dict:
 
 def restart_check(dev, tmp: str) -> None:
     """Part (d): the reduced llama3-8b (bf16, chunked: the CUDA-core K4 and
-    the backward kernel at hd 16) trained RESTART_STEPS steps under
+    the mma backward kernel at hd 16) trained RESTART_STEPS steps under
     ``FaultTolerantLoop`` with a failure injected at step RESTART_FAIL_AT
     and a checkpoint every RESTART_EVERY steps ends with parameters and
     moments bitwise those of an uninterrupted run; then a card-side RWKV

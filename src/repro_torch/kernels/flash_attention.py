@@ -47,18 +47,25 @@ log-sum-exp.  Its backward is chosen by dtype and head dim alone
   then a dQ kernel that recomputes S and dP.  Where that dK/dV grid would
   be small, each group's q heads are split over ``bwd_split`` blocks whose
   fp32 partials a fourth kernel sums in a fixed order.
-* float32 at hd 64 and 128: ``csrc/flash_attention_bwd_tf32x3.cu``
+* float32 at hd 64, 128 and 256: ``csrc/flash_attention_bwd_tf32x3.cu``
   (``"tf32x3"``), the same three kernels (and the sum where it splits)
   with their products on the tensor cores in error-compensated TF32 as the
   f32 forward's, each fp32 operand split into a hi and a lo part.  Its
   operands are read K-major only, so Q, dout (dK/dV) and K (dQ) are also
   copied transposed; the block's resident operand keeps its hi part in
-  registers.  It reads views whose rows are unit-stride and 16-byte aligned
-  (others are copied first).
-* hd 16 and 32 in both dtypes, and float32 at hd 256:
-  ``csrc/flash_attention_bwd.cu`` (``"cuda_cores"``, fp32 FMAs, three
-  kernels a call).  At hd 256 the tf32x3 form does not fit: K and V split
-  would fill shared memory alone.
+  registers.  hd 256 has kernels of its own, and always the sum: each
+  block walks two tiles over half of each walk.  K and V stay raw in shared
+  memory (the tensor cores read a TF32 operand truncated, so the raw rows
+  are its hi part) and are A operands split in registers a k-step at a
+  time, the products transposed (dV^T = dout^T P, dK^T = Q^T dS, dQ^T =
+  K^T dS^T) so that no transposed copy is needed.  It reads views whose
+  rows are unit-stride and 16-byte aligned (others are copied first).
+* hd 16 and 32 in both dtypes: ``csrc/flash_attention_bwd.cu``
+  (``"mma"``), one kernel a call on the tensor cores through ``mma.sync``
+  (bf16; f32 in 3xTF32): blocks of 16 keys (dK, dV) and of 16 q rows (dQ)
+  in one grid, each block's 8 warps taking its steps in turn, register
+  tiles FA2 style, D recomputed where it is needed, the warps' partials
+  summed in a fixed order in shared memory.
 
 None uses atomics: a gradient is bitwise the same from call to call.
 ``bwd_launches`` is the kernels a call launches; ``BWD_TILES[route][hd]``
@@ -112,17 +119,17 @@ WGMMA_BLOCKS = {64: ((128, 64), (128, 128)),
                 128: ((128, 64), (128, 128)),
                 256: ((128, 64),)}
 # the backward's dK/dV kernel's (q rows, kv keys) tile by route and head
-# dim (``Cfg<HD>`` in flash_attention_bwd_wgmma.cu and
-# flash_attention_bwd_tf32x3.cu, ``Tile<HD>`` in flash_attention_bwd.cu);
-# the plain backward walks them on the CPU.  f32 at hd 256 stays on the
-# CUDA cores: the tf32x3 form's split K and V of 64 keys alone would take
-# 256 KB of shared memory
+# dim (``Cfg<HD>`` in flash_attention_bwd_wgmma.cu, ``BQ``/``BKV`` and, at
+# hd 256, ``BQ256`` in flash_attention_bwd_tf32x3.cu, ``TILE`` in
+# flash_attention_bwd.cu); the plain backward walks them on the CPU
 BWD_TILES = {"wgmma": {64: (64, 128), 128: (64, 128), 256: (64, 64)},
-             "tf32x3": {64: (32, 64), 128: (32, 64)},
-             "cuda_cores": {16: (64, 64), 32: (64, 64), 256: (32, 32)}}
-# kernels a backward call launches: D, dK and dV, dQ; the tensor-core
-# routes add one that sums the split q heads' partials (``bwd_split`` > 1)
-BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 3, "cuda_cores": 3}
+             "tf32x3": {64: (32, 64), 128: (32, 64), 256: (16, 64)},
+             "mma": {16: (16, 16), 32: (16, 16)}}
+# kernels a backward call launches: the tensor-core routes D, dK and dV,
+# dQ, and one that sums the split q heads' partials (``bwd_split`` > 1);
+# "mma" one kernel that computes D where it needs it and sums its warps'
+# partials itself
+BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 3, "mma": 1}
 # the H100 SXM's SMs: a tensor-core dK/dV grid of fewer blocks has each
 # group's q heads split over more blocks, as far as the SMs and G allow
 BWD_SMS = 132
@@ -148,11 +155,10 @@ def route(dtype: torch.dtype, hd: int) -> str:
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """Which backward runs a call: ``"wgmma"`` (bf16 at hd 64-256),
-    ``"tf32x3"`` (float32 at hd 64 and 128) or ``"cuda_cores"`` (hd 16 and
-    32, and float32 at hd 256)."""
+    ``"tf32x3"`` (float32 at hd 64-256) or ``"mma"`` (hd 16 and 32, both
+    dtypes)."""
     kind = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(dtype)
-    return kind if kind is not None and hd in BWD_TILES[kind] else \
-        "cuda_cores"
+    return kind if kind is not None and hd in BWD_TILES[kind] else "mma"
 
 
 def bwd_split(B: int, H: int, Hkv: int, Sk: int, hd: int,
@@ -170,8 +176,25 @@ def bwd_launches(dtype: torch.dtype, hd: int, B: int, H: int, Hkv: int,
                  Sk: int) -> int:
     """Kernels one backward call launches on the card."""
     kind = bwd_route(dtype, hd)
-    return BWD_LAUNCHES[kind] + (kind != "cuda_cores"
-                                 and bwd_split(B, H, Hkv, Sk, hd, kind) > 1)
+    return BWD_LAUNCHES[kind] + _bwd_sums(kind, hd,
+                                          bwd_split(B, H, Hkv, Sk, hd, kind))
+
+
+def _bwd_sums(kind: str, hd: int, split: int) -> bool:
+    """Whether a tensor-core backward launches its sum kernel: where it
+    splits each group's q heads, and always at f32 hd 256, whose dK/dV and
+    dQ kernels each walk halves of their causal walks (``_bwd_part_floats``)."""
+    return kind != "mma" and (split > 1 or (kind, hd) == ("tf32x3", 256))
+
+
+def _bwd_part_floats(kind: str, hd: int, split: int, B: int, H: int,
+                     Hkv: int, S: int, Sk: int) -> int:
+    """fp32 scratch for the partials the sum kernel adds: dK's and dV's of
+    ``split`` parts of each group's q heads; at f32 hd 256 two parts of
+    each (the q halves) and then dQ's two (the kv halves)."""
+    if (kind, hd) == ("tf32x3", 256):
+        return 2 * 2 * split * B * Hkv * Sk * hd + 2 * B * H * S * hd
+    return 2 * split * B * Hkv * Sk * hd if split > 1 else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,7 +263,7 @@ def _tf32x3_launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher(dtype: torch.dtype):
     lib = _cuda.load(BWD_LIB_NAME, bwd_kernel_source())
-    return lib, _cuda.entry(lib, _BWD_ENTRY[dtype], [ctypes.c_void_p] * 10
+    return lib, _cuda.entry(lib, _BWD_ENTRY[dtype], [ctypes.c_void_p] * 9
                             + [ctypes.c_int] * 7 + [ctypes.c_float]
                             + [ctypes.c_void_p] * 2)
 
@@ -595,8 +618,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
         # each head's lse and D, its rows padded to 128
         stats = torch.empty(2 * B * H * -(-S // 128) * 128,
                             dtype=torch.float32, device=dev)
-        part = torch.empty(2 * split * B * Hkv * Sk * hd, dtype=torch.float32,
-                           device=dev) if split > 1 else None
+        nf = _bwd_part_floats(kind, hd, split, B, H, Hkv, S, Sk)
+        part = torch.empty(nf, dtype=torch.float32, device=dev) if nf else None
         lib, launch = (_wgmma_bwd_launcher if kind == "wgmma"
                        else _tf32x3_bwd_launcher)()
         st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
@@ -610,23 +633,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
                         None if part is None else part.data_ptr(), B, H, Hkv,
                         S, Sk, hd, int(causal), split, hd ** -0.5,
                         ctypes.addressof(st), _cuda.current_stream(dev))
-        n = BWD_LAUNCHES[kind] + (split > 1)
+        n = BWD_LAUNCHES[kind] + _bwd_sums(kind, hd, split)
     else:
-        q, k, v, out, dout = (_unit_rows(t) for t in (q, k, v, out, dout))
+        q, k, v, out, dout = (_aligned_rows(t) for t in (q, k, v, out, dout))
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         lib, launch = _bwd_launcher(dtype)
-        st = (ctypes.c_longlong * 24)(*(t.stride(d) for t in (q, k, v, out,
-                                                              dout, dq, dk,
-                                                              dv)
-                                        for d in range(3)))
+        st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
+                                                    dk, dv)
+                                        for s in _row_strides(t)[0]))
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        D.data_ptr(), B, H, Hkv, S, Sk, hd, int(causal),
-                        hd ** -0.5, ctypes.addressof(st),
-                        _cuda.current_stream(dev))
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+                        Hkv, S, Sk, hd, int(causal), hd ** -0.5,
+                        ctypes.addressof(st), _cuda.current_stream(dev))
         n = BWD_LAUNCHES[kind]
     _cuda.check(lib, rc, "flash_attention backward")
     LAUNCHES[f"bwd/{str(dtype).removeprefix('torch.')}"] += n

@@ -1273,6 +1273,177 @@ def test_flash_attention_bwd_tf32x3_in_a_fresh_thread(cuda_device):
         assert torch.equal(a, b)
 
 
+def _bwd_against_plain(fa, dt, B, H, Hkv, S, hd, causal, q, k, v, g):
+    """One backward call on K4's own forward output: its gradients, a
+    second call's, the plain version's on the route's own dK/dV tiles, and
+    the launches the call counted."""
+    kind = fa.route(dt, hd)
+    out, lse = fa._run(q, k, v, causal, kind, *_forward_blocks(fa, kind, hd),
+                       True)
+    fa.LAUNCHES.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    n = dict(fa.LAUNCHES)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    tq, tk = fa.BWD_TILES[fa.bwd_route(dt, hd)][hd]
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                        block_q=min(tq, S),
+                                        block_k=min(tk, S))
+    return got, again, want, n
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [77, 100, 130])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_flash_attention_bwd_tf32x3_hd256_equals_plain(cuda_device, G, S,
+                                                       causal):
+    """The 3xTF32 backward at hd 256 (its own kernels: tile pairs and
+    halves of each walk, partials summed in a fixed order) against
+    ``flash_attention_bwd_plain`` within K4's f32 backward limit (1e-4):
+    GQA groups 1, 2, 4 and 8, ragged S, causal and not, on transposed
+    views; a second call bitwise equal; 4 launches a call."""
+    from repro_torch.kernels import flash_attention as fa
+    dt, hd, B, Hkv = torch.float32, 256, 1, 2
+    H = G * Hkv
+    assert fa.bwd_route(dt, hd) == "tf32x3"
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, 13 * G + S)
+    got, again, want, n = _bwd_against_plain(fa, dt, B, H, Hkv, S, hd,
+                                             causal, q, k, v, g)
+    assert n == {"bwd/float32": 4} and fa.bwd_launches(dt, hd, B, H, Hkv,
+                                                       S) == 4
+    for a, b, c, x in zip(got, again, want, (q, k, v)):
+        assert a.dtype == dt and a.shape == x.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,Hkv", [(1, 8, 1), (1, 64, 8)])
+def test_flash_attention_bwd_tf32x3_hd256_long_chain(cuda_device, B, H, Hkv):
+    """The 3xTF32 backward at hd 256 over PaliGemma's 1024 rows, causal,
+    a GQA group of 8: over one kv head (its q heads split over 8 blocks, as
+    on PaliGemma's path) and over 8 kv heads (unsplit), so that a block of
+    the first keys sums 8 x 1024 or 1024 q rows a head; within 1e-4 of the
+    plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    dt, S, hd = torch.float32, 1024, 256
+    assert fa.bwd_split(B, H, Hkv, S, hd, "tf32x3") == (8 if Hkv == 1 else 1)
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, H)
+    got, again, want, _ = _bwd_against_plain(fa, dt, B, H, Hkv, S, hd, True,
+                                             q, k, v, g)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_tf32x3_hd256_takes_an_expanded_gradient(
+        cuda_device):
+    """A dout with zero strides at hd 256: rows read through a zero stride
+    as they are, a last dim of one element copied; the gradients equal the
+    plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(cuda_device, torch.float32, 2, 4, 2, 100, 256, 9)
+    out, lse = fa._run(q, k, v, True, "tf32x3", *fa.TF32X3_BLOCKS[256], True)
+    row = np.random.default_rng(9).standard_normal((1, 1, 1, 256))
+    tq, tk = fa.BWD_TILES["tf32x3"][256]
+    for g in (torch.ones((1, 1, 1, 1), device=cuda_device),
+              torch.as_tensor(row, device=cuda_device)):
+        g = g.to(torch.float32).expand(out.shape)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                            causal=True, block_q=tq,
+                                            block_k=tk)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd,dtype", [(256, torch.float32),
+                                      (16, torch.float32),
+                                      (32, torch.bfloat16)])
+def test_flash_attention_bwd_in_a_fresh_thread(cuda_device, hd, dtype):
+    """The hd-256 3xTF32 and the mma backward as the first CUDA work of a
+    new thread (as an autograd worker thread may run it) equal the same
+    call on this thread bitwise."""
+    import threading
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, g = _bwd_inputs(cuda_device, dtype, 1, 4, 2, 130, hd, 5)
+    kind = fa.route(dtype, hd)
+    out, lse = fa._run(q, k, v, True, kind, *_forward_blocks(fa, kind, hd),
+                       True)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    res = {}
+
+    def run():
+        try:
+            res["got"] = fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:      # raised again below, on this thread
+            res["err"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "err" in res:
+        raise res["err"]
+    for a, b in zip(res["got"], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [77, 100, 130])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_mma_equals_plain(cuda_device, dtype, hd, G, S,
+                                              causal):
+    """The mma backward (hd 16 and 32; bf16 on m16n8k16, f32 in 3xTF32 on
+    m16n8k8; one kernel a call) against ``flash_attention_bwd_plain`` on its
+    16 x 16 tiles within K4's backward limits (f32 1e-4, bf16 2e-2): GQA
+    groups 1, 2, 4 and 8, ragged S, causal and not, on transposed views; a
+    second call bitwise equal."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    assert fa.bwd_route(dt, hd) == "mma"
+    B, Hkv = 2, 2
+    H = G * Hkv
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd,
+                             17 * G + S + hd)
+    got, again, want, n = _bwd_against_plain(fa, dt, B, H, Hkv, S, hd,
+                                             causal, q, k, v, g)
+    assert n == {f"bwd/{dtype}": 1}
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b, c, x in zip(got, again, want, (q, k, v)):
+        assert a.dtype == dt and a.shape == x.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_mma_takes_an_expanded_gradient(cuda_device):
+    """The mma backward reads a dout with zero strides as it is (a last dim
+    of one element copied); the gradients equal the plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(cuda_device, torch.float32, 2, 4, 2, 100, 16, 9)
+    out, lse = fa._run(q, k, v, True, "cuda_cores", *fa.CUDA_CORE_BLOCKS,
+                       True)
+    row = np.random.default_rng(9).standard_normal((1, 1, 1, 16))
+    for g in (torch.ones((1, 1, 1, 1), device=cuda_device),
+              torch.as_tensor(row, device=cuda_device)):
+        g = g.to(torch.float32).expand(out.shape)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                            causal=True, block_q=16,
+                                            block_k=16)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_lse_equals_plain(cuda_device, dtype):

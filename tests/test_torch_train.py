@@ -471,7 +471,11 @@ def _qkv(Bq, H, Hkv, Sq, hd, seed, dtype=np.float32):
                                     (*fa.BWD_TILES["wgmma"][256], 256),
                                     # the tf32x3 route's
                                     (*fa.BWD_TILES["tf32x3"][64], 64),
-                                    (*fa.BWD_TILES["tf32x3"][128], 128)])
+                                    (*fa.BWD_TILES["tf32x3"][128], 128),
+                                    (*fa.BWD_TILES["tf32x3"][256], 256),
+                                    # the mma route's (hd 16 and 32)
+                                    (*fa.BWD_TILES["mma"][16], 16),
+                                    (*fa.BWD_TILES["mma"][32], 32)])
 def test_bwd_plain_matches_jax_vjp(blocks, G, causal):
     """``flash_attention_bwd_plain`` on unequal and ragged blocks (block_q,
     block_k, hd; S = 72 at hd 16, else 200: several ragged tiles of the
@@ -503,24 +507,28 @@ def test_bwd_plain_matches_jax_vjp(blocks, G, causal):
 @pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 256])
 def test_bwd_route_by_dtype_and_head_dim(hd, dtype):
     """bf16 at hd 64/128/256 takes the tensor-core backward ("wgmma"), f32
-    at hd 64/128 the 3xTF32 one ("tf32x3"), hd 16/32 and f32 at hd 256 the
-    CUDA-core one; a call launches 3 kernels, 4 where a tensor-core dK/dV
-    grid splits its groups' q heads."""
+    at hd 64/128/256 the 3xTF32 one ("tf32x3"), hd 16/32 the mma.sync one
+    ("mma"); a tensor-core call launches 3 kernels, 4 where its dK/dV grid
+    splits its groups' q heads and always at f32 hd 256 (its kernels walk
+    halves of their causal walks, summed by the fourth); an mma call
+    launches 1."""
     want = ("wgmma" if dtype == torch.bfloat16 and hd >= 64 else
-            "tf32x3" if dtype == torch.float32 and hd in (64, 128) else
-            "cuda_cores")
+            "tf32x3" if dtype == torch.float32 and hd >= 64 else
+            "mma")
     assert fa.bwd_route(dtype, hd) == want
-    if want != "cuda_cores":
+    if want != "mma":
         # llama3-8b's training shape fills the card unsplit; an MQA group
         # over 1024 keys (16 kv tiles of 64, 8 of 128) splits its 8 q heads
+        summed = want == "tf32x3" and hd == 256
         assert fa.bwd_split(2, 32, 8, 2048, hd, want) == 1
-        assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3
+        assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3 + summed
         assert fa.bwd_split(1, 8, 1, 1024, hd, want) == 8
         assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 4
         assert fa.bwd_split(1, 12, 12, 448, hd, want) == 1
-        assert fa.bwd_launches(dtype, hd, 1, 12, 12, 448) == 3
-    elif hd in fa.BWD_TILES["cuda_cores"]:
-        assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 3
+        assert fa.bwd_launches(dtype, hd, 1, 12, 12, 448) == 3 + summed
+    elif hd in fa.BWD_TILES["mma"]:
+        assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 1
+        assert fa.bwd_launches(dtype, hd, 2, 6, 2, 256) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -32,9 +32,9 @@ precision):
   and log-sum-exp) at the train path's llama3-8b shape, q (2, 32, 2048,
   128) over 8 kv heads, causal, in bf16; in f32 at (1, 32, 2048, 128), at
   Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
-  256) over one kv head; in bf16 at the reduced llama3-8b's (2, 6, 256,
-  16); each on the tree's own ``bwd_route``: the call (CUDA events) and,
-  from torch.profiler, each device kernel's time.
+  256) over one kv head; at the reduced llama3-8b's (2, 6, 256, 16) in
+  both dtypes; each on the tree's own ``bwd_route``: the call (CUDA
+  events) and, from torch.profiler, each device kernel's time.
 
 ``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone.  Prints one line per tree and turn and a
 JSON summary last.
@@ -164,7 +164,8 @@ def measure_k4_bwd(t, dev) -> dict:
     """K4's backward at the train path's shape (bf16), in f32 at
     llama3-8b's shape (1, 32, 2048, 128) over 8 kv heads, causal, at
     Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
-    256) over one kv head, causal, and in bf16 at hd 16."""
+    256) over one kv head, causal, and in both dtypes at hd 16 (the reduced
+    llama3-8b's (2, 6, 256, 16) over 2 kv heads, causal)."""
     import torch
 
     import chip_smoke as cs
@@ -175,7 +176,8 @@ def measure_k4_bwd(t, dev) -> dict:
             "f32_llama3_8b": (torch.float32, 1, 32, 8, 2048, 128, True),
             "f32_whisper_small": (torch.float32, 1, 12, 12, 448, 64, False),
             "f32_paligemma_3b": (torch.float32, 1, 8, 1, 1024, 256, True),
-            "bf16_hd16": (torch.bfloat16, 2, 6, 2, 256, 16, True)}.items():
+            "bf16_hd16": (torch.bfloat16, 2, 6, 2, 256, 16, True),
+            "f32_hd16": (torch.float32, 2, 6, 2, 256, 16, True)}.items():
         q, k, v, dout = (torch.randn((B, S, h, hd), generator=g, device=dev)
                          .to(dt).transpose(1, 2) for h in (H, Hkv, Hkv, H))
         kind = t.fa.route(dt, hd)

@@ -3,7 +3,7 @@ them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Thirteen paths, each run with the launch counts set to 0 just before it and
+Fourteen paths, each run with the launch counts set to 0 just before it and
 read just after:
 
 1. *chains*: ``hls.compile`` schedules each stencil chain of
@@ -96,9 +96,24 @@ read just after:
    operations bound and peak memory; (c) the same model at 2 layers in f32
    on 1024 tokens: every gradient through K4 equals the dense path's; (d)
    the reduced llama3-8b under ``FaultTolerantLoop`` with a failure
-   injected ends bitwise where an uninterrupted run does, and a loss with
-   grad through K5 (RWKV) or through K4 at a head dim or dtype no kernel
-   takes raises.
+   injected ends bitwise where an uninterrupted run does; the reduced
+   rwkv6-3b's loss and every gradient through K5's kernels (f32) equal the
+   same model's on the CPU within 2e-4; a loss with grad through K4 at a
+   head dim or dtype no kernel takes raises.
+14. *train_rwkv*: (a) K5's backward kernel (``csrc/wkv6_bwd.cu``, through
+   ``wkv6_bwd``) against autograd of the per-token plain version at
+   rwkv6-3b's heads on 2 x 256 tokens, in f32 and bf16 views, at decays
+   0.1, 1e-3, 1 and the model's, with and without s0 and a final-state
+   gradient: each gradient within 2e-4 of its largest entry (bf16 dr, dk,
+   dv within 1e-2), each limit shown to reject the gradient with the first
+   chunk's contribution lost, bitwise the same in a second call; (b)
+   rwkv6-3b at its published widths cut to 4 of its 32 layers (bf16, remat
+   "full") trained 8 steps on 2 x 2048 tokens by ``launch.train.train``:
+   K5's sequence form twice a layer a step and its backward once, counted
+   by the wrappers and, in the profiling child, by the profiler; the loss
+   finite and falling; ms a step, tokens/s, the operations bound, peak
+   memory and K5's backward's share of the step; (c) the backward timed at
+   that shape beside its bound and its plain version.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -268,6 +283,27 @@ K4_BWD_JAX = ("src/repro/models/layers.py:80 _sdpa and :105 "
               "_sdpa_chunked")
 K5_SEQ = 1024                    # K5's long form: rwkv6-3b's (1, 40, S, 64)
 K5_CHUNKS = (32, 64, 128)        # the sequence form's chunk lengths timed
+# path 14, train_rwkv: rwkv6-3b at its published widths cut to
+# TRAIN_RWKV_LAYERS of 32 layers, bf16, remat "full", trained TRAIN_STEPS
+# steps on TRAIN_B x TRAIN_S tokens (as path 13(b)); K5's backward held
+# against autograd of the per-token plain version at rwkv6-3b's heads on
+# K5_BWD_B x K5_BWD_S tokens, at the decays K5_BWD_DECAYS ("model": the
+# time mix's exp(-exp(x - 4))), with and without s0 and a final-state
+# gradient; each gradient within K5_BWD_TOL of its largest entry (f32; in
+# bf16, dr, dk, dv are rounded once from fp32)
+TRAIN_RWKV_LAYERS = 4
+RWKV_GRAD_S = 256                # path 13(d): the reduced rwkv6-3b's tokens
+K5_BWD_B, K5_BWD_S = 2, 256
+K5_BWD_DECAYS = (0.1, 1e-3, 1.0, "model")
+K5_BWD_TOL = {"float32": {n: 2e-4 for n in ("dr", "dk", "dv", "dw", "du",
+                                            "ds0")},
+              "bfloat16": {"dr": 1e-2, "dk": 1e-2, "dv": 1e-2, "dw": 2e-4,
+                           "du": 2e-4, "ds0": 2e-4}}
+K5_BWD_FLOPS = 14                # per state entry and token (K5_BWD_REPLACES)
+K5_BWD_REPLACES = ("none: the JAX package differentiates "
+                   "src/repro/models/layers.py:527 _wkv_chunk with jax.grad")
+K5_BWD_KERNEL = re.compile(r"\bwkv6_bwd_\w+_kernel")
+K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
 # device activities of a graphed rwkv6-3b step before this slice (PR 16's
@@ -420,16 +456,20 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def ptxas_kernels(log: str) -> list:
-    """Per kernel of an nvcc -Xptxas -v log, by its name and template
-    arguments: registers and bytes spilled."""
+def ptxas_kernels(log: str, kernel: str = r"fa_\w+?_kernel") -> list:
+    """Per kernel of an nvcc -Xptxas -v log whose name matches ``kernel``,
+    by its name and template arguments (f32 / bf16, then the ints):
+    registers and bytes spilled."""
     out, name, spill = [], "", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d(fa_\w+?_kernel)(I(?:Li\d+E)+E)?", ln)
+            m = re.search(r"\d(" + kernel + r")(?:I(f|13__nv_bfloat16)?"
+                          r"((?:Li\d+E)+)E)?", ln)
+            args = [] if not m or not m.group(3) else (
+                ([{"f": "f32"}.get(m.group(2), "bf16")] if m.group(2) else [])
+                + re.findall(r"Li(\d+)E", m.group(3)))
             name = "?" if not m else m.group(1) + (
-                "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
-                if m.group(2) else "")
+                "<" + ",".join(args) + ">" if args else "")
         elif "spill stores" in ln:
             spill = ln.split(",")[1].strip().split(" ")[0]
         elif "Used" in ln and "registers" in ln:
@@ -524,7 +564,9 @@ def profile_main(dev=None) -> int:
     program's calls at full size (``k3_profiles``); the graphed
     decode step of the moe_serve path's DeepSeek-V2 (``moe_step_profile``)
     and of the hybrid_serve path's Jamba (``graph_step_profile``); the
-    train path's step (``train_step_profile``); K1 on the frame
+    train path's step (``train_step_profile``), the train_rwkv path's
+    (``train_rwkv_step_profile``) and K5's backward at its shape
+    (``k5_bwd_profile``); K1 on the frame
     at the DSE's configuration, one call a profile, f32 and bf16; the
     CUDA-core K4 at the reduced path's GQA views, one call a profile, f32
     and bf16; one call of K5's sequence form; the kernels sdpa runs at each
@@ -541,7 +583,9 @@ def profile_main(dev=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"k1": {}, "k3": k3_profiles(dev), "k4": {}, "sdpa": {},
            "moe_step": moe_step_profile(dev),
-           "train_step": train_step_profile(dev)}
+           "train_step": train_step_profile(dev),
+           "train_rwkv_step": train_rwkv_step_profile(dev),
+           "k5_bwd": k5_bwd_profile(dev)}
     cfg = hybrid_config()
     out["hybrid_step"] = graph_step_profile(cfg, hybrid_model(cfg, dev)[0],
                                             dev)
@@ -2839,10 +2883,10 @@ def restart_check(dev, tmp: str) -> None:
     the mma backward kernel at hd 16) trained RESTART_STEPS steps under
     ``FaultTolerantLoop`` with a failure injected at step RESTART_FAIL_AT
     and a checkpoint every RESTART_EVERY steps ends with parameters and
-    moments bitwise those of an uninterrupted run; then a card-side RWKV
-    loss with grad, and K4 at a head dim or dtype no kernel takes, must
-    raise."""
-    import numpy as np
+    moments bitwise those of an uninterrupted run; then the reduced
+    rwkv6-3b's gradients on the card equal the CPU's
+    (``rwkv_card_equals_cpu``), and K4 at a head dim or dtype no kernel
+    takes must raise with grad enabled."""
     import torch
 
     from repro_torch.config import get_config
@@ -2897,18 +2941,9 @@ def restart_check(dev, tmp: str) -> None:
           f"{RESTART_EVERY}, failure injected at step {RESTART_FAIL_AT}: "
           f"{logs['restarted']}; all {len(same)} parameters, moments and "
           f"the count bitwise those of an uninterrupted run")
-    # no path detaches: RWKV (K5 has no backward) and K4 at what no kernel
-    # takes raise with grad enabled
-    rcfg = get_config("rwkv6_3b", reduced=True)
-    rwkv = lm.LM.init(rcfg, torch.Generator(device=dev).manual_seed(1),
-                      dev).requires_grad_(True)
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, rcfg.vocab, (1, 32)), dtype=torch.int32, device=dev)
+    rwkv_card_equals_cpu(dev)
+    # no path detaches: K4 at what no kernel takes raises with grad enabled
     raised = []
-    try:
-        lm.loss_fn(rcfg, rwkv, {"tokens": tokens, "labels": tokens})
-    except NotImplementedError as e:
-        raised.append(f"rwkv6-3b: {e}")
     for hd, dtype in ((48, torch.bfloat16), (64, torch.float16)):
         q = torch.randn((1, 2, 64, hd), device=dev, dtype=dtype,
                         requires_grad=True)
@@ -2916,9 +2951,436 @@ def restart_check(dev, tmp: str) -> None:
             fa.flash_attention(q, q, q, causal=True).sum().backward()
         except ValueError as e:
             raised.append(f"K4 hd {hd} {dtype}: {e}")
-    if len(raised) != 3:
+    if len(raised) != 2:
         fail(f"with grad on the card, only these raised: {raised}")
     print("check: with grad on the card, each raises: " + "; ".join(raised))
+
+
+def rwkv_card_equals_cpu(dev) -> None:
+    """The reduced rwkv6-3b (f32, hd 64) on 2 x RWKV_GRAD_S tokens: the loss
+    and every gradient on the card (K5's sequence form twice a layer, its
+    backward kernel once) equal the same model's on the CPU (the plain
+    versions, the backward's on the kernel's chunks), each within the f32
+    limit of K5's backward (2e-4) of its largest entry."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("rwkv6_3b", reduced=True),
+                              dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    batch = SyntheticLMData(vocab=cfg.vocab, seq_len=RWKV_GRAD_S, batch=2,
+                            seed=1).batch_at(0)
+    res = {}
+    for where in ("cpu", dev):
+        model = lm.LM(cfg, params).to(where).requires_grad_(True)
+        zero_model_counts()
+        loss = lm.loss_fn(cfg, model, {k: torch.as_tensor(v, device=where)
+                                       for k, v in batch.items()})
+        res[str(where)] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, model.param_list())])
+    n = model_counts()
+    want = {"k5/sequence": 2 * wk.SEQUENCE_LAUNCHES * cfg.n_layers,
+            "k5/bwd": wk.BWD_LAUNCHES * cfg.n_layers}
+    if n != want:
+        fail(f"reduced rwkv6-3b on the card: launches {n}, expected {want}")
+    (lc, gc), (lg, gg) = res["cpu"], res[str(dev)]
+    tol = K5_BWD_TOL["float32"]["dr"]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, rel)
+        if not rel <= tol:
+            fail(f"reduced rwkv6-3b: gradient {i} {tuple(b.shape)} on the "
+                 f"card differs from the CPU's by {rel:.3g} of its largest "
+                 f"entry (limit {tol})")
+    if not abs(lg - lc) <= tol * abs(lc):
+        fail(f"reduced rwkv6-3b: loss {lg} on the card, {lc} on the CPU")
+    print(f"check: reduced rwkv6-3b (hd 64, f32) on 2 x {RWKV_GRAD_S} "
+          f"tokens: loss {lg:.6f} on the card, {lc:.6f} on the CPU; every "
+          f"gradient through K5's kernels == the CPU's (plain versions) "
+          f"within {tol} of its largest entry (worst {worst:.3g} over "
+          f"{len(gc)} tensors); launches {n}")
+
+
+# ---------------------------------------------------------------------------
+# path 14, train_rwkv: K5's backward kernel, rwkv6-3b trained at full width
+# ---------------------------------------------------------------------------
+
+
+def train_rwkv_config(**kw):
+    """rwkv6-3b as published, cut to TRAIN_RWKV_LAYERS of its 32 layers
+    (``kw`` replaced too)."""
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config("rwkv6_3b"), **{
+        "n_layers": TRAIN_RWKV_LAYERS, **kw})
+
+
+def rwkv_kernel_class(name: str) -> str:
+    """Where an RWKV training step's device activity goes: K5's backward or
+    forward, a cuBLAS GEMM, the loss's (log-)softmax, or the rest."""
+    if K5_BWD_KERNEL.search(name):
+        return "k5_bwd"
+    if K5_FWD_KERNEL.search(name):
+        return "k5_fwd"
+    if re.search(GEMM_KERNELS, name):
+        return "gemm"
+    return "softmax" if re.search("softmax", name, re.I) else "rest"
+
+
+def train_rwkv_step_profile(dev) -> dict:
+    """The train_rwkv path's model (``train_rwkv_config``, bf16) in the
+    profiling child, after a warm-up step: "k5", [[(kernel, us)] per step],
+    K5's device kernels in each of TRAIN_PROFILED steps, each profiled
+    alone; "split_ms", the device ms a step by ``rwkv_kernel_class``."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+
+    cfg = train_rwkv_config()
+    model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       dev).requires_grad_(True)
+    opt = adamw_init(model.param_list())
+    step = steps_mod.build_train_step(cfg, model)
+    ds = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in ds.batch_at(0).items()}
+    step(model, opt, batch)
+    k5, split, walls = [], collections.Counter(), []
+    for _ in range(TRAIN_PROFILED):
+        acts, wall = device_kernels(lambda: step(model, opt, batch))
+        k5.append([[short_name(n_), us] for n_, us in kernel_names(acts)
+                   if rwkv_kernel_class(n_).startswith("k5")])
+        for n_, us in acts:
+            split[rwkv_kernel_class(n_)] += us / 1e3 / TRAIN_PROFILED
+        walls.append(wall)
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"k5": k5, "split_ms": dict(split), "profiled_wall_ms": walls}
+
+
+def k5_bwd_inputs(dev, B: int, S: int, dtype, w, with_state: bool,
+                  seed: int) -> tuple:
+    """At rwkv6-3b's heads: r, k, v (``dtype``) and w (f32) as (B, H, S,
+    hd) views of (B, S, D) tensors, u, s0 (or None), the output's
+    cotangent (``dtype``, a view likewise) and the final state's (or
+    None).  ``w``: a constant, or "model", the time mix's exp(-exp(x - 4))
+    on x ~ N(0, 1)."""
+    import torch
+
+    from repro_torch.config import get_config
+
+    cfg = get_config("rwkv6_3b")
+    hd = cfg.rwkv_head_dim
+    H = cfg.d_model // hd
+    D = H * hd
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(t):
+        return t.view(B, S, H, hd).transpose(1, 2)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+    r, k, v, dout = (heads(randn((B, S, D)).to(dtype)) for _ in range(4))
+    ww = torch.exp(-torch.exp(randn((B, S, D)) - 4.0)) if w == "model" \
+        else torch.full((B, S, D), w, device=dev)
+    u = randn((H, hd)) * 0.1
+    s0 = randn((B, H, hd, hd)) if with_state else None
+    ds = randn((B, H, hd, hd)) if with_state else None
+    return [r, k, v, heads(ww)], u, s0, dout, ds
+
+
+def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int) -> dict:
+    """K5's backward kernel on rwkv6-3b's heads (K5_BWD_B x K5_BWD_S
+    tokens, bf16 or f32 views) against autograd of the per-token
+    ``wkv6_plain``; a second call bitwise the first; each gradient finite
+    and within K5_BWD_TOL of its largest entry, and each limit shown to
+    reject the gradient of a call that lost the first chunk's contribution
+    (its tokens' output cotangent dropped)."""
+    import torch
+
+    from repro_torch.kernels import wkv6 as wk
+
+    dt = str(dtype).removeprefix("torch.")
+    xs, u, s0, dout, ds = k5_bwd_inputs(dev, K5_BWD_B, K5_BWD_S, dtype, w,
+                                        with_state, seed)
+    hd = xs[0].shape[-1]
+    wk.LAUNCHES.clear()
+    got = wk.wkv6_bwd(*xs, u, s0, dout, ds)
+    again = wk.wkv6_bwd(*xs, u, s0, dout, ds)
+    torch.cuda.synchronize()
+    n = dict(wk.LAUNCHES)
+    what = (f"K5 bwd {dt} ({K5_BWD_B}, {xs[0].shape[1]}, {K5_BWD_S}, {hd}) "
+            f"w={w} {'with' if with_state else 'without'} s0 and ds_fin")
+    if n != {"bwd": 2 * wk.BWD_LAUNCHES}:
+        fail(f"{what}: launches {n}, expected {2 * wk.BWD_LAUNCHES}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what}: a second call on the same inputs differs from the "
+             "first")
+    chunk = wk.BWD_CHUNK[hd]
+
+    def plain_grads(drop: bool):
+        ins = [t.detach().float().requires_grad_() for t in (*xs, u)]
+        if with_state:
+            ins.append(s0.detach().clone().requires_grad_())
+        o, s_ = wk.wkv6_plain(*ins[:5], ins[5] if with_state else None)
+        d = dout.float().clone()
+        if drop:
+            d[:, :, :chunk] = 0
+        outs, cots = ([o, s_], [d, ds]) if with_state else ([o], [d])
+        return torch.autograd.grad(outs, ins, cots)
+
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    tol = K5_BWD_TOL[dt]
+    want = plain_grads(False)
+    errs, scale = {}, {}
+    for name, a, b, x in zip(names, got, want, (*xs, u, s0)):
+        if a.dtype != x.dtype or a.shape != x.shape:
+            fail(f"{what}: {name} is {a.dtype} {tuple(a.shape)}, its input "
+                 f"{x.dtype} {tuple(x.shape)}")
+        if not torch.isfinite(a).all():
+            fail(f"{what}: {name} is not finite")
+        errs[name] = (a.float() - b).abs().max().item()
+        scale[name] = b.abs().max().item()
+        if not errs[name] <= tol[name] * scale[name]:
+            fail(f"{what}: {name} differs from autograd of the plain version"
+                 f" by {errs[name]:.3g}, over {tol[name]} of its largest "
+                 f"entry {scale[name]:.3g}")
+    for name, a, b in zip(names, plain_grads(True), want):
+        if (a - b).abs().max().item() <= tol[name] * scale[name]:
+            fail(f"{what}: the limit {tol[name]} on {name} accepts the "
+                 f"gradient with the first chunk ({chunk} tokens) lost")
+    print(f"check: {what}, views: every gradient == autograd of the plain "
+          f"version within its limit of its largest entry and bitwise the "
+          f"same in a second call (max |diff| "
+          + ", ".join(f"{k_} {e:.3g} of {scale[k_]:.3g} (limit "
+                      f"{tol[k_]})" for k_, e in errs.items())
+          + f"); each limit rejects the gradient with the first chunk of "
+          f"{chunk} tokens lost; launches {n}")
+    return {"errs": errs, "scale": scale}
+
+
+def k5_bwd_checks(dev) -> dict:
+    """Path 14's kernel checks: ``k5_bwd_case`` in f32 and bf16 at each of
+    K5_BWD_DECAYS, with and without s0 and a final-state gradient."""
+    import torch
+
+    out = {}
+    for i, (dt, w, st) in enumerate((dt, w, st) for dt in ("float32",
+                                                           "bfloat16")
+                                    for w in K5_BWD_DECAYS
+                                    for st in (False, True)):
+        out[f"{dt}/{w}/{'state' if st else 'none'}"] = k5_bwd_case(
+            dev, getattr(torch, dt), w, st, seed=40 + i)
+        torch.cuda.empty_cache()
+    return out
+
+
+def k5_bwd_profile(dev) -> list:
+    """[[(kernel, us)] per call]: K5's backward at the train_rwkv path's
+    shape (bf16 views, the model's decays), K4_BWD_PROFILED_CALLS calls,
+    each profiled alone."""
+    import torch
+
+    from repro_torch.kernels import wkv6 as wk
+
+    xs, u, _, dout, _ = k5_bwd_inputs(dev, TRAIN_B, TRAIN_S, torch.bfloat16,
+                                      "model", False, seed=21)
+    wk.wkv6_bwd(*xs, u, None, dout)
+    return [[[short_name(n_), us] for n_, us in kernel_names(device_kernels(
+        lambda: wk.wkv6_bwd(*xs, u, None, dout))[0])]
+        for _ in range(K4_BWD_PROFILED_CALLS)]
+
+
+def train_rwkv_path(dev, prof: dict) -> dict:
+    """Path 14: rwkv6-3b at its published widths cut to TRAIN_RWKV_LAYERS
+    layers (bf16, remat "full") trained TRAIN_STEPS steps on TRAIN_B x
+    TRAIN_S tokens of ``SyntheticLMData`` by ``launch.train.train``; every
+    layer's time mix runs K5's sequence form twice a step (remat) and its
+    backward once."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = train_rwkv_config()
+    hd = cfg.rwkv_head_dim
+    H = cfg.d_model // hd
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # earlier paths' tensors
+    zero_model_counts()
+    t0 = time.perf_counter()
+    res = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                      log_every=1, seed=0, device=dev)
+    secs = time.perf_counter() - t0
+    n = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print("train_rwkv path launches: " + json.dumps(n, sort_keys=True))
+    per_step = {"k5/sequence": 2 * wk.SEQUENCE_LAUNCHES * L,
+                "k5/bwd": wk.BWD_LAUNCHES * L}
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if n != want:
+        fail(f"train_rwkv path launches {n}, expected {want} ({TRAIN_STEPS} "
+             f"steps x {per_step})")
+    tprof = prof["train_rwkv_step"]
+    seen = [collections.Counter(rwkv_kernel_class(n_) for n_, _ in s)
+            for s in tprof["k5"]]
+    most = {c: max(s[c] for s in seen) for c in ("k5_fwd", "k5_bwd")}
+    if most != {"k5_fwd": per_step["k5/sequence"],
+                "k5_bwd": per_step["k5/bwd"]}:
+        fail(f"train_rwkv path: the profiling child saw K5 kernels {seen} in "
+             f"its profiled steps, expected {per_step} a step")
+    bwd_names = sorted({n_ for s in tprof["k5"] for n_, _ in s
+                        if K5_BWD_KERNEL.search(n_)})
+    if len({re.search(r"wkv6_bwd_(\w+?)_kernel", n_).group(1)
+            for n_ in bwd_names}) != wk.BWD_LAUNCHES:
+        fail(f"train_rwkv path: the step's backward ran {bwd_names}, not "
+             f"the {wk.BWD_LAUNCHES} kernels of csrc/wkv6_bwd.cu")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or not \
+            losses[-1] < losses[0]:
+        fail(f"train_rwkv path: losses {losses} are not finite and falling")
+    b0 = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLMData(
+        vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B, seed=0
+    ).batch_at(0).items()}
+    with torch.no_grad():
+        again = lm.loss_fn(cfg, res["model"], b0).item()
+    if not again < losses[0]:
+        fail(f"train_rwkv path: the trained model's loss on the first "
+             f"step's batch is {again}, the initial model's {losses[0]}")
+    n_params = sum(p.numel() for p in res["model"].param_list())
+    gathered = 0 if cfg.tie_embeddings else res["model"].embed.numel()
+    tokens = TRAIN_B * TRAIN_S
+    ms = statistics.median(res["step_s"][TRAIN_WARMUP:]) * 1e3
+    # K5 on the fp32 CUDA cores: the forward's 5 flops per state entry and
+    # token twice (remat), the backward's K5_BWD_FLOPS once
+    k5_flops = L * (2 * 5 + K5_BWD_FLOPS) * tokens * H * hd * hd
+    gemm_flops = 6 * (n_params - gathered) * tokens
+    b_ms = (gemm_flops / BF16_FLOP_PER_S + k5_flops / FP32_FLOP_PER_S) * 1e3
+    split = tprof["split_ms"]
+    busy = sum(split.values())
+    share = split.get("k5_bwd", 0.0) / busy
+    print(f"train_rwkv: rwkv6-3b full width, {L} of 32 layers, "
+          f"{n_params:,} parameters, bf16, remat {cfg.remat}: {TRAIN_STEPS} "
+          f"steps on {TRAIN_B} x {TRAIN_S} tokens in {secs:.1f} s; "
+          f"{ms:.2f} ms a step (median after {TRAIN_WARMUP} warm-up; "
+          + ", ".join(f"{x * 1e3:.1f}" for x in res["step_s"])
+          + f"), {tokens / ms * 1e3:.0f} tokens/s; operations bound "
+          f"{b_ms:.2f} ms (6 x {n_params - gathered:,} parameters (the "
+          f"{gathered:,}-entry embedding, a gather, left out) x tokens = "
+          f"{gemm_flops / 1e12:.2f} TFLOP at 989 TFLOP/s, + K5 "
+          f"{k5_flops / 1e12:.3f} TFLOP at 67 TFLOP/s on the fp32 CUDA "
+          f"cores), {b_ms / ms:.1%} of it; peak memory "
+          f"{peak / 2**30:.1f} GiB ({held / 2**30:.1f} GiB of it held by "
+          f"earlier paths' tensors when the path began); losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; on the first step's batch {losses[0]:.4f} before, "
+          f"{again:.4f} after")
+    print(f"train_rwkv: where a step goes (profiling child, {TRAIN_PROFILED} "
+          f"steps): device busy {busy:.2f} ms of the profiled wall "
+          + ", ".join(f"{x:.2f}" for x in tprof["profiled_wall_ms"])
+          + " ms; " + ", ".join(f"{k} {v:.2f} ms ({v / busy:.0%})" for k, v
+                                 in sorted(split.items(), key=lambda kv:
+                                           -kv[1]))
+          + f"; K5's backward {share:.1%} of the device busy time")
+    print(f"check: train_rwkv: every loss finite, the last "
+          f"({losses[-1]:.4f}) below the first ({losses[0]:.4f}); on the "
+          f"first step's batch the trained model's loss {again:.4f} below "
+          f"the initial {losses[0]:.4f}; K5 launches per step {per_step} by "
+          f"the wrappers, kernels {most} most seen by the profiler in the "
+          f"profiling child's steps; the backward's kernels "
+          + ", ".join(bwd_names))
+    del res
+    torch.cuda.empty_cache()
+    return {"launches": n["k5/bwd"], "ms_per_step": ms, "bound_ms": b_ms,
+            "peak_bytes": peak, "losses": losses, "first_batch_after": again,
+            "split_ms": split, "k5_bwd_share": share}
+
+
+def k5_bwd_entries(dev, cases: dict, launches: int, prof: dict) -> list:
+    """The backward's ``kernels`` entry: at the train_rwkv path's shape
+    (TRAIN_B x TRAIN_S tokens of rwkv6-3b's heads, bf16 views, the model's
+    decays) held against ``wkv6_bwd_chunked_plain`` and timed beside it;
+    each kernel's device time off the profiler in the profiling child;
+    ``launches`` from the path.  The bound: r, k, v, dout and w read once,
+    dr, dk, dv, dw, du and ds0 written once; K5_BWD_FLOPS per state entry
+    and token on the fp32 CUDA cores."""
+    import torch
+
+    from repro_torch.kernels import wkv6 as wk
+
+    if launches < 1:
+        fail("K5 bwd was not launched on its path")
+    xs, u, _, dout, _ = k5_bwd_inputs(dev, TRAIN_B, TRAIN_S, torch.bfloat16,
+                                      "model", False, seed=21)
+    B, H, S, hd = xs[0].shape
+    D = H * hd
+    got = wk.wkv6_bwd(*xs, u, None, dout)
+    want = wk.wkv6_bwd_chunked_plain(*xs, u, None, dout, None,
+                                     wk.BWD_CHUNK[hd])
+    tol = K5_BWD_TOL["bfloat16"]
+    errs = {}
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        errs[name] = (a.float() - b).abs().max().item()
+        if not errs[name] <= tol[name] * b.abs().max().item():
+            fail(f"K5 bwd at the train shape: {name} differs from the plain "
+                 f"version by {errs[name]:.3g}")
+    del want
+    torch.cuda.empty_cache()
+    ms, host_ms = time_ms(lambda: wk.wkv6_bwd(*xs, u, None, dout), 10)
+    plain_ms = time_ms(lambda: wk.wkv6_bwd_chunked_plain(
+        *xs, u, None, dout, None, wk.BWD_CHUNK[hd]), 2, warmup=1)[0]
+    torch.cuda.empty_cache()
+    # r, k, v, dout read and dr, dk, dv written in bf16; w read and dw
+    # written in f32; u, du and ds0 in f32
+    nbytes = (7 * 2 + 2 * 4) * B * S * D + 2 * 4 * H * hd + 4 * B * H * hd * hd
+    flops = K5_BWD_FLOPS * B * H * S * hd * hd
+    b_ms, b_by = bound(nbytes, flops)
+    calls = prof["k5_bwd"]
+    split_ms = {}
+    for name in sorted({n_ for c_ in calls for n_, _ in c_}):
+        split_ms[name] = statistics.median(
+            sum(us for n_, us in c_ if n_ == name) for c_ in calls) / 1e3
+    if len(split_ms) != wk.BWD_LAUNCHES or not all(
+            K5_BWD_KERNEL.search(n_) for n_ in split_ms):
+        fail(f"K5 bwd: the profiled calls ran {split_ms}, not the "
+             f"{wk.BWD_LAUNCHES} kernels of csrc/wkv6_bwd.cu")
+    px = ptxas_kernels(build_log(wk.BWD_LIB_NAME, wk.bwd_kernel_source()),
+                      r"wkv6_bwd_\w+?_kernel")
+    worst = max(max(c["errs"].values()) for c in cases.values())
+    print(f"time: K5 bwd bf16 ({B}, {H}, {S}, {hd}), views, the model's "
+          f"decays: {ms:.4f} ms on the card, {host_ms:.4f} ms host per call "
+          f"(bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s; {b_ms / ms:.1%}); by kernel"
+          f" (profiler) " + ", ".join(f"{n_} {v_:.4f} ms" for n_, v_ in
+                                      split_ms.items())
+          + f"; plain {plain_ms:.3f} ms; no PyTorch call computes it; "
+          f"launches on its path {launches} ({wk.BWD_LAUNCHES} a call); "
+          f"against the plain version here (max |diff|) "
+          + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+          + "; ptxas " + " | ".join(px))
+    return [{
+        "name": "wkv6_bwd[sequence]", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+        "replaces": K5_BWD_REPLACES, "launches": launches,
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "no PyTorch call computes it", "host_ms": host_ms,
+        "bytes": nbytes, "flops": flops, "shape": [B, H, S, hd],
+        "chunk": wk.BWD_CHUNK[hd], "launches_per_call": wk.BWD_LAUNCHES,
+        "kernel_ms": split_ms, "train_shape_errors": errs,
+        "check_errors": {k: c["errs"] for k, c in cases.items()},
+        "tolerance": K5_BWD_TOL, "ptxas": px, "path": "train_rwkv"}]
 
 
 def main() -> int:
@@ -3026,7 +3488,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
     sources = {sp.LIB_NAME: sp.kernel_source(), **fa.kernel_sources(),
-               wk.LIB_NAME: wk.kernel_source()}
+               wk.LIB_NAME: wk.kernel_source(),
+               wk.BWD_LIB_NAME: wk.bwd_kernel_source()}
     for k in ([s[1] for s in streamed.values()]
               + [w[1] for w in whole.values()]
               + [ks[0] for ks in f64.values()]):
@@ -3040,8 +3503,8 @@ def main() -> int:
     t0 = time.perf_counter()
     prof = profiles()
     print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's, "
-          f"the MoE step's, Jamba's step's and the train step's device "
-          f"kernels off "
+          f"the MoE step's, Jamba's step's, the train steps' and K5's "
+          f"backward's device kernels off "
           f"torch.profiler in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -3365,6 +3828,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
         restart_check(dev, tmp)
     torch.cuda.empty_cache()
+    # ---- path 14, train_rwkv: K5's backward, rwkv6-3b trained --------------
+    k5_bwd_cases = k5_bwd_checks(dev)
+    rwkv_trained = train_rwkv_path(dev, prof)
     entries += k4_entries(
         dev, prefilled["launches"], equiv, reduced, prof, moe_prefilled,
         [("hybrid_prefill", hybrid["prefill"], HYBRID_PREFILL_S,
@@ -3376,6 +3842,8 @@ def main() -> int:
     entries += k4_bwd_entries(dev, bwd_cases, {
         "bfloat16": trained["launches"], "float32": grad_eq["launches"]},
         prof)
+    entries += k5_bwd_entries(dev, k5_bwd_cases, rwkv_trained["launches"],
+                              prof)
 
     print(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -175,3 +175,10 @@ def as_input(x, dtype: torch.dtype, device: torch.device, shape: tuple,
         raise ValueError(f"{what}: shape {tuple(t.shape)}, kernel takes "
                          f"{tuple(shape)}")
     return t
+
+
+def unit_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy where its last dim is not unit-stride
+    (a kernel that reads any layout whose rows are; an expanded gradient
+    has stride 0 there)."""
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()

@@ -442,12 +442,6 @@ def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     return t if _row_strides(t)[0] is not None else t.contiguous()
 
 
-def _unit_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a contiguous copy where its last dim is not unit-stride
-    (the CUDA-core kernel reads any layout whose rows are)."""
-    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
-
-
 def flash_attention(q, k, v, *, causal: bool = True,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
@@ -557,7 +551,7 @@ def _run(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
                         int(causal), hd ** -0.5, ctypes.addressof(st),
                         _cuda.current_stream(dev))
     else:
-        q, k, v = (_unit_rows(t) for t in (q, k, v))
+        q, k, v = (_cuda.unit_rows(t) for t in (q, k, v))
         lib, launch = _launcher(dtype)
         out = torch.empty_like(q)
         st = (ctypes.c_longlong * 12)(*(t.stride(d) for t in (q, k, v, out)

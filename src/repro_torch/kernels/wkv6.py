@@ -25,6 +25,20 @@ update).
 ``wkv6_plain`` is the plain per-token recurrence, independent of the
 kernels' schedule; ``wkv6_chunked_plain`` walks the chunk schedule's three
 phases in PyTorch, and the wrapper runs it for tensors on the CPU.
+
+The gradient: where grad is enabled and r, k, v, w, u or s0 requires grad,
+``wkv6_state`` runs as a ``torch.autograd.Function`` (``_WKV``) on either
+device.  Its forward is the kernels above; its backward is
+``csrc/wkv6_bwd.cu`` on the card (``wkv6_bwd``, four launches) and
+``wkv6_bwd_chunked_plain``, the same schedule in PyTorch, on the CPU.  The
+JAX package has no Pallas backward for K5: it differentiates the chunk form
+(``repro.models.layers._wkv_chunk``) with ``jax.grad``.  The backward walks
+the reverse recurrence dS_t = diag(w_t) dS_{t+1} + r_t^T do_t in chunks of
+``BWD_CHUNK[hd]`` tokens and needs the forward state S_t beside dS_{t+1} at
+every token (dw_t = rowsum(dS_{t+1} * S_t)).  S_t cannot be rebuilt
+backwards without dividing by w, so each chunk's starting state is
+recomputed (as the forward's phases 1-2 do) and each chunk's states are
+rebuilt forward from it; nothing is saved from the forward but its inputs.
 """
 from __future__ import annotations
 
@@ -39,13 +53,22 @@ from .. import _cuda
 
 SOURCE = _cuda.CSRC_DIR / "wkv6.cu"
 LIB_NAME = "wkv6"
+BWD_SOURCE = _cuda.CSRC_DIR / "wkv6_bwd.cu"
+BWD_LIB_NAME = "wkv6_bwd"
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
 CHUNK = 64                      # tokens per chunk of the sequence form
 SEQUENCE_LAUNCHES = 3           # launches per call of the sequence form
+# the backward's chunk by head dim (its per-chunk walk keeps the states of
+# a chunk's segment starts in shared memory: 7 of 16 KB at hd 64, 1 of 64
+# KB at hd 128), and its launches per call
+BWD_CHUNK = {16: 64, 32: 64, 64: 64, 128: 32}
+BWD_LAUNCHES = 4
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
+_BWD_ENTRY = {torch.float32: "wkv6_bwd_f32", torch.bfloat16: "wkv6_bwd_bf16"}
 
-# launches by form: "step" (S == 1, the decode step) or "sequence" (S > 1,
-# three per call), counted at the launch
+# launches by form: "step" (S == 1, the decode step), "sequence" (S > 1,
+# three per call) and "bwd" (the backward, four per call), counted at the
+# launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -58,6 +81,18 @@ def kernel_source() -> str:
 def _launcher(dtype: torch.dtype):
     lib = _cuda.load(LIB_NAME, kernel_source())
     return lib, _cuda.entry(lib, _ENTRY[dtype], [ctypes.c_void_p] * 11
+                            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_kernel_source() -> str:
+    return BWD_SOURCE.read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher(dtype: torch.dtype):
+    lib = _cuda.load(BWD_LIB_NAME, bwd_kernel_source())
+    return lib, _cuda.entry(lib, _BWD_ENTRY[dtype], [ctypes.c_void_p] * 19
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
@@ -118,6 +153,85 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, chunk: int = CHUNK):
     return out.reshape(B, H, nc * chunk, hd)[:, :, :S], s
 
 
+def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
+                           chunk: int = CHUNK):
+    """The backward kernel's schedule in PyTorch, f32: the gradients of
+    ``wkv6_plain``'s (out, final state) given ``dout`` (B, H, S, hd) and
+    ``ds_fin`` (B, H, hd, hd, or None for none).  (1) every chunk's state
+    contribution from zero L_c, its decay product P_c and its reverse
+    contribution G_c = sum_t diag(prod_{m<t} w_m) r_t^T do_t; (2) the
+    chunks' starting states in order and the gradient at each chunk's end
+    in reverse, dS <- diag(P_c) dS + G_c from ``ds_fin``; (3) every chunk's
+    states rebuilt forward from its start, then its tokens walked back:
+    dr_t = S_t do_t + u k_t (v_t.do_t), dk_t = dS_{t+1} v_t + u r_t
+    (v_t.do_t), dv_t = dS_{t+1}^T k_t + (r_t.(u k_t)) do_t, dw_t =
+    rowsum(dS_{t+1} * S_t), dS_t = diag(w_t) dS_{t+1} + r_t^T do_t.  du
+    sums r_t k_t (v_t.do_t) per (batch, chunk), then over both.  A ragged
+    last chunk is padded as the forward pads it.  Only multiplies by w.
+    Returns (dr, dk, dv, dw (B, H, S, hd), du (H, hd), ds0 (B, H, hd, hd)),
+    all f32."""
+    B, H, S, hd = r.shape
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    dev = r.device
+
+    def chunks(x, fill):          # (B, H, nc, C, hd), f32
+        x = x.float()
+        x = torch.cat([x, x.new_full((B, H, pad, hd), fill)], dim=2) \
+            if pad else x
+        return x.reshape(B, H, nc, chunk, hd)
+    rc, kc, vc, wc, dc = (chunks(x, f) for x, f in (
+        (r, 0.0), (k, 0.0), (v, 0.0), (w, 1.0), (dout, 0.0)))
+    zero = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev)
+    # (1) local contributions L and G and decay products P of every chunk
+    L = torch.zeros((B, H, nc, hd, hd), dtype=torch.float32, device=dev)
+    G = torch.zeros_like(L)
+    P = torch.ones((B, H, nc, hd), dtype=torch.float32, device=dev)
+    for j in range(chunk):
+        G = G + (P * rc[:, :, :, j])[..., None] * dc[:, :, :, j, None, :]
+        L = L * wc[:, :, :, j, :, None] \
+            + kc[:, :, :, j, :, None] * vc[:, :, :, j, None, :]
+        P = P * wc[:, :, :, j]
+    # (2) starting states in order, the gradient at each chunk's end in
+    # reverse
+    s = zero if s0 is None else s0.float()
+    starts = []
+    for c in range(nc):
+        starts.append(s)
+        s = P[:, :, c, :, None] * s + L[:, :, c]
+    ds = zero if ds_fin is None else ds_fin.float()
+    ends = [zero] * nc
+    for c in reversed(range(nc)):
+        ends[c] = ds
+        ds = P[:, :, c, :, None] * ds + G[:, :, c]
+    # (3) every chunk's states rebuilt forward, its tokens walked back
+    st = torch.stack(starts, dim=2)                          # (B,H,nc,hd,hd)
+    states = []
+    for j in range(chunk):
+        states.append(st)
+        st = st * wc[:, :, :, j, :, None] \
+            + kc[:, :, :, j, :, None] * vc[:, :, :, j, None, :]
+    dS = torch.stack(ends, dim=2)
+    uf = u.float()[:, None, :]                               # (H, 1, hd)
+    grads = [torch.empty((B, H, nc, chunk, hd), dtype=torch.float32,
+                         device=dev) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((B, H, nc, hd), dtype=torch.float32, device=dev)
+    for j in reversed(range(chunk)):
+        rj, kj, vj, wj, dj = (x[:, :, :, j] for x in (rc, kc, vc, wc, dc))
+        vd = (vj * dj).sum(-1, keepdim=True)                 # v_t . do_t
+        dr[:, :, :, j] = (states[j] * dj[..., None, :]).sum(-1) \
+            + uf * kj * vd
+        dk[:, :, :, j] = (dS * vj[..., None, :]).sum(-1) + uf * rj * vd
+        dv[:, :, :, j] = (dS * kj[..., :, None]).sum(-2) \
+            + (rj * uf * kj).sum(-1, keepdim=True) * dj
+        dw[:, :, :, j] = (dS * states[j]).sum(-1)
+        du = du + rj * kj * vd
+        dS = dS * wj[..., :, None] + rj[..., :, None] * dj[..., None, :]
+    return (*(x.reshape(B, H, nc * chunk, hd)[:, :, :S] for x in grads),
+            du.sum(dim=(0, 2)), ds)
+
+
 def _token_strides(t: torch.Tensor, what: str) -> list[int]:
     """(batch, head, token) element strides of a (B, H, S, hd) view whose
     last dim is unit-stride; raises otherwise."""
@@ -151,9 +265,14 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
     kernel, S > 1 the chunk schedule in chunks of ``chunk`` tokens (three
     launches).  ``device`` defaults to where the tensors lie (the card for
     numpy input): the kernels run on the card, the chunk schedule's plain
-    version on the CPU.  The plain version is differentiable by autograd;
-    the kernels are not yet: on the card, a call with grad enabled and an
-    input that requires grad raises ``NotImplementedError``."""
+    version on the CPU.
+
+    With grad enabled and r, k, v, w, u or s0 requiring grad, the call runs
+    as an autograd Function (``_WKV``) whose backward is ``wkv6_bwd``: the
+    output then takes r's memory layout (for the layer's views, that of
+    its (B, S, D) activations), both outputs are differentiable, and
+    ``out=`` and ``s_out=`` are refused (an in-place write takes no
+    grad)."""
     dev = _cuda.resolve_device([x for x in (r, k, v, w, u, s0, out, s_out)
                                 if x is not None], device)
     if getattr(r, "ndim", 0) != 4:
@@ -176,22 +295,31 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
     u = _cuda.as_input(u, torch.float32, dev, (H, hd), "u")
     if s0 is not None:
         s0 = _state(s0, dev, (B, H, hd, hd), "s0")
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (r, k, v, w, u, s0)):
+        if out is not None or s_out is not None:
+            raise ValueError("wkv6: out= and s_out= are in-place writes, "
+                             "which take no grad; with grad enabled the "
+                             "outputs are returned")
+        return _WKV.apply(r, k, v, w, u, s0, chunk)
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
     out = _cuda.as_input(out, dtype, dev, shape, "out", contiguous=False)
     s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev) \
         if s_out is None else _state(s_out, dev, (B, H, hd, hd), "s_out")
+    return _run(r, k, v, w, u, s0, out, s_out, chunk)
+
+
+def _run(r, k, v, w, u, s0, out, s_out, chunk: int):
+    """The forward on checked inputs, writing ``out`` and ``s_out``: the
+    chunk schedule's plain version on the CPU, else the step kernel (S =
+    1) or the sequence form's three launches."""
+    dev = r.device
+    B, H, S, hd = r.shape
     strides = [_token_strides(t, n) for t, n in ((r, "r"), (k, "k"),
                                                  (v, "v"), (w, "w"),
                                                  (out, "out"))]
     chunk = min(chunk, S)
-    if dev.type == "cuda" and torch.is_grad_enabled() and any(
-            isinstance(x, torch.Tensor) and x.requires_grad
-            for x in (r, k, v, w, u, s0)):
-        raise NotImplementedError(
-            "wkv6: the kernels have no backward yet (ROADMAP queue 1: K5's "
-            "backward kernel, RWKV training on the card); a loss through "
-            "wkv6_state on the card cannot be differentiated")
     if dev.type == "cpu":
         o, s = wkv6_chunked_plain(r.float(), k.float(), v.float(), w, u, s0,
                                   chunk)
@@ -203,7 +331,7 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
         Ls = torch.empty((B * H * nc * hd * hd,), dtype=torch.float32,
                          device=dev)
         Ps = torch.empty((B * H * nc * hd,), dtype=torch.float32, device=dev)
-    lib, launch = _launcher(dtype)
+    lib, launch = _launcher(r.dtype)
     st = (ctypes.c_longlong * 15)(*(s for t in strides for s in t))
     with torch.cuda.device(dev):
         rc = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -218,3 +346,90 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
     else:
         LAUNCHES["sequence"] += SEQUENCE_LAUNCHES
     return out, s_out
+
+
+def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
+    """(dr, dk, dv, dw, du, ds0): the gradients of ``wkv6_state``'s (out,
+    final state) with respect to r, k, v, w, u and s0, given ``dout`` (B, H,
+    S, hd) and ``ds_fin`` (B, H, hd, hd; None: the final state takes no
+    gradient).  r, k, v, dout of one dtype (float32 or bfloat16; views with
+    a unit-stride last dim), w, u, s0 (None: zeros) float32, as
+    ``wkv6_state`` takes them (it checks them; this function does not, but
+    for the head dim and dtype).  dr, dk, dv come in r's dtype (rounded once
+    from fp32), dw, du, ds0 in float32; dr, dk, dv and dw take the memory
+    layout of their inputs (``torch.empty_like``), so the gradient of a
+    layer's (B, H, S, hd) view is a view of a (B, S, D) tensor.  On the card
+    ``csrc/wkv6_bwd.cu`` in ``BWD_LAUNCHES`` launches (chunks of
+    ``BWD_CHUNK[hd]``); on the CPU ``wkv6_bwd_chunked_plain`` on the same
+    chunks.  A head dim the kernel is not built for raises."""
+    B, H, S, hd = r.shape
+    dtype = r.dtype
+    if hd not in BWD_CHUNK or dtype not in _BWD_ENTRY:
+        raise NotImplementedError(
+            f"wkv6 backward: no kernel for hd={hd}, {dtype}; the backward "
+            f"kernel is built for hd in {tuple(BWD_CHUNK)}, float32 and "
+            "bfloat16")
+    chunk = BWD_CHUNK[hd]
+    dev = r.device
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dw = torch.empty_like(w)
+    if dev.type == "cpu":
+        got = wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin, chunk)
+        for t, g in zip((dr, dk, dv, dw), got):
+            t.copy_(g)
+        return dr, dk, dv, dw, got[4], got[5]
+    dout = _cuda.unit_rows(dout.to(dtype))
+    if ds_fin is not None:
+        ds_fin = ds_fin.float().contiguous()
+    du = torch.empty((H, hd), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    nc = -(-S // chunk)
+    # chunk starting states (over L_c), gradients at chunk ends (over G_c),
+    # decay products, du's partials per (batch, head, chunk)
+    Ls, Gs = (torch.empty((B * H * nc * hd * hd,), dtype=torch.float32,
+                          device=dev) for _ in range(2))
+    Ps, dup = (torch.empty((B * H * nc * hd,), dtype=torch.float32,
+                           device=dev) for _ in range(2))
+    strides = [_token_strides(t, n) for t, n in (
+        (r, "r"), (k, "k"), (v, "v"), (w, "w"), (dout, "dout"), (dr, "dr"),
+        (dk, "dk"), (dv, "dv"), (dw, "dw"))]
+    st = (ctypes.c_longlong * 27)(*(s for t in strides for s in t))
+    lib, launch = _bwd_launcher(dtype)
+    with torch.cuda.device(dev):
+        rc = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), None if s0 is None else s0.data_ptr(),
+                    dout.data_ptr(),
+                    None if ds_fin is None else ds_fin.data_ptr(),
+                    dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+                    Ls.data_ptr(), Gs.data_ptr(), Ps.data_ptr(),
+                    dup.data_ptr(), ctypes.addressof(st), B, H, S, hd, chunk,
+                    _cuda.current_stream(dev))
+    _cuda.check(lib, rc, "wkv6 backward")
+    LAUNCHES["bwd"] += BWD_LAUNCHES
+    return dr, dk, dv, dw, du, ds0
+
+
+class _WKV(torch.autograd.Function):
+    """K5 with its gradient: the forward kernels (the output in r's
+    layout), then ``wkv6_bwd``.  Saves the inputs alone: the backward
+    recomputes the chunks' starting states."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        B, H, S, hd = r.shape
+        out = torch.empty_like(r)
+        s_out = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        _run(r, k, v, w, u, s0, out, s_out, chunk)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return out, s_out
+
+    @staticmethod
+    def backward(ctx, dout, ds_fin):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin)
+        return dr, dk, dv, dw, du, None if s0 is None else ds0, None

@@ -11,8 +11,8 @@ draws from ``jax.random``: other numbers), the batches are
 ``SyntheticLMData``'s (bitwise the reference's), and a run resumes from the
 latest checkpoint in ``--ckpt-dir``: the data stream, the parameters, the
 moments and the schedule's count all continue where they stopped.  On the
-card the attention (``attn_impl="chunked"``) runs K4 forward and backward;
-RWKV cannot train there yet (K5 has no backward kernel and raises).
+card the attention (``attn_impl="chunked"``) runs K4 forward and backward,
+and RWKV's time mix K5 forward and backward (``--arch rwkv6_3b``).
 """
 from __future__ import annotations
 

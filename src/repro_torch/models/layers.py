@@ -630,7 +630,9 @@ def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128,
     state goes to ``s_out`` when given (which may be ``s0``: an in-place
     update), else to a new tensor.  The WKV6 kernel reads r, k, v, w as
     (B, H, S, hd) views of their (B, S, D) activations and writes its
-    output into one in x's dtype; ``chunk`` only keeps the reference's
+    output into one in x's dtype; under autograd it returns its output in
+    r's layout instead (an in-place write takes no grad), whose (B, S, D)
+    view costs no copy either; ``chunk`` only keeps the reference's
     precondition ``S % min(chunk, S) == 0``."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
@@ -653,9 +655,15 @@ def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128,
         return t.reshape(B, S, H, hd).transpose(1, 2)
 
     u = p["u_bonus"].reshape(H, hd)
-    out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
-    _, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
-                          out=heads(out), s_out=s_out)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        o, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
+                              s_out=s_out)
+        out = o.transpose(1, 2).reshape(B, S, D)
+    else:
+        out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
+        _, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
+                              out=heads(out), s_out=s_out)
     y = x + (out * g) @ p["wo"]
     return y, h[:, -1:], s_fin
 

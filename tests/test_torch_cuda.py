@@ -1507,12 +1507,15 @@ def test_chunked_gradients_equal_dense_on_the_card(cuda_device, hd):
 
 @pytest.mark.requires_cuda
 def test_gradients_that_no_kernel_takes_raise(cuda_device):
-    """With grad on the card nothing detaches: an RWKV loss (K5 has no
-    backward) and K4 at a head dim or dtype no kernel takes raise; the
-    backward entry raises for a head dim it is not built for."""
+    """With grad on the card nothing detaches: K4 at a head dim or dtype no
+    kernel takes raises, and the backward entry raises for a head dim it is
+    not built for.  An RWKV loss, which raised before K5 had a backward
+    kernel, trains: its gradients are finite and K5's backward ran once a
+    layer."""
     from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
+    from repro_torch.kernels import wkv6 as wk
     cfg = get_config("rwkv6_3b", reduced=True)
     model = lm.LM.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
                        cuda_device).requires_grad_(True)
@@ -1521,8 +1524,13 @@ def test_gradients_that_no_kernel_takes_raise(cuda_device):
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 16)),
                              device=cuda_device)
-    with pytest.raises(NotImplementedError, match="backward"):
-        lm.loss_fn(cfg, model, {"tokens": tokens, "labels": tokens})
+    # RWKV trains: its loss differentiates through K5's backward kernel
+    wk.LAUNCHES.clear()
+    loss = lm.loss_fn(cfg, model, {"tokens": tokens, "labels": tokens})
+    grads = torch.autograd.grad(loss, model.param_list())
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert wk.LAUNCHES["bwd"] == wk.BWD_LAUNCHES * cfg.n_layers
     with torch.no_grad():
         assert torch.isfinite(lm.loss_fn(cfg, model, {"tokens": tokens,
                                                       "labels": tokens}))
@@ -1535,3 +1543,139 @@ def test_gradients_that_no_kernel_takes_raise(cuda_device):
                         device=cuda_device, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="hd=48"):
         fa.flash_attention_bwd(x, x, x, x, x[..., 0], x, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# K5's backward (csrc/wkv6_bwd.cu) through the autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _wkv6_grad_inputs(dev, B, H, S, hd, dtype, w, with_state, seed):
+    """r, k, v (dtype) and w (f32) as (B, H, S, hd) views of (B, S, D)
+    leaves (contiguous (B, H, S, hd) leaves in f32), u, s0 or None, and
+    the cotangents of the output (dtype) and the final state (or None)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = H * hd
+    views = dtype == torch.bfloat16
+
+    def leaf(x):
+        return (x if views else x.view(B, S, H, hd).transpose(1, 2)
+                .contiguous()).requires_grad_()
+    r, k, v = (leaf(torch.randn((B, S, D), generator=g, device=dev)
+                    .to(dtype)) for _ in range(3))
+    ww = leaf(torch.full((B, S, D), w, device=dev))
+    u = (torch.randn((H, hd), generator=g, device=dev) * 0.1).requires_grad_()
+    s0 = torch.randn((B, H, hd, hd), generator=g, device=dev) \
+        .requires_grad_() if with_state else None
+    dout = torch.randn((B, H, S, hd), generator=g, device=dev).to(dtype)
+    ds = torch.randn((B, H, hd, hd), generator=g, device=dev) \
+        if with_state else None
+    return [r, k, v, ww], u, s0, dout, ds
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("w", [0.1, 1e-3, 1.0])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("S", [1, 63, 64, 200, 1024])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_bwd_kernel_equals_plain(cuda_device, hd, S, chunk, w,
+                                      with_state, dtype):
+    """Gradients through ``wkv6_state``'s Function on the card (the
+    forward kernels at chunks of ``chunk``, then the backward kernel) equal
+    ``wkv6_bwd_chunked_plain`` on the same inputs, each within 2e-4 of its
+    largest entry (bf16: dr, dk, dv, rounded once, within 1e-2), with and
+    without s0 and a final-state cotangent; r, k, v and w bf16 views of (B,
+    S, D) in bf16; every gradient finite; a second backward bitwise the
+    first; the backward's four launches a call."""
+    from repro_torch.kernels import wkv6 as wk
+    dt = getattr(torch, dtype)
+    leaves, u, s0, dout, ds = _wkv6_grad_inputs(
+        cuda_device, 2, 3, S, hd, dt, w, with_state, seed=S + hd)
+    views = [t.view(2, S, 3, hd).transpose(1, 2) if t.dim() == 3 else t
+             for t in leaves]
+    ins = leaves + [u] + ([s0] if with_state else [])
+    out, s_fin = wk.wkv6_state(*views, u, s0, chunk=chunk)
+    outs, cots = ([out, s_fin], [dout, ds]) if with_state else ([out], [dout])
+    wk.LAUNCHES.clear()
+    got = torch.autograd.grad(outs, ins, cots, retain_graph=True)
+    again = torch.autograd.grad(outs, ins, cots)
+    torch.cuda.synchronize()
+    assert dict(wk.LAUNCHES) == {"bwd": 2 * wk.BWD_LAUNCHES}
+    want = wk.wkv6_bwd_chunked_plain(
+        *(t.detach() for t in views), u.detach(),
+        None if s0 is None else s0.detach(), dout, ds, wk.BWD_CHUNK[hd])
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    for name, a, b, c, x in zip(names, got, again, want, ins):
+        assert torch.equal(a, b), name
+        assert a.dtype == x.dtype and a.shape == x.shape, name
+        assert torch.isfinite(a).all(), name
+        tol = 1e-2 if dt == torch.bfloat16 and name in ("dr", "dk", "dv") \
+            else 2e-4
+        if c.shape != a.shape:          # the plain version's (B, H, S, hd)
+            c = c.transpose(1, 2).reshape(a.shape)
+        err = (a.float() - c).abs().max().item()
+        assert err <= tol * c.abs().max().item(), (name, err)
+
+
+@pytest.mark.requires_cuda
+def test_wkv6_bwd_in_a_fresh_thread(cuda_device):
+    """K5's backward launched first by a new thread (as autograd's worker
+    thread launches it) equals the same call on this thread bitwise."""
+    import threading
+    from repro_torch.kernels import wkv6 as wk
+    leaves, u, s0, dout, ds = _wkv6_grad_inputs(
+        cuda_device, 1, 4, 130, 64, torch.bfloat16, 0.9, True, seed=3)
+    xs = [t.detach().view(1, 130, 4, 64).transpose(1, 2) for t in leaves]
+    want = wk.wkv6_bwd(*xs, u.detach(), s0.detach(), dout, ds)
+    torch.cuda.synchronize()
+    res = {}
+
+    def run():
+        try:
+            res["got"] = wk.wkv6_bwd(*xs, u.detach(), s0.detach(), dout, ds)
+            torch.cuda.synchronize()
+        except Exception as e:      # raised again below, on this thread
+            res["err"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "err" in res:
+        raise res["err"]
+    for a, b in zip(res["got"], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_rwkv_gradients_on_the_card_equal_the_cpus(cuda_device):
+    """The reduced rwkv6-3b's loss and every gradient (f32) on the card (K5
+    forward and backward kernels) equal the same model's on the CPU (the
+    plain versions), each within 2e-4 of its largest entry; K5 ran twice a
+    layer forward (remat "full") and once backward."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("rwkv6_3b", reduced=True),
+                              dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLMData(vocab=cfg.vocab, seq_len=256, batch=2,
+                            seed=1).batch_at(0)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        model = lm.LM(cfg, params).to(dev).requires_grad_(True)
+        wk.LAUNCHES.clear()
+        loss = lm.loss_fn(cfg, model, {k: torch.as_tensor(v, device=dev)
+                                       for k, v in batch.items()})
+        res[str(dev)] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, model.param_list())])
+    assert dict(wk.LAUNCHES) == {"sequence": 2 * wk.SEQUENCE_LAUNCHES
+                                 * cfg.n_layers,
+                                 "bwd": wk.BWD_LAUNCHES * cfg.n_layers}
+    (lc, gc), (lg, gg) = res["cpu"], res[str(cuda_device)]
+    assert lg == pytest.approx(lc, rel=2e-4)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 2e-4 * b.abs().max()

@@ -364,7 +364,17 @@ def test_five_train_steps_match_the_reference():
     """``build_train_step`` against the reference's ``train_step`` (one
     device) on carried weights, for 5 steps of the same batches: the
     losses, and the parameters and moments after the last step."""
-    jcfg, tcfg = _cfgs("llama3_8b", attn_impl="chunked")
+    _five_steps_match_the_reference("llama3_8b", attn_impl="chunked")
+
+
+def test_five_rwkv_train_steps_match_the_reference():
+    """The same for the reduced rwkv6-3b, whose time mix takes its gradient
+    through K5's autograd Function (the plain backward on the CPU)."""
+    _five_steps_match_the_reference("rwkv6_3b")
+
+
+def _five_steps_match_the_reference(arch, **kw):
+    jcfg, tcfg = _cfgs(arch, **kw)
     params = jax_lm.init_params(jcfg, jax.random.key(3))
     opt = jax_optim.adamw_init(params)
     shape = jax_config.ShapeConfig("t", "train", S, B)
@@ -428,8 +438,20 @@ def test_prefill_and_decode_builders_match_the_reference(arch):
 
 
 def test_train_main_resumes_as_an_uninterrupted_run(tmp_path, capsys):
-    args = ["--device", "cpu", "--reduced", "--batch", "2", "--seq", "32",
-            "--ckpt-every", "2", "--log-every", "1"]
+    _resumed_equals_uninterrupted(tmp_path, capsys, "llama3_8b")
+
+
+def test_rwkv_train_main_resumes_as_an_uninterrupted_run(tmp_path, capsys):
+    """The reduced rwkv6-3b's 6 steps at the warm-up rate do not lower its
+    loss (its steps equal the reference's:
+    ``test_five_rwkv_train_steps_match_the_reference``); the resumed run
+    must still end where the uninterrupted one does."""
+    _resumed_equals_uninterrupted(tmp_path, capsys, "rwkv6_3b", falls=False)
+
+
+def _resumed_equals_uninterrupted(tmp_path, capsys, arch, falls=True):
+    args = ["--arch", arch, "--device", "cpu", "--reduced", "--batch", "2",
+            "--seq", "32", "--ckpt-every", "2", "--log-every", "1"]
     full = ttrain.main(args + ["--steps", "6", "--ckpt-dir",
                                str(tmp_path / "a")])
     first = ttrain.main(args + ["--steps", "4", "--ckpt-dir",
@@ -439,8 +461,10 @@ def test_train_main_resumes_as_an_uninterrupted_run(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[train] resumed from step 4" in out and "[train] done" in out
     assert first + rest == full
-    assert full[-1] < full[0]
-    cfg = torch_config.get_config("llama3_8b", reduced=True)
+    assert all(np.isfinite(full))
+    if falls:
+        assert full[-1] < full[0]
+    cfg = torch_config.get_config(arch, reduced=True)
     like = torch_lm.LM.init(cfg, torch.Generator().manual_seed(0),
                             "cpu").param_list()
     like = ([p.detach() for p in like], topt.adamw_init(like))

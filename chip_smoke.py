@@ -100,20 +100,24 @@ read just after:
    rwkv6-3b's loss and every gradient through K5's kernels (f32) equal the
    same model's on the CPU within 2e-4; a loss with grad through K4 at a
    head dim or dtype no kernel takes raises.
-14. *train_rwkv*: (a) K5's backward kernel (``csrc/wkv6_bwd.cu``, through
-   ``wkv6_bwd``) against autograd of the per-token plain version at
-   rwkv6-3b's heads on 2 x 256 tokens, in f32 and bf16 views, at decays
-   0.1, 1e-3, 1 and the model's, with and without s0 and a final-state
-   gradient: each gradient within 2e-4 of its largest entry (bf16 dr, dk,
-   dv within 1e-2), each limit shown to reject the gradient with the first
-   chunk's contribution lost, bitwise the same in a second call; (b)
-   rwkv6-3b at its published widths cut to 4 of its 32 layers (bf16, remat
-   "full") trained 8 steps on 2 x 2048 tokens by ``launch.train.train``:
-   K5's sequence form twice a layer a step and its backward once, counted
-   by the wrappers and, in the profiling child, by the profiler; the loss
-   finite and falling; ms a step, tokens/s, the operations bound, peak
-   memory and K5's backward's share of the step; (c) the backward timed at
-   that shape beside its bound and its plain version.
+14. *train_rwkv*: (a) K5's backward through ``wkv6_bwd`` against autograd
+   of the per-token plain version on 2 x 256 tokens, in f32 and bf16
+   views, with and without s0 and a final-state gradient: at rwkv6-3b's
+   heads (hd 64) the "windows" route (``csrc/wkv6_bwd_tc.cu``) at decays
+   0.1, 1e-3, 1 and the model's, at hd 16 and 32 the "walk" route
+   (``csrc/wkv6_bwd.cu``) at 1e-3 and the model's: each gradient within
+   2e-4 of its largest entry (bf16 dr, dk, dv within 1e-2), each limit
+   shown to reject the gradient with the first chunk's contribution lost
+   and (the windows route) the one with one window's cross-window terms
+   dropped, bitwise the same in a second call; (b) rwkv6-3b at its
+   published widths cut to 4 of its 32 layers (bf16, remat "full") trained
+   8 steps on 2 x 2048 tokens by ``launch.train.train``: K5's sequence form
+   twice a layer a step and its backward (the windows route alone) once,
+   counted by the wrappers and, in the profiling child, by the profiler;
+   the loss finite and falling; ms a step, tokens/s, the operations bound,
+   peak memory and K5's backward's share of the step; (c) the windows
+   route timed at that shape beside its bounds, its plain version and each
+   launch's time; the walk route at its checks' shape.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -303,6 +307,15 @@ K5_BWD_FLOPS = 14                # per state entry and token (K5_BWD_REPLACES)
 K5_BWD_REPLACES = ("none: the JAX package differentiates "
                    "src/repro/models/layers.py:527 _wkv_chunk with jax.grad")
 K5_BWD_KERNEL = re.compile(r"\bwkv6_bwd_\w+_kernel")
+# each backward route's kernels (kernels/wkv6.py bwd_route)
+K5_BWD_ROUTE_KERNEL = {
+    "windows": re.compile(r"\bwkv6_bwd_tc_(local|scan|walk|du)_kernel"),
+    "walk": re.compile(r"\bwkv6_bwd_(local|scan|walk|du)_kernel")}
+K5_BWD_WALK_HDS = (16, 32)       # the walk route's checks: rwkv6-3b's D at these
+K5_BWD_WALK_DECAYS = (1e-3, "model")
+# the windows route's window whose cross-window terms a rejected gradient
+# drops (tokens [16 x, 16 x + 16) of the first chunk)
+K5_BWD_DROPPED_WINDOW = 1
 K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
@@ -464,8 +477,8 @@ def ptxas_kernels(log: str, kernel: str = r"fa_\w+?_kernel") -> list:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"\d(" + kernel + r")(?:I(f|13__nv_bfloat16)?"
-                          r"((?:Li\d+E)+)E)?", ln)
-            args = [] if not m or not m.group(3) else (
+                          r"((?:Li\d+E)*)E)?", ln)
+            args = [] if not m or not (m.group(2) or m.group(3)) else (
                 ([{"f": "f32"}.get(m.group(2), "bf16")] if m.group(2) else [])
                 + re.findall(r"Li(\d+)E", m.group(3)))
             name = "?" if not m else m.group(1) + (
@@ -2983,8 +2996,9 @@ def rwkv_card_equals_cpu(dev) -> None:
         res[str(where)] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
             loss, model.param_list())])
     n = model_counts()
+    bwd_key = "k5/" + wk.BWD_COUNT[wk.bwd_route(cfg.rwkv_head_dim)]
     want = {"k5/sequence": 2 * wk.SEQUENCE_LAUNCHES * cfg.n_layers,
-            "k5/bwd": wk.BWD_LAUNCHES * cfg.n_layers}
+            bwd_key: wk.BWD_LAUNCHES * cfg.n_layers}
     if n != want:
         fail(f"reduced rwkv6-3b on the card: launches {n}, expected {want}")
     (lc, gc), (lg, gg) = res["cpu"], res[str(dev)]
@@ -3066,18 +3080,18 @@ def train_rwkv_step_profile(dev) -> dict:
 
 
 def k5_bwd_inputs(dev, B: int, S: int, dtype, w, with_state: bool,
-                  seed: int) -> tuple:
-    """At rwkv6-3b's heads: r, k, v (``dtype``) and w (f32) as (B, H, S,
-    hd) views of (B, S, D) tensors, u, s0 (or None), the output's
-    cotangent (``dtype``, a view likewise) and the final state's (or
-    None).  ``w``: a constant, or "model", the time mix's exp(-exp(x - 4))
-    on x ~ N(0, 1)."""
+                  seed: int, hd: int = 0) -> tuple:
+    """At rwkv6-3b's heads (``hd``: its D cut into heads of hd instead): r,
+    k, v (``dtype``) and w (f32) as (B, H, S, hd) views of (B, S, D)
+    tensors, u, s0 (or None), the output's cotangent (``dtype``, a view
+    likewise) and the final state's (or None).  ``w``: a constant, or
+    "model", the time mix's exp(-exp(x - 4)) on x ~ N(0, 1)."""
     import torch
 
     from repro_torch.config import get_config
 
     cfg = get_config("rwkv6_3b")
-    hd = cfg.rwkv_head_dim
+    hd = hd or cfg.rwkv_head_dim
     H = cfg.d_model // hd
     D = H * hd
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -3096,30 +3110,39 @@ def k5_bwd_inputs(dev, B: int, S: int, dtype, w, with_state: bool,
     return [r, k, v, heads(ww)], u, s0, dout, ds
 
 
-def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int) -> dict:
-    """K5's backward kernel on rwkv6-3b's heads (K5_BWD_B x K5_BWD_S
-    tokens, bf16 or f32 views) against autograd of the per-token
-    ``wkv6_plain``; a second call bitwise the first; each gradient finite
-    and within K5_BWD_TOL of its largest entry, and each limit shown to
-    reject the gradient of a call that lost the first chunk's contribution
-    (its tokens' output cotangent dropped)."""
+def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int,
+                hd: int = 0) -> dict:
+    """K5's backward on rwkv6-3b's heads (``hd``: its D at that head dim)
+    on K5_BWD_B x K5_BWD_S tokens, bf16 or f32 views, against autograd of
+    the per-token ``wkv6_plain``; a second call bitwise the first; the
+    launches of its route (``wkv6.bwd_route``); each gradient finite and
+    within K5_BWD_TOL of its largest entry, and each limit shown to reject
+    the gradient of a call that lost the first chunk's contribution (its
+    tokens' output cotangent dropped) and, on the windows route, each of
+    dr, dk, dv and dw the gradient of a call that dropped the cross-window
+    terms of window K5_BWD_DROPPED_WINDOW of the first chunk (its tokens'
+    gradients those of the window alone, from a zero state and no
+    gradient past it; du and ds0 take no cross-window product)."""
     import torch
 
     from repro_torch.kernels import wkv6 as wk
 
     dt = str(dtype).removeprefix("torch.")
     xs, u, s0, dout, ds = k5_bwd_inputs(dev, K5_BWD_B, K5_BWD_S, dtype, w,
-                                        with_state, seed)
+                                        with_state, seed, hd)
     hd = xs[0].shape[-1]
+    route = wk.bwd_route(hd)
     wk.LAUNCHES.clear()
     got = wk.wkv6_bwd(*xs, u, s0, dout, ds)
     again = wk.wkv6_bwd(*xs, u, s0, dout, ds)
     torch.cuda.synchronize()
     n = dict(wk.LAUNCHES)
-    what = (f"K5 bwd {dt} ({K5_BWD_B}, {xs[0].shape[1]}, {K5_BWD_S}, {hd}) "
-            f"w={w} {'with' if with_state else 'without'} s0 and ds_fin")
-    if n != {"bwd": 2 * wk.BWD_LAUNCHES}:
-        fail(f"{what}: launches {n}, expected {2 * wk.BWD_LAUNCHES}")
+    what = (f"K5 bwd [{route}] {dt} ({K5_BWD_B}, {xs[0].shape[1]}, "
+            f"{K5_BWD_S}, {hd}) w={w} "
+            f"{'with' if with_state else 'without'} s0 and ds_fin")
+    if n != {wk.BWD_COUNT[route]: 2 * wk.BWD_LAUNCHES}:
+        fail(f"{what}: launches {n}, expected {2 * wk.BWD_LAUNCHES} under "
+             f"{wk.BWD_COUNT[route]!r}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"{what}: a second call on the same inputs differs from the "
              "first")
@@ -3135,6 +3158,19 @@ def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int) -> dict:
             d[:, :, :chunk] = 0
         outs, cots = ([o, s_], [d, ds]) if with_state else ([o], [d])
         return torch.autograd.grad(outs, ins, cots)
+
+    def window_alone(want):
+        """``want`` with window K5_BWD_DROPPED_WINDOW's dr, dk, dv, dw those
+        of its tokens run alone: its cross-window terms dropped."""
+        lo = K5_BWD_DROPPED_WINDOW * wk.BWD_WINDOW
+        hi = lo + wk.BWD_WINDOW
+        ins = [t.detach()[:, :, lo:hi].float().requires_grad_() for t in xs]
+        o, _ = wk.wkv6_plain(*ins, u.detach())
+        alone = torch.autograd.grad([o], ins, [dout[:, :, lo:hi].float()])
+        out = [g.clone() for g in want[:4]]
+        for g, a in zip(out, alone):
+            g[:, :, lo:hi] = a
+        return out
 
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
     tol = K5_BWD_TOL[dt]
@@ -3156,28 +3192,45 @@ def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int) -> dict:
         if (a - b).abs().max().item() <= tol[name] * scale[name]:
             fail(f"{what}: the limit {tol[name]} on {name} accepts the "
                  f"gradient with the first chunk ({chunk} tokens) lost")
+    dropped = ""
+    if route == "windows":
+        gaps = {}
+        for name, a, b in zip(names, window_alone(want), want):
+            gaps[name] = (a - b).abs().max().item()
+            if gaps[name] <= tol[name] * scale[name]:
+                fail(f"{what}: the limit {tol[name]} on {name} accepts the "
+                     f"gradient with window {K5_BWD_DROPPED_WINDOW}'s "
+                     "cross-window terms dropped")
+        dropped = (f"; each limit on dr, dk, dv, dw rejects the gradient with "
+                   f"window {K5_BWD_DROPPED_WINDOW}'s cross-window terms "
+                   f"dropped (max |diff| " + ", ".join(
+                       f"{k_} {v_:.3g}" for k_, v_ in gaps.items()) + ")")
     print(f"check: {what}, views: every gradient == autograd of the plain "
           f"version within its limit of its largest entry and bitwise the "
           f"same in a second call (max |diff| "
           + ", ".join(f"{k_} {e:.3g} of {scale[k_]:.3g} (limit "
                       f"{tol[k_]})" for k_, e in errs.items())
           + f"); each limit rejects the gradient with the first chunk of "
-          f"{chunk} tokens lost; launches {n}")
-    return {"errs": errs, "scale": scale}
+          f"{chunk} tokens lost{dropped}; launches {n}")
+    return {"errs": errs, "scale": scale, "route": route}
 
 
 def k5_bwd_checks(dev) -> dict:
-    """Path 14's kernel checks: ``k5_bwd_case`` in f32 and bf16 at each of
-    K5_BWD_DECAYS, with and without s0 and a final-state gradient."""
+    """Path 14's kernel checks: ``k5_bwd_case`` in f32 and bf16, with and
+    without s0 and a final-state gradient, at rwkv6-3b's heads (the windows
+    route) at each of K5_BWD_DECAYS, and at K5_BWD_WALK_HDS (the walk
+    route) at K5_BWD_WALK_DECAYS."""
     import torch
 
+    cases = [(64, dt, w, st) for dt in ("float32", "bfloat16")
+             for w in K5_BWD_DECAYS for st in (False, True)]
+    cases += [(hd, dt, w, st) for hd in K5_BWD_WALK_HDS
+              for dt in ("float32", "bfloat16")
+              for w in K5_BWD_WALK_DECAYS for st in (False, True)]
     out = {}
-    for i, (dt, w, st) in enumerate((dt, w, st) for dt in ("float32",
-                                                           "bfloat16")
-                                    for w in K5_BWD_DECAYS
-                                    for st in (False, True)):
-        out[f"{dt}/{w}/{'state' if st else 'none'}"] = k5_bwd_case(
-            dev, getattr(torch, dt), w, st, seed=40 + i)
+    for i, (hd, dt, w, st) in enumerate(cases):
+        out[f"hd{hd}/{dt}/{w}/{'state' if st else 'none'}"] = k5_bwd_case(
+            dev, getattr(torch, dt), w, st, seed=40 + i, hd=hd)
         torch.cuda.empty_cache()
     return out
 
@@ -3226,8 +3279,10 @@ def train_rwkv_path(dev, prof: dict) -> dict:
     n = model_counts()
     peak = torch.cuda.max_memory_allocated()
     print("train_rwkv path launches: " + json.dumps(n, sort_keys=True))
+    route = wk.bwd_route(hd)
+    bwd_key = "k5/" + wk.BWD_COUNT[route]
     per_step = {"k5/sequence": 2 * wk.SEQUENCE_LAUNCHES * L,
-                "k5/bwd": wk.BWD_LAUNCHES * L}
+                bwd_key: wk.BWD_LAUNCHES * L}
     want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if n != want:
         fail(f"train_rwkv path launches {n}, expected {want} ({TRAIN_STEPS} "
@@ -3237,15 +3292,16 @@ def train_rwkv_path(dev, prof: dict) -> dict:
             for s in tprof["k5"]]
     most = {c: max(s[c] for s in seen) for c in ("k5_fwd", "k5_bwd")}
     if most != {"k5_fwd": per_step["k5/sequence"],
-                "k5_bwd": per_step["k5/bwd"]}:
+                "k5_bwd": per_step[bwd_key]}:
         fail(f"train_rwkv path: the profiling child saw K5 kernels {seen} in "
              f"its profiled steps, expected {per_step} a step")
     bwd_names = sorted({n_ for s in tprof["k5"] for n_, _ in s
                         if K5_BWD_KERNEL.search(n_)})
-    if len({re.search(r"wkv6_bwd_(\w+?)_kernel", n_).group(1)
-            for n_ in bwd_names}) != wk.BWD_LAUNCHES:
+    ran = {K5_BWD_ROUTE_KERNEL[route].search(n_).group(1)
+           for n_ in bwd_names if K5_BWD_ROUTE_KERNEL[route].search(n_)}
+    if len(ran) != wk.BWD_LAUNCHES or len(ran) != len(bwd_names):
         fail(f"train_rwkv path: the step's backward ran {bwd_names}, not "
-             f"the {wk.BWD_LAUNCHES} kernels of csrc/wkv6_bwd.cu")
+             f"the {wk.BWD_LAUNCHES} kernels of its {route} route alone")
     losses = res["losses"]
     if not all(math.isfinite(x) for x in losses) or not \
             losses[-1] < losses[0]:
@@ -3299,22 +3355,27 @@ def train_rwkv_path(dev, prof: dict) -> dict:
           f"the initial {losses[0]:.4f}; K5 launches per step {per_step} by "
           f"the wrappers, kernels {most} most seen by the profiler in the "
           f"profiling child's steps; the backward's kernels "
-          + ", ".join(bwd_names))
+          + ", ".join(bwd_names) + f" (its {route} route alone)")
     del res
     torch.cuda.empty_cache()
-    return {"launches": n["k5/bwd"], "ms_per_step": ms, "bound_ms": b_ms,
+    return {"launches": n[bwd_key], "ms_per_step": ms, "bound_ms": b_ms,
             "peak_bytes": peak, "losses": losses, "first_batch_after": again,
             "split_ms": split, "k5_bwd_share": share}
 
 
 def k5_bwd_entries(dev, cases: dict, launches: int, prof: dict) -> list:
-    """The backward's ``kernels`` entry: at the train_rwkv path's shape
-    (TRAIN_B x TRAIN_S tokens of rwkv6-3b's heads, bf16 views, the model's
-    decays) held against ``wkv6_bwd_chunked_plain`` and timed beside it;
-    each kernel's device time off the profiler in the profiling child;
-    ``launches`` from the path.  The bound: r, k, v, dout and w read once,
-    dr, dk, dv, dw, du and ds0 written once; K5_BWD_FLOPS per state entry
-    and token on the fp32 CUDA cores."""
+    """The backward's ``kernels`` entries.  The windows route at the
+    train_rwkv path's shape (TRAIN_B x TRAIN_S tokens of rwkv6-3b's heads,
+    bf16 views, the model's decays) held against its plain version
+    (``wkv6_bwd_windowed_plain``) and timed beside it; each kernel's device
+    time off the profiler in the profiling child; ``launches`` from the
+    path.  Its bound: r, k, v, dout and w read once, dr, dk, dv, dw, du and
+    ds0 written once; K5_BWD_FLOPS per state entry and token at the rate
+    of the units that now do the hd^2 work, three TF32 passes on the tensor
+    cores (the fp32 CUDA cores' bound beside it).  The walk route at its
+    checks' shape at hd 32 (K5_BWD_B x K5_BWD_S tokens, bf16 views, the
+    model's decays) beside ``wkv6_bwd_chunked_plain``, its launches those
+    of its checks, bounded on the fp32 CUDA cores."""
     import torch
 
     from repro_torch.kernels import wkv6 as wk
@@ -3325,9 +3386,10 @@ def k5_bwd_entries(dev, cases: dict, launches: int, prof: dict) -> list:
                                       "model", False, seed=21)
     B, H, S, hd = xs[0].shape
     D = H * hd
+    route = wk.bwd_route(hd)
     got = wk.wkv6_bwd(*xs, u, None, dout)
-    want = wk.wkv6_bwd_chunked_plain(*xs, u, None, dout, None,
-                                     wk.BWD_CHUNK[hd])
+    want = wk.wkv6_bwd_windowed_plain(*xs, u, None, dout, None,
+                                      wk.BWD_CHUNK[hd])
     tol = K5_BWD_TOL["bfloat16"]
     errs = {}
     for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
@@ -3338,49 +3400,103 @@ def k5_bwd_entries(dev, cases: dict, launches: int, prof: dict) -> list:
     del want
     torch.cuda.empty_cache()
     ms, host_ms = time_ms(lambda: wk.wkv6_bwd(*xs, u, None, dout), 10)
-    plain_ms = time_ms(lambda: wk.wkv6_bwd_chunked_plain(
+    plain_ms = time_ms(lambda: wk.wkv6_bwd_windowed_plain(
         *xs, u, None, dout, None, wk.BWD_CHUNK[hd]), 2, warmup=1)[0]
     torch.cuda.empty_cache()
     # r, k, v, dout read and dr, dk, dv written in bf16; w read and dw
     # written in f32; u, du and ds0 in f32
     nbytes = (7 * 2 + 2 * 4) * B * S * D + 2 * 4 * H * hd + 4 * B * H * hd * hd
     flops = K5_BWD_FLOPS * B * H * S * hd * hd
-    b_ms, b_by = bound(nbytes, flops)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tc_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    cc_ms = flops / FP32_FLOP_PER_S * 1e3
+    b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= tc_ms else \
+        (tc_ms, "operations")
     calls = prof["k5_bwd"]
     split_ms = {}
     for name in sorted({n_ for c_ in calls for n_, _ in c_}):
         split_ms[name] = statistics.median(
             sum(us for n_, us in c_ if n_ == name) for c_ in calls) / 1e3
     if len(split_ms) != wk.BWD_LAUNCHES or not all(
-            K5_BWD_KERNEL.search(n_) for n_ in split_ms):
+            K5_BWD_ROUTE_KERNEL[route].search(n_) for n_ in split_ms):
         fail(f"K5 bwd: the profiled calls ran {split_ms}, not the "
-             f"{wk.BWD_LAUNCHES} kernels of csrc/wkv6_bwd.cu")
-    px = ptxas_kernels(build_log(wk.BWD_LIB_NAME, wk.bwd_kernel_source()),
-                      r"wkv6_bwd_\w+?_kernel")
-    worst = max(max(c["errs"].values()) for c in cases.values())
-    print(f"time: K5 bwd bf16 ({B}, {H}, {S}, {hd}), views, the model's "
-          f"decays: {ms:.4f} ms on the card, {host_ms:.4f} ms host per call "
-          f"(bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s; {b_ms / ms:.1%}); by kernel"
-          f" (profiler) " + ", ".join(f"{n_} {v_:.4f} ms" for n_, v_ in
-                                      split_ms.items())
+             f"{wk.BWD_LAUNCHES} kernels of its {route} route")
+    px = ptxas_kernels(build_log(wk.BWD_TC_LIB_NAME,
+                                 wk.bwd_tc_kernel_source()),
+                       r"wkv6_bwd_tc_\w+?_kernel")
+    worst = max(max(c["errs"].values()) for c in cases.values()
+                if c["route"] == route)
+    print(f"time: K5 bwd [{route}] bf16 ({B}, {H}, {S}, {hd}), views, the "
+          f"model's decays: {ms:.4f} ms on the card, {host_ms:.4f} ms host "
+          f"per call (bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB at "
+          f"3.35 TB/s {bytes_ms:.4f} ms, {flops / 1e9:.2f} GFLOP in three "
+          f"TF32 passes at 495 TFLOP/s {tc_ms:.4f} ms; {b_ms / ms:.1%}; on the "
+          f"fp32 CUDA cores {cc_ms:.4f} ms, {cc_ms / ms:.1%}); by kernel "
+          f"(profiler) " + ", ".join(f"{n_} {v_:.4f} ms" for n_, v_ in
+                                     split_ms.items())
           + f"; plain {plain_ms:.3f} ms; no PyTorch call computes it; "
           f"launches on its path {launches} ({wk.BWD_LAUNCHES} a call); "
           f"against the plain version here (max |diff|) "
           + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
           + "; ptxas " + " | ".join(px))
-    return [{
-        "name": "wkv6_bwd[sequence]", "route": "cuda",
-        "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+    entries = [{
+        "name": f"wkv6_bwd[{route}]", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6_bwd_tc.cu",
         "replaces": K5_BWD_REPLACES, "launches": launches,
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "library": "no PyTorch call computes it", "host_ms": host_ms,
-        "bytes": nbytes, "flops": flops, "shape": [B, H, S, hd],
-        "chunk": wk.BWD_CHUNK[hd], "launches_per_call": wk.BWD_LAUNCHES,
+        "cuda_core_bound_ms": cc_ms, "bytes": nbytes, "flops": flops,
+        "shape": [B, H, S, hd], "chunk": wk.BWD_CHUNK[hd],
+        "window": wk.BWD_WINDOW, "launches_per_call": wk.BWD_LAUNCHES,
         "kernel_ms": split_ms, "train_shape_errors": errs,
-        "check_errors": {k: c["errs"] for k, c in cases.items()},
+        "check_errors": {k: c["errs"] for k, c in cases.items()
+                         if c["route"] == route},
         "tolerance": K5_BWD_TOL, "ptxas": px, "path": "train_rwkv"}]
+    # the walk route, which no model path takes, at its checks' shape
+    whd = max(K5_BWD_WALK_HDS)
+    xs, u, _, dout, _ = k5_bwd_inputs(dev, K5_BWD_B, K5_BWD_S,
+                                      torch.bfloat16, "model", False,
+                                      seed=22, hd=whd)
+    B, H, S, hd = xs[0].shape
+    wroute = wk.bwd_route(hd)
+    got = wk.wkv6_bwd(*xs, u, None, dout)
+    want = wk.wkv6_bwd_chunked_plain(*xs, u, None, dout, None,
+                                     wk.BWD_CHUNK[hd])
+    werrs = {n_: (a.float() - b).abs().max().item() for n_, a, b in zip(
+        ("dr", "dk", "dv", "dw", "du", "ds0"), got, want)}
+    wms, whost = time_ms(lambda: wk.wkv6_bwd(*xs, u, None, dout), 10)
+    wplain = time_ms(lambda: wk.wkv6_bwd_chunked_plain(
+        *xs, u, None, dout, None, wk.BWD_CHUNK[hd]), 2, warmup=1)[0]
+    nbytes = (7 * 2 + 2 * 4) * B * S * H * hd + 2 * 4 * H * hd \
+        + 4 * B * H * hd * hd
+    flops = K5_BWD_FLOPS * B * H * S * hd * hd
+    wb_ms, wb_by = bound(nbytes, flops)
+    wlaunches = sum(2 * wk.BWD_LAUNCHES for c in cases.values()
+                    if c["route"] == wroute)
+    wpx = ptxas_kernels(build_log(wk.BWD_LIB_NAME, wk.bwd_kernel_source()),
+                        r"wkv6_bwd_\w+?_kernel")
+    print(f"time: K5 bwd [{wroute}] bf16 ({B}, {H}, {S}, {hd}), views, the "
+          f"model's decays: {wms:.4f} ms on the card, {whost:.4f} ms host "
+          f"per call (bound {wb_ms:.4f} ms by {wb_by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s; "
+          f"{wb_ms / wms:.1%}); plain {wplain:.3f} ms; launches in its "
+          f"checks {wlaunches}; against the plain version (max |diff|) "
+          + ", ".join(f"{k_} {e:.3g}" for k_, e in werrs.items())
+          + "; ptxas " + " | ".join(wpx))
+    entries.append({
+        "name": f"wkv6_bwd[{wroute}]", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+        "replaces": K5_BWD_REPLACES, "launches": wlaunches,
+        "max_abs_err": max(max(c["errs"].values()) for c in cases.values()
+                           if c["route"] == wroute),
+        "ms": wms, "plain_ms": wplain, "bound_ms": wb_ms, "bound_by": wb_by,
+        "library_ms": None, "library": "no PyTorch call computes it",
+        "host_ms": whost, "bytes": nbytes, "flops": flops,
+        "shape": [B, H, S, hd], "chunk": wk.BWD_CHUNK[hd],
+        "launches_per_call": wk.BWD_LAUNCHES, "errors": werrs,
+        "ptxas": wpx, "path": "train_rwkv checks"})
+    return entries
 
 
 def main() -> int:
@@ -3489,7 +3605,8 @@ def main() -> int:
     from repro_torch.kernels import wkv6 as wk
     sources = {sp.LIB_NAME: sp.kernel_source(), **fa.kernel_sources(),
                wk.LIB_NAME: wk.kernel_source(),
-               wk.BWD_LIB_NAME: wk.bwd_kernel_source()}
+               wk.BWD_LIB_NAME: wk.bwd_kernel_source(),
+               wk.BWD_TC_LIB_NAME: wk.bwd_tc_kernel_source()}
     for k in ([s[1] for s in streamed.values()]
               + [w[1] for w in whole.values()]
               + [ks[0] for ks in f64.values()]):

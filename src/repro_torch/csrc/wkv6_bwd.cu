@@ -5,7 +5,9 @@
 // Replaces no TPU kernel: the JAX package has no Pallas backward for WKV6;
 // it differentiates its chunk form (src/repro/models/layers.py:527
 // _wkv_chunk) with jax.grad.  This kernel is the backward of the card's
-// forward (csrc/wkv6.cu), whose schedule never divides by a decay.
+// forward (csrc/wkv6.cu), whose schedule never divides by a decay, on the
+// "walk" route of kernels/wkv6.py (bwd_route: hd 16, 32 and 128); hd 64
+// runs csrc/wkv6_bwd_tc.cu.
 //
 // What it computes, per (batch b, head h).  The forward is
 //     o_t = r_t (S_t + diag(u) k_t^T v_t),  S_{t+1} = diag(w_t) S_t + k_t^T v_t,
@@ -69,7 +71,6 @@ namespace {
 template <int HD> struct Tile;
 template <> struct Tile<16> { static constexpr int CT = 8, W = 8, K = 8, C = 64; };
 template <> struct Tile<32> { static constexpr int CT = 8, W = 8, K = 8, C = 64; };
-template <> struct Tile<64> { static constexpr int CT = 8, W = 4, K = 8, C = 64; };
 template <> struct Tile<128> { static constexpr int CT = 32, W = 1, K = 16, C = 32; };
 
 // the walk's threads: one per (row, column group)
@@ -579,7 +580,6 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
     switch (hd) {
         WKV6_BWD_HD(16)
         WKV6_BWD_HD(32)
-        WKV6_BWD_HD(64)
         WKV6_BWD_HD(128)
         default: return (int)cudaErrorInvalidValue;
     }
@@ -593,8 +593,8 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
 // element strides, (batch, head, token) of r, k, v, w, do, dr, dk, dv, dw.
 // s0 and ds_fin may be null (zeros).  C is the chunk (Tile<hd>::C, else an
 // invalid-value error); scratch: Ls and Gs (B*H*nc*hd*hd), Ps and du_part
-// (B*H*nc*hd) float32, nc = ceil(S / C).  hd is 16, 32, 64 or 128.  Four
-// launches.
+// (B*H*nc*hd) float32, nc = ceil(S / C).  hd is 16, 32 or 128 (hd 64 runs
+// csrc/wkv6_bwd_tc.cu).  Four launches.
 extern "C" int wkv6_bwd_f32(const void* r, const void* k, const void* v,
                             const void* w, const void* u, const void* s0,
                             const void* d, const void* ds_fin, void* dr,

@@ -28,17 +28,22 @@ phases in PyTorch, and the wrapper runs it for tensors on the CPU.
 
 The gradient: where grad is enabled and r, k, v, w, u or s0 requires grad,
 ``wkv6_state`` runs as a ``torch.autograd.Function`` (``_WKV``) on either
-device.  Its forward is the kernels above; its backward is
-``csrc/wkv6_bwd.cu`` on the card (``wkv6_bwd``, four launches) and
-``wkv6_bwd_chunked_plain``, the same schedule in PyTorch, on the CPU.  The
-JAX package has no Pallas backward for K5: it differentiates the chunk form
-(``repro.models.layers._wkv_chunk``) with ``jax.grad``.  The backward walks
-the reverse recurrence dS_t = diag(w_t) dS_{t+1} + r_t^T do_t in chunks of
-``BWD_CHUNK[hd]`` tokens and needs the forward state S_t beside dS_{t+1} at
-every token (dw_t = rowsum(dS_{t+1} * S_t)).  S_t cannot be rebuilt
-backwards without dividing by w, so each chunk's starting state is
-recomputed (as the forward's phases 1-2 do) and each chunk's states are
-rebuilt forward from it; nothing is saved from the forward but its inputs.
+device.  Its forward is the kernels above; its backward is ``wkv6_bwd``,
+four launches on the card by one of two routes (``bwd_route``):
+``"windows"`` at hd 64 (rwkv6-3b), ``csrc/wkv6_bwd_tc.cu``, whose chunks are
+cut into windows of ``BWD_WINDOW`` tokens with the products across a window
+on the tensor cores, and ``"walk"`` at hd 16, 32 and 128,
+``csrc/wkv6_bwd.cu``, which walks every token on the CUDA cores.  On the CPU
+each route runs its plain version: ``wkv6_bwd_windowed_plain`` and
+``wkv6_bwd_chunked_plain``.  The JAX package has no Pallas backward for K5:
+it differentiates the chunk form (``repro.models.layers._wkv_chunk``) with
+``jax.grad``.  The backward walks the reverse recurrence dS_t = diag(w_t)
+dS_{t+1} + r_t^T do_t in chunks of ``BWD_CHUNK[hd]`` tokens and needs the
+forward state S_t beside dS_{t+1} at every token (dw_t = rowsum(dS_{t+1} *
+S_t)).  S_t cannot be rebuilt backwards without dividing by w, so each
+chunk's starting state is recomputed (as the forward's phases 1-2 do) and
+each chunk's states are rebuilt forward from it; nothing is saved from the
+forward but its inputs.
 """
 from __future__ import annotations
 
@@ -58,17 +63,24 @@ BWD_LIB_NAME = "wkv6_bwd"
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
 CHUNK = 64                      # tokens per chunk of the sequence form
 SEQUENCE_LAUNCHES = 3           # launches per call of the sequence form
-# the backward's chunk by head dim (its per-chunk walk keeps the states of
-# a chunk's segment starts in shared memory: 7 of 16 KB at hd 64, 1 of 64
-# KB at hd 128), and its launches per call
+# the backward's chunk by head dim (the walk route keeps the states of a
+# chunk's segment starts in shared memory: 1 of 64 KB at hd 128; the windows
+# route at hd 64 four window starts), and its launches per call
 BWD_CHUNK = {16: 64, 32: 64, 64: 64, 128: 32}
 BWD_LAUNCHES = 4
+# the "windows" route: its head dims and the tokens of a window
+WINDOW_HEAD_DIMS = (64,)
+BWD_WINDOW = 16
+BWD_TC_SOURCE = _cuda.CSRC_DIR / "wkv6_bwd_tc.cu"
+BWD_TC_LIB_NAME = "wkv6_bwd_tc"
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
 _BWD_ENTRY = {torch.float32: "wkv6_bwd_f32", torch.bfloat16: "wkv6_bwd_bf16"}
+_BWD_TC_ENTRY = {torch.float32: "wkv6_bwd_tc_f32",
+                 torch.bfloat16: "wkv6_bwd_tc_bf16"}
 
 # launches by form: "step" (S == 1, the decode step), "sequence" (S > 1,
-# three per call) and "bwd" (the backward, four per call), counted at the
-# launch
+# three per call), "bwd" (the backward's "walk" route, four per call) and
+# "bwd_windows" (its "windows" route, four per call), counted at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -90,10 +102,29 @@ def bwd_kernel_source() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_launcher(dtype: torch.dtype):
-    lib = _cuda.load(BWD_LIB_NAME, bwd_kernel_source())
-    return lib, _cuda.entry(lib, _BWD_ENTRY[dtype], [ctypes.c_void_p] * 19
+def bwd_tc_kernel_source() -> str:
+    return BWD_TC_SOURCE.read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher(dtype: torch.dtype, route: str = "walk"):
+    name, src, entries = (BWD_LIB_NAME, bwd_kernel_source(), _BWD_ENTRY) \
+        if route == "walk" else (BWD_TC_LIB_NAME, bwd_tc_kernel_source(),
+                                 _BWD_TC_ENTRY)
+    lib = _cuda.load(name, src)
+    return lib, _cuda.entry(lib, entries[dtype], [ctypes.c_void_p] * 19
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def bwd_route(hd: int) -> str:
+    """Which backward runs a call on the card: ``"windows"`` at the head
+    dims of ``WINDOW_HEAD_DIMS`` (``csrc/wkv6_bwd_tc.cu``), else ``"walk"``
+    (``csrc/wkv6_bwd.cu``)."""
+    return "windows" if hd in WINDOW_HEAD_DIMS else "walk"
+
+
+# the LAUNCHES key each backward route counts under
+BWD_COUNT = {"walk": "bwd", "windows": "bwd_windows"}
 
 
 def wkv6_plain(r, k, v, w, u, s0=None):
@@ -153,23 +184,15 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, chunk: int = CHUNK):
     return out.reshape(B, H, nc * chunk, hd)[:, :, :S], s
 
 
-def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
-                           chunk: int = CHUNK):
-    """The backward kernel's schedule in PyTorch, f32: the gradients of
-    ``wkv6_plain``'s (out, final state) given ``dout`` (B, H, S, hd) and
-    ``ds_fin`` (B, H, hd, hd, or None for none).  (1) every chunk's state
-    contribution from zero L_c, its decay product P_c and its reverse
-    contribution G_c = sum_t diag(prod_{m<t} w_m) r_t^T do_t; (2) the
-    chunks' starting states in order and the gradient at each chunk's end
-    in reverse, dS <- diag(P_c) dS + G_c from ``ds_fin``; (3) every chunk's
-    states rebuilt forward from its start, then its tokens walked back:
-    dr_t = S_t do_t + u k_t (v_t.do_t), dk_t = dS_{t+1} v_t + u r_t
-    (v_t.do_t), dv_t = dS_{t+1}^T k_t + (r_t.(u k_t)) do_t, dw_t =
-    rowsum(dS_{t+1} * S_t), dS_t = diag(w_t) dS_{t+1} + r_t^T do_t.  du
-    sums r_t k_t (v_t.do_t) per (batch, chunk), then over both.  A ragged
-    last chunk is padded as the forward pads it.  Only multiplies by w.
-    Returns (dr, dk, dv, dw (B, H, S, hd), du (H, hd), ds0 (B, H, hd, hd)),
-    all f32."""
+def _bwd_chunk_bounds(r, k, v, w, s0, dout, ds_fin, chunk: int):
+    """Phases 1-2 of both backward routes, f32: the inputs cut into chunks
+    of ``chunk`` tokens (B, H, nc, C, hd), a ragged last chunk padded as the
+    forward pads it; (1) every chunk's state contribution from zero L_c, its
+    decay product P_c and its reverse contribution G_c = sum_t diag(prod_{m<t}
+    w_m) r_t^T do_t; (2) the chunks' starting states in order and the
+    gradient at each chunk's end in reverse, dS <- diag(P_c) dS + G_c from
+    ``ds_fin``.  Returns (rc, kc, vc, wc, dc, starts, ends (B, H, nc, hd,
+    hd), ds0)."""
     B, H, S, hd = r.shape
     nc = -(-S // chunk)
     pad = nc * chunk - S
@@ -204,14 +227,33 @@ def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
     for c in reversed(range(nc)):
         ends[c] = ds
         ds = P[:, :, c, :, None] * ds + G[:, :, c]
+    return (rc, kc, vc, wc, dc, torch.stack(starts, dim=2),
+            torch.stack(ends, dim=2), ds)
+
+
+def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
+                           chunk: int = CHUNK):
+    """The "walk" backward's schedule in PyTorch, f32: the gradients of
+    ``wkv6_plain``'s (out, final state) given ``dout`` (B, H, S, hd) and
+    ``ds_fin`` (B, H, hd, hd, or None for none).  Phases 1-2 as
+    ``_bwd_chunk_bounds``; (3) every chunk's states rebuilt forward from
+    its start, then its tokens walked back: dr_t = S_t do_t + u k_t
+    (v_t.do_t), dk_t = dS_{t+1} v_t + u r_t (v_t.do_t), dv_t = dS_{t+1}^T
+    k_t + (r_t.(u k_t)) do_t, dw_t = rowsum(dS_{t+1} * S_t), dS_t =
+    diag(w_t) dS_{t+1} + r_t^T do_t.  du sums r_t k_t (v_t.do_t) per
+    (batch, chunk), then over both.  Only multiplies by w.  Returns (dr, dk,
+    dv, dw (B, H, S, hd), du (H, hd), ds0 (B, H, hd, hd)), all f32."""
+    B, H, S, hd = r.shape
+    rc, kc, vc, wc, dc, st, dS, ds0 = _bwd_chunk_bounds(
+        r, k, v, w, s0, dout, ds_fin, chunk)
+    nc = rc.shape[2]
+    dev = r.device
     # (3) every chunk's states rebuilt forward, its tokens walked back
-    st = torch.stack(starts, dim=2)                          # (B,H,nc,hd,hd)
     states = []
     for j in range(chunk):
         states.append(st)
         st = st * wc[:, :, :, j, :, None] \
             + kc[:, :, :, j, :, None] * vc[:, :, :, j, None, :]
-    dS = torch.stack(ends, dim=2)
     uf = u.float()[:, None, :]                               # (H, 1, hd)
     grads = [torch.empty((B, H, nc, chunk, hd), dtype=torch.float32,
                          device=dev) for _ in range(4)]
@@ -229,7 +271,93 @@ def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
         du = du + rj * kj * vd
         dS = dS * wj[..., :, None] + rj[..., :, None] * dj[..., None, :]
     return (*(x.reshape(B, H, nc * chunk, hd)[:, :, :S] for x in grads),
-            du.sum(dim=(0, 2)), ds)
+            du.sum(dim=(0, 2)), ds0)
+
+
+def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
+                            chunk: int = CHUNK, window: int = BWD_WINDOW):
+    """The "windows" backward's schedule in PyTorch, f32: the gradients of
+    ``wkv6_bwd_chunked_plain``, with phases 1-2 as ``_bwd_chunk_bounds`` and
+    each chunk cut into windows [a, e) of ``window`` tokens.  Within a
+    window, A_t = prod_{a<=m<t} w_m, B_t = prod_{t<m<e} w_m and D(t, s) =
+    prod_{t<m<s} w_m, each a running product; S_a is the window's starting
+    state (from the chunk's by the rank-W updates S <- diag(A_e) S + (K B)^T
+    V) and dS_e the gradient at its end (from the chunk's, dS <- diag(A_e) dS
+    + (R A)^T dO).  The products across the window (the kernel's tensor-core
+    work): Qr = dO S_a^T, Pk = V dS_e^T, Pv = (K B) dS_e, c = V dO^T and
+    Rs = rowsum(dS_e * S_a).  Then, token by token with Sdo_t(s) = S_t do_s
+    (from Qr, Sdo_{t+1}(s) = w_t Sdo_t(s) + k_t c_ts) and Ge_t =
+    rowsum(dS_e * S_t) (from Rs, Ge_{t+1} = w_t Ge_t + k_t Pk_t):
+    dr_t = Sdo_t(t) + u k_t c_tt,
+    dk_t = B_t Pk_t + sum_{s>t} D(t,s) r_s c_ts + u r_t c_tt,
+    dw_t = B_t Ge_t + sum_{s>t} D(t,s) r_s Sdo_t(s),
+    dv_t = Pv_t + sum_{s>=t} q_ts do_s, q_ts = sum_i D(t,s) r_s k_t (q_tt =
+    sum_i u r_t k_t).  Nothing divides: every factor is a product of
+    decays.  ``chunk`` a multiple of ``window``.  Returns as
+    ``wkv6_bwd_chunked_plain``."""
+    if chunk % window:
+        raise ValueError(f"wkv6 backward: chunk {chunk} is not a multiple "
+                         f"of the window {window}")
+    B, H, S, hd = r.shape
+    rc, kc, vc, wc, dc, starts, ends, ds0 = _bwd_chunk_bounds(
+        r, k, v, w, s0, dout, ds_fin, chunk)
+    nc, nw, W = rc.shape[2], chunk // window, window
+    rw, kw, vw, ww, dw_ = (x.reshape(B, H, nc, nw, W, hd)
+                           for x in (rc, kc, vc, wc, dc))
+    # prefix products A_t (t = 0 .. W) and suffix products B_t
+    A = [torch.ones_like(ww[..., 0, :])]
+    for t in range(W):
+        A.append(A[-1] * ww[..., t, :])
+    Bs = [torch.ones_like(ww[..., 0, :])]
+    for t in reversed(range(W - 1)):
+        Bs.insert(0, Bs[0] * ww[..., t + 1, :])
+    Bs = torch.stack(Bs, dim=-2)
+    Ae = A[W]                                                # (.., nw, hd)
+    KB = kw * Bs
+    RA = rw * torch.stack(A[:W], dim=-2)
+    # the windows' starting states and end gradients
+    Sa = [starts]
+    for x in range(nw - 1):
+        Sa.append(Ae[..., x, :, None] * Sa[-1]
+                  + KB[..., x, :, :].mT @ vw[..., x, :, :])
+    dSe = [ends]
+    for x in reversed(range(1, nw)):
+        dSe.insert(0, Ae[..., x, :, None] * dSe[0]
+                   + RA[..., x, :, :].mT @ dw_[..., x, :, :])
+    Sa, dSe = torch.stack(Sa, dim=3), torch.stack(dSe, dim=3)
+    # the products across each window
+    Qr = dw_ @ Sa.mT                                         # (.., W, hd)
+    Pk = vw @ dSe.mT
+    Pv = KB @ dSe
+    c = vw @ dw_.mT                                          # (.., W, W)
+    Ge = (dSe * Sa).sum(-1)
+    # token by token within the window
+    uf = u.float()[:, None, None, :]                         # (H,1,1,hd)
+    Sdo = Qr.clone()
+    dr, dk, dw = (torch.empty_like(rw) for _ in range(3))
+    Qm = torch.zeros_like(c)
+    for t in range(W):
+        rt, kt, wt = rw[..., t, :], kw[..., t, :], ww[..., t, :]
+        ctt = c[..., t, t, None]
+        dr[..., t, :] = Sdo[..., t, :] + uf * kt * ctt
+        dk[..., t, :] = Bs[..., t, :] * Pk[..., t, :] + uf * rt * ctt
+        dw[..., t, :] = Bs[..., t, :] * Ge
+        Qm[..., t, t] = (uf * rt * kt).sum(-1)
+        if t + 1 < W:
+            # D(t, s) for s = t+1 .. W-1: 1, then running products of w
+            D = torch.cat([torch.ones_like(wt[..., None, :]), torch.cumprod(
+                ww[..., t + 1:W - 1, :], dim=-2)], dim=-2)
+            Z = D * rw[..., t + 1:, :]
+            dk[..., t, :] += (Z * c[..., t, t + 1:, None]).sum(-2)
+            dw[..., t, :] += (Z * Sdo[..., t + 1:, :]).sum(-2)
+            Qm[..., t, t + 1:] = (Z * kt[..., None, :]).sum(-1)
+            Sdo[..., t + 1:, :] = wt[..., None, :] * Sdo[..., t + 1:, :] \
+                + kt[..., None, :] * c[..., t, t + 1:, None]
+        Ge = wt * Ge + kt * Pk[..., t, :]
+    dv = Pv + Qm @ dw_
+    du = (rc * kc * (vc * dc).sum(-1, keepdim=True)).sum(dim=(0, 2, 3))
+    return (*(x.reshape(B, H, nc * chunk, hd)[:, :, :S]
+              for x in (dr, dk, dv, dw)), du, ds0)
 
 
 def _token_strides(t: torch.Tensor, what: str) -> list[int]:
@@ -359,9 +487,10 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
     from fp32), dw, du, ds0 in float32; dr, dk, dv and dw take the memory
     layout of their inputs (``torch.empty_like``), so the gradient of a
     layer's (B, H, S, hd) view is a view of a (B, S, D) tensor.  On the card
-    ``csrc/wkv6_bwd.cu`` in ``BWD_LAUNCHES`` launches (chunks of
-    ``BWD_CHUNK[hd]``); on the CPU ``wkv6_bwd_chunked_plain`` on the same
-    chunks.  A head dim the kernel is not built for raises."""
+    the kernel of ``bwd_route(hd)`` in ``BWD_LAUNCHES`` launches (chunks of
+    ``BWD_CHUNK[hd]``), counted under ``BWD_COUNT[route]``; on the CPU that
+    route's plain version on the same chunks (and windows).  A head dim the
+    kernels are not built for raises."""
     B, H, S, hd = r.shape
     dtype = r.dtype
     if hd not in BWD_CHUNK or dtype not in _BWD_ENTRY:
@@ -369,12 +498,15 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
             f"wkv6 backward: no kernel for hd={hd}, {dtype}; the backward "
             f"kernel is built for hd in {tuple(BWD_CHUNK)}, float32 and "
             "bfloat16")
+    route = bwd_route(hd)
     chunk = BWD_CHUNK[hd]
     dev = r.device
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dw = torch.empty_like(w)
     if dev.type == "cpu":
-        got = wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin, chunk)
+        got = wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin, chunk) \
+            if route == "windows" else \
+            wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin, chunk)
         for t, g in zip((dr, dk, dv, dw), got):
             t.copy_(g)
         return dr, dk, dv, dw, got[4], got[5]
@@ -394,7 +526,7 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
         (r, "r"), (k, "k"), (v, "v"), (w, "w"), (dout, "dout"), (dr, "dr"),
         (dk, "dk"), (dv, "dv"), (dw, "dw"))]
     st = (ctypes.c_longlong * 27)(*(s for t in strides for s in t))
-    lib, launch = _bwd_launcher(dtype)
+    lib, launch = _bwd_launcher(dtype, route)
     with torch.cuda.device(dev):
         rc = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), None if s0 is None else s0.data_ptr(),
@@ -405,8 +537,8 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
                     Ls.data_ptr(), Gs.data_ptr(), Ps.data_ptr(),
                     dup.data_ptr(), ctypes.addressof(st), B, H, S, hd, chunk,
                     _cuda.current_stream(dev))
-    _cuda.check(lib, rc, "wkv6 backward")
-    LAUNCHES["bwd"] += BWD_LAUNCHES
+    _cuda.check(lib, rc, f"wkv6 backward ({route})")
+    LAUNCHES[BWD_COUNT[route]] += BWD_LAUNCHES
     return dr, dk, dv, dw, du, ds0
 
 

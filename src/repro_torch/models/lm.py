@@ -32,8 +32,9 @@ grad enabled, ``cfg.remat`` is honoured as the reference's ``_remat``:
 "full" recomputes each layer in the backward (``torch.utils.checkpoint``,
 non-reentrant; the layer's K4 forward then runs twice a step), "dots"
 saves the layers' plain matrix products and recomputes the rest, "none"
-keeps everything.  K4 is differentiable on the card through its backward
-kernel; K5 (RWKV) is not yet, and raises there.
+keeps everything.  K4 and K5 (RWKV) are differentiable on the card
+through their backward kernels (``flash_attention._Attention``,
+``wkv6._WKV``).
 """
 from __future__ import annotations
 

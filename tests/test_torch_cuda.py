@@ -1530,7 +1530,8 @@ def test_gradients_that_no_kernel_takes_raise(cuda_device):
     grads = torch.autograd.grad(loss, model.param_list())
     torch.cuda.synchronize()
     assert all(torch.isfinite(g).all() for g in grads)
-    assert wk.LAUNCHES["bwd"] == wk.BWD_LAUNCHES * cfg.n_layers
+    assert wk.LAUNCHES[wk.BWD_COUNT[wk.bwd_route(cfg.rwkv_head_dim)]] \
+        == wk.BWD_LAUNCHES * cfg.n_layers
     with torch.no_grad():
         assert torch.isfinite(lm.loss_fn(cfg, model, {"tokens": tokens,
                                                       "labels": tokens}))
@@ -1588,7 +1589,8 @@ def test_wkv6_bwd_kernel_equals_plain(cuda_device, hd, S, chunk, w,
     largest entry (bf16: dr, dk, dv, rounded once, within 1e-2), with and
     without s0 and a final-state cotangent; r, k, v and w bf16 views of (B,
     S, D) in bf16; every gradient finite; a second backward bitwise the
-    first; the backward's four launches a call."""
+    first; the backward's four launches a call, counted under its route
+    (``wkv6.bwd_route``: hd 64 the windows kernel, else the walk)."""
     from repro_torch.kernels import wkv6 as wk
     dt = getattr(torch, dtype)
     leaves, u, s0, dout, ds = _wkv6_grad_inputs(
@@ -1602,7 +1604,8 @@ def test_wkv6_bwd_kernel_equals_plain(cuda_device, hd, S, chunk, w,
     got = torch.autograd.grad(outs, ins, cots, retain_graph=True)
     again = torch.autograd.grad(outs, ins, cots)
     torch.cuda.synchronize()
-    assert dict(wk.LAUNCHES) == {"bwd": 2 * wk.BWD_LAUNCHES}
+    assert dict(wk.LAUNCHES) == {wk.BWD_COUNT[wk.bwd_route(hd)]:
+                                 2 * wk.BWD_LAUNCHES}
     want = wk.wkv6_bwd_chunked_plain(
         *(t.detach() for t in views), u.detach(),
         None if s0 is None else s0.detach(), dout, ds, wk.BWD_CHUNK[hd])
@@ -1617,6 +1620,79 @@ def test_wkv6_bwd_kernel_equals_plain(cuda_device, hd, S, chunk, w,
             c = c.transpose(1, 2).reshape(a.shape)
         err = (a.float() - c).abs().max().item()
         assert err <= tol * c.abs().max().item(), (name, err)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("w", [0.1, 1e-3, 1.0, "model"])
+@pytest.mark.parametrize("S", [1, 15, 63, 64, 200, 1024])
+def test_wkv6_bwd_windows_kernel_equals_its_plain(cuda_device, S, w,
+                                                  with_state, dtype):
+    """The windows route's kernel (``csrc/wkv6_bwd_tc.cu``, hd 64) called
+    directly on (B, H, S, 64) views of (B, S, D) tensors equals
+    ``wkv6_bwd_windowed_plain`` on the same inputs, each gradient within
+    2e-4 of its largest entry (bf16 dr, dk, dv, rounded once, within 1e-2),
+    with and without s0 and a final-state cotangent, at decays 0.1, 1e-3, 1
+    and the time mix's; every gradient finite; a second call bitwise the
+    first; its four launches counted under "bwd_windows"."""
+    from repro_torch.kernels import wkv6 as wk
+    dt = getattr(torch, dtype)
+    B, H, hd = 2, 3, 64
+    g = torch.Generator(device=cuda_device).manual_seed(S + 7)
+
+    def heads(x):
+        return x.view(B, S, H, hd).transpose(1, 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+    r, k, v, dout = (heads(randn(B, S, H * hd).to(dt)) for _ in range(4))
+    ww = torch.exp(-torch.exp(randn(B, S, H * hd) - 4.0)) if w == "model" \
+        else torch.full((B, S, H * hd), w, device=cuda_device)
+    ww = heads(ww)
+    u = randn(H, hd) * 0.1
+    s0 = randn(B, H, hd, hd) if with_state else None
+    ds = randn(B, H, hd, hd) if with_state else None
+    wk.LAUNCHES.clear()
+    got = wk.wkv6_bwd(r, k, v, ww, u, s0, dout, ds)
+    again = wk.wkv6_bwd(r, k, v, ww, u, s0, dout, ds)
+    torch.cuda.synchronize()
+    assert dict(wk.LAUNCHES) == {"bwd_windows": 2 * wk.BWD_LAUNCHES}
+    want = wk.wkv6_bwd_windowed_plain(r, k, v, ww, u, s0, dout, ds)
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    for name, a, b, c in zip(names, got, again, want):
+        assert torch.equal(a, b), name
+        assert torch.isfinite(a).all(), name
+        tol = 1e-2 if dt == torch.bfloat16 and name in ("dr", "dk", "dv") \
+            else 2e-4
+        err = (a.float() - c).abs().max().item()
+        assert err <= tol * c.abs().max().item(), (name, err)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_bwd_windows_kernel_reads_rows_element_by_element(cuda_device,
+                                                               dtype):
+    """Rows the kernel cannot load 4 elements at a time (a token stride of
+    65 elements) and a ragged last chunk: the same gradients as the plain
+    version."""
+    from repro_torch.kernels import wkv6 as wk
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, H, S, hd = 1, 2, 100, 64
+    r, k, v, dout = (torch.randn((B, H, S, hd + 1), generator=g,
+                                 device=cuda_device).to(dt)[..., :hd]
+                     for _ in range(4))
+    ww = torch.rand((B, H, S, hd + 1), generator=g,
+                    device=cuda_device)[..., :hd] * 0.5 + 0.45
+    u = torch.randn((H, hd), generator=g, device=cuda_device) * 0.1
+    s0 = torch.randn((B, H, hd, hd), generator=g, device=cuda_device)
+    got = wk.wkv6_bwd(r, k, v, ww, u, s0, dout)
+    want = wk.wkv6_bwd_windowed_plain(r, k, v, ww, u, s0, dout)
+    for name, a, c in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        tol = 1e-2 if dt == torch.bfloat16 and name in ("dr", "dk", "dv") \
+            else 2e-4
+        assert (a.float() - c).abs().max() <= tol * c.abs().max(), name
 
 
 @pytest.mark.requires_cuda
@@ -1672,9 +1748,10 @@ def test_rwkv_gradients_on_the_card_equal_the_cpus(cuda_device):
                                        for k, v in batch.items()})
         res[str(dev)] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
             loss, model.param_list())])
-    assert dict(wk.LAUNCHES) == {"sequence": 2 * wk.SEQUENCE_LAUNCHES
-                                 * cfg.n_layers,
-                                 "bwd": wk.BWD_LAUNCHES * cfg.n_layers}
+    assert dict(wk.LAUNCHES) == {
+        "sequence": 2 * wk.SEQUENCE_LAUNCHES * cfg.n_layers,
+        wk.BWD_COUNT[wk.bwd_route(cfg.rwkv_head_dim)]:
+            wk.BWD_LAUNCHES * cfg.n_layers}
     (lc, gc), (lg, gg) = res["cpu"], res[str(cuda_device)]
     assert lg == pytest.approx(lc, rel=2e-4)
     for a, b in zip(gg, gc):

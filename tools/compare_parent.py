@@ -7,6 +7,8 @@ process on one card, in turns (parent, tree, tree, parent).
         --only k1
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
         --only k4_bwd
+    PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
+        --only k5_bwd
 
 Each tree's ``repro_torch`` is imported in turn (``sys.modules`` cleared
 between) and builds its kernels under its own root.  Per tree it measures,
@@ -34,10 +36,16 @@ precision):
   Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
   256) over one kv head; at the reduced llama3-8b's (2, 6, 256, 16) in
   both dtypes; each on the tree's own ``bwd_route``: the call (CUDA
-  events) and, from torch.profiler, each device kernel's time.
+  events) and, from torch.profiler, each device kernel's time;
+* K5's backward (``wkv6_bwd``) at the train_rwkv path's shape, rwkv6-3b's
+  (2, 40, 2048, 64) as bf16 views of (B, S, D) tensors at the time mix's
+  decays, on the tree's own route (a tree without ``bwd_route`` walks
+  every token on the CUDA cores): the call (CUDA events) and, from
+  torch.profiler, each device kernel's time.
 
-``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone.  Prints one line per tree and turn and a
-JSON summary last.
+``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone,
+``--only k5_bwd`` K5's backward alone.  Prints one line per tree and turn
+and a JSON summary last.
 """
 from __future__ import annotations
 
@@ -197,6 +205,36 @@ def measure_k4_bwd(t, dev) -> dict:
     return out
 
 
+def measure_k5_bwd(t, dev) -> dict:
+    """K5's backward at the train_rwkv path's shape: rwkv6-3b's (2, 40,
+    2048, 64), r, k, v and the output's cotangent bf16 views of (B, S, D)
+    tensors, w the time mix's exp(-exp(x - 4)) on x ~ N(0, 1)."""
+    import torch
+
+    import chip_smoke as cs
+    B, S, H, hd = 2, 2048, 40, 64
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def heads(x):
+        return x.view(B, S, H, hd).transpose(1, 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    r, k, v, dout = (heads(randn(B, S, H * hd).to(torch.bfloat16))
+                     for _ in range(4))
+    w = heads(torch.exp(-torch.exp(randn(B, S, H * hd) - 4.0)))
+    u = randn(H, hd) * 0.1
+    call = lambda: t.wk.wkv6_bwd(r, k, v, w, u, None, dout)
+    ms = cs.time_ms(call, 20)[0]
+    acts, _ = cs.device_kernels(lambda: [call() for _ in range(3)])
+    per = {}
+    for n, us in kernels(acts):
+        name = cs.short_name(n)
+        per[name] = per.get(name, 0.0) + us / 3 / 1e3
+    route = t.wk.bwd_route(hd) if hasattr(t.wk, "bwd_route") else "walk"
+    return {"k5_bwd": {"route": route, "ms": ms, "kernel_ms": per}}
+
+
 def graph_step(t, dev, model_cache: dict) -> dict:
     """The graphed rwkv6-3b decode step at batch 4 (weights from seed 0)."""
     import torch
@@ -235,7 +273,7 @@ def main(argv=None) -> int:
                     help="the parent tree's src directory")
     ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
                     help="this tree's src directory")
-    ap.add_argument("--only", choices=("k1", "k4_bwd"),
+    ap.add_argument("--only", choices=("k1", "k4_bwd", "k5_bwd"),
                     help="measure only this kernel")
     args = ap.parse_args(argv)
     import subprocess
@@ -256,10 +294,12 @@ def main(argv=None) -> int:
     for name in ("parent", "tree", "tree", "parent"):
         t = trees[name]
         m = measure_k4_bwd(t, dev) if args.only == "k4_bwd" else \
+            measure_k5_bwd(t, dev) if args.only == "k5_bwd" else \
             measure_k1(t, dev)
         if args.only is None:
             m.update(measure(t, dev))
             m.update(measure_k4_bwd(t, dev))
+            m.update(measure_k5_bwd(t, dev))
             m["graph_step"] = graph_step(t, dev, models)
         results[name].append(m)
         print(f"{name}: " + json.dumps(m))

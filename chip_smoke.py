@@ -9,8 +9,9 @@ read just after:
 1. *chains*: ``hls.compile`` schedules each stencil chain of
    ``programs.CHAIN_BENCHMARKS`` at n=8 (the repo's practice: the ILPs are
    sized by the loop bounds); the design point's block size is lowered at
-   n=4096 to the generated streamed CUDA kernel (K2, both bufferings; row
-   tiles cut into column tiles on the card) and launched; the hand-written
+   n=4096 to the generated streamed CUDA kernel (K2, both bufferings; on
+   the card a block walks a run of row tiles down a column tile, its
+   producers carried as rings of rows) and launched; the hand-written
    fused stencil (K1) runs on a 4K UHD frame with the configuration the DSE
    sweep reads off the generated kernel; it is timed warm and with a cold
    L2 (``time_cold_ms``), and torch.profiler must see one device kernel
@@ -3752,6 +3753,13 @@ def main() -> int:
         nbytes = kernel_bytes(p, kd)
         b_ms, b_by = bound(nbytes, stage_flops(p))
         plain_ms = time_ms(lambda: kd.plain(x), 3, warmup=1)[0]
+        # stage_flops counts every op of every point once, no FMA: the
+        # issue slots that alone would take (the kernel reuses shared
+        # products across a strip's points, so it issues fewer)
+        ceil_ms = stage_flops(p) / FP32_ISSUE_PER_S * 1e3
+        ptxas = [x_ for x_ in ptxas_summary(
+            _cuda.BUILD_LOG.get(kd.lib_name, (0, ""))[1])
+            if "streamed_double" in x_]
         lib = k2_library(name, x)
         lib_ms, lib_note = None, "no PyTorch call computes it"
         if lib is not None:
@@ -3775,27 +3783,40 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_ms, "library": lib_note,
                 "host_ms": host_ms, "bytes": nbytes,
+                "issue_ceiling_ms": ceil_ms, "share": b_ms / ms,
                 "shape": list(p.arrays[sink].shape), "block_rows": br,
                 "grid": list(k.grid), "col_tile": k.col_tile,
-                "launch_grid": list(k.launch_grid),
-                "smem_bytes": k.smem_bytes})
+                "launch_grid": list(k.launch_grid), "run": k.run,
+                "ring_rows": k.ring_rows, "threads": k.threads,
+                "smem_bytes": k.smem_bytes, "ptxas": ptxas})
         print(f"check: K2 {name} n={CHAIN_N} double == single == plain "
               f"bitwise; block_rows {kd.block_rows}, column tile "
-              f"{kd.col_tile}, {kd.launch_grid[0]} x {kd.launch_grid[1]} "
-              f"tiles, {kd.smem_bytes} B shared memory per block; double "
-              f"{entries[-2]['ms']:.4f} ms, single {entries[-1]['ms']:.4f} "
-              f"ms (bound {b_ms:.4f} ms; library "
+              f"{kd.col_tile}, runs of {kd.run} row tiles, "
+              f"{kd.launch_grid[0]} x {kd.launch_grid[1]} blocks of "
+              f"{kd.threads} threads, rings {kd.ring_rows} rows, "
+              f"{kd.smem_bytes} B shared memory per block; ptxas "
+              + " | ".join(ptxas) + f"; double {entries[-2]['ms']:.4f} ms "
+              f"({b_ms / entries[-2]['ms']:.0%} of the bound {b_ms:.4f} ms "
+              f"by {b_by}; issue ceiling {ceil_ms:.4f} ms), single "
+              f"{entries[-1]['ms']:.4f} ms (library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"{lib_note})")
         if name == "blur_chain":
             # the hand-written golden on the same image and weights
             w = torch.tensor(BLUR_W, device=dev)
-            golden = sp.stencil_pipeline(x["img"], w, w,
-                                         block_rows=cfg[0], halo=cfg[1])
-            if not torch.equal(golden, od[sink]):
-                err = (golden - od[sink]).abs().max().item()
+
+            def golden():
+                return sp.stencil_pipeline(x["img"], w, w,
+                                           block_rows=cfg[0], halo=cfg[1])
+            if not torch.equal(golden(), od[sink]):
+                err = (golden() - od[sink]).abs().max().item()
                 fail(f"K2 blur_chain differs from K1 (max {err})")
-            print("check: K2 blur_chain == K1 bitwise on the same image")
+            k1_ms = time_ms(golden, 25)[0]
+            entries[-2]["k1_ms"] = k1_ms
+            print(f"check: K2 blur_chain == K1 bitwise on the same image; K1 "
+                  f"takes {k1_ms:.4f} ms there warm, K2 "
+                  f"{entries[-2]['ms']:.4f} ms "
+                  f"({entries[-2]['ms'] / k1_ms:.2f}x)")
 
     # ---- K3 per program: kernel vs plain (NaN-aware), timed ---------------
     for name, (p, k, path) in whole.items():

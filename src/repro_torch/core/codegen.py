@@ -7,27 +7,38 @@ contract, which the port keeps).
 * **streamed** ("Mode A") — for single-sink producer-consumer chains of
   perfect depth-2 nests (the paper's Fig. 1 shape).  The sink's row loop is
   strip-mined into ``T = ceil(Rout/block_rows)`` row tiles; every producer
-  stage is recomputed per tile over exactly the *window* of its rows the
-  later stages consume.  Windows are derived by propagating
-  ``rows [a*t+b, a*t+b+sz)`` triples backward through the chain, which
-  generalizes the shift-and-peel fusion analysis: a producer's window
-  overhang ``sz - a`` IS the fusion's row shift (the shared-memory line
-  buffer halo) whenever the DSE fused that edge.  Intermediates live in
-  the block's dynamic shared memory — they never reach device memory.
-  On the card each row tile is cut into ``U`` column tiles as well (the
-  reference tiles rows only): column windows are derived backward the
-  same way, so a block recomputes its column overhang as it does its row
-  halo, and its windows stay small enough for several blocks to share
-  an SM (``CudaKernel.col_tile``, ``.launch_grid``, ``.smem_bytes``).
+  stage computes, per tile, exactly the *window* of its rows the later
+  stages consume.  Windows are derived by propagating ``rows [a*t+b,
+  a*t+b+sz)`` triples backward through the chain, which generalizes the
+  shift-and-peel fusion analysis: a producer's window overhang ``sz - a``
+  IS the fusion's row shift (the line buffer's halo) whenever the DSE
+  fused that edge.  Intermediates live in the block's shared memory or its
+  registers — they never reach device memory.  On the card each row tile
+  is cut into ``U`` column tiles as well (the reference tiles rows only),
+  column windows derived backward the same way.
 
-  - ``buffering="double"`` launches a grid of ``T*U`` blocks, one tile
-    each; the card overlaps one block's loads with another's compute.
-  - ``buffering="single"`` launches one block that walks the tiles in
-    order — one window, serialized refill/compute/store.  It is the
-    measurable baseline the gridded variant must beat.
+  The kernel is the paper's line buffer.  A block walks a run of
+  ``CudaKernel.run`` row tiles down one column tile (launch grid: runs x
+  column tiles).  Each producer a later stage reads keeps a ring of its
+  window's rows in shared memory (``CudaKernel.ring_rows``): a run's first
+  tile computes the whole window, each later tile only its ``a`` new rows,
+  over the oldest, so the halo rows are computed once a run, not once a
+  tile.  Inputs arrive in rings of their own by ``cp.async``, the next
+  tile's rows issued before the current tile computes.  Stages that share
+  a window and read each other only at their own point form a phase: one
+  thread computes all of them for a strip of rows by ``V`` columns, the
+  ones no later phase reads in registers only, loading each distinct tap
+  once for all the strip's points.  What bounds it is device memory, with
+  the SM's issue slots close behind (every op rounds on its own: no FMA).
+
+  - ``buffering="double"`` launches the grid of runs; the card overlaps
+    one block's loads with another's compute, and each block its next
+    tile's loads with its own.
+  - ``buffering="single"`` launches one block that walks every run in
+    order — the measurable baseline the gridded variant must beat.
 
   Both entry points live in one emitted ``.cu`` per program and dtype and
-  share the tile body, so the two bufferings agree bit for bit.
+  share the walk, so the two bufferings agree bit for bit.
 
 * **whole-array** ("Mode B") — the generic fallback for the programs the
   streamed contract rejects only *softly* (multi-store nests, strided or
@@ -62,15 +73,15 @@ codes) in ``diagnostics``.
 
 The nest extraction and the streamed planner are the reference's,
 unchanged, so windows, halos, padding and violation codes equal it by
-construction; only the emitter is new, with the column tiles, and a
-streamed block size that shrinks where its windows would not fit one
+construction; only the emitter is new, with the column tiles and the runs,
+and a streamed block size that shrinks where its rings would not fit one
 block's shared memory even at the narrowest column tile.  The
 kernel is emitted as *source text* (``CudaKernel.source``, the debuggable
 artifact) and built with ``nvcc`` at its first launch.  Arithmetic uses
 the round-to-nearest intrinsics (``__fmul_rn``...), so nothing is
 contracted into an FMA and the kernel repeats the plain version's
 rounding exactly.  Beside each kernel sits its plain version
-(``streamed_plain`` walks the same tile plan, ``whole_plain`` the same
+(``streamed_plain`` walks the same runs and rings, ``whole_plain`` the same
 launches, chunks and tails, vectorized over each domain, in PyTorch); a
 kernel runs it only for tensors that lie on the CPU.
 """
@@ -118,10 +129,6 @@ _TORCH_FNS = {
 
 _CTYPES = {"float32": "float", "float64": "double"}
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-# threads per block: the gridded kernel runs many blocks per SM; the
-# single-block baseline gets the most threads a block may have
-_THREADS = {"double": 256, "single": 1024}
 
 # launches per "program/buffering/dtype", counted where the kernel launches
 LAUNCHES: collections.Counter = collections.Counter()
@@ -532,9 +539,9 @@ class _ColPlan:
     ``[cw*u, cw*u+cw)``; each stage computes the domain columns
     ``[ca*u+cb, ca*u+cb+csz)`` of its window (``cols[out] = (ca, cb,
     csz)``), derived backward through the chain as the planner derives
-    rows, so a producer's column overhang is recomputed per block as its
-    row halo is.  ``pad_cols`` edge-pads an input's columns for the last,
-    ragged column tile, as ``pad_rows`` does its rows."""
+    rows, so each block computes its producers' column overhang (their
+    row halo once a run).  ``pad_cols`` edge-pads an input's columns for
+    the last, ragged column tile, as ``pad_rows`` does its rows."""
 
     cw: int
     tiles: int                                # U, column tiles
@@ -545,12 +552,30 @@ class _ColPlan:
 # column tiles tried, widest first; the narrowest decides whether a block
 # size fits at all
 _COL_TILES = (1024, 512, 256, 128, 64, 32)
-# shared memory per block the column tile aims under: 8 blocks of 256
-# threads fill an SM (2048 threads) and leave 64 KB of its 256 KB to the L1
-# cache that serves the taps' re-reads.  On an H100 the widest tile under
-# it came within 3.6 % of the fastest of 64-1024 columns for every
-# streamed benchmark at n=4096 (PERF.md, K2 column tiles)
-_SMEM_TARGET = 24 * 1024
+# shared memory per block (its rings) the column tile aims under: three
+# blocks an SM.  On an H100 at n=4096 the widest tile under it came within
+# 6 % of the fastest tile, run and depth swept for every streamed program;
+# harris ran 17 % behind a Tensor.copy_ of its input, the others within
+# 8 % (PERF.md, K2 sweep)
+_SMEM_TARGET = 64 * 1024
+# row tiles a block walks down its column tile (R), the one place it is
+# set: a run computes its producers' halo rows once, so a longer run
+# wastes less, and a shorter one leaves more blocks to fill the 132 SMs.
+# On an H100 at n=4096 runs of 16 (256-512 blocks) were the fastest for
+# five of the six streamed programs, 4 % behind runs of 8 for conv_pool;
+# runs of 32 were 9-31 % slower (PERF.md, K2 sweep)
+_RUN_TILES = 16
+# tiles of input rows a block keeps in flight ahead of the one it
+# computes: one is double buffering; two or three were slower for five of
+# the six streamed programs at n=4096 (more shared memory for bytes the
+# card already streams at a copy's rate; PERF.md, K2 sweep)
+_AHEAD = 1
+# rows of a thread's strip, at most: a strip reads each tap of its
+# footprint once into a register for all its points, so a taller strip
+# reads fewer taps a point and holds more registers
+_STRIP_ROWS = 4
+# threads a block has at most; below it, as many as one tile's strips
+_MAX_THREADS = 512
 
 
 def _plan_columns(p: Program, plan: _StreamPlan, cw: int) -> _ColPlan:
@@ -599,140 +624,549 @@ def _plan_columns(p: Program, plan: _StreamPlan, cw: int) -> _ColPlan:
     return _ColPlan(cw=cw, tiles=U, cols=cols, pad_cols=pad_cols)
 
 
-def _smem_layout(plan: _StreamPlan,
-                 cols: _ColPlan) -> tuple[dict[str, int], int]:
-    """Element offset of each non-sink stage's window in the block's
-    dynamic shared memory, and the total element count."""
-    offs, total = {}, 0
+@dataclass
+class _Block:
+    """Rows ``[lo, lo + n)`` of a phase's window, cut into strips of ``h``
+    rows: ``tx`` threads take its column groups, ``ty`` its strips."""
+
+    lo: int
+    n: int
+    h: int
+    tx: int = 1
+    ty: int = 1
+
+
+@dataclass
+class _Phase:
+    """Stages that share one window and read each other only at their own
+    point: one thread computes all of them for its strip, between two
+    barriers.  ``regs`` are the stages no later phase reads: they live in
+    registers only."""
+
+    stages: list
+    win: tuple                          # (a, b, sz): rows [a*t+b, +sz)
+    cols: tuple                         # (ca, cb, csz)
+    pw: int = 0                         # columns computed: csz rounded to V
+    regs: set = field(default_factory=set)
+    first: Optional[_Block] = None      # the halo rows: a run's first tile
+    every: Optional[_Block] = None      # the rows each tile adds
+
+
+@dataclass
+class _Ring:
+    """Rows of an array in the block's shared memory: a producer's window
+    (``rows`` = its ``win_sz``) or a staged input's window plus the new
+    rows of the ``_AHEAD`` tiles after it.  Tile t's window starts at
+    domain row ``a*t + b``; domain row d lives in slot ``d % rows``,
+    element k of a row at ``off + slot * stride + k``.  A staged input's
+    window columns are ``[ca*u + cb, +cols)``."""
+
+    rows: int
+    stride: int
+    a: int
+    b: int
+    size: int
+    off: int = 0
+    ca: int = 0
+    cb: int = 0
+    cols: int = 0
+
+
+@dataclass
+class _Walk:
+    """The card's schedule of a streamed plan: a block walks ``run`` row
+    tiles of one column tile; its phases, their rings and staged inputs."""
+
+    run: int
+    ahead: int                          # tiles of input rows in flight
+    vec: int                            # V: columns a thread takes
+    threads: int
+    phases: list
+    where: dict                         # stage out -> phase index
+    rings: dict                         # array -> _Ring
+    staged: list                        # inputs staged through a ring
+    smem_elems: int
+
+
+def _esize(dtype: str) -> int:
+    return 4 if dtype == "float32" else 8
+
+
+def _pointwise(s: _StagePlan, acc: _Access, prod: _StagePlan,
+               cols: _ColPlan) -> bool:
+    """``s`` reads ``prod`` only at its own point (window-relative)."""
+    (_, rc, rk), (civ, cc, ck) = acc.dims
+    return (civ is not None and rc == cc == 1
+            and s.win_b + rk - prod.r0 - prod.win_b == 0
+            and cols.cols[s.out][1] + ck - prod.c0
+            - cols.cols[prod.out][1] == 0)
+
+
+def _strip_rows(n: int) -> int:
+    """The largest divisor of ``n`` up to ``_STRIP_ROWS``: strips never
+    overrun the rows they cut."""
+    return max(h for h in range(1, min(n, _STRIP_ROWS) + 1) if n % h == 0)
+
+
+def _input_window(plan: _StreamPlan, cols: _ColPlan, x: str):
+    """``(a, b, rows, ca, cb, columns)`` of input ``x``'s window per tile
+    (rows ``[a*t + b, +rows)``, columns ``[ca*u + cb, +columns)``), the
+    union of its reads; None where its readers advance at different
+    rates."""
+    rates, crates, rlo, rhi, clo, chi = set(), set(), [], [], [], []
     for s in plan.stages:
-        if s is not plan.sink:
-            offs[s.out] = total
-            total += s.win_sz * cols.cols[s.out][2]
-    return offs, total
+        ca, cb, csz = cols.cols[s.out]
+        for _, acc in s.nest.loads:
+            if acc.array != x:
+                continue
+            (_, rc, rk), (civ, cc, ck) = acc.dims
+            rates.add(rc * s.win_a)
+            rlo.append(rc * s.win_b + rk)
+            rhi.append(rc * (s.win_b + s.win_sz - 1) + rk)
+            if civ:
+                crates.add(cc * ca if cols.tiles > 1 else 0)
+                clo.append(cc * cb + ck)
+                chi.append(cc * (cb + csz - 1) + ck)
+            else:
+                crates.add(0)
+                clo.append(ck)
+                chi.append(ck)
+    if len(rates) > 1 or len(crates) > 1:
+        return None
+    return (rates.pop(), min(rlo), max(rhi) - min(rlo) + 1, crates.pop(),
+            min(clo), max(chi) - min(clo) + 1)
 
 
-def _smem_need(plan: _StreamPlan, cols: _ColPlan, dtype: str) -> int:
-    return _smem_layout(plan, cols)[1] * (4 if dtype == "float32" else 8)
+def _read_col(s: _StagePlan, acc: _Access, cols: _ColPlan,
+              produced: dict, ring: _Ring) -> int:
+    """Window-relative column that ``s``'s column 0 reads through ``acc``
+    (its column c reads ``cc * c`` past it; a constant column: that one)."""
+    civ, cc, ck = acc.dims[1]
+    base = cc * cols.cols[s.out][1] if civ else 0
+    if acc.array in produced:
+        prod = produced[acc.array]
+        return base + ck - prod.c0 - cols.cols[prod.out][1]
+    return base + ck - ring.cb
 
 
-def _choose_columns(p: Program, plan: _StreamPlan, dtype: str) -> _ColPlan:
-    """The widest of ``_COL_TILES`` whose windows fit ``_SMEM_TARGET``, or
-    the narrowest."""
+def _read_row(s: _StagePlan, acc: _Access, produced: dict,
+              ring: _Ring) -> int:
+    """Window-relative row that ``s``'s window row 0 reads through ``acc``
+    (its row r reads ``rc * r`` past it)."""
+    _, rc, rk = acc.dims[0]
+    if acc.array in produced:
+        prod = produced[acc.array]
+        return rc * s.win_b + rk - prod.r0 - prod.win_b
+    return rc * s.win_b + rk - ring.b
+
+
+def _plan_walk(p: Program, plan: _StreamPlan, cols: _ColPlan,
+               dtype: str) -> _Walk:
+    """Phases, rings, threads and shared memory of ``plan`` walked by
+    runs of row tiles on the card."""
+    V = 16 // _esize(dtype)
+    produced = {s.out: s for s in plan.stages}
+    phases: list[_Phase] = []
+    where: dict[str, int] = {}
+    for s in plan.stages:
+        win = (s.win_a, s.win_b, s.win_sz)
+        cur = phases[-1] if phases else None
+        if (cur is not None and cur.win == win
+                and cur.cols == cols.cols[s.out]
+                and all(_pointwise(s, acc, produced[acc.array], cols)
+                        for _, acc in s.nest.loads
+                        if where.get(acc.array) == len(phases) - 1)):
+            cur.stages.append(s)
+        else:
+            phases.append(_Phase(stages=[s], win=win, cols=cols.cols[s.out]))
+        where[s.out] = len(phases) - 1
+    readers: dict[str, list] = {s.out: [] for s in plan.stages}
+    for c in plan.stages:
+        for _, acc in c.nest.loads:
+            if acc.array in readers:
+                readers[acc.array].append(c)
+    for ph in phases:
+        a, _, sz = ph.win
+        ph.pw = -(-ph.cols[2] // V) * V
+        ph.regs = {s.out for s in ph.stages if s is not plan.sink
+                   and all(where[c.out] == where[s.out]
+                           for c in readers[s.out])}
+        new = min(a, sz)
+        ph.every = _Block(sz - new, new, _strip_rows(new))
+        if sz > new:
+            ph.first = _Block(0, sz - new, _strip_rows(sz - new))
+    items = max(ph.every.n // ph.every.h * (ph.pw // V) for ph in phases)
+    threads = min(_MAX_THREADS, max(32, -(-items // 32) * 32))
+    for ph in phases:
+        for blk in (ph.first, ph.every):
+            if blk is not None:
+                blk.tx = min(ph.pw // V, threads)
+                blk.ty = max(1, min(blk.n // blk.h, threads // blk.tx))
+    rings: dict[str, _Ring] = {}
+    for ph in phases:
+        for s in ph.stages:
+            if s is not plan.sink and s.out not in ph.regs:
+                rings[s.out] = _Ring(rows=s.win_sz, stride=ph.pw, a=s.win_a,
+                                     b=s.win_b, size=s.win_sz)
+    staged = []
+    for x in plan.inputs:
+        w = _input_window(plan, cols, x)
+        if w is not None:
+            ia, ib, isz, ica, icb, icsz = w
+            rings[x] = _Ring(rows=isz + _AHEAD * ia, stride=icsz, a=ia,
+                             b=ib, size=isz, ca=ica, cb=icb, cols=icsz)
+            staged.append(x)
+    # a ring row holds every column its readers touch: a strip loads the
+    # aligned V-column chunks covering its taps
+    for ph in phases:
+        for s in ph.stages:
+            for _, acc in s.nest.loads:
+                ring = rings.get(acc.array)
+                if ring is None or where.get(acc.array) == where[s.out]:
+                    continue
+                civ, cc, _ = acc.dims[1]
+                crel = _read_col(s, acc, cols, produced, ring)
+                top = (cc * (ph.pw - V) + ((cc * (V - 1) + crel) // V + 1) * V
+                       if civ else crel + 1)
+                ring.stride = max(ring.stride, top)
+    total = 0
+    for ring in rings.values():
+        ring.stride = -(-ring.stride // V) * V
+        ring.off = total
+        total += ring.rows * ring.stride
+    return _Walk(run=max(1, min(_RUN_TILES, plan.grid)), ahead=_AHEAD,
+                 vec=V, threads=threads, phases=phases, where=where,
+                 rings=rings, staged=staged, smem_elems=total)
+
+
+def _smem_need(p: Program, plan: _StreamPlan, cols: _ColPlan,
+               dtype: str) -> int:
+    return _plan_walk(p, plan, cols, dtype).smem_elems * _esize(dtype)
+
+
+def _choose_columns(p: Program, plan: _StreamPlan,
+                    dtype: str) -> tuple[_ColPlan, _Walk]:
+    """The widest of ``_COL_TILES`` whose rings fit ``_SMEM_TARGET``, or
+    the narrowest, with its walk."""
     for cw in _COL_TILES:
         cols = _plan_columns(p, plan, cw)
-        if _smem_need(plan, cols, dtype) <= _SMEM_TARGET:
+        walk = _plan_walk(p, plan, cols, dtype)
+        if walk.smem_elems * _esize(dtype) <= _SMEM_TARGET:
             break
-    return cols
+    return cols, walk
+
+
+def _emit_block(p: Program, plan: _StreamPlan, cols: _ColPlan, walk: _Walk,
+                pi: int, blk: _Block, dtype: str) -> list[str]:
+    """One row block of phase ``pi``: each thread walks its strips of
+    ``blk.h`` rows by ``V`` columns.  A strip's body is straight-line code
+    in which every distinct tap, chunk load and operation appears once (the
+    offsets are constants), so a tap read by several of its points is
+    loaded once into a register; each point's ops still run in IR order
+    and round as the plain version's do."""
+    ph = walk.phases[pi]
+    V, sink = walk.vec, plan.sink
+    fi = 0 if dtype == "float32" else 1
+    vtype = "float4" if dtype == "float32" else "double2"
+    comp = "xyzw"
+    produced = {s.out: s for s in plan.stages}
+    a, b, _ = ph.win
+    ca, cb, _ = ph.cols
+    cout = p.arrays[sink.out].shape[1]
+
+    def access(s, acc, h, v):
+        X = acc.array
+        (_, rc, rk), (civ, cc, ck) = acc.dims
+        if walk.where.get(X) == pi:
+            return "reg", (X, h, v), None
+        ring = walk.rings.get(X)
+        if ring is None:
+            return "global", (X, rc, rc * h + rk, cc, cc * v + ck, civ), None
+        row = rc * h + _read_row(s, acc, produced, ring)
+        crel = _read_col(s, acc, cols, produced, ring)
+        if civ:
+            x = cc * v + crel
+            return "chunk", (X, rc, row, cc, x // V), x % V
+        return "abs", (X, rc, row, crel), None
+
+    uses: dict = collections.defaultdict(set)
+    for h in range(blk.h):
+        for v in range(V):
+            for s in ph.stages:
+                for _, acc in s.nest.loads:
+                    kind, key, e = access(s, acc, h, v)
+                    if kind == "chunk":
+                        uses[key].add(e)
+    body: list[str] = []
+    memo: dict = {}
+    regs: dict = {}
+    count = [0]
+    direct = [False]        # an input read from device memory
+
+    def fresh(prefix):
+        count[0] += 1
+        return f"{prefix}{count[0]}"
+
+    def slot(X, rc, row):
+        key = ("slot", X, rc, row)
+        if key not in memo:
+            rows = walk.rings[X].rows
+            nm = memo[key] = fresh("s")
+            body.append(f"int {nm} = b_{_ident(X)} + "
+                        f"{_affine('r0', rc, row)};")
+            body.append(f"if ({nm} >= {rows}) {nm} -= {rows};")
+        return memo[key]
+
+    def load(s, acc, h, v):
+        kind, key, e = access(s, acc, h, v)
+        if kind == "reg":
+            return regs[key]
+        vector = kind == "chunk" and len(uses[key]) > 1
+        if key not in memo:
+            nm = memo[key] = fresh("q")
+            if kind == "global":
+                direct[0] = True
+                X, rc, roff, cc, coff, civ = key
+                hh, ww = p.arrays[X].shape
+                row = _affine("gi", rc, roff)
+                if X in plan.pad_rows:
+                    row = f"min({row}, {hh - 1})"
+                col = _affine("gj", cc, coff) if civ else str(coff)
+                if civ and X in cols.pad_cols:
+                    col = f"min({col}, {ww - 1})"
+                body.append(f"const real {nm} = __ldg(x_{_ident(X)} + "
+                            f"(size_t)({row}) * {ww} + {col});")
+            else:
+                X, rc, row = key[:3]
+                ring = walk.rings[X]
+                base = f"r_{_ident(X)} + {slot(X, rc, row)} * {ring.stride}"
+                if kind == "abs":
+                    body.append(f"const real {nm} = ({base})[{key[3]}];")
+                elif vector:
+                    body.append(f"const {vtype} {nm} = *reinterpret_cast<"
+                                f"const {vtype}*>({base} + "
+                                f"{_affine('c0', key[3], V * key[4])});")
+                else:
+                    body.append(f"const real {nm} = ({base})["
+                                f"{_affine('c0', key[3], V * key[4] + e)}];")
+        return f"{memo[key]}.{comp[e]}" if vector else memo[key]
+
+    for h in range(blk.h):
+        row_vals: dict = collections.defaultdict(list)
+        for v in range(V):
+            for s in ph.stages:
+                names: dict[str, str] = {}
+                for op in s.nest.ops:
+                    if isinstance(op, ConstOp):
+                        names[op.result] = _lit(op.value, dtype)
+                    elif isinstance(op, LoadOp):
+                        acc = next(x for o, x in s.nest.loads if o is op)
+                        names[op.result] = load(s, acc, h, v)
+                    elif isinstance(op, ArithOp):
+                        args = tuple(names[x] for x in op.args)
+                        key = ("op", op.fn, args)
+                        if key not in memo:
+                            memo[key] = fresh("v")
+                            body.append(f"const real {memo[key]} = "
+                                        + _ARITH_FMT[op.fn][fi].format(*args)
+                                        + ";")
+                        names[op.result] = memo[key]
+                    elif isinstance(op, StoreOp):
+                        regs[(s.out, h, v)] = names[op.value]
+                        row_vals[s.out].append(names[op.value])
+        for s in ph.stages:
+            vals = row_vals[s.out]
+            if s.out in ph.regs:
+                continue
+            if s is not sink:
+                ring = walk.rings[s.out]
+                body.append(f"*reinterpret_cast<{vtype}*>(r_{_ident(s.out)} "
+                            f"+ {slot(s.out, 1, h)} * {ring.stride} + c0) = "
+                            f"make_{vtype}(" + ", ".join(vals) + ");")
+                continue
+            o = f"o_{_ident(s.out)}"
+            body.append(f"if (r0 + {h} < nrows) {{")
+            body.append(f"    const size_t o = (size_t)({_affine('t', a, b)}"
+                        f" + r0 + {h}) * {cout} + {cols.cw} * u + c0;")
+            if cout % V == 0 and cols.cw % V == 0:
+                # rows and column tiles keep V-column groups 16-byte aligned
+                body.append(f"    if (c0 < ncols) *reinterpret_cast<{vtype}*>"
+                            f"({o} + o) = make_{vtype}(" + ", ".join(vals)
+                            + ");")
+            else:
+                body += [f"    if (c0 + {v} < ncols) {o}[o + {v}] = "
+                         f"{vals[v]};" for v in range(V)]
+            body.append("}")
+    head = [f"// window rows [{blk.lo}, {blk.lo + blk.n}) in strips of "
+            f"{blk.h} rows x {V} columns, {blk.tx} x {blk.ty} threads",
+            f"if (ty{blk.tx} < {blk.ty}) {{",
+            f"    for (int r0 = {blk.lo} + {blk.h} * ty{blk.tx}; r0 < "
+            f"{blk.lo + blk.n}; r0 += {blk.h * blk.ty}) {{",
+            f"        for (int c0 = {V} * tx{blk.tx}; c0 < {ph.pw}; "
+            f"c0 += {V * blk.tx}) {{"]
+    if direct[0]:
+        head.append(f"            const int gi = {_affine('t', a, b)} + r0, "
+                    f"gj = {_affine('u', ca, cb)} + c0;")
+    return head + ["            " + x for x in body] + ["        }", "    }",
+                                                        "}"]
+
+
+_STREAM_CP_ASYNC = r"""// ---- cp.async
+// Copy `src_bytes` (0..N) bytes from src to shared memory at dst and fill
+// the rest of the N with zeros, asynchronously (dst and src N-aligned).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                     :: "r"(d), "l"(src), "n"(N), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N of this thread's latest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
+// ---- end cp.async
+
+// Copy `bytes` (up to `valid` of them real, zeros after) from src to dst in
+// pieces of N, the lanes of a warp taking every 32nd piece.
+template <int N>
+__device__ __forceinline__ void copy_row(char* dst, const char* src, int bytes, int valid, int lane) {
+    for (int j = N * lane; j < bytes; j += 32 * N) {
+        const int vb = min(max(valid - j, 0), N);
+        cp_async<N>(dst + j, vb ? src + j : src, vb);
+    }
+}
+"""
+
+
+def _emit_stage_input(p: Program, x: str, ring: _Ring, threads: int,
+                      dtype: str) -> list[str]:
+    """``stage_<x>``: start the copies of rows ``[lo, lo + n)`` of a tile's
+    window of input ``x`` into its ring, a warp a row, in the widest pieces
+    the row's first address allows (16, 8 or 4 bytes: an odd row stride
+    leaves every other row 8-byte aligned), zeros past the array's edge."""
+    h, w = p.arrays[x].shape
+    E = _esize(dtype)
+    pieces = (16, 8, 4) if E == 4 else (16, 8)
+    lines = [
+        f"__device__ __forceinline__ void stage_{_ident(x)}(const real* "
+        "__restrict__ x, real* ring, int d0, int slot0, int col0, int lo, "
+        "int n) {",
+        "    const int lane = threadIdx.x & 31;",
+        f"    for (int k = threadIdx.x >> 5; k < n; k += {threads // 32}) {{",
+        "        const int d = d0 + lo + k;",
+        "        int sl = slot0 + lo + k;",
+        f"        if (sl >= {ring.rows}) sl -= {ring.rows};",
+        f"        char* dst = reinterpret_cast<char*>(ring + sl * "
+        f"{ring.stride});",
+        f"        const char* src = reinterpret_cast<const char*>(x + "
+        f"(size_t)min(d, {h - 1}) * {w} + col0);",
+        f"        const int valid = d < {h} ? max(0, min({w} - col0, "
+        f"{ring.cols})) * {E} : 0;",
+        "        const unsigned al = (unsigned)(size_t)src & 15u;",
+        "        const int bytes = al ? (int)(al & (0u - al)) : 16;",
+    ]
+    for i, n in enumerate(pieces):
+        cond = (f"if (bytes == {n}) " if i == 0 else "else "
+                if i == len(pieces) - 1 else f"else if (bytes == {n}) ")
+        lines.append(f"        {cond}copy_row<{n}>(dst, src, "
+                     f"{ring.cols * E}, valid, lane);")
+    lines += ["    }", "}", ""]
+    return lines
 
 
 def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
-                   dtype: str) -> tuple[str, dict]:
+                   walk: _Walk, dtype: str) -> tuple[str, dict]:
     B, T = plan.block_rows, plan.grid
     CW, U = cols.cw, cols.tiles
+    R, NT = walk.run, walk.threads
+    runs = -(-T // R)
     sink = plan.sink
     cout = p.arrays[sink.out].shape[1]
     rout = sink.nest.trips[0]
-    produced = {s.out: s for s in plan.stages}
-    fi = 0 if dtype == "float32" else 1
-    offs, smem_elems = _smem_layout(plan, cols)
-    # a thread stores V neighbouring sink columns as one 16-byte store
-    # where the rows and the column tiles keep such groups aligned
-    V = 16 // (4 if dtype == "float32" else 8)
-    vec = cout % V == 0 and CW % V == 0
-    vtype = "float4" if dtype == "float32" else "double2"
+    E = _esize(dtype)
 
-    body = [f"real* w_{_ident(a)} = smem + {o};" for a, o in offs.items()]
-    for s in plan.stages:
-        tag = s.nest.loop.ivname
-        ca, cb, csz = cols.cols[s.out]
-        if s is sink:
-            body.append(f"// stage {tag} (sink): '{s.out}' rows "
-                        f"[{B}*t, +{B}), columns [{CW}*u, +{CW}) -> device "
-                        "memory")
-            body.append(f"const int nrows = min({B}, {rout} - {B} * t);")
-            body.append(f"const int ncols = min({CW}, {cout} - {CW} * u);")
-            if vec:
-                body.append(f"for (int e = threadIdx.x; e < nrows * {CW // V};"
-                            " e += blockDim.x) {")
-                body += [f"    const int r = e / {CW // V}, "
-                         f"c0 = {V} * (e % {CW // V});",
-                         "    if (c0 >= ncols) continue;  // ncols: "
-                         f"a multiple of {V}",
-                         f"    real res[{V}];",
-                         "#pragma unroll",
-                         f"    for (int q = 0; q < {V}; ++q) {{"]
-                inner = ["const int c = c0 + q;"]
-            else:
-                body.append(f"for (int e = threadIdx.x; e < nrows * {CW}; "
-                            "e += blockDim.x) {")
-                inner = [f"const int r = e / {CW}, c = e % {CW};",
-                         "if (c >= ncols) continue;"]
-        else:
-            body.append(f"// stage {tag}: '{s.out}' domain rows "
-                        f"[{s.win_a}*t+{s.win_b}, +{s.win_sz}), columns "
-                        f"[{ca}*u+{cb}, +{csz}) -> shared memory")
-            body.append(f"for (int e = threadIdx.x; e < {s.win_sz * csz}; "
-                        "e += blockDim.x) {")
-            inner = [f"const int r = e / {csz}, c = e % {csz};"]
-        inner += [f"const int i = {_affine('t', s.win_a, s.win_b)} + r;"
-                  "  // domain row",
-                  f"const int j = {_affine('u', ca, cb)} + c;"
-                  "  // domain column"]
-        names: dict[str, str] = {}
-        for op in s.nest.ops:
-            if isinstance(op, ConstOp):
-                names[op.result] = _lit(op.value, dtype)
-            elif isinstance(op, LoadOp):
-                acc = next(a for o, a in s.nest.loads if o is op)
-                (_, rc, rk), (civ, cc, ck) = acc.dims
-                if acc.array in produced:
-                    # window-relative: the t and u terms cancel (the
-                    # planners proved coef * consumer rate == producer rate)
-                    prod = produced[acc.array]
-                    _, pcb, pcsz = cols.cols[prod.out]
-                    rel = rc * s.win_b + rk - prod.r0 - prod.win_b
-                    row = _affine("r", rc, rel)
-                    crel = (cc * cb if civ else 0) + ck - prod.c0 - pcb
-                    col = _affine("c", cc, crel) if civ else str(crel)
-                    expr = f"w_{_ident(acc.array)}[({row}) * {pcsz} + {col}]"
-                else:
-                    h, w = p.arrays[acc.array].shape
-                    row = _affine("i", rc, rk)
-                    if acc.array in plan.pad_rows:
-                        # clamping the row is the reference's edge padding
-                        row = f"min({row}, {h - 1})"
-                    col = _affine("j", cc, ck) if civ else str(ck)
-                    if civ and acc.array in cols.pad_cols:
-                        col = f"min({col}, {w - 1})"
-                    expr = (f"x_{_ident(acc.array)}[(size_t)({row}) * {w}"
-                            f" + {col}]")
-                names[op.result] = _vname(op.result)
-                inner.append(f"const real {names[op.result]} = {expr};")
-            elif isinstance(op, ArithOp):
-                names[op.result] = _vname(op.result)
-                inner.append(f"const real {names[op.result]} = "
-                             + _ARITH_FMT[op.fn][fi].format(
-                                 *(names[a] for a in op.args)) + ";")
-            elif isinstance(op, StoreOp):
-                val = names[op.value]
-                if s is sink and vec:
-                    inner.append(f"res[q] = {val};")
-                elif s is sink:
-                    inner.append(f"o_{_ident(s.out)}[(size_t)i * {cout} + j]"
-                                 f" = {val};")
-                else:
-                    inner.append(f"w_{_ident(s.out)}[e] = {val};")
-        if s is sink and vec:
-            body += ["        " + x for x in inner] + ["    }"]
-            body.append(f"    *reinterpret_cast<{vtype}*>(o_{_ident(s.out)} + "
-                        f"(size_t)({B} * t + r) * {cout} + {CW} * u + c0) = "
-                        f"make_{vtype}("
-                        + ", ".join(f"res[{q}]" for q in range(V)) + ");")
-        else:
-            body += ["    " + x for x in inner]
-        body.append("}")
-        if s is not sink:
-            body.append("__syncthreads();")
+    body = [f"real* const r_{_ident(a)} = smem + {r.off};"
+            for a, r in walk.rings.items()]
+    body += [f"const int t0 = run * {R}, t1 = min(t0 + {R}, {T});",
+             f"const int ncols = min({CW}, {cout} - {CW} * u);"]
+    txs = sorted({blk.tx for ph in walk.phases
+                  for blk in (ph.first, ph.every) if blk is not None})
+    body += [f"const int tx{tx} = threadIdx.x % {tx}, ty{tx} = threadIdx.x "
+             f"/ {tx};" for tx in txs]
+    body += [f"int b_{_ident(a)} = ({_affine('t0', r.a, r.b)}) % {r.rows};"
+             for a, r in walk.rings.items()]
+    col0 = {x: f"{_affine('u', walk.rings[x].ca, walk.rings[x].cb)}"
+            for x in walk.staged}
+    body.append("__syncthreads();  // this block's last walk is done with "
+                "the rings")
+    D = walk.ahead
+
+    def stage_new(tile_expr, k):
+        """Start the copies of the new input rows of tile ``t + k`` (k
+        tiles past the one whose ring base ``b_x`` holds)."""
+        out = []
+        for x in walk.staged:
+            r = walk.rings[x]
+            new = min(r.a, r.size)
+            out += [f"{{ int nb = b_{_ident(x)} + {k * r.a % r.rows};",
+                    f"  if (nb >= {r.rows}) nb -= {r.rows};",
+                    f"  stage_{_ident(x)}(x_{_ident(x)}, r_{_ident(x)}, "
+                    f"{_affine(tile_expr, r.a, r.b)}, nb, {col0[x]}, "
+                    f"{r.size - new}, {new}); }}"]
+        return out
+
+    body.append("// the first tile's whole input windows"
+                + (f", then the new rows of the {D - 1} after it"
+                   if D > 1 else ""))
+    body += [f"stage_{_ident(x)}(x_{_ident(x)}, r_{_ident(x)}, "
+             f"{_affine('t0', walk.rings[x].a, walk.rings[x].b)}, "
+             f"b_{_ident(x)}, {col0[x]}, 0, {walk.rings[x].size});"
+             for x in walk.staged]
+    body.append("cp_async_commit();")
+    for k in range(1, D):
+        body.append(f"if (t0 + {k} < t1) {{")
+        body += ["    " + x for x in stage_new(f"(t0 + {k})", k)]
+        body += ["}", "cp_async_commit();"]
+    tile = [f"cp_async_wait<{D - 1}>();",
+            "__syncthreads();  // tile t's input rows have landed; tile t-1 "
+            "is done with every ring"]
+    if walk.staged:
+        tile.append(f"if (t + {D} < t1) {{  // new input rows {D} tiles "
+                    "ahead, in flight while this tile computes")
+        tile += ["    " + x for x in stage_new(f"(t + {D})", D)]
+        tile.append("}")
+    tile.append("cp_async_commit();")
+    for pi, ph in enumerate(walk.phases):
+        names = ", ".join(f"'{s.out}'" + (" (registers)" if s.out in ph.regs
+                                          else "") for s in ph.stages)
+        a, b_, sz = ph.win
+        ca, cb, csz = ph.cols
+        tile.append(f"// phase {pi}: {names}; domain rows [{a}*t+{b_}, "
+                    f"+{sz}), columns [{ca}*u+{cb}, +{csz})")
+        if plan.sink in ph.stages:
+            tile.append(f"const int nrows = min({B}, {rout} - {B} * t);")
+        if ph.first is not None:
+            tile.append("if (t == t0) {  // the halo rows, once a run")
+            tile += ["    " + x for x in _emit_block(p, plan, cols, walk, pi,
+                                                     ph.first, dtype)]
+            tile.append("}")
+        tile.append("{")
+        tile += ["    " + x for x in _emit_block(p, plan, cols, walk, pi,
+                                                 ph.every, dtype)]
+        tile.append("}")
+        if pi < len(walk.phases) - 1:
+            tile.append("__syncthreads();")
+    for a_, r in walk.rings.items():
+        if r.a % r.rows:
+            tile += [f"b_{_ident(a_)} += {r.a % r.rows};",
+                     f"if (b_{_ident(a_)} >= {r.rows}) b_{_ident(a_)} -= "
+                     f"{r.rows};"]
+    body.append(f"for (int t = t0; t < t1; ++t) {{")
+    body += ["    " + x for x in tile] + ["}"]
 
     ins = [f"const real* __restrict__ x_{_ident(a)}" for a in plan.inputs]
     outp = f"real* __restrict__ o_{_ident(sink.out)}"
@@ -741,61 +1175,76 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
              + [f"void* o_{_ident(sink.out)}", "void* stream"])
     casts = ([f"(const real*)x_{_ident(a)}" for a in plan.inputs]
              + [f"(real*)o_{_ident(sink.out)}"])
+    rings = "; ".join(f"{a} {r.rows} rows" for a, r in walk.rings.items())
     lines = [
         "// Generated by repro_torch.core.codegen — do not edit.",
-        f"// program '{p.name}': streamed (Mode A), block_rows={B}, "
-        f"{T} row tiles x {U} column tiles of {CW}, {dtype}.",
+        f"// program '{p.name}': streamed (Mode A), block_rows={B}, {T} row "
+        f"tiles in runs of {R} x {U} column tiles of {CW}, {dtype}, {NT} "
+        "threads.",
         "// Replaces the Pallas kernel that repro.core.codegen._emit_streamed"
         " emits.",
-        "// Bound: device memory (a few flops per byte: each input read "
-        "once, the sink",
-        "// written once).  Design: a block owns a tile of sink rows and "
-        "columns; every",
-        "// producer window lives in dynamic shared memory and never reaches "
-        "device memory,",
-        "// and a tile recomputes its halo rows and columns instead of "
-        "reading them back.",
-        "// Column tiles keep the windows small, so several blocks share an "
-        "SM.  Neighbouring",
-        "// threads take neighbouring columns, so loads and stores coalesce.  "
-        "The _rn",
-        "// intrinsics round every op once, as the plain version does, so "
-        "the two agree bit",
-        "// for bit.",
+        "// Bound: device memory (each input read once, the sink written "
+        "once), and close",
+        "// behind it the SM's issue slots: every op rounds on its own (the "
+        "_rn intrinsics,",
+        "// no FMA), so the arithmetic alone takes most of the bytes' time.",
+        "// Design: the paper's line buffer.  A block walks a run of row "
+        "tiles of one",
+        "// column tile top to bottom.  Each producer keeps a ring of its "
+        "window's rows in",
+        "// shared memory: a run's first tile computes the whole window, "
+        "each later tile",
+        "// only its new rows, over the oldest, so halo rows are computed "
+        "once a run.",
+        "// Inputs arrive in rings of their own by cp.async (L1 bypassed), "
+        "the next tile's",
+        "// rows issued before this tile computes.  A thread computes a "
+        "strip of rows by",
+        "// V columns of a phase, loading each distinct tap once into a "
+        "register for all",
+        "// its points; stages read only at their own point are computed in "
+        "registers by",
+        "// the thread of their producer, with no ring and no barrier.  "
+        "Each point's ops",
+        "// run in IR order, rounding as the plain version's do, so the two "
+        "agree bit for",
+        f"// bit.  Rings: {rings}.",
         "#include <cuda_runtime.h>",
         "",
         f"typedef {_CTYPES[dtype]} real;",
-        f"constexpr int SMEM_BYTES = {smem_elems} * (int)sizeof(real);",
+        f"constexpr int SMEM_BYTES = {walk.smem_elems * E};",
         "",
-        "__device__ __forceinline__ void tile(int t, int u, "
-        + ", ".join(ins + [outp, "real* smem"]) + ") {",
+        _STREAM_CP_ASYNC,
     ]
-    lines += ["    " + b for b in body]
+    for x in walk.staged:
+        lines += _emit_stage_input(p, x, walk.rings[x], NT, dtype)
+    lines += [
+        "__device__ __forceinline__ void walk(const int run, const int u, "
+        + ", ".join(ins + [outp, "real* __restrict__ smem"]) + ") {",
+    ]
+    lines += ["    " + x for x in body]
     lines += [
         "}",
         "",
-        f"__global__ void __launch_bounds__({_THREADS['double']}) "
+        f"__global__ void __launch_bounds__({NT}) "
         "streamed_double(" + ", ".join(ins + [outp]) + ") {",
         "    extern __shared__ __align__(16) unsigned char smem_raw[];",
-        f"    tile(blockIdx.x / {U}, blockIdx.x % {U}, " + ", ".join(args)
+        "    walk(blockIdx.y, blockIdx.x, " + ", ".join(args)
         + ", reinterpret_cast<real*>(smem_raw));",
         "}",
         "",
-        f"__global__ void __launch_bounds__({_THREADS['single']}) "
+        "// the serial baseline: one block walks every run in order",
+        f"__global__ void __launch_bounds__({NT}) "
         "streamed_single(" + ", ".join(ins + [outp]) + ") {",
         "    extern __shared__ __align__(16) unsigned char smem_raw[];",
-        f"    for (int t = 0; t < {T}; ++t) {{",
-        f"        for (int u = 0; u < {U}; ++u) {{",
-        "            tile(t, u, " + ", ".join(args)
+        f"    for (int run = 0; run < {runs}; ++run)",
+        f"        for (int u = 0; u < {U}; ++u)",
+        "            walk(run, u, " + ", ".join(args)
         + ", reinterpret_cast<real*>(smem_raw));",
-        "            __syncthreads();  // the next tile overwrites the "
-        "windows",
-        "        }",
-        "    }",
         "}",
         "",
     ]
-    for buf, blocks in (("double", T * U), ("single", 1)):
+    for buf, grid in (("double", f"dim3({U}, {runs})"), ("single", "1")):
         lines += [
             f'extern "C" int launch_{buf}(' + ", ".join(cargs) + ") {",
             "    if (SMEM_BYTES > 48 * 1024) {",
@@ -803,7 +1252,7 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
             "cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);",
             "        if (err != cudaSuccess) return (int)err;",
             "    }",
-            f"    streamed_{buf}<<<{blocks}, {_THREADS[buf]}, SMEM_BYTES, "
+            f"    streamed_{buf}<<<{grid}, {NT}, SMEM_BYTES, "
             "(cudaStream_t)stream>>>(" + ", ".join(casts) + ");",
             "    return (int)cudaGetLastError();",
             "}",
@@ -818,8 +1267,10 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
             "halo": dict(plan.halo), "outputs": (sink.out,),
             "vmem_window_elems": {s.out: s.win_sz * s.nest.trips[1]
                                   for s in plan.stages if s is not sink},
-            "smem_bytes": smem_elems * (4 if dtype == "float32" else 8),
-            "col_tile": CW, "launch_grid": (T, U),
+            "smem_bytes": walk.smem_elems * E, "col_tile": CW,
+            "launch_grid": (runs, U), "run": R, "threads": NT,
+            "ring_rows": {a: r.rows for a, r in walk.rings.items()
+                          if a not in walk.staged},
             "nest_launches": 1,
             "launch_nests": (tuple(s.nest.loop.ivname for s in plan.stages),),
             "tiled_reductions": ()}
@@ -827,7 +1278,7 @@ def _emit_streamed(p: Program, plan: _StreamPlan, cols: _ColPlan,
 
 
 # ---------------------------------------------------------------------------
-# The plain version: the same plan, tile by tile, in PyTorch
+# The plain version: the same runs and rings, in PyTorch
 # ---------------------------------------------------------------------------
 
 
@@ -839,14 +1290,17 @@ def _edge_pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return x.contiguous()
 
 
-def streamed_plain(p: Program, plan: _StreamPlan, cols: _ColPlan,
+def streamed_plain(p: Program, plan: _StreamPlan, cols: _ColPlan, run: int,
                    xs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """K2's plain version: walk the row tiles in order, each with all its
-    column tiles at once (a window is held as (rows, column tiles,
-    columns)), compute every stage's window with one PyTorch op per IR op,
-    edge-pad the inputs, trim the output.  Same windows, halos and op
-    order as the kernel, so it agrees with the kernel bit for bit on the
-    card and with ``sim.sequential_exec`` in float64."""
+    """K2's plain version: the kernel's schedule, all column tiles at once
+    (a ring is held as (rows, column tiles, columns)).  It walks runs of
+    ``run`` row tiles; every stage keeps a ring of its window's rows, domain
+    row d in slot ``d % win_sz``: a run's first tile computes the whole
+    window, a later tile only its new rows, into the slots the kernel uses,
+    one PyTorch op per IR op.  Inputs are edge-padded, the output trimmed.
+    Same windows, halos and op order as the kernel, so it agrees with the
+    kernel bit for bit on the card and with ``sim.sequential_exec`` in
+    float64."""
     B, T = plan.block_rows, plan.grid
     CW, U = cols.cw, cols.tiles
     sink = plan.sink
@@ -858,54 +1312,78 @@ def streamed_plain(p: Program, plan: _StreamPlan, cols: _ColPlan,
     padded = {a: _edge_pad(xs[a], plan.pad_rows.get(a, 0),
                            cols.pad_cols.get(a, 0)) for a in plan.inputs}
     consts: dict[float, torch.Tensor] = {}
+    rings = {s.out: torch.empty((s.win_sz, U, cols.cols[s.out][2]),
+                                dtype=dtype, device=dev)
+             for s in plan.stages if s is not sink}
     out = torch.empty((T * B, U * CW), dtype=dtype, device=dev)
-    for t in range(T):
-        win: dict[str, torch.Tensor] = {}
-        for s in plan.stages:
-            ca, cb, csz = cols.cols[s.out]
-            names: dict[str, torch.Tensor] = {}
-            val = None
-            for op in s.nest.ops:
-                if isinstance(op, ConstOp):
-                    if op.value not in consts:
-                        consts[op.value] = torch.tensor(op.value, dtype=dtype,
-                                                        device=dev)
-                    names[op.result] = consts[op.value]
-                elif isinstance(op, LoadOp):
-                    acc = next(a for o, a in s.nest.loads if o is op)
-                    (_, rc, rk), (civ, cc, ck) = acc.dims
-                    if acc.array in produced:
-                        prod = produced[acc.array]
-                        r0 = rc * s.win_b + rk - prod.r0 - prod.win_b
-                        c0 = ((cc * cb if civ else 0) + ck - prod.c0
-                              - cols.cols[prod.out][1])
-                        csel = (slice(c0, c0 + cc * (csz - 1) + 1, cc)
-                                if civ else slice(c0, c0 + 1))
-                        names[op.result] = win[acc.array][
-                            r0:r0 + rc * (s.win_sz - 1) + 1:rc, :, csel]
-                    else:
-                        src = padded[acc.array]
-                        r0 = rc * (s.win_a * t + s.win_b) + rk
-                        rs = src.stride(0)
-                        if civ:
-                            # (rows, column tiles, columns): column c of
-                            # tile u reads cc * (ca*u + cb + c) + ck
-                            names[op.result] = src.as_strided(
-                                (s.win_sz, U, csz), (rc * rs, cc * ca, cc),
-                                src.storage_offset() + r0 * rs + cc * cb + ck)
+
+    idx: dict[tuple, torch.Tensor] = {}
+
+    def slots(s, t, lo, n):
+        """Ring slots of window rows [lo, lo + n) of stage s at tile t (a
+        window starts at one of win_sz slots: each index built once)."""
+        key = (s.out, (s.win_a * t + s.win_b + lo) % s.win_sz, n)
+        if key not in idx:
+            idx[key] = (torch.arange(key[1], key[1] + n, device=dev)
+                        % s.win_sz)
+        return idx[key]
+
+    for t0 in range(0, T, run):
+        for t in range(t0, min(t0 + run, T)):
+            win: dict[str, torch.Tensor] = {}   # a ring in window order
+            for s in plan.stages:
+                ca, cb, csz = cols.cols[s.out]
+                lo = 0 if t == t0 else s.win_sz - min(s.win_a, s.win_sz)
+                n = s.win_sz - lo
+                names: dict[str, torch.Tensor] = {}
+                val = None
+                for op in s.nest.ops:
+                    if isinstance(op, ConstOp):
+                        if op.value not in consts:
+                            consts[op.value] = torch.tensor(
+                                op.value, dtype=dtype, device=dev)
+                        names[op.result] = consts[op.value]
+                    elif isinstance(op, LoadOp):
+                        acc = next(a for o, a in s.nest.loads if o is op)
+                        (_, rc, rk), (civ, cc, ck) = acc.dims
+                        if acc.array in produced:
+                            prod = produced[acc.array]
+                            if acc.array not in win:
+                                win[acc.array] = rings[acc.array][
+                                    slots(prod, t, 0, prod.win_sz)]
+                            r0 = (rc * (s.win_b + lo) + rk - prod.r0
+                                  - prod.win_b)
+                            c0 = ((cc * cb if civ else 0) + ck - prod.c0
+                                  - cols.cols[prod.out][1])
+                            csel = (slice(c0, c0 + cc * (csz - 1) + 1, cc)
+                                    if civ else slice(c0, c0 + 1))
+                            names[op.result] = win[acc.array][
+                                r0:r0 + rc * (n - 1) + 1:rc, :, csel]
                         else:
-                            names[op.result] = src[
-                                r0:r0 + rc * (s.win_sz - 1) + 1:rc,
-                                ck:ck + 1][:, None]
-                elif isinstance(op, ArithOp):
-                    names[op.result] = _TORCH_FNS[op.fn](
-                        *(names[a] for a in op.args))
-                elif isinstance(op, StoreOp):
-                    val = names[op.value]
-            if s is sink:
-                out[B * t:B * t + B] = val.expand(B, U, CW).reshape(B, U * CW)
-            else:
-                win[s.out] = val.expand(s.win_sz, U, csz)
+                            src = padded[acc.array]
+                            r0 = rc * (s.win_a * t + s.win_b + lo) + rk
+                            rs = src.stride(0)
+                            if civ:
+                                # (rows, column tiles, columns): column c of
+                                # tile u reads cc * (ca*u + cb + c) + ck
+                                names[op.result] = src.as_strided(
+                                    (n, U, csz), (rc * rs, cc * ca, cc),
+                                    src.storage_offset() + r0 * rs
+                                    + cc * cb + ck)
+                            else:
+                                names[op.result] = src[
+                                    r0:r0 + rc * (n - 1) + 1:rc,
+                                    ck:ck + 1][:, None]
+                    elif isinstance(op, ArithOp):
+                        names[op.result] = _TORCH_FNS[op.fn](
+                            *(names[a] for a in op.args))
+                    elif isinstance(op, StoreOp):
+                        val = names[op.value]
+                if s is sink:
+                    out[B * t:B * t + B] = val.expand(B, U, CW).reshape(
+                        B, U * CW)
+                else:
+                    rings[s.out][slots(s, t, lo, n)] = val.expand(n, U, csz)
     return {sink.out: out[:rout, :cout]}
 
 
@@ -1914,7 +2392,10 @@ class CudaKernel:
     inputs: tuple = ()              # the arrays the kernel reads
     smem_bytes: int = 0             # dynamic shared memory per block
     col_tile: Optional[int] = None  # streamed: sink columns per block
-    launch_grid: tuple = ()         # streamed: (row tiles, column tiles)
+    launch_grid: tuple = ()         # streamed: (runs, column tiles)
+    run: Optional[int] = None       # streamed: row tiles a block walks
+    ring_rows: dict = field(default_factory=dict)  # streamed: stage -> rows
+    threads: Optional[int] = None   # streamed: threads per block
     nest_launches: int = 1          # CUDA launches per call
     launch_nests: tuple = ()        # per launch, the nests it runs
     tiled_reductions: tuple = ()    # reduction nests in the tiled form
@@ -1988,7 +2469,8 @@ def _fit_shared_memory(p: Program, nests: list[_Nest], plan: _StreamPlan,
     recorded in ``soft``.  A plan that does not fit even at one row is kept
     as it is, and its launch refuses."""
     def need(pl: _StreamPlan) -> int:
-        return _smem_need(pl, _plan_columns(p, pl, _COL_TILES[-1]), dtype)
+        return _smem_need(p, pl, _plan_columns(p, pl, _COL_TILES[-1]),
+                          dtype)
 
     fitted = plan
     while need(fitted) > _cuda.MAX_SMEM_BYTES and fitted.block_rows > 1:
@@ -2039,14 +2521,14 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
     plan, soft = _plan_streamed(p, nests, block_rows or DEFAULT_BLOCK_ROWS)
     if plan is not None:
         plan = _fit_shared_memory(p, nests, plan, soft, dtype)
-        cols = _choose_columns(p, plan, dtype)
-        src, meta = _emit_streamed(p, plan, cols, dtype)
+        cols, walk = _choose_columns(p, plan, dtype)
+        src, meta = _emit_streamed(p, plan, cols, walk, dtype)
         inputs = plan.inputs
         out_shapes = {plan.sink.out: (plan.sink.nest.trips[0],
                                       p.arrays[plan.sink.out].shape[1])}
 
         def plain_fn(xs):
-            return streamed_plain(p, plan, cols, xs)
+            return streamed_plain(p, plan, cols, walk.run, xs)
     else:
         wplan = _plan_whole(p, nests, dtype)
         src, meta = _emit_whole_cuda(p, wplan, dtype)
@@ -2065,6 +2547,8 @@ def lower_program(p: Program, *, block_rows: Optional[int] = None,
                    smem_bytes=meta["smem_bytes"],
                    col_tile=meta.get("col_tile"),
                    launch_grid=meta.get("launch_grid", ()),
+                   run=meta.get("run"), ring_rows=meta.get("ring_rows", {}),
+                   threads=meta.get("threads"),
                    nest_launches=meta["nest_launches"],
                    launch_nests=meta["launch_nests"],
                    tiled_reductions=meta["tiled_reductions"])

@@ -92,13 +92,15 @@ def test_column_tiles_match_sequential_exec(name, col_tile, buffering,
     """The card's column tiles (the reference tiles rows only), walked by
     the plain version tile for tile: at n=40 the last column tile is
     ragged for every program (conv_pool's 20-column sink reads its
-    producer at column stride 2), and the last row tile too."""
+    producer at column stride 2), and the last row tile too.  A block walks
+    a run of row tiles: the launch grid is (runs, column tiles)."""
     monkeypatch.setattr(codegen, "_COL_TILES", (col_tile,))
     k = codegen.lower_program(_mk(programs, name, 40), block_rows=3,
                               buffering=buffering, dtype="float64")
     cout = k.launch_grid[1] * k.col_tile
     sink = _mk(programs, name, 40).arrays[k.outputs[0]].shape[1]
-    assert k.col_tile == col_tile and k.launch_grid[0] == k.grid[0]
+    assert k.col_tile == col_tile
+    assert k.launch_grid[0] == -(-k.grid[0] // k.run)
     assert cout - col_tile < sink < cout          # a ragged last tile
     _exact(k, name, n=40)
 
@@ -216,28 +218,35 @@ def test_card_requested_without_card_raises(monkeypatch):
 
 
 def test_windows_beyond_shared_memory_are_reported():
-    """With column tiles a block's windows are a strip of the image, so
-    harris at 4096 keeps its design point's block size (the full-width
-    windows needed 425,984 bytes at 8 rows).  A block size whose windows
-    do not fit even at the narrowest column tile shrinks to the largest
-    that fits and says so.  A chain that does not fit at one row keeps its
-    plan, and its launch refuses rather than fall back."""
+    """With column tiles a block's rings are a strip of the image, so
+    harris at 4096 keeps its design point's block size, in runs of
+    ``_RUN_TILES`` row tiles.  blur_chain's rings at 4 rows and 512
+    columns: bx's window (6 rows) and img's window plus the next tile's 4
+    new rows (10 rows of 516: the 514 columns it reads, in whole 16-byte
+    chunks).  A block size whose rings do not fit even at the narrowest
+    column tile shrinks to the largest that fits and says so.  A chain
+    that does not fit at one row keeps its plan, and its launch refuses
+    rather than fall back."""
     k = codegen.lower_program(programs.harris(4096))
     assert k.block_rows == codegen.DEFAULT_BLOCK_ROWS
     assert k.soft_reasons == []
     assert k.smem_bytes <= codegen._SMEM_TARGET
-    assert k.launch_grid == (k.grid[0], -(-4096 // k.col_tile))
+    assert k.launch_grid == (-(-k.grid[0] // codegen._RUN_TILES),
+                             -(-4096 // k.col_tile))
     blur = codegen.lower_program(programs.blur_chain(4096), block_rows=4)
-    # bx's window: 6 rows of the 1024-column tile
-    assert (blur.col_tile, blur.smem_bytes) == (1024, 6 * 1024 * 4)
+    assert (blur.col_tile, blur.smem_bytes) == (512,
+                                                (6 * 512 + 10 * 516) * 4)
     narrowest = codegen._COL_TILES[-1]
     tall = codegen.lower_program(programs.blur_chain(4096), block_rows=2000)
-    fit = _cuda.MAX_SMEM_BYTES // (narrowest * 4) - 2   # bx: rows + 2
+    # at B rows and 32 columns: bx (B + 2) x 32, img (2B + 2) x 36 floats
+    need = lambda B: ((B + 2) * narrowest + (2 * B + 2) * 36) * 4  # noqa
+    fit = max(B for B in range(1, 2000)
+              if need(B) <= _cuda.MAX_SMEM_BYTES)
     assert tall.block_rows == fit and tall.col_tile == narrowest
     assert tall.soft_reasons == [
-        f"block_rows 2000 -> {fit}: the windows need {2002 * narrowest * 4} "
-        "bytes of shared memory at 2000 rows and the narrowest column tile, "
-        f"more than the {_cuda.MAX_SMEM_BYTES} a block has"]
+        f"block_rows 2000 -> {fit}: the windows need {need(2000)} bytes of "
+        "shared memory at 2000 rows and the narrowest column tile, more "
+        f"than the {_cuda.MAX_SMEM_BYTES} a block has"]
     assert tall.smem_bytes <= _cuda.MAX_SMEM_BYTES
     # a 1900-tap row blur needs 1900 rows of bx at one output row
     deep = codegen.lower_program(programs.blur_chain(64, taps=1900),

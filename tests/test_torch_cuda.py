@@ -217,6 +217,108 @@ def test_blur_chain_streamed_equals_stencil_kernel(cuda_device):
                                                 halo=2))
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", STREAMED)
+@pytest.mark.parametrize("run", [1, 3])
+@pytest.mark.parametrize("ahead", [1, 2])
+def test_streamed_ragged_runs_equal_plain(cuda_device, monkeypatch, name,
+                                          run, ahead):
+    """Blocks walking runs of 1 and 3 row tiles (38 tiles at n=150, 19 for
+    conv_pool: the last run ragged) over ragged column tiles of 32, with
+    the input rows of 1 or 2 tiles in flight: the rings, their slots and
+    the staged input rows, double == single == plain, bitwise in f32."""
+    monkeypatch.setattr(codegen, "_RUN_TILES", run)
+    monkeypatch.setattr(codegen, "_AHEAD", ahead)
+    monkeypatch.setattr(codegen, "_COL_TILES", (32,))
+    p = _streamed(name, 150)
+    inputs = sim.make_inputs(p, seed=2)
+    kd = codegen.lower_program(p, block_rows=4)
+    ks = codegen.lower_program(p, block_rows=4, buffering="single")
+    assert kd.run == run and (run == 1 or kd.grid[0] % run != 0)
+    assert kd.launch_grid == (-(-kd.grid[0] // run), kd.launch_grid[1])
+    xs = {a: torch.as_tensor(inputs[a], dtype=torch.float32,
+                             device=cuda_device) for a in kd.inputs}
+    n0 = codegen.LAUNCHES[kd.launch_key]
+    od, os_, plain = kd(xs), ks(xs), kd.plain(xs)
+    torch.cuda.synchronize()
+    assert codegen.LAUNCHES[kd.launch_key] == n0 + 1
+    for a in kd.outputs:
+        assert torch.equal(od[a], plain[a])
+        assert torch.equal(os_[a], plain[a])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", STREAMED)
+@pytest.mark.parametrize("run", [1, 3])
+def test_streamed_ragged_runs_float64_match_sequential_exec(
+        cuda_device, monkeypatch, name, run):
+    monkeypatch.setattr(codegen, "_RUN_TILES", run)
+    monkeypatch.setattr(codegen, "_COL_TILES", (16,))
+    p = _streamed(name, 40)
+    inputs = sim.make_inputs(p, seed=4)
+    want = sim.sequential_exec(p, inputs)
+    for buffering in ("double", "single"):
+        k = codegen.lower_program(p, block_rows=3, buffering=buffering,
+                                  dtype="float64")
+        assert k.run == run
+        got = k(inputs)                 # numpy input: runs on the card
+        for a in k.outputs:
+            np.testing.assert_allclose(got[a].cpu().numpy(), want[a],
+                                       rtol=1e-12, atol=0)
+
+
+def _mixed_rates(n):
+    """img read at row i by bx and at row 2i by the sink: two row rates,
+    so the kernel reads it from device memory, not through a ring."""
+    from repro_torch.core.ir import ProgramBuilder
+    b = ProgramBuilder("mixed_rates")
+    b.array("img", (2 * n + 2, n + 2), is_arg=True)
+    b.array("bx", (n + 2, n))
+    b.array("out", (n, n), is_arg=True)
+    with b.loop("bxi", 0, n + 2) as i:
+        with b.loop("bxj", 0, n) as j:
+            b.store("bx", b.add(b.load("img", i, j), b.load("img", i, j + 2)),
+                    i, j)
+    with b.loop("oi", 0, n) as i:
+        with b.loop("oj", 0, n) as j:
+            s = b.add(b.load("bx", i, j), b.load("bx", i + 2, j))
+            b.store("out", b.sub(s, b.load("img", i * 2, j + 1)), i, j)
+    return b.build()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,col_tile", [(41, 16), (150, 32)])
+def test_streamed_input_at_two_row_rates_equals_plain(cuda_device,
+                                                       monkeypatch, n,
+                                                       col_tile):
+    monkeypatch.setattr(codegen, "_RUN_TILES", 3)
+    monkeypatch.setattr(codegen, "_COL_TILES", (col_tile,))
+    p = _mixed_rates(n)
+    xs = {a: torch.as_tensor(v, dtype=torch.float32, device=cuda_device)
+          for a, v in sim.make_inputs(p, seed=7).items() if a == "img"}
+    kd = codegen.lower_program(p, block_rows=4)
+    ks = codegen.lower_program(p, block_rows=4, buffering="single")
+    assert "__ldg(x_img" in kd.source
+    plain = kd.plain(xs)["out"]
+    assert torch.equal(kd(xs)["out"], plain)
+    assert torch.equal(ks(xs)["out"], plain)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("run", [1, 3])
+def test_blur_chain_ragged_runs_equal_stencil_kernel(cuda_device,
+                                                     monkeypatch, run):
+    monkeypatch.setattr(codegen, "_RUN_TILES", run)
+    p = programs.blur_chain(134)
+    img = torch.as_tensor(sim.make_inputs(p, seed=6)["img"],
+                          dtype=torch.float32, device=cuda_device)
+    k = codegen.lower_program(p, block_rows=4)
+    assert k.run == run and k.grid[0] % 3 != 0
+    w = torch.tensor([1 / 3, 1 / 2, 1 / 3], device=cuda_device)
+    assert torch.equal(k({"img": img})["by"],
+                       sp.stencil_pipeline(img, w, w, block_rows=2, halo=2))
+
+
 # ---------------------------------------------------------------------------
 # K3: the whole-array kernel
 # ---------------------------------------------------------------------------

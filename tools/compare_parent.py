@@ -1,4 +1,4 @@
-"""Time this tree's K1, K4 and K5 calls beside a parent tree's, in one
+"""Time this tree's K1, K2, K4 and K5 calls beside a parent tree's, in one
 process on one card, in turns (parent, tree, tree, parent).
 
     git archive <parent commit> src | tar -x -C build/parent
@@ -9,6 +9,8 @@ process on one card, in turns (parent, tree, tree, parent).
         --only k4_bwd
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
         --only k5_bwd
+    PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
+        --only k2
 
 Each tree's ``repro_torch`` is imported in turn (``sys.modules`` cleared
 between) and builds its kernels under its own root.  Per tree it measures,
@@ -43,6 +45,12 @@ precision):
   every token on the CUDA cores): the call (CUDA events) and, from
   torch.profiler, each device kernel's time.
 
+``--only k2`` measures the streamed kernel (K2) alone: the six streamed
+programs at n=4096 in float32 at their design points' block sizes
+(``K2_BLOCK_ROWS``, as ``chip_smoke.py`` compiles them), the gridded
+kernel's time (CUDA events) and whether it equals the tree's own plain
+version bit for bit.
+
 ``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone,
 ``--only k5_bwd`` K5's backward alone.  Prints one line per tree and turn
 and a JSON summary last.
@@ -65,6 +73,9 @@ sys.path.insert(0, ROOT)
 
 STEPS = 5          # decode steps under the profiler
 REPLAYS = 50       # decode steps timed
+# the streamed programs and their design points' block sizes at n=8
+K2_BLOCK_ROWS = {"blur_chain": 4, "conv_pool": 4, "gradient_harris": 4,
+                 "correlated_chain": 4, "unsharp": 4, "harris": 8}
 
 
 def load(src: str) -> types.SimpleNamespace:
@@ -75,13 +86,21 @@ def load(src: str) -> types.SimpleNamespace:
     sys.path.insert(0, os.path.abspath(src))
     try:
         from repro_torch import config
+        from repro_torch.core import analysis  # noqa: F401 (imported lazily)
+        from repro_torch.core import codegen, programs, sim
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import stencil_pipeline as sp
         from repro_torch.kernels import wkv6 as wk
         from repro_torch.models import lm
     finally:
         sys.path.pop(0)
-    return types.SimpleNamespace(config=config, fa=fa, sp=sp, wk=wk, lm=lm)
+    # the tree's modules, put back in sys.modules while it is measured, so
+    # an import inside one of its functions finds its own tree's module
+    mods = {m: mod for m, mod in sys.modules.items()
+            if m == "repro_torch" or m.startswith("repro_torch.")}
+    return types.SimpleNamespace(config=config, fa=fa, sp=sp, wk=wk, lm=lm,
+                                 codegen=codegen, programs=programs, sim=sim,
+                                 modules=mods)
 
 
 def kernels(acts):
@@ -106,6 +125,32 @@ def measure_k1(t, dev) -> dict:
             "warm_ms": cs.time_ms(call, 25)[0],
             "equal_plain": torch.equal(call(),
                                        t.sp.stencil_pipeline_plain(x, w, w))}
+    return out
+
+
+def measure_k2(t, dev, plains: dict) -> dict:
+    """K2's gridded kernel on each streamed program at n=4096, float32;
+    ``plains`` keeps each tree's plain outputs across its turns."""
+    import torch
+
+    import chip_smoke as cs
+    out = {}
+    ctors = {**t.programs.CHAIN_BENCHMARKS, **t.programs.BENCHMARKS}
+    for name, br in K2_BLOCK_ROWS.items():
+        p = ctors[name](cs.CHAIN_N, storage="bram")
+        k = t.codegen.lower_program(p, block_rows=br)
+        x = t.sim.make_inputs(p, seed=0)
+        xs = {a: torch.as_tensor(x[a], dtype=torch.float32, device=dev)
+              for a in k.inputs}
+        sink = k.outputs[0]
+        if (id(t), name) not in plains:
+            plains[id(t), name] = k.plain(xs)[sink]
+        out[f"k2_{name}"] = {
+            "ms": cs.time_ms(lambda: k(xs), 25)[0],
+            "equal_plain": torch.equal(k(xs)[sink], plains[id(t), name]),
+            "launch_grid": list(k.launch_grid), "col_tile": k.col_tile,
+            "smem_bytes": k.smem_bytes}
+        del xs
     return out
 
 
@@ -273,7 +318,7 @@ def main(argv=None) -> int:
                     help="the parent tree's src directory")
     ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
                     help="this tree's src directory")
-    ap.add_argument("--only", choices=("k1", "k4_bwd", "k5_bwd"),
+    ap.add_argument("--only", choices=("k1", "k2", "k4_bwd", "k5_bwd"),
                     help="measure only this kernel")
     args = ap.parse_args(argv)
     import subprocess
@@ -290,11 +335,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     trees = {"parent": load(args.parent), "tree": load(args.tree)}
     results = {"card": card, "parent": [], "tree": []}
-    models = {}
+    models, plains = {}, {}
     for name in ("parent", "tree", "tree", "parent"):
         t = trees[name]
+        sys.modules.update(t.modules)
         m = measure_k4_bwd(t, dev) if args.only == "k4_bwd" else \
             measure_k5_bwd(t, dev) if args.only == "k5_bwd" else \
+            measure_k2(t, dev, plains) if args.only == "k2" else \
             measure_k1(t, dev)
         if args.only is None:
             m.update(measure(t, dev))

@@ -3,7 +3,7 @@ them against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Fourteen paths, each run with the launch counts set to 0 just before it and
+Fifteen paths, each run with the launch counts set to 0 just before it and
 read just after:
 
 1. *chains*: ``hls.compile`` schedules each stencil chain of
@@ -119,6 +119,19 @@ read just after:
    peak memory and K5's backward's share of the step; (c) the windows
    route timed at that shape beside its bounds, its plain version and each
    launch's time; the walk route at its checks' shape.
+15. *sharded*: the multi-device training path on a (1, 1) mesh over NCCL
+   (one card; the group's rendezvous a ``FileStore`` in a temporary
+   directory): llama3-8b at its published widths cut to 2 layers (bf16,
+   chunked, remat "full") trained 3 steps on 2 x 2048 tokens by
+   ``launch.train.train`` with ``mesh=`` (parameters and moments DTensors
+   laid out by the rule tables, weights all-gathered, the loss's sum and
+   count and every gradient reduced over the mesh) and by the one-device
+   path from the same weights and batches: losses, parameters and moments
+   bitwise equal, and K4's forward and backward launched as often by
+   both, by the wrappers here and, in the profiling child, by the
+   profiler; the prefill step of ``steps.build(cfg, prefill shape, mesh)``
+   bitwise ``lm.forward``; ``ag_matmul``, ``compressed_psum`` and
+   ``pipelined_forward`` on card tensors equal to their plain results.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -318,6 +331,10 @@ K5_BWD_WALK_DECAYS = (1e-3, "model")
 # drops (tokens [16 x, 16 x + 16) of the first chunk)
 K5_BWD_DROPPED_WINDOW = 1
 K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
+# path 15, sharded: llama3-8b at its published widths cut to SHARDED_LAYERS
+# layers (bf16, chunked), SHARDED_STEPS steps (the cosine warm-up's rate is
+# 0 at step 0) on TRAIN_B x TRAIN_S tokens, one-device and on a (1, 1) mesh
+SHARDED_LAYERS, SHARDED_STEPS = 2, 3
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
 # device activities of a graphed rwkv6-3b step before this slice (PR 16's
@@ -580,7 +597,8 @@ def profile_main(dev=None) -> int:
     and of the hybrid_serve path's Jamba (``graph_step_profile``); the
     train path's step (``train_step_profile``), the train_rwkv path's
     (``train_rwkv_step_profile``) and K5's backward at its shape
-    (``k5_bwd_profile``); K1 on the frame
+    (``k5_bwd_profile``); the sharded path's one-device and (1, 1) mesh
+    steps (``sharded_step_profile``); K1 on the frame
     at the DSE's configuration, one call a profile, f32 and bf16; the
     CUDA-core K4 at the reduced path's GQA views, one call a profile, f32
     and bf16; one call of K5's sequence form; the kernels sdpa runs at each
@@ -658,6 +676,7 @@ def profile_main(dev=None) -> int:
         out["sdpa_bwd"][dt] = sorted(
             {short_name(n_) for n_, _ in kernel_names(device_kernels(bwd)[0])})
     out["k4_bwd"] = k4_bwd_profiles(dev)
+    out["sharded_step"] = sharded_step_profile(dev)
     print(json.dumps(out))
     return 0
 
@@ -3500,6 +3519,245 @@ def k5_bwd_entries(dev, cases: dict, launches: int, prof: dict) -> list:
     return entries
 
 
+def sharded_config():
+    """The sharded path's model: ``train_config`` at SHARDED_LAYERS."""
+    return train_config(n_layers=SHARDED_LAYERS)
+
+
+def sharded_mesh(dev, tmp: str):
+    """The (1, 1) ("data", "model") mesh over this one process: NCCL on the
+    card (gloo for CPU rehearsals), the rendezvous a FileStore in
+    ``tmp``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    mesh_mod.init_distributed(dev.type, rank=0, world_size=1,
+                              store=dist.FileStore(os.path.join(tmp, "store"),
+                                                   1))
+    return mesh_mod.make_test_mesh(1, 1, device=dev.type)
+
+
+def sharded_step_profile(dev) -> dict:
+    """The sharded path's model in the profiling child: for the one-device
+    step and the (1, 1) mesh's, after a warm-up step each, K4's wrapper
+    launches in one step ("launches") and the K4 kernels the profiler sees
+    in another ("k4")."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+
+    cfg = sharded_config()
+    host = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_S,
+                           batch=TRAIN_B).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = sharded_mesh(dev, tmp)
+        try:
+            model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(
+                0), dev).requires_grad_(True)
+            opt = adamw_init(model.param_list())
+            single = steps_mod.build_train_step(cfg, model)
+            step, (pspecs, ospecs, bspecs), _, _ = \
+                steps_mod.build_train_step(cfg, ShapeConfig(
+                    "sharded", "train", TRAIN_S, TRAIN_B), mesh)
+            fresh = adamw_init(model.param_list())
+            params = steps_mod.shard_list(model.param_list(), pspecs, mesh)
+            sopt = {"m": steps_mod.shard_list(fresh["m"], ospecs["m"], mesh),
+                    "v": steps_mod.shard_list(fresh["v"], ospecs["v"], mesh),
+                    "count": fresh["count"]}
+            runs = {"single": lambda: single(model, opt, batch),
+                    "sharded": lambda: step(params, sopt,
+                                            steps_mod.local_batch(
+                                                host, bspecs, mesh, dev))}
+            for name, fn in runs.items():
+                fn()
+                torch.cuda.synchronize()
+                fa.LAUNCHES.clear()
+                fn()
+                torch.cuda.synchronize()
+                launches = {f"k4/{k}": v for k, v in fa.LAUNCHES.items()}
+                acts, _ = device_kernels(fn)
+                out[name] = {"launches": launches, "k4": [
+                    short_name(n_) for n_, _ in kernel_names(acts)
+                    if K4_KERNEL.search(n_)]}
+            del model, opt, params, sopt, fresh
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_path(dev, prof: dict, card: str) -> None:
+    """Path 15: the one-device trainer and the (1, 1) mesh's from the same
+    seed, SHARDED_STEPS steps each, bitwise the same; K4's launches the same
+    (here and in the profiling child); the mesh's prefill step bitwise
+    ``lm.forward``; the collective helpers on card tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = sharded_config()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = sharded_mesh(dev, tmp)
+        try:
+            runs, counts = {}, {}
+            for name, where in (("single", None), ("sharded", mesh)):
+                zero_model_counts()
+                runs[name] = train.train(
+                    cfg, steps=SHARDED_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                    log_every=1, seed=0, device=dev, mesh=where)
+                torch.cuda.synchronize()
+                counts[name] = model_counts()
+            print("sharded path launches: " + json.dumps(counts,
+                                                         sort_keys=True))
+            one, many = runs["single"], runs["sharded"]
+            per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers,
+                        "k4/bwd/bfloat16": cfg.n_layers * fa.bwd_launches(
+                            torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
+                            cfg.n_kv_heads, TRAIN_S)}
+            want = {k: SHARDED_STEPS * v for k, v in per_step.items()}
+            if counts["single"] != want or counts["sharded"] != want:
+                fail(f"sharded path: K4 launches {counts}; both paths must "
+                     f"launch {want} ({SHARDED_STEPS} steps x {per_step})")
+            if one["losses"] != many["losses"]:
+                fail(f"sharded path: losses {many['losses']} on the mesh, "
+                     f"{one['losses']} on one device")
+            pairs = [(a, b.full_tensor()) for a, b in zip(
+                [*one["params"], *one["opt"]["m"], *one["opt"]["v"]],
+                [*many["params"], *many["opt"]["m"], *many["opt"]["v"]])]
+            differ = [i for i, (a, b) in enumerate(pairs)
+                      if not torch.equal(a.detach(), b)]
+            if differ or not torch.equal(one["opt"]["count"],
+                                         many["opt"]["count"]):
+                fail(f"sharded path: {len(differ)} of {len(pairs)} "
+                     "parameters and moments differ from the one-device "
+                     f"run's (first {differ[:5]})")
+            sp_ = prof["sharded_step"]
+            seen = {k: collections.Counter("bwd" if "fa_bwd" in n_ else "fwd"
+                                           for n_ in v["k4"])
+                    for k, v in sp_.items()}
+            if sp_["single"]["launches"] != sp_["sharded"]["launches"] or \
+                    seen["single"] != seen["sharded"] or not seen["single"]:
+                fail(f"sharded path: the profiling child's K4 launches "
+                     f"{ {k: v['launches'] for k, v in sp_.items()} }, K4 "
+                     f"kernels seen {seen}: the two steps must match")
+            ms = {k: [x * 1e3 for x in r["step_s"]] for k, r in runs.items()}
+            print(f"sharded: llama3-8b full width, {cfg.n_layers} of 32 "
+                  f"layers, bf16, chunked, remat {cfg.remat}, {TRAIN_B} x "
+                  f"{TRAIN_S} tokens; {SHARDED_STEPS} steps one-device (ms "
+                  + ", ".join(f"{x:.2f}" for x in ms["single"])
+                  + f") and on {mesh_mod.describe(mesh)} over "
+                  f"{dist.get_backend()} (ms "
+                  + ", ".join(f"{x:.2f}" for x in ms["sharded"])
+                  + f"); last step sharded / one-device "
+                  f"{ms['sharded'][-1] / ms['single'][-1]:.3f}; card {card}")
+            print(f"check: sharded: losses "
+                  + ", ".join(f"{x:.6f}" for x in one["losses"])
+                  + f" and all {len(pairs)} parameters and moments bitwise "
+                  f"the one-device run's; K4 launches {counts['sharded']} "
+                  f"on both; the profiling child's step: launches "
+                  f"{sp_['sharded']['launches']} on both, K4 kernels seen "
+                  f"{dict(seen['sharded'])} on both")
+            # the prefill step the builders make for the mesh
+            tokens = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                     batch=TRAIN_B, seed=3).batch_at(0)[
+                                         "tokens"]
+            pre, (_, bspecs), _, _ = steps_mod.build(
+                cfg, ShapeConfig("sharded", "prefill", TRAIN_S, TRAIN_B),
+                mesh)
+            with torch.no_grad():
+                zero_model_counts()
+                got = pre(many["params"], steps_mod.local_batch(
+                    {"tokens": tokens}, bspecs, mesh, dev))
+                torch.cuda.synchronize()
+                n_pre = model_counts()
+                want = lm.forward(cfg, one["model"], {
+                    "tokens": torch.as_tensor(tokens, device=dev)})
+            if not torch.equal(got, want):
+                fail("sharded path: the mesh's prefill step differs from "
+                     f"lm.forward (max {(got - want).abs().max().item()})")
+            if n_pre != {"k4/wgmma/bfloat16": cfg.n_layers}:
+                fail(f"sharded path: the mesh's prefill launched {n_pre}")
+            del got, want, runs, one, many, pairs
+            torch.cuda.empty_cache()
+            print(f"check: sharded: the prefill step of steps.build(cfg, "
+                  f"prefill {TRAIN_B} x {TRAIN_S}, mesh) == lm.forward "
+                  f"bitwise; launches {n_pre}")
+            sharded_helpers(dev, mesh, cfg)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def sharded_helpers(dev, mesh, cfg) -> None:
+    """The collective helpers at one rank, on card tensors: ``ag_matmul``
+    == the plain product, ``compressed_psum`` == its grid's plain value
+    (quantize, sum of one, divide by 1), ``pipelined_forward`` ==
+    ``reference_forward``, all bitwise."""
+    import torch
+
+    from repro_torch.parallel import collective_matmul, compression, pipeline
+    g = torch.Generator(device=dev).manual_seed(1)
+    D = cfg.d_model
+    x = torch.randn((TRAIN_S, D), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((D, D), generator=g, device=dev) * D ** -0.5).to(
+        torch.bfloat16)
+    if not torch.equal(collective_matmul.ag_matmul(x, w, mesh, "model"),
+                       x @ w):
+        fail("sharded path: ag_matmul at one rank differs from x @ w")
+    grads = [torch.randn((cfg.n_heads, D), generator=g, device=dev) * 1e-3,
+             torch.randn((D,), generator=g, device=dev).to(torch.bfloat16)]
+    got = compression.compressed_psum(grads, mesh.get_group("data"),
+                                      torch.Generator(device=dev)
+                                      .manual_seed(2))
+    noise = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    for leaf, out in zip(grads, got):
+        q, sc = compression.quantize_int8(leaf.float(), noise)
+        plain = (q.to(torch.int32).float() * sc / 1).to(leaf.dtype)
+        if not torch.equal(out, plain):
+            fail("sharded path: compressed_psum at one rank differs from "
+                 "its grid's plain value")
+        worst = max(worst, ((out.float() - leaf.float()).abs().max()
+                            / leaf.float().abs().max()).item())
+    if not worst < 0.02:
+        fail(f"sharded path: compressed_psum is {worst:.3g} off the leaf")
+    S_, M_ = mesh.size(0), 6
+    params = {"w": torch.randn((S_, D, D), generator=g, device=dev)
+              * D ** -0.5, "b": torch.randn((S_, D), generator=g,
+                                            device=dev) * 0.1}
+    mbs = torch.randn((M_, 8, D), generator=g, device=dev)
+
+    def stage(p, x_):
+        return torch.tanh(x_ @ p["w"] + p["b"])
+    with torch.no_grad():
+        out = pipeline.pipelined_forward(stage, params, mbs, mesh, "data")
+        ref = pipeline.reference_forward(stage, params, mbs)
+    if not torch.equal(out, ref):
+        fail("sharded path: pipelined_forward at one stage differs from "
+             "reference_forward")
+    print(f"check: sharded: at one rank on card tensors, ag_matmul "
+          f"({TRAIN_S} x {D} @ {D} x {D}, bf16) == x @ w, compressed_psum "
+          f"== its grid's plain value (within {worst:.3g} of the leaf), "
+          f"pipelined_forward ({M_} microbatches) == reference_forward, "
+          "all bitwise")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -3621,8 +3879,8 @@ def main() -> int:
     t0 = time.perf_counter()
     prof = profiles()
     print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's, "
-          f"the MoE step's, Jamba's step's, the train steps' and K5's "
-          f"backward's device kernels off "
+          f"the MoE step's, Jamba's step's, the train steps', K5's "
+          f"backward's and the sharded path's device kernels off "
           f"torch.profiler in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -3969,6 +4227,8 @@ def main() -> int:
     # ---- path 14, train_rwkv: K5's backward, rwkv6-3b trained --------------
     k5_bwd_cases = k5_bwd_checks(dev)
     rwkv_trained = train_rwkv_path(dev, prof)
+    # ---- path 15, sharded: the multi-device training path at one rank ------
+    sharded_path(dev, prof, card)
     entries += k4_entries(
         dev, prefilled["launches"], equiv, reduced, prof, moe_prefilled,
         [("hybrid_prefill", hybrid["prefill"], HYBRID_PREFILL_S,

@@ -17,6 +17,13 @@ every leaf back bitwise.  ``restore_checkpoint`` returns tensors shaped as
 the template's leaves, on their devices; ``AsyncCheckpointer`` copies the
 tree to the host before its writer thread starts, so training may go on
 changing the tensors in place.
+
+Sharded trees (a multi-device step's DTensors): saving gathers every
+DTensor leaf to its full tensor, a collective that every rank of its mesh
+joins, and rank 0 of the process group alone writes.  Leaves are stored
+whole, so ``restore_checkpoint(..., shardings=)`` may lay them out on
+another mesh than the one that saved them (elastic restore): each rank
+reads the files and keeps its own block of each leaf.
 """
 from __future__ import annotations
 
@@ -27,12 +34,17 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import NamedSharding, shard
 
 
 def _flatten(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _flatten(tree[k])]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree,
+                                                          NamedSharding):
         return [x for t in tree for x in _flatten(t)]
     return [tree]
 
@@ -59,8 +71,11 @@ def _structure(tree) -> str:
 
 
 def _to_host(x):
-    """A leaf as (numpy array, dtype name): a host copy; bf16 as its bits."""
+    """A leaf as (numpy array, dtype name): a host copy; bf16 as its bits.
+    A DTensor is gathered first (every rank of its mesh must call)."""
     if isinstance(x, torch.Tensor):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -105,9 +120,19 @@ def _write(ckpt_dir: str, step: int, snapshot) -> str:
     return final
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the process group, or the
+    only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
-    """Write ``tree`` as step ``step``; returns the step's directory."""
-    return _write(ckpt_dir, step, _snapshot(tree))
+    """Write ``tree`` as step ``step`` (rank 0 of a process group alone
+    writes; every rank gathers); returns the step's directory."""
+    snap = _snapshot(tree)
+    if _writer():
+        return _write(ckpt_dir, step, snap)
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
 def latest_step(ckpt_dir: str):
@@ -118,11 +143,18 @@ def latest_step(ckpt_dir: str):
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, tree_like):
+def restore_checkpoint(ckpt_dir: str, step: int, tree_like,
+                       shardings=None):
     """Step ``step`` in the structure of ``tree_like``: each tensor leaf of
     the template is replaced by the stored one, on the template leaf's
     device (numpy and scalar leaves come back as numpy arrays).  Raises
-    when the leaf count, a shape or a dtype differs from the template."""
+    when the leaf count, a shape or a dtype differs from the template.
+
+    ``shardings``: a tree of ``tree_like``'s structure whose leaves are
+    ``parallel.sharding.NamedSharding``s or None; a tensor leaf with a
+    sharding comes back as a DTensor laid out by its spec on its mesh
+    (which may differ from the mesh that saved it), each rank holding its
+    own block."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -131,9 +163,15 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like):
     if n != len(template):
         raise ValueError(f"checkpoint has {n} leaves, model has "
                          f"{len(template)}")
+    places = _flatten(shardings) if shardings is not None \
+        else [None] * n
+    if len(places) != n:
+        raise ValueError(f"shardings have {len(places)} leaves, the "
+                         f"template {n}")
     out = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for i, (like, dt) in enumerate(zip(template, manifest["dtypes"])):
+        for i, (like, dt, where) in enumerate(zip(
+                template, manifest["dtypes"], places)):
             a = data[f"leaf_{i}"]
             if dt == "bfloat16":
                 t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -144,7 +182,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like):
                     raise ValueError(
                         f"leaf {i}: stored {tuple(t.shape)} {t.dtype}, model "
                         f"has {tuple(like.shape)} {like.dtype}")
-                out.append(t.to(like.device))
+                out.append(t.to(like.device) if where is None else
+                           shard(t, where.mesh, where.spec))
             else:
                 out.append(a)
     return _unflatten(tree_like, iter(out))
@@ -162,6 +201,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree):
         self.wait()
         snap = _snapshot(tree)     # off the device, a copy
+        if not _writer():
+            return
         self._thread = threading.Thread(target=self._run, args=(step, snap),
                                         daemon=True)
         self._thread.start()

@@ -1,29 +1,177 @@
-"""Step builders shared by the trainer and the server: the single-device
-part of ``repro.launch.steps``.
+"""Step builders shared by the trainer and the server (the port of
+``repro.launch.steps``).
 
-The reference's builders also return shardings and abstract inputs for its
-dry-run compiles; those wait for the multi-device slice (``parallel/``,
-``launch/dryrun.py``, ``api.input_specs``).  Here a builder returns the
-step function alone.  PyTorch runs eagerly, so a step is the plain Python
-of the reference's jitted body.
+One device: ``build_train_step(cfg, model)``, ``build_prefill_step(cfg,
+model)`` and ``build_decode_step(cfg, model)`` return the step function
+alone.  PyTorch runs eagerly, so a step is the plain Python of the
+reference's jitted body.
+
+A mesh (``launch.mesh``): ``build_train_step(cfg, shape, mesh)``,
+``build_prefill_step(cfg, shape, mesh)``, ``build_decode_step(cfg, shape,
+mesh)`` and ``build(cfg, shape, mesh)`` return ``(fn, in_specs, out_specs,
+abstract_inputs)`` as the reference's builders do (building joins no
+process group: ``mesh`` may be a ``(shape, names)`` spec where only the
+specs and abstract inputs are wanted): the specs are
+``parallel.sharding``'s (parameters and moments as lists in
+``LM.param_list`` order), the abstract inputs tensors on the ``meta``
+device (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``,
+``api.input_specs``).  The steps take DTensors laid out by those specs
+(``shard_list``) and the rank's block of the batch (``local_batch``), and
+compute on plain local tensors: ZeRO-3, every weight all-gathered before
+use (the whole model at once), so the kernels receive plain CUDA tensors.
+Tensor-parallel compute and per-layer gathering are not ported.  The
+dry-run (``launch/dryrun.py``) and the HLO analyzer
+(``launch/hlo_analysis.py``) that read these builders come next.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.config import ArchConfig
-from repro_torch.models import lm
-from repro_torch.optim import adamw_update, clip_by_global_norm, \
-    cosine_schedule
+from repro_torch.config import ArchConfig, ShapeConfig
+from repro_torch.models import api, lm
+from repro_torch.optim import adamw_init, adamw_update, \
+    clip_by_global_norm, cosine_schedule, global_norm_sq
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import P
 
 
-def build_train_step(cfg: ArchConfig, model: lm.LM):
-    """``train_step(model, opt_state, batch) -> {"loss", "grad_norm"}``:
-    the loss, its gradients (``torch.autograd.grad``; ``model``'s
-    parameters must require grad), global-norm clipping at 1.0, the cosine
-    schedule's rate at the optimiser's ``count`` and one AdamW step, which
-    writes the parameters and ``opt_state`` in place.  The metrics are 0-d
-    tensors on the model's device: the step itself never syncs."""
+def abstract_params(cfg: ArchConfig) -> dict:
+    """``lm.init_params``' tree on the ``meta`` device: shapes and dtypes,
+    nothing drawn."""
+    return lm.init_params(cfg, None, "meta")
+
+
+def abstract_opt_state(cfg: ArchConfig, params_shape: dict) -> dict:
+    """``adamw_init`` of ``params_shape`` (a tree as ``abstract_params``),
+    its moments in ``LM.param_list`` order."""
+    return adamw_init(lm.LM(cfg, params_shape).param_list())
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    return lm.init_cache(cfg, shape.global_batch, shape.seq_len, "meta")
+
+
+# ---------------------------------------------------------------------------
+# helpers of the sharded steps
+# ---------------------------------------------------------------------------
+
+
+def _model_specs(cfg: ArchConfig, mesh):
+    """(the abstract model, its parameters' dotted names and specs, in
+    ``param_list`` order)."""
+    model = lm.LM(cfg, abstract_params(cfg))
+    names = [n for n, _ in model.named_parameters()]
+    return model, names, sharding.param_list_specs(cfg, model, mesh)
+
+
+def _over(dims: set, n: int) -> list:
+    """Placements of a tensor pending a sum over mesh ``dims`` (of ``n``)."""
+    return [Partial() if i in dims else Replicate() for i in range(n)]
+
+
+def _sum_over(x: torch.Tensor, mesh, dims: set) -> torch.Tensor:
+    """``x`` summed over the ranks along mesh ``dims`` (the same on those
+    ranks after); no communication when ``dims`` is empty."""
+    return DTensor.from_local(x, mesh, _over(dims, mesh.ndim)).full_tensor()
+
+
+def _gather(cfg: ArchConfig, names: list, params: list) -> lm.LM:
+    """The model over every weight all-gathered, as plain tensors."""
+    return lm.LM.from_named(cfg, zip(names, (p.full_tensor()
+                                             for p in params)))
+
+
+def shard_list(tensors, specs, mesh) -> list:
+    """Each tensor (the same on every rank: an initialised model's
+    ``param_list``, moments) as a DTensor laid out by its spec."""
+    return [sharding.shard(t.detach(), mesh, s)
+            for t, s in zip(tensors, specs)]
+
+
+def local_batch(batch: dict, bspecs: dict, mesh, device) -> dict:
+    """This rank's block of a global batch (numpy arrays or tensors, the
+    same on every rank), as tensors on ``device``."""
+    coord = mesh.get_coordinate()
+    return {k: torch.as_tensor(v[sharding.local_block(
+        bspecs[k], tuple(v.shape), mesh, coord)], device=device)
+        for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# builders
+# ---------------------------------------------------------------------------
+
+
+def build_train_step(cfg: ArchConfig, model_or_shape, mesh=None):
+    """One device (``build_train_step(cfg, model)``): ``train_step(model,
+    opt_state, batch) -> {"loss", "grad_norm"}``: the loss, its gradients
+    (``torch.autograd.grad``; ``model``'s parameters must require grad),
+    global-norm clipping at 1.0, the cosine schedule's rate at the
+    optimiser's ``count`` and one AdamW step, which writes the parameters
+    and ``opt_state`` in place.  The metrics are 0-d tensors on the model's
+    device: the step itself never syncs.
+
+    A mesh (``build_train_step(cfg, shape, mesh)``): ``(train_step,
+    in_specs, out_specs, abstract)``; ``train_step(params, opt_state,
+    batch)`` takes the parameters and moments as DTensors laid out by
+    ``in_specs`` and the rank's block of the batch, and does the same step:
+    the weights all-gathered, the masked sum and token count of the loss
+    summed over the batch's mesh axes (the loss is the global masked mean),
+    each gradient summed over those axes and cut to its parameter's layout
+    (ranks along an axis the batch is not split over hold the same batch
+    and the same gradient, counted once), the global norm over every
+    element once (each shard's squares taken by one replica), AdamW on the
+    local shards.  At one rank it runs the ops of the one-device step in
+    the same order."""
+    if mesh is None:
+        return _train_step(cfg, model_or_shape)
+    shape = model_or_shape
+    model, names, pspecs = _model_specs(cfg, mesh)
+    ospecs = sharding.opt_specs(pspecs)
+    bspecs = sharding.batch_specs(cfg, shape, mesh)
+    place = [sharding.placements(s, mesh) for s in pspecs]
+    dp = sharding.batch_dims(bspecs, mesh)
+    n_dims = len(sharding.mesh_shape(mesh))
+    partial = _over(dp, n_dims)
+    everywhere = set(range(n_dims))
+
+    def train_step(params, opt_state, batch):
+        coord = mesh.get_coordinate()
+        owned = [all(c == 0 for c, pl in zip(coord, p) if pl == Replicate())
+                 for p in place]
+        local = _gather(cfg, names, params).requires_grad_(True)
+        full = local.param_list()
+        total, count = lm.loss_terms(cfg, local, batch)
+        count = _sum_over(count.detach(), mesh, dp)
+        grads = torch.autograd.grad(total / torch.clamp(count, min=1.0),
+                                    full)
+        del local, full
+        grads = [DTensor.from_local(g, mesh, partial).redistribute(
+            mesh, pl).to_local() for g, pl in zip(grads, place)]
+        sq = torch.zeros((), device=grads[0].device) + global_norm_sq(
+            [g for g, own in zip(grads, owned) if own])
+        grads, gnorm = clip_by_global_norm(
+            grads, 1.0, total=_sum_over(sq, mesh, everywhere))
+        lr = cosine_schedule(opt_state["count"])
+        _, new = adamw_update(
+            [p.to_local() for p in params], grads,
+            {"m": [m.to_local() for m in opt_state["m"]],
+             "v": [v.to_local() for v in opt_state["v"]],
+             "count": opt_state["count"]}, lr)
+        opt_state["count"] = new["count"]
+        loss = _sum_over(total.detach(), mesh, dp) / torch.clamp(count,
+                                                                 min=1.0)
+        return {"loss": loss, "grad_norm": gnorm}
+
+    in_sh = (pspecs, ospecs, bspecs)
+    out_sh = (pspecs, ospecs, {"loss": P(), "grad_norm": P()})
+    abstract = (model.param_list(), abstract_opt_state(cfg, abstract_params(
+        cfg)), api.input_specs(cfg, shape))
+    return train_step, in_sh, out_sh, abstract
+
+
+def _train_step(cfg: ArchConfig, model: lm.LM):
     params = model.param_list()
 
     def train_step(model, opt_state, batch):
@@ -38,17 +186,71 @@ def build_train_step(cfg: ArchConfig, model: lm.LM):
     return train_step
 
 
-def build_prefill_step(cfg: ArchConfig, model: lm.LM):
-    """``prefill_step(model, batch) -> logits``."""
-    def prefill_step(model, batch):
-        return lm.forward(cfg, model, batch)
+def build_prefill_step(cfg: ArchConfig, model_or_shape, mesh=None):
+    """One device: ``prefill_step(model, batch) -> logits``.  A mesh:
+    ``(prefill_step, in_specs, out_specs, abstract)``, ``prefill_step(
+    params, batch)`` the logits of the rank's block of the batch, from the
+    weights all-gathered."""
+    if mesh is None:
+        def prefill_step(model, batch):
+            return lm.forward(cfg, model, batch)
+        return prefill_step
+    shape = model_or_shape
+    model, names, pspecs = _model_specs(cfg, mesh)
+    bspecs = sharding.batch_specs(cfg, shape, mesh)
 
-    return prefill_step
+    def sharded_prefill_step(params, batch):
+        return lm.forward(cfg, _gather(cfg, names, params), batch)
+
+    in_sh = (pspecs, bspecs)
+    out_sh = P(bspecs["tokens"][0], None, None)   # logits follow the batch
+    abstract = (model.param_list(), api.input_specs(cfg, shape))
+    return sharded_prefill_step, in_sh, out_sh, abstract
 
 
-def build_decode_step(cfg: ArchConfig, model: lm.LM):
-    """``serve_step(model, cache, batch) -> (logits, cache)``."""
-    def serve_step(model, cache, batch):
-        return lm.decode_step(cfg, model, cache, batch)
+def build_decode_step(cfg: ArchConfig, model_or_shape, mesh=None):
+    """One device: ``serve_step(model, cache, batch) -> (logits, cache)``.
+    A mesh: ``(serve_step, in_specs, out_specs, abstract)``;
+    ``serve_step(params, cache, batch)`` takes the cache's tensors as
+    DTensors laid out by ``cache_specs`` and the rank's block of the batch:
+    each cache tensor is gathered to its rows of the batch (whole along
+    its other dims), the step runs on plain local tensors, and the new
+    cache goes back to its layout."""
+    if mesh is None:
+        def serve_step(model, cache, batch):
+            return lm.decode_step(cfg, model, cache, batch)
+        return serve_step
+    shape = model_or_shape
+    model, names, pspecs = _model_specs(cfg, mesh)
+    cshape = abstract_cache(cfg, shape)
+    cspecs = sharding.cache_specs(cfg, shape, mesh, cshape)
+    bspecs = sharding.batch_specs(cfg, shape, mesh)
 
-    return serve_step
+    def rows(spec):
+        return sharding.placements(P(spec[0]), mesh)
+
+    def sharded_serve_step(params, cache, batch):
+        local = {"blocks": [
+            {k: t.redistribute(mesh, rows(s[k])).to_local()
+             for k, t in c.items()}
+            for c, s in zip(cache["blocks"], cspecs["blocks"])]}
+        logits, new = lm.decode_step(cfg, _gather(cfg, names, params),
+                                     local, batch)
+        return logits, {"blocks": [
+            {k: DTensor.from_local(t, mesh, rows(s[k])).redistribute(
+                mesh, sharding.placements(s[k], mesh))
+             for k, t in c.items()}
+            for c, s in zip(new["blocks"], cspecs["blocks"])]}
+
+    in_sh = (pspecs, cspecs, bspecs)
+    out_sh = (P(bspecs["token"][0], None, None), cspecs)
+    abstract = (model.param_list(), cshape, api.input_specs(cfg, shape))
+    return sharded_serve_step, in_sh, out_sh, abstract
+
+
+def build(cfg: ArchConfig, shape: ShapeConfig, mesh):
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh)
+    return build_decode_step(cfg, shape, mesh)

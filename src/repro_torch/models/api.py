@@ -1,14 +1,15 @@
-"""Batch shapes and random batches for every (arch x shape), with the JAX
-package's draws.
+"""Batch shapes, abstract inputs and random batches for every (arch x
+shape), with the JAX package's draws.
 
 ``make_batch`` draws from ``np.random.default_rng(seed)`` in the order the
 reference does, so both packages build equal batches, for every family
-(``lm`` runs all of them).  The reference's ``input_specs`` (a
-``jax.ShapeDtypeStruct`` view for dry-run compiles) has no counterpart yet:
-it comes with the multi-device slice and ``launch/dryrun.py``.  The
-modality frontends are stubs as in the reference: whisper gets frame
-embeddings (B, enc_seq, D), paligemma patch embeddings (B, n_img_tokens,
-D)."""
+(``lm`` runs all of them).  ``input_specs`` is the batch as tensors on the
+``meta`` device, the counterpart of the reference's ``jax.ShapeDtypeStruct``
+view: the step builders (``launch.steps.build``) return it as their
+abstract inputs, and the dry-run (``launch/dryrun.py``, not ported yet)
+will lower against it.  The modality frontends are stubs as in the
+reference: whisper gets frame embeddings (B, enc_seq, D), paligemma patch
+embeddings (B, n_img_tokens, D)."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,6 +37,13 @@ def batch_shapes(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, tuple]:
     if cfg.family == "encdec":
         d["frames"] = ((B, cfg.enc_seq, cfg.d_model), dt)
     return d
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """``batch_shapes`` as empty tensors on the ``meta`` device, in their
+    dtypes: the batch's shapes with no storage."""
+    return {k: torch.empty(shp, dtype=getattr(torch, dt), device="meta")
+            for k, (shp, dt) in batch_shapes(cfg, shape).items()}
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,

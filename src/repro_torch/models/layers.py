@@ -22,8 +22,13 @@ reference runs the same math in plain JAX:
   ``_wkv_chunk``'s recurrence with the WKV6 kernel (K5), which also returns
   the carried state.
 
-The reference's sharding constraints are no-ops on one device and are
-left out.
+The reference's sharding constraints (``constrain`` calls) are left out:
+``repro_torch.parallel.sharding.constrain`` exists, but the port's sharded
+steps (``launch.steps``) gather every weight and run these functions on
+plain local tensors, for which it is the identity.  They come back with
+tensor-parallel compute, which is not ported; the dry-run
+(``launch/dryrun.py``) and the HLO analyzer (``launch/hlo_analysis.py``)
+are the next pieces to port.
 """
 from __future__ import annotations
 
@@ -53,7 +58,11 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
             device) -> torch.Tensor:
     """N(0, 1) * scale drawn in f32 from ``gen`` on its own device, then
     cast (as the reference draws in f32 and casts with ``astype``); above
-    ``_DRAW_ELEMS`` elements, slice by slice of the leading axis."""
+    ``_DRAW_ELEMS`` elements, slice by slice of the leading axis.  On the
+    ``meta`` device nothing is drawn (``gen`` may be None): the tensor has
+    its shape and dtype alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if math.prod(shape) <= _DRAW_ELEMS:
         x = torch.randn(shape, generator=gen, device=gen.device)
         return x.mul_(scale).to(device=device, dtype=dtype)

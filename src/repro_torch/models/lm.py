@@ -96,7 +96,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random parameters drawn from ``generator`` (on its own device) and
     placed on ``device``.  The reference draws from ``jax.random``; the two
-    give different numbers from one seed."""
+    give different numbers from one seed.  On the ``meta`` device nothing
+    is drawn (``generator`` may be None): the parameters' shapes and dtypes
+    alone (``launch.steps.abstract_params``)."""
     dev = torch.device(device)
     dt = L._dt(cfg)
     D, V = cfg.d_model, cfg.vocab
@@ -224,6 +226,28 @@ class LM(nn.Module):
         the optimiser's moments and of a checkpoint's leaves."""
         return list(self.parameters())
 
+    @classmethod
+    def from_named(cls, cfg: ArchConfig, named) -> "LM":
+        """The model over the tensors of ``named``, (dotted name, tensor)
+        pairs as ``named_parameters`` gives them (``blocks.0.mix.wq``):
+        each tensor wrapped, not copied."""
+        tree: dict = {}
+        for name, t in named:
+            *path, leaf = name.split(".")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t
+
+        def lists(node):   # {"0": layer, "1": layer} -> [layer, layer]
+            if not isinstance(node, dict):
+                return node
+            if all(k.isdigit() for k in node):
+                return [lists(node[str(i)]) for i in range(len(node))]
+            return {k: lists(v) for k, v in node.items()}
+
+        return cls(cfg, lists(tree))
+
     def forward(self, batch):
         return forward(self.cfg, self, batch)
 
@@ -344,17 +368,25 @@ def forward(cfg: ArchConfig, model: LM, batch):
     return logits_from_hidden(cfg, model, h)
 
 
-def loss_fn(cfg: ArchConfig, model: LM, batch):
-    """The reference's training loss: the mean over ``mask`` (ones when the
-    batch has none) of ``-log_softmax(logits)`` at ``labels`` (B, S), as a
-    0-d tensor on the model's device."""
+def loss_terms(cfg: ArchConfig, model: LM, batch):
+    """(the sum over ``mask`` (ones when the batch has none) of
+    ``-log_softmax(logits)`` at ``labels`` (B, S), the mask's sum): the
+    loss's numerator and token count, 0-d tensors on the model's device.  A
+    sharded step sums both over its ranks before it divides."""
     logits = forward(cfg, model, batch)
     labels = _on(batch["labels"], model.device).long()
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = _on(batch["mask"], model.device) if "mask" in batch \
         else torch.ones_like(ll)
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -(ll * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ArchConfig, model: LM, batch):
+    """The reference's training loss: the masked mean of
+    ``loss_terms``, as a 0-d tensor on the model's device."""
+    total, count = loss_terms(cfg, model, batch)
+    return total / torch.clamp(count, min=1.0)
 
 
 def opt_state_from_reference(cfg: ArchConfig, state: dict,

@@ -37,14 +37,23 @@ def adamw_init(params: Sequence[torch.Tensor],
                                  device=params[0].device)}
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
-    """(grads scaled by min(1, max_norm / (norm + 1e-9)) in their dtypes,
-    the global norm as a 0-d fp32 tensor): the norm of every gradient in
-    fp32, summed in the list's order."""
+def global_norm_sq(grads: Sequence[torch.Tensor]):
+    """The squares of every gradient's entries in fp32, summed in the
+    list's order (0 for no gradient)."""
     total = 0
     for g in grads:
         total = total + torch.sum(torch.square(g.float()))
-    gn = torch.sqrt(total)
+    return total
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        total=None):
+    """(grads scaled by min(1, max_norm / (norm + 1e-9)) in their dtypes,
+    the global norm as a 0-d fp32 tensor): the norm of every gradient in
+    fp32, summed in the list's order (``global_norm_sq``), or the square
+    root of ``total`` where the caller summed the squares (a sharded step,
+    over its ranks)."""
+    gn = torch.sqrt(global_norm_sq(grads) if total is None else total)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return [(g.float() * scale).to(g.dtype) for g in grads], gn
 

@@ -1,0 +1,4 @@
+"""Multi-device pieces over ``torch.distributed``: the sharding rule tables
+(``sharding``), int8 compressed gradient reduction (``compression``), the
+ring all-gather matmul (``collective_matmul``) and the pipeline executor
+(``pipeline``)."""

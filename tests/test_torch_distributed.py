@@ -1,0 +1,515 @@
+"""The port's multi-device path on gloo process groups on the CPU, against
+the JAX package's single-process references: the pipeline executor (its
+forward and gradients), the ring all-gather matmul, the int8 compressed
+all-reduce, the sharded train step of the reduced llama3-8b on (4, 2) and
+(2, 2) meshes through ``launch.train.train``, the sharded prefill and
+decode steps, the elastic restore, and the raise where the card or NCCL
+is asked for and missing.
+
+The cases spawn their ranks twice in all (``torch_dist_workers.spawn``: a
+``FileStore`` under a temporary directory, one thread a rank, a deadline
+after which the ranks are killed): 8 ranks for the collectives and the
+(4, 2) step, then 4 for the (2, 2) step, the restore onto (2, 2) and the
+prefill and decode steps.  The rank functions import no
+JAX; the JAX side is computed here on the same numpy inputs.
+"""
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import jax
+import jax.numpy as jnp
+
+from repro import config as jax_config
+from repro import optim as jax_optim
+from repro.launch import steps as jax_steps
+from repro.models import lm as jax_lm
+from repro.parallel import pipeline as jax_pipeline
+from repro_torch import checkpoint as tckpt
+from repro_torch import config as torch_config
+from repro_torch.data import SyntheticLMData
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
+from repro_torch.models import lm as torch_lm
+from repro_torch.optim import adamw_init, cosine_schedule
+from repro_torch.parallel import compression as tcompression
+from repro_torch.parallel import sharding as tsharding
+
+import torch_dist_workers as workers
+
+S_STAGES, M, D = 8, 12, 32          # the reference suite's pipeline case
+B, SEQ, STEPS = 8, 32, 3            # the sharded train step's batches
+LOSS_RTOL = 1e-5
+SPAWN_TIMEOUT = 300                 # pytest's guard; a spawn's deadline 240
+
+
+@pytest.fixture(autouse=True)
+def _port_fault_free():
+    from repro_torch.core import faults
+    faults.reset()
+    yield
+    faults.reset()
+
+
+# ---------------------------------------------------------------------------
+# collectives: pipeline, ag_matmul, compressed psum, layouts (8 ranks)
+# ---------------------------------------------------------------------------
+
+LAYOUTS = [((("pod", "data"), "model"), (8, 6)),
+           ((None, ("data", "model")), (3, 8)),
+           (("model", None, "pod"), (4, 3, 2)),
+           ((), (5,))]
+
+
+def _collective_inputs():
+    """The reference suite's inputs (``tests/test_multidevice.py``, drawn
+    from the same keys; the stage bias drawn rather than zero), its limits
+    being set on them."""
+    def normal(key, shape):
+        return np.asarray(jax.random.normal(jax.random.key(key), shape))
+    pipe = {"params": {"w": normal(0, (S_STAGES, D, D)) * D ** -0.5,
+                       "b": normal(5, (S_STAGES, D)) * 0.1},
+            "mbs": normal(1, (M, 4, D))}
+    rng = np.random.default_rng(0)
+    layout = [(tsharding.P(*spec), rng.standard_normal(shape).astype(
+        np.float32)) for spec, shape in LAYOUTS]
+    return {"pipe": pipe, "x": normal(2, (32, 16)), "w": normal(3, (16, 24)),
+            "grads": normal(4, (8, 64)) * np.float32(0.1), "layout": layout}
+
+
+@pytest.fixture(scope="module")
+def collectives(eight_ranks):
+    return {**eight_ranks["collectives"],
+            "res": [r["collectives"] for r in eight_ranks["ranks"]]}
+
+
+def _jax_stage(p, x):
+    return jnp.tanh(x @ p["w"] + p["b"])
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_pipelined_forward_matches_jax_reference(collectives):
+    pipe = collectives["pipe"]
+    want = np.asarray(jax_pipeline.reference_forward(
+        _jax_stage, pipe["params"], pipe["mbs"]))
+    for r in collectives["res"]:
+        np.testing.assert_allclose(r["pipeline"]["outs"], want, rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_pipelined_gradients_match_jax_grad(collectives):
+    """Each rank's gradient holds its stage's row alone; their sum against
+    ``jax.grad`` of the reference loss at the reference suite's limits
+    (which reject a gradient counted once a stage)."""
+    pipe = collectives["pipe"]
+    tgt = jnp.zeros((M, 4, D))
+    want = jax.grad(lambda p: jnp.mean(jnp.square(
+        jax_pipeline.reference_forward(_jax_stage, p, pipe["mbs"]) - tgt)))(
+        pipe["params"])
+    for k in ("w", "b"):
+        rows = [r["pipeline"]["grads"][k] for r in collectives["res"]]
+        for s, g in enumerate(rows):
+            others = np.delete(g, s, axis=0)
+            assert not others.any(), f"rank {s} wrote other stages' {k}"
+        np.testing.assert_allclose(sum(rows), np.asarray(want[k]),
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_ag_matmul_matches_the_plain_product(collectives):
+    want = collectives["x"] @ collectives["w"]
+    for r in collectives["res"]:
+        np.testing.assert_allclose(r["ag_matmul"], want, rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_compressed_psum_is_the_mean_on_one_shared_grid(collectives):
+    """Within 2 % of the mean (the reference suite's limit), and bitwise a
+    numpy emulation: the scales' max over ranks, the same noise on every
+    rank, int32 sums, the division by 8."""
+    g = collectives["grads"]
+    want = g.mean(axis=0)
+    noise = tcompression.uniform_noise(
+        (64,), torch.Generator().manual_seed(0)).numpy()
+    scale = np.max(np.abs(g), axis=-1, keepdims=True) / np.float32(127.0) \
+        + np.float32(1e-12)
+    scale = scale.max(axis=0)
+    q = np.clip(np.round(g / scale + noise), -127, 127).astype(np.int8)
+    emul = q.astype(np.int32).sum(axis=0).astype(np.float32) * scale \
+        / np.float32(8)
+    for r in collectives["res"]:
+        err = np.abs(r["psum"] - want).max() / np.abs(want).max()
+        assert err < 0.02, err
+        np.testing.assert_array_equal(r["psum"], emul)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_shard_keeps_the_block_distribute_tensor_keeps(collectives):
+    """On (2, 2, 2): ``sharding.shard``'s block (``local_block``, held to
+    JAX's device indices in test_torch_sharding) is the one
+    ``distribute_tensor`` keeps with ``placements``."""
+    mesh = ((2, 2, 2), ("pod", "data", "model"))
+    for r in collectives["res"]:
+        for (spec, full), (mine, dt) in zip(collectives["layout"],
+                                            r["layout"]):
+            want = full[tsharding.local_block(spec, full.shape, mesh,
+                                              r["coord"])]
+            np.testing.assert_array_equal(mine, want)
+            np.testing.assert_array_equal(dt, want)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_constrain_redistributes_a_dtensor(collectives):
+    """Under ``ctx_mesh(mesh, "fsdp")`` "dp" is every axis: a replicated
+    (8, 6) DTensor comes back split 8 ways on its rows."""
+    full = collectives["layout"][0][1]
+    mesh = ((2, 2, 2), ("pod", "data", "model"))
+    for r in collectives["res"]:
+        spec, local = r["constrain"]
+        assert spec == (("pod", "data", "model"), None)
+        np.testing.assert_array_equal(local, full[tsharding.local_block(
+            spec, full.shape, mesh, r["coord"])])
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step, (4, 2) and (2, 2) fsdp, and the elastic restore
+# ---------------------------------------------------------------------------
+
+
+def _cfgs(**kw):
+    a = dataclasses.replace(jax_config.get_config("llama3_8b", reduced=True),
+                            dtype="float32", **kw)
+    b = dataclasses.replace(torch_config.get_config("llama3_8b",
+                                                    reduced=True),
+                            dtype="float32", **kw)
+    return a, b
+
+
+def _trainer_order(cfg, tree):
+    """The reference's weights ``tree`` (numpy) as tensors in the order of
+    the trainer's ``param_list`` (``init_params``' layout; a model carried
+    from the reference orders each layer's keys as JAX does)."""
+    carried = dict(torch_lm.LM.from_reference(cfg, tree,
+                                              "cpu").named_parameters())
+    return [carried[n].detach() for n, _ in torch_lm.LM(
+        cfg, tsteps.abstract_params(cfg)).named_parameters()]
+
+
+def _step_zero(cfg, tree, ckpt_dir):
+    """A checkpoint at step 0 of the weights ``tree`` (the reference's, as
+    numpy) with fresh AdamW state: ``train`` resumes from it."""
+    params = _trainer_order(cfg, tree)
+    tckpt.save_checkpoint(ckpt_dir, 0, (params, adamw_init(params)))
+
+
+def _template(cfg):
+    params = [torch.empty(p.shape, dtype=p.dtype) for p in
+              torch_lm.LM(cfg, tsteps.abstract_params(cfg)).param_list()]
+    return params, adamw_init(params)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reduced llama3-8b (f32) from the reference's weights: the JAX
+    step's 3 steps (one device, jitted), the port's one-device trainer's,
+    and the step-0 checkpoint both start from."""
+    jcfg, tcfg = _cfgs()
+    params = jax_lm.init_params(jcfg, jax.random.key(11))
+    tree = jax.tree.map(np.asarray, params)
+    root = tmp_path_factory.mktemp("train")
+    _step_zero(tcfg, tree, str(root / "zero"))
+    opt = jax_optim.adamw_init(params)
+    jstep = jax.jit(jax_steps.build_train_step(
+        jcfg, jax_config.ShapeConfig("t", "train", SEQ, B),
+        jax.make_mesh((1, 1), ("data", "model")))[0])
+    ds = SyntheticLMData(vocab=tcfg.vocab, seq_len=SEQ, batch=B, seed=0)
+    jl, jn = [], []
+    for step in range(STEPS):
+        params, opt, m = jstep(params, opt, ds.batch_at(step))
+        jl.append(float(m["loss"]))
+        jn.append(float(m["grad_norm"]))
+    one = str(root / "one")
+    shutil.copytree(root / "zero", one)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # as each rank: the suite's workers share cores
+    try:
+        single = ttrain.train(tcfg, steps=STEPS, batch=B, seq=SEQ,
+                              ckpt_dir=one, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    return {"root": root, "tree": tree,
+            "jax": {"losses": jl, "grad_norms": jn, "params":
+                    _trainer_order(tcfg, jax.tree.map(np.asarray, params))},
+            "single": {"losses": single["losses"],
+                       "grad_norms": single["grad_norms"],
+                       "params": [p.detach() for p in single["params"]],
+                       "m": single["opt"]["m"], "v": single["opt"]["v"]}}
+
+
+def _sharded_job(reference, name, mesh_shape, **kw):
+    """A ``sharded_train`` job from the step-0 checkpoint, and its run's
+    description (``_sharded_run`` completes it)."""
+    _, tcfg = _cfgs(**kw)
+    ckpt = str(reference["root"] / name)
+    shutil.copytree(reference["root"] / "zero", ckpt)
+    return (("sharded_train", (tcfg, mesh_shape, ckpt, STEPS, B, SEQ)),
+            {"cfg": tcfg, "ckpt": ckpt,
+             "mesh": (mesh_shape, ("data", "model"))})
+
+
+def _sharded_run(run, ranks):
+    params, opt = tckpt.restore_checkpoint(run["ckpt"], STEPS,
+                                           _template(run["cfg"]))
+    return {**run, "ranks": [r["sharded_train"] for r in ranks],
+            "params": params, "opt": opt}
+
+
+@pytest.fixture(scope="module")
+def eight_ranks(reference):
+    """8 ranks: the collectives, then the (4, 2) step."""
+    inputs = _collective_inputs()
+    job, run = _sharded_job(reference, "tp_4x2", (4, 2))
+    ranks = workers.spawn(workers.several, 8,
+                          str(reference["root"] / "eight"), [
+                              ("collectives", (inputs["pipe"], inputs["x"],
+                                               inputs["w"], inputs["grads"],
+                                               inputs["layout"])), job])
+    return {"collectives": inputs, "ranks": ranks,
+            "run_4x2": _sharded_run(run, ranks)}
+
+
+@pytest.fixture(scope="module")
+def run_4x2(eight_ranks):
+    return eight_ranks["run_4x2"]
+
+
+@pytest.fixture(scope="module")
+def four_ranks(reference, run_4x2):
+    """4 ranks on (2, 2): the "fsdp" step, the (4, 2) run's last checkpoint
+    restored with the "fsdp" style's shardings, the prefill and decode
+    steps (the "tp" style) on the reference's weights."""
+    job, run = _sharded_job(reference, "fsdp_2x2", (2, 2),
+                            parallel_style="fsdp")
+    _, fsdp = _cfgs(parallel_style="fsdp")
+    _, tcfg = _cfgs()
+    tokens = np.random.default_rng(5).integers(
+        0, tcfg.vocab, (4, 16)).astype(np.int32)
+    tree = _port_tree(tcfg, reference["tree"])
+    ranks = workers.spawn(workers.several, 4,
+                          str(reference["root"] / "four"), [
+                              job,
+                              ("elastic_restore", (fsdp, (2, 2),
+                                                   run_4x2["ckpt"], STEPS)),
+                              ("prefill_decode", (tcfg, (2, 2), tree,
+                                                  tokens))])
+    return {"run_2x2": _sharded_run(run, ranks), "tokens": tokens,
+            "tree": tree, "cfg": tcfg,
+            "restore": [r["elastic_restore"] for r in ranks],
+            "prefill": [r["prefill_decode"] for r in ranks]}
+
+
+@pytest.fixture(scope="module")
+def run_2x2(four_ranks):
+    return four_ranks["run_2x2"]
+
+
+def _param_atol():
+    """How far one parameter may move apart between two reductions of the
+    same gradients: a gradient near zero may change sign across summation
+    orders, and AdamW's normalised step |m^ / sqrt(v^)| is then at most
+    sqrt(sum_i a_i^2 / c_i) (Cauchy-Schwarz over the moments' weights a_i,
+    c_i) in either direction, times each step's rate; plus 1e-7 of
+    rounding (parameters are O(1) at most)."""
+    b1, b2 = 0.9, 0.95
+    total = 0.0
+    for step in range(STEPS):
+        t = step + 1
+        a = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        c = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        bound = sum(x * x / y for x, y in zip(a, c)) ** 0.5
+        total += 2 * float(cosine_schedule(step)) * bound
+    return total + 1e-7
+
+
+def _holds_the_reference(run, reference):
+    """Losses and gradient norms (a gradient summed over replicas that
+    hold the same batch would double the norm) within 1e-5 of the
+    one-device port's and the JAX step's; parameters within
+    ``_param_atol``."""
+    for r in run["ranks"]:
+        for want in (reference["single"], reference["jax"]):
+            np.testing.assert_allclose(r["losses"], want["losses"],
+                                       rtol=LOSS_RTOL, atol=0)
+            np.testing.assert_allclose(r["grad_norms"], want["grad_norms"],
+                                       rtol=LOSS_RTOL, atol=0)
+    atol = _param_atol()
+    assert 0 < atol < 5e-5
+    for want in (reference["single"]["params"], reference["jax"]["params"]):
+        for i, (p, w) in enumerate(zip(run["params"], want)):
+            torch.testing.assert_close(p, w, rtol=0, atol=atol,
+                                       msg=f"parameter {i}")
+    assert int(run["opt"]["count"]) == STEPS
+
+
+def _stores_its_share(run):
+    mesh = run["mesh"]
+    model = torch_lm.LM(run["cfg"], tsteps.abstract_params(run["cfg"]))
+    specs = tsharding.param_list_specs(run["cfg"], model, mesh)
+    sharded = 0
+    for r in run["ranks"]:
+        assert r["global"] == [tuple(p.shape) for p in model.param_list()]
+        want = [tuple(s.stop - s.start for s in tsharding.local_block(
+            spec, shp, mesh, r["coord"])) for spec, shp in zip(
+                specs, r["global"])]
+        for k in ("params", "m", "v"):
+            assert r["local"][k] == want, k
+        sharded = sum(w != g for w, g in zip(want, r["global"]))
+    assert sharded >= len(specs) // 2     # most tensors really split
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_sharded_train_4x2_matches_one_device_and_jax(run_4x2, reference):
+    """(4, 2), style "tp": the batch over 4 data ranks, the model axis's
+    2 ranks computing the same gradients (counted once)."""
+    _holds_the_reference(run_4x2, reference)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_sharded_train_4x2_stores_only_its_share(run_4x2):
+    _stores_its_share(run_4x2)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_sharded_train_2x2_fsdp_matches_one_device_and_jax(run_2x2,
+                                                           reference):
+    """(2, 2), style "fsdp": the batch and every weight over all 4 ranks."""
+    _holds_the_reference(run_2x2, reference)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_sharded_train_2x2_fsdp_stores_only_its_share(run_2x2):
+    _stores_its_share(run_2x2)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_elastic_restore_from_4x2_onto_2x2_and_one_process(run_4x2,
+                                                           four_ranks):
+    """The (4, 2) run's last checkpoint restored onto a (2, 2) mesh with
+    the "fsdp" style's shardings (each rank's blocks exact) and onto one
+    process (every leaf exact)."""
+    with np.load(os.path.join(run_4x2["ckpt"], f"step_{STEPS:08d}",
+                              "arrays.npz")) as data:
+        stored = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    n = len(run_4x2["params"])
+    # leaves: the parameters, then the moments by key: count, m, v
+    params, m = stored[:n], stored[n + 1:2 * n + 1]
+    for got, want in zip(run_4x2["params"], params):
+        np.testing.assert_array_equal(got.numpy(), want)
+    ranks = four_ranks["restore"]
+    mesh = ((2, 2), ("data", "model"))
+    split = 0
+    for r in ranks:
+        assert r["count"] == STEPS
+        for spec, got, want, gm, wm in zip(r["specs"], r["params"], params,
+                                           r["m"], m):
+            ix = tsharding.local_block(spec, want.shape, mesh, r["coord"])
+            np.testing.assert_array_equal(got, want[ix])
+            np.testing.assert_array_equal(gm, wm[ix])
+            split += got.shape != want.shape
+        assert r["sharded"] > 0
+    assert split > 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded prefill and decode steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_sharded_prefill_and_decode_match_one_device(four_ranks):
+    """``build(cfg, shape, mesh)``'s prefill and decode steps on a (2, 2)
+    mesh: each rank's block of the logits against the one-device
+    ``lm.forward`` and ``lm.decode_step`` on the same weights."""
+    tcfg, tokens, tree = (four_ranks[k] for k in ("cfg", "tokens", "tree"))
+    ranks = four_ranks["prefill"]
+    model = torch_lm.LM(tcfg, workers._tensors(tree))
+    with torch.no_grad():
+        want = torch_lm.forward(tcfg, model, {"tokens": torch.from_numpy(
+            tokens)}).numpy()
+        cache = model.init_cache(*tokens.shape)
+        dec = []
+        for t in range(2):
+            lg, cache = torch_lm.decode_step(tcfg, model, cache, {
+                "token": torch.from_numpy(tokens[:, t:t + 1]),
+                "pos": torch.full((4,), t, dtype=torch.int32)})
+            dec.append(lg.numpy())
+    mesh = ((2, 2), ("data", "model"))
+    for r in ranks:
+        ix = tsharding.local_block(r["bspec"], want.shape, mesh, r["coord"])
+        assert r["prefill"].shape[0] == 2          # the batch split in two
+        np.testing.assert_allclose(r["prefill"], want[ix], rtol=1e-5,
+                                   atol=1e-5)
+        for got, w in zip(r["decode"], dec):
+            ix = tsharding.local_block(r["dbspec"], w.shape, mesh,
+                                       r["coord"])
+            np.testing.assert_allclose(got, w[ix], rtol=1e-5, atol=1e-5)
+
+
+def _port_tree(cfg, tree):
+    """The reference's weights in the port's layout, as numpy."""
+    def npy(x):
+        if isinstance(x, dict):
+            return {k: npy(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [npy(v) for v in x]
+        return x.numpy()
+    return npy(torch_lm.params_from_reference(cfg, tree, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# no fallback
+# ---------------------------------------------------------------------------
+
+
+def test_the_card_or_nccl_missing_raises(tmp_path, monkeypatch):
+    """Asking for the card without one raises everywhere; with a card
+    claimed, NCCL that cannot start raises, and a gloo group is never
+    taken for a "cuda" mesh."""
+    _, cfg = _cfgs()
+    store = lambda n: dist.FileStore(str(tmp_path / n), 1)  # noqa: E731
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the raise is for its absence")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.init_distributed("cuda", rank=0, world_size=1,
+                               store=store("a"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.make_test_mesh(1, 1, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.train(cfg, steps=1, batch=2, seq=8, device="cuda")
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: True)
+    with pytest.raises((RuntimeError, ValueError)):
+        tmesh.init_distributed("cuda", rank=0, world_size=1,
+                               store=store("b"))
+    assert not dist.is_initialized()
+    tmesh.init_distributed("cpu", rank=0, world_size=1, store=store("c"))
+    try:
+        with pytest.raises(RuntimeError, match="runs gloo"):
+            tmesh.init_distributed("cuda")
+        with pytest.raises(RuntimeError, match="runs gloo"):
+            tmesh.make_test_mesh(1, 1, device="cuda")
+        mesh = tmesh.make_test_mesh(1, 1, device="cpu")
+        with pytest.raises(ValueError, match="cpu mesh"):
+            ttrain.train(cfg, steps=1, batch=2, seq=8, device="cuda",
+                         mesh=mesh)
+    finally:
+        dist.destroy_process_group()

@@ -158,7 +158,8 @@ source, all at once, into ``build/``).
 
 Lines it prints, in order: the card's name and power limit as nvidia-smi
 gives them; each path's compile lines; the build; each path's launch
-counts; K1's launch geometry per dtype; one line per check; the total
+counts; K1's launch geometry per dtype; one line per check; the dry-run's
+records; the total
 seconds; one JSON line ``{"kernels": [...]}`` (per kernel: launches on its path, max abs error
 against the plain version, times, bound); and last
 ``{"ok": true, "device": {...}}``.  Any failed build, launch or check
@@ -335,6 +336,20 @@ K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
 # layers (bf16, chunked), SHARDED_STEPS steps (the cosine warm-up's rate is
 # 0 at step 0) on TRAIN_B x TRAIN_S tokens, one-device and on a (1, 1) mesh
 SHARDED_LAYERS, SHARDED_STEPS = 2, 3
+# the dry-run phase: cells traced on FakeTensors over fake groups, each list
+# in a child process of its own, the children started together ("sharded":
+# path 15's step on its (1, 1) mesh; "sharded_2x2": the same step on the
+# (2, 2) mesh of tools/multi_card.py's four cards; "arch:shape:mesh": a
+# production cell of ``repro_torch.launch.dryrun``); a train cell at full
+# depth takes ~76 s on the card's machine, a prefill or decode cell ~17 s
+DRYRUN_CELLS = (("sharded", "sharded_2x2", "llama3_8b:decode_32k:single",
+                 "llama3_8b:decode_32k:multi"),
+                ("llama3_8b:train_4k:single",),
+                ("llama3_8b:train_4k:multi",),
+                ("llama3_8b:prefill_32k:single",
+                 "llama3_8b:prefill_32k:multi"))
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_BUDGET_S = 120            # the phase's share of the smoke's time
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
 # device activities of a graphed rwkv6-3b step before this slice (PR 16's
@@ -3594,11 +3609,12 @@ def sharded_step_profile(dev) -> dict:
     return out
 
 
-def sharded_path(dev, prof: dict, card: str) -> None:
+def sharded_path(dev, prof: dict, card: str) -> dict:
     """Path 15: the one-device trainer and the (1, 1) mesh's from the same
     seed, SHARDED_STEPS steps each, bitwise the same; K4's launches the same
     (here and in the profiling child); the mesh's prefill step bitwise
-    ``lm.forward``; the collective helpers on card tensors."""
+    ``lm.forward``; the collective helpers on card tensors.  Returns the ms
+    of each run's steps, by run ("single", "sharded")."""
     import torch
     import torch.distributed as dist
 
@@ -3702,6 +3718,7 @@ def sharded_path(dev, prof: dict, card: str) -> None:
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
+    return ms
 
 
 def sharded_helpers(dev, mesh, cfg) -> None:
@@ -3756,6 +3773,141 @@ def sharded_helpers(dev, mesh, cfg) -> None:
           f"== its grid's plain value (within {worst:.3g} of the leaf), "
           f"pipelined_forward ({M_} microbatches) == reference_forward, "
           "all bitwise")
+
+
+def dryrun_cell(cell: str) -> dict:
+    """One of DRYRUN_CELLS traced by ``repro_torch.launch.dryrun``: its
+    record; path 15's cells also give their K4 nodes (forward, backward)
+    and the parameters the operations bound counts."""
+    import torch  # noqa: F401  (the dry-run's device follows its build)
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    if not cell.startswith("sharded"):
+        arch, shape, mesh = cell.split(":")
+        rec = dryrun.dryrun_cell(arch, shape, mesh == "multi")
+    else:
+        cfg = sharded_config()
+        shape = ShapeConfig(cell, "train", TRAIN_S, TRAIN_B)
+        n = 1 if cell == "sharded" else 2
+        with dryrun.dryrun_mesh((n, n), ("data", "model")) as m:
+            traced = dryrun.trace_step(cfg, shape, m)
+            rec = dryrun.record("llama3_8b", cell, f"{n}x{n}", cfg, shape,
+                                m, traced)
+        ops = collections.Counter(str(n_.target)
+                                  for n_ in traced.gm.graph.nodes)
+        rec["k4_nodes"] = {
+            "fwd": ops["repro_torch.flash_attention.default"]
+            + ops["repro_torch.flash_attention_lse.default"],
+            "bwd": ops["repro_torch.flash_attention_bwd.default"]}
+        model = lm.LM(cfg, steps_mod.abstract_params(cfg))
+        rec["params"] = sum(p.numel() for p in model.param_list())
+        rec["gathered"] = 0 if cfg.tie_embeddings else model.embed.numel()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_main(cells) -> int:
+    """``chip_smoke.py --dryrun CELL...``: each cell traced in turn on
+    FakeTensors over a fake group of its mesh's size (``dryrun_cell``), in
+    a process that holds no other group; prints one JSON line, the records
+    by cell."""
+    print(json.dumps({c: dryrun_cell(c) for c in cells}))
+    return 0
+
+
+def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
+    """The dry-run: DRYRUN_CELLS traced in children started together (the
+    fake group shares no process with path 15's NCCL group).  (a) path 15's
+    (1, 1) cell: its K4 nodes times the kernels a call launches equal the
+    profiling child's launches of the same step on the card, its graph's
+    flops ``FlopCounterMode``'s; its flops against PERF.md's operations
+    bound, and the time the graph predicts beside the step's measured ms;
+    (b) the production cells' records, memory beside the card's; (c) the
+    phase's seconds."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dryrun", *cells], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cells in DRYRUN_CELLS]
+    recs = {}
+    try:
+        for p_, cells in zip(procs, DRYRUN_CELLS):
+            out, err = p_.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if p_.returncode != 0:
+                fail(f"dryrun: the child tracing {cells} exited "
+                     f"{p_.returncode}: {err[-3000:]}")
+            recs.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p_ in procs:
+            p_.kill()
+            p_.wait()
+    wall = time.perf_counter() - t0
+    cfg = sharded_config()
+    for cell in ("sharded", "sharded_2x2"):
+        rec = recs[cell]
+        if rec["flops_per_device"] != rec["entry_cost_analysis"]["flops"]:
+            fail(f"dryrun: {cell}: the graph counts "
+                 f"{rec['flops_per_device']} flops, FlopCounterMode "
+                 f"{rec['entry_cost_analysis']['flops']}")
+    rec = recs["sharded"]
+    per_call = fa.bwd_launches(torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
+                               cfg.n_kv_heads, TRAIN_S)
+    graph = {"k4/wgmma/bfloat16": rec["k4_nodes"]["fwd"],
+             "k4/bwd/bfloat16": rec["k4_nodes"]["bwd"] * per_call}
+    card_launches = prof["sharded_step"]["sharded"]["launches"]
+    if graph != card_launches:
+        fail(f"dryrun: the sharded step's graph holds K4 nodes "
+             f"{rec['k4_nodes']} ({graph} launches at {per_call} a backward "
+             f"call); the profiling child's step launched {card_launches}")
+    kept = TRAIN_S * (TRAIN_S + 1) // 2 * TRAIN_B * cfg.n_heads
+    bound = 6 * (rec["params"] - rec["gathered"]) * TRAIN_B * TRAIN_S \
+        + cfg.n_layers * (4 + 10) * cfg.hd * kept
+    flops, nbytes = rec["flops_per_device"], rec["hbm_bytes_per_device"]
+    predicted = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    measured = sharded_ms["sharded"][-1]
+    print(f"dryrun: sharded (path 15's cell: llama3-8b full width, "
+          f"{cfg.n_layers} layers, {TRAIN_B} x {TRAIN_S} tokens, (1, 1) "
+          f"mesh) traced in {rec['compile_seconds']} s: "
+          f"{flops / 1e12:.4f} TFLOP (FlopCounterMode the same), "
+          f"{flops / bound:.4f} x PERF.md's operations bound "
+          f"{bound / 1e12:.4f} TFLOP (6 x {rec['params'] - rec['gathered']:,}"
+          f" parameters x {TRAIN_B * TRAIN_S} tokens + K4's); "
+          f"{nbytes / 1e9:.3f} GB moved; predicted "
+          f"max({flops / BF16_FLOP_PER_S * 1e3:.3f} ms at 989 TFLOP/s, "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s) = "
+          f"{predicted:.3f} ms a step, measured {measured:.2f} ms "
+          f"({measured / predicted:.2f} x); card {card}")
+    print(f"check: dryrun: the sharded step's graph holds "
+          f"{rec['k4_nodes']['fwd']} K4 forward and "
+          f"{rec['k4_nodes']['bwd']} backward nodes: {graph} launches at "
+          f"{per_call} kernels a backward call, as the profiling child "
+          f"counted on the card; its flops == FlopCounterMode's")
+    gb, mem = 1e9, torch.cuda.get_device_properties(0).total_memory
+    for cell, rec in recs.items():
+        coll = ", ".join(f"{k} {v / gb:.3f}" for k, v in sorted(
+            rec["collective_bytes_per_device"].items()))
+        m = rec["memory"]
+        print(f"dryrun: {cell} on {rec['n_devices']} devices: "
+              f"{rec['flops_per_device'] / 1e12:.3f} TFLOP, "
+              f"{rec['hbm_bytes_per_device'] / gb:.3f} GB HBM, collectives "
+              f"({coll or 'none'}) GB a device; argument_size "
+              f"{m['argument_size'] / gb:.3f} GB, temp_size "
+              f"{m['temp_size'] / gb:.3f} GB, the card's "
+              f"{mem / gb:.1f} GB; traced in {rec['compile_seconds']} s "
+              f"({rec['seconds']:.1f} s with the analysis)")
+        print("dryrun record: " + json.dumps({k: v for k, v in rec.items()
+                                               if k != "seconds"}))
+    print(f"dryrun: {len(recs)} cells in {len(procs)} children, "
+          f"{wall:.1f} s (budget {DRYRUN_BUDGET_S} s)")
 
 
 def main() -> int:
@@ -4228,7 +4380,9 @@ def main() -> int:
     k5_bwd_cases = k5_bwd_checks(dev)
     rwkv_trained = train_rwkv_path(dev, prof)
     # ---- path 15, sharded: the multi-device training path at one rank ------
-    sharded_path(dev, prof, card)
+    sharded_ms = sharded_path(dev, prof, card)
+    # ---- the dry-run: path 15's cell and production cells on fake groups --
+    dryrun_phase(prof, sharded_ms, card)
     entries += k4_entries(
         dev, prefilled["launches"], equiv, reduced, prof, moe_prefilled,
         [("hybrid_prefill", hybrid["prefill"], HYBRID_PREFILL_S,
@@ -4252,4 +4406,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_main() if sys.argv[1:] == ["--profile"] else main())
+    sys.exit(profile_main() if sys.argv[1:] == ["--profile"] else
+             dryrun_main(sys.argv[2:]) if sys.argv[1:2] == ["--dryrun"] else
+             main())

@@ -11,6 +11,11 @@ the slowest build rather than the sum.
 The device rule of the port lives here too: a wrapper runs its plain
 PyTorch version only for tensors that lie on the CPU (or when the caller
 passes ``device="cpu"``); for the card it launches the kernel or raises.
+K4 and K5 make that choice through the dispatcher: each launch is an
+operator of the ``repro_torch`` namespace (``LIB``, ``torch.library``) with
+a CPU implementation (the plain version), a CUDA one (the launch) and a
+fake one (the outputs' shapes and dtypes), so a FakeTensor on "cuda", which
+the dry-run traces with, reaches the fake implementation and nothing else.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build"
@@ -37,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_SMEM_BYTES = 232_448
 
 _LIBS: dict[tuple[str, str], ctypes.CDLL] = {}
+# the kernels' operators (``torch.ops.repro_torch``), defined by their modules
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
 # name -> (seconds, ptxas report) of the builds this process ran
 BUILD_LOG: dict[str, tuple[float, str]] = {}
 
@@ -126,7 +134,13 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def current_stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream (the capturing stream
+    under CUDA graph capture): ``torch.cuda.current_stream(device)
+    .cuda_stream`` without building a ``torch.cuda.Stream`` object on every
+    launch."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(device) -> torch.device:
@@ -142,14 +156,25 @@ def require_cuda(device) -> torch.device:
     return dev
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a FakeTensor: a shape, dtype and device, no
+    storage (what the dry-run traces with)."""
+    return isinstance(t, FakeTensor)
+
+
 def resolve_device(values: Iterable, device: Optional[str]) -> torch.device:
     """Where a wrapper runs: ``device`` when given; else the device of the
-    tensors it was handed (which must agree); else (numpy input) the card."""
+    tensors it was handed (which must agree); else (numpy input) the card.
+    FakeTensors alone need no card: the operators' fake implementations
+    take them."""
     if device is not None:
         return require_cuda(device)
-    devs = {v.device for v in values if isinstance(v, torch.Tensor)}
+    tensors = [v for v in values if isinstance(v, torch.Tensor)]
+    devs = {t.device for t in tensors}
     if len(devs) > 1:
         raise ValueError(f"inputs lie on several devices: {sorted(map(str, devs))}")
+    if tensors and all(map(is_fake, tensors)):
+        return devs.pop()
     return require_cuda(devs.pop() if devs else "cuda")
 
 
@@ -171,7 +196,7 @@ def as_input(x, dtype: torch.dtype, device: torch.device, shape: tuple,
     else:
         raise TypeError(f"{what}: expected a numpy array or a tensor, "
                         f"got {type(x).__name__}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{what}: shape {tuple(t.shape)}, kernel takes "
                          f"{tuple(shape)}")
     return t

@@ -78,6 +78,16 @@ PyTorch (all q blocks at once, kv blocks in order, the same causal bound,
 kv heads shared by their groups of q heads), so the CPU tests hold the
 tiling math, unequal blocks included, against the oracle; the wrapper runs
 it only for tensors on the CPU.
+
+The wrappers check their inputs and pick the route, then call operators of
+the ``repro_torch`` namespace (``torch.library``): ``flash_attention``
+(``flash_attention_lse`` with each row's log-sum-exp) and
+``flash_attention_bwd``.  The dispatcher runs each operator's CPU
+implementation (the plain version) for CPU tensors, its CUDA one (the
+launch) for card tensors, and its fake one (the outputs' shapes and dtypes)
+for FakeTensors, so the dry-run's traces hold each call as one node, which
+``torch.utils.flop_counter`` counts by the formulas registered here: 4 hd a
+kept score forward, 10 hd backward (``kept_scores``).
 """
 from __future__ import annotations
 
@@ -88,6 +98,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _cuda
 
@@ -415,7 +426,7 @@ def _row_strides(t: torch.Tensor) -> tuple[Optional[list[int]], str]:
     if t.stride(-1) != 1:
         return None, (f"last dim has stride {t.stride(-1)}; the kernel reads "
                       "it unit-stride")
-    if t.data_ptr() % 16:
+    if not _cuda.is_fake(t) and t.data_ptr() % 16:
         return None, "data is not 16-byte aligned"
     out = []
     for d in range(3):
@@ -514,16 +525,31 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def _run(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
          with_lse: bool):
-    """The forward on checked inputs: (out, lse or None).  The plain
-    version on the CPU; else the kernel of ``kind``, which writes the rows'
-    log-sum-exp too when ``with_lse``."""
+    """The forward on checked inputs: (out, lse or None), through the
+    operator ``repro_torch::flash_attention`` (``flash_attention_lse`` when
+    ``with_lse``): the plain version for CPU tensors (``_fwd_plain``), the
+    kernel of ``kind`` for card tensors (``_fwd_launch``), the outputs'
+    shapes alone for FakeTensors."""
+    if with_lse:
+        return _FWD_LSE(q, k, v, causal, kind, block_q, block_k)
+    return _FWD(q, k, v, causal, kind, block_q, block_k), None
+
+
+def _fwd_plain(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
+               with_lse: bool):
+    """The operators' CPU implementation: ``flash_attention_plain``."""
+    res = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                block_k=block_k, return_lse=with_lse)
+    return res if with_lse else (res, None)
+
+
+def _fwd_launch(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
+                with_lse: bool):
+    """The operators' CUDA implementation: the kernel of ``kind``, which
+    writes the rows' log-sum-exp too when ``with_lse``."""
     dev = q.device
     B, H, S, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if dev.type == "cpu":
-        res = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                    block_k=block_k, return_lse=with_lse)
-        return res if with_lse else (res, None)
     dtype = q.dtype
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) \
         if with_lse else None
@@ -594,12 +620,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
             f"flash_attention backward: no kernel for hd={hd}, {dtype}; the "
             f"backward kernels are built for hd in {tuple(built)}, float32 "
             "and bfloat16 (bwd_route)")
-    dout = dout.to(dtype)
-    bq, bk = BWD_TILES[kind][hd]
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal, block_q=min(bq, S),
-                                         block_k=min(bk, Sk))
+    return _BWD(q, k, v, out, lse, dout.to(dtype), causal)
+
+
+def _bwd_plain(q, k, v, out, lse, dout, causal: bool):
+    """The backward operator's CPU implementation:
+    ``flash_attention_bwd_plain`` on ``bwd_route``'s tiles."""
+    S, hd, Sk = q.shape[2], q.shape[3], k.shape[2]
+    bq, bk = BWD_TILES[bwd_route(q.dtype, hd)][hd]
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                                     block_q=min(bq, S), block_k=min(bk, Sk))
+
+
+def _bwd_launch(q, k, v, out, lse, dout, causal: bool):
+    """The backward operator's CUDA implementation: the kernels of
+    ``bwd_route`` (``bwd_launches`` of them)."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dtype = q.dtype
+    kind = bwd_route(dtype, hd)
     dev = q.device
     lse = lse.float().contiguous()
     if kind in ("wgmma", "tf32x3"):
@@ -645,6 +684,75 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool):
     _cuda.check(lib, rc, "flash_attention backward")
     LAUNCHES[f"bwd/{str(dtype).removeprefix('torch.')}"] += n
     return dq, dk, dv
+
+
+def kept_scores(S: int, Sk: int, causal: bool) -> int:
+    """(q row, key) pairs one head's attention keeps: every pair, or
+    (causal) key j for row i where j <= i."""
+    if not causal:
+        return S * Sk
+    n = min(S, Sk)
+    return n * (n + 1) // 2 + (S - n) * Sk
+
+
+# ---------------------------------------------------------------------------
+# the operators: the dispatcher picks the implementation by the tensors'
+# device, and a FakeTensor takes the fake one (shapes and dtypes alone)
+# ---------------------------------------------------------------------------
+
+_cuda.LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+                 "str kind, int block_q, int block_k) -> Tensor")
+_cuda.LIB.define("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool "
+                 "causal, str kind, int block_q, int block_k) -> "
+                 "(Tensor, Tensor)")
+_cuda.LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor "
+                 "out, Tensor lse, Tensor dout, bool causal) -> "
+                 "(Tensor, Tensor, Tensor)")
+_cuda.LIB.impl("flash_attention", lambda *a: _fwd_plain(*a, False)[0], "CPU")
+_cuda.LIB.impl("flash_attention", lambda *a: _fwd_launch(*a, False)[0],
+               "CUDA")
+_cuda.LIB.impl("flash_attention_lse", lambda *a: _fwd_plain(*a, True), "CPU")
+_cuda.LIB.impl("flash_attention_lse", lambda *a: _fwd_launch(*a, True),
+               "CUDA")
+_cuda.LIB.impl("flash_attention_bwd", lambda *a: _bwd_plain(*a), "CPU")
+_cuda.LIB.impl("flash_attention_bwd", lambda *a: _bwd_launch(*a), "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_cuda.LIB)
+def _fwd_fake(q, k, v, causal, kind, block_q, block_k):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_lse",
+                             lib=_cuda.LIB)
+def _fwd_lse_fake(q, k, v, causal, kind, block_q, block_k):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd",
+                             lib=_cuda.LIB)
+def _bwd_fake(q, k, v, out, lse, dout, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse])
+def _fwd_flops(q, k, v, causal, *args, **kwargs) -> int:
+    """4 hd a kept score (PERF.md: QK^T and PV, two flops a product)."""
+    B, H, S, hd = q
+    return 4 * hd * kept_scores(S, k[2], causal) * B * H
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q, k, v, out, lse, dout, causal, **kwargs) -> int:
+    """10 hd a kept score: S and dP recomputed, dV, dK and dQ."""
+    B, H, S, hd = q
+    return 10 * hd * kept_scores(S, k[2], causal) * B * H
+
+
+_FWD = torch.ops.repro_torch.flash_attention.default
+_FWD_LSE = torch.ops.repro_torch.flash_attention_lse.default
+_BWD = torch.ops.repro_torch.flash_attention_bwd.default
 
 
 class _Attention(torch.autograd.Function):

@@ -44,6 +44,16 @@ S_t)).  S_t cannot be rebuilt backwards without dividing by w, so each
 chunk's starting state is recomputed (as the forward's phases 1-2 do) and
 each chunk's states are rebuilt forward from it; nothing is saved from the
 forward but its inputs.
+
+The wrappers check their inputs, then call operators of the ``repro_torch``
+namespace (``torch.library``): ``wkv6`` (its schema declares the writes to
+``out`` and ``s_out``, which may be ``s0``: the decode graph's state updated
+in place) and ``wkv6_bwd``.  The dispatcher runs each operator's CPU
+implementation (the plain version) for CPU tensors, its CUDA one (the
+launches) for card tensors and its fake one (shapes and dtypes) for
+FakeTensors, so the dry-run's traces hold each call as one node, counted by
+the formulas registered here: 5 flops a state entry and token forward, 14
+backward.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _cuda
 
@@ -360,22 +371,31 @@ def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
               for x in (dr, dk, dv, dw)), du, ds0)
 
 
-def _token_strides(t: torch.Tensor, what: str) -> list[int]:
-    """(batch, head, token) element strides of a (B, H, S, hd) view whose
-    last dim is unit-stride; raises otherwise."""
+def _unit_rows(t: torch.Tensor, what: str) -> None:
+    """Raise unless the last dim of ``t`` is unit-stride (or of size 1)."""
     if t.stride(-1) != 1 and t.shape[-1] > 1:
         raise ValueError(f"{what}: last dim has stride {t.stride(-1)}; the "
                          "kernel reads it unit-stride")
+
+
+def _token_strides(t: torch.Tensor, what: str) -> list[int]:
+    """(batch, head, token) element strides of a (B, H, S, hd) view whose
+    last dim is unit-stride; raises otherwise."""
+    _unit_rows(t, what)
     return [t.stride(d) for d in range(3)]
 
 
 def _state(t, dev, shape, what: str) -> torch.Tensor:
     """A (B, H, hd, hd) f32 state the kernels read or write 16 bytes at a
-    time: contiguous, 16-byte aligned."""
-    t = _cuda.as_input(t, torch.float32, dev, shape, what)
-    if dev.type == "cuda" and t.data_ptr() % 16:
+    time: contiguous (16-byte aligned: ``_aligned``, at the launch)."""
+    return _cuda.as_input(t, torch.float32, dev, shape, what)
+
+
+def _aligned(t, what: str) -> None:
+    """Raise where a state the kernels move 16 bytes at a time is not
+    16-byte aligned."""
+    if t is not None and t.data_ptr() % 16:
         raise ValueError(f"{what}: data is not 16-byte aligned")
-    return t
 
 
 def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
@@ -439,28 +459,40 @@ def wkv6_state(r, k, v, w, u, s0=None, *, out=None, s_out=None,
 
 
 def _run(r, k, v, w, u, s0, out, s_out, chunk: int):
-    """The forward on checked inputs, writing ``out`` and ``s_out``: the
-    chunk schedule's plain version on the CPU, else the step kernel (S =
-    1) or the sequence form's three launches."""
+    """The forward on checked inputs, writing ``out`` and ``s_out``, through
+    the operator ``repro_torch::wkv6``: the chunk schedule's plain version
+    for CPU tensors (``_fwd_plain``), the step kernel (S = 1) or the
+    sequence form's three launches for card tensors (``_fwd_launch``),
+    nothing for FakeTensors (the writes are declared in its schema)."""
+    for t, n in ((r, "r"), (k, "k"), (v, "v"), (w, "w"), (out, "out")):
+        _unit_rows(t, n)
+    _FWD(r, k, v, w, u, s0, out, s_out, min(chunk, r.shape[2]))
+    return out, s_out
+
+
+def _fwd_plain(r, k, v, w, u, s0, out, s_out, chunk: int) -> None:
+    """The operator's CPU implementation: ``wkv6_chunked_plain``."""
+    o, s = wkv6_chunked_plain(r.float(), k.float(), v.float(), w, u, s0,
+                              chunk)
+    out.copy_(o)
+    s_out.copy_(s)
+
+
+def _fwd_launch(r, k, v, w, u, s0, out, s_out, chunk: int) -> None:
+    """The operator's CUDA implementation: the step kernel (S = 1) or the
+    sequence form's three launches."""
     dev = r.device
     B, H, S, hd = r.shape
-    strides = [_token_strides(t, n) for t, n in ((r, "r"), (k, "k"),
-                                                 (v, "v"), (w, "w"),
-                                                 (out, "out"))]
-    chunk = min(chunk, S)
-    if dev.type == "cpu":
-        o, s = wkv6_chunked_plain(r.float(), k.float(), v.float(), w, u, s0,
-                                  chunk)
-        out.copy_(o)
-        s_out.copy_(s)
-        return out, s_out
+    _aligned(s0, "s0")
+    _aligned(s_out, "s_out")
     nc = -(-S // chunk)
     if S > 1:
         Ls = torch.empty((B * H * nc * hd * hd,), dtype=torch.float32,
                          device=dev)
         Ps = torch.empty((B * H * nc * hd,), dtype=torch.float32, device=dev)
     lib, launch = _launcher(r.dtype)
-    st = (ctypes.c_longlong * 15)(*(s for t in strides for s in t))
+    st = (ctypes.c_longlong * 15)(*(t.stride(d) for t in (r, k, v, w, out)
+                                    for d in range(3)))
     with torch.cuda.device(dev):
         rc = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), None if s0 is None else s0.data_ptr(),
@@ -473,7 +505,6 @@ def _run(r, k, v, w, u, s0, out, s_out, chunk: int):
         LAUNCHES["step"] += 1
     else:
         LAUNCHES["sequence"] += SEQUENCE_LAUNCHES
-    return out, s_out
 
 
 def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
@@ -498,18 +529,33 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
             f"wkv6 backward: no kernel for hd={hd}, {dtype}; the backward "
             f"kernel is built for hd in {tuple(BWD_CHUNK)}, float32 and "
             "bfloat16")
+    return _BWD(r, k, v, w, u, s0, dout, ds_fin)
+
+
+def _bwd_plain(r, k, v, w, u, s0, dout, ds_fin):
+    """The backward operator's CPU implementation: the plain version of
+    ``bwd_route``, its gradients in the kernels' dtypes and layouts."""
+    route, chunk = bwd_route(r.shape[3]), BWD_CHUNK[r.shape[3]]
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dw = torch.empty_like(w)
+    got = wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin, chunk) \
+        if route == "windows" else \
+        wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin, chunk)
+    for t, g in zip((dr, dk, dv, dw), got):
+        t.copy_(g)
+    return dr, dk, dv, dw, got[4], got[5]
+
+
+def _bwd_launch(r, k, v, w, u, s0, dout, ds_fin):
+    """The backward operator's CUDA implementation: the four launches of
+    ``bwd_route``."""
+    B, H, S, hd = r.shape
+    dtype = r.dtype
     route = bwd_route(hd)
     chunk = BWD_CHUNK[hd]
     dev = r.device
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dw = torch.empty_like(w)
-    if dev.type == "cpu":
-        got = wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin, chunk) \
-            if route == "windows" else \
-            wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin, chunk)
-        for t, g in zip((dr, dk, dv, dw), got):
-            t.copy_(g)
-        return dr, dk, dv, dw, got[4], got[5]
     dout = _cuda.unit_rows(dout.to(dtype))
     if ds_fin is not None:
         ds_fin = ds_fin.float().contiguous()
@@ -540,6 +586,55 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
     _cuda.check(lib, rc, f"wkv6 backward ({route})")
     LAUNCHES[BWD_COUNT[route]] += BWD_LAUNCHES
     return dr, dk, dv, dw, du, ds0
+
+
+# ---------------------------------------------------------------------------
+# the operators: the dispatcher picks the implementation by the tensors'
+# device, and a FakeTensor takes the fake one (shapes and dtypes alone)
+# ---------------------------------------------------------------------------
+
+_cuda.LIB.define("wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+                 "Tensor? s0, Tensor(a!) out, Tensor(b!) s_out, int chunk) "
+                 "-> ()")
+_cuda.LIB.define("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+                 "Tensor? s0, Tensor dout, Tensor? ds_fin) -> (Tensor, "
+                 "Tensor, Tensor, Tensor, Tensor, Tensor)")
+_cuda.LIB.impl("wkv6", lambda *a: _fwd_plain(*a), "CPU")
+_cuda.LIB.impl("wkv6", lambda *a: _fwd_launch(*a), "CUDA")
+_cuda.LIB.impl("wkv6_bwd", lambda *a: _bwd_plain(*a), "CPU")
+_cuda.LIB.impl("wkv6_bwd", lambda *a: _bwd_launch(*a), "CUDA")
+
+
+@torch.library.register_fake("repro_torch::wkv6", lib=_cuda.LIB)
+def _fwd_fake(r, k, v, w, u, s0, out, s_out, chunk):
+    return None
+
+
+@torch.library.register_fake("repro_torch::wkv6_bwd", lib=_cuda.LIB)
+def _bwd_fake(r, k, v, w, u, s0, dout, ds_fin):
+    B, H, S, hd = r.shape
+    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(w), u.new_empty((H, hd), dtype=torch.float32),
+            u.new_empty((B, H, hd, hd), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6)
+def _fwd_flops(r, *args, **kwargs) -> int:
+    """5 a state entry and token (PERF.md)."""
+    B, H, S, hd = r
+    return 5 * B * H * S * hd * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_bwd)
+def _bwd_flops(r, *args, **kwargs) -> int:
+    """14 a state entry and token: the state rebuilt 3, dS updated 3, dr,
+    dk, dv and dw 2 each."""
+    B, H, S, hd = r
+    return 14 * B * H * S * hd * hd
+
+
+_FWD = torch.ops.repro_torch.wkv6.default
+_BWD = torch.ops.repro_torch.wkv6_bwd.default
 
 
 class _WKV(torch.autograd.Function):

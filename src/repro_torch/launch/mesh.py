@@ -7,7 +7,9 @@ module touches no process group and no device.  A mesh is a
 ``init_device_mesh`` over the default process group.  The backend follows
 the device: NCCL for "cuda", gloo for "cpu".  Nothing falls back: asking for
 the card without one, for NCCL where it is missing, or for a mesh whose
-device does not match the process group's backend raises.
+device does not match the process group's backend raises.  The dry-run's
+mesh is an entry point of its own, ``make_dryrun_mesh``: a fake process
+group of the mesh's size, for tracing on FakeTensors.
 
 The rule tables (``repro_torch.parallel.sharding``) read a mesh only through
 ``mesh_shape``, its ``{axis: size}`` view, so they also take a plain
@@ -17,6 +19,7 @@ the tests hold them at the production meshes' 256 and 512 devices.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -76,13 +79,19 @@ def make_mesh(shape: tuple, names: tuple, device="cuda"):
                             mesh_dim_names=tuple(names))
 
 
+def production_mesh_spec(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of a production mesh.  Single pod: (16, 16) =
+    (data, model), 256 chips.  Multi-pod: (2, 16, 16) = (pod, data,
+    model), 512 chips; DP gradient reduction crosses the "pod" axis,
+    everything else stays inside a pod."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
-    """Single pod: (16, 16) = (data, model), 256 chips.  Multi-pod:
-    (2, 16, 16) = (pod, data, model), 512 chips; DP gradient reduction
-    crosses the "pod" axis, everything else stays inside a pod."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    """``production_mesh_spec``'s mesh over the default process group."""
+    return make_mesh(*production_mesh_spec(multi_pod), device)
 
 
 def make_test_mesh(n_data: int = 2, n_model: int = 2, device="cuda"):
@@ -105,3 +114,23 @@ def mesh_shape(mesh) -> dict[str, int]:
 
 def describe(mesh) -> str:
     return f"mesh{mesh_shape(mesh)}"
+
+
+def make_dryrun_mesh(shape: tuple, names: tuple, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` on ``device``'s
+    type over a *fake* process group of the mesh's size, this process its
+    rank 0: the dry-run's mesh, which needs neither the card nor NCCL nor
+    other processes.  A fake group's collectives never communicate (they
+    hand back their input), so whatever runs on this mesh must see
+    FakeTensors alone.  Raises where a process group exists already; the
+    caller destroys this one (``torch.distributed.destroy_process_group``)
+    when done."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()} process group exists: "
+                           "the dry-run's fake group would replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    return init_device_mesh(torch.device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(names))

@@ -20,8 +20,9 @@ device (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``,
 compute on plain local tensors: ZeRO-3, every weight all-gathered before
 use (the whole model at once), so the kernels receive plain CUDA tensors.
 Tensor-parallel compute and per-layer gathering are not ported.  The
-dry-run (``launch/dryrun.py``) and the HLO analyzer
-(``launch/hlo_analysis.py``) that read these builders come next.
+dry-run (``launch.dryrun``) traces the step ``build`` returns on
+FakeTensors over a fake group of the mesh's size, and its analyzer
+(``launch.hlo_analysis``) reads the graph.
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ reference does, so both packages build equal batches, for every family
 (``lm`` runs all of them).  ``input_specs`` is the batch as tensors on the
 ``meta`` device, the counterpart of the reference's ``jax.ShapeDtypeStruct``
 view: the step builders (``launch.steps.build``) return it as their
-abstract inputs, and the dry-run (``launch/dryrun.py``, not ported yet)
-will lower against it.  The modality frontends are stubs as in the
+abstract inputs, and the dry-run (``launch.dryrun``) traces each cell on
+FakeTensors of its shapes.  The modality frontends are stubs as in the
 reference: whisper gets frame embeddings (B, enc_seq, D), paligemma patch
 embeddings (B, n_img_tokens, D)."""
 from __future__ import annotations

@@ -26,9 +26,11 @@ The reference's sharding constraints (``constrain`` calls) are left out:
 ``repro_torch.parallel.sharding.constrain`` exists, but the port's sharded
 steps (``launch.steps``) gather every weight and run these functions on
 plain local tensors, for which it is the identity.  They come back with
-tensor-parallel compute, which is not ported; the dry-run
-(``launch/dryrun.py``) and the HLO analyzer (``launch/hlo_analysis.py``)
-are the next pieces to port.
+tensor-parallel compute, which is not ported.  The dry-run
+(``launch.dryrun``) traces these functions on FakeTensors: on its path
+they read no tensor's data on the host (``_sdpa``'s ``.item()`` reads a
+constant, which a FakeTensor keeps; ``_is_arange`` runs only for positions
+given as a tensor, which the steps never pass).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch._cuda import is_fake
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.wkv6 import wkv6_state
@@ -97,9 +100,12 @@ def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
 
 
 def apply_rope(x, positions, theta):
-    """x: (..., S, H, hd); positions: (..., S)"""
+    """x: (..., S, H, hd); positions: (..., S).  A FakeTensor ``x`` (a
+    dry-run's trace) takes a copy of the frequencies of its own, which the
+    cache of real ones never keeps."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, theta, x.device)
+    freqs = _rope_freqs_on.__wrapped__(hd, theta, x.device) \
+        if is_fake(x) else _rope_freqs_on(hd, theta, x.device)
     ang = positions[..., :, None].float() * freqs        # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]

@@ -43,7 +43,13 @@ precision):
   (2, 40, 2048, 64) as bf16 views of (B, S, D) tensors at the time mix's
   decays, on the tree's own route (a tree without ``bwd_route`` walks
   every token on the CUDA cores): the call (CUDA events) and, from
-  torch.profiler, each device kernel's time.
+  torch.profiler, each device kernel's time;
+* the host ms a wrapper call takes (its enqueue, the least mean of 20
+  calls over 15 windows, the card kept busy meanwhile) of K4's forward on
+  each of its three routes and its bf16 backward, K5's sequence form, its step on the
+  layer's bf16 views with the state in place and its backward
+  (``measure_host``; since K4 and K5 launch through ``torch.library``
+  operators, the dispatcher's share of a call shows here).
 
 ``--only k2`` measures the streamed kernel (K2) alone: the six streamed
 programs at n=4096 in float32 at their design points' block sizes
@@ -52,12 +58,14 @@ kernel's time (CUDA events) and whether it equals the tree's own plain
 version bit for bit.
 
 ``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone,
-``--only k5_bwd`` K5's backward alone.  Prints one line per tree and turn
+``--only k5_bwd`` K5's backward alone, ``--only host`` the wrappers' host
+time alone.  Prints one line per tree and turn
 and a JSON summary last.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import inspect
 import json
 import os
@@ -73,6 +81,10 @@ sys.path.insert(0, ROOT)
 
 STEPS = 5          # decode steps under the profiler
 REPLAYS = 50       # decode steps timed
+# wrapper host time: groups of pairs of windows of calls, each group behind
+# a spin of the card that outlasts its windows
+HOST_GROUPS, HOST_PAIRS, HOST_CALLS = 10, 4, 10
+HOST_SPIN_MS = 100
 # the streamed programs and their design points' block sizes at n=8
 K2_BLOCK_ROWS = {"blur_chain": 4, "conv_pool": 4, "gradient_harris": 4,
                  "correlated_chain": 4, "unsharp": 4, "harris": 8}
@@ -280,6 +292,91 @@ def measure_k5_bwd(t, dev) -> dict:
     return {"k5_bwd": {"route": route, "ms": ms, "kernel_ms": per}}
 
 
+def host_calls(t, dev) -> dict:
+    """Calls of tree ``t``'s wrappers at the smoke's shapes, by name: K4's
+    forward on each route and its bf16 backward, K5's sequence form, its
+    step on the layer's bf16 views with the state in place, and its
+    backward (inputs from seed 0, the same for every tree)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    calls = {}
+    for key, (dt, B, H, Hkv, S, hd) in {
+            "k4_wgmma": (torch.bfloat16, 2, 32, 8, 2048, 128),
+            "k4_tf32x3": (torch.float32, 1, 32, 8, 1024, 128),
+            "k4_cuda_cores": (torch.float32, 2, 6, 2, 256, 16)}.items():
+        q, k, v, dout = (randn(B, S, h, hd, dtype=dt).transpose(1, 2)
+                         for h in (H, Hkv, Hkv, H))
+        calls[key] = functools.partial(t.fa.flash_attention, q, k, v,
+                                       causal=True)
+        if key == "k4_wgmma":
+            o, lse = t.fa._run(q, k, v, True, t.fa.route(dt, hd),
+                               *t.fa.WGMMA_BLOCKS[hd][0], True)
+            calls["k4_bwd_wgmma"] = functools.partial(
+                t.fa.flash_attention_bwd, q, k, v, o, lse, dout, causal=True)
+    H, hd = 40, 64
+    r, k, v = (randn(1, H, 1024, hd) for _ in range(3))
+    w = torch.sigmoid(randn(1, H, 1024, hd)) * 0.5 + 0.45
+    u = randn(H, hd) * 0.1
+    calls["k5_sequence"] = functools.partial(t.wk.wkv6_state, r, k, v, w, u)
+    B, D = 4, H * hd
+    s0 = randn(B, H, hd, hd)
+    rb, kb, vb = (randn(B, 1, D, dtype=torch.bfloat16) for _ in range(3))
+    wb = torch.sigmoid(randn(B, 1, D)) * 0.5 + 0.45
+    heads = lambda x: x.view(B, 1, H, hd).transpose(1, 2)  # noqa: E731
+    ob = torch.empty((B, 1, D), dtype=torch.bfloat16, device=dev)
+    calls["k5_step"] = lambda: t.wk.wkv6_state(
+        heads(rb), heads(kb), heads(vb), heads(wb), u, s0, out=heads(ob),
+        s_out=s0)
+    rd, kd, vd, dd = (randn(2, 40, 256, hd, dtype=torch.bfloat16)
+                      for _ in range(4))
+    wd = torch.sigmoid(randn(2, 40, 256, hd)) * 0.5 + 0.45
+    calls["k5_bwd"] = functools.partial(t.wk.wkv6_bwd, rd, kd, vd, wd, u,
+                                        None, dd)
+    return calls
+
+
+def measure_host(trees: dict, dev) -> dict:
+    """Host ms a wrapper call (``host_calls``) of the parent and the tree,
+    in pairs of windows of HOST_CALLS calls each, the two trees' windows
+    adjacent (which goes first alternates), HOST_PAIRS pairs after each of
+    HOST_GROUPS spin kernels that keep the card busy while the host
+    enqueues, so that no call waits for the card.  Returns {wrapper:
+    {"parent", "tree": median ms, "diff": the median of the pairs' tree -
+    parent ms}}: adjacent windows share the host's state, so the paired
+    difference is steadier than either median."""
+    import torch
+
+    import chip_smoke as cs
+    calls = {name: host_calls(t, dev) for name, t in trees.items()}
+
+    def window(fn):
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        return (time.perf_counter() - t0) / HOST_CALLS * 1e3
+    out = {}
+    for key in calls["parent"]:
+        for name in trees:
+            calls[name][key]()
+        torch.cuda.synchronize()
+        got = {"parent": [], "tree": []}
+        for _ in range(HOST_GROUPS):
+            torch.cuda._sleep(int(cs.SPIN_CYCLES_PER_MS * HOST_SPIN_MS))
+            for j in range(HOST_PAIRS):
+                for name in (("parent", "tree") if j % 2 == 0
+                             else ("tree", "parent")):
+                    got[name].append(window(calls[name][key]))
+            torch.cuda.synchronize()
+        out[key] = {"parent": statistics.median(got["parent"]),
+                    "tree": statistics.median(got["tree"]),
+                    "diff": statistics.median(
+                        b - a for a, b in zip(got["parent"], got["tree"]))}
+    return out
+
+
 def graph_step(t, dev, model_cache: dict) -> dict:
     """The graphed rwkv6-3b decode step at batch 4 (weights from seed 0)."""
     import torch
@@ -318,7 +415,8 @@ def main(argv=None) -> int:
                     help="the parent tree's src directory")
     ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
                     help="this tree's src directory")
-    ap.add_argument("--only", choices=("k1", "k2", "k4_bwd", "k5_bwd"),
+    ap.add_argument("--only", choices=("k1", "k2", "k4_bwd", "k5_bwd",
+                                       "host"),
                     help="measure only this kernel")
     args = ap.parse_args(argv)
     import subprocess
@@ -334,6 +432,14 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     dev = torch.device("cuda")
     trees = {"parent": load(args.parent), "tree": load(args.tree)}
+    if args.only == "host":
+        res = measure_host(trees, dev)
+        for key, ms in res.items():
+            print(f"host: {key}: parent {ms['parent'] * 1e3:.1f} us, tree "
+                  f"{ms['tree'] * 1e3:.1f} us a call (medians); paired "
+                  f"difference {ms['diff'] * 1e3:+.1f} us")
+        print(json.dumps({"card": card, "host_ms": res}))
+        return 0
     results = {"card": card, "parent": [], "tree": []}
     models, plains = {}, {}
     for name in ("parent", "tree", "tree", "parent"):

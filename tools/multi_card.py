@@ -45,6 +45,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.config import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -226,6 +228,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         dist.barrier()
         mesh = train.build_mesh(args.device)
+        sizes = mesh_mod.mesh_shape(mesh)
         res = train.train(cfg, steps=args.steps, batch=args.batch,
                           seq=args.seq, log_every=1, seed=0, device=dev,
                           mesh=mesh)
@@ -248,9 +251,24 @@ def main(argv=None) -> int:
                   + f"; on {mesh_mod.describe(mesh)} "
                   + ", ".join(f"{x:.2f}" for x in out["sharded"]["ms"]),
                   flush=True)
-            print(json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
+    if rank == 0:
+        shape = ShapeConfig("multi_card", "train", args.seq, args.batch)
+        rec = dryrun.dryrun_cell("llama3_8b", shape.name, False, cfg,
+                                 shape=shape, mesh=(tuple(sizes.values()),
+                                                    tuple(sizes)))
+        out["dryrun"] = {k: rec[k] for k in (
+            "flops_per_device", "hbm_bytes_per_device",
+            "collective_bytes_per_device", "memory")}
+        print(f"dryrun: the same step on {sizes}: collectives a device "
+              + ", ".join(f"{k} {v:,} B" for k, v in sorted(
+                  rec["collective_bytes_per_device"].items()))
+              + f"; {rec['flops_per_device']:,} flops, "
+              f"{rec['hbm_bytes_per_device']:,} B of HBM traffic; measured "
+              "ms a step " + ", ".join(f"{x:.2f}" for x in
+                                       out["sharded"]["ms"]), flush=True)
+        print(json.dumps(out), flush=True)
     return 0
 
 

@@ -292,7 +292,17 @@ K4_BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
               "float32": dict(rtol=1e-4, atol=1e-4)}
 # K4's device kernels by name: the forward kernels' and the backward's;
 # each backward route's alone
-K4_KERNEL = re.compile(r"\bfa_(wgmma_|tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
+K4_KERNEL = re.compile(r"\bfa_(wgmma_|wgmma_hd256_|wgmma_hd256_combine_|"
+                       r"tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
+# the kernels of K4 at bf16 hd 256, each of which ptxas must report
+# without a spill
+K4_HD256_KERNELS = ("fa_wgmma_hd256_kernel", "fa_wgmma_hd256_combine_kernel",
+                    "fa_bwd_wgmma_hd256_dkdv_kernel",
+                    "fa_bwd_wgmma_hd256_dq_kernel",
+                    "fa_bwd_wgmma_hd256_sum_kernel")
+# the tensor-core forward's kernels (bf16; at hd 256 the pieces and their
+# combine)
+K4_WGMMA_FWD = re.compile(r"\bfa_wgmma_(hd256_(combine_)?)?kernel")
 K4_BWD_WGMMA = re.compile(r"\bfa_bwd_wgmma_\w+_kernel")
 K4_BWD_KERNELS = {"wgmma": K4_BWD_WGMMA,
                   "tf32x3": re.compile(r"\bfa_bwd_tf32x3_\w+_kernel"),
@@ -1006,15 +1016,17 @@ def k4_prefill(cfg, S: int, what: str, dev, model=None,
     import numpy as np
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import layers, lm
 
-    seen, repeats = [], []
+    seen, repeats, lengths = [], [], []
     k4, repeat_kv = layers.flash_attention, layers._repeat_kv
 
     def k4_spy(q, k, v, **kw):
         seen.append((q.shape[1], k.shape[1],
                      all(t.transpose(1, 2).is_contiguous()
                          for t in (q, k, v))))
+        lengths.append((q.shape[2], k.shape[2]))
         return k4(q, k, v, **kw)
 
     def repeat_spy(t, n_rep):
@@ -1040,9 +1052,14 @@ def k4_prefill(cfg, S: int, what: str, dev, model=None,
         finally:
             layers.flash_attention, layers._repeat_kv = k4, repeat_kv
         print(f"{what} path launches: " + json.dumps(n, sort_keys=True))
-        if n != {"k4/wgmma/bfloat16": n_attn}:
-            fail(f"{what} launches {n}, expected {n_attn} tensor-core K4 "
-                 "launches per forward (one an attention layer)")
+        # kernels a call at the positions attention runs over (PaliGemma:
+        # the patches and the text)
+        per_call = fa.fwd_launches(torch.bfloat16, cfg.hd, 1, cfg.n_heads,
+                                   cfg.n_kv_heads, *lengths[0])
+        if n != {"k4/wgmma/bfloat16": n_attn * per_call}:
+            fail(f"{what} launches {n}, expected {n_attn} x {per_call} "
+                 f"tensor-core K4 kernels per forward ({per_call} a call, "
+                 "one call an attention layer)")
         want = [(cfg.n_heads, cfg.n_kv_heads, True)] * n_attn
         if repeats or seen != want:
             fail(f"{what}: K4 got (q heads, kv heads, views) {set(seen)} "
@@ -1071,25 +1088,31 @@ def k4_prefill(cfg, S: int, what: str, dev, model=None,
     print(f"{what}: {cfg.name} full width, {cfg.n_layers} layers, bf16 "
           f"({n_params} parameters): forward on 1x{S} tokens {fwd_ms:.1f} "
           f"ms (median of 3: {', '.join(f'{t:.1f}' for t in reps)}); "
-          f"logits finite; {n['k4/wgmma/bfloat16']} K4 launches per "
-          f"forward; peak memory {peak:.1f} GiB")
+          f"logits finite; {n['k4/wgmma/bfloat16']} K4 kernels per "
+          f"forward ({n_attn} calls x {per_call}); peak memory "
+          f"{peak:.1f} GiB")
     split = {}
     if acts:
         busy = sum(us for _, us in acts) / 1e3
-        k4_ms = sum(us for name, us in acts if "fa_wgmma_kernel" in name) \
+        k4_ms = sum(us for name, us in acts if K4_WGMMA_FWD.search(name)) \
             / 1e3
-        gemm_ms = sum(us for name, us in acts if "fa_wgmma_kernel" not in
-                      name and re.search(GEMM_KERNELS, name, re.I)) / 1e3
+        gemm_ms = sum(us for name, us in acts if not K4_WGMMA_FWD.search(
+            name) and re.search(GEMM_KERNELS, name, re.I)) / 1e3
         split = {"busy_ms": busy, "k4_ms": k4_ms, "gemm_ms": gemm_ms,
                  "activities": len(acts), "wall_ms": wall}
         print(f"{what}: profiled forward: {len(acts)} device activities, "
               f"device busy {busy:.1f} ms of {wall:.1f} ms wall; K4 "
               f"{k4_ms:.2f} ms ({k4_ms / busy:.3f} of busy), GEMMs "
               f"{gemm_ms:.1f} ms, the rest {busy - k4_ms - gemm_ms:.1f} ms")
+        print(f"{what}: forward {fwd_ms:.1f} ms on 1x{S} tokens, K4's "
+              f"kernels {k4_ms:.3f} ms of its device time "
+              f"({k4_ms / busy:.2%} of busy, {k4_ms / fwd_ms:.2%} of the "
+              f"forward's ms)")
     else:
         print(f"{what}: the profiler saw no device activity: device time "
               "by kernel not measured")
     return {"launches": n["k4/wgmma/bfloat16"], "forward_ms": fwd_ms,
+            "kernels_per_call": per_call,
             "cfg": cfg, "peak_gib": peak, **split}
 
 
@@ -2077,6 +2100,9 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
     source = f"src/repro_torch/csrc/{lib}.cu"
     ptxas = ptxas_summary(_cuda.BUILD_LOG.get(lib, (0, ""))[1])
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    # bf16 at hd 256: the split kernels, held against the plain version
+    # on the same split schedule
+    split = kind == "wgmma" and fa.split_route(dtype, hd)
     if kind == "wgmma":
         blocks = fa.WGMMA_BLOCKS[hd][0]
         # every pair the kernel takes, block_q > block_k among them (R2)
@@ -2103,7 +2129,8 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
             got = fa.flash_attention(q, k, v, causal=causal,
                                      block_q=bq, block_k=bk)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                            block_q=bq, block_k=bk)
+                                            block_q=bq, block_k=bk,
+                                            split=split)
             err = (got.float() - want.float()).abs().max().item()
             errs[f"{draw}/{'causal' if causal else 'full'}/{bq}x{bk}"] = err
             try:
@@ -2126,7 +2153,7 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
             (t + 1) * w, S_check)]).to(dev)
         dropped = fa.flash_attention_plain(
             q, k[:, :, keep], v[:, :, keep], causal=False,
-            block_q=blocks[0], block_k=blocks[1])
+            block_q=blocks[0], block_k=blocks[1], split=split)
         lost = (dropped.float() - whole.float()).abs().max().item()
         try:
             torch.testing.assert_close(dropped.float(), whole.float(), **tol)
@@ -2141,10 +2168,10 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
     q, k, v = (x.to(dtype)[:, :, :S] for x in base)
     if launches < 1:
         fail(f"K4 {kind} {dt} was not launched on its path ({path})")
-    bq, bk = min(blocks[0], S), min(blocks[1], S)
+    bq, bk = blocks if split else (min(blocks[0], S), min(blocks[1], S))
     got = fa.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention_plain(q, k, v, causal=True, block_q=bq,
-                                    block_k=bk)
+                                    block_k=bk, split=split)
     err = (got.float() - want.float()).abs().max().item()
     try:
         torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -2168,8 +2195,27 @@ def k4_entry(dev, dtype, cfg, B: int, S_check: int, S: int, launches: int,
     ms, host_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
                           10)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, block_q=bq, block_k=bk), 3)[0]
+        q, k, v, causal=True, block_q=bq, block_k=bk, split=split), 3)[0]
     by_blocks, extra = {}, {}
+    if split:
+        # the grid: pairs of 64-row units cut into pieces (a block each)
+        sp = fa.fwd_split(B, H, Hkv, S, S, True)
+        lengths = [e - a for _, a, e, _ in sp.pieces] or list(sp.walks)
+        extra["grid"] = {"blocks": sp.blocks, "sms": fa.SMS,
+                         "longest_tiles": max(lengths),
+                         "mean_tiles": sum(sp.walks) / sp.blocks,
+                         "cut_items": len(sp.sums), "slots": sp.slots}
+        extra["kernels_per_call"] = fa.fwd_launches(dtype, hd, B, H, Hkv, S)
+        print(f"grid: K4 {kind} {dt} hd {hd} q ({B}, {H}, {S}, {hd}) kv "
+              f"{Hkv} heads, causal: {sp.blocks} blocks on the card's "
+              f"{fa.SMS} SMs, one wave; pieces of {min(lengths)} to "
+              f"{max(lengths)} kv tiles of {fa.SPLIT_BK} keys (mean "
+              f"{extra['grid']['mean_tiles']:.2f}), {len(sp.sums)} walks cut "
+              f"into {sp.slots} partials; {extra['kernels_per_call']} "
+              "kernels a call")
+        if not 128 <= sp.blocks <= fa.SMS:
+            fail(f"K4 {kind} {dt} hd {hd}: {sp.blocks} blocks, not one wave "
+                 f"of at least 128 on {fa.SMS} SMs")
     if kind == "wgmma":
         # every pair the kernel takes, timed: the default is the faster
         for pq, pk in fa.WGMMA_BLOCKS[hd]:
@@ -2534,8 +2580,10 @@ def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
     torch.cuda.synchronize()
     n = dict(fa.LAUNCHES)
     kind = fa.bwd_route(dtype, hd)
-    want_n = {f"{fa.route(dtype, hd)}/{dt}": 1,
-              f"bwd/{dt}": fa.bwd_launches(dtype, hd, B, H, Hkv, S)}
+    want_n = {f"{fa.route(dtype, hd)}/{dt}": fa.fwd_launches(
+                  dtype, hd, B, H, Hkv, S, S, causal),
+              f"bwd/{dt}": fa.bwd_launches(dtype, hd, B, H, Hkv, S, S,
+                                           causal)}
     if n != want_n:
         fail(f"K4 bwd {dt} hd {hd}: launches {n}, expected {want_n}")
     again = torch.autograd.grad(out, base, dout)
@@ -2545,6 +2593,10 @@ def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
              "backward on the same inputs differs from the first")
     tq, tk = fa.BWD_TILES[kind][hd]
     bq, bk = min(tq, S), min(tk, S)
+    # bf16 at hd 256: autograd of the forward's plain version on its split
+    # schedule (its blocks, WGMMA_BLOCKS[256][0])
+    split = fa.split_route(dtype, hd)
+    fwd_blocks = fa.WGMMA_BLOCKS[hd][0] if split else (bq, bk)
 
     def plain_grads(keep=None):
         ref = [t.detach().requires_grad_() for t in base]
@@ -2553,7 +2605,8 @@ def k4_bwd_case(dev, dtype, B: int, H: int, Hkv: int, S: int, hd: int,
             kk, vv = kk[:, keep], vv[:, keep]
         o = fa.flash_attention_plain(ref[0].transpose(1, 2),
                                      kk.transpose(1, 2), vv.transpose(1, 2),
-                                     causal=causal, block_q=bq, block_k=bk)
+                                     causal=causal, block_q=fwd_blocks[0],
+                                     block_k=fwd_blocks[1], split=split)
         return torch.autograd.grad(o, ref, dout)
 
     want = plain_grads()
@@ -2663,11 +2716,35 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
         lse = fa._run(q, k, v, causal, fwd, *k4_forward_blocks(fwd, hd),
                       True)[1]
         tq, tk = fa.BWD_TILES[kind][hd]
+        split = fa.split_route(q.dtype, hd)
         ms, host_ms = time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, dout, causal=causal), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, lse, dout, causal=causal, block_q=min(tq, S),
-            block_k=min(tk, S)), 3)[0]
+            q, k, v, out, lse, dout, causal=causal,
+            block_q=tq if split else min(tq, S),
+            block_k=tk if split else min(tk, S), split=split), 3)[0]
+        per_call = fa.bwd_launches(q.dtype, hd, B, H, Hkv, S, S, causal)
+        grid = {}
+        if split:
+            # the dK/dV grid (kv tiles of 64 keys over heads x q tiles) and
+            # the dQ grid (pairs of 64-row units over 32-key steps), cut
+            for what, sp in (("dkdv", fa.dkdv_split(B, H, Hkv, S, S, causal)),
+                             ("dq", fa.dq_split(B, H, Hkv, S, S, causal))):
+                lengths = [e - a for _, a, e, _ in sp.pieces] or list(sp.walks)
+                grid[what] = {"blocks": sp.blocks, "longest_steps":
+                              max(lengths), "mean_steps":
+                              sum(sp.walks) / sp.blocks,
+                              "cut_items": len(sp.sums), "slots": sp.slots}
+            print(f"grid: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} "
+                  f"heads: " + "; ".join(
+                      f"{w} {g_['blocks']} blocks on {fa.SMS} SMs, pieces "
+                      f"up to {g_['longest_steps']} steps (mean "
+                      f"{g_['mean_steps']:.2f}), {g_['slots']} partials"
+                      for w, g_ in grid.items()))
+            if key.endswith("paligemma_3b") and not all(
+                    128 <= g_["blocks"] <= fa.SMS for g_ in grid.values()):
+                fail(f"K4 bwd {key}: grids {grid}, not one wave of at "
+                     f"least 128 blocks on {fa.SMS} SMs")
         kept = (S * (S + 1) // 2 if causal else S * S) * B * H
         flops = 10 * hd * kept           # 2.5 x the forward's 4 hd a score
         esz = q.element_size()
@@ -2708,8 +2785,8 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
               + f"; plain {plain_ms:.3f} ms; sdpa's backward {lib_ms:.4f} "
               f"ms ({lib_ms / ms:.2f}x this), kernels "
               + ", ".join(lib_kernels) + "; "
-              f"launches on its path {n} ({fa.bwd_launches(q.dtype, hd, B, H, Hkv, S)} "
-              f"a call); ptxas " + " | ".join(px)
+              f"launches on its path {n} ({per_call} a call); ptxas "
+              + " | ".join(px)
               + (f"; dynamic shared memory {smem[kind]}" if kind in smem
                  else ""))
         entries.append({
@@ -2729,7 +2806,7 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
             "library_kernels": lib_kernels, "host_ms": host_ms,
             "bytes": nbytes, "flops": flops, "causal": causal,
             "shape": [B, H, S, hd], "kv_shape": list(k.shape),
-            "kernels_per_call": fa.bwd_launches(q.dtype, hd, B, H, Hkv, S),
+            "kernels_per_call": per_call, "grid": grid,
             "bwd_route": kind, "tiles": [tq, tk],
             "tolerance": c["tol"], "check_errors": c["errs"],
             "ptxas": px, "smem": smem.get(kind),
@@ -2763,7 +2840,9 @@ def train_path(dev, prof: dict) -> dict:
     print("train path launches: " + json.dumps(n, sort_keys=True))
     bwd_call = fa.bwd_launches(torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
                                cfg.n_kv_heads, TRAIN_S)
-    per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers,
+    fwd_call = fa.fwd_launches(torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
+                               cfg.n_kv_heads, TRAIN_S)
+    per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers * fwd_call,
                 "k4/bwd/bfloat16": bwd_call * cfg.n_layers}
     want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if n != want:
@@ -3642,7 +3721,9 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
             print("sharded path launches: " + json.dumps(counts,
                                                          sort_keys=True))
             one, many = runs["single"], runs["sharded"]
-            per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers,
+            fwd_call = fa.fwd_launches(torch.bfloat16, cfg.hd, TRAIN_B,
+                                       cfg.n_heads, cfg.n_kv_heads, TRAIN_S)
+            per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers * fwd_call,
                         "k4/bwd/bfloat16": cfg.n_layers * fa.bwd_launches(
                             torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
                             cfg.n_kv_heads, TRAIN_S)}
@@ -3707,7 +3788,7 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
             if not torch.equal(got, want):
                 fail("sharded path: the mesh's prefill step differs from "
                      f"lm.forward (max {(got - want).abs().max().item()})")
-            if n_pre != {"k4/wgmma/bfloat16": cfg.n_layers}:
+            if n_pre != {"k4/wgmma/bfloat16": cfg.n_layers * fwd_call}:
                 fail(f"sharded path: the mesh's prefill launched {n_pre}")
             del got, want, runs, one, many, pairs
             torch.cuda.empty_cache()
@@ -3861,13 +3942,16 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
     rec = recs["sharded"]
     per_call = fa.bwd_launches(torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
                                cfg.n_kv_heads, TRAIN_S)
-    graph = {"k4/wgmma/bfloat16": rec["k4_nodes"]["fwd"],
+    fwd_call = fa.fwd_launches(torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
+                               cfg.n_kv_heads, TRAIN_S)
+    graph = {"k4/wgmma/bfloat16": rec["k4_nodes"]["fwd"] * fwd_call,
              "k4/bwd/bfloat16": rec["k4_nodes"]["bwd"] * per_call}
     card_launches = prof["sharded_step"]["sharded"]["launches"]
     if graph != card_launches:
         fail(f"dryrun: the sharded step's graph holds K4 nodes "
-             f"{rec['k4_nodes']} ({graph} launches at {per_call} a backward "
-             f"call); the profiling child's step launched {card_launches}")
+             f"{rec['k4_nodes']} ({graph} launches at {fwd_call} a forward "
+             f"and {per_call} a backward call); the profiling child's step "
+             f"launched {card_launches}")
     kept = TRAIN_S * (TRAIN_S + 1) // 2 * TRAIN_B * cfg.n_heads
     bound = 6 * (rec["params"] - rec["gathered"]) * TRAIN_B * TRAIN_S \
         + cfg.n_layers * (4 + 10) * cfg.hd * kept
@@ -3889,7 +3973,8 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
     print(f"check: dryrun: the sharded step's graph holds "
           f"{rec['k4_nodes']['fwd']} K4 forward and "
           f"{rec['k4_nodes']['bwd']} backward nodes: {graph} launches at "
-          f"{per_call} kernels a backward call, as the profiling child "
+          f"{fwd_call} kernels a forward and {per_call} a backward call, "
+          f"as the profiling child "
           f"counted on the card; its flops == FlopCounterMode's")
     gb, mem = 1e9, torch.cuda.get_device_properties(0).total_memory
     for cell, rec in recs.items():
@@ -4028,6 +4113,20 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (compile {compile_s:.1f} s)")
     for name, (secs, log) in sorted(_cuda.BUILD_LOG.items()):
         print(f"  {name}: {secs:.1f} s; " + " | ".join(ptxas_summary(log)))
+    # K4's hd-256 kernels (bf16: the split forward and its combine, the
+    # backward's dK/dV, dQ and sum) by ptxas: none may spill
+    seen = {}
+    for lib in (fa.WGMMA_LIB_NAME, fa.WGMMA_BWD_LIB_NAME):
+        for ln in ptxas_kernels(build_log(lib, sources[lib])):
+            if "hd256" in ln:
+                seen[ln.split(":")[0]] = ln
+                print(f"build: {lib}: {ln}")
+    if sorted(seen) != sorted(K4_HD256_KERNELS):
+        fail(f"build: ptxas reported the hd-256 kernels {sorted(seen)}, "
+             f"expected {sorted(K4_HD256_KERNELS)}")
+    spilled = [ln for ln in seen.values() if not ln.endswith(" 0 B spilled")]
+    if spilled:
+        fail(f"build: hd-256 kernels spill: {spilled}")
     t0 = time.perf_counter()
     prof = profiles()
     print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's, "

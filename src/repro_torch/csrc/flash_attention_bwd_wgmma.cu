@@ -50,15 +50,9 @@
 //   the dQ block's Q and dout once, then K and V tile by tile.  setmaxnreg
 //   gives the consumers 240 registers a thread.
 // * Its dK/dV kernel held 119 KB of fp32 tiles per 64 keys.  Here a dK/dV
-//   block owns 128 keys (two consumer warpgroups of 64) at hd 64 and 128; at
-//   hd 256, where dK and dV for 64 keys would need 256 fp32 registers a
-//   thread, it owns 64 keys and its two warpgroups split the head dims of dK
-//   and dV (128 each), both computing the same S^T and dP^T (6 products of
-//   2*hd a score where 4 would do; the other choice, dV and dK in two
-//   passes over the q tiles, also recomputes S^T and loads Q and dout
-//   twice).  A dQ block owns 128 q rows (two warpgroups of 64) and walks kv
-//   tiles of 64 keys, 32 at hd 256 (two stages of 64 would not fit beside
-//   Q and dout).
+//   block owns 128 keys (two consumer warpgroups of 64) at hd 64 and 128.
+//   A dQ block owns 128 q rows (two warpgroups of 64) and walks kv tiles of
+//   64 keys.  hd 256 has kernels of its own (below).
 // * The dK/dV kernel's two consumer warpgroups interleave: one forms P^T
 //   and dS^T (in one pass, once S^T and dP^T have both retired) while the
 //   other's products are on the tensor cores; dV's and dK's products go out
@@ -79,6 +73,28 @@
 //   computing; only tiles that cross the diagonal are masked.  A dQ block
 //   stops at kv tile ((qi+1)*BQ - 1)//BK, the forward's bound.  Rows past S
 //   carry lse = +inf in the statistics, so their P is 0 without a mask.
+//
+// hd 256 (fa_bwd_wgmma_hd256_*), designed around PaliGemma's q (1, 8, 1024,
+// 256) over one kv head, where the dK/dV grid was 128 blocks of walks from
+// 16 q tiles down to 1, its two warpgroups both computed S^T and dP^T (6
+// products of 2 hd a kept score where 4 do), and the dQ grid was 64 blocks:
+// * dK/dV: a block owns 64 keys.  Warpgroup 0 computes S^T = K Q^T, P^T and
+//   dV += P^T dout; it hands P^T (fp32) to warpgroup 1 through one of two
+//   shared buffers; warpgroup 1 computes dP^T = V dout^T, dS^T and dK +=
+//   dS^T Q.  Four products a kept score, 128 accumulators a thread each.
+//   Its item is a kv tile, whose walk is G q heads x its q tiles of 64 rows.
+// * dQ: a block's two warpgroups take a pair of 64-row units, as the hd-256
+//   forward's (the same rows of two heads at an even G, reading each K and
+//   V step once for both), over steps of 32 keys (two stages of 64 would
+//   not fit beside the units' Q and dout; three of 32 do).
+// * Both grids: where a kernel's items are fewer than the SMs, the host cuts
+//   their walks into pieces of nearly equal length until 132 blocks fill a
+//   wave (flash_attention.split_walks); a cut walk's pieces write fp32
+//   partials that a sum kernel adds in slot order: 4 launches a call then.
+// * No spill: no producer warpgroup (ptxas gives a kernel one register
+//   count from its launch bounds, 168 at 384 threads, whatever setmaxnreg
+//   asks for); thread 0 of warpgroup 1 issues every load, step jj + ST once
+//   it has released step jj, and 256 threads leave 255 registers a thread.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -109,9 +125,6 @@ template <> struct Cfg<64> {
 };
 template <> struct Cfg<128> {
     static constexpr int BKV = 128, HDW = 128, BK = 64, KV_STAGES = 3, Q_STAGES = 3;
-};
-template <> struct Cfg<256> {
-    static constexpr int BKV = 64, HDW = 128, BK = 32, KV_STAGES = 2, Q_STAGES = 2;
 };
 
 // dK/dV block: K and V (BKV rows), then per stage Q, dout (64 rows) and the
@@ -811,6 +824,515 @@ fa_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at hd 256: pieces of walks, four products a kept score in dK/dV
+// ---------------------------------------------------------------------------
+
+constexpr int HD256 = 256;
+constexpr int UNIT = 64;                   // q rows of a dQ warpgroup's unit
+constexpr int BKV256 = 64, BK256 = 32;     // keys of a dK/dV tile, a dQ step
+constexpr int MAX_PIECES = 132;            // a launch's table: the H100's SMs
+constexpr int P_BYTES = 64 * 64 * 4;       // P^T of a step, fp32
+constexpr int SUM_ROWS = 8;                // rows of a sum block, a warp each
+// two consumer warpgroups and no producer: ptxas allocates one register
+// count for the whole kernel from its launch bounds (whatever setmaxnreg
+// asks for later) and a block's warps in fours, so 256 threads leave 255
+// registers a thread where 384 (or 288) leave 168, under the 128
+// accumulators of dK, dV or dQ with the scores'
+constexpr int NTHREADS256 = NCONS * 128;
+
+// a block's piece of item `item`: steps [start, stop); slot -1 where that
+// is the item's whole walk, else the fp32 partial it writes
+struct Piece { int item, start, stop, slot; };
+// n = 0: no table, block x takes item x's whole walk (dQ: each (batch, kv
+// head)'s pairs last-first)
+struct PieceTable { int n; Piece p[MAX_PIECES]; };
+// a cut item: its pieces' first slot and count; kind 0 a dK/dV tile, 1 a
+// dQ pair of units
+struct SumEntry { short item, slot0, count, kind; };
+struct SumTable { int n; SumEntry e[2 * MAX_PIECES]; };
+
+// dK/dV at hd 256: K and V (64 keys), per stage Q, dout (64 rows) and the
+// statistics, then two buffers of P^T handed from the dV warpgroup to the
+// dK one
+struct Dkdv256 {
+    static constexpr int ST = 2;
+    static constexpr int KV_BYTES = BKV256 * HD256 * 2;
+    static constexpr int T_BYTES = BQ * HD256 * 2;
+    static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
+    static constexpr int Q_OFF = 2 * KV_BYTES;
+    static constexpr int G_OFF = Q_OFF + ST * T_BYTES;
+    static constexpr int ST_OFF = G_OFF + ST * T_BYTES;
+    static constexpr int P_OFF = ST_OFF + ST * STATS_BYTES;
+    static constexpr int BAR_OFF = P_OFF + 2 * P_BYTES;
+    static constexpr int NBARS = 1 + 2 * ST + 4;
+    static constexpr int SMEM = BAR_OFF + NBARS * 8 + 1024;
+    static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
+};
+
+// dQ at hd 256: Q and dout of the pair's two units (128 rows), then per
+// stage K and V (32 keys)
+struct Dq256 {
+    static constexpr int ST = 3;
+    static constexpr int T_BYTES = 2 * UNIT * HD256 * 2;
+    static constexpr int KV_BYTES = BK256 * HD256 * 2;
+    static constexpr int Q_OFF = 0, G_OFF = T_BYTES;
+    static constexpr int K_OFF = 2 * T_BYTES;
+    static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+    static constexpr int BAR_OFF = V_OFF + ST * KV_BYTES;
+    static constexpr int NBARS = 1 + 2 * ST;
+    static constexpr int SMEM = BAR_OFF + NBARS * 8 + 1024;
+    static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
+};
+
+// steps of 32 keys that q rows [64 p, 64 p + 64) walk
+__device__ __forceinline__ int unit_steps(int p, int S, int Sk, int causal) {
+    const int nk = (Sk + BK256 - 1) / BK256;
+    return causal ? min(nk, (min(UNIT * (p + 1), S) - 1) / BK256 + 1) : nk;
+}
+
+// a thread's rows key0 (+ 8) of a 64 x 256 accumulator: bf16 through
+// strides (times mult) or, with a slot, fp32 into its partial tile
+__device__ __forceinline__ void store_rows(const float (&acc)[128], int key0,
+                                           int rows_end, int quad,
+                                           float* part_tile, int tile_row0,
+                                           __nv_bfloat16* dst0,
+                                           long long row_stride, float mult) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int key = key0 + 8 * i;
+        if (key >= rows_end) continue;
+        if (part_tile != nullptr) {
+            float* pp = part_tile + (long long)(key - tile_row0) * HD256;
+#pragma unroll
+            for (int j = 0; j < HD256 / 8; ++j) {
+                const int n = j * 4 + 2 * i;
+                *reinterpret_cast<float2*>(pp + j * 8 + 2 * quad) =
+                    make_float2(acc[n], acc[n + 1]);
+            }
+        } else {
+            __nv_bfloat16* pp = dst0 + key * row_stride;
+#pragma unroll
+            for (int j = 0; j < HD256 / 8; ++j) {
+                const int n = j * 4 + 2 * i;
+                *reinterpret_cast<uint32_t*>(pp + j * 8 + 2 * quad) =
+                    pack_bf16(acc[n] * mult, acc[n + 1] * mult);
+            }
+        }
+    }
+}
+
+// (b') dK and dV of one piece of a kv tile of 64 keys: steps [start, stop)
+// of its walk over the group's q heads, each head's q tiles of 64 rows
+// (step g per + qt - first).  Warpgroup 0 computes S^T = K Q^T, P^T and
+// dV += P^T dout; it hands P^T (fp32) to warpgroup 1 through one of two
+// shared buffers; warpgroup 1 computes dP^T = V dout^T, dS^T = P^T (dP^T -
+// D) and dK += dS^T Q.  Four products of 2 hd a kept score, 128 fp32
+// accumulators a thread in each.
+__global__ void __launch_bounds__(NTHREADS256, 1)
+fa_bwd_wgmma_hd256_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap gmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const float* __restrict__ stats,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv,
+                               float* __restrict__ part, KvStrides st, int H,
+                               int Hkv, int group, int S, int Sk, int NQ,
+                               int causal, float scale_log2, float scale,
+                               const __grid_constant__ PieceTable tab) {
+    using L = Dkdv256;
+    constexpr int HD = HD256, ST = L::ST;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;
+    uint8_t* gbase = smem_raw + (base - raw);
+    const uint32_t sk = base + L::K_OFF, sv = base + L::V_OFF,
+                   sq = base + L::Q_OFF, sg = base + L::G_OFF,
+                   sst = base + L::ST_OFF, bars = base + L::BAR_OFF;
+    // barriers: K and V; per stage full, empty; per P buffer full, empty
+    const uint32_t kvbar = bars;
+    auto full = [&](int s) { return bars + 8 * (1 + s); };
+    auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+    auto pfull = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+    auto pempty = [&](int s) { return bars + 8 * (3 + 2 * ST + s); };
+
+    const int nk = (Sk + BKV256 - 1) / BKV256, nq = (S + BQ - 1) / BQ;
+    int item = blockIdx.x, i0 = 0, i1 = -1, slot = -1;
+    if (tab.n) {
+        const Piece pc = tab.p[blockIdx.x];
+        item = pc.item, i0 = pc.start, i1 = pc.stop, slot = pc.slot;
+    }
+    const int bhk = item / nk, tk = item % nk;
+    const int b = bhk / Hkv, hk = bhk % Hkv, k0 = tk * BKV256;
+    const int first = causal ? min(tk, nq) : 0, per = nq - first;
+    if (i1 < 0) i1 = group * per;
+    const int steps = i1 - i0;
+
+    if (threadIdx.x == 0) {
+        mbar_init(kvbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), NCONS * 128);
+        }
+        for (int s = 0; s < 2; ++s) {
+            mbar_init(pfull(s), 128);
+            mbar_init(pempty(s), 128);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // thread 0 of the dK warpgroup (1), which trails the dV one, issues
+    // every load: K and V and the first ST steps, then step jj + ST once it
+    // has released step jj, waiting there for warpgroup 0
+    const bool loader = threadIdx.x == (NCONS - 1) * 128;
+    auto load_step = [&](int jj) {         // step i0 + jj, stage jj % ST
+        const int it = i0 + jj, s = jj % ST;
+        const int h = hk * group + it / per, qt = first + it % per;
+        mbar_wait(empty(s), ((jj / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::T_BYTES + STATS_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / CHUNK; ++c) {
+            tma_load(sq + s * L::T_BYTES + c * BQ * ROW_BYTES, &qmap,
+                     full(s), c * CHUNK, qt * BQ, h, b);
+            tma_load(sg + s * L::T_BYTES + c * BQ * ROW_BYTES, &gmap,
+                     full(s), c * CHUNK, qt * BQ, h, b);
+        }
+        bulk_load(sst + s * STATS_BYTES,
+                  stats + ((long long)(b * H + h) * NQ + qt) * 2 * BQ,
+                  STATS_BYTES, full(s));
+    };
+    if (loader) {
+        mbar_expect_tx(kvbar, 2 * L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / CHUNK; ++c) {
+            tma_load(sk + c * BKV256 * ROW_BYTES, &kmap, kvbar, c * CHUNK, k0, hk, b);
+            tma_load(sv + c * BKV256 * ROW_BYTES, &vmap, kvbar, c * CHUNK, k0, hk, b);
+        }
+        for (int jj = 0; jj < min(ST, steps); ++jj) load_step(jj);
+    }
+    __syncwarp();
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    // ---- consumer warpgroups: the tile's 64 keys, dV (0) or dK (1) -------
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int key0 = k0 + warp * 16 + lane / 4;       // keys key0, key0 + 8
+    float acc[HD / 2], sc[32];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kvbar, 0);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dout^T (1): K-major operands,
+    // the tile's 64 rows of K or V against the stage's 64 rows of Q or dout
+    const uint64_t ad = smem_desc(wg == 0 ? sk : sv, 16, 1024);
+    for (int jj = 0; jj < steps; ++jj) {
+        const int it = i0 + jj, s = jj % ST, pb = jj % 2;
+        const int q0 = (first + it % per) * BQ;
+        mbar_wait(full(s), (jj / ST) & 1);
+        const uint32_t qs = sq + s * L::T_BYTES, gs = sg + s * L::T_BYTES;
+        const float* stt = reinterpret_cast<const float*>(
+            gbase + L::ST_OFF + s * STATS_BYTES);
+        float* pbuf = reinterpret_cast<float*>(gbase + L::P_OFF + pb * P_BYTES);
+        const uint64_t bd = smem_desc(wg == 0 ? qs : gs, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            Wgmma<64>::ss(sc, ad + (((kk / 4) * BKV256 * ROW_BYTES + off) >> 4),
+                          bd + (((kk / 4) * BQ * ROW_BYTES + off) >> 4), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        // a thread holds keys key0 (+8) against q rows q0 + 8 (n / 4) +
+        // 2 quad + (n & 1)
+        if (wg == 0) {
+            const bool edge = causal && q0 < k0 + BKV256 - 1;
+#pragma unroll
+            for (int n = 0; n < 32; ++n) {
+                const int col = (n >> 2) * 8 + 2 * quad + (n & 1);
+                float p = ex2(fmaf(sc[n], scale_log2, -stt[col]));
+                if (edge && key0 + 8 * ((n >> 1) & 1) > q0 + col) p = 0.f;
+                sc[n] = p;
+            }
+            mbar_wait(pempty(pb), ((jj / 2) & 1) ^ 1);
+#pragma unroll
+            for (int n = 0; n < 32; ++n) pbuf[n * 128 + t] = sc[n];
+            mbar_arrive(pfull(pb));
+        } else {
+            mbar_wait(pfull(pb), (jj / 2) & 1);
+#pragma unroll
+            for (int n = 0; n < 32; ++n) {
+                const int col = (n >> 2) * 8 + 2 * quad + (n & 1);
+                sc[n] = pbuf[n * 128 + t] * (sc[n] - stt[BQ + col]);
+            }
+            mbar_arrive(pempty(pb));
+        }
+        pack_a<64>(sc, pa);
+        // dV += P^T dout (0) or dK += dS^T Q (1): dout or Q MN-major, 16 q
+        // rows (2 KB) a k-step, the next 64 head dims 64 rows further
+        const uint64_t md = smem_desc(wg == 0 ? gs : qs, BQ * ROW_BYTES, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<HD>::rs(acc, pa[kk], md + ((kk * 16 * ROW_BYTES) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty(s));
+        if (loader && jj + ST < steps) load_step(jj + ST);
+        __syncwarp();
+    }
+    // dK's partials (which 0) then dV's (1) of a slot, 64 keys x 256 each
+    const long long n_tile = (long long)BKV256 * HD;
+    float* pt = slot < 0 ? nullptr : part + ((long long)slot * 2 + (wg == 0)) * n_tile;
+    if (wg == 0)
+        store_rows(acc, key0, Sk, quad, pt, k0,
+                   dv + b * st.dv[0] + hk * st.dv[1], st.dv[2], 1.f);
+    else
+        store_rows(acc, key0, Sk, quad, pt, k0,
+                   dk + b * st.dk[0] + hk * st.dk[1], st.dk[2], scale);
+}
+
+// (d') dQ of one piece of a pair of 64-row units (warpgroup w takes unit 2
+// i + w: rows [64 p, 64 p + 64) of q head g, u = p G + g): kv steps of 32
+// keys [start, stop), each warpgroup within its own unit's causal bound,
+// S and dP recomputed; the dQ product of a step retires under the next
+// step's S and dP
+__global__ void __launch_bounds__(NTHREADS256, 1)
+fa_bwd_wgmma_hd256_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap gmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const float* __restrict__ stats,
+                             __nv_bfloat16* __restrict__ dq,
+                             float* __restrict__ part, RowStrides sdq, int H,
+                             int Hkv, int group, int S, int Sk, int NQ,
+                             int causal, float scale_log2, float scale,
+                             const __grid_constant__ PieceTable tab) {
+    using L = Dq256;
+    constexpr int HD = HD256, BK = BK256, ST = L::ST;
+    constexpr int ON = HD / 2, SN = BK / 2;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const uint32_t sq = base + L::Q_OFF, sg = base + L::G_OFF,
+                   sk = base + L::K_OFF, sv = base + L::V_OFF,
+                   bars = base + L::BAR_OFF;
+    const uint32_t qbar = bars;
+    auto full = [&](int s) { return bars + 8 * (1 + s); };
+    auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+
+    const int U = (S + UNIT - 1) / UNIT * group, npair = (U + 1) / 2;
+    int item, j0 = 0, j1 = -1, slot = -1;
+    if (tab.n) {
+        const Piece pc = tab.p[blockIdx.x];
+        item = pc.item, j0 = pc.start, j1 = pc.stop, slot = pc.slot;
+    } else {
+        item = blockIdx.x / npair * npair + (npair - 1 - blockIdx.x % npair);
+    }
+    const int bhk = item / npair, pi = item % npair;
+    const int b = bhk / Hkv, hk = bhk % Hkv;
+    // warpgroup w's unit 2 i + w: its q head, position tile and walk (0:
+    // none)
+    auto head = [&](int w) { return hk * group + (2 * pi + w) % group; };
+    auto tile = [&](int w) { return (2 * pi + w) / group; };
+    auto walk = [&](int w) {
+        return 2 * pi + w < U ? unit_steps((2 * pi + w) / group, S, Sk, causal) : 0;
+    };
+    if (j1 < 0) j1 = max(walk(0), walk(1));
+    const int nsteps = j1 - j0;
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), NCONS * 128);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // thread 0 of the last warpgroup issues every load: Q and dout of both
+    // units and the first ST steps, then step jj + ST once it has released
+    // step jj, waiting there for the first warpgroup
+    const bool loader = threadIdx.x == (NCONS - 1) * 128;
+    auto load_step = [&](int jj) {         // step j0 + jj, stage jj % ST
+        const int j = j0 + jj, s = jj % ST;
+        mbar_wait(empty(s), ((jj / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / CHUNK; ++c) {
+            tma_load(sk + s * L::KV_BYTES + c * BK * ROW_BYTES, &kmap,
+                     full(s), c * CHUNK, j * BK, hk, b);
+            tma_load(sv + s * L::KV_BYTES + c * BK * ROW_BYTES, &vmap,
+                     full(s), c * CHUNK, j * BK, hk, b);
+        }
+    };
+    if (loader) {
+        mbar_expect_tx(qbar, ((walk(1) > 0) + 1) * 2 * UNIT * HD * 2);
+#pragma unroll
+        for (int w = 0; w < NCONS; ++w) {
+            if (walk(w) == 0) continue;
+#pragma unroll
+            for (int c = 0; c < HD / CHUNK; ++c) {
+                const uint32_t off = c * 2 * UNIT * ROW_BYTES + w * UNIT * ROW_BYTES;
+                tma_load(sq + off, &qmap, qbar, c * CHUNK, tile(w) * UNIT, head(w), b);
+                tma_load(sg + off, &gmap, qbar, c * CHUNK, tile(w) * UNIT, head(w), b);
+            }
+        }
+        for (int jj = 0; jj < min(ST, nsteps); ++jj) load_step(jj);
+    }
+    __syncwarp();
+    // a warpgroup's release of step jj; the loader then issues step jj + ST
+    auto release = [&](int jj) {
+        mbar_arrive(empty(jj % ST));
+        if (loader && jj + ST < nsteps) load_step(jj + ST);
+    };
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    // ---- consumer warpgroup wg: its unit's 64 rows ------------------------
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int h = head(wg), first = tile(wg) * UNIT, nw = walk(wg);
+    const int row0 = first + warp * 16 + lane / 4;      // rows row0, row0 + 8
+    const float* stt = stats + ((long long)(b * H + h) * NQ + tile(wg)) * 2 * BQ
+                     + warp * 16 + lane / 4;
+    float lse2[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+    if (nw > 0) {
+        lse2[0] = stt[0], lse2[1] = stt[8];
+        dd[0] = stt[BQ], dd[1] = stt[BQ + 8];
+    }
+    const int ncomp = max(0, min(j1, nw) - j0);   // steps it computes
+    const uint64_t qd = smem_desc(sq + wg * UNIT * ROW_BYTES, 16, 1024),
+                   gd = smem_desc(sg + wg * UNIT * ROW_BYTES, 16, 1024);
+    float dqa[ON], sc[SN], dp[SN];
+    uint32_t pd[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < ON; ++i) dqa[i] = 0.f;
+    mbar_wait(qbar, 0);
+    int pending = -1;           // the step whose dQ product is in flight
+    for (int jj = 0; jj < ncomp; ++jj) {
+        const int s = jj % ST, k0 = (j0 + jj) * BK;
+        mbar_wait(full(s), (jj / ST) & 1);
+        const uint32_t ks = sk + s * L::KV_BYTES, vs = sv + s * L::KV_BYTES;
+        const uint64_t kd = smem_desc(ks, 16, 1024), vd = smem_desc(vs, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            Wgmma<BK>::ss(sc, qd + (((kk / 4) * 2 * UNIT * ROW_BYTES + off) >> 4),
+                          kd + (((kk / 4) * BK * ROW_BYTES + off) >> 4), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            Wgmma<BK>::ss(dp, gd + (((kk / 4) * 2 * UNIT * ROW_BYTES + off) >> 4),
+                          vd + (((kk / 4) * BK * ROW_BYTES + off) >> 4), kk > 0);
+        }
+        wgmma_commit();
+        // S (and the last step's dQ product) retired; dP in flight
+        wgmma_wait<1>();
+        fence_regs(sc);
+        if (pending >= 0) release(pending);
+        __syncwarp();
+        const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > first);
+#pragma unroll
+        for (int n = 0; n < SN; ++n) {
+            const int i = (n >> 1) & 1;
+            const int col = k0 + (n >> 2) * 8 + 2 * quad + (n & 1);
+            float p = ex2(fmaf(sc[n], scale_log2, -lse2[i]));
+            if (edge && (col >= Sk || (causal && col > row0 + 8 * i))) p = 0.f;
+            sc[n] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int n = 0; n < SN; ++n) sc[n] *= dp[n] - dd[(n >> 1) & 1];
+        pack_a<BK>(sc, pd);
+        // dQ += dS K: K MN-major (hd contiguous): 16 keys a k-step, the
+        // next 64 head dims BK rows further
+        const uint64_t km = smem_desc(ks, BK * ROW_BYTES, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+            Wgmma<HD>::rs(dqa, pd[kk], km + ((kk * 16 * ROW_BYTES) >> 4));
+        wgmma_commit();
+        pending = jj;
+    }
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    if (pending >= 0) release(pending);
+    __syncwarp();
+    for (int jj = ncomp; jj < nsteps; ++jj) {
+        mbar_wait(full(jj % ST), (jj / ST) & 1);
+        release(jj);
+        __syncwarp();
+    }
+    if (nw == 0) return;
+    float* pt = slot < 0 ? nullptr
+              : part + ((long long)slot * 2 + wg) * UNIT * HD;
+    store_rows(dqa, row0, S, quad, pt, first,
+               dq + b * sdq.s[0] + h * sdq.s[1], sdq.s[2], scale);
+}
+
+// (c') the cut items' partials summed in slot order: dK (times scale) and
+// dV of a kv tile (kind 0), or dQ (times scale) of a unit of a pair (kind
+// 1).  A block takes SUM_ROWS rows of a tile, a warp a row, a lane 8 head
+// dims (16 bytes out); the lanes' loads of every piece are independent
+__global__ void __launch_bounds__(SUM_ROWS * 32)
+fa_bwd_wgmma_hd256_sum_kernel(const float* __restrict__ part_kv,
+                              const float* __restrict__ part_q,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv,
+                              __nv_bfloat16* __restrict__ dq, KvStrides skv,
+                              RowStrides sdq, int H, int Hkv, int group,
+                              int S, int Sk, float scale,
+                              const __grid_constant__ SumTable tab) {
+    constexpr int BLOCKS = 64 / SUM_ROWS;               // blocks a tile
+    const SumEntry e = tab.e[blockIdx.x / (2 * BLOCKS)];
+    const int w = blockIdx.x / BLOCKS % 2;
+    const int r = blockIdx.x % BLOCKS * SUM_ROWS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    __nv_bfloat16* dst;
+    int row;
+    float mult = scale;
+    if (e.kind == 0) {
+        const int nk = (Sk + BKV256 - 1) / BKV256;
+        const int bhk = e.item / nk, b = bhk / Hkv, hk = bhk % Hkv;
+        row = e.item % nk * BKV256 + r;
+        if (row >= Sk) return;
+        const long long* s3 = w ? skv.dv : skv.dk;
+        dst = (w ? dv : dk) + b * s3[0] + hk * s3[1] + row * s3[2];
+        if (w) mult = 1.f;
+    } else {
+        const int U = (S + UNIT - 1) / UNIT * group, npair = (U + 1) / 2;
+        const int bhk = e.item / npair, u = 2 * (e.item % npair) + w;
+        row = u / group * UNIT + r;
+        if (u >= U || row >= S) return;
+        const int b = bhk / Hkv, h = bhk % Hkv * group + u % group;
+        dst = dq + b * sdq.s[0] + h * sdq.s[1] + row * sdq.s[2];
+    }
+    // a slot holds two 64 x 256 tiles: dK's then dV's, or the two units'
+    const float* src = (e.kind == 0 ? part_kv : part_q)
+                     + ((long long)e.slot0 * 2 + w) * 64 * HD256
+                     + (long long)r * HD256 + lane * 8;
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < e.count; ++c) {
+        const float4* p = reinterpret_cast<const float4*>(src + (long long)c * 2 * 64 * HD256);
+        const float4 x = p[0], y = p[1];
+        acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
+        acc[4] += y.x; acc[5] += y.y; acc[6] += y.z; acc[7] += y.w;
+    }
+    uint4 out;
+    out.x = pack_bf16(acc[0] * mult, acc[1] * mult);
+    out.y = pack_bf16(acc[2] * mult, acc[3] * mult);
+    out.z = pack_bf16(acc[4] * mult, acc[5] * mult);
+    out.w = pack_bf16(acc[6] * mult, acc[7] * mult);
+    *reinterpret_cast<uint4*>(dst + lane * 8) = out;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -967,9 +1489,104 @@ extern "C" int flash_attention_bwd_wgmma_bf16(
     switch (hd) {
         case 64: return run<64>(a, st);
         case 128: return run<128>(a, st);
-        case 256: return run<256>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// bf16 at hd 256: tensors, strides, lse and stats as
+// flash_attention_bwd_wgmma_bf16's.  kv_pieces, q_pieces: the dK/dV and dQ
+// kernels' (item, start, stop, slot) int quadruples, a block each (0: a
+// block an item, its whole walk); sums: nsums (item, first slot, count,
+// kind) quadruples for the sum kernel.  part_kv (slots, 2, 64, 256) and
+// part_q (slots, 2, 64, 256) fp32 scratch.  Launches D, dK/dV, dQ and,
+// where nsums > 0, the sum: 3 or 4 kernels on `stream`.
+extern "C" int flash_attention_bwd_wgmma_hd256(
+        const void* q, const void* k, const void* v, const void* o,
+        const void* g, const float* lse, void* dq, void* dk, void* dv,
+        float* stats, float* part_kv, float* part_q, int B, int H, int Hkv,
+        int S, int Sk, int causal, float scale, const long long* strides,
+        const int* kv_pieces, int n_kv, const int* q_pieces, int n_q,
+        const int* sums, int nsums, void* stream) {
+    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1
+        || n_kv < 0 || n_kv > MAX_PIECES || n_q < 0 || n_q > MAX_PIECES
+        || nsums < 0 || nsums > 2 * MAX_PIECES)
+        return (int)cudaErrorInvalidValue;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    constexpr int HD = HD256;
+    const int G = H / Hkv, NQ = 2 * ((S + BQ_DQ - 1) / BQ_DQ);
+    const float sl = scale * LOG2E;
+    CUtensorMap qm, gm, km, vm, kqm, vqm;
+    int rc = encode(&qm, q, HD, S, H, B, strides, BQ);
+    if (!rc) rc = encode(&gm, g, HD, S, H, B, strides + 12, BQ);
+    if (!rc) rc = encode(&km, k, HD, Sk, Hkv, B, strides + 3, BKV256);
+    if (!rc) rc = encode(&vm, v, HD, Sk, Hkv, B, strides + 6, BKV256);
+    if (!rc) rc = encode(&kqm, k, HD, Sk, Hkv, B, strides + 3, BK256);
+    if (!rc) rc = encode(&vqm, v, HD, Sk, Hkv, B, strides + 6, BK256);
+    if (rc) return rc;
+    RowStrides so, sg, sdq;
+    KvStrides skv;
+    for (int i = 0; i < 3; ++i) {
+        so.s[i] = strides[9 + i];
+        sg.s[i] = strides[12 + i];
+        sdq.s[i] = strides[15 + i];
+        skv.dk[i] = strides[18 + i];
+        skv.dv[i] = strides[21 + i];
+    }
+    cudaStream_t stream_ = (cudaStream_t)stream;
+    const long long rows = (long long)B * H * NQ * BQ;
+    fa_bwd_wgmma_dot_kernel<<<(unsigned)((rows + DOT_WARPS - 1) / DOT_WARPS),
+                              DOT_WARPS * 32, 0, stream_>>>(
+        (const __nv_bfloat16*)o, (const __nv_bfloat16*)g, lse, stats, so, sg,
+        H, S, NQ, HD, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    PieceTable tab;
+    tab.n = n_kv;
+    for (int i = 0; i < n_kv; ++i)
+        tab.p[i] = Piece{kv_pieces[4 * i], kv_pieces[4 * i + 1],
+                         kv_pieces[4 * i + 2], kv_pieces[4 * i + 3]};
+    err = cudaFuncSetAttribute(fa_bwd_wgmma_hd256_dkdv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Dkdv256::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int nk = (Sk + BKV256 - 1) / BKV256;
+    fa_bwd_wgmma_hd256_dkdv_kernel<<<n_kv ? n_kv : B * Hkv * nk, NTHREADS256,
+                                     Dkdv256::SMEM, stream_>>>(
+        qm, gm, km, vm, stats, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+        part_kv, skv, H, Hkv, G, S, Sk, NQ, causal, sl, scale, tab);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    tab.n = n_q;
+    for (int i = 0; i < n_q; ++i)
+        tab.p[i] = Piece{q_pieces[4 * i], q_pieces[4 * i + 1],
+                         q_pieces[4 * i + 2], q_pieces[4 * i + 3]};
+    err = cudaFuncSetAttribute(fa_bwd_wgmma_hd256_dq_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Dq256::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int U = (S + UNIT - 1) / UNIT * G, npair = (U + 1) / 2;
+    fa_bwd_wgmma_hd256_dq_kernel<<<n_q ? n_q : B * Hkv * npair, NTHREADS256,
+                                   Dq256::SMEM, stream_>>>(
+        qm, gm, kqm, vqm, stats, (__nv_bfloat16*)dq, part_q, sdq, H, Hkv, G,
+        S, Sk, NQ, causal, sl, scale, tab);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || nsums == 0) return (int)err;
+
+    SumTable sums_t;
+    sums_t.n = nsums;
+    for (int i = 0; i < nsums; ++i)
+        sums_t.e[i] = SumEntry{(short)sums[4 * i], (short)sums[4 * i + 1],
+                               (short)sums[4 * i + 2], (short)sums[4 * i + 3]};
+    fa_bwd_wgmma_hd256_sum_kernel<<<2 * nsums * (64 / SUM_ROWS), SUM_ROWS * 32,
+                                    0, stream_>>>(
+        part_kv, part_q, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+        (__nv_bfloat16*)dq, skv, sdq, H, Hkv, G, S, Sk, scale, sums_t);
+    return (int)cudaGetLastError();
 }
 
 // the dynamic shared memory of the dK/dV (which 0) or dQ (1) kernel at hd
@@ -977,7 +1594,7 @@ extern "C" int flash_attention_bwd_wgmma_smem(int hd, int which) {
     switch (hd) {
         case 64: return which ? DqLayout<64>::SMEM : DkdvLayout<64>::SMEM;
         case 128: return which ? DqLayout<128>::SMEM : DkdvLayout<128>::SMEM;
-        case 256: return which ? DqLayout<256>::SMEM : DkdvLayout<256>::SMEM;
+        case 256: return which ? Dq256::SMEM : Dkdv256::SMEM;
         default: return -1;
     }
 }

@@ -62,6 +62,31 @@
 // tiles whose keys all lie past its last row.  q tiles are launched
 // last-first so the longest start early; the heads that share a kv head
 // are launched side by side, so their K and V tiles meet in L2.
+//
+// hd 256 has kernels of its own (fa_wgmma_hd256_kernel and its combine),
+// designed around PaliGemma's q (1, 8, 1024, 256) over one kv head, where
+// 128-row blocks gave 64 blocks on 132 SMs with causal walks of 2 to 16
+// tiles, and O's 128 fp32 accumulators beside S and P spilled:
+// * Units and pairs.  A (batch, kv head)'s G q heads are cut into units of
+//   64 rows (unit u = p G + g: rows [64 p, 64 p + 64) of head g), and a
+//   block's two warpgroups take units 2 i and 2 i + 1: at an even G the
+//   same rows of two heads, which walk the same causal bound and read every
+//   K and V tile once for 128 rows.
+// * Pieces.  Where the pairs are fewer than the SMs, the host cuts their
+//   walks into pieces of nearly equal length until 132 blocks fill one wave
+//   (flash_attention.split_walks; the table rides in the kernel's
+//   parameters).  A piece over a pair's whole walk writes the output and
+//   lse; the others write their unnormalised fp32 O, m and l to a slot, and
+//   a second kernel combines each cut walk's slots in order: no atomics,
+//   bitwise the same from call to call.
+// * No spill.  ptxas gives a kernel one register count, from its launch
+//   bounds, whatever setmaxnreg asks for later (a 384-thread block leaves
+//   168 a thread), so these kernels have no producer warpgroup: 256
+//   threads leave 255.  Thread 0 of the second warpgroup, which trails the
+//   first, issues every TMA load, tile jj + 2 once it has released tile jj.
+//   Within a warpgroup S_j no longer runs beside P_{j-1} V_{j-1}: O's 128
+//   accumulators, S's 32 and P's 16 are the most a thread holds, and the
+//   two warpgroups' products and softmax interleave on the SM.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -607,6 +632,314 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at hd 256: units of 64 rows in pairs, walks cut into pieces
+// ---------------------------------------------------------------------------
+
+constexpr int UNIT = 64;                   // q rows of a consumer warpgroup
+constexpr int HD256 = 256, BK256 = 64;
+constexpr int MAX_PIECES = 132;            // a launch's table: the H100's SMs
+constexpr int COMBINE_ROWS = 8;            // rows of a combine block, a warp each
+// two consumer warpgroups and no producer: ptxas allocates one register
+// count for the whole kernel from its launch bounds (whatever setmaxnreg
+// asks for later) and a block's warps in fours, so 256 threads leave 255
+// registers a thread where 384 (or 288) leave 168, under O's 128
+// accumulators with S's and P's
+constexpr int NTHREADS256 = NCONS * 128;
+
+// a block's piece: item (pair of units) `item`, kv tiles [start, stop);
+// slot -1 where that is the item's whole walk, else its fp32 partial
+struct Piece { int item, start, stop, slot; };
+// n = 0: no table, block x takes an item's whole walk (each (batch, kv
+// head)'s pairs last-first, so the longest walks start first)
+struct PieceTable { int n; Piece p[MAX_PIECES]; };
+// an item whose walk was cut: its pieces' first slot and their count
+struct SumEntry { short item, slot0, count, pad; };
+struct SumTable { int n; SumEntry e[MAX_PIECES]; };
+
+// kv tiles of bk keys that q rows [64 p, 64 p + 64) walk
+__device__ __forceinline__ int unit_walk(int p, int S, int Sk, int causal,
+                                         int bk) {
+    const int nk = (Sk + bk - 1) / bk;
+    return causal ? min(nk, (min(UNIT * (p + 1), S) - 1) / bk + 1) : nk;
+}
+
+// One piece: the two units of a pair (unit u = p G + g of a (batch, kv
+// head) holds rows [64 p, 64 p + 64) of its group's q head g; warpgroup w
+// takes unit 2 i + w, which share the kv head and so every K and V tile)
+// over kv tiles [start, stop).  A warpgroup computes the tiles within its
+// own unit's causal bound and releases the rest.  No S_j beside
+// P_{j-1} V_{j-1} within a warpgroup: O's 128 accumulators, S's 32 and P's
+// 16 are the most a thread holds; the two warpgroups' products and softmax
+// interleave on the SM.  A whole walk (slot -1) writes the bf16 output and
+// lse as fa_wgmma_kernel does; a piece writes its unnormalised fp32 O, its
+// rows' running max m (raw scores) and denominator l to `slot`.
+__global__ void __launch_bounds__(NTHREADS256, 1)
+fa_wgmma_hd256_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      float* __restrict__ lse, float* __restrict__ part_o,
+                      float* __restrict__ part_ml, int H, int Hkv, int group,
+                      int S, int Sk, int causal, float scale_log2,
+                      const __grid_constant__ PieceTable tab) {
+    using L = Layout<HD256, BK256>;
+    constexpr int HD = HD256, BK = BK256;
+    constexpr int ON = HD / 2, PV_STEPS = BK / 16;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const uint32_t sq = base + L::Q_OFF, sk = base + L::K_OFF,
+                   sv = base + L::V_OFF, bars = base + L::BAR_OFF;
+    const uint32_t qbar = bars;
+    auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+    auto full_v = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+    auto empty_k = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
+    auto empty_v = [&](int s) { return bars + 8 * (1 + 3 * STAGES + s); };
+
+    const int U = (S + UNIT - 1) / UNIT * group, npair = (U + 1) / 2;
+    int item, j0 = 0, j1 = -1, slot = -1;
+    if (tab.n) {
+        const Piece pc = tab.p[blockIdx.x];
+        item = pc.item, j0 = pc.start, j1 = pc.stop, slot = pc.slot;
+    } else {
+        item = blockIdx.x / npair * npair + (npair - 1 - blockIdx.x % npair);
+    }
+    const int bhk = item / npair, pi = item % npair;
+    const int b = bhk / Hkv, hk = bhk % Hkv;
+    // warpgroup w's unit 2 i + w: its q head, first row and walk (0: none)
+    auto head = [&](int w) { return hk * group + (2 * pi + w) % group; };
+    auto first_row = [&](int w) { return (2 * pi + w) / group * UNIT; };
+    auto walk = [&](int w) {
+        return 2 * pi + w < U ? unit_walk((2 * pi + w) / group, S, Sk, causal, BK) : 0;
+    };
+    if (j1 < 0) j1 = max(walk(0), walk(1));
+    const int ntiles = j1 - j0;
+
+    if (threadIdx.x == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_k(s), 1);
+            mbar_init(full_v(s), 1);
+            mbar_init(empty_k(s), NCONS * 128);
+            mbar_init(empty_v(s), NCONS * 128);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // thread 0 of the last warpgroup issues every TMA load: Q and the first
+    // STAGES tiles, then tile jj + STAGES once it has released tile jj,
+    // waiting there for the first warpgroup, which leads
+    const bool loader = threadIdx.x == (NCONS - 1) * 128;
+    auto load_kv = [&](int jj) {           // tile j0 + jj, stage jj % STAGES
+        const int j = j0 + jj, s = jj % STAGES;
+        const uint32_t par = ((jj / STAGES) & 1) ^ 1;
+        mbar_wait(empty_k(s), par);
+        mbar_expect_tx(full_k(s), L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / CHUNK; ++c)
+            tma_load(sk + s * L::KV_BYTES + c * BK * ROW_BYTES, &kmap,
+                     full_k(s), c * CHUNK, j * BK, hk, b);
+        mbar_wait(empty_v(s), par);
+        mbar_expect_tx(full_v(s), L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / CHUNK; ++c)
+            tma_load(sv + s * L::KV_BYTES + c * BK * ROW_BYTES, &vmap,
+                     full_v(s), c * CHUNK, j * BK, hk, b);
+    };
+    if (loader) {
+        // unit 2 i is always there; unit 2 i + 1 where U allows
+        mbar_expect_tx(qbar, ((walk(1) > 0) + 1) * UNIT * HD * 2);
+#pragma unroll
+        for (int w = 0; w < NCONS; ++w) {
+            if (walk(w) == 0) continue;
+#pragma unroll
+            for (int c = 0; c < HD / CHUNK; ++c)
+                tma_load(sq + c * BQ * ROW_BYTES + w * UNIT * ROW_BYTES,
+                         &qmap, qbar, c * CHUNK, first_row(w), head(w), b);
+        }
+        for (int jj = 0; jj < min(STAGES, ntiles); ++jj) load_kv(jj);
+    }
+    __syncwarp();
+
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    {
+        // ---- consumer warpgroup wg: its unit's 64 rows ---------------------
+        const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+        const int h = head(wg), first = first_row(wg), nw = walk(wg);
+        const int row0 = first + warp * 16 + lane / 4, quad = lane % 4;
+        const uint32_t qs = sq + wg * UNIT * ROW_BYTES;
+        auto qk = [&](float (&sc)[BK / 2], int s) {
+            const uint64_t dq = smem_desc(qs, 16, 1024),
+                           dk = smem_desc(sk + s * L::KV_BYTES, 16, 1024);
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                Wgmma<BK>::ss(sc, dq + (((kk / 4) * BQ * ROW_BYTES + off) >> 4),
+                              dk + (((kk / 4) * BK * ROW_BYTES + off) >> 4),
+                              kk > 0);
+            }
+        };
+        auto pv = [&](float (&o)[ON], const uint32_t (&p)[PV_STEPS][4], int s) {
+            const uint64_t dv = smem_desc(sv + s * L::KV_BYTES, BK * ROW_BYTES, 1024);
+#pragma unroll
+            for (int kk = 0; kk < PV_STEPS; ++kk)
+                Wgmma<HD>::rs(o, p[kk], dv + ((kk * 16 * ROW_BYTES) >> 4));
+        };
+        const int jend = min(j1, nw);          // it computes [j0, jend)
+        float o[ON], sc[BK / 2], m[2] = {-INFINITY, -INFINITY},
+              l[2] = {0.f, 0.f}, alpha[2];
+        uint32_t pa[PV_STEPS][4];
+#pragma unroll
+        for (int i = 0; i < ON; ++i) o[i] = 0.f;
+        mbar_wait(qbar, 0);
+        for (int jj = 0; jj < ntiles; ++jj) {
+            const int j = j0 + jj, s = jj % STAGES;
+            const uint32_t par = (jj / STAGES) & 1;
+            mbar_wait(full_k(s), par);
+            if (j >= jend) {
+                // past this unit's causal bound (or no unit): release
+                mbar_arrive(empty_k(s));
+                mbar_wait(full_v(s), par);
+                mbar_arrive(empty_v(s));
+            } else {
+                wgmma_fence();
+                qk(sc, s);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(sc);
+                mbar_arrive(empty_k(s));
+                const int k0 = j * BK;
+                const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > first);
+                softmax_tile<BK>(sc, m, l, alpha, edge, k0, row0, quad, Sk,
+                                 causal, scale_log2);
+#pragma unroll
+                for (int n = 0; n < ON; ++n) o[n] *= alpha[(n >> 1) & 1];
+                pack_p<BK>(sc, pa);
+                mbar_wait(full_v(s), par);
+                wgmma_fence();
+                pv(o, pa, s);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(o);
+                mbar_arrive(empty_v(s));
+            }
+            if (loader && jj + STAGES < ntiles) load_kv(jj + STAGES);
+            __syncwarp();
+        }
+        if (nw == 0) return;                   // no unit: nothing to write
+
+        float ls[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            ls[i] = l[i];
+            ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+            ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+        }
+        const int r = warp * 16 + lane / 4;    // rows r, r + 8 of the unit
+        if (slot >= 0) {
+            // the piece's partial: O unnormalised, then (m, l) a row
+            const long long at = ((long long)slot * NCONS + wg) * UNIT;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                float* po = part_o + (at + r + 8 * i) * HD;
+#pragma unroll
+                for (int jb = 0; jb < HD / 8; ++jb) {
+                    const int n = jb * 4 + 2 * i;
+                    *reinterpret_cast<float2*>(po + jb * 8 + 2 * quad) =
+                        make_float2(o[n], o[n + 1]);
+                }
+                if (quad == 0)
+                    *reinterpret_cast<float2*>(part_ml + (at + r + 8 * i) * 2) =
+                        make_float2(m[i], ls[i]);
+            }
+            return;
+        }
+        float inv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            inv[i] = 1.f / (ls[i] + 1e-30f);
+            const int row = row0 + 8 * i;
+            if (lse != nullptr && quad == 0 && row < S)
+                lse[((long long)b * H + h) * S + row] =
+                    (m[i] * scale_log2 + log2f(ls[i])) * LN2;
+        }
+        // O goes out through this warpgroup's rows of Q, as fa_wgmma_kernel's
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int rr = r + 8 * i;
+#pragma unroll
+            for (int jb = 0; jb < HD / 8; ++jb) {
+                const int n = jb * 4 + 2 * i;
+                const uint32_t dst = qs + (jb / 8) * BQ * ROW_BYTES + rr * ROW_BYTES
+                                   + (((jb % 8) ^ (rr % 8)) * 16) + 4 * quad;
+                const uint32_t v = pack_bf16(o[n] * inv[i], o[n + 1] * inv[i]);
+                asm volatile("st.shared.b32 [%0], %1;" :: "r"(dst), "r"(v) : "memory");
+            }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
+        if (t == 0) {
+#pragma unroll
+            for (int c = 0; c < HD / CHUNK; ++c)
+                tma_store(&omap, qs + c * BQ * ROW_BYTES, c * CHUNK, first, h, b);
+            asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+            asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        }
+    }
+}
+
+// The pieces of each cut item, combined in slot order: M = max m, w_c =
+// 2^((m_c - M) scale log2 e), O = sum w_c O_c / (sum w_c l_c + 1e-30), the
+// row's lse from M and the sum.  A block takes COMBINE_ROWS rows of a unit
+// of an item, a warp a row, a lane 8 head dims (16 bytes of output); the
+// lanes' loads of every piece are independent, so they are all in flight
+__global__ void __launch_bounds__(COMBINE_ROWS * 32)
+fa_wgmma_hd256_combine_kernel(const float* __restrict__ part_o,
+                              const float* __restrict__ part_ml,
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ lse, long long so0,
+                              long long so1, long long so2, int H, int Hkv,
+                              int group, int S, float scale_log2,
+                              const __grid_constant__ SumTable tab) {
+    constexpr int BLOCKS = UNIT / COMBINE_ROWS;      // blocks a unit
+    const SumEntry e = tab.e[blockIdx.x / (NCONS * BLOCKS)];
+    const int w = blockIdx.x / BLOCKS % NCONS;
+    const int U = (S + UNIT - 1) / UNIT * group, npair = (U + 1) / 2;
+    const int bhk = e.item / npair, u = 2 * (e.item % npair) + w;
+    const int r = blockIdx.x % BLOCKS * COMBINE_ROWS + threadIdx.x / 32;
+    const int row = u / group * UNIT + r, lane = threadIdx.x % 32;
+    if (u >= U || row >= S) return;
+    const int b = bhk / Hkv, h = bhk % Hkv * group + u % group;
+    float M = -INFINITY;
+    for (int c = 0; c < e.count; ++c)
+        M = fmaxf(M, part_ml[(((long long)(e.slot0 + c) * NCONS + w) * UNIT + r) * 2]);
+    const float ms = M * scale_log2;
+    float sum = 0.f, acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < e.count; ++c) {
+        const long long at = ((long long)(e.slot0 + c) * NCONS + w) * UNIT + r;
+        const float2 ml = *reinterpret_cast<const float2*>(part_ml + at * 2);
+        const float wc = ex2(ml.x * scale_log2 - ms);
+        sum += ml.y * wc;
+        const float4* src = reinterpret_cast<const float4*>(part_o + at * HD256 + lane * 8);
+        const float4 x = src[0], y = src[1];
+        acc[0] += x.x * wc; acc[1] += x.y * wc; acc[2] += x.z * wc; acc[3] += x.w * wc;
+        acc[4] += y.x * wc; acc[5] += y.y * wc; acc[6] += y.z * wc; acc[7] += y.w * wc;
+    }
+    const float inv = 1.f / (sum + 1e-30f);
+    uint4 v;
+    v.x = pack_bf16(acc[0] * inv, acc[1] * inv);
+    v.y = pack_bf16(acc[2] * inv, acc[3] * inv);
+    v.z = pack_bf16(acc[4] * inv, acc[5] * inv);
+    v.w = pack_bf16(acc[6] * inv, acc[7] * inv);
+    *reinterpret_cast<uint4*>(out + b * so0 + h * so1 + row * so2 + lane * 8) = v;
+    if (lse != nullptr && lane == 0)
+        lse[((long long)b * H + h) * S + row] = (ms + log2f(sum)) * LN2;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -702,9 +1035,58 @@ extern "C" int flash_attention_wgmma_bf16(
         return launch<128, 128>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     if (hd == 128 && block_k == 64)
         return launch<128, 64>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
-    if (hd == 256 && block_k == 64)
-        return launch<256, 64>(qm, km, vm, om, lse, B, H, g, S, Sk, causal, sl, st);
     return (int)cudaErrorInvalidValue;
+}
+
+// bf16 at hd 256: q (B, H, S, 256), k and v (B, Hkv, Sk, 256), out as q,
+// strides as flash_attention_wgmma_bf16's; lse as there or null.  pieces:
+// npieces (item, start, stop, slot) int quadruples, a block each (npieces
+// 0: a block an item, its whole walk); sums: nsums (item, first slot,
+// count) triples, the cut items the combine kernel finishes.  part_o
+// (slots, 2, 64, 256) and part_ml (slots, 2, 64, 2) fp32 scratch.
+// Launches 1 kernel on `stream`, 2 when nsums > 0.
+extern "C" int flash_attention_wgmma_hd256(
+        const void* q, const void* k, const void* v, void* out, float* lse,
+        float* part_o, float* part_ml, int B, int H, int Hkv, int S, int Sk,
+        int causal, float scale, const long long* strides, const int* pieces,
+        int npieces, const int* sums, int nsums, void* stream) {
+    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1
+        || npieces < 0 || npieces > MAX_PIECES || nsums < 0
+        || nsums > MAX_PIECES || (nsums > 0 && npieces == 0))
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm, om;
+    int rc = encode(&qm, q, HD256, S, H, B, strides, UNIT);
+    if (!rc) rc = encode(&km, k, HD256, Sk, Hkv, B, strides + 3, BK256);
+    if (!rc) rc = encode(&vm, v, HD256, Sk, Hkv, B, strides + 6, BK256);
+    if (!rc) rc = encode(&om, out, HD256, S, H, B, strides + 9, UNIT);
+    if (rc) return rc;
+    const float sl = scale * LOG2E;
+    const int G = H / Hkv, U = (S + UNIT - 1) / UNIT * G, npair = (U + 1) / 2;
+    cudaStream_t st = (cudaStream_t)stream;
+    PieceTable tab;
+    tab.n = npieces;
+    for (int i = 0; i < npieces; ++i)
+        tab.p[i] = Piece{pieces[4 * i], pieces[4 * i + 1], pieces[4 * i + 2],
+                         pieces[4 * i + 3]};
+    constexpr int smem = Layout<HD256, BK256>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_wgmma_hd256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = npieces ? npieces : (unsigned)(B * Hkv * npair);
+    fa_wgmma_hd256_kernel<<<grid, NTHREADS256, smem, st>>>(
+        qm, km, vm, om, lse, part_o, part_ml, H, Hkv, G, S, Sk, causal, sl, tab);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || nsums == 0) return (int)err;
+    SumTable sums_t;
+    sums_t.n = nsums;
+    for (int i = 0; i < nsums; ++i)
+        sums_t.e[i] = SumEntry{(short)sums[3 * i], (short)sums[3 * i + 1],
+                               (short)sums[3 * i + 2], 0};
+    fa_wgmma_hd256_combine_kernel<<<NCONS * nsums * (UNIT / COMBINE_ROWS),
+                                    COMBINE_ROWS * 32, 0, st>>>(
+        part_o, part_ml, (__nv_bfloat16*)out, lse, strides[9], strides[10],
+        strides[11], H, Hkv, G, S, sl, sums_t);
+    return (int)cudaGetLastError();
 }
 
 extern "C" const char* repro_error_string(int e) {

@@ -11,7 +11,12 @@ three kernels for it, chosen by dtype and head dim alone (``route``):
   k and v may have fewer heads than q (grouped-query attention) and every
   input may be a strided view, such as the ``.transpose(1, 2)`` of a
   layer's (B, S, H, hd) activations.  Its (block_q, block_k) pairs are
-  ``WGMMA_BLOCKS[hd]``; the first is the default.
+  ``WGMMA_BLOCKS[hd]``; the first is the default.  hd 256 has kernels of
+  its own (``split_route``): a block's two warpgroups take a pair of 64-row
+  units (the same rows of two q heads of a GQA group, which share every K
+  and V tile), and where the pairs are fewer than the card's ``SMS`` their
+  walks are cut into pieces (``fwd_split``) whose fp32 partials a second
+  kernel combines in a fixed order: ``fwd_launches`` kernels a call.
 * float32 at hd 64, 128 and 256: ``csrc/flash_attention_tf32x3.cu``.  A
   block is one warpgroup of 64 q rows; its products run on the tensor cores
   (``wgmma``) in error-compensated TF32: each fp32 operand is split into a
@@ -46,7 +51,12 @@ log-sum-exp.  Its backward is chosen by dtype and head dim alone
   dK/dV kernel (one block per kv tile, its q heads summed in registers),
   then a dQ kernel that recomputes S and dP.  Where that dK/dV grid would
   be small, each group's q heads are split over ``bwd_split`` blocks whose
-  fp32 partials a fourth kernel sums in a fixed order.
+  fp32 partials a fourth kernel sums in a fixed order.  hd 256 has kernels
+  of its own: the dK/dV block's warpgroups take dV and dK (P^T handed
+  across in shared memory: four products a kept score), the dQ block's a
+  pair of units as the forward's, and both grids cut their walks into
+  pieces where their items are fewer than ``SMS`` (``dkdv_split``,
+  ``dq_split``), the partials summed by a fourth kernel.
 * float32 at hd 64, 128 and 256: ``csrc/flash_attention_bwd_tf32x3.cu``
   (``"tf32x3"``), the same three kernels (and the sum where it splits)
   with their products on the tensor cores in error-compensated TF32 as the
@@ -77,7 +87,9 @@ Pallas backward: it differentiates its attention with ``jax.grad``.
 PyTorch (all q blocks at once, kv blocks in order, the same causal bound,
 kv heads shared by their groups of q heads), so the CPU tests hold the
 tiling math, unequal blocks included, against the oracle; the wrapper runs
-it only for tensors on the CPU.
+it only for tensors on the CPU.  With ``split=True`` it, and
+``flash_attention_bwd_plain``, walk the hd-256 kernels' pieces, partials
+and fixed-order combines instead.
 
 The wrappers check their inputs and pick the route, then call operators of
 the ``repro_torch`` namespace (``torch.library``): ``flash_attention``
@@ -93,7 +105,9 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
+import heapq
 import math
 from typing import Optional
 
@@ -142,8 +156,13 @@ BWD_TILES = {"wgmma": {64: (64, 128), 128: (64, 128), 256: (64, 64)},
 # partials itself
 BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 3, "mma": 1}
 # the H100 SXM's SMs: a tensor-core dK/dV grid of fewer blocks has each
-# group's q heads split over more blocks, as far as the SMs and G allow
-BWD_SMS = 132
+# group's q heads split over more blocks, as far as the SMs and G allow;
+# at bf16 hd 256 a grid of fewer items has their walks cut into pieces
+# until it fills this many blocks (``split_walks``)
+SMS = 132
+# bf16 at hd 256 (``split_route``): q rows of a consumer warpgroup's unit,
+# keys of a forward and a dK/dV tile, keys of a dQ step
+UNIT_ROWS, SPLIT_BK, SPLIT_BK_DQ = 64, 64, 32
 NEG_INF = -1e30
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -180,15 +199,171 @@ def bwd_split(B: int, H: int, Hkv: int, Sk: int, hd: int,
     G = H // Hkv
     blocks = B * Hkv * -(-Sk // BWD_TILES[kind][hd][1])
     return max(s for s in range(1, G + 1)
-               if G % s == 0 and (s == 1 or blocks * s <= BWD_SMS))
+               if G % s == 0 and (s == 1 or blocks * s <= SMS))
 
 
 def bwd_launches(dtype: torch.dtype, hd: int, B: int, H: int, Hkv: int,
-                 Sk: int) -> int:
-    """Kernels one backward call launches on the card."""
+                 Sk: int, S: Optional[int] = None,
+                 causal: bool = True) -> int:
+    """Kernels one backward call launches on the card (``S`` defaults to
+    ``Sk``): at bf16 hd 256 D, dK/dV, dQ and, where either split its
+    walks, the sum of their partials."""
+    if split_route(dtype, hd):
+        S = Sk if S is None else S
+        return 3 + bool(dkdv_split(B, H, Hkv, S, Sk, causal).sums
+                        or dq_split(B, H, Hkv, S, Sk, causal).sums)
     kind = bwd_route(dtype, hd)
     return BWD_LAUNCHES[kind] + _bwd_sums(kind, hd,
                                           bwd_split(B, H, Hkv, Sk, hd, kind))
+
+
+def fwd_launches(dtype: torch.dtype, hd: int, B: int, H: int, Hkv: int,
+                 S: int, Sk: Optional[int] = None,
+                 causal: bool = True) -> int:
+    """Kernels one forward call launches on the card (``Sk`` defaults to
+    ``S``): 1, and at bf16 hd 256 a second that combines the pieces of the
+    walks it split."""
+    if split_route(dtype, hd):
+        Sk = S if Sk is None else Sk
+        return 1 + bool(fwd_split(B, H, Hkv, S, Sk, causal).sums)
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# bf16 at hd 256: items' walks cut into pieces, one block each
+# ---------------------------------------------------------------------------
+
+
+def split_route(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a call takes the hd-256 tensor-core kernels, whose grids
+    are pieces of walks (``fwd_split``, ``dkdv_split``, ``dq_split``)."""
+    return dtype == torch.bfloat16 and hd == 256
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """Items' walks (tiles or steps each) cut into pieces, one block each.
+
+    ``pieces``: (item, start, stop, slot) in launch order, longest first;
+    slot -1 where the piece is its item's whole walk, else the fp32
+    partial it writes (an item's pieces take consecutive slots in walk
+    order).  Empty when there are at least ``SMS`` items: one block an item
+    over its whole walk.  ``sums``: (item, first slot, pieces) of each item
+    whose walk was cut, which a second kernel sums in slot order."""
+    walks: tuple
+    pieces: tuple
+    sums: tuple
+
+    @property
+    def slots(self) -> int:
+        return sum(n for _, _, n in self.sums)
+
+    @property
+    def blocks(self) -> int:
+        return len(self.pieces) or len(self.walks)
+
+    def by_item(self) -> list:
+        """Each item's (start, stop) pieces in walk order."""
+        out = [[(0, w)] for w in self.walks]
+        for it, _, n in self.sums:
+            out[it] = []
+        for it, a, b, slot in sorted(self.pieces, key=lambda p: (p[0], p[1])):
+            if slot >= 0:
+                out[it].append((a, b))
+        return out
+
+    @functools.cached_property
+    def c_tables(self):
+        """(pieces, sums) as flat C int arrays for the kernels' entries."""
+        pieces = [x for p in self.pieces for x in p]
+        sums = [x for s in self.sums for x in s]
+        return ((ctypes.c_int * max(1, len(pieces)))(*pieces),
+                (ctypes.c_int * max(1, len(sums)))(*sums))
+
+
+def split_walks(walks: tuple, sms: int = SMS) -> Split:
+    """Cut items' walks into pieces until there are ``sms`` of them or
+    every piece is one tile: each round cuts the item whose largest piece
+    is the longest (the first on ties) into one more piece; an item of n
+    pieces over w tiles cuts at k w // n.  ``sms`` items or more: no cut."""
+    if len(walks) >= sms:
+        return Split(tuple(walks), (), ())
+    n = [1] * len(walks)
+    heap = [(-w, i) for i, w in enumerate(walks)]
+    heapq.heapify(heap)
+    for _ in range(sms - len(walks)):
+        neg, i = heap[0]
+        if -neg <= 1:
+            break
+        n[i] += 1
+        heapq.heapreplace(heap, (-walks[i] // n[i], i))
+    pieces, sums, slot = [], [], 0
+    for i, (w, c) in enumerate(zip(walks, n)):
+        if c > 1:
+            sums.append((i, slot, c))
+        for k in range(c):
+            pieces.append((i, k * w // c, (k + 1) * w // c,
+                           slot + k if c > 1 else -1))
+        slot += c if c > 1 else 0
+    pieces.sort(key=lambda p: (p[1] - p[2], p[0], p[1]))
+    return Split(tuple(walks), tuple(pieces), tuple(sums))
+
+
+def unit_walk(p: int, S: int, Sk: int, causal: bool, bk: int) -> int:
+    """Tiles of ``bk`` keys that q rows [64 p, 64 p + 64) walk: all of
+    them, or (causal) up to the one that holds the unit's last row."""
+    nk = -(-Sk // bk)
+    if not causal:
+        return nk
+    return min(nk, (min(UNIT_ROWS * (p + 1), S) - 1) // bk + 1)
+
+
+def pair_units(H: int, Hkv: int, S: int) -> tuple[int, int]:
+    """(units, pairs) of each (batch, kv head): its G q heads' rows in
+    units of 64, unit u = p G + g holding rows [64 p, 64 p + 64) of head g
+    of the group, and a block's two warpgroups taking units 2 i and 2 i + 1
+    (the second absent where the count is odd)."""
+    U = -(-S // UNIT_ROWS) * (H // Hkv)
+    return U, -(-U // 2)
+
+
+def _pair_walks(B, H, Hkv, S, Sk, causal, bk) -> tuple:
+    G = H // Hkv
+    U, npair = pair_units(H, Hkv, S)
+    walks = []
+    for i in range(npair):
+        w = unit_walk(2 * i // G, S, Sk, causal, bk)
+        if 2 * i + 1 < U:
+            w = max(w, unit_walk((2 * i + 1) // G, S, Sk, causal, bk))
+        walks.append(w)
+    return tuple(walks) * (B * Hkv)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_split(B: int, H: int, Hkv: int, S: int, Sk: int,
+              causal: bool) -> Split:
+    """The hd-256 forward's pieces: items are pairs of units (item x =
+    (b Hkv + hk) pairs + i), each walking its units' tiles of 64 keys."""
+    return split_walks(_pair_walks(B, H, Hkv, S, Sk, causal, SPLIT_BK))
+
+
+@functools.lru_cache(maxsize=256)
+def dkdv_split(B: int, H: int, Hkv: int, S: int, Sk: int,
+               causal: bool) -> Split:
+    """The hd-256 dK/dV kernel's pieces: items are kv tiles of 64 keys
+    (item x = (b Hkv + hk) nk + t), each walking G q heads x its q tiles of
+    64 rows (step g per + qt - first)."""
+    G, nq, nk = H // Hkv, -(-S // UNIT_ROWS), -(-Sk // SPLIT_BK)
+    walks = [G * (nq - (min(t, nq) if causal else 0)) for t in range(nk)]
+    return split_walks(tuple(walks) * (B * Hkv))
+
+
+@functools.lru_cache(maxsize=256)
+def dq_split(B: int, H: int, Hkv: int, S: int, Sk: int,
+             causal: bool) -> Split:
+    """The hd-256 dQ kernel's pieces: items are pairs of units, as the
+    forward's, each walking its units' steps of 32 keys."""
+    return split_walks(_pair_walks(B, H, Hkv, S, Sk, causal, SPLIT_BK_DQ))
 
 
 def _bwd_sums(kind: str, hd: int, split: int) -> bool:
@@ -264,6 +439,17 @@ def _wgmma_launcher():
 
 
 @functools.lru_cache(maxsize=None)
+def _wgmma_hd256_launcher():
+    lib = _cuda.load(WGMMA_LIB_NAME, wgmma_kernel_source())
+    return lib, _cuda.entry(lib, "flash_attention_wgmma_hd256",
+                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                            + [ctypes.c_float]
+                            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
 def _tf32x3_launcher():
     lib = _cuda.load(TF32X3_LIB_NAME, tf32x3_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_tf32x3",
@@ -288,6 +474,17 @@ def _wgmma_bwd_launcher():
 
 
 @functools.lru_cache(maxsize=None)
+def _wgmma_bwd_hd256_launcher():
+    lib = _cuda.load(WGMMA_BWD_LIB_NAME, wgmma_bwd_kernel_source())
+    return lib, _cuda.entry(lib, "flash_attention_bwd_wgmma_hd256",
+                            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                            + [ctypes.c_float]
+                            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
 def _tf32x3_bwd_launcher():
     lib = _cuda.load(TF32X3_BWD_LIB_NAME, tf32x3_bwd_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_bwd_tf32x3",
@@ -307,14 +504,21 @@ def kv_blocks(S: int, Sk: int, block_q: int, block_k: int,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
-                          block_k: int, return_lse: bool = False):
+                          block_k: int, return_lse: bool = False,
+                          split: bool = False):
     """The plain PyTorch version: the kernels' block schedule with online
     softmax in fp32, every q block at once, kv blocks in order; a q block
     takes a kv block's update only while it is within its causal bound.
     k and v may have fewer heads than q; q head h reads kv head
     h // (H / Hkv).  ``return_lse`` also returns each row's log-sum-exp of
     the scaled scores, (B, H, S) fp32, as the kernels write it for the
-    backward."""
+    backward.  ``split`` walks the hd-256 kernel's schedule instead
+    (``fwd_split``; the blocks must be ``WGMMA_BLOCKS[256][0]``)."""
+    if split:
+        if (block_q, block_k) != WGMMA_BLOCKS[256][0]:
+            raise ValueError(f"flash_attention_plain: the split schedule "
+                             f"walks {WGMMA_BLOCKS[256][0]} blocks")
+        return _split_plain(q, k, v, causal, return_lse)
     B, H, S, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -361,8 +565,106 @@ def flash_attention_plain(q, k, v, *, causal: bool, block_q: int,
     return out, (m + torch.log(l)).reshape(B, H, nq * block_q)[:, :, :S]
 
 
+def _to_units(t, Hkv: int, fill: float = 0.0):
+    """(B, H, S, ...) -> fp32 (B Hkv, U, 64, ...): each (batch, kv head)'s
+    units, unit u = p G + g holding rows [64 p, 64 p + 64) of its head g;
+    rows past S are ``fill``."""
+    B, H, S = t.shape[:3]
+    G, NP = H // Hkv, -(-S // UNIT_ROWS)
+    pad = torch.full((B, H, NP * UNIT_ROWS) + t.shape[3:], fill,
+                     dtype=torch.float32, device=t.device)
+    pad[:, :, :S] = t.float()
+    pad = pad.view((B, Hkv, G, NP, UNIT_ROWS) + t.shape[3:]).transpose(2, 3)
+    return pad.reshape((B * Hkv, NP * G, UNIT_ROWS) + t.shape[3:])
+
+
+def _from_units(t, B: int, H: int, S: int):
+    """``_to_units``' inverse: (B Hkv, U, 64, ...) -> (B, H, S, ...)."""
+    X, U = t.shape[:2]
+    Hkv = X // B
+    G = H // Hkv
+    t = t.reshape((B, Hkv, U // G, G, UNIT_ROWS) + t.shape[3:])
+    t = t.transpose(2, 3).reshape((B, H, U // G * UNIT_ROWS) + t.shape[5:])
+    return t[:, :, :S]
+
+
+def _piece_of(sp: Split, X: int, U: int, unit_walks, nk: int, dev):
+    """(X, U, nk) int: which piece of its pair's (0, 1, ...) holds each
+    unit's tile, -1 past the unit's own walk or where no piece takes it."""
+    npair = -(-U // 2)
+    out = torch.full((X, U, nk), -1, dtype=torch.long)
+    for x, pieces in enumerate(sp.by_item()):
+        bhk, i = divmod(x, npair)
+        for u in (2 * i, 2 * i + 1):
+            if u >= U:
+                continue
+            for kk, (a, b) in enumerate(pieces):
+                out[bhk, u, a:min(b, unit_walks[u])] = kk
+    return out.to(dev)
+
+
+def _split_plain(q, k, v, causal: bool, return_lse: bool):
+    """``flash_attention_plain`` on the hd-256 kernel's schedule: each
+    unit's walk cut as its pair's (``fwd_split``), each piece's online
+    softmax (m, l and the unnormalised output) from its first tile, then
+    the pieces combined in walk order: M = max m, w = exp(m - M), out =
+    sum(w acc) / (sum(w l) + 1e-30), lse = M + log(sum(w l))."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G, nk, dev = H // Hkv, -(-Sk // SPLIT_BK), q.device
+    sp = fwd_split(B, H, Hkv, S, Sk, causal)
+    qu = _to_units(q, Hkv) * hd ** -0.5
+    X, U = qu.shape[:2]
+    walks = [unit_walk(u // G, S, Sk, causal, SPLIT_BK) for u in range(U)]
+    owner = _piece_of(sp, X, U, walks, nk, dev)
+    P = max(len(p) for p in sp.by_item())
+    kf = torch.zeros((B * Hkv, nk * SPLIT_BK, hd), dtype=torch.float32,
+                     device=dev)
+    vf = torch.zeros_like(kf)
+    kf[:, :Sk] = k.float().reshape(B * Hkv, Sk, hd)
+    vf[:, :Sk] = v.float().reshape(B * Hkv, Sk, hd)
+    qpos = (torch.arange(U, device=dev) // G * UNIT_ROWS)[:, None] \
+        + torch.arange(UNIT_ROWS, device=dev)
+    # each piece index's running (m, l, unnormalised output), per unit
+    acc = [torch.zeros((X, U, UNIT_ROWS, hd), dtype=torch.float32,
+                       device=dev) for _ in range(P)]
+    m = [torch.full((X, U, UNIT_ROWS), NEG_INF, dtype=torch.float32,
+                    device=dev) for _ in range(P)]
+    l = [torch.zeros_like(m[0]) for _ in range(P)]
+    for j in range(nk):
+        cut = slice(j * SPLIT_BK, (j + 1) * SPLIT_BK)
+        s = torch.einsum("xurd,xkd->xurk", qu, kf[:, cut])
+        kpos = j * SPLIT_BK + torch.arange(SPLIT_BK, device=dev)
+        ok = (kpos < Sk) & ((qpos[..., None] >= kpos) if causal else True)
+        s = torch.where(ok, s, NEG_INF)
+        for kk in range(P):
+            on = (owner[:, :, j] == kk)[..., None]
+            if not on.any():
+                continue
+            m1 = torch.maximum(m[kk], s.amax(dim=-1))
+            p = torch.exp(s - m1[..., None])
+            alpha = torch.exp(m[kk] - m1)
+            l[kk] = torch.where(on, l[kk] * alpha + p.sum(dim=-1), l[kk])
+            acc[kk] = torch.where(
+                on[..., None], acc[kk] * alpha[..., None]
+                + torch.einsum("xurk,xkd->xurd", p, vf[:, cut]), acc[kk])
+            m[kk] = torch.where(on, m1, m[kk])
+    M = torch.stack(m).amax(dim=0)
+    num = torch.zeros((X, U, UNIT_ROWS, hd), dtype=torch.float32, device=dev)
+    den = torch.zeros((X, U, UNIT_ROWS), dtype=torch.float32, device=dev)
+    for kk in range(P):
+        w = torch.exp(m[kk] - M)
+        den = den + l[kk] * w
+        num = num + acc[kk] * w[..., None]
+    out = _from_units(num / (den[..., None] + 1e-30), B, H, S).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, _from_units(M + torch.log(den), B, H, S)
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
-                              block_q: int, block_k: int):
+                              block_q: int, block_k: int,
+                              split: bool = False):
     """The backward kernel's plain PyTorch version, on its block schedule:
     D = rowsum(dout * out); then kv blocks in order, every q block at once,
     each q block taking a kv block only within its causal bound: P =
@@ -371,7 +673,15 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
     scale dS k_j, with dS = P (dout v^T - D); fp32 throughout, each
     gradient returned in its input's dtype.  ``lse`` is (B, H, S) fp32,
     the forward's row log-sum-exp of the scaled scores.  Returns (dq, dk,
-    dv) shaped as q, k, v."""
+    dv) shaped as q, k, v.  ``split`` walks the hd-256 kernels' schedules
+    instead (``dkdv_split``, ``dq_split``; the tiles must be
+    ``BWD_TILES["wgmma"][256]``)."""
+    if split:
+        if (block_q, block_k) != BWD_TILES["wgmma"][256]:
+            raise ValueError(f"flash_attention_bwd_plain: the split "
+                             f"schedules walk {BWD_TILES['wgmma'][256]} "
+                             "tiles")
+        return _split_bwd_plain(q, k, v, out, lse, dout, causal)
     B, H, S, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -414,6 +724,90 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
     dq = (dq * scale).reshape(B, H, nq * block_q, hd)[:, :, :S]
     return (dq.to(q.dtype), dk[:, :, :Sk].to(k.dtype),
             dv[:, :, :Sk].to(v.dtype))
+
+
+def _split_bwd_plain(q, k, v, out, lse, dout, causal: bool):
+    """``flash_attention_bwd_plain`` on the hd-256 kernels' schedules.
+    dK, dV: each kv tile's steps (its G q heads x its q tiles of 64 rows,
+    ``dkdv_split``) summed piece by piece, in step order, then the pieces
+    in walk order.  dQ: each unit's steps of 32 keys cut as its pair's
+    (``dq_split``), each piece summed in step order, then the pieces in
+    walk order.  P = exp(s scale - lse) (0 where masked and past S), dS =
+    P (dout v^T - D), D = rowsum(dout out)."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G, dev = H // Hkv, q.device
+    X = B * Hkv
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32).item()
+    nq, nk, nkq = (-(-S // UNIT_ROWS), -(-Sk // SPLIT_BK),
+                   -(-Sk // SPLIT_BK_DQ))
+    D = (dout.float() * out.float()).sum(dim=-1)
+    qu, gu = _to_units(q, Hkv), _to_units(dout, Hkv)
+    lu = _to_units(lse, Hkv, math.inf)
+    du = _to_units(D, Hkv)
+    U = qu.shape[1]
+    keys = max(nk * SPLIT_BK, nkq * SPLIT_BK_DQ)
+    kf = torch.zeros((X, keys, hd), dtype=torch.float32, device=dev)
+    vf = torch.zeros_like(kf)
+    kf[:, :Sk] = k.float().reshape(X, Sk, hd)
+    vf[:, :Sk] = v.float().reshape(X, Sk, hd)
+    qpos = (torch.arange(U, device=dev) // G * UNIT_ROWS)[:, None] \
+        + torch.arange(UNIT_ROWS, device=dev)
+
+    def probs(x, u, key0: int, n: int):
+        """P and dS of units ``u`` of (b, kv head) x against keys
+        [key0, key0 + n): (..., 64 rows, n keys)."""
+        kb, vb = kf[x, key0:key0 + n], vf[x, key0:key0 + n]
+        kpos = key0 + torch.arange(n, device=dev)
+        ok = kpos < Sk
+        if causal:
+            ok = ok & (qpos[u][..., None] >= kpos)
+        s = torch.einsum("...rd,...kd->...rk", qu[x, u], kb)
+        p = torch.where(ok, torch.exp(s * scale - lu[x, u][..., None]), 0.0)
+        dp = torch.einsum("...rd,...kd->...rk", gu[x, u], vb)
+        return p, p * (dp - du[x, u][..., None])
+
+    # dK and dV: unit g of q tile qt is u = qt G + g; step g per + qt - first
+    dk = torch.zeros((X, nk * SPLIT_BK, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for it, pieces in enumerate(dkdv_split(B, H, Hkv, S, Sk,
+                                           causal).by_item()):
+        x, t = divmod(it, nk)
+        first = min(t, nq) if causal else 0
+        per = nq - first
+        if per == 0:
+            continue
+        u = (torch.arange(first, nq, device=dev)[None, :] * G
+             + torch.arange(G, device=dev)[:, None]).reshape(-1)
+        p, ds = probs(x, u, t * SPLIT_BK, SPLIT_BK)
+        cdv = torch.einsum("srk,srd->skd", p, gu[x, u])
+        cdk = torch.einsum("srk,srd->skd", ds, qu[x, u])
+        cut = slice(t * SPLIT_BK, (t + 1) * SPLIT_BK)
+        for a, b in pieces:
+            dv[x, cut] += cdv[a:b].sum(dim=0)
+            dk[x, cut] += cdk[a:b].sum(dim=0)
+    # dQ: every unit at once, step by step, into its piece's partial
+    sp = dq_split(B, H, Hkv, S, Sk, causal)
+    walks = [unit_walk(u // G, S, Sk, causal, SPLIT_BK_DQ) for u in range(U)]
+    owner = _piece_of(sp, X, U, walks, nkq, dev)
+    P = max(len(p) for p in sp.by_item())
+    acc = torch.zeros((X, U, P, UNIT_ROWS, hd), dtype=torch.float32,
+                      device=dev)
+    xs = torch.arange(X, device=dev)[:, None]
+    us = torch.arange(U, device=dev)[None, :]
+    for j in range(nkq):
+        _, ds = probs(xs, us, j * SPLIT_BK_DQ, SPLIT_BK_DQ)
+        kb = kf[:, j * SPLIT_BK_DQ:(j + 1) * SPLIT_BK_DQ]
+        c = torch.einsum("xurk,xkd->xurd", ds, kb)
+        for kk in range(P):
+            on = (owner[:, :, j] == kk)[..., None, None]
+            acc[:, :, kk] += torch.where(on, c, 0.0)
+    dq = torch.zeros((X, U, UNIT_ROWS, hd), dtype=torch.float32, device=dev)
+    for kk in range(P):
+        dq = dq + acc[:, :, kk]
+    dq = _from_units(dq * scale, B, H, S)
+    dk, dv = (t[:, :Sk].reshape(B, Hkv, Sk, hd) for t in (dk * scale, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _row_strides(t: torch.Tensor) -> tuple[Optional[list[int]], str]:
@@ -537,9 +931,12 @@ def _run(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
 
 def _fwd_plain(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
                with_lse: bool):
-    """The operators' CPU implementation: ``flash_attention_plain``."""
+    """The operators' CPU implementation: ``flash_attention_plain`` (on
+    the split schedule where the route's kernel splits)."""
+    split = kind == "wgmma" and split_route(q.dtype, q.shape[3])
     res = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                block_k=block_k, return_lse=with_lse)
+                                block_k=block_k, return_lse=with_lse,
+                                split=split)
     return res if with_lse else (res, None)
 
 
@@ -554,12 +951,30 @@ def _fwd_launch(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) \
         if with_lse else None
     lse_ptr = None if lse is None else lse.data_ptr()
+    n = 1
     if kind == "wgmma":
-        lib, launch = _wgmma_launcher()
         out = torch.empty_like(q)
         st = (ctypes.c_longlong * 12)(*(s for t, n in ((q, "q"), (k, "k"),
                                                        (v, "v"), (out, "out"))
                                         for s in _tma_strides(t, n)))
+    if kind == "wgmma" and split_route(dtype, hd):
+        sp = fwd_split(B, H, Hkv, S, Sk, causal)
+        rows = sp.slots * 2 * UNIT_ROWS
+        part_o = torch.empty(rows * hd, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=dev)
+        lib, launch = _wgmma_hd256_launcher()
+        pieces, sums = sp.c_tables
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse_ptr, part_o.data_ptr(),
+                        part_ml.data_ptr(), B, H, Hkv, S, Sk, int(causal),
+                        hd ** -0.5, ctypes.addressof(st),
+                        ctypes.addressof(pieces), len(sp.pieces),
+                        ctypes.addressof(sums), len(sp.sums),
+                        _cuda.current_stream(dev))
+        n = 1 + bool(sp.sums)
+    elif kind == "wgmma":
+        lib, launch = _wgmma_launcher()
         with torch.cuda.device(dev):
             rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), lse_ptr, B, H, Hkv, S, Sk, hd,
@@ -588,7 +1003,7 @@ def _fwd_launch(q, k, v, causal: bool, kind: str, block_q: int, block_k: int,
                         block_q, block_k, int(causal), hd ** -0.5,
                         ctypes.addressof(st), _cuda.current_stream(dev))
     _cuda.check(lib, rc, "flash_attention")
-    LAUNCHES[f"{kind}/{str(dtype).removeprefix('torch.')}"] += 1
+    LAUNCHES[f"{kind}/{str(dtype).removeprefix('torch.')}"] += n
     return out, lse
 
 
@@ -628,6 +1043,10 @@ def _bwd_plain(q, k, v, out, lse, dout, causal: bool):
     ``flash_attention_bwd_plain`` on ``bwd_route``'s tiles."""
     S, hd, Sk = q.shape[2], q.shape[3], k.shape[2]
     bq, bk = BWD_TILES[bwd_route(q.dtype, hd)][hd]
+    if split_route(q.dtype, hd):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, block_q=bq,
+                                         block_k=bk, split=True)
     return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                      block_q=min(bq, S), block_k=min(bk, Sk))
 
@@ -641,7 +1060,35 @@ def _bwd_launch(q, k, v, out, lse, dout, causal: bool):
     kind = bwd_route(dtype, hd)
     dev = q.device
     lse = lse.float().contiguous()
-    if kind in ("wgmma", "tf32x3"):
+    if split_route(dtype, hd):
+        q, k, v, out, dout = (_tma_rows(t) for t in (q, k, v, out, dout))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        skv, sq, sums, nsums = _bwd_splits(B, H, Hkv, S, Sk, causal)
+        stats = torch.empty(2 * B * H * -(-S // 128) * 128,
+                            dtype=torch.float32, device=dev)
+        tile = 2 * UNIT_ROWS * hd        # a slot: two 64-row fp32 tiles
+        part_kv = torch.empty(max(1, skv.slots * tile), dtype=torch.float32,
+                              device=dev)
+        part_q = torch.empty(max(1, sq.slots * tile), dtype=torch.float32,
+                             device=dev)
+        lib, launch = _wgmma_bwd_hd256_launcher()
+        st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
+                                                    dk, dv)
+                                        for s in _row_strides(t)[0]))
+        (kv_pieces, _), (q_pieces, _) = skv.c_tables, sq.c_tables
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        stats.data_ptr(), part_kv.data_ptr(),
+                        part_q.data_ptr(), B, H, Hkv, S, Sk, int(causal),
+                        hd ** -0.5, ctypes.addressof(st),
+                        ctypes.addressof(kv_pieces), len(skv.pieces),
+                        ctypes.addressof(q_pieces), len(sq.pieces),
+                        ctypes.addressof(sums), nsums,
+                        _cuda.current_stream(dev))
+        n = 3 + bool(nsums)
+    elif kind in ("wgmma", "tf32x3"):
         # TMA (wgmma) reads through strides alone, cp.async (tf32x3) any
         # 16-byte aligned rows
         rows = _tma_rows if kind == "wgmma" else _aligned_rows
@@ -684,6 +1131,19 @@ def _bwd_launch(q, k, v, out, lse, dout, causal: bool):
     _cuda.check(lib, rc, "flash_attention backward")
     LAUNCHES[f"bwd/{str(dtype).removeprefix('torch.')}"] += n
     return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_splits(B: int, H: int, Hkv: int, S: int, Sk: int, causal: bool):
+    """(dK/dV split, dQ split, the sum kernel's entries, their count): the
+    entries a flat C int array of (item, first slot, pieces, 0) for each
+    dK/dV item whose walk was cut, then (item, first slot, pieces, 1) for
+    each dQ item's."""
+    skv, sq = (dkdv_split(B, H, Hkv, S, Sk, causal),
+               dq_split(B, H, Hkv, S, Sk, causal))
+    flat = [x for r in [(*e, 0) for e in skv.sums]
+            + [(*e, 1) for e in sq.sums] for x in r]
+    return skv, sq, (ctypes.c_int * max(1, len(flat)))(*flat), len(flat) // 4
 
 
 def kept_scores(S: int, Sk: int, causal: bool) -> int:

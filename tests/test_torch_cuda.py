@@ -559,10 +559,12 @@ def test_flash_attention_wgmma_kernel_equals_plain(cuda_device, hd, bq, bk, B,
     n0 = fa.LAUNCHES["wgmma/bfloat16"]
     got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["wgmma/bfloat16"] == n0 + 1
+    assert fa.LAUNCHES["wgmma/bfloat16"] == n0 + fa.fwd_launches(
+        torch.bfloat16, hd, B, H, Hkv, S, Sk, causal)
     assert got.stride() == q.stride()         # the output takes q's layout
     want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
-                                    block_k=bk)
+                                    block_k=bk,
+                                    split=fa.split_route(torch.bfloat16, hd))
     torch.testing.assert_close(got.float(), want.float(),
                                **FA_TOL[torch.bfloat16])
 
@@ -628,9 +630,11 @@ def test_flash_attention_wgmma_at_the_encdec_and_vlm_shapes(cuda_device, hd,
         got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                  block_k=bk)
         torch.cuda.synchronize()
-        assert fa.LAUNCHES["wgmma/bfloat16"] == n0 + 1
-        want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
-                                        block_k=bk)
+        assert fa.LAUNCHES["wgmma/bfloat16"] == n0 + fa.fwd_launches(
+            torch.bfloat16, hd, 1, H, Hkv, S, S, causal)
+        want = fa.flash_attention_plain(
+            q, k, v, causal=causal, block_q=bq, block_k=bk,
+            split=fa.split_route(torch.bfloat16, hd))
         torch.testing.assert_close(got.float(), want.float(),
                                    **FA_TOL[torch.bfloat16])
 
@@ -1161,12 +1165,14 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, hd, dtype, B,
     n0 = fa.LAUNCHES[f"bwd/{dtype}"]
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES[f"bwd/{dtype}"] == n0 + fa.bwd_launches(dt, hd, B, H,
-                                                                Hkv, S)
+    assert fa.LAUNCHES[f"bwd/{dtype}"] == n0 + fa.bwd_launches(
+        dt, hd, B, H, Hkv, S, S, causal)
     tq, tk = fa.BWD_TILES[fa.bwd_route(dt, hd)][hd]
+    split = fa.split_route(dt, hd)
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
-                                        block_q=min(tq, S),
-                                        block_k=min(tk, S))
+                                        block_q=tq if split else min(tq, S),
+                                        block_k=tk if split else min(tk, S),
+                                        split=split)
     tol = 1e-4 if dtype == "float32" else 2e-2
     for a, b, x in zip(got, want, (q, k, v)):
         assert a.dtype == dt and a.shape == x.shape
@@ -1196,21 +1202,86 @@ def test_flash_attention_bwd_wgmma_equals_plain(cuda_device, hd, G, S,
     fa.LAUNCHES.clear()
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     torch.cuda.synchronize()
-    split = fa.bwd_split(B, H, Hkv, S, hd)
-    assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + (split > 1)}
-    assert fa.bwd_launches(dt, hd, B, H, Hkv, S) == 3 + (split > 1)
-    assert split == G        # the unsplit grid has 2 to 6 blocks
+    tq, tk = fa.BWD_TILES["wgmma"][hd]
+    if fa.split_route(dt, hd):
+        # hd 256: walks cut into pieces, summed by the fourth kernel
+        sums = bool(fa.dkdv_split(B, H, Hkv, S, S, causal).sums
+                    or fa.dq_split(B, H, Hkv, S, S, causal).sums)
+        assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + sums}
+        assert fa.bwd_launches(dt, hd, B, H, Hkv, S, S, causal) == 3 + sums
+        plain = dict(block_q=tq, block_k=tk, split=True)
+    else:
+        split = fa.bwd_split(B, H, Hkv, S, hd)
+        assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + (split > 1)}
+        assert fa.bwd_launches(dt, hd, B, H, Hkv, S) == 3 + (split > 1)
+        assert split == G        # the unsplit grid has 2 to 6 blocks
+        plain = dict(block_q=min(tq, S), block_k=min(tk, S))
     again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     torch.cuda.synchronize()
-    tq, tk = fa.BWD_TILES["wgmma"][hd]
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
-                                        block_q=min(tq, S),
-                                        block_k=min(tk, S))
+                                        **plain)
     for a, b, c, x in zip(got, again, want, (q, k, v)):
         assert a.dtype == dt and a.shape == x.shape
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), c.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+# bf16 at hd 256 (PaliGemma's q (1, 8, 1024, 256) over one kv head and
+# small ragged shapes): (B, H, Hkv, S, Sk); the last is wide enough for one
+# block an item (no table, no partials)
+_HD256_SHAPES = [(1, 8, 1, 1024, 1024), (1, 8, 1, 200, 200),
+                 (1, 2, 1, 77, 77), (2, 2, 2, 130, 300), (1, 4, 4, 100, 100),
+                 (1, 3, 1, 136, 72), (4, 16, 16, 512, 512)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,Hkv,S,Sk", _HD256_SHAPES)
+@pytest.mark.parametrize("draw", ["randn", "peaky"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_hd256_equals_plain(cuda_device, B, H, Hkv, S, Sk,
+                                            draw, causal):
+    """The hd-256 kernels (bf16) against their plain versions on the split
+    schedules: the forward (pieces and combine; its lse too) and the
+    backward (dK/dV, dQ and the sum), GQA groups 1, 2, 3 and 8, ragged S
+    and Sk != S, causal and not, N(0, 1) and peaky draws (q x 4), on views
+    of (B, S, heads, hd) tensors; each bitwise the same in a second call;
+    launches a call as ``fwd_launches`` and ``bwd_launches`` count them."""
+    from repro_torch.kernels import flash_attention as fa
+    dt, hd = torch.bfloat16, 256
+    q, k, v = (_randn((B, n, h, hd), seed, cuda_device, dt).transpose(1, 2)
+               for seed, n, h in ((0, S, H), (1, Sk, Hkv), (2, Sk, Hkv)))
+    if draw == "peaky":
+        q = (q.float() * 4.0).to(dt)
+    fa.LAUNCHES.clear()
+    out, lse = fa._run(q, k, v, causal, "wgmma", 128, 64, True)
+    torch.cuda.synchronize()
+    assert dict(fa.LAUNCHES) == {"wgmma/bfloat16": fa.fwd_launches(
+        dt, hd, B, H, Hkv, S, Sk, causal)}
+    out2, lse2 = fa._run(q, k, v, causal, "wgmma", 128, 64, True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want, wlse = fa.flash_attention_plain(q, k, v, causal=causal, block_q=128,
+                                          block_k=64, return_lse=True,
+                                          split=True)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **FA_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, wlse, rtol=1e-5, atol=1e-4)
+    g = _randn((B, S, H, hd), 3, cuda_device, dt).transpose(1, 2)
+    fa.LAUNCHES.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(fa.LAUNCHES) == {"bwd/bfloat16": fa.bwd_launches(
+        dt, hd, B, H, Hkv, Sk, S, causal)}
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    wants = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                         block_q=64, block_k=64, split=True)
+    for a, b, c, x in zip(got, again, wants, (q, k, v)):
+        assert a.dtype == dt and a.shape == x.shape
+        assert torch.equal(a, b)
+        scale = c.float().abs().max().item()
+        torch.testing.assert_close(a.float(), c.float(), rtol=2e-2,
+                                   atol=2e-2 * max(1.0, scale))
 
 
 @pytest.mark.requires_cuda
@@ -1558,9 +1629,9 @@ def test_flash_attention_lse_equals_plain(cuda_device, dtype):
         kind = fa.route(dt, hd)
         bq, bk = _forward_blocks(fa, kind, hd)
         out, lse = fa._run(q, k, v, True, kind, bq, bk, True)
-        plain, plse = fa.flash_attention_plain(q, k, v, causal=True,
-                                               block_q=bq, block_k=bk,
-                                               return_lse=True)
+        plain, plse = fa.flash_attention_plain(
+            q, k, v, causal=True, block_q=bq, block_k=bk, return_lse=True,
+            split=kind == "wgmma" and fa.split_route(dt, hd))
         assert torch.equal(out, fa._run(q, k, v, True, kind, bq, bk,
                                         False)[0])
         torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)

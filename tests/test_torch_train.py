@@ -537,14 +537,21 @@ def test_bwd_route_by_dtype_and_head_dim(hd, dtype):
     """bf16 at hd 64/128/256 takes the tensor-core backward ("wgmma"), f32
     at hd 64/128/256 the 3xTF32 one ("tf32x3"), hd 16/32 the mma.sync one
     ("mma"); a tensor-core call launches 3 kernels, 4 where its dK/dV grid
-    splits its groups' q heads and always at f32 hd 256 (its kernels walk
-    halves of their causal walks, summed by the fourth); an mma call
-    launches 1."""
+    splits its groups' q heads, always at f32 hd 256 (its kernels walk
+    halves of their causal walks, summed by the fourth) and at bf16 hd 256
+    where its grids cut their walks; an mma call launches 1."""
     want = ("wgmma" if dtype == torch.bfloat16 and hd >= 64 else
             "tf32x3" if dtype == torch.float32 and hd >= 64 else
             "mma")
     assert fa.bwd_route(dtype, hd) == want
-    if want != "mma":
+    if fa.split_route(dtype, hd):
+        # bf16 at hd 256 cuts its kernels' walks into pieces
+        # (``dkdv_split``, ``dq_split``) where the grids would be under the
+        # SMs, and sums their partials in a fourth kernel
+        assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3
+        assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 4
+        assert fa.bwd_launches(dtype, hd, 1, 12, 12, 448, causal=False) == 4
+    elif want != "mma":
         # llama3-8b's training shape fills the card unsplit; an MQA group
         # over 1024 keys (16 kv tiles of 64, 8 of 128) splits its 8 q heads
         summed = want == "tf32x3" and hd == 256

@@ -6,6 +6,8 @@ process on one card, in turns (parent, tree, tree, parent).
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
         --only k1
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
+        --only k4
+    PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
         --only k4_bwd
     PYTHONPATH=src python3 tools/compare_parent.py --parent build/parent/src \
         --only k5_bwd
@@ -13,7 +15,8 @@ process on one card, in turns (parent, tree, tree, parent).
         --only k2
 
 Each tree's ``repro_torch`` is imported in turn (``sys.modules`` cleared
-between) and builds its kernels under its own root.  Per tree it measures,
+between) and builds its kernels under its own root; the parent's is a copy
+whose ``torch.library`` operators take another namespace (``renamed``).  Per tree it measures,
 on the shapes of this repo's paths (NVIDIA card, f32 matmuls in full
 precision):
 
@@ -32,13 +35,21 @@ precision):
   this tree on bf16 views with the state in place);
 * the graphed rwkv6-3b decode step at batch 4 (random weights): device
   activities and busy time per step (profiler) and the replay's wall time;
+* K4's bf16 forward (``flash_attention``, causal, on views of (B, S,
+  heads, hd) tensors) at PaliGemma's q (1, 8, 1024, 256) over one kv head,
+  llama3-8b's (1, 32, 4096, 128) over 8, Kimi-K2's (1, 64, 2048, 128) over
+  8 and Whisper's (1, 12, 448, 64): the call (CUDA events), each device
+  kernel's time (torch.profiler) and, in the same turn,
+  ``scaled_dot_product_attention``'s call (``measure_k4``);
 * K4's backward (``flash_attention_bwd``, on the tree's own forward output
   and log-sum-exp) at the train path's llama3-8b shape, q (2, 32, 2048,
-  128) over 8 kv heads, causal, in bf16; in f32 at (1, 32, 2048, 128), at
-  Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
-  256) over one kv head; at the reduced llama3-8b's (2, 6, 256, 16) in
-  both dtypes; each on the tree's own ``bwd_route``: the call (CUDA
-  events) and, from torch.profiler, each device kernel's time;
+  128) over 8 kv heads, causal, in bf16; in bf16 also at Kimi-K2's (1, 64,
+  2048, 128) over 8, Whisper's (1, 12, 448, 64), not causal, and
+  PaliGemma's (1, 8, 1024, 256) over one kv head; in f32 at (1, 32, 2048,
+  128), Whisper's and PaliGemma's; at the reduced llama3-8b's (2, 6, 256,
+  16) in both dtypes; each on the tree's own ``bwd_route``: the call (CUDA
+  events), from torch.profiler each device kernel's time, and the backward
+  of ``scaled_dot_product_attention`` at the same shape in the same turn;
 * K5's backward (``wkv6_bwd``) at the train_rwkv path's shape, rwkv6-3b's
   (2, 40, 2048, 64) as bf16 views of (B, S, D) tensors at the time mix's
   decays, on the tree's own route (a tree without ``bwd_route`` walks
@@ -57,7 +68,8 @@ programs at n=4096 in float32 at their design points' block sizes
 kernel's time (CUDA events) and whether it equals the tree's own plain
 version bit for bit.
 
-``--only k1`` measures K1 alone, ``--only k4_bwd`` K4's backward alone,
+``--only k1`` measures K1 alone, ``--only k4`` K4's bf16 forward alone,
+``--only k4_bwd`` K4's backward alone,
 ``--only k5_bwd`` K5's backward alone, ``--only host`` the wrappers' host
 time alone.  Prints one line per tree and turn
 and a JSON summary last.
@@ -69,7 +81,9 @@ import functools
 import inspect
 import json
 import os
+import pathlib
 import re
+import shutil
 import statistics
 import sys
 import time
@@ -90,8 +104,30 @@ K2_BLOCK_ROWS = {"blur_chain": 4, "conv_pool": 4, "gradient_harris": 4,
                  "correlated_chain": 4, "unsharp": 4, "harris": 8}
 
 
-def load(src: str) -> types.SimpleNamespace:
-    """The ``repro_torch`` modules of the tree whose package lies in ``src``."""
+def renamed(src: str, namespace: str) -> str:
+    """A copy of the tree whose package lies in ``src`` (under
+    build/compare_parent/) whose ``torch.library`` operators are registered
+    under ``namespace`` instead of ``repro_torch``: one process registers an
+    operator's name once, and both trees' wrappers run through their own
+    operators.  Returns the copy's src directory."""
+    dst = pathlib.Path(ROOT, "build", "compare_parent", namespace)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(pathlib.Path(src, "repro_torch"), dst / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for py in (dst / "src" / "repro_torch").rglob("*.py"):
+        text = py.read_text()
+        for old in ('Library("repro_torch"', "torch.ops.repro_torch.",
+                    '"repro_torch::'):
+            text = text.replace(old, old.replace("repro_torch", namespace))
+        py.write_text(text)
+    return str(dst / "src")
+
+
+def load(src: str, namespace: str = "repro_torch") -> types.SimpleNamespace:
+    """The ``repro_torch`` modules of the tree whose package lies in ``src``
+    (its operators under ``namespace``, ``renamed``, where that differs)."""
+    if namespace != "repro_torch":
+        src = renamed(src, namespace)
     for name in [m for m in sys.modules
                  if m == "repro_torch" or m.startswith("repro_torch.")]:
         del sys.modules[name]
@@ -225,19 +261,57 @@ def measure(t, dev) -> dict:
     return out
 
 
-def measure_k4_bwd(t, dev) -> dict:
-    """K4's backward at the train path's shape (bf16), in f32 at
-    llama3-8b's shape (1, 32, 2048, 128) over 8 kv heads, causal, at
-    Whisper's (1, 12, 448, 64), not causal, and at PaliGemma's (1, 8, 1024,
-    256) over one kv head, causal, and in both dtypes at hd 16 (the reduced
-    llama3-8b's (2, 6, 256, 16) over 2 kv heads, causal)."""
+def measure_k4(t, dev) -> dict:
+    """K4's bf16 forward, causal, at PaliGemma's, llama3-8b's, Kimi-K2's
+    and Whisper's shapes, on the tree's own route and blocks, beside sdpa
+    (cuDNN's flash attention) on the same inputs."""
     import torch
 
     import chip_smoke as cs
     out = {}
     g = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for key, (B, H, Hkv, S, hd) in {
+            "bf16_paligemma_3b": (1, 8, 1, 1024, 256),
+            "bf16_llama3_8b": (1, 32, 8, 4096, 128),
+            "bf16_kimi_k2": (1, 64, 8, 2048, 128),
+            "bf16_whisper_small": (1, 12, 12, 448, 64)}.items():
+        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for h in (H, Hkv, Hkv))
+        call = lambda: t.fa.flash_attention(q, k, v, causal=True)
+        ms = cs.time_ms(call, 20)[0]
+        acts, _ = cs.device_kernels(lambda: [call() for _ in range(3)])
+        per = {}
+        for n, us in kernels(acts):
+            name = cs.short_name(n)
+            per[name] = per.get(name, 0.0) + us / 3 / 1e3
+        (lq, lk, lv), gqa = cs.sdpa_args(q, k, v)
+        lib = cs.time_ms(lambda: sdpa(lq, lk, lv, is_causal=True, **gqa),
+                         20)[0]
+        out[f"k4_{key}"] = {"ms": ms, "kernel_ms": per, "sdpa_ms": lib}
+    return out
+
+
+def measure_k4_bwd(t, dev) -> dict:
+    """K4's backward at the train path's shape (bf16), in bf16 also at
+    Kimi-K2's (1, 64, 2048, 128) over 8 kv heads, Whisper's (1, 12, 448,
+    64), not causal, and PaliGemma's (1, 8, 1024, 256) over one kv head,
+    causal; in f32 at llama3-8b's shape (1, 32, 2048, 128) over 8 kv heads,
+    causal, at Whisper's and at PaliGemma's; and in both dtypes at hd 16
+    (the reduced llama3-8b's (2, 6, 256, 16) over 2 kv heads, causal); each
+    beside sdpa's backward on the same inputs."""
+    import torch
+
+    import chip_smoke as cs
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for key, (dt, B, H, Hkv, S, hd, causal) in {
             "bf16_llama3_8b": (torch.bfloat16, 2, 32, 8, 2048, 128, True),
+            "bf16_kimi_k2": (torch.bfloat16, 1, 64, 8, 2048, 128, True),
+            "bf16_whisper_small": (torch.bfloat16, 1, 12, 12, 448, 64,
+                                   False),
+            "bf16_paligemma_3b": (torch.bfloat16, 1, 8, 1, 1024, 256, True),
             "f32_llama3_8b": (torch.float32, 1, 32, 8, 2048, 128, True),
             "f32_whisper_small": (torch.float32, 1, 12, 12, 448, 64, False),
             "f32_paligemma_3b": (torch.float32, 1, 8, 1, 1024, 256, True),
@@ -258,7 +332,12 @@ def measure_k4_bwd(t, dev) -> dict:
         for n, us in kernels(acts):
             name = cs.short_name(n)
             per[name] = per.get(name, 0.0) + us / 3 / 1e3
-        out[f"k4_bwd_{key}"] = {"ms": ms, "kernel_ms": per}
+        (lq, lk, lv), gqa = cs.sdpa_args(q, k, v)
+        xs = [x.detach().requires_grad_() for x in (lq, lk, lv)]
+        lo = sdpa(*xs, is_causal=causal, **gqa)
+        lib = cs.time_ms(lambda: torch.autograd.grad(lo, xs, dout,
+                                                     retain_graph=True), 10)[0]
+        out[f"k4_bwd_{key}"] = {"ms": ms, "kernel_ms": per, "sdpa_ms": lib}
     return out
 
 
@@ -415,7 +494,7 @@ def main(argv=None) -> int:
                     help="the parent tree's src directory")
     ap.add_argument("--tree", default=os.path.join(ROOT, "src"),
                     help="this tree's src directory")
-    ap.add_argument("--only", choices=("k1", "k2", "k4_bwd", "k5_bwd",
+    ap.add_argument("--only", choices=("k1", "k2", "k4", "k4_bwd", "k5_bwd",
                                        "host"),
                     help="measure only this kernel")
     args = ap.parse_args(argv)
@@ -431,7 +510,8 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     print(f"card: {card}")
     dev = torch.device("cuda")
-    trees = {"parent": load(args.parent), "tree": load(args.tree)}
+    trees = {"parent": load(args.parent, "repro_torch_parent"),
+             "tree": load(args.tree)}
     if args.only == "host":
         res = measure_host(trees, dev)
         for key, ms in res.items():
@@ -445,7 +525,8 @@ def main(argv=None) -> int:
     for name in ("parent", "tree", "tree", "parent"):
         t = trees[name]
         sys.modules.update(t.modules)
-        m = measure_k4_bwd(t, dev) if args.only == "k4_bwd" else \
+        m = measure_k4(t, dev) if args.only == "k4" else \
+            measure_k4_bwd(t, dev) if args.only == "k4_bwd" else \
             measure_k5_bwd(t, dev) if args.only == "k5_bwd" else \
             measure_k2(t, dev, plains) if args.only == "k2" else \
             measure_k1(t, dev)

@@ -124,8 +124,10 @@ read just after:
    directory): llama3-8b at its published widths cut to 2 layers (bf16,
    chunked, remat "full") trained 3 steps on 2 x 2048 tokens by
    ``launch.train.train`` with ``mesh=`` (parameters and moments DTensors
-   laid out by the rule tables, weights all-gathered, the loss's sum and
-   count and every gradient reduced over the mesh) and by the one-device
+   laid out by the rule tables, weights gathered to their model shards
+   (the tensor-parallel step, over a model axis of one rank), the loss's
+   sum and count and every gradient reduced over the mesh) and by the
+   one-device
    path from the same weights and batches: losses, parameters and moments
    bitwise equal, and K4's forward and backward launched as often by
    both, by the wrappers here and, in the profiling child, by the
@@ -359,6 +361,25 @@ DRYRUN_CELLS = (("sharded", "sharded_2x2", "llama3_8b:decode_32k:single",
                 ("llama3_8b:prefill_32k:single",
                  "llama3_8b:prefill_32k:multi"))
 DRYRUN_TIMEOUT_S = 600
+# the reference's records of the tensor-parallel cells (llama3-8b as
+# published): TFLOP and temp_size GB a device from
+# ``repro.launch.dryrun.dryrun_cell`` on a CPU host with the meshes' axes
+# made ``AxisType.Auto`` (JAX 0.9.0's ``jax.make_mesh`` makes them
+# ``Explicit``, on which the reference's ``constrain`` raises), held here
+# as constants: this script imports no JAX.  The port's flops must land
+# within DRYRUN_FLOPS_TOL of them; its temp_size must fall at least
+# DRYRUN_TEMP_CUT x from the ZeRO-3 step's (the port before its model axis
+# split the work; ROADMAP's table), the reference's being XLA's buffer
+# assignment, which a graph's live bytes are not
+DRYRUN_REFERENCE = {"llama3_8b:train_4k:single": (270.2, 54.5),
+                    "llama3_8b:prefill_32k:single": (134.0, 37.4),
+                    "llama3_8b:train_4k:multi": (135.1, 27.3),
+                    "llama3_8b:prefill_32k:multi": (67.0, 18.8)}
+DRYRUN_ZERO3_TEMP_GB = {"llama3_8b:train_4k:single": 243.0,
+                        "llama3_8b:prefill_32k:single": 567.9,
+                        "llama3_8b:train_4k:multi": 129.0,
+                        "llama3_8b:prefill_32k:multi": 291.4}
+DRYRUN_FLOPS_TOL, DRYRUN_TEMP_CUT = 0.05, 4.0
 DRYRUN_BUDGET_S = 120            # the phase's share of the smoke's time
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
@@ -519,12 +540,18 @@ def ptxas_kernels(log: str, kernel: str = r"fa_\w+?_kernel") -> list:
     out, name, spill = [], "", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d(" + kernel + r")(?:I(f|13__nv_bfloat16)?"
-                          r"((?:Li\d+E)*)E)?", ln)
-            args = [] if not m or not (m.group(2) or m.group(3)) else (
-                ([{"f": "f32"}.get(m.group(2), "bf16")] if m.group(2) else [])
-                + re.findall(r"Li(\d+)E", m.group(3)))
-            name = "?" if not m else m.group(1) + (
+            # the mangled name: ``kernel`` after its length (a kernel in an
+            # anonymous namespace has the source file's path and hashes in
+            # front, which may end in digits and "fa_" themselves)
+            m = next((c for c in re.finditer(r"(?=(\d+)(" + kernel + "))",
+                                             ln)
+                      if int(c.group(1)) == len(c.group(2))), None)
+            t = m and re.match(r"I(f|13__nv_bfloat16)?((?:Li\d+E)*)E",
+                               ln[m.end(2):])
+            args = [] if not t or not (t.group(1) or t.group(2)) else (
+                ([{"f": "f32"}.get(t.group(1), "bf16")] if t.group(1) else [])
+                + re.findall(r"Li(\d+)E", t.group(2)))
+            name = "?" if not m else m.group(2) + (
                 "<" + ",".join(args) + ">" if args else "")
         elif "spill stores" in ln:
             spill = ln.split(",")[1].strip().split(" ")[0]
@@ -3908,8 +3935,10 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
     profiling child's launches of the same step on the card, its graph's
     flops ``FlopCounterMode``'s; its flops against PERF.md's operations
     bound, and the time the graph predicts beside the step's measured ms;
-    (b) the production cells' records, memory beside the card's; (c) the
-    phase's seconds."""
+    (b) the production cells' records, memory beside the card's, and the
+    tensor-parallel train and prefill cells against the reference's flops
+    and the ZeRO-3 step's temp_size (``DRYRUN_REFERENCE``); (c) the phase's
+    seconds."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -3991,6 +4020,29 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
               f"({rec['seconds']:.1f} s with the analysis)")
         print("dryrun record: " + json.dumps({k: v for k, v in rec.items()
                                                if k != "seconds"}))
+        if cell not in DRYRUN_REFERENCE:
+            continue
+        want_tf, want_gb = DRYRUN_REFERENCE[cell]
+        tf, temp = rec["flops_per_device"] / 1e12, m["temp_size"] / gb
+        coll = rec["collective_bytes_per_device"]
+        print(f"dryrun: {cell} tensor-parallel: {tf:.1f} TFLOP a device "
+              f"against the reference's {want_tf} ({tf / want_tf:.4f} x); "
+              + ", ".join(f"{k} {coll.get(k, 0) / gb:.3f} GB" for k in (
+                  "all-gather", "all-reduce", "reduce-scatter"))
+              + f"; temp_size {temp:.1f} GB against the reference's "
+              f"{want_gb} and the ZeRO-3 step's {DRYRUN_ZERO3_TEMP_GB[cell]} "
+              f"({DRYRUN_ZERO3_TEMP_GB[cell] / temp:.2f} x less)")
+        if abs(tf / want_tf - 1) > DRYRUN_FLOPS_TOL:
+            fail(f"dryrun: {cell}: {tf:.1f} TFLOP a device, the reference's "
+                 f"{want_tf} (limit {DRYRUN_FLOPS_TOL:.0%})")
+        if temp * DRYRUN_TEMP_CUT > DRYRUN_ZERO3_TEMP_GB[cell]:
+            fail(f"dryrun: {cell}: temp_size {temp:.1f} GB, not "
+                 f"{DRYRUN_TEMP_CUT} x under the ZeRO-3 step's "
+                 f"{DRYRUN_ZERO3_TEMP_GB[cell]}")
+    print(f"check: dryrun: llama3-8b's train_4k and prefill_32k on (16, 16) "
+          f"and (2, 16, 16) within {DRYRUN_FLOPS_TOL:.0%} of the reference's "
+          f"flops a device, temp_size {DRYRUN_TEMP_CUT} x or more under the "
+          "ZeRO-3 step's")
     print(f"dryrun: {len(recs)} cells in {len(procs)} children, "
           f"{wall:.1f} s (budget {DRYRUN_BUDGET_S} s)")
 

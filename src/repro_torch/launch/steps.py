@@ -17,23 +17,36 @@ specs and abstract inputs are wanted): the specs are
 device (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``,
 ``api.input_specs``).  The steps take DTensors laid out by those specs
 (``shard_list``) and the rank's block of the batch (``local_batch``), and
-compute on plain local tensors: ZeRO-3, every weight all-gathered before
-use (the whole model at once), so the kernels receive plain CUDA tensors.
-Tensor-parallel compute and per-layer gathering are not ported.  The
-dry-run (``launch.dryrun``) traces the step ``build`` returns on
-FakeTensors over a fake group of the mesh's size, and its analyzer
-(``launch.hlo_analysis``) reads the graph.
+compute on plain local tensors, so the kernels receive plain CUDA tensors.
+The weights are all-gathered before use (the whole model at once):
+
+* the dense family under the "tp" style (the reference's default), in the
+  train and prefill steps, gathers them over the batch's axes only, and
+  computes on its model shards (``parallel.tensor_parallel``): the "model"
+  axis splits the attention heads, the FFN columns and the vocabulary as
+  the reference's rules lay them out, so a rank does its share of the
+  work;
+* every other family and style, and the decode step, gathers each weight
+  whole (ZeRO-3), and the "model" axis holds replicas of the batch's work.
+
+Per-layer gathering is not ported.  The dry-run (``launch.dryrun``) traces
+the step ``build`` returns on FakeTensors over a fake group of the mesh's
+size, and its analyzer (``launch.hlo_analysis``) reads the graph.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.models import api, lm
 from repro_torch.optim import adamw_init, adamw_update, \
     clip_by_global_norm, cosine_schedule, global_norm_sq
-from repro_torch.parallel import sharding
+from repro_torch.parallel import sharding, tensor_parallel
 from repro_torch.parallel.sharding import P
 
 
@@ -77,10 +90,60 @@ def _sum_over(x: torch.Tensor, mesh, dims: set) -> torch.Tensor:
     return DTensor.from_local(x, mesh, _over(dims, mesh.ndim)).full_tensor()
 
 
-def _gather(cfg: ArchConfig, names: list, params: list) -> lm.LM:
-    """The model over every weight all-gathered, as plain tensors."""
-    return lm.LM.from_named(cfg, zip(names, (p.full_tensor()
-                                             for p in params)))
+def _sum_everywhere(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over every rank of ``mesh``, which spans the default
+    group (``launch.mesh`` builds it so): one all-reduce, none at one
+    rank."""
+    if mesh.size() == 1:
+        return x
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a group of "
+                         f"{dist.get_world_size()}")
+    return funcol.wait_tensor(funcol.all_reduce(x, "sum", dist.group.WORLD))
+
+
+def _tensor_parallel(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``cfg``'s train and prefill steps compute on their model
+    shards: the dense family under the "tp" style, on a mesh with a
+    "model" axis."""
+    return (cfg.family == "dense" and cfg.parallel_style == "tp"
+            and "model" in sharding.mesh_shape(mesh))
+
+
+def _model_dim(mesh) -> int:
+    return list(sharding.mesh_shape(mesh)).index("model")
+
+
+def _keep_model(place: list, mesh, split: bool) -> list:
+    """Each parameter's placements once gathered: under tensor-parallel
+    compute (``split``) its shard of the "model" axis kept and every other
+    axis replicated, else replicated everywhere (the weight whole)."""
+    mi = _model_dim(mesh) if split else -1
+    return [tuple(pl[i] if i == mi else Replicate() for i in range(len(pl)))
+            for pl in place]
+
+
+def _partial_on_model(names: list, pspecs: list) -> set:
+    """The indices of the kv projections a rank uses only in part: ``wk``
+    and ``wv`` whole on "model" (their heads do not divide it) in a layer
+    whose ``wq`` splits its heads.  Each rank reads its q heads' kv columns
+    alone, so their gradients are partial sums over "model"."""
+    spec = dict(zip(names, pspecs))
+
+    def on_model(sp):
+        return any("model" in sharding._axes(e) for e in sp)
+    return {i for i, n in enumerate(names)
+            if n.rsplit(".", 1)[-1] in ("wk", "wv") and not on_model(spec[n])
+            and on_model(spec.get(n.rsplit(".", 1)[0] + ".wq", P()))}
+
+
+def _gather(cfg: ArchConfig, names: list, params: list,
+            keep: list) -> lm.LM:
+    """The model over every weight all-gathered to its placements ``keep``
+    (``_keep_model``), as plain tensors."""
+    return lm.LM.from_named(cfg, zip(names, (
+        p.redistribute(p.device_mesh, pl).to_local()
+        for p, pl in zip(params, keep))))
 
 
 def shard_list(tensors, specs, mesh) -> list:
@@ -122,9 +185,15 @@ def build_train_step(cfg: ArchConfig, model_or_shape, mesh=None):
     each gradient summed over those axes and cut to its parameter's layout
     (ranks along an axis the batch is not split over hold the same batch
     and the same gradient, counted once), the global norm over every
-    element once (each shard's squares taken by one replica), AdamW on the
-    local shards.  At one rank it runs the ops of the one-device step in
-    the same order."""
+    element once (each shard's squares taken by one replica, one
+    all-reduce over every rank), AdamW on the local shards.  Under
+    tensor-parallel compute (``_tensor_parallel``) the weights are gathered
+    to their model shards and each rank's gradient is its shard's; a
+    weight whole on "model" has the same gradient on every model rank,
+    but for the kv projections each rank reads in part
+    (``_partial_on_model``), whose gradients are summed over "model" too.
+    At one rank it runs the ops of the one-device step in the same
+    order."""
     if mesh is None:
         return _train_step(cfg, model_or_shape)
     shape = model_or_shape
@@ -134,26 +203,35 @@ def build_train_step(cfg: ArchConfig, model_or_shape, mesh=None):
     place = [sharding.placements(s, mesh) for s in pspecs]
     dp = sharding.batch_dims(bspecs, mesh)
     n_dims = len(sharding.mesh_shape(mesh))
-    partial = _over(dp, n_dims)
-    everywhere = set(range(n_dims))
+    split = _tensor_parallel(cfg, mesh)
+    keep = _keep_model(place, mesh, split)
+    # each gradient: a partial sum over the batch's axes; on "model" its
+    # shard, a replica, or a partial sum (the kv projections read in part)
+    summed = _partial_on_model(names, pspecs) if split else set()
+    mi = _model_dim(mesh) if split else -1
+    partial = [tuple(Partial() if i in dp or (i == mi and j in summed)
+                     else kp[i] for i in range(n_dims))
+               for j, kp in enumerate(keep)]
 
     def train_step(params, opt_state, batch):
         coord = mesh.get_coordinate()
         owned = [all(c == 0 for c, pl in zip(coord, p) if pl == Replicate())
                  for p in place]
-        local = _gather(cfg, names, params).requires_grad_(True)
+        local = _gather(cfg, names, params, keep).requires_grad_(True)
         full = local.param_list()
-        total, count = lm.loss_terms(cfg, local, batch)
-        count = _sum_over(count.detach(), mesh, dp)
-        grads = torch.autograd.grad(total / torch.clamp(count, min=1.0),
-                                    full)
+        with tensor_parallel.over(mesh) if split else \
+                contextlib.nullcontext():
+            total, count = lm.loss_terms(cfg, local, batch)
+            count = _sum_over(count.detach(), mesh, dp)
+            grads = torch.autograd.grad(total / torch.clamp(count, min=1.0),
+                                        full)
         del local, full
-        grads = [DTensor.from_local(g, mesh, partial).redistribute(
-            mesh, pl).to_local() for g, pl in zip(grads, place)]
+        grads = [DTensor.from_local(g, mesh, src).redistribute(
+            mesh, pl).to_local() for g, src, pl in zip(grads, partial, place)]
         sq = torch.zeros((), device=grads[0].device) + global_norm_sq(
             [g for g, own in zip(grads, owned) if own])
         grads, gnorm = clip_by_global_norm(
-            grads, 1.0, total=_sum_over(sq, mesh, everywhere))
+            grads, 1.0, total=_sum_everywhere(sq, mesh))
         lr = cosine_schedule(opt_state["count"])
         _, new = adamw_update(
             [p.to_local() for p in params], grads,
@@ -191,7 +269,8 @@ def build_prefill_step(cfg: ArchConfig, model_or_shape, mesh=None):
     """One device: ``prefill_step(model, batch) -> logits``.  A mesh:
     ``(prefill_step, in_specs, out_specs, abstract)``, ``prefill_step(
     params, batch)`` the logits of the rank's block of the batch, from the
-    weights all-gathered."""
+    weights all-gathered (under tensor-parallel compute, to their model
+    shards, the logits' vocabulary gathered at the end)."""
     if mesh is None:
         def prefill_step(model, batch):
             return lm.forward(cfg, model, batch)
@@ -199,9 +278,15 @@ def build_prefill_step(cfg: ArchConfig, model_or_shape, mesh=None):
     shape = model_or_shape
     model, names, pspecs = _model_specs(cfg, mesh)
     bspecs = sharding.batch_specs(cfg, shape, mesh)
+    split = _tensor_parallel(cfg, mesh)
+    keep = _keep_model([sharding.placements(s, mesh) for s in pspecs],
+                       mesh, split)
 
     def sharded_prefill_step(params, batch):
-        return lm.forward(cfg, _gather(cfg, names, params), batch)
+        local = _gather(cfg, names, params, keep)
+        with tensor_parallel.over(mesh) if split else \
+                contextlib.nullcontext():
+            return lm.forward(cfg, local, batch)
 
     in_sh = (pspecs, bspecs)
     out_sh = P(bspecs["tokens"][0], None, None)   # logits follow the batch
@@ -226,6 +311,8 @@ def build_decode_step(cfg: ArchConfig, model_or_shape, mesh=None):
     cshape = abstract_cache(cfg, shape)
     cspecs = sharding.cache_specs(cfg, shape, mesh, cshape)
     bspecs = sharding.batch_specs(cfg, shape, mesh)
+    whole = _keep_model([sharding.placements(s, mesh) for s in pspecs],
+                        mesh, False)
 
     def rows(spec):
         return sharding.placements(P(spec[0]), mesh)
@@ -235,7 +322,7 @@ def build_decode_step(cfg: ArchConfig, model_or_shape, mesh=None):
             {k: t.redistribute(mesh, rows(s[k])).to_local()
              for k, t in c.items()}
             for c, s in zip(cache["blocks"], cspecs["blocks"])]}
-        logits, new = lm.decode_step(cfg, _gather(cfg, names, params),
+        logits, new = lm.decode_step(cfg, _gather(cfg, names, params, whole),
                                      local, batch)
         return logits, {"blocks": [
             {k: DTensor.from_local(t, mesh, rows(s[k])).redistribute(

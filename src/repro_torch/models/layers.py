@@ -22,11 +22,16 @@ reference runs the same math in plain JAX:
   ``_wkv_chunk``'s recurrence with the WKV6 kernel (K5), which also returns
   the carried state.
 
-The reference's sharding constraints (``constrain`` calls) are left out:
-``repro_torch.parallel.sharding.constrain`` exists, but the port's sharded
-steps (``launch.steps``) gather every weight and run these functions on
-plain local tensors, for which it is the identity.  They come back with
-tensor-parallel compute, which is not ported.  The dry-run
+The reference's sharding constraints (``constrain`` calls) become explicit
+collectives where tensor-parallel compute runs: the dense family's sharded
+train and prefill steps (``launch.steps``) install the mesh's "model" axis
+(``parallel.tensor_parallel.over``) and call ``attn_forward`` and
+``mlp_forward`` on the rank's model shards.  Each takes its head counts or
+FFN width from its weights' shapes, and where they are split marks its
+split region's entry (``enter``) and its row-split product's sum
+(``reduce``) at the reference's ``constrain`` points, so every rank computes
+its heads' and columns' share.  Elsewhere (one device, the other families,
+decode) the weights are whole and they run as before.  The dry-run
 (``launch.dryrun``) traces these functions on FakeTensors: on its path
 they read no tensor's data on the host (``_sdpa``'s ``.item()`` reads a
 constant, which a FakeTensor keeps; ``_is_arange`` runs only for positions
@@ -45,6 +50,7 @@ from repro_torch._cuda import is_fake
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.wkv6 import wkv6_state
+from repro_torch.parallel import tensor_parallel as tp
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -185,16 +191,29 @@ def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
     flash attention (K4), which masks by token index: positions given as a
     tensor must then be each row's ``arange(S)`` (checked, at the cost of
     one device sync), and the reference's kv-chunk precondition
-    ``S % min(attn_chunk, S) == 0`` holds here too."""
-    H, K = cfg.n_heads, cfg.n_kv_heads
+    ``S % min(attn_chunk, S) == 0`` holds here too.
+
+    The head counts are the weights': under a tensor-parallel step
+    (``parallel.tensor_parallel``) ``wq`` and ``wo`` may hold the rank's
+    share of the heads, and the layer then computes those heads alone
+    (``_local_kv`` picks the kv heads they read) and sums its output over
+    the model axis."""
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    ax = tp.split(wq.shape[1], cfg.n_heads)
     arange = positions is None
     if arange:
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = _heads_in(h, p["wq"])
-    k = _heads_in(h, p["wk"])
-    v = _heads_in(h, p["wv"])
+    if ax is not None:
+        # q, k, v split by heads: the reference's constrain of them to heads
+        # on "model" (repro/models/layers.py:88-90 dense, :116 chunked)
+        h = tp.enter(h, ax)
+        wk, wv = (_local_kv(cfg, ax, wq.shape[1], w) for w in (wk, wv))
+    q = _heads_in(h, wq)
+    k = _heads_in(h, wk)
+    v = _heads_in(h, wv)
+    H, K = q.shape[2], k.shape[2]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl == "chunked" and causal:
@@ -220,7 +239,29 @@ def attn_forward(cfg: ArchConfig, p, x, positions, causal=True):
             mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
         o = _sdpa(cfg, q, _repeat_kv(k, H // K), _repeat_kv(v, H // K), mask,
                   x.dtype)
-    return x + _heads_out(o, p["wo"])
+    out = _heads_out(o, p["wo"])
+    if ax is not None:
+        # o split by heads, the reference's constrain of it to "model"
+        # (repro/models/layers.py:102 dense, :141 chunked): the row-split
+        # wo product summed
+        out = tp.reduce(out, ax)
+    return x + out
+
+
+def _local_kv(cfg: ArchConfig, ax, n_q: int, w):
+    """The columns of ``w`` (wk or wv, (D, kv heads, hd)) that the rank's
+    ``n_q`` q heads read: ``w`` itself where the kv heads are split with
+    the q heads; where they are whole (their count does not divide the
+    axis: llama3-8b's 8 on 16 ranks), the one kv head of the group the q
+    heads lie in."""
+    K, G = w.shape[1], cfg.n_heads // cfg.n_kv_heads
+    if K * ax.size == cfg.n_kv_heads:
+        return w
+    if K != cfg.n_kv_heads or G % n_q:
+        raise ValueError(f"{n_q} q heads a rank over {K} of "
+                         f"{cfg.n_kv_heads} kv heads: not within one group")
+    h0 = ax.rank * n_q
+    return w[:, h0 // G:h0 // G + 1]
 
 
 def attn_decode(cfg: ArchConfig, p, x, cache, pos):
@@ -365,7 +406,13 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, device, d_ff=None):
 
 
 def mlp_forward(cfg: ArchConfig, p, x):
+    """The FFN; under a tensor-parallel step ``w_up``/``w_gate`` may hold
+    the rank's columns and ``w_down`` its rows (``cfg.d_ff`` split over the
+    model axis), the output then summed over the axis."""
+    ax = tp.split(p["w_down"].shape[0], cfg.d_ff)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if ax is not None:
+        h = tp.enter(h, ax)
     up = h @ p["w_up"]
     # jax.nn.gelu's default is the tanh approximation
     if cfg.act == "swiglu":
@@ -374,7 +421,12 @@ def mlp_forward(cfg: ArchConfig, p, x):
         up = F.gelu(h @ p["w_gate"], approximate="tanh") * up
     else:  # gelu (whisper-style 2-matrix MLP)
         up = F.gelu(up, approximate="tanh")
-    return x + up @ p["w_down"]
+    out = up @ p["w_down"]
+    if ax is not None:
+        # up split by columns: the reference's constrain of up to "model"
+        # (repro/models/layers.py:310); the row-split product summed
+        out = tp.reduce(out, ax)
+    return x + out
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, device):

@@ -49,6 +49,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import flash_attention, wkv6
 from repro_torch.models import layers as L
+from repro_torch.parallel import tensor_parallel as tp
 
 # ---------------------------------------------------------------------------
 # per-position layer spec within a period
@@ -334,7 +335,12 @@ def _encoder_layer(cfg, p, x):
 
 
 def logits_from_hidden(cfg: ArchConfig, model: LM, h):
+    """The logits of the hidden states; under a tensor-parallel step whose
+    head holds the rank's share of the vocabulary, the rank's columns."""
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    ax = tp.split(head.shape[1], cfg.vocab)
+    if ax is not None:
+        h = tp.enter(h, ax)
     logits = h @ head
     return logits.float() if cfg.logits_fp32 else logits
 
@@ -346,9 +352,13 @@ def embed_inputs(cfg: ArchConfig, model: LM, batch):
     needs no check that they are an arange.  An encdec batch's ``frames``
     go through the encoder (``enc_out``, else None); a vlm batch's
     ``patches`` (B, n_img_tokens, D), projected by ``img_proj``, go before
-    the token embeddings."""
+    the token embeddings.  Under a tensor-parallel step whose table holds
+    the rank's rows of the vocabulary, the lookup is vocabulary-parallel
+    (``tensor_parallel.embed``)."""
     tokens = _on(batch["tokens"], model.device)
-    x = model.embed[tokens]
+    ax = tp.split(model.embed.shape[0], cfg.vocab)
+    x = model.embed[tokens] if ax is None else tp.embed(model.embed, tokens,
+                                                        ax)
     enc_out = encode(cfg, model, batch["frames"]) \
         if cfg.family == "encdec" else None
     if cfg.family == "vlm":
@@ -357,26 +367,40 @@ def embed_inputs(cfg: ArchConfig, model: LM, batch):
     return x, None, enc_out
 
 
-def forward(cfg: ArchConfig, model: LM, batch):
-    """batch: {tokens: (B, S) int}, with ``frames`` (B, T, D) for encdec
-    and ``patches`` (B, n_img_tokens, D) for vlm.  Returns logits (B, S, V)
-    over the text positions."""
+def _logits(cfg: ArchConfig, model: LM, batch):
+    """(the logits over the text positions, the model axis their vocabulary
+    is split over or None)."""
     x, positions, enc_out = embed_inputs(cfg, model, batch)
     h = backbone(cfg, model, x, positions, enc_out)
     if cfg.family == "vlm":          # logits over the text positions only
         h = h[:, cfg.n_img_tokens:]
-    return logits_from_hidden(cfg, model, h)
+    logits = logits_from_hidden(cfg, model, h)
+    return logits, tp.split(logits.shape[-1], cfg.vocab)
+
+
+def forward(cfg: ArchConfig, model: LM, batch):
+    """batch: {tokens: (B, S) int}, with ``frames`` (B, T, D) for encdec
+    and ``patches`` (B, n_img_tokens, D) for vlm.  Returns logits (B, S, V)
+    over the text positions (under a tensor-parallel step, the ranks'
+    columns gathered)."""
+    logits, ax = _logits(cfg, model, batch)
+    return logits if ax is None else tp.gather(logits, ax)
 
 
 def loss_terms(cfg: ArchConfig, model: LM, batch):
     """(the sum over ``mask`` (ones when the batch has none) of
     ``-log_softmax(logits)`` at ``labels`` (B, S), the mask's sum): the
     loss's numerator and token count, 0-d tensors on the model's device.  A
-    sharded step sums both over its ranks before it divides."""
-    logits = forward(cfg, model, batch)
+    sharded step sums both over its ranks before it divides; under a
+    tensor-parallel step the log-softmax is taken from the rank's columns
+    of the logits (``tensor_parallel.log_prob``)."""
+    logits, ax = _logits(cfg, model, batch)
     labels = _on(batch["labels"], model.device).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    if ax is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    else:
+        ll = tp.log_prob(logits, labels, ax)
     mask = _on(batch["mask"], model.device) if "mask" in batch \
         else torch.ones_like(ll)
     return -(ll * mask).sum(), mask.sum()

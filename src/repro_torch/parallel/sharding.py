@@ -79,9 +79,10 @@ def _all_axes(names) -> tuple:
 # --- activation constraints --------------------------------------------------
 # The reference's model code calls constrain(x, "dp", None, tp, ...) where
 # XLA's sharding propagation historically goes wrong.  The port's sharded
-# steps compute on plain local tensors (weights gathered before use), for
-# which constrain() is the identity; a DTensor is redistributed.  With no
-# mesh installed constrain() is a no-op.
+# steps compute on plain local tensors, for which constrain() is the
+# identity (the dense family's tensor-parallel steps place explicit
+# collectives at those points instead: ``parallel.tensor_parallel``); a
+# DTensor is redistributed.  With no mesh installed constrain() is a no-op.
 
 _CTX_MESH: list = []
 

@@ -2,16 +2,20 @@
 the JAX package's single-process references: the pipeline executor (its
 forward and gradients), the ring all-gather matmul, the int8 compressed
 all-reduce, the sharded train step of the reduced llama3-8b on (4, 2) and
-(2, 2) meshes through ``launch.train.train``, the sharded prefill and
-decode steps, the elastic restore, and the raise where the card or NCCL
-is asked for and missing.
+(2, 2) meshes through ``launch.train.train``, the tensor-parallel train
+steps of the reduced llama3-8b (dense and chunked attention, and with 8 q
+heads over its 2 kv heads, which a 4-way model axis does not split) and
+gemma-7b on (1, 2), (2, 2) and (1, 4) meshes and at (1, 1) in this
+process, the sharded prefill and decode steps, the elastic restore, and
+the raise where the card or NCCL is asked for and missing.
 
-The cases spawn their ranks twice in all (``torch_dist_workers.spawn``: a
-``FileStore`` under a temporary directory, one thread a rank, a deadline
+The cases spawn their ranks three times in all (``torch_dist_workers.spawn``:
+a ``FileStore`` under a temporary directory, one thread a rank, a deadline
 after which the ranks are killed): 8 ranks for the collectives and the
-(4, 2) step, then 4 for the (2, 2) step, the restore onto (2, 2) and the
-prefill and decode steps.  The rank functions import no
-JAX; the JAX side is computed here on the same numpy inputs.
+(4, 2) step, then 4 for the (2, 2) steps, the (1, 4) step, the restore
+onto (2, 2) and the prefill and decode steps, then 2 for the (1, 2)
+steps.  The rank functions import no JAX; the JAX side is computed here on
+the same numpy inputs.
 """
 import dataclasses
 import os
@@ -184,11 +188,10 @@ def test_constrain_redistributes_a_dtensor(collectives):
 # ---------------------------------------------------------------------------
 
 
-def _cfgs(**kw):
-    a = dataclasses.replace(jax_config.get_config("llama3_8b", reduced=True),
+def _cfgs(arch="llama3_8b", **kw):
+    a = dataclasses.replace(jax_config.get_config(arch, reduced=True),
                             dtype="float32", **kw)
-    b = dataclasses.replace(torch_config.get_config("llama3_8b",
-                                                    reduced=True),
+    b = dataclasses.replace(torch_config.get_config(arch, reduced=True),
                             dtype="float32", **kw)
     return a, b
 
@@ -216,15 +219,13 @@ def _template(cfg):
     return params, adamw_init(params)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The reduced llama3-8b (f32) from the reference's weights: the JAX
-    step's 3 steps (one device, jitted), the port's one-device trainer's,
-    and the step-0 checkpoint both start from."""
-    jcfg, tcfg = _cfgs()
+def _reference(root, arch="llama3_8b", **kw):
+    """A reduced model (f32) from the reference's weights: the JAX step's
+    3 steps (one device, jitted), the port's one-device trainer's, and the
+    step-0 checkpoint both start from, under ``root``."""
+    jcfg, tcfg = _cfgs(arch, **kw)
     params = jax_lm.init_params(jcfg, jax.random.key(11))
     tree = jax.tree.map(np.asarray, params)
-    root = tmp_path_factory.mktemp("train")
     _step_zero(tcfg, tree, str(root / "zero"))
     opt = jax_optim.adamw_init(params)
     jstep = jax.jit(jax_steps.build_train_step(
@@ -245,7 +246,7 @@ def reference(tmp_path_factory):
                               ckpt_dir=one, device="cpu")
     finally:
         torch.set_num_threads(threads)
-    return {"root": root, "tree": tree,
+    return {"root": root, "tree": tree, "cfg": tcfg,
             "jax": {"losses": jl, "grad_norms": jn, "params":
                     _trainer_order(tcfg, jax.tree.map(np.asarray, params))},
             "single": {"losses": single["losses"],
@@ -254,10 +255,36 @@ def reference(tmp_path_factory):
                        "m": single["opt"]["m"], "v": single["opt"]["v"]}}
 
 
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reduced llama3-8b (f32): ``_reference``."""
+    return _reference(tmp_path_factory.mktemp("train"))
+
+
+# the tensor-parallel train steps' models: (arch, config changes) by name
+TP_MODELS = {"llama3_8b": ("llama3_8b", {}),
+             "llama3_8b-chunked": ("llama3_8b", {"attn_impl": "chunked"}),
+             "gemma_7b": ("gemma_7b", {}),
+             "llama3_8b-8-heads": ("llama3_8b", {"n_heads": 8})}
+# the meshes each runs on: (1, 4) splits the 8 q heads 2 a rank, each
+# pair reading one of the 2 kv heads, which stay whole on "model"
+TP_RUNS = [(m, s) for m in list(TP_MODELS)[:3] for s in ((1, 2), (2, 2))] \
+    + [("llama3_8b-8-heads", (1, 4))]
+
+
+@pytest.fixture(scope="module")
+def tp_references(reference, tmp_path_factory):
+    """``_reference`` of each of TP_MODELS (the base llama3-8b's is
+    ``reference``)."""
+    return {name: reference if (arch, kw) == ("llama3_8b", {}) else
+            _reference(tmp_path_factory.mktemp(name), arch, **kw)
+            for name, (arch, kw) in TP_MODELS.items()}
+
+
 def _sharded_job(reference, name, mesh_shape, **kw):
     """A ``sharded_train`` job from the step-0 checkpoint, and its run's
     description (``_sharded_run`` completes it)."""
-    _, tcfg = _cfgs(**kw)
+    tcfg = dataclasses.replace(reference["cfg"], **kw)
     ckpt = str(reference["root"] / name)
     shutil.copytree(reference["root"] / "zero", ckpt)
     return (("sharded_train", (tcfg, mesh_shape, ckpt, STEPS, B, SEQ)),
@@ -292,10 +319,11 @@ def run_4x2(eight_ranks):
 
 
 @pytest.fixture(scope="module")
-def four_ranks(reference, run_4x2):
+def four_ranks(reference, run_4x2, tp_references):
     """4 ranks on (2, 2): the "fsdp" step, the (4, 2) run's last checkpoint
     restored with the "fsdp" style's shardings, the prefill and decode
-    steps (the "tp" style) on the reference's weights."""
+    steps (the "tp" style) on the reference's weights; the tensor-parallel
+    steps of TP_RUNS on (2, 2) and (1, 4)."""
     job, run = _sharded_job(reference, "fsdp_2x2", (2, 2),
                             parallel_style="fsdp")
     _, fsdp = _cfgs(parallel_style="fsdp")
@@ -303,22 +331,55 @@ def four_ranks(reference, run_4x2):
     tokens = np.random.default_rng(5).integers(
         0, tcfg.vocab, (4, 16)).astype(np.int32)
     tree = _port_tree(tcfg, reference["tree"])
+    tp_jobs, tp_runs = _tp_jobs(tp_references, 4)
     ranks = workers.spawn(workers.several, 4,
                           str(reference["root"] / "four"), [
                               job,
                               ("elastic_restore", (fsdp, (2, 2),
                                                    run_4x2["ckpt"], STEPS)),
                               ("prefill_decode", (tcfg, (2, 2), tree,
-                                                  tokens))])
+                                                  tokens)), *tp_jobs])
     return {"run_2x2": _sharded_run(run, ranks), "tokens": tokens,
             "tree": tree, "cfg": tcfg,
             "restore": [r["elastic_restore"] for r in ranks],
-            "prefill": [r["prefill_decode"] for r in ranks]}
+            "prefill": [r["prefill_decode"] for r in ranks],
+            "tp": _tp_results(tp_runs, ranks)}
+
+
+def _tp_jobs(tp_references, world: int):
+    """The ``sharded_train`` jobs of the TP_RUNS on ``world`` ranks (each
+    under its own name: ``several`` keys results by name) and their runs'
+    descriptions."""
+    jobs, runs = [], {}
+    for name, shape in TP_RUNS:
+        if shape[0] * shape[1] != world:
+            continue
+        key = f"tp_{name}_{shape[0]}x{shape[1]}"
+        (_, args), run = _sharded_job(tp_references[name], key, shape)
+        jobs.append((f"sharded_train:{key}", args))
+        runs[key] = {**run, "reference": tp_references[name]}
+    return jobs, runs
+
+
+def _tp_results(runs, ranks):
+    return {key: _sharded_run(run, [{"sharded_train": r[
+        f"sharded_train:{key}"]} for r in ranks])
+        for key, run in runs.items()}
 
 
 @pytest.fixture(scope="module")
 def run_2x2(four_ranks):
     return four_ranks["run_2x2"]
+
+
+@pytest.fixture(scope="module")
+def tp_runs(four_ranks, tp_references):
+    """Every run of TP_RUNS: those on 4 ranks from ``four_ranks``, those on
+    (1, 2) from 2 ranks of their own."""
+    jobs, runs = _tp_jobs(tp_references, 2)
+    ranks = workers.spawn(workers.several, 2, str(
+        tp_references["llama3_8b"]["root"] / "two"), jobs)
+    return {**four_ranks["tp"], **_tp_results(runs, ranks)}
 
 
 def _param_atol():
@@ -377,8 +438,8 @@ def _stores_its_share(run):
 
 @pytest.mark.timeout(SPAWN_TIMEOUT)
 def test_sharded_train_4x2_matches_one_device_and_jax(run_4x2, reference):
-    """(4, 2), style "tp": the batch over 4 data ranks, the model axis's
-    2 ranks computing the same gradients (counted once)."""
+    """(4, 2), style "tp": the batch over 4 data ranks, the heads, FFN
+    columns and vocabulary over the model axis's 2 ranks."""
     _holds_the_reference(run_4x2, reference)
 
 
@@ -397,6 +458,54 @@ def test_sharded_train_2x2_fsdp_matches_one_device_and_jax(run_2x2,
 @pytest.mark.timeout(SPAWN_TIMEOUT)
 def test_sharded_train_2x2_fsdp_stores_only_its_share(run_2x2):
     _stores_its_share(run_2x2)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+@pytest.mark.parametrize("name,shape", TP_RUNS)
+def test_tensor_parallel_train_matches_one_device_and_jax(tp_runs, name,
+                                                          shape):
+    """Style "tp", the dense family: each rank computes its share of the
+    heads, FFN columns and vocabulary, the batch split over "data": the
+    losses and gradient norms of the one-device port and of the JAX step,
+    the parameters within the AdamW bound."""
+    run = tp_runs[f"tp_{name}_{shape[0]}x{shape[1]}"]
+    arch, kw = TP_MODELS[name]
+    assert run["cfg"] == _cfgs(arch, **kw)[1]   # the named model's own
+    _holds_the_reference(run, run["reference"])
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+@pytest.mark.parametrize("name,shape", TP_RUNS)
+def test_tensor_parallel_train_stores_only_its_share(tp_runs, name, shape):
+    _stores_its_share(tp_runs[f"tp_{name}_{shape[0]}x{shape[1]}"])
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_tensor_parallel_train_1x1_is_the_one_device_step_bitwise(
+        reference, tmp_path):
+    """At one rank (a (1, 1) gloo mesh in this process) the
+    tensor-parallel step runs the one-device step's ops in the same order:
+    losses, gradient norms, parameters and moments bitwise."""
+    ckpt = str(tmp_path / "ckpt")
+    shutil.copytree(reference["root"] / "zero", ckpt)
+    tmesh.init_distributed("cpu", rank=0, world_size=1,
+                           store=dist.FileStore(str(tmp_path / "store"), 1))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # as the one-device run
+    try:
+        mesh = tmesh.make_test_mesh(1, 1, device="cpu")
+        assert tsteps._tensor_parallel(reference["cfg"], mesh)
+        got = ttrain.train(reference["cfg"], steps=STEPS, batch=B, seq=SEQ,
+                           ckpt_dir=ckpt, device="cpu", mesh=mesh)
+    finally:
+        torch.set_num_threads(threads)
+        dist.destroy_process_group()
+    want = reference["single"]
+    assert got["losses"] == want["losses"]
+    assert got["grad_norms"] == want["grad_norms"]
+    for a, b in zip([*got["params"], *got["opt"]["m"], *got["opt"]["v"]],
+                    [*want["params"], *want["m"], *want["v"]]):
+        assert torch.equal(a.to_local(), b)
 
 
 @pytest.mark.timeout(SPAWN_TIMEOUT)

@@ -2,16 +2,22 @@
 configurations at the meshes (1, 1), (2, 2) and (16, 16), each on a fake
 group of its size: the record's keys are the reference's; the analyzer's
 flops are ``FlopCounterMode``'s; dense prefills at (1, 1) count the
-reference's HLO dot flops exactly; the "model" axis replicates work, the
-"data" axis splits it; all-gather bytes and the arguments' bytes follow the
-specs; K4 and K5 appear as operator nodes; no process group is left behind;
-``main`` writes, caches, skips and records failures as the reference's
-does.  Beside it, the kernels' operators: on CPU tensors the plain versions
-bitwise, and the card raised for where there is none."""
+reference's HLO dot flops exactly; the dense family's tensor-parallel train
+and prefill steps split their work over both axes, their (2, 2) flops
+equal to the reference's compiled step's; elsewhere the "model" axis
+replicates work and the "data" axis splits it; all-gather bytes and the
+arguments' bytes follow the specs; K4 and K5 appear as operator nodes; no
+process group is left behind; ``main`` writes, caches, skips and records
+failures as the reference's does.  Beside it, the kernels' operators: on
+CPU tensors the plain versions bitwise, and the card raised for where there
+is none."""
 import dataclasses
 import functools
 import json
 import math
+import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -117,15 +123,80 @@ def test_dense_prefill_counts_the_references_dot_flops(arch):
     assert rec["flops_per_device"] == jha.analyze(text)["flops"]
 
 
+def _tensor_parallel(arch, kind):
+    """Whether the cell's step computes on its model shards: the dense
+    family's train and prefill steps (style "tp")."""
+    return _cfg(arch, "dense").family == "dense" and kind != "decode"
+
+
+# the reference's (2, 2) cells: its steps compiled by XLA on 4 host devices
+# of a child process (``repro.launch.dryrun`` asks for 512 when imported),
+# the mesh's axes ``Auto`` (JAX 0.9.0's ``make_mesh`` makes them
+# ``Explicit``, on which the reference's ``constrain`` raises: ROADMAP's
+# R6), read by the reference's analyzer
+_REFERENCE_2X2 = """
+import dataclasses, json, sys
+from repro.launch import dryrun
+import jax
+from jax.sharding import AxisType
+from repro import config
+from repro.launch import hlo_analysis
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2,
+                     devices=jax.devices()[:4])
+out = {}
+for arch, kind in json.loads(sys.argv[1]):
+    cfg = dataclasses.replace(config.get_config(arch, reduced=True),
+                              attn_impl="dense")
+    shape = config.ShapeConfig("t", kind, %d, %d)
+    text = dryrun._compile_cell(cfg, shape, mesh).as_text()
+    out[arch + ":" + kind] = hlo_analysis.analyze(text)["flops"]
+print(json.dumps(out))
+""" % (S, B)
+TP_CELLS = [(a, k) for a in ("llama3_8b", "gemma_7b")
+            for k in ("train", "prefill")]
+
+
+@pytest.fixture(scope="session")
+def reference_2x2():
+    """{"arch:kind": the reference's flops a device} of TP_CELLS on
+    (2, 2), from one child process."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(root, "src"))
+    done = subprocess.run([sys.executable, "-c", _REFERENCE_2X2,
+                           json.dumps(TP_CELLS)], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=240)
+    assert done.returncode == 0, done.stderr[-3000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch,kind", TP_CELLS)
+def test_model_axis_flops_equal_the_references(reference_2x2, arch, kind):
+    """The dense family's tensor-parallel train and prefill steps at
+    (2, 2): a device's flops are the reference's compiled step's,
+    exactly (dense attention, which the reference's analyzer counts as
+    the port's)."""
+    rec, _ = _cell(arch, "dense", kind, "2x2")
+    assert rec["flops_per_device"] == reference_2x2[f"{arch}:{kind}"]
+
+
 @pytest.mark.parametrize("arch,impl,kind", [(a, i, k) for a, i in CONFIGS
                                             for k in KINDS])
 def test_data_axis_splits_the_work_model_axis_replicates_it(arch, impl,
                                                            kind):
-    """The port's step gathers every weight and splits the batch over
-    "data" alone: at (2, 2) a device does half of (1, 1)'s work."""
+    """The dense family's train and prefill steps split the batch over
+    "data" and the heads, FFN columns and vocabulary over "model": at
+    (2, 2) a device does a quarter of (1, 1)'s work.  The other cells
+    gather every weight and split the batch over "data" alone, so at
+    (2, 2) a device does half of (1, 1)'s work: the other families and
+    the decode step do not split their compute over "model" yet
+    (ROADMAP's F5)."""
     one, _ = _cell(arch, impl, kind, "1x1")
     four, _ = _cell(arch, impl, kind, "2x2")
-    assert 2 * four["flops_per_device"] == one["flops_per_device"]
+    split = 4 if _tensor_parallel(arch, kind) else 2
+    assert split * four["flops_per_device"] == one["flops_per_device"]
 
 
 def _sharded_sizes(spec, sizes):
@@ -140,18 +211,30 @@ def _sharded_sizes(spec, sizes):
 def test_all_gather_bytes_follow_the_parameter_specs(arch, impl, kind,
                                                      mesh):
     """Every weight is gathered one mesh axis at a time, each gather's
-    result the tensor over the axes gathered so far: a weight sharded over
-    axes of sizes n1, n2 moves full / n1 + full; nothing else is
+    result the tensor over the axes gathered so far.  The dense family's
+    tensor-parallel steps gather over the data axes only, keeping each
+    weight's model shard: a weight sharded over "data" (n) and "model" (m)
+    moves full / m; the prefill then gathers its logits' vocabulary over
+    "model" (the batch's block of them, f32).  The other cells (other
+    families: ROADMAP's F5) gather each weight whole: a weight sharded
+    over axes of sizes n1, n2 moves full / n1 + full.  Nothing else is
     all-gathered in a train or prefill step."""
     cfg = _cfg(arch, impl)
     _, (pspecs, *_), _, abstract = steps.build(cfg, _shape(kind),
                                                MESHES[mesh])
     sizes = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))
+    split = _tensor_parallel(arch, kind)
     want = 0
     for p, spec in zip(abstract[0], pspecs):
         ns = _sharded_sizes(spec, sizes)
         full = p.numel() * p.element_size()
+        if split:
+            model = _sharded_sizes(spec, {"model": sizes["model"]})
+            full //= math.prod(model)
+            ns = _sharded_sizes(spec, {"data": sizes["data"]})
         want += sum(full // math.prod(ns[:j]) for j in range(len(ns)))
+    if split and kind == "prefill" and sizes["model"] > 1:
+        want += B // sizes["data"] * S * cfg.vocab * 4
     rec, _ = _cell(arch, impl, kind, mesh)
     assert rec["collective_bytes_per_device"].get("all-gather", 0) == want
 

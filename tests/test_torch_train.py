@@ -12,6 +12,8 @@ K5's plain versions, and K4's gradient runs ``flash_attention_bwd_plain``.
 import dataclasses
 import json
 import os
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -295,6 +297,53 @@ FAMILIES = [("llama3_8b", {}), ("llama3_8b", {"attn_impl": "chunked"}),
             ("rwkv6_3b", {}), ("deepseek_v2_236b", {}),
             ("jamba_1_5_large_398b", {}), ("whisper_small", {}),
             ("paligemma_3b", {})]
+# families whose JAX side (its ``init_params``, the trace and the compile
+# of its gradient: ~20 s alone, ~100 s beside 5 busy workers, jitted init
+# or not, against the port's ~1 s) a child process computes while the
+# tests before them run; the others compute it in the test
+PREFETCH = ("jamba_1_5_large_398b",)
+
+
+def _family_cfgs(arch, kw):
+    """``_cfgs`` for the family comparison: an MoE's capacity raised so
+    that no pair is dropped (the gradient is then smooth)."""
+    jcfg, tcfg = _cfgs(arch, **kw)
+    if jcfg.moe:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=8.0))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+            tcfg.moe, capacity_factor=8.0))
+    return jcfg, tcfg
+
+
+def _jax_side(jcfg):
+    """(parameters, batch, loss, gradients) of the JAX reference on
+    ``jcfg``, as numpy: ``init_params`` from key 1, ``make_batch`` seed 1,
+    ``jax.value_and_grad`` of ``loss_fn`` jitted."""
+    params = jax_lm.init_params(jcfg, jax.random.key(1))
+    shape = jax_config.ShapeConfig("t", "train", S, B)
+    batch = _np(jax_api.make_batch(jcfg, shape, seed=1))
+    loss, grads = jax.jit(jax.value_and_grad(partial(jax_lm.loss_fn, jcfg)))(
+        params, batch)
+    return _np((params, batch, loss, grads))
+
+
+def _prefetch_jax_side(arch):
+    return _jax_side(_family_cfgs(arch, {})[0])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _prefetched(request):
+    """{arch: the future of its ``_jax_side``} of the PREFETCH families
+    whose test is collected, submitted when the module's first test runs
+    to a child process (spawned: this one has threads)."""
+    wanted = [a for a in PREFETCH if any(f"match_jax[{a}]" in it.nodeid
+                                         for it in request.session.items)]
+    if not wanted:
+        yield {}
+        return
+    with ProcessPoolExecutor(1, multiprocessing.get_context("spawn")) as pool:
+        yield {a: pool.submit(_prefetch_jax_side, a) for a in wanted}
 
 
 def _ordered(tcfg, tree):
@@ -306,18 +355,12 @@ def _ordered(tcfg, tree):
 @pytest.mark.parametrize("arch,kw", FAMILIES,
                          ids=[a + ("-" + "-".join(k.values()) if k else "")
                               for a, k in FAMILIES])
-def test_loss_and_every_gradient_match_jax(arch, kw):
-    jcfg, tcfg = _cfgs(arch, **kw)
-    if jcfg.moe:             # no pair dropped: the gradient is then smooth
-        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
-            jcfg.moe, capacity_factor=8.0))
-        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
-            tcfg.moe, capacity_factor=8.0))
-    params = jax_lm.init_params(jcfg, jax.random.key(1))
-    shape = jax_config.ShapeConfig("t", "train", S, B)
-    batch = _np(jax_api.make_batch(jcfg, shape, seed=1))
-    loss, grads = jax.jit(jax.value_and_grad(partial(jax_lm.loss_fn, jcfg)))(
-        params, batch)
+def test_loss_and_every_gradient_match_jax(arch, kw, _prefetched):
+    jcfg, tcfg = _family_cfgs(arch, kw)
+    if arch in _prefetched and not kw:
+        params, batch, loss, grads = _prefetched[arch].result()
+    else:
+        params, batch, loss, grads = _jax_side(jcfg)
     model = torch_lm.LM.from_reference(tcfg, _np(params), "cpu")
     model.requires_grad_(True)
     tl = torch_lm.loss_fn(tcfg, model, {k: torch.from_numpy(np.array(v))

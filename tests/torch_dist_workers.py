@@ -65,8 +65,10 @@ def spawn(fn, world: int, out: str, *args, deadline: float = 240.0) -> list:
 
 def several(rank, out, jobs):
     """Each (rank function's name, its arguments) of ``jobs`` in turn, on
-    the same ranks: {name: result}."""
-    return {name: globals()[name](rank, out, *args) for name, args in jobs}
+    the same ranks: {name: result}.  A name "fn:key" runs ``fn`` (one
+    function several times, under keys of their own)."""
+    return {name: globals()[name.split(":")[0]](rank, out, *args)
+            for name, args in jobs}
 
 
 def stage_fn(p, x):

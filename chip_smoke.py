@@ -134,6 +134,14 @@ read just after:
    profiler; the prefill step of ``steps.build(cfg, prefill shape, mesh)``
    bitwise ``lm.forward``; ``ag_matmul``, ``compressed_psum`` and
    ``pipelined_forward`` on card tensors equal to their plain results.
+   Then rwkv6-3b and DeepSeek-V2 (the "ssm" and "moe" families' tensor-
+   parallel steps) at their published widths cut to 2 layers (DeepSeek-V2:
+   its dense first layer and one MoE layer of 80 of its 160 routed
+   experts, which fit one card's AdamW; bf16, remat "full"), trained
+   the same way one-device and on the (1, 1) mesh: losses, gradient norms,
+   parameters and moments bitwise equal, K5's forward and backward (rwkv6-
+   3b) launched as often by both and DeepSeek-V2's MLA launching neither
+   K4 nor K5; each model freed before the next.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -170,6 +178,7 @@ without one.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import dataclasses
 import json
@@ -348,18 +357,32 @@ K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
 # layers (bf16, chunked), SHARDED_STEPS steps (the cosine warm-up's rate is
 # 0 at step 0) on TRAIN_B x TRAIN_S tokens, one-device and on a (1, 1) mesh
 SHARDED_LAYERS, SHARDED_STEPS = 2, 3
+# path 15's other families, at their published widths cut to SHARDED_LAYERS
+# (DeepSeek-V2: its dense first layer and one MoE layer), trained as above;
+# DeepSeek-V2's MoE layer keeps SHARDED_EXPERTS of its 160 routed experts:
+# with all 160 the one-device step ran out of the card's memory in AdamW,
+# whose f32 temporaries of the (160, 5120, 1536) expert tensors (5 GB each)
+# came on top of 43 GB of bf16 parameters, gradients and moments (tokens
+# do not move that peak)
+SHARDED_FAMILIES = ("rwkv6_3b", "deepseek_v2_236b")
+SHARDED_EXPERTS = 80
 # the dry-run phase: cells traced on FakeTensors over fake groups, each list
 # in a child process of its own, the children started together ("sharded":
 # path 15's step on its (1, 1) mesh; "sharded_2x2": the same step on the
 # (2, 2) mesh of tools/multi_card.py's four cards; "arch:shape:mesh": a
 # production cell of ``repro_torch.launch.dryrun``); a train cell at full
-# depth takes ~76 s on the card's machine, a prefill or decode cell ~17 s
+# depth takes ~76 s on the card's machine (rwkv6-3b's ~170 s), a prefill or
+# decode cell ~17 s; the children start with the script and trace beside
+# the builds and the card's paths, one CPU core each (started before path
+# 13, they kept the script waiting 44-133 s after path 15 on the H100's
+# 8-core host)
 DRYRUN_CELLS = (("sharded", "sharded_2x2", "llama3_8b:decode_32k:single",
                  "llama3_8b:decode_32k:multi"),
                 ("llama3_8b:train_4k:single",),
                 ("llama3_8b:train_4k:multi",),
                 ("llama3_8b:prefill_32k:single",
-                 "llama3_8b:prefill_32k:multi"))
+                 "llama3_8b:prefill_32k:multi"),
+                ("rwkv6_3b:train_4k:single",))
 DRYRUN_TIMEOUT_S = 600
 # the reference's records of the tensor-parallel cells (llama3-8b as
 # published): TFLOP and temp_size GB a device from
@@ -3727,9 +3750,7 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
     from repro_torch.config import ShapeConfig
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.launch import train
     from repro_torch.models import lm
 
     cfg = sharded_config()
@@ -3737,40 +3758,11 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         mesh = sharded_mesh(dev, tmp)
         try:
-            runs, counts = {}, {}
-            for name, where in (("single", None), ("sharded", mesh)):
-                zero_model_counts()
-                runs[name] = train.train(
-                    cfg, steps=SHARDED_STEPS, batch=TRAIN_B, seq=TRAIN_S,
-                    log_every=1, seed=0, device=dev, mesh=where)
-                torch.cuda.synchronize()
-                counts[name] = model_counts()
-            print("sharded path launches: " + json.dumps(counts,
-                                                         sort_keys=True))
-            one, many = runs["single"], runs["sharded"]
             fwd_call = fa.fwd_launches(torch.bfloat16, cfg.hd, TRAIN_B,
                                        cfg.n_heads, cfg.n_kv_heads, TRAIN_S)
-            per_step = {"k4/wgmma/bfloat16": 2 * cfg.n_layers * fwd_call,
-                        "k4/bwd/bfloat16": cfg.n_layers * fa.bwd_launches(
-                            torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
-                            cfg.n_kv_heads, TRAIN_S)}
-            want = {k: SHARDED_STEPS * v for k, v in per_step.items()}
-            if counts["single"] != want or counts["sharded"] != want:
-                fail(f"sharded path: K4 launches {counts}; both paths must "
-                     f"launch {want} ({SHARDED_STEPS} steps x {per_step})")
-            if one["losses"] != many["losses"]:
-                fail(f"sharded path: losses {many['losses']} on the mesh, "
-                     f"{one['losses']} on one device")
-            pairs = [(a, b.full_tensor()) for a, b in zip(
-                [*one["params"], *one["opt"]["m"], *one["opt"]["v"]],
-                [*many["params"], *many["opt"]["m"], *many["opt"]["v"]])]
-            differ = [i for i, (a, b) in enumerate(pairs)
-                      if not torch.equal(a.detach(), b)]
-            if differ or not torch.equal(one["opt"]["count"],
-                                         many["opt"]["count"]):
-                fail(f"sharded path: {len(differ)} of {len(pairs)} "
-                     "parameters and moments differ from the one-device "
-                     f"run's (first {differ[:5]})")
+            runs = sharded_train(dev, mesh, cfg, sharded_launches(cfg), card,
+                                 keep=True)
+            one, many, ms = runs["single"], runs["sharded"], runs["ms"]
             sp_ = prof["sharded_step"]
             seen = {k: collections.Counter("bwd" if "fa_bwd" in n_ else "fwd"
                                            for n_ in v["k4"])
@@ -3780,21 +3772,7 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
                 fail(f"sharded path: the profiling child's K4 launches "
                      f"{ {k: v['launches'] for k, v in sp_.items()} }, K4 "
                      f"kernels seen {seen}: the two steps must match")
-            ms = {k: [x * 1e3 for x in r["step_s"]] for k, r in runs.items()}
-            print(f"sharded: llama3-8b full width, {cfg.n_layers} of 32 "
-                  f"layers, bf16, chunked, remat {cfg.remat}, {TRAIN_B} x "
-                  f"{TRAIN_S} tokens; {SHARDED_STEPS} steps one-device (ms "
-                  + ", ".join(f"{x:.2f}" for x in ms["single"])
-                  + f") and on {mesh_mod.describe(mesh)} over "
-                  f"{dist.get_backend()} (ms "
-                  + ", ".join(f"{x:.2f}" for x in ms["sharded"])
-                  + f"); last step sharded / one-device "
-                  f"{ms['sharded'][-1] / ms['single'][-1]:.3f}; card {card}")
-            print(f"check: sharded: losses "
-                  + ", ".join(f"{x:.6f}" for x in one["losses"])
-                  + f" and all {len(pairs)} parameters and moments bitwise "
-                  f"the one-device run's; K4 launches {counts['sharded']} "
-                  f"on both; the profiling child's step: launches "
+            print(f"check: sharded: the profiling child's step: launches "
                   f"{sp_['sharded']['launches']} on both, K4 kernels seen "
                   f"{dict(seen['sharded'])} on both")
             # the prefill step the builders make for the mesh
@@ -3817,16 +3795,143 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
                      f"lm.forward (max {(got - want).abs().max().item()})")
             if n_pre != {"k4/wgmma/bfloat16": cfg.n_layers * fwd_call}:
                 fail(f"sharded path: the mesh's prefill launched {n_pre}")
-            del got, want, runs, one, many, pairs
+            del got, want, runs, one, many
             torch.cuda.empty_cache()
             print(f"check: sharded: the prefill step of steps.build(cfg, "
                   f"prefill {TRAIN_B} x {TRAIN_S}, mesh) == lm.forward "
                   f"bitwise; launches {n_pre}")
             sharded_helpers(dev, mesh, cfg)
+            for arch in SHARDED_FAMILIES:
+                fcfg = sharded_family_config(arch)
+                sharded_train(dev, mesh, fcfg, sharded_launches(fcfg), card)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     return ms
+
+
+def sharded_family_config(arch: str):
+    """One of SHARDED_FAMILIES at its published widths, cut to
+    SHARDED_LAYERS layers and, with routed experts, SHARDED_EXPERTS of
+    them."""
+    from repro_torch.config import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=SHARDED_EXPERTS))
+    return cfg
+
+
+def sharded_launches(cfg) -> dict:
+    """The kernel launches SHARDED_STEPS training steps of ``cfg`` make:
+    K4's forward twice a layer a step (the forward and its remat) and its
+    backward once (llama3-8b); K5's sequence form twice a layer a step
+    and its backward once (rwkv6-3b); none for DeepSeek-V2, whose MLA
+    takes no kernel."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
+    n = SHARDED_STEPS * cfg.n_layers
+    if cfg.family == "dense":
+        shape = (torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
+                 cfg.n_kv_heads, TRAIN_S)
+        return {"k4/wgmma/bfloat16": 2 * n * fa.fwd_launches(*shape),
+                "k4/bwd/bfloat16": n * fa.bwd_launches(*shape)}
+    if cfg.family == "ssm":
+        return {"k5/sequence": 2 * n * wk.SEQUENCE_LAUNCHES,
+                f"k5/{wk.BWD_COUNT[wk.bwd_route(cfg.rwkv_head_dim)]}":
+                    n * wk.BWD_LAUNCHES}
+    return {}
+
+
+def sharded_train(dev, mesh, cfg, want: dict, card: str,
+                  keep: bool = False) -> dict:
+    """Path 15's training check for one model: ``cfg`` trained
+    SHARDED_STEPS steps one-device and on the (1, 1) ``mesh`` from the
+    same seed: losses, gradient norms, parameters, moments and the
+    optimiser's count bitwise the same (the one-device run's copied to
+    the host while the mesh's runs), ``want`` launched by both.  An MoE's
+    runs take PyTorch's deterministic kernels
+    (``torch.use_deterministic_algorithms``): the backward of its dispatch
+    gather adds each token's slots with atomics on the card, in an order
+    that differs from run to run, one-device too.  Returns the ms of each
+    run's steps by run ("ms": {"single", "sharded"}) and, ``keep``, both
+    runs' results under "single" and "sharded"; without it each run is
+    freed before the next."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+
+    def local(t):
+        return (t.to_local() if hasattr(t, "to_local") else t).detach()
+    runs, out, host, differ = {}, {}, [], []
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(cfg.moe is not None or
+                                       deterministic, warn_only=True)
+    for name, where in (("single", None), ("sharded", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_model_counts()
+        res = train.train(cfg, steps=SHARDED_STEPS, batch=TRAIN_B,
+                          seq=TRAIN_S, log_every=SHARDED_STEPS, seed=0,
+                          device=dev, mesh=where)
+        torch.cuda.synchronize()
+        got = [local(t) for t in (*res["params"], *res["opt"]["m"],
+                                  *res["opt"]["v"], res["opt"]["count"])]
+        if where is None:
+            host = [t.cpu() for t in got]
+        else:
+            differ = [i for i, (a, b) in enumerate(zip(host, got))
+                      if not torch.equal(a.to(dev), b)]
+        runs[name] = {"losses": res["losses"],
+                      "grad_norms": res["grad_norms"],
+                      "ms": [x * 1e3 for x in res["step_s"]],
+                      "launches": model_counts(),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "tensors": len(got)}
+        if keep:
+            out[name] = res
+        del res, got
+    torch.use_deterministic_algorithms(deterministic)
+    del host
+    torch.cuda.empty_cache()
+    one, many = runs["single"], runs["sharded"]
+    print(f"sharded path launches, {cfg.name}: " + json.dumps(
+        {k: v["launches"] for k, v in runs.items()}, sort_keys=True))
+    if one["launches"] != want or many["launches"] != want:
+        fail(f"sharded path: {cfg.name}: launches "
+             f"{ {k: v['launches'] for k, v in runs.items()} }; both "
+             f"runs must launch {want}")
+    if one["losses"] != many["losses"] or \
+            one["grad_norms"] != many["grad_norms"]:
+        fail(f"sharded path: {cfg.name}: losses {many['losses']} and "
+             f"norms {many['grad_norms']} on the mesh, "
+             f"{one['losses']} and {one['grad_norms']} on one device")
+    if differ:
+        fail(f"sharded path: {cfg.name}: {len(differ)} of "
+             f"{one['tensors']} parameters, moments and the count differ "
+             f"from the one-device run's (first {differ[:5]})")
+    what = (f", {cfg.moe.n_experts} experts" if cfg.moe else "") + (
+        f", {cfg.attn_impl}" if cfg.family == "dense" else "")
+    print(f"sharded: {cfg.name} full width, {cfg.n_layers} layers{what}, "
+          f"bf16, remat {cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens; "
+          f"{SHARDED_STEPS} steps one-device (ms "
+          + ", ".join(f"{x:.2f}" for x in one["ms"])
+          + f"; peak {one['peak_gb']:.2f} GB) and on "
+          f"{mesh_mod.describe(mesh)} over {dist.get_backend()} "
+          "(ms " + ", ".join(f"{x:.2f}" for x in many["ms"])
+          + f"; peak {many['peak_gb']:.2f} GB); last step sharded / "
+          f"one-device {many['ms'][-1] / one['ms'][-1]:.3f}; card {card}")
+    print(f"check: sharded: {cfg.name}: losses "
+          + ", ".join(f"{x:.6f}" for x in one["losses"])
+          + f", gradient norms and all {one['tensors']} parameters, moments "
+          f"and the count bitwise the one-device run's; launches "
+          f"{want or 'none'} on both")
+    out["ms"] = {k: v["ms"] for k, v in runs.items()}
+    return out
 
 
 def sharded_helpers(dev, mesh, cfg) -> None:
@@ -3922,15 +4027,75 @@ def dryrun_cell(cell: str) -> dict:
 def dryrun_main(cells) -> int:
     """``chip_smoke.py --dryrun CELL...``: each cell traced in turn on
     FakeTensors over a fake group of its mesh's size (``dryrun_cell``), in
-    a process that holds no other group; prints one JSON line, the records
-    by cell."""
+    a process that holds no other group, at the lowest CPU priority (the
+    children trace beside the card's timed paths, whose host-bound numbers
+    they must not move); prints one JSON line, the records by cell."""
+    os.nice(19)
     print(json.dumps({c: dryrun_cell(c) for c in cells}))
     return 0
 
 
-def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
-    """The dry-run: DRYRUN_CELLS traced in children started together (the
-    fake group shares no process with path 15's NCCL group).  (a) path 15's
+def rwkv_cell_flops(cfg, shape, data: int, model: int) -> tuple:
+    """(the matrix products' flops, K5's) a device of ``cfg``'s train step
+    on a (data, model) mesh whose model axis splits the projections, the
+    channel mix and the vocabulary but not the heads (rwkv6-3b's 40 on
+    16): a layer's six D x D products and ``ck`` run forward, again under
+    remat "full", and for both gradients (8 flops a weight and token),
+    ``cv``, whose output the backward does not read, is not recomputed
+    (6), the head 6; K5's forward twice and its backward, 5 + 5 + 14
+    flops a state entry and token, on every head of the rank's batch."""
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    tokens = shape.global_batch * shape.seq_len // (data * model)
+    mm = (L * (48 * D * D + 14 * D * F) + 6 * cfg.vocab * D) * tokens
+    k5 = L * 24 * shape.global_batch // data * cfg.d_model \
+        * cfg.rwkv_head_dim * shape.seq_len
+    return mm, k5
+
+
+def rwkv_cell_check(rec: dict) -> None:
+    """rwkv6-3b's train_4k on (16, 16), the "ssm" family's tensor-parallel
+    step: its flops a device are ``rwkv_cell_flops``' count exactly.  That
+    count is the port's own, from the layer's shapes: no figure of the
+    reference's compiled step is held for this cell, so the check holds
+    the graph to the split the layer means to make, not to the
+    reference."""
+    from repro_torch.config import SHAPES, get_config
+    cfg, shape = get_config("rwkv6_3b"), SHAPES["train_4k"]
+    mm, k5 = rwkv_cell_flops(cfg, shape, 16, 16)
+    got = rec["flops_per_device"]
+    zero3 = (mm * 16 + k5) / 1e12     # the model axis replicating all
+    print(f"dryrun: rwkv6_3b:train_4k:single tensor-parallel: "
+          f"{got / 1e12:.3f} TFLOP a device, the count {(mm + k5) / 1e12:.3f}"
+          f" ({mm / 1e12:.3f} of products split 256 ways, {k5 / 1e12:.3f} "
+          f"of K5 split over the data axis alone; the ZeRO-3 step's "
+          f"{zero3:.3f}), temp_size {rec['memory']['temp_size'] / 1e9:.1f} "
+          "GB")
+    if got != mm + k5:
+        fail(f"dryrun: rwkv6_3b:train_4k:single: {got} flops a device, "
+             f"the count {mm + k5}")
+    print("check: dryrun: rwkv6_3b:train_4k:single's flops a device are "
+          "the port's own tensor-parallel count exactly (not a figure of "
+          "the reference's compiled step)")
+
+
+def dryrun_start(cells) -> list:
+    """A ``--dryrun`` child for each list of ``cells``, started now:
+    [(the process, its cells)].  Each is killed at exit, should a check
+    end the script before ``dryrun_phase`` collects it."""
+    out = [(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--dryrun", *c], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), c)
+           for c in cells]
+    for p_, _ in out:
+        atexit.register(p_.kill)
+    return out
+
+
+def dryrun_phase(prof: dict, sharded_ms: dict, card: str,
+                 procs: list) -> None:
+    """The dry-run: DRYRUN_CELLS traced in the children ``procs``
+    (``dryrun_start``), started together as the script does (the fake
+    group shares no process with path 15's NCCL group).  (a) path 15's
     (1, 1) cell: its K4 nodes times the kernels a call launches equal the
     profiling child's launches of the same step on the card, its graph's
     flops ``FlopCounterMode``'s; its flops against PERF.md's operations
@@ -3944,20 +4109,16 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
     from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--dryrun", *cells], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for cells in DRYRUN_CELLS]
     recs = {}
     try:
-        for p_, cells in zip(procs, DRYRUN_CELLS):
+        for p_, cells in procs:
             out, err = p_.communicate(timeout=DRYRUN_TIMEOUT_S)
             if p_.returncode != 0:
                 fail(f"dryrun: the child tracing {cells} exited "
                      f"{p_.returncode}: {err[-3000:]}")
             recs.update(json.loads(out.strip().splitlines()[-1]))
     finally:
-        for p_ in procs:
+        for p_, _ in procs:
             p_.kill()
             p_.wait()
     wall = time.perf_counter() - t0
@@ -4043,8 +4204,10 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str) -> None:
           f"and (2, 16, 16) within {DRYRUN_FLOPS_TOL:.0%} of the reference's "
           f"flops a device, temp_size {DRYRUN_TEMP_CUT} x or more under the "
           "ZeRO-3 step's")
+    rwkv_cell_check(recs["rwkv6_3b:train_4k:single"])
     print(f"dryrun: {len(recs)} cells in {len(procs)} children, "
-          f"{wall:.1f} s (budget {DRYRUN_BUDGET_S} s)")
+          f"{wall:.1f} s waited for them after path 15 (budget "
+          f"{DRYRUN_BUDGET_S} s)")
 
 
 def main() -> int:
@@ -4063,6 +4226,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(f"card: {card}")
+    dryruns = dryrun_start(DRYRUN_CELLS)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4533,7 +4697,7 @@ def main() -> int:
     # ---- path 15, sharded: the multi-device training path at one rank ------
     sharded_ms = sharded_path(dev, prof, card)
     # ---- the dry-run: path 15's cell and production cells on fake groups --
-    dryrun_phase(prof, sharded_ms, card)
+    dryrun_phase(prof, sharded_ms, card, dryruns)
     entries += k4_entries(
         dev, prefilled["launches"], equiv, reduced, prof, moe_prefilled,
         [("hybrid_prefill", hybrid["prefill"], HYBRID_PREFILL_S,

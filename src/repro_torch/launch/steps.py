@@ -20,14 +20,17 @@ device (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``,
 compute on plain local tensors, so the kernels receive plain CUDA tensors.
 The weights are all-gathered before use (the whole model at once):
 
-* the dense family under the "tp" style (the reference's default), in the
-  train and prefill steps, gathers them over the batch's axes only, and
-  computes on its model shards (``parallel.tensor_parallel``): the "model"
-  axis splits the attention heads, the FFN columns and the vocabulary as
-  the reference's rules lay them out, so a rank does its share of the
-  work;
-* every other family and style, and the decode step, gathers each weight
-  whole (ZeRO-3), and the "model" axis holds replicas of the batch's work.
+* the dense, "ssm" (RWKV-6) and "moe" (DeepSeek-V2's MLA, Kimi-K2)
+  families under the "tp" style (the reference's default), in the train
+  and prefill steps, gather them over the batch's axes only, and compute
+  on their model shards (``parallel.tensor_parallel``): the "model" axis
+  splits the attention and RWKV heads, the FFN and channel-mix columns,
+  the routed experts and the vocabulary as the reference's rules lay them
+  out, so a rank does its share of the work;
+* the "hybrid" (Jamba), "encdec" (Whisper) and "vlm" (PaliGemma)
+  families, the "fsdp" and "ep" styles, and the decode step of every
+  family, gather each weight whole (ZeRO-3), and the "model" axis holds
+  replicas of the batch's work.
 
 Per-layer gathering is not ported.  The dry-run (``launch.dryrun``) traces
 the step ``build`` returns on FakeTensors over a fake group of the mesh's
@@ -102,11 +105,19 @@ def _sum_everywhere(x: torch.Tensor, mesh) -> torch.Tensor:
     return funcol.wait_tensor(funcol.all_reduce(x, "sum", dist.group.WORLD))
 
 
+# the families whose layers split their work over "model"; the others stay
+# ZeRO-3
+TENSOR_PARALLEL_FAMILIES = ("dense", "ssm", "moe")
+
+
 def _tensor_parallel(cfg: ArchConfig, mesh) -> bool:
     """Whether ``cfg``'s train and prefill steps compute on their model
-    shards: the dense family under the "tp" style, on a mesh with a
-    "model" axis."""
-    return (cfg.family == "dense" and cfg.parallel_style == "tp"
+    shards: the dense, "ssm" and "moe" families under the "tp" style, on a
+    mesh with a "model" axis.  Jamba's Mamba layers, Whisper's encoder and
+    cross attention, PaliGemma's image projection and every decode step
+    stay ZeRO-3: their layers run on whole weights."""
+    return (cfg.family in TENSOR_PARALLEL_FAMILIES
+            and cfg.parallel_style == "tp"
             and "model" in sharding.mesh_shape(mesh))
 
 

@@ -23,15 +23,18 @@ reference runs the same math in plain JAX:
   the carried state.
 
 The reference's sharding constraints (``constrain`` calls) become explicit
-collectives where tensor-parallel compute runs: the dense family's sharded
-train and prefill steps (``launch.steps``) install the mesh's "model" axis
-(``parallel.tensor_parallel.over``) and call ``attn_forward`` and
-``mlp_forward`` on the rank's model shards.  Each takes its head counts or
-FFN width from its weights' shapes, and where they are split marks its
-split region's entry (``enter``) and its row-split product's sum
-(``reduce``) at the reference's ``constrain`` points, so every rank computes
-its heads' and columns' share.  Elsewhere (one device, the other families,
-decode) the weights are whole and they run as before.  The dry-run
+collectives where tensor-parallel compute runs: the dense, RWKV-6 and MoE
+families' sharded train and prefill steps (``launch.steps``) install the
+mesh's "model" axis (``parallel.tensor_parallel.over``) and call
+``attn_forward``, ``mla_forward``, ``mlp_forward``, ``moe_forward``,
+``rwkv_time_mix`` and ``rwkv_channel_mix`` on the rank's model shards.
+Each takes its head counts, widths or experts from its weights' shapes,
+and where they are split marks its split region's entry (``enter``, after
+the last op on weights whole on "model", so their gradients come out
+whole) and its row-split product's sum (``reduce``) at the reference's
+``constrain`` points, so every rank computes its heads', columns' or
+experts' share.  Elsewhere (one device, the other families, decode) the
+weights are whole and they run as before.  The dry-run
 (``launch.dryrun``) traces these functions on FakeTensors: on its path
 they read no tensor's data on the host (``_sdpa``'s ``.item()`` reads a
 constant, which a FakeTensor keeps; ``_is_arange`` runs only for positions
@@ -321,21 +324,29 @@ def init_mla(cfg: ArchConfig, gen: torch.Generator, device):
     }
 
 
-def _mla_qkv(cfg, p, h, positions):
-    """(q_nope, q_rope (B,S,H,.), c_kv (B,S,r), k_rope (B,S,rope_hd))."""
+def _mla_qkv(cfg, p, h, positions, ax=None):
+    """(q_nope, q_rope (B,S,H,.), c_kv (B,S,r), k_rope (B,S,rope_hd)).
+    Under a tensor-parallel step (``ax``) the latents, whole on "model",
+    enter the split region before ``wuq`` splits their heads (k_rope,
+    which every head reads, among them)."""
     m = cfg.mla
-    q = _heads_in(h @ p["wdq"], p["wuq"])
+    cq, ckv = h @ p["wdq"], h @ p["wdkv"]
+    if ax is not None:
+        cq, ckv = tp.enter(cq, ax), tp.enter(ckv, ax)
+    q = _heads_in(cq, p["wuq"])
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = (h @ p["wdkv"]).split([m.kv_lora_rank, m.rope_head_dim],
-                                        dim=-1)
+    c_kv, k_rope = ckv.split([m.kv_lora_rank, m.rope_head_dim], dim=-1)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
 
 
-def _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid):
+def _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid, ax=None):
     """c_kv: (B, T, r); k_rope: (B, T, rope_hd) shared across heads; valid:
-    a mask broadcastable to (B, H, S, T), or None for none."""
+    a mask broadcastable to (B, H, S, T), or None for none.  Under a
+    tensor-parallel step (``ax``) the heads are the rank's (``wukv`` and
+    ``wo`` split) and the row-split ``wo`` product is summed over the
+    axis."""
     m = cfg.mla
     kv = _heads_in(c_kv, p["wukv"])                       # (B, T, H, e)
     k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
@@ -346,20 +357,27 @@ def _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid):
         sc = torch.where(valid, sc, -1e30)
     w = torch.softmax(sc, dim=-1).to(x.dtype)
     o = torch.einsum("bhst,bthv->bshv", w, v)
-    return x + _heads_out(o, p["wo"])
+    out = _heads_out(o, p["wo"])
+    if ax is not None:
+        # the reference's constrain of kv, q_nope and the scores to heads
+        # on "model" (repro/models/layers.py:240-246)
+        out = tp.reduce(out, ax)
+    return x + out
 
 
 def mla_forward(cfg: ArchConfig, p, x, positions, causal=True):
     """Full-sequence MLA.  x: (B, S, D); positions: (B, S), or None for
-    ``arange(S)`` in every row."""
+    ``arange(S)`` in every row.  The head count is ``wuq``'s: under a
+    tensor-parallel step the rank's share."""
+    ax = tp.split(p["wuq"].shape[1], cfg.n_heads)
     if positions is None:
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, h, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, h, positions, ax)
     valid = (positions[:, None, :, None] >= positions[:, None, None, :]) \
         if causal else None
-    return _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid)
+    return _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid, ax)
 
 
 def mla_decode(cfg: ArchConfig, p, x, cache, pos):
@@ -405,11 +423,12 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, device, d_ff=None):
     return p
 
 
-def mlp_forward(cfg: ArchConfig, p, x):
-    """The FFN; under a tensor-parallel step ``w_up``/``w_gate`` may hold
-    the rank's columns and ``w_down`` its rows (``cfg.d_ff`` split over the
-    model axis), the output then summed over the axis."""
-    ax = tp.split(p["w_down"].shape[0], cfg.d_ff)
+def mlp_forward(cfg: ArchConfig, p, x, d_ff=None):
+    """The FFN of width ``d_ff`` (``cfg.d_ff`` when None; the MoE's shared
+    experts pass theirs); under a tensor-parallel step ``w_up``/``w_gate``
+    may hold the rank's columns and ``w_down`` its rows (the width split
+    over the model axis), the output then summed over the axis."""
+    ax = tp.split(p["w_down"].shape[0], d_ff or cfg.d_ff)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if ax is not None:
         h = tp.enter(h, ax)
@@ -453,12 +472,14 @@ def moe_capacity(cfg: ArchConfig, Tg: int) -> int:
     return max(1, int(Tg * mc.top_k * mc.capacity_factor / mc.n_experts))
 
 
-def moe_route(cfg: ArchConfig, p, h) -> dict:
+def moe_route(cfg: ArchConfig, p, h, gidx=None) -> dict:
     """The router and the capacity dispatch tables of ``moe_forward`` for
     the normed activations h (G, Tg, D), one group per batch row:
 
     * ``logits`` (G, Tg, E) f32, ``gval`` / ``gidx`` (G, Tg, K): the top-k
-      of the softmax gates, renormalised;
+      of the softmax gates, renormalised; a given ``gidx`` routes the
+      pairs to those experts instead, its gates read there (two steps held
+      to one routing, where their sums' rounding would flip near ties);
     * ``posc`` (G, Tg, K): each (t, k)'s rank among the pairs routed to
       its expert, in (t, k) order (a stable sort of the flat expert ids);
       ``keep`` = ``posc < C``; ``slot`` = ``gidx * C + posc``;
@@ -475,7 +496,10 @@ def moe_route(cfg: ArchConfig, p, h) -> dict:
     dev = h.device
     logits = h.float() @ p["router"]
     gates = torch.softmax(logits, dim=-1)
-    gval, gidx = torch.topk(gates, K, dim=-1)
+    if gidx is None:
+        gval, gidx = torch.topk(gates, K, dim=-1)
+    else:
+        gval = torch.gather(gates, -1, gidx)
     gval = gval / (gval.sum(dim=-1, keepdim=True) + 1e-9)
     C = moe_capacity(cfg, Tg)
     N = Tg * K
@@ -505,29 +529,50 @@ def moe_forward(cfg: ArchConfig, p, x):
     each expert's slots of all groups go through its weights in one
     ``bmm`` against the (E, D, F) tensors as stored, and the outputs are
     gathered back and weighted by the kept gates.  With shared experts the
-    shared MLP carries the residual (its own norm); else ``x + out``."""
+    shared MLP carries the residual (its own norm); else ``x + out``.
+
+    Under a tensor-parallel step the expert weights may hold the rank's
+    E / m experts (expert parallelism over "model", the reference's
+    constrain of the expert buffers to "ep", repro/models/layers.py:378,
+    382): the routing is computed whole, as on every model rank (the
+    router is whole and the ranks hold the same tokens), the rank's
+    experts take their slots alone, each (t, k) pair is combined only
+    where its expert is the rank's (zeros elsewhere), and the sum over
+    the axis gives every pair once.  The normed tokens and the gates enter
+    the split region, so the router's gradient comes out whole."""
     B, S, D = x.shape
     mc = cfg.moe
     E, K = mc.n_experts, mc.top_k
     G, Tg = B, S
+    El = p["w_gate"].shape[0]
+    ax = tp.split(El, E)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     r = moe_route(cfg, p, h)
     C = r["C"]
+    src, vld, slot, gval = r["src"], r["vld"], r["slot"], r["gval"]
+    w = r["keep"].to(x.dtype)
+    if ax is not None:
+        e0 = ax.rank * El
+        h, gval = tp.enter(h, ax), tp.enter(gval, ax)
+        src, vld = (t[:, e0 * C:(e0 + El) * C] for t in (src, vld))
+        slot = slot - e0 * C
+        w = w * ((r["gidx"] >= e0) & (r["gidx"] < e0 + El)).to(x.dtype)
     # dispatch: the slots' tokens (the empty ones times 0, as gathered)
-    xin = torch.gather(h, 1, r["src"][..., None].expand(G, E * C, D)) \
-        * r["vld"][..., None]
-    xe = xin.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    xin = torch.gather(h, 1, src[..., None].expand(G, El * C, D)) \
+        * vld[..., None]
+    xe = xin.reshape(G, El, C, D).transpose(0, 1).reshape(El, G * C, D)
     mid = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    xout = torch.bmm(mid, p["w_down"])                    # (E, G*C, D)
-    flat = xout.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    xout = torch.bmm(mid, p["w_down"])                    # (El, G*C, D)
+    flat = xout.reshape(El, G, C, D).transpose(0, 1).reshape(G, El * C, D)
     # combine: each (t, k)'s slot back, weighted by its gate if kept
-    idx = r["slot"].clamp(0, E * C - 1).reshape(G, Tg * K)
+    idx = slot.clamp(0, El * C - 1).reshape(G, Tg * K)
     vals = torch.gather(flat, 1, idx[..., None].expand(G, Tg * K, D)) \
         .reshape(G, Tg, K, D)
-    w = (r["gval"].to(x.dtype) * r["keep"].to(x.dtype))[..., None]
-    out = (vals * w).sum(dim=2)
+    out = (vals * (gval.to(x.dtype) * w)[..., None]).sum(dim=2)
+    if ax is not None:
+        out = tp.reduce(out, ax)
     if mc.n_shared:
-        return mlp_forward(cfg, p["shared"], x) + out
+        return mlp_forward(cfg, p["shared"], x, mc.d_ff * mc.n_shared) + out
     return x + out
 
 
@@ -700,46 +745,101 @@ def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128,
     output into one in x's dtype; under autograd it returns its output in
     r's layout instead (an in-place write takes no grad), whose (B, S, D)
     view costs no copy either; ``chunk`` only keeps the reference's
-    precondition ``S % min(chunk, S) == 0``."""
-    B, S, D = x.shape
+    precondition ``S % min(chunk, S) == 0``.
+
+    Under a tensor-parallel step ``wr``, ``wg``, ``wdecay`` and
+    ``u_bonus`` may hold the rank's columns and ``wk``, ``wv`` and ``wo``
+    its rows: ``_rwkv_split`` then computes the rank's share."""
     hd = cfg.rwkv_head_dim
-    H = D // hd
+    ax = tp.split(p["wr"].shape[1], x.shape[-1])
     h = rms_norm(x, p["norm_a"], cfg.norm_eps)
     prev = _token_shift(h, shift_last)
     mix = torch.sigmoid(p["mix"])                         # (5, D)
     feats = [h + (prev - h) * mix[i] for i in range(5)]
+    if ax is not None:
+        return _rwkv_split(cfg, p, x, h, feats, ax, chunk)
     r = feats[0] @ p["wr"]
     k = feats[1] @ p["wk"]
     v = feats[2] @ p["wv"]
     g = F.silu(feats[3] @ p["wg"])
     w = torch.exp(-torch.exp((feats[4] @ p["wdecay"]).float() - 4.0))
+    out, s_fin = _wkv(r, k, v, w, p["u_bonus"], s0, hd, chunk, s_out)
+    y = x + (out * g) @ p["wo"]
+    return y, h[:, -1:], s_fin
+
+
+def _wkv(r, k, v, w, u, s0, hd: int, chunk: int, s_out=None):
+    """K5 over the (B, S, n) activations r, k, v, w (n = H * hd) and the
+    bonus u (n,): (its output (B, S, n) in r's dtype, the final state)."""
+    B, S, n = r.shape
+    H = n // hd
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"rwkv time mix: {S} tokens are not a multiple of "
                          f"chunk {chunk}")
 
-    def heads(t):                  # (B,S,D) -> a (B,H,S,hd) view
+    def heads(t):                  # (B,S,n) -> a (B,H,S,hd) view
         return t.reshape(B, S, H, hd).transpose(1, 2)
 
-    u = p["u_bonus"].reshape(H, hd)
+    u = u.reshape(H, hd)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
         o, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
                               s_out=s_out)
-        out = o.transpose(1, 2).reshape(B, S, D)
-    else:
-        out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
-        _, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
-                              out=heads(out), s_out=s_out)
-    y = x + (out * g) @ p["wo"]
+        return o.transpose(1, 2).reshape(B, S, n), s_fin
+    out = torch.empty((B, S, n), dtype=r.dtype, device=r.device)
+    _, s_fin = wkv6_state(heads(r), heads(k), heads(v), heads(w), u, s0,
+                          out=heads(out), s_out=s_out)
+    return out, s_fin
+
+
+def _rwkv_split(cfg: ArchConfig, p, x, h, feats, ax, chunk: int):
+    """The time mix of a tensor-parallel step, at the reference's
+    constrain of r, k, v, w to heads on "model" (repro/models/
+    layers.py:571-574).  Each mixed input enters the split region (the
+    mixes before it are whole on "model").  r, g and w are the rank's
+    columns (``wr``, ``wg``, ``wdecay``); k and v are the rank's columns
+    of a sum of the ranks' row blocks (``wk``, ``wv``: the reference's
+    3-entry attention rule cut to its last two), reduce-scattered.  Where
+    the rank's columns are not whole heads (rwkv6-3b's 40 heads on 16
+    ranks) the reference's ``fit_spec`` makes the heads whole: r, w and u
+    are gathered and k and v summed whole, K5 runs every head, and its
+    output enters the region again, cut back to the rank's columns.  The
+    row-split ``wo`` product is summed over the axis."""
+    n = p["wr"].shape[1]
+    cols = slice(ax.rank * n, (ax.rank + 1) * n)
+    feats = [tp.enter(f, ax) for f in feats]
+    whole = n % cfg.rwkv_head_dim != 0
+    to_cols = tp.reduce if whole else tp.reduce_scatter
+    r = feats[0] @ p["wr"]
+    k = to_cols(feats[1][..., cols] @ p["wk"], ax)
+    v = to_cols(feats[2][..., cols] @ p["wv"], ax)
+    g = F.silu(feats[3] @ p["wg"])
+    w = torch.exp(-torch.exp((feats[4] @ p["wdecay"]).float() - 4.0))
+    u = p["u_bonus"]
+    if whole:
+        r, w, u = (tp.gather(t, ax) for t in (r, w, u))
+    out, s_fin = _wkv(r, k, v, w, u, None, cfg.rwkv_head_dim, chunk)
+    if whole:
+        out = tp.enter(out, ax)[..., cols]
+    y = x + tp.reduce((out * g) @ p["wo"], ax)
     return y, h[:, -1:], s_fin
 
 
 def rwkv_channel_mix(cfg: ArchConfig, p, x, shift_last):
+    """The channel mix; under a tensor-parallel step ``ck`` may hold the
+    rank's columns and ``cv`` its rows (``cfg.d_ff`` split over the model
+    axis), the replicated mix entering the split region and the output
+    summed over the axis."""
+    ax = tp.split(p["ck"].shape[1], cfg.d_ff)
     h = rms_norm(x, p["norm_f"], cfg.norm_eps)
     prev = _token_shift(h, shift_last)
     mixed = h + (prev - h) * torch.sigmoid(p["cmix"])
+    if ax is not None:
+        mixed = tp.enter(mixed, ax)
     v = torch.square(torch.relu(mixed @ p["ck"])) @ p["cv"]
+    if ax is not None:
+        v = tp.reduce(v, ax)
     return x + v, h[:, -1:]
 
 

@@ -12,7 +12,10 @@ is, marks the edges of its split region:
   forward, a sum over "model" backward (each rank's share of its
   gradient);
 * ``reduce``: a row-split product leaves it: a sum over "model" forward,
-  the identity backward.
+  the identity backward;
+* ``reduce_scatter``: a row-split product whose columns the region splits
+  next (RWKV-6's ``wk`` and ``wv``): the sum over "model" of the rank's
+  column block forward, the ranks' blocks all-gathered backward.
 
 The vocabulary is split too: ``embed`` looks up the rank's rows of the
 table (ids outside them give zeros) and sums over "model";
@@ -101,14 +104,34 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+def _gather_cols(x, ax: Axis):
+    rows = funcol.wait_tensor(
+        torch.ops._c10d_functional.all_gather_into_tensor(
+            x.contiguous(), ax.size, ax.group.group_name))
+    return torch.cat(rows.chunk(ax.size), dim=-1)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        n = x.shape[-1] // ax.size
+        blocks = x.unflatten(-1, (ax.size, n)).movedim(-2, 0)
+        out = funcol.wait_tensor(
+            torch.ops._c10d_functional.reduce_scatter_tensor(
+                blocks.contiguous(), "sum", ax.size, ax.group.group_name))
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cols(g, ctx.ax), None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
         ctx.ax, ctx.n = ax, x.shape[-1]
-        rows = funcol.wait_tensor(
-            torch.ops._c10d_functional.all_gather_into_tensor(
-                x.contiguous(), ax.size, ax.group.group_name))
-        return torch.cat(rows.chunk(ax.size), dim=-1)
+        return _gather_cols(x, ax)
 
     @staticmethod
     def backward(ctx, g):
@@ -128,8 +151,17 @@ def reduce(x, ax: Axis):
     return _Reduce.apply(x, ax)
 
 
+def reduce_scatter(x, ax: Axis):
+    """The rank's column block (the last dim cut in ``ax.size``) of the
+    sum over ``ax`` of each rank's partial ``x``; backward, the ranks'
+    blocks of the gradient side by side."""
+    return _ReduceScatter.apply(x, ax)
+
+
 def gather(x, ax: Axis):
-    """The ranks' column blocks of ``x`` (the last dim) side by side."""
+    """The ranks' column blocks of ``x`` (the last dim) side by side; its
+    gradient is cut back to the rank's block, so what follows must be the
+    same on every rank of ``ax``."""
     return _Gather.apply(x, ax)
 
 

@@ -4,10 +4,14 @@ forward and gradients), the ring all-gather matmul, the int8 compressed
 all-reduce, the sharded train step of the reduced llama3-8b on (4, 2) and
 (2, 2) meshes through ``launch.train.train``, the tensor-parallel train
 steps of the reduced llama3-8b (dense and chunked attention, and with 8 q
-heads over its 2 kv heads, which a 4-way model axis does not split) and
-gemma-7b on (1, 2), (2, 2) and (1, 4) meshes and at (1, 1) in this
-process, the sharded prefill and decode steps, the elastic restore, and
-the raise where the card or NCCL is asked for and missing.
+heads over its 2 kv heads, which a 4-way model axis does not split),
+gemma-7b, rwkv6-3b (its 2 heads split on (1, 2) and (2, 2), whole on
+(1, 4)), deepseek-v2 (MLA, the experts over "model") and kimi-k2 on
+(1, 2), (2, 2) and (1, 4) meshes and at (1, 1) in this process, the
+parameters whole on "model" equal across its ranks, the MoE's shared MLP
+at its own width under a model axis, the sharded prefill and decode
+steps, the elastic restore, and the raise where the card or NCCL is asked
+for and missing.
 
 The cases spawn their ranks three times in all (``torch_dist_workers.spawn``:
 a ``FileStore`` under a temporary directory, one thread a rank, a deadline
@@ -40,6 +44,7 @@ from repro_torch.data import SyntheticLMData
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as torch_lm
 from repro_torch.optim import adamw_init, cosine_schedule
 from repro_torch.parallel import compression as tcompression
@@ -265,11 +270,20 @@ def reference(tmp_path_factory):
 TP_MODELS = {"llama3_8b": ("llama3_8b", {}),
              "llama3_8b-chunked": ("llama3_8b", {"attn_impl": "chunked"}),
              "gemma_7b": ("gemma_7b", {}),
-             "llama3_8b-8-heads": ("llama3_8b", {"n_heads": 8})}
+             "llama3_8b-8-heads": ("llama3_8b", {"n_heads": 8}),
+             "rwkv6_3b": ("rwkv6_3b", {}),
+             "deepseek_v2_236b": ("deepseek_v2_236b", {}),
+             "kimi_k2_1t_a32b": ("kimi_k2_1t_a32b", {})}
 # the meshes each runs on: (1, 4) splits the 8 q heads 2 a rank, each
-# pair reading one of the 2 kv heads, which stay whole on "model"
+# pair reading one of the 2 kv heads, which stay whole on "model"; the
+# reduced rwkv6-3b's 2 heads of 64 split on (1, 2) and (2, 2), and are made
+# whole on (1, 4) (32 columns a rank); deepseek-v2's 8 experts go 4 or 2 a
+# rank, its MLA heads 2 or 1; kimi-k2's 4 q and 2 kv heads 2 and 1 a rank
 TP_RUNS = [(m, s) for m in list(TP_MODELS)[:3] for s in ((1, 2), (2, 2))] \
-    + [("llama3_8b-8-heads", (1, 4))]
+    + [("llama3_8b-8-heads", (1, 4))] \
+    + [("rwkv6_3b", s) for s in ((1, 2), (2, 2), (1, 4))] \
+    + [("deepseek_v2_236b", s) for s in ((1, 2), (2, 2))] \
+    + [("kimi_k2_1t_a32b", (2, 2))]
 
 
 @pytest.fixture(scope="module")
@@ -332,18 +346,39 @@ def four_ranks(reference, run_4x2, tp_references):
         0, tcfg.vocab, (4, 16)).astype(np.int32)
     tree = _port_tree(tcfg, reference["tree"])
     tp_jobs, tp_runs = _tp_jobs(tp_references, 4)
+    shared = _shared_mlp_case()
     ranks = workers.spawn(workers.several, 4,
                           str(reference["root"] / "four"), [
                               job,
                               ("elastic_restore", (fsdp, (2, 2),
                                                    run_4x2["ckpt"], STEPS)),
                               ("prefill_decode", (tcfg, (2, 2), tree,
-                                                  tokens)), *tp_jobs])
+                                                  tokens)),
+                              ("shared_mlp", shared), *tp_jobs])
     return {"run_2x2": _sharded_run(run, ranks), "tokens": tokens,
             "tree": tree, "cfg": tcfg,
             "restore": [r["elastic_restore"] for r in ranks],
             "prefill": [r["prefill_decode"] for r in ranks],
+            "shared_mlp": (shared, [r["shared_mlp"] for r in ranks]),
             "tp": _tp_results(tp_runs, ranks)}
+
+
+def _shared_mlp_case():
+    """(config, MoE layer, input) for ``workers.shared_mlp`` on 4 ranks:
+    the reduced deepseek-v2 (f32) with its experts 40 wide, so that its
+    one shared expert's width times the model axis is ``cfg.d_ff`` (160),
+    as DeepSeek-V2's 2 x 1,536 times 4 is its 12,288: the ratio at which
+    a whole shared MLP looks like a rank's share of ``cfg.d_ff``."""
+    _, cfg = _cfgs("deepseek_v2_236b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           d_ff=40))
+    assert cfg.moe.d_ff * cfg.moe.n_shared * 4 == cfg.d_ff
+    layer = tlayers.init_moe(cfg, torch.Generator().manual_seed(3), "cpu")
+    x = np.random.default_rng(4).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    return cfg, {k: ({n: t.numpy() for n, t in v.items()}
+                     if isinstance(v, dict) else v.numpy())
+                 for k, v in layer.items()}, x
 
 
 def _tp_jobs(tp_references, world: int):
@@ -481,8 +516,53 @@ def test_tensor_parallel_train_stores_only_its_share(tp_runs, name, shape):
 
 
 @pytest.mark.timeout(SPAWN_TIMEOUT)
-def test_tensor_parallel_train_1x1_is_the_one_device_step_bitwise(
-        reference, tmp_path):
+@pytest.mark.parametrize("name,shape", TP_RUNS)
+def test_tensor_parallel_train_keeps_model_replicas_equal(tp_runs, name,
+                                                          shape):
+    """After the steps every parameter whole on "model" (norms, RWKV's
+    mixes, MLA's down projections, the router, a weight whose heads do
+    not divide the axis) holds the same bits on each rank of a "model"
+    row: its gradient was the whole gradient on every rank.  A replicated
+    activation entering the split region before the last op on such a
+    parameter would leave its gradient a partial sum, and each rank's
+    AdamW step then moves it apart."""
+    run = tp_runs[f"tp_{name}_{shape[0]}x{shape[1]}"]
+    model = torch_lm.LM(run["cfg"], tsteps.abstract_params(run["cfg"]))
+    names = [n for n, _ in model.named_parameters()]
+    specs = tsharding.param_list_specs(run["cfg"], model, run["mesh"])
+    whole = [i for i, sp in enumerate(specs)
+             if not any("model" in tsharding._axes(e) for e in sp)]
+    assert whole
+    rows = {}
+    for r in run["ranks"]:
+        rows.setdefault(r["coord"][0], []).append(r)
+    assert all(len(v) == shape[1] for v in rows.values())
+    for ranks in rows.values():
+        for i in whole:
+            for r in ranks[1:]:
+                np.testing.assert_array_equal(
+                    r["blocks"][i], ranks[0]["blocks"][i],
+                    err_msg=f"{names[i]} on {r['coord']}")
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+@pytest.mark.parametrize("case", ["whole", "split"])
+def test_shared_mlp_takes_its_width_from_the_moe_layer(four_ranks, case):
+    """Under a 4-way model axis the MoE layer's shared MLP (40 wide, a
+    quarter of ``cfg.d_ff``) gives the one-device output, whole (it is no
+    share of ``cfg.d_ff``: summing it over the axis would count it 4 times)
+    and split as the rule tables lay it out (10 columns a rank)."""
+    (cfg, layer, x), ranks = four_ranks["shared_mlp"]
+    with torch.no_grad():
+        want = tlayers.moe_forward(cfg, workers._tensors(layer),
+                                   torch.from_numpy(x)).numpy()
+    for r in ranks:
+        got = r[case]
+        assert not isinstance(got, str), got
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _one_rank_is_bitwise(reference, tmp_path):
     """At one rank (a (1, 1) gloo mesh in this process) the
     tensor-parallel step runs the one-device step's ops in the same order:
     losses, gradient norms, parameters and moments bitwise."""
@@ -506,6 +586,23 @@ def test_tensor_parallel_train_1x1_is_the_one_device_step_bitwise(
     for a, b in zip([*got["params"], *got["opt"]["m"], *got["opt"]["v"]],
                     [*want["params"], *want["m"], *want["v"]]):
         assert torch.equal(a.to_local(), b)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_tensor_parallel_train_1x1_is_the_one_device_step_bitwise(
+        reference, tmp_path):
+    """The reduced llama3-8b: ``_one_rank_is_bitwise``."""
+    _one_rank_is_bitwise(reference, tmp_path)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+@pytest.mark.parametrize("name", ["rwkv6_3b", "deepseek_v2_236b",
+                                  "kimi_k2_1t_a32b"])
+def test_tensor_parallel_train_1x1_is_bitwise_for_ssm_and_moe(
+        tp_references, tmp_path, name):
+    """RWKV-6, DeepSeek-V2 and Kimi-K2 at one rank:
+    ``_one_rank_is_bitwise``."""
+    _one_rank_is_bitwise(tp_references[name], tmp_path)
 
 
 @pytest.mark.timeout(SPAWN_TIMEOUT)

@@ -2,11 +2,13 @@
 configurations at the meshes (1, 1), (2, 2) and (16, 16), each on a fake
 group of its size: the record's keys are the reference's; the analyzer's
 flops are ``FlopCounterMode``'s; dense prefills at (1, 1) count the
-reference's HLO dot flops exactly; the dense family's tensor-parallel train
-and prefill steps split their work over both axes, their (2, 2) flops
-equal to the reference's compiled step's; elsewhere the "model" axis
-replicates work and the "data" axis splits it; all-gather bytes and the
-arguments' bytes follow the specs; K4 and K5 appear as operator nodes; no
+reference's HLO dot flops exactly; the dense, RWKV-6 and MoE families'
+tensor-parallel train and prefill steps split their work over both axes,
+their (2, 2) flops equal to the reference's compiled step's, or apart from
+it by the terms XLA splits on weights whole on "model"; RWKV-6's heads
+made whole where they do not divide the model axis; elsewhere the "model"
+axis replicates work and the "data" axis splits it; all-gather bytes and
+the arguments' bytes follow the specs; K4 and K5 appear as operator nodes; no
 process group is left behind; ``main`` writes, caches, skips and records
 failures as the reference's does.  Beside it, the kernels' operators: on
 CPU tensors the plain versions bitwise, and the card raised for where there
@@ -55,6 +57,8 @@ CONFIGS = [("llama3_8b", "dense"), ("llama3_8b", "chunked"),
 KINDS = ("train", "prefill", "decode")
 S, B = 64, 16                    # tokens, global batch (splits over 16)
 CELLS = [(a, i, k, m) for a, i in CONFIGS for k in KINDS for m in MESHES]
+# meshes traced for one test each, beside MESHES
+MORE_MESHES = {"1x4": ((1, 4), ("data", "model"))}
 
 
 @pytest.fixture(autouse=True)
@@ -80,7 +84,7 @@ def _cell(arch, impl, kind, mesh):
     """(the record, the port's operator nodes by name) of one cell; the
     fake group gone after."""
     cfg = _cfg(arch, impl)
-    with dryrun.dryrun_mesh(*MESHES[mesh]) as m:
+    with dryrun.dryrun_mesh(*{**MESHES, **MORE_MESHES}[mesh]) as m:
         tr = dryrun.trace_step(cfg, _shape(kind), m)
         rec = dryrun.record(arch, "t", mesh, cfg, _shape(kind), m, tr)
     assert not dist.is_initialized()
@@ -124,9 +128,51 @@ def test_dense_prefill_counts_the_references_dot_flops(arch):
 
 
 def _tensor_parallel(arch, kind):
-    """Whether the cell's step computes on its model shards: the dense
-    family's train and prefill steps (style "tp")."""
-    return _cfg(arch, "dense").family == "dense" and kind != "decode"
+    """Whether the cell's step computes on its model shards: the dense,
+    "ssm" and "moe" families' train and prefill steps (style "tp")."""
+    return _cfg(arch, "dense").family in ("dense", "ssm", "moe") \
+        and kind != "decode"
+
+
+def _latent_width(cfg) -> int:
+    """The columns of MLA's down projections ``wdq`` and ``wdkv``
+    together (0 without MLA)."""
+    m = cfg.mla
+    return m.q_lora_rank + m.kv_lora_rank + m.rope_head_dim if m else 0
+
+
+def _whole_on_model_flops(cfg, kind, tokens: int) -> int:
+    """The flops of the products with weights whole on "model" that a
+    tensor-parallel step computes whole on every model rank, on
+    ``tokens`` tokens: MLA's ``h @ wdq`` and ``h @ wdkv`` and the
+    router's ``h @ router``.  A prefill does each once; a train step four
+    times (the forward, again under remat "full", the input's gradient
+    and the weight's)."""
+    width = sum(_latent_width(cfg) * (cfg.layer_kind(i) == "mla")
+                + cfg.moe.n_experts * cfg.is_moe_layer(i)
+                for i in range(cfg.n_layers)) if cfg.moe else 0
+    return 2 * tokens * cfg.d_model * width * (4 if kind == "train" else 1)
+
+
+def _xla_model_splits(cfg, kind, tokens: int) -> int:
+    """The flops by which the reference's (2, 2) step, as XLA partitions
+    it, does less than the port's on a device of ``tokens`` tokens: XLA
+    splits work on weights whole on "model" between the two model ranks
+    where the port repeats it on each (PERF.md §6).  In a train step half
+    of each such weight's gradient (``wdq`` and ``wdkv`` in every MLA
+    layer, the router in every MoE layer), and half of the dense prefix
+    layer's ``h @ wdq`` and ``h @ wdkv``, which the reference applies
+    outside its scan: in its forward (a prefill) and again under remat
+    (a train step)."""
+    prefix = cfg.dense_prefix_layers * tokens * cfg.d_model \
+        * _latent_width(cfg)
+    if kind == "prefill":
+        return prefix
+    n_mla = sum(cfg.layer_kind(i) == "mla" for i in range(cfg.n_layers))
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    return 2 * prefix + tokens * cfg.d_model * (
+        n_mla * _latent_width(cfg)
+        + (n_moe * cfg.moe.n_experts if cfg.moe else 0))
 
 
 # the reference's (2, 2) cells: its steps compiled by XLA on 4 host devices
@@ -153,7 +199,8 @@ for arch, kind in json.loads(sys.argv[1]):
     out[arch + ":" + kind] = hlo_analysis.analyze(text)["flops"]
 print(json.dumps(out))
 """ % (S, B)
-TP_CELLS = [(a, k) for a in ("llama3_8b", "gemma_7b")
+TP_CELLS = [(a, k) for a in ("llama3_8b", "gemma_7b", "deepseek_v2_236b",
+                          "kimi_k2_1t_a32b")
             for k in ("train", "prefill")]
 
 
@@ -174,29 +221,42 @@ def reference_2x2():
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("arch,kind", TP_CELLS)
 def test_model_axis_flops_equal_the_references(reference_2x2, arch, kind):
-    """The dense family's tensor-parallel train and prefill steps at
-    (2, 2): a device's flops are the reference's compiled step's,
-    exactly (dense attention, which the reference's analyzer counts as
-    the port's)."""
+    """The tensor-parallel train and prefill steps at (2, 2): a device's
+    flops are the reference's compiled step's (dense attention, which the
+    reference's analyzer counts as the port's), exactly for the dense
+    family and Kimi-K2's prefill; for DeepSeek-V2 and Kimi-K2's train
+    step, apart by exactly the products XLA splits on weights whole on
+    "model" (``_xla_model_splits``: the latents' and router's weight
+    gradients, DeepSeek-V2's prefix latents)."""
     rec, _ = _cell(arch, "dense", kind, "2x2")
-    assert rec["flops_per_device"] == reference_2x2[f"{arch}:{kind}"]
+    extra = _xla_model_splits(_cfg(arch, "dense"), kind, B // 2 * S)
+    assert extra == 0 or arch in ("deepseek_v2_236b", "kimi_k2_1t_a32b")
+    assert rec["flops_per_device"] == reference_2x2[f"{arch}:{kind}"] \
+        + extra
 
 
 @pytest.mark.parametrize("arch,impl,kind", [(a, i, k) for a, i in CONFIGS
                                             for k in KINDS])
 def test_data_axis_splits_the_work_model_axis_replicates_it(arch, impl,
                                                            kind):
-    """The dense family's train and prefill steps split the batch over
-    "data" and the heads, FFN columns and vocabulary over "model": at
-    (2, 2) a device does a quarter of (1, 1)'s work.  The other cells
-    gather every weight and split the batch over "data" alone, so at
-    (2, 2) a device does half of (1, 1)'s work: the other families and
-    the decode step do not split their compute over "model" yet
-    (ROADMAP's F5)."""
+    """The dense, RWKV-6 and MoE families' train and prefill steps split
+    the batch over "data" and the heads, FFN and channel-mix columns,
+    experts and vocabulary over "model": at (2, 2) a device does a quarter
+    of (1, 1)'s work, but for the products with weights whole on "model"
+    (DeepSeek-V2's latent projections and router), which it does half of
+    (``_whole_on_model_flops``).  The decode cells gather every weight and
+    split the batch over "data" alone, so at (2, 2) a device does half of
+    (1, 1)'s work: the decode step does not split its compute over
+    "model" yet (ROADMAP's F5)."""
     one, _ = _cell(arch, impl, kind, "1x1")
     four, _ = _cell(arch, impl, kind, "2x2")
-    split = 4 if _tensor_parallel(arch, kind) else 2
-    assert split * four["flops_per_device"] == one["flops_per_device"]
+    if _tensor_parallel(arch, kind):
+        whole = _whole_on_model_flops(_cfg(arch, impl), kind, S * B)
+        assert (whole > 0) == (arch == "deepseek_v2_236b")
+        assert 4 * four["flops_per_device"] == one["flops_per_device"] \
+            + whole
+    else:
+        assert 2 * four["flops_per_device"] == one["flops_per_device"]
 
 
 def _sharded_sizes(spec, sizes):
@@ -211,13 +271,12 @@ def _sharded_sizes(spec, sizes):
 def test_all_gather_bytes_follow_the_parameter_specs(arch, impl, kind,
                                                      mesh):
     """Every weight is gathered one mesh axis at a time, each gather's
-    result the tensor over the axes gathered so far.  The dense family's
-    tensor-parallel steps gather over the data axes only, keeping each
-    weight's model shard: a weight sharded over "data" (n) and "model" (m)
-    moves full / m; the prefill then gathers its logits' vocabulary over
-    "model" (the batch's block of them, f32).  The other cells (other
-    families: ROADMAP's F5) gather each weight whole: a weight sharded
-    over axes of sizes n1, n2 moves full / n1 + full.  Nothing else is
+    result the tensor over the axes gathered so far.  The tensor-parallel
+    steps (the dense, RWKV-6 and MoE families) gather over the data axes
+    only, keeping each weight's model shard: a weight sharded over "data"
+    (n) and "model" (m) moves full / m; the prefill then gathers its
+    logits' vocabulary over "model" (the batch's block of them, f32), and
+    RWKV-6 its activations (``_rwkv_gathers``).  Nothing else is
     all-gathered in a train or prefill step."""
     cfg = _cfg(arch, impl)
     _, (pspecs, *_), _, abstract = steps.build(cfg, _shape(kind),
@@ -235,8 +294,49 @@ def test_all_gather_bytes_follow_the_parameter_specs(arch, impl, kind,
         want += sum(full // math.prod(ns[:j]) for j in range(len(ns)))
     if split and kind == "prefill" and sizes["model"] > 1:
         want += B // sizes["data"] * S * cfg.vocab * 4
+    if split:
+        want += _rwkv_gathers(cfg, kind, sizes)
     rec, _ = _cell(arch, impl, kind, mesh)
     assert rec["collective_bytes_per_device"].get("all-gather", 0) == want
+
+
+def _rwkv_gathers(cfg, kind, sizes) -> int:
+    """The bytes of RWKV-6's activations all-gathered over "model" in a
+    tensor-parallel step, a device.  Where a rank's columns are whole
+    heads, the backward of k's and v's reduce-scatter gathers their
+    gradients (a train step); where they are not, each forward (twice in
+    a train step: remat "full") gathers r, w (f32) and the bonus u (f32)
+    whole, for K5 to run every head."""
+    if cfg.family != "ssm" or sizes["model"] == 1:
+        return 0
+    rows, D = B // sizes["data"] * S, cfg.d_model
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    if D // sizes["model"] % cfg.rwkv_head_dim == 0:
+        per = 2 * rows * D * item if kind == "train" else 0
+    else:
+        per = (rows * D * (item + 4) + D * 4) * (2 if kind == "train" else 1)
+    return cfg.n_layers * per
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_rwkv_heads_whole_on_1x4_run_k5_on_every_head(kind):
+    """The reduced rwkv6-3b's 2 heads of 64 on a (1, 4) mesh: a rank's 32
+    columns are half a head, so the heads are made whole, as the
+    reference's ``fit_spec`` makes them.  The projections, the channel mix
+    and the logits are a quarter of (1, 1)'s flops; K5's forward (twice in
+    a train step) and backward run every head on every rank, their flops
+    whole; r, w and u are all-gathered for it."""
+    cfg = _cfg("rwkv6_3b", "dense")
+    one, ops1 = _cell("rwkv6_3b", "dense", kind, "1x1")
+    four, ops4 = _cell("rwkv6_3b", "dense", kind, "1x4")
+    assert ops4 == ops1
+    calls = {"train": 2 * 5 + 14, "prefill": 5}[kind]
+    k5 = cfg.n_layers * calls * B * S * cfg.d_model * cfg.rwkv_head_dim
+    assert 4 * (four["flops_per_device"] - k5) == \
+        one["flops_per_device"] - k5
+    logits = B * S * cfg.vocab * 4 if kind == "prefill" else 0
+    assert four["collective_bytes_per_device"]["all-gather"] == logits \
+        + _rwkv_gathers(cfg, kind, {"data": 1, "model": 4})
 
 
 @pytest.mark.parametrize("arch,impl,kind,mesh", CELLS)

@@ -173,6 +173,33 @@ def test_moe_dispatch_shapes_do_not_depend_on_the_data():
     assert r2["keep"].sum().item() == tcfg.moe.top_k * C * B  # C per expert
 
 
+def test_moe_route_takes_given_expert_ids():
+    """``moe_route(..., gidx=)`` routes to the given experts: its own top-k
+    fed back gives the same tables bitwise; another routing (each token's
+    experts shifted by one) reads the gates there and builds its tables
+    as the dispatch oracle does."""
+    cfg, tcfg = _cfgs("deepseek_v2_236b")
+    p = _t(_np(JL.init_moe(cfg, jax.random.key(17))))
+    h = TL.rms_norm(torch.from_numpy(_rand((B, 32, tcfg.d_model), 18)),
+                    p["norm"], tcfg.norm_eps)
+    own = TL.moe_route(tcfg, p, h)
+    fed = TL.moe_route(tcfg, p, h, gidx=own["gidx"])
+    for k in ("logits", "gval", "gidx", "posc", "keep", "slot", "src",
+              "vld"):
+        assert torch.equal(own[k], fed[k]), k
+    E = tcfg.moe.n_experts
+    other = (own["gidx"] + 1) % E
+    r = TL.moe_route(tcfg, p, h, gidx=other)
+    gates = torch.softmax(own["logits"], dim=-1).gather(-1, other)
+    _close(r["gval"], (gates / (gates.sum(-1, keepdim=True) + 1e-9)).numpy(),
+           msg="gates")
+    posc, keep, src, vld = dispatch_oracle(other.numpy(), E, r["C"])
+    np.testing.assert_array_equal(r["posc"].numpy(), posc)
+    np.testing.assert_array_equal(r["keep"].numpy(), keep)
+    np.testing.assert_array_equal(r["src"].numpy(), src)
+    np.testing.assert_array_equal(r["vld"].numpy(), vld)
+
+
 def test_normal_draws_large_tensors_in_slices(monkeypatch):
     """Above ``_DRAW_ELEMS`` the draw goes slice by slice of the leading
     axis into the cast tensor; below it, one draw as before."""

@@ -129,8 +129,9 @@ def collectives(rank, out, pipe, x, w, grads, layout):
 def sharded_train(rank, out, cfg, mesh_shape, ckpt_dir, steps, batch, seq):
     """``launch.train.train`` on a (data, model) mesh of ``mesh_shape``,
     resuming from ``ckpt_dir``'s latest checkpoint; returns the losses, the
-    gradient norms, the rank's mesh coordinate and the local shapes of its
-    parameters and moments."""
+    gradient norms, the rank's mesh coordinate, the local shapes of its
+    parameters and moments and its parameters' local blocks after the
+    last step."""
     from repro_torch.launch import train
     mesh = tmesh.make_test_mesh(*mesh_shape, device="cpu")
     r = train.train(cfg, steps=steps, batch=batch, seq=seq,
@@ -141,7 +142,8 @@ def sharded_train(rank, out, cfg, mesh_shape, ckpt_dir, steps, batch, seq):
                       for k, ts in (("params", r["params"]),
                                     ("m", r["opt"]["m"]),
                                     ("v", r["opt"]["v"]))},
-            "global": [tuple(t.shape) for t in r["params"]]}
+            "global": [tuple(t.shape) for t in r["params"]],
+            "blocks": [t.to_local().detach().numpy() for t in r["params"]]}
 
 
 def elastic_restore(rank, out, cfg, mesh_shape, ckpt_dir, step):
@@ -215,3 +217,35 @@ def _tensors(tree):
     if isinstance(tree, list):
         return [_tensors(v) for v in tree]
     return torch.from_numpy(tree)
+
+
+def shared_mlp(rank, out, cfg, layer, x):
+    """An MoE layer (numpy weights, the port's layout) on a (1, N) mesh
+    under ``tensor_parallel.over``: {"whole": its output with every weight
+    whole, "split": with the rank's columns (rows of ``w_down``) of the
+    shared MLP, as the rule tables lay them out, the routed experts
+    whole}.  A case that raises a ValueError gives its message
+    instead."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import tensor_parallel
+    mesh = tmesh.make_test_mesh(1, dist.get_world_size(), device="cpu")
+    n = dist.get_world_size()
+
+    def block(t, dim):
+        size = t.shape[dim] // n
+        return t.narrow(dim, rank * size, size)
+    whole = _tensors(layer)
+    split = {**whole,
+             "shared": {"norm": whole["shared"]["norm"],
+                        "w_gate": block(whole["shared"]["w_gate"], 1),
+                        "w_up": block(whole["shared"]["w_up"], 1),
+                        "w_down": block(whole["shared"]["w_down"], 0)}}
+    res = {}
+    for name, p in (("whole", whole), ("split", split)):
+        try:
+            with torch.no_grad(), tensor_parallel.over(mesh):
+                res[name] = layers.moe_forward(cfg, p, torch.from_numpy(
+                    x)).numpy()
+        except ValueError as e:
+            res[name] = str(e)
+    return res

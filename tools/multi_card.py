@@ -16,23 +16,38 @@ On N ranks (N even) it checks, and times on the card:
 * ``pipelined_forward`` at S = N stages against ``reference_forward``, and
   the stages' gradients (summed over the ranks) against autograd of the
   reference loss;
-* llama3-8b at its published widths cut to ``--layers`` layers (bf16,
-  chunked attention, remat "full"; ``--reduced``: the reduced config)
-  trained ``--steps`` steps on ``--batch`` x ``--seq`` tokens by
+* each model of ``--arch`` (a comma-separated list; default llama3-8b)
+  at its published widths cut to ``--layers`` layers (bf16, remat
+  "full"; llama3-8b with chunked attention; DeepSeek-V2's 2 layers its
+  dense first layer and one MoE layer, with MOE_EXPERTS of its routed
+  experts; ``--reduced``: the reduced configs) trained ``--steps`` steps
+  on ``--batch`` x ``--seq`` tokens by
   ``launch.train.train`` on the (data, model) meshes (N // 2, 2) and
   (1, N), the tensor-parallel step: the model axis splits the heads, FFN
-  columns and vocabulary; against the one-device step on rank 0 from the
-  same weights and batches: the losses (the first steps' learning rates
-  are 0 and 3e-6, so the losses differ by rounding alone) within
-  LOSS_RTOL, the global gradient norms (which a gradient doubled or
-  dropped on the model axis moves, whatever the rate) within NORM_RTOL,
-  the ms a step of each, and the (q, k) shapes of every rank's K4 calls; then one more step of each, after a warm-up,
-  under ``torch.profiler`` on the card (rank 0): its wall ms, the device's
-  busy ms (the union of its kernels' spans) and kernel ms by class
-  (NCCL, GEMMs, K4, the rest).
+  and channel-mix columns, the routed experts and the vocabulary; against
+  the one-device step on rank 0 from the same weights and batches: the
+  losses (the first steps' learning rates are 0 and 3e-6, so the losses
+  differ by rounding alone) within LOSS_RTOL, the global gradient norms
+  (which a gradient doubled or dropped on the model axis moves, whatever
+  the rate) within NORM_RTOL, the ms a step of each, the one-device
+  step's peak memory, and the shapes of every rank's K4 calls ((q, k))
+  and K5 calls (r); then one more step of each, after a warm-up, under
+  ``torch.profiler`` on the card (rank 0): its wall ms, the device's busy
+  ms (the union of its kernels' spans) and kernel ms by class (NCCL,
+  GEMMs, K4, K5, the rest).  An MoE's mesh steps route their tokens as
+  their own sums give (bf16 sums in another order flip top-k's near ties:
+  the count of rank 0's tokens routed otherwise in step 0's first MoE
+  layer is printed with the check), and then run again under
+  deterministic kernels, each rank fed the routing of its rows from a
+  deterministic one-device run (``route_spy``), against the same limits:
+  a fault in the split arithmetic shows there, apart from the routing's
+  flips and the atomics' order.
 
 Rank 0 prints the card's name and power limit, one line a check and a
-JSON line of every number; a failed check exits non-zero on every rank.
+JSON line of every number; a failed check is printed where it fails, the
+run goes on to its end (each model's numbers are kept), and then rank 0
+exits non-zero (the other ranks exit 0 first: ``torch.distributed.run``
+would stop rank 0's dry-run records when any other rank failed).
 """
 from __future__ import annotations
 
@@ -69,6 +84,10 @@ from repro_torch.parallel import pipeline  # noqa: E402
 # full width: 1.09e-4; 4 gloo ranks on the reduced config: 1.76e-3)
 LOSS_RTOL = 1e-3
 NORM_RTOL = {"cuda": 5e-4, "cpu": 8e-3}
+# the routed experts a published MoE keeps: with DeepSeek-V2's 160 its
+# one-card step runs out of memory in AdamW (f32 temporaries of the 5 GB
+# expert tensors beside 43 GB of bf16 parameters, gradients and moments)
+MOE_EXPERTS = 80
 
 
 def sync(dev):
@@ -98,7 +117,8 @@ def time_ms(fn, dev, reps: int) -> float:
 
 def check(ok: bool, what: str, out: dict) -> None:
     """Every rank agrees on the verdict (a MAX of the failures), rank 0
-    prints it; a failure ends every rank non-zero."""
+    prints it; a failure is listed in ``out["failed"]`` on every rank, for
+    ``main`` to end non-zero."""
     bad = torch.tensor([0.0 if ok else 1.0])
     if dist.get_backend() == "nccl":
         bad = bad.cuda()
@@ -107,8 +127,7 @@ def check(ok: bool, what: str, out: dict) -> None:
         print(("check: " if bad.item() == 0 else "FAILED: ") + what,
               flush=True)
     if bad.item():
-        out["failed"] = what
-        raise SystemExit(1)
+        out.setdefault("failed", []).append(what)
 
 
 def collectives(dev, n: int, width: int, rows: int, out: dict) -> None:
@@ -186,15 +205,21 @@ def collectives(dev, n: int, width: int, rows: int, out: dict) -> None:
     del x, w, full, got, want
 
 
-def one_device(cfg, dev, steps: int, batch: int, seq: int) -> dict:
+def one_device(cfg, dev, steps: int, batch: int, seq: int,
+               routes: dict, profile: bool = True) -> dict:
     """The one-device step on this rank, ``steps`` steps from seed 0, as
-    ``train.train`` runs it (its mesh-free path)."""
+    ``train.train`` runs it (its mesh-free path), with its peak memory and
+    (``profile``, on the card) one more step profiled; an MoE's routing in
+    those steps recorded in ``routes`` (``route_spy``)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
                        dev).requires_grad_(True)
     opt = adamw_init(model.param_list())
     step = steps_mod.build_train_step(cfg, model)
     ds = SyntheticLMData(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
     losses, norms, ms = [], [], []
+    routes["mode"] = "record"
     for i in range(steps):
         b = ds.batch_at(i)
         t = time.perf_counter()
@@ -203,8 +228,11 @@ def one_device(cfg, dev, steps: int, batch: int, seq: int) -> dict:
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t) * 1e3)
         norms.append(float(m["grad_norm"]))
+    routes["mode"] = "off"
     out = {"losses": losses, "grad_norms": norms, "ms": ms}
     if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if dev.type == "cuda" and profile:
         b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
         out["profile"] = profile_step(lambda: step(model, opt, b))
     del model, opt
@@ -216,6 +244,8 @@ def kernel_class(name: str) -> str:
         return "nccl"
     if re.search(r"gemm|nvjet|xmma|cutlass", name):
         return "gemm"
+    if re.search(r"\bwkv6_\w+_kernel", name):
+        return "k5"
     return "k4" if re.search(r"\bfa_\w+_kernel", name) else "other"
 
 
@@ -245,62 +275,234 @@ def profile_step(fn) -> dict:
             "by_class_ms": dict(sorted(by.items()))}
 
 
-def k4_spy() -> collections.Counter:
-    """Counts the (q, k) shapes of every call the attention layer makes to
-    K4 (``layers.flash_attention``) from now on."""
+def kernel_spy() -> collections.Counter:
+    """Counts the shapes of every call the layers make to K4
+    (``layers.flash_attention``: "k4 q(...) k(...)") and to K5
+    (``layers.wkv6_state``: "k5 r(...)") from now on."""
     calls: collections.Counter = collections.Counter()
-    real = layers.flash_attention
+    k4, k5 = layers.flash_attention, layers.wkv6_state
 
-    def spy(q, k, v, **kw):
-        calls[f"q{tuple(q.shape)} k{tuple(k.shape)}"] += 1
-        return real(q, k, v, **kw)
-    layers.flash_attention = spy
+    def spy4(q, k, v, **kw):
+        calls[f"k4 q{tuple(q.shape)} k{tuple(k.shape)}"] += 1
+        return k4(q, k, v, **kw)
+
+    def spy5(r, *args, **kw):
+        calls[f"k5 r{tuple(r.shape)}"] += 1
+        return k5(r, *args, **kw)
+    layers.flash_attention, layers.wkv6_state = spy4, spy5
     return calls
 
 
-def sharded(cfg, dev, shape: tuple, args, calls, out: dict) -> dict:
+def route_spy() -> dict:
+    """Wraps ``layers.moe_route`` for the MoE's runs, by ``state["mode"]``:
+    "record" keeps each call's expert ids (``gidx``, on the host) in call
+    order (the one-device training steps, remat's second forward
+    included); "feed" gives the i-th call the i-th record's rows of this
+    rank's data shard (``state["rows"]``), so a mesh step routes every
+    token as the one-device step did; "compare" routes as is and counts,
+    in the first call, the tokens whose set of experts differs from the
+    first record's (rank 0's: the others hold none); "off" routes as
+    is."""
+    state = {"mode": "off", "log": [], "fed": 0, "rows": None,
+             "differ": None}
+    real = layers.moe_route
+
+    def spy(cfg, p, h, gidx=None):
+        mode, log, rows = state["mode"], state["log"], state["rows"]
+        if mode == "feed":
+            gidx = log[state["fed"]][rows].to(h.device)
+            state["fed"] += 1
+        r = real(cfg, p, h, gidx)
+        if mode == "record":
+            log.append(r["gidx"].cpu())
+        elif mode == "compare" and state["differ"] is None and log:
+            one, mine = log[0][rows].sort(-1).values, r["gidx"].cpu().sort(
+                -1).values
+            state["differ"] = (int((one != mine).any(-1).sum()),
+                               one.shape[0] * one.shape[1])
+        return r
+    layers.moe_route = spy
+    return state
+
+
+def sharded(cfg, dev, shape: tuple, args, calls, routes, out: dict,
+            fed: bool = False) -> dict:
     """``--steps`` steps of ``train.train`` on a (data, model) mesh of
-    ``shape``, checked against the one-device losses and gradient norms on
-    rank 0; returns the run's record (losses, gradient norms, ms a step,
-    every rank's K4 calls)."""
+    ``shape``, checked against the one-device losses and gradient norms
+    on rank 0 (the model's record ``out``: its "one_device", or fed its
+    "one_device_det"; a failed check listed there); returns the
+    run's record (losses, gradient norms, ms a step, every rank's K4 and
+    K5 calls).  An MoE's run routes as is and counts rank 0's tokens of
+    step 0's first MoE layer that went to other experts than one-device;
+    ``fed``, it takes the one-device routing instead (``route_spy``; every
+    record fed once) and is not profiled."""
+    batch, seq = args.batch, args.seq
     mesh = mesh_mod.make_mesh(shape, ("data", "model"), args.device)
     calls.clear()
-    res = train.train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+    if cfg.moe is not None:
+        g = batch // shape[0]
+        d = mesh.get_coordinate()[0]
+        routes.update(mode="feed" if fed else "compare", fed=0,
+                      differ=None, rows=slice(d * g, (d + 1) * g))
+    res = train.train(cfg, steps=args.steps, batch=batch, seq=seq,
                       log_every=1, seed=0, device=dev, mesh=mesh)
+    routes["mode"] = "off"
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, dict(calls))
     rec = {"mesh": mesh_mod.describe(mesh), "losses": res["losses"],
-           "grad_norms": res["grad_norms"], "ms": [s * 1e3 for s in res["step_s"]], "k4_calls": every}
-    if dev.type == "cuda":      # one more step of res's state, profiled
+           "grad_norms": res["grad_norms"],
+           "ms": [s * 1e3 for s in res["step_s"]], "kernel_calls": every}
+    how, routed, all_fed = "", "", True
+    if fed:
+        all_fed = routes["fed"] == len(routes["log"])
+        rec["fed_calls"] = [routes["fed"], len(routes["log"])]
+        how = (", deterministic kernels, the one-device routing fed to "
+               "every rank ({} of {} MoE calls),").format(*rec["fed_calls"])
+    elif routes["differ"] is not None:
+        rec["route_differs"] = routes["differ"]
+        routed = ("; step 0's first MoE layer routes {} of {} tokens of "
+                  "rank 0 to another set of experts").format(
+                      *routes["differ"])
+    if dev.type == "cuda" and not fed:  # one more step of res's, profiled
         step, (_, _, bspecs), _, _ = steps_mod.build_train_step(
-            cfg, ShapeConfig("multi_card", "train", args.seq, args.batch),
-            mesh)
+            cfg, ShapeConfig("multi_card", "train", seq, batch), mesh)
         b = steps_mod.local_batch(SyntheticLMData(
-            vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
+            vocab=cfg.vocab, seq_len=seq, batch=batch,
             seed=0).batch_at(0), bspecs, mesh, dev)
         rec["profile"] = profile_step(
             lambda: step(res["params"], res["opt"], b))
-    worst = {}
+    worst, one = {}, out.get("one_device_det" if fed else "one_device")
     for key in ("losses", "grad_norms"):
         worst[key] = max(abs(a - b) / abs(b) for a, b in zip(
-            res[key], out["one_device"][key])) if dist.get_rank() == 0 \
+            res[key], one[key])) if dist.get_rank() == 0 \
             else 0.0
     rec["rel_err"] = worst
-    check(worst["losses"] < LOSS_RTOL
+    check(all_fed and worst["losses"] < LOSS_RTOL
           and worst["grad_norms"] < NORM_RTOL[dev.type],
-          f"llama3-8b, {cfg.n_layers} layers, {cfg.dtype}: {args.steps} "
-          f"steps on {rec['mesh']} within {worst['losses']:.3g} of the "
-          f"one-device losses and {worst['grad_norms']:.3g} of its gradient "
-          f"norms; K4 calls a rank {every}", out)
+          f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, {batch} x "
+          f"{seq} tokens: {args.steps} steps on {rec['mesh']}{how} within "
+          f"{worst['losses']:.3g} of the one-device losses and "
+          f"{worst['grad_norms']:.3g} of its gradient norms{routed}; K4/K5 "
+          f"calls a rank {every}", out)
     del res
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return rec
 
 
+def model_config(arch: str, args):
+    """``arch`` at its published widths (or reduced) cut to ``--layers``
+    layers and, published with routed experts, to MOE_EXPERTS of them;
+    llama3-8b with chunked attention."""
+    cfg = dataclasses.replace(get_config(arch, reduced=args.reduced),
+                              n_layers=args.layers)
+    if cfg.family == "dense":
+        cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    if cfg.moe is not None and not args.reduced:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=MOE_EXPERTS))
+    return cfg
+
+
+def model_runs(arch: str, dev, meshes, args, calls, routes) -> dict:
+    """One model of ``--arch``: the one-device step on rank 0, then the
+    mesh steps (``sharded``).  An MoE's then run again under PyTorch's
+    deterministic kernels (``torch.use_deterministic_algorithms``; the
+    backward of the dispatch gather otherwise adds with atomics, in an
+    order that moves a step's norm by up to 3.8e-4 run to run on the
+    card): the one-device step once more, its routing recorded and sent
+    to every rank, and the mesh steps fed that routing, so that only the
+    split arithmetic's rounding is left between them ("fed").  Rank 0
+    takes the dry-run records after the group is gone
+    (``dryrun_records``)."""
+    cfg = model_config(arch, args)
+    rank = dist.get_rank()
+    rec = {"arch": arch}
+    calls.clear()
+    routes.update(mode="off", log=[])
+    if rank == 0:
+        rec["one_device"] = one_device(cfg, dev, args.steps, args.batch,
+                                       args.seq, routes)
+        rec["one_device"]["kernel_calls"] = dict(calls)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    rec["sharded"] = [sharded(cfg, dev, shape, args, calls, routes, rec)
+                      for shape in meshes]
+    if cfg.moe is not None:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        routes["log"] = []
+        if rank == 0:
+            rec["one_device_det"] = one_device(
+                cfg, dev, args.steps, args.batch, args.seq, routes,
+                profile=False)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        box = [routes["log"]]
+        dist.broadcast_object_list(box, src=0)
+        routes["log"] = box[0]
+        rec["fed"] = [sharded(cfg, dev, shape, args, calls, routes, rec,
+                              fed=True) for shape in meshes]
+        torch.use_deterministic_algorithms(False)
+    routes["log"] = []
+    if rank == 0:
+        one = rec["one_device"]
+        print(f"train: {cfg.name}, {cfg.n_layers} layers"
+              + (f", {cfg.moe.n_experts} experts" if cfg.moe else "")
+              + f", {args.batch} x {args.seq} tokens: one-device ms a step "
+              + ", ".join(f"{x:.2f}" for x in one["ms"])
+              + (f" (peak {one['peak_gb']:.2f} GB)" if "peak_gb" in one
+                 else "")
+              + "".join(f"; on {r['mesh']} " + ", ".join(
+                  f"{x:.2f}" for x in r["ms"]) for r in rec["sharded"])
+              + (("; deterministic kernels: one-device " + ", ".join(
+                  f"{x:.2f}" for x in rec["one_device_det"]["ms"]))
+                 if "fed" in rec else "")
+              + "".join(f"; on {r['mesh']}, routing fed, " + ", ".join(
+                  f"{x:.2f}" for x in r["ms"]) for r in rec.get("fed", [])),
+              flush=True)
+        for name, r in [("one-device", one),
+                        *((r_["mesh"], r_) for r_ in rec["sharded"])]:
+            if "profile" in r:
+                p = r["profile"]
+                print(f"profile: {cfg.name}, {name}, rank 0, one step: wall "
+                      f"{p['wall_ms']:.2f} ms, device busy "
+                      f"{p['busy_ms']:.2f} ms; kernels by class "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in
+                                  p["by_class_ms"].items()) + " ms",
+                      flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def dryrun_records(rec: dict, args, meshes) -> None:
+    """The dry-run's records of ``rec``'s step on each mesh (rank 0, no
+    process group left: the dry-run makes a fake one)."""
+    cfg = model_config(rec["arch"], args)
+    shape = ShapeConfig("multi_card", "train", args.seq, args.batch)
+    rec["dryrun"] = {}
+    for mshape, r in zip(meshes, rec["sharded"]):
+        d = dryrun.dryrun_cell(rec["arch"], shape.name, False, cfg,
+                               shape=shape,
+                               mesh=(mshape, ("data", "model")))
+        rec["dryrun"][r["mesh"]] = {k: d[k] for k in (
+            "flops_per_device", "hbm_bytes_per_device",
+            "collective_bytes_per_device", "memory")}
+        print(f"dryrun: {cfg.name}, the same step on {r['mesh']}: "
+              "collectives a device " + ", ".join(
+                  f"{k} {v:,} B" for k, v in sorted(
+                      d["collective_bytes_per_device"].items()))
+              + f"; {d['flops_per_device']:,} flops, "
+              f"{d['hbm_bytes_per_device']:,} B of HBM traffic; "
+              "measured ms a step " + ", ".join(
+                  f"{x:.2f}" for x in r["ms"]), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default="llama3_8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--steps", type=int, default=4)
@@ -325,56 +527,20 @@ def main(argv=None) -> int:
     try:
         width, rows = (4096, 2048) if not args.reduced else (96, 8)
         collectives(dev, n, width, rows, out)
-        cfg = (get_config("llama3_8b", reduced=True) if args.reduced else
-               get_config("llama3_8b"))
-        cfg = dataclasses.replace(cfg, n_layers=args.layers,
-                                  attn_impl="chunked")
-        calls = k4_spy()
-        if rank == 0:
-            out["one_device"] = one_device(cfg, dev, args.steps, args.batch,
-                                           args.seq)
-            out["one_device"]["k4_calls"] = dict(calls)
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-        dist.barrier()
-        out["sharded"] = [sharded(cfg, dev, shape, args, calls, out)
-                          for shape in meshes]
-        if rank == 0:
-            print("train: one-device ms a step "
-                  + ", ".join(f"{x:.2f}" for x in out["one_device"]["ms"])
-                  + "".join(f"; on {r['mesh']} " + ", ".join(
-                      f"{x:.2f}" for x in r["ms"]) for r in out["sharded"]),
-                  flush=True)
-            for name, r in [("one-device", out["one_device"]),
-                            *((r_["mesh"], r_) for r_ in out["sharded"])]:
-                if "profile" in r:
-                    p = r["profile"]
-                    print(f"profile: {name}, rank 0, one step: wall "
-                          f"{p['wall_ms']:.2f} ms, device busy "
-                          f"{p['busy_ms']:.2f} ms; kernels by class "
-                          + ", ".join(f"{k} {v:.2f}" for k, v in
-                                      p["by_class_ms"].items()) + " ms",
-                          flush=True)
+        calls, routes = kernel_spy(), route_spy()
+        out["models"] = [model_runs(arch, dev, meshes, args, calls, routes)
+                         for arch in args.arch.split(",")]
     finally:
         dist.destroy_process_group()
     if rank == 0:
-        shape = ShapeConfig("multi_card", "train", args.seq, args.batch)
-        out["dryrun"] = {}
-        for mshape, r in zip(meshes, out["sharded"]):
-            rec = dryrun.dryrun_cell("llama3_8b", shape.name, False, cfg,
-                                     shape=shape,
-                                     mesh=(mshape, ("data", "model")))
-            out["dryrun"][r["mesh"]] = {k: rec[k] for k in (
-                "flops_per_device", "hbm_bytes_per_device",
-                "collective_bytes_per_device", "memory")}
-            print(f"dryrun: the same step on {r['mesh']}: collectives a "
-                  "device " + ", ".join(f"{k} {v:,} B" for k, v in sorted(
-                      rec["collective_bytes_per_device"].items()))
-                  + f"; {rec['flops_per_device']:,} flops, "
-                  f"{rec['hbm_bytes_per_device']:,} B of HBM traffic; "
-                  "measured ms a step " + ", ".join(
-                      f"{x:.2f}" for x in r["ms"]), flush=True)
+        for rec in out["models"]:
+            dryrun_records(rec, args, meshes)
         print(json.dumps(out), flush=True)
+    failed = out.get("failed", []) + [
+        f for rec in out["models"] for f in rec.get("failed", [])]
+    if failed and rank == 0:
+        print(f"FAILED: {len(failed)} check(s)", flush=True)
+        return 1
     return 0
 
 

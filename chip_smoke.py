@@ -133,15 +133,22 @@ read just after:
    both, by the wrappers here and, in the profiling child, by the
    profiler; the prefill step of ``steps.build(cfg, prefill shape, mesh)``
    bitwise ``lm.forward``; ``ag_matmul``, ``compressed_psum`` and
-   ``pipelined_forward`` on card tensors equal to their plain results.
-   Then rwkv6-3b and DeepSeek-V2 (the "ssm" and "moe" families' tensor-
-   parallel steps) at their published widths cut to 2 layers (DeepSeek-V2:
-   its dense first layer and one MoE layer of 80 of its 160 routed
-   experts, which fit one card's AdamW; bf16, remat "full"), trained
-   the same way one-device and on the (1, 1) mesh: losses, gradient norms,
-   parameters and moments bitwise equal, K5's forward and backward (rwkv6-
-   3b) launched as often by both and DeepSeek-V2's MLA launching neither
-   K4 nor K5; each model freed before the next.
+   ``pipelined_forward`` on card tensors equal to their plain results;
+   the mesh's decode step (the cache in the blocks ``cache_specs`` gives,
+   nothing of it gathered) over 4 steps bitwise ``lm.decode_step``,
+   logits and cache.  Then rwkv6-3b, DeepSeek-V2, Jamba, Whisper and
+   PaliGemma (every family's tensor-parallel step) at their published
+   widths cut to 2 layers (DeepSeek-V2: its dense first layer and one MoE
+   layer of 80 of its 160 routed experts, which fit one card's AdamW;
+   Jamba: its period cut to 2 layers, a Mamba layer with an MoE of 2 of
+   its 16 experts and the attention layer with an MLP, on 1 x 512 tokens;
+   Whisper: 2 encoder layers too; Jamba, Whisper and PaliGemma with
+   chunked attention; bf16, remat "full"), trained the same way
+   one-device and on the (1, 1) mesh: losses, gradient norms, parameters
+   and moments bitwise equal, K4's (Jamba's attention layer, Whisper's
+   decoder, PaliGemma at hd 256) and K5's (rwkv6-3b) forward and
+   backward launched as often by both and DeepSeek-V2's MLA launching
+   neither; each model freed before the next.
 
 K3 must take its redesigned forms: both of ``two_mm``'s reductions tiled
 through shared memory, the traced conv block and ``optical_flow`` in 2
@@ -358,14 +365,27 @@ K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
 # 0 at step 0) on TRAIN_B x TRAIN_S tokens, one-device and on a (1, 1) mesh
 SHARDED_LAYERS, SHARDED_STEPS = 2, 3
 # path 15's other families, at their published widths cut to SHARDED_LAYERS
-# (DeepSeek-V2: its dense first layer and one MoE layer), trained as above;
-# DeepSeek-V2's MoE layer keeps SHARDED_EXPERTS of its 160 routed experts:
-# with all 160 the one-device step ran out of the card's memory in AdamW,
+# by ``cut_config`` (DeepSeek-V2: its dense first layer and one MoE layer;
+# Whisper: as many encoder layers; Jamba: its period cut from 8 layers,
+# the attention last), trained as above
+SHARDED_FAMILIES = ("rwkv6_3b", "deepseek_v2_236b", "jamba_1_5_large_398b",
+                    "whisper_small", "paligemma_3b")
+# the routed experts a published MoE keeps when ``cut_config`` cuts it
+# (CUT_EXPERTS_DEFAULT where it is not listed): with all 160 of
+# DeepSeek-V2's the one-device step ran out of the card's memory in AdamW,
 # whose f32 temporaries of the (160, 5120, 1536) expert tensors (5 GB each)
 # came on top of 43 GB of bf16 parameters, gradients and moments (tokens
-# do not move that peak)
-SHARDED_FAMILIES = ("rwkv6_3b", "deepseek_v2_236b")
-SHARDED_EXPERTS = 80
+# do not move that peak); Jamba's experts are 0.6 B parameters each, and 2
+# of its 16 (top-2) keep its 2 layers at 3.5 B
+CUT_EXPERTS = {"jamba_1_5_large_398b": 2}
+CUT_EXPERTS_DEFAULT = 80
+# (batch, tokens) where TRAIN_B x TRAIN_S would not fit: Jamba's scan
+# keeps (B, S, 16384 channels, 16) f32 tensors a step of its log2(256)
+# steps under autograd, ~8.6 GB a 256-token chunk a row
+SHARDED_TOKENS = {"jamba_1_5_large_398b": (1, 512)}
+# the steps path 15 runs the mesh's decode step for, against
+# lm.decode_step, row r starting at position SHARDED_DECODE_POS + r
+SHARDED_DECODE_STEPS, SHARDED_DECODE_POS = 4, 1021
 # the dry-run phase: cells traced on FakeTensors over fake groups, each list
 # in a child process of its own, the children started together ("sharded":
 # path 15's step on its (1, 1) mesh; "sharded_2x2": the same step on the
@@ -403,6 +423,13 @@ DRYRUN_ZERO3_TEMP_GB = {"llama3_8b:train_4k:single": 243.0,
                         "llama3_8b:train_4k:multi": 129.0,
                         "llama3_8b:prefill_32k:multi": 291.4}
 DRYRUN_FLOPS_TOL, DRYRUN_TEMP_CUT = 0.05, 4.0
+# llama3-8b's decode_32k on (16, 16): GB all-gathered a device by the step
+# that gathered each cache tensor to its rows, whole along the sequence
+# (the dry-run's figure for that step); the decode step that attends over
+# its own block of the positions must gather DRYRUN_DECODE_CUT x less or
+# better
+DRYRUN_DECODE_GATHER_GB = {"llama3_8b:decode_32k:single": 51.390}
+DRYRUN_DECODE_CUT = 10.0
 DRYRUN_BUDGET_S = 120            # the phase's share of the smoke's time
 PROFILE_STEPS = 5                # decode steps under the profiler
 PROFILE_MARGIN_S = 0.05          # idle card at each end of a profile
@@ -3742,8 +3769,10 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
     """Path 15: the one-device trainer and the (1, 1) mesh's from the same
     seed, SHARDED_STEPS steps each, bitwise the same; K4's launches the same
     (here and in the profiling child); the mesh's prefill step bitwise
-    ``lm.forward``; the collective helpers on card tensors.  Returns the ms
-    of each run's steps, by run ("single", "sharded")."""
+    ``lm.forward`` and its decode step ``lm.decode_step``
+    (``sharded_decode``); the collective helpers on card tensors; then
+    SHARDED_FAMILIES' training checks.  Returns the ms of each run's
+    steps, by run ("single", "sharded")."""
     import torch
     import torch.distributed as dist
 
@@ -3795,58 +3824,132 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
                      f"lm.forward (max {(got - want).abs().max().item()})")
             if n_pre != {"k4/wgmma/bfloat16": cfg.n_layers * fwd_call}:
                 fail(f"sharded path: the mesh's prefill launched {n_pre}")
-            del got, want, runs, one, many
+            del got, want
             torch.cuda.empty_cache()
             print(f"check: sharded: the prefill step of steps.build(cfg, "
                   f"prefill {TRAIN_B} x {TRAIN_S}, mesh) == lm.forward "
                   f"bitwise; launches {n_pre}")
+            sharded_decode(dev, mesh, cfg, one["model"], many["params"])
+            del runs, one, many
+            torch.cuda.empty_cache()
             sharded_helpers(dev, mesh, cfg)
             for arch in SHARDED_FAMILIES:
-                fcfg = sharded_family_config(arch)
-                sharded_train(dev, mesh, fcfg, sharded_launches(fcfg), card)
+                fcfg = cut_config(arch, SHARDED_LAYERS)
+                b_, s_ = SHARDED_TOKENS.get(arch, (TRAIN_B, TRAIN_S))
+                sharded_train(dev, mesh, fcfg, sharded_launches(fcfg, b_, s_),
+                              card, tokens=(b_, s_))
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     return ms
 
 
-def sharded_family_config(arch: str):
-    """One of SHARDED_FAMILIES at its published widths, cut to
-    SHARDED_LAYERS layers and, with routed experts, SHARDED_EXPERTS of
-    them."""
+def cut_config(arch: str, layers: int, reduced: bool = False):
+    """``arch`` at its published widths (or ``reduced``) cut to ``layers``
+    layers (Whisper's encoder too; Jamba's period to ``layers``, its
+    attention last, so that a Mamba layer with its MoE and the attention
+    layer with its MLP remain) and, published with routed experts, to
+    CUT_EXPERTS of them; chunked attention (K4) but for the MLA of
+    DeepSeek-V2 and Kimi-K2, which takes none.  Path 15 and
+    ``tools/multi_card.py`` train and decode these cuts."""
     from repro_torch.config import get_config
-    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS)
-    if cfg.moe is not None:
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced),
+                              n_layers=layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=layers)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, period=layers,
+                                  attn_positions=(layers - 1,))
+    if cfg.family in ("dense", "hybrid", "encdec", "vlm"):
+        cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    if cfg.moe is not None and not reduced:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, n_experts=SHARDED_EXPERTS))
+            cfg.moe, n_experts=CUT_EXPERTS.get(arch, CUT_EXPERTS_DEFAULT)))
     return cfg
 
 
-def sharded_launches(cfg) -> dict:
-    """The kernel launches SHARDED_STEPS training steps of ``cfg`` make:
-    K4's forward twice a layer a step (the forward and its remat) and its
-    backward once (llama3-8b); K5's sequence form twice a layer a step
-    and its backward once (rwkv6-3b); none for DeepSeek-V2, whose MLA
-    takes no kernel."""
+def sharded_launches(cfg, batch: int = TRAIN_B, seq: int = TRAIN_S) -> dict:
+    """The kernel launches SHARDED_STEPS training steps of ``cfg`` on
+    ``batch`` x ``seq`` tokens make: K4's forward twice a causal
+    attention layer a step (the forward and its remat) and its backward
+    once (llama3-8b, Jamba's attention layer, Whisper's decoder layers,
+    whose encoder and cross attention take the plain ``_sdpa`` as the
+    reference's, PaliGemma over its image and text positions); K5's
+    sequence form twice a layer a step and its backward once (rwkv6-3b);
+    none for DeepSeek-V2, whose MLA takes no kernel."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
-    n = SHARDED_STEPS * cfg.n_layers
-    if cfg.family == "dense":
-        shape = (torch.bfloat16, cfg.hd, TRAIN_B, cfg.n_heads,
-                 cfg.n_kv_heads, TRAIN_S)
-        return {"k4/wgmma/bfloat16": 2 * n * fa.fwd_launches(*shape),
-                "k4/bwd/bfloat16": n * fa.bwd_launches(*shape)}
+    from repro_torch.models import lm
     if cfg.family == "ssm":
+        n = SHARDED_STEPS * cfg.n_layers
         return {"k5/sequence": 2 * n * wk.SEQUENCE_LAUNCHES,
                 f"k5/{wk.BWD_COUNT[wk.bwd_route(cfg.rwkv_head_dim)]}":
                     n * wk.BWD_LAUNCHES}
-    return {}
+    n = SHARDED_STEPS * sum(mix == "attn" for mix, _ in lm.layer_specs(cfg))
+    if not n or cfg.attn_impl != "chunked":
+        return {}
+    shape = (torch.bfloat16, cfg.hd, batch, cfg.n_heads, cfg.n_kv_heads, seq)
+    return {"k4/wgmma/bfloat16": 2 * n * fa.fwd_launches(*shape),
+            "k4/bwd/bfloat16": n * fa.bwd_launches(*shape)}
+
+
+def sharded_decode(dev, mesh, cfg, model, params) -> None:
+    """The mesh's decode step (``steps.build(cfg, decode shape, mesh)``)
+    over SHARDED_DECODE_STEPS steps, the cache laid out by its specs,
+    against ``lm.decode_step`` of the same weights (``model``, one-device;
+    ``params``, the mesh's): every step's logits and the last cache
+    bitwise, row r from position SHARDED_DECODE_POS + r; neither
+    launches a kernel (the decode step's attention reads its cache
+    without K4)."""
+    import torch
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    g = torch.Generator().manual_seed(4)
+    dec, (_, cspecs, bspecs), _, _ = steps_mod.build(
+        cfg, ShapeConfig("sharded", "decode", TRAIN_S, TRAIN_B), mesh)
+    one = lm.init_cache(cfg, TRAIN_B, TRAIN_S, dev)
+    cache = {"blocks": [{k: sharding.shard(t.clone(), mesh, s[k])
+                         for k, t in c.items()}
+                        for c, s in zip(one["blocks"], cspecs["blocks"])]}
+    zero_model_counts()
+    with torch.no_grad():
+        for t in range(SHARDED_DECODE_STEPS):
+            host = {"token": torch.randint(0, cfg.vocab, (TRAIN_B, 1),
+                                           generator=g, dtype=torch.int32),
+                    "pos": torch.arange(TRAIN_B, dtype=torch.int32)
+                    + SHARDED_DECODE_POS + t}
+            got, cache = dec(params, cache, steps_mod.local_batch(
+                host, bspecs, mesh, dev))
+            want, one = lm.decode_step(cfg, model, one, host)
+            if not torch.equal(got, want):
+                fail(f"sharded path: the mesh's decode step {t} differs "
+                     f"from lm.decode_step (max "
+                     f"{(got - want).abs().max().item()})")
+    torch.cuda.synchronize()
+    n = model_counts()
+    for c, w in zip(cache["blocks"], one["blocks"]):
+        for k, t in c.items():
+            if not torch.equal(t.to_local(), w[k]):
+                fail(f"sharded path: the mesh's decode cache {k} differs "
+                     "from lm.decode_step's")
+    if n:
+        fail(f"sharded path: the decode steps launched {n}")
+    print(f"check: sharded: {SHARDED_DECODE_STEPS} steps of the decode step "
+          f"of steps.build(cfg, decode {TRAIN_B} x {TRAIN_S}, mesh), the "
+          f"cache in its blocks (positions from {SHARDED_DECODE_POS} up), "
+          "== lm.decode_step bitwise, logits and cache; no kernel "
+          "launched")
 
 
 def sharded_train(dev, mesh, cfg, want: dict, card: str,
-                  keep: bool = False) -> dict:
+                  keep: bool = False, tokens: tuple = (TRAIN_B, TRAIN_S)
+                  ) -> dict:
+
     """Path 15's training check for one model: ``cfg`` trained
     SHARDED_STEPS steps one-device and on the (1, 1) ``mesh`` from the
     same seed: losses, gradient norms, parameters, moments and the
@@ -3858,7 +3961,7 @@ def sharded_train(dev, mesh, cfg, want: dict, card: str,
     that differs from run to run, one-device too.  Returns the ms of each
     run's steps by run ("ms": {"single", "sharded"}) and, ``keep``, both
     runs' results under "single" and "sharded"; without it each run is
-    freed before the next."""
+    freed before the next.  ``tokens``: (batch, sequence)."""
     import torch
     import torch.distributed as dist
 
@@ -3875,8 +3978,8 @@ def sharded_train(dev, mesh, cfg, want: dict, card: str,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_model_counts()
-        res = train.train(cfg, steps=SHARDED_STEPS, batch=TRAIN_B,
-                          seq=TRAIN_S, log_every=SHARDED_STEPS, seed=0,
+        res = train.train(cfg, steps=SHARDED_STEPS, batch=tokens[0],
+                          seq=tokens[1], log_every=SHARDED_STEPS, seed=0,
                           device=dev, mesh=where)
         torch.cuda.synchronize()
         got = [local(t) for t in (*res["params"], *res["opt"]["m"],
@@ -3917,7 +4020,7 @@ def sharded_train(dev, mesh, cfg, want: dict, card: str,
     what = (f", {cfg.moe.n_experts} experts" if cfg.moe else "") + (
         f", {cfg.attn_impl}" if cfg.family == "dense" else "")
     print(f"sharded: {cfg.name} full width, {cfg.n_layers} layers{what}, "
-          f"bf16, remat {cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens; "
+          f"bf16, remat {cfg.remat}, {tokens[0]} x {tokens[1]} tokens; "
           f"{SHARDED_STEPS} steps one-device (ms "
           + ", ".join(f"{x:.2f}" for x in one["ms"])
           + f"; peak {one['peak_gb']:.2f} GB) and on "
@@ -4100,10 +4203,11 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str,
     profiling child's launches of the same step on the card, its graph's
     flops ``FlopCounterMode``'s; its flops against PERF.md's operations
     bound, and the time the graph predicts beside the step's measured ms;
-    (b) the production cells' records, memory beside the card's, and the
+    (b) the production cells' records, memory beside the card's, the
     tensor-parallel train and prefill cells against the reference's flops
-    and the ZeRO-3 step's temp_size (``DRYRUN_REFERENCE``); (c) the phase's
-    seconds."""
+    and the ZeRO-3 step's temp_size (``DRYRUN_REFERENCE``), and the decode
+    cell's all-gathered bytes against the step's that gathered its cache
+    (``DRYRUN_DECODE_GATHER_GB``); (c) the phase's seconds."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -4204,6 +4308,16 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str,
           f"and (2, 16, 16) within {DRYRUN_FLOPS_TOL:.0%} of the reference's "
           f"flops a device, temp_size {DRYRUN_TEMP_CUT} x or more under the "
           "ZeRO-3 step's")
+    for cell, before in DRYRUN_DECODE_GATHER_GB.items():
+        got = recs[cell]["collective_bytes_per_device"].get(
+            "all-gather", 0) / gb
+        if got * DRYRUN_DECODE_CUT > before:
+            fail(f"dryrun: {cell}: {got:.3f} GB all-gathered a device, not "
+                 f"{DRYRUN_DECODE_CUT} x under the {before} GB of the step "
+                 "that gathered its cache")
+        print(f"check: dryrun: {cell}: {got:.3f} GB all-gathered a device "
+              f"(no cache tensor), {before / got:.1f} x under the {before} "
+              "GB of the step that gathered its cache")
     rwkv_cell_check(recs["rwkv6_3b:train_4k:single"])
     print(f"dryrun: {len(recs)} cells in {len(procs)} children, "
           f"{wall:.1f} s waited for them after path 15 (budget "

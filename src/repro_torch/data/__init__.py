@@ -1,3 +1,5 @@
-from .pipeline import SyntheticLMData, make_train_iterator
+from .pipeline import SyntheticLMData, SyntheticStubData, \
+    make_train_iterator, train_data
 
-__all__ = ["SyntheticLMData", "make_train_iterator"]
+__all__ = ["SyntheticLMData", "SyntheticStubData", "make_train_iterator",
+           "train_data"]

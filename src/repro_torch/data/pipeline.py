@@ -48,6 +48,43 @@ class SyntheticLMData:
                 "mask": mask}
 
 
+@dataclass
+class SyntheticStubData:
+    """``SyntheticLMData``'s batches with the stub input of a model's
+    modality frontend, which the trainer's batches of an encoder-decoder
+    or a VLM must hold: ``frames`` (B, enc_seq, D), or ``patches`` (B,
+    n_img_tokens, D) with the tokens the text positions alone (``seq_len``
+    less the image tokens), N(0, 1) in f32 from a generator seeded by
+    (seed, step).  The reference's trainer has no such batches."""
+    cfg: object                  # an ArchConfig, family "encdec" or "vlm"
+    seq_len: int
+    batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        vlm = cfg.family == "vlm"
+        out = SyntheticLMData(
+            vocab=cfg.vocab, seq_len=self.seq_len - vlm * cfg.n_img_tokens,
+            batch=self.batch, seed=self.seed).batch_at(step)
+        rng = np.random.default_rng((self.seed, step))
+        key, rows = ("patches", cfg.n_img_tokens) if vlm else \
+            ("frames", cfg.enc_seq)
+        out[key] = rng.standard_normal(
+            (self.batch, rows, cfg.d_model)).astype(np.float32)
+        return out
+
+
+def train_data(cfg, seq_len: int, batch: int, seed: int = 0):
+    """The trainer's batches for ``cfg``: ``SyntheticLMData``'s, with the
+    modality stub an encoder-decoder or a VLM reads
+    (``SyntheticStubData``)."""
+    if cfg.family in ("encdec", "vlm"):
+        return SyntheticStubData(cfg, seq_len, batch, seed)
+    return SyntheticLMData(vocab=cfg.vocab, seq_len=seq_len, batch=batch,
+                           seed=seed)
+
+
 def make_train_iterator(ds: SyntheticLMData, start_step: int = 0,
                         prefetch: int = 2):
     """Background-thread prefetching iterator, resumable at any step."""

@@ -19,11 +19,12 @@ traced function lays out as DTensors by their specs; the rank's block of
 the batch) and records the step with ``make_fx``: an aten graph whose
 nodes carry shapes alone, the collectives DTensor issues as
 ``_c10d_functional`` nodes, K4 and K5 as their operators' nodes.  The
-numbers are the port's own step's: the dense family's train and prefill
-steps compute on their model shards, as the reference's tensor-parallel
-step does (their flops a device are the reference's); the other families
-and the decode step gather every weight (ZeRO-3), the "model" axis
-holding replicas of the batch's work.
+numbers are the port's own step's: under the "tp" style every family's
+train, prefill and decode steps compute on their model shards, as the
+reference's tensor-parallel step does (their flops a device are the
+reference's, or apart from them by products the tests name), the decode
+step on its block of the cache; the "fsdp" and "ep" styles gather every
+weight (ZeRO-3), the "model" axis holding replicas of the batch's work.
 """
 from __future__ import annotations
 

@@ -20,17 +20,22 @@ device (``abstract_params``, ``abstract_opt_state``, ``abstract_cache``,
 compute on plain local tensors, so the kernels receive plain CUDA tensors.
 The weights are all-gathered before use (the whole model at once):
 
-* the dense, "ssm" (RWKV-6) and "moe" (DeepSeek-V2's MLA, Kimi-K2)
-  families under the "tp" style (the reference's default), in the train
-  and prefill steps, gather them over the batch's axes only, and compute
-  on their model shards (``parallel.tensor_parallel``): the "model" axis
-  splits the attention and RWKV heads, the FFN and channel-mix columns,
-  the routed experts and the vocabulary as the reference's rules lay them
-  out, so a rank does its share of the work;
-* the "hybrid" (Jamba), "encdec" (Whisper) and "vlm" (PaliGemma)
-  families, the "fsdp" and "ep" styles, and the decode step of every
-  family, gather each weight whole (ZeRO-3), and the "model" axis holds
-  replicas of the batch's work.
+* under the "tp" style (the reference's default) every family's train,
+  prefill and decode steps gather them over the batch's axes only and
+  compute on their model shards (``parallel.tensor_parallel``): the
+  "model" axis splits the attention, cross-attention and RWKV heads, the
+  FFN and channel-mix columns, Mamba's inner channels, the routed experts,
+  PaliGemma's image projection and the vocabulary as the reference's rules
+  lay them out, so a rank does its share of the work;
+* the "fsdp" and "ep" styles gather each weight whole (ZeRO-3), and the
+  "model" axis holds replicas of the batch's work.
+
+The decode step keeps each cache tensor in the block ``cache_specs`` gives
+the rank: the attention layers attend over the rank's block of the
+positions (on "model" where the batch splits over the data axes, on
+"data" for one row) and combine the softmax over that axis; RWKV's and
+Mamba's states are updated on the rank's heads or channels and made whole
+on "model" again.
 
 Per-layer gathering is not ported.  The dry-run (``launch.dryrun``) traces
 the step ``build`` returns on FakeTensors over a fake group of the mesh's
@@ -105,19 +110,11 @@ def _sum_everywhere(x: torch.Tensor, mesh) -> torch.Tensor:
     return funcol.wait_tensor(funcol.all_reduce(x, "sum", dist.group.WORLD))
 
 
-# the families whose layers split their work over "model"; the others stay
-# ZeRO-3
-TENSOR_PARALLEL_FAMILIES = ("dense", "ssm", "moe")
-
-
 def _tensor_parallel(cfg: ArchConfig, mesh) -> bool:
-    """Whether ``cfg``'s train and prefill steps compute on their model
-    shards: the dense, "ssm" and "moe" families under the "tp" style, on a
-    mesh with a "model" axis.  Jamba's Mamba layers, Whisper's encoder and
-    cross attention, PaliGemma's image projection and every decode step
-    stay ZeRO-3: their layers run on whole weights."""
-    return (cfg.family in TENSOR_PARALLEL_FAMILIES
-            and cfg.parallel_style == "tp"
+    """Whether ``cfg``'s steps compute on their model shards: the "tp"
+    style, on a mesh with a "model" axis (every family).  The "fsdp" and
+    "ep" styles stay ZeRO-3: their layers run on whole weights."""
+    return (cfg.parallel_style == "tp"
             and "model" in sharding.mesh_shape(mesh))
 
 
@@ -305,14 +302,48 @@ def build_prefill_step(cfg: ArchConfig, model_or_shape, mesh=None):
     return sharded_prefill_step, in_sh, out_sh, abstract
 
 
+def _sequence_axis(cspecs: dict) -> str | None:
+    """The mesh axis ``cache_specs`` lays the attention caches' positions
+    over (dim 1 of k, v and ckv), or None (whole, or no such cache)."""
+    for c in cspecs["blocks"]:
+        for name, spec in c.items():
+            if name in ("k", "v", "ckv"):
+                axes = sharding._axes(spec[1])
+                if len(axes) > 1:
+                    raise ValueError(f"{spec}: positions over {axes}")
+                return axes[0] if axes else None
+    return None
+
+
+def _laid_out(t, spec, shape: tuple, mesh, model) -> DTensor:
+    """A new cache tensor of the rank as a DTensor laid out by ``spec``
+    (the global ``shape``): a state computed on the rank's heads or
+    channels (``t`` short of its block along one dim) is gathered over
+    ``model`` first."""
+    block = tuple(s.stop - s.start for s in sharding.local_block(
+        spec, shape, mesh, mesh.get_coordinate()))
+    short = [d for d, (a, b) in enumerate(zip(t.shape, block)) if a != b]
+    if short:
+        t = tensor_parallel.gather(t, model, dim=short[0])
+    return DTensor.from_local(t, mesh, sharding.placements(spec, mesh))
+
+
 def build_decode_step(cfg: ArchConfig, model_or_shape, mesh=None):
     """One device: ``serve_step(model, cache, batch) -> (logits, cache)``.
     A mesh: ``(serve_step, in_specs, out_specs, abstract)``;
     ``serve_step(params, cache, batch)`` takes the cache's tensors as
-    DTensors laid out by ``cache_specs`` and the rank's block of the batch:
-    each cache tensor is gathered to its rows of the batch (whole along
-    its other dims), the step runs on plain local tensors, and the new
-    cache goes back to its layout."""
+    DTensors laid out by ``cache_specs`` and the rank's block of the batch.
+    Nothing of the cache is gathered: each layer reads and writes the
+    rank's block (``_sequence_axis``: the positions' axis, installed by
+    ``tensor_parallel.sequence_over``).  Under tensor-parallel compute the
+    weights are gathered to their model shards (MLA's ``wukv`` whole on
+    "model" where the positions lie there: each rank expands its
+    positions' latents for every head), products on weights whole on
+    "model" split their contraction over it as XLA partitions the
+    reference's step (``tensor_parallel.whole_product``), the new states
+    are gathered whole on "model" where the cache holds them whole
+    (``_laid_out``) and the logits' vocabulary is gathered.  At one rank it
+    runs the one-device step's ops."""
     if mesh is None:
         def serve_step(model, cache, batch):
             return lm.decode_step(cfg, model, cache, batch)
@@ -322,24 +353,30 @@ def build_decode_step(cfg: ArchConfig, model_or_shape, mesh=None):
     cshape = abstract_cache(cfg, shape)
     cspecs = sharding.cache_specs(cfg, shape, mesh, cshape)
     bspecs = sharding.batch_specs(cfg, shape, mesh)
-    whole = _keep_model([sharding.placements(s, mesh) for s in pspecs],
-                        mesh, False)
-
-    def rows(spec):
-        return sharding.placements(P(spec[0]), mesh)
+    split = _tensor_parallel(cfg, mesh)
+    seq = _sequence_axis(cspecs)
+    place = [sharding.placements(s, mesh) for s in pspecs]
+    keep = _keep_model(place, mesh, split)
+    if split and seq == "model":
+        whole = _keep_model(place, mesh, False)
+        keep = [w if n.endswith(".wukv") else k
+                for n, k, w in zip(names, keep, whole)]
 
     def sharded_serve_step(params, cache, batch):
-        local = {"blocks": [
-            {k: t.redistribute(mesh, rows(s[k])).to_local()
-             for k, t in c.items()}
-            for c, s in zip(cache["blocks"], cspecs["blocks"])]}
-        logits, new = lm.decode_step(cfg, _gather(cfg, names, params, whole),
-                                     local, batch)
+        local = _gather(cfg, names, params, keep)
+        blocks = [{k: t.to_local() for k, t in c.items()}
+                  for c in cache["blocks"]]
+        with tensor_parallel.over(mesh, rows=True) if split else \
+                contextlib.nullcontext(), \
+                tensor_parallel.sequence_over(mesh, seq):
+            logits, new = lm.decode_step(cfg, local, {"blocks": blocks},
+                                         batch)
+        ax = tensor_parallel.axis(mesh, "model")
         return logits, {"blocks": [
-            {k: DTensor.from_local(t, mesh, rows(s[k])).redistribute(
-                mesh, sharding.placements(s[k], mesh))
+            {k: _laid_out(t, s[k], tuple(g[k].shape), mesh, ax)
              for k, t in c.items()}
-            for c, s in zip(new["blocks"], cspecs["blocks"])]}
+            for c, s, g in zip(new["blocks"], cspecs["blocks"],
+                               cshape["blocks"])]}
 
     in_sh = (pspecs, cspecs, bspecs)
     out_sh = (P(bspecs["token"][0], None, None), cspecs)

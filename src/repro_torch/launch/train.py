@@ -9,7 +9,8 @@
 The model trains on the card unless ``--device cpu`` is given.  Parameters
 are drawn from a ``torch.Generator`` seeded with ``--seed`` (the reference
 draws from ``jax.random``: other numbers), the batches are
-``SyntheticLMData``'s (bitwise the reference's), and a run resumes from the
+``SyntheticLMData``'s (bitwise the reference's; Whisper's and PaliGemma's
+with their stub inputs, ``data.train_data``), and a run resumes from the
 latest checkpoint in ``--ckpt-dir``: the data stream, the parameters, the
 moments and the schedule's count all continue where they stopped.  On the
 card the attention (``attn_impl="chunked"``) runs K4 forward and backward,
@@ -36,7 +37,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, \
     restore_checkpoint
 from repro_torch.config import ArchConfig, ShapeConfig, get_config
-from repro_torch.data import SyntheticLMData, make_train_iterator
+from repro_torch.data import make_train_iterator, train_data
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import lm
@@ -61,6 +62,8 @@ def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
           device="cuda", mesh=None) -> dict:
     """Train ``cfg`` up to step ``steps`` (resuming from ``ckpt_dir``'s
     latest checkpoint when there is one), printing the reference's lines.
+    The batches are ``data.train_data``'s of ``seed`` (an encoder-decoder's
+    and a VLM's with their modality stubs).
     On ``mesh`` (a ``DeviceMesh`` on ``device``'s type; ``build_mesh``'s
     when none is given and ``torch.distributed.run`` started more than one
     rank) every step is the sharded one.  Returns {"losses": per step run,
@@ -120,8 +123,7 @@ def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
         opt.update(ropt)
         say(f"[train] resumed from step {start}")
 
-    ds = SyntheticLMData(vocab=cfg.vocab, seq_len=seq, batch=batch,
-                         seed=seed)
+    ds = train_data(cfg, seq, batch, seed)
     it = make_train_iterator(ds, start_step=start)
     wd = StepWatchdog(watchdog_s,
                       lambda: print("[train] WATCHDOG: step timed out"))

@@ -23,18 +23,20 @@ reference runs the same math in plain JAX:
   the carried state.
 
 The reference's sharding constraints (``constrain`` calls) become explicit
-collectives where tensor-parallel compute runs: the dense, RWKV-6 and MoE
-families' sharded train and prefill steps (``launch.steps``) install the
-mesh's "model" axis (``parallel.tensor_parallel.over``) and call
-``attn_forward``, ``mla_forward``, ``mlp_forward``, ``moe_forward``,
-``rwkv_time_mix`` and ``rwkv_channel_mix`` on the rank's model shards.
-Each takes its head counts, widths or experts from its weights' shapes,
-and where they are split marks its split region's entry (``enter``, after
-the last op on weights whole on "model", so their gradients come out
-whole) and its row-split product's sum (``reduce``) at the reference's
-``constrain`` points, so every rank computes its heads', columns' or
-experts' share.  Elsewhere (one device, the other families, decode) the
-weights are whole and they run as before.  The dry-run
+collectives where tensor-parallel compute runs: every family's sharded
+train, prefill and decode steps (``launch.steps``, the "tp" style) install
+the mesh's "model" axis (``parallel.tensor_parallel.over``) and call the
+layers on the rank's model shards.  Each takes its head counts, widths,
+channels or experts from its weights' shapes, and where they are split
+marks its split region's entry (``enter``, after the last op on weights
+whole on "model", so their gradients come out whole) and its row-split
+product's sum (``reduce``) at the reference's ``constrain`` points, so
+every rank computes its heads', columns', Mamba channels' or experts'
+share.  A sharded decode step also installs the axis its cache's
+positions lie on (``tensor_parallel.sequence``): ``attn_decode`` and
+``mla_decode`` attend over the rank's block of them.  Elsewhere (one
+device, the "fsdp" and "ep" styles) the weights are whole and they run as
+before.  The dry-run
 (``launch.dryrun``) traces these functions on FakeTensors: on its path
 they read no tensor's data on the host (``_sdpa``'s ``.item()`` reads a
 constant, which a FakeTensor keeps; ``_is_arange`` runs only for positions
@@ -160,11 +162,13 @@ def _repeat_kv(k, n_rep):
         .reshape(B, T, K * n_rep, hd)
 
 
-def _sdpa(cfg, q, k, v, mask, dtype):
+def _sdpa(cfg, q, k, v, mask, dtype, sq=None):
     """q: (B,S,H,hd); k,v: (B,T,H,hd); mask broadcastable to (B,H,S,T).
 
     cfg.scores_bf16 keeps the (S x T) score tensor in bf16 with fp32 row
-    sums."""
+    sums.  With ``sq`` (a sharded decode step's sequence axis) k, v and
+    the mask are the rank's block of the positions: the row max, the row
+    sums and the weighted values are all-reduced over ``sq``."""
     hd = q.shape[-1]
     sd = torch.bfloat16 if cfg.scores_bf16 else torch.float32
     # the scale rounded to sd first, as the reference's jnp.asarray(., sd);
@@ -173,10 +177,15 @@ def _sdpa(cfg, q, k, v, mask, dtype):
     scores = torch.einsum("bshd,bthd->bhst", q, k).to(sd) * scale
     scores = torch.where(mask, scores, torch.finfo(sd).min / 2)
     m = scores.amax(dim=-1, keepdim=True)
+    if sq is not None:
+        m = tp.all_reduce(m, "max", sq)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True, dtype=torch.float32)
+    if sq is not None:
+        l = tp.all_reduce(l, "sum", sq)
     w = (p / l.to(sd)).to(dtype)
-    return torch.einsum("bhst,bthd->bshd", w, v)
+    o = torch.einsum("bhst,bthd->bshd", w, v)
+    return o if sq is None else tp.all_reduce(o, "sum", sq)
 
 
 def _is_arange(positions) -> bool:
@@ -257,40 +266,114 @@ def _local_kv(cfg: ArchConfig, ax, n_q: int, w):
     the q heads; where they are whole (their count does not divide the
     axis: llama3-8b's 8 on 16 ranks), the one kv head of the group the q
     heads lie in."""
-    K, G = w.shape[1], cfg.n_heads // cfg.n_kv_heads
-    if K * ax.size == cfg.n_kv_heads:
+    if w.shape[1] * ax.size == cfg.n_kv_heads:
         return w
-    if K != cfg.n_kv_heads or G % n_q:
-        raise ValueError(f"{n_q} q heads a rank over {K} of "
-                         f"{cfg.n_kv_heads} kv heads: not within one group")
-    h0 = ax.rank * n_q
-    return w[:, h0 // G:h0 // G + 1]
+    return _kv_heads(cfg, ax, n_q, w, 1)
+
+
+def _kv_heads(cfg: ArchConfig, ax, n_q: int, t, dim: int):
+    """The kv heads (dim ``dim`` of ``t``, which holds all
+    ``cfg.n_kv_heads``) that the rank's ``n_q`` q heads read: its block
+    where the kv heads divide the axis, else the one kv head of the group
+    its q heads lie in."""
+    K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    if t.shape[dim] != K:
+        raise ValueError(f"{t.shape[dim]} of {K} kv heads")
+    if K % ax.size == 0:
+        return t.narrow(dim, ax.rank * (K // ax.size), K // ax.size)
+    if G % n_q:
+        raise ValueError(f"{n_q} q heads a rank over {K} kv heads: not "
+                         f"within one group")
+    return t.narrow(dim, ax.rank * n_q // G, 1)
+
+
+def _new_kv(cfg: ArchConfig, h, w, ax):
+    """A decode step's new keys or values (B, 1, every kv head, hd):
+    under a sharded step the rank's kv heads gathered over the model
+    axis, or, where ``w`` is whole on it, ``tensor_parallel``'s
+    ``whole_product``."""
+    if ax is None:
+        return _heads_in(h, w)
+    if w.shape[1] != cfg.n_kv_heads:
+        return tp.gather(_heads_in(h, w), ax, dim=2)
+    return tp.whole_product(h, w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _write_at(c, pos, new, sq):
+    """Row b of the cache ``c`` (B, positions, ...) written in place at
+    ``pos[b]``, clamped into the cache as ``dynamic_update_slice`` clamps;
+    with ``sq`` the cache is the rank's block of the positions, and only
+    the rank whose block holds a row's position writes it."""
+    B, n = c.shape[:2]
+    rows = torch.arange(B, device=c.device)
+    if sq is None:
+        c[rows, pos.long().clamp(0, n - 1)] = new
+        return
+    at = pos.long().clamp(0, n * sq.size - 1) - sq.rank * n
+    mine = ((at >= 0) & (at < n)).view(B, *[1] * (new.dim() - 1))
+    at = at.clamp(0, n - 1)
+    c[rows, at] = torch.where(mine, new, c[rows, at])
+
+
+def _valid(pos, n: int, sq, device):
+    """(B, 1, 1, n): which of the cache's ``n`` positions (with ``sq``,
+    the rank's block of them) a row at ``pos`` reads."""
+    at = torch.arange(n, device=device)
+    if sq is not None:
+        at = at + sq.rank * n
+    return (at[None, :] <= pos[:, None])[:, None, None, :]
+
+
+def _on_model(ax, sq) -> bool:
+    """Whether a sharded decode step's cache positions lie on the axis its
+    heads are split over: each rank then attends every head over its
+    positions."""
+    return ax is not None and sq is not None and sq.name == ax.name
 
 
 def attn_decode(cfg: ArchConfig, p, x, cache, pos):
     """One-token decode. x: (B, 1, D); cache: {k,v: (B, Smax, K, hd)};
     pos: (B,) current write position.  The cache is written in place (row b
     at ``pos[b]``, clamped into the cache as ``dynamic_update_slice``
-    clamps) and returned."""
-    B = x.shape[0]
-    H, K = cfg.n_heads, cfg.n_kv_heads
+    clamps) and returned.
+
+    Under a sharded decode step (no gradient) ``wq``, ``wk``, ``wv`` and
+    ``wo`` may hold the rank's heads and the cache the rank's block of the
+    positions (``tensor_parallel.sequence``): the rank computes its q heads
+    and every kv head's new key and value (``_new_kv``), writes them where
+    its block holds ``pos``, and attends over its positions, the softmax
+    combined over the sequence's axis (``_sdpa``).  Where that axis is the
+    heads' (the batch split over the data axes), it attends every head,
+    its q heads gathered, and keeps its own heads' output; elsewhere (one
+    row: the positions over "data") its own heads.  The row-split ``wo``
+    product is summed over the model axis."""
+    wq = p["wq"]
+    ax = tp.split(wq.shape[1], cfg.n_heads)
+    sq = tp.sequence()
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = _heads_in(h, p["wq"])
-    k = _heads_in(h, p["wk"])
-    v = _heads_in(h, p["wv"])
+    q = _heads_in(h, wq)
+    k = _new_kv(cfg, h, p["wk"], ax)
+    v = _new_kv(cfg, h, p["wv"], ax)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
-    Smax = ck.shape[1]
-    rows = torch.arange(B, device=x.device)
-    at = pos.long().clamp(0, Smax - 1)
-    ck[rows, at] = k[:, 0]
-    cv[rows, at] = v[:, 0]
-    valid = (torch.arange(Smax, device=x.device)[None, :]
-             <= pos[:, None])[:, None, None, :]
+    _write_at(ck, pos, k[:, 0], sq)
+    _write_at(cv, pos, v[:, 0], sq)
+    valid = _valid(pos, ck.shape[1], sq, x.device)
+    Hl = q.shape[2]
+    if _on_model(ax, sq):
+        q = tp.gather(q, ax, dim=2)
+    elif ax is not None:
+        ck, cv = (_kv_heads(cfg, ax, Hl, t, 2) for t in (ck, cv))
+    H, K = q.shape[2], ck.shape[2]
     o = _sdpa(cfg, q, _repeat_kv(ck, H // K), _repeat_kv(cv, H // K), valid,
-              x.dtype)
-    return x + _heads_out(o, p["wo"]), {"k": ck, "v": cv}
+              x.dtype, sq)
+    if H != Hl:
+        o = o.narrow(2, ax.rank * Hl, Hl)
+    out = _heads_out(o, p["wo"])
+    if ax is not None:
+        out = tp.reduce(out, ax)
+    return x + out, {"k": cache["k"], "v": cache["v"]}
 
 
 def init_attn_cache(cfg: ArchConfig, B, Smax, dt, device):
@@ -328,9 +411,10 @@ def _mla_qkv(cfg, p, h, positions, ax=None):
     """(q_nope, q_rope (B,S,H,.), c_kv (B,S,r), k_rope (B,S,rope_hd)).
     Under a tensor-parallel step (``ax``) the latents, whole on "model",
     enter the split region before ``wuq`` splits their heads (k_rope,
-    which every head reads, among them)."""
+    which every head reads, among them); a decode step splits the down
+    projections' contraction (``tensor_parallel.whole_product``)."""
     m = cfg.mla
-    cq, ckv = h @ p["wdq"], h @ p["wdkv"]
+    cq, ckv = tp.whole_product(h, p["wdq"]), tp.whole_product(h, p["wdkv"])
     if ax is not None:
         cq, ckv = tp.enter(cq, ax), tp.enter(ckv, ax)
     q = _heads_in(cq, p["wuq"])
@@ -341,22 +425,43 @@ def _mla_qkv(cfg, p, h, positions, ax=None):
     return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
 
 
-def _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid, ax=None):
+def _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid, ax=None,
+                sq=None):
     """c_kv: (B, T, r); k_rope: (B, T, rope_hd) shared across heads; valid:
     a mask broadcastable to (B, H, S, T), or None for none.  Under a
     tensor-parallel step (``ax``) the heads are the rank's (``wukv`` and
     ``wo`` split) and the row-split ``wo`` product is summed over the
-    axis."""
+    axis.  With ``sq`` (a sharded decode step) c_kv and k_rope are the
+    rank's block of the positions and the softmax is combined over it:
+    where its positions lie on the heads' axis, every head's queries are
+    gathered, the latents expanded by ``wukv`` whole (the step gathers it
+    so) and the rank's heads of the output kept; elsewhere ``wukv`` is cut
+    to the rank's heads."""
     m = cfg.mla
-    kv = _heads_in(c_kv, p["wukv"])                       # (B, T, H, e)
+    Hl, wukv = q_nope.shape[2], p["wukv"]
+    if _on_model(ax, sq):
+        q_nope, q_rope = (tp.gather(t, ax, dim=2) for t in (q_nope, q_rope))
+    elif wukv.shape[1] != Hl:
+        wukv = wukv.narrow(1, ax.rank * Hl, Hl)
+    kv = _heads_in(c_kv, wukv)                            # (B, T, H, e)
     k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
     sc = torch.einsum("bshq,bthq->bhst", q_nope, k_nope)
     sc = sc + torch.einsum("bshq,btq->bhst", q_rope, k_rope)
     sc = sc.float() * ((m.nope_head_dim + m.rope_head_dim) ** -0.5)
     if valid is not None:
         sc = torch.where(valid, sc, -1e30)
-    w = torch.softmax(sc, dim=-1).to(x.dtype)
+    if sq is None:
+        w = torch.softmax(sc, dim=-1).to(x.dtype)
+    else:
+        e = torch.exp(sc - tp.all_reduce(sc.amax(dim=-1, keepdim=True),
+                                         "max", sq))
+        w = (e / tp.all_reduce(e.sum(dim=-1, keepdim=True), "sum",
+                               sq)).to(x.dtype)
     o = torch.einsum("bhst,bthv->bshv", w, v)
+    if sq is not None:
+        o = tp.all_reduce(o, "sum", sq)
+    if o.shape[2] != Hl:
+        o = o.narrow(2, ax.rank * Hl, Hl)
     out = _heads_out(o, p["wo"])
     if ax is not None:
         # the reference's constrain of kv, q_nope and the scores to heads
@@ -384,19 +489,20 @@ def mla_decode(cfg: ArchConfig, p, x, cache, pos):
     """One-token decode.  The cache holds the COMPRESSED latents
     {ckv: (B, Smax, kv_lora + rope_hd)}, not 2*H*hd per token; row b is
     written in place at ``pos[b]`` (clamped into the cache, as
-    ``dynamic_update_slice`` clamps) and the cache returned."""
+    ``dynamic_update_slice`` clamps) and the cache returned.  Under a
+    sharded decode step (no gradient) the heads may be the rank's and the
+    cache its block of the positions, as in ``attn_decode``
+    (``_mla_attend``)."""
+    ax = tp.split(p["wuq"].shape[1], cfg.n_heads)
+    sq = tp.sequence()
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(cfg, p, h, pos[:, None])
     ck = cache["ckv"]
-    B, Smax = ck.shape[:2]
-    rows = torch.arange(B, device=x.device)
-    at = pos.long().clamp(0, Smax - 1)
-    ck[rows, at] = torch.cat([c_kv_new, k_rope_new], dim=-1)[:, 0]
+    _write_at(ck, pos, torch.cat([c_kv_new, k_rope_new], dim=-1)[:, 0], sq)
     c_kv, k_rope = ck.split([cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim],
                             dim=-1)
-    valid = (torch.arange(Smax, device=x.device)[None, :]
-             <= pos[:, None])[:, None, None, :]
-    out = _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid)
+    valid = _valid(pos, ck.shape[1], sq, x.device)
+    out = _mla_attend(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid, ax, sq)
     return out, {"ckv": ck}
 
 
@@ -494,7 +600,7 @@ def moe_route(cfg: ArchConfig, p, h, gidx=None) -> dict:
     mc = cfg.moe
     E, K = mc.n_experts, mc.top_k
     dev = h.device
-    logits = h.float() @ p["router"]
+    logits = tp.whole_product(h.float(), p["router"])
     gates = torch.softmax(logits, dim=-1)
     if gidx is None:
         gval, gidx = torch.topk(gates, K, dim=-1)
@@ -636,10 +742,27 @@ def _linear_scan(a, b):
     return b
 
 
-def _mamba_core(cfg, p, xz, h0, conv_tail):
+def _row_split(h, w, ax):
+    """``h @ w`` where ``w``'s rows (the contraction) are the rank's
+    channels under a tensor-parallel step (``ax``): each rank's partial
+    product is taken and summed over the axis in f32 and rounded to
+    ``h``'s dtype once, as one device's product is.  A Mamba layer's
+    ``w_dt`` product feeds exp(dt * A) with |A| up to 16, where partial
+    sums rounded to bf16 before the sum moved a step's gradient norm by
+    several 1e-3 against one device's."""
+    if ax is None:
+        return h @ w
+    return tp.reduce(h.float() @ w.float(), ax).to(h.dtype)
+
+
+def _mamba_core(cfg, p, xz, h0, conv_tail, ax=None):
     """xz: (B, S, 2*di); h0: the (B, di, N) f32 state carried in, or None
     for zeros; conv_tail: (B, kc-1, di).  Returns (y (B, S, di) in xz's
-    dtype, the state after the last token, the new conv tail)."""
+    dtype, the state after the last token, the new conv tail).  Under a
+    tensor-parallel step (``ax``) di is the rank's channels: the row-split
+    ``w_bc`` and ``w_dt`` products are summed over the axis
+    (``_row_split``) and enter the split region again (every channel reads
+    them)."""
     S = xz.shape[1]
     kc = cfg.mamba_d_conv
     x, z = xz.chunk(2, dim=-1)
@@ -648,10 +771,13 @@ def _mamba_core(cfg, p, xz, h0, conv_tail):
     c = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(kc))
     new_tail = xp[:, S:S + kc - 1]
     c = F.silu(c)
-    Bm, Cm = (c @ p["w_bc"]).chunk(2, dim=-1)             # (B, S, N)
+    bc, cw = _row_split(c, p["w_bc"], ax), _row_split(c, p["w_dt"], ax)
+    if ax is not None:
+        bc, cw = tp.enter(bc, ax), tp.enter(cw, ax)
+    Bm, Cm = bc.chunk(2, dim=-1)                          # (B, S, N)
     # the reference's einsum("bsd,dr,re->bse") contracts c @ w_dt first,
     # rounding it to the layer's dtype
-    dt_ = F.softplus(((c @ p["w_dt"]) @ p["w_dt2"]).float())
+    dt_ = F.softplus((cw @ p["w_dt2"]).float())
     A = -torch.exp(p["a_log"])                           # (di, N)
     decay = torch.exp(dt_[..., None] * A)                # (B, S, di, N)
     drive = (dt_ * c.float())[..., None] * Bm[:, :, None, :]
@@ -664,35 +790,66 @@ def _mamba_core(cfg, p, xz, h0, conv_tail):
     return y, h[:, -1], new_tail
 
 
+def _mamba_in(cfg: ArchConfig, p, x):
+    """(the layer's ``[x | z]`` (B, S, 2 * channels), the model axis its
+    channels are split over or None).  Under a tensor-parallel step
+    ``conv_w`` and the other channel-wise weights may hold the rank's
+    channels and ``w_in`` its columns: the normed input enters the split
+    region and the rank's column block of ``h @ w_in``, half x's channels
+    and half z's at a 2-way axis, is exchanged for its own channels of
+    each (``tensor_parallel.exchange``), where the reference constrains
+    ``xz`` to "model" (repro/models/layers.py:461) and XLA reshards it."""
+    ax = tp.split(p["conv_w"].shape[1], cfg.mamba_expand * cfg.d_model)
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if ax is None:
+        return h @ p["w_in"], None
+    return tp.exchange(tp.enter(h, ax) @ p["w_in"], ax), ax
+
+
+def _mamba_out(y, p, ax):
+    """The ``w_out`` product, its rows the rank's channels under a
+    tensor-parallel step, summed over the axis (``_row_split``)."""
+    return _row_split(y, p["w_out"], ax)
+
+
 def mamba_forward(cfg: ArchConfig, p, x, chunk=256):
     """Full-sequence Mamba, ``chunk`` tokens a scan, the state and conv
     tail carried from chunk to chunk; ``S % min(chunk, S) == 0`` as in the
-    reference."""
+    reference.  Under a tensor-parallel step each rank runs its channels
+    (``_mamba_in``), its scan on (B, S, di / m, N)."""
     B, S, D = x.shape
-    di = cfg.mamba_expand * D
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    xz = h @ p["w_in"]
+    xz, ax = _mamba_in(cfg, p, x)
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"mamba: {S} tokens are not a multiple of chunk "
                          f"{chunk}")
     state = None
-    tail = torch.zeros((B, cfg.mamba_d_conv - 1, di), dtype=xz.dtype,
-                       device=x.device)
+    tail = torch.zeros((B, cfg.mamba_d_conv - 1, p["conv_w"].shape[1]),
+                       dtype=xz.dtype, device=x.device)
     ys = []
     for s0 in range(0, S, chunk):
         y, state, tail = _mamba_core(cfg, p, xz[:, s0:s0 + chunk], state,
-                                     tail)
+                                     tail, ax)
         ys.append(y)
-    return x + torch.cat(ys, dim=1) @ p["w_out"]
+    return x + _mamba_out(torch.cat(ys, dim=1), p, ax)
 
 
 def mamba_decode(cfg: ArchConfig, p, x, cache):
     """One-token decode; cache = {h: (B, di, N) f32, tail: (B, kc-1, di)},
-    returned as new tensors (``lm.decode_step_into`` copies them back)."""
-    xz = rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_in"]
-    y, h1, tail1 = _mamba_core(cfg, p, xz, cache["h"], cache["tail"])
-    return x + y @ p["w_out"], {"h": h1, "tail": tail1}
+    returned as new tensors (``lm.decode_step_into`` copies them back).
+    Under a sharded decode step the rank runs its channels: a state or
+    tail given whole is cut to them, and the new ones are the rank's (the
+    step makes them whole where the cache holds them whole)."""
+    xz, ax = _mamba_in(cfg, p, x)
+    h0, tail = cache["h"], cache["tail"]
+    if ax is not None:
+        n = p["conv_w"].shape[1]
+        if h0.shape[1] != n:
+            h0 = h0.narrow(1, ax.rank * n, n)
+        if tail.shape[2] != n:
+            tail = tail.narrow(2, ax.rank * n, n)
+    y, h1, tail1 = _mamba_core(cfg, p, xz, h0, tail, ax)
+    return x + _mamba_out(y, p, ax), {"h": h1, "tail": tail1}
 
 
 def init_mamba_cache(cfg: ArchConfig, B, dt, device):
@@ -749,7 +906,8 @@ def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128,
 
     Under a tensor-parallel step ``wr``, ``wg``, ``wdecay`` and
     ``u_bonus`` may hold the rank's columns and ``wk``, ``wv`` and ``wo``
-    its rows: ``_rwkv_split`` then computes the rank's share."""
+    its rows: ``_rwkv_split`` then computes the rank's share (a decode
+    step's state: its heads')."""
     hd = cfg.rwkv_head_dim
     ax = tp.split(p["wr"].shape[1], x.shape[-1])
     h = rms_norm(x, p["norm_a"], cfg.norm_eps)
@@ -757,7 +915,7 @@ def rwkv_time_mix(cfg: ArchConfig, p, x, shift_last, s0, chunk=128,
     mix = torch.sigmoid(p["mix"])                         # (5, D)
     feats = [h + (prev - h) * mix[i] for i in range(5)]
     if ax is not None:
-        return _rwkv_split(cfg, p, x, h, feats, ax, chunk)
+        return _rwkv_split(cfg, p, x, h, feats, ax, chunk, s0)
     r = feats[0] @ p["wr"]
     k = feats[1] @ p["wk"]
     v = feats[2] @ p["wv"]
@@ -793,7 +951,7 @@ def _wkv(r, k, v, w, u, s0, hd: int, chunk: int, s_out=None):
     return out, s_fin
 
 
-def _rwkv_split(cfg: ArchConfig, p, x, h, feats, ax, chunk: int):
+def _rwkv_split(cfg: ArchConfig, p, x, h, feats, ax, chunk: int, s0=None):
     """The time mix of a tensor-parallel step, at the reference's
     constrain of r, k, v, w to heads on "model" (repro/models/
     layers.py:571-574).  Each mixed input enters the split region (the
@@ -805,7 +963,10 @@ def _rwkv_split(cfg: ArchConfig, p, x, h, feats, ax, chunk: int):
     ranks) the reference's ``fit_spec`` makes the heads whole: r, w and u
     are gathered and k and v summed whole, K5 runs every head, and its
     output enters the region again, cut back to the rank's columns.  The
-    row-split ``wo`` product is summed over the axis."""
+    row-split ``wo`` product is summed over the axis.  A carried state
+    ``s0`` (a decode step's, no gradient) given with every head is cut to
+    the rank's heads, and the final state is the rank's heads' (every
+    head's where K5 runs them all)."""
     n = p["wr"].shape[1]
     cols = slice(ax.rank * n, (ax.rank + 1) * n)
     feats = [tp.enter(f, ax) for f in feats]
@@ -819,7 +980,10 @@ def _rwkv_split(cfg: ArchConfig, p, x, h, feats, ax, chunk: int):
     u = p["u_bonus"]
     if whole:
         r, w, u = (tp.gather(t, ax) for t in (r, w, u))
-    out, s_fin = _wkv(r, k, v, w, u, None, cfg.rwkv_head_dim, chunk)
+    elif s0 is not None and s0.shape[1] * cfg.rwkv_head_dim != n:
+        hl = n // cfg.rwkv_head_dim
+        s0 = s0.narrow(1, ax.rank * hl, hl).contiguous()
+    out, s_fin = _wkv(r, k, v, w, u, s0, cfg.rwkv_head_dim, chunk)
     if whole:
         out = tp.enter(out, ax)[..., cols]
     y = x + tp.reduce((out * g) @ p["wo"], ax)
@@ -882,15 +1046,27 @@ def init_cross_attn(cfg: ArchConfig, gen: torch.Generator, device):
 def cross_attn_forward(cfg: ArchConfig, p, x, enc_out):
     """x (B, S, D) attends over the encoder's output (B, T, D): no rope,
     all T positions visible, through plain ``_sdpa`` as in the reference
-    (the port sends only chunked causal attention to K4)."""
+    (the port sends only chunked causal attention to K4).  Under a
+    tensor-parallel step ``wq`` and ``wo`` may hold the rank's heads: the
+    normed input and the encoder's output enter the split region, the
+    rank's q heads read their kv heads (``_local_kv``) and the row-split
+    ``wo`` product is summed over the axis."""
     B, S, _ = x.shape
-    H, K = cfg.n_heads, cfg.n_kv_heads
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    ax = tp.split(wq.shape[1], cfg.n_heads)
     T = enc_out.shape[1]
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = _heads_in(h, p["wq"])
-    k = _heads_in(enc_out, p["wk"])
-    v = _heads_in(enc_out, p["wv"])
+    if ax is not None:
+        h, enc_out = tp.enter(h, ax), tp.enter(enc_out, ax)
+        wk, wv = (_local_kv(cfg, ax, wq.shape[1], w) for w in (wk, wv))
+    q = _heads_in(h, wq)
+    k = _heads_in(enc_out, wk)
+    v = _heads_in(enc_out, wv)
+    H, K = q.shape[2], k.shape[2]
     mask = torch.ones((B, 1, S, T), dtype=torch.bool, device=x.device)
     o = _sdpa(cfg, q, _repeat_kv(k, H // K), _repeat_kv(v, H // K), mask,
               x.dtype)
-    return x + _heads_out(o, p["wo"])
+    out = _heads_out(o, p["wo"])
+    if ax is not None:
+        out = tp.reduce(out, ax)
+    return x + out

@@ -354,17 +354,28 @@ def embed_inputs(cfg: ArchConfig, model: LM, batch):
     ``patches`` (B, n_img_tokens, D), projected by ``img_proj``, go before
     the token embeddings.  Under a tensor-parallel step whose table holds
     the rank's rows of the vocabulary, the lookup is vocabulary-parallel
-    (``tensor_parallel.embed``)."""
+    (``tensor_parallel.embed``), and where ``img_proj`` holds the rank's
+    columns the projected patches are gathered whole before the
+    concatenation."""
     tokens = _on(batch["tokens"], model.device)
-    ax = tp.split(model.embed.shape[0], cfg.vocab)
-    x = model.embed[tokens] if ax is None else tp.embed(model.embed, tokens,
-                                                        ax)
+    x = _embed(cfg, model, tokens)
     enc_out = encode(cfg, model, batch["frames"]) \
         if cfg.family == "encdec" else None
     if cfg.family == "vlm":
         img = _on(batch["patches"], model.device).to(x.dtype) @ model.img_proj
+        ax = tp.split(model.img_proj.shape[1], cfg.d_model)
+        if ax is not None:
+            img = tp.gather(img, ax)
         x = torch.cat([img, x], dim=1)
     return x, None, enc_out
+
+
+def _embed(cfg: ArchConfig, model: LM, tokens):
+    """The token embeddings; vocabulary-parallel
+    (``tensor_parallel.embed``) where the table holds the rank's rows."""
+    ax = tp.split(model.embed.shape[0], cfg.vocab)
+    return model.embed[tokens] if ax is None else tp.embed(model.embed,
+                                                           tokens, ax)
 
 
 def _logits(cfg: ArchConfig, model: LM, batch):
@@ -484,7 +495,7 @@ def _decode(cfg: ArchConfig, model: LM, cache, batch, in_place: bool):
     dev = model.device
     tok = _on(batch["token"], dev)
     pos = _on(batch["pos"], dev)
-    x = model.embed[tok]
+    x = _embed(cfg, model, tok)
     enc_out = encode(cfg, model, batch["frames"]) \
         if cfg.family == "encdec" else None
     blocks = []
@@ -492,7 +503,10 @@ def _decode(cfg: ArchConfig, model: LM, cache, batch, in_place: bool):
         x, c = _decode_layer(cfg, spec, p, x, c, pos, enc_out, in_place)
         blocks.append(c)
     h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return logits_from_hidden(cfg, model, h), {"blocks": blocks}
+    logits = logits_from_hidden(cfg, model, h)
+    ax = tp.split(logits.shape[-1], cfg.vocab)
+    return logits if ax is None else tp.gather(logits, ax), \
+        {"blocks": blocks}
 
 
 def decode_step(cfg: ArchConfig, model: LM, cache, batch):
@@ -501,7 +515,9 @@ def decode_step(cfg: ArchConfig, model: LM, cache, batch):
     decode takes no patches).  Returns (logits (B,1,V), new cache).
     Attention and MLA caches are written in place (see
     ``layers.attn_decode``, ``layers.mla_decode``); Mamba and RWKV states
-    are replaced, so the caller's cache keeps its own."""
+    are replaced, so the caller's cache keeps its own.  Under a sharded
+    decode step (``launch.steps``) the layers compute on the rank's shards
+    and the logits' vocabulary is gathered."""
     return _decode(cfg, model, cache, batch, in_place=False)
 
 

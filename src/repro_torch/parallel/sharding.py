@@ -80,8 +80,8 @@ def _all_axes(names) -> tuple:
 # The reference's model code calls constrain(x, "dp", None, tp, ...) where
 # XLA's sharding propagation historically goes wrong.  The port's sharded
 # steps compute on plain local tensors, for which constrain() is the
-# identity (the dense family's tensor-parallel steps place explicit
-# collectives at those points instead: ``parallel.tensor_parallel``); a
+# identity (the tensor-parallel steps place explicit collectives at those
+# points instead: ``parallel.tensor_parallel``); a
 # DTensor is redistributed.  With no mesh installed constrain() is a no-op.
 
 _CTX_MESH: list = []

@@ -1,7 +1,7 @@
 """Tensor-parallel compute over a mesh's "model" axis: what GSPMD makes of
-the reference's "tp" rules (``parallel.sharding``: heads, FFN columns and
-the vocabulary split over "model") and of its ``constrain`` points, written
-as explicit collectives.
+the reference's "tp" rules (``parallel.sharding``: heads, FFN columns,
+Mamba's inner channels and the vocabulary split over "model") and of its
+``constrain`` points, written as explicit collectives.
 
 A sharded step installs the axis (``over(mesh)``) and runs the plain layers
 on the rank's model shards.  A layer asks ``split(n_local, n_global)``
@@ -12,10 +12,25 @@ is, marks the edges of its split region:
   forward, a sum over "model" backward (each rank's share of its
   gradient);
 * ``reduce``: a row-split product leaves it: a sum over "model" forward,
-  the identity backward;
+  the identity backward (``enter(reduce(...))`` where the sum is read in
+  the region again: Mamba's ``w_bc`` and ``w_dt`` products);
 * ``reduce_scatter``: a row-split product whose columns the region splits
   next (RWKV-6's ``wk`` and ``wv``): the sum over "model" of the rank's
-  column block forward, the ranks' blocks all-gathered backward.
+  column block forward, the ranks' blocks all-gathered backward;
+* ``exchange``: a product whose columns hold two halves each split over
+  "model" (Mamba's ``[x | z]`` of ``w_in``): an all-to-all that turns the
+  rank's column block into its block of each half, and back backward;
+* ``gather``: column blocks side by side (the vocabulary's logits,
+  PaliGemma's projected patches, a decode step's query heads and new
+  states).
+
+A decode step also installs the mesh axis that holds its cache's positions
+(``sequence_over``; "model" when the batch splits over the data axes,
+"data" for one row): each rank attends over its block of the positions and
+the softmax's row max and sums are all-reduced over that axis
+(``all_reduce``).  There, products on weights whole on "model" split their
+contraction over the axis (``whole_product``), as XLA partitions the
+reference's decode step.
 
 The vocabulary is split too: ``embed`` looks up the rank's rows of the
 table (ids outside them give zeros) and sums over "model";
@@ -41,28 +56,59 @@ from repro_torch.launch.mesh import mesh_shape
 
 
 class Axis(NamedTuple):
-    """The "model" axis as a rank sees it: its process group, its size and
-    the rank's index along it."""
+    """A mesh axis as a rank sees it: its process group, its size, the
+    rank's index along it and its name; ``rows`` where products on weights
+    whole on the axis split their contraction over it (a decode step)."""
     group: object
     size: int
     rank: int
+    name: str = "model"
+    rows: bool = False
 
 
 _AXES: list = []
+_SEQUENCE: list = []
+
+
+def axis(mesh, name: str, rows: bool = False) -> Axis | None:
+    """``mesh``'s axis ``name`` as this rank sees it, or None where the
+    mesh has no such axis or it has one rank."""
+    size = mesh_shape(mesh).get(name, 1)
+    if size == 1:
+        return None
+    return Axis(mesh.get_group(name), size, mesh.get_local_rank(name), name,
+                rows)
 
 
 @contextlib.contextmanager
-def over(mesh, axis: str = "model"):
+def over(mesh, name: str = "model", rows: bool = False):
     """Layers inside split the dims their weights hold split over
-    ``mesh``'s ``axis`` (nothing is installed where the axis has one rank
-    or the mesh none)."""
-    size = mesh_shape(mesh).get(axis, 1)
-    _AXES.append(Axis(mesh.get_group(axis), size,
-                      mesh.get_local_rank(axis)) if size > 1 else None)
+    ``mesh``'s axis ``name`` (nothing is installed where the axis has one
+    rank or the mesh none); with ``rows`` (a decode step) their products on
+    weights whole on the axis split their contraction (``whole_product``)."""
+    _AXES.append(axis(mesh, name, rows))
     try:
         yield _AXES[-1]
     finally:
         _AXES.pop()
+
+
+@contextlib.contextmanager
+def sequence_over(mesh, name: str | None):
+    """A decode step's cache holds its positions split over ``mesh``'s
+    axis ``name`` (None: whole): the attention layers inside attend over
+    the rank's block and combine the blocks over that axis."""
+    _SEQUENCE.append(axis(mesh, name) if name else None)
+    try:
+        yield _SEQUENCE[-1]
+    finally:
+        _SEQUENCE.pop()
+
+
+def sequence() -> Axis | None:
+    """The axis the installed decode step's cache positions are split
+    over, or None."""
+    return _SEQUENCE[-1] if _SEQUENCE else None
 
 
 def split(n_local: int, n_global: int) -> Axis | None:
@@ -78,7 +124,9 @@ def split(n_local: int, n_global: int) -> Axis | None:
     return ax
 
 
-def _all_reduce(x, op: str, ax: Axis):
+def all_reduce(x, op: str, ax: Axis):
+    """``x`` reduced by ``op`` ("sum", "max") over ``ax``, with no
+    gradient rule (a decode step's softmax statistics)."""
     return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op,
                                                 ax.group))
 
@@ -91,24 +139,24 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, "sum", ctx.ax), None
+        return all_reduce(g, "sum", ctx.ax), None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
-        return _all_reduce(x, "sum", ax)
+        return all_reduce(x, "sum", ax)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def _gather_cols(x, ax: Axis):
+def _gather_cols(x, ax: Axis, dim: int = -1):
     rows = funcol.wait_tensor(
         torch.ops._c10d_functional.all_gather_into_tensor(
             x.contiguous(), ax.size, ax.group.group_name))
-    return torch.cat(rows.chunk(ax.size), dim=-1)
+    return torch.cat(rows.chunk(ax.size), dim=dim)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -129,14 +177,56 @@ class _ReduceScatter(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ax):
-        ctx.ax, ctx.n = ax, x.shape[-1]
-        return _gather_cols(x, ax)
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.n, ctx.dim = ax, x.shape[dim], dim
+        return _gather_cols(x, ax, dim)
 
     @staticmethod
     def backward(ctx, g):
-        r, n = ctx.ax.rank, ctx.n
-        return g[..., r * n:(r + 1) * n], None
+        return g.narrow(ctx.dim, ctx.ax.rank * ctx.n, ctx.n), None, None
+
+
+def _halves_plan(ax: Axis, n: int):
+    """The all-to-all of ``exchange`` on a rank's block of 2n columns:
+    pieces 2r and 2r + 1 of the 2m pieces of n columns (pieces j < m hold
+    the first half, j >= m the second) go to ranks j % m, and the rank
+    takes pieces r and m + r.  Returns (whether its two pieces go out
+    swapped, so that they lie in their ranks' order, the sizes it sends
+    each rank, the sizes it receives from each)."""
+    m, r = ax.size, ax.rank
+    dest = [(2 * r) % m, (2 * r + 1) % m]
+    src = [r // 2, (m + r) // 2]
+    return (dest[0] > dest[1], [n * dest.count(t) for t in range(m)],
+            [n * src.count(t) for t in range(m)])
+
+
+def _all_to_all(x, send: list, recv: list, ax: Axis):
+    """Rows of ``x`` (its first dim) sent ``send[t]`` to rank t, received
+    ``recv[t]`` from rank t, in rank order."""
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), recv, send, ax.group))
+
+
+def _pieces(x, swap: bool):
+    """The two halves of ``x``'s last dim as rows (first dim), swapped
+    where ``swap``."""
+    rows = x.movedim(-1, 0)
+    n = rows.shape[0] // 2
+    return torch.cat([rows[n:], rows[:n]]) if swap else rows
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        swap, send, recv = _halves_plan(ax, x.shape[-1] // 2)
+        ctx.ax, ctx.plan = ax, (swap, send, recv)
+        return _all_to_all(_pieces(x, swap), send, recv, ax).movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        swap, send, recv = ctx.plan
+        back = _all_to_all(g.movedim(-1, 0), recv, send, ctx.ax)
+        return _pieces(back.movedim(0, -1), swap).movedim(0, -1), None
 
 
 def enter(x, ax: Axis):
@@ -158,11 +248,36 @@ def reduce_scatter(x, ax: Axis):
     return _ReduceScatter.apply(x, ax)
 
 
-def gather(x, ax: Axis):
-    """The ranks' column blocks of ``x`` (the last dim) side by side; its
-    gradient is cut back to the rank's block, so what follows must be the
-    same on every rank of ``ax``."""
-    return _Gather.apply(x, ax)
+def gather(x, ax: Axis, dim: int = -1):
+    """The ranks' blocks of ``x`` along ``dim`` (the last: its columns)
+    side by side; its gradient is cut back to the rank's block, so what
+    follows must be the same on every rank of ``ax``."""
+    return _Gather.apply(x, ax, dim)
+
+
+def exchange(x, ax: Axis):
+    """``x``'s last dim holds the rank's column block of ``[a | b]``, both
+    halves split over ``ax`` (Mamba's ``h @ w_in`` with ``w_in``'s columns
+    over "model"): the rank's block of ``a`` and its block of ``b``, side
+    by side, by one all-to-all over ``ax``; the gradient goes back by the
+    inverse all-to-all."""
+    return _Exchange.apply(x, ax)
+
+
+def whole_product(h, w):
+    """``h @ w`` for a weight ``w`` whole on the installed axis (its rows
+    the contraction), ``h`` the same on every rank of it: where the axis
+    splits such products (``rows``, a decode step), each rank multiplies
+    its block of the contraction and the blocks are summed over the axis;
+    elsewhere the product is whole on every rank."""
+    ax = _AXES[-1] if _AXES else None
+    if ax is None or not ax.rows:
+        return h @ w
+    n = w.shape[0] // ax.size
+    if n * ax.size != w.shape[0]:
+        raise ValueError(f"{w.shape[0]} rows over the axis {ax}")
+    rows = slice(ax.rank * n, (ax.rank + 1) * n)
+    return reduce(h[..., rows] @ w[rows], ax)
 
 
 def embed(table, ids, ax: Axis):
@@ -182,7 +297,7 @@ def log_prob(logits, labels, ax: Axis):
     depend on it), the sum of exponentials and the label's logit are
     all-reduced over ``ax``."""
     n = logits.shape[-1]
-    top = _all_reduce(logits.detach().amax(dim=-1), "max", ax)
+    top = all_reduce(logits.detach().amax(dim=-1), "max", ax)
     z = logits - top[..., None]
     total = reduce(torch.exp(z).sum(dim=-1), ax)
     local = labels - ax.rank * n

@@ -2,17 +2,17 @@
 configurations at the meshes (1, 1), (2, 2) and (16, 16), each on a fake
 group of its size: the record's keys are the reference's; the analyzer's
 flops are ``FlopCounterMode``'s; dense prefills at (1, 1) count the
-reference's HLO dot flops exactly; the dense, RWKV-6 and MoE families'
-tensor-parallel train and prefill steps split their work over both axes,
-their (2, 2) flops equal to the reference's compiled step's, or apart from
-it by the terms XLA splits on weights whole on "model"; RWKV-6's heads
-made whole where they do not divide the model axis; elsewhere the "model"
-axis replicates work and the "data" axis splits it; all-gather bytes and
-the arguments' bytes follow the specs; K4 and K5 appear as operator nodes; no
-process group is left behind; ``main`` writes, caches, skips and records
-failures as the reference's does.  Beside it, the kernels' operators: on
-CPU tensors the plain versions bitwise, and the card raised for where there
-is none."""
+reference's HLO dot flops exactly, and Jamba's train step apart from it by
+two named terms (``_one_device_gap``); every family's tensor-parallel
+train, prefill and decode steps split their work over both axes, their
+(2, 2) flops equal to the reference's compiled step's, or apart from it by
+named products (``_xla_model_splits``, ``_one_device_gap``); RWKV-6's
+heads made whole where they do not divide the model axis; all-gather
+bytes (no cache tensor gathered) and the arguments' bytes follow the
+specs; K4 and K5 appear as operator nodes; no process group is left
+behind; ``main`` writes, caches, skips and records failures as the
+reference's does.  Beside it, the kernels' operators: on CPU tensors the
+plain versions bitwise, and the card raised for where there is none."""
 import dataclasses
 import functools
 import json
@@ -20,6 +20,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -37,6 +38,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.launch import dryrun
 from repro_torch.launch import steps
+from repro_torch.models import lm
 from repro_torch.parallel import sharding
 
 # the reference's record (``repro.launch.dryrun.dryrun_cell``), key by key
@@ -53,7 +55,9 @@ MESHES = {"1x1": ((1, 1), ("data", "model")),
 CONFIGS = [("llama3_8b", "dense"), ("llama3_8b", "chunked"),
            ("gemma_7b", "dense"), ("gemma_7b", "chunked"),
            ("rwkv6_3b", "dense"), ("deepseek_v2_236b", "dense"),
-           ("deepseek_v2_236b", "chunked")]
+           ("deepseek_v2_236b", "chunked"),
+           ("jamba_1_5_large_398b", "dense"), ("whisper_small", "dense"),
+           ("paligemma_3b", "dense")]
 KINDS = ("train", "prefill", "decode")
 S, B = 64, 16                    # tokens, global batch (splits over 16)
 CELLS = [(a, i, k, m) for a, i in CONFIGS for k in KINDS for m in MESHES]
@@ -127,13 +131,6 @@ def test_dense_prefill_counts_the_references_dot_flops(arch):
     assert rec["flops_per_device"] == jha.analyze(text)["flops"]
 
 
-def _tensor_parallel(arch, kind):
-    """Whether the cell's step computes on its model shards: the dense,
-    "ssm" and "moe" families' train and prefill steps (style "tp")."""
-    return _cfg(arch, "dense").family in ("dense", "ssm", "moe") \
-        and kind != "decode"
-
-
 def _latent_width(cfg) -> int:
     """The columns of MLA's down projections ``wdq`` and ``wdkv``
     together (0 without MLA)."""
@@ -141,122 +138,229 @@ def _latent_width(cfg) -> int:
     return m.q_lora_rank + m.kv_lora_rank + m.rope_head_dim if m else 0
 
 
-def _whole_on_model_flops(cfg, kind, tokens: int) -> int:
+def _kv_whole(cfg, m: int) -> bool:
+    """Whether the kv projections stay whole on a model axis of ``m``
+    (their heads do not divide it: PaliGemma's one kv head)."""
+    return cfg.n_kv_heads % m != 0
+
+
+def _whole_on_model_flops(cfg, kind, tokens: int, m: int = 2) -> int:
     """The flops of the products with weights whole on "model" that a
-    tensor-parallel step computes whole on every model rank, on
-    ``tokens`` tokens: MLA's ``h @ wdq`` and ``h @ wdkv`` and the
-    router's ``h @ router``.  A prefill does each once; a train step four
-    times (the forward, again under remat "full", the input's gradient
-    and the weight's)."""
-    width = sum(_latent_width(cfg) * (cfg.layer_kind(i) == "mla")
-                + cfg.moe.n_experts * cfg.is_moe_layer(i)
-                for i in range(cfg.n_layers)) if cfg.moe else 0
+    tensor-parallel train or prefill step computes whole on every model
+    rank, on ``tokens`` tokens: MLA's ``h @ wdq`` and ``h @ wdkv``, the
+    router's ``h @ router`` and, where the kv heads do not divide the
+    axis, the attention layers' kv projections (``layers._local_kv``).  A
+    prefill does each once; a train step four times (the forward, again
+    under remat "full", the input's gradient and the weight's).  A decode
+    step splits each one's contraction (``tensor_parallel.whole_product``):
+    none."""
+    if kind == "decode":
+        return 0
+    width = 0
+    for i in range(cfg.n_layers):
+        kind_i = cfg.layer_kind(i)
+        width += _latent_width(cfg) * (kind_i == "mla")
+        width += cfg.moe.n_experts * cfg.is_moe_layer(i) if cfg.moe else 0
+        width += 2 * cfg.n_kv_heads * cfg.hd * (
+            kind_i == "attn" and _kv_whole(cfg, m))
     return 2 * tokens * cfg.d_model * width * (4 if kind == "train" else 1)
 
 
-def _xla_model_splits(cfg, kind, tokens: int) -> int:
+def _xla_model_splits(cfg, kind, tokens: int, m: int = 2) -> int:
     """The flops by which the reference's (2, 2) step, as XLA partitions
     it, does less than the port's on a device of ``tokens`` tokens: XLA
     splits work on weights whole on "model" between the two model ranks
     where the port repeats it on each (PERF.md §6).  In a train step half
     of each such weight's gradient (``wdq`` and ``wdkv`` in every MLA
-    layer, the router in every MoE layer), and half of the dense prefix
-    layer's ``h @ wdq`` and ``h @ wdkv``, which the reference applies
-    outside its scan: in its forward (a prefill) and again under remat
-    (a train step)."""
+    layer, the router in every MoE layer: DeepSeek-V2, Kimi-K2, Jamba),
+    half of the dense prefix layer's ``h @ wdq`` and ``h @ wdkv``, which
+    the reference applies outside its scan: in its forward (a prefill) and
+    again under remat (a train step), and half of all four passes of the
+    kv projections where their heads do not divide the axis (PaliGemma:
+    XLA splits their contraction in the train step, not in the
+    prefill)."""
     prefix = cfg.dense_prefix_layers * tokens * cfg.d_model \
         * _latent_width(cfg)
     if kind == "prefill":
         return prefix
+    if kind == "decode":
+        return 0
     n_mla = sum(cfg.layer_kind(i) == "mla" for i in range(cfg.n_layers))
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    n_kv = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)) \
+        if _kv_whole(cfg, m) else 0
     return 2 * prefix + tokens * cfg.d_model * (
         n_mla * _latent_width(cfg)
-        + (n_moe * cfg.moe.n_experts if cfg.moe else 0))
+        + (n_moe * cfg.moe.n_experts if cfg.moe else 0)
+        + n_kv * 4 * 2 * cfg.n_kv_heads * cfg.hd)
 
 
-# the reference's (2, 2) cells: its steps compiled by XLA on 4 host devices
-# of a child process (``repro.launch.dryrun`` asks for 512 when imported),
-# the mesh's axes ``Auto`` (JAX 0.9.0's ``make_mesh`` makes them
-# ``Explicit``, on which the reference's ``constrain`` raises: ROADMAP's
-# R6), read by the reference's analyzer
-_REFERENCE_2X2 = """
+def _one_device_gap(cfg, kind, tokens: int, m: int = 1) -> int:
+    """The flops by which the port's step counts more than the
+    reference's compiled step at (1, 1) (on ``tokens`` tokens a device,
+    Mamba's channels and the FFN's columns over a model axis of ``m``),
+    product by product; nonzero for Jamba's train step alone:
+
+    * + the backward of Mamba's ``einsum("bsdn,bsn->bsd", h, C)`` into h,
+      an outer product of y's gradient and C: autograd makes it a ``bmm``
+      with a contraction of 1, counted 2 * tokens * di * N a Mamba layer;
+      XLA emits a broadcast multiply, no dot;
+    * - under remat "full" the reference's remat unit is a period (8
+      layers, ``repro/models/lm.py:171-172``): its backward recomputes
+      every MLP layer's ``up @ w_down`` but the period's last, whose
+      output nothing in the backward reads; the port checkpoints each
+      layer, and ``torch.utils.checkpoint`` stops a layer's recomputation
+      at its last saved tensor, so no ``w_down`` product (a layer's last
+      op, its output the next checkpoint's saved input) is recomputed."""
+    if kind != "train" or cfg.family != "hybrid":
+        return 0
+    di, specs = cfg.mamba_expand * cfg.d_model // m, lm.layer_specs(cfg)
+    outer = sum(mix == "mamba" for mix, _ in specs) * 2 * tokens * di \
+        * cfg.mamba_d_state
+    if cfg.remat != "full":
+        return outer
+    period = specs[cfg.dense_prefix_layers:][:cfg.period]
+    mlps = sum(ffn == "mlp" for _, ffn in period) \
+        - (period[-1][1] == "mlp")
+    n_periods = (cfg.n_layers - cfg.dense_prefix_layers) // cfg.period
+    return outer - n_periods * mlps * 2 * tokens * (cfg.d_ff // m) \
+        * cfg.d_model
+
+
+# the reference's cells: its steps compiled by XLA on 4 host devices of
+# child processes (``repro.launch.dryrun`` asks for 512 when imported), the
+# mesh's axes ``Auto`` (JAX 0.9.0's ``make_mesh`` makes them ``Explicit``,
+# on which the reference's ``constrain`` raises: ROADMAP's R6), read by the
+# reference's analyzer; each cell (arch, kind, data, model, remat or None)
+_REFERENCE_CELLS = """
 import dataclasses, json, sys
 from repro.launch import dryrun
 import jax
 from jax.sharding import AxisType
 from repro import config
 from repro.launch import hlo_analysis
-mesh = jax.make_mesh((2, 2), ("data", "model"),
-                     axis_types=(AxisType.Auto,) * 2,
-                     devices=jax.devices()[:4])
 out = {}
-for arch, kind in json.loads(sys.argv[1]):
+for arch, kind, d, m, remat in json.loads(sys.argv[1]):
+    mesh = jax.make_mesh((d, m), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:d * m])
     cfg = dataclasses.replace(config.get_config(arch, reduced=True),
                               attn_impl="dense")
+    if remat:
+        cfg = dataclasses.replace(cfg, remat=remat)
     shape = config.ShapeConfig("t", kind, %d, %d)
     text = dryrun._compile_cell(cfg, shape, mesh).as_text()
-    out[arch + ":" + kind] = hlo_analysis.analyze(text)["flops"]
+    out[f"{arch}:{kind}:{d}x{m}:{remat}"] = hlo_analysis.analyze(text)["flops"]
 print(json.dumps(out))
 """ % (S, B)
-TP_CELLS = [(a, k) for a in ("llama3_8b", "gemma_7b", "deepseek_v2_236b",
-                          "kimi_k2_1t_a32b")
-            for k in ("train", "prefill")]
+TP_ARCHS = ("llama3_8b", "gemma_7b", "deepseek_v2_236b", "kimi_k2_1t_a32b",
+            "jamba_1_5_large_398b", "whisper_small", "paligemma_3b")
+TP_CELLS = [(a, k) for a in TP_ARCHS for k in KINDS]
+# Jamba's one-device train step under both remat modes
+GAP_CELLS = [("jamba_1_5_large_398b", "train", 1, 1, r)
+             for r in ("full", "none")]
+# the children's share of the cells, the three slowest (Jamba's train
+# steps, ~30-50 s each) one a child
+_CHILDREN = 3
 
 
 @pytest.fixture(scope="session")
-def reference_2x2():
-    """{"arch:kind": the reference's flops a device} of TP_CELLS on
-    (2, 2), from one child process."""
+def reference_cells():
+    """{"arch:kind:dxm:remat": the reference's flops a device} of TP_CELLS
+    on (2, 2) and of GAP_CELLS, from ``_CHILDREN`` child processes run
+    side by side, all within one deadline of 270 s."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(root, "src"))
-    done = subprocess.run([sys.executable, "-c", _REFERENCE_2X2,
-                           json.dumps(TP_CELLS)], env=env, cwd=root,
-                          capture_output=True, text=True, timeout=240)
-    assert done.returncode == 0, done.stderr[-3000:]
-    return json.loads(done.stdout.strip().splitlines()[-1])
+    cells = [("jamba_1_5_large_398b", "train", 2, 2, None), *GAP_CELLS] + [
+        (a, k, 2, 2, None) for a, k in TP_CELLS
+        if (a, k) != ("jamba_1_5_large_398b", "train")]
+    children = [subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE_CELLS,
+         json.dumps(cells[i::_CHILDREN])], env=env, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(_CHILDREN)]
+    out, deadline = {}, time.monotonic() + 270
+    try:
+        for child in children:
+            stdout, stderr = child.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            assert child.returncode == 0, stderr[-3000:]
+            out.update(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for child in children:
+            child.kill()
+    return out
 
 
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("arch,kind", TP_CELLS)
-def test_model_axis_flops_equal_the_references(reference_2x2, arch, kind):
-    """The tensor-parallel train and prefill steps at (2, 2): a device's
-    flops are the reference's compiled step's (dense attention, which the
-    reference's analyzer counts as the port's), exactly for the dense
-    family and Kimi-K2's prefill; for DeepSeek-V2 and Kimi-K2's train
-    step, apart by exactly the products XLA splits on weights whole on
-    "model" (``_xla_model_splits``: the latents' and router's weight
-    gradients, DeepSeek-V2's prefix latents)."""
+def test_model_axis_flops_equal_the_references(reference_cells, arch, kind):
+    """Every family's tensor-parallel train, prefill and decode steps at
+    (2, 2): a device's flops are the reference's compiled step's (dense
+    attention, which the reference's analyzer counts as the port's),
+    exactly but for the products XLA splits on weights whole on "model"
+    (``_xla_model_splits``: the latents', router's and PaliGemma's kv
+    projections' weight gradients and more, in the train steps,
+    DeepSeek-V2's prefix latents) and Jamba's one-device terms at the
+    device's share (``_one_device_gap``).  The decode steps equal the
+    reference's exactly: their products on weights whole on "model" split
+    their contraction as XLA's do."""
+    cfg = _cfg(arch, "dense")
     rec, _ = _cell(arch, "dense", kind, "2x2")
-    extra = _xla_model_splits(_cfg(arch, "dense"), kind, B // 2 * S)
-    assert extra == 0 or arch in ("deepseek_v2_236b", "kimi_k2_1t_a32b")
-    assert rec["flops_per_device"] == reference_2x2[f"{arch}:{kind}"] \
-        + extra
+    tokens = B // 2 * S
+    extra = _xla_model_splits(cfg, kind, tokens) \
+        + _one_device_gap(cfg, kind, tokens, 2)
+    assert extra == 0 or arch in ("deepseek_v2_236b", "kimi_k2_1t_a32b",
+                                  "jamba_1_5_large_398b", "paligemma_3b")
+    assert kind != "decode" or extra == 0
+    assert rec["flops_per_device"] == \
+        reference_cells[f"{arch}:{kind}:2x2:None"] + extra
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_jamba_one_device_gap_is_named_product_by_product(reference_cells,
+                                                          remat):
+    """Jamba's train step at (1, 1) counts the reference's flops plus the
+    outer product autograd counts as a dot (+29,360,128 on the reduced
+    config at S 64, B 16) and, under remat "full", less the MLP
+    down-projections the reference's period-wide remat recomputes and the
+    port's per-layer checkpoint does not (-50,331,648):
+    ``_one_device_gap``.  Both sides compute the same function; neither
+    term is work the port adds or drops."""
+    cfg = dataclasses.replace(_cfg("jamba_1_5_large_398b", "dense"),
+                              remat=remat)
+    with dryrun.dryrun_mesh(*MESHES["1x1"]) as m:
+        tr = dryrun.trace_step(cfg, _shape("train"), m)
+        rec = dryrun.record("jamba_1_5_large_398b", "t", "1x1", cfg,
+                            _shape("train"), m, tr)
+    gap = _one_device_gap(cfg, "train", B * S)
+    assert gap == {"full": 29360128 - 50331648, "none": 29360128}[remat]
+    assert rec["flops_per_device"] == reference_cells[
+        f"jamba_1_5_large_398b:train:1x1:{remat}"] + gap
 
 
 @pytest.mark.parametrize("arch,impl,kind", [(a, i, k) for a, i in CONFIGS
                                             for k in KINDS])
 def test_data_axis_splits_the_work_model_axis_replicates_it(arch, impl,
                                                            kind):
-    """The dense, RWKV-6 and MoE families' train and prefill steps split
-    the batch over "data" and the heads, FFN and channel-mix columns,
-    experts and vocabulary over "model": at (2, 2) a device does a quarter
-    of (1, 1)'s work, but for the products with weights whole on "model"
-    (DeepSeek-V2's latent projections and router), which it does half of
-    (``_whole_on_model_flops``).  The decode cells gather every weight and
-    split the batch over "data" alone, so at (2, 2) a device does half of
-    (1, 1)'s work: the decode step does not split its compute over
-    "model" yet (ROADMAP's F5)."""
+    """Every family's train, prefill and decode steps split the batch over
+    "data" and the heads, FFN, channel-mix and Mamba columns, experts and
+    vocabulary over "model": at (2, 2) a device does a quarter of (1, 1)'s
+    work, but for the products with weights whole on "model" that the
+    train and prefill steps repeat on each model rank (DeepSeek-V2's
+    latent projections and router, Jamba's router, PaliGemma's kv
+    projections), which it does half of (``_whole_on_model_flops``).  The
+    decode steps split those too, by their contraction, and attend over
+    the rank's block of the cache's positions: a quarter exactly."""
     one, _ = _cell(arch, impl, kind, "1x1")
     four, _ = _cell(arch, impl, kind, "2x2")
-    if _tensor_parallel(arch, kind):
-        whole = _whole_on_model_flops(_cfg(arch, impl), kind, S * B)
-        assert (whole > 0) == (arch == "deepseek_v2_236b")
-        assert 4 * four["flops_per_device"] == one["flops_per_device"] \
-            + whole
-    else:
-        assert 2 * four["flops_per_device"] == one["flops_per_device"]
+    whole = _whole_on_model_flops(_cfg(arch, impl), kind, S * B)
+    assert (whole > 0) == (arch in ("deepseek_v2_236b",
+                                    "jamba_1_5_large_398b", "paligemma_3b")
+                           and kind != "decode")
+    assert 4 * four["flops_per_device"] == one["flops_per_device"] + whole
 
 
 def _sharded_sizes(spec, sizes):
@@ -266,38 +370,81 @@ def _sharded_sizes(spec, sizes):
             and any(a in sharding._axes(e) for e in spec)]
 
 
-@pytest.mark.parametrize("arch,impl,kind,mesh", [
-    c for c in CELLS if c[2] in ("train", "prefill")])
+@pytest.mark.parametrize("arch,impl,kind,mesh", CELLS)
 def test_all_gather_bytes_follow_the_parameter_specs(arch, impl, kind,
                                                      mesh):
     """Every weight is gathered one mesh axis at a time, each gather's
     result the tensor over the axes gathered so far.  The tensor-parallel
-    steps (the dense, RWKV-6 and MoE families) gather over the data axes
-    only, keeping each weight's model shard: a weight sharded over "data"
-    (n) and "model" (m) moves full / m; the prefill then gathers its
-    logits' vocabulary over "model" (the batch's block of them, f32), and
-    RWKV-6 its activations (``_rwkv_gathers``).  Nothing else is
-    all-gathered in a train or prefill step."""
+    steps gather over the data axes only, keeping each weight's model
+    shard: a weight sharded over "data" (n) and "model" (m) moves full / m
+    (a decode step whose cache positions lie on "model" gathers MLA's
+    ``wukv`` whole).  Beside the weights, only activations are gathered
+    (``_activation_gathers``): no cache tensor."""
     cfg = _cfg(arch, impl)
     _, (pspecs, *_), _, abstract = steps.build(cfg, _shape(kind),
                                                MESHES[mesh])
     sizes = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))
-    split = _tensor_parallel(arch, kind)
+    names = [n for n, _ in lm.LM(cfg, steps.abstract_params(
+        cfg)).named_parameters()]
     want = 0
-    for p, spec in zip(abstract[0], pspecs):
+    for name, p, spec in zip(names, abstract[0], pspecs):
         ns = _sharded_sizes(spec, sizes)
         full = p.numel() * p.element_size()
-        if split:
+        if not (kind == "decode" and name.endswith(".wukv")):
             model = _sharded_sizes(spec, {"model": sizes["model"]})
             full //= math.prod(model)
             ns = _sharded_sizes(spec, {"data": sizes["data"]})
         want += sum(full // math.prod(ns[:j]) for j in range(len(ns)))
-    if split and kind == "prefill" and sizes["model"] > 1:
-        want += B // sizes["data"] * S * cfg.vocab * 4
-    if split:
-        want += _rwkv_gathers(cfg, kind, sizes)
+    want += _activation_gathers(cfg, kind, sizes)
     rec, _ = _cell(arch, impl, kind, mesh)
     assert rec["collective_bytes_per_device"].get("all-gather", 0) == want
+
+
+def _activation_gathers(cfg, kind, sizes) -> int:
+    """The bytes of activations a tensor-parallel step all-gathers over
+    "model", a device: the prefill's and the decode's logits' vocabulary
+    (the batch's block of them, f32), PaliGemma's projected patches,
+    RWKV-6's (``_rwkv_gathers``), and in a decode step, whose cache
+    positions lie on "model", each attention layer's q heads and its new
+    keys and values where their heads split, MLA's q heads, and the new
+    RWKV and Mamba states where the heads or channels split
+    (``_decode_gathers``)."""
+    m = sizes["model"]
+    if m == 1:
+        return 0
+    rows = B // sizes["data"]
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    out = _rwkv_gathers(cfg, kind, sizes)
+    if kind != "train":
+        n_txt = S - cfg.n_img_tokens if cfg.family == "vlm" else S
+        out += rows * (n_txt if kind == "prefill" else 1) * cfg.vocab * 4
+    if cfg.family == "vlm" and kind != "decode":
+        out += rows * cfg.n_img_tokens * cfg.d_model * item
+    if kind == "decode":
+        out += _decode_gathers(cfg, rows, m, item)
+    return out
+
+
+def _decode_gathers(cfg, rows: int, m: int, item: int) -> int:
+    """The layers' gathers of a decode step on ``rows`` rows a device over
+    a model axis of ``m`` that holds the cache's positions."""
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    out = 0
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind == "attn" and H % m == 0:
+            out += rows * H * hd * item
+            out += 2 * rows * K * hd * item if K % m == 0 else 0
+        elif kind == "mla" and H % m == 0:
+            out += rows * H * (cfg.mla.nope_head_dim
+                               + cfg.mla.rope_head_dim) * item
+        elif kind == "rwkv" and D // m % cfg.rwkv_head_dim == 0:
+            out += rows * D * cfg.rwkv_head_dim * 4
+        elif kind == "mamba":
+            di = cfg.mamba_expand * D
+            out += rows * di * (cfg.mamba_d_state * 4
+                                + (cfg.mamba_d_conv - 1) * item)
+    return out
 
 
 def _rwkv_gathers(cfg, kind, sizes) -> int:
@@ -306,10 +453,11 @@ def _rwkv_gathers(cfg, kind, sizes) -> int:
     heads, the backward of k's and v's reduce-scatter gathers their
     gradients (a train step); where they are not, each forward (twice in
     a train step: remat "full") gathers r, w (f32) and the bonus u (f32)
-    whole, for K5 to run every head."""
+    whole, for K5 to run every head (a decode step's one token a row)."""
     if cfg.family != "ssm" or sizes["model"] == 1:
         return 0
-    rows, D = B // sizes["data"] * S, cfg.d_model
+    rows = B // sizes["data"] * (1 if kind == "decode" else S)
+    D = cfg.d_model
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     if D // sizes["model"] % cfg.rwkv_head_dim == 0:
         per = 2 * rows * D * item if kind == "train" else 0

@@ -211,6 +211,41 @@ def prefill_decode(rank, out, cfg, mesh_shape, tree, tokens):
             "bspec": bspecs["tokens"], "dbspec": dbspecs["token"]}
 
 
+def sharded_decode(rank, out, cfg, mesh_shape, tree, batches, smax):
+    """``build(cfg, shape, mesh)``'s decode step over ``batches`` (numpy
+    dicts of the step's inputs, each the whole batch) from a zero cache of
+    ``smax`` positions, on weights given as a full tree (numpy, the port's
+    layout): each rank's block of each step's logits and its blocks of the
+    last cache, with the specs that lay them out."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    mesh = tmesh.make_test_mesh(*mesh_shape, device="cpu")
+    B = batches[0]["token"].shape[0]
+    carried = dict(lm.LM(cfg, _tensors(tree)).named_parameters())
+    model = lm.LM.from_named(cfg, [
+        (n, carried[n]) for n, _ in lm.LM(
+            cfg, steps_mod.abstract_params(cfg)).named_parameters()])
+    dec, (pspecs, cspecs, bspecs), _, _ = steps_mod.build(
+        cfg, ShapeConfig("t", "decode", smax, B), mesh)
+    params = steps_mod.shard_list(model.param_list(), pspecs, mesh)
+    cache = lm.init_cache(cfg, B, smax, "cpu")
+    cache = {"blocks": [{k: sharding.shard(t, mesh, s[k])
+                         for k, t in c.items()}
+                        for c, s in zip(cache["blocks"], cspecs["blocks"])]}
+    logits = []
+    for b in batches:
+        with torch.no_grad():
+            lg, cache = dec(params, cache, steps_mod.local_batch(
+                b, bspecs, mesh, "cpu"))
+        logits.append(lg.numpy())
+    return {"coord": tuple(mesh.get_coordinate()), "logits": logits,
+            "bspec": bspecs["token"], "cspecs": cspecs,
+            "cache": [{k: t.to_local().numpy() for k, t in c.items()}
+                      for c in cache["blocks"]]}
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return {k: _tensors(v) for k, v in tree.items()}

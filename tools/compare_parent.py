@@ -49,7 +49,9 @@ precision):
   128), Whisper's and PaliGemma's; at the reduced llama3-8b's (2, 6, 256,
   16) in both dtypes; each on the tree's own ``bwd_route``: the call (CUDA
   events), from torch.profiler each device kernel's time, and the backward
-  of ``scaled_dot_product_attention`` at the same shape in the same turn;
+  of ``scaled_dot_product_attention`` and the plain version
+  (``flash_attention_bwd_plain`` at the route's tiles) at the same shape
+  in the same turn;
 * K5's backward (``wkv6_bwd``) at the train_rwkv path's shape, rwkv6-3b's
   (2, 40, 2048, 64) as bf16 views of (B, S, D) tensors at the time mix's
   decays, on the tree's own route (a tree without ``bwd_route`` walks
@@ -299,7 +301,8 @@ def measure_k4_bwd(t, dev) -> dict:
     causal; in f32 at llama3-8b's shape (1, 32, 2048, 128) over 8 kv heads,
     causal, at Whisper's and at PaliGemma's; and in both dtypes at hd 16
     (the reduced llama3-8b's (2, 6, 256, 16) over 2 kv heads, causal); each
-    beside sdpa's backward on the same inputs."""
+    beside sdpa's backward and the plain version (its route's tiles) on
+    the same inputs."""
     import torch
 
     import chip_smoke as cs
@@ -337,7 +340,12 @@ def measure_k4_bwd(t, dev) -> dict:
         lo = sdpa(*xs, is_causal=causal, **gqa)
         lib = cs.time_ms(lambda: torch.autograd.grad(lo, xs, dout,
                                                      retain_graph=True), 10)[0]
-        out[f"k4_bwd_{key}"] = {"ms": ms, "kernel_ms": per, "sdpa_ms": lib}
+        tq, tk = t.fa.BWD_TILES[t.fa.bwd_route(dt, hd)][hd]
+        plain = cs.time_ms(lambda: t.fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, dout, causal=causal, block_q=tq, block_k=tk),
+            3)[0]
+        out[f"k4_bwd_{key}"] = {"ms": ms, "kernel_ms": per, "sdpa_ms": lib,
+                                "plain_ms": plain}
     return out
 
 

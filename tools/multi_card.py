@@ -17,14 +17,16 @@ On N ranks (N even) it checks, and times on the card:
   the stages' gradients (summed over the ranks) against autograd of the
   reference loss;
 * each model of ``--arch`` (a comma-separated list; default llama3-8b)
-  at its published widths cut to ``--layers`` layers (bf16, remat
-  "full"; llama3-8b with chunked attention; DeepSeek-V2's 2 layers its
-  dense first layer and one MoE layer, with MOE_EXPERTS of its routed
-  experts; ``--reduced``: the reduced configs) trained ``--steps`` steps
+  at its published widths cut to ``--layers`` layers by
+  ``chip_smoke.cut_config`` (``--dtype``, bf16 by default; remat "full";
+  DeepSeek-V2's 2 layers its dense first layer and one MoE layer; Jamba
+  on TOKENS' 2 x 256 tokens; ``--reduced``: the reduced configs) trained
+  ``--steps`` steps
   on ``--batch`` x ``--seq`` tokens by
   ``launch.train.train`` on the (data, model) meshes (N // 2, 2) and
   (1, N), the tensor-parallel step: the model axis splits the heads, FFN
-  and channel-mix columns, the routed experts and the vocabulary; against
+  and channel-mix columns, Mamba's channels, the routed experts and the
+  vocabulary; against
   the one-device step on rank 0 from the same weights and batches: the
   losses (the first steps' learning rates are 0 and 3e-6, so the losses
   differ by rounding alone) within LOSS_RTOL, the global gradient norms
@@ -41,7 +43,13 @@ On N ranks (N even) it checks, and times on the card:
   deterministic kernels, each rank fed the routing of its rows from a
   deterministic one-device run (``route_spy``), against the same limits:
   a fault in the split arithmetic shows there, apart from the routing's
-  flips and the atomics' order.
+  flips and the atomics' order;
+* each model of ``--decode`` (the same cuts, in f32) decoded
+  DECODE_STEPS steps of DECODE_ROWS rows over ``--decode-len`` positions
+  by ``lm.decode_step`` on every card and by the sharded decode step on
+  both meshes (the cache in its blocks: positions over "model", each
+  rank attending over its own): each rank's logits against its card's
+  one-device logits within DECODE_RTOL, ms a step, K4/K5 calls.
 
 Rank 0 prints the card's name and power limit, one line a check and a
 JSON line of every number; a failed check is printed where it fails, the
@@ -64,11 +72,12 @@ import time
 import torch
 import torch.distributed as dist
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "src"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
-from repro_torch.config import get_config  # noqa: E402
-from repro_torch.data import SyntheticLMData  # noqa: E402
+import chip_smoke  # noqa: E402
+
+from repro_torch.data import train_data  # noqa: E402
 from repro_torch.config import ShapeConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
@@ -84,10 +93,17 @@ from repro_torch.parallel import pipeline  # noqa: E402
 # full width: 1.09e-4; 4 gloo ranks on the reduced config: 1.76e-3)
 LOSS_RTOL = 1e-3
 NORM_RTOL = {"cuda": 5e-4, "cpu": 8e-3}
-# the routed experts a published MoE keeps: with DeepSeek-V2's 160 its
-# one-card step runs out of memory in AdamW (f32 temporaries of the 5 GB
-# expert tensors beside 43 GB of bf16 parameters, gradients and moments)
-MOE_EXPERTS = 80
+# (batch, tokens) of a model's train steps where --batch x --seq would not
+# fit one card: Jamba's scan keeps (B, S, 16384 channels, 16) f32 tensors
+# a step of its log2(256) steps under autograd (the batch divides the
+# (N // 2, 2) mesh's data axis)
+TOKENS = {"jamba_1_5_large_398b": (2, 256)}
+# the decode checks, in f32: DECODE_ROWS rows, DECODE_STEPS steps, the
+# logits against one card's within DECODE_RTOL of the largest, ~8x the
+# worst reading (4 H100s, all seven models, both meshes: 6.22e-6) and
+# ~40x under bf16's rounding of one logit (2 ** -9 of it)
+DECODE_ROWS, DECODE_STEPS = 8, 8
+DECODE_RTOL = 5e-5
 
 
 def sync(dev):
@@ -217,7 +233,7 @@ def one_device(cfg, dev, steps: int, batch: int, seq: int,
                        dev).requires_grad_(True)
     opt = adamw_init(model.param_list())
     step = steps_mod.build_train_step(cfg, model)
-    ds = SyntheticLMData(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
+    ds = train_data(cfg, seq, batch, 0)
     losses, norms, ms = [], [], []
     routes["mode"] = "record"
     for i in range(steps):
@@ -366,9 +382,8 @@ def sharded(cfg, dev, shape: tuple, args, calls, routes, out: dict,
     if dev.type == "cuda" and not fed:  # one more step of res's, profiled
         step, (_, _, bspecs), _, _ = steps_mod.build_train_step(
             cfg, ShapeConfig("multi_card", "train", seq, batch), mesh)
-        b = steps_mod.local_batch(SyntheticLMData(
-            vocab=cfg.vocab, seq_len=seq, batch=batch,
-            seed=0).batch_at(0), bspecs, mesh, dev)
+        b = steps_mod.local_batch(train_data(cfg, seq, batch, 0).batch_at(0),
+                                  bspecs, mesh, dev)
         rec["profile"] = profile_step(
             lambda: step(res["params"], res["opt"], b))
     worst, one = {}, out.get("one_device_det" if fed else "one_device")
@@ -391,17 +406,111 @@ def sharded(cfg, dev, shape: tuple, args, calls, routes, out: dict,
 
 
 def model_config(arch: str, args):
-    """``arch`` at its published widths (or reduced) cut to ``--layers``
-    layers and, published with routed experts, to MOE_EXPERTS of them;
-    llama3-8b with chunked attention."""
-    cfg = dataclasses.replace(get_config(arch, reduced=args.reduced),
-                              n_layers=args.layers)
-    if cfg.family == "dense":
-        cfg = dataclasses.replace(cfg, attn_impl="chunked")
-    if cfg.moe is not None and not args.reduced:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, n_experts=MOE_EXPERTS))
-    return cfg
+    """``arch`` cut to ``--layers`` layers by ``chip_smoke.cut_config``
+    (``--reduced``: the reduced config, its experts all kept), in
+    ``--dtype``."""
+    return dataclasses.replace(chip_smoke.cut_config(
+        arch, args.layers, args.reduced), dtype=args.dtype)
+
+
+def decode_batches(cfg, args, dev) -> list:
+    """DECODE_STEPS decode inputs of DECODE_ROWS rows (the same on every
+    rank): row r starts at position (r + 1) * L / rows - 4 of the
+    L = ``--decode-len`` positions, so the rows cross the blocks' edges of
+    either mesh's split of the positions and the last row runs past the
+    cache's end (clamped); Whisper's frames drawn each step."""
+    g = torch.Generator().manual_seed(5)
+    rows, L = DECODE_ROWS, args.decode_len
+    start = torch.arange(1, rows + 1, dtype=torch.int32) * (L // rows) - 4
+    out = []
+    for t in range(DECODE_STEPS):
+        b = {"token": torch.randint(0, cfg.vocab, (rows, 1), generator=g,
+                                    dtype=torch.int32), "pos": start + t}
+        if cfg.family == "encdec":
+            b["frames"] = torch.randn((rows, cfg.enc_seq, cfg.d_model),
+                                      generator=g).to(getattr(torch,
+                                                              cfg.dtype))
+        out.append(b)
+    return out
+
+
+def decode_runs(arch: str, dev, meshes, args, calls) -> dict:
+    """One model's decode step: ``lm.decode_step`` on every rank's card
+    (the same weights from seed 0, the same batches), then the sharded
+    decode step (``steps.build``) on each mesh, the cache laid out by its
+    specs: each rank's block of every step's logits against its own
+    one-card logits, within DECODE_RTOL of their largest (f32); ms a step
+    of each (after the first step) and every rank's K4/K5 calls."""
+    from repro_torch.parallel import sharding
+    cfg = dataclasses.replace(model_config(arch, args), dtype="float32")
+    rows, L = DECODE_ROWS, args.decode_len
+    model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batches = decode_batches(cfg, args, dev)
+    cache = lm.init_cache(cfg, rows, L, dev)
+    want, ms = [], []
+    calls.clear()
+    with torch.no_grad():
+        for b in batches:
+            sync(dev)
+            t = time.perf_counter()
+            lg, cache = lm.decode_step(cfg, model, cache, b)
+            sync(dev)
+            ms.append((time.perf_counter() - t) * 1e3)
+            want.append(lg)
+    rec = {"arch": arch, "rows": rows, "positions": L,
+           "one_card_ms": ms, "one_card_calls": dict(calls), "meshes": []}
+    del cache
+    for shape in meshes:
+        mesh = mesh_mod.make_mesh(shape, ("data", "model"), args.device)
+        dec, (pspecs, cspecs, bspecs), _, _ = steps_mod.build(
+            cfg, ShapeConfig("multi_card", "decode", L, rows), mesh)
+        params = steps_mod.shard_list(model.param_list(), pspecs, mesh)
+        cache = {"blocks": [{k: sharding.shard(t, mesh, s[k])
+                             for k, t in c.items()}
+                            for c, s in zip(lm.init_cache(
+                                cfg, rows, L, dev)["blocks"],
+                                cspecs["blocks"])]}
+        calls.clear()
+        worst, ms = 0.0, []
+        with torch.no_grad():
+            for b, w in zip(batches, want):
+                sync(dev)
+                dist.barrier()
+                t = time.perf_counter()
+                got, cache = dec(params, cache, steps_mod.local_batch(
+                    b, bspecs, mesh, dev))
+                sync(dev)
+                ms.append((time.perf_counter() - t) * 1e3)
+                ix = sharding.local_block(bspecs["token"], tuple(w.shape),
+                                          mesh, mesh.get_coordinate())
+                worst = max(worst, ((got.float() - w[ix].float()).abs().max()
+                                    / w.float().abs().max()).item())
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, dict(calls))
+        every_err = [None] * dist.get_world_size()
+        dist.all_gather_object(every_err, worst)
+        r = {"mesh": mesh_mod.describe(mesh), "ms": ms, "rel_err": every_err,
+             "kernel_calls": every}
+        rec["meshes"].append(r)
+        check(max(every_err) < DECODE_RTOL,
+              f"decode {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
+              f"{rows} rows over "
+              f"{L} positions: {len(batches)} steps on {r['mesh']} within "
+              f"{max(every_err):.3g} of one card's logits (largest); "
+              f"K4/K5 calls a rank {every}", rec)
+        del params, cache
+    del model
+    if dist.get_rank() == 0:
+        print(f"decode: {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
+              f"{rows} rows x "
+              f"{L} positions: one card ms a step " + ", ".join(
+                  f"{x:.2f}" for x in rec["one_card_ms"][1:])
+              + "".join(f"; on {r['mesh']} " + ", ".join(
+                  f"{x:.2f}" for x in r["ms"][1:]) for r in rec["meshes"]),
+              flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
 
 
 def model_runs(arch: str, dev, meshes, args, calls, routes) -> dict:
@@ -416,6 +525,8 @@ def model_runs(arch: str, dev, meshes, args, calls, routes) -> dict:
     takes the dry-run records after the group is gone
     (``dryrun_records``)."""
     cfg = model_config(arch, args)
+    args = argparse.Namespace(**{**vars(args), **dict(zip(
+        ("batch", "seq"), TOKENS.get(arch, (args.batch, args.seq))))})
     rank = dist.get_rank()
     rec = {"arch": arch}
     calls.clear()
@@ -480,7 +591,8 @@ def dryrun_records(rec: dict, args, meshes) -> None:
     """The dry-run's records of ``rec``'s step on each mesh (rank 0, no
     process group left: the dry-run makes a fake one)."""
     cfg = model_config(rec["arch"], args)
-    shape = ShapeConfig("multi_card", "train", args.seq, args.batch)
+    batch, seq = TOKENS.get(rec["arch"], (args.batch, args.seq))
+    shape = ShapeConfig("multi_card", "train", seq, batch)
     rec["dryrun"] = {}
     for mshape, r in zip(meshes, rec["sharded"]):
         d = dryrun.dryrun_cell(rec["arch"], shape.name, False, cfg,
@@ -508,6 +620,13 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="the trained models' dtype (f32: the split "
+                    "arithmetic's rounding alone, apart from bf16's)")
+    ap.add_argument("--decode", default="",
+                    help="comma-separated archs whose decode step to check")
+    ap.add_argument("--decode-len", type=int, default=4096)
     args = ap.parse_args(argv)
     dev = mesh_mod.init_distributed(args.device)
     rank, n = dist.get_rank(), dist.get_world_size()
@@ -529,7 +648,9 @@ def main(argv=None) -> int:
         collectives(dev, n, width, rows, out)
         calls, routes = kernel_spy(), route_spy()
         out["models"] = [model_runs(arch, dev, meshes, args, calls, routes)
-                         for arch in args.arch.split(",")]
+                         for arch in args.arch.split(",") if arch]
+        out["decode"] = [decode_runs(arch, dev, meshes, args, calls)
+                         for arch in args.decode.split(",") if arch]
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -537,7 +658,8 @@ def main(argv=None) -> int:
             dryrun_records(rec, args, meshes)
         print(json.dumps(out), flush=True)
     failed = out.get("failed", []) + [
-        f for rec in out["models"] for f in rec.get("failed", [])]
+        f for rec in out["models"] + out["decode"]
+        for f in rec.get("failed", [])]
     if failed and rank == 0:
         print(f"FAILED: {len(failed)} check(s)", flush=True)
         return 1

@@ -298,9 +298,12 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 6, 2, 3
 K4_BWD_B = {"bfloat16": TRAIN_B, "float32": 1}
 # the backward also held and timed, in both dtypes, at the other head dims
 # of the tensor-core routes, (B, H, Hkv, S, hd, causal): Whisper-small's 448
-# decoder rows, not causal, and PaliGemma-3B's 1024 rows over one kv head
+# decoder rows, not causal, PaliGemma-3B's 1024 rows over one kv head, and
+# a GQA group of 8 at hd 128 (Kimi-K2's q heads, Jamba-1.5-Large's too)
+# over 2048 rows, whose bf16 dK/dV walks are wrapped over the SMs
 K4_BWD_MORE = {"whisper_small": (1, 12, 12, WHISPER_S, 64, False),
-               "paligemma_3b": (1, 8, 1, 1024, 256, True)}
+               "paligemma_3b": (1, 8, 1, 1024, 256, True),
+               "kimi_k2": (1, 64, 8, 2048, 128, True)}
 # backward calls profiled in the profiling child, for each kernel's time
 K4_BWD_PROFILED_CALLS = 3
 # K4's backward against autograd of the plain version: fp32 sums in
@@ -312,12 +315,16 @@ K4_BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
 # each backward route's alone
 K4_KERNEL = re.compile(r"\bfa_(wgmma_|wgmma_hd256_|wgmma_hd256_combine_|"
                        r"tf32x3_|tf32x3_hd256_|bwd_\w+_)?kernel")
-# the kernels of K4 at bf16 hd 256, each of which ptxas must report
-# without a spill
-K4_HD256_KERNELS = ("fa_wgmma_hd256_kernel", "fa_wgmma_hd256_combine_kernel",
-                    "fa_bwd_wgmma_hd256_dkdv_kernel",
-                    "fa_bwd_wgmma_hd256_dq_kernel",
-                    "fa_bwd_wgmma_hd256_sum_kernel")
+# the kernels of K4's bf16 route that ptxas must report without a spill:
+# the forward's at hd 256 and every backward kernel (D; dK/dV, its sum and
+# dQ at hd 64 and 128; hd 256's)
+K4_NO_SPILL_KERNELS = (
+    "fa_wgmma_hd256_kernel", "fa_wgmma_hd256_combine_kernel",
+    "fa_bwd_wgmma_dot_kernel",
+    *(f"fa_bwd_wgmma_{k}_kernel<{hd}>" for k in ("dkdv", "sum", "dq")
+      for hd in (64, 128)),
+    "fa_bwd_wgmma_hd256_dkdv_kernel", "fa_bwd_wgmma_hd256_dq_kernel",
+    "fa_bwd_wgmma_hd256_sum_kernel")
 # the tensor-core forward's kernels (bf16; at hd 256 the pieces and their
 # combine)
 K4_WGMMA_FWD = re.compile(r"\bfa_wgmma_(hd256_(combine_)?)?kernel")
@@ -2731,8 +2738,9 @@ def k4_bwd_checks(dev) -> dict:
     """Part (a) of the train path: K4's backward at each of
     ``k4_bwd_shapes``: llama3-8b's shape (q (B, 32, 2048, 128) over 8 kv
     heads, causal; bf16 at the train path's batch of 2, f32 at 1), hd 64 not
-    causal over a ragged last block of 448 rows, hd 256 over one kv head and
-    hd 16, in both dtypes.  Returns every case by its key, for timing."""
+    causal over a ragged last block of 448 rows, hd 256 over one kv head, a
+    GQA group of 8 at hd 128 over 2048 rows and hd 16, in both dtypes.
+    Returns every case by its key, for timing."""
     import torch
 
     out = {}
@@ -2747,7 +2755,8 @@ def k4_bwd_checks(dev) -> dict:
 
 def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
     """The backward's ``kernels`` entries, one a case of ``k4_bwd_checks``
-    (llama3-8b's shape, Whisper's, PaliGemma's and hd 16, in both dtypes),
+    (llama3-8b's shape, Whisper's, PaliGemma's, Kimi-K2's GQA 8 and hd 16,
+    in both dtypes),
     each on its ``bwd_route`` beside its plain version and
     scaled_dot_product_attention's backward; ``launches`` by dtype from the
     path that ran it (bf16: the full-width training run; f32: the chunked
@@ -2793,7 +2802,8 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
         lse = fa._run(q, k, v, causal, fwd, *k4_forward_blocks(fwd, hd),
                       True)[1]
         tq, tk = fa.BWD_TILES[kind][hd]
-        split = fa.split_route(q.dtype, hd)
+        # bf16: the plain version on the kernels' own schedule
+        split = kind == "wgmma"
         ms, host_ms = time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, dout, causal=causal), 10)
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
@@ -2802,7 +2812,26 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
             block_k=tk if split else min(tk, S), split=split), 3)[0]
         per_call = fa.bwd_launches(q.dtype, hd, B, H, Hkv, S, S, causal)
         grid = {}
-        if split:
+        if split and hd != 256:
+            # the dK/dV kernel's kv tiles of 128 keys, their walks wrapped
+            # over the SMs where they are fewer
+            sp = fa.dkdv_wrap(B, H, Hkv, S, S, causal)
+            steps = sp.block_steps()
+            grid["dkdv"] = {"blocks": sp.blocks, "longest_steps": max(steps),
+                            "mean_steps": sum(sp.walks) / fa.SMS,
+                            "cut_items": len(sp.sums), "slots": sp.slots}
+            g_ = grid["dkdv"]
+            print(f"grid: K4 bwd {dt} q ({B}, {H}, {S}, {hd}) kv {Hkv} "
+                  f"heads: dkdv {g_['blocks']} blocks, the longest "
+                  f"{g_['longest_steps']} steps (the SMs' mean "
+                  f"{g_['mean_steps']:.2f}), {g_['cut_items']} kv tiles cut "
+                  f"into {g_['slots']} partials")
+            if key.endswith("kimi_k2") and (
+                    sp.blocks > fa.SMS
+                    or g_["longest_steps"] > 1.1 * g_["mean_steps"]):
+                fail(f"K4 bwd {key}: dK/dV grid {g_}, not within 1.1x of "
+                     f"the mean on {fa.SMS} SMs")
+        elif split:
             # the dK/dV grid (kv tiles of 64 keys over heads x q tiles) and
             # the dQ grid (pairs of 64-row units over 32-key steps), cut
             for what, sp in (("dkdv", fa.dkdv_split(B, H, Hkv, S, S, causal)),
@@ -2867,7 +2896,8 @@ def k4_bwd_entries(dev, cases: dict, launches: dict, prof: dict) -> list:
               + (f"; dynamic shared memory {smem[kind]}" if kind in smem
                  else ""))
         entries.append({
-            "name": f"flash_attention_bwd_{kind}[{dt}, hd {hd}]",
+            "name": f"flash_attention_bwd_{kind}[{dt}, hd {hd}"
+                    + (f", {key.split('/')[1]}]" if "/" in key else "]"),
             "route": "cuda", "source": srcs[kind], "replaces": K4_REPLACES,
             "replaces_note": "no Pallas backward: the JAX package "
                              "differentiates its attention with jax.grad "
@@ -4443,20 +4473,25 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (compile {compile_s:.1f} s)")
     for name, (secs, log) in sorted(_cuda.BUILD_LOG.items()):
         print(f"  {name}: {secs:.1f} s; " + " | ".join(ptxas_summary(log)))
-    # K4's hd-256 kernels (bf16: the split forward and its combine, the
-    # backward's dK/dV, dQ and sum) by ptxas: none may spill
+    # K4's bf16 kernels by ptxas (the split forward and its combine at hd
+    # 256, every backward kernel): none may spill
     seen = {}
     for lib in (fa.WGMMA_LIB_NAME, fa.WGMMA_BWD_LIB_NAME):
         for ln in ptxas_kernels(build_log(lib, sources[lib])):
-            if "hd256" in ln:
+            if "hd256" in ln or lib == fa.WGMMA_BWD_LIB_NAME:
                 seen[ln.split(":")[0]] = ln
                 print(f"build: {lib}: {ln}")
-    if sorted(seen) != sorted(K4_HD256_KERNELS):
-        fail(f"build: ptxas reported the hd-256 kernels {sorted(seen)}, "
-             f"expected {sorted(K4_HD256_KERNELS)}")
+    if sorted(seen) != sorted(K4_NO_SPILL_KERNELS):
+        fail(f"build: ptxas reported the bf16 kernels {sorted(seen)}, "
+             f"expected {sorted(K4_NO_SPILL_KERNELS)}")
     spilled = [ln for ln in seen.values() if not ln.endswith(" 0 B spilled")]
     if spilled:
-        fail(f"build: hd-256 kernels spill: {spilled}")
+        fail(f"build: K4's bf16 kernels spill: {spilled}")
+    # ptxas's notes that it serialised a kernel's wgmma (registers short)
+    for lib in (fa.WGMMA_LIB_NAME, fa.WGMMA_BWD_LIB_NAME):
+        for ln in build_log(lib, sources[lib]).splitlines():
+            if "C7512" in ln:
+                print(f"build: {lib}: ptxas: {ln.strip()}")
     t0 = time.perf_counter()
     prof = profiles()
     print(f"profile: a child process read K1's, K3's, K4's, K5's, sdpa's, "

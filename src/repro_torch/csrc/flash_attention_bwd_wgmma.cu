@@ -44,31 +44,49 @@
 // * It widened tiles to fp32 and loaded them element by element between
 //   two __syncthreads().  Here they stay bf16 in the 128-byte swizzle that
 //   TMA writes and wgmma reads, and one producer thread issues every load:
-//   the dK/dV block's K and V once, then Q, dout and the rows' statistics
-//   (lse * log2 e and D, 512 bytes a 64-row tile, one bulk copy) tile by
-//   tile into a ring of stages with a "full" and an "empty" mbarrier each;
-//   the dQ block's Q and dout once, then K and V tile by tile.  setmaxnreg
-//   gives the consumers 240 registers a thread.
+//   the dK/dV block's K and V once a piece, then Q, dout and the rows'
+//   statistics (lse * log2 e and D, 512 bytes a 64-row tile, one bulk copy)
+//   step by step into a ring of stages with a "full" and an "empty"
+//   mbarrier each; the dQ block's Q and dout once, then K and V tile by
+//   tile.  setmaxnreg asks 240 registers for the consumers.
 // * Its dK/dV kernel held 119 KB of fp32 tiles per 64 keys.  Here a dK/dV
-//   block owns 128 keys (two consumer warpgroups of 64) at hd 64 and 128.
-//   A dQ block owns 128 q rows (two warpgroups of 64) and walks kv tiles of
-//   64 keys.  hd 256 has kernels of its own (below).
+//   item is a kv tile of 128 keys (two consumer warpgroups of 64) at hd 64
+//   and 128, and its walk is its group's q heads x their q tiles of 64
+//   rows.  A dQ block owns 128 q rows (two warpgroups of 64) and walks kv
+//   tiles of 64 keys.  hd 256 has kernels of its own (below).
 // * The dK/dV kernel's two consumer warpgroups interleave: one forms P^T
 //   and dS^T (in one pass, once S^T and dP^T have both retired) while the
 //   other's products are on the tensor cores; dV's and dK's products go out
 //   together.  Overlapping within a warpgroup as well (P^T beside dP^T's
-//   product, dK's beside the next tile's S^T) keeps 224 registers a thread
-//   live and spills more: on an H100 at llama3-8b's training shape that
-//   kernel took 0.51-0.59 ms against this form's 0.46.  The dQ kernel,
-//   with registers to spare, retires dQ's product under the next tile's S
-//   and dP.
+//   product, dK's beside the next tile's S^T) kept 224 registers a thread
+//   live and spilled more: on an H100 at llama3-8b's training shape that
+//   kernel took 0.51-0.59 ms against this form's 0.46.  The dQ kernel at
+//   hd 64 retires dQ's product under the next tile's S and dP (at hd 128
+//   that costs more than it gains: Cfg<HD>::DQ_OVERLAP).
+// * Registers: ptxas gives a kernel one register count from its launch
+//   bounds, 168 at 384 threads, whatever setmaxnreg asks.  Both kernels
+//   fit it with no spill.  The dK/dV kernel's earlier form, which split
+//   each group's q heads over blocks, spilled 272 B at hd 128.  A 256-thread
+//   form without the producer (thread 0 of a consumer warpgroup issuing the
+//   loads) spilled nothing either, but ran slower on an H100 at hd 64 and
+//   128: the loader's warpgroup waits for the other's releases, and the
+//   two stop interleaving.
+// * Balance (flash_attention.dkdv_wrap): a causal walk shrinks with its
+//   tile, from G nq steps down to 2 G, and at a GQA group of 8 the 128 kv
+//   tiles of q (1, 64, 2048, 128) over 8 kv heads would leave the longest
+//   walk (256 steps) twice the mean.  Where the items are fewer than the
+//   SMs the host lays their walks end to end and wraps them over at most
+//   132 blocks of T steps (McNaughton's rule): a block walks its pieces in
+//   turn, and its producer loads a piece's K and V once the consumers have
+//   released the last one's, so no block walks more than T.  A cut walk's
+//   pieces write fp32 partials that a sum kernel adds in slot order.  Grids
+//   of 132 items or more take one block an item, tile-major (the longest
+//   causal walks first), which the card hands out as SMs free.
 // * No atomics, so every gradient is bitwise the same from call to call:
-//   each dK/dV block sums its q heads in registers; where the grid would be
-//   small (few kv heads, short sequences: MQA at hd 256), the wrapper splits
-//   each group's q heads over `split` blocks, which write fp32 partials that
-//   one more kernel sums in a fixed order.  Four launches a call then, else
-//   three: D, dK/dV, dQ.
-// * Causal: a dK/dV block starts at the q tile that holds its first key; a
+//   each piece sums its steps in registers and the sum kernel its pieces in
+//   slot order.  Four launches a call where a walk was cut, else three: D,
+//   dK/dV, dQ.
+// * Causal: a dK/dV walk starts at the q tile that holds its first key; a
 //   warpgroup whose keys all lie past a tile's last row releases it without
 //   computing; only tiles that cross the diagonal are masked.  A dQ block
 //   stops at kv tile ((qi+1)*BQ - 1)//BK, the forward's bound.  Rows past S
@@ -107,6 +125,7 @@ constexpr int NCONS = 2;                   // consumer warpgroups
 constexpr int NTHREADS = (NCONS + 1) * 128;
 // setmaxnreg: 128 * 24 + 256 * 240 = 64,512 of the SM's 65,536 registers
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int MAX_PIECES = 132;            // a launch's table: the H100's SMs
 constexpr int CHUNK = 64;                  // bf16 columns per 128-byte row
 constexpr int ROW_BYTES = 128;
 constexpr int BQ = 64;                     // q rows a dK/dV step takes
@@ -117,15 +136,37 @@ constexpr int SUM_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ENCODE_FAILED = 10000;       // + CUresult of the tensor map
 
-// tiles by head dim: keys of a dK/dV block (BKV), head dims a warpgroup's
-// dK and dV hold (HDW), keys of a dQ step (BK), and the two rings' depths
+// tiles by head dim: keys of a dK/dV item (BKV), keys of a dQ step (BK),
+// the two rings' depths, and whether a dQ step's product retires under the
+// next step's S and dP (at hd 128 the registers that takes make ptxas
+// serialise every wgmma, and the dQ kernel is faster without it:
+// tools/k4_bwd_variants.py times both)
 template <int HD> struct Cfg;
 template <> struct Cfg<64> {
-    static constexpr int BKV = 128, HDW = 64, BK = 64, KV_STAGES = 3, Q_STAGES = 3;
+    static constexpr int BKV = 128, BK = 64, KV_STAGES = 3, Q_STAGES = 4;
+    static constexpr bool DQ_OVERLAP = true;
 };
 template <> struct Cfg<128> {
-    static constexpr int BKV = 128, HDW = 128, BK = 64, KV_STAGES = 3, Q_STAGES = 3;
+    static constexpr int BKV = 128, BK = 64, KV_STAGES = 3, Q_STAGES = 4;
+    static constexpr bool DQ_OVERLAP = false;
 };
+
+// a piece of a dK/dV walk at hd 64/128: kv tile `item`'s steps [start,
+// stop); slot -1 where that is its whole walk, else the fp32 partial it
+// writes
+struct KvPiece { unsigned short item, start, stop; short slot; };
+// the blocks' pieces (flash_attention.wrap_walks): block x walks p[first[x]]
+// .. p[first[x + 1] - 1] in turn.  n = 0: no table, block x walks one
+// whole kv tile, tile-major
+struct KvTable {
+    int n;
+    unsigned short first[MAX_PIECES + 1];
+    KvPiece p[2 * MAX_PIECES];
+};
+// a cut item: its pieces' first slot and count; kind 0 a dK/dV tile, 1 (at
+// hd 256) a dQ pair of units
+struct SumEntry { short item, slot0, count, kind; };
+struct SumTable { int n; SumEntry e[2 * MAX_PIECES]; };
 
 // dK/dV block: K and V (BKV rows), then per stage Q, dout (64 rows) and the
 // statistics; every tile 1024-byte aligned (the swizzle's period)
@@ -139,7 +180,7 @@ struct DkdvLayout {
     static constexpr int G_OFF = Q_OFF + ST * T_BYTES;
     static constexpr int ST_OFF = G_OFF + ST * T_BYTES;
     static constexpr int BAR_OFF = ST_OFF + ST * STATS_BYTES;
-    static constexpr int NBARS = 1 + 2 * ST;
+    static constexpr int NBARS = 2 + 2 * ST;
     static constexpr int SMEM = BAR_OFF + NBARS * 8 + 1024;
     static_assert(SMEM <= 232448, "tiles exceed a block's shared memory");
 };
@@ -432,11 +473,13 @@ fa_bwd_wgmma_dot_kernel(const __nv_bfloat16* __restrict__ o,
     }
 }
 
-// (b) dK and dV of one (batch, kv head, part of the group, tile of BKV
-// keys): walks the part's q heads and, for each, the q tiles of 64 rows
-// that the causal bound lets see its keys.  part == nullptr: dk and dv in
-// bf16 through their strides; else fp32 partials (split, B*Hkv, Sk, HD),
-// dK's then dV's, for the sum kernel.
+// (b) dK and dV of the block's pieces, each a range of steps of a kv tile's
+// walk over its group's q heads x the q tiles of 64 rows that the causal
+// bound lets see its keys (step g per + qt - first).  A piece of a whole
+// walk (slot -1) writes dk and dv in bf16 through their strides; a cut
+// one fp32 partials (slots, 2, BKV, HD), dK's then dV's, for the sum
+// kernel.  Consumer warpgroup wg takes keys 64 wg .. 64 wg + 63 of the
+// tile.
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -447,12 +490,12 @@ fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv,
                          float* __restrict__ part, KvStrides st, int H,
-                         int Hkv, int group, int split, int S, int Sk, int NQ,
-                         int causal, float scale_log2, float scale) {
+                         int Hkv, int group, int S, int Sk, int NQ,
+                         int causal, float scale_log2, float scale,
+                         const __grid_constant__ KvTable tab) {
     using L = DkdvLayout<HD>;
-    constexpr int BKV = Cfg<HD>::BKV, HDW = Cfg<HD>::HDW, ST = L::ST;
-    constexpr int AN = HDW / 2;            // dK and dV accumulators a thread
-    constexpr bool SPLIT_HD = HDW < HD;    // the warpgroups share their keys
+    constexpr int BKV = Cfg<HD>::BKV, ST = L::ST;
+    constexpr int AN = HD / 2;             // dK and dV accumulators a thread
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023) & ~1023u;
@@ -460,21 +503,38 @@ fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t sk = base + L::K_OFF, sv = base + L::V_OFF,
                    sq = base + L::Q_OFF, sg = base + L::G_OFF,
                    sst = base + L::ST_OFF, bars = base + L::BAR_OFF;
-    // barriers: K and V; then per stage full, empty
-    const uint32_t kvbar = bars;
-    auto full = [&](int s) { return bars + 8 * (1 + s); };
-    auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
+    // barriers: K and V loaded, and released, a phase a piece each; then
+    // per stage full, empty
+    const uint32_t kvbar = bars, kvfree = bars + 8;
+    auto full = [&](int s) { return bars + 8 * (2 + s); };
+    auto empty = [&](int s) { return bars + 8 * (2 + ST + s); };
 
-    const int sp = blockIdx.x % split, bhk = blockIdx.x / split;
-    const int b = bhk / Hkv, hk = bhk % Hkv;
-    const int k0 = blockIdx.y * BKV;       // tile 0 (the longest walk) first
-    const int heads = group / split, h0 = hk * group + sp * heads;
-    const int nq = (S + BQ - 1) / BQ;
-    const int first = causal ? min(k0 / BQ, nq) : 0;
-    const int per = nq - first, steps = heads * per;
+    const int nk = (Sk + BKV - 1) / BKV, nq = (S + BQ - 1) / BQ;
+    const int p0 = tab.n ? tab.first[blockIdx.x] : 0;
+    const int np = tab.n ? tab.first[blockIdx.x + 1] - p0 : 1;
+    // piece i of the block: its kv tile and steps [i0, i1)
+    struct Work { int b, hk, k0, first, per, i0, i1, slot; };
+    auto work = [&](int i) {
+        int item, i0 = 0, i1 = -1, slot = -1;
+        if (tab.n) {
+            const KvPiece e = tab.p[p0 + i];
+            item = e.item, i0 = e.start, i1 = e.stop, slot = e.slot;
+        } else {
+            const int bhks = gridDim.x / nk;
+            item = blockIdx.x % bhks * nk + blockIdx.x / bhks;
+        }
+        Work w;
+        const int bhk = item / nk;
+        w.b = bhk / Hkv, w.hk = bhk % Hkv, w.k0 = item % nk * BKV;
+        w.first = causal ? min(w.k0 / BQ, nq) : 0;
+        w.per = nq - w.first;
+        w.i0 = i0, w.i1 = i1 < 0 ? group * w.per : i1, w.slot = slot;
+        return w;
+    };
 
     if (threadIdx.x == 0) {
         mbar_init(kvbar, 1);
+        mbar_init(kvfree, NCONS * 128);
         for (int s = 0; s < ST; ++s) {
             mbar_init(full(s), 1);
             mbar_init(empty(s), NCONS * 128);
@@ -486,52 +546,61 @@ fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     // warp-uniform, so that each role is one branch with its own registers
     const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
     if (wg == NCONS) {
-        // ---- producer warpgroup: one thread issues every load ------------
+        // ---- producer warpgroup: one thread issues every load: per piece,
+        // once the consumers have released the last piece's K and V, K and
+        // V, then each step (the block's steps counted across its pieces)
+        // once its stage is free
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
         if (threadIdx.x == NCONS * 128) {
-            mbar_expect_tx(kvbar, 2 * L::KV_BYTES);
-#pragma unroll
-            for (int c = 0; c < HD / CHUNK; ++c) {
-                tma_load(sk + c * BKV * ROW_BYTES, &kmap, kvbar, c * CHUNK, k0, hk, b);
-                tma_load(sv + c * BKV * ROW_BYTES, &vmap, kvbar, c * CHUNK, k0, hk, b);
-            }
-            for (int it = 0; it < steps; ++it) {
-                const int h = h0 + it / per, qt = first + it % per;
-                const int s = it % ST;
-                mbar_wait(empty(s), ((it / ST) & 1) ^ 1);
-                mbar_expect_tx(full(s), 2 * L::T_BYTES + STATS_BYTES);
+            for (int i = 0, jj = 0; i < np; ++i) {
+                const Work w = work(i);
+                if (i > 0) mbar_wait(kvfree, (i - 1) & 1);
+                mbar_expect_tx(kvbar, 2 * L::KV_BYTES);
 #pragma unroll
                 for (int c = 0; c < HD / CHUNK; ++c) {
-                    tma_load(sq + s * L::T_BYTES + c * BQ * ROW_BYTES, &qmap,
-                             full(s), c * CHUNK, qt * BQ, h, b);
-                    tma_load(sg + s * L::T_BYTES + c * BQ * ROW_BYTES, &gmap,
-                             full(s), c * CHUNK, qt * BQ, h, b);
+                    tma_load(sk + c * BKV * ROW_BYTES, &kmap, kvbar, c * CHUNK, w.k0, w.hk, w.b);
+                    tma_load(sv + c * BKV * ROW_BYTES, &vmap, kvbar, c * CHUNK, w.k0, w.hk, w.b);
                 }
-                bulk_load(sst + s * STATS_BYTES,
-                          stats + ((long long)(b * H + h) * NQ + qt) * 2 * BQ,
-                          STATS_BYTES, full(s));
+                for (int it = w.i0; it < w.i1; ++it, ++jj) {
+                    const int h = w.hk * group + it / w.per, qt = w.first + it % w.per;
+                    const int s = jj % ST;
+                    mbar_wait(empty(s), ((jj / ST) & 1) ^ 1);
+                    mbar_expect_tx(full(s), 2 * L::T_BYTES + STATS_BYTES);
+#pragma unroll
+                    for (int c = 0; c < HD / CHUNK; ++c) {
+                        tma_load(sq + s * L::T_BYTES + c * BQ * ROW_BYTES, &qmap,
+                                 full(s), c * CHUNK, qt * BQ, h, w.b);
+                        tma_load(sg + s * L::T_BYTES + c * BQ * ROW_BYTES, &gmap,
+                                 full(s), c * CHUNK, qt * BQ, h, w.b);
+                    }
+                    bulk_load(sst + s * STATS_BYTES,
+                              stats + ((long long)(w.b * H + h) * NQ + qt) * 2 * BQ,
+                              STATS_BYTES, full(s));
+                }
             }
         }
-    } else {
-        // ---- consumer warpgroup wg: 64 keys, HDW head dims of dK, dV ------
-        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
-        const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
-        const int krow = SPLIT_HD ? 0 : wg * 64;    // its rows of the K tile
-        const int hoff = SPLIT_HD ? wg * HDW : 0;    // its first head dim
-        const int kw0 = k0 + krow;
+        return;
+    }
+    // ---- consumer warpgroup wg: 64 keys of the tile, all HD head dims -----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, quad = lane % 4;
+    const int krow = wg * 64;              // its rows of the K tile
+    // S^T = K Q^T, dP^T = V dout^T: K-major operands, 16 columns (32 bytes)
+    // a k-step, the next 64-column chunk every 4 steps
+    const uint64_t kd = smem_desc(sk + krow * ROW_BYTES, 16, 1024),
+                   vd = smem_desc(sv + krow * ROW_BYTES, 16, 1024);
+    float dka[AN], dva[AN], sc[32], dp[32];
+    uint32_t pa[4][4], pd[4][4];
+    for (int i = 0, jj = 0; i < np; ++i) {
+        const Work w = work(i);
+        const int kw0 = w.k0 + krow;
         const int key0 = kw0 + warp * 16 + lane / 4;  // its keys key0, key0 + 8
-        // S^T = K Q^T, dP^T = V dout^T: K-major operands, 16 columns (32
-        // bytes) a k-step, the next 64-column chunk every 4 steps
-        const uint64_t kd = smem_desc(sk + krow * ROW_BYTES, 16, 1024),
-                       vd = smem_desc(sv + krow * ROW_BYTES, 16, 1024);
-        float dka[AN], dva[AN], sc[32], dp[32];
-        uint32_t pa[4][4], pd[4][4];
 #pragma unroll
-        for (int i = 0; i < AN; ++i) dka[i] = dva[i] = 0.f;
-        mbar_wait(kvbar, 0);
-        for (int it = 0; it < steps; ++it) {
-            const int q0 = (first + it % per) * BQ, s = it % ST;
-            mbar_wait(full(s), (it / ST) & 1);
+        for (int n = 0; n < AN; ++n) dka[n] = dva[n] = 0.f;
+        mbar_wait(kvbar, i & 1);
+        for (int it = w.i0; it < w.i1; ++it, ++jj) {
+            const int q0 = (w.first + it % w.per) * BQ, s = jj % ST;
+            mbar_wait(full(s), (jj / ST) & 1);
             if (causal && q0 + BQ - 1 < kw0) {
                 // every key of this warpgroup lies past every row of the tile
                 mbar_arrive(empty(s));
@@ -575,46 +644,45 @@ fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
             // dV += P^T dout and dK += dS^T Q: dout and Q MN-major (hd
             // contiguous): 16 q rows (2 KB) a k-step, the next 64 head dims
             // 64 rows further
-            const uint64_t gm = smem_desc(gs + (hoff / CHUNK) * BQ * ROW_BYTES,
-                                          BQ * ROW_BYTES, 1024),
-                           qm = smem_desc(qs + (hoff / CHUNK) * BQ * ROW_BYTES,
-                                          BQ * ROW_BYTES, 1024);
+            const uint64_t gm = smem_desc(gs, BQ * ROW_BYTES, 1024),
+                           qm = smem_desc(qs, BQ * ROW_BYTES, 1024);
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < BQ / 16; ++kk)
-                Wgmma<HDW>::rs(dva, pa[kk], gm + ((kk * 16 * ROW_BYTES) >> 4));
+                Wgmma<HD>::rs(dva, pa[kk], gm + ((kk * 16 * ROW_BYTES) >> 4));
 #pragma unroll
             for (int kk = 0; kk < BQ / 16; ++kk)
-                Wgmma<HDW>::rs(dka, pd[kk], qm + ((kk * 16 * ROW_BYTES) >> 4));
+                Wgmma<HD>::rs(dka, pd[kk], qm + ((kk * 16 * ROW_BYTES) >> 4));
             wgmma_commit();
             wgmma_wait<0>();
             mbar_arrive(empty(s));
         }
         fence_regs(dka);
         fence_regs(dva);
+        // every product on this piece's K and V has retired
+        mbar_arrive(kvfree);
 
-        // a thread holds rows key0 + 8 i, head dims hoff + 8 j + 2 quad + {0, 1}
+        // a thread holds rows key0 + 8 r, head dims 8 j + 2 quad + {0, 1}
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int key = key0 + 8 * i;
+        for (int r = 0; r < 2; ++r) {
+            const int key = key0 + 8 * r;
             if (key >= Sk) continue;
-            if (part != nullptr) {
-                const long long n_all = (long long)gridDim.x / split * Sk * HD;
-                float* pk = part + ((long long)sp * (gridDim.x / split) + bhk) * Sk * HD
-                          + (long long)key * HD + hoff;
-                float* pv = pk + split * n_all;
+            if (w.slot >= 0) {
+                float* pk = part + (long long)w.slot * 2 * BKV * HD
+                          + (long long)(key - w.k0) * HD;
+                float* pv = pk + BKV * HD;
 #pragma unroll
-                for (int j = 0; j < HDW / 8; ++j) {
-                    const int n = j * 4 + 2 * i, d = j * 8 + 2 * quad;
+                for (int j = 0; j < HD / 8; ++j) {
+                    const int n = j * 4 + 2 * r, d = j * 8 + 2 * quad;
                     *reinterpret_cast<float2*>(pk + d) = make_float2(dka[n], dka[n + 1]);
                     *reinterpret_cast<float2*>(pv + d) = make_float2(dva[n], dva[n + 1]);
                 }
             } else {
-                __nv_bfloat16* pk = dk + b * st.dk[0] + hk * st.dk[1] + key * st.dk[2] + hoff;
-                __nv_bfloat16* pv = dv + b * st.dv[0] + hk * st.dv[1] + key * st.dv[2] + hoff;
+                __nv_bfloat16* pk = dk + w.b * st.dk[0] + w.hk * st.dk[1] + key * st.dk[2];
+                __nv_bfloat16* pv = dv + w.b * st.dv[0] + w.hk * st.dv[1] + key * st.dv[2];
 #pragma unroll
-                for (int j = 0; j < HDW / 8; ++j) {
-                    const int n = j * 4 + 2 * i, d = j * 8 + 2 * quad;
+                for (int j = 0; j < HD / 8; ++j) {
+                    const int n = j * 4 + 2 * r, d = j * 8 + 2 * quad;
                     *reinterpret_cast<uint32_t*>(pk + d) =
                         pack_bf16(dka[n] * scale, dka[n + 1] * scale);
                     *reinterpret_cast<uint32_t*>(pv + d) = pack_bf16(dva[n], dva[n + 1]);
@@ -624,41 +692,46 @@ fa_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 }
 
-// (c) with a split group: dK and dV as the partials' sum, taken in split
-// order, dK scaled; 8 head dims a thread, dK's elements then dV's
+// (c) the cut kv tiles' partials summed in slot order: dK (times scale)
+// and dV of each tile's BKV keys.  A thread takes 8 head dims (16 bytes
+// out), HD / 8 threads a row; the loads of every piece are independent
+template <int HD>
 __global__ void __launch_bounds__(SUM_THREADS)
 fa_bwd_wgmma_sum_kernel(const float* __restrict__ part,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, KvStrides st,
-                        int split, int Hkv, int Sk, int hd, long long n_all,
-                        float scale) {
-    const long long e = ((long long)blockIdx.x * SUM_THREADS + threadIdx.x) * 8;
-    if (e >= 2 * n_all) return;
-    const int which = e >= n_all;
-    const long long f = e - which * n_all;
-    const int d = (int)(f % hd);
-    const long long r = f / hd;
-    const int key = (int)(r % Sk);
-    const long long bhk = r / Sk;
-    const int b = (int)(bhk / Hkv), hk = (int)(bhk % Hkv);
+                        int Hkv, int Sk, float scale,
+                        const __grid_constant__ SumTable tab) {
+    constexpr int BKV = Cfg<HD>::BKV, LANES = HD / 8;
+    constexpr int ROWS = SUM_THREADS / LANES, BLOCKS = BKV / ROWS;
+    const SumEntry e = tab.e[blockIdx.x / (2 * BLOCKS)];
+    const int w = blockIdx.x / BLOCKS % 2;               // 0 dK, 1 dV
+    const int r = blockIdx.x % BLOCKS * ROWS + threadIdx.x / LANES;
+    const int d = threadIdx.x % LANES * 8;
+    const int nk = (Sk + BKV - 1) / BKV, bhk = e.item / nk;
+    const int key = e.item % nk * BKV + r;
+    if (key >= Sk) return;
+    const float* src = part + ((long long)e.slot0 * 2 + w) * BKV * HD
+                     + (long long)r * HD + d;
     float acc[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    const float* src = part + (long long)which * split * n_all + f;
-    for (int s = 0; s < split; ++s) {
-        const float4 x = *reinterpret_cast<const float4*>(src + s * n_all);
-        const float4 y = *reinterpret_cast<const float4*>(src + s * n_all + 4);
+#pragma unroll 4
+    for (int c = 0; c < e.count; ++c) {
+        const float4* p = reinterpret_cast<const float4*>(src + (long long)c * 2 * BKV * HD);
+        const float4 x = p[0], y = p[1];
         acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
         acc[4] += y.x; acc[5] += y.y; acc[6] += y.z; acc[7] += y.w;
     }
-    const float m = which ? 1.f : scale;
+    const float m = w ? 1.f : scale;
     uint4 out;
     out.x = pack_bf16(acc[0] * m, acc[1] * m);
     out.y = pack_bf16(acc[2] * m, acc[3] * m);
     out.z = pack_bf16(acc[4] * m, acc[5] * m);
     out.w = pack_bf16(acc[6] * m, acc[7] * m);
-    const long long* s3 = which ? st.dv : st.dk;
-    __nv_bfloat16* dst = (which ? dv : dk) + b * s3[0] + hk * s3[1] + key * s3[2] + d;
+    const long long* s3 = w ? st.dv : st.dk;
+    __nv_bfloat16* dst = (w ? dv : dk) + bhk / Hkv * s3[0] + bhk % Hkv * s3[1]
+                       + key * s3[2] + d;
     *reinterpret_cast<uint4*>(dst) = out;
 }
 
@@ -798,7 +871,13 @@ fa_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap qmap,
             for (int kk = 0; kk < BK / 16; ++kk)
                 Wgmma<HD>::rs(dqa, pd[kk], km + ((kk * 16 * ROW_BYTES) >> 4));
             wgmma_commit();
-            pending = s;
+            if (Cfg<HD>::DQ_OVERLAP) {
+                pending = s;
+            } else {
+                wgmma_wait<0>();
+                fence_regs(dqa);
+                mbar_arrive(empty(s));
+            }
         }
         wgmma_wait<0>();
         fence_regs(dqa);
@@ -830,7 +909,6 @@ fa_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 constexpr int HD256 = 256;
 constexpr int UNIT = 64;                   // q rows of a dQ warpgroup's unit
 constexpr int BKV256 = 64, BK256 = 32;     // keys of a dK/dV tile, a dQ step
-constexpr int MAX_PIECES = 132;            // a launch's table: the H100's SMs
 constexpr int P_BYTES = 64 * 64 * 4;       // P^T of a step, fp32
 constexpr int SUM_ROWS = 8;                // rows of a sum block, a warp each
 // two consumer warpgroups and no producer: ptxas allocates one register
@@ -846,10 +924,6 @@ struct Piece { int item, start, stop, slot; };
 // n = 0: no table, block x takes item x's whole walk (dQ: each (batch, kv
 // head)'s pairs last-first)
 struct PieceTable { int n; Piece p[MAX_PIECES]; };
-// a cut item: its pieces' first slot and count; kind 0 a dK/dV tile, 1 a
-// dQ pair of units
-struct SumEntry { short item, slot0, count, kind; };
-struct SumTable { int n; SumEntry e[2 * MAX_PIECES]; };
 
 // dK/dV at hd 256: K and V (64 keys), per stage Q, dout (64 rows) and the
 // statistics, then two buffers of P^T handed from the dV warpgroup to the
@@ -1387,9 +1461,11 @@ struct Args {
     const float* lse;
     void *dq, *dk, *dv;
     float *stats, *part;
-    int B, H, Hkv, S, Sk, causal, split;
+    int B, H, Hkv, S, Sk, causal;
     float scale;
     const long long* st;     // (batch, head, row) of q, k, v, o, g, dq, dk, dv
+    const KvTable* tab;
+    const SumTable* sums;
 };
 
 template <int HD>
@@ -1426,21 +1502,21 @@ int run(const Args& a, cudaStream_t stream) {
     err = cudaFuncSetAttribute(fa_bwd_wgmma_dkdv_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
     if (err != cudaSuccess) return (int)err;
-    const dim3 gkv(a.B * a.Hkv * a.split, (a.Sk + C::BKV - 1) / C::BKV);
-    fa_bwd_wgmma_dkdv_kernel<HD><<<gkv, NTHREADS, smem_kv, stream>>>(
+    const int nk = (a.Sk + C::BKV - 1) / C::BKV;
+    fa_bwd_wgmma_dkdv_kernel<HD><<<a.tab->n ? a.tab->n : a.B * a.Hkv * nk,
+                                   NTHREADS, smem_kv, stream>>>(
         qm, gm, kvm[0], kvm[1], a.stats, (__nv_bfloat16*)a.dk,
-        (__nv_bfloat16*)a.dv, a.split > 1 ? a.part : nullptr, skv, a.H, a.Hkv,
-        G, a.split, a.S, a.Sk, NQ, a.causal, sl, a.scale);
+        (__nv_bfloat16*)a.dv, a.part, skv, a.H, a.Hkv, G, a.S, a.Sk, NQ,
+        a.causal, sl, a.scale, *a.tab);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
-    if (a.split > 1) {
-        const long long n_all = (long long)a.B * a.Hkv * a.Sk * HD;
-        const long long threads = 2 * n_all / 8;
-        fa_bwd_wgmma_sum_kernel<<<(unsigned)((threads + SUM_THREADS - 1) / SUM_THREADS),
-                                  SUM_THREADS, 0, stream>>>(
-            a.part, (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, skv, a.split,
-            a.Hkv, a.Sk, HD, n_all, a.scale);
+    if (a.sums->n) {
+        constexpr int blocks = C::BKV / (SUM_THREADS / (HD / 8));
+        fa_bwd_wgmma_sum_kernel<HD><<<2 * blocks * a.sums->n, SUM_THREADS, 0,
+                                      stream>>>(
+            a.part, (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, skv, a.Hkv,
+            a.Sk, a.scale, *a.sums);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
@@ -1461,19 +1537,27 @@ int run(const Args& a, cudaStream_t stream) {
 // q, out, dout, dq (B, H, S, hd); k, v, dk, dv (B, Hkv, Sk, hd), all bf16
 // with element strides (batch, head, row) in `strides` (q, k, v, out, dout,
 // dq, dk, dv: 24 values), unit-stride rows and 16-byte aligned strides; lse
-// (B, H, S) fp32 contiguous; hd 64, 128 or 256.  Scratch, fp32: stats (B*H,
-// NQ, 2, 64) with NQ = 2 * ceil(S / 128); part (2, split, B*Hkv, Sk, hd)
-// when split > 1 (split divides H / Hkv), else null.  scale is hd^-0.5 as
-// the caller rounds it to fp32.  Launches 3 kernels on `stream`, 4 when
-// split > 1.
+// (B, H, S) fp32 contiguous; hd 64 or 128.  Scratch, fp32: stats (B*H, NQ,
+// 2, 64) with NQ = 2 * ceil(S / 128).  The dK/dV schedule
+// (flash_attention.dkdv_wrap): n_pieces (item, start, stop, slot) int
+// quadruples in block order and n_offsets block offsets into them (n_offsets
+// - 1 blocks; 0: no table, a block a kv tile); sums: nsums (item, first
+// slot, count) triples of the cut tiles, whose pieces write part (slots, 2,
+// 128, hd) fp32 (null where nsums is 0).  scale is hd^-0.5 as the caller
+// rounds it to fp32.  Launches D, dK/dV, dQ and, where nsums > 0, the sum:
+// 3 or 4 kernels on `stream`.
 extern "C" int flash_attention_bwd_wgmma_bf16(
         const void* q, const void* k, const void* v, const void* o,
         const void* g, const float* lse, void* dq, void* dk, void* dv,
         float* stats, float* part, int B, int H, int Hkv, int S, int Sk,
-        int hd, int causal, int split, float scale, const long long* strides,
-        void* stream) {
-    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1 || split < 1
-        || (H / Hkv) % split || (split > 1) != (part != nullptr))
+        int hd, int causal, float scale, const long long* strides,
+        const int* pieces, int n_pieces, const int* offsets, int n_offsets,
+        const int* sums, int nsums, void* stream) {
+    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 || Sk < 1
+        || n_pieces < 0 || n_pieces > 2 * MAX_PIECES || n_offsets < 0
+        || n_offsets > MAX_PIECES + 1 || n_offsets == 1
+        || (n_offsets > 0) != (n_pieces > 0) || nsums < 0
+        || nsums > 2 * MAX_PIECES || (nsums > 0) != (part != nullptr))
         return (int)cudaErrorInvalidValue;
     // the tensor maps are encoded by the driver, which needs a current
     // context; a thread whose first CUDA work this is has none yet (an
@@ -1483,8 +1567,29 @@ extern "C" int flash_attention_bwd_wgmma_bf16(
     cudaError_t err = cudaGetDevice(&device);
     if (err == cudaSuccess) err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
+    KvTable tab;
+    tab.n = n_offsets > 0 ? n_offsets - 1 : 0;
+    for (int i = 0; i < n_offsets; ++i) {
+        if (offsets[i] < 0 || offsets[i] > n_pieces
+            || (i > 0 && offsets[i] < offsets[i - 1]))
+            return (int)cudaErrorInvalidValue;
+        tab.first[i] = (unsigned short)offsets[i];
+    }
+    for (int i = 0; i < n_pieces; ++i) {
+        const int* e = pieces + 4 * i;
+        if (e[0] < 0 || e[0] > 0xFFFF || e[1] < 0 || e[2] < e[1]
+            || e[2] > 0xFFFF || e[3] < -1 || e[3] > 0x7FFF)
+            return (int)cudaErrorInvalidValue;
+        tab.p[i] = KvPiece{(unsigned short)e[0], (unsigned short)e[1],
+                           (unsigned short)e[2], (short)e[3]};
+    }
+    SumTable sums_t;
+    sums_t.n = nsums;
+    for (int i = 0; i < nsums; ++i)
+        sums_t.e[i] = SumEntry{(short)sums[3 * i], (short)sums[3 * i + 1],
+                               (short)sums[3 * i + 2], 0};
     const Args a{q, k, v, o, g, lse, dq, dk, dv, stats, part, B, H, Hkv, S,
-                 Sk, causal, split, scale, strides};
+                 Sk, causal, scale, strides, &tab, &sums_t};
     cudaStream_t st = (cudaStream_t)stream;
     switch (hd) {
         case 64: return run<64>(a, st);

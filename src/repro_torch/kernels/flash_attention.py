@@ -48,10 +48,13 @@ log-sum-exp.  Its backward is chosen by dtype and head dim alone
 * bf16 at hd 64, 128 and 256: ``csrc/flash_attention_bwd_wgmma.cu``
   (``"wgmma"``), its products on the tensor cores, every tile fed by TMA
   through an mbarrier ring, GQA and strided views read natively: D, then a
-  dK/dV kernel (one block per kv tile, its q heads summed in registers),
-  then a dQ kernel that recomputes S and dP.  Where that dK/dV grid would
-  be small, each group's q heads are split over ``bwd_split`` blocks whose
-  fp32 partials a fourth kernel sums in a fixed order.  hd 256 has kernels
+  dK/dV kernel (an item a kv tile of 128 keys, its walk its group's q
+  heads x their q tiles, summed in registers), then a dQ kernel that
+  recomputes S and dP.  Where the kv tiles are fewer than ``SMS``, their
+  walks are laid end to end and wrapped over blocks of equal length
+  (``dkdv_wrap``, ``wrap_walks``): a block walks its pieces in turn, and
+  the pieces of a cut walk write fp32 partials that a fourth kernel sums
+  in a fixed order.  hd 256 has kernels
   of its own: the dK/dV block's warpgroups take dV and dK (P^T handed
   across in shared memory: four products a kept score), the dQ block's a
   pair of units as the forward's, and both grids cut their walks into
@@ -151,15 +154,24 @@ BWD_TILES = {"wgmma": {64: (64, 128), 128: (64, 128), 256: (64, 64)},
              "tf32x3": {64: (32, 64), 128: (32, 64), 256: (16, 64)},
              "mma": {16: (16, 16), 32: (16, 16)}}
 # kernels a backward call launches: the tensor-core routes D, dK and dV,
-# dQ, and one that sums the split q heads' partials (``bwd_split`` > 1);
+# dQ, and one that sums the partials of walks cut over several blocks
+# (tf32x3: ``bwd_split`` > 1; bf16 at hd 64/128: ``dkdv_wrap``'s sums);
 # "mma" one kernel that computes D where it needs it and sums its warps'
 # partials itself
 BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 3, "mma": 1}
-# the H100 SXM's SMs: a tensor-core dK/dV grid of fewer blocks has each
-# group's q heads split over more blocks, as far as the SMs and G allow;
-# at bf16 hd 256 a grid of fewer items has their walks cut into pieces
-# until it fills this many blocks (``split_walks``)
+# the H100 SXM's SMs: a tf32x3 dK/dV grid of fewer blocks has each group's
+# q heads split over more blocks, as far as the SMs and G allow; at bf16
+# hd 256 a grid of fewer items has their walks cut into pieces until it
+# fills this many blocks (``split_walks``); at bf16 hd 64/128 their walks
+# are wrapped over at most this many blocks of equal length
+# (``wrap_walks``)
 SMS = 132
+# ``wrap_walks``: no block walks fewer than MIN_BIN_STEPS steps, and the
+# walks are cut only where the longest exceeds a block's length T by more
+# than WRAP_FACTOR T + WRAP_SLACK (a cut costs its partials' bytes, a
+# fourth kernel and a reload of K and V: Whisper's 48 walks of 7 steps
+# stay whole)
+MIN_BIN_STEPS, WRAP_FACTOR, WRAP_SLACK = 4, 1.25, 4
 # bf16 at hd 256 (``split_route``): q rows of a consumer warpgroup's unit,
 # keys of a forward and a dK/dV tile, keys of a dQ step
 UNIT_ROWS, SPLIT_BK, SPLIT_BK_DQ = 64, 64, 32
@@ -192,10 +204,11 @@ def bwd_route(dtype: torch.dtype, hd: int) -> str:
 
 
 def bwd_split(B: int, H: int, Hkv: int, Sk: int, hd: int,
-              kind: str = "wgmma") -> int:
-    """Blocks over which the dK/dV kernel of tensor-core route ``kind``
-    splits each group's H / Hkv q heads: the most that divides the group
-    and keeps its grid within ``BWD_SMS`` blocks (1: no split)."""
+              kind: str = "tf32x3") -> int:
+    """Blocks over which the tf32x3 dK/dV kernel splits each group's H /
+    Hkv q heads: the most that divides the group and keeps its grid within
+    ``SMS`` blocks (1: no split).  (bf16 wraps its walks instead:
+    ``dkdv_wrap``.)"""
     G = H // Hkv
     blocks = B * Hkv * -(-Sk // BWD_TILES[kind][hd][1])
     return max(s for s in range(1, G + 1)
@@ -206,13 +219,16 @@ def bwd_launches(dtype: torch.dtype, hd: int, B: int, H: int, Hkv: int,
                  Sk: int, S: Optional[int] = None,
                  causal: bool = True) -> int:
     """Kernels one backward call launches on the card (``S`` defaults to
-    ``Sk``): at bf16 hd 256 D, dK/dV, dQ and, where either split its
-    walks, the sum of their partials."""
+    ``Sk``): on the bf16 route D, dK/dV, dQ and, where a schedule cut a
+    walk (hd 64/128: ``dkdv_wrap``; hd 256: ``dkdv_split``, ``dq_split``),
+    the sum of the partials."""
+    S = Sk if S is None else S
     if split_route(dtype, hd):
-        S = Sk if S is None else S
         return 3 + bool(dkdv_split(B, H, Hkv, S, Sk, causal).sums
                         or dq_split(B, H, Hkv, S, Sk, causal).sums)
     kind = bwd_route(dtype, hd)
+    if kind == "wgmma":
+        return 3 + bool(dkdv_wrap(B, H, Hkv, S, Sk, causal).sums)
     return BWD_LAUNCHES[kind] + _bwd_sums(kind, hd,
                                           bwd_split(B, H, Hkv, Sk, hd, kind))
 
@@ -242,17 +258,21 @@ def split_route(dtype: torch.dtype, hd: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Split:
-    """Items' walks (tiles or steps each) cut into pieces, one block each.
+    """Items' walks (tiles or steps each) cut into pieces for the blocks.
 
-    ``pieces``: (item, start, stop, slot) in launch order, longest first;
+    ``pieces``: (item, start, stop, slot) in launch order (``split_walks``:
+    longest first; ``wrap_walks``: block by block);
     slot -1 where the piece is its item's whole walk, else the fp32
     partial it writes (an item's pieces take consecutive slots in walk
     order).  Empty when there are at least ``SMS`` items: one block an item
     over its whole walk.  ``sums``: (item, first slot, pieces) of each item
-    whose walk was cut, which a second kernel sums in slot order."""
+    whose walk was cut, which a second kernel sums in slot order.
+    ``offsets`` (``wrap_walks``): block x walks pieces offsets[x] ..
+    offsets[x + 1] - 1 in turn; empty: a block a piece."""
     walks: tuple
     pieces: tuple
     sums: tuple
+    offsets: tuple = ()
 
     @property
     def slots(self) -> int:
@@ -260,7 +280,18 @@ class Split:
 
     @property
     def blocks(self) -> int:
+        if self.offsets:
+            return len(self.offsets) - 1
         return len(self.pieces) or len(self.walks)
+
+    def block_steps(self) -> list:
+        """Each block's steps: its pieces' lengths summed (no pieces: each
+        item's walk)."""
+        if not self.pieces:
+            return list(self.walks)
+        ends = self.offsets or range(len(self.pieces) + 1)
+        return [sum(e - a for _, a, e, _ in self.pieces[x:y])
+                for x, y in zip(ends, ends[1:])]
 
     def by_item(self) -> list:
         """Each item's (start, stop) pieces in walk order."""
@@ -279,6 +310,11 @@ class Split:
         sums = [x for s in self.sums for x in s]
         return ((ctypes.c_int * max(1, len(pieces)))(*pieces),
                 (ctypes.c_int * max(1, len(sums)))(*sums))
+
+    @functools.cached_property
+    def c_offsets(self):
+        """``offsets`` as a flat C int array."""
+        return (ctypes.c_int * max(1, len(self.offsets)))(*self.offsets)
 
 
 def split_walks(walks: tuple, sms: int = SMS) -> Split:
@@ -307,6 +343,64 @@ def split_walks(walks: tuple, sms: int = SMS) -> Split:
         slot += c if c > 1 else 0
     pieces.sort(key=lambda p: (p[1] - p[2], p[0], p[1]))
     return Split(tuple(walks), tuple(pieces), tuple(sums))
+
+
+def wrap_walks(walks: tuple, sms: int = SMS) -> Split:
+    """McNaughton's wrap-around rule: the items' walks laid end to end in
+    item order and cut into blocks of T = max(ceil(total / sms),
+    ``MIN_BIN_STEPS``) steps, so that no block walks more than T steps and
+    a cut walk's pieces lie in consecutive blocks (a walk of no steps joins
+    the block where it falls).  ``pieces`` in block order; an item's pieces
+    take consecutive slots in walk order.  No cut (one block an item,
+    ``pieces`` empty) where there are ``sms`` items or more, where the
+    longest walk is within ``WRAP_FACTOR`` T + ``WRAP_SLACK`` steps, or
+    where a walk does not fit the kernel's 16-bit table."""
+    total, longest = sum(walks), max(walks, default=0)
+    T = max(-(-total // sms), MIN_BIN_STEPS)
+    if (len(walks) >= sms or longest <= WRAP_FACTOR * T + WRAP_SLACK
+            or longest >= 1 << 16):
+        return Split(tuple(walks), (), ())
+    raw, offsets, fill = [], [0], 0
+    for i, w in enumerate(walks):
+        a = 0
+        while True:
+            if fill == T and a < w:
+                offsets.append(len(raw))
+                fill = 0
+            b = min(w, a + T - fill)
+            raw.append((i, a, b))
+            fill, a = fill + b - a, b
+            if a >= w:
+                break
+    offsets.append(len(raw))
+    count = collections.Counter(i for i, _, _ in raw)
+    first, sums, slot = {}, [], 0
+    for i in sorted(count):
+        if count[i] > 1:
+            sums.append((i, slot, count[i]))
+            first[i] = slot
+            slot += count[i]
+    pieces, seen = [], collections.Counter()
+    for i, a, b in raw:
+        pieces.append((i, a, b, first[i] + seen[i] if i in first else -1))
+        seen[i] += 1
+    return Split(tuple(walks), tuple(pieces), tuple(sums), tuple(offsets))
+
+
+@functools.lru_cache(maxsize=256)
+def dkdv_wrap(B: int, H: int, Hkv: int, S: int, Sk: int,
+              causal: bool) -> Split:
+    """The bf16 hd-64/128 dK/dV kernel's schedule: items are kv tiles of
+    128 keys (item x = (b Hkv + hk) nk + t), each walking G q heads x its
+    q tiles of 64 rows from the one that holds its first key (step g per +
+    qt - first), wrapped over blocks of equal length (``wrap_walks``).
+    Uncut, block x takes item (x % (B Hkv)) nk + x // (B Hkv): tile-major,
+    the longest causal walks first."""
+    bq, bk = BWD_TILES["wgmma"][64]
+    G, nq, nk = H // Hkv, -(-S // bq), -(-Sk // bk)
+    walks = [G * (nq - (min(t * bk // bq, nq) if causal else 0))
+             for t in range(nk)]
+    return wrap_walks(tuple(walks) * (B * Hkv))
 
 
 def unit_walk(p: int, S: int, Sk: int, causal: bool, bk: int) -> int:
@@ -367,18 +461,19 @@ def dq_split(B: int, H: int, Hkv: int, S: int, Sk: int,
 
 
 def _bwd_sums(kind: str, hd: int, split: int) -> bool:
-    """Whether a tensor-core backward launches its sum kernel: where it
-    splits each group's q heads, and always at f32 hd 256, whose dK/dV and
-    dQ kernels each walk halves of their causal walks (``_bwd_part_floats``)."""
-    return kind != "mma" and (split > 1 or (kind, hd) == ("tf32x3", 256))
+    """Whether a tf32x3 or mma backward launches a sum kernel: where the
+    tf32x3 one splits each group's q heads, and always at f32 hd 256, whose
+    dK/dV and dQ kernels each walk halves of their causal walks
+    (``_bwd_part_floats``)."""
+    return kind == "tf32x3" and (split > 1 or hd == 256)
 
 
 def _bwd_part_floats(kind: str, hd: int, split: int, B: int, H: int,
                      Hkv: int, S: int, Sk: int) -> int:
-    """fp32 scratch for the partials the sum kernel adds: dK's and dV's of
-    ``split`` parts of each group's q heads; at f32 hd 256 two parts of
+    """fp32 scratch for the partials the tf32x3 sum kernel adds: dK's and
+    dV's of ``split`` parts of each group's q heads; at hd 256 two parts of
     each (the q halves) and then dQ's two (the kv halves)."""
-    if (kind, hd) == ("tf32x3", 256):
+    if hd == 256:
         return 2 * 2 * split * B * Hkv * Sk * hd + 2 * B * H * S * hd
     return 2 * split * B * Hkv * Sk * hd if split > 1 else 0
 
@@ -469,8 +564,12 @@ def _bwd_launcher(dtype: torch.dtype):
 def _wgmma_bwd_launcher():
     lib = _cuda.load(WGMMA_BWD_LIB_NAME, wgmma_bwd_kernel_source())
     return lib, _cuda.entry(lib, "flash_attention_bwd_wgmma_bf16",
-                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                            + [ctypes.c_float] + [ctypes.c_void_p] * 2)
+                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                            + [ctypes.c_float]
+                            + [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -673,15 +772,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
     scale dS k_j, with dS = P (dout v^T - D); fp32 throughout, each
     gradient returned in its input's dtype.  ``lse`` is (B, H, S) fp32,
     the forward's row log-sum-exp of the scaled scores.  Returns (dq, dk,
-    dv) shaped as q, k, v.  ``split`` walks the hd-256 kernels' schedules
-    instead (``dkdv_split``, ``dq_split``; the tiles must be
-    ``BWD_TILES["wgmma"][256]``)."""
+    dv) shaped as q, k, v.  ``split`` walks the bf16 kernels' schedules
+    instead, at hd 256 ``dkdv_split`` and ``dq_split``, at hd 64 and 128
+    ``dkdv_wrap`` (the tiles must be ``BWD_TILES["wgmma"][hd]``)."""
     if split:
-        if (block_q, block_k) != BWD_TILES["wgmma"][256]:
+        hd = q.shape[3]
+        if (block_q, block_k) != BWD_TILES["wgmma"].get(hd):
             raise ValueError(f"flash_attention_bwd_plain: the split "
-                             f"schedules walk {BWD_TILES['wgmma'][256]} "
-                             "tiles")
-        return _split_bwd_plain(q, k, v, out, lse, dout, causal)
+                             f"schedules walk {BWD_TILES['wgmma']} tiles "
+                             "by head dim")
+        if hd == 256:
+            return _split_bwd_plain(q, k, v, out, lse, dout, causal)
+        return _wrap_bwd_plain(q, k, v, out, lse, dout, causal)
     B, H, S, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -808,6 +910,72 @@ def _split_bwd_plain(q, k, v, out, lse, dout, causal: bool):
     dq = _from_units(dq * scale, B, H, S)
     dk, dv = (t[:, :Sk].reshape(B, Hkv, Sk, hd) for t in (dk * scale, dv))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _wrap_bwd_plain(q, k, v, out, lse, dout, causal: bool):
+    """``flash_attention_bwd_plain`` on the bf16 hd-64/128 kernels'
+    schedule.  dK, dV: each kv tile's steps (its G q heads x its q tiles of
+    64 rows, ``dkdv_wrap``) summed piece by piece in step order, then the
+    pieces in slot order.  dQ: each q tile of 64 rows summed over kv tiles
+    of 64 keys in order (the dQ kernel's steps).  P = exp(s scale - lse)
+    (0 where masked and past S), dS = P (dout v^T - D), D = rowsum(dout
+    out)."""
+    B, H, S, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G, dev = H // Hkv, q.device
+    bq, bk = BWD_TILES["wgmma"][hd]
+    nq, nk = -(-S // bq), -(-Sk // bk)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32).item()
+
+    def rows(t, fill=0.0):  # (B, H, S, ...) -> (B, Hkv, G, nq, bq, ...)
+        pad = torch.full((B, H, nq * bq) + t.shape[3:], fill,
+                         dtype=torch.float32, device=dev)
+        pad[:, :, :S] = t.float()
+        return pad.view((B, Hkv, G, nq, bq) + t.shape[3:])
+
+    qf, gf = rows(q), rows(dout)
+    D = (gf * rows(out)).sum(dim=-1)
+    lsef = rows(lse, math.inf)
+    kf = torch.zeros((B, Hkv, nk * bk, hd), dtype=torch.float32, device=dev)
+    vf = torch.zeros_like(kf)
+    kf[:, :, :Sk], vf[:, :, :Sk] = k.float(), v.float()
+    qpos = torch.arange(nq * bq, device=dev).view(nq, bq, 1)
+    dq = torch.zeros_like(qf)
+    # each kv tile's per-step dK and dV: (B, Hkv, G, nq, bk, hd)
+    cdk, cdv = [], []
+    for j in range(nk):
+        cut = slice(j * bk, (j + 1) * bk)
+        kpos = j * bk + torch.arange(bk, device=dev)
+        ok = kpos < Sk
+        if causal:
+            ok = ok & (qpos >= kpos)
+        s = torch.einsum("bgrnqd,bgkd->bgrnqk", qf, kf[:, :, cut])
+        p = torch.where(ok, torch.exp(s * scale - lsef[..., None]), 0.0)
+        dp = torch.einsum("bgrnqd,bgkd->bgrnqk", gf, vf[:, :, cut])
+        ds = p * (dp - D[..., None])
+        cdv.append(torch.einsum("bgrnqk,bgrnqd->bgrnkd", p, gf))
+        cdk.append(torch.einsum("bgrnqk,bgrnqd->bgrnkd", ds, qf))
+        for h in range(2):     # the dQ kernel's steps of bk / 2 keys
+            half = slice(h * bk // 2, (h + 1) * bk // 2)
+            dq = dq + torch.einsum("bgrnqk,bgkd->bgrnqd", ds[..., half],
+                                   kf[:, :, cut][:, :, half])
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(kf)
+    for it, pieces in enumerate(dkdv_wrap(B, H, Hkv, S, Sk,
+                                          causal).by_item()):
+        bhk, t = divmod(it, nk)
+        b, hk = divmod(bhk, Hkv)
+        first = min(t * bk // bq, nq) if causal else 0
+        # the walk's steps, step g per + qt - first
+        steps = [c[t][b, hk, :, first:].reshape((-1, bk, hd))
+                 for c in (cdk, cdv)]
+        cut = slice(t * bk, (t + 1) * bk)
+        for a, e in pieces:
+            dk[b, hk, cut] += steps[0][a:e].sum(dim=0)
+            dv[b, hk, cut] += steps[1][a:e].sum(dim=0)
+    dq = (dq * scale).reshape(B, H, nq * bq, hd)[:, :, :S]
+    return (dq.to(q.dtype), (dk[:, :, :Sk] * scale).to(k.dtype),
+            dv[:, :, :Sk].to(v.dtype))
 
 
 def _row_strides(t: torch.Tensor) -> tuple[Optional[list[int]], str]:
@@ -1042,8 +1210,9 @@ def _bwd_plain(q, k, v, out, lse, dout, causal: bool):
     """The backward operator's CPU implementation:
     ``flash_attention_bwd_plain`` on ``bwd_route``'s tiles."""
     S, hd, Sk = q.shape[2], q.shape[3], k.shape[2]
-    bq, bk = BWD_TILES[bwd_route(q.dtype, hd)][hd]
-    if split_route(q.dtype, hd):
+    kind = bwd_route(q.dtype, hd)
+    bq, bk = BWD_TILES[kind][hd]
+    if kind == "wgmma":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, block_q=bq,
                                          block_k=bk, split=True)
@@ -1088,11 +1257,36 @@ def _bwd_launch(q, k, v, out, lse, dout, causal: bool):
                         ctypes.addressof(sums), nsums,
                         _cuda.current_stream(dev))
         n = 3 + bool(nsums)
-    elif kind in ("wgmma", "tf32x3"):
-        # TMA (wgmma) reads through strides alone, cp.async (tf32x3) any
-        # 16-byte aligned rows
-        rows = _tma_rows if kind == "wgmma" else _aligned_rows
-        q, k, v, out, dout = (rows(t) for t in (q, k, v, out, dout))
+    elif kind == "wgmma":
+        q, k, v, out, dout = (_tma_rows(t) for t in (q, k, v, out, dout))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        sp = dkdv_wrap(B, H, Hkv, S, Sk, causal)
+        stats = torch.empty(2 * B * H * -(-S // 128) * 128,
+                            dtype=torch.float32, device=dev)
+        # a slot: dK's and dV's fp32 partials of a kv tile of 128 keys
+        tile = 2 * BWD_TILES["wgmma"][hd][1] * hd
+        part = torch.empty(sp.slots * tile, dtype=torch.float32,
+                           device=dev) if sp.sums else None
+        lib, launch = _wgmma_bwd_launcher()
+        st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
+                                                    dk, dv)
+                                        for s in _row_strides(t)[0]))
+        pieces, sums = sp.c_tables
+        with torch.cuda.device(dev):
+            rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        stats.data_ptr(),
+                        None if part is None else part.data_ptr(), B, H, Hkv,
+                        S, Sk, hd, int(causal), hd ** -0.5,
+                        ctypes.addressof(st), ctypes.addressof(pieces),
+                        len(sp.pieces), ctypes.addressof(sp.c_offsets),
+                        len(sp.offsets), ctypes.addressof(sums),
+                        len(sp.sums), _cuda.current_stream(dev))
+        n = BWD_LAUNCHES[kind] + bool(sp.sums)
+    elif kind == "tf32x3":
+        # cp.async reads any 16-byte aligned rows
+        q, k, v, out, dout = (_aligned_rows(t) for t in (q, k, v, out, dout))
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         split = bwd_split(B, H, Hkv, Sk, hd, kind)
         # each head's lse and D, its rows padded to 128
@@ -1100,8 +1294,7 @@ def _bwd_launch(q, k, v, out, lse, dout, causal: bool):
                             dtype=torch.float32, device=dev)
         nf = _bwd_part_floats(kind, hd, split, B, H, Hkv, S, Sk)
         part = torch.empty(nf, dtype=torch.float32, device=dev) if nf else None
-        lib, launch = (_wgmma_bwd_launcher if kind == "wgmma"
-                       else _tf32x3_bwd_launcher)()
+        lib, launch = _tf32x3_bwd_launcher()
         st = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
                                                     dk, dv)
                                         for s in _row_strides(t)[0]))

@@ -1187,10 +1187,11 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda_device, hd, dtype, B,
 def test_flash_attention_bwd_wgmma_equals_plain(cuda_device, hd, G, S,
                                                 causal):
     """The tensor-core backward (bf16 at hd 64/128/256) against
-    ``flash_attention_bwd_plain`` on its own dK/dV tiles: GQA groups 1, 2,
-    4 and 8 (the split q heads with them), ragged S, causal and not, on
-    transposed views; a second call on the same inputs bitwise equal; its
-    launches a call as ``bwd_launches`` counts them (4 where it splits)."""
+    ``flash_attention_bwd_plain`` on its own schedule: GQA groups 1, 2, 4
+    and 8, ragged S, causal and not, on transposed views; a second call on
+    the same inputs bitwise equal; its launches a call as ``bwd_launches``
+    counts them (4 where its schedule cut a walk: hd 64/128 ``dkdv_wrap``,
+    hd 256 ``dkdv_split`` or ``dq_split``)."""
     from repro_torch.kernels import flash_attention as fa
     dt = torch.bfloat16
     assert fa.bwd_route(dt, hd) == "wgmma"
@@ -1207,24 +1208,48 @@ def test_flash_attention_bwd_wgmma_equals_plain(cuda_device, hd, G, S,
         # hd 256: walks cut into pieces, summed by the fourth kernel
         sums = bool(fa.dkdv_split(B, H, Hkv, S, S, causal).sums
                     or fa.dq_split(B, H, Hkv, S, S, causal).sums)
-        assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + sums}
-        assert fa.bwd_launches(dt, hd, B, H, Hkv, S, S, causal) == 3 + sums
-        plain = dict(block_q=tq, block_k=tk, split=True)
     else:
-        split = fa.bwd_split(B, H, Hkv, S, hd)
-        assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + (split > 1)}
-        assert fa.bwd_launches(dt, hd, B, H, Hkv, S) == 3 + (split > 1)
-        assert split == G        # the unsplit grid has 2 to 6 blocks
-        plain = dict(block_q=min(tq, S), block_k=min(tk, S))
+        # hd 64/128: the kv tiles' walks wrapped over the SMs, a cut walk's
+        # partials summed by the fourth kernel
+        sums = bool(fa.dkdv_wrap(B, H, Hkv, S, S, causal).sums)
+    assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 3 + sums}
+    assert fa.bwd_launches(dt, hd, B, H, Hkv, S, S, causal) == 3 + sums
     again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
-                                        **plain)
+                                        block_q=tq, block_k=tk, split=True)
     for a, b, c, x in zip(got, again, want, (q, k, v)):
         assert a.dtype == dt and a.shape == x.shape
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), c.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bwd_wgmma_gqa8_equals_plain(cuda_device):
+    """Kimi-K2's and Jamba's GQA 8, q (1, 64, 2048, 128) over 8 kv heads,
+    causal: the kv tiles' walks (256 down to 16 steps) wrapped into 132
+    blocks of at most 132, four kernels; the gradients within 2e-2 of each
+    one's largest entry of the plain version on the same schedule, a second
+    call bitwise the first."""
+    from repro_torch.kernels import flash_attention as fa
+    dt, (B, H, Hkv, S, hd) = torch.bfloat16, (1, 64, 8, 2048, 128)
+    sp = fa.dkdv_wrap(B, H, Hkv, S, S, True)
+    assert sp.blocks == fa.SMS and max(sp.block_steps()) == 132
+    q, k, v, g = _bwd_inputs(cuda_device, dt, B, H, Hkv, S, hd, 8)
+    out, lse = fa._run(q, k, v, True, "wgmma", *fa.WGMMA_BLOCKS[hd][0], True)
+    fa.LAUNCHES.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    assert dict(fa.LAUNCHES) == {"bwd/bfloat16": 2 * 4}
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True,
+                                        block_q=64, block_k=128, split=True)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        scale = c.float().abs().max().item()
+        torch.testing.assert_close(a.float(), c.float(), rtol=2e-2,
+                                   atol=2e-2 * max(1.0, scale))
 
 
 # bf16 at hd 256 (PaliGemma's q (1, 8, 1024, 256) over one kv head and

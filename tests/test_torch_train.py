@@ -579,10 +579,12 @@ def test_bwd_plain_matches_jax_vjp(blocks, G, causal):
 def test_bwd_route_by_dtype_and_head_dim(hd, dtype):
     """bf16 at hd 64/128/256 takes the tensor-core backward ("wgmma"), f32
     at hd 64/128/256 the 3xTF32 one ("tf32x3"), hd 16/32 the mma.sync one
-    ("mma"); a tensor-core call launches 3 kernels, 4 where its dK/dV grid
-    splits its groups' q heads, always at f32 hd 256 (its kernels walk
-    halves of their causal walks, summed by the fourth) and at bf16 hd 256
-    where its grids cut their walks; an mma call launches 1."""
+    ("mma"); a tensor-core call launches 3 kernels, 4 where its schedule
+    cuts a walk (bf16 at hd 64/128: its kv tiles' walks wrapped over the
+    SMs; at hd 256: its grids' walks cut into pieces; f32: its groups' q
+    heads split, and always at hd 256, whose kernels walk halves of their
+    causal walks), the fourth summing the partials; an mma call launches
+    1."""
     want = ("wgmma" if dtype == torch.bfloat16 and hd >= 64 else
             "tf32x3" if dtype == torch.float32 and hd >= 64 else
             "mma")
@@ -594,10 +596,20 @@ def test_bwd_route_by_dtype_and_head_dim(hd, dtype):
         assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3
         assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 4
         assert fa.bwd_launches(dtype, hd, 1, 12, 12, 448, causal=False) == 4
+    elif want == "wgmma":
+        # the kv tiles' walks wrapped over the SMs (``dkdv_wrap``):
+        # llama3-8b's training shape (256 tiles) and Whisper's short walks
+        # stay whole; an MQA group over 1024 keys and Kimi-K2's GQA 8 over
+        # 2048 cut their walks
+        assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3
+        assert fa.bwd_launches(dtype, hd, 1, 8, 1, 1024) == 4
+        assert fa.bwd_launches(dtype, hd, 1, 64, 8, 2048) == 4
+        assert fa.bwd_launches(dtype, hd, 1, 12, 12, 448) == 3
+        assert fa.bwd_launches(dtype, hd, 1, 12, 12, 448, causal=False) == 3
     elif want != "mma":
         # llama3-8b's training shape fills the card unsplit; an MQA group
-        # over 1024 keys (16 kv tiles of 64, 8 of 128) splits its 8 q heads
-        summed = want == "tf32x3" and hd == 256
+        # over 1024 keys (16 kv tiles of 64) splits its 8 q heads
+        summed = hd == 256
         assert fa.bwd_split(2, 32, 8, 2048, hd, want) == 1
         assert fa.bwd_launches(dtype, hd, 2, 32, 8, 2048) == 3 + summed
         assert fa.bwd_split(1, 8, 1, 1024, hd, want) == 8

@@ -101,24 +101,26 @@ read just after:
    rwkv6-3b's loss and every gradient through K5's kernels (f32) equal the
    same model's on the CPU within 2e-4; a loss with grad through K4 at a
    head dim or dtype no kernel takes raises.
-14. *train_rwkv*: (a) K5's backward through ``wkv6_bwd`` against autograd
+14. *train_rwkv*: (a) K5's backward (``csrc/wkv6_bwd_tc.cu``, the
+   windows route at every head dim) through ``wkv6_bwd`` against autograd
    of the per-token plain version on 2 x 256 tokens, in f32 and bf16
    views, with and without s0 and a final-state gradient: at rwkv6-3b's
-   heads (hd 64) the "windows" route (``csrc/wkv6_bwd_tc.cu``) at decays
-   0.1, 1e-3, 1 and the model's, at hd 16 and 32 the "walk" route
-   (``csrc/wkv6_bwd.cu``) at 1e-3 and the model's: each gradient within
-   2e-4 of its largest entry (bf16 dr, dk, dv within 1e-2), each limit
-   shown to reject the gradient with the first chunk's contribution lost
-   and (the windows route) the one with one window's cross-window terms
-   dropped, bitwise the same in a second call; (b) rwkv6-3b at its
+   heads (hd 64) at decays 0.1, 1e-3, 1 and the model's, at its width cut
+   into heads of 16, 32 and 128 (hd 128: a cluster of two CTAs) at 1e-3
+   and the model's: each gradient within 2e-4 of its largest entry (bf16
+   dr, dk, dv within 1e-2), each limit shown to reject the gradient with
+   the first chunk's contribution lost and the one with one window's
+   cross-window terms dropped (hd 128: and the one with one rank's
+   partial sums lost), bitwise the same in a second call; (b) rwkv6-3b at its
    published widths cut to 4 of its 32 layers (bf16, remat "full") trained
    8 steps on 2 x 2048 tokens by ``launch.train.train``: K5's sequence form
    twice a layer a step and its backward (the windows route alone) once,
    counted by the wrappers and, in the profiling child, by the profiler;
    the loss finite and falling; ms a step, tokens/s, the operations bound,
-   peak memory and K5's backward's share of the step; (c) the windows
-   route timed at that shape beside its bounds, its plain version and each
-   launch's time; the walk route at its checks' shape.
+   peak memory and K5's backward's share of the step; (c) the backward
+   timed at each head dim on 2 x 256 and 2 x 2048 tokens of rwkv6-3b's
+   width (hd 64 on 2 x 2048: the train shape) beside its bounds, its plain
+   version, each launch's time, ptxas and its walk's blocks an SM.
 15. *sharded*: the multi-device training path on a (1, 1) mesh over NCCL
    (one card; the group's rendezvous a ``FileStore`` in a temporary
    directory): llama3-8b at its published widths cut to 2 layers (bf16,
@@ -357,15 +359,21 @@ K5_BWD_FLOPS = 14                # per state entry and token (K5_BWD_REPLACES)
 K5_BWD_REPLACES = ("none: the JAX package differentiates "
                    "src/repro/models/layers.py:527 _wkv_chunk with jax.grad")
 K5_BWD_KERNEL = re.compile(r"\bwkv6_bwd_\w+_kernel")
-# each backward route's kernels (kernels/wkv6.py bwd_route)
+# each backward route's kernels (kernels/wkv6.py bwd_route): the walk is
+# the cluster kernel at hd 128
 K5_BWD_ROUTE_KERNEL = {
-    "windows": re.compile(r"\bwkv6_bwd_tc_(local|scan|walk|du)_kernel"),
-    "walk": re.compile(r"\bwkv6_bwd_(local|scan|walk|du)_kernel")}
-K5_BWD_WALK_HDS = (16, 32)       # the walk route's checks: rwkv6-3b's D at these
-K5_BWD_WALK_DECAYS = (1e-3, "model")
-# the windows route's window whose cross-window terms a rejected gradient
-# drops (tokens [16 x, 16 x + 16) of the first chunk)
+    "windows": re.compile(
+        r"\bwkv6_bwd_tc_(local|scan|walk|cluster|du)_kernel")}
+K5_BWD_MORE_HDS = (16, 32, 128)  # rwkv6-3b's D cut into heads of these
+K5_BWD_MORE_DECAYS = (1e-3, "model")
+# the window whose cross-window terms a rejected gradient drops (tokens
+# [16 x, 16 x + 16) of the first chunk), and at hd 128 the rank whose
+# partial sums one loses
 K5_BWD_DROPPED_WINDOW = 1
+K5_BWD_LOST_RANK = 1
+# the backward's timed shapes: tokens a row (2 rows) of rwkv6-3b's width,
+# "i" its checks', "ii" the train path's
+K5_BWD_TOKENS = {"i": K5_BWD_S, "ii": TRAIN_S}
 K5_FWD_KERNEL = re.compile(r"\bwkv6_(chunk_\w+|step)_kernel")
 # path 15, sharded: llama3-8b at its published widths cut to SHARDED_LAYERS
 # layers (bf16, chunked), SHARDED_STEPS steps (the cosine warm-up's rate is
@@ -3339,11 +3347,14 @@ def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int,
     launches of its route (``wkv6.bwd_route``); each gradient finite and
     within K5_BWD_TOL of its largest entry, and each limit shown to reject
     the gradient of a call that lost the first chunk's contribution (its
-    tokens' output cotangent dropped) and, on the windows route, each of
-    dr, dk, dv and dw the gradient of a call that dropped the cross-window
-    terms of window K5_BWD_DROPPED_WINDOW of the first chunk (its tokens'
-    gradients those of the window alone, from a zero state and no
-    gradient past it; du and ds0 take no cross-window product)."""
+    tokens' output cotangent dropped), each of dr, dk, dv and dw the
+    gradient of a call that dropped the cross-window terms of window
+    K5_BWD_DROPPED_WINDOW of the first chunk (its tokens' gradients those
+    of the window alone, from a zero state and no gradient past it; du and
+    ds0 take no cross-window product) and, where a cluster's ranks split
+    the state (hd 128), the gradient of a call that lost rank
+    K5_BWD_LOST_RANK's partial sums (``wkv6_bwd_windowed_plain``'s
+    ``lose_rank``)."""
     import torch
 
     from repro_torch.kernels import wkv6 as wk
@@ -3413,19 +3424,32 @@ def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int,
         if (a - b).abs().max().item() <= tol[name] * scale[name]:
             fail(f"{what}: the limit {tol[name]} on {name} accepts the "
                  f"gradient with the first chunk ({chunk} tokens) lost")
-    dropped = ""
-    if route == "windows":
+    gaps = {}
+    for name, a, b in zip(names, window_alone(want), want):
+        gaps[name] = (a - b).abs().max().item()
+        if gaps[name] <= tol[name] * scale[name]:
+            fail(f"{what}: the limit {tol[name]} on {name} accepts the "
+                 f"gradient with window {K5_BWD_DROPPED_WINDOW}'s "
+                 "cross-window terms dropped")
+    dropped = (f"; each limit on dr, dk, dv, dw rejects the gradient with "
+               f"window {K5_BWD_DROPPED_WINDOW}'s cross-window terms "
+               f"dropped (max |diff| " + ", ".join(
+                   f"{k_} {v_:.3g}" for k_, v_ in gaps.items()) + ")")
+    if wk.BWD_RANKS[hd] > 1:
+        lost = wk.wkv6_bwd_windowed_plain(
+            *(t.detach() for t in xs), u.detach(), s0, dout, ds, chunk,
+            lose_rank=K5_BWD_LOST_RANK)
         gaps = {}
-        for name, a, b in zip(names, window_alone(want), want):
+        for name, a, b in list(zip(names, lost, want))[:4]:
             gaps[name] = (a - b).abs().max().item()
             if gaps[name] <= tol[name] * scale[name]:
                 fail(f"{what}: the limit {tol[name]} on {name} accepts the "
-                     f"gradient with window {K5_BWD_DROPPED_WINDOW}'s "
-                     "cross-window terms dropped")
-        dropped = (f"; each limit on dr, dk, dv, dw rejects the gradient with "
-                   f"window {K5_BWD_DROPPED_WINDOW}'s cross-window terms "
-                   f"dropped (max |diff| " + ", ".join(
-                       f"{k_} {v_:.3g}" for k_, v_ in gaps.items()) + ")")
+                     f"gradient with rank {K5_BWD_LOST_RANK}'s partial sums "
+                     "lost")
+        dropped += (f"; each limit on dr, dk, dv, dw rejects the gradient "
+                    f"with rank {K5_BWD_LOST_RANK} of {wk.BWD_RANKS[hd]}'s "
+                    f"partial sums lost (max |diff| " + ", ".join(
+                        f"{k_} {v_:.3g}" for k_, v_ in gaps.items()) + ")")
     print(f"check: {what}, views: every gradient == autograd of the plain "
           f"version within its limit of its largest entry and bitwise the "
           f"same in a second call (max |diff| "
@@ -3433,21 +3457,21 @@ def k5_bwd_case(dev, dtype, w, with_state: bool, seed: int,
                       f"{tol[k_]})" for k_, e in errs.items())
           + f"); each limit rejects the gradient with the first chunk of "
           f"{chunk} tokens lost{dropped}; launches {n}")
-    return {"errs": errs, "scale": scale, "route": route}
+    return {"errs": errs, "scale": scale, "route": route, "hd": hd}
 
 
 def k5_bwd_checks(dev) -> dict:
     """Path 14's kernel checks: ``k5_bwd_case`` in f32 and bf16, with and
-    without s0 and a final-state gradient, at rwkv6-3b's heads (the windows
-    route) at each of K5_BWD_DECAYS, and at K5_BWD_WALK_HDS (the walk
-    route) at K5_BWD_WALK_DECAYS."""
+    without s0 and a final-state gradient, at rwkv6-3b's heads at each of
+    K5_BWD_DECAYS, and at its width in heads of K5_BWD_MORE_HDS at
+    K5_BWD_MORE_DECAYS."""
     import torch
 
     cases = [(64, dt, w, st) for dt in ("float32", "bfloat16")
              for w in K5_BWD_DECAYS for st in (False, True)]
-    cases += [(hd, dt, w, st) for hd in K5_BWD_WALK_HDS
+    cases += [(hd, dt, w, st) for hd in K5_BWD_MORE_HDS
               for dt in ("float32", "bfloat16")
-              for w in K5_BWD_WALK_DECAYS for st in (False, True)]
+              for w in K5_BWD_MORE_DECAYS for st in (False, True)]
     out = {}
     for i, (hd, dt, w, st) in enumerate(cases):
         out[f"hd{hd}/{dt}/{w}/{'state' if st else 'none'}"] = k5_bwd_case(
@@ -3456,20 +3480,34 @@ def k5_bwd_checks(dev) -> dict:
     return out
 
 
-def k5_bwd_profile(dev) -> list:
-    """[[(kernel, us)] per call]: K5's backward at the train_rwkv path's
-    shape (bf16 views, the model's decays), K4_BWD_PROFILED_CALLS calls,
-    each profiled alone."""
-    import torch
-
+def k5_bwd_profile(dev) -> dict:
+    """{"hd<hd>/<shape>": [[(kernel, us)] per call]}: K5's backward at each
+    head dim on each of K5_BWD_TOKENS (``k5_bwd_timed_inputs``),
+    K4_BWD_PROFILED_CALLS calls, each profiled alone."""
     from repro_torch.kernels import wkv6 as wk
 
-    xs, u, _, dout, _ = k5_bwd_inputs(dev, TRAIN_B, TRAIN_S, torch.bfloat16,
-                                      "model", False, seed=21)
-    wk.wkv6_bwd(*xs, u, None, dout)
-    return [[[short_name(n_), us] for n_, us in kernel_names(device_kernels(
-        lambda: wk.wkv6_bwd(*xs, u, None, dout))[0])]
-        for _ in range(K4_BWD_PROFILED_CALLS)]
+    out = {}
+    for hd in (64, *K5_BWD_MORE_HDS):
+        for key in K5_BWD_TOKENS:
+            xs, u, _, dout, _ = k5_bwd_timed_inputs(dev, hd, key)
+            wk.wkv6_bwd(*xs, u, None, dout)
+            out[f"hd{hd}/{key}"] = [
+                [[short_name(n_), us] for n_, us in kernel_names(
+                    device_kernels(lambda: wk.wkv6_bwd(*xs, u, None,
+                                                       dout))[0])]
+                for _ in range(K4_BWD_PROFILED_CALLS)]
+            del xs, dout
+    return out
+
+
+def k5_bwd_timed_inputs(dev, hd: int, key: str) -> tuple:
+    """``k5_bwd_inputs`` at the timed shape ``key`` of K5_BWD_TOKENS (2
+    rows of rwkv6-3b's width in heads of ``hd``): bf16 views, the model's
+    decays, no s0 or final-state gradient (seed 21: the train shape's
+    inputs at hd 64 are those timed before)."""
+    import torch
+    return k5_bwd_inputs(dev, TRAIN_B, K5_BWD_TOKENS[key], torch.bfloat16,
+                         "model", False, seed=21, hd=hd)
 
 
 def train_rwkv_path(dev, prof: dict) -> dict:
@@ -3585,138 +3623,127 @@ def train_rwkv_path(dev, prof: dict) -> dict:
 
 
 def k5_bwd_entries(dev, cases: dict, launches: int, prof: dict) -> list:
-    """The backward's ``kernels`` entries.  The windows route at the
-    train_rwkv path's shape (TRAIN_B x TRAIN_S tokens of rwkv6-3b's heads,
-    bf16 views, the model's decays) held against its plain version
-    (``wkv6_bwd_windowed_plain``) and timed beside it; each kernel's device
-    time off the profiler in the profiling child; ``launches`` from the
-    path.  Its bound: r, k, v, dout and w read once, dr, dk, dv, dw, du and
-    ds0 written once; K5_BWD_FLOPS per state entry and token at the rate
-    of the units that now do the hd^2 work, three TF32 passes on the tensor
-    cores (the fp32 CUDA cores' bound beside it).  The walk route at its
-    checks' shape at hd 32 (K5_BWD_B x K5_BWD_S tokens, bf16 views, the
-    model's decays) beside ``wkv6_bwd_chunked_plain``, its launches those
-    of its checks, bounded on the fp32 CUDA cores."""
+    """The backward's ``kernels`` entries, one a head dim and timed shape
+    (``k5_bwd_timed_inputs``: rwkv6-3b's width on K5_BWD_TOKENS tokens a
+    row; hd 64 on the "ii" shape is the train_rwkv path's): each held
+    against its plain version (``wkv6_bwd_windowed_plain``) and timed
+    beside it; each kernel's device time off the profiler in the profiling
+    child; the walk's registers and spills (ptxas) and blocks an SM.
+    ``launches``: hd 64's from the path, every other head dim's from its
+    checks.  The bound: r, k, v, dout and w read once, dr, dk, dv, dw, du
+    and ds0 written once; K5_BWD_FLOPS per state entry and token at the
+    rate of the units that do the hd^2 work, three TF32 passes on the
+    tensor cores (the fp32 CUDA cores' bound beside it)."""
     import torch
 
     from repro_torch.kernels import wkv6 as wk
 
     if launches < 1:
         fail("K5 bwd was not launched on its path")
-    xs, u, _, dout, _ = k5_bwd_inputs(dev, TRAIN_B, TRAIN_S, torch.bfloat16,
-                                      "model", False, seed=21)
-    B, H, S, hd = xs[0].shape
-    D = H * hd
-    route = wk.bwd_route(hd)
-    got = wk.wkv6_bwd(*xs, u, None, dout)
-    want = wk.wkv6_bwd_windowed_plain(*xs, u, None, dout, None,
-                                      wk.BWD_CHUNK[hd])
-    tol = K5_BWD_TOL["bfloat16"]
-    errs = {}
-    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
-        errs[name] = (a.float() - b).abs().max().item()
-        if not errs[name] <= tol[name] * b.abs().max().item():
-            fail(f"K5 bwd at the train shape: {name} differs from the plain "
-                 f"version by {errs[name]:.3g}")
-    del want
-    torch.cuda.empty_cache()
-    ms, host_ms = time_ms(lambda: wk.wkv6_bwd(*xs, u, None, dout), 10)
-    plain_ms = time_ms(lambda: wk.wkv6_bwd_windowed_plain(
-        *xs, u, None, dout, None, wk.BWD_CHUNK[hd]), 2, warmup=1)[0]
-    torch.cuda.empty_cache()
-    # r, k, v, dout read and dr, dk, dv written in bf16; w read and dw
-    # written in f32; u, du and ds0 in f32
-    nbytes = (7 * 2 + 2 * 4) * B * S * D + 2 * 4 * H * hd + 4 * B * H * hd * hd
-    flops = K5_BWD_FLOPS * B * H * S * hd * hd
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    tc_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
-    cc_ms = flops / FP32_FLOP_PER_S * 1e3
-    b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= tc_ms else \
-        (tc_ms, "operations")
-    calls = prof["k5_bwd"]
-    split_ms = {}
-    for name in sorted({n_ for c_ in calls for n_, _ in c_}):
-        split_ms[name] = statistics.median(
-            sum(us for n_, us in c_ if n_ == name) for c_ in calls) / 1e3
-    if len(split_ms) != wk.BWD_LAUNCHES or not all(
-            K5_BWD_ROUTE_KERNEL[route].search(n_) for n_ in split_ms):
-        fail(f"K5 bwd: the profiled calls ran {split_ms}, not the "
-             f"{wk.BWD_LAUNCHES} kernels of its {route} route")
+    route = wk.bwd_route(64)
     px = ptxas_kernels(build_log(wk.BWD_TC_LIB_NAME,
                                  wk.bwd_tc_kernel_source()),
                        r"wkv6_bwd_tc_\w+?_kernel")
-    worst = max(max(c["errs"].values()) for c in cases.values()
-                if c["route"] == route)
-    print(f"time: K5 bwd [{route}] bf16 ({B}, {H}, {S}, {hd}), views, the "
-          f"model's decays: {ms:.4f} ms on the card, {host_ms:.4f} ms host "
-          f"per call (bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB at "
-          f"3.35 TB/s {bytes_ms:.4f} ms, {flops / 1e9:.2f} GFLOP in three "
-          f"TF32 passes at 495 TFLOP/s {tc_ms:.4f} ms; {b_ms / ms:.1%}; on the "
-          f"fp32 CUDA cores {cc_ms:.4f} ms, {cc_ms / ms:.1%}); by kernel "
-          f"(profiler) " + ", ".join(f"{n_} {v_:.4f} ms" for n_, v_ in
-                                     split_ms.items())
-          + f"; plain {plain_ms:.3f} ms; no PyTorch call computes it; "
-          f"launches on its path {launches} ({wk.BWD_LAUNCHES} a call); "
-          f"against the plain version here (max |diff|) "
-          + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
-          + "; ptxas " + " | ".join(px))
-    entries = [{
-        "name": f"wkv6_bwd[{route}]", "route": "cuda",
-        "source": "src/repro_torch/csrc/wkv6_bwd_tc.cu",
-        "replaces": K5_BWD_REPLACES, "launches": launches,
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "library": "no PyTorch call computes it", "host_ms": host_ms,
-        "cuda_core_bound_ms": cc_ms, "bytes": nbytes, "flops": flops,
-        "shape": [B, H, S, hd], "chunk": wk.BWD_CHUNK[hd],
-        "window": wk.BWD_WINDOW, "launches_per_call": wk.BWD_LAUNCHES,
-        "kernel_ms": split_ms, "train_shape_errors": errs,
-        "check_errors": {k: c["errs"] for k, c in cases.items()
-                         if c["route"] == route},
-        "tolerance": K5_BWD_TOL, "ptxas": px, "path": "train_rwkv"}]
-    # the walk route, which no model path takes, at its checks' shape
-    whd = max(K5_BWD_WALK_HDS)
-    xs, u, _, dout, _ = k5_bwd_inputs(dev, K5_BWD_B, K5_BWD_S,
-                                      torch.bfloat16, "model", False,
-                                      seed=22, hd=whd)
-    B, H, S, hd = xs[0].shape
-    wroute = wk.bwd_route(hd)
-    got = wk.wkv6_bwd(*xs, u, None, dout)
-    want = wk.wkv6_bwd_chunked_plain(*xs, u, None, dout, None,
-                                     wk.BWD_CHUNK[hd])
-    werrs = {n_: (a.float() - b).abs().max().item() for n_, a, b in zip(
-        ("dr", "dk", "dv", "dw", "du", "ds0"), got, want)}
-    wms, whost = time_ms(lambda: wk.wkv6_bwd(*xs, u, None, dout), 10)
-    wplain = time_ms(lambda: wk.wkv6_bwd_chunked_plain(
-        *xs, u, None, dout, None, wk.BWD_CHUNK[hd]), 2, warmup=1)[0]
-    nbytes = (7 * 2 + 2 * 4) * B * S * H * hd + 2 * 4 * H * hd \
-        + 4 * B * H * hd * hd
-    flops = K5_BWD_FLOPS * B * H * S * hd * hd
-    wb_ms, wb_by = bound(nbytes, flops)
-    wlaunches = sum(2 * wk.BWD_LAUNCHES for c in cases.values()
-                    if c["route"] == wroute)
-    wpx = ptxas_kernels(build_log(wk.BWD_LIB_NAME, wk.bwd_kernel_source()),
-                        r"wkv6_bwd_\w+?_kernel")
-    print(f"time: K5 bwd [{wroute}] bf16 ({B}, {H}, {S}, {hd}), views, the "
-          f"model's decays: {wms:.4f} ms on the card, {whost:.4f} ms host "
-          f"per call (bound {wb_ms:.4f} ms by {wb_by}: "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s; "
-          f"{wb_ms / wms:.1%}); plain {wplain:.3f} ms; launches in its "
-          f"checks {wlaunches}; against the plain version (max |diff|) "
-          + ", ".join(f"{k_} {e:.3g}" for k_, e in werrs.items())
-          + "; ptxas " + " | ".join(wpx))
-    entries.append({
-        "name": f"wkv6_bwd[{wroute}]", "route": "cuda",
-        "source": "src/repro_torch/csrc/wkv6_bwd.cu",
-        "replaces": K5_BWD_REPLACES, "launches": wlaunches,
-        "max_abs_err": max(max(c["errs"].values()) for c in cases.values()
-                           if c["route"] == wroute),
-        "ms": wms, "plain_ms": wplain, "bound_ms": wb_ms, "bound_by": wb_by,
-        "library_ms": None, "library": "no PyTorch call computes it",
-        "host_ms": whost, "bytes": nbytes, "flops": flops,
-        "shape": [B, H, S, hd], "chunk": wk.BWD_CHUNK[hd],
-        "launches_per_call": wk.BWD_LAUNCHES, "errors": werrs,
-        "ptxas": wpx, "path": "train_rwkv checks"})
+    spilled = [x for x in px if not x.endswith(" 0 B spilled")]
+    if not px or spilled:
+        fail(f"K5 bwd: ptxas reports {spilled or 'no kernel'} (every "
+             "instantiation must spill 0 B)")
+    print(f"check: K5 bwd: every instantiation of {wk.BWD_TC_LIB_NAME} "
+          f"spills 0 B (ptxas): " + " | ".join(px))
+    tol = K5_BWD_TOL["bfloat16"]
+    entries = []
+    for hd in (64, *K5_BWD_MORE_HDS):
+        blocks = wk.walk_blocks_per_sm(hd, torch.bfloat16)
+        walk_px = [x for x in px if re.match(
+            rf"wkv6_bwd_tc_(walk|cluster)_kernel<bf16,{hd}>", x)]
+        hd_cases = {k: c for k, c in cases.items() if c["hd"] == hd}
+        n_calls = launches if hd == 64 else \
+            sum(2 * wk.BWD_LAUNCHES for _ in hd_cases)
+        for key in K5_BWD_TOKENS:
+            if hd == 64 and key == "i":
+                continue                # hd 64's checks' shape: its checks
+            xs, u, _, dout, _ = k5_bwd_timed_inputs(dev, hd, key)
+            B, H, S, _ = xs[0].shape
+            D = H * hd
+            chunk = wk.BWD_CHUNK[hd]
+            got = wk.wkv6_bwd(*xs, u, None, dout)
+            want = wk.wkv6_bwd_windowed_plain(*xs, u, None, dout, None,
+                                              chunk)
+            errs = {}
+            for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                                  want):
+                errs[name] = (a.float() - b).abs().max().item()
+                if not errs[name] <= tol[name] * b.abs().max().item():
+                    fail(f"K5 bwd hd {hd} ({B}, {H}, {S}, {hd}): {name} "
+                         f"differs from the plain version by "
+                         f"{errs[name]:.3g}")
+            del got, want
+            torch.cuda.empty_cache()
+            ms, host_ms = time_ms(lambda: wk.wkv6_bwd(*xs, u, None, dout), 10)
+            plain_ms = time_ms(lambda: wk.wkv6_bwd_windowed_plain(
+                *xs, u, None, dout, None, chunk), 2, warmup=1)[0]
+            torch.cuda.empty_cache()
+            # r, k, v, dout read and dr, dk, dv written in bf16; w read and
+            # dw written in f32; u, du and ds0 in f32
+            nbytes = (7 * 2 + 2 * 4) * B * S * D + 2 * 4 * H * hd \
+                + 4 * B * H * hd * hd
+            flops = K5_BWD_FLOPS * B * H * S * hd * hd
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            tc_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+            cc_ms = flops / FP32_FLOP_PER_S * 1e3
+            b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= tc_ms else \
+                (tc_ms, "operations")
+            calls = prof["k5_bwd"][f"hd{hd}/{key}"]
+            split_ms = {}
+            for name in sorted({n_ for c_ in calls for n_, _ in c_}):
+                split_ms[name] = statistics.median(
+                    sum(us for n_, us in c_ if n_ == name) for c_ in calls) \
+                    / 1e3
+            if len(split_ms) != wk.BWD_LAUNCHES or not all(
+                    K5_BWD_ROUTE_KERNEL[route].search(n_) for n_ in split_ms):
+                fail(f"K5 bwd hd {hd}: the profiled calls ran {split_ms}, "
+                     f"not the {wk.BWD_LAUNCHES} kernels of its {route} "
+                     "route")
+            worst = max(max(c["errs"].values()) for c in hd_cases.values())
+            where = "the train_rwkv path" if hd == 64 else \
+                f"its {len(hd_cases)} checks' calls"
+            print(f"time: K5 bwd [{route}] bf16 ({B}, {H}, {S}, {hd}), "
+                  f"views, the model's decays, chunks of {chunk}"
+                  + (f" over a cluster of {wk.BWD_RANKS[hd]} CTAs"
+                     if wk.BWD_RANKS[hd] > 1 else "")
+                  + f": {ms:.4f} ms on the card, {host_ms:.4f} ms host per "
+                  f"call (bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} "
+                  f"MB at 3.35 TB/s {bytes_ms:.4f} ms, {flops / 1e9:.2f} "
+                  f"GFLOP in three TF32 passes at 495 TFLOP/s {tc_ms:.4f} "
+                  f"ms; {b_ms / ms:.1%}; on the fp32 CUDA cores "
+                  f"{cc_ms:.4f} ms, {cc_ms / ms:.1%}); by kernel (profiler) "
+                  + ", ".join(f"{n_} {v_:.4f} ms" for n_, v_ in
+                              split_ms.items())
+                  + f"; plain {plain_ms:.3f} ms; no PyTorch call computes "
+                  f"it; launches on {where} {n_calls} ({wk.BWD_LAUNCHES} a "
+                  f"call); against the plain version here (max |diff|) "
+                  + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+                  + f"; the walk {blocks} block(s) an SM; ptxas "
+                  + " | ".join(walk_px))
+            entries.append({
+                "name": f"wkv6_bwd[{route}]" + ("" if hd == 64 else
+                                                f"[hd {hd}, {key}]"),
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/wkv6_bwd_tc.cu",
+                "replaces": K5_BWD_REPLACES, "launches": n_calls,
+                "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library": "no PyTorch call computes it", "host_ms": host_ms,
+                "cuda_core_bound_ms": cc_ms, "bytes": nbytes, "flops": flops,
+                "shape": [B, H, S, hd], "chunk": chunk,
+                "window": wk.BWD_WINDOW, "ranks": wk.BWD_RANKS[hd],
+                "launches_per_call": wk.BWD_LAUNCHES,
+                "kernel_ms": split_ms, "timed_shape_errors": errs,
+                "check_errors": {k: c["errs"] for k, c in hd_cases.items()},
+                "tolerance": K5_BWD_TOL, "ptxas": px,
+                "walk_blocks_per_sm": blocks,
+                "path": "train_rwkv" if hd == 64 else "train_rwkv checks"})
+            del xs, dout
     return entries
 
 
@@ -4461,7 +4488,6 @@ def main() -> int:
     from repro_torch.kernels import wkv6 as wk
     sources = {sp.LIB_NAME: sp.kernel_source(), **fa.kernel_sources(),
                wk.LIB_NAME: wk.kernel_source(),
-               wk.BWD_LIB_NAME: wk.bwd_kernel_source(),
                wk.BWD_TC_LIB_NAME: wk.bwd_tc_kernel_source()}
     for k in ([s[1] for s in streamed.values()]
               + [w[1] for w in whole.values()]

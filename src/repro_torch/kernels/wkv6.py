@@ -29,13 +29,14 @@ phases in PyTorch, and the wrapper runs it for tensors on the CPU.
 The gradient: where grad is enabled and r, k, v, w, u or s0 requires grad,
 ``wkv6_state`` runs as a ``torch.autograd.Function`` (``_WKV``) on either
 device.  Its forward is the kernels above; its backward is ``wkv6_bwd``,
-four launches on the card by one of two routes (``bwd_route``):
-``"windows"`` at hd 64 (rwkv6-3b), ``csrc/wkv6_bwd_tc.cu``, whose chunks are
-cut into windows of ``BWD_WINDOW`` tokens with the products across a window
-on the tensor cores, and ``"walk"`` at hd 16, 32 and 128,
-``csrc/wkv6_bwd.cu``, which walks every token on the CUDA cores.  On the CPU
-each route runs its plain version: ``wkv6_bwd_windowed_plain`` and
-``wkv6_bwd_chunked_plain``.  The JAX package has no Pallas backward for K5:
+four launches on the card of its one route (``bwd_route``: ``"windows"``)
+at every head dim, ``csrc/wkv6_bwd_tc.cu``, whose chunks are cut into
+windows of ``BWD_WINDOW`` tokens with the products across a window on the
+tensor cores (at hd 128 a cluster of ``BWD_RANKS[128]`` CTAs splits the
+state's columns).  On the CPU it runs its plain version,
+``wkv6_bwd_windowed_plain``; ``wkv6_bwd_chunked_plain``, the per-token
+walk over the same chunks, is the oracle of its schedule in the tests.
+The JAX package has no Pallas backward for K5:
 it differentiates the chunk form (``repro.models.layers._wkv_chunk``) with
 ``jax.grad``.  The backward walks the reverse recurrence dS_t = diag(w_t)
 dS_{t+1} + r_t^T do_t in chunks of ``BWD_CHUNK[hd]`` tokens and needs the
@@ -69,29 +70,28 @@ from .. import _cuda
 
 SOURCE = _cuda.CSRC_DIR / "wkv6.cu"
 LIB_NAME = "wkv6"
-BWD_SOURCE = _cuda.CSRC_DIR / "wkv6_bwd.cu"
-BWD_LIB_NAME = "wkv6_bwd"
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
 CHUNK = 64                      # tokens per chunk of the sequence form
 SEQUENCE_LAUNCHES = 3           # launches per call of the sequence form
-# the backward's chunk by head dim (the walk route keeps the states of a
-# chunk's segment starts in shared memory: 1 of 64 KB at hd 128; the windows
-# route at hd 64 four window starts), and its launches per call
+# the backward's chunk by head dim (the windows route holds three window
+# starts of a 64-token chunk at hd <= 64; at hd 128 a window start of a
+# 32-token chunk), the CTAs of a cluster that split the state's columns
+# between them (their partial sums over the columns added rank 0 first),
+# and its launches per call
 BWD_CHUNK = {16: 64, 32: 64, 64: 64, 128: 32}
+BWD_RANKS = {16: 1, 32: 1, 64: 1, 128: 2}
 BWD_LAUNCHES = 4
-# the "windows" route: its head dims and the tokens of a window
-WINDOW_HEAD_DIMS = (64,)
+# the tokens of a window of the backward's chunks
 BWD_WINDOW = 16
 BWD_TC_SOURCE = _cuda.CSRC_DIR / "wkv6_bwd_tc.cu"
 BWD_TC_LIB_NAME = "wkv6_bwd_tc"
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
-_BWD_ENTRY = {torch.float32: "wkv6_bwd_f32", torch.bfloat16: "wkv6_bwd_bf16"}
 _BWD_TC_ENTRY = {torch.float32: "wkv6_bwd_tc_f32",
                  torch.bfloat16: "wkv6_bwd_tc_bf16"}
 
 # launches by form: "step" (S == 1, the decode step), "sequence" (S > 1,
-# three per call), "bwd" (the backward's "walk" route, four per call) and
-# "bwd_windows" (its "windows" route, four per call), counted at the launch
+# three per call) and "bwd_windows" (the backward, four per call), counted
+# at the launch
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -108,34 +108,39 @@ def _launcher(dtype: torch.dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_kernel_source() -> str:
-    return BWD_SOURCE.read_text()
-
-
-@functools.lru_cache(maxsize=None)
 def bwd_tc_kernel_source() -> str:
     return BWD_TC_SOURCE.read_text()
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_launcher(dtype: torch.dtype, route: str = "walk"):
-    name, src, entries = (BWD_LIB_NAME, bwd_kernel_source(), _BWD_ENTRY) \
-        if route == "walk" else (BWD_TC_LIB_NAME, bwd_tc_kernel_source(),
-                                 _BWD_TC_ENTRY)
-    lib = _cuda.load(name, src)
-    return lib, _cuda.entry(lib, entries[dtype], [ctypes.c_void_p] * 19
+def _bwd_launcher(dtype: torch.dtype):
+    lib = _cuda.load(BWD_TC_LIB_NAME, bwd_tc_kernel_source())
+    return lib, _cuda.entry(lib, _BWD_TC_ENTRY[dtype], [ctypes.c_void_p] * 19
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
+def walk_blocks_per_sm(hd: int, dtype: torch.dtype) -> int:
+    """The backward's walk (launch 3): its blocks an SM at head dim ``hd``
+    as its registers and shared memory allow (CUDA's occupancy calculator,
+    on the card)."""
+    lib, _ = _bwd_launcher(dtype)
+    fn = _cuda.entry(lib, "wkv6_bwd_tc_walk_blocks",
+                     [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    _cuda.check(lib, fn(hd, int(dtype == torch.bfloat16), ctypes.byref(n)),
+                "wkv6 backward: the walk's blocks an SM")
+    return n.value
+
+
 def bwd_route(hd: int) -> str:
-    """Which backward runs a call on the card: ``"windows"`` at the head
-    dims of ``WINDOW_HEAD_DIMS`` (``csrc/wkv6_bwd_tc.cu``), else ``"walk"``
-    (``csrc/wkv6_bwd.cu``)."""
-    return "windows" if hd in WINDOW_HEAD_DIMS else "walk"
+    """Which backward runs a call on the card: ``"windows"``
+    (``csrc/wkv6_bwd_tc.cu``) at every head dim of ``BWD_CHUNK``."""
+    return "windows"
 
 
 # the LAUNCHES key each backward route counts under
-BWD_COUNT = {"walk": "bwd", "windows": "bwd_windows"}
+BWD_COUNT = {"windows": "bwd_windows"}
 
 
 def wkv6_plain(r, k, v, w, u, s0=None):
@@ -196,7 +201,8 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, chunk: int = CHUNK):
 
 
 def _bwd_chunk_bounds(r, k, v, w, s0, dout, ds_fin, chunk: int):
-    """Phases 1-2 of both backward routes, f32: the inputs cut into chunks
+    """Phases 1-2 of the backward's schedule and of its per-token oracle,
+    f32: the inputs cut into chunks
     of ``chunk`` tokens (B, H, nc, C, hd), a ragged last chunk padded as the
     forward pads it; (1) every chunk's state contribution from zero L_c, its
     decay product P_c and its reverse contribution G_c = sum_t diag(prod_{m<t}
@@ -244,7 +250,8 @@ def _bwd_chunk_bounds(r, k, v, w, s0, dout, ds_fin, chunk: int):
 
 def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
                            chunk: int = CHUNK):
-    """The "walk" backward's schedule in PyTorch, f32: the gradients of
+    """The per-token walk over the backward's chunks in PyTorch, f32 (the
+    oracle the tests hold the windowed schedule to): the gradients of
     ``wkv6_plain``'s (out, final state) given ``dout`` (B, H, S, hd) and
     ``ds_fin`` (B, H, hd, hd, or None for none).  Phases 1-2 as
     ``_bwd_chunk_bounds``; (3) every chunk's states rebuilt forward from
@@ -286,7 +293,8 @@ def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin=None,
 
 
 def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
-                            chunk: int = CHUNK, window: int = BWD_WINDOW):
+                            chunk: int = CHUNK, window: int = BWD_WINDOW, *,
+                            lose_rank: Optional[int] = None):
     """The "windows" backward's schedule in PyTorch, f32: the gradients of
     ``wkv6_bwd_chunked_plain``, with phases 1-2 as ``_bwd_chunk_bounds`` and
     each chunk cut into windows [a, e) of ``window`` tokens.  Within a
@@ -304,12 +312,33 @@ def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
     dw_t = B_t Ge_t + sum_{s>t} D(t,s) r_s Sdo_t(s),
     dv_t = Pv_t + sum_{s>=t} q_ts do_s, q_ts = sum_i D(t,s) r_s k_t (q_tt =
     sum_i u r_t k_t).  Nothing divides: every factor is a product of
-    decays.  ``chunk`` a multiple of ``window``.  Returns as
+    decays.  ``chunk`` a multiple of ``window``.
+
+    Where ``BWD_RANKS[hd]`` CTAs split the state's columns on the card, the
+    sums over the columns (Qr, Pk, c, Rs) and q's over the rows are summed
+    as the card sums them: one partial a rank's block of hd / ranks, rank
+    0's first.  ``lose_rank``: that rank's partials left out (a gradient
+    the checks' limits must reject).  Returns as
     ``wkv6_bwd_chunked_plain``."""
     if chunk % window:
         raise ValueError(f"wkv6 backward: chunk {chunk} is not a multiple "
                          f"of the window {window}")
     B, H, S, hd = r.shape
+    ranks = BWD_RANKS.get(hd, 1)
+    if lose_rank is not None and (ranks == 1 or not 0 <= lose_rank < ranks):
+        raise ValueError(f"wkv6 backward: no rank {lose_rank} to lose at hd "
+                         f"{hd} ({ranks} rank(s))")
+    blk = hd // ranks
+
+    def ranked(part):
+        """The sum over the ranks of ``part(their block)``, rank 0's
+        first."""
+        parts = [part(slice(q * blk, (q + 1) * blk)) for q in range(ranks)
+                 if q != lose_rank]
+        out = parts[0]
+        for x in parts[1:]:
+            out = out + x
+        return out
     rc, kc, vc, wc, dc, starts, ends, ds0 = _bwd_chunk_bounds(
         r, k, v, w, s0, dout, ds_fin, chunk)
     nc, nw, W = rc.shape[2], chunk // window, window
@@ -337,11 +366,11 @@ def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
                    + RA[..., x, :, :].mT @ dw_[..., x, :, :])
     Sa, dSe = torch.stack(Sa, dim=3), torch.stack(dSe, dim=3)
     # the products across each window
-    Qr = dw_ @ Sa.mT                                         # (.., W, hd)
-    Pk = vw @ dSe.mT
+    Qr = ranked(lambda j: dw_[..., j] @ Sa[..., j].mT)       # (.., W, hd)
+    Pk = ranked(lambda j: vw[..., j] @ dSe[..., j].mT)
     Pv = KB @ dSe
-    c = vw @ dw_.mT                                          # (.., W, W)
-    Ge = (dSe * Sa).sum(-1)
+    c = ranked(lambda j: vw[..., j] @ dw_[..., j].mT)        # (.., W, W)
+    Ge = ranked(lambda j: (dSe[..., j] * Sa[..., j]).sum(-1))
     # token by token within the window
     uf = u.float()[:, None, None, :]                         # (H,1,1,hd)
     Sdo = Qr.clone()
@@ -353,7 +382,7 @@ def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
         dr[..., t, :] = Sdo[..., t, :] + uf * kt * ctt
         dk[..., t, :] = Bs[..., t, :] * Pk[..., t, :] + uf * rt * ctt
         dw[..., t, :] = Bs[..., t, :] * Ge
-        Qm[..., t, t] = (uf * rt * kt).sum(-1)
+        Qm[..., t, t] = ranked(lambda i: (uf * rt * kt)[..., i].sum(-1))
         if t + 1 < W:
             # D(t, s) for s = t+1 .. W-1: 1, then running products of w
             D = torch.cat([torch.ones_like(wt[..., None, :]), torch.cumprod(
@@ -361,7 +390,8 @@ def wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin=None,
             Z = D * rw[..., t + 1:, :]
             dk[..., t, :] += (Z * c[..., t, t + 1:, None]).sum(-2)
             dw[..., t, :] += (Z * Sdo[..., t + 1:, :]).sum(-2)
-            Qm[..., t, t + 1:] = (Z * kt[..., None, :]).sum(-1)
+            Qm[..., t, t + 1:] = ranked(
+                lambda i: (Z[..., i] * kt[..., None, i]).sum(-1))
             Sdo[..., t + 1:, :] = wt[..., None, :] * Sdo[..., t + 1:, :] \
                 + kt[..., None, :] * c[..., t, t + 1:, None]
         Ge = wt * Ge + kt * Pk[..., t, :]
@@ -518,13 +548,13 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
     from fp32), dw, du, ds0 in float32; dr, dk, dv and dw take the memory
     layout of their inputs (``torch.empty_like``), so the gradient of a
     layer's (B, H, S, hd) view is a view of a (B, S, D) tensor.  On the card
-    the kernel of ``bwd_route(hd)`` in ``BWD_LAUNCHES`` launches (chunks of
-    ``BWD_CHUNK[hd]``), counted under ``BWD_COUNT[route]``; on the CPU that
-    route's plain version on the same chunks (and windows).  A head dim the
-    kernels are not built for raises."""
+    the kernel (``csrc/wkv6_bwd_tc.cu``) in ``BWD_LAUNCHES`` launches (chunks
+    of ``BWD_CHUNK[hd]``), counted under ``BWD_COUNT["windows"]``; on the
+    CPU its plain version, ``wkv6_bwd_windowed_plain``, on the same chunks
+    and windows.  A head dim the kernels are not built for raises."""
     B, H, S, hd = r.shape
     dtype = r.dtype
-    if hd not in BWD_CHUNK or dtype not in _BWD_ENTRY:
+    if hd not in BWD_CHUNK or dtype not in _BWD_TC_ENTRY:
         raise NotImplementedError(
             f"wkv6 backward: no kernel for hd={hd}, {dtype}; the backward "
             f"kernel is built for hd in {tuple(BWD_CHUNK)}, float32 and "
@@ -534,21 +564,19 @@ def wkv6_bwd(r, k, v, w, u, s0, dout, ds_fin=None):
 
 def _bwd_plain(r, k, v, w, u, s0, dout, ds_fin):
     """The backward operator's CPU implementation: the plain version of
-    ``bwd_route``, its gradients in the kernels' dtypes and layouts."""
-    route, chunk = bwd_route(r.shape[3]), BWD_CHUNK[r.shape[3]]
+    the kernels' schedule, its gradients in the kernels' dtypes and
+    layouts."""
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dw = torch.empty_like(w)
-    got = wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin, chunk) \
-        if route == "windows" else \
-        wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dout, ds_fin, chunk)
+    got = wkv6_bwd_windowed_plain(r, k, v, w, u, s0, dout, ds_fin,
+                                  BWD_CHUNK[r.shape[3]])
     for t, g in zip((dr, dk, dv, dw), got):
         t.copy_(g)
     return dr, dk, dv, dw, got[4], got[5]
 
 
 def _bwd_launch(r, k, v, w, u, s0, dout, ds_fin):
-    """The backward operator's CUDA implementation: the four launches of
-    ``bwd_route``."""
+    """The backward operator's CUDA implementation: its four launches."""
     B, H, S, hd = r.shape
     dtype = r.dtype
     route = bwd_route(hd)
@@ -572,7 +600,7 @@ def _bwd_launch(r, k, v, w, u, s0, dout, ds_fin):
         (r, "r"), (k, "k"), (v, "v"), (w, "w"), (dout, "dout"), (dr, "dr"),
         (dk, "dk"), (dv, "dv"), (dw, "dw"))]
     st = (ctypes.c_longlong * 27)(*(s for t in strides for s in t))
-    lib, launch = _bwd_launcher(dtype, route)
+    lib, launch = _bwd_launcher(dtype)
     with torch.cuda.device(dev):
         rc = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), None if s0 is None else s0.data_ptr(),

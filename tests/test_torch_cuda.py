@@ -1745,7 +1745,7 @@ def test_gradients_that_no_kernel_takes_raise(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# K5's backward (csrc/wkv6_bwd.cu) through the autograd Function
+# K5's backward (csrc/wkv6_bwd_tc.cu) through the autograd Function
 # ---------------------------------------------------------------------------
 
 
@@ -1788,7 +1788,8 @@ def test_wkv6_bwd_kernel_equals_plain(cuda_device, hd, S, chunk, w,
     without s0 and a final-state cotangent; r, k, v and w bf16 views of (B,
     S, D) in bf16; every gradient finite; a second backward bitwise the
     first; the backward's four launches a call, counted under its route
-    (``wkv6.bwd_route``: hd 64 the windows kernel, else the walk)."""
+    (``wkv6.bwd_route``: the windows kernel at every head dim, at hd 128 on
+    a cluster of two CTAs that split the state's columns)."""
     from repro_torch.kernels import wkv6 as wk
     dt = getattr(torch, dtype)
     leaves, u, s0, dout, ds = _wkv6_grad_inputs(
@@ -1825,18 +1826,20 @@ def test_wkv6_bwd_kernel_equals_plain(cuda_device, hd, S, chunk, w,
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("w", [0.1, 1e-3, 1.0, "model"])
 @pytest.mark.parametrize("S", [1, 15, 63, 64, 200, 1024])
-def test_wkv6_bwd_windows_kernel_equals_its_plain(cuda_device, S, w,
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_bwd_windows_kernel_equals_its_plain(cuda_device, hd, S, w,
                                                   with_state, dtype):
-    """The windows route's kernel (``csrc/wkv6_bwd_tc.cu``, hd 64) called
-    directly on (B, H, S, 64) views of (B, S, D) tensors equals
-    ``wkv6_bwd_windowed_plain`` on the same inputs, each gradient within
-    2e-4 of its largest entry (bf16 dr, dk, dv, rounded once, within 1e-2),
-    with and without s0 and a final-state cotangent, at decays 0.1, 1e-3, 1
-    and the time mix's; every gradient finite; a second call bitwise the
-    first; its four launches counted under "bwd_windows"."""
+    """The windows route's kernel (``csrc/wkv6_bwd_tc.cu``; at hd 128 a
+    cluster of two CTAs) called directly on (B, H, S, hd) views of (B, S,
+    D) tensors equals ``wkv6_bwd_windowed_plain`` on the same chunks, each
+    gradient within 2e-4 of its largest entry (bf16 dr, dk, dv, rounded
+    once, within 1e-2), with and without s0 and a final-state cotangent, at
+    decays 0.1, 1e-3, 1 and the time mix's; every gradient finite; a second
+    call bitwise the first; its four launches counted under
+    "bwd_windows"."""
     from repro_torch.kernels import wkv6 as wk
     dt = getattr(torch, dtype)
-    B, H, hd = 2, 3, 64
+    B, H = 2, 3
     g = torch.Generator(device=cuda_device).manual_seed(S + 7)
 
     def heads(x):
@@ -1856,7 +1859,8 @@ def test_wkv6_bwd_windows_kernel_equals_its_plain(cuda_device, S, w,
     again = wk.wkv6_bwd(r, k, v, ww, u, s0, dout, ds)
     torch.cuda.synchronize()
     assert dict(wk.LAUNCHES) == {"bwd_windows": 2 * wk.BWD_LAUNCHES}
-    want = wk.wkv6_bwd_windowed_plain(r, k, v, ww, u, s0, dout, ds)
+    want = wk.wkv6_bwd_windowed_plain(r, k, v, ww, u, s0, dout, ds,
+                                      wk.BWD_CHUNK[hd])
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
     for name, a, b, c in zip(names, got, again, want):
         assert torch.equal(a, b), name
@@ -1869,15 +1873,16 @@ def test_wkv6_bwd_windows_kernel_equals_its_plain(cuda_device, S, w,
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_wkv6_bwd_windows_kernel_reads_rows_element_by_element(cuda_device,
-                                                               dtype):
+                                                               hd, dtype):
     """Rows the kernel cannot load 4 elements at a time (a token stride of
-    65 elements) and a ragged last chunk: the same gradients as the plain
-    version."""
+    hd + 1 elements) and a ragged last chunk: the same gradients as the
+    plain version."""
     from repro_torch.kernels import wkv6 as wk
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(5)
-    B, H, S, hd = 1, 2, 100, 64
+    B, H, S = 1, 2, 100
     r, k, v, dout = (torch.randn((B, H, S, hd + 1), generator=g,
                                  device=cuda_device).to(dt)[..., :hd]
                      for _ in range(4))
@@ -1886,7 +1891,8 @@ def test_wkv6_bwd_windows_kernel_reads_rows_element_by_element(cuda_device,
     u = torch.randn((H, hd), generator=g, device=cuda_device) * 0.1
     s0 = torch.randn((B, H, hd, hd), generator=g, device=cuda_device)
     got = wk.wkv6_bwd(r, k, v, ww, u, s0, dout)
-    want = wk.wkv6_bwd_windowed_plain(r, k, v, ww, u, s0, dout)
+    want = wk.wkv6_bwd_windowed_plain(r, k, v, ww, u, s0, dout, None,
+                                      wk.BWD_CHUNK[hd])
     for name, a, c in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
         tol = 1e-2 if dt == torch.bfloat16 and name in ("dr", "dk", "dv") \
             else 2e-4

@@ -32,6 +32,19 @@ BF16_TOL = 1e-2
 NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain versions and the float64 oracle walk the tokens in many
+    small PyTorch ops: run them on one thread, so that a test worker
+    beside others never waits on intra-op threads that another worker's
+    load has descheduled (with 6 workers on 8 cores that made this
+    module's tests ~40x slower than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _port_fault_free():
     from repro_torch.core import faults

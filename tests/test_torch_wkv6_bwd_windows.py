@@ -1,11 +1,14 @@
 """K5's backward on its "windows" route, on the CPU: the plain version of
 the route's schedule (``wkv6_bwd_windowed_plain``: chunks cut into windows,
 the products across each window, the running products and recurrences
-within it) and the autograd Function (``_WKV``) at hd 64, which runs it
-for CPU tensors, against ``jax.vjp`` of the JAX package's sequential oracle
-(``repro.kernels.ref.wkv6_ref``) and of its model's chunk form
-(``repro.models.layers._wkv_chunk``, carried state included), and at every
-decay against autograd of the port's per-token recurrence in float64.
+within it; at hd 128 the sums over the state's columns and q's over its
+rows taken as partials of two halves, as a cluster of two CTAs takes them
+on the card) and the autograd Function (``_WKV``), which runs it for CPU
+tensors at every head dim, against ``jax.vjp`` of the JAX package's
+sequential oracle (``repro.kernels.ref.wkv6_ref``) and of its model's
+chunk form (``repro.models.layers._wkv_chunk``, carried state included),
+and at every decay against autograd of the port's per-token recurrence in
+float64.
 
 Inputs are made with numpy from a seed and go to both packages.  A
 gradient agrees when its largest error is within 2e-4 (the suite's wkv6
@@ -29,6 +32,19 @@ from repro_torch.kernels import wkv6 as wk
 TOL = 2e-4
 NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
 DECAYS = [None, 0.1, 1e-3, 1.0, "model"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain versions and the float64 oracle walk the tokens in many
+    small PyTorch ops: run them on one thread, so that a test worker
+    beside others never waits on intra-op threads that another worker's
+    load has descheduled (with 6 workers on 8 cores that made this
+    module's tests ~40x slower than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -109,13 +125,14 @@ def _f64_grads(r, k, v, ww, u, s0, dout, ds):
 
 @pytest.mark.parametrize("hd", wk.HEAD_DIMS)
 def test_bwd_route_takes_hd_64_through_the_windows(hd):
-    """rwkv6-3b's hd 64 runs the windows route, each other head dim the
-    walk; each route counts its launches under its own key."""
-    assert wk.bwd_route(hd) == ("windows" if hd == 64 else "walk")
-    assert wk.BWD_COUNT[wk.bwd_route(hd)] == (
-        "bwd_windows" if hd == 64 else "bwd")
-    if hd in wk.WINDOW_HEAD_DIMS:
-        assert wk.BWD_CHUNK[hd] % wk.BWD_WINDOW == 0
+    """Every head dim the kernels take, rwkv6-3b's hd 64 among them, runs
+    the windows route, counted under "bwd_windows", on chunks of whole
+    windows whose columns split evenly over the route's ranks."""
+    assert wk.bwd_route(hd) == "windows"
+    assert wk.BWD_COUNT == {"windows": "bwd_windows"}
+    assert wk.BWD_CHUNK[hd] % wk.BWD_WINDOW == 0
+    assert hd % (16 * wk.BWD_RANKS[hd]) == 0
+    assert wk.BWD_RANKS[hd] == (2 if hd == 128 else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -125,17 +142,19 @@ def test_bwd_route_takes_hd_64_through_the_windows(hd):
 @pytest.mark.parametrize("with_ds", [False, True])
 @pytest.mark.parametrize("w", DECAYS)
 @pytest.mark.parametrize("S", [1, 63, 64, 200])
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_windowed_plain_matches_jax_vjp(hd, S, w, with_ds):
-    """``wkv6_bwd_windowed_plain`` (chunks of 64, windows of 16; ragged last
-    chunks and windows) against ``jax.vjp`` of the sequential oracle, with a
-    cotangent on the output and, or not, on the final state."""
+    """``wkv6_bwd_windowed_plain`` (the kernel's chunks, ``BWD_CHUNK[hd]``,
+    windows of 16; ragged last chunks and windows) against ``jax.vjp`` of
+    the sequential oracle, with a cotangent on the output and, or not, on
+    the final state."""
     r, k, v, ww, u, _, dout, ds = _case(2, 3, S, hd, seed=3 * S + hd, w=w)
     if not with_ds:
         ds = np.zeros_like(ds)
     want = _jax_grads(r, k, v, ww, u, dout, ds)
     got = wk.wkv6_bwd_windowed_plain(
-        *_t(r, k, v, ww, u, None, dout, ds if with_ds else None))
+        *_t(r, k, v, ww, u, None, dout, ds if with_ds else None),
+        chunk=wk.BWD_CHUNK[hd])
     for name, g, x in zip(NAMES, got, want):
         assert torch.isfinite(g).all(), name
         _close(g.numpy(), x, msg=name)
@@ -143,14 +162,14 @@ def test_windowed_plain_matches_jax_vjp(hd, S, w, with_ds):
 
 @pytest.mark.parametrize("w", DECAYS)
 @pytest.mark.parametrize("S", [1, 63, 64, 200])
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_windowed_plain_with_state_matches_float64_autograd(hd, S, w):
     """With s0 and ds_fin, at every decay (R3: the reference's chunk form
     overflows at 0.1 and 1e-3): every gradient, ds0 included, against
     autograd of the per-token recurrence in float64."""
     case = _case(1, 2, S, hd, seed=5 * S + hd, w=w)
     want = _f64_grads(*case)
-    got = wk.wkv6_bwd_windowed_plain(*_t(*case))
+    got = wk.wkv6_bwd_windowed_plain(*_t(*case), chunk=wk.BWD_CHUNK[hd])
     for name, g, x in zip(NAMES, got, want):
         assert torch.isfinite(g).all(), name
         _close(g.numpy(), x, msg=name)
@@ -240,7 +259,7 @@ def test_every_gradient_is_finite_at_the_strongest_decay_and_at_zero():
 
 
 # ---------------------------------------------------------------------------
-# the Function at hd 64 runs the windows route
+# the Function runs the windows route
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("w", [None, 1e-3, "model"])
@@ -267,16 +286,61 @@ def test_function_at_hd_64_runs_the_windowed_plain(S, w, monkeypatch):
         _close(g.numpy(), x, msg=name)
 
 
-def test_function_at_hd_16_keeps_the_walk(monkeypatch):
-    """hd 16 stays on the walk route: its CPU backward is the chunked
-    plain version."""
+@pytest.mark.parametrize("hd", [16, 32, 128])
+def test_function_at_other_head_dims_runs_the_windows(hd, monkeypatch):
+    """hd 16, 32 and 128 take the windows route too: the Function's CPU
+    backward is the windowed plain version on ``BWD_CHUNK[hd]`` tokens a
+    chunk, never the per-token walk's, and its gradients equal ``jax.vjp``
+    of the oracle."""
+    calls = []
+    real = wk.wkv6_bwd_windowed_plain
+
+    def spy(*a, **kw):
+        calls.append((a[0].shape, a[8] if len(a) > 8 else kw.get("chunk")))
+        return real(*a, **kw)
+
     def refuse(*a, **kw):
-        raise AssertionError("the windows route ran at hd 16")
-    monkeypatch.setattr(wk, "wkv6_bwd_windowed_plain", refuse)
-    r, k, v, ww, u, _, dout, ds = _case(1, 2, 40, 16, seed=4)
+        raise AssertionError(f"the per-token walk's schedule ran at hd {hd}")
+    monkeypatch.setattr(wk, "wkv6_bwd_windowed_plain", spy)
+    monkeypatch.setattr(wk, "wkv6_bwd_chunked_plain", refuse)
+    r, k, v, ww, u, _, dout, ds = _case(1, 2, 40, hd, seed=4)
     xs = [t.requires_grad_() for t in _t(r, k, v, ww, u)]
     out, s_fin = wk.wkv6_state(*xs)
     got = torch.autograd.grad([out, s_fin], xs,
                               [torch.from_numpy(dout), torch.from_numpy(ds)])
+    assert calls == [((1, 2, 40, hd), wk.BWD_CHUNK[hd])]
     for name, g, x in zip(NAMES, got, _jax_grads(r, k, v, ww, u, dout, ds)):
         _close(g.numpy(), x, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# hd 128: the sums over the state's columns in two ranks' partials
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w", [0.1, 1e-3, 1.0, "model"])
+@pytest.mark.parametrize("S", [33, 200])
+def test_rank_partials_equal_the_whole_rows(S, w, monkeypatch):
+    """At hd 128 the windowed plain version sums Qr, Pk, c, rowsum(dS_e *
+    S_a) and q as two ranks' partials, rank 0's first (``BWD_RANKS``), as
+    the card's cluster does: the same gradients as the sums over whole rows
+    within f32 rounding (1e-5 of each largest entry)."""
+    case = _t(*_case(1, 2, S, 128, seed=S + 17, w=w))
+    got = wk.wkv6_bwd_windowed_plain(*case, chunk=wk.BWD_CHUNK[128])
+    monkeypatch.setitem(wk.BWD_RANKS, 128, 1)
+    want = wk.wkv6_bwd_windowed_plain(*case, chunk=wk.BWD_CHUNK[128])
+    for name, g, x in zip(NAMES, got, want):
+        _close(g.numpy(), x.numpy(), tol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("lost", [0, 1])
+def test_a_lost_rank_partial_is_far_outside_the_limit(lost):
+    """``lose_rank`` leaves one rank's partials out: dr, dk, dv and dw move
+    far beyond the 2e-4 limit the checks hold the card to (so a kernel that
+    lost a partial fails them); a head dim without ranks refuses it."""
+    case = _t(*_case(1, 2, 64, 128, seed=23, w="model"))
+    want = wk.wkv6_bwd_windowed_plain(*case, chunk=32)
+    got = wk.wkv6_bwd_windowed_plain(*case, chunk=32, lose_rank=lost)
+    for name, g, x in list(zip(NAMES, got, want))[:4]:
+        assert (g - x).abs().max() > 100 * TOL * x.abs().max(), name
+    with pytest.raises(ValueError, match="rank"):
+        wk.wkv6_bwd_windowed_plain(*_t(*_case(1, 1, 8, 64)), lose_rank=0)

@@ -52,11 +52,13 @@ precision):
   of ``scaled_dot_product_attention`` and the plain version
   (``flash_attention_bwd_plain`` at the route's tiles) at the same shape
   in the same turn;
-* K5's backward (``wkv6_bwd``) at the train_rwkv path's shape, rwkv6-3b's
-  (2, 40, 2048, 64) as bf16 views of (B, S, D) tensors at the time mix's
-  decays, on the tree's own route (a tree without ``bwd_route`` walks
-  every token on the CUDA cores): the call (CUDA events) and, from
-  torch.profiler, each device kernel's time;
+* K5's backward (``wkv6_bwd``) at hd 16, 32, 64 and 128 on rwkv6-3b's
+  width (2560 = heads x hd), 2 x 256 and 2 x 2048 tokens (the latter at
+  hd 64 the train_rwkv path's (2, 40, 2048, 64)), bf16 views of (B, S, D)
+  tensors at the time mix's decays, on the tree's own route (a tree
+  without ``bwd_route`` walks every token on the CUDA cores): the call
+  (CUDA events), from torch.profiler each device kernel's time, and
+  whether its gradients equal the parent's bit for bit;
 * the host ms a wrapper call takes (its enqueue, the least mean of 20
   calls over 15 windows, the card kept busy meanwhile) of K4's forward on
   each of its three routes and its bf16 backward, K5's sequence form, its step on the
@@ -101,6 +103,11 @@ REPLAYS = 50       # decode steps timed
 # a spin of the card that outlasts its windows
 HOST_GROUPS, HOST_PAIRS, HOST_CALLS = 10, 4, 10
 HOST_SPIN_MS = 100
+# K5's backward: head dims, rwkv6-3b's width, and tokens a row (B = 2)
+# by shape: "i" the smoke's checks', "ii" the train path's
+K5_BWD_HDS = (16, 32, 64, 128)
+K5_BWD_D = 2560
+K5_BWD_TOKENS = {"i": 256, "ii": 2048}
 # the streamed programs and their design points' block sizes at n=8
 K2_BLOCK_ROWS = {"blur_chain": 4, "conv_pool": 4, "gradient_harris": 4,
                  "correlated_chain": 4, "unsharp": 4, "harris": 8}
@@ -349,34 +356,53 @@ def measure_k4_bwd(t, dev) -> dict:
     return out
 
 
-def measure_k5_bwd(t, dev) -> dict:
-    """K5's backward at the train_rwkv path's shape: rwkv6-3b's (2, 40,
-    2048, 64), r, k, v and the output's cotangent bf16 views of (B, S, D)
-    tensors, w the time mix's exp(-exp(x - 4)) on x ~ N(0, 1)."""
+def measure_k5_bwd(t, dev, firsts: dict) -> dict:
+    """K5's backward at each of K5_BWD_HDS on rwkv6-3b's width D = 2560
+    (H = D / hd heads) at each of K5_BWD_TOKENS (B = 2): r, k, v and the
+    output's cotangent bf16 views of (B, S, D) tensors, w the time mix's
+    exp(-exp(x - 4)) on x ~ N(0, 1), on the tree's own route (a tree
+    without ``bwd_route`` walks every token on the CUDA cores).  The
+    call (CUDA events), each device kernel's time (torch.profiler) and
+    whether the gradients equal bit for bit those of the first turn that
+    ran the shape (``firsts``: the parent's, in the order parent, tree,
+    tree, parent)."""
     import torch
 
     import chip_smoke as cs
-    B, S, H, hd = 2, 2048, 40, 64
-    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for hd in K5_BWD_HDS:
+        for key, S in K5_BWD_TOKENS.items():
+            B, H = 2, K5_BWD_D // hd
+            g = torch.Generator(device=dev).manual_seed(21)
 
-    def heads(x):
-        return x.view(B, S, H, hd).transpose(1, 2)
+            def heads(x):
+                return x.view(B, S, H, hd).transpose(1, 2)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev)
-    r, k, v, dout = (heads(randn(B, S, H * hd).to(torch.bfloat16))
-                     for _ in range(4))
-    w = heads(torch.exp(-torch.exp(randn(B, S, H * hd) - 4.0)))
-    u = randn(H, hd) * 0.1
-    call = lambda: t.wk.wkv6_bwd(r, k, v, w, u, None, dout)
-    ms = cs.time_ms(call, 20)[0]
-    acts, _ = cs.device_kernels(lambda: [call() for _ in range(3)])
-    per = {}
-    for n, us in kernels(acts):
-        name = cs.short_name(n)
-        per[name] = per.get(name, 0.0) + us / 3 / 1e3
-    route = t.wk.bwd_route(hd) if hasattr(t.wk, "bwd_route") else "walk"
-    return {"k5_bwd": {"route": route, "ms": ms, "kernel_ms": per}}
+            def randn(*shape):
+                return torch.randn(shape, generator=g, device=dev)
+            r, k, v, dout = (heads(randn(B, S, H * hd).to(torch.bfloat16))
+                             for _ in range(4))
+            w = heads(torch.exp(-torch.exp(randn(B, S, H * hd) - 4.0)))
+            u = randn(H, hd) * 0.1
+
+            def call():
+                return t.wk.wkv6_bwd(r, k, v, w, u, None, dout)
+            got = call()
+            first = firsts.setdefault((hd, key), got)
+            same = all(torch.equal(a, b) for a, b in zip(got, first))
+            ms = cs.time_ms(call, 20)[0]
+            acts, _ = cs.device_kernels(lambda: [call() for _ in range(3)])
+            per = {}
+            for n, us in kernels(acts):
+                name = cs.short_name(n)
+                per[name] = per.get(name, 0.0) + us / 3 / 1e3
+            route = t.wk.bwd_route(hd) if hasattr(t.wk, "bwd_route") \
+                else "walk"
+            out[f"k5_bwd_hd{hd}_{key}"] = {
+                "route": route, "shape": [B, H, S, hd], "ms": ms,
+                "kernel_ms": per, "bitwise_first_turn": same}
+            del got, r, k, v, w, dout
+    return out
 
 
 def host_calls(t, dev) -> dict:
@@ -529,19 +555,19 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "host_ms": res}))
         return 0
     results = {"card": card, "parent": [], "tree": []}
-    models, plains = {}, {}
+    models, plains, firsts = {}, {}, {}
     for name in ("parent", "tree", "tree", "parent"):
         t = trees[name]
         sys.modules.update(t.modules)
         m = measure_k4(t, dev) if args.only == "k4" else \
             measure_k4_bwd(t, dev) if args.only == "k4_bwd" else \
-            measure_k5_bwd(t, dev) if args.only == "k5_bwd" else \
+            measure_k5_bwd(t, dev, firsts) if args.only == "k5_bwd" else \
             measure_k2(t, dev, plains) if args.only == "k2" else \
             measure_k1(t, dev)
         if args.only is None:
             m.update(measure(t, dev))
             m.update(measure_k4_bwd(t, dev))
-            m.update(measure_k5_bwd(t, dev))
+            m.update(measure_k5_bwd(t, dev, firsts))
             m["graph_step"] = graph_step(t, dev, models)
         results[name].append(m)
         print(f"{name}: " + json.dumps(m))

@@ -417,7 +417,8 @@ DRYRUN_CELLS = (("sharded", "sharded_2x2", "llama3_8b:decode_32k:single",
                 ("llama3_8b:train_4k:multi",),
                 ("llama3_8b:prefill_32k:single",
                  "llama3_8b:prefill_32k:multi"),
-                ("rwkv6_3b:train_4k:single",))
+                ("rwkv6_3b:train_4k:single",),
+                ("llama3_8b:train_4k:single:tuned",))
 DRYRUN_TIMEOUT_S = 600
 # the reference's records of the tensor-parallel cells (llama3-8b as
 # published): TFLOP and temp_size GB a device from
@@ -438,6 +439,17 @@ DRYRUN_ZERO3_TEMP_GB = {"llama3_8b:train_4k:single": 243.0,
                         "llama3_8b:train_4k:multi": 129.0,
                         "llama3_8b:prefill_32k:multi": 291.4}
 DRYRUN_FLOPS_TOL, DRYRUN_TEMP_CUT = 0.05, 4.0
+# the tensor-parallel cells' temp_size GB a device when the steps gathered
+# every weight before the first layer (this script's dry-run phase then):
+# gathering each layer's at the layer may not raise it
+DRYRUN_TP_TEMP_GB = {"llama3_8b:train_4k:single": 34.6,
+                     "llama3_8b:prefill_32k:single": 38.5,
+                     "llama3_8b:train_4k:multi": 18.0,
+                     "llama3_8b:prefill_32k:multi": 20.0}
+# the tuned cells (``config.tune``: "fsdp", remat "dots"): temp_size GB a
+# device at most (the step that gathered the whole model held 155.3), and
+# the all-gathered bytes alive at the peak within ``dryrun.gather_bound``
+DRYRUN_TUNED_TEMP_GB = {"llama3_8b:train_4k:single:tuned": 40.0}
 # llama3-8b's decode_32k on (16, 16): GB all-gathered a device by the step
 # that gathered each cache tensor to its rows, whole along the sequence
 # (the dry-run's figure for that step); the decode step that attends over
@@ -3043,6 +3055,78 @@ def train_path(dev, prof: dict) -> dict:
             "first_batch_after": again, "split_ms": split}
 
 
+def remat_memory(dev) -> dict:
+    """F6's reading: the train path's cut (TRAIN_LAYERS layers, TRAIN_B x
+    TRAIN_S tokens, one model) through the train step's loss and
+    gradients (``lm.loss_fn``, ``torch.autograd.grad``) under remat
+    "dots" and "full", with K4 (chunked) and with the plain ``_sdpa``
+    (dense, its f32 scores materialised): each run's
+    ``max_memory_allocated`` above what was allocated before it (the
+    weights).  "dots" keeps the layers' plain matrix products from the
+    forward (``remat_saved_bytes``) and recomputes the rest: its peak may
+    exceed "full"'s by those products, not by the softmax's score-sized
+    tensors (three (B, H, S, S) tensors a layer, which a dense step that
+    kept them would add)."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import lm
+    cfg = train_config()
+    torch.cuda.empty_cache()
+    model = lm.LM.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       dev).requires_grad_(True)
+    params = model.param_list()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLMData(
+        vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B, seed=0
+    ).batch_at(0).items()}
+    peaks = {}
+    for impl in ("chunked", "dense"):
+        for remat in ("dots", "full"):
+            run = train_config(attn_impl=impl, remat=remat)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = lm.loss_fn(run, model, batch)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            peaks[f"{impl}/{remat}"] = torch.cuda.max_memory_allocated() \
+                - base
+            if not math.isfinite(loss.item()):
+                fail(f"remat memory: {impl} {remat}: loss {loss.item()}")
+            del loss, grads
+    del model, params, batch
+    torch.cuda.empty_cache()
+    saved = remat_saved_bytes(cfg, TRAIN_B * TRAIN_S)
+    scores = 3 * TRAIN_B * cfg.n_heads * TRAIN_S * TRAIN_S * 4 \
+        * cfg.n_layers
+    gb = 1e9
+    print("train: peak memory by remat (F6's reading; llama3-8b, "
+          f"{cfg.n_layers} layers, {TRAIN_B} x {TRAIN_S} tokens, the loss "
+          "and its gradients above the weights): "
+          + ", ".join(f"{k} {v / gb:.3f} GB" for k, v in peaks.items())
+          + f"; the plain products \"dots\" saves {saved / gb:.3f} GB, "
+          f"the dense softmax's score-sized tensors {scores / gb:.3f} GB")
+    for impl in ("chunked", "dense"):
+        extra = peaks[f"{impl}/dots"] - peaks[f"{impl}/full"]
+        if extra > 2 * saved:
+            fail(f"remat memory: {impl}: \"dots\" peaks {extra / gb:.3f} GB "
+                 f"over \"full\", more than twice the {saved / gb:.3f} GB of "
+                 "plain products it saves")
+    print(f"check: train: remat \"dots\" peaks within twice its saved "
+          f"products ({2 * saved / gb:.3f} GB) of \"full\" with K4 and with "
+          "the dense softmax: no score-sized tensor kept")
+    return peaks
+
+
+def remat_saved_bytes(cfg, tokens: int) -> int:
+    """The bytes of the plain matrix products remat "dots" keeps from a
+    dense llama's forward: each layer's q, k, v, o, gate, up and down
+    projections' outputs over ``tokens`` tokens, in the model's dtype."""
+    cols = 2 * cfg.n_heads * cfg.hd + 2 * cfg.n_kv_heads * cfg.hd \
+        + 2 * cfg.d_ff + cfg.d_model
+    return cfg.n_layers * tokens * cols * 2
+
+
 def train_grad_equivalence(dev) -> dict:
     """Part (c): llama3-8b at full width, TRAIN_GRAD_LAYERS layers, f32, on
     1 x TRAIN_GRAD_S tokens: the gradient of every parameter through K4
@@ -3827,8 +3911,9 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
     seed, SHARDED_STEPS steps each, bitwise the same; K4's launches the same
     (here and in the profiling child); the mesh's prefill step bitwise
     ``lm.forward`` and its decode step ``lm.decode_step``
-    (``sharded_decode``); the collective helpers on card tensors; then
-    SHARDED_FAMILIES' training checks.  Returns the ms of each run's
+    (``sharded_decode``); the collective helpers on card tensors; the same
+    llama3-8b under the "fsdp" style; then SHARDED_FAMILIES' training
+    checks.  Returns the ms of each run's
     steps, by run ("single", "sharded")."""
     import torch
     import torch.distributed as dist
@@ -3890,6 +3975,10 @@ def sharded_path(dev, prof: dict, card: str) -> dict:
             del runs, one, many
             torch.cuda.empty_cache()
             sharded_helpers(dev, mesh, cfg)
+            # the ZeRO-3 style: each layer's weights gathered at the layer
+            # (nothing to gather at one rank: the one-device step's ops)
+            fsdp = dataclasses.replace(cfg, parallel_style="fsdp")
+            sharded_train(dev, mesh, fsdp, sharded_launches(fsdp), card)
             for arch in SHARDED_FAMILIES:
                 fcfg = cut_config(arch, SHARDED_LAYERS)
                 b_, s_ = SHARDED_TOKENS.get(arch, (TRAIN_B, TRAIN_S))
@@ -4160,7 +4249,22 @@ def dryrun_cell(cell: str) -> dict:
     from repro_torch.models import lm
 
     t0 = time.perf_counter()
-    if not cell.startswith("sharded"):
+    if cell.endswith(":tuned"):
+        from repro_torch.config import SHAPES, get_config, tune
+        from repro_torch.launch import hlo_analysis
+        from repro_torch.launch import mesh as mesh_mod
+        arch, shape, mesh, _ = cell.split(":")
+        multi = mesh == "multi"
+        cfg = tune(get_config(arch), SHAPES[shape], 512 if multi else 256)
+        with dryrun.dryrun_mesh(*mesh_mod.production_mesh_spec(multi)) as m:
+            traced = dryrun.trace_step(cfg, SHAPES[shape], m)
+            rec = dryrun.record(arch, shape, mesh, cfg, SHAPES[shape], m,
+                                traced)
+            rec["gather_bound"] = dryrun.gather_bound(cfg, m)
+        live = hlo_analysis.live_at_peak(traced.gm)
+        rec["live_gathers"] = live.get("all_gather_into_tensor", 0)
+        rec["style"] = [cfg.parallel_style, cfg.remat]
+    elif not cell.startswith("sharded"):
         arch, shape, mesh = cell.split(":")
         rec = dryrun.dryrun_cell(arch, shape, mesh == "multi")
     else:
@@ -4361,10 +4465,32 @@ def dryrun_phase(prof: dict, sharded_ms: dict, card: str,
             fail(f"dryrun: {cell}: temp_size {temp:.1f} GB, not "
                  f"{DRYRUN_TEMP_CUT} x under the ZeRO-3 step's "
                  f"{DRYRUN_ZERO3_TEMP_GB[cell]}")
+        if temp > DRYRUN_TP_TEMP_GB[cell]:
+            fail(f"dryrun: {cell}: temp_size {temp:.1f} GB, above the "
+                 f"{DRYRUN_TP_TEMP_GB[cell]} of the step that gathered the "
+                 "whole model")
     print(f"check: dryrun: llama3-8b's train_4k and prefill_32k on (16, 16) "
           f"and (2, 16, 16) within {DRYRUN_FLOPS_TOL:.0%} of the reference's "
           f"flops a device, temp_size {DRYRUN_TEMP_CUT} x or more under the "
-          "ZeRO-3 step's")
+          "ZeRO-3 step's and not above the whole-model gather's "
+          + ", ".join(f"{v}" for v in DRYRUN_TP_TEMP_GB.values()) + " GB")
+    for cell, most in DRYRUN_TUNED_TEMP_GB.items():
+        rec = recs[cell]
+        temp = rec["memory"]["temp_size"] / gb
+        print(f"dryrun: {cell} ({', '.join(rec['style'])}): temp_size "
+              f"{temp:.3f} GB (at most {most}); all-gathered bytes alive at "
+              f"the peak {rec['live_gathers'] / gb:.3f} GB, two layers' and "
+              f"those outside the layers {rec['gather_bound'] / gb:.3f} GB")
+        if temp > most:
+            fail(f"dryrun: {cell}: temp_size {temp:.1f} GB, above {most}")
+        if rec["live_gathers"] > rec["gather_bound"]:
+            fail(f"dryrun: {cell}: {rec['live_gathers']} all-gathered bytes "
+                 f"alive at the peak, above two layers' and the rest's "
+                 f"{rec['gather_bound']}")
+    print("check: dryrun: the tuned cells' temp_size within "
+          + ", ".join(f"{k} {v} GB" for k, v in DRYRUN_TUNED_TEMP_GB.items())
+          + "; their live all-gathers at the peak within two layers' "
+          "weights and those outside the layers")
     for cell, before in DRYRUN_DECODE_GATHER_GB.items():
         got = recs[cell]["collective_bytes_per_device"].get(
             "all-gather", 0) / gb
@@ -4862,6 +4988,7 @@ def main() -> int:
     # ---- path 13, train: K4's backward, llama3-8b trained, restarts ------
     bwd_cases = k4_bwd_checks(dev)
     trained = train_path(dev, prof)
+    remat_memory(dev)
     grad_eq = train_grad_equivalence(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
         restart_check(dev, tmp)

@@ -7,6 +7,7 @@ device (flops, HBM bytes and collective bytes by kind, from
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape train_4k --tuned [--remat full]
 
 Results are cached as JSON under build/dryrun/.  No card is needed.
 
@@ -23,13 +24,18 @@ numbers are the port's own step's: under the "tp" style every family's
 train, prefill and decode steps compute on their model shards, as the
 reference's tensor-parallel step does (their flops a device are the
 reference's, or apart from them by products the tests name), the decode
-step on its block of the cache; the "fsdp" and "ep" styles gather every
-weight (ZeRO-3), the "model" axis holding replicas of the batch's work.
+step on its block of the cache; the "fsdp" and "ep" styles gather each
+weight whole (ZeRO-3) and split the batch over every axis.  Every style
+gathers a layer's weights at the layer (``steps``): ``gather_bound`` is
+what a train step's live all-gathered bytes should stay under, and
+``hlo_analysis.live_at_peak`` what they are at the graph's peak.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import math
 import dataclasses
 import json
 import os
@@ -159,6 +165,42 @@ def trace_step(cfg, shape, mesh) -> Traced:
     return Traced(gm, args, step, fake, time.perf_counter() - t0)
 
 
+def gathered_weight_bytes(cfg, mesh) -> dict:
+    """{dotted name: bytes} of each weight as a device of ``mesh`` (a
+    DeviceMesh or a ``(shape, names)`` spec) all-gathers it in ``cfg``'s
+    train or prefill step: the weight whole, or under tensor-parallel
+    compute its model shard; 0 where no collective gathers it."""
+    model, names, pspecs = steps_mod._model_specs(cfg, mesh)
+    split = steps_mod._tensor_parallel(cfg, mesh)
+    sizes = list(mesh_mod.mesh_shape(mesh).values())
+    out = {}
+    for name, p, spec in zip(names, model.param_list(), pspecs):
+        place = sharding.placements(spec, mesh)
+        keep = steps_mod._keep_model([place], mesh, split)[0]
+        moved = any(pl.is_shard() and not k.is_shard() and n > 1
+                    for pl, k, n in zip(place, keep, sizes))
+        kept = math.prod(n for k, n in zip(keep, sizes) if k.is_shard())
+        out[name] = p.numel() * p.element_size() // kept if moved else 0
+    return out
+
+
+def gather_bound(cfg, mesh) -> int:
+    """The all-gathered bytes a train step of ``cfg`` may hold at once
+    when it gathers each layer's weights at the layer: two layers' (the
+    largest layer's twice: one in use, the next arriving) plus every
+    weight outside the layers (the embedding, the head, the norms,
+    PaliGemma's image projection)."""
+    layers: dict = collections.Counter()
+    rest = 0
+    for name, b in gathered_weight_bytes(cfg, mesh).items():
+        part = name.split(".")
+        if part[0] in ("blocks", "encoder"):
+            layers[tuple(part[:2])] += b
+        else:
+            rest += b
+    return 2 * max(layers.values(), default=0) + rest
+
+
 def counted_flops(traced: Traced) -> int:
     """``FlopCounterMode``'s total over the step run again on its FakeTensor
     inputs: torch's own count beside the graph's."""
@@ -200,17 +242,24 @@ def record(arch_id: str, shape_name: str, mesh_name: str, cfg, shape,
 
 
 def dryrun_cell(arch_id: str, shape_name: str, multi_pod: bool,
-                cfg_override=None, *, shape=None, mesh=None) -> dict:
+                cfg_override=None, *, shape=None, mesh=None,
+                gathers: dict | None = None) -> dict:
     """Trace one cell's step and extract its roofline inputs: the
     reference's record (``record``).  ``shape`` (a ``ShapeConfig``) stands
     in for ``SHAPES[shape_name]`` and ``mesh`` (a ``(shape, names)`` pair)
-    for the production mesh, for cells of other sizes.  The fake group
-    lives for the call alone."""
+    for the production mesh, for cells of other sizes.  ``gathers``, a
+    dict, receives the all-gathered bytes alive at the graph's peak
+    ("live", ``hlo_analysis.live_at_peak``) and ``gather_bound``'s
+    ("bound").  The fake group lives for the call alone."""
     cfg = cfg_override or get_config(arch_id)
     shape = shape or SHAPES[shape_name]
     spec = mesh or mesh_mod.production_mesh_spec(multi_pod)
     with dryrun_mesh(*spec) as m:
         traced = trace_step(cfg, shape, m)
+        if gathers is not None:
+            gathers["live"] = hlo_analysis.live_at_peak(traced.gm).get(
+                "all_gather_into_tensor", 0)
+            gathers["bound"] = gather_bound(cfg, m)
         return record(arch_id, shape_name, "multi" if multi_pod else "single",
                       cfg, shape, m, traced)
 
@@ -224,13 +273,17 @@ def main(argv=None, results: str = RESULTS):
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tuned", action="store_true",
                     help="apply config.tune's levers")
+    ap.add_argument("--remat", default=None, choices=["none", "full", "dots"],
+                    help="the remat mode instead of the config's (after "
+                    "--tuned)")
     args = ap.parse_args(argv)
 
     os.makedirs(results, exist_ok=True)
     cells = []
     if args.all:
         for aid, sname, ok, why in all_cells():
-            if args.arch and aid != args.arch:
+            if args.arch and aid != args.arch or \
+                    args.shape and sname != args.shape:
                 continue
             cells.append((aid, sname, ok, why))
     else:
@@ -244,7 +297,8 @@ def main(argv=None, results: str = RESULTS):
     for aid, sname, ok, why in cells:
         for mp in meshes:
             tag = f"{aid}_{sname}_{'multi' if mp else 'single'}" + \
-                ("_tuned" if args.tuned else "")
+                ("_tuned" if args.tuned else "") + \
+                (f"_{args.remat}" if args.remat else "")
             path = os.path.join(results, tag + ".json")
             if os.path.exists(path) and not args.force:
                 print(f"[cached] {tag}")
@@ -262,11 +316,19 @@ def main(argv=None, results: str = RESULTS):
                 t0 = time.time()
                 ovr = tune(get_config(aid), SHAPES[sname],
                            n_chips=512 if mp else 256) if args.tuned else None
-                rec = dryrun_cell(aid, sname, mp, cfg_override=ovr)
+                if args.remat:
+                    ovr = dataclasses.replace(ovr or get_config(aid),
+                                              remat=args.remat)
+                gathers: dict = {}
+                rec = dryrun_cell(aid, sname, mp, cfg_override=ovr,
+                                  gathers=gathers)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1)
                 print(f"[ok]     {tag}: flops/dev={rec['flops_per_device']:.3e} "
                       f"coll={sum(rec['collective_bytes_per_device'].values()):.3e}B "
+                      f"temp={rec['memory']['temp_size']}B "
+                      f"gathers live at the peak={gathers['live']}B "
+                      f"(two layers' + the rest {gathers['bound']}B) "
                       f"({time.time()-t0:.0f}s)")
                 n_ok += 1
             except Exception as e:  # a cell that cannot be traced: its .err

@@ -223,13 +223,12 @@ def analyze(gm: torch.fx.GraphModule, default_trip: int = 1) -> dict:
     return out
 
 
-def peak_live_bytes(gm: torch.fx.GraphModule) -> int:
-    """The most bytes of intermediate results alive at once: each node's
-    new result is alive from its definition to its last use (through the
-    views, ``getitem`` and in-place writes that alias it); the arguments
-    (placeholders) and the graph's outputs are not counted (XLA's
-    ``argument_size`` and ``output_size``).  A higher-order op's node adds
-    its subgraphs' own peaks while it runs."""
+def _lifetimes(gm: torch.fx.GraphModule) -> tuple:
+    """(the nodes, each new result's (first, last) node index and bytes,
+    the per-node extra of subgraphs' peaks): a node's new result is alive
+    from its definition to its last use (through the views, ``getitem``
+    and in-place writes that alias it); the arguments (placeholders) and
+    the graph's outputs are not counted."""
     nodes = list(gm.graph.nodes)
     owners: dict = {}       # node -> the nodes whose buffers it refers to
     size: dict = {}
@@ -257,13 +256,46 @@ def peak_live_bytes(gm: torch.fx.GraphModule) -> int:
     for i, n in enumerate(nodes):
         for _, sub, _ in _subgraphs(gm, n, 1):
             extra[i] += peak_live_bytes(sub)
+    live = {o: (first[o], last[o], b) for o, b in size.items()
+            if o not in outputs}
+    return nodes, live, extra
+
+
+def _peak(gm: torch.fx.GraphModule) -> tuple:
+    """(the peak's bytes, the node index where it is reached, the
+    lifetimes ``_lifetimes`` gives)."""
+    nodes, live, extra = _lifetimes(gm)
     delta = [0] * (len(nodes) + 1)
-    for o, b in size.items():
-        if o not in outputs:
-            delta[first[o]] += b
-            delta[last[o] + 1] -= b
-    peak = live = 0
+    for f, last, b in live.values():
+        delta[f] += b
+        delta[last + 1] -= b
+    peak = at = now = 0
     for i in range(len(nodes)):
-        live += delta[i]
-        peak = max(peak, live + extra[i])
-    return peak
+        now += delta[i]
+        if now + extra[i] > peak:
+            peak, at = now + extra[i], i
+    return peak, at, live
+
+
+def peak_live_bytes(gm: torch.fx.GraphModule) -> int:
+    """The most bytes of intermediate results alive at once: each node's
+    new result is alive from its definition to its last use (through the
+    views, ``getitem`` and in-place writes that alias it); the arguments
+    (placeholders) and the graph's outputs are not counted (XLA's
+    ``argument_size`` and ``output_size``).  A higher-order op's node adds
+    its subgraphs' own peaks while it runs."""
+    return _peak(gm)[0]
+
+
+def live_at_peak(gm: torch.fx.GraphModule) -> dict:
+    """The root graph's results alive at ``peak_live_bytes``' peak, in
+    bytes by the op that made them ("all_gather_into_tensor", "mm",
+    "where", ...): what the peak is made of."""
+    _, at, live = _peak(gm)
+    out: dict = {}
+    for node, (f, last, b) in live.items():
+        if f <= at <= last:
+            name = _packet(node)
+            name = getattr(name, "__name__", str(name))
+            out[name] = out.get(name, 0) + b
+    return out

@@ -35,16 +35,26 @@ saves the layers' plain matrix products and recomputes the rest, "none"
 keeps everything.  K4 and K5 (RWKV) are differentiable on the card
 through their backward kernels (``flash_attention._Attention``,
 ``wkv6._WKV``).
+
+A sharded step (``launch.steps``) builds the model over the rank's shards
+and installs its all-gather (``gathering``): each layer's weights are
+gathered at the layer's entry, inside the function ``_remat`` checkpoints
+(so the backward's recompute gathers them again, as the reference's scan
+body under ``jax.checkpoint`` does), and the embedding, the head, the
+final norm and the encoder's and image projection's tensors where they
+are used.  With none installed a weight is used as it is.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import flash_attention, wkv6
@@ -260,12 +270,48 @@ class LM(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# weights gathered at their use (a sharded step)
+# ---------------------------------------------------------------------------
+
+_GATHER: list = []
+
+
+@contextlib.contextmanager
+def gathering(fn):
+    """Inside, every weight the layers and the model read is ``fn(w)``,
+    taken where it is used: a sharded step's all-gather of the rank's
+    shard (``launch.steps``).  The backward of a layer recomputed under
+    ``_remat`` runs ``fn`` again, so the backward must run inside too."""
+    _GATHER.append(fn)
+    try:
+        yield
+    finally:
+        _GATHER.pop()
+
+
+def _use(w):
+    """A model-level weight (the embedding, the head, a norm) as the
+    installed gathering gives it, or ``w`` itself."""
+    return _GATHER[-1](w) if _GATHER else w
+
+
+def _use_layer(p):
+    """A layer's weights (its nested dicts of parts) as the installed
+    gathering gives them, or ``p`` itself."""
+    if not _GATHER:
+        return p
+    return {k: _use_layer(v) if isinstance(v, (dict, nn.Module))
+            else _GATHER[-1](v) for k, v in p.items()}
+
+
+# ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
 
 def _apply_layer(cfg, spec, p, x, positions, enc_out=None):
     mix, ffn = spec
+    p = _use_layer(p)
     if mix == "attn":
         x = L.attn_forward(cfg, p["mix"], x, positions)
     elif mix == "mla":
@@ -284,13 +330,52 @@ def _apply_layer(cfg, spec, p, x, positions, enc_out=None):
 
 
 # the reference's "dots" policy (checkpoint_dots_with_no_batch_dims): the
-# plain matrix products, which ``x @ w`` becomes, are saved
+# plain matrix products, which ``x @ w`` becomes, are saved; a product with
+# a batch dim (``bmm``: the attention's scores and weighted values) is not
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
-            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+class _SaveDots(TorchDispatchMode):
+    """A "dots" layer's forward: every ``_DOTS`` result is kept (detached,
+    in call order) in ``saved``; nothing else is."""
+
+    def __init__(self, saved: list):
+        super().__init__()
+        self.saved = saved
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _DOTS:
+            self.saved.append(out.detach())
+        return out
+
+
+class _ReuseDots(TorchDispatchMode):
+    """The same layer's recompute in the backward: each ``_DOTS`` call
+    hands back the forward's product (released as it is taken), every other
+    op runs again."""
+
+    def __init__(self, saved: list):
+        super().__init__()
+        self.saved = saved
+        self.taken = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _DOTS:
+            return func(*args, **(kwargs or {}))
+        out, self.saved[self.taken] = self.saved[self.taken], None
+        self.taken += 1
+        return out
+
+
+def _dots_contexts():
+    """``checkpoint``'s (forward, recompute) contexts for "dots".  Not
+    ``create_selective_checkpoint_contexts``: under a proxy mode
+    (``make_fx``, the dry-run) PyTorch's caches every op's result, leaving
+    the partitioning to a compiler, and the traced backward then reads the
+    softmax's score-sized tensors from the forward."""
+    saved: list = []
+    return _SaveDots(saved), _ReuseDots(saved)
 
 
 def _remat(cfg: ArchConfig, fn, *args):
@@ -301,9 +386,8 @@ def _remat(cfg: ArchConfig, fn, *args):
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     if cfg.remat == "dots":
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=(
-            functools.partial(ckpt.create_selective_checkpoint_contexts,
-                              _dots_policy)))
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=_dots_contexts)
     if cfg.remat != "full":
         raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
     return ckpt.checkpoint(fn, *args, use_reentrant=False)
@@ -316,7 +400,7 @@ def backbone(cfg: ArchConfig, model: LM, x, positions, enc_out=None):
     for spec, p in zip(layer_specs(cfg), model.blocks):
         x = _remat(cfg, functools.partial(_apply_layer, cfg, spec), p, x,
                    positions, enc_out)
-    return L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return L.rms_norm(x, _use(model.final_norm), cfg.norm_eps)
 
 
 def encode(cfg: ArchConfig, model: LM, frames):
@@ -326,10 +410,11 @@ def encode(cfg: ArchConfig, model: LM, frames):
     x = _on(frames, model.device).to(model.embed.dtype)
     for p in model.encoder:
         x = _remat(cfg, _encoder_layer, cfg, p, x)
-    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+    return L.rms_norm(x, _use(model.enc_norm), cfg.norm_eps)
 
 
 def _encoder_layer(cfg, p, x):
+    p = _use_layer(p)
     x = L.attn_forward(cfg, p["mix"], x, None, causal=False)
     return L.mlp_forward(cfg, p["ffn"], x)
 
@@ -337,7 +422,7 @@ def _encoder_layer(cfg, p, x):
 def logits_from_hidden(cfg: ArchConfig, model: LM, h):
     """The logits of the hidden states; under a tensor-parallel step whose
     head holds the rank's share of the vocabulary, the rank's columns."""
-    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    head = _use(model.embed).T if cfg.tie_embeddings else _use(model.lm_head)
     ax = tp.split(head.shape[1], cfg.vocab)
     if ax is not None:
         h = tp.enter(h, ax)
@@ -362,8 +447,9 @@ def embed_inputs(cfg: ArchConfig, model: LM, batch):
     enc_out = encode(cfg, model, batch["frames"]) \
         if cfg.family == "encdec" else None
     if cfg.family == "vlm":
-        img = _on(batch["patches"], model.device).to(x.dtype) @ model.img_proj
-        ax = tp.split(model.img_proj.shape[1], cfg.d_model)
+        proj = _use(model.img_proj)
+        img = _on(batch["patches"], model.device).to(x.dtype) @ proj
+        ax = tp.split(proj.shape[1], cfg.d_model)
         if ax is not None:
             img = tp.gather(img, ax)
         x = torch.cat([img, x], dim=1)
@@ -373,9 +459,9 @@ def embed_inputs(cfg: ArchConfig, model: LM, batch):
 def _embed(cfg: ArchConfig, model: LM, tokens):
     """The token embeddings; vocabulary-parallel
     (``tensor_parallel.embed``) where the table holds the rank's rows."""
-    ax = tp.split(model.embed.shape[0], cfg.vocab)
-    return model.embed[tokens] if ax is None else tp.embed(model.embed,
-                                                           tokens, ax)
+    table = _use(model.embed)
+    ax = tp.split(table.shape[0], cfg.vocab)
+    return table[tokens] if ax is None else tp.embed(table, tokens, ax)
 
 
 def _logits(cfg: ArchConfig, model: LM, batch):
@@ -474,6 +560,7 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, device="cuda"):
 
 def _decode_layer(cfg, spec, p, x, cache, pos, enc_out, in_place):
     mix, ffn = spec
+    p = _use_layer(p)
     if mix == "attn":
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos)
     elif mix == "mla":
@@ -502,7 +589,7 @@ def _decode(cfg: ArchConfig, model: LM, cache, batch, in_place: bool):
     for spec, p, c in zip(layer_specs(cfg), model.blocks, cache["blocks"]):
         x, c = _decode_layer(cfg, spec, p, x, c, pos, enc_out, in_place)
         blocks.append(c)
-    h = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    h = L.rms_norm(x, _use(model.final_norm), cfg.norm_eps)
     logits = logits_from_hidden(cfg, model, h)
     ax = tp.split(logits.shape[-1], cfg.vocab)
     return logits if ax is None else tp.gather(logits, ax), \

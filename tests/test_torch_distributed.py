@@ -9,8 +9,12 @@ gemma-7b, rwkv6-3b (its 2 heads split on (1, 2) and (2, 2), whole on
 (1, 4)), deepseek-v2 (MLA, the experts over "model"), kimi-k2, jamba
 (Mamba's channels over "model"), whisper and paligemma on (1, 2), (2, 2)
 and (1, 4) meshes and at (1, 1) in this process, the parameters whole on
-"model" equal across its ranks, the MoE's shared MLP at its own width
-under a model axis, the sharded prefill and decode steps, every family's
+"model" equal across its ranks, the ZeRO-3 styles ("fsdp" on (1, 4) for
+llama3-8b and rwkv6-3b, "ep" on (2, 2) for DeepSeek-V2, "fsdp" over a
+batch its ranks do not split), each layer's gradient reduce-scattered to
+its shard before the layer below's backward starts, the MoE's shared MLP
+at its own width under a model axis, the sharded prefill and decode
+steps, every family's
 decode step on the rank's block of the cache's positions on (2, 2) and
 (1, 4) and at (1, 1), the elastic restore, and the raise where the card
 or NCCL is asked for and missing.
@@ -296,6 +300,21 @@ TP_RUNS = [(m, s) for m in list(TP_MODELS)[:3] for s in ((1, 2), (2, 2))] \
     + [(m, s) for m in list(TP_MODELS)[7:] for s in ((2, 2), (1, 4))]
 
 
+# the ZeRO-3 styles beside the (2, 2) "fsdp" run: (model, mesh, style);
+# "fsdp" shards every weight and the batch over all four ranks of a
+# (1, 4) mesh, "ep" DeepSeek-V2's experts over "model" and its other
+# weights over "data", the batch over both; each layer's weights are
+# gathered whole at the layer
+ZERO_RUNS = [("llama3_8b", (1, 4), "fsdp"), ("rwkv6_3b", (1, 4), "fsdp"),
+             ("deepseek_v2_236b", (2, 2), "ep")]
+# the gradient-order step: the reduced llama3-8b (f32) at 4 layers,
+# "fsdp" on (2, 2)
+ORDER_LAYERS = 4
+# an "fsdp" step on (2, 2) over a batch of 2 rows, which its 4 ranks do
+# not split
+UNSPLIT_B = 2
+
+
 @pytest.fixture(scope="module")
 def tp_references(reference, tmp_path_factory):
     """``_reference`` of each of TP_MODELS (the base llama3-8b's is
@@ -356,6 +375,8 @@ def four_ranks(reference, run_4x2, tp_references):
         0, tcfg.vocab, (4, 16)).astype(np.int32)
     tree = _port_tree(tcfg, reference["tree"])
     tp_jobs, tp_runs = _tp_jobs(tp_references, 4)
+    zero_jobs, zero_runs = _zero_jobs(tp_references)
+    order_cfg = dataclasses.replace(fsdp, n_layers=ORDER_LAYERS)
     shared = _shared_mlp_case()
     decode = {key: _decode_case(*key) for key in DECODE_RUNS}
     ranks = workers.spawn(workers.several, 4,
@@ -366,6 +387,11 @@ def four_ranks(reference, run_4x2, tp_references):
                               ("prefill_decode", (tcfg, (2, 2), tree,
                                                   tokens)),
                               ("shared_mlp", shared), *tp_jobs,
+                              *zero_jobs,
+                              ("gradient_order", (order_cfg, (2, 2), SEQ,
+                                                  B)),
+                              ("unsplit_train", (fsdp, (2, 2), STEPS,
+                                                 UNSPLIT_B, SEQ)),
                               *((f"sharded_decode:{a}:{m}:{b}", (
                                   case["cfg"], m, case["tree"],
                                   case["batches"], DECODE_SMAX))
@@ -376,6 +402,9 @@ def four_ranks(reference, run_4x2, tp_references):
             "prefill": [r["prefill_decode"] for r in ranks],
             "shared_mlp": (shared, [r["shared_mlp"] for r in ranks]),
             "tp": _tp_results(tp_runs, ranks),
+            "zero": _tp_results(zero_runs, ranks),
+            "order": [r["gradient_order"] for r in ranks],
+            "unsplit": (fsdp, [r["unsplit_train"] for r in ranks]),
             "decode": {(a, m, b): (case, [r[f"sharded_decode:{a}:{m}:{b}"]
                                           for r in ranks])
                        for (a, m, b), case in decode.items()}}
@@ -409,6 +438,19 @@ def _tp_jobs(tp_references, world: int):
             continue
         key = f"tp_{name}_{shape[0]}x{shape[1]}"
         (_, args), run = _sharded_job(tp_references[name], key, shape)
+        jobs.append((f"sharded_train:{key}", args))
+        runs[key] = {**run, "reference": tp_references[name]}
+    return jobs, runs
+
+
+def _zero_jobs(tp_references):
+    """The ``sharded_train`` jobs of ZERO_RUNS and their runs'
+    descriptions, as ``_tp_jobs``'."""
+    jobs, runs = [], {}
+    for name, shape, style in ZERO_RUNS:
+        key = f"{style}_{name}_{shape[0]}x{shape[1]}"
+        (_, args), run = _sharded_job(tp_references[name], key, shape,
+                                      parallel_style=style)
         jobs.append((f"sharded_train:{key}", args))
         runs[key] = {**run, "reference": tp_references[name]}
     return jobs, runs
@@ -531,6 +573,74 @@ def test_sharded_train_2x2_fsdp_stores_only_its_share(run_2x2):
 
 
 @pytest.mark.timeout(SPAWN_TIMEOUT)
+@pytest.mark.parametrize("name,shape,style", ZERO_RUNS)
+def test_zero3_styles_match_one_device_and_jax(four_ranks, name, shape,
+                                              style):
+    """Styles "fsdp" on (1, 4) (llama3-8b, rwkv6-3b) and "ep" on (2, 2)
+    (DeepSeek-V2, its experts' blocks over both axes gathered in one
+    all-gather): every layer's weights gathered whole at the layer, each
+    gradient reduce-scattered to its shard in the gather's backward; the
+    losses and norms of the one-device port and of the JAX step, the
+    parameters within the AdamW bound, each rank storing its share."""
+    run = four_ranks["zero"][f"{style}_{name}_{shape[0]}x{shape[1]}"]
+    assert run["cfg"].parallel_style == style
+    _holds_the_reference(run, run["reference"])
+    _stores_its_share(run)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_fsdp_with_a_batch_its_ranks_do_not_split(four_ranks):
+    """"fsdp" on (2, 2) over 2 rows: the batch is not split, each rank
+    computes the whole step, and each gradient, whole on every rank, is
+    cut to the rank's shard (no sum): the one-device losses and gradient
+    norms within LOSS_RTOL."""
+    cfg, ranks = four_ranks["unsplit"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = ttrain.train(cfg, steps=STEPS, batch=UNSPLIT_B, seq=SEQ,
+                           log_every=STEPS, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"],
+                                   rtol=LOSS_RTOL, atol=0)
+        np.testing.assert_allclose(r["grad_norms"], one["grad_norms"],
+                                   rtol=LOSS_RTOL, atol=0)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+def test_each_layers_gradient_reaches_its_shard_before_the_next_layer(
+        four_ranks):
+    """An "fsdp" step on (2, 2) at 4 layers, in the order autograd runs it
+    on every rank: the head's gradient is reduce-scattered (and the final
+    norm's all-reduced) before the last layer's backward starts; between
+    the start of layer i's backward and layer i - 1's, layer i's weights
+    are brought back to their shards, all of them (7 reduce-scattered
+    over both axes, the 2 norms all-reduced), before any layer below
+    runs; the embedding's last.  A step that reduced the gradients after
+    the whole backward would log every reduction after layer 0's start."""
+    for r in four_ranks["order"]:
+        assert r["layers"] == ORDER_LAYERS
+        log = r["log"]
+        starts = [i for i, e in enumerate(log) if e[0] == "layer"]
+        assert [log[i][1] for i in starts] == list(range(ORDER_LAYERS))[
+            ::-1]
+        bounds = [0, *starts, len(log)]
+        groups = [log[a + (a > 0):b] for a, b in zip(bounds, bounds[1:])]
+        assert all(e[0] == "reduce" for g in groups for e in g)
+        head, *layers = groups
+        assert [(e[2], e[3]) for e in head] == [((0, 1), ()), ((), (0, 1))]
+        last = layers.pop()
+        assert [(e[2], e[3]) for e in last[-1:]] == [((0, 1), ())]
+        layers.append(last[:-1])
+        for g in layers:
+            assert sorted((e[2], e[3]) for e in g) == sorted(
+                [((0, 1), ())] * 7 + [((), (0, 1))] * 2)
+            assert len({e[1] for e in g}) >= 5
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
 @pytest.mark.parametrize("name,shape", TP_RUNS)
 def test_tensor_parallel_train_matches_one_device_and_jax(tp_runs, name,
                                                           shape):
@@ -597,10 +707,12 @@ def test_shared_mlp_takes_its_width_from_the_moe_layer(four_ranks, case):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def _one_rank_is_bitwise(reference, tmp_path):
+def _one_rank_is_bitwise(reference, tmp_path, style="tp"):
     """At one rank (a (1, 1) gloo mesh in this process) the
-    tensor-parallel step runs the one-device step's ops in the same order:
-    losses, gradient norms, parameters and moments bitwise."""
+    tensor-parallel step (or ``style``'s) runs the one-device step's ops
+    in the same order: losses, gradient norms, parameters and moments
+    bitwise."""
+    cfg = dataclasses.replace(reference["cfg"], parallel_style=style)
     ckpt = str(tmp_path / "ckpt")
     shutil.copytree(reference["root"] / "zero", ckpt)
     tmesh.init_distributed("cpu", rank=0, world_size=1,
@@ -609,8 +721,8 @@ def _one_rank_is_bitwise(reference, tmp_path):
     torch.set_num_threads(1)        # as the one-device run
     try:
         mesh = tmesh.make_test_mesh(1, 1, device="cpu")
-        assert tsteps._tensor_parallel(reference["cfg"], mesh)
-        got = ttrain.train(reference["cfg"], steps=STEPS, batch=B, seq=SEQ,
+        assert tsteps._tensor_parallel(cfg, mesh) == (style == "tp")
+        got = ttrain.train(cfg, steps=STEPS, batch=B, seq=SEQ,
                            ckpt_dir=ckpt, device="cpu", mesh=mesh)
     finally:
         torch.set_num_threads(threads)
@@ -628,6 +740,17 @@ def test_tensor_parallel_train_1x1_is_the_one_device_step_bitwise(
         reference, tmp_path):
     """The reduced llama3-8b: ``_one_rank_is_bitwise``."""
     _one_rank_is_bitwise(reference, tmp_path)
+
+
+@pytest.mark.timeout(SPAWN_TIMEOUT)
+@pytest.mark.parametrize("name,style", [("llama3_8b", "fsdp"),
+                                        ("rwkv6_3b", "fsdp"),
+                                        ("deepseek_v2_236b", "ep")])
+def test_zero3_train_1x1_is_the_one_device_step_bitwise(
+        tp_references, tmp_path, name, style):
+    """The "fsdp" and "ep" styles at one rank: nothing to gather, the
+    one-device step's ops (``_one_rank_is_bitwise``)."""
+    _one_rank_is_bitwise(tp_references[name], tmp_path, style)
 
 
 @pytest.mark.timeout(SPAWN_TIMEOUT)

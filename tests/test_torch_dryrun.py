@@ -8,11 +8,17 @@ train, prefill and decode steps split their work over both axes, their
 (2, 2) flops equal to the reference's compiled step's, or apart from it by
 named products (``_xla_model_splits``, ``_one_device_gap``); RWKV-6's
 heads made whole where they do not divide the model axis; all-gather
-bytes (no cache tensor gathered) and the arguments' bytes follow the
-specs; K4 and K5 appear as operator nodes; no process group is left
+bytes (each weight once where used, a layer's again in a train step's
+remat recompute; no cache tensor gathered) and the arguments' bytes
+follow the specs; the "fsdp" step gathers each layer's weights where the
+reference's compiled scan bodies do; under remat "dots" no score-sized
+forward tensor reaches the backward; at every tuned train step's peak
+the live all-gathers stay within two layers' weights and those outside
+the layers; K4 and K5 appear as operator nodes; no process group is left
 behind; ``main`` writes, caches, skips and records failures as the
 reference's does.  Beside it, the kernels' operators: on CPU tensors the
 plain versions bitwise, and the card raised for where there is none."""
+import collections
 import dataclasses
 import functools
 import json
@@ -33,13 +39,15 @@ from repro.launch import hlo_analysis as jha
 from repro.launch import steps as jax_steps
 from repro.models import api as jax_api
 from repro.models import lm as jax_lm
-from repro_torch.config import ShapeConfig, get_config
+from repro_torch.config import ShapeConfig, get_config, tune
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.launch import dryrun
 from repro_torch.launch import steps
 from repro_torch.models import lm
+from repro_torch.launch import hlo_analysis
 from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import P
 
 # the reference's record (``repro.launch.dryrun.dryrun_cell``), key by key
 REFERENCE_KEYS = ["arch", "shape", "mesh", "n_devices", "flops_per_device",
@@ -253,6 +261,36 @@ for arch, kind, d, m, remat in json.loads(sys.argv[1]):
     out[f"{arch}:{kind}:{d}x{m}:{remat}"] = hlo_analysis.analyze(text)["flops"]
 print(json.dumps(out))
 """ % (S, B)
+# the reference's reduced llama3-8b "fsdp" train step (dense attention,
+# remat "full") compiled as ``_REFERENCE_CELLS`` compiles its cells: the
+# ``all-gather`` instructions of its HLO text counted by computation (the
+# reference's analyzer reports no all-gather bytes for this cell), the trip
+# count of each while loop's body, and the entry computation's name
+_REFERENCE_GATHERS = r"""
+import dataclasses, json, re, sys
+from repro.launch import dryrun
+import jax
+from jax.sharding import AxisType
+from repro import config
+S, B = json.loads(sys.argv[1])
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2, devices=jax.devices()[:4])
+cfg = dataclasses.replace(config.get_config("llama3_8b", reduced=True),
+                          attn_impl="dense", parallel_style="fsdp")
+text = dryrun._compile_cell(cfg, config.ShapeConfig("t", "train", S, B),
+                            mesh).as_text()
+gathers, comp, entry = {}, None, None
+for line in text.splitlines():
+    m = re.match(r"^(ENTRY )?%(\S+) .*\{$", line)
+    if m:
+        comp = m.group(2)
+        entry = comp if m.group(1) else entry
+    elif re.search(r"\ball-gather(-start)?\(", line):
+        gathers[comp] = gathers.get(comp, 0) + 1
+trips = {m.group(1): int(m.group(2)) for m in re.finditer(
+    r'while\(.*?body=%(\S+?),.*?"known_trip_count":\{"n":"(\d+)"', text)}
+print(json.dumps({"gathers": gathers, "trips": trips, "entry": entry}))
+"""
 TP_ARCHS = ("llama3_8b", "gemma_7b", "deepseek_v2_236b", "kimi_k2_1t_a32b",
             "jamba_1_5_large_398b", "whisper_small", "paligemma_3b")
 TP_CELLS = [(a, k) for a in TP_ARCHS for k in KINDS]
@@ -260,15 +298,18 @@ TP_CELLS = [(a, k) for a in TP_ARCHS for k in KINDS]
 GAP_CELLS = [("jamba_1_5_large_398b", "train", 1, 1, r)
              for r in ("full", "none")]
 # the children's share of the cells, the three slowest (Jamba's train
-# steps, ~30-50 s each) one a child
+# steps, ~30-50 s each) one a child; a fourth child compiles the "fsdp"
+# cell of _REFERENCE_GATHERS, its record under FSDP_GATHERS
 _CHILDREN = 3
+FSDP_GATHERS = "llama3_8b:train:2x2:fsdp:all-gathers"
 
 
 @pytest.fixture(scope="session")
 def reference_cells():
     """{"arch:kind:dxm:remat": the reference's flops a device} of TP_CELLS
     on (2, 2) and of GAP_CELLS, from ``_CHILDREN`` child processes run
-    side by side, all within one deadline of 270 s."""
+    side by side, and beside them the all-gathers of _REFERENCE_GATHERS'
+    cell (under FSDP_GATHERS), all within one deadline of 270 s."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(root, "src"))
@@ -279,14 +320,18 @@ def reference_cells():
         [sys.executable, "-c", _REFERENCE_CELLS,
          json.dumps(cells[i::_CHILDREN])], env=env, cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for i in range(_CHILDREN)]
+        for i in range(_CHILDREN)] + [subprocess.Popen(
+            [sys.executable, "-c", _REFERENCE_GATHERS, json.dumps([S, B])],
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)]
     out, deadline = {}, time.monotonic() + 270
     try:
-        for child in children:
+        for i, child in enumerate(children):
             stdout, stderr = child.communicate(
                 timeout=max(1.0, deadline - time.monotonic()))
             assert child.returncode == 0, stderr[-3000:]
-            out.update(json.loads(stdout.strip().splitlines()[-1]))
+            got = json.loads(stdout.strip().splitlines()[-1])
+            out.update(got if i < _CHILDREN else {FSDP_GATHERS: got})
     finally:
         for child in children:
             child.kill()
@@ -370,15 +415,32 @@ def _sharded_sizes(spec, sizes):
             and any(a in sharding._axes(e) for e in spec)]
 
 
+def _gathers_a_step(cfg, kind, name) -> int:
+    """How often a step gathers weight ``name``: where it is used (the
+    embedding twice where the head is the embedding; a VLM's image
+    projection not in a decode step, which takes no patches), a layer's
+    weights once more in a train step's backward, whose remat recompute
+    gathers them again as the reference's scan body under
+    ``jax.checkpoint`` does."""
+    layer = name.split(".")[0] in ("blocks", "encoder")
+    uses = 2 if name == "embed" and cfg.tie_embeddings else 1
+    if name == "img_proj" and kind == "decode":
+        return 0
+    again = kind == "train" and cfg.remat != "none" and layer
+    return uses * (2 if again else 1)
+
+
 @pytest.mark.parametrize("arch,impl,kind,mesh", CELLS)
 def test_all_gather_bytes_follow_the_parameter_specs(arch, impl, kind,
                                                      mesh):
-    """Every weight is gathered one mesh axis at a time, each gather's
-    result the tensor over the axes gathered so far.  The tensor-parallel
-    steps gather over the data axes only, keeping each weight's model
-    shard: a weight sharded over "data" (n) and "model" (m) moves full / m
-    (a decode step whose cache positions lie on "model" gathers MLA's
-    ``wukv`` whole).  Beside the weights, only activations are gathered
+    """Every weight is gathered in one all-gather over the axes its spec
+    shards it over (their flattened group where there are several), its
+    result the weight as the step uses it, each time a layer or the model
+    reads it (``_gathers_a_step``).  The tensor-parallel steps gather over
+    the data axes only, keeping each weight's model shard: a weight
+    sharded over "data" (n) and "model" (m) moves full / m (a decode step
+    whose cache positions lie on "model" gathers MLA's ``wukv`` whole).
+    Beside the weights, only activations are gathered
     (``_activation_gathers``): no cache tensor."""
     cfg = _cfg(arch, impl)
     _, (pspecs, *_), _, abstract = steps.build(cfg, _shape(kind),
@@ -388,16 +450,165 @@ def test_all_gather_bytes_follow_the_parameter_specs(arch, impl, kind,
         cfg)).named_parameters()]
     want = 0
     for name, p, spec in zip(names, abstract[0], pspecs):
-        ns = _sharded_sizes(spec, sizes)
         full = p.numel() * p.element_size()
         if not (kind == "decode" and name.endswith(".wukv")):
-            model = _sharded_sizes(spec, {"model": sizes["model"]})
-            full //= math.prod(model)
-            ns = _sharded_sizes(spec, {"data": sizes["data"]})
-        want += sum(full // math.prod(ns[:j]) for j in range(len(ns)))
+            full //= math.prod(_sharded_sizes(spec, {"model":
+                                                     sizes["model"]}))
+            spec = P(*(tuple(a for a in sharding._axes(e) if a != "model")
+                       or None for e in spec))
+        if _sharded_sizes(spec, sizes):
+            want += full * _gathers_a_step(cfg, kind, name)
     want += _activation_gathers(cfg, kind, sizes)
     rec, _ = _cell(arch, impl, kind, mesh)
     assert rec["collective_bytes_per_device"].get("all-gather", 0) == want
+
+
+# a node of this shape marks the forward's end in a traced train step
+# (``_marked_trace``)
+MARK = (3, 5, 7, 11)
+
+
+def _marked_trace(monkeypatch, cfg, kind, mesh):
+    """(the traced step's nodes, the index of the node that marks the end
+    of the forward, the graph's placeholders): ``lm.loss_terms`` makes a
+    node of shape MARK after the loss, before the step's backward."""
+    terms = lm.loss_terms
+
+    def marked(*args, **kw):
+        total, count = terms(*args, **kw)
+        total.new_zeros(MARK)
+        return total, count
+    monkeypatch.setattr(lm, "loss_terms", marked)
+    with dryrun.dryrun_mesh(*{**MESHES, **MORE_MESHES}[mesh]) as m:
+        tr = dryrun.trace_step(cfg, _shape(kind), m)
+    nodes = list(tr.gm.graph.nodes)
+    cut = [i for i, n in enumerate(nodes)
+           if tuple(getattr(n.meta.get("val"), "shape", ())) == MARK]
+    assert len(cut) == 1
+    return nodes, cut[0], [n for n in nodes if n.op == "placeholder"]
+
+
+def _gathered_weights(nodes, cut: int, holders: list, names: list):
+    """(forward, backward): Counters of the weights (dotted names) the
+    all-gathers before and after ``cut`` gather, each traced back through
+    the single-input nodes (views, copies) to the placeholder of its
+    shard; the placeholders begin with the parameters in ``names``'
+    order."""
+    fwd, bwd = collections.Counter(), collections.Counter()
+    for i, n in enumerate(nodes):
+        if str(n.target) != "_c10d_functional.all_gather_into_tensor." \
+                "default":
+            continue
+        src = n.all_input_nodes[0]
+        while src.op != "placeholder" and len(src.all_input_nodes) == 1:
+            src = src.all_input_nodes[0]
+        at = holders.index(src) if src.op == "placeholder" else None
+        name = names[at] if at is not None and at < len(names) else None
+        (fwd if i < cut else bwd)[name] += 1
+    return fwd, bwd
+
+
+@pytest.mark.timeout(300)
+def test_fsdp_gathers_each_layer_where_the_reference_scan_does(
+        reference_cells, monkeypatch):
+    """The reference's reduced llama3-8b "fsdp" train step, compiled: every
+    all-gather of its HLO but the embedding's and the head's (the entry
+    computation's) lies in the forward's and the backward's scan bodies,
+    whose trip count is the layer count, the same number in each (7 + 7 +
+    2 at 2 layers).  The port's traced step gathers the same pattern:
+    each layer's gathered weights (as many as a scan body gathers) once in
+    the forward and once in the backward's remat recompute, the embedding
+    and the head once, in the forward."""
+    ref = reference_cells[FSDP_GATHERS]
+    cfg = dataclasses.replace(_cfg("llama3_8b", "dense"),
+                              parallel_style="fsdp")
+    L = cfg.n_layers
+    bodies = {b: n for b, n in ref["gathers"].items()
+              if ref["trips"].get(b) == L}
+    entry = ref["gathers"].get(ref["entry"], 0)
+    assert len(bodies) == 2 and len(set(bodies.values())) == 1
+    assert sum(ref["gathers"].values()) == sum(bodies.values()) + entry
+    per_body = next(iter(bodies.values()))
+    assert (per_body, entry) == (7, 2)
+    names = [n for n, _ in lm.LM(cfg, steps.abstract_params(
+        cfg)).named_parameters()]
+    nodes, cut, holders = _marked_trace(monkeypatch, cfg, "train", "2x2")
+    fwd, bwd = _gathered_weights(nodes, cut, holders, names)
+    assert None not in fwd and None not in bwd
+    for i in range(L):
+        mine = {n: c for n, c in fwd.items()
+                if n.startswith(f"blocks.{i}.")}
+        assert len(mine) == per_body and set(mine.values()) == {1}
+        assert {n: c for n, c in bwd.items()
+                if n.startswith(f"blocks.{i}.")} == mine
+    rest = {n: c for n, c in fwd.items() if not n.startswith("blocks.")}
+    assert rest == {"embed": 1, "lm_head": 1} and sum(rest.values()) == entry
+    assert all(n.startswith("blocks.") for n in bwd)
+
+
+# the families with attention scores: dense, MLA, Jamba's attention layer,
+# Whisper's self and cross attention, PaliGemma's prefix
+SCORE_ARCHS = ("llama3_8b", "gemma_7b", "deepseek_v2_236b",
+               "jamba_1_5_large_398b", "whisper_small", "paligemma_3b")
+
+
+@pytest.mark.parametrize("arch", SCORE_ARCHS)
+def test_dots_backward_reads_no_score_sized_forward_tensor(arch,
+                                                           monkeypatch):
+    """Remat "dots" saves only the plain matrix products, as the
+    reference's ``checkpoint_dots_with_no_batch_dims``: in the traced train
+    step (dense attention) no (B, H, S, T) tensor made in the forward (the
+    scores, the softmax's ``where``, ``exp`` and ``div``, the mask) is read
+    after it; the backward recomputes them.  PyTorch's selective
+    checkpoint under ``make_fx`` caches every op's result, and its traced
+    backward read them (ROADMAP's F6)."""
+    cfg = dataclasses.replace(_cfg(arch, "dense"), remat="dots")
+    nodes, cut, _ = _marked_trace(monkeypatch, cfg, "train", "1x1")
+    at = {n: i for i, n in enumerate(nodes)}
+    lengths = {S, S + cfg.n_img_tokens if cfg.family == "vlm" else S,
+               cfg.enc_seq if cfg.family == "encdec" else S}
+    kept = [n for n in nodes[:cut]
+            if isinstance(n.meta.get("val"), torch.Tensor)
+            and n.meta["val"].dim() == 4
+            and n.meta["val"].shape[0] == B
+            and set(n.meta["val"].shape[2:]) <= lengths
+            and any(at[u] > cut for u in n.users)]
+    assert not kept, [(n.target, tuple(n.meta["val"].shape)) for n in kept]
+
+
+# every family's train step as ``config.tune`` picks it for 4 devices
+# ("fsdp" where the model has no experts, else "tp"; remat "dots"), with
+# more layers than two, so that two layers' weights are not all of them
+TUNED_ARCHS = ("llama3_8b", "gemma_7b", "rwkv6_3b", "deepseek_v2_236b",
+               "kimi_k2_1t_a32b", "jamba_1_5_large_398b", "whisper_small",
+               "paligemma_3b")
+
+
+def _tuned(arch):
+    cfg = _cfg(arch, "dense")
+    more = {"dense": dict(n_layers=4), "ssm": dict(n_layers=4),
+            "vlm": dict(n_layers=4), "encdec": dict(n_layers=4,
+                                                    n_enc_layers=4),
+            "moe": dict(n_layers=cfg.dense_prefix_layers + 3)}
+    cfg = dataclasses.replace(cfg, **more.get(cfg.family, {}))
+    return tune(cfg, _shape("train"), n_chips=4)
+
+
+@pytest.mark.parametrize("arch", TUNED_ARCHS)
+def test_live_gathers_at_the_peak_stay_within_two_layers(arch):
+    """At the traced train step's peak of live bytes the all-gathered
+    weights alive are at most two layers' plus those outside the layers
+    (``dryrun.gather_bound``), fewer than the whole model's: each layer's
+    weights are gathered at the layer and dropped after it."""
+    cfg = _tuned(arch)
+    assert cfg.remat == "dots" and cfg.parallel_style == (
+        "tp" if cfg.moe else "fsdp")
+    with dryrun.dryrun_mesh(*MESHES["2x2"]) as m:
+        tr = dryrun.trace_step(cfg, _shape("train"), m)
+        bound = dryrun.gather_bound(cfg, m)
+        whole = sum(dryrun.gathered_weight_bytes(cfg, m).values())
+    live = hlo_analysis.live_at_peak(tr.gm).get("all_gather_into_tensor", 0)
+    assert live <= bound < whole, (live, bound, whole)
 
 
 def _activation_gathers(cfg, kind, sizes) -> int:

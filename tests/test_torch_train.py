@@ -293,10 +293,14 @@ def test_watchdog_flags_stragglers_and_fires():
 # loss_fn and every gradient, family by family
 # ---------------------------------------------------------------------------
 
+# remat "dots" on both sides too: the port saves the plain matrix products
+# alone, as the reference's checkpoint_dots_with_no_batch_dims
 FAMILIES = [("llama3_8b", {}), ("llama3_8b", {"attn_impl": "chunked"}),
             ("rwkv6_3b", {}), ("deepseek_v2_236b", {}),
             ("jamba_1_5_large_398b", {}), ("whisper_small", {}),
-            ("paligemma_3b", {})]
+            ("paligemma_3b", {}), ("llama3_8b", {"remat": "dots"}),
+            ("llama3_8b", {"attn_impl": "chunked", "remat": "dots"}),
+            ("whisper_small", {"remat": "dots"})]
 # families whose JAX side (its ``init_params``, the trace and the compile
 # of its gradient: ~20 s alone, ~100 s beside 5 busy workers, jitted init
 # or not, against the port's ~1 s) a child process computes while the

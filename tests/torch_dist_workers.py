@@ -284,3 +284,59 @@ def shared_mlp(rank, out, cfg, layer, x):
         except ValueError as e:
             res[name] = str(e)
     return res
+
+
+def gradient_order(rank, out, cfg, mesh_shape, seq, batch):
+    """One train step of ``build_train_step(cfg, shape, mesh)`` from seed
+    0's weights, logging in order when each layer's backward starts (a
+    hook on the layer's output, ("layer", its index)) and each weight's
+    gradient is brought back to its shard (("reduce", the gathered
+    gradient's shape, the mesh dims reduce-scattered over, those
+    all-reduced over)).  Returns the log and the layers' count."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import train_data
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    mesh = tmesh.make_test_mesh(*mesh_shape, device="cpu")
+    model = lm.LM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    step, (pspecs, ospecs, bspecs), _, _ = steps_mod.build_train_step(
+        cfg, ShapeConfig("t", "train", seq, batch), mesh)
+    params = steps_mod.shard_list(model.param_list(), pspecs, mesh)
+    opt = adamw_init(model.param_list())
+    opt = {"m": steps_mod.shard_list(opt["m"], ospecs["m"], mesh),
+           "v": steps_mod.shard_list(opt["v"], ospecs["v"], mesh),
+           "count": opt["count"]}
+    log, order = [], []
+    apply, reduce = lm._apply_layer, steps_mod._reduce_gradient
+
+    def spy_layer(cfg_, spec, p, x, *args):
+        y = apply(cfg_, spec, p, x, *args)
+        if id(p) not in order:
+            order.append(id(p))
+        i = order.index(id(p))
+        y.register_hook(lambda g: log.append(("layer", i)))
+        return y
+
+    def spy_reduce(g, plan):
+        log.append(("reduce", tuple(g.shape), plan.dims, plan.summed))
+        return reduce(g, plan)
+    lm._apply_layer, steps_mod._reduce_gradient = spy_layer, spy_reduce
+    try:
+        step(params, opt, steps_mod.local_batch(
+            train_data(cfg, seq, batch, 0).batch_at(0), bspecs, mesh,
+            "cpu"))
+    finally:
+        lm._apply_layer, steps_mod._reduce_gradient = apply, reduce
+    return {"log": log, "layers": len(order)}
+
+
+def unsplit_train(rank, out, cfg, mesh_shape, steps, batch, seq):
+    """``launch.train.train`` from seed 0 on a (data, model) mesh of
+    ``mesh_shape`` whose ranks outnumber ``batch``: the batch is not
+    split, every rank computes the whole step; its losses and norms."""
+    from repro_torch.launch import train
+    mesh = tmesh.make_test_mesh(*mesh_shape, device="cpu")
+    r = train.train(cfg, steps=steps, batch=batch, seq=seq, log_every=steps,
+                    device="cpu", mesh=mesh)
+    return {"losses": r["losses"], "grad_norms": r["grad_norms"]}

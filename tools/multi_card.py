@@ -19,6 +19,9 @@ On N ranks (N even) it checks, and times on the card:
 * each model of ``--arch`` (a comma-separated list; default llama3-8b)
   at its published widths cut to ``--layers`` layers by
   ``chip_smoke.cut_config`` (``--dtype``, bf16 by default; remat "full";
+  ``--style`` its parallel style, "tp" by default: under "fsdp" and "ep"
+  each layer's weights are gathered whole at the layer, and the batch
+  splits over every axis, so ``--batch`` should divide the ranks;
   DeepSeek-V2's 2 layers its dense first layer and one MoE layer; Jamba
   on TOKENS' 2 x 256 tokens; ``--reduced``: the reduced configs) trained
   ``--steps`` steps
@@ -27,7 +30,9 @@ On N ranks (N even) it checks, and times on the card:
   (1, N), the tensor-parallel step: the model axis splits the heads, FFN
   and channel-mix columns, Mamba's channels, the routed experts and the
   vocabulary; against
-  the one-device step on rank 0 from the same weights and batches: the
+  the one-device step on rank 0 from the same weights and batches (each
+  rank's peak memory printed, and with ``--beside`` beside a record of
+  the same command run on another tree by ``MULTI_CARD_SRC``): the
   losses (the first steps' learning rates are 0 and 3e-6, so the losses
   differ by rounding alone) within LOSS_RTOL, the global gradient norms
   (which a gradient doubled or dropped on the model axis moves, whatever
@@ -73,7 +78,10 @@ import torch
 import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+# the package under test: this checkout's, or another tree's (the parent
+# commit unpacked, to hold this tool's numbers beside its)
+SRC = os.environ.get("MULTI_CARD_SRC", os.path.join(ROOT, "src"))
+sys.path[:0] = [SRC, ROOT]
 
 import chip_smoke  # noqa: E402
 
@@ -360,14 +368,21 @@ def sharded(cfg, dev, shape: tuple, args, calls, routes, out: dict,
         d = mesh.get_coordinate()[0]
         routes.update(mode="feed" if fed else "compare", fed=0,
                       differ=None, rows=slice(d * g, (d + 1) * g))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     res = train.train(cfg, steps=args.steps, batch=batch, seq=seq,
                       log_every=1, seed=0, device=dev, mesh=mesh)
     routes["mode"] = "off"
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, dict(calls))
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 1e9
+                           if dev.type == "cuda" else None)
     rec = {"mesh": mesh_mod.describe(mesh), "losses": res["losses"],
            "grad_norms": res["grad_norms"],
-           "ms": [s * 1e3 for s in res["step_s"]], "kernel_calls": every}
+           "ms": [s * 1e3 for s in res["step_s"]], "kernel_calls": every,
+           "peak_gb": peaks}
     how, routed, all_fed = "", "", True
     if fed:
         all_fed = routes["fed"] == len(routes["log"])
@@ -408,9 +423,10 @@ def sharded(cfg, dev, shape: tuple, args, calls, routes, out: dict,
 def model_config(arch: str, args):
     """``arch`` cut to ``--layers`` layers by ``chip_smoke.cut_config``
     (``--reduced``: the reduced config, its experts all kept), in
-    ``--dtype``."""
+    ``--dtype``, under the parallel style ``--style``."""
     return dataclasses.replace(chip_smoke.cut_config(
-        arch, args.layers, args.reduced), dtype=args.dtype)
+        arch, args.layers, args.reduced), dtype=args.dtype,
+        parallel_style=args.style)
 
 
 def decode_batches(cfg, args, dev) -> list:
@@ -572,6 +588,11 @@ def model_runs(arch: str, dev, meshes, args, calls, routes) -> dict:
               + "".join(f"; on {r['mesh']}, routing fed, " + ", ".join(
                   f"{x:.2f}" for x in r["ms"]) for r in rec.get("fed", [])),
               flush=True)
+        for r in rec["sharded"]:
+            if r["peak_gb"][0] is not None:
+                print(f"memory: {cfg.name}, {cfg.parallel_style}, on "
+                      f"{r['mesh']}: peak GB by rank " + ", ".join(
+                          f"{x:.3f}" for x in r["peak_gb"]), flush=True)
         for name, r in [("one-device", one),
                         *((r_["mesh"], r_) for r_ in rec["sharded"])]:
             if "profile" in r:
@@ -611,6 +632,24 @@ def dryrun_records(rec: dict, args, meshes) -> None:
                   f"{x:.2f}" for x in r["ms"]), flush=True)
 
 
+def peaks_beside(out: dict, path: str) -> None:
+    """Each model's mesh runs' peak GB by rank beside those of the record
+    at ``path`` (the same command on another tree), matched by model and
+    mesh."""
+    with open(path) as f:
+        other = {(m["arch"], r["mesh"]): r.get("peak_gb")
+                 for m in json.load(f)["models"] for r in m["sharded"]}
+    for m in out["models"]:
+        for r in m["sharded"]:
+            was = other.get((m["arch"], r["mesh"]))
+            if r["peak_gb"][0] is None or not was or was[0] is None:
+                continue
+            print(f"memory: {m['arch']} on {r['mesh']}: peak GB by rank "
+                  + ", ".join(f"{a:.3f} (was {b:.3f}, {a - b:+.3f})"
+                              for a, b in zip(r["peak_gb"], was)),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
@@ -627,6 +666,14 @@ def main(argv=None) -> int:
     ap.add_argument("--decode", default="",
                     help="comma-separated archs whose decode step to check")
     ap.add_argument("--decode-len", type=int, default=4096)
+    ap.add_argument("--style", default="tp", choices=["tp", "fsdp", "ep"],
+                    help="the trained models' parallel style")
+    ap.add_argument("--json", default=None,
+                    help="also write rank 0's JSON record to this file")
+    ap.add_argument("--beside", default=None,
+                    help="a --json record of the same command on another "
+                    "tree (MULTI_CARD_SRC): each rank's peak memory "
+                    "printed beside its")
     args = ap.parse_args(argv)
     dev = mesh_mod.init_distributed(args.device)
     rank, n = dist.get_rank(), dist.get_world_size()
@@ -656,7 +703,12 @@ def main(argv=None) -> int:
     if rank == 0:
         for rec in out["models"]:
             dryrun_records(rec, args, meshes)
+        if args.beside:
+            peaks_beside(out, args.beside)
         print(json.dumps(out), flush=True)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(out, f)
     failed = out.get("failed", []) + [
         f for rec in out["models"] + out["decode"]
         for f in rec.get("failed", [])]
